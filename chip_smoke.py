@@ -1,0 +1,439 @@
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
+against its plain PyTorch version on the card, checks that the card serves
+the same counters as the CPU, then drives the port's main path at the full
+widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs):
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: nvcc for sm_90a, with the build seconds;
+3. kernels vs plain on the card at the serve and forward shapes, fp32 and
+   bf16, D in {16, 128}: the row gathers bit-exact, the pooled gather
+   within fp32 rtol 1e-5; each timed beside its byte bound;
+4. serve parity: the golden-trace fixture through ``serve_trace`` on the
+   CPU and on the card, ``lru`` and ``recmg`` (frequency model): counters
+   identical, logits within fp32 rtol/atol 1e-4 (the two devices sum in
+   different orders);
+5. full-width serve, ``lru`` and ``recmg``: ``rows_per_table`` cut to 4096
+   (a 72,704-row host table is 31.9 GB of fp32, drawn as 64 GB of float64
+   first), 8 batches of 32 queries (547,840 ids each), capacity 0.2 of the
+   unique ids;
+6. full-width ``dlrm_forward`` with the 856 full-size tables (72,704 rows,
+   15.9 GB of bf16) in device memory and B=256 (cut from the 6,144 of
+   ``infer_6k``: the (B, 857, 857) fp32 interaction alone is 18 GB there),
+   against the plain lookup on the card.
+
+Each phase prints one JSON line; any failure exits nonzero.  The line
+before the last lists every kernel of the main path with its launches,
+error, times and bound; the last line is the result.  Imports nothing of
+JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.recmg import frequency_outputs  # noqa: E402
+from repro_torch.core.trace import TraceGenConfig, generate_trace  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import embedding_gather as eg  # noqa: E402
+from repro_torch.launch.serve import _dense_forward, serve_trace  # noqa: E402
+from repro_torch.models.dlrm import dlrm_forward, init_dlrm  # noqa: E402
+
+# H100 SXM peaks (NVIDIA's data sheet): device-memory rate and fp32 rate
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+CU_SOURCE = "src/repro_torch/kernels/csrc/embedding_gather.cu"
+TPU_GATHER_ROWS = "src/repro/kernels/embedding_gather.py:87"
+TPU_GATHER_POOL = "src/repro/kernels/embedding_gather.py:113"
+SERVE_KEYS = ("batches", "lookups", "hits", "misses", "prefetch_hits",
+              "on_demand_rows", "evictions", "on_demand_stall_ms",
+              "modeled_fetch_ms_per_batch")
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+class Timer:
+    """Median device time of ``fn`` over ``reps`` launches, timed with CUDA
+    events, with the 50 MB L2 cache flushed before each one (the serving
+    path finds its tables cold)."""
+
+    def __init__(self, reps: int = 20):
+        self.reps = reps
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        for _ in range(2):
+            fn()
+        pairs = []
+        for _ in range(self.reps):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def n_distinct(t: torch.Tensor) -> int:
+    return int(torch.unique(t).numel())
+
+
+def phase_device():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+
+def phase_build():
+    res = _build.build_all()
+    ptxas = [ln.strip() for rep in res["ptxas"].values()
+             for ln in rep.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(res["seconds"], 3),
+          "built": res["built"], "ptxas": ptxas})
+    eg._lib()
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions at the main path's shapes.
+# ---------------------------------------------------------------------------
+
+def serve_gather_inputs(uniq_n, inv, capacity, d, dtype, with_ov, seed=0):
+    """Inputs of the store's read at the full-width serve shape: the
+    buffer (capacity, d), the batch's unique slots and inverse, and, with
+    ``with_ov``, the share of unique rows the buffer cannot hold as
+    overflow rows staged from the host."""
+    rng = np.random.default_rng(seed)
+    table = torch.randn((capacity, d), generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda").to(dtype)
+    slots = torch.from_numpy(rng.integers(0, capacity, uniq_n)
+                             .astype(np.int32)).cuda()
+    inv_t = torch.from_numpy(inv.astype(np.int32)).cuda()
+    ov = hr = None
+    if with_ov:
+        ov = torch.from_numpy(
+            rng.random(uniq_n) < max(0.0, 1.0 - capacity / uniq_n)).cuda()
+        hr = torch.from_numpy(rng.normal(size=(uniq_n, d))
+                              .astype(np.float32)).cuda().to(dtype)
+    return table, slots, inv_t, ov, hr
+
+
+def expand_bound(table, slots, inv, ov):
+    rb = table.shape[1] * table.element_size()
+    if ov is None:
+        rows_read = n_distinct(slots[torch.unique(inv).long()])
+        extra = 0
+    else:
+        used = torch.unique(inv).long()
+        keep = ~ov[used]
+        rows_read = n_distinct(slots[used[keep]]) + int((~keep).sum())
+        extra = ov.numel()
+    n_bytes = (rows_read * rb + inv.numel() * rb + inv.numel() * 4
+               + slots.numel() * 4 + extra)
+    return bound_ms(n_bytes)
+
+
+def pool_bound(table, idx):
+    b, p = idx.shape
+    d = table.shape[1]
+    n_bytes = (n_distinct(idx) * d * table.element_size() + idx.numel() * 4
+               + b * d * 4)
+    return bound_ms(n_bytes, b * p * d)
+
+
+def phase_kernels(timer, first_batch, capacity, fwd_table_rows, fwd_b, cfg):
+    """Every kernel at the serve and forward shapes, fp32 and bf16,
+    D in {16, 128}.  Returns the entry of the main path's configuration
+    of each kernel (serve: fp32 D=128; forward: bf16 D=128)."""
+    uniq, inv = np.unique(first_batch, return_inverse=True)
+    u = uniq.size
+    overflow = u > capacity
+    rng = np.random.default_rng(1)
+    main = {}
+    for dt_name, dt in DTYPES.items():
+        for d in (16, 128):
+            # gather_rows (the TPU kernel's contract) and the store's
+            # fused gather_rows_expand, with and without overflow rows.
+            for with_ov in (False, True):
+                table, slots, inv_t, ov, hr = serve_gather_inputs(
+                    u, inv, capacity, d, dt, with_ov)
+                got = eg.gather_rows_expand(table, slots, inv_t, ov, hr)
+                want = ref.gather_rows_expand_ref(table, slots, inv_t, ov, hr)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"gather_rows_expand {dt_name} D={d} ov={with_ov} "
+                        "is not bit-exact")
+                rec = {"phase": "kernel", "name": "gather_rows_expand",
+                       "dtype": dt_name, "D": d, "M": int(inv.size),
+                       "U": int(u), "N": capacity, "overflow": with_ov,
+                       "max_abs_err": 0.0,
+                       "ms": timer(lambda: eg.gather_rows_expand(
+                           table, slots, inv_t, ov, hr)),
+                       "plain_ms": timer(lambda: ref.gather_rows_expand_ref(
+                           table, slots, inv_t, ov, hr)),
+                       "library_ms": None}
+                rec["bound_ms"], rec["bound_by"] = expand_bound(
+                    table, slots, inv_t, ov)
+                emit(rec)
+                if dt_name == "fp32" and d == 128 and with_ov == overflow:
+                    main["gather_rows_expand"] = rec
+            idx = torch.from_numpy(rng.integers(0, capacity, inv.size)
+                                   .astype(np.int32)).cuda()
+            got = eg.gather_rows(table, idx)
+            require(torch.equal(got, ref.gather_rows_ref(table, idx)),
+                    f"gather_rows {dt_name} D={d} is not bit-exact")
+            rec = {"phase": "kernel", "name": "gather_rows", "dtype": dt_name,
+                   "D": d, "M": int(idx.numel()), "N": capacity,
+                   "max_abs_err": 0.0,
+                   "ms": timer(lambda: eg.gather_rows(table, idx)),
+                   "plain_ms": timer(lambda: ref.gather_rows_ref(table, idx)),
+                   "library_ms": timer(lambda: table.index_select(0, idx))}
+            rb = d * table.element_size()
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                n_distinct(idx) * rb + idx.numel() * (rb + 4))
+            emit(rec)
+            del table, slots, inv_t, ov, hr, idx
+            # gather_pool at the forward shape (B*T rows of P ids).
+            table = torch.randn((fwd_table_rows, d), device="cuda").to(dt)
+            pidx = torch.from_numpy(rng.integers(
+                0, fwd_table_rows, (fwd_b * cfg.n_tables, cfg.multi_hot))
+                .astype(np.int32)).cuda()
+            got = eg.gather_pool(table, pidx)
+            want = ref.gather_pool_ref(table, pidx)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            require(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                    f"gather_pool {dt_name} D={d}: max abs err {err}")
+            rec = {"phase": "kernel", "name": "gather_pool",
+                   "dtype": dt_name, "D": d, "B": int(pidx.shape[0]),
+                   "P": cfg.multi_hot, "N": fwd_table_rows,
+                   "max_abs_err": err,
+                   "ms": timer(lambda: eg.gather_pool(table, pidx)),
+                   "plain_ms": timer(lambda: ref.gather_pool_ref(table, pidx)),
+                   "library_ms": timer(lambda: torch.nn.functional
+                                       .embedding_bag(pidx, table,
+                                                      mode="sum"))}
+            rec["bound_ms"], rec["bound_by"] = pool_bound(table, pidx)
+            emit(rec)
+            del table, pidx, got, want
+            torch.cuda.empty_cache()
+    return main
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the same small serve on the CPU and on the card.
+# ---------------------------------------------------------------------------
+
+def to_device(params, dev):
+    return {"emb": params["emb"].to(dev),
+            **{k: {"w": [w.to(dev) for w in params[k]["w"]],
+                   "b": [b.to(dev) for b in params[k]["b"]]}
+               for k in ("bottom", "top")}}
+
+
+def phase_parity():
+    cfg = dataclasses.replace(get_config("dlrm-recmg").reduced(),
+                              n_tables=4, rows_per_table=1024, multi_hot=2,
+                              emb_dim=16)
+    trace = generate_trace(TraceGenConfig(
+        n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
+        n_accesses=8000, seed=0, drift_every=10**9))
+    cap = int(0.15 * trace.unique_count())
+    params = init_dlrm(cfg, seed=0, device="cpu")
+    for policy in ("lru", "recmg"):
+        outputs = frequency_outputs(trace, cap) if policy == "recmg" else None
+        res = {dev: serve_trace(cfg, to_device(params, dev), trace, cap,
+                                policy, outputs, batch_queries=8,
+                                device=dev, collect_logits=True)
+               for dev in ("cpu", "cuda")}
+        cpu, card = res["cpu"], res["cuda"]
+        diff = {k: (cpu[k], card[k]) for k in SERVE_KEYS if cpu[k] != card[k]}
+        require(not diff, f"serve counters differ CPU vs card ({policy}): "
+                          f"{diff}")
+        err = float(np.abs(cpu["logits"] - card["logits"]).max())
+        require(np.allclose(card["logits"], cpu["logits"], rtol=1e-4,
+                            atol=1e-4),
+                f"serve logits differ CPU vs card ({policy}): {err}")
+        emit({"phase": "serve_parity", "policy": policy,
+              "counters_equal": True,
+              **{k: card[k] for k in SERVE_KEYS},
+              "logits_max_abs_err": err})
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: the main path at full width.
+# ---------------------------------------------------------------------------
+
+def phase_serve(cfg, trace, capacity, batch_queries):
+    launches = 0
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    for policy in ("lru", "recmg"):
+        outputs = (frequency_outputs(trace, capacity)
+                   if policy == "recmg" else None)
+        eg.reset_launches()
+        res = serve_trace(cfg, params, trace, capacity, policy, outputs,
+                          batch_queries=batch_queries, device="cuda",
+                          collect_logits=True)
+        n = eg.gather_rows_expand.launches
+        require(n > 0, f"serve ({policy}) launched gather_rows_expand 0 times")
+        require(res["hits"] + res["misses"] == res["lookups"],
+                f"serve ({policy}): hits + misses != lookups")
+        lg = res["logits"]
+        require(lg.shape == (res["batches"], batch_queries)
+                and np.isfinite(lg).all(),
+                f"serve ({policy}): logits {lg.shape} not finite")
+        emit({"phase": "serve", "policy": policy, "batch_queries":
+              batch_queries, "ids_per_batch": batch_queries * cfg.n_tables
+              * cfg.multi_hot, "capacity": capacity,
+              "launches": {"gather_rows_expand": n},
+              **{k: res[k] for k in ("batches", "lookups", "hits", "misses",
+                                     "hit_rate", "on_demand_rows",
+                                     "evictions", "prefetch_hits",
+                                     "p50_batch_ms", "p99_batch_ms",
+                                     "mean_batch_ms", "gather_s", "fetch_s",
+                                     "model_s", "compute_ms")}})
+        launches += n
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_forward(timer, cfg, b):
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(2)
+    dense = torch.from_numpy(rng.normal(size=(b, cfg.dense_features))
+                             .astype(np.float32)).cuda()
+    idx = torch.from_numpy(rng.integers(
+        0, cfg.rows_per_table, (b, cfg.n_tables, cfg.multi_hot))
+        .astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    eg.reset_launches()
+    logits = dlrm_forward(params, cfg, dense, idx)
+    torch.cuda.synchronize()
+    launches = eg.gather_pool.launches
+    require(launches > 0, "dlrm_forward launched gather_pool 0 times")
+    require(logits.shape == (b,) and bool(torch.isfinite(logits).all()),
+            "dlrm_forward logits not finite")
+    # The plain path on the card: the same lookup through the plain version.
+    t, r, d = params["emb"].shape
+    flat_table = params["emb"].reshape(t * r, d)
+    off = torch.arange(t, device="cuda", dtype=torch.int32) * r
+    flat_idx = (idx + off[None, :, None]).reshape(b * t, -1).contiguous()
+    pooled = eg.gather_pool(flat_table, flat_idx)
+    pooled_plain = ref.gather_pool_ref(flat_table, flat_idx)
+    err = float((pooled - pooled_plain).abs().max())
+    require(torch.allclose(pooled, pooled_plain, rtol=1e-5, atol=1e-5),
+            f"gather_pool at the forward shape: max abs err {err}")
+    plain_logits = _dense_forward(
+        params, cfg, dense, pooled_plain.reshape(b, t, d).to(torch.bfloat16)
+    ).float()
+    lerr = float((logits - plain_logits).abs().max())
+    # bf16 tolerance: the fp32 pooled sums round to bf16 at other points.
+    require(torch.allclose(logits, plain_logits, rtol=2e-2, atol=2e-2),
+            f"dlrm_forward vs plain lookup: max abs err {lerr}")
+    rec = {"name": "gather_pool", "dtype": "bf16", "D": d, "B": b * t,
+           "P": cfg.multi_hot, "N": t * r, "max_abs_err": err,
+           "ms": timer(lambda: eg.gather_pool(flat_table, flat_idx)),
+           "plain_ms": timer(lambda: ref.gather_pool_ref(flat_table,
+                                                         flat_idx)),
+           "library_ms": timer(lambda: torch.nn.functional.embedding_bag(
+               flat_idx, flat_table, mode="sum"))}
+    rec["bound_ms"], rec["bound_by"] = pool_bound(flat_table, flat_idx)
+    fwd_ms = timer(lambda: dlrm_forward(params, cfg, dense, idx))
+    emit({"phase": "forward", "B": b, "tables": t, "rows_per_table": r,
+          "emb_gb": params["emb"].numel() * params["emb"].element_size()
+          / 1e9, "launches": {"gather_pool": launches},
+          "logits_vs_plain_max_abs_err": lerr, "forward_ms": fwd_ms,
+          "kernel": rec})
+    return rec, launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    # fp32 products stay fp32 on the card: no TF32 in any comparison.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_device()
+    phase_build()
+    timer = Timer()
+
+    full = get_config("dlrm-recmg")
+    serve_cfg = dataclasses.replace(full, rows_per_table=4096)
+    batch_queries = 32
+    per_batch = batch_queries * full.n_tables * full.multi_hot
+    trace = generate_trace(TraceGenConfig(
+        n_tables=serve_cfg.n_tables, rows_per_table=serve_cfg.rows_per_table,
+        n_accesses=8 * per_batch, seed=0, drift_every=10**9))
+    capacity = int(0.2 * trace.unique_count())
+    fwd_b = 256
+
+    main_recs = phase_kernels(timer, trace.global_id[:per_batch], capacity,
+                              full.n_tables * serve_cfg.rows_per_table,
+                              fwd_b, full)
+    phase_parity()
+    serve_launches = phase_serve(serve_cfg, trace, capacity, batch_queries)
+    del trace
+    pool_rec, pool_launches = phase_forward(timer, full, fwd_b)
+
+    expand = main_recs["gather_rows_expand"]
+    kernels = []
+    for name, rec, n, replaces in (
+            ("gather_rows_expand", expand, serve_launches, TPU_GATHER_ROWS),
+            ("gather_pool", pool_rec, pool_launches, TPU_GATHER_POOL)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": CU_SOURCE,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,152 @@
+"""Model configuration for the port: ``ModelConfig`` and ``reduced()``.
+
+Copied from ``src/repro/configs/base.py`` (lines 16-156, the dataclass and
+its CPU-scale ``reduced()``).  The shape cells and run knobs of that file
+belong to the LM stack and wait for its slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Tuple
+
+# ---------------------------------------------------------------------------
+# Model config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm | dlrm
+
+    # Transformer backbone.
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    d_ff: int = 0
+    vocab: int = 0
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 1_000_000.0
+    norm_eps: float = 1e-5
+
+    # Attention variant.
+    attn_type: str = "full"  # full | sliding
+    window: int = 4096  # sliding-window size when attn_type == "sliding"
+
+    # MoE.
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0  # per-expert FFN width (0 -> use d_ff)
+    capacity_factor: float = 1.25
+
+    # SSM (mamba-1).
+    ssm_state: int = 0
+    d_inner: int = 0  # 0 -> 2 * d_model
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+    conv_width: int = 4
+    ssm_chunk: int = 256  # chunked selective-scan block length
+
+    # Encoder-decoder (whisper-style).
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    enc_len: int = 1500  # stub frame count fed to the encoder
+
+    # Modality frontend stub: number of precomputed patch/frame embeddings
+    # spliced into the decoder input sequence ("vlm") or fed to the encoder
+    # ("audio").  0 -> no frontend.
+    frontend: str = ""  # "" | vision | audio
+    n_frontend_tokens: int = 0
+
+    # DLRM (paper's own architecture).
+    n_tables: int = 0
+    rows_per_table: int = 0
+    emb_dim: int = 0
+    multi_hot: int = 0  # pooling factor per table
+    dense_features: int = 0
+    bottom_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+
+    # Dtypes / runtime defaults (overridable via RunConfig).
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+    source: str = ""  # provenance note: [source; verified-tier]
+
+    # ---------------- derived helpers ----------------
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def dtrank(self) -> int:
+        return self.dt_rank or max(1, (self.d_model + 15) // 16)
+
+    @property
+    def expert_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode with a bounded-size per-step state at 500k?"""
+        return self.family in ("ssm", "hybrid")
+
+    def reduced(self) -> "ModelConfig":
+        """A tiny same-family config for CPU smoke tests."""
+        kw = dict(
+            name=self.name + "-reduced",
+            n_layers=min(self.n_layers, 2) or 0,
+            d_model=min(self.d_model, 64) if self.d_model else 0,
+            d_ff=min(self.d_ff, 128) if self.d_ff else 0,
+            vocab=min(self.vocab, 512) if self.vocab else 0,
+            param_dtype="float32",
+            compute_dtype="float32",
+        )
+        if self.n_heads:
+            # Preserve GQA structure with small heads.
+            kw["n_heads"] = 4
+            kw["n_kv_heads"] = 2 if self.kv_heads < self.n_heads else 4
+            kw["head_dim"] = 16
+        if self.n_experts:
+            kw["n_experts"] = 4
+            kw["top_k"] = min(self.top_k, 2)
+            kw["moe_d_ff"] = 64
+            kw["capacity_factor"] = 8.0  # droppless at smoke scale
+        if self.ssm_state:
+            kw["ssm_state"] = 8
+            kw["d_inner"] = 128
+            kw["dt_rank"] = 4
+            kw["ssm_chunk"] = 16
+        if self.enc_dec:
+            kw["n_enc_layers"] = 2
+            kw["enc_len"] = 16
+        if self.frontend:
+            kw["n_frontend_tokens"] = 8
+        if self.family == "dlrm":
+            kw.update(
+                n_tables=8,
+                rows_per_table=256,
+                emb_dim=16,
+                multi_hot=4,
+                dense_features=8,
+                bottom_mlp=(32, 16),
+                top_mlp=(32, 16, 1),
+            )
+        return replace(self, **kw)

@@ -1,0 +1,165 @@
+"""ctypes-bound wrappers of the CUDA gathers in ``csrc/embedding_gather.cu``.
+
+Counterpart of ``src/repro/kernels/embedding_gather.py`` (``gather_rows``
+and ``gather_pool``; the quantized gathers and ``quantize_rows`` come with
+the quantized fast tier).  Each wrapper takes CUDA tensors only: it checks
+device, dtype, shape and contiguity, allocates its output with
+``torch.empty``, launches on the current stream, raises if the launch
+reports an error, and adds one to its ``launches`` count.  The plain
+versions are in :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops`
+picks between the two by the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its C signatures."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("embedding_gather")
+        lib.repro_gather_rows.argtypes = [_VP, _I64, _I64, _VP, _I64, _VP,
+                                          _VP, _VP, _VP, _I64, _VP]
+        lib.repro_gather_rows.restype = _INT
+        lib.repro_gather_pool.argtypes = [_VP, _I64, _I64, _INT, _VP, _I64,
+                                          _INT, _VP, _VP]
+        lib.repro_gather_pool.restype = _INT
+        _LIB = lib
+    return _LIB
+
+
+def _check(t: torch.Tensor, name: str, ndim: int, dtypes, device=None):
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor (the plain version "
+                         "in repro_torch.kernels.ref serves CPU tensors)")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
+                         f"{sorted(str(d) for d in dtypes)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, fn: str):
+    if err:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def _launch_rows(table, slots, inv, ov, host_rows, m) -> torch.Tensor:
+    out = torch.empty((m, table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    if m == 0:
+        return out
+    if table.shape[0] == 0:
+        raise ValueError("gather from a table with no rows")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_gather_rows(
+            table.data_ptr(), table.shape[0],
+            table.shape[1] * table.element_size(),
+            slots.data_ptr(), slots.shape[0], _ptr(inv), _ptr(ov),
+            _ptr(host_rows), out.data_ptr(), m, stream)
+    _raise_on(err, "gather_rows")
+    return out
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table: (N, D) fp32/bf16; idx: (M,) int32 -> (M, D) = table[idx],
+    dtype kept: the contract of the TPU kernel, bit-exact."""
+    _check(table, "table", 2, _DTYPE_CODE)
+    _check(idx, "idx", 1, (torch.int32,), table.device)
+    out = _launch_rows(table, idx, None, None, None, idx.shape[0])
+    if idx.shape[0]:
+        gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
+
+
+def gather_rows_expand(table: torch.Tensor, slots: torch.Tensor,
+                       inv: torch.Tensor, ov: Optional[torch.Tensor] = None,
+                       host_rows: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The store's read in one launch, rows in request order:
+    ``out[i] = ov[inv[i]] ? host_rows[inv[i]] : table[slots[inv[i]]]``.
+
+    table: (N, D) fp32/bf16; slots: (U,) int32; inv: (M,) int32; ov: (U,)
+    bool and host_rows: (U, D) of table's dtype, both or neither."""
+    _check(table, "table", 2, _DTYPE_CODE)
+    dev = table.device
+    _check(slots, "slots", 1, (torch.int32,), dev)
+    _check(inv, "inv", 1, (torch.int32,), dev)
+    if (ov is None) != (host_rows is None):
+        raise ValueError("pass both ov and host_rows, or neither")
+    if ov is not None:
+        _check(ov, "ov", 1, (torch.bool,), dev)
+        _check(host_rows, "host_rows", 2, (table.dtype,), dev)
+        if ov.shape[0] != slots.shape[0] or \
+                host_rows.shape != (slots.shape[0], table.shape[1]):
+            raise ValueError(f"ov {tuple(ov.shape)} / host_rows "
+                             f"{tuple(host_rows.shape)} do not match slots "
+                             f"{tuple(slots.shape)} and D={table.shape[1]}")
+    if inv.shape[0] and not slots.shape[0]:
+        raise ValueError("inv indexes an empty slots vector")
+    out = _launch_rows(table, slots, inv, ov, host_rows, inv.shape[0])
+    if inv.shape[0]:
+        gather_rows_expand.launches += 1
+    return out
+
+
+gather_rows_expand.launches = 0
+
+
+def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table: (N, D) fp32/bf16; idx: (B, P) int32 -> (B, D) fp32 sum-pool,
+    accumulated in fp32 in the order p = 0 .. P-1."""
+    _check(table, "table", 2, _DTYPE_CODE)
+    _check(idx, "idx", 2, (torch.int32,), table.device)
+    b, p = idx.shape
+    d = table.shape[1]
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    if b == 0 or d == 0:
+        return out
+    if p == 0:
+        return out.zero_()
+    if table.shape[0] == 0:
+        raise ValueError("gather from a table with no rows")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_gather_pool(
+            table.data_ptr(), table.shape[0], d, _DTYPE_CODE[table.dtype],
+            idx.data_ptr(), b, p, out.data_ptr(), stream)
+    _raise_on(err, "gather_pool")
+    gather_pool.launches += 1
+    return out
+
+
+gather_pool.launches = 0
+
+KERNELS = (gather_rows, gather_rows_expand, gather_pool)
+
+
+def reset_launches():
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,84 @@
+"""repro_torch stands alone: it imports neither JAX nor the JAX package,
+and its entry points refuse to run on the CPU unless asked to."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_name(path: Path) -> str:
+    parts = path.relative_to(PKG.parent).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    mods = [_module_name(p) for p in sorted(PKG.rglob("*.py"))]
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') and sys.modules[k] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_and_no_repro(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path.name}:{node.lineno} imports {n}"
+
+
+def _entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.core.tiered import TieredEmbeddingStore
+    from repro_torch.core.trace import TraceGenConfig, generate_trace
+    from repro_torch.launch.serve import main, serve_trace
+    from repro_torch.models.dlrm import init_dlrm
+
+    cfg = get_config("dlrm-recmg").reduced()
+    trace = generate_trace(TraceGenConfig(n_tables=2, rows_per_table=50,
+                                          n_accesses=500, seed=0))
+    return {
+        "store": lambda: TieredEmbeddingStore(np.zeros((8, 4), np.float32),
+                                              4),
+        "serve_trace": lambda: serve_trace(cfg, None, trace, 4, "lru", None),
+        "init_dlrm": lambda: init_dlrm(cfg),
+        "cli": lambda: main(["--policy", "lru", "--accesses", "500"]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["store", "serve_trace", "init_dlrm",
+                                   "cli"])
+def test_default_device_raises_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[entry]()

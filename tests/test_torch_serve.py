@@ -1,0 +1,123 @@
+"""The port's serve_trace against the JAX package's, on the golden fixture.
+
+The fixture is that of ``tests/test_golden_trace.py``: the reduced
+``dlrm-recmg`` with 4 tables of 1024 rows, multi_hot 2, emb_dim 16, an
+8000-access trace and 8 queries per batch.  The counters are deterministic
+(host table, trace and dense inputs are numpy draws), so they must equal
+``tests/golden/serve_lru.json`` under ``lru`` and a live JAX run under
+``recmg`` with the frequency model, exactly.
+"""
+import dataclasses
+import json
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro_torch.configs import get_config
+from repro_torch.core.recmg import frequency_outputs
+from repro_torch.core.trace import TraceGenConfig, generate_trace
+from repro_torch.launch.serve import main, serve_trace
+from repro_torch.models.dlrm import init_dlrm
+
+GOLDEN = Path(__file__).parent / "golden" / "serve_lru.json"
+SERVE_KEYS = ("policy", "batches", "lookups", "hits", "hit_rate",
+              "prefetch_hits", "on_demand_rows", "evictions",
+              "on_demand_stall_ms", "modeled_fetch_ms_per_batch")
+
+
+@lru_cache(maxsize=1)
+def _fixture():
+    cfg = dataclasses.replace(get_config("dlrm-recmg").reduced(),
+                              n_tables=4, rows_per_table=1024, multi_hot=2,
+                              emb_dim=16)
+    trace = generate_trace(TraceGenConfig(
+        n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
+        n_accesses=8000, seed=0, drift_every=10**9))
+    return cfg, init_dlrm(cfg, seed=0, device="cpu"), trace
+
+
+def test_serve_lru_reproduces_golden():
+    cfg, params, trace = _fixture()
+    cap = int(0.15 * trace.unique_count())
+    res = serve_trace(cfg, params, trace, cap, "lru", None, batch_queries=8,
+                      device="cpu", collect_logits=True)
+    assert {k: res[k] for k in SERVE_KEYS} == json.loads(GOLDEN.read_text())
+    assert res["hits"] + res["misses"] == res["lookups"]
+    assert res["logits"].shape == (res["batches"], 8)
+    assert np.isfinite(res["logits"]).all()
+
+
+def test_serve_recmg_frequency_matches_live_jax_run():
+    import jax
+
+    from repro.configs import get_config as jax_get_config
+    from repro.core.recmg import frequency_outputs as jax_frequency_outputs
+    from repro.launch.serve import serve_trace as jax_serve_trace
+    from repro.models.dlrm import init_dlrm as jax_init_dlrm
+
+    cfg, params, trace = _fixture()
+    cap = int(0.15 * trace.unique_count())
+    got = serve_trace(cfg, params, trace, cap, "recmg",
+                      frequency_outputs(trace, cap), batch_queries=8,
+                      device="cpu")
+    jcfg = dataclasses.replace(jax_get_config("dlrm-recmg").reduced(),
+                               n_tables=4, rows_per_table=1024, multi_hot=2,
+                               emb_dim=16)
+    jparams = jax_init_dlrm(jax.random.PRNGKey(0), jcfg)
+    want = jax_serve_trace(jcfg, jparams, trace, cap, "recmg",
+                           jax_frequency_outputs(trace, cap), batch_queries=8)
+    keys = SERVE_KEYS + ("misses",)
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["prefetch_hits"] > 0
+    assert got["metrics"]["counters"]["store.fast.hits"] == \
+        want["metrics"]["counters"]["store.fast.hits"]
+
+
+@pytest.mark.parametrize("cap", [1, 300, 5000])
+def test_frequency_outputs_match_jax(cap):
+    from repro.core.recmg import frequency_outputs as jax_frequency_outputs
+
+    trace = _fixture()[2]
+    want = jax_frequency_outputs(trace, cap)
+    got = frequency_outputs(trace, cap)
+    for f in ("chunk_starts", "caching_bits", "prefetch_ids"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def test_cli_smoke_traced(tmp_path, capsys):
+    trace_out, metrics_out = tmp_path / "t.json", tmp_path / "m.json"
+    res = main(["--device", "cpu", "--policy", "lru", "--accesses", "3000",
+                "--batch-queries", "4", "--trace-out", str(trace_out),
+                "--metrics-out", str(metrics_out)])
+    out = capsys.readouterr().out
+    assert "trace/metrics reconciliation: OK" in out
+    assert res["batches"] == 3000 // (4 * 8 * 4)
+    assert json.loads(metrics_out.read_text())["counters"][
+        "store.lookups"] == res["lookups"]
+    assert json.loads(trace_out.read_text())["traceEvents"]
+
+
+def test_cli_recmg_frequency():
+    res = main(["--device", "cpu", "--policy", "recmg", "--model",
+                "frequency", "--accesses", "3000", "--batch-queries", "4"])
+    assert res["policy"] == "recmg" and res["lookups"] > 0
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--multi-table"], "A8"),
+    (["--shards", "2"], "A10"),
+    (["--async-prefetch"], "A12"),
+    (["--overload", "2"], "A12"),
+    (["--adapt"], "A12"),
+    (["--quantize"], "A7"),
+    (["--workload", "zipf_hot"], "A6"),
+    (["--fault-plan", "kill:1@mid"], "A10"),
+    (["--model", "learned"], "A9"),
+    (["--model", "voyager"], "A9"),
+    (["--policy", "recmg-oracle"], "A9"),
+])
+def test_cli_flags_not_ported_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        main(["--device", "cpu", "--policy", "recmg", *argv])
