@@ -8,22 +8,33 @@ the same counters as the CPU, then drives the port's main path at the full
 widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: nvcc for sm_90a, with the build seconds;
+2. build: nvcc for sm_90a, one process per source, with the build seconds;
 3. kernels vs plain on the card at the serve and forward shapes, fp32 and
    bf16, D in {16, 128}: the row gathers bit-exact, the pooled gather
    within fp32 rtol 1e-5; each timed beside its byte bound;
+3'. the quantized tier's kernels vs plain, int8 and fp8, D in {16, 128},
+   at the full-width serve shape (one batch's admit into and read from the
+   720,100-row quantized buffer, with and without overflow rows, and the
+   batch's pooled read, idx (32 * 856, 20)): codes bit-exact, scales
+   within one ulp, the row reads bit-exact, the pooled read within fp32
+   rtol/atol 1e-6; each timed beside its byte bound;
 4. serve parity: the golden-trace fixture through ``serve_trace`` on the
-   CPU and on the card, ``lru`` and ``recmg`` (frequency model): counters
+   CPU and on the card, ``lru`` and ``recmg`` (frequency model), with fp32,
+   int8 and fp8 rows and through the per-table facade: counters
    identical, logits within fp32 rtol/atol 1e-4 (the two devices sum in
    different orders);
-5. full-width serve, ``lru`` and ``recmg``: ``rows_per_table`` cut to 4096
-   (a 72,704-row host table is 31.9 GB of fp32, drawn as 64 GB of float64
-   first), 8 batches of 32 queries (547,840 ids each), capacity 0.2 of the
-   unique ids;
+5. full-width serve: ``rows_per_table`` cut to 4096 (a 72,704-row host
+   table is 31.9 GB of fp32, drawn as 64 GB of float64 first), 8 batches
+   of 32 queries (547,840 ids each), capacity 0.2 of the unique ids
+   (185,651 fp32 rows); fp32 ``lru`` and ``recmg``, then the same bytes
+   re-spent as 720,100 quantized rows: int8 ``lru`` and ``recmg``, fp8
+   ``lru``, and int8 ``lru`` through the per-table facade (856 stores);
 6. full-width ``dlrm_forward`` with the 856 full-size tables (72,704 rows,
    15.9 GB of bf16) in device memory and B=256 (cut from the 6,144 of
    ``infer_6k``: the (B, 857, 857) fp32 interaction alone is 18 GB there),
-   against the plain lookup on the card.
+   against the plain lookup on the card; then the same forward with the
+   tables quantized to int8 (8 GB), which pools through
+   ``gather_pool_dequant``.
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
@@ -46,19 +57,36 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.recmg import frequency_outputs  # noqa: E402
+from repro_torch.core.tiered import fast_row_bytes  # noqa: E402
 from repro_torch.core.trace import TraceGenConfig, generate_trace  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg  # noqa: E402
 from repro_torch.launch.serve import _dense_forward, serve_trace  # noqa: E402
-from repro_torch.models.dlrm import dlrm_forward, init_dlrm  # noqa: E402
+from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
+                                     quantize_tables)
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate and fp32 rate
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 CU_SOURCE = "src/repro_torch/kernels/csrc/embedding_gather.cu"
+CU_QUANT_SOURCE = "src/repro_torch/kernels/csrc/embedding_quant.cu"
 TPU_GATHER_ROWS = "src/repro/kernels/embedding_gather.py:87"
 TPU_GATHER_POOL = "src/repro/kernels/embedding_gather.py:113"
+TPU_GATHER_ROWS_DEQUANT = "src/repro/kernels/embedding_gather.py:153"
+TPU_GATHER_POOL_DEQUANT = "src/repro/kernels/embedding_gather.py:192"
+TPU_QUANTIZE_ROWS = "src/repro/kernels/embedding_gather.py:229"
+# Why no single PyTorch call stands beside a quantized kernel.
+NO_LIBRARY = {
+    "quantize_scatter": "no PyTorch call quantizes rows per row and "
+                        "scatters codes and scales",
+    "gather_rows_dequant_expand": "no PyTorch call gathers int8/fp8 rows "
+                                  "with per-row scales",
+    "gather_rows_dequant": "no PyTorch call gathers int8/fp8 rows with "
+                           "per-row scales",
+    "gather_pool_dequant": "embedding_bag takes no int8/fp8 table with "
+                           "per-row scales",
+}
 SERVE_KEYS = ("batches", "lookups", "hits", "misses", "prefetch_hits",
               "on_demand_rows", "evictions", "on_demand_stall_ms",
               "modeled_fetch_ms_per_batch")
@@ -129,6 +157,7 @@ def phase_build():
     emit({"phase": "build", "seconds": round(res["seconds"], 3),
           "built": res["built"], "ptxas": ptxas})
     eg._lib()
+    eg._qlib()
 
 
 # ---------------------------------------------------------------------------
@@ -155,27 +184,36 @@ def serve_gather_inputs(uniq_n, inv, capacity, d, dtype, with_ov, seed=0):
     return table, slots, inv_t, ov, hr
 
 
-def expand_bound(table, slots, inv, ov):
-    rb = table.shape[1] * table.element_size()
+def expand_bound(table, slots, inv, ov, quantized=False):
+    """Bound of the store's fused read: each distinct buffer row read once
+    (``D + 4`` bytes with its scale when quantized), each overflow row
+    read once, each output row written once, the index vectors read once;
+    one multiply per dequantized element."""
+    d = table.shape[1]
+    rb_out = d * (4 if quantized else table.element_size())
+    rb_in = d * table.element_size() + (4 if quantized else 0)
+    used = torch.unique(inv).long()
     if ov is None:
-        rows_read = n_distinct(slots[torch.unique(inv).long()])
-        extra = 0
+        rows_read, ov_read, extra = n_distinct(slots[used]), 0, 0
     else:
-        used = torch.unique(inv).long()
         keep = ~ov[used]
-        rows_read = n_distinct(slots[used[keep]]) + int((~keep).sum())
+        rows_read = n_distinct(slots[used[keep]])
+        ov_read = int((~keep).sum())
         extra = ov.numel()
-    n_bytes = (rows_read * rb + inv.numel() * rb + inv.numel() * 4
-               + slots.numel() * 4 + extra)
-    return bound_ms(n_bytes)
+    n_bytes = (rows_read * rb_in + ov_read * rb_out + inv.numel() * rb_out
+               + inv.numel() * 4 + slots.numel() * 4 + extra)
+    return bound_ms(n_bytes, inv.numel() * d if quantized else 0)
 
 
-def pool_bound(table, idx):
+def pool_bound(table, idx, quantized=False):
+    """Bound of a pooled read: distinct rows read once (with their scale
+    when quantized), ids read once, the fp32 sums written once; one add
+    per gathered element, and one multiply more when dequantizing."""
     b, p = idx.shape
     d = table.shape[1]
-    n_bytes = (n_distinct(idx) * d * table.element_size() + idx.numel() * 4
-               + b * d * 4)
-    return bound_ms(n_bytes, b * p * d)
+    rb_in = d * table.element_size() + (4 if quantized else 0)
+    n_bytes = n_distinct(idx) * rb_in + idx.numel() * 4 + b * d * 4
+    return bound_ms(n_bytes, (2 if quantized else 1) * b * p * d)
 
 
 def phase_kernels(timer, first_batch, capacity, fwd_table_rows, fwd_b, cfg):
@@ -257,6 +295,143 @@ def phase_kernels(timer, first_batch, capacity, fwd_table_rows, fwd_b, cfg):
     return main
 
 
+def quantized_buffer(capacity, d, row_format, seed):
+    """A full (capacity, d) quantized buffer of normal rows, quantized by
+    the plain version on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return ref.quantize_rows_ref(
+        torch.randn((capacity, d), generator=g, device="cuda"), row_format)
+
+
+def scale_ulps(a, b) -> int:
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def phase_quant_kernels(timer, first_batch, qcapacity, cfg):
+    """The quantized tier's kernels at the full-width serve shape, int8
+    and fp8, D in {16, 128}: batch 0 misses on every unique id, so its
+    admit writes U rows into the 720,100-row buffer, and its read expands
+    U slots to the batch's M ids.  Returns the entry of the main path's
+    configuration of each kernel (int8, D=128)."""
+    uniq, inv = np.unique(first_batch, return_inverse=True)
+    u = uniq.size
+    overflow = u > qcapacity
+    inv_t = torch.from_numpy(inv.astype(np.int32)).cuda()
+    rng = np.random.default_rng(3)
+    main = {}
+
+    def kernel_rec(name, fmt, d, **kw):
+        rec = {"phase": "kernel", "name": name, "row_format": fmt, "D": d,
+               "N": qcapacity, **kw}
+        if "library_ms" not in rec:
+            rec["library_ms"] = None
+            rec["library_note"] = NO_LIBRARY[name]
+        return rec
+
+    for fmt in ("int8", "fp8"):
+        for d in (16, 128):
+            is_main = fmt == "int8" and d == 128
+            # The admit: quantize U fp32 rows into U distinct slots.
+            g = torch.Generator(device="cuda").manual_seed(d)
+            rows = torch.randn((u, d), generator=g, device="cuda")
+            slots = torch.from_numpy(rng.permutation(qcapacity)[:u]
+                                     .astype(np.int32)).cuda()
+            buf, sc = quantized_buffer(qcapacity, d, fmt, seed=d)
+            bufs, scs = [buf, buf.clone()], [sc, sc.clone()]
+            eg.quantize_scatter(bufs[0], scs[0], slots, rows, fmt)
+            ref.quantize_scatter_ref(bufs[1], scs[1], slots, rows, fmt)
+            torch.cuda.synchronize()
+            require(torch.equal(bufs[0].view(torch.uint8),
+                                bufs[1].view(torch.uint8)),
+                    f"quantize_scatter {fmt} D={d}: codes differ")
+            ulps = scale_ulps(scs[0], scs[1])
+            require(ulps <= 1, f"quantize_scatter {fmt} D={d}: scales "
+                               f"{ulps} ulps apart")
+            rec = kernel_rec(
+                "quantize_scatter", fmt, d, M=u,
+                max_abs_err=float((scs[0] - scs[1]).abs().max()),
+                scale_ulps=ulps, codes_equal=True,
+                ms=timer(lambda: eg.quantize_scatter(
+                    bufs[0], scs[0], slots, rows, fmt)),
+                plain_ms=timer(lambda: ref.quantize_scatter_ref(
+                    bufs[1], scs[1], slots, rows, fmt)))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                u * d * 4 + u * 4 + u * d + u * 4, 3 * u * d)
+            emit(rec)
+            if is_main:
+                main["quantize_scatter"] = rec
+            table, scales = bufs[0], scs[0]
+            del bufs, scs, rows, buf, sc
+            # The read: U slots expanded to the batch's M ids, with and
+            # without overflow rows (10% of the unique ids) from the host.
+            slots_r = torch.from_numpy(rng.integers(0, qcapacity, u)
+                                       .astype(np.int32)).cuda()
+            for with_ov in (False, True):
+                ov = hr = None
+                if with_ov:
+                    ov = torch.from_numpy(rng.random(u) < 0.1).cuda()
+                    hr = torch.randn((u, d), generator=g, device="cuda")
+                got = eg.gather_rows_dequant_expand(table, scales, slots_r,
+                                                    inv_t, ov, hr)
+                want = ref.gather_rows_dequant_expand_ref(
+                    table, scales, slots_r, inv_t, ov, hr)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"gather_rows_dequant_expand {fmt} D={d} "
+                        f"ov={with_ov} is not bit-exact")
+                rec = kernel_rec(
+                    "gather_rows_dequant_expand", fmt, d, M=int(inv.size),
+                    U=int(u), overflow=with_ov, max_abs_err=0.0,
+                    ms=timer(lambda: eg.gather_rows_dequant_expand(
+                        table, scales, slots_r, inv_t, ov, hr)),
+                    plain_ms=timer(lambda: ref.gather_rows_dequant_expand_ref(
+                        table, scales, slots_r, inv_t, ov, hr)))
+                rec["bound_ms"], rec["bound_by"] = expand_bound(
+                    table, slots_r, inv_t, ov, quantized=True)
+                emit(rec)
+                if is_main and with_ov == overflow:
+                    main["gather_rows_dequant_expand"] = rec
+                del got, want, ov, hr
+            # The TPU kernel's own contract: M random slots, no expansion.
+            idx = torch.from_numpy(rng.integers(0, qcapacity, inv.size)
+                                   .astype(np.int32)).cuda()
+            require(torch.equal(eg.gather_rows_dequant(table, scales, idx),
+                                ref.gather_rows_dequant_ref(table, scales,
+                                                            idx)),
+                    f"gather_rows_dequant {fmt} D={d} is not bit-exact")
+            rec = kernel_rec(
+                "gather_rows_dequant", fmt, d, M=int(idx.numel()),
+                max_abs_err=0.0,
+                ms=timer(lambda: eg.gather_rows_dequant(table, scales, idx)),
+                plain_ms=timer(lambda: ref.gather_rows_dequant_ref(
+                    table, scales, idx)))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                n_distinct(idx) * (d + 4) + idx.numel() * (4 * d + 4),
+                idx.numel() * d)
+            emit(rec)
+            # The batch's pooled read: each query's P ids of each table.
+            pidx = slots_r[inv_t.long()].reshape(-1, cfg.multi_hot)
+            got = eg.gather_pool_dequant(table, scales, pidx)
+            want = ref.gather_pool_dequant_ref(table, scales, pidx)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            require(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+                    f"gather_pool_dequant {fmt} D={d}: max abs err {err}")
+            rec = kernel_rec(
+                "gather_pool_dequant", fmt, d, B=int(pidx.shape[0]),
+                P=cfg.multi_hot, max_abs_err=err,
+                ms=timer(lambda: eg.gather_pool_dequant(table, scales, pidx)),
+                plain_ms=timer(lambda: ref.gather_pool_dequant_ref(
+                    table, scales, pidx)))
+            rec["bound_ms"], rec["bound_by"] = pool_bound(table, pidx,
+                                                          quantized=True)
+            emit(rec)
+            del table, scales, slots_r, idx, pidx, got, want
+            torch.cuda.empty_cache()
+    return main
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the same small serve on the CPU and on the card.
 # ---------------------------------------------------------------------------
@@ -277,59 +452,74 @@ def phase_parity():
         n_accesses=8000, seed=0, drift_every=10**9))
     cap = int(0.15 * trace.unique_count())
     params = init_dlrm(cfg, seed=0, device="cpu")
-    for policy in ("lru", "recmg"):
-        outputs = frequency_outputs(trace, cap) if policy == "recmg" else None
-        res = {dev: serve_trace(cfg, to_device(params, dev), trace, cap,
-                                policy, outputs, batch_queries=8,
-                                device=dev, collect_logits=True)
-               for dev in ("cpu", "cuda")}
-        cpu, card = res["cpu"], res["cuda"]
-        diff = {k: (cpu[k], card[k]) for k in SERVE_KEYS if cpu[k] != card[k]}
-        require(not diff, f"serve counters differ CPU vs card ({policy}): "
-                          f"{diff}")
-        err = float(np.abs(cpu["logits"] - card["logits"]).max())
-        require(np.allclose(card["logits"], cpu["logits"], rtol=1e-4,
-                            atol=1e-4),
-                f"serve logits differ CPU vs card ({policy}): {err}")
-        emit({"phase": "serve_parity", "policy": policy,
-              "counters_equal": True,
-              **{k: card[k] for k in SERVE_KEYS},
-              "logits_max_abs_err": err})
+    for rows, kw in (("fp32", {}),
+                     ("int8", dict(quantize=True, row_format="int8")),
+                     ("fp8", dict(quantize=True, row_format="fp8")),
+                     ("fp32-multi_table", dict(multi_table=True))):
+        for policy in ("lru", "recmg"):
+            outputs = (frequency_outputs(trace, cap) if policy == "recmg"
+                       else None)
+            res = {dev: serve_trace(cfg, to_device(params, dev), trace, cap,
+                                    policy, outputs, batch_queries=8,
+                                    device=dev, collect_logits=True, **kw)
+                   for dev in ("cpu", "cuda")}
+            cpu, card = res["cpu"], res["cuda"]
+            diff = {k: (cpu[k], card[k]) for k in SERVE_KEYS
+                    if cpu[k] != card[k]}
+            require(not diff, f"serve counters differ CPU vs card ({rows}, "
+                              f"{policy}): {diff}")
+            err = float(np.abs(cpu["logits"] - card["logits"]).max())
+            require(np.allclose(card["logits"], cpu["logits"], rtol=1e-4,
+                                atol=1e-4),
+                    f"serve logits differ CPU vs card ({rows}, {policy}): "
+                    f"{err}")
+            emit({"phase": "serve_parity", "rows": rows, "policy": policy,
+                  "counters_equal": True,
+                  **{k: card[k] for k in SERVE_KEYS},
+                  "logits_max_abs_err": err})
 
 
 # ---------------------------------------------------------------------------
 # Phases 5 and 6: the main path at full width.
 # ---------------------------------------------------------------------------
 
-def phase_serve(cfg, trace, capacity, batch_queries):
-    launches = 0
+def phase_serve(cfg, trace, runs, batch_queries):
+    """Each run ``(rows, policy, capacity, serve_trace kwargs)`` serves the
+    trace with the counts set to 0 just before and read just after; every
+    kernel of the run's path must have launched.  Returns each kernel's
+    launches summed over the runs of its path."""
+    launches = {}
     params = init_dlrm(cfg, seed=0, device="cuda")
-    for policy in ("lru", "recmg"):
+    for rows, policy, capacity, kw in runs:
         outputs = (frequency_outputs(trace, capacity)
                    if policy == "recmg" else None)
+        path = (("quantize_scatter", "gather_rows_dequant_expand")
+                if kw.get("quantize") else ("gather_rows_expand",))
         eg.reset_launches()
         res = serve_trace(cfg, params, trace, capacity, policy, outputs,
                           batch_queries=batch_queries, device="cuda",
-                          collect_logits=True)
-        n = eg.gather_rows_expand.launches
-        require(n > 0, f"serve ({policy}) launched gather_rows_expand 0 times")
+                          collect_logits=True, **kw)
+        n = {name: getattr(eg, name).launches for name in path}
+        for name, k in n.items():
+            require(k > 0, f"serve ({rows}, {policy}) launched {name} 0 "
+                           "times")
+            launches[name] = launches.get(name, 0) + k
         require(res["hits"] + res["misses"] == res["lookups"],
-                f"serve ({policy}): hits + misses != lookups")
+                f"serve ({rows}, {policy}): hits + misses != lookups")
         lg = res["logits"]
         require(lg.shape == (res["batches"], batch_queries)
                 and np.isfinite(lg).all(),
-                f"serve ({policy}): logits {lg.shape} not finite")
-        emit({"phase": "serve", "policy": policy, "batch_queries":
-              batch_queries, "ids_per_batch": batch_queries * cfg.n_tables
-              * cfg.multi_hot, "capacity": capacity,
-              "launches": {"gather_rows_expand": n},
+                f"serve ({rows}, {policy}): logits {lg.shape} not finite")
+        emit({"phase": "serve", "rows": rows, "policy": policy,
+              "batch_queries": batch_queries,
+              "ids_per_batch": batch_queries * cfg.n_tables * cfg.multi_hot,
+              "capacity": capacity, "launches": n,
               **{k: res[k] for k in ("batches", "lookups", "hits", "misses",
                                      "hit_rate", "on_demand_rows",
                                      "evictions", "prefetch_hits",
                                      "p50_batch_ms", "p99_batch_ms",
                                      "mean_batch_ms", "gather_s", "fetch_s",
                                      "model_s", "compute_ms")}})
-        launches += n
     del params
     torch.cuda.empty_cache()
     return launches
@@ -382,6 +572,61 @@ def phase_forward(timer, cfg, b):
           / 1e9, "launches": {"gather_pool": launches},
           "logits_vs_plain_max_abs_err": lerr, "forward_ms": fwd_ms,
           "kernel": rec})
+    del flat_table, pooled, pooled_plain
+    qrec, qlaunches = forward_quantized(timer, cfg, params, dense, idx,
+                                        logits)
+    return rec, launches, qrec, qlaunches
+
+
+def forward_quantized(timer, cfg, params, dense, idx, bf16_logits):
+    """The same forward with the tables quantized to int8 on the card (one
+    ``quantize_scatter`` per table, set-up), which pools through
+    ``gather_pool_dequant``, against the plain pooled read."""
+    b = dense.shape[0]
+    qparams = quantize_tables(params, "int8")
+    del params["emb"]
+    torch.cuda.synchronize()
+    eg.reset_launches()
+    logits = dlrm_forward(qparams, cfg, dense, idx)
+    torch.cuda.synchronize()
+    launches = eg.gather_pool_dequant.launches
+    require(launches > 0, "int8 dlrm_forward launched gather_pool_dequant "
+                          "0 times")
+    require(logits.shape == (b,) and bool(torch.isfinite(logits).all()),
+            "int8 dlrm_forward logits not finite")
+    t, r, d = qparams["emb"].shape
+    codes = qparams["emb"].reshape(t * r, d)
+    scales = qparams["emb_scales"].reshape(t * r)
+    off = torch.arange(t, device="cuda", dtype=torch.int32) * r
+    flat_idx = (idx + off[None, :, None]).reshape(b * t, -1).contiguous()
+    pooled = eg.gather_pool_dequant(codes, scales, flat_idx)
+    pooled_plain = ref.gather_pool_dequant_ref(codes, scales, flat_idx)
+    err = float((pooled - pooled_plain).abs().max())
+    require(torch.allclose(pooled, pooled_plain, rtol=1e-6, atol=1e-6),
+            f"gather_pool_dequant at the forward shape: max abs err {err}")
+    plain_logits = _dense_forward(qparams, cfg, dense,
+                                  pooled_plain.reshape(b, t, d)).float()
+    lerr = float((logits - plain_logits).abs().max())
+    require(torch.allclose(logits, plain_logits, rtol=2e-2, atol=2e-2),
+            f"int8 dlrm_forward vs plain lookup: max abs err {lerr}")
+    rec = {"name": "gather_pool_dequant", "row_format": "int8", "D": d,
+           "B": b * t, "P": cfg.multi_hot, "N": t * r, "max_abs_err": err,
+           "ms": timer(lambda: eg.gather_pool_dequant(codes, scales,
+                                                      flat_idx)),
+           "plain_ms": timer(lambda: ref.gather_pool_dequant_ref(
+               codes, scales, flat_idx)),
+           "library_ms": None,
+           "library_note": NO_LIBRARY["gather_pool_dequant"]}
+    rec["bound_ms"], rec["bound_by"] = pool_bound(codes, flat_idx,
+                                                  quantized=True)
+    fwd_ms = timer(lambda: dlrm_forward(qparams, cfg, dense, idx))
+    emit({"phase": "forward_quantized", "row_format": "int8", "B": b,
+          "emb_gb": (codes.numel() + 4 * scales.numel()) / 1e9,
+          "launches": {"gather_pool_dequant": launches},
+          "logits_vs_plain_max_abs_err": lerr,
+          "logits_vs_bf16_tables_max_abs_err":
+              float((logits - bf16_logits).abs().max()),
+          "forward_ms": fwd_ms, "kernel": rec})
     return rec, launches
 
 
@@ -406,23 +651,49 @@ def main():
         n_tables=serve_cfg.n_tables, rows_per_table=serve_cfg.rows_per_table,
         n_accesses=8 * per_batch, seed=0, drift_every=10**9))
     capacity = int(0.2 * trace.unique_count())
+    # The same fast-tier bytes re-spent as quantized rows (the CLI's
+    # --quantize conversion): 185,651 x 512 B / 132 B.
+    qcapacity = capacity * fast_row_bytes(full.emb_dim, np.float32, False) \
+        // fast_row_bytes(full.emb_dim, np.float32, True, "int8")
     fwd_b = 256
 
     main_recs = phase_kernels(timer, trace.global_id[:per_batch], capacity,
                               full.n_tables * serve_cfg.rows_per_table,
                               fwd_b, full)
+    main_recs.update(phase_quant_kernels(timer, trace.global_id[:per_batch],
+                                         qcapacity, full))
     phase_parity()
-    serve_launches = phase_serve(serve_cfg, trace, capacity, batch_queries)
+    int8 = dict(quantize=True, row_format="int8")
+    serve_launches = phase_serve(serve_cfg, trace, [
+        ("fp32", "lru", capacity, {}),
+        ("fp32", "recmg", capacity, {}),
+        ("int8", "lru", qcapacity, int8),
+        ("int8", "recmg", qcapacity, int8),
+        ("fp8", "lru", qcapacity, dict(quantize=True, row_format="fp8")),
+        ("int8-multi_table", "lru", qcapacity, dict(multi_table=True, **int8)),
+    ], batch_queries)
     del trace
-    pool_rec, pool_launches = phase_forward(timer, full, fwd_b)
+    pool_rec, pool_launches, qpool_rec, qpool_launches = phase_forward(
+        timer, full, fwd_b)
 
-    expand = main_recs["gather_rows_expand"]
     kernels = []
-    for name, rec, n, replaces in (
-            ("gather_rows_expand", expand, serve_launches, TPU_GATHER_ROWS),
-            ("gather_pool", pool_rec, pool_launches, TPU_GATHER_POOL)):
+    for name, rec, n, src, replaces in (
+            ("gather_rows_expand", main_recs["gather_rows_expand"],
+             serve_launches["gather_rows_expand"], CU_SOURCE,
+             TPU_GATHER_ROWS),
+            ("gather_pool", pool_rec, pool_launches, CU_SOURCE,
+             TPU_GATHER_POOL),
+            ("quantize_scatter", main_recs["quantize_scatter"],
+             serve_launches["quantize_scatter"], CU_QUANT_SOURCE,
+             TPU_QUANTIZE_ROWS),
+            ("gather_rows_dequant_expand",
+             main_recs["gather_rows_dequant_expand"],
+             serve_launches["gather_rows_dequant_expand"], CU_QUANT_SOURCE,
+             TPU_GATHER_ROWS_DEQUANT),
+            ("gather_pool_dequant", qpool_rec, qpool_launches,
+             CU_QUANT_SOURCE, TPU_GATHER_POOL_DEQUANT)):
         kernels.append({
-            "name": name, "route": "cuda", "source": CU_SOURCE,
+            "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -21,19 +21,27 @@ What changed with the device:
   to request order and folds in overflow rows staged from the host (the
   JAX store's ``_JIT_GATHER`` / ``_JIT_GATHER_OV`` programs).  On the CPU
   the plain PyTorch version runs.
+* ``quantize=True`` keeps the fast tier as one byte per element (int8, or
+  fp8 e4m3 with ``row_format="fp8"``) plus one fp32 scale per row, ``D + 4``
+  bytes a row.  An admit is one :func:`~repro_torch.kernels.ops.
+  quantize_scatter` (per-row scale, codes and both scatters in one launch:
+  the JAX store's ``_kernel_scatter_q`` / ``_JIT_SCATTER_Q``), a read one
+  :func:`~repro_torch.kernels.ops.gather_rows_dequant_expand` that returns
+  fp32 rows, overflow rows staged in fp32 (``_JIT_GATHER_Q`` /
+  ``_JIT_GATHER_Q_OV``).  The codes equal the JAX store's; the scales
+  equal its jnp reference's, from which its jitted quantizer can differ by
+  one ulp.
 * The power-of-two padding of both index vectors and of the scatter is
   gone: it existed only to stop XLA from recompiling per batch shape, and
   PyTorch runs eagerly.
 * ``lookup`` ends in ``torch.cuda.synchronize`` on the card, so
   ``gather_s`` keeps its meaning (host-side dispatch plus device time).
-
-The quantized fast tier is not ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +49,8 @@ import torch
 from repro_torch.core.buffer_manager import RecMGBuffer
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ROW_FORMATS, gather_rows_dequant_ref
 from repro_torch.obs.tracing import get_tracer
-
-# Quantized fast-tier row formats (the byte accounting below covers them;
-# the quantized store itself is ROADMAP A7).
-_ROW_FORMATS = ("int8", "fp8")
 
 
 def fast_row_bytes(d: int, host_dtype, quantize: bool,
@@ -54,9 +59,9 @@ def fast_row_bytes(d: int, host_dtype, quantize: bool,
     rows, ``d * 1 + 4`` for the quantized formats (1-byte elements + one
     fp32 scale) — the accounting the byte-budget facades split on."""
     if quantize:
-        if row_format not in _ROW_FORMATS:
+        if row_format not in ROW_FORMATS:
             raise ValueError(f"unknown row_format {row_format!r} "
-                             f"(expected one of {sorted(_ROW_FORMATS)})")
+                             f"(expected one of {sorted(ROW_FORMATS)})")
         return d + 4
     return d * np.dtype(host_dtype).itemsize
 
@@ -136,26 +141,44 @@ class TieredEmbeddingStore:
     def __init__(self, host_table: np.ndarray, capacity: int,
                  policy: str = "lru", eviction_speed: int = 4,
                  fetch_us_per_row: float = 10.0, fetch_us_fixed: float = 30.0,
-                 quantize: bool = False, warmup_batch: int = 0,
-                 device="cuda"):
+                 quantize: bool = False, row_format: Optional[str] = None,
+                 warmup_batch: int = 0, device="cuda"):
         """``device``: where the fast tier lives; ``"cuda"`` by default,
         and it raises when CUDA is absent (pass ``"cpu"`` explicitly).
 
-        ``warmup_batch``: load (or build) the gather kernel and launch it
-        once at this batch size at construction, off the measured path
-        (see :meth:`warmup`); 0 skips the warmup."""
-        if quantize:
-            raise NotImplementedError(
-                "the quantized fast tier (quantize=True) is not ported to "
-                "repro_torch yet: ROADMAP A7")
+        ``quantize=True``: quantized rows plus one fp32 scale each in the
+        fast tier, ``D + 4`` bytes per resident row instead of ``D *
+        itemsize``; ``lookup`` then returns fp32 rows.  ``row_format``
+        picks the storage format (``"int8"`` by default, or ``"fp8"`` =
+        float8_e4m3fn); passing it without ``quantize=True`` is an error.
+
+        ``warmup_batch``: load (or build) the kernels and launch them once
+        at this batch size at construction, off the measured path (see
+        :meth:`warmup`); 0 skips the warmup."""
         self.device = resolve_device(device)
         self.host = host_table
         n, d = host_table.shape
         self.capacity = max(1, int(capacity))  # same clamp as RecMGBuffer
-        self.buffer = torch.zeros(
-            (self.capacity, d),
-            dtype=torch.from_numpy(np.zeros(0, host_table.dtype)).dtype,
-            device=self.device)
+        self.quantize = quantize
+        if row_format is not None and not quantize:
+            raise ValueError("row_format requires quantize=True "
+                             "(fp32 rows have no storage format knob)")
+        self.row_format = row_format or "int8"
+        if self.row_format not in ROW_FORMATS:
+            raise ValueError(f"unknown row_format {self.row_format!r} "
+                             f"(expected one of {sorted(ROW_FORMATS)})")
+        if quantize:
+            self.buffer = torch.zeros((self.capacity, d),
+                                      dtype=ROW_FORMATS[self.row_format][0],
+                                      device=self.device)
+            self.scales = torch.zeros((self.capacity,), dtype=torch.float32,
+                                      device=self.device)
+        else:
+            self.buffer = torch.zeros(
+                (self.capacity, d),
+                dtype=torch.from_numpy(np.zeros(0, host_table.dtype)).dtype,
+                device=self.device)
+            self.scales = None
         # -------- array-backed residency state (see module docstring) -----
         self._slot_map = np.full(n, -1, np.int32)
         self._slot_key = np.full(self.capacity, -1, np.int64)
@@ -176,7 +199,8 @@ class TieredEmbeddingStore:
         self.fetch_us_fixed = fetch_us_fixed
         self.stats = TierStats()
         self._staged: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
-        self._out_np_dtype = np.dtype(host_table.dtype)
+        self._out_np_dtype = np.dtype(
+            np.float32 if quantize else host_table.dtype)
         if warmup_batch:
             self.warmup(warmup_batch)
 
@@ -212,7 +236,11 @@ class TieredEmbeddingStore:
         n_res = int(np.count_nonzero(res))
         if n_res:
             s = _to_device(slots[res].astype(np.int64), self.device)
-            out[res] = self.buffer[s].cpu().numpy()
+            if self.quantize:
+                rows = gather_rows_dequant_ref(self.buffer, self.scales, s)
+            else:
+                rows = self.buffer[s]
+            out[res] = rows.cpu().numpy()
         return out, int(ids.size) - n_res
 
     def check_invariants(self):
@@ -238,17 +266,27 @@ class TieredEmbeddingStore:
 
     def warmup(self, batch_hint: int):
         """Load (or build) the gather kernel and launch it once, expanding
-        slot 0 to ``batch_hint`` rows, and run one no-op scatter (slot 0
-        rewritten with its own row), so the library load, the module load
-        and the first allocation of a batch-sized output land here instead
-        of inside a measured batch.  The JAX store compiled its shape
-        buckets here."""
+        slot 0 to ``batch_hint`` rows, and run one scatter that changes no
+        stored value, so the library load, the module load and the first
+        allocation of a batch-sized output land here instead of inside a
+        measured batch.  The JAX store compiled its shape buckets here.
+
+        The fp32 scatter rewrites slot 0 with its own row.  The quantized
+        one quantizes slot 0's dequantized row into a one-row scratch
+        buffer, so no stored code or scale changes."""
         dev = self.device
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
         inv = torch.zeros(max(int(batch_hint), 1), dtype=torch.int32,
                           device=dev)
-        ops.gather_rows_expand(self.buffer, zero, inv)
-        self.buffer.index_copy_(0, zero.long(), self.buffer[0:1].clone())
+        if self.quantize:
+            row0 = ops.gather_rows_dequant_expand(self.buffer, self.scales,
+                                                  zero, inv)[:1].clone()
+            ops.quantize_scatter(torch.empty_like(self.buffer[:1]),
+                                 torch.empty_like(self.scales[:1]), zero,
+                                 row0, self.row_format)
+        else:
+            ops.gather_rows_expand(self.buffer, zero, inv)
+            self.buffer.index_copy_(0, zero.long(), self.buffer[0:1].clone())
         synchronize(dev)
 
     # ---------------- slot allocation / eviction ----------------
@@ -496,13 +534,18 @@ class TieredEmbeddingStore:
         dev = self.device
         slots = np.maximum(slots_u, 0).astype(np.int32)
         overflow = slots_u < 0
-        args = [self.buffer, _to_device(slots, dev),
-                _to_device(inv.astype(np.int32), dev)]
+        args = [_to_device(slots, dev), _to_device(inv.astype(np.int32), dev)]
         if overflow.any():
+            # Overflow rows come straight from the host tier, in the
+            # output's dtype (fp32 under quantize: never quantized).
             hrows = np.zeros((u, self.host.shape[1]), self._out_np_dtype)
             hrows[overflow] = self.host[uniq[overflow]]
             args += [_to_device(overflow, dev), _to_device(hrows, dev)]
-        out = ops.gather_rows_expand(*args)
+        if self.quantize:
+            out = ops.gather_rows_dequant_expand(self.buffer, self.scales,
+                                                 *args)
+        else:
+            out = ops.gather_rows_expand(self.buffer, *args)
         if tr.enabled:
             tr.add_span("store", "gather", t_gather,
                         tr.clock.now() - t_gather, track="store",
@@ -522,6 +565,14 @@ class TieredEmbeddingStore:
         # In-place scatter of the admitted rows.  The JAX store padded it
         # to a power-of-two length only to stop XLA from recompiling.
         if not len(slots):
+            return
+        if self.quantize:
+            # Quantize and scatter codes and scales in one launch.
+            ops.quantize_scatter(
+                self.buffer, self.scales,
+                _to_device(np.asarray(slots, np.int32), self.device),
+                _to_device(np.asarray(rows, np.float32), self.device),
+                self.row_format)
             return
         self.buffer.index_copy_(
             0, _to_device(np.asarray(slots, np.int64), self.device),

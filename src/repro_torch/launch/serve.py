@@ -2,10 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --policy lru
 
-Ported from ``src/repro/launch/serve.py``: the synchronous single-store
-path.  Pipeline per inference batch (paper Fig. 6):
+Ported from ``src/repro/launch/serve.py``: the synchronous path, through
+one store or the per-table facade (``--multi-table``), with fp32 or
+quantized (``--quantize [--row-format fp8]``) fast-tier rows.  Pipeline per
+inference batch (paper Fig. 6):
   1. embedding lookups go through the TieredEmbeddingStore (device buffer
-     backed by the host-tier table; one fused CUDA gather per batch);
+     backed by the host-tier table; one fused CUDA gather per batch, one
+     per table hit under ``--multi-table``);
   2. the rows are sum-pooled and the DLRM dense forward runs on the device;
   3. between batches, the RecMG model outputs for the *previous* chunk are
      staged and applied (Algorithm 1), pipelined one batch ahead.
@@ -27,7 +30,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.model_runtime import OutputsRef
 from repro_torch.core.recmg import RecMGOutputs, frequency_outputs
-from repro_torch.core.tiered import TieredEmbeddingStore
+from repro_torch.core.serving import MultiTableTieredStore
+from repro_torch.core.tiered import TieredEmbeddingStore, fast_row_bytes
 from repro_torch.core.trace import Trace, TraceGenConfig, generate_trace
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models.dlrm import _mlp, init_dlrm, interact_top, torch_dtype
@@ -37,9 +41,21 @@ from repro_torch.obs.tracing import get_tracer
 
 def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
                 outputs: Optional[RecMGOutputs], batch_queries: int = 64,
-                fetch_us_per_row: float = 10.0, log=None, device="cuda",
-                collect_logits: bool = False) -> Dict:
+                fetch_us_per_row: float = 10.0, multi_table: bool = False,
+                quantize: bool = False, row_format: Optional[str] = None,
+                log=None, device="cuda", collect_logits: bool = False
+                ) -> Dict:
     """Replay a trace as DLRM inference batches through the tiered store.
+
+    ``quantize=True`` stores the fast tier quantized (``row_format``:
+    ``"int8"`` default or ``"fp8"``) with per-row fp32 scales — ``D + 4``
+    bytes per resident row instead of ``D * 4`` (``capacity`` here is
+    still in rows; the CLI's ``--quantize`` converts the byte budget
+    implied by ``--capacity-frac`` into the larger quantized row count).
+
+    ``multi_table=True`` serves through the per-table facade (one batched
+    store per sparse feature under the shared row budget) instead of one
+    monolithic store; the result gains ``per_table_hit_rates``.
 
     ``params`` must live on ``device`` (``"cuda"`` by default; it raises
     when CUDA is absent).  ``collect_logits=True`` adds ``"logits"``, the
@@ -54,9 +70,17 @@ def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
     pol = "recmg" if policy == "recmg" else "lru"
     # The warm-up (kernel library load and one launch at the batch's size)
     # runs at construction, off the measured path.
-    store = TieredEmbeddingStore(host, capacity, policy=pol,
-                                 fetch_us_per_row=fetch_us_per_row,
-                                 warmup_batch=per_batch, device=dev)
+    if multi_table:
+        store = MultiTableTieredStore.from_global_table(
+            host, trace.rows_per_table, capacity=capacity, policy=pol,
+            quantize=quantize, row_format=row_format,
+            fetch_us_per_row=fetch_us_per_row, warmup_batch=per_batch,
+            device=dev)
+    else:
+        store = TieredEmbeddingStore(
+            host, capacity, policy=pol, quantize=quantize,
+            row_format=row_format, fetch_us_per_row=fetch_us_per_row,
+            warmup_batch=per_batch, device=dev)
 
     gid = trace.global_id
     rng = np.random.default_rng(1)
@@ -154,6 +178,9 @@ def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
     # Synchronous serving: every on-demand fetch sits on the critical
     # path, so the stall is the whole modeled slow-tier cost.
     st["on_demand_stall_ms"] = round(store.stats.modeled_fetch_s * 1e3, 3)
+    if multi_table:
+        st["per_table_hit_rates"] = [
+            round(h, 4) for h in store.per_table_hit_rates()]
     reg = MetricsRegistry()
     store.publish_metrics(reg)
     st["metrics"] = reg.snapshot()
@@ -174,14 +201,12 @@ def _dense_forward(params, cfg, dense, pooled):
 # Flags whose subsystem is not ported yet, with the ROADMAP item that
 # ports it.  Each raises NotImplementedError when set.
 _NOT_PORTED = (
-    ("multi_table", "--multi-table", "A8 (MultiTableTieredStore)"),
     ("shards", "--shards", "A10 (sharded + fault path)"),
     ("fault_plan", "--fault-plan", "A10 (sharded + fault path)"),
     ("replicate_hot", "--replicate-hot", "A10 (sharded + fault path)"),
     ("async_prefetch", "--async-prefetch", "A12 (pipelined runtime)"),
     ("overload", "--overload", "A12 (pipelined runtime)"),
     ("adapt", "--adapt", "A12 (pipelined runtime)"),
-    ("quantize", "--quantize", "A7 (quantized fast tier)"),
     ("workload", "--workload", "A6 (workloads)"),
 )
 
@@ -253,6 +278,15 @@ def main(argv=None):
         n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
         n_accesses=args.accesses, drift_every=10**9))
     capacity = int(args.capacity_frac * trace.unique_count())
+    if args.quantize:
+        # Hold the byte budget fixed: re-spend the fp32 budget implied by
+        # --capacity-frac as quantized rows (D + 4 bytes each).
+        fp32_bytes = capacity * fast_row_bytes(cfg.emb_dim, np.float32,
+                                               False)
+        capacity = fp32_bytes // fast_row_bytes(cfg.emb_dim, np.float32,
+                                                True, args.row_format)
+        print(f"quantize({args.row_format}): {fp32_bytes} fast-tier bytes "
+              f"-> {capacity} resident rows")
     outputs = (frequency_outputs(trace, capacity)
                if args.policy == "recmg" else None)
 
@@ -265,8 +299,12 @@ def main(argv=None):
         install_tracer(tracer)
     try:
         res = serve_trace(cfg, params, trace, capacity, args.policy, outputs,
-                          batch_queries=args.batch_queries, log=print,
-                          device=dev)
+                          batch_queries=args.batch_queries,
+                          multi_table=args.multi_table,
+                          quantize=args.quantize,
+                          row_format=(args.row_format if args.quantize
+                                      else None),
+                          log=print, device=dev)
     finally:
         if tracer is not None:
             install_tracer(None)

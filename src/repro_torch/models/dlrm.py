@@ -13,6 +13,12 @@ JAX layout ``(in, out)`` and apply as ``x @ w + b``, so
 ``jax.random``'s, so the parity tests load JAX's parameters through
 :func:`params_from_jax`.  ``embedding_lookup_rowsharded`` comes with the
 sharded slice.
+
+:func:`quantize_tables` stores the tables as the quantized fast tier does
+(int8 or fp8 codes and one fp32 scale per row, ``emb_scales`` (T, R)
+beside ``emb``); :func:`dlrm_forward` then pools through the dequantizing
+gather, the caller the JAX package's ``gather_pool_dequant`` kernel was
+written for.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ROW_FORMATS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -101,6 +108,19 @@ def params_from_jax(tree, device="cuda") -> Dict:
     }
 
 
+def _flat_ids(sparse_idx: torch.Tensor, t: int, r: int,
+              dev: torch.device) -> torch.Tensor:
+    """(B, T, P) per-table ids -> (B*T, P) int32 ids into the (T*R, D)
+    view of the tables: a negative id counts from the end of its table,
+    one out of range is clamped (``jnp`` indexing), then table t is offset
+    by t*R."""
+    ids = sparse_idx.to(torch.int32)
+    ids = torch.where(ids < 0, ids + r, ids).clamp(0, r - 1)
+    off = torch.arange(t, device=dev, dtype=torch.int32) * r
+    b, _, p = ids.shape
+    return (ids + off[None, :, None]).reshape(b * t, p).contiguous()
+
+
 def embedding_lookup(emb: torch.Tensor, sparse_idx: torch.Tensor
                      ) -> torch.Tensor:
     """emb: (T, R, D); sparse_idx: (B, T, P) int -> pooled (B, T, D) in
@@ -113,14 +133,39 @@ def embedding_lookup(emb: torch.Tensor, sparse_idx: torch.Tensor
     path yields it.  Ids index their own table as ``jnp`` indexing does:
     a negative id counts from the end, and one out of range is clamped."""
     t, r, d = emb.shape
-    b = sparse_idx.shape[0]
-    ids = sparse_idx.to(torch.int32)
-    ids = torch.where(ids < 0, ids + r, ids).clamp(0, r - 1)
-    off = torch.arange(t, device=emb.device, dtype=torch.int32) * r
-    flat = ids + off[None, :, None]
     pooled = ops.gather_pool(emb.reshape(t * r, d),
-                             flat.reshape(b * t, -1).contiguous())
-    return pooled.reshape(b, t, d).to(emb.dtype)
+                             _flat_ids(sparse_idx, t, r, emb.device))
+    return pooled.reshape(-1, t, d).to(emb.dtype)
+
+
+def quantize_tables(params, row_format: str = "int8"):
+    """``params`` with ``emb`` (T, R, D) replaced by its per-row quantized
+    codes and ``emb_scales`` (T, R) fp32 added, on the tables' device.
+    One :func:`repro_torch.kernels.ops.quantize_scatter` per table, so only
+    one table at a time exists in fp32."""
+    emb = params["emb"]
+    t, r, d = emb.shape
+    codes = torch.empty((t, r, d), dtype=ROW_FORMATS[row_format][0],
+                        device=emb.device)
+    scales = torch.empty((t, r), dtype=torch.float32, device=emb.device)
+    slots = torch.arange(r, dtype=torch.int32, device=emb.device)
+    for i in range(t):
+        ops.quantize_scatter(codes[i], scales[i], slots, emb[i].float(),
+                             row_format)
+    return {**params, "emb": codes, "emb_scales": scales}
+
+
+def embedding_lookup_dequant(codes: torch.Tensor, scales: torch.Tensor,
+                             sparse_idx: torch.Tensor) -> torch.Tensor:
+    """codes: (T, R, D) int8/fp8; scales: (T, R); sparse_idx: (B, T, P)
+    int -> pooled (B, T, D) fp32, ``sum_p code * scale``: one call of
+    :func:`repro_torch.kernels.ops.gather_pool_dequant` over the flattened
+    tables, ids handled as in :func:`embedding_lookup`."""
+    t, r, d = codes.shape
+    pooled = ops.gather_pool_dequant(codes.reshape(t * r, d),
+                                     scales.reshape(t * r),
+                                     _flat_ids(sparse_idx, t, r, codes.device))
+    return pooled.reshape(-1, t, d)
 
 
 def interact_top(params, bot: torch.Tensor, pooled: torch.Tensor
@@ -145,8 +190,13 @@ def interact_top(params, bot: torch.Tensor, pooled: torch.Tensor
 def dlrm_forward(params, cfg: ModelConfig, dense: torch.Tensor,
                  sparse_idx: torch.Tensor) -> torch.Tensor:
     """dense: (B, F_dense) f32; sparse_idx: (B, T, P) int -> logits (B,)
-    fp32, with the tables in device memory."""
+    fp32, with the tables in device memory (quantized ones if ``params``
+    came from :func:`quantize_tables`)."""
     ct = torch_dtype(cfg.compute_dtype)
     bot = _mlp(params["bottom"], dense.to(ct))
-    pooled = embedding_lookup(params["emb"].to(ct), sparse_idx)
+    if "emb_scales" in params:
+        pooled = embedding_lookup_dequant(params["emb"], params["emb_scales"],
+                                          sparse_idx)
+    else:
+        pooled = embedding_lookup(params["emb"].to(ct), sparse_idx)
     return interact_top(params, bot, pooled).float()

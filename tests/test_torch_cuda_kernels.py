@@ -6,7 +6,11 @@ file imports no JAX, so it runs on a machine that has none:
 
 Tolerances: the row gathers are pure copies, so bit-exact; the pooled
 gather sums P rows in fp32 in another order than ``torch.sum``, so fp32
-rtol 1e-5.
+rtol 1e-5.  Quantized tier: codes bit-exact, scales within one ulp (fp32
+rtol 2e-7; both sides divide with IEEE division, so 0 is expected); the
+dequantizing row gathers bit-exact (one multiply per element); the
+dequantizing pooled gather fp32 rtol/atol 1e-6 (each product rounded on its
+own and summed in the order p = 0..P-1 on both sides, so 0 is expected).
 """
 import numpy as np
 import pytest
@@ -14,15 +18,17 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.recmg import frequency_outputs
+from repro_torch.core.serving import MultiTableTieredStore
 from repro_torch.core.tiered import TieredEmbeddingStore
 from repro_torch.core.trace import TraceGenConfig, generate_trace
 from repro_torch.kernels import embedding_gather as eg
 from repro_torch.kernels import ref
-from repro_torch.models.dlrm import dlrm_forward, init_dlrm
+from repro_torch.models.dlrm import dlrm_forward, init_dlrm, quantize_tables
 
 pytestmark = pytest.mark.cuda
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+FORMATS = ("int8", "fp8")
 
 
 @pytest.fixture
@@ -136,3 +142,170 @@ def test_dlrm_forward_on_card_matches_cpu(dev):
     assert eg.gather_pool.launches == n0 + 1
     want = dlrm_forward(params, cfg, dense, idx)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Quantized fast tier.
+# ---------------------------------------------------------------------------
+
+def _rows(m, d, seed, spread=1e3):
+    """Rows of magnitudes within ``spread`` of 1 either way, with a zero
+    row, a row of half-integers whose int8 scale is exactly 1, and a row
+    whose absmax element lands on qmax."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, d))
+         * rng.uniform(1 / spread, spread, size=(m, 1))).astype(np.float32)
+    x[0] = 0.0
+    x[1] = (np.arange(d) % 16 - 8 + 0.5).astype(np.float32)
+    x[1, 0] = 127.0
+    x[2, d // 2] = -np.abs(x[2]).max() * 3
+    return torch.from_numpy(x)
+
+
+def _quantized(n, d, row_format, seed, dev):
+    q, s = ref.quantize_rows_ref(_rows(n, d, seed, spread=2.0), row_format)
+    return q.to(dev), s.to(dev)
+
+
+@pytest.mark.parametrize("d", [16, 128, 20])
+@pytest.mark.parametrize("row_format", FORMATS)
+def test_quantize_scatter_matches_plain(dev, row_format, d):
+    rows = _rows(500, d, 11).to(dev)
+    slots = torch.from_numpy(np.random.default_rng(12).permutation(700)[:500]
+                             .astype(np.int32)).to(dev)
+    qdt = ref.ROW_FORMATS[row_format][0]
+    bufs = [torch.zeros((700, d), dtype=qdt, device=dev) for _ in range(2)]
+    scales = [torch.full((700,), -1.0, device=dev) for _ in range(2)]
+    n0 = eg.quantize_scatter.launches
+    eg.quantize_scatter(bufs[0], scales[0], slots, rows, row_format)
+    ref.quantize_scatter_ref(bufs[1], scales[1], slots, rows, row_format)
+    torch.cuda.synchronize()
+    assert eg.quantize_scatter.launches == n0 + 1
+    assert torch.equal(bufs[0].view(torch.uint8), bufs[1].view(torch.uint8))
+    torch.testing.assert_close(scales[0], scales[1], rtol=2e-7, atol=0)
+
+
+@pytest.mark.parametrize("d", [16, 128, 20])
+@pytest.mark.parametrize("row_format", FORMATS)
+def test_gather_rows_dequant_bit_exact(dev, row_format, d):
+    q, s = _quantized(300, d, row_format, 13, dev)
+    idx = torch.from_numpy(np.random.default_rng(14).integers(
+        0, 300, 1000).astype(np.int32)).to(dev)
+    n0 = eg.gather_rows_dequant.launches
+    out = eg.gather_rows_dequant(q, s, idx)
+    torch.cuda.synchronize()
+    assert eg.gather_rows_dequant.launches == n0 + 1
+    assert torch.equal(out, ref.gather_rows_dequant_ref(q, s, idx))
+
+
+@pytest.mark.parametrize("with_ov", [False, True])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("row_format", FORMATS)
+def test_gather_rows_dequant_expand_bit_exact(dev, row_format, d, with_ov):
+    rng = np.random.default_rng(15)
+    q, s = _quantized(64, d, row_format, 16, dev)
+    u, m = 50, 700
+    slots = torch.from_numpy(rng.permutation(64)[:u].astype(np.int32)).to(dev)
+    inv = torch.from_numpy(rng.integers(0, u, m).astype(np.int32)).to(dev)
+    ov = hr = None
+    if with_ov:
+        ov = torch.from_numpy(rng.random(u) < 0.3).to(dev)
+        hr = _table(u, d, torch.float32, 17, dev)
+    n0 = eg.gather_rows_dequant_expand.launches
+    out = eg.gather_rows_dequant_expand(q, s, slots, inv, ov, hr)
+    torch.cuda.synchronize()
+    assert eg.gather_rows_dequant_expand.launches == n0 + 1
+    assert torch.equal(out, ref.gather_rows_dequant_expand_ref(
+        q, s, slots, inv, ov, hr))
+
+
+@pytest.mark.parametrize("d", [16, 128, 20])
+@pytest.mark.parametrize("row_format", FORMATS)
+def test_gather_pool_dequant_matches_plain(dev, row_format, d):
+    q, s = _quantized(500, d, row_format, 18, dev)
+    idx = torch.from_numpy(np.random.default_rng(19).integers(
+        0, 500, (97, 20)).astype(np.int32)).to(dev)
+    n0 = eg.gather_pool_dequant.launches
+    out = eg.gather_pool_dequant(q, s, idx)
+    torch.cuda.synchronize()
+    assert eg.gather_pool_dequant.launches == n0 + 1
+    torch.testing.assert_close(out, ref.gather_pool_dequant_ref(q, s, idx),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("multi_table", [False, True])
+@pytest.mark.parametrize("row_format", FORMATS)
+@pytest.mark.parametrize("policy", ["lru", "recmg"])
+def test_quantized_store_on_card_matches_cpu(dev, policy, row_format,
+                                             multi_table):
+    """The quantized store (alone, or behind the per-table facade) on the
+    card and on the CPU: equal counters, codes and rows, including
+    batches that overflow the buffer."""
+    trace = generate_trace(TraceGenConfig(
+        n_tables=4, rows_per_table=500, n_accesses=6000, seed=0,
+        drift_every=10**9))
+    host = np.random.default_rng(0).normal(
+        size=(int(trace.rows_per_table.sum()), 16)).astype(np.float32)
+    cap = 150
+    outs = frequency_outputs(trace, cap)
+    kw = dict(policy=policy, quantize=True, row_format=row_format,
+              warmup_batch=400)
+    if multi_table:
+        stores = [MultiTableTieredStore.from_global_table(
+            host, trace.rows_per_table, capacity=cap, device=d, **kw)
+            for d in ("cpu", dev)]
+    else:
+        stores = [TieredEmbeddingStore(host, cap, device=d, **kw)
+                  for d in ("cpu", dev)]
+    launches = (eg.quantize_scatter.launches,
+                eg.gather_rows_dequant_expand.launches)
+    per_batch = 400
+    for b in range(len(trace) // per_batch):
+        ids = trace.global_id[b * per_batch: (b + 1) * per_batch]
+        rows = [st.lookup(ids) for st in stores]
+        assert torch.equal(rows[0], rows[1].cpu())
+        bits = outs.caching_bits[b % len(outs.caching_bits)]
+        for st in stores:
+            st.stage_model_outputs(ids[-15:], bits, outs.prefetch_ids[b])
+            st.flush_staged()
+    keys = ("lookups", "hits", "misses", "prefetch_hits", "on_demand_rows",
+            "evictions")
+    assert [getattr(stores[0].stats, k) for k in keys] == \
+        [getattr(stores[1].stats, k) for k in keys]
+    subs = [st.stores if multi_table else [st] for st in stores]
+    for a, c in zip(*subs):
+        assert torch.equal(a.buffer.view(torch.uint8),
+                           c.buffer.view(torch.uint8).cpu())
+        assert torch.equal(a.scales, c.scales.cpu())
+    assert eg.quantize_scatter.launches > launches[0]
+    assert eg.gather_rows_dequant_expand.launches > launches[1]
+
+
+@pytest.mark.parametrize("row_format", FORMATS)
+def test_quantized_forward_on_card_matches_cpu(dev, row_format):
+    cfg = get_config("dlrm-recmg").reduced()
+    params = quantize_tables(init_dlrm(cfg, seed=0, device="cpu"),
+                             row_format)
+    on_card = quantize_tables(init_dlrm(cfg, seed=0, device="cpu"),
+                              row_format)
+    on_card = {"emb": on_card["emb"].to(dev),
+               "emb_scales": on_card["emb_scales"].to(dev),
+               **{k: {"w": [w.to(dev) for w in params[k]["w"]],
+                      "b": [b.to(dev) for b in params[k]["b"]]}
+                  for k in ("bottom", "top")}}
+    rng = np.random.default_rng(20)
+    dense = torch.from_numpy(rng.normal(size=(16, cfg.dense_features))
+                             .astype(np.float32))
+    idx = torch.from_numpy(rng.integers(
+        0, cfg.rows_per_table, (16, cfg.n_tables, cfg.multi_hot))
+        .astype(np.int32))
+    n0 = eg.gather_pool_dequant.launches
+    got = dlrm_forward(on_card, cfg, dense.to(dev), idx.to(dev))
+    assert eg.gather_pool_dequant.launches == n0 + 1
+    want = dlrm_forward(params, cfg, dense, idx)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    # quantize_tables on the card gives the CPU's codes.
+    card_q = quantize_tables({"emb": init_dlrm(cfg, seed=0, device="cpu")
+                              ["emb"].to(dev)}, row_format)
+    assert torch.equal(card_q["emb"].view(torch.uint8).cpu(),
+                       params["emb"].view(torch.uint8))

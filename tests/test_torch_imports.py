@@ -58,6 +58,7 @@ def test_source_imports_no_jax_and_no_repro(path):
 
 def _entry_points():
     from repro_torch.configs import get_config
+    from repro_torch.core.serving import MultiTableTieredStore
     from repro_torch.core.tiered import TieredEmbeddingStore
     from repro_torch.core.trace import TraceGenConfig, generate_trace
     from repro_torch.launch.serve import main, serve_trace
@@ -69,14 +70,19 @@ def _entry_points():
     return {
         "store": lambda: TieredEmbeddingStore(np.zeros((8, 4), np.float32),
                                               4),
+        "quantized_store": lambda: TieredEmbeddingStore(
+            np.zeros((8, 4), np.float32), 4, quantize=True),
+        "multi_table_store": lambda: MultiTableTieredStore(
+            [np.zeros((8, 4), np.float32)] * 2, capacity=4),
         "serve_trace": lambda: serve_trace(cfg, None, trace, 4, "lru", None),
         "init_dlrm": lambda: init_dlrm(cfg),
         "cli": lambda: main(["--policy", "lru", "--accesses", "500"]),
     }
 
 
-@pytest.mark.parametrize("entry", ["store", "serve_trace", "init_dlrm",
-                                   "cli"])
+@pytest.mark.parametrize("entry", ["store", "quantized_store",
+                                   "multi_table_store", "serve_trace",
+                                   "init_dlrm", "cli"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

@@ -105,13 +105,47 @@ def test_cli_recmg_frequency():
     assert res["policy"] == "recmg" and res["lookups"] > 0
 
 
+@pytest.mark.parametrize("argv", [
+    ["--quantize"],
+    ["--quantize", "--row-format", "fp8"],
+], ids=["int8", "fp8"])
+def test_cli_quantize_spends_the_same_bytes_as_jax(argv, capsys):
+    """``--quantize`` re-spends the fp32 byte budget of --capacity-frac as
+    quantized rows and prints the same line as the JAX CLI; the counters
+    of the two runs are equal."""
+    from repro.launch.serve import main as jax_main
+
+    common = ["--policy", "lru", "--accesses", "3000", "--batch-queries",
+              "4", *argv]
+    res = main(["--device", "cpu", *common])
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith("quantize(")]
+    want_res = jax_main(common)
+    want = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("quantize(")]
+    assert got == want and len(got) == 1
+    fmt = argv[-1] if len(argv) > 1 else "int8"
+    assert got[0].startswith(f"quantize({fmt}): ")
+    keys = ("batches", "lookups", "hits", "misses", "on_demand_rows",
+            "evictions")
+    assert {k: res[k] for k in keys} == {k: want_res[k] for k in keys}
+
+
+def test_cli_multi_table():
+    res = main(["--device", "cpu", "--policy", "recmg", "--model",
+                "frequency", "--multi-table", "--accesses", "3000",
+                "--batch-queries", "4"])
+    cfg = get_config("dlrm-recmg").reduced()
+    assert len(res["per_table_hit_rates"]) == cfg.n_tables
+    assert res["hits"] + res["misses"] == res["lookups"] > 0
+    assert res["metrics"]["gauges"]["tables.n_tables"] == cfg.n_tables
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--multi-table"], "A8"),
     (["--shards", "2"], "A10"),
     (["--async-prefetch"], "A12"),
     (["--overload", "2"], "A12"),
     (["--adapt"], "A12"),
-    (["--quantize"], "A7"),
     (["--workload", "zipf_hot"], "A6"),
     (["--fault-plan", "kill:1@mid"], "A10"),
     (["--model", "learned"], "A9"),

@@ -86,10 +86,90 @@ def test_lookup_host_and_metrics(trace):
     assert fast_row_bytes(16, np.float32, True, "fp8") == 20
 
 
-def test_quantized_store_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A7"):
-        TieredEmbeddingStore(np.zeros((8, 16), np.float32), 4,
-                             quantize=True, device="cpu")
+def _codes(buf):
+    """A code buffer (JAX or torch) as its bytes."""
+    if isinstance(buf, torch.Tensor):
+        return buf.view(torch.uint8).numpy()
+    return np.asarray(buf).view(np.uint8)
+
+
+@pytest.mark.parametrize("row_format", ["int8", "fp8"])
+@pytest.mark.parametrize("policy", ["lru", "recmg"])
+def test_quantized_store_matches_jax_store(trace, policy, row_format):
+    """The quantized store side by side with the JAX one, through batches
+    that overflow the buffer.  Counters and residency are equal; the codes
+    at every resident slot are equal; the scales differ by at most one
+    ulp (the JAX store's jitted quantizer rounds its scale division
+    differently from the jnp reference, which the port's matches), so the
+    fp32 rows agree within rtol 2.4e-7 (two ulps)."""
+    capacity, per_batch = 60, 240
+    host = np.random.default_rng(0).normal(
+        size=(int(trace.rows_per_table.sum()), 16)).astype(np.float32)
+    kw = dict(policy=policy, quantize=True, row_format=row_format)
+    jax_store = JaxStore(host, capacity, warmup_batch=per_batch, **kw)
+    store = TieredEmbeddingStore(host, capacity, warmup_batch=per_batch,
+                                 device="cpu", **kw)
+    assert store.buffer.dtype == (torch.int8 if row_format == "int8"
+                                  else torch.float8_e4m3fn)
+    outs = frequency_outputs(trace, capacity)
+    gid = trace.global_id
+    probe = np.random.default_rng(1).integers(0, host.shape[0], 64)
+    bound = {"int8": 1 / 127, "fp8": 1 / 16}[row_format]
+    for b in range(len(gid) // per_batch):
+        ids = gid[b * per_batch: (b + 1) * per_batch]
+        assert np.unique(ids).size > capacity  # every batch overflows
+        want = np.asarray(jax_store.lookup(ids))
+        got = store.lookup(ids)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=2.4e-7, atol=0)
+        amax = np.abs(host[ids]).max(axis=1)
+        assert (np.abs(got.numpy() - host[ids]).max(axis=1)
+                <= amax * bound + 1e-6).all()
+        c = b % len(outs.chunk_starts)
+        item = (gid[max(0, b * per_batch - 15): b * per_batch],
+                outs.caching_bits[c], outs.prefetch_ids[c])
+        jax_store.stage_model_outputs(*item)
+        store.stage_model_outputs(*item)
+        jax_store.flush_staged()
+        store.flush_staged()
+        for k in COUNTERS:
+            assert getattr(store.stats, k) == getattr(jax_store.stats, k), k
+        store.check_invariants()
+        np.testing.assert_array_equal(store._slot_map, jax_store._slot_map)
+        res = np.flatnonzero(store._slot_key >= 0)
+        np.testing.assert_array_equal(_codes(store.buffer)[res],
+                                      _codes(jax_store.buffer)[res])
+        np.testing.assert_allclose(store.scales.numpy()[res],
+                                   np.asarray(jax_store.scales)[res],
+                                   rtol=2e-7, atol=0)
+        r_jax, n_jax = jax_store.lookup_resident(probe)
+        r, n = store.lookup_resident(probe)
+        assert n == n_jax and r.dtype == np.float32
+        np.testing.assert_allclose(r, r_jax, rtol=2.4e-7, atol=0)
+    # Warm-up changes no stored value and no counter.
+    ids = gid[:per_batch]
+    codes, scales = store.buffer.clone(), store.scales.clone()
+    before, n_before = store.lookup_resident(ids)
+    stats = store.stats.as_dict()
+    store.warmup(1024)
+    assert torch.equal(store.buffer.view(torch.uint8),
+                       codes.view(torch.uint8))
+    assert torch.equal(store.scales, scales)
+    after, n_after = store.lookup_resident(ids)
+    np.testing.assert_array_equal(after, before)
+    assert n_after == n_before and store.stats.as_dict() == stats
+
+
+def test_quantized_store_arguments():
+    host = np.zeros((8, 16), np.float32)
+    with pytest.raises(ValueError, match="requires quantize=True"):
+        TieredEmbeddingStore(host, 4, row_format="fp8", device="cpu")
+    with pytest.raises(ValueError, match="unknown row_format"):
+        TieredEmbeddingStore(host, 4, quantize=True, row_format="int4",
+                             device="cpu")
+    st = TieredEmbeddingStore(host, 4, quantize=True, device="cpu")
+    assert st.row_format == "int8" and st.scales.shape == (4,)
+    assert st.lookup_host(np.arange(3)).dtype == np.float32
 
 
 @pytest.mark.parametrize("cfg", [
