@@ -34,7 +34,28 @@ widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs):
    ``infer_6k``: the (B, 857, 857) fp32 interaction alone is 18 GB there),
    against the plain lookup on the card; then the same forward with the
    tables quantized to int8 (8 GB), which pools through
-   ``gather_pool_dequant``.
+   ``gather_pool_dequant``;
+7. the learned models' kernels vs plain on the card: ``lstm_cell`` at the
+   inference (B=4096) and training (B=256) shapes for the encoder (K=67)
+   and decoder (K=120) layers, H=40, within fp32 abs 1e-5 on h', c' and
+   the gates; ``chamfer`` at the training shape (B=256, P=5, W=15, F=25)
+   and at B=65,536, the loss within rtol 1e-5 and the argmins equal; each
+   timed beside its bound and, for ``lstm_cell``, ``torch.lstm_cell``;
+   then the gradients through both autograd Functions against autograd
+   through the plain versions (max abs error within 1e-6 + 1e-4 times the
+   gradient's largest entry);
+8. learned parity on the golden fixture: the caching, prefetch and Voyager
+   models trained on the card (1 epoch), their outputs computed on the card
+   and, from the same parameters, on the CPU: decisions equal except where
+   a logit or a nearest-candidate margin is under 1e-4 (flips counted);
+   the card's outputs served on the CPU and on the card with identical
+   counters and logits within rtol/atol 1e-4;
+9. the CLI's default path at full width (``--model learned``, the widths
+   of ``src/repro/launch/serve.py:569-572``): both models trained on the
+   card on the first 2 of the 8 serve batches (1 epoch), their outputs over
+   the whole trace, served fp32 (185,651 rows) and int8 (720,100 rows);
+   the Voyager arm trained on the first batch and served fp32 on an LRU
+   store.
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
@@ -43,6 +64,7 @@ JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -56,12 +78,17 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.recmg import frequency_outputs  # noqa: E402
+from repro_torch.core.model_runtime import (  # noqa: E402
+    LearnedRecMGModel, train_voyager_arm, voyager_arm_outputs)
+from repro_torch.core.recmg import RecMGOutputs, frequency_outputs  # noqa: E402
 from repro_torch.core.tiered import fast_row_bytes  # noqa: E402
 from repro_torch.core.trace import TraceGenConfig, generate_trace  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import chamfer_kernel as ck  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg  # noqa: E402
-from repro_torch.launch.serve import _dense_forward, serve_trace  # noqa: E402
+from repro_torch.kernels import lstm_cell as lc  # noqa: E402
+from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
+                                      cli_learned_config, serve_trace)
 from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
                                      quantize_tables)
 
@@ -76,6 +103,10 @@ TPU_GATHER_POOL = "src/repro/kernels/embedding_gather.py:113"
 TPU_GATHER_ROWS_DEQUANT = "src/repro/kernels/embedding_gather.py:153"
 TPU_GATHER_POOL_DEQUANT = "src/repro/kernels/embedding_gather.py:192"
 TPU_QUANTIZE_ROWS = "src/repro/kernels/embedding_gather.py:229"
+CU_LSTM_SOURCE = "src/repro_torch/kernels/csrc/lstm_cell.cu"
+CU_CHAMFER_SOURCE = "src/repro_torch/kernels/csrc/chamfer.cu"
+TPU_LSTM_CELL = "src/repro/kernels/lstm_cell.py:54"
+TPU_CHAMFER = "src/repro/kernels/chamfer_kernel.py:42"
 # Why no single PyTorch call stands beside a quantized kernel.
 NO_LIBRARY = {
     "quantize_scatter": "no PyTorch call quantizes rows per row and "
@@ -86,10 +117,24 @@ NO_LIBRARY = {
                            "per-row scales",
     "gather_pool_dequant": "embedding_bag takes no int8/fp8 table with "
                            "per-row scales",
+    "chamfer": "no PyTorch call computes the bidirectional Chamfer",
 }
+# Every LSTM layer's (input width, hidden) on the learned path: hidden 40
+# for the caching model and the prefetch model (caching encoder and
+# prefetch enc1 27 -> K=67, both decoders of stack 1 80 -> K=120, prefetch
+# enc2 40 -> K=80, prefetch dec2 48 -> K=88) and the Voyager arm's encoder
+# (25 -> K=57 at hidden 32).
+LSTM_LAYERS = {"encoder": (27, 40), "decoder": (80, 40),
+               "prefetch_enc2": (40, 40), "prefetch_dec2": (48, 40),
+               "voyager_encoder": (25, 32)}
+CHAMFER_SHAPE = (5, 15, 25)  # P = out_len, W = window, F = rep_dim
 SERVE_KEYS = ("batches", "lookups", "hits", "misses", "prefetch_hits",
               "on_demand_rows", "evictions", "on_demand_stall_ms",
               "modeled_fetch_ms_per_batch")
+SERVE_REPORT = ("batches", "lookups", "hits", "misses", "hit_rate",
+                "on_demand_rows", "evictions", "prefetch_hits",
+                "p50_batch_ms", "p99_batch_ms", "mean_batch_ms", "gather_s",
+                "fetch_s", "model_s", "compute_ms")
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -105,7 +150,11 @@ def require(cond, msg):
 class Timer:
     """Median device time of ``fn`` over ``reps`` launches, timed with CUDA
     events, with the 50 MB L2 cache flushed before each one (the serving
-    path finds its tables cold)."""
+    path finds its tables cold).  A spin kernel after the flush keeps the
+    device busy while the host enqueues ``fn``, so the host's launch
+    overhead is not counted as device time."""
+
+    SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock
 
     def __init__(self, reps: int = 20):
         self.reps = reps
@@ -117,6 +166,7 @@ class Timer:
         pairs = []
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -158,6 +208,8 @@ def phase_build():
           "built": res["built"], "ptxas": ptxas})
     eg._lib()
     eg._qlib()
+    lc._lib()
+    ck._lib()
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +540,7 @@ def phase_serve(cfg, trace, runs, batch_queries):
     trace with the counts set to 0 just before and read just after; every
     kernel of the run's path must have launched.  Returns each kernel's
     launches summed over the runs of its path."""
-    launches = {}
+    launches, results = {}, {}
     params = init_dlrm(cfg, seed=0, device="cuda")
     for rows, policy, capacity, kw in runs:
         outputs = (frequency_outputs(trace, capacity)
@@ -510,19 +562,15 @@ def phase_serve(cfg, trace, runs, batch_queries):
         require(lg.shape == (res["batches"], batch_queries)
                 and np.isfinite(lg).all(),
                 f"serve ({rows}, {policy}): logits {lg.shape} not finite")
+        results[(rows, policy)] = res
         emit({"phase": "serve", "rows": rows, "policy": policy,
               "batch_queries": batch_queries,
               "ids_per_batch": batch_queries * cfg.n_tables * cfg.multi_hot,
               "capacity": capacity, "launches": n,
-              **{k: res[k] for k in ("batches", "lookups", "hits", "misses",
-                                     "hit_rate", "on_demand_rows",
-                                     "evictions", "prefetch_hits",
-                                     "p50_batch_ms", "p99_batch_ms",
-                                     "mean_batch_ms", "gather_s", "fetch_s",
-                                     "model_s", "compute_ms")}})
+              **{k: res[k] for k in SERVE_REPORT}})
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, results
 
 
 def phase_forward(timer, cfg, b):
@@ -630,6 +678,334 @@ def forward_quantized(timer, cfg, params, dense, idx, bf16_logits):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: the learned models' kernels, parity and full-width path.
+# ---------------------------------------------------------------------------
+
+def cuda_normal(shape, rng, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale)
+                            .astype(np.float32)).cuda()
+
+
+def lstm_inputs(b, in_dim, hid, seed):
+    """x, h, c, W, b of one LSTM step, W scaled like ``lstm_init``."""
+    rng = np.random.default_rng(seed)
+    k = in_dim + hid
+    return (cuda_normal((b, in_dim), rng), cuda_normal((b, hid), rng),
+            cuda_normal((b, hid), rng), cuda_normal((k, 4 * hid), rng,
+                                                    k ** -0.5),
+            cuda_normal((4 * hid,), rng, 0.5))
+
+
+def phase_learned_kernels(timer):
+    """``lstm_cell`` and ``chamfer`` against their plain versions at the
+    learned path's shapes.  Returns the records the kernels line takes:
+    ``lstm_cell`` at the inference shape of the decoder (B=4096, K=120, no
+    gates saved) and ``chamfer`` at the training shape (B=256)."""
+    main = {}
+    for b in (4096, 256):
+        train = b == 256  # training saves the gates for the backward
+        for layer, (in_dim, hid) in LSTM_LAYERS.items():
+            k = in_dim + hid
+            x, h, c, w, bias = lstm_inputs(b, in_dim, hid, b + k)
+            got = lc.lstm_cell(x, h, c, w, bias)
+            want = ref.lstm_cell_ref(x, h, c, w, bias)
+            w_ih, w_hh = w[:in_dim].t().contiguous(), w[in_dim:].t().contiguous()
+            b_hh = torch.zeros_like(bias)
+            lib = torch.lstm_cell(x, (h, c), w_ih, w_hh, bias, b_hh)
+            torch.cuda.synchronize()
+            errs = {n: float((g - r).abs().max())
+                    for n, g, r in zip(("h", "c", "gates"), got, want)}
+            err = max(errs.values())
+            require(err <= 1e-5, f"lstm_cell B={b} K={k}: max abs err "
+                                 f"{errs} > 1e-5")
+            rec = {"phase": "kernel", "name": "lstm_cell", "layer": layer,
+                   "B": b, "K": k, "H": hid, "saves_gates": train,
+                   "max_abs_err": err, "max_abs_err_by_output": errs,
+                   "library_max_abs_err": max(
+                       float((lib[0] - want[0]).abs().max()),
+                       float((lib[1] - want[1]).abs().max())),
+                   "ms": timer(lambda: lc.lstm_cell(x, h, c, w, bias,
+                                                    save_gates=train)),
+                   "plain_ms": timer(lambda: ref.lstm_cell_ref(x, h, c, w,
+                                                               bias)),
+                   "library_ms": timer(lambda: torch.lstm_cell(
+                       x, (h, c), w_ih, w_hh, bias, b_hh))}
+            n_bytes = 4 * (b * in_dim + 4 * b * hid + k * 4 * hid + 4 * hid
+                           + (b * 4 * hid if train else 0))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                n_bytes, 2 * b * k * 4 * hid)
+            emit(rec)
+            if b == 4096 and layer == "decoder":
+                main["lstm_cell"] = rec
+    n_p, n_w, n_f = CHAMFER_SHAPE
+    for b in (256, 65536):
+        rng = np.random.default_rng(b)
+        po = cuda_normal((b, n_p, n_f), rng)
+        w = cuda_normal((b, n_w, n_f), rng)
+        loss, af, ab = ck.chamfer(po, w, 0.7)
+        rl, raf, rab = ref.chamfer_ref(po, w, 0.7)
+        torch.cuda.synchronize()
+        rel = float(((loss - rl).abs() / rl.abs()).max())
+        args_equal = bool(torch.equal(af, raf) and torch.equal(ab, rab))
+        require(rel <= 1e-5, f"chamfer B={b}: max rel err {rel} > 1e-5")
+        require(args_equal, f"chamfer B={b}: argmins differ from plain")
+        rec = {"phase": "kernel", "name": "chamfer", "B": b, "P": n_p,
+               "W": n_w, "F": n_f, "max_abs_err": float((loss - rl).abs()
+                                                        .max()),
+               "max_rel_err": rel, "argmins_equal": args_equal,
+               "ms": timer(lambda: ck.chamfer(po, w, 0.7)),
+               "plain_ms": timer(lambda: ref.chamfer_ref(po, w, 0.7)),
+               "library_ms": None, "library_note": NO_LIBRARY["chamfer"]}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4 * b * ((n_p + n_w) * n_f + 1 + n_p + n_w),
+            3 * b * n_p * n_w * n_f)
+        emit(rec)
+        if b == 256:
+            main["chamfer"] = rec
+    return main
+
+
+def grads_close(got, want, what, rtol=1e-4, atol=1e-6) -> dict:
+    """Max abs difference of two gradients, required to be within ``atol +
+    rtol * max|want|``: the tolerance is scaled by the gradient's size, not
+    by each entry's, since an entry that sums 256 rows' products can
+    cancel to near zero while keeping the rounding of its terms.  Returns
+    the error, the scale it was held to, and how many entries the
+    elementwise ``atol + rtol * |want|`` would have refused."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    scale = float(want.abs().max())
+    require(err <= atol + rtol * scale,
+            f"{what}: max abs err {err} > {atol} + {rtol} * {scale}")
+    over = int((diff > atol + rtol * want.abs()).sum())
+    return {"max_abs_err": err, "scale": scale, "elementwise_over": over,
+            "entries": want.numel()}
+
+
+def phase_learned_grads():
+    """Gradients through the two autograd Functions (kernel forward,
+    PyTorch backward) against autograd through the plain versions, at the
+    training shapes, on the same inputs."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for layer, (in_dim, hid) in LSTM_LAYERS.items():
+        ins = [t.requires_grad_() for t in lstm_inputs(256, in_dim, hid, 7)]
+        gh = cuda_normal((256, hid), rng)
+        gc = cuda_normal((256, hid), rng)
+        h2, c2 = ops.lstm_cell(*ins)
+        ((h2 * gh).sum() + (c2 * gc).sum()).backward()
+        plain = [t.detach().clone().requires_grad_() for t in ins]
+        ph, pc, _ = ref.lstm_cell_ref(*plain)
+        ((ph * gh).sum() + (pc * gc).sum()).backward()
+        for name, t, p in zip(("x", "h", "c", "w", "b"), ins, plain):
+            out[f"lstm_cell_{layer}_{name}"] = grads_close(
+                t.grad, p.grad, f"lstm_cell {layer} grad {name}")
+    n_p, n_w, n_f = CHAMFER_SHAPE
+    po = cuda_normal((256, n_p, n_f), rng).requires_grad_()
+    w = cuda_normal((256, n_w, n_f), rng)
+    g = cuda_normal((256,), rng)
+    (ops.chamfer(po, w, 0.7) * g).sum().backward()
+    pp = po.detach().clone().requires_grad_()
+    (ref.chamfer_ref(pp, w, 0.7)[0] * g).sum().backward()
+    out["chamfer_po"] = grads_close(po.grad, pp.grad, "chamfer grad po")
+    emit({"phase": "learned_grads", "rtol": 1e-4, "atol": 1e-6,
+          "tolerance": "max abs err <= atol + rtol * max |plain grad|",
+          "grads": out})
+
+
+def decision_flips(card, cpu, card_margin, cpu_margin, what):
+    """Decisions of the two devices must agree wherever both margins are
+    at least 1e-4; returns the number of flips (all of them near a tie)."""
+    flips = card != cpu
+    near = (np.broadcast_to(card_margin, flips.shape) < 1e-4) | \
+        (np.broadcast_to(cpu_margin, flips.shape) < 1e-4)
+    require(not (flips & ~near).any(),
+            f"{what}: {int((flips & ~near).sum())} decisions differ CPU vs "
+            "card with a margin of at least 1e-4")
+    return int(flips.sum())
+
+
+def phase_learned_parity():
+    """The learned models trained on the card on the golden fixture; their
+    outputs on the card and, from the same parameters, on the CPU; the
+    card's outputs served on both devices."""
+    cfg = dataclasses.replace(get_config("dlrm-recmg").reduced(),
+                              n_tables=4, rows_per_table=1024, multi_hot=2,
+                              emb_dim=16)
+    trace = generate_trace(TraceGenConfig(
+        n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
+        n_accesses=8000, seed=0, drift_every=10**9))
+    cap = int(0.15 * trace.unique_count())
+    lcfg = dataclasses.replace(cli_learned_config(1), train_stride=2)
+    card = LearnedRecMGModel.train_from_trace(trace, cap, lcfg,
+                                              device="cuda")
+    cpu = card.to("cpu")
+    data, starts = card.serving_windows(trace)
+    got = {}
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        logits = m.predict_logits(data)
+        pts = m.predict_points(data)
+        ids, gaps = m.decode_points(pts, return_margins=True)
+        got[dev] = (logits, pts, ids, gaps)
+    (cl, cp, ci, cg), (pl, pp, pi, pg) = got["cuda"], got["cpu"]
+    logit_diff = float(np.abs(cl - pl).max())
+    point_diff = float(np.abs(cp - pp).max())
+    require(logit_diff <= 1e-5 and point_diff <= 1e-5,
+            f"card vs CPU model outputs: logits {logit_diff}, points "
+            f"{point_diff} (max abs, allowed 1e-5)")
+    bit_flips = decision_flips(cl > 0, pl > 0, np.abs(cl), np.abs(pl),
+                               "keep bits")
+    id_flips = decision_flips(ci, pi, cg, pg, "prefetch ids")
+    vmodel, cand, vlosses = train_voyager_arm(trace, cap, epochs=1,
+                                              device="cuda")
+    vcard, vgap = voyager_arm_outputs(vmodel, cand, trace,
+                                      return_margins=True)
+    vcpu, vgap_cpu = voyager_arm_outputs(
+        copy.deepcopy(vmodel).to("cpu"), cand, trace, return_margins=True)
+    v_flips = decision_flips(vcard.prefetch_ids, vcpu.prefetch_ids,
+                             vgap[:, None], vgap_cpu[:, None],
+                             "voyager prefetch ids")
+    params = init_dlrm(cfg, seed=0, device="cpu")
+    served = {}
+    for arm, policy, outputs in (
+            ("learned", "recmg", RecMGOutputs(starts, cl > 0, ci)),
+            ("voyager", "lru", vcard)):
+        res = {dev: serve_trace(cfg, to_device(params, dev), trace, cap,
+                                policy, outputs, batch_queries=8, device=dev,
+                                collect_logits=True)
+               for dev in ("cpu", "cuda")}
+        diff = {k: (res["cpu"][k], res["cuda"][k]) for k in SERVE_KEYS
+                if res["cpu"][k] != res["cuda"][k]}
+        require(not diff, f"learned serve counters differ CPU vs card "
+                          f"({arm}): {diff}")
+        err = float(np.abs(res["cpu"]["logits"] - res["cuda"]["logits"])
+                    .max())
+        require(np.allclose(res["cuda"]["logits"], res["cpu"]["logits"],
+                            rtol=1e-4, atol=1e-4),
+                f"learned serve logits differ CPU vs card ({arm}): {err}")
+        served[arm] = {"counters_equal": True, "logits_max_abs_err": err,
+                       **{k: res["cuda"][k] for k in SERVE_KEYS}}
+    emit({"phase": "learned_parity", "capacity": cap, "windows": len(data),
+          "caching_losses": [card.caching_losses[0], card.caching_losses[-1]],
+          "prefetch_losses": [card.prefetch_losses[0],
+                              card.prefetch_losses[-1]],
+          "voyager_losses": [vlosses[0], vlosses[-1]],
+          "logits_max_abs_diff": logit_diff,
+          "points_max_abs_diff": point_diff,
+          "min_abs_logit": float(min(np.abs(cl).min(), np.abs(pl).min())),
+          "min_decode_margin": float(min(cg.min(), pg.min())),
+          "flips": {"keep_bits": bit_flips, "prefetch_ids": id_flips,
+                    "voyager_ids": v_flips},
+          "serve": served})
+
+
+def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
+                        batch_queries, baseline):
+    """The CLI's default path at full width: ``--model learned`` trained on
+    the first 2 of the 8 batches (1 epoch) and served fp32 and int8, and the
+    Voyager arm trained on the first batch and served fp32 on LRU.  Counts
+    are set to 0 just before each arm's training and read just after its
+    serve.  Returns each kernel's launches summed over the arms."""
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    lcfg = cli_learned_config(1)
+    launches = {"lstm_cell": 0, "chamfer": 0}
+    summary = {}
+    int8 = dict(quantize=True, row_format="int8")
+    for rows, cap, kw in (("fp32", capacity, {}), ("int8", qcapacity, int8)):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        model = LearnedRecMGModel.train_from_trace(
+            trace, cap, lcfg, profile_upto=2 * per_batch, device="cuda")
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outputs = model.outputs_for(trace)
+        outputs_s = time.perf_counter() - t0
+        res = serve_trace(cfg, params, trace, cap, "recmg", outputs,
+                          batch_queries=batch_queries, device="cuda",
+                          collect_logits=True, **kw)
+        path = ("lstm_cell", "chamfer") + (
+            ("quantize_scatter", "gather_rows_dequant_expand")
+            if kw else ("gather_rows_expand",))
+        n = {fn.__name__: fn.launches for fn in ops.KERNELS
+             if fn.__name__ in path}
+        for name in path:
+            require(n[name] > 0, f"learned serve ({rows}) launched {name} "
+                                 "0 times")
+        launches["lstm_cell"] += n["lstm_cell"]
+        launches["chamfer"] += n["chamfer"]
+        lg = res["logits"]
+        require(lg.shape == (res["batches"], batch_queries)
+                and np.isfinite(lg).all()
+                and res["hits"] + res["misses"] == res["lookups"],
+                f"learned serve ({rows}): bad result")
+        require(np.isfinite(model.caching_losses).all()
+                and np.isfinite(model.prefetch_losses).all(),
+                f"learned serve ({rows}): non-finite training loss")
+        summary[(rows, "recmg-learned")] = res
+        emit({"phase": "learned_serve", "rows": rows, "model": "learned",
+              "capacity": cap, "launches": n,
+              "cuts": {"profile_upto": 2 * per_batch,
+                       "train_batches": "first 2 of 8", "epochs": 1},
+              "train_windows_stride": lcfg.train_stride,
+              "stage_s": {**{k: round(v, 3) for k, v in
+                             model.timings.items()},
+                          "train_total_s": round(train_s, 3),
+                          "outputs_for_s": round(outputs_s, 3)},
+              "chunks": int(len(outputs.chunk_starts)),
+              "caching_steps": len(model.caching_losses),
+              "prefetch_steps": len(model.prefetch_losses),
+              "caching_loss_first_last": [model.caching_losses[0],
+                                          model.caching_losses[-1]],
+              "prefetch_loss_first_last": [model.prefetch_losses[0],
+                                           model.prefetch_losses[-1]],
+              "keep_bit_share": float(outputs.caching_bits.mean()),
+              **{k: res[k] for k in SERVE_REPORT}})
+        del model, outputs, res
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    vmodel, cand, vlosses = train_voyager_arm(trace, capacity, epochs=1,
+                                              profile_upto=per_batch,
+                                              device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outputs = voyager_arm_outputs(vmodel, cand, trace)
+    outputs_s = time.perf_counter() - t0
+    res = serve_trace(cfg, params, trace, capacity, "lru", outputs,
+                      batch_queries=batch_queries, device="cuda",
+                      collect_logits=True)
+    n = {fn.__name__: fn.launches for fn in ops.KERNELS
+         if fn.__name__ in ("lstm_cell", "gather_rows_expand")}
+    for name, k in n.items():
+        require(k > 0, f"voyager serve launched {name} 0 times")
+    require(np.isfinite(res["logits"]).all() and np.isfinite(vlosses).all(),
+            "voyager serve: non-finite logits or losses")
+    launches["lstm_cell"] += n["lstm_cell"]
+    summary[("fp32", "voyager")] = res
+    emit({"phase": "learned_serve", "rows": "fp32", "model": "voyager",
+          "capacity": capacity, "launches": n,
+          "cuts": {"profile_upto": per_batch, "train_batches": "first 1 of 8",
+                   "epochs": 1},
+          "stage_s": {"train_s": round(train_s, 3),
+                      "outputs_s": round(outputs_s, 3)},
+          "steps": len(vlosses), "loss_first_last": [vlosses[0], vlosses[-1]],
+          **{k: res[k] for k in SERVE_REPORT}})
+    del params
+    torch.cuda.empty_cache()
+    arms = {**{(r, p): baseline[(r, p)] for r, p in
+               (("fp32", "lru"), ("fp32", "recmg"), ("int8", "lru"),
+                ("int8", "recmg"))}, **summary}
+    emit({"phase": "learned_vs_frequency", "arms": {
+        f"{r} {'recmg-frequency' if p == 'recmg' else p}": {
+            k: arms[(r, p)][k] for k in ("hit_rate", "on_demand_rows",
+                                         "prefetch_hits", "p50_batch_ms",
+                                         "model_s")}
+        for r, p in arms}})
+    return launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -662,9 +1038,12 @@ def main():
                               fwd_b, full)
     main_recs.update(phase_quant_kernels(timer, trace.global_id[:per_batch],
                                          qcapacity, full))
+    main_recs.update(phase_learned_kernels(timer))
+    phase_learned_grads()
     phase_parity()
+    phase_learned_parity()
     int8 = dict(quantize=True, row_format="int8")
-    serve_launches = phase_serve(serve_cfg, trace, [
+    serve_launches, serve_results = phase_serve(serve_cfg, trace, [
         ("fp32", "lru", capacity, {}),
         ("fp32", "recmg", capacity, {}),
         ("int8", "lru", qcapacity, int8),
@@ -672,7 +1051,10 @@ def main():
         ("fp8", "lru", qcapacity, dict(quantize=True, row_format="fp8")),
         ("int8-multi_table", "lru", qcapacity, dict(multi_table=True, **int8)),
     ], batch_queries)
-    del trace
+    learned_launches = phase_learned_serve(serve_cfg, trace, capacity,
+                                           qcapacity, per_batch,
+                                           batch_queries, serve_results)
+    del trace, serve_results
     pool_rec, pool_launches, qpool_rec, qpool_launches = phase_forward(
         timer, full, fwd_b)
 
@@ -691,7 +1073,11 @@ def main():
              serve_launches["gather_rows_dequant_expand"], CU_QUANT_SOURCE,
              TPU_GATHER_ROWS_DEQUANT),
             ("gather_pool_dequant", qpool_rec, qpool_launches,
-             CU_QUANT_SOURCE, TPU_GATHER_POOL_DEQUANT)):
+             CU_QUANT_SOURCE, TPU_GATHER_POOL_DEQUANT),
+            ("lstm_cell", main_recs["lstm_cell"],
+             learned_launches["lstm_cell"], CU_LSTM_SOURCE, TPU_LSTM_CELL),
+            ("chamfer", main_recs["chamfer"], learned_launches["chamfer"],
+             CU_CHAMFER_SOURCE, TPU_CHAMFER)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,

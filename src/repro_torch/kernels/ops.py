@@ -4,6 +4,13 @@ Counterpart of ``src/repro/kernels/ops.py``.  There is no ``use_pallas``
 knob: a CUDA tensor goes to the CUDA kernel (which launches or raises),
 and a CPU tensor goes to the plain PyTorch version.  Nothing falls back
 from the card to the plain path.
+
+``lstm_cell`` and ``chamfer`` sit under gradients (every LSTM step of the
+learned models, the prefetch model's loss), so they are
+``torch.autograd.Function``s: the forward is the kernel (or the plain
+version on the CPU), and the backward is device-agnostic PyTorch on what
+the forward saved (the activated gates, the argmins).  The Pallas kernels
+have no backward either.
 """
 from __future__ import annotations
 
@@ -11,8 +18,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import chamfer_kernel as _ck
 from repro_torch.kernels import embedding_gather as _eg
+from repro_torch.kernels import lstm_cell as _lc
 from repro_torch.kernels import ref
+
+# Every kernel wrapper of the port, each with its ``launches`` count.
+KERNELS = _eg.KERNELS + (_lc.lstm_cell, _ck.chamfer)
+
+
+def reset_launches():
+    for fn in KERNELS:
+        fn.launches = 0
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -74,3 +91,98 @@ def gather_pool_dequant(table: torch.Tensor, scales: torch.Tensor,
     if _on_cuda(table):
         return _eg.gather_pool_dequant(table, scales, idx)
     return ref.gather_pool_dequant_ref(table, scales, idx)
+
+
+def _lstm_forward(x, h, c, w, b, save_gates: bool):
+    """``(h', c', gates)`` from the kernel on the card (``gates`` None when
+    not saved), from the plain version on the CPU."""
+    if _on_cuda(h):
+        return _lc.lstm_cell(x.contiguous(), h.contiguous(), c.contiguous(),
+                             w.contiguous(), b.contiguous(),
+                             save_gates=save_gates)
+    return ref.lstm_cell_ref(x, h, c, w, b)
+
+
+class _LSTMCell(torch.autograd.Function):
+    """One LSTM step; backward from the saved activated gates."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, w, b):
+        h2, c2, gates = _lstm_forward(x, h, c, w, b, save_gates=True)
+        ctx.save_for_backward(x, h, c, w, gates, c2)
+        return h2, c2
+
+    @staticmethod
+    def backward(ctx, dh2, dc2):
+        x, h, c, w, gates, c2 = ctx.saved_tensors
+        hid = h.shape[1]
+        i, f, g, o = gates.split(hid, dim=1)
+        tc = torch.tanh(c2)
+        dh2 = torch.zeros_like(c2) if dh2 is None else dh2.to(c2.dtype)
+        dct = dh2 * o * (1 - tc * tc)
+        if dc2 is not None:
+            dct = dct + dc2
+        dz = torch.cat([dct * g * i * (1 - i),        # d z_i
+                        dct * c * f * (1 - f),        # d z_f
+                        dct * i * (1 - g * g),        # d z_g
+                        dh2 * tc * o * (1 - o)],      # d z_o
+                       dim=1)
+        xh = torch.cat([x, h], dim=1).to(dz.dtype)
+        dw = xh.t() @ dz
+        db = dz.sum(dim=0)
+        dxh = dz @ w.to(dz.dtype).t()
+        dx, dh = dxh.split([x.shape[1], hid], dim=1)
+        return (dx.to(x.dtype), dh.to(h.dtype), (dct * f).to(c.dtype),
+                dw.to(w.dtype), db)
+
+
+def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              w: torch.Tensor, b: torch.Tensor):
+    """x: (B, in); h/c: (B, H); w: (in+H, 4H); b: (4H,) -> ``(h', c')``
+    of one LSTM step, differentiable in every input.  Outside autograd
+    (inference) the kernel writes no gates."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, h, c, w, b)):
+        return _LSTMCell.apply(x, h, c, w, b)
+    return _lstm_forward(x, h, c, w, b, save_gates=False)[:2]
+
+
+class _Chamfer(torch.autograd.Function):
+    """Bidirectional Chamfer; the gradient reaches ``po`` only (the
+    prefetch model stop-gradients its targets)."""
+
+    @staticmethod
+    def forward(ctx, po, w, alpha):
+        if _on_cuda(po):
+            loss, af, ab = _ck.chamfer(po.contiguous(), w.contiguous(),
+                                       alpha)
+        else:
+            loss, af, ab = ref.chamfer_ref(po, w, alpha)
+        ctx.alpha = alpha
+        ctx.save_for_backward(po, w, af, ab)
+        ctx.mark_non_differentiable(af, ab)
+        return loss, af, ab
+
+    @staticmethod
+    def backward(ctx, dloss, _daf, _dab):
+        po, w, af, ab = ctx.saved_tensors
+        n_p, n_w = po.shape[1], w.shape[1]
+        alpha = ctx.alpha
+        wt = w.to(po.dtype)
+        # Each p pulls towards its nearest w: 2 alpha / P (po_p - w_af[p]).
+        near_w = torch.gather(wt, 1, af.long()[..., None].expand(
+            -1, -1, po.shape[2]))
+        dpo = (2.0 * alpha / n_p) * (po - near_w)
+        # Each w pulls its nearest p: 2 (1 - alpha) / W (po_ab[w] - w).
+        idx = ab.long()[..., None].expand(-1, -1, po.shape[2])
+        near_p = torch.gather(po, 1, idx)
+        dpo = dpo.scatter_add(1, idx,
+                              (2.0 * (1.0 - alpha) / n_w) * (near_p - wt))
+        return dloss[:, None, None] * dpo, None, None
+
+
+def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
+    """po: (B, P, F); w: (B, W, F) -> (B,) ``alpha * mean_p min_w |po_p -
+    w_w|^2 + (1 - alpha) * mean_w min_p |po_p - w_w|^2``, differentiable in
+    ``po`` (``w`` gets no gradient)."""
+    return _Chamfer.apply(po, w, alpha)[0]

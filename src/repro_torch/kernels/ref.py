@@ -2,7 +2,9 @@
 
 Counterpart of ``src/repro/kernels/ref.py`` and of the jnp references in
 ``src/repro/kernels/embedding_gather.py`` (``quantize_rows_ref``,
-``dequantize_rows_ref``).  The CPU path runs these, and ``chip_smoke.py``
+``dequantize_rows_ref``).  ``lstm_cell_ref`` and ``chamfer_ref`` also
+return what their kernels save for the backward (the activated gates, the
+argmins).  The CPU path runs these, and ``chip_smoke.py``
 holds each CUDA kernel against them on the card.  Indices are clamped into
 range, as XLA's gather clamps them in the JAX package and as the kernels
 do.
@@ -137,3 +139,71 @@ def gather_pool_dequant_ref(table: torch.Tensor, scales: torch.Tensor,
         acc = acc + dequantize_rows_ref(_take(table, i[:, j]),
                                         scales[i[:, j]])
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Learned RecMG models: the LSTM cell and the bidirectional Chamfer loss.
+# ---------------------------------------------------------------------------
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """fp32 for fp32 (and narrower) inputs, fp64 for fp64 ones (the
+    float64 gradient checks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def lstm_cell_ref(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                  w: torch.Tensor, b: torch.Tensor):
+    """x: (B, in); h/c: (B, H); w: (in+H, 4H); b: (4H,) ->
+    ``(h', c', gates)``: ``z = [x, h] @ w + b`` with gates in the order
+    i, f, g, o; ``c' = sigmoid(f) c + sigmoid(i) tanh(g)`` in fp32,
+    ``h' = sigmoid(o) tanh(c')`` in h's dtype, and ``gates`` the activated
+    (B, 4H) ``[sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)]`` in fp32 (the
+    math of ``src/repro/kernels/ref.py:40-47``)."""
+    ct = _compute_dtype(h)
+    hid = h.shape[1]
+    z = torch.cat([x, h], dim=1).to(ct) @ w.to(ct) + b.to(ct)
+    i = torch.sigmoid(z[:, :hid])
+    f = torch.sigmoid(z[:, hid:2 * hid])
+    g = torch.tanh(z[:, 2 * hid:3 * hid])
+    o = torch.sigmoid(z[:, 3 * hid:])
+    c2 = f * c.to(ct) + i * g
+    h2 = o * torch.tanh(c2)
+    return h2.to(h.dtype), c2, torch.cat([i, f, g, o], dim=1)
+
+
+def _sum_in_order(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in the order 0, 1, ..., n-1, one rounding per
+    add (the order the kernel adds in, so the two agree bit for bit)."""
+    acc = t[..., 0]
+    for j in range(1, t.shape[-1]):
+        acc = acc + t[..., j]
+    return acc
+
+
+def chamfer_ref(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
+    """po: (B, P, F); w: (B, W, F) -> ``(loss (B,), arg_fwd (B, P) int32,
+    arg_bwd (B, W) int32)``.
+
+    ``loss = alpha * mean_p min_w d2 + (1 - alpha) * mean_w min_p d2`` with
+    ``d2[p, w] = |po_p - w_w|^2`` (the math of
+    ``src/repro/kernels/ref.py:15-23``); ``arg_fwd[p]`` is the w that
+    attains ``min_w d2[p, w]`` and ``arg_bwd[w]`` the p that attains
+    ``min_p d2[p, w]``, ties going to the lowest index.  ``d2`` sums over F
+    and the means sum over P and W in index order, one rounding per
+    operation, as the CUDA kernel does, so on the card the two give the
+    same bits."""
+    ct = _compute_dtype(po)
+    n_p, n_w = po.shape[1], w.shape[1]
+    d = po.to(ct)[:, :, None, :] - w.to(ct)[:, None, :, :]
+    d2 = _sum_in_order(d * d)  # (B, P, W)
+    fmin, arg_fwd = d2.min(dim=2)
+    bmin, arg_bwd = d2.min(dim=1)
+    # True divisions by a tensor: CUDA's div by a Python scalar multiplies
+    # by its reciprocal instead.  ``torch.full`` fills on the device (no
+    # host copy, no stream sync).
+    fwd = _sum_in_order(fmin) / torch.full((), n_p, dtype=ct,
+                                           device=po.device)
+    bwd = _sum_in_order(bmin) / torch.full((), n_w, dtype=ct,
+                                           device=po.device)
+    loss = alpha * fwd + (1.0 - alpha) * bwd
+    return loss, arg_fwd.to(torch.int32), arg_bwd.to(torch.int32)

@@ -13,6 +13,14 @@ inference batch (paper Fig. 6):
   3. between batches, the RecMG model outputs for the *previous* chunk are
      staged and applied (Algorithm 1), pipelined one batch ahead.
 
+The recmg model outputs come from the trained dual models (``--model
+learned``, the default: both models train on the trace on the device,
+every LSTM step through the CUDA ``lstm_cell`` kernel and the prefetch
+loss through the CUDA ``chamfer`` kernel), the frequency heuristic
+(``--model frequency``) or the Voyager baseline (``--model voyager``, a
+prefetch stream on an LRU store); ``--policy recmg-oracle`` serves the
+chunk grid with no model outputs.
+
 The host table, the trace and the dense inputs come from the same NumPy
 draws as in the JAX launcher, so the counters are the same.  The CLI keeps
 the JAX launcher's flags and defaults; a flag whose subsystem is not ported
@@ -28,8 +36,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.model_runtime import OutputsRef
-from repro_torch.core.recmg import RecMGOutputs, frequency_outputs
+from repro_torch.core.model_runtime import (LearnedModelConfig,
+                                            LearnedRecMGModel, OutputsRef,
+                                            voyager_outputs)
+from repro_torch.core.recmg import (RecMGOutputs, frequency_outputs,
+                                    precompute_outputs)
 from repro_torch.core.serving import MultiTableTieredStore
 from repro_torch.core.tiered import TieredEmbeddingStore, fast_row_bytes
 from repro_torch.core.trace import Trace, TraceGenConfig, generate_trace
@@ -211,6 +222,36 @@ _NOT_PORTED = (
 )
 
 
+def cli_outputs(args, trace: Trace, capacity: int, dev):
+    """The recmg model outputs the CLI serves with, and the store policy:
+    as ``src/repro/launch/serve.py:545-575``."""
+    if args.policy == "lru":
+        return None, "lru"
+    if args.policy == "recmg-oracle":
+        out = precompute_outputs(trace)
+        return RecMGOutputs(out.chunk_starts, None, None), args.policy
+    if args.model == "frequency":
+        return frequency_outputs(trace, capacity), "recmg"
+    if args.model == "voyager":
+        # Prefetch-only baseline: LRU residency + Voyager's stream.
+        return voyager_outputs(trace, capacity, epochs=args.train_epochs,
+                               device=dev), "lru"
+    model = LearnedRecMGModel.train_from_trace(
+        trace, capacity, cli_learned_config(args.train_epochs), log=print,
+        device=dev)
+    return model.outputs_for(trace), "recmg"
+
+
+def cli_learned_config(train_epochs: int) -> LearnedModelConfig:
+    """The CLI-scale knobs of ``--model learned`` (the LearnedModelConfig
+    defaults are tuned for the small scenario-matrix scale): the seed
+    launcher's model size, epochs from --train-epochs, sparser windows and
+    the wide deployment candidate pool."""
+    return LearnedModelConfig(
+        hidden=40, caching_epochs=train_epochs, prefetch_epochs=train_epochs,
+        batch_size=256, lr=3e-3, train_stride=5, n_candidates=5000)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
@@ -221,9 +262,10 @@ def main(argv=None):
     ap.add_argument("--model", default="learned",
                     choices=["learned", "frequency", "voyager"],
                     help="where the recmg model outputs come from: the "
-                         "trained dual models (learned), the deterministic "
-                         "frequency heuristic, or the Voyager-class ML "
-                         "prefetcher baseline; only frequency is ported")
+                         "trained dual models (learned, trained on the "
+                         "trace on --device), the deterministic frequency "
+                         "heuristic, or the Voyager-class ML prefetcher "
+                         "baseline (prefetch stream on an LRU store)")
     ap.add_argument("--batches", type=int, default=40)
     ap.add_argument("--batch-queries", type=int, default=32)
     ap.add_argument("--capacity-frac", type=float, default=0.2)
@@ -263,13 +305,6 @@ def main(argv=None):
         if getattr(args, attr):
             raise NotImplementedError(
                 f"{flag} is not ported to repro_torch yet: ROADMAP {item}")
-    if args.policy == "recmg-oracle":
-        raise NotImplementedError("--policy recmg-oracle is not ported to "
-                                  "repro_torch yet: ROADMAP A9")
-    if args.policy == "recmg" and args.model != "frequency":
-        raise NotImplementedError(
-            f"--model {args.model} is not ported to repro_torch yet: "
-            "ROADMAP A9 (pass --model frequency)")
 
     dev = resolve_device(args.device)
     cfg = get_config("dlrm-recmg").reduced()
@@ -287,8 +322,7 @@ def main(argv=None):
                                                 True, args.row_format)
         print(f"quantize({args.row_format}): {fp32_bytes} fast-tier bytes "
               f"-> {capacity} resident rows")
-    outputs = (frequency_outputs(trace, capacity)
-               if args.policy == "recmg" else None)
+    outputs, pol = cli_outputs(args, trace, capacity, dev)
 
     tracer = None
     if args.trace_out or args.flight_recorder:
@@ -298,7 +332,7 @@ def main(argv=None):
         tracer = SpanTracer(ring_batches=args.trace_ring)
         install_tracer(tracer)
     try:
-        res = serve_trace(cfg, params, trace, capacity, args.policy, outputs,
+        res = serve_trace(cfg, params, trace, capacity, pol, outputs,
                           batch_queries=args.batch_queries,
                           multi_table=args.multi_table,
                           quantize=args.quantize,

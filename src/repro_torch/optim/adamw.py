@@ -1,0 +1,97 @@
+"""AdamW with global-norm clipping and a warmup + cosine schedule.
+
+Ported from ``src/repro/optim/adamw.py`` (``OptConfig``, ``schedule``,
+``global_norm`` and ``apply_updates``, lines 18-105) as a
+``torch.optim.Optimizer`` that takes exactly the JAX step:
+
+* the step count starts at 1 on the first update, and the learning rate of
+  update ``t`` is ``lr * min(t / warmup, 1) * (0.1 + 0.9 * cos)`` with
+  ``cos = 0.5 (1 + cos(pi * clip((t - warmup) / (total - warmup), 0,
+  1)))``;
+* the gradients of *all* parameters are scaled by
+  ``min(1, clip_norm / max(|g|, 1e-9))``, ``|g|`` their global L2 norm;
+* ``p -= lr * (mhat / (sqrt(vhat) + eps) + weight_decay * p)`` with the
+  bias-corrected moments.
+
+``torch.optim.AdamW`` with ``clip_grad_norm_`` and ``LambdaLR`` is not
+this update: its schedule is one step behind (``LambdaLR`` gives the
+first update the factor of step 0) and its clip divides by the norm plus
+1e-6.  The moments are
+fp32 (the JAX default ``moment_dtype``); ``master_fp32`` has no use in the
+port, whose models are fp32.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+def schedule(cfg: OptConfig, step: int) -> float:
+    """Linear warmup + cosine decay, for update number ``step`` (from 1)."""
+    step = float(step)
+    warm = min(step / max(cfg.warmup_steps, 1), 1.0)
+    t = min(max((step - cfg.warmup_steps)
+                / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0), 1.0)
+    cos = 0.5 * (1.0 + math.cos(math.pi * t))
+    return cfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+
+
+class AdamW(torch.optim.Optimizer):
+    """The JAX package's ``apply_updates`` as a PyTorch optimizer."""
+
+    def __init__(self, params, cfg: OptConfig):
+        super().__init__(params, {})
+        self.cfg = cfg
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        cfg = self.cfg
+        params = [p for g in self.param_groups for p in g["params"]
+                  if p.grad is not None]
+        if not params:
+            return loss
+        self.count += 1
+        lr = schedule(cfg, self.count)
+        gnorm = global_norm([p.grad for p in params])
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        bc1 = 1.0 - cfg.b1 ** self.count
+        bc2 = 1.0 - cfg.b2 ** self.count
+        for p in params:
+            st = self.state[p]
+            if not st:
+                st["m"] = torch.zeros_like(p, dtype=torch.float32)
+                st["v"] = torch.zeros_like(p, dtype=torch.float32)
+            g = p.grad.float() * scale
+            m, v = st["m"], st["v"]
+            m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+            v.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            p32 = p.float()
+            if cfg.weight_decay:
+                upd = upd + cfg.weight_decay * p32
+            p.copy_(p32 - lr * upd)
+        return loss

@@ -309,3 +309,101 @@ def test_quantized_forward_on_card_matches_cpu(dev, row_format):
                               ["emb"].to(dev)}, row_format)
     assert torch.equal(card_q["emb"].view(torch.uint8).cpu(),
                        params["emb"].view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Learned models: lstm_cell and chamfer.  lstm_cell: fp32 abs 1e-5 on h',
+# c' and the gates (the product sums K terms in another order than the
+# matmul); chamfer: the distances, argmins and means are computed in the
+# same order with one rounding per operation on both sides, so the loss
+# is held within rtol 1e-5 (0 expected) and the argmins exactly.  Gradients
+# through the autograd Functions against autograd through the plain
+# versions: rtol 1e-4, atol 1e-6.
+# ---------------------------------------------------------------------------
+
+def _lstm_inputs(b, in_dim, hid, seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    k = in_dim + hid
+    return (t(b, in_dim), t(b, hid), t(b, hid), t(k, 4 * hid,
+                                                   scale=k ** -0.5),
+            t(4 * hid, scale=0.5))
+
+
+@pytest.mark.parametrize("b,in_dim,hid", [
+    (1, 27, 40), (7, 40, 40), (256, 27, 40), (4096, 80, 40), (300, 25, 40),
+    (64, 40, 32), (33, 48, 40), (5, 8, 16), (100, 200, 100),
+])
+def test_lstm_cell_matches_plain(dev, b, in_dim, hid):
+    from repro_torch.kernels import lstm_cell as lc
+
+    x, h, c, w, bias = _lstm_inputs(b, in_dim, hid, b + in_dim, dev)
+    n0 = lc.lstm_cell.launches
+    got = lc.lstm_cell(x, h, c, w, bias)
+    torch.cuda.synchronize()
+    assert lc.lstm_cell.launches == n0 + 1
+    want = ref.lstm_cell_ref(x, h, c, w, bias)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+    h2, c2, gates = lc.lstm_cell(x, h, c, w, bias, save_gates=False)
+    assert gates is None
+    torch.testing.assert_close(h2, got[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n_p,n_w,n_f", [
+    (256, 5, 15, 25), (1, 5, 15, 25), (77, 5, 5, 25), (513, 3, 40, 7),
+])
+def test_chamfer_matches_plain(dev, b, n_p, n_w, n_f):
+    from repro_torch.kernels import chamfer_kernel as ck
+
+    rng = np.random.default_rng(b)
+    po = torch.from_numpy(rng.normal(size=(b, n_p, n_f))
+                          .astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(size=(b, n_w, n_f))
+                         .astype(np.float32)).to(dev)
+    w[0, 1] = w[0, 0]  # an exact tie: the lowest index wins on both sides
+    n0 = ck.chamfer.launches
+    loss, af, ab = ck.chamfer(po, w, 0.7)
+    torch.cuda.synchronize()
+    assert ck.chamfer.launches == n0 + 1
+    rl, raf, rab = ref.chamfer_ref(po, w, 0.7)
+    torch.testing.assert_close(loss, rl, rtol=1e-5, atol=0)
+    assert torch.equal(af, raf) and torch.equal(ab, rab)
+
+
+def test_chamfer_rejects_rows_beyond_its_shared_memory(dev):
+    from repro_torch.kernels import chamfer_kernel as ck
+
+    # (5 + 15) * 100 staged floats per row: 8 rows need 67 KB > 48 KB.
+    po = torch.zeros(4, 5, 100, device=dev)
+    w = torch.zeros(4, 15, 100, device=dev)
+    with pytest.raises(RuntimeError, match="chamfer launch failed"):
+        ck.chamfer(po, w, 0.7)
+
+
+def test_lstm_cell_and_chamfer_grads_match_plain(dev):
+    from repro_torch.kernels import ops
+
+    ins = [t.requires_grad_() for t in _lstm_inputs(64, 27, 40, 3, dev)]
+    h2, c2 = ops.lstm_cell(*ins)
+    (h2.square().sum() + (c2 * 0.5).sum()).backward()
+    got = [t.grad.clone() for t in ins]
+    ref_ins = [t.detach().clone().requires_grad_() for t in ins]
+    rh, rc, _ = ref.lstm_cell_ref(*ref_ins)
+    (rh.square().sum() + (rc * 0.5).sum()).backward()
+    for g, r in zip(got, ref_ins):
+        torch.testing.assert_close(g, r.grad, rtol=1e-4, atol=1e-6)
+
+    rng = np.random.default_rng(4)
+    po = torch.from_numpy(rng.normal(size=(256, 5, 25)).astype(np.float32)
+                          ).to(dev).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(256, 15, 25)).astype(np.float32)
+                         ).to(dev)
+    ops.chamfer(po, w, 0.7).mean().backward()
+    po_ref = po.detach().clone().requires_grad_()
+    ref.chamfer_ref(po_ref, w, 0.7)[0].mean().backward()
+    torch.testing.assert_close(po.grad, po_ref.grad, rtol=1e-4, atol=1e-6)

@@ -58,6 +58,12 @@ def test_source_imports_no_jax_and_no_repro(path):
 
 def _entry_points():
     from repro_torch.configs import get_config
+    from repro_torch.core import caching_model as CM
+    from repro_torch.core import prefetch_model as PM
+    from repro_torch.core import voyager as VY
+    from repro_torch.core.features import make_windows
+    from repro_torch.core.model_runtime import (LearnedRecMGModel,
+                                                voyager_outputs)
     from repro_torch.core.serving import MultiTableTieredStore
     from repro_torch.core.tiered import TieredEmbeddingStore
     from repro_torch.core.trace import TraceGenConfig, generate_trace
@@ -67,6 +73,7 @@ def _entry_points():
     cfg = get_config("dlrm-recmg").reduced()
     trace = generate_trace(TraceGenConfig(n_tables=2, rows_per_table=50,
                                           n_accesses=500, seed=0))
+    windows = make_windows(trace, in_len=15)
     return {
         "store": lambda: TieredEmbeddingStore(np.zeros((8, 4), np.float32),
                                               4),
@@ -77,12 +84,27 @@ def _entry_points():
         "serve_trace": lambda: serve_trace(cfg, None, trace, 4, "lru", None),
         "init_dlrm": lambda: init_dlrm(cfg),
         "cli": lambda: main(["--policy", "lru", "--accesses", "500"]),
+        "learned_model": lambda: LearnedRecMGModel.train_from_trace(
+            trace, 4),
+        "voyager_outputs": lambda: voyager_outputs(trace, 4),
+        "cli_learned": lambda: main(["--accesses", "500"]),
+        "train_caching_model": lambda: CM.train_caching_model(
+            windows, CM.CachingModelConfig(n_tables=2, hidden=8), epochs=1),
+        "train_prefetch_model": lambda: PM.train_prefetch_model(
+            PM.make_prefetch_data(trace),
+            PM.PrefetchModelConfig(n_tables=2, hidden=8), epochs=1),
+        "train_voyager": lambda: VY.train_voyager(
+            windows, VY.VoyagerConfig(n_vectors=trace.n_vectors), 2,
+            epochs=1),
     }
 
 
 @pytest.mark.parametrize("entry", ["store", "quantized_store",
                                    "multi_table_store", "serve_trace",
-                                   "init_dlrm", "cli"])
+                                   "init_dlrm", "cli", "learned_model",
+                                   "voyager_outputs", "cli_learned",
+                                   "train_caching_model",
+                                   "train_prefetch_model", "train_voyager"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

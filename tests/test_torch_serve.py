@@ -148,10 +148,89 @@ def test_cli_multi_table():
     (["--adapt"], "A12"),
     (["--workload", "zipf_hot"], "A6"),
     (["--fault-plan", "kill:1@mid"], "A10"),
-    (["--model", "learned"], "A9"),
-    (["--model", "voyager"], "A9"),
-    (["--policy", "recmg-oracle"], "A9"),
 ])
 def test_cli_flags_not_ported_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "--policy", "recmg", *argv])
+
+
+@pytest.mark.parametrize("argv,policy", [
+    (["--model", "learned"], "recmg"),
+    (["--model", "voyager"], "lru"),
+    (["--policy", "recmg-oracle"], "recmg-oracle"),
+], ids=["learned", "voyager", "recmg-oracle"])
+def test_cli_learned_paths_run(argv, policy):
+    """The CLI's default learned path, the Voyager arm and the oracle grid
+    run on the CPU and serve with the JAX CLI's store policy."""
+    res = main(["--device", "cpu", "--policy", "recmg", "--train-epochs",
+                "1", "--accesses", "3000", "--batch-queries", "4", *argv])
+    assert res["policy"] == policy
+    assert res["hits"] + res["misses"] == res["lookups"] > 0
+    if policy == "recmg-oracle":
+        assert res["prefetch_hits"] == 0
+
+
+@lru_cache(maxsize=1)
+def _jax_learned():
+    """A JAX LearnedRecMGModel trained on the golden fixture's trace, and
+    the port's LearnedRecMGModel carrying its parameters."""
+    from repro.core.model_runtime import LearnedModelConfig as JCfg
+    from repro.core.model_runtime import LearnedRecMGModel as JModel
+    import jax
+
+    from repro_torch.core.caching_model import CachingModel
+    from repro_torch.core.lstm import params_from_jax
+    from repro_torch.core.model_runtime import (LearnedModelConfig,
+                                                LearnedRecMGModel)
+    from repro_torch.core.prefetch_model import PrefetchModel
+
+    cfg, _, trace = _fixture()
+    cap = int(0.15 * trace.unique_count())
+    kw = dict(hidden=16, caching_epochs=1, prefetch_epochs=1,
+              train_stride=8)
+    jm = JModel.train_from_trace(trace, cap, JCfg(**kw))
+    tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    tm = LearnedRecMGModel(
+        LearnedModelConfig(**kw), jm.mcfg, jm.pcfg,
+        params_from_jax(CachingModel(jm.mcfg), tree(jm.cparams)),
+        params_from_jax(PrefetchModel(jm.pcfg), tree(jm.pparams)),
+        jm.cand_ids, cap, trace)
+    return cap, jm, tm
+
+
+def test_serve_learned_outputs_match_jax_counters():
+    """The JAX model's outputs served by both packages give the same
+    counters exactly; the port's outputs from the carried parameters make
+    the same decisions wherever the margin exceeds 1e-4."""
+    import jax
+
+    from repro.configs import get_config as jax_get_config
+    from repro.launch.serve import serve_trace as jax_serve_trace
+    from repro.models.dlrm import init_dlrm as jax_init_dlrm
+
+    cfg, params, trace = _fixture()
+    cap, jm, tm = _jax_learned()
+    want_out = jm.outputs_for(trace)
+    got = serve_trace(cfg, params, trace, cap, "recmg", want_out,
+                      batch_queries=8, device="cpu")
+    jcfg = dataclasses.replace(jax_get_config("dlrm-recmg").reduced(),
+                               n_tables=4, rows_per_table=1024, multi_hot=2,
+                               emb_dim=16)
+    want = jax_serve_trace(jcfg, jax_init_dlrm(jax.random.PRNGKey(0), jcfg),
+                           trace, cap, "recmg", want_out, batch_queries=8)
+    keys = SERVE_KEYS + ("misses",)
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["prefetch_hits"] > 0
+
+    data, starts = tm.serving_windows(trace)
+    np.testing.assert_array_equal(starts, want_out.chunk_starts)
+    logits = tm.predict_logits(data)
+    ids, gaps = tm.decode_points(tm.predict_points(data),
+                                 return_margins=True)
+    sure_bits = np.abs(logits) >= 1e-4
+    sure_ids = gaps >= 1e-4
+    assert sure_bits.mean() > 0.99 and sure_ids.mean() > 0.99
+    np.testing.assert_array_equal((logits > 0)[sure_bits],
+                                  want_out.caching_bits[sure_bits])
+    np.testing.assert_array_equal(ids[sure_ids],
+                                  want_out.prefetch_ids[sure_ids])
