@@ -4,8 +4,9 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card, checks that the card serves
-the same counters as the CPU, then drives the port's main path at the full
-widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs):
+the same counters as the CPU, then drives the port's main paths at the full
+widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs)
+and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc for sm_90a, one process per source, with the build seconds;
@@ -55,7 +56,24 @@ widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs):
    card on the first 2 of the 8 serve batches (1 epoch), their outputs over
    the whole trace, served fp32 (185,651 rows) and int8 (720,100 rows);
    the Voyager arm trained on the first batch and served fp32 on an LRU
-   store.
+   store;
+10. ``flash_attention`` vs plain on the card: at the LM serve prefill shape
+    q (8, 2048, 9, 64), k/v (8, 2048, 3, 64) bf16, at qwen2.5-3b's head
+    layout (1, 8192, 16/2, 128) bf16, at fp32 (2, 1024, 8/2, 64) and at a
+    ragged S=1,000 in both dtypes: fp32 within rtol/atol 1e-5, bf16 within
+    1e-2; each timed beside its bound and beside
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
+11. LM parity: full-width smollm-135m (30 layers, d_model 576, 9/3 heads,
+    vocab 49,152) from the same seeded parameters on the CPU and on the
+    card, a B=2, S=256 prefill and 8 teacher-forced decode steps: logits
+    within rtol/atol 1e-4 for an fp32 copy of the config and 5e-2 at bf16;
+12. LM serve: ``serve_lm_tiered`` at full width, bf16, B=8 streams, a
+    2,048-token prompt (cut from ``prefill_32k``'s B=32, S=32,768) and 64
+    greedy steps with the vocab on the tiered store (capacity 0.1 = 4,915
+    rows, ``lru``); its first step's logits must equal those of the token
+    path (``decode_step``) bit for bit; then one prefill and 8 tiered
+    decode steps under ``torch.profiler`` (device busy time and idle
+    share, the largest kernels).
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
@@ -86,16 +104,21 @@ from repro_torch.core.trace import TraceGenConfig, generate_trace  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import chamfer_kernel as ck  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lstm_cell as lc  # noqa: E402
 from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
                                       cli_learned_config, serve_trace)
+from repro_torch.launch.serve_lm import serve_lm_tiered  # noqa: E402
 from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
                                      quantize_tables)
+from repro_torch.models.transformer import (decode_step,  # noqa: E402
+                                            init_lm, prefill)
 
-# H100 SXM peaks (NVIDIA's data sheet): device-memory rate and fp32 rate
-# outside the tensor cores.
+# H100 SXM peaks (NVIDIA's data sheet): device-memory rate, fp32 rate
+# outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 CU_SOURCE = "src/repro_torch/kernels/csrc/embedding_gather.cu"
 CU_QUANT_SOURCE = "src/repro_torch/kernels/csrc/embedding_quant.cu"
 TPU_GATHER_ROWS = "src/repro/kernels/embedding_gather.py:87"
@@ -107,6 +130,15 @@ CU_LSTM_SOURCE = "src/repro_torch/kernels/csrc/lstm_cell.cu"
 CU_CHAMFER_SOURCE = "src/repro_torch/kernels/csrc/chamfer.cu"
 TPU_LSTM_CELL = "src/repro/kernels/lstm_cell.py:54"
 TPU_CHAMFER = "src/repro/kernels/chamfer_kernel.py:42"
+CU_FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+TPU_FLASH_ATTENTION = "src/repro/kernels/flash_attention.py:80"
+# flash_attention shapes (name, B, S, H, K, hd, dtype); the first is the
+# LM serve prefill's, which the kernels line reports.
+FLASH_SHAPES = (("serve_prefill", 8, 2048, 9, 3, 64, "bf16"),
+                ("qwen2.5-3b_heads", 1, 8192, 16, 2, 128, "bf16"),
+                ("fp32", 2, 1024, 8, 2, 64, "fp32"),
+                ("ragged", 4, 1000, 9, 3, 64, "fp32"),
+                ("ragged", 4, 1000, 9, 3, 64, "bf16"))
 # Why no single PyTorch call stands beside a quantized kernel.
 NO_LIBRARY = {
     "quantize_scatter": "no PyTorch call quantizes rows per row and "
@@ -177,9 +209,10 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0):
+def bound_ms(n_bytes: float, n_ops: float = 0.0,
+             ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -210,6 +243,7 @@ def phase_build():
     eg._qlib()
     lc._lib()
     ck._lib()
+    fa._lib()
 
 
 # ---------------------------------------------------------------------------
@@ -1006,6 +1040,229 @@ def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
 
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: dense-LM serving (flash_attention, tiered vocab rows).
+# ---------------------------------------------------------------------------
+
+def phase_flash_kernels(timer):
+    """``flash_attention`` against its plain version at ``FLASH_SHAPES``,
+    each timed beside its bound and beside SDPA.  Returns the record of
+    the serve prefill shape."""
+    main = None
+    for name, b, s, h, n_kv, hd, dt_name in FLASH_SHAPES:
+        dt = DTYPES[dt_name]
+        g = torch.Generator(device="cuda").manual_seed(s + hd)
+        q, k, v = (torch.randn((b, s, n, hd), generator=g, device="cuda")
+                   .to(dt) for n in (h, n_kv, n_kv))
+        got = fa.flash_attention(q, k, v)
+        want = ref.causal_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 1e-5 if dt_name == "fp32" else 1e-2
+        require(torch.allclose(got.float(), want.float(), rtol=tol,
+                               atol=tol),
+                f"flash_attention {name} {dt_name}: max abs err {err}")
+        del got, want
+        # SDPA takes (B, H, S, hd): transposed once, outside the timing.
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - ref.causal_attention_ref(q, k, v).float())
+                        .abs().max())
+        rec = {"phase": "kernel", "name": "flash_attention", "shape": name,
+               "dtype": dt_name, "B": b, "S": s, "H": h, "K": n_kv, "hd": hd,
+               "max_abs_err": err, "tolerance": tol,
+               "library_max_abs_err": lib_err,
+               "ms": timer(lambda: fa.flash_attention(q, k, v)),
+               "plain_ms": timer(lambda: ref.causal_attention_ref(q, k, v)),
+               "library_ms": timer(sdpa)}
+        # Causal work: 2 products of 2 * (S^2 / 2) * hd per (batch, head);
+        # q, k, v read once and o written once.
+        n_bytes = q.element_size() * b * s * hd * (2 * h + 2 * n_kv)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            n_bytes, 2 * 2 * b * h * s * s / 2 * hd,
+            BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
+        emit(rec)
+        if main is None:
+            main = rec
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_lm_parity():
+    """Full-width smollm-135m from the same parameters on both devices: a
+    B=2, S=256 prefill and 8 teacher-forced decode steps, fp32 and bf16."""
+    full = get_config("smollm-135m")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, full.vocab, (2, 256 + 8)))
+    cfg32 = dataclasses.replace(full, param_dtype="float32",
+                                compute_dtype="float32")
+    base = init_lm(cfg32, seed=0, device="cpu")
+    out = {}
+    for dt_name, tol in (("fp32", 1e-4), ("bf16", 5e-2)):
+        cfg = cfg32 if dt_name == "fp32" else full
+        cpu = base if dt_name == "fp32" else copy.deepcopy(base).to(
+            torch.bfloat16)
+        logits = {}
+        for dev, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to(
+                "cuda"))):
+            ops.reset_launches()
+            lg, cache = prefill(model, cfg, tokens[:, :256].to(dev),
+                                cache_len=256 + 8)
+            steps = [lg]
+            for i in range(8):
+                lg, cache = decode_step(model, cfg,
+                                        tokens[:, 256 + i:257 + i].to(dev),
+                                        cache)
+                steps.append(lg)
+            logits[dev] = torch.stack(steps).cpu()
+            if dev == "cuda":
+                require(fa.flash_attention.launches == full.n_layers,
+                        f"lm_parity {dt_name}: {fa.flash_attention.launches}"
+                        f" flash_attention launches, expected "
+                        f"{full.n_layers}")
+            del model, cache
+        diff = (logits["cuda"] - logits["cpu"]).abs()
+        out[dt_name] = {"max_abs_err": float(diff.max()), "tolerance": tol,
+                        # The largest |diff| / (atol + rtol |cpu|): the
+                        # share of its bound the worst logit uses.
+                        "worst_share_of_bound": float(
+                            (diff / (tol + tol * logits["cpu"].abs()))
+                            .max()),
+                        "max_abs_logit": float(logits["cpu"].abs().max()),
+                        "argmax_equal_share": float(
+                            (logits["cuda"].argmax(-1)
+                             == logits["cpu"].argmax(-1)).float().mean())}
+        require(bool(torch.isfinite(logits["cuda"]).all()),
+                f"lm_parity {dt_name}: non-finite logits on the card")
+        require(torch.allclose(logits["cuda"], logits["cpu"], rtol=tol,
+                               atol=tol),
+                f"lm_parity {dt_name}: card vs CPU logits {out[dt_name]}")
+    emit({"phase": "lm_parity", "arch": full.name, "B": 2, "S": 256,
+          "decode_steps": 8, "teacher_forced": True, **out})
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve():
+    """The LM serving path at full width; counts set to 0 just before the
+    serve and read just after.  Returns the kernels' launches."""
+    cfg = get_config("smollm-135m")
+    b, prompt_len, steps = 8, 2048, 64
+    # The path's own peak: device bytes above what earlier phases left
+    # allocated, from the model's weights through the serve.
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_lm(cfg, seed=0, device="cuda")
+    ops.reset_launches()
+    res = serve_lm_tiered(cfg, batch=b, prompt_len=prompt_len, steps=steps,
+                          capacity_frac=0.1, policy="lru", device="cuda",
+                          seed=0, model=model, collect_logits=True)
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    require(launches.get("flash_attention") == cfg.n_layers,
+            f"lm_serve: flash_attention launched {launches} (expected "
+            f"{cfg.n_layers}, one per prefill layer)")
+    require(launches.get("gather_rows_expand") == steps,
+            f"lm_serve: gather_rows_expand launched {launches} (expected "
+            f"{steps}, one per decode step)")
+    require(res["hits"] + res["misses"] == res["lookups"] == b * steps,
+            "lm_serve: hits + misses != lookups")
+    lg, tok = res["logits"], res["tokens"]
+    require(lg.shape == (steps, b, cfg.vocab) and np.isfinite(lg).all()
+            and tok.shape == (steps, b) and (tok >= 0).all()
+            and (tok < cfg.vocab).all(), "lm_serve: bad logits or tokens")
+    # The tiered path's first step against the token path on the same
+    # prompt: the cast store rows are the token's embedding, so the two
+    # agree bit for bit.
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (b, prompt_len))
+    pt = torch.from_numpy(prompt).to("cuda")
+    _, cache = prefill(model, cfg, pt, prompt_len + steps)
+    ref_logits, _ = decode_step(model, cfg, pt[:, -1:], cache)
+    require(np.array_equal(ref_logits.cpu().numpy(), lg[0]),
+            "lm_serve: the tiered first step differs from the token path")
+    del cache, pt
+    emit({"phase": "lm_serve", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "cuts": {"from": "prefill_32k B=32 S=32768", "batch": b,
+                   "prompt_len": prompt_len},
+          "launches": launches, "peak_device_gb": peak_gb,
+          "first_step_equals_token_path": True,
+          "profile": lm_profile(cfg, model, b, prompt_len),
+          **{k: res[k] for k in ("steps", "capacity", "policy", "batches",
+                                 "lookups", "hits", "misses", "hit_rate",
+                                 "on_demand_rows", "evictions", "tok_per_s",
+                                 "prefill_ms", "decode_ms_p50",
+                                 "decode_s")}})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _device_profile(fn):
+    """Run ``fn`` under ``torch.profiler``: its wall ms, the device ms of
+    its CUDA kernels and copies (one stream, so they do not overlap), their
+    launches, and ``{name: device ms}`` per kernel.  ``None`` when the
+    profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        return None
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "launches": sum(e.count for e in kernels),
+            "kernels": {e.key[:80]: e.self_device_time_total / 1e3
+                        for e in kernels}}
+
+
+def _profile_summary(wall_ms, busy_ms, launches, kernels, n):
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall_ms / n, "device_busy_ms": busy_ms / n,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernel_launches": launches / n,
+            "top_kernels_ms": {k: v / n for k, v in top}}
+
+
+def lm_profile(cfg, model, batch, prompt_len, n_steps=8):
+    """Where a served LM's time goes, read from the entry point itself:
+    ``serve_lm_tiered`` on ``model`` with no decode step (the prefill, then
+    the store built over the host copy of the vocab) and with ``n_steps``
+    steps, each under ``torch.profiler``.  A decode step is the difference
+    of the two over ``n_steps``."""
+    def serve(steps):
+        return lambda: serve_lm_tiered(
+            cfg, batch=batch, prompt_len=prompt_len, steps=steps,
+            capacity_frac=0.1, policy="lru", device="cuda", seed=0,
+            model=model)
+    setup, full = _device_profile(serve(0)), _device_profile(serve(n_steps))
+    if setup is None or full is None:
+        return "not measured: the profiler recorded no device time"
+    diff = {k: full["kernels"][k] - setup["kernels"].get(k, 0.0)
+            for k in full["kernels"]}
+    return {"prefill_and_store": _profile_summary(
+                setup["wall_ms"], setup["busy_ms"], setup["launches"],
+                setup["kernels"], 1),
+            "decode_per_step": _profile_summary(
+                full["wall_ms"] - setup["wall_ms"],
+                full["busy_ms"] - setup["busy_ms"],
+                full["launches"] - setup["launches"], diff, n_steps)}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -1039,6 +1296,7 @@ def main():
     main_recs.update(phase_quant_kernels(timer, trace.global_id[:per_batch],
                                          qcapacity, full))
     main_recs.update(phase_learned_kernels(timer))
+    main_recs["flash_attention"] = phase_flash_kernels(timer)
     phase_learned_grads()
     phase_parity()
     phase_learned_parity()
@@ -1057,6 +1315,8 @@ def main():
     del trace, serve_results
     pool_rec, pool_launches, qpool_rec, qpool_launches = phase_forward(
         timer, full, fwd_b)
+    phase_lm_parity()
+    lm_launches = phase_lm_serve()
 
     kernels = []
     for name, rec, n, src, replaces in (
@@ -1077,7 +1337,10 @@ def main():
             ("lstm_cell", main_recs["lstm_cell"],
              learned_launches["lstm_cell"], CU_LSTM_SOURCE, TPU_LSTM_CELL),
             ("chamfer", main_recs["chamfer"], learned_launches["chamfer"],
-             CU_CHAMFER_SOURCE, TPU_CHAMFER)):
+             CU_CHAMFER_SOURCE, TPU_CHAMFER),
+            ("flash_attention", main_recs["flash_attention"],
+             lm_launches["flash_attention"], CU_FLASH_SOURCE,
+             TPU_FLASH_ATTENTION)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,

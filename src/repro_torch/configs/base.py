@@ -1,8 +1,11 @@
-"""Model configuration for the port: ``ModelConfig`` and ``reduced()``.
+"""Model configuration for the port: ``ModelConfig`` and ``reduced()``,
+and the LM shape cells.
 
-Copied from ``src/repro/configs/base.py`` (lines 16-156, the dataclass and
-its CPU-scale ``reduced()``).  The shape cells and run knobs of that file
-belong to the LM stack and wait for its slice.
+Copied from ``src/repro/configs/base.py``: lines 16-156 (the dataclass and
+its CPU-scale ``reduced()``) and 164-178 (``ShapeConfig``, ``LM_SHAPES``).
+The JAX ``RunConfig`` (mesh, remat, microbatching and attention-block
+knobs) has no counterpart: the port's serving path reads none of them, and
+the CUDA kernels tile by their own sizes.
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ class ModelConfig:
     bottom_mlp: Tuple[int, ...] = ()
     top_mlp: Tuple[int, ...] = ()
 
-    # Dtypes / runtime defaults (overridable via RunConfig).
+    # Dtypes.
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
 
@@ -150,3 +153,24 @@ class ModelConfig:
                 top_mlp=(32, 16, 1),
             )
         return replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

@@ -1,0 +1,79 @@
+"""ctypes-bound wrapper of the CUDA kernel in ``csrc/flash_attention.cu``.
+
+Counterpart of ``src/repro/kernels/flash_attention.py::flash_attention``:
+causal attention with an online softmax in fp32, scale ``1/sqrt(hd)``.
+The kernel takes the model's layout, q (B, S, H, hd) and k/v (B, S, K, hd)
+with ``H % K == 0`` (query head h reads KV head ``h // (H // K)``), any S,
+fp32 or bf16, hd in {16, 32, 64, 128}.  The wrapper takes CUDA tensors
+only: it checks device, dtype, shape and contiguity, allocates its output
+with ``torch.empty``, launches on the current stream, raises if the launch
+reports an error, and adds one to its ``launches`` count.  The plain
+versions are :func:`repro_torch.kernels.ref.causal_attention_ref` and
+:func:`~repro_torch.kernels.ref.flash_attention_ref`;
+:func:`repro_torch.kernels.ops.flash_attention` picks between kernel and
+plain version by the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.embedding_gather import (_DTYPE_CODE, _check,
+                                                  _raise_on)
+
+_VP, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_float)
+HEAD_DIMS = (16, 32, 64, 128)
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its C signature."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("flash_attention")
+        lib.repro_flash_attention.argtypes = [_VP] * 4 + [
+            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _VP]
+        lib.repro_flash_attention.restype = _INT
+        _LIB = lib
+    return _LIB
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, K, hd), one dtype (fp32 or bf16) on one
+    card -> (B, S, H, hd) causal attention in q's dtype."""
+    dtypes = tuple(_DTYPE_CODE)
+    _check(q, "q", 4, dtypes)
+    _check(k, "k", 4, (q.dtype,), q.device)
+    _check(v, "v", 4, (q.dtype,), q.device)
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if (k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != hd
+            or kv == 0 or h % kv):
+        raise ValueError(
+            f"flash_attention shapes do not match: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)} (expected k/v (B, S, K, "
+            "hd) with H % K == 0)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
+    out = torch.empty_like(q)
+    if b == 0 or s == 0 or h == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            h, kv, hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
+    _raise_on(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

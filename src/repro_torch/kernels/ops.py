@@ -5,6 +5,10 @@ knob: a CUDA tensor goes to the CUDA kernel (which launches or raises),
 and a CPU tensor goes to the plain PyTorch version.  Nothing falls back
 from the card to the plain path.
 
+``flash_attention`` serves only (LM prefill runs under
+``torch.inference_mode()``): on the card a call whose inputs require grad
+raises, since the kernel has no backward yet.
+
 ``lstm_cell`` and ``chamfer`` sit under gradients (every LSTM step of the
 learned models, the prefetch model's loss), so they are
 ``torch.autograd.Function``s: the forward is the kernel (or the plain
@@ -20,11 +24,13 @@ import torch
 
 from repro_torch.kernels import chamfer_kernel as _ck
 from repro_torch.kernels import embedding_gather as _eg
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lstm_cell as _lc
 from repro_torch.kernels import ref
 
 # Every kernel wrapper of the port, each with its ``launches`` count.
-KERNELS = _eg.KERNELS + (_lc.lstm_cell, _ck.chamfer)
+KERNELS = _eg.KERNELS + (_lc.lstm_cell, _ck.chamfer,
+                         _fa.flash_attention)
 
 
 def reset_launches():
@@ -186,3 +192,20 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
     w_w|^2 + (1 - alpha) * mean_w min_p |po_p - w_w|^2``, differentiable in
     ``po`` (``w`` gets no gradient)."""
     return _Chamfer.apply(po, w, alpha)[0]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
+    H, hd) causal attention in q's dtype (query head h reads KV head
+    ``h // (H // K)``), scale ``1/sqrt(hd)``, any S."""
+    if _on_cuda(q):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash_attention has no backward on the card: the attention "
+                "backward comes with LM training (ROADMAP A11b); call it "
+                "under torch.inference_mode()")
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    return ref.causal_attention_ref(q, k, v)

@@ -14,9 +14,13 @@ symmetric int8 in +-127, or ``float8_e4m3fn`` in +-448) and one fp32 scale
 per row.  Every division here is a true IEEE division by a tensor, never a
 multiply by a reciprocal (PyTorch's CUDA ``div`` by a Python scalar is
 one), so the plain versions give the kernels' bits on both devices.
+The attention versions (``causal_attention_ref``, ``flash_attention_ref``)
+sum in another order than the kernel and agree with it within a
+tolerance.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -207,3 +211,36 @@ def chamfer_ref(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
                                            device=po.device)
     loss = alpha * fwd + (1.0 - alpha) * bwd
     return loss, arg_fwd.to(torch.int32), arg_bwd.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# LM attention.
+# ---------------------------------------------------------------------------
+
+def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
+    H, hd) causal attention in q's dtype, scale ``1/sqrt(hd)``, computed in
+    fp32 (p stays fp32 for the p v product, as in the Pallas kernel).
+
+    Heads are grouped as ``src/repro/models/layers.py:65-75`` groups them:
+    ``q.reshape(B, S, K, G, hd)`` with ``G = H // K``, so query head
+    ``h = kv * G + g`` reads KV head ``h // G`` (not ``h % K``)."""
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    qg = q.float().reshape(b, s, n_kv, h // n_kv, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (
+        1.0 / math.sqrt(hd))
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The Pallas kernel's own contract (``src/repro/kernels/ref.py:26-36``):
+    q/k/v (BH, S, hd), one KV head per query head -> (BH, S, hd) causal
+    attention in q's dtype."""
+    return causal_attention_ref(q[:, :, None], k[:, :, None],
+                                v[:, :, None])[:, :, 0]

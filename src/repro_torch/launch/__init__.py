@@ -1,1 +1,1 @@
-"""Entry points (serving launcher)."""
+"""Entry points (the DLRM serving launcher, LM serving on tiered vocab)."""

@@ -1,1 +1,1 @@
-"""Model definitions (DLRM)."""
+"""Model definitions (DLRM, the dense LM) and the ``build`` facade."""

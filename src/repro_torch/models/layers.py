@@ -1,0 +1,197 @@
+"""Building blocks of the dense LM, in PyTorch.
+
+Ported from ``src/repro/models/layers.py`` (the dense subset): ``rms_norm``
+(:35), ``rope`` (:42), ``blocked_causal_attention`` (:142),
+``decode_attention`` (:246), ``init_attn``/``_qkv``/``attn_block``/
+``attn_decode_block`` (:270-349) and ``init_mlp``/``mlp_block``
+(:378-397).  Layouts are the JAX package's: x (B, S, D), q (B, S, H, hd),
+k/v and the KV cache (B, S, K, hd), weights (in, out) applied as ``x @ w``.
+Query head h reads KV head ``h // G`` with ``G = H // K``
+(``q.reshape(B, S, K, G, hd)``).
+
+``blocked_causal_attention`` is the port's CUDA ``flash_attention`` kernel
+on the card (its plain version, ``kernels/ref.py::causal_attention_ref``,
+on the CPU) at every S: the JAX switch to ``plain_attention`` (:77) at
+S <= 2048 and its padding to whole blocks change no result beyond
+rounding, and the port keeps p in fp32 for the p v product where
+``plain_attention`` rounds it to v's dtype.  Not ported:
+``kv_stream_attention`` and the sequence-parallel branch of ``attn_block``
+(they need a mesh), sliding windows (no dense config has one, and the
+kernel takes none), the MoE, SSM and cross-attention blocks (ROADMAP A11c).
+
+Products whose JAX einsum asks for ``preferred_element_type=float32`` are
+taken on fp32 copies of their inputs (a bf16 product is exact in fp32), so
+bf16 scores are not rounded to bf16.  ``attn_decode_block`` writes the new
+key and value into the cache in place (JAX returns updated copies); the
+cache's position is a Python int.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# Norms / rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split (not interleaved): x (..., S, H, hd);
+    positions (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """q: (B, bq, K, G, hd), k: (B, bk, K, hd) -> (B, K, G, bq, bk) fp32."""
+    return torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+
+
+def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """Causal attention, q (B, S, H, hd), k/v (B, S, K, hd) -> q's shape
+    and dtype: :func:`repro_torch.kernels.ops.flash_attention` (the CUDA
+    kernel on the card)."""
+    return ops.flash_attention(q, k, v)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """Single-token attention over a cache.  q: (B, 1, H, hd);
+    k_cache/v_cache: (B, S, K, hd); ``pos``: number of valid entries (for a
+    ring buffer the first ``min(pos, S)`` slots are valid).  The JAX
+    function's ``window`` argument is accepted and unused there, and left
+    out here."""
+    b, _, h, hd = q.shape
+    s, n_kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // n_kv
+    scores = _gqa_scores(q.reshape(b, 1, n_kv, g, hd), k_cache,
+                         1.0 / math.sqrt(hd))[..., 0, :]  # (B, K, G, S)
+    valid = torch.arange(s, device=q.device) < min(pos, s)
+    p = torch.softmax(scores.masked_fill(~valid, float("-inf")), dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
+                     v_cache.float()).to(v_cache.dtype)
+    return o.reshape(b, 1, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + norms + rope)
+# ---------------------------------------------------------------------------
+
+
+def _normal(g: torch.Generator, shape, scale: float, dt: torch.dtype,
+            dev: torch.device) -> torch.Tensor:
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+
+def init_attn(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
+              dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_attn`` draws (same shapes and scales), from ``g``."""
+    d, h, n_kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
+    sc = 1.0 / math.sqrt(d)
+    p = {"wq": _normal(g, (d, h * hd), sc, dt, dev),
+         "wk": _normal(g, (d, n_kv * hd), sc, dt, dev),
+         "wv": _normal(g, (d, n_kv * hd), sc, dt, dev),
+         "wo": _normal(g, (h * hd, d), 1.0 / math.sqrt(h * hd), dt, dev)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h), ("bk", n_kv), ("bv", n_kv)):
+            p[name] = torch.zeros((n * hd,), dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
+    return p
+
+
+def _qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, n_kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, n_kv, hd)
+    v = v.reshape(b, s, n_kv, hd)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _check_full_attention(cfg: ModelConfig):
+    if cfg.attn_type != "full":
+        raise NotImplementedError(
+            f"attn_type {cfg.attn_type!r}: the port has full causal "
+            "attention only (sliding windows: ROADMAP A11c)")
+
+
+def attn_block(p, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor):
+    """Full-sequence (prefill) self-attention.  Returns ``(out, (k, v))``."""
+    _check_full_attention(cfg)
+    q, k, v = _qkv(p, cfg, x, positions)
+    o = blocked_causal_attention(q, k, v)
+    return o.reshape(*o.shape[:2], -1) @ p["wo"], (k, v)
+
+
+def attn_decode_block(p, cfg: ModelConfig, x: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      pos: int):
+    """One-token self-attention.  x: (B, 1, D); the new key and value go to
+    ring slot ``pos % S`` of the caches, in place.  Returns ``(out,
+    k_cache, v_cache)``."""
+    _check_full_attention(cfg)
+    s = k_cache.shape[1]
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)
+    slot = pos % s if s > 0 else 0
+    k_cache[:, slot] = k[:, 0]
+    v_cache[:, slot] = v[:, 0]
+    o = decode_attention(q, k_cache, v_cache, pos + 1)
+    return o.reshape(*o.shape[:2], -1) @ p["wo"], k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
+             dev: torch.device) -> Dict[str, torch.Tensor]:
+    d, f = cfg.d_model, cfg.d_ff
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    return {"w1": _normal(g, (d, f), sc_in, dt, dev),
+            "w2": _normal(g, (f, d), sc_out, dt, dev),
+            "w3": _normal(g, (d, f), sc_in, dt, dev)}
+
+
+def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]

@@ -1,0 +1,227 @@
+"""Decoder-only dense LM in PyTorch: init, prefill and decode.
+
+Ported from the dense family of ``src/repro/models/transformer.py``:
+``init_layer``/``init_lm`` (:30-66) as the ``nn.Module``
+:class:`TransformerLM` with a ``ModuleList`` of blocks in place of the
+stacked ``lax.scan``; ``_layer_forward``/``_layer_decode`` (:74-133, dense
+branch); ``_embed``/``_logits`` (:148-187); ``init_cache``, ``prefill``,
+``decode_step``, ``decode_step_embeds`` and ``_decode_from`` (:234-314).
+``constrain_batch`` is a no-op without a mesh and is dropped; ``lm_loss``
+comes with LM training (ROADMAP A11b); the MoE, SSM, hybrid and VLM
+branches with the other families (A11c).
+
+The cache is ``{"pos": int, "k": (L, B, C, K, hd), "v": ...}`` in the
+compute dtype, a ring buffer (slot = pos % C).  Decode steps write each
+new key and value into it in place and return the same tensors with
+``pos + 1``.  Prefill and decode run under ``torch.inference_mode()``.
+Parameters are drawn from a seeded ``torch.Generator`` (same shapes and
+scales as ``jax.random``'s, other numbers); :func:`params_from_jax` carries
+JAX's parameters over for the parity tests.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.dlrm import _tensor, torch_dtype
+
+
+def _check_dense(cfg: ModelConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port has the dense LM only (the "
+            "other families are ROADMAP A11c)")
+
+
+def _params(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                             for k, t in d.items()})
+
+
+class Block(nn.Module):
+    """One pre-norm layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, attn: Dict[str, torch.Tensor],
+                 mlp: Dict[str, torch.Tensor], ln1: torch.Tensor,
+                 ln2: torch.Tensor):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1, requires_grad=False)
+        self.ln2 = nn.Parameter(ln2, requires_grad=False)
+        self.attn = _params(attn)
+        self.mlp = _params(mlp)
+
+
+class TransformerLM(nn.Module):
+    """``embed`` (V, D), ``blocks``, ``final_norm`` (D,) and, without tied
+    embeddings, ``lm_head`` (D, V).  The parameters hold no gradients: the
+    port serves only (training is ROADMAP A11b)."""
+
+    def __init__(self, cfg: ModelConfig, embed: torch.Tensor, blocks,
+                 final_norm: torch.Tensor,
+                 lm_head: Optional[torch.Tensor] = None):
+        super().__init__()
+        _check_dense(cfg)
+        if (lm_head is None) != cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: lm_head must be given iff the "
+                             "embeddings are not tied")
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.lm_head = (None if lm_head is None
+                        else nn.Parameter(lm_head, requires_grad=False))
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> TransformerLM:
+    """Random parameters on ``device`` from one seeded ``torch.Generator``,
+    with the shapes and scales of the JAX ``init_lm``: weights normal times
+    ``1/sqrt(fan_in)``, the embedding normal times 0.02, norms ones, biases
+    zeros."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch_dtype(cfg.param_dtype)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
+    blocks = [Block(L.init_attn(g, cfg, dt, dev), L.init_mlp(g, cfg, dt, dev),
+                    ones(), ones()) for _ in range(cfg.n_layers)]
+    embed = L._normal(g, (cfg.vocab, cfg.d_model), 0.02, dt, dev)
+    head = (None if cfg.tie_embeddings else L._normal(
+        g, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model), dt, dev))
+    return TransformerLM(cfg, embed, blocks, ones(), head)
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> TransformerLM:
+    """The JAX ``init_lm`` pytree, as NumPy arrays (``{"embed", "blocks":
+    {"ln1", "ln2", "attn": {...}, "mlp": {...}}`` stacked on a leading L
+    axis, ``"final_norm"``, [``"lm_head"``]}), as the port's model on
+    ``device``: the L axis unstacked, same dtypes, same bits."""
+    dev = resolve_device(device)
+    bl = tree["blocks"]
+    blocks = [Block({k: _tensor(np.asarray(a)[i], dev)
+                     for k, a in bl["attn"].items()},
+                    {k: _tensor(np.asarray(a)[i], dev)
+                     for k, a in bl["mlp"].items()},
+                    _tensor(np.asarray(bl["ln1"])[i], dev),
+                    _tensor(np.asarray(bl["ln2"])[i], dev))
+              for i in range(cfg.n_layers)]
+    head = tree.get("lm_head")
+    return TransformerLM(cfg, _tensor(tree["embed"], dev), blocks,
+                         _tensor(tree["final_norm"], dev),
+                         None if head is None else _tensor(head, dev))
+
+
+# ---------------------------------------------------------------------------
+# Per-layer bodies, embedding and head
+# ---------------------------------------------------------------------------
+
+
+def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """Full-sequence layer.  Returns ``(x, (k, v))``."""
+    attn_out, kv = L.attn_block(blk.attn, cfg,
+                                L.rms_norm(x, blk.ln1, cfg.norm_eps),
+                                positions)
+    x = x + attn_out
+    return x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps)), kv
+
+
+def _layer_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int):
+    attn_out, _, _ = L.attn_decode_block(
+        blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps), k_cache,
+        v_cache, pos)
+    x = x + attn_out
+    return x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
+
+
+def _embed(model: TransformerLM, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, D) rows of ``embed`` in the compute dtype
+    (indexing then casting gives JAX's cast-then-index values)."""
+    return model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+
+
+def _logits(model: TransformerLM, cfg: ModelConfig,
+            x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, V) fp32: the head in x's dtype, the products
+    summed in fp32 (JAX's ``preferred_element_type=float32``)."""
+    head = model.embed.t() if model.lm_head is None else model.lm_head
+    return x.float() @ head.to(x.dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
+               device="cuda") -> Dict:
+    """Zeroed decode cache with room for ``cache_len`` positions."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.compute_dtype)
+    shape = (cfg.n_layers, batch, cache_len, cfg.kv_heads, cfg.hd)
+    return {"pos": 0, "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+@torch.inference_mode()
+def prefill(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: Optional[int] = None):
+    """tokens (B, S) on the model's device -> ``(last-token logits (B, V)
+    fp32, cache at pos = S)``.  ``cache_len`` is the cache's capacity C:
+    above S the cache is padded with zeros, below S it keeps the last C
+    keys rotated so that slot = pos % C (``transformer.py:269-278``)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    x = _embed(model, cfg, tokens)
+    cap = cache_len or s
+    cache = init_cache(cfg, b, cap, x.dtype, tokens.device)
+    for i, blk in enumerate(model.blocks):
+        x, (k, v) = _layer_forward(blk, cfg, x, positions)
+        if s > cap:
+            cache["k"][i] = torch.roll(k[:, s - cap:], s % cap, dims=1)
+            cache["v"][i] = torch.roll(v[:, s - cap:], s % cap, dims=1)
+        else:
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+    x = L.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
+    cache["pos"] = s
+    return _logits(model, cfg, x)[:, 0], cache
+
+
+@torch.inference_mode()
+def decode_step(model: TransformerLM, cfg: ModelConfig, token: torch.Tensor,
+                cache: Dict):
+    """token (B, 1) -> ``(logits (B, V) fp32, cache)``."""
+    return _decode_from(model, cfg, _embed(model, cfg, token), cache)
+
+
+@torch.inference_mode()
+def decode_step_embeds(model: TransformerLM, cfg: ModelConfig,
+                       x: torch.Tensor, cache: Dict):
+    """Decode from precomputed token embeddings x (B, 1, D) in the compute
+    dtype: the tiered-vocab serving entry point, where the row comes from
+    the fast-tier buffer (``repro_torch.core.tiered``) instead of the
+    resident table."""
+    ct = torch_dtype(cfg.compute_dtype)
+    if x.dtype != ct:
+        raise TypeError(f"decode_step_embeds takes rows in the compute "
+                        f"dtype {ct}, got {x.dtype}: cast the store's rows")
+    return _decode_from(model, cfg, x, cache)
+
+
+def _decode_from(model: TransformerLM, cfg: ModelConfig, x: torch.Tensor,
+                 cache: Dict):
+    pos = cache["pos"]
+    for i, blk in enumerate(model.blocks):
+        x = _layer_decode(blk, cfg, x, cache["k"][i], cache["v"][i], pos)
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return _logits(model, cfg, x)[:, 0], {**cache, "pos": pos + 1}

@@ -407,3 +407,93 @@ def test_lstm_cell_and_chamfer_grads_match_plain(dev):
     po_ref = po.detach().clone().requires_grad_()
     ref.chamfer_ref(po_ref, w, 0.7)[0].mean().backward()
     torch.testing.assert_close(po.grad, po_ref.grad, rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Dense-LM serving: flash_attention and the vocab-row read.
+# Tolerances: fp32 rtol/atol 1e-5 (fp32 sums in another order than the
+# plain version's products); bf16 1e-2 (the output rounds to bf16, whose
+# ulp is 2^-8 of the value, after sums in another order).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,n_kv,hd", [
+    (2, 100, 4, 2, 16), (1, 1, 2, 1, 16), (2, 1000, 9, 3, 64),
+    (1, 300, 16, 2, 128), (3, 77, 8, 8, 32), (2, 64, 6, 3, 64),
+])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_matches_plain(dev, dt, b, s, h, n_kv, hd):
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32)).to(DTYPES[dt]).to(dev) for n in (h, n_kv, n_kv))
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 1e-5 if dt == "fp32" else 1e-2
+    torch.testing.assert_close(got.float(),
+                               ref.causal_attention_ref(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_refuses_what_it_cannot_serve(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 8, 4, 16), device=dev, requires_grad=True)
+    kv = torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(NotImplementedError, match="A11b"):
+        ops.flash_attention(q, kv, kv)
+    with torch.inference_mode():
+        assert ops.flash_attention(q, kv, kv).shape == q.shape
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(torch.zeros((1, 8, 4, 24), device=dev),
+                           torch.zeros((1, 8, 2, 24), device=dev),
+                           torch.zeros((1, 8, 2, 24), device=dev))
+    with pytest.raises(ValueError, match="H % K"):
+        fa.flash_attention(torch.zeros((1, 8, 4, 16), device=dev),
+                           torch.zeros((1, 8, 3, 16), device=dev),
+                           torch.zeros((1, 8, 3, 16), device=dev))
+
+
+def test_gather_rows_expand_at_the_vocab_width(dev):
+    """smollm-135m's vocab rows: D=576 fp32, 8 ids of a decode step."""
+    table = _table(4915, 576, torch.float32, 5, dev)
+    slots = torch.tensor([7, 4900, 0, 12], dtype=torch.int32, device=dev)
+    inv = torch.tensor([0, 1, 1, 2, 3, 0, 3, 2], dtype=torch.int32,
+                       device=dev)
+    out = eg.gather_rows_expand(table, slots, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.gather_rows_expand_ref(table, slots, inv))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_lm_prefill_and_decode_on_card_match_cpu(dev, dtype, tol):
+    """A reduced dense LM from the same parameters on both devices: the card
+    runs flash_attention in every prefill layer."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import (decode_step, init_lm,
+                                                prefill)
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              param_dtype=dtype, compute_dtype=dtype)
+    cpu = init_lm(cfg, seed=0, device="cpu")
+    card = init_lm(cfg, seed=0, device="cpu").to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 70)))
+    n0 = fa.flash_attention.launches
+    out = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        logits, cache = prefill(model, cfg, tokens.to(d), 80)
+        steps = [logits]
+        for i in range(3):
+            logits, cache = decode_step(model, cfg, tokens[:, i:i + 1].to(d),
+                                        cache)
+            steps.append(logits)
+        out[name] = torch.stack(steps).cpu()
+    assert fa.flash_attention.launches == n0 + cfg.n_layers
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=tol, atol=tol)

@@ -68,9 +68,14 @@ def _entry_points():
     from repro_torch.core.tiered import TieredEmbeddingStore
     from repro_torch.core.trace import TraceGenConfig, generate_trace
     from repro_torch.launch.serve import main, serve_trace
+    from repro_torch.launch.serve_lm import main as serve_lm_main
+    from repro_torch.launch.serve_lm import serve_lm_tiered
     from repro_torch.models.dlrm import init_dlrm
+    from repro_torch.models.model_api import build
+    from repro_torch.models.transformer import init_lm
 
     cfg = get_config("dlrm-recmg").reduced()
+    lm = get_config("smollm-135m").reduced()
     trace = generate_trace(TraceGenConfig(n_tables=2, rows_per_table=50,
                                           n_accesses=500, seed=0))
     windows = make_windows(trace, in_len=15)
@@ -96,6 +101,11 @@ def _entry_points():
         "train_voyager": lambda: VY.train_voyager(
             windows, VY.VoyagerConfig(n_vectors=trace.n_vectors), 2,
             epochs=1),
+        "serve_lm_tiered": lambda: serve_lm_tiered(lm, steps=2),
+        "serve_lm_cli": lambda: serve_lm_main(["--reduced", "--steps", "2"]),
+        "lm_prefill": lambda: build(lm).prefill(
+            None, {"tokens": np.zeros((1, 4), np.int64)}),
+        "init_lm": lambda: init_lm(lm),
     }
 
 
@@ -104,7 +114,9 @@ def _entry_points():
                                    "init_dlrm", "cli", "learned_model",
                                    "voyager_outputs", "cli_learned",
                                    "train_caching_model",
-                                   "train_prefetch_model", "train_voyager"])
+                                   "train_prefetch_model", "train_voyager",
+                                   "serve_lm_tiered", "serve_lm_cli",
+                                   "lm_prefill", "init_lm"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
