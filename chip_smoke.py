@@ -37,14 +37,17 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
    tables quantized to int8 (8 GB), which pools through
    ``gather_pool_dequant``;
 7. the learned models' kernels vs plain on the card: ``lstm_cell`` at the
-   inference (B=4096) and training (B=256) shapes for the encoder (K=67)
-   and decoder (K=120) layers, H=40, within fp32 abs 1e-5 on h', c' and
-   the gates; ``chamfer`` at the training shape (B=256, P=5, W=15, F=25)
+   inference (B=4096) and training (B=256) shapes of every LSTM layer of
+   the path (K = 57, 67, 80, 88, 120 at H = 32 or 40), within fp32 abs
+   1e-5 on h', c' and the gates; ``chamfer`` at the training shape (B=256, P=5, W=15, F=25)
    and at B=65,536, the loss within rtol 1e-5 and the argmins equal; each
    timed beside its bound and, for ``lstm_cell``, ``torch.lstm_cell``;
    then the gradients through both autograd Functions against autograd
    through the plain versions (max abs error within 1e-6 + 1e-4 times the
-   gradient's largest entry);
+   gradient's largest entry); each ``lstm_cell`` record carries its
+   achieved TFLOP/s, its share of the bound, whether it beat
+   ``torch.lstm_cell``, the kernel's design and the timer's floor (what it
+   reads for an empty kernel);
 8. learned parity on the golden fixture: the caching, prefetch and Voyager
    models trained on the card (1 epoch), their outputs computed on the card
    and, from the same parameters, on the CPU: decisions equal except where
@@ -62,7 +65,9 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
     layout (1, 8192, 16/2, 128) bf16, at fp32 (2, 1024, 8/2, 64) and at a
     ragged S=1,000 in both dtypes: fp32 within rtol/atol 1e-5, bf16 within
     1e-2; each timed beside its bound and beside
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``, with
+    its achieved TFLOP/s, share of the bound, design (bf16: tensor cores;
+    fp32: FMAs) and, at bf16, its largest error in bf16 ulps;
 11. LM parity: full-width smollm-135m (30 layers, d_model 576, 9/3 heads,
     vocab 49,152) from the same seeded parameters on the CPU and on the
     card, a B=2, S=256 prefill and 8 teacher-forced decode steps: logits
@@ -77,7 +82,8 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
-error, times and bound; the last line is the result.  Imports nothing of
+error, times and bound, and for the two kernels in their second design
+that design; the last line is the result.  Imports nothing of
 JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -139,6 +145,23 @@ FLASH_SHAPES = (("serve_prefill", 8, 2048, 9, 3, 64, "bf16"),
                 ("fp32", 2, 1024, 8, 2, 64, "fp32"),
                 ("ragged", 4, 1000, 9, 3, 64, "fp32"),
                 ("ragged", 4, 1000, 9, 3, 64, "bf16"))
+# The designs of the two kernels redesigned after their first port, as
+# their records name them (flash_attention by dtype: fp32 keeps the first
+# port's kernel).
+FLASH_DESIGN = {
+    "bf16": "mma.sync m16n8k16 bf16 -> fp32 on the tensor cores, both "
+            "products; 128-query blocks of 8 warps, 64-key tiles "
+            "double-buffered by cp.async, ldmatrix (.trans for v), p kept "
+            "in registers as bf16",
+    "fp32": "fp32 FMAs from shared memory, 64-query x 32-key tiles, p "
+            "through shared memory (the first port's kernel)"}
+LSTM_DESIGN = ("fp32 FMAs; blocks tile (16-64 rows) x (8 units, 4 gates "
+               "each); rows and the block's W slice staged by 16-byte "
+               "cp.async; a thread holds 4 rows x 4 gates, 3.2 FMAs a "
+               "shared load")
+# Kernel -> its design, for the kernels redesigned after their first port.
+REDESIGNED = {"flash_attention": FLASH_DESIGN["bf16"],
+              "lstm_cell": LSTM_DESIGN}
 # Why no single PyTorch call stands beside a quantized kernel.
 NO_LIBRARY = {
     "quantize_scatter": "no PyTorch call quantizes rows per row and "
@@ -214,6 +237,23 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def achieved(rec, n_ops):
+    """Adds the achieved TFLOP/s and the share of the bound a timed record
+    reaches (``bound_ms / ms``)."""
+    rec["tflops"] = n_ops / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in bf16 ulps of max(|want|, 1): 2^(e - 8)
+    for a magnitude in [2^(e-1), 2^e), and 2^-7 below 1.  An output near 0
+    sums terms of magnitude ~1 and rounds them, so its own ulp would
+    measure nothing; the floor counts it at the ulp of 1."""
+    mag = want.float().abs().clamp_min(1.0)
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    return float(((got.float() - want.float()).abs() / ulp).max())
 
 
 def n_distinct(t: torch.Tensor) -> int:
@@ -737,6 +777,9 @@ def phase_learned_kernels(timer):
     ``lstm_cell`` at the inference shape of the decoder (B=4096, K=120, no
     gates saved) and ``chamfer`` at the training shape (B=256)."""
     main = {}
+    # What the timer reads for a kernel that does nothing: the floor under
+    # every time of a kernel this small.
+    floor_ms = timer(lambda: torch.cuda._sleep(1))
     for b in (4096, 256):
         train = b == 256  # training saves the gates for the backward
         for layer, (in_dim, hid) in LSTM_LAYERS.items():
@@ -769,6 +812,10 @@ def phase_learned_kernels(timer):
                            + (b * 4 * hid if train else 0))
             rec["bound_ms"], rec["bound_by"] = bound_ms(
                 n_bytes, 2 * b * k * 4 * hid)
+            achieved(rec, 2 * b * k * 4 * hid)
+            rec["beats_library"] = rec["ms"] <= rec["library_ms"]
+            rec["timer_floor_ms"] = floor_ms
+            rec["design"] = LSTM_DESIGN
             emit(rec)
             if b == 4096 and layer == "decoder":
                 main["lstm_cell"] = rec
@@ -1058,6 +1105,7 @@ def phase_flash_kernels(timer):
         want = ref.causal_attention_ref(q, k, v)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
+        ulps = bf16_ulps(got, want) if dt_name == "bf16" else None
         tol = 1e-5 if dt_name == "fp32" else 1e-2
         require(torch.allclose(got.float(), want.float(), rtol=tol,
                                atol=tol),
@@ -1075,6 +1123,8 @@ def phase_flash_kernels(timer):
         rec = {"phase": "kernel", "name": "flash_attention", "shape": name,
                "dtype": dt_name, "B": b, "S": s, "H": h, "K": n_kv, "hd": hd,
                "max_abs_err": err, "tolerance": tol,
+               **({"max_err_bf16_ulps": ulps} if ulps is not None else {}),
+               "design": FLASH_DESIGN[dt_name],
                "library_max_abs_err": lib_err,
                "ms": timer(lambda: fa.flash_attention(q, k, v)),
                "plain_ms": timer(lambda: ref.causal_attention_ref(q, k, v)),
@@ -1082,9 +1132,11 @@ def phase_flash_kernels(timer):
         # Causal work: 2 products of 2 * (S^2 / 2) * hd per (batch, head);
         # q, k, v read once and o written once.
         n_bytes = q.element_size() * b * s * hd * (2 * h + 2 * n_kv)
+        n_ops = 2 * 2 * b * h * s * s / 2 * hd
         rec["bound_ms"], rec["bound_by"] = bound_ms(
-            n_bytes, 2 * 2 * b * h * s * s / 2 * hd,
+            n_bytes, n_ops,
             BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
+        achieved(rec, n_ops)
         emit(rec)
         if main is None:
             main = rec
@@ -1347,6 +1399,8 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if name in REDESIGNED:
+            kernels[-1]["design"] = REDESIGNED[name]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

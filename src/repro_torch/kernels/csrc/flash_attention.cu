@@ -16,33 +16,51 @@
 //
 // What bounds it: the two products.  At the serve prefill shape (B = 8,
 // S = 2048, H = 9, hd = 64) the causal work is 2 * 2 * B * H * S^2 / 2 * hd
-// = 38.7 GFLOP against 50.3 MB of q, k, v and o, so the card's tensor-core
-// rate is the bound.  This first kernel is the right and simple one: its
-// products are fp32 FMAs from shared memory (no mma), so it runs at a few
-// percent of that bound; a wgmma/TMA design is later work.  What the design
-// does keep from the Pallas kernel is the traffic: q, k and v are read from
-// device memory once per query tile and the (S, S) scores never leave the
-// chip.
-//   * a block owns one (batch, head) and kBlockQ = 64 queries; it stages
-//     its queries once, then walks the KV tiles of kBlockK = 32 keys up to
-//     the causal frontier (tiles past it are skipped; the Pallas kernel
-//     computes and masks them, the same function);
+// = 38.7 GFLOP against 50.3 MB of q, k, v and o, so the card's bf16
+// tensor-core rate (989 TFLOP/s) is the bound.  Both designs keep the
+// Pallas kernel's traffic: q, k and v are read once per query tile and the
+// (S, S) scores never leave the chip; KV tiles past the causal frontier are
+// skipped (the Pallas kernel computes and masks them: the same function),
+// and the blocks of the last, costliest query tiles are issued first.
+//
+// bf16 inputs: both products on the tensor cores (flash_attention_mma),
+// mma.sync.m16n8k16 bf16 x bf16 -> fp32 through inline PTX, the FA2 shape:
+//   * a block owns one (batch, head) and kMmaBlockQ = 128 queries, one warp
+//     per 16 of them (8 warps); its queries are staged once and held as
+//     mma A fragments in registers;
+//   * KV tiles of kMmaBlockK = 64 keys, double-buffered in shared memory by
+//     16-byte cp.async copies (the ragged tail zero-filled), so the next
+//     tile's copy runs under this tile's products;
+//   * shared rows are padded by 16 bytes (hd + 8 bf16), so the 8 row
+//     addresses of each ldmatrix fall in distinct banks; K is read with
+//     ldmatrix, V with ldmatrix.trans;
+//   * the score tile's accumulator fragments (two adjacent n8 tiles) are
+//     the A fragment of one k16 step of p v: p never goes through shared
+//     memory.  p is rounded to bf16 for that product (as the JAX model's
+//     blocked_causal_attention does); m, l and the accumulator stay fp32;
+//   * the online softmax runs in registers: a row lives in the 4 lanes of a
+//     quad, so its max and sum need two shuffles; 2^x (the SFU's
+//     ex2.approx) on scores scaled by scale * log2(e); the causal mask is applied only on the tiles that
+//     cross a warp's diagonal or the ragged end of S, and a warp skips a
+//     tile whose keys all lie past its last query.
+// fp32 inputs keep the first port's kernel (flash_attention_fma): fp32
+// FMAs from shared memory, exact to ~1e-6 against the plain version, which
+// TF32 tensor cores (10-bit mantissa) would not hold to 1e-5; it already
+// beats the library's fp32 attention, and serving runs bf16.
+//   * a block owns one (batch, head) and kBlockQ = 64 queries and walks KV
+//     tiles of kBlockK = 32 keys;
 //   * thread (rg, cg) of the 16 x 8 threads owns query rows rg + 16 i
 //     (i < 4), key columns cg + 8 j (j < 4) of the score tile and head-dim
-//     columns cg + 8 c (c < hd / 8) of the accumulator, so the score tile,
-//     its softmax statistics and the rows of the accumulator they rescale
-//     stay in one thread's registers; a row's max and sum are reduced over
-//     its 8 threads, which are 8 neighbouring lanes, by shuffles;
-//   * p goes through shared memory once per tile for the p v product; p is
-//     kept in fp32 (as in the Pallas kernel);
-//   * shared rows are padded (hd + 1 floats, 40 for p) so that the 32
-//     lanes of a warp hit distinct banks in both products;
-//   * the blocks of the last (costliest) query tiles are issued first.
-// exp is the accurate expf and 1/l a true division (the build has no
-// fast-math flag).
+//     columns cg + 8 c (c < hd / 8) of the accumulator; a row's max and
+//     sum are reduced over its 8 threads by shuffles;
+//   * p goes through shared memory once per tile, in fp32; shared rows are
+//     padded (hd + 1 floats, 40 for p) against bank conflicts.
+// exp is the accurate expf for fp32 and ex2.approx for bf16 (its 2^-22
+// relative error is far below p's bf16 rounding); 1/l is a true division
+// (the build has no fast-math flag).
 //
-// The kernel launches on the caller's stream, allocates nothing and never
-// synchronises; the C function returns cudaGetLastError() after its launch.
+// The kernels launch on the caller's stream, allocate nothing and never
+// synchronise; the C function returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,26 +80,17 @@ constexpr int kPStride = kBlockK + 8;                 // padded row of p
 constexpr int kMaxQTiles = 65535;                     // gridDim.y limit
 constexpr int64_t kDefaultSmem = 48 * 1024;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
 template <int HD>
-constexpr int64_t smem_bytes() {
+constexpr int64_t fma_smem_bytes() {
   return static_cast<int64_t>(kBlockQ * (HD + 1) + kBlockK * (HD + 1) +
                               kBlockK * HD + kBlockQ * kPStride) * 4;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       int s_len, int n_heads, int n_kv, float scale) {
+flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    int s_len, int n_heads, int n_kv, float scale) {
   constexpr int kStride = HD + 1;           // padded row of q and k
   constexpr int kCols = HD / kColGroups;    // accumulator columns a thread
   extern __shared__ float smem[];
@@ -111,7 +120,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d = i - r * HD;
     const int pos = q0 + r;
     s_q[r * kStride + d] =
-        pos < s_len ? to_float(q[q_base + pos * q_row + d]) : 0.0f;
+        pos < s_len ? q[q_base + pos * q_row + d] : 0.0f;
   }
 
   float m[kRowsPerThread];
@@ -137,8 +146,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int pos = k0 + r;
       const bool ok = pos < s_len;
       const int64_t at = kv_base + pos * kv_row + d;
-      s_k[r * kStride + d] = ok ? to_float(k[at]) : 0.0f;
-      s_v[r * HD + d] = ok ? to_float(v[at]) : 0.0f;
+      s_k[r * kStride + d] = ok ? k[at] : 0.0f;
+      s_v[r * HD + d] = ok ? v[at] : 0.0f;
     }
     __syncthreads();
 
@@ -235,57 +244,378 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + rg + kRowGroups * i;
     if (qpos >= s_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + q_base + qpos * q_row;
+    float* orow = o + q_base + qpos * q_row;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      store(orow + cg + kColGroups * c, acc[i][c] / denom);
+      orow[cg + kColGroups * c] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t batch, int s_len, int n_heads, int n_kv,
-                   float scale, cudaStream_t stream) {
-  constexpr int64_t smem = smem_bytes<HD>();
-  static bool smem_set = false;  // per instantiation
-  if (smem > kDefaultSmem && !smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    smem_set = true;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;     // 256
+constexpr int kMmaBlockQ = 16 * kMmaWarps;      // 128 queries, 16 a warp
+constexpr int kMmaBlockK = 64;                  // keys per KV tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+constexpr int64_t mma_smem_bytes() {
+  // q, then two stages of k and of v, rows padded to hd + 8 bf16.
+  return static_cast<int64_t>(kMmaBlockQ + 4 * kMmaBlockK) * (HD + 8) * 2;
+}
+
+// 2^x by the SFU's ex2.approx (relative error ~2^-22; subnormals flush to
+// 0): p is rounded to bf16 (2^-9) right after.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b, a a 16 x 16 bf16 row fragment, b a 16 x 8 bf16 column
+// fragment, c a 16 x 8 fp32 fragment.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, round to nearest even; lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Fragment layouts of m16n8k16 (PTX ISA): lane = 4 g + t.  A (16 x 16):
+// a0 (row g, cols 2t, 2t+1), a1 (row g+8, same), a2 (row g, cols 2t+8,
+// 2t+9), a3 (row g+8, same).  B (16 x 8): b0 (rows 2t, 2t+1, col g), b1
+// (rows 2t+8, 2t+9, col g).  C (16 x 8): c0, c1 (row g, cols 2t, 2t+1),
+// c2, c3 (row g+8, same).  So the C fragments of score columns 16 s .. 16 s
+// + 7 and 16 s + 8 .. 16 s + 15 are, packed, the A fragment of p for key
+// step s.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, HD <= 64 ? 2 : 1)
+flash_attention_mma(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, int s_len, int n_heads,
+                    int n_kv, float scale_log2) {
+  constexpr int kStride = HD + 8;              // padded row, bf16
+  constexpr int kChunks = HD / 8;              // 16-byte chunks a row
+  constexpr int kDSteps = HD / 16;             // k16 steps of q k^T
+  constexpr int kSTiles = kMmaBlockK / 8;      // n8 tiles of the scores
+  constexpr int kOTiles = HD / 8;              // n8 tiles of the output
+  constexpr int kTileElems = kMmaBlockK * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_k = s_q + kMmaBlockQ * kStride;  // 2 stages
+  __nv_bfloat16* s_v = s_k + 2 * kTileElems;        // 2 stages
+
+  const int b = blockIdx.x / n_heads;
+  const int h = blockIdx.x - b * n_heads;
+  const int kvh = h / (n_heads / n_kv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBlockQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
+  const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
+  const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+                         static_cast<int64_t>(h) * HD;
+  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+                          static_cast<int64_t>(kvh) * HD;
+
+  // Rows past S are zero-filled (their source address stays in bounds).
+  for (int i = tid; i < kMmaBlockQ * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int pos = q0 + r;
+    cp_async16(smem_addr(s_q + r * kStride + c * 8),
+               q + q_base + min(pos, s_len - 1) * q_row + c * 8,
+               pos < s_len ? 16 : 0);
   }
+  auto load_kv = [&](int tile, int stage) {
+    __nv_bfloat16* dk = s_k + stage * kTileElems;
+    __nv_bfloat16* dv = s_v + stage * kTileElems;
+    for (int i = tid; i < kMmaBlockK * kChunks; i += kMmaThreads) {
+      const int r = i / kChunks;
+      const int c = i - r * kChunks;
+      const int pos = tile * kMmaBlockK + r;
+      const int64_t at = kv_base + min(pos, s_len - 1) * kv_row + c * 8;
+      const int n = pos < s_len ? 16 : 0;
+      cp_async16(smem_addr(dk + r * kStride + c * 8), k + at, n);
+      cp_async16(smem_addr(dv + r * kStride + c * 8), v + at, n);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // This warp's 16 rows: g and g + 8 of them are this lane's.
+  const int w_first = q0 + 16 * warp;
+  const int w_last = w_first + 15;
+  const int row_lo = w_first + g;
+  const int row_hi = row_lo + 8;
+  uint32_t qf[kDSteps][4];
+  float acc[kOTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, raw scores
+  float l_lo = 0.0f, l_hi = 0.0f;            // this lane's share of l
+
+  // KV tiles up to the causal frontier of the tile's last real query.
+  const int q_last = min(q0 + kMmaBlockQ, s_len) - 1;
+  const int n_tiles = q_last / kMmaBlockK + 1;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int d = 0; d < kDSteps; ++d) {
+        ldmatrix_x4(qf[d], smem_addr(s_q + (16 * warp + (lane & 15)) *
+                                               kStride +
+                                     16 * d + 8 * (lane >> 4)));
+      }
+    }
+    const int k0 = t * kMmaBlockK;
+    // A warp whose queries all lie before this tile, or past S, skips it.
+    if (k0 <= w_last && w_first < s_len) {
+      const __nv_bfloat16* sk = s_k + (t & 1) * kTileElems;
+      const __nv_bfloat16* sv = s_v + (t & 1) * kTileElems;
+      float s[kSTiles][4];
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+      }
+      // s = q k^T.  One ldmatrix.x4 gives the b0, b1 of key tiles n and
+      // n + 1 for one k16 step: lanes 8 i .. 8 i + 7 address keys
+      // 8 (n + i / 2) .. + 7 at head dims 16 d + 8 (i % 2).
+#pragma unroll
+      for (int d = 0; d < kDSteps; ++d) {
+#pragma unroll
+        for (int n = 0; n < kSTiles; n += 2) {
+          uint32_t kb[4];
+          const int key = 8 * (n + (lane >> 4)) + (lane & 7);
+          ldmatrix_x4(kb, smem_addr(sk + key * kStride + 16 * d +
+                                    8 * ((lane >> 3) & 1)));
+          mma_bf16(s[n], qf[d], kb[0], kb[1]);
+          mma_bf16(s[n + 1], qf[d], kb[2], kb[3]);
+        }
+      }
+      // The causal mask and the end of S, on the tiles that reach them.
+      if (k0 + kMmaBlockK - 1 > w_first || k0 + kMmaBlockK > s_len) {
+#pragma unroll
+        for (int n = 0; n < kSTiles; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+            const int row = e < 2 ? row_lo : row_hi;
+            if (key > row || key >= s_len) s[n][e] = -INFINITY;
+          }
+        }
+      }
+      // Online softmax: a row's 16 scores here, its 64 over the quad.
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      // A row that has seen no key yet (max -inf) has nothing to rescale
+      // and no p: subtract 0, not -inf.
+      const float base_lo = mx_lo == -INFINITY ? 0.0f : mx_lo * scale_log2;
+      const float base_hi = mx_hi == -INFINITY ? 0.0f : mx_hi * scale_log2;
+      const float corr_lo = exp2_approx(fmaf(m_lo, scale_log2, -base_lo));
+      const float corr_hi = exp2_approx(fmaf(m_hi, scale_log2, -base_hi));
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kSTiles; ++n) {
+        s[n][0] = exp2_approx(fmaf(s[n][0], scale_log2, -base_lo));
+        s[n][1] = exp2_approx(fmaf(s[n][1], scale_log2, -base_lo));
+        s[n][2] = exp2_approx(fmaf(s[n][2], scale_log2, -base_hi));
+        s[n][3] = exp2_approx(fmaf(s[n][3], scale_log2, -base_hi));
+        sum_lo += s[n][0] + s[n][1];
+        sum_hi += s[n][2] + s[n][3];
+      }
+      l_lo = l_lo * corr_lo + sum_lo;
+      l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        acc[n][0] *= corr_lo;
+        acc[n][1] *= corr_lo;
+        acc[n][2] *= corr_hi;
+        acc[n][3] *= corr_hi;
+      }
+      // acc += p v, p from the score fragments; one ldmatrix.x4.trans
+      // gives the b0, b1 of head-dim tiles n and n + 1 for key step j:
+      // lanes 8 i .. 8 i + 7 address keys 16 j + 8 (i % 2) .. + 7 at head
+      // dims 8 (n + i / 2).
+#pragma unroll
+      for (int j = 0; j < kMmaBlockK / 16; ++j) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const int key = 16 * j + 8 * ((lane >> 3) & 1) + (lane & 7);
+#pragma unroll
+        for (int n = 0; n < kOTiles; n += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, smem_addr(sv + key * kStride +
+                                          8 * (n + (lane >> 4))));
+          mma_bf16(acc[n], pa, vb[0], vb[1]);
+          mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float den_lo = fmaxf(l_lo, 1e-30f);
+  const float den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (row_lo < s_len) {
+      *reinterpret_cast<__nv_bfloat162*>(o + q_base + row_lo * q_row + col) =
+          __floats2bfloat162_rn(acc[n][0] / den_lo, acc[n][1] / den_lo);
+    }
+    if (row_hi < s_len) {
+      *reinterpret_cast<__nv_bfloat162*>(o + q_base + row_hi * q_row + col) =
+          __floats2bfloat162_rn(acc[n][2] / den_hi, acc[n][3] / den_hi);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+
+// Raises a kernel's dynamic shared memory limit once, where it needs more
+// than the 48 KB default.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int64_t smem, bool* done) {
+  if (smem <= kDefaultSmem || *done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
+
+template <int HD>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
+                       int64_t batch, int s_len, int n_heads, int n_kv,
+                       float scale, cudaStream_t stream) {
+  constexpr int64_t smem = fma_smem_bytes<HD>();
+  static bool smem_set = false;  // per instantiation
+  cudaError_t err = allow_smem(flash_attention_fma<HD>, smem, &smem_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(batch * n_heads),
                   static_cast<unsigned>((s_len + kBlockQ - 1) / kBlockQ));
-  flash_attention_kernel<T, HD><<<grid, kThreads, static_cast<size_t>(smem),
-                                  stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s_len, n_heads, n_kv,
-      scale);
+  flash_attention_fma<HD><<<grid, kThreads, static_cast<size_t>(smem),
+                            stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s_len, n_heads,
+      n_kv, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        int64_t batch, int s_len, int n_heads, int n_kv,
-                        int head_dim, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, batch, s_len, n_heads, n_kv, scale,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, batch, s_len, n_heads, n_kv, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, batch, s_len, n_heads, n_kv, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, batch, s_len, n_heads, n_kv, scale,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int64_t batch, int s_len, int n_heads, int n_kv,
+                       float scale, cudaStream_t stream) {
+  constexpr int64_t smem = mma_smem_bytes<HD>();
+  static bool smem_set = false;  // per instantiation
+  cudaError_t err = allow_smem(flash_attention_mma<HD>, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(batch * n_heads),
+                  static_cast<unsigned>((s_len + kMmaBlockQ - 1) /
+                                        kMmaBlockQ));
+  flash_attention_mma<HD><<<grid, kMmaThreads, static_cast<size_t>(smem),
+                            stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      s_len, n_heads, n_kv, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int64_t batch, int s_len, int n_heads, int n_kv, int dtype,
+                   float scale, cudaStream_t stream) {
+  return dtype == 0 ? launch_fma<HD>(q, k, v, o, batch, s_len, n_heads, n_kv,
+                                     scale, stream)
+                    : launch_mma<HD>(q, k, v, o, batch, s_len, n_heads, n_kv,
+                                     scale, stream);
 }
 
 }  // namespace
@@ -294,8 +624,9 @@ extern "C" {
 
 // q (batch, s_len, n_heads, head_dim), k and v (batch, s_len, n_kv,
 // head_dim), o like q; contiguous, all float32 (dtype 0) or all bfloat16
-// (dtype 1).  n_heads % n_kv == 0, head_dim in {16, 32, 64, 128}, scale
-// the softmax scale (1 / sqrt(head_dim) for the model).
+// (dtype 1; 16-byte aligned, for the 16-byte copies).  n_heads % n_kv ==
+// 0, head_dim in {16, 32, 64, 128}, scale the softmax scale (1 /
+// sqrt(head_dim) for the model).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int64_t batch, int64_t s_len, int n_heads,
                           int n_kv, int head_dim, int dtype, float scale,
@@ -303,19 +634,34 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
       n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
-      (s_len + kBlockQ - 1) / kBlockQ > kMaxQTiles) {
+      (s_len + kBlockQ - 1) / kBlockQ > kMaxQTiles ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 1 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+       15)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const int sl = static_cast<int>(s_len);
   cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch_hd<float>(q, k, v, o, batch, sl, n_heads, n_kv, head_dim,
-                             scale, s);
-  } else if (dtype == 1) {
-    err = dispatch_hd<__nv_bfloat16>(q, k, v, o, batch, sl, n_heads, n_kv,
-                                     head_dim, scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 16:
+      err = launch<16>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale, s);
+      break;
+    case 32:
+      err = launch<32>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale, s);
+      break;
+    case 64:
+      err = launch<64>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale, s);
+      break;
+    case 128:
+      err = launch<128>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale,
+                        s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
 }

@@ -4,10 +4,12 @@ Counterpart of ``src/repro/kernels/flash_attention.py::flash_attention``:
 causal attention with an online softmax in fp32, scale ``1/sqrt(hd)``.
 The kernel takes the model's layout, q (B, S, H, hd) and k/v (B, S, K, hd)
 with ``H % K == 0`` (query head h reads KV head ``h // (H // K)``), any S,
-fp32 or bf16, hd in {16, 32, 64, 128}.  The wrapper takes CUDA tensors
-only: it checks device, dtype, shape and contiguity, allocates its output
-with ``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and adds one to its ``launches`` count.  The plain
+fp32 or bf16, hd in {16, 32, 64, 128}.  bf16 runs both products on the
+tensor cores (p rounded to bf16 for the p v product); fp32 runs fp32 FMAs.
+The wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity, copies a bf16 input that is not 16-byte aligned, allocates its
+output with ``torch.empty``, launches on the current stream, raises if the
+launch reports an error, and adds one to its ``launches`` count.  The plain
 versions are :func:`repro_torch.kernels.ref.causal_attention_ref` and
 :func:`~repro_torch.kernels.ref.flash_attention_ref`;
 :func:`repro_torch.kernels.ops.flash_attention` picks between kernel and
@@ -66,6 +68,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or s == 0 or h == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        # The bf16 kernel copies 16 bytes at a time: a view that starts
+        # inside an allocation off a 16-byte boundary is copied first.
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_flash_attention(

@@ -3,7 +3,9 @@
 Counterpart of ``src/repro/kernels/lstm_cell.py::lstm_cell``: one fused
 LSTM step, ``z = [x, h] @ w + b`` and the gate math, in one launch.  The
 wrapper takes CUDA tensors only: it checks device, dtype, shape and
-contiguity, allocates its outputs with ``torch.empty``, launches on the
+contiguity, copies x, h or w if it is not 16-byte aligned (a view that
+starts inside an allocation; the kernel stages 16 bytes at a time),
+allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to its
 ``launches`` count.  The plain version is
 :func:`repro_torch.kernels.ref.lstm_cell_ref`;
@@ -63,6 +65,7 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
              if save_gates else None)
     if n == 0 or hid == 0:
         return h2, c2, gates
+    x, h, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, h, w))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_lstm_cell(

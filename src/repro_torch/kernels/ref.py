@@ -221,7 +221,8 @@ def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype, scale ``1/sqrt(hd)``, computed in
-    fp32 (p stays fp32 for the p v product, as in the Pallas kernel).
+    fp32 (p stays fp32 for the p v product, as in the Pallas kernel; the
+    bf16 CUDA kernel rounds it to bf16 there).
 
     Heads are grouped as ``src/repro/models/layers.py:65-75`` groups them:
     ``q.reshape(B, S, K, G, hd)`` with ``G = H // K``, so query head

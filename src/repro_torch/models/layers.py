@@ -13,8 +13,9 @@ Query head h reads KV head ``h // G`` with ``G = H // K``
 on the card (its plain version, ``kernels/ref.py::causal_attention_ref``,
 on the CPU) at every S: the JAX switch to ``plain_attention`` (:77) at
 S <= 2048 and its padding to whole blocks change no result beyond
-rounding, and the port keeps p in fp32 for the p v product where
-``plain_attention`` rounds it to v's dtype.  Not ported:
+rounding.  For the p v product the bf16 kernel rounds p to bf16, as
+``plain_attention`` rounds it to v's dtype; the fp32 kernel and the plain
+version keep p in fp32.  Not ported:
 ``kv_stream_attention`` and the sequence-parallel branch of ``attn_block``
 (they need a mesh), sliding windows (no dense config has one, and the
 kernel takes none), the MoE, SSM and cross-attention blocks (ROADMAP A11c).

@@ -334,10 +334,20 @@ def _lstm_inputs(b, in_dim, hid, seed, dev):
             t(4 * hid, scale=0.5))
 
 
-@pytest.mark.parametrize("b,in_dim,hid", [
-    (1, 27, 40), (7, 40, 40), (256, 27, 40), (4096, 80, 40), (300, 25, 40),
-    (64, 40, 32), (33, 48, 40), (5, 8, 16), (100, 200, 100),
-])
+# The learned path's K = in + H in {57, 67, 80, 88, 120} at H in {32, 40},
+# at the inference (4096) and training (256) batches, then odd sizes: row
+# tiles and unit slices with ragged ends, K not a multiple of 4, a W slice
+# too large for shared memory (K = 3000), H not a multiple of 4 (W read
+# through the cache), and the largest K the kernel takes with rows that are
+# not 16-byte aligned (1,815) and with rows that are (3,632).
+LSTM_CASES = [(b, k - hid, hid) for b in (4096, 256)
+              for k in (57, 67, 80, 88, 120) for hid in (32, 40)] + [
+    (1, 27, 40), (7, 40, 40), (300, 25, 40), (64, 40, 32), (33, 48, 40),
+    (5, 8, 16), (100, 200, 100), (70, 2900, 100), (1000, 3, 1),
+    (70, 1715, 100), (70, 3532, 100)]
+
+
+@pytest.mark.parametrize("b,in_dim,hid", LSTM_CASES)
 def test_lstm_cell_matches_plain(dev, b, in_dim, hid):
     from repro_torch.kernels import lstm_cell as lc
 
@@ -352,6 +362,36 @@ def test_lstm_cell_matches_plain(dev, b, in_dim, hid):
     h2, c2, gates = lc.lstm_cell(x, h, c, w, bias, save_gates=False)
     assert gates is None
     torch.testing.assert_close(h2, got[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("in_dim,hid", [(1715, 101), (3536, 100)])
+def test_lstm_cell_rejects_k_beyond_its_shared_memory(dev, in_dim, hid):
+    """One K past each limit: 16 rows of K = 1,816 with their flat copies
+    (H not a multiple of 4), and of K = 3,636 alone, exceed 227 KB."""
+    from repro_torch.kernels import lstm_cell as lc
+
+    n0 = lc.lstm_cell.launches
+    with pytest.raises(RuntimeError, match="lstm_cell launch failed"):
+        lc.lstm_cell(*_lstm_inputs(70, in_dim, hid, 5, dev))
+    assert lc.lstm_cell.launches == n0
+
+
+@pytest.mark.parametrize("in_dim", [80, 27])
+def test_lstm_cell_takes_views_off_16_byte_boundaries(dev, in_dim):
+    """x, h and w that start 4 bytes into their allocations."""
+    from repro_torch.kernels import lstm_cell as lc
+
+    x, h, c, w, bias = _lstm_inputs(300, in_dim, 40, 9, dev)
+    views = []
+    for t in (x, h, w):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 == 4
+        views.append(v)
+    got = lc.lstm_cell(views[0], views[1], c, views[2], bias)
+    for g, r in zip(got, ref.lstm_cell_ref(x, h, c, w, bias)):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("b,n_p,n_w,n_f", [
@@ -416,11 +456,18 @@ def test_lstm_cell_and_chamfer_grads_match_plain(dev):
 # ulp is 2^-8 of the value, after sums in another order).
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,s,h,n_kv,hd", [
-    (2, 100, 4, 2, 16), (1, 1, 2, 1, 16), (2, 1000, 9, 3, 64),
-    (1, 300, 16, 2, 128), (3, 77, 8, 8, 32), (2, 64, 6, 3, 64),
-])
-@pytest.mark.parametrize("dt", sorted(DTYPES))
+FLASH_SHAPES = [(2, 100, 4, 2, 16), (1, 1, 2, 1, 16), (2, 1000, 9, 3, 64),
+                (1, 300, 16, 2, 128), (3, 77, 8, 8, 32), (2, 64, 6, 3, 64)]
+# The bf16 tensor-core kernel's tile edges: 128-query blocks of 16-row
+# warps, 64-key tiles; S below, at and one past a key tile, ragged, one
+# and two whole query blocks' multiples; G = H / K in {1, 3, 8}.
+FLASH_BF16_EDGES = [(1, s, 2 * g, 2, hd) for hd in (16, 32, 64, 128)
+                    for s in (1, 17, 64, 65, 1000, 2048) for g in (1, 3, 8)]
+
+
+@pytest.mark.parametrize("dt,b,s,h,n_kv,hd", [
+    (dt, *shape) for dt in sorted(DTYPES) for shape in FLASH_SHAPES] + [
+    ("bf16", *shape) for shape in FLASH_BF16_EDGES])
 def test_flash_attention_matches_plain(dev, dt, b, s, h, n_kv, hd):
     from repro_torch.kernels import flash_attention as fa
 
@@ -436,6 +483,24 @@ def test_flash_attention_matches_plain(dev, dt, b, s, h, n_kv, hd):
     torch.testing.assert_close(got.float(),
                                ref.causal_attention_ref(q, k, v).float(),
                                rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_views_off_16_byte_boundaries(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 130, n, 64)).astype(
+        np.float32)).to(torch.bfloat16).to(dev) for n in (6, 2, 2))
+    views = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 2
+        views.append(view)
+    torch.testing.assert_close(fa.flash_attention(*views).float(),
+                               ref.causal_attention_ref(q, k, v).float(),
+                               rtol=1e-2, atol=1e-2)
 
 
 def test_flash_attention_refuses_what_it_cannot_serve(dev):
