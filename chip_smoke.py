@@ -13,10 +13,12 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
 3. kernels vs plain on the card at the serve and forward shapes, fp32 and
    bf16, D in {16, 128}: the row gathers bit-exact, the pooled gather
    within fp32 rtol 1e-5; each timed beside its byte bound;
-3'. the quantized tier's kernels vs plain, int8 and fp8, D in {16, 128},
-   at the full-width serve shape (one batch's admit into and read from the
-   720,100-row quantized buffer, with and without overflow rows, and the
-   batch's pooled read, idx (32 * 856, 20)): codes bit-exact, scales
+3'. the quantized tier's kernels vs plain, int8 and fp8, D in {16, 20,
+   128}, at the full-width serve shape (one batch's admit into and read
+   from the 720,100-row quantized buffer, with and without overflow rows,
+   and the batch's pooled read, idx (32 * 856, 20)), and the admit at the
+   per-table facade's shape (one sub-store's 264 first-batch rows into its
+   841-row buffer, beside the timer's floor): codes bit-exact, scales
    within one ulp, the row reads bit-exact, the pooled read within fp32
    rtol/atol 1e-6; each timed beside its byte bound;
 4. serve parity: the golden-trace fixture through ``serve_trace`` on the
@@ -41,7 +43,8 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
    the path (K = 57, 67, 80, 88, 120 at H = 32 or 40), within fp32 abs
    1e-5 on h', c' and the gates; ``chamfer`` at the training shape (B=256, P=5, W=15, F=25)
    and at B=65,536, the loss within rtol 1e-5 and the argmins equal; each
-   timed beside its bound and, for ``lstm_cell``, ``torch.lstm_cell``;
+   timed beside its bound, the timer's floor and, for ``lstm_cell``,
+   ``torch.lstm_cell``;
    then the gradients through both autograd Functions against autograd
    through the plain versions (max abs error within 1e-6 + 1e-4 times the
    gradient's largest entry); each ``lstm_cell`` record carries its
@@ -82,9 +85,10 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
-error, times and bound, and for the two kernels in their second design
-that design; the last line is the result.  Imports nothing of
-JAX and nothing of the JAX package.
+error, times and bound, and for the four kernels in their second design
+that design (``quantize_scatter`` also with its launches from the single
+quantized stores and from the per-table facade); the last line is the
+result.  Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -105,6 +109,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.model_runtime import (  # noqa: E402
     LearnedRecMGModel, train_voyager_arm, voyager_arm_outputs)
 from repro_torch.core.recmg import RecMGOutputs, frequency_outputs  # noqa: E402
+from repro_torch.core.serving import MultiTableTieredStore  # noqa: E402
 from repro_torch.core.tiered import fast_row_bytes  # noqa: E402
 from repro_torch.core.trace import TraceGenConfig, generate_trace  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -159,9 +164,23 @@ LSTM_DESIGN = ("fp32 FMAs; blocks tile (16-64 rows) x (8 units, 4 gates "
                "each); rows and the block's W slice staged by 16-byte "
                "cp.async; a thread holds 4 rows x 4 gates, 3.2 FMAs a "
                "shared load")
+QUANT_DESIGN = ("a lane group per row (a warp at D=128) taking 2 rows at "
+                "once (1 when the admit would give the card fewer than 4 "
+                "blocks an SM), their streaming loads and slots issued "
+                "before the absmax shuffles; rows kept in registers to the "
+                "codes (D <= 512); IEEE divisions; one short block per 16 "
+                "rows, no grid cap")
+CHAMFER_DESIGN = ("a row is a group of 16 lanes (2 a warp, __syncwarp only); "
+                  "each lane one w point against all P points of po in one "
+                  "pass; rows staged by 16-byte cp.async with one wait; "
+                  "minima on 64-bit (value, index) keys, backward in "
+                  "registers, forward by shuffle trees; 1 row a block at "
+                  "B=256, 8 at B=65,536")
 # Kernel -> its design, for the kernels redesigned after their first port.
 REDESIGNED = {"flash_attention": FLASH_DESIGN["bf16"],
-              "lstm_cell": LSTM_DESIGN}
+              "lstm_cell": LSTM_DESIGN,
+              "quantize_scatter": QUANT_DESIGN,
+              "chamfer": CHAMFER_DESIGN}
 # Why no single PyTorch call stands beside a quantized kernel.
 NO_LIBRARY = {
     "quantize_scatter": "no PyTorch call quantizes rows per row and "
@@ -214,6 +233,14 @@ class Timer:
     def __init__(self, reps: int = 20):
         self.reps = reps
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self._floor_ms = None
+
+    def floor_ms(self) -> float:
+        """What the timer reads for a kernel that does nothing: the floor
+        under every time of a kernel this small (read once)."""
+        if self._floor_ms is None:
+            self._floor_ms = self(lambda: torch.cuda._sleep(1))
+        return self._floor_ms
 
     def __call__(self, fn) -> float:
         for _ in range(2):
@@ -244,6 +271,11 @@ def achieved(rec, n_ops):
     reaches (``bound_ms / ms``)."""
     rec["tflops"] = n_ops / (rec["ms"] * 1e-3) / 1e12
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
+def quantize_bound(m, d):
+    """Rows read once, slots read, codes and scales written."""
+    return bound_ms(m * d * 4 + m * 4 + m * d + m * 4, 3 * m * d)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -434,11 +466,70 @@ def scale_ulps(a, b) -> int:
                .abs().max())
 
 
-def phase_quant_kernels(timer, first_batch, qcapacity, cfg):
+def quantize_rec(timer, fmt, d, rows, slots, buf, sc, **kw):
+    """``quantize_scatter`` of ``rows`` into ``buf``/``sc`` at ``slots``
+    against the plain version on a copy: codes bit-equal, scales within
+    one ulp; then both timed.  Returns the record and the kernel's buffer
+    and scales."""
+    m = rows.shape[0]
+    bufs, scs = [buf, buf.clone()], [sc, sc.clone()]
+    eg.quantize_scatter(bufs[0], scs[0], slots, rows, fmt)
+    ref.quantize_scatter_ref(bufs[1], scs[1], slots, rows, fmt)
+    torch.cuda.synchronize()
+    what = f"quantize_scatter {fmt} D={d} M={m}"
+    require(torch.equal(bufs[0].view(torch.uint8), bufs[1].view(torch.uint8)),
+            f"{what}: codes differ")
+    ulps = scale_ulps(scs[0], scs[1])
+    require(ulps <= 1, f"{what}: scales {ulps} ulps apart")
+    rec = {"phase": "kernel", "name": "quantize_scatter", "row_format": fmt,
+           "D": d, "N": buf.shape[0], "M": m, **kw,
+           "max_abs_err": float((scs[0] - scs[1]).abs().max()),
+           "scale_ulps": ulps, "codes_equal": True,
+           "ms": timer(lambda: eg.quantize_scatter(bufs[0], scs[0], slots,
+                                                   rows, fmt)),
+           "plain_ms": timer(lambda: ref.quantize_scatter_ref(
+               bufs[1], scs[1], slots, rows, fmt)),
+           "library_ms": None, "library_note": NO_LIBRARY["quantize_scatter"]}
+    rec["bound_ms"], rec["bound_by"] = quantize_bound(m, d)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["design"] = QUANT_DESIGN
+    return rec, bufs[0], scs[0]
+
+
+def per_table_admit(trace, first_batch, qcapacity):
+    """The admit of one sub-store of the int8 per-table facade (the
+    ``int8-multi_table`` serve arm, built the same way): the table whose
+    count of the first batch's unique ids is nearest their mean, that
+    count and its sub-store's capacity.  The host rows are never read
+    here, so one zero row stands in for the table."""
+    d = 128
+    host = np.broadcast_to(np.zeros((1, d), np.float32),
+                           (int(trace.rows_per_table.sum()), d))
+    store = MultiTableTieredStore.from_global_table(
+        host, trace.rows_per_table, capacity=qcapacity, policy="lru",
+        quantize=True, row_format="int8", device="cuda")
+    table = np.searchsorted(store.offsets, np.unique(first_batch),
+                            side="right") - 1
+    counts = np.bincount(table, minlength=len(store.stores))
+    t = int(np.argmin(np.abs(counts - counts.mean())))
+    caps = [s.capacity for s in store.stores]
+    del store
+    torch.cuda.empty_cache()
+    return {"table": t, "tables": len(caps), "M": int(counts[t]),
+            "N": caps[t], "N_range": [min(caps), max(caps)],
+            "M_mean": float(counts.mean()),
+            "M_median": float(np.median(counts)),
+            "M_range": [int(counts.min()), int(counts.max())]}
+
+
+def phase_quant_kernels(timer, trace, first_batch, qcapacity, cfg):
     """The quantized tier's kernels at the full-width serve shape, int8
-    and fp8, D in {16, 128}: batch 0 misses on every unique id, so its
+    and fp8, D in {16, 20, 128}: batch 0 misses on every unique id, so its
     admit writes U rows into the 720,100-row buffer, and its read expands
-    U slots to the batch's M ids.  Returns the entry of the main path's
+    U slots to the batch's M ids.  Then ``quantize_scatter`` at the
+    per-table facade's admit shape (D=128: one sub-store's first-batch
+    rows into slots 0.. of its buffer, as its first admit writes them),
+    beside the timer's floor.  Returns the entry of the main path's
     configuration of each kernel (int8, D=128)."""
     uniq, inv = np.unique(first_batch, return_inverse=True)
     u = uniq.size
@@ -455,8 +546,18 @@ def phase_quant_kernels(timer, first_batch, qcapacity, cfg):
             rec["library_note"] = NO_LIBRARY[name]
         return rec
 
+    sub = per_table_admit(trace, first_batch, qcapacity)
     for fmt in ("int8", "fp8"):
-        for d in (16, 128):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        rows = torch.randn((sub["M"], 128), generator=g, device="cuda")
+        slots = torch.arange(sub["M"], dtype=torch.int32, device="cuda")
+        buf, sc = quantized_buffer(sub["N"], 128, fmt, seed=7)
+        rec, _, _ = quantize_rec(timer, fmt, 128, rows, slots, buf, sc,
+                                 shape="per_table_admit", **sub)
+        rec["timer_floor_ms"] = timer.floor_ms()
+        emit(rec)
+    for fmt in ("int8", "fp8"):
+        for d in (16, 20, 128):
             is_main = fmt == "int8" and d == 128
             # The admit: quantize U fp32 rows into U distinct slots.
             g = torch.Generator(device="cuda").manual_seed(d)
@@ -464,31 +565,12 @@ def phase_quant_kernels(timer, first_batch, qcapacity, cfg):
             slots = torch.from_numpy(rng.permutation(qcapacity)[:u]
                                      .astype(np.int32)).cuda()
             buf, sc = quantized_buffer(qcapacity, d, fmt, seed=d)
-            bufs, scs = [buf, buf.clone()], [sc, sc.clone()]
-            eg.quantize_scatter(bufs[0], scs[0], slots, rows, fmt)
-            ref.quantize_scatter_ref(bufs[1], scs[1], slots, rows, fmt)
-            torch.cuda.synchronize()
-            require(torch.equal(bufs[0].view(torch.uint8),
-                                bufs[1].view(torch.uint8)),
-                    f"quantize_scatter {fmt} D={d}: codes differ")
-            ulps = scale_ulps(scs[0], scs[1])
-            require(ulps <= 1, f"quantize_scatter {fmt} D={d}: scales "
-                               f"{ulps} ulps apart")
-            rec = kernel_rec(
-                "quantize_scatter", fmt, d, M=u,
-                max_abs_err=float((scs[0] - scs[1]).abs().max()),
-                scale_ulps=ulps, codes_equal=True,
-                ms=timer(lambda: eg.quantize_scatter(
-                    bufs[0], scs[0], slots, rows, fmt)),
-                plain_ms=timer(lambda: ref.quantize_scatter_ref(
-                    bufs[1], scs[1], slots, rows, fmt)))
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                u * d * 4 + u * 4 + u * d + u * 4, 3 * u * d)
+            rec, table, scales = quantize_rec(timer, fmt, d, rows, slots,
+                                              buf, sc, shape="full_batch")
             emit(rec)
             if is_main:
                 main["quantize_scatter"] = rec
-            table, scales = bufs[0], scs[0]
-            del bufs, scs, rows, buf, sc
+            del rows, buf, sc
             # The read: U slots expanded to the batch's M ids, with and
             # without overflow rows (10% of the unique ids) from the host.
             slots_r = torch.from_numpy(rng.integers(0, qcapacity, u)
@@ -613,8 +695,13 @@ def phase_serve(cfg, trace, runs, batch_queries):
     """Each run ``(rows, policy, capacity, serve_trace kwargs)`` serves the
     trace with the counts set to 0 just before and read just after; every
     kernel of the run's path must have launched.  Returns each kernel's
-    launches summed over the runs of its path."""
+    launches summed over the runs of its path, the results, and
+    ``quantize_scatter``'s launches by kind of store: ``full_batch`` (one
+    quantized store: a warm-up and one admit of the batch's misses per
+    batch) and ``per_table`` (the facade: a warm-up and one admit per
+    sub-store and batch)."""
     launches, results = {}, {}
+    by_store = {"full_batch": 0, "per_table": 0}
     params = init_dlrm(cfg, seed=0, device="cuda")
     for rows, policy, capacity, kw in runs:
         outputs = (frequency_outputs(trace, capacity)
@@ -630,6 +717,9 @@ def phase_serve(cfg, trace, runs, batch_queries):
             require(k > 0, f"serve ({rows}, {policy}) launched {name} 0 "
                            "times")
             launches[name] = launches.get(name, 0) + k
+        if kw.get("quantize"):
+            kind = "per_table" if kw.get("multi_table") else "full_batch"
+            by_store[kind] += n["quantize_scatter"]
         require(res["hits"] + res["misses"] == res["lookups"],
                 f"serve ({rows}, {policy}): hits + misses != lookups")
         lg = res["logits"]
@@ -644,7 +734,7 @@ def phase_serve(cfg, trace, runs, batch_queries):
               **{k: res[k] for k in SERVE_REPORT}})
     del params
     torch.cuda.empty_cache()
-    return launches, results
+    return launches, results, by_store
 
 
 def phase_forward(timer, cfg, b):
@@ -777,9 +867,7 @@ def phase_learned_kernels(timer):
     ``lstm_cell`` at the inference shape of the decoder (B=4096, K=120, no
     gates saved) and ``chamfer`` at the training shape (B=256)."""
     main = {}
-    # What the timer reads for a kernel that does nothing: the floor under
-    # every time of a kernel this small.
-    floor_ms = timer(lambda: torch.cuda._sleep(1))
+    floor_ms = timer.floor_ms()
     for b in (4096, 256):
         train = b == 256  # training saves the gates for the backward
         for layer, (in_dim, hid) in LSTM_LAYERS.items():
@@ -841,6 +929,9 @@ def phase_learned_kernels(timer):
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             4 * b * ((n_p + n_w) * n_f + 1 + n_p + n_w),
             3 * b * n_p * n_w * n_f)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["timer_floor_ms"] = floor_ms
+        rec["design"] = CHAMFER_DESIGN
         emit(rec)
         if b == 256:
             main["chamfer"] = rec
@@ -1345,7 +1436,8 @@ def main():
     main_recs = phase_kernels(timer, trace.global_id[:per_batch], capacity,
                               full.n_tables * serve_cfg.rows_per_table,
                               fwd_b, full)
-    main_recs.update(phase_quant_kernels(timer, trace.global_id[:per_batch],
+    main_recs.update(phase_quant_kernels(timer, trace,
+                                         trace.global_id[:per_batch],
                                          qcapacity, full))
     main_recs.update(phase_learned_kernels(timer))
     main_recs["flash_attention"] = phase_flash_kernels(timer)
@@ -1353,14 +1445,16 @@ def main():
     phase_parity()
     phase_learned_parity()
     int8 = dict(quantize=True, row_format="int8")
-    serve_launches, serve_results = phase_serve(serve_cfg, trace, [
-        ("fp32", "lru", capacity, {}),
-        ("fp32", "recmg", capacity, {}),
-        ("int8", "lru", qcapacity, int8),
-        ("int8", "recmg", qcapacity, int8),
-        ("fp8", "lru", qcapacity, dict(quantize=True, row_format="fp8")),
-        ("int8-multi_table", "lru", qcapacity, dict(multi_table=True, **int8)),
-    ], batch_queries)
+    serve_launches, serve_results, qs_by_store = phase_serve(
+        serve_cfg, trace, [
+            ("fp32", "lru", capacity, {}),
+            ("fp32", "recmg", capacity, {}),
+            ("int8", "lru", qcapacity, int8),
+            ("int8", "recmg", qcapacity, int8),
+            ("fp8", "lru", qcapacity, dict(quantize=True, row_format="fp8")),
+            ("int8-multi_table", "lru", qcapacity,
+             dict(multi_table=True, **int8)),
+        ], batch_queries)
     learned_launches = phase_learned_serve(serve_cfg, trace, capacity,
                                            qcapacity, per_batch,
                                            batch_queries, serve_results)
@@ -1401,6 +1495,9 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if name in REDESIGNED:
             kernels[-1]["design"] = REDESIGNED[name]
+        if name == "quantize_scatter":
+            kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
+                               launches_per_table=qs_by_store["per_table"])
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` on its own, for ``sm_90a``,
 into a shared library with a plain C interface under ``build/repro_torch/``
 at the root of the checkout, and loaded with ``ctypes``.  The library's name
-carries a hash of its source and the compiler flags, so a build runs at
-first use and again only when the source changes.  All sources are compiled
-in parallel, one ``nvcc`` each.  A failed build raises with nvcc's output.
+carries a hash of its source, the ``csrc/*.cuh`` headers the sources share
+and the compiler flags, so a build runs at first use and again only when
+one of them changes.  All sources are compiled in parallel, one ``nvcc``
+each.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ def _nvcc() -> str:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -3,8 +3,10 @@
 Counterpart of ``src/repro/kernels/chamfer_kernel.py::chamfer``: the
 bidirectional Chamfer distance of each batch row, with the argmins of its
 two min-reductions.  The wrapper takes CUDA tensors only: it checks device,
-dtype, shape and contiguity, allocates its outputs with ``torch.empty``,
-launches on the current stream, raises if the launch reports an error, and
+dtype, shape and contiguity, copies ``po`` or ``w`` first when it does not
+start on a 16-byte boundary (a view inside an allocation: the kernel stages
+with 16-byte copies), allocates its outputs with ``torch.empty``, launches
+on the current stream, raises if the launch reports an error, and
 adds one to its ``launches`` count.  The plain version is
 :func:`repro_torch.kernels.ref.chamfer_ref`;
 :func:`repro_torch.kernels.ops.chamfer` picks between the two by the
@@ -60,6 +62,7 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
     arg_bwd = torch.empty((n, n_w), dtype=torch.int32, device=po.device)
     if n == 0:
         return loss, arg_fwd, arg_bwd
+    po, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (po, w))
     with torch.cuda.device(po.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_chamfer(

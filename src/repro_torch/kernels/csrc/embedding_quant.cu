@@ -19,6 +19,28 @@
 // 16-byte vectors, and each output is written once from registers.  No
 // shared memory and no barriers.
 //
+// quantize_scatter, the admit of a batch's rows into the quantized store
+// (at the serve batch: 226,377 fp32 rows of D = 128 read, 29 MB of codes
+// and the scales written to random slots, 44 us at 3.35 TB/s).  What held
+// its first port back was latency, not bytes: a warp owned one row (one
+// 16-byte load a lane at D = 128, so one 512-byte request in flight), and
+// each row ran a dependent chain: the row's load, the absmax shuffles, only
+// then the slot's load, the scale's division, a second read of the row, the
+// divisions of the codes and the stores.  Its 28,298 short blocks spent
+// most of their time waiting, and it reached 41% of the bound.  Now each
+// group of lanes takes R rows at once (R = 2 at D <= 128, kQuantPieces
+// pieces a lane in flight; R = 1 when the admit would give the card fewer
+// than kQuantBlocksPerSm blocks an SM, as the per-table facade's admits of
+// a few hundred rows do) and issues all their loads, the slots' included,
+// before the first reduction, keeps the rows in registers from the absmax
+// to the codes (up to 4 pieces a lane: D <= 512 at 4 elements a piece,
+// D <= 128 at 1), and reads them with streaming loads.  Wider rows take the
+// first port's two-pass loop inside the same kernel.  Not kept: 4 rows a
+// group, or one wave of resident blocks striding over the rows, were slower
+// at the serve batch.  A build without the code and scale stores ran much
+// nearer the bound: the scattered stores (each scale a 4-byte write to a
+// random slot) take most of the rest.
+//
 // Bits: every step is the plain version's (kernels/ref.py) in the same
 // order, with IEEE division (the build passes no fast-math flag) and
 // products rounded on their own (__fmul_rn: no fused multiply-add), so the
@@ -33,9 +55,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
+// Row pieces (4 or 1 elements each) a lane of quantize_scatter keeps in
+// flight: R = kQuantPieces / CH rows of CH pieces.
+constexpr int kQuantPieces = 2;
+// Fewer rows a group when the grid would give fewer blocks an SM: R = 1 is
+// the faster at a few hundred rows, R = 2 at the serve batch.
+constexpr int kQuantBlocksPerSm = 4;
 constexpr int kInt8 = 0;
 constexpr int kFp8 = 1;
 
@@ -118,60 +148,141 @@ __device__ __forceinline__ void store_f32(float* p, const float (&f)[VEC]) {
 }
 
 // ---------------------------------------------------------------------------
-// Quantize + scatter.  Pass 1 takes the row's absmax (each thread over its
-// pieces, then a butterfly of shuffles inside the group: max is exact in
-// any order); pass 2 reads the row again (from L1/L2) and writes the codes.
-// Every lane of the warp runs the shuffles, so rows past the end only mask
-// their loads and stores.
+// Quantize + scatter.  A group of tpr lanes (a power of two, at most a warp)
+// owns a row, 32 / tpr groups a warp, and each group takes R rows.  A warp
+// issues all its rows' loads (streaming loads: each row is read once) and
+// their slots before any reduction.  With CH > 0 each lane keeps its CH
+// pieces of every row in registers from the absmax (each lane over its
+// pieces, then a butterfly of shuffles inside the group: max is exact in any
+// order) to the codes.  CH = 0 is the generic branch for wider rows: one row
+// a group, read twice (the second time from L1/L2).  Every lane of a warp
+// runs the shuffles; rows past the end only mask their loads and stores.
 // ---------------------------------------------------------------------------
+template <int VEC>
+__device__ __forceinline__ void load_f32_once(const float* p, float (&f)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  } else {
+    f[0] = __ldcs(p);
+  }
+}
+
+// IEEE division, then the add: never a multiply by a reciprocal.
+template <int FMT>
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fadd_rn(__fdiv_rn(amax, Code<FMT>::kQmax), 1e-12f);
+}
+
+// VEC codes of f / scale, one IEEE division each, stored as one word.
 template <int FMT, int VEC>
+__device__ __forceinline__ void store_codes(uint8_t* dst, const float (&f)[VEC],
+                                            float scale) {
+  if constexpr (VEC == 4) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w |= static_cast<uint32_t>(Code<FMT>::from_scaled(__fdiv_rn(f[k], scale)))
+           << (8 * k);
+    }
+    *reinterpret_cast<uint32_t*>(dst) = w;
+  } else {
+    *dst = Code<FMT>::from_scaled(__fdiv_rn(f[0], scale));
+  }
+}
+
+// Rows a group carries at most: kQuantPieces pieces a lane in flight.
+__host__ __device__ constexpr int rows_per_group(int ch) {
+  return ch == 0 || ch >= kQuantPieces ? 1 : kQuantPieces / ch;
+}
+
+template <int FMT, int VEC, int CH, int R>
 __global__ void __launch_bounds__(kBlock)
 quantize_scatter_kernel(uint8_t* __restrict__ buf, float* __restrict__ scales,
                         int64_t n_rows, int64_t d,
                         const int32_t* __restrict__ slots,
                         const float* __restrict__ rows, int64_t m,
                         int tpr_log2) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBlock >> tpr_log2) +
-                      (threadIdx.x >> tpr_log2);
+  constexpr int NC = CH > 0 ? CH : 1;
   const int tpr = 1 << tpr_log2;
   const int lane = threadIdx.x & (tpr - 1);
-  const bool live = row < m;
+  const int groups = 32 >> tpr_log2;
+  const int group = (threadIdx.x & 31) >> tpr_log2;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x) >> 5;
+  const int64_t first = warp * groups * R;
   const int64_t chunks = d / VEC;
-  const float* src = rows + (live ? row : 0) * d;
-  float amax = 0.f;
-  if (live) {
-    for (int64_t c = lane; c < chunks; c += tpr) {
-      float f[VEC];
-      load_f32<VEC>(src + c * VEC, f);
+  int64_t row[R], slot[R];
+  float amax[R];
+  float f[R][NC][VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) amax = fmaxf(amax, fabsf(f[k]));
-    }
+  for (int r = 0; r < R; ++r) {
+    // Each load instruction covers `groups` neighbouring rows.
+    row[r] = first + r * groups + group;
+    slot[r] = row[r] < m ? slots[row[r]] : -1;
   }
-  for (int off = tpr >> 1; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  }
-  if (!live) return;
-  const int64_t slot = slots[row];
-  if (slot < 0 || slot >= n_rows) return;
-  // IEEE division, then the add: never a multiply by a reciprocal.
-  const float scale = __fadd_rn(__fdiv_rn(amax, Code<FMT>::kQmax), 1e-12f);
-  uint8_t* dst = buf + slot * d;
-  for (int64_t c = lane; c < chunks; c += tpr) {
-    float f[VEC];
-    load_f32<VEC>(src + c * VEC, f);
-    if constexpr (VEC == 4) {
-      uint32_t w = 0;
+  if constexpr (CH > 0) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        w |= static_cast<uint32_t>(Code<FMT>::from_scaled(__fdiv_rn(f[k], scale)))
-             << (8 * k);
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int64_t ch = lane + int64_t{c} * tpr;
+        if (row[r] < m && ch < chunks) {
+          load_f32_once<VEC>(rows + row[r] * d + ch * VEC, f[r][c]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) f[r][c][k] = 0.f;
+        }
       }
-      *reinterpret_cast<uint32_t*>(dst + c * 4) = w;
-    } else {
-      dst[c] = Code<FMT>::from_scaled(__fdiv_rn(f[0], scale));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      amax[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) amax[r] = fmaxf(amax[r], fabsf(f[r][c][k]));
+      }
+    }
+  } else {
+    amax[0] = 0.f;
+    if (row[0] < m) {
+      for (int64_t c = lane; c < chunks; c += tpr) {
+        float g[VEC];
+        load_f32<VEC>(rows + row[0] * d + c * VEC, g);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) amax[0] = fmaxf(amax[0], fabsf(g[k]));
+      }
     }
   }
-  if (lane == 0) scales[slot] = scale;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    for (int off = tpr >> 1; off > 0; off >>= 1) {
+      amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffffu, amax[r], off));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // A row past the end has slot -1: dropped with the out-of-range ones.
+    if (slot[r] < 0 || slot[r] >= n_rows) continue;
+    const float scale = row_scale<FMT>(amax[r]);
+    uint8_t* dst = buf + slot[r] * d;
+    if constexpr (CH > 0) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int64_t ch = lane + int64_t{c} * tpr;
+        if (ch < chunks) store_codes<FMT, VEC>(dst + ch * VEC, f[r][c], scale);
+      }
+    } else {
+      const float* src = rows + row[r] * d;
+      for (int64_t c = lane; c < chunks; c += tpr) {
+        float g[VEC];
+        load_f32<VEC>(src + c * VEC, g);
+        store_codes<FMT, VEC>(dst + c * VEC, g, scale);
+      }
+    }
+    if (lane == 0) scales[slot[r]] = scale;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -257,13 +368,48 @@ unsigned blocks_for(int64_t rows, int lg) {
   return static_cast<unsigned>((rows + per_block - 1) / per_block);
 }
 
+// R rows a group, halved while the grid would give the card fewer than
+// kQuantBlocksPerSm blocks an SM (a small admit spreads its rows instead).
+template <int FMT, int VEC, int CH, int R>
+void launch_quantize_rows(uint8_t* buf, float* scales, int64_t n_rows,
+                          int64_t d, const int32_t* slots, const float* rows,
+                          int64_t m, int lg, cudaStream_t s) {
+  const int64_t per_block = int64_t{kBlock >> lg} * R;
+  const int64_t blocks = (m + per_block - 1) / per_block;
+  if constexpr (R > 1) {
+    if (blocks < int64_t{kQuantBlocksPerSm} * sm_count()) {
+      launch_quantize_rows<FMT, VEC, CH, R / 2>(buf, scales, n_rows, d, slots,
+                                                rows, m, lg, s);
+      return;
+    }
+  }
+  quantize_scatter_kernel<FMT, VEC, CH, R>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
+          buf, scales, n_rows, d, slots, rows, m, lg);
+}
+
+// Pieces a lane holds of a row: 1, 2 or 4 in registers, else the generic
+// branch.
 template <int FMT, int VEC>
 void launch_quantize(uint8_t* buf, float* scales, int64_t n_rows, int64_t d,
                      const int32_t* slots, const float* rows, int64_t m,
                      cudaStream_t s) {
-  const int lg = threads_per_row_log2(d / VEC);
-  quantize_scatter_kernel<FMT, VEC><<<blocks_for(m, lg), kBlock, 0, s>>>(
-      buf, scales, n_rows, d, slots, rows, m, lg);
+  const int64_t chunks = d / VEC;
+  const int lg = threads_per_row_log2(chunks);
+  const int64_t per_lane = (chunks + (int64_t{1} << lg) - 1) >> lg;
+#define REPRO_QUANTIZE(CH)                                                  \
+  launch_quantize_rows<FMT, VEC, CH, rows_per_group(CH)>(                   \
+      buf, scales, n_rows, d, slots, rows, m, lg, s)
+  if (per_lane <= 1) {
+    REPRO_QUANTIZE(1);
+  } else if (per_lane <= 2) {
+    REPRO_QUANTIZE(2);
+  } else if (per_lane <= 4) {
+    REPRO_QUANTIZE(4);
+  } else {
+    REPRO_QUANTIZE(0);
+  }
+#undef REPRO_QUANTIZE
 }
 
 template <int FMT, int VEC>

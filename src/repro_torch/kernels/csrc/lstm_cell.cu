@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr int kUnits = 8;          // hidden units a block owns
@@ -269,20 +271,6 @@ cudaError_t launch(const float* x, const float* h, const float* c,
                               static_cast<size_t>(smem), s>>>(
       x, h, c, w, b, h_out, c_out, gates, n, in_dim, hid, k4);
   return cudaGetLastError();
-}
-
-// Streaming multiprocessors of the current device, read once.
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      sms = 1;
-    }
-  }
-  return sms;
 }
 
 }  // namespace

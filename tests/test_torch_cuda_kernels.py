@@ -167,18 +167,41 @@ def _quantized(n, d, row_format, seed, dev):
     return q.to(dev), s.to(dev)
 
 
-@pytest.mark.parametrize("d", [16, 128, 20])
+# (M, D, variant).  D = 16, 20 and 128 keep one 4-element piece of a row a
+# lane, 256 and 512 two and four, 1024 takes the generic two-pass branch and
+# 18 (not a multiple of 4) one element a piece.  M = 1001 is not a multiple
+# of the rows a warp takes at once; M = 3 and 37 fill less than one block.
+# "bad_slot" gives two rows slots out of range, which the kernel drops;
+# "view" passes rows 4 bytes off a 16-byte boundary (one element a piece).
+QUANT_CASES = [(500, 16, ""), (500, 128, ""), (500, 20, ""), (500, 256, ""),
+               (500, 512, ""), (500, 1024, ""), (1001, 128, ""),
+               (3, 128, ""), (37, 16, ""), (70, 18, ""),
+               (500, 128, "bad_slot"), (500, 16, "bad_slot"),
+               (500, 128, "view"), (100, 512, "view")]
+
+
+@pytest.mark.parametrize("m,d,variant", QUANT_CASES)
 @pytest.mark.parametrize("row_format", FORMATS)
-def test_quantize_scatter_matches_plain(dev, row_format, d):
-    rows = _rows(500, d, 11).to(dev)
-    slots = torch.from_numpy(np.random.default_rng(12).permutation(700)[:500]
+def test_quantize_scatter_matches_plain(dev, row_format, m, d, variant):
+    cap = m + 200
+    rows = _rows(max(m, 3), d, 11)[:m].to(dev)
+    if variant == "view":
+        flat = torch.zeros(m * d + 1, device=dev)
+        flat[1:] = rows.reshape(-1)
+        rows = flat[1:].view(m, d)
+        assert rows.data_ptr() % 16 == 4
+    slots = torch.from_numpy(np.random.default_rng(12).permutation(cap)[:m]
                              .astype(np.int32)).to(dev)
+    if variant == "bad_slot":
+        slots[0], slots[m // 2] = -3, cap + 5
     qdt = ref.ROW_FORMATS[row_format][0]
-    bufs = [torch.zeros((700, d), dtype=qdt, device=dev) for _ in range(2)]
-    scales = [torch.full((700,), -1.0, device=dev) for _ in range(2)]
+    bufs = [torch.zeros((cap, d), dtype=qdt, device=dev) for _ in range(2)]
+    scales = [torch.full((cap,), -1.0, device=dev) for _ in range(2)]
     n0 = eg.quantize_scatter.launches
     eg.quantize_scatter(bufs[0], scales[0], slots, rows, row_format)
-    ref.quantize_scatter_ref(bufs[1], scales[1], slots, rows, row_format)
+    keep = (slots >= 0) & (slots < cap)
+    ref.quantize_scatter_ref(bufs[1], scales[1], slots[keep], rows[keep],
+                             row_format)
     torch.cuda.synchronize()
     assert eg.quantize_scatter.launches == n0 + 1
     assert torch.equal(bufs[0].view(torch.uint8), bufs[1].view(torch.uint8))
@@ -394,18 +417,35 @@ def test_lstm_cell_takes_views_off_16_byte_boundaries(dev, in_dim):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("b,n_p,n_w,n_f", [
-    (256, 5, 15, 25), (1, 5, 15, 25), (77, 5, 5, 25), (513, 3, 40, 7),
-])
-def test_chamfer_matches_plain(dev, b, n_p, n_w, n_f):
-    from repro_torch.kernels import chamfer_kernel as ck
-
+def _chamfer_inputs(b, n_p, n_w, n_f, dev):
+    """Normal po and w with exact ties: w[0, 1] = w[0, 0] (adjacent), and
+    where the shape has room, in the first and the last row, w 3 and 11 both
+    equal to po 2 (a forward tie at distance 0) and po 1 and 4 both equal to
+    w 7 (a backward tie): the lowest index must win on both sides."""
     rng = np.random.default_rng(b)
     po = torch.from_numpy(rng.normal(size=(b, n_p, n_f))
                           .astype(np.float32)).to(dev)
     w = torch.from_numpy(rng.normal(size=(b, n_w, n_f))
                          .astype(np.float32)).to(dev)
-    w[0, 1] = w[0, 0]  # an exact tie: the lowest index wins on both sides
+    w[0, 1] = w[0, 0]
+    if n_p > 4 and n_w > 11:
+        for r in (0, b - 1):
+            w[r, 3] = w[r, 11] = po[r, 2]
+            po[r, 1] = po[r, 4] = w[r, 7]
+    return po, w
+
+
+# B = 77, 513 and 1001 are not multiples of the rows a block holds; (64, 8,
+# 16, 25) and (513, 3, 40, 7) have more pairs than a warp, and W = 40 more
+# than 32 points a lane group.
+@pytest.mark.parametrize("b,n_p,n_w,n_f", [
+    (256, 5, 15, 25), (1, 5, 15, 25), (77, 5, 5, 25), (513, 3, 40, 7),
+    (1001, 5, 15, 25), (64, 8, 16, 25),
+])
+def test_chamfer_matches_plain(dev, b, n_p, n_w, n_f):
+    from repro_torch.kernels import chamfer_kernel as ck
+
+    po, w = _chamfer_inputs(b, n_p, n_w, n_f, dev)
     n0 = ck.chamfer.launches
     loss, af, ab = ck.chamfer(po, w, 0.7)
     torch.cuda.synchronize()
@@ -413,16 +453,44 @@ def test_chamfer_matches_plain(dev, b, n_p, n_w, n_f):
     rl, raf, rab = ref.chamfer_ref(po, w, 0.7)
     torch.testing.assert_close(loss, rl, rtol=1e-5, atol=0)
     assert torch.equal(af, raf) and torch.equal(ab, rab)
+    if n_p > 4 and n_w > 11:
+        assert af[0, 2] == 3 and ab[0, 7] == 1
 
 
-def test_chamfer_rejects_rows_beyond_its_shared_memory(dev):
+@pytest.mark.parametrize("n_f,fits", [(612, True), (613, False)])
+def test_chamfer_rejects_rows_beyond_its_shared_memory(dev, n_f, fits):
     from repro_torch.kernels import chamfer_kernel as ck
 
-    # (5 + 15) * 100 staged floats per row: 8 rows need 67 KB > 48 KB.
-    po = torch.zeros(4, 5, 100, device=dev)
-    w = torch.zeros(4, 15, 100, device=dev)
-    with pytest.raises(RuntimeError, match="chamfer launch failed"):
-        ck.chamfer(po, w, 0.7)
+    # A row takes pad4(5 F + 3) + pad4(15 F + 3) + pad4(2 * 5 + 15) floats
+    # (pad4 rounds up to a multiple of 4), at most 12,288 (48 KB): F = 612
+    # takes 12,276, F = 613 takes 12,296.
+    po, w = _chamfer_inputs(4, 5, 15, n_f, dev)
+    if not fits:
+        with pytest.raises(RuntimeError, match="chamfer launch failed"):
+            ck.chamfer(po, w, 0.7)
+        return
+    loss, af, ab = ck.chamfer(po, w, 0.7)
+    rl, raf, rab = ref.chamfer_ref(po, w, 0.7)
+    torch.testing.assert_close(loss, rl, rtol=1e-5, atol=0)
+    assert torch.equal(af, raf) and torch.equal(ab, rab)
+
+
+@pytest.mark.parametrize("n_f", [25, 8])
+def test_chamfer_takes_views_off_16_byte_boundaries(dev, n_f):
+    """po and w 4 bytes off a 16-byte boundary: the wrapper copies them."""
+    from repro_torch.kernels import chamfer_kernel as ck
+
+    po, w = _chamfer_inputs(300, 5, 15, n_f, dev)
+    views = []
+    for t in (po, w):
+        flat = torch.zeros(t.numel() + 1, device=dev)
+        flat[1:] = t.reshape(-1)
+        views.append(flat[1:].view(t.shape))
+        assert views[-1].data_ptr() % 16 == 4
+    loss, af, ab = ck.chamfer(*views, 0.7)
+    rl, raf, rab = ref.chamfer_ref(po, w, 0.7)
+    torch.testing.assert_close(loss, rl, rtol=1e-5, atol=0)
+    assert torch.equal(af, raf) and torch.equal(ab, rab)
 
 
 def test_lstm_cell_and_chamfer_grads_match_plain(dev):
