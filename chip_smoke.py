@@ -63,6 +63,21 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
    the whole trace, served fp32 (185,651 rows) and int8 (720,100 rows);
    the Voyager arm trained on the first batch and served fp32 on an LRU
    store;
+9'. runtime parity at the serve width: the pipelined runtime
+   (``async_prefetch``) through the inline scheduler at depths 1 and 2,
+   fp32 ``recmg`` (frequency) and int8 ``lru``: counters equal those of
+   phase ``serve``'s synchronous runs, the stall equals the demand fetch at
+   depth 1 and is strictly less at depth 2; then int8 ``recmg`` through
+   the thread scheduler: the accounting identities hold and the engine's
+   worker thread launched ``quantize_scatter``;
+9''. runtime serve at the serve width: ``overload=2.0`` on the int8 store
+   (stale degraded rows read on the card by ``gather_rows_dequant_expand``
+   inside ``lookup_resident_device``), ``adapt`` with the frequency model
+   and with phase 9's fp32 learned model (its fine-tunes launch
+   ``lstm_cell``) on 3 batches of the diurnal regime (a hot-set switch a
+   batch; drift windows of one batch, so 2 refreshes), and the CLI's
+   ``main`` with ``--workload zipf_hot --async-prefetch`` (its reduced
+   config);
 10. ``flash_attention`` vs plain on the card: at the LM serve prefill shape
     q (8, 2048, 9, 64), k/v (8, 2048, 3, 64) bf16, at qwen2.5-3b's head
     layout (1, 8192, 16/2, 128) bf16, at fp32 (2, 1024, 8/2, 64) and at a
@@ -87,8 +102,9 @@ Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
 error, times and bound, and for the four kernels in their second design
 that design (``quantize_scatter`` also with its launches from the single
-quantized stores and from the per-table facade); the last line is the
-result.  Imports nothing of JAX and nothing of the JAX package.
+quantized stores and from the per-table facade of phase ``serve``); the
+kernels that the runtime phases drive add those phases' launches and show
+them as ``launches_runtime``; the last line is the result.  Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -97,6 +113,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -110,7 +127,8 @@ from repro_torch.core.model_runtime import (  # noqa: E402
     LearnedRecMGModel, train_voyager_arm, voyager_arm_outputs)
 from repro_torch.core.recmg import RecMGOutputs, frequency_outputs  # noqa: E402
 from repro_torch.core.serving import MultiTableTieredStore  # noqa: E402
-from repro_torch.core.tiered import fast_row_bytes  # noqa: E402
+from repro_torch.core.tiered import (TieredEmbeddingStore,  # noqa: E402
+                                     fast_row_bytes)
 from repro_torch.core.trace import TraceGenConfig, generate_trace  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import chamfer_kernel as ck  # noqa: E402
@@ -119,11 +137,14 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lstm_cell as lc  # noqa: E402
 from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
                                       cli_learned_config, serve_trace)
+from repro_torch.launch.serve import main as cli_main  # noqa: E402
 from repro_torch.launch.serve_lm import serve_lm_tiered  # noqa: E402
 from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
                                      quantize_tables)
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_lm, prefill)
+from repro_torch.runtime import DriftConfig  # noqa: E402
+from repro_torch.workloads import make_trace, scenario  # noqa: E402
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, fp32 rate
 # outside the tensor cores and the dense bf16 tensor-core rate.
@@ -1078,7 +1099,8 @@ def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
     the first 2 of the 8 batches (1 epoch) and served fp32 and int8, and the
     Voyager arm trained on the first batch and served fp32 on LRU.  Counts
     are set to 0 just before each arm's training and read just after its
-    serve.  Returns each kernel's launches summed over the arms."""
+    serve.  Returns each kernel's launches summed over the arms, and the
+    fp32 learned model."""
     params = init_dlrm(cfg, seed=0, device="cuda")
     lcfg = cli_learned_config(1)
     launches = {"lstm_cell": 0, "chamfer": 0}
@@ -1133,6 +1155,8 @@ def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
                                            model.prefetch_losses[-1]],
               "keep_bit_share": float(outputs.caching_bits.mean()),
               **{k: res[k] for k in SERVE_REPORT}})
+        if rows == "fp32":
+            kept = model  # phase runtime_serve adapts it online
         del model, outputs, res
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1174,8 +1198,279 @@ def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
                                          "prefetch_hits", "p50_batch_ms",
                                          "model_s")}
         for r, p in arms}})
-    return launches
+    return launches, kept
 
+
+
+# ---------------------------------------------------------------------------
+# Phases 9' and 9'': the pipelined runtime, admission and drift adaptation.
+# ---------------------------------------------------------------------------
+
+RUNTIME_COUNTERS = ("batches", "lookups", "hits", "prefetch_hits",
+                    "on_demand_rows", "evictions")
+RUNTIME_PATH = ("gather_rows_expand", "gather_rows_dequant_expand",
+                "quantize_scatter", "lstm_cell")
+
+
+class ThreadLaunches:
+    """Splits ``quantize_scatter``'s launches by the thread that made them,
+    so a run can show that the prefetch engine's worker launched the
+    kernel.  It wraps the store's entry point ``ops.quantize_scatter``; the
+    kernel's own ``launches`` count still counts every launch."""
+
+    def __init__(self):
+        self.by_thread = {}
+
+    def __enter__(self):
+        orig = self._orig = ops.quantize_scatter
+
+        def counted(*a, **kw):
+            n0 = eg.quantize_scatter.launches
+            out = orig(*a, **kw)
+            name = threading.current_thread().name
+            self.by_thread[name] = (self.by_thread.get(name, 0)
+                                    + eg.quantize_scatter.launches - n0)
+            return out
+
+        ops.quantize_scatter = counted
+        return self
+
+    def __exit__(self, *exc):
+        ops.quantize_scatter = self._orig
+
+
+class DegradedLaunches:
+    """Counts the gather launches made inside the store's degraded read
+    (``lookup_resident_device``), apart from the lookups' own."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __enter__(self):
+        self._orig = TieredEmbeddingStore.lookup_resident_device
+        orig, tally = self._orig, self
+
+        def counted(store, ids):
+            n0 = eg.gather_rows_expand.launches \
+                + eg.gather_rows_dequant_expand.launches
+            out = orig(store, ids)
+            tally.launches += eg.gather_rows_expand.launches \
+                + eg.gather_rows_dequant_expand.launches - n0
+            return out
+
+        TieredEmbeddingStore.lookup_resident_device = counted
+        return self
+
+    def __exit__(self, *exc):
+        TieredEmbeddingStore.lookup_resident_device = self._orig
+
+
+def path_launches():
+    return {fn.__name__: fn.launches for fn in ops.KERNELS
+            if fn.__name__ in RUNTIME_PATH}
+
+
+def runtime_report(res):
+    rt = res["runtime"]
+    return {**{k: res[k] for k in RUNTIME_COUNTERS},
+            "stall_ms": rt["stall_ms"],
+            "demand_fetch_ms": rt["demand_fetch_ms"],
+            "p50_batch_ms": res["p50_batch_ms"]}
+
+
+def phase_runtime_parity(cfg, trace, capacity, qcapacity, batch_queries,
+                         baseline):
+    """The pipelined runtime at full width against the synchronous serve
+    of phase ``serve`` (``baseline``): fp32 ``recmg`` (frequency) and int8
+    ``lru`` through the inline scheduler at depths 1 and 2 give the same
+    counters, the whole demand fetch stalls at depth 1 and strictly less at
+    depth 2; then int8 ``recmg`` (frequency) through the thread scheduler,
+    whose counters keep the identities and whose worker launched
+    ``quantize_scatter``.  Returns the kernels' launches summed over the
+    runs."""
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    int8 = dict(quantize=True, row_format="int8")
+    freq = {capacity: frequency_outputs(trace, capacity),
+            qcapacity: frequency_outputs(trace, qcapacity)}
+    total = {}
+    runs = [("fp32", "recmg", capacity, {}, "inline", 1),
+            ("fp32", "recmg", capacity, {}, "inline", 2),
+            ("int8", "lru", qcapacity, int8, "inline", 1),
+            ("int8", "lru", qcapacity, int8, "inline", 2),
+            ("int8", "recmg", qcapacity, int8, "thread", 2)]
+    for rows, policy, cap, kw, sched, depth in runs:
+        sync = baseline[(rows, policy)]
+        outputs = freq[cap] if policy == "recmg" else None
+        ops.reset_launches()
+        with ThreadLaunches() as threads:
+            res = serve_trace(cfg, params, trace, cap, policy, outputs,
+                              batch_queries=batch_queries, device="cuda",
+                              async_prefetch=True, pipeline_depth=depth,
+                              scheduler=sched, collect_logits=True, **kw)
+        n = path_launches()
+        for name, k in n.items():
+            total[name] = total.get(name, 0) + k
+        rt = res["runtime"]
+        what = f"runtime_parity ({rows}, {policy}, {sched}, depth {depth})"
+        require(np.isfinite(res["logits"]).all()
+                and res["logits"].shape == (res["batches"], batch_queries),
+                f"{what}: logits not finite or of the wrong shape")
+        # The demand fetch is the store's modeled fetch (rounded to 0.1 ms
+        # in ``modeled_fetch_s``).
+        require(abs(rt["demand_fetch_ms"] - res["modeled_fetch_s"] * 1e3)
+                <= 0.051, f"{what}: demand fetch {rt['demand_fetch_ms']} ms "
+                          f"is not the store's {res['modeled_fetch_s']} s")
+        worker = sum(v for t, v in threads.by_thread.items()
+                     if t == "prefetch-engine")
+        if sched == "inline":
+            diff = {k: (sync[k], res[k]) for k in RUNTIME_COUNTERS
+                    if sync[k] != res[k]}
+            require(not diff, f"{what}: counters differ from the "
+                              f"synchronous serve: {diff}")
+            if depth == 1:
+                require(rt["stall_ms"] == rt["demand_fetch_ms"],
+                        f"{what}: stall {rt['stall_ms']} != demand fetch "
+                        f"{rt['demand_fetch_ms']}")
+            else:
+                require(rt["stall_ms"] < rt["demand_fetch_ms"],
+                        f"{what}: stall {rt['stall_ms']} not below demand "
+                        f"fetch {rt['demand_fetch_ms']}")
+        else:
+            require(res["hits"] + res["misses"] == res["lookups"]
+                    == sync["lookups"] and res["batches"] == sync["batches"]
+                    and rt["batches"] == res["batches"]
+                    and rt["stall_ms"] < rt["demand_fetch_ms"],
+                    f"{what}: accounting identities fail")
+            require(worker > 0, f"{what}: the engine's worker launched "
+                                "quantize_scatter 0 times")
+        emit({"phase": "runtime_parity", "rows": rows, "policy": policy,
+              "scheduler": sched, "pipeline_depth": depth,
+              "counters_equal_sync": sched == "inline",
+              "quantize_scatter_by_worker": worker,
+              **runtime_report(res),
+              "sync_p50_batch_ms": sync["p50_batch_ms"],
+              "pf_issued": rt["pf_issued"], "launches": n})
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_runtime_serve(cfg, trace, per_batch, capacity, qcapacity,
+                        batch_queries, model):
+    """The runtime's other paths at full width: ``--overload 2`` on the
+    int8 store (degraded reads on the card), ``--adapt`` with the
+    frequency model and with the learned model of phase ``learned_serve``
+    on a drift workload (3 batches of the diurnal regime, one hot-set
+    switch a batch), and ``--workload zipf_hot`` through the CLI's
+    ``main``.  Returns the kernels' launches summed over the runs."""
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    total = {}
+
+    def count(n):
+        for name, k in n.items():
+            total[name] = total.get(name, 0) + k
+
+    ops.reset_launches()
+    with DegradedLaunches() as deg:
+        res = serve_trace(cfg, params, trace, qcapacity, "lru",
+                          None, batch_queries=batch_queries, device="cuda",
+                          async_prefetch=True, overload=2.0, quantize=True,
+                          row_format="int8", collect_logits=True)
+    n = path_launches()
+    count(n)
+    adm = res["admission"]
+    require(adm["degraded_rows_stale"] > 0,
+            "runtime_serve (overload): no stale degraded rows")
+    require(deg.launches > 0 and n["gather_rows_dequant_expand"] > 0,
+            "runtime_serve (overload): the degraded read launched "
+            "gather_rows_dequant_expand 0 times")
+    require(adm["admitted"] == adm["served"] + adm["shed"]
+            + adm["degraded"] and np.isfinite(res["logits"]).all(),
+            "runtime_serve (overload): bad result")
+    emit({"phase": "runtime_serve", "run": "overload 2.0, int8 lru",
+          **runtime_report(res), "admission": adm,
+          "goodput_rps": res["goodput_rps"],
+          "offered_rps": res["offered_rps"],
+          "degraded_read_launches": deg.launches, "launches": n})
+
+    # Seconds of each fine-tune and output recompute of the learned
+    # controller's refreshes (instance wrappers, removed after the run).
+    refresh_s = {"finetune": [], "outputs_for": []}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            refresh_s[key].append(round(time.perf_counter() - t, 3))
+            return out
+        return run
+
+    drift = make_trace(scenario(
+        "diurnal", n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
+        n_accesses=3 * per_batch, seed=0, n_phases=3))
+    adapt_cfg = DriftConfig(window=per_batch, hot_k=256, warmup_windows=1)
+    for arm in ("frequency", "learned"):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if arm == "learned":
+            outputs = model.outputs_for(drift)
+        else:
+            outputs = frequency_outputs(drift, capacity)
+        outputs_s = time.perf_counter() - t0
+        n_outputs = path_launches()
+        count(n_outputs)
+        ops.reset_launches()  # the serve's count: refreshes included
+        if arm == "learned":
+            model.finetune = timed(model.finetune, "finetune")
+            model.outputs_for = timed(model.outputs_for, "outputs_for")
+        t0 = time.perf_counter()
+        res = serve_trace(cfg, params, drift, capacity, "recmg", outputs,
+                          batch_queries=batch_queries, device="cuda",
+                          async_prefetch=True, adapt=True,
+                          adapt_cfg=adapt_cfg,
+                          model=model if arm == "learned" else None,
+                          collect_logits=True)
+        serve_s = time.perf_counter() - t0
+        if arm == "learned":
+            del model.finetune, model.outputs_for
+        n = path_launches()
+        count(n)
+        d = res["drift"]
+        require(d["refreshes"] > 0, f"runtime_serve (adapt, {arm}): no "
+                                    "refresh")
+        if arm == "learned":
+            require(d["finetunes"] > 0 and n["lstm_cell"] > 0,
+                    "runtime_serve (adapt, learned): no fine-tune or no "
+                    "lstm_cell launch")
+        require(np.isfinite(res["logits"]).all(),
+                f"runtime_serve (adapt, {arm}): logits not finite")
+        emit({"phase": "runtime_serve", "run": f"adapt, {arm}, fp32 recmg",
+              "workload": "diurnal, n_phases=3, 3 batches",
+              **runtime_report(res), "drift": d,
+              "seconds": {"outputs_before_serve_s": round(outputs_s, 3),
+                          "serve_s": round(serve_s, 3),
+                          **({"refresh_finetune_s": refresh_s["finetune"],
+                              "refresh_outputs_for_s":
+                                  refresh_s["outputs_for"]}
+                             if arm == "learned" else {})},
+              "launches_outputs_before_serve": n_outputs, "launches": n})
+    del drift
+
+    ops.reset_launches()
+    res = cli_main(["--policy", "recmg", "--model", "frequency",
+                    "--workload", "zipf_hot", "--async-prefetch"])
+    n = path_launches()
+    count(n)
+    require(res["hits"] + res["misses"] == res["lookups"] > 0
+            and n["gather_rows_expand"] > 0,
+            "runtime_serve (--workload zipf_hot): bad result")
+    emit({"phase": "runtime_serve", "run": "cli --workload zipf_hot "
+          "--async-prefetch (reduced config)", **runtime_report(res),
+          "launches": n})
+    del params
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1455,10 +1750,17 @@ def main():
             ("int8-multi_table", "lru", qcapacity,
              dict(multi_table=True, **int8)),
         ], batch_queries)
-    learned_launches = phase_learned_serve(serve_cfg, trace, capacity,
-                                           qcapacity, per_batch,
-                                           batch_queries, serve_results)
-    del trace, serve_results
+    learned_launches, learned_model = phase_learned_serve(
+        serve_cfg, trace, capacity, qcapacity, per_batch, batch_queries,
+        serve_results)
+    runtime_launches = phase_runtime_parity(serve_cfg, trace, capacity,
+                                            qcapacity, batch_queries,
+                                            serve_results)
+    for name, k in phase_runtime_serve(serve_cfg, trace, per_batch, capacity,
+                                       qcapacity, batch_queries,
+                                       learned_model).items():
+        runtime_launches[name] = runtime_launches.get(name, 0) + k
+    del trace, serve_results, learned_model
     pool_rec, pool_launches, qpool_rec, qpool_launches = phase_forward(
         timer, full, fwd_b)
     phase_lm_parity()
@@ -1487,6 +1789,9 @@ def main():
             ("flash_attention", main_recs["flash_attention"],
              lm_launches["flash_attention"], CU_FLASH_SOURCE,
              TPU_FLASH_ATTENTION)):
+        # The runtime phases drive the store's kernels and the learned
+        # model's fine-tune through their own paths.
+        n += runtime_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -1495,6 +1800,8 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         if name in REDESIGNED:
             kernels[-1]["design"] = REDESIGNED[name]
+        if name in runtime_launches:
+            kernels[-1]["launches_runtime"] = runtime_launches[name]
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])

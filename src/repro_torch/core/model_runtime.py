@@ -19,16 +19,18 @@ prefetch loss the CUDA ``chamfer`` kernel.
   :func:`train_voyager_arm` trains it, :func:`voyager_arm_outputs` reads
   its prefetch ids out on the model's device.
 
-``LearnedController`` (the drift-adaptation loop that fine-tunes the
-caching model on every drift refresh) wraps ``runtime/drift.py``'s
-``AdaptiveController`` and waits for the pipelined runtime (ROADMAP A12);
-``LearnedRecMGModel.finetune`` is its model half and is ported.
+* :class:`LearnedController` (lines 338-391) is the drift-adaptation loop:
+  it wraps :class:`~repro_torch.runtime.drift.AdaptiveController`, and on
+  every drift refresh fine-tunes the caching model on the live window on
+  the model's device (``lstm_cell`` forward through its autograd Function,
+  the PyTorch backward, AdamW) and swaps in the outputs ``outputs_for``
+  recomputes there.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +43,9 @@ from repro_torch.core.features import WindowData, make_windows
 from repro_torch.core.recmg import RecMGOutputs
 from repro_torch.core.trace import Trace
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.obs.tracing import get_tracer
 from repro_torch.optim.adamw import AdamW, OptConfig
+from repro_torch.runtime.drift import AdaptiveController, DriftConfig
 
 
 @dataclass(frozen=True)
@@ -310,6 +314,62 @@ class OutputsRef:
     pointer stays valid)."""
 
     outputs: Optional[RecMGOutputs] = field(default=None)
+
+
+class LearnedController:
+    """Drift adaptation with model fine-tune: the heuristic refresh
+    (hot-pool rebuild + per-chunk re-rank + bounded prefetch) *plus*, on
+    every pool refresh, a bounded fine-tune of the caching model on the
+    live window and a full output recompute.  Exposes the same
+    ``on_batch`` hook (:data:`~repro_torch.runtime.drift.BatchHook`), so
+    ``serve_trace``, the pipelined runtime and the scenario harness wire
+    it exactly like :class:`AdaptiveController`."""
+
+    def __init__(self, store, capacity: int, model: LearnedRecMGModel,
+                 outputs_ref: OutputsRef, trace: Trace,
+                 cfg: Optional[DriftConfig] = None):
+        self.inner = AdaptiveController(store, capacity, cfg)
+        self.model = model
+        self.outputs_ref = outputs_ref
+        self.trace = trace
+        self._refreshes_seen = 0
+
+    def on_batch(self, ids: np.ndarray, hits: int,
+                 batch_index: int = 0) -> List[Tuple]:
+        items = self.inner.on_batch(ids, hits, batch_index)
+        if self.inner.refreshes > self._refreshes_seen:
+            self._refreshes_seen = self.inner.refreshes
+            tr = get_tracer()
+            if tr.enabled:
+                t0 = tr.clock.now()
+            steps = self.model.finetune(self.inner.recent_ids())
+            self.outputs_ref.outputs = self.model.outputs_for(self.trace)
+            if tr.enabled:
+                tr.add_span("model", "finetune", t0, tr.clock.now() - t0,
+                            track="model", args={"steps": steps})
+                tr.add_instant("model", "swap", track="model",
+                               args={"finetunes": self.model.finetunes})
+        return items
+
+    def as_dict(self) -> dict:
+        d = self.inner.as_dict()
+        d.update(finetunes=self.model.finetunes,
+                 finetune_steps=self.model.finetune_steps_run)
+        return d
+
+    def publish(self, reg, prefix: str = "model"):
+        """Publish the drift counters plus the learned-model telemetry
+        into a :class:`repro_torch.obs.MetricsRegistry`."""
+        self.inner.publish(reg)
+        mt = self.model.telemetry()
+        reg.counter(f"{prefix}.finetunes").inc(mt["finetunes"])
+        reg.counter(f"{prefix}.finetune_steps").inc(mt["finetune_steps"])
+        reg.gauge(f"{prefix}.n_candidates").set(mt["n_candidates"])
+        if mt["caching_loss"] is not None:
+            reg.gauge(f"{prefix}.caching_loss").set(mt["caching_loss"])
+        if mt["prefetch_loss"] is not None:
+            reg.gauge(f"{prefix}.prefetch_loss").set(mt["prefetch_loss"])
+        return reg
 
 
 def train_voyager_arm(trace: Trace, capacity: int, in_len: int = 15, *,

@@ -152,15 +152,29 @@ class MultiTableTieredStore:
     def lookup_resident(self, global_ids: np.ndarray):
         """Degraded read (single-store API parity): ``(rows, n_default)``
         — stale-but-resident rows per table, zero default for misses; no
-        stats mutation and no slow-tier traffic on any sub-store."""
+        stats mutation and no slow-tier traffic on any sub-store.  ``rows``
+        is :meth:`lookup_resident_device`'s read copied to the host once."""
+        rows, n_default = self.lookup_resident_device(global_ids)
+        return rows.cpu().numpy(), n_default
+
+    def lookup_resident_device(self, global_ids: np.ndarray):
+        """:meth:`lookup_resident` with ``rows`` on the facade's device:
+        each table's sub-store reads its rows with its own fused read, and
+        one device-side index puts them in request order."""
         gid, table, local = self._route(global_ids)
-        out = np.zeros((len(gid), self.emb_dim), self.out_dtype)
-        n_default = 0
+        dtype = torch.from_numpy(np.zeros(0, self.out_dtype)).dtype
+        parts, order, n_default = [], [], 0
         for t in np.unique(table).tolist():
-            m = table == t
-            rows, nd = self.stores[t].lookup_resident(local[m])
-            out[m] = rows.astype(self.out_dtype, copy=False)
+            m = np.flatnonzero(table == t)
+            rows, nd = self.stores[t].lookup_resident_device(local[m])
+            parts.append(rows.to(dtype))
+            order.append(m)
             n_default += nd
+        out = torch.empty((len(gid), self.emb_dim), dtype=dtype,
+                          device=self.device)
+        if parts:
+            out.index_copy_(0, torch.from_numpy(np.concatenate(order)).to(
+                self.device), torch.cat(parts))
         return out, n_default
 
     # ---------------- single-store-compatible API ----------------

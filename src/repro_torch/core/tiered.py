@@ -36,6 +36,11 @@ What changed with the device:
   PyTorch runs eagerly.
 * ``lookup`` ends in ``torch.cuda.synchronize`` on the card, so
   ``gather_s`` keeps its meaning (host-side dispatch plus device time).
+* The degraded read of an over-deadline request
+  (``lookup_resident_device``) is one call of the same fused read, with the
+  non-resident ids marked as overflow and zero rows staged on the device;
+  the JAX store indexed a NumPy copy of its buffer.  ``lookup_resident``
+  copies that read to the host.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ import torch
 from repro_torch.core.buffer_manager import RecMGBuffer
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ROW_FORMATS, gather_rows_dequant_ref
+from repro_torch.kernels.ref import ROW_FORMATS
 from repro_torch.obs.tracing import get_tracer
 
 
@@ -228,20 +233,39 @@ class TieredEmbeddingStore:
         row and slow-tier misses get a zero default row — never a wrong
         shape, never a slow-tier fetch.  Pure read: no recency update, no
         admission/eviction, no stats mutation, so the main accounting
-        identities are untouched."""
+        identities are untouched.  ``rows`` is a NumPy array: the read of
+        :meth:`lookup_resident_device` copied to the host once."""
+        rows, n_default = self.lookup_resident_device(ids)
+        return rows.cpu().numpy(), n_default
+
+    def lookup_resident_device(self, ids: np.ndarray):
+        """:meth:`lookup_resident` with ``rows`` left on the store's device
+        (the pipelined runtime assembles a degraded batch there).  One call
+        of the store's own fused read: each unique id's slot, expanded to
+        request order, with the non-resident ids marked as overflow whose
+        staged rows are zeros made on the device."""
         ids = np.asarray(ids, np.int64).ravel()
-        out = np.zeros((ids.size, self.host.shape[1]), self._out_np_dtype)
-        slots = self._slot_map[ids]
-        res = slots >= 0
-        n_res = int(np.count_nonzero(res))
-        if n_res:
-            s = _to_device(slots[res].astype(np.int64), self.device)
-            if self.quantize:
-                rows = gather_rows_dequant_ref(self.buffer, self.scales, s)
-            else:
-                rows = self.buffer[s]
-            out[res] = rows.cpu().numpy()
-        return out, int(ids.size) - n_res
+        dev = self.device
+        dtype = torch.float32 if self.quantize else self.buffer.dtype
+        if not ids.size:
+            return torch.zeros((0, self.host.shape[1]), dtype=dtype,
+                               device=dev), 0
+        uniq, inv = np.unique(ids, return_inverse=True)
+        slots_u = self._slot_map[uniq]
+        default = slots_u < 0
+        n_default = int(np.count_nonzero(default[inv]))
+        args = [_to_device(np.maximum(slots_u, 0).astype(np.int32), dev),
+                _to_device(inv.astype(np.int32), dev)]
+        if n_default:
+            args += [_to_device(default, dev),
+                     torch.zeros((uniq.size, self.host.shape[1]),
+                                 dtype=dtype, device=dev)]
+        if self.quantize:
+            rows = ops.gather_rows_dequant_expand(self.buffer, self.scales,
+                                                  *args)
+        else:
+            rows = ops.gather_rows_expand(self.buffer, *args)
+        return rows, n_default
 
     def check_invariants(self):
         """Residency invariants (used by tests): the slot map and slot->key

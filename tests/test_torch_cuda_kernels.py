@@ -11,6 +11,10 @@ rtol 2e-7; both sides divide with IEEE division, so 0 is expected); the
 dequantizing row gathers bit-exact (one multiply per element); the
 dequantizing pooled gather fp32 rtol/atol 1e-6 (each product rounded on its
 own and summed in the order p = 0..P-1 on both sides, so 0 is expected).
+The pipelined runtime on the card: the thread scheduler's worker gives the
+inline engine's counters and stored bytes exactly, and the degraded read
+(the store's gather kernel) and the admission path's batches equal the
+CPU's bit for bit.
 """
 import numpy as np
 import pytest
@@ -630,3 +634,123 @@ def test_lm_prefill_and_decode_on_card_match_cpu(dev, dtype, tol):
         out[name] = torch.stack(steps).cpu()
     assert fa.flash_attention.launches == n0 + cfg.n_layers
     torch.testing.assert_close(out["card"], out["cpu"], rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# The pipelined runtime on the card: the thread scheduler's worker and the
+# degraded read.
+# ---------------------------------------------------------------------------
+
+def _runtime_trace():
+    return generate_trace(TraceGenConfig(
+        n_tables=4, rows_per_table=500, n_accesses=6000, seed=0,
+        drift_every=10**9))
+
+
+def _store_pair(dev, multi_table, row_format, trace, cap=150, **kw):
+    host = np.random.default_rng(0).normal(
+        size=(int(trace.rows_per_table.sum()), 16)).astype(np.float32)
+    if row_format is not None:
+        kw.update(quantize=True, row_format=row_format)
+    if multi_table:
+        return [MultiTableTieredStore.from_global_table(
+            host, trace.rows_per_table, capacity=cap, device=d, **kw)
+            for d in ("cpu", dev)]
+    return [TieredEmbeddingStore(host, cap, device=d, **kw)
+            for d in ("cpu", dev)]
+
+
+@pytest.mark.parametrize("row_format", [None, "int8"])
+def test_thread_scheduler_on_card_equals_inline(dev, row_format):
+    """The thread worker applies the prefetches on the card (under the
+    store's device and the lookups' stream): with a drain barrier after
+    each batch's submits, its counters and stored rows equal the inline
+    engine's, and on the quantized store the worker itself launched
+    ``quantize_scatter``."""
+    from repro_torch.runtime import PrefetchEngine
+
+    trace = _runtime_trace()
+    outs = frequency_outputs(trace, 150)
+    empty = np.empty(0, np.int64)
+    stores = {}
+    for sched in ("inline", "thread"):
+        store = _store_pair(dev, False, row_format, trace,
+                            policy="recmg")[1]
+        eng = PrefetchEngine(store, scheduler=sched, max_queue=8)
+        n0 = eg.quantize_scatter.launches
+        eng.submit(empty, empty, np.arange(40, 90))  # prefetch only
+        eng.drain()
+        worker_launches = eg.quantize_scatter.launches - n0
+        for b in range(len(trace) // 400):
+            ids = trace.global_id[b * 400: (b + 1) * 400]
+            with eng.lock:
+                store.lookup(ids)
+            eng.submit(ids[-15:], outs.caching_bits[b], outs.prefetch_ids[b])
+            eng.drain()
+        eng.close()
+        store.check_invariants()
+        if row_format is not None:
+            assert worker_launches > 0
+        stores[sched] = store
+    a, c = stores["inline"], stores["thread"]
+    assert a.stats.as_dict() | {k: 0 for k in ("fetch_s", "gather_s",
+                                               "model_s")} == \
+        c.stats.as_dict() | {k: 0 for k in ("fetch_s", "gather_s",
+                                            "model_s")}
+    assert torch.equal(a.buffer.view(torch.uint8), c.buffer.view(torch.uint8))
+    if row_format is not None:
+        assert torch.equal(a.scales, c.scales)
+
+
+@pytest.mark.parametrize("multi_table", [False, True])
+@pytest.mark.parametrize("row_format", [None] + list(FORMATS))
+def test_degraded_read_on_card_matches_cpu(dev, row_format, multi_table):
+    """``lookup_resident_device`` on the card reads with the store's own
+    gather kernel (one launch a store touched) and returns the CPU's rows
+    bit for bit: resident rows are copies (times one scale), misses zero."""
+    trace = _runtime_trace()
+    stores = _store_pair(dev, multi_table, row_format, trace)
+    for b in range(6):
+        ids = trace.global_id[b * 400: (b + 1) * 400]
+        for st in stores:
+            st.lookup(ids)
+    probe = trace.global_id[2000:2600]
+    kernel = (eg.gather_rows_dequant_expand if row_format is not None
+              else eg.gather_rows_expand)
+    n0 = kernel.launches
+    rows, n_def = zip(*(st.lookup_resident_device(probe) for st in stores))
+    torch.cuda.synchronize()
+    touched = (len(np.unique(np.searchsorted(
+        stores[1].offsets, probe, side="right") - 1)) if multi_table else 1)
+    assert kernel.launches == n0 + touched
+    assert rows[1].device.type == "cuda" and n_def[0] == n_def[1] > 0
+    assert torch.equal(rows[0], rows[1].cpu())
+
+
+@pytest.mark.parametrize("row_format", [None, "int8"])
+def test_overload_runtime_on_card_matches_cpu(dev, row_format):
+    """The admission path on the card: the same fates and the same batches,
+    degraded rows included, as on the CPU."""
+    from repro_torch.runtime import (AdmissionConfig, PipelinedRuntime,
+                                     RuntimeConfig)
+
+    trace = _runtime_trace()
+    rng = np.random.default_rng(0)
+    gid = trace.global_id
+    stream = [(gid[i * 20: (i + 1) * 20], int(p))
+              for i, p in enumerate(rng.integers(0, 3, size=200))]
+    out = {}
+    for st in _store_pair(dev, False, row_format, trace,
+                          fetch_us_fixed=200.0):
+        rt = PipelinedRuntime(st, RuntimeConfig(
+            max_batch=4, interarrival_us=10.0, compute_us=400.0,
+            admission=AdmissionConfig(
+                queue_bound=8, class_deadline_us=(50.0, 200.0, 800.0))))
+        embs = []
+        rt.run(iter(stream), lambda b, emb: (embs.append(emb.cpu()) or 0.0,
+                                             []))
+        out[st.device.type] = (rt.results(), embs)
+    assert out["cpu"][0] == out["cuda"][0]
+    assert out["cuda"][0]["admission"]["degraded_rows_stale"] > 0
+    for a, c in zip(out["cpu"][1], out["cuda"][1]):
+        assert torch.equal(a, c)

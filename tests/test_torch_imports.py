@@ -73,6 +73,8 @@ def _entry_points():
     from repro_torch.models.dlrm import init_dlrm
     from repro_torch.models.model_api import build
     from repro_torch.models.transformer import init_lm
+    from repro_torch.workloads import (make_spec, replay_overload,
+                                       replay_scenario, scenario)
 
     cfg = get_config("dlrm-recmg").reduced()
     lm = get_config("smollm-135m").reduced()
@@ -106,6 +108,9 @@ def _entry_points():
         "lm_prefill": lambda: build(lm).prefill(
             None, {"tokens": np.zeros((1, 4), np.int64)}),
         "init_lm": lambda: init_lm(lm),
+        "replay_scenario": lambda: replay_scenario(scenario("zipf_mid")),
+        "replay_overload": lambda: replay_overload(make_spec(
+            "sustained_overload", n_accesses=1000)),
     }
 
 
@@ -116,7 +121,8 @@ def _entry_points():
                                    "train_caching_model",
                                    "train_prefetch_model", "train_voyager",
                                    "serve_lm_tiered", "serve_lm_cli",
-                                   "lm_prefill", "init_lm"])
+                                   "lm_prefill", "init_lm",
+                                   "replay_scenario", "replay_overload"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

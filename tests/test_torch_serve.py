@@ -143,15 +143,78 @@ def test_cli_multi_table():
 
 @pytest.mark.parametrize("argv,item", [
     (["--shards", "2"], "A10"),
-    (["--async-prefetch"], "A12"),
-    (["--overload", "2"], "A12"),
-    (["--adapt"], "A12"),
-    (["--workload", "zipf_hot"], "A6"),
     (["--fault-plan", "kill:1@mid"], "A10"),
+    (["--replicate-hot", "8"], "A10"),
 ])
 def test_cli_flags_not_ported_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "--policy", "recmg", *argv])
+
+
+CLI_COUNTERS = ("batches", "lookups", "hits", "misses", "prefetch_hits",
+                "on_demand_rows", "evictions", "modeled_fetch_ms_per_batch")
+# Runtime counters that depend only on the operations, not on the modeled
+# timeline (which, without --overload, overlaps the measured forward).
+RT_COUNTERS = ("batches", "requests", "pf_submitted", "pf_deduped",
+               "pf_cancelled_resident", "pf_issued", "pf_populate_calls",
+               "pf_channel_scheduled", "rank_cancelled_evicted",
+               "demand_fetch_ms")
+
+
+@pytest.mark.parametrize("argv,extra", [
+    (["--async-prefetch", "--pipeline-depth", "3"],
+     ("pf_accuracy", "pf_coverage")),
+    (["--overload", "8"], ("on_demand_stall_ms", "runtime", "admission",
+                           "goodput_rps", "offered_rps")),
+    (["--adapt", "--workload", "diurnal", "--accesses", "12000"],
+     ("on_demand_stall_ms", "drift")),
+    (["--workload", "zipf_hot"], ("on_demand_stall_ms",)),
+], ids=["async-prefetch", "overload", "adapt", "workload"])
+def test_cli_runtime_flags_match_jax(argv, extra):
+    """``--async-prefetch``, ``--overload``, ``--adapt`` and ``--workload``
+    run with ``--device cpu`` and give the JAX CLI's counters.  The inline
+    scheduler replays the same operations; the modeled stall is compared
+    where the modeled compute is pinned (``--overload``) or absent (the
+    synchronous paths), since otherwise it overlaps the measured forward."""
+    from repro.launch.serve import main as jax_main
+
+    common = ["--policy", "recmg", "--model", "frequency", "--accesses",
+              "3000", "--batch-queries", "4", *argv]
+    got = main(["--device", "cpu", *common])
+    want = jax_main(common)
+    keys = CLI_COUNTERS + extra
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["hits"] + got["misses"] == got["lookups"] > 0
+    if "--overload" in argv:
+        adm = got["admission"]
+        assert adm["admitted"] == adm["served"] + adm["shed"] + \
+            adm["degraded"]
+        assert adm["degraded"] > 0 and adm["degraded_rows_stale"] > 0
+        assert got["metrics"]["counters"]["adm.admitted"] == adm["admitted"]
+    if "--adapt" in argv:
+        assert got["drift"]["refreshes"] >= 1
+    if "--async-prefetch" in argv:
+        assert {k: got["runtime"][k] for k in RT_COUNTERS} == \
+            {k: want["runtime"][k] for k in RT_COUNTERS}
+        assert got["on_demand_stall_ms"] < \
+            got["runtime"]["demand_fetch_ms"]
+
+
+def test_cli_thread_scheduler_traced(tmp_path, capsys):
+    """The thread scheduler through the CLI: the worker's apply timing is
+    scheduler-dependent, but the run's trace and metrics reconcile and the
+    accounting identities hold."""
+    trace_out = tmp_path / "t.json"
+    res = main(["--device", "cpu", "--policy", "recmg", "--model",
+                "frequency", "--accesses", "3000", "--batch-queries", "4",
+                "--async-prefetch", "--scheduler", "thread", "--trace-out",
+                str(trace_out)])
+    assert "trace/metrics reconciliation: OK" in capsys.readouterr().out
+    rt = res["runtime"]
+    assert res["hits"] + res["misses"] == res["lookups"] > 0
+    assert rt["batches"] == res["batches"]
+    assert rt["stall_ms"] <= rt["demand_fetch_ms"]
+    assert res["metrics"]["counters"]["rt.pf.issued"] == rt["pf_issued"] > 0
 
 
 @pytest.mark.parametrize("argv,policy", [
