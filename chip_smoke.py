@@ -78,6 +78,22 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
    batch; drift windows of one batch, so 2 refreshes), and the CLI's
    ``main`` with ``--workload zipf_hot --async-prefetch`` (its reduced
    config);
+9'''. sharded parity: the golden fixture through the sharded store on the
+   CPU and on the card, 2 and 4 shards, the four placements, fp32 ``lru``
+   and ``recmg`` (frequency model) and int8 ``lru``: counters and shard
+   telemetry identical, logits within rtol/atol 1e-4, the CPU's 2-shard
+   ``table`` counters equal to ``tests/golden/serve_lru_sharded_table2.
+   json``; then ``replay_chaos`` under each of ``chaos_sweep``'s five fault
+   plans on both devices: the same fates, 0 wrong rows on the card;
+9''''. sharded serve at the serve width (the same trace and host table as
+   phase 5): 4 shards, ``placement=freq``, fp32 and int8 ``lru``; fp32
+   ``lru`` with ``--fault-plan kill:1@mid,recover:1@75%`` and the hottest
+   5% of the vectors replicated; the inline pipelined runtime at depth 2
+   over the fp32 sharded store, with the synchronous run's counters; then
+   ``transfetch``: the transformer prefetch backbone trained on the card
+   as phase 9 trains the LSTM one (``lstm_cell`` in its decoder,
+   ``chamfer`` in its loss), its points on the card and on the CPU from the
+   same parameters within fp32 abs 1e-5;
 10. ``flash_attention`` vs plain on the card: at the LM serve prefill shape
     q (8, 2048, 9, 64), k/v (8, 2048, 3, 64) bf16, at qwen2.5-3b's head
     layout (1, 8192, 16/2, 128) bf16, at fp32 (2, 1024, 8/2, 64) and at a
@@ -104,7 +120,9 @@ error, times and bound, and for the four kernels in their second design
 that design (``quantize_scatter`` also with its launches from the single
 quantized stores and from the per-table facade of phase ``serve``); the
 kernels that the runtime phases drive add those phases' launches and show
-them as ``launches_runtime``; the last line is the result.  Imports nothing of JAX and nothing of the JAX package.
+them as ``launches_runtime``, the sharded serve as ``launches_sharded``
+and the transformer backbone's training as ``launches_transfetch``; the
+last line is the result.  Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -123,6 +141,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import prefetch_model as PM  # noqa: E402
 from repro_torch.core.model_runtime import (  # noqa: E402
     LearnedRecMGModel, train_voyager_arm, voyager_arm_outputs)
 from repro_torch.core.recmg import RecMGOutputs, frequency_outputs  # noqa: E402
@@ -136,7 +155,8 @@ from repro_torch.kernels import embedding_gather as eg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lstm_cell as lc  # noqa: E402
 from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
-                                      cli_learned_config, serve_trace)
+                                      cli_learned_config, host_table,
+                                      serve_trace)
 from repro_torch.launch.serve import main as cli_main  # noqa: E402
 from repro_torch.launch.serve_lm import serve_lm_tiered  # noqa: E402
 from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
@@ -144,7 +164,8 @@ from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_lm, prefill)
 from repro_torch.runtime import DriftConfig  # noqa: E402
-from repro_torch.workloads import make_trace, scenario  # noqa: E402
+from repro_torch.workloads import (CHAOS_KEYS, chaos_sweep,  # noqa: E402
+                                   make_spec, make_trace, scenario)
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, fp32 rate
 # outside the tensor cores and the dense bf16 tensor-core rate.
@@ -712,7 +733,7 @@ def phase_parity():
 # Phases 5 and 6: the main path at full width.
 # ---------------------------------------------------------------------------
 
-def phase_serve(cfg, trace, runs, batch_queries):
+def phase_serve(cfg, trace, host, runs, batch_queries):
     """Each run ``(rows, policy, capacity, serve_trace kwargs)`` serves the
     trace with the counts set to 0 just before and read just after; every
     kernel of the run's path must have launched.  Returns each kernel's
@@ -732,7 +753,7 @@ def phase_serve(cfg, trace, runs, batch_queries):
         eg.reset_launches()
         res = serve_trace(cfg, params, trace, capacity, policy, outputs,
                           batch_queries=batch_queries, device="cuda",
-                          collect_logits=True, **kw)
+                          collect_logits=True, host=host, **kw)
         n = {name: getattr(eg, name).launches for name in path}
         for name, k in n.items():
             require(k > 0, f"serve ({rows}, {policy}) launched {name} 0 "
@@ -1093,7 +1114,7 @@ def phase_learned_parity():
           "serve": served})
 
 
-def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
+def phase_learned_serve(cfg, trace, host, capacity, qcapacity, per_batch,
                         batch_queries, baseline):
     """The CLI's default path at full width: ``--model learned`` trained on
     the first 2 of the 8 batches (1 epoch) and served fp32 and int8, and the
@@ -1117,7 +1138,7 @@ def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
         outputs_s = time.perf_counter() - t0
         res = serve_trace(cfg, params, trace, cap, "recmg", outputs,
                           batch_queries=batch_queries, device="cuda",
-                          collect_logits=True, **kw)
+                          collect_logits=True, host=host, **kw)
         path = ("lstm_cell", "chamfer") + (
             ("quantize_scatter", "gather_rows_dequant_expand")
             if kw else ("gather_rows_expand",))
@@ -1170,7 +1191,7 @@ def phase_learned_serve(cfg, trace, capacity, qcapacity, per_batch,
     outputs_s = time.perf_counter() - t0
     res = serve_trace(cfg, params, trace, capacity, "lru", outputs,
                       batch_queries=batch_queries, device="cuda",
-                      collect_logits=True)
+                      collect_logits=True, host=host)
     n = {fn.__name__: fn.launches for fn in ops.KERNELS
          if fn.__name__ in ("lstm_cell", "gather_rows_expand")}
     for name, k in n.items():
@@ -1278,8 +1299,8 @@ def runtime_report(res):
             "p50_batch_ms": res["p50_batch_ms"]}
 
 
-def phase_runtime_parity(cfg, trace, capacity, qcapacity, batch_queries,
-                         baseline):
+def phase_runtime_parity(cfg, trace, host, capacity, qcapacity,
+                         batch_queries, baseline):
     """The pipelined runtime at full width against the synchronous serve
     of phase ``serve`` (``baseline``): fp32 ``recmg`` (frequency) and int8
     ``lru`` through the inline scheduler at depths 1 and 2 give the same
@@ -1306,7 +1327,8 @@ def phase_runtime_parity(cfg, trace, capacity, qcapacity, batch_queries,
             res = serve_trace(cfg, params, trace, cap, policy, outputs,
                               batch_queries=batch_queries, device="cuda",
                               async_prefetch=True, pipeline_depth=depth,
-                              scheduler=sched, collect_logits=True, **kw)
+                              scheduler=sched, collect_logits=True,
+                              host=host, **kw)
         n = path_launches()
         for name, k in n.items():
             total[name] = total.get(name, 0) + k
@@ -1355,7 +1377,7 @@ def phase_runtime_parity(cfg, trace, capacity, qcapacity, batch_queries,
     return total
 
 
-def phase_runtime_serve(cfg, trace, per_batch, capacity, qcapacity,
+def phase_runtime_serve(cfg, trace, host, per_batch, capacity, qcapacity,
                         batch_queries, model):
     """The runtime's other paths at full width: ``--overload 2`` on the
     int8 store (degraded reads on the card), ``--adapt`` with the
@@ -1375,7 +1397,8 @@ def phase_runtime_serve(cfg, trace, per_batch, capacity, qcapacity,
         res = serve_trace(cfg, params, trace, qcapacity, "lru",
                           None, batch_queries=batch_queries, device="cuda",
                           async_prefetch=True, overload=2.0, quantize=True,
-                          row_format="int8", collect_logits=True)
+                          row_format="int8", collect_logits=True,
+                          host=host)
     n = path_launches()
     count(n)
     adm = res["admission"]
@@ -1471,6 +1494,255 @@ def phase_runtime_serve(cfg, trace, per_batch, capacity, qcapacity,
     del params
     torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phases 9''' and 9'''': the sharded multi-worker store with faults; the
+# transformer prefetch backbone.
+# ---------------------------------------------------------------------------
+
+SHARD_KEYS = ("n_shards", "placement", "per_shard_rows", "per_shard_capacity",
+              "per_shard_lookups", "per_shard_hit_rate",
+              "per_shard_evictions", "load_imbalance", "max_batch_imbalance",
+              "modeled_fetch_ms_sum", "modeled_fetch_ms_critical")
+GOLDEN_SHARDED = (Path(__file__).resolve().parent / "tests" / "golden"
+                  / "serve_lru_sharded_table2.json")
+SHARDED_PATH = ("gather_rows_expand", "gather_rows_dequant_expand",
+                "quantize_scatter")
+
+
+def shard_report(res):
+    sh = res["shard"]
+    return {"p50_batch_ms": res["p50_batch_ms"],
+            "hit_rate": res["hit_rate"],
+            "on_demand_rows": res["on_demand_rows"],
+            "load_imbalance": sh["load_imbalance"],
+            "max_batch_imbalance": sh["max_batch_imbalance"],
+            "modeled_fetch_ms_critical": sh["modeled_fetch_ms_critical"],
+            "modeled_fetch_ms_sum": sh["modeled_fetch_ms_sum"],
+            "per_shard_lookups": sh["per_shard_lookups"],
+            "per_shard_capacity": sh["per_shard_capacity"]}
+
+
+def phase_sharded_parity():
+    """The golden fixture through the sharded store on the CPU and on the
+    card: 2 and 4 shards, the four placements, fp32 ``lru`` and ``recmg``
+    (frequency model) and int8 ``lru``.  Counters, shard telemetry and
+    logits (rtol/atol 1e-4) must agree, and the CPU's 2-shard ``table``
+    counters must equal ``tests/golden/serve_lru_sharded_table2.json``.
+    Then ``replay_chaos`` under each of ``chaos_sweep``'s five plans on both
+    devices: the same fates, and 0 wrong rows on the card."""
+    cfg = dataclasses.replace(get_config("dlrm-recmg").reduced(),
+                              n_tables=4, rows_per_table=1024, multi_hot=2,
+                              emb_dim=16)
+    trace = generate_trace(TraceGenConfig(
+        n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
+        n_accesses=8000, seed=0, drift_every=10**9))
+    cap = int(0.15 * trace.unique_count())
+    params = init_dlrm(cfg, seed=0, device="cpu")
+    freq = frequency_outputs(trace, cap)
+    golden = json.loads(GOLDEN_SHARDED.read_text())
+    t0 = time.perf_counter()
+    n_runs = 0
+    for shards in (2, 4):
+        for placement in ("table", "row", "hash", "freq"):
+            for rows, policy, kw in (("fp32", "lru", {}),
+                                     ("fp32", "recmg", {}),
+                                     ("int8", "lru",
+                                      dict(quantize=True,
+                                           row_format="int8"))):
+                res = {dev: serve_trace(
+                    cfg, to_device(params, dev), trace, cap, policy,
+                    freq if policy == "recmg" else None, batch_queries=8,
+                    shards=shards, placement=placement, device=dev,
+                    collect_logits=True, **kw) for dev in ("cpu", "cuda")}
+                n_runs += 2
+                cpu, card = res["cpu"], res["cuda"]
+                what = f"({shards} shards, {placement}, {rows} {policy})"
+                diff = {k: (cpu[k], card[k]) for k in SERVE_KEYS
+                        if cpu[k] != card[k]}
+                require(not diff, f"sharded counters differ CPU vs card "
+                                  f"{what}: {diff}")
+                require(cpu["shard"] == card["shard"],
+                        f"shard telemetry differs CPU vs card {what}")
+                err = float(np.abs(cpu["logits"] - card["logits"]).max())
+                require(np.allclose(card["logits"], cpu["logits"],
+                                    rtol=1e-4, atol=1e-4),
+                        f"sharded logits differ CPU vs card {what}: {err}")
+                if (shards, placement, rows, policy) == (2, "table", "fp32",
+                                                         "lru"):
+                    got = {k: cpu[k] for k in golden if k != "shard"}
+                    got["shard"] = {k: cpu["shard"][k] for k in SHARD_KEYS}
+                    require(got == golden, "sharded CPU counters differ "
+                                           f"from {GOLDEN_SHARDED.name}")
+    emit({"phase": "sharded_parity", "serve_runs": n_runs,
+          "counters_equal": True, "shard_telemetry_equal": True,
+          "golden_equal": True,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    spec = make_spec("shard_failure", n_accesses=10_240, n_tables=4,
+                     rows_per_table=256)
+    t0 = time.perf_counter()
+    sweeps = {dev: chaos_sweep(spec=spec, batch=128, shards=4, device=dev)
+              for dev in ("cpu", "cuda")}
+    for plan, card in sweeps["cuda"].items():
+        cpu = sweeps["cpu"][plan]
+        diff = {k: (cpu[k], card[k]) for k in cpu
+                if k != "metrics" and cpu[k] != card[k]}
+        require(not diff, f"chaos ({plan or 'clean'}) differs CPU vs card: "
+                          f"{diff}")
+        require(card["wrong_rows"] == 0,
+                f"chaos ({plan or 'clean'}): {card['wrong_rows']} wrong rows")
+        emit({"phase": "sharded_parity", "chaos_plan": plan or "clean",
+              "fates_equal_cpu": True,
+              **{k: card[k] for k in CHAOS_KEYS},
+              "zero_default_rows": card["zero_default_rows"],
+              "exact_rows": card["exact_rows"]})
+    emit({"phase": "sharded_parity", "chaos_seconds":
+          round(time.perf_counter() - t0, 1)})
+
+
+def phase_sharded_serve(cfg, trace, host, capacity, qcapacity,
+                        batch_queries, baseline):
+    """The sharded store at the serve width: 4 shards, ``placement=freq``,
+    fp32 ``lru`` and int8 ``lru``; fp32 ``lru`` with shard 1 killed at mid-
+    run and recovered at 75% and the hottest 5% of the vectors replicated;
+    then the inline pipelined runtime at depth 2 over the fp32 sharded
+    store, whose counters must equal the synchronous run's.  Counts are set
+    to 0 just before each run and read just after.  Returns the store
+    kernels' launches summed over the runs."""
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    int8 = dict(quantize=True, row_format="int8")
+    rep = int(0.05 * int(trace.rows_per_table.sum()))
+    faults = "kill:1@mid,recover:1@75%"
+    total = {}
+    runs = [("fp32", capacity, {}),
+            ("int8", qcapacity, int8),
+            ("fp32 faults", capacity,
+             dict(fault_plan=faults, replicate_hot=rep)),
+            ("fp32 pipelined depth 2", capacity,
+             dict(async_prefetch=True, pipeline_depth=2))]
+    sync = None
+    for arm, cap, kw in runs:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = serve_trace(cfg, params, trace, cap, "lru", None,
+                          batch_queries=batch_queries, shards=4,
+                          placement="freq", device="cuda",
+                          collect_logits=True, host=host, **kw)
+        seconds = time.perf_counter() - t0
+        n = {fn.__name__: fn.launches for fn in ops.KERNELS
+             if fn.__name__ in SHARDED_PATH}
+        path = (("quantize_scatter", "gather_rows_dequant_expand")
+                if kw.get("quantize") else ("gather_rows_expand",))
+        for name in path:
+            require(n[name] > 0, f"sharded_serve ({arm}) launched {name} "
+                                 "0 times")
+        for name, k in n.items():
+            total[name] = total.get(name, 0) + k
+        lg = res["logits"]
+        sh = res["shard"]
+        # Ids of a dead shard are routed (and counted in its load) but
+        # answered by the failover layer, not looked up in its store.
+        routed = res["ft"]["served"] if "fault_plan" in kw \
+            else res["lookups"]
+        require(lg.shape == (res["batches"], batch_queries)
+                and np.isfinite(lg).all()
+                and res["hits"] + res["misses"] == res["lookups"]
+                and sum(sh["per_shard_lookups"]) == routed,
+                f"sharded_serve ({arm}): bad result")
+        require(sh["modeled_fetch_ms_critical"]
+                <= sh["modeled_fetch_ms_sum"],
+                f"sharded_serve ({arm}): critical path above the sum")
+        extra = {}
+        if arm == "fp32":
+            sync = res
+            single = baseline[("fp32", "lru")]
+            extra["single_store"] = {k: single[k] for k in
+                                     ("hit_rate", "on_demand_rows",
+                                      "p50_batch_ms")}
+        if "fault_plan" in kw:
+            ft = res["ft"]
+            require(ft["kills"] == 1 and ft["recoveries"] == 1
+                    and ft["served"] == ft["primary"]
+                    + ft["failover_replica"] + ft["failover_degraded"]
+                    and ft["failover_replica"] > 0,
+                    f"sharded_serve ({arm}): ft fates {ft}")
+            extra.update(ft=ft, replicated_rows=rep, fault_plan=faults)
+        if kw.get("async_prefetch"):
+            diff = {k: (sync[k], res[k]) for k in RUNTIME_COUNTERS
+                    if sync[k] != res[k]}
+            require(not diff, f"sharded_serve ({arm}): counters differ "
+                              f"from the synchronous run: {diff}")
+            rt = res["runtime"]
+            require(rt["stall_ms"] < rt["demand_fetch_ms"],
+                    f"sharded_serve ({arm}): stall not below demand fetch")
+            extra.update(counters_equal_sync=True, stall_ms=rt["stall_ms"],
+                         demand_fetch_ms=rt["demand_fetch_ms"])
+        emit({"phase": "sharded_serve", "arm": arm, "shards": 4,
+              "placement": "freq", "capacity": cap,
+              "batch_queries": batch_queries,
+              "ids_per_batch": batch_queries * cfg.n_tables * cfg.multi_hot,
+              **shard_report(res), **extra,
+              "serve_s": round(seconds, 3), "launches": n})
+        del res
+    del params, sync
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_transfetch(trace, per_batch):
+    """The TransFetch-class transformer backbone of the prefetch model,
+    trained on the card as phase ``learned_serve`` trains the LSTM one (the
+    CLI's widths, 1 epoch on the first 2 of the 8 serve batches): its
+    ``dec2`` runs ``lstm_cell`` and its loss ``chamfer``.  Counts are set
+    to 0 just before the training and read just after.  Then, from the
+    same parameters, the predicted points of the first 4,096 windows on
+    the card and on the CPU agree within fp32 abs 1e-5 (TF32 off).
+    Returns the two kernels' launches."""
+    lcfg = cli_learned_config(1)
+    pcfg = PM.PrefetchModelConfig(n_tables=trace.n_tables,
+                                  hidden=lcfg.hidden, in_len=lcfg.in_len,
+                                  out_len=lcfg.out_len,
+                                  backbone="transformer")
+    t0 = time.perf_counter()
+    pdata = PM.make_prefetch_data(trace.slice(0, 2 * per_batch),
+                                  in_len=lcfg.in_len,
+                                  stride=lcfg.train_stride)
+    data_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model, losses = PM.train_prefetch_model(
+        pdata, pcfg, epochs=1, batch_size=lcfg.batch_size, lr=lcfg.lr,
+        seed=lcfg.seed, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n = {fn.__name__: fn.launches for fn in ops.KERNELS
+         if fn.__name__ in ("lstm_cell", "chamfer")}
+    for name, k in n.items():
+        require(k > 0, f"transfetch training launched {name} 0 times")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"transfetch: losses {losses[0]} -> {losses[-1]}")
+    windows = pdata.base.batch(np.arange(min(4096, len(pdata))))
+    t0 = time.perf_counter()
+    card = PM.predict_sequences(model, pcfg, windows, batch_size=4096)
+    predict_s = time.perf_counter() - t0
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu = PM.predict_sequences(cpu_model, pcfg, windows, batch_size=4096)
+    err = float(np.abs(card - cpu).max())
+    require(np.isfinite(card).all() and err <= 1e-5,
+            f"transfetch: card vs CPU points differ by {err}")
+    emit({"phase": "transfetch", "backbone": "transformer",
+          "cuts": {"train_batches": "first 2 of 8", "epochs": 1,
+                   "stride": lcfg.train_stride},
+          "windows": len(pdata), "steps": len(losses),
+          "loss_first_last": [losses[0], losses[-1]],
+          "seconds": {"data_s": round(data_s, 3),
+                      "train_s": round(train_s, 3),
+                      "predict_4096_s": round(predict_s, 3)},
+          "points_max_abs_err_card_vs_cpu": err, "launches": n})
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -1726,6 +1998,9 @@ def main():
     # --quantize conversion): 185,651 x 512 B / 132 B.
     qcapacity = capacity * fast_row_bytes(full.emb_dim, np.float32, False) \
         // fast_row_bytes(full.emb_dim, np.float32, True, "int8")
+    # The host-tier table every full-width serve reads (1.8 GB of fp32,
+    # drawn once: the draw is most of a full-width serve's seconds).
+    host = host_table(serve_cfg, trace)
     fwd_b = 256
 
     main_recs = phase_kernels(timer, trace.global_id[:per_batch], capacity,
@@ -1741,7 +2016,7 @@ def main():
     phase_learned_parity()
     int8 = dict(quantize=True, row_format="int8")
     serve_launches, serve_results, qs_by_store = phase_serve(
-        serve_cfg, trace, [
+        serve_cfg, trace, host, [
             ("fp32", "lru", capacity, {}),
             ("fp32", "recmg", capacity, {}),
             ("int8", "lru", qcapacity, int8),
@@ -1751,16 +2026,22 @@ def main():
              dict(multi_table=True, **int8)),
         ], batch_queries)
     learned_launches, learned_model = phase_learned_serve(
-        serve_cfg, trace, capacity, qcapacity, per_batch, batch_queries,
-        serve_results)
-    runtime_launches = phase_runtime_parity(serve_cfg, trace, capacity,
+        serve_cfg, trace, host, capacity, qcapacity, per_batch,
+        batch_queries, serve_results)
+    runtime_launches = phase_runtime_parity(serve_cfg, trace, host, capacity,
                                             qcapacity, batch_queries,
                                             serve_results)
-    for name, k in phase_runtime_serve(serve_cfg, trace, per_batch, capacity,
-                                       qcapacity, batch_queries,
+    for name, k in phase_runtime_serve(serve_cfg, trace, host, per_batch,
+                                       capacity, qcapacity, batch_queries,
                                        learned_model).items():
         runtime_launches[name] = runtime_launches.get(name, 0) + k
-    del trace, serve_results, learned_model
+    del learned_model
+    phase_sharded_parity()
+    sharded_launches = phase_sharded_serve(serve_cfg, trace, host, capacity,
+                                           qcapacity, batch_queries,
+                                           serve_results)
+    transfetch_launches = phase_transfetch(trace, per_batch)
+    del trace, host, serve_results
     pool_rec, pool_launches, qpool_rec, qpool_launches = phase_forward(
         timer, full, fwd_b)
     phase_lm_parity()
@@ -1790,8 +2071,11 @@ def main():
              lm_launches["flash_attention"], CU_FLASH_SOURCE,
              TPU_FLASH_ATTENTION)):
         # The runtime phases drive the store's kernels and the learned
-        # model's fine-tune through their own paths.
-        n += runtime_launches.get(name, 0)
+        # model's fine-tune through their own paths, the sharded serve the
+        # store's kernels in every shard, and the transformer backbone's
+        # training lstm_cell (dec2) and chamfer (the loss).
+        n += runtime_launches.get(name, 0) + sharded_launches.get(name, 0) \
+            + transfetch_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -1802,6 +2086,10 @@ def main():
             kernels[-1]["design"] = REDESIGNED[name]
         if name in runtime_launches:
             kernels[-1]["launches_runtime"] = runtime_launches[name]
+        if name in sharded_launches:
+            kernels[-1]["launches_sharded"] = sharded_launches[name]
+        if name in transfetch_launches:
+            kernels[-1]["launches_transfetch"] = transfetch_launches[name]
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])

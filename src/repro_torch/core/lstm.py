@@ -12,7 +12,8 @@ The parameters live in small ``nn.Module``s that keep the JAX tree's names
 (``w`` (in+H, 4H) and ``b`` (4H,) of an LSTM layer, ``wa`` (H, H) of an
 attention layer), so a model's state-dict keys are the JAX tree's paths
 joined by dots, and :func:`params_from_jax` carries a JAX tree (the
-caching, prefetch or Voyager model's) into the module one to one.
+caching, prefetch or Voyager model's, lists of blocks included) into the
+module one to one.
 """
 from __future__ import annotations
 
@@ -101,15 +102,20 @@ def attend(p: Attention, h_dec: torch.Tensor, enc_hs: torch.Tensor):
 
 
 def params_from_jax(module: nn.Module, tree: Mapping) -> nn.Module:
-    """Load a JAX parameter tree (nested dicts of arrays, as NumPy) into
-    ``module``: each leaf goes to the parameter named by its path joined
-    with dots.  Keys must match exactly both ways.  Returns ``module``."""
+    """Load a JAX parameter tree (nested dicts and lists of arrays, as
+    NumPy) into ``module``: each leaf goes to the parameter named by its
+    path joined with dots, a list item by its index (JAX's ``tblocks[0]
+    ["wq"]`` is ``tblocks.0.wq`` under an ``nn.ModuleList``).  Keys must
+    match exactly both ways.  Returns ``module``."""
     flat: Dict[str, torch.Tensor] = {}
 
     def walk(prefix, node):
         if isinstance(node, Mapping):
             for k, v in node.items():
                 walk(f"{prefix}{k}.", v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}{i}.", v)
         else:
             flat[prefix[:-1]] = torch.from_numpy(np.array(node,
                                                            np.float32))

@@ -9,6 +9,14 @@ Chamfer loss runs :func:`repro_torch.kernels.ops.chamfer` (the CUDA
 kernels on the card).  The nearest-candidate decode is a matmul plus an
 argmin, as in the JAX package, outside any kernel.
 
+``backbone="transformer"`` (the TransFetch-class baseline: the same
+featurization, loss and decode with two small self-attention blocks in
+place of the LSTM stacks; the JAX package's lines 88-124 and 153-156) is
+plain ``torch.matmul``/``torch.softmax`` and the tanh-approximated GELU
+that ``jax.nn.gelu`` defaults to: JAX computes it outside any Pallas
+kernel too.  Its ``dec2`` still runs ``lstm_cell`` and its loss
+``chamfer``.
+
 Two seq2seq LSTM stacks + attention (~74K params).  Input: the same access
 chunk as the caching model.  Output: a *sequence* of |PO| = 5 predicted
 embedding-vector coordinates in the model's dense representation space,
@@ -21,9 +29,6 @@ W of the next |W| = 3*|PO| accesses.  Target representations are
 stop-gradiented; the fixed normalized-index coordinate anchors the space.
 At deployment the predicted points snap to the nearest candidate vector by
 squared-L2 (a matmul), giving concrete indices to prefetch.
-
-The TransFetch-class ``backbone="transformer"`` is not ported: it raises
-``NotImplementedError`` (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.core import lstm as LS
 from repro_torch.core.caching_model import (_X_FIELDS, _batch, opt_config,
@@ -57,7 +63,8 @@ class PrefetchModelConfig:
     window: int = 15  # |W| = 3 * |PO| (paper Fig. 12 sensitivity)
     alpha: float = 0.7
     n_stacks: int = 2
-    backbone: str = "lstm"  # lstm (RecMG) | transformer (not ported)
+    backbone: str = "lstm"  # lstm (RecMG) | transformer (TransFetch-class
+    #   baseline: same featurization/loss/decode, transformer encoder)
     loss: str = "chamfer"  # chamfer | l2 (ablation baseline)
     norm_weight: float = 4.0  # weight of the fixed index coordinate
     stat_weight: float = 2.0  # weight of the online freq/recency coords
@@ -75,17 +82,38 @@ class PrefetchModelConfig:
         return self.rep_dim + 2
 
 
+class TransformerBlock(nn.Module):
+    """One self-attention block of the transformer backbone: ``wq``,
+    ``wk``, ``wv``, ``wo`` (H, H), ``w1`` (H, 2H), ``w2`` (2H, H), each
+    ~ N(0, 1) / sqrt(fan-in)."""
+
+    def __init__(self, hidden: int, gen: torch.Generator):
+        super().__init__()
+
+        def w(fan_in, fan_out):
+            return nn.Parameter(torch.randn(fan_in, fan_out, generator=gen)
+                                / math.sqrt(fan_in))
+
+        self.wq, self.wk = w(hidden, hidden), w(hidden, hidden)
+        self.wv, self.wo = w(hidden, hidden), w(hidden, hidden)
+        self.w1, self.w2 = w(hidden, 2 * hidden), w(2 * hidden, hidden)
+
+
 class PrefetchModel(nn.Module):
-    """The prefetch model's parameters (LSTM backbone), drawn from a
-    ``torch.Generator`` seeded with ``seed``."""
+    """The prefetch model's parameters, drawn from a ``torch.Generator``
+    seeded with ``seed``.  The LSTM backbone has ``enc1``/``dec1``/
+    ``attn1`` (and ``enc2`` with two stacks); the transformer backbone
+    has ``in_proj``, ``pos_emb`` and ``tblocks`` (two
+    :class:`TransformerBlock`), as the JAX tree does.  The JAX init draws
+    ``wq``/``w1`` and ``wk``/``w2`` of a block from one key each; the
+    port draws every tensor anew, so parity is held on carried
+    parameters."""
 
     def __init__(self, cfg: PrefetchModelConfig, seed: int = 0):
         super().__init__()
-        if cfg.backbone != "lstm":
-            raise NotImplementedError(
-                f"backbone={cfg.backbone!r} is not ported to repro_torch "
-                "yet: ROADMAP A13 (the TransFetch-class transformer "
-                "backbone)")
+        if cfg.backbone not in ("lstm", "transformer"):
+            raise ValueError(f"unknown backbone {cfg.backbone!r} "
+                             "(lstm | transformer)")
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         f, fin, hid = cfg.rep_dim, cfg.in_dim, cfg.hidden
@@ -97,10 +125,20 @@ class PrefetchModel(nn.Module):
                                       * 0.3)
         self.row_emb1 = nn.Parameter(randn(ROW_BUCKETS[0], cfg.row_emb) * 0.3)
         self.row_emb2 = nn.Parameter(randn(ROW_BUCKETS[1], cfg.row_emb) * 0.3)
-        # Stack 1: encoder/decoder refining the access sequence.
-        self.enc1 = LS.lstm_init(LS.LSTMLayer(fin, hid), gen)
-        self.dec1 = LS.lstm_init(LS.LSTMLayer(2 * hid, hid), gen)
-        self.attn1 = LS.attn_init(LS.Attention(hid), gen)
+        self.enc1 = self.dec1 = self.attn1 = self.enc2 = None
+        self.tblocks = None
+        if cfg.backbone == "transformer":
+            # TransFetch-class encoder: small self-attention blocks over
+            # the chunk in place of the LSTM stacks.
+            self.in_proj = nn.Parameter(randn(fin, hid) / math.sqrt(fin))
+            self.pos_emb = nn.Parameter(randn(cfg.in_len, hid) * 0.1)
+            self.tblocks = nn.ModuleList(TransformerBlock(hid, gen)
+                                         for _ in range(2))
+        else:
+            # Stack 1: encoder/decoder refining the access sequence.
+            self.enc1 = LS.lstm_init(LS.LSTMLayer(fin, hid), gen)
+            self.dec1 = LS.lstm_init(LS.LSTMLayer(2 * hid, hid), gen)
+            self.attn1 = LS.attn_init(LS.Attention(hid), gen)
         # Output embedding layer (paper Fig. 5b): FC + projection into the
         # representation space.
         self.w_fc = nn.Parameter(randn(2 * hid, hid) / math.sqrt(2 * hid))
@@ -108,10 +146,22 @@ class PrefetchModel(nn.Module):
         self.w_proj = nn.Parameter(randn(hid, f) / math.sqrt(hid))
         self.b_proj = nn.Parameter(torch.zeros(f))
         self.y_in = nn.Parameter(randn(f, 8) / math.sqrt(f))
-        self.enc2 = (LS.lstm_init(LS.LSTMLayer(hid, hid), gen)
-                     if cfg.n_stacks >= 2 else None)
+        if cfg.backbone == "lstm" and cfg.n_stacks >= 2:
+            self.enc2 = LS.lstm_init(LS.LSTMLayer(hid, hid), gen)
         self.dec2 = LS.lstm_init(LS.LSTMLayer(8 + hid, hid), gen)
         self.attn2 = LS.attn_init(LS.Attention(hid), gen)
+
+
+def _transformer_encode(m: PrefetchModel, feats: torch.Tensor):
+    """feats: (B, T, fin) -> hs (B, T, H) via the two self-attention
+    blocks (unmasked; ``jax.nn.gelu``'s default tanh approximation)."""
+    h = feats @ m.in_proj + m.pos_emb[: feats.shape[1]]
+    for blk in m.tblocks:
+        q, k, v = h @ blk.wq, h @ blk.wk, h @ blk.wv
+        s = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+        h = h + torch.softmax(s, dim=-1) @ v @ blk.wo
+        h = h + F.gelu(h @ blk.w1, approximate="tanh") @ blk.w2
+    return h
 
 
 def access_reps(m: PrefetchModel, cfg: PrefetchModelConfig, xt, xr1, xr2,
@@ -135,23 +185,30 @@ def prefetch_predict(m: PrefetchModel, cfg: PrefetchModelConfig, xt, xr1,
                      xr2, xn, xf, xrc):
     """(B, T) windows -> (B, out_len, F) predicted representation points.
 
-    enc1 runs from zeros; dec1 starts from enc1's final state and attends
-    over enc1's states; enc2 runs over dec1's outputs from *zeros*; dec2
-    starts from enc2's final state with a zero first ``prev``, attends over
-    enc2's states and feeds each step's point back as the next ``prev``."""
+    LSTM backbone: enc1 runs from zeros; dec1 starts from enc1's final
+    state and attends over enc1's states; enc2 runs over dec1's outputs
+    from *zeros*.  Transformer backbone: the blocks encode the chunk, and
+    dec2 starts from the last position's state with a zero cell.  dec2
+    starts with a zero first ``prev``, attends over the encoder's states
+    and feeds each step's point back as the next ``prev``."""
     feats = input_feats(m, cfg, xt, xr1, xr2, xn, xf, xrc)
-    hs1, (h, c) = LS.lstm_seq(m.enc1, feats)
-    ds = []
-    for t in range(hs1.shape[1]):
-        ctx = LS.attend(m.attn1, h, hs1)
-        (h, c), out = LS.lstm_step(m.dec1, (h, c),
-                                   torch.cat([hs1[:, t], ctx], dim=-1))
-        ds.append(out)
-    ds1 = torch.stack(ds, dim=1)
-    if m.enc2 is not None:
-        hs2, (h, c) = LS.lstm_seq(m.enc2, ds1)
+    if cfg.backbone == "transformer":
+        hs2 = _transformer_encode(m, feats)
+        h = hs2[:, -1]
+        c = torch.zeros_like(h)
     else:
-        hs2 = ds1
+        hs1, (h, c) = LS.lstm_seq(m.enc1, feats)
+        ds = []
+        for t in range(hs1.shape[1]):
+            ctx = LS.attend(m.attn1, h, hs1)
+            (h, c), out = LS.lstm_step(m.dec1, (h, c),
+                                       torch.cat([hs1[:, t], ctx], dim=-1))
+            ds.append(out)
+        ds1 = torch.stack(ds, dim=1)
+        if m.enc2 is not None:
+            hs2, (h, c) = LS.lstm_seq(m.enc2, ds1)
+        else:
+            hs2 = ds1
     prev = feats.new_zeros((feats.shape[0], cfg.rep_dim))
     ys = []
     for _ in range(cfg.out_len):

@@ -482,8 +482,9 @@ class TieredEmbeddingStore:
 
     def lookup_host(self, ids: np.ndarray) -> np.ndarray:
         """:meth:`lookup` materialized as a NumPy array in one transfer —
-        the multi-table and sharded facades reassemble per-store results
-        on the host.  Counters are identical to :meth:`lookup`."""
+        the multi-table facade reassembles per-store results on the host
+        (the sharded store assembles its batch on the device from
+        :meth:`lookup`).  Counters are identical to :meth:`lookup`."""
         out, t0 = self._lookup_device(ids)
         out = out.cpu().numpy()
         self.stats.gather_s += time.perf_counter() - t0

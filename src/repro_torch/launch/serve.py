@@ -5,13 +5,16 @@
 Ported from ``src/repro/launch/serve.py``: the synchronous path and the
 pipelined runtime (``--async-prefetch [--scheduler thread]``, the
 admission path ``--overload X``), drift adaptation (``--adapt``) and the
-workload scenarios (``--workload NAME``), through one store or the
-per-table facade (``--multi-table``), with fp32 or quantized
+workload scenarios (``--workload NAME``), through one store, the
+per-table facade (``--multi-table``) or the sharded multi-worker store
+(``--shards N --placement P``, with fault injection ``--fault-plan`` and
+hot-row replicas ``--replicate-hot``), with fp32 or quantized
 (``--quantize [--row-format fp8]``) fast-tier rows.  Pipeline per
 inference batch (paper Fig. 6):
   1. embedding lookups go through the TieredEmbeddingStore (device buffer
      backed by the host-tier table; one fused CUDA gather per batch, one
-     per table hit under ``--multi-table``);
+     per table hit under ``--multi-table``, one per shard hit under
+     ``--shards``, the shards' rows put in request order on the device);
   2. the rows are sum-pooled and the DLRM dense forward runs on the device;
   3. between batches, the RecMG model outputs for the *previous* chunk are
      staged and applied (Algorithm 1), pipelined one batch ahead.
@@ -26,9 +29,7 @@ chunk grid with no model outputs.
 
 The host table, the trace and the dense inputs come from the same NumPy
 draws as in the JAX launcher, so the counters are the same.  The CLI keeps
-the JAX launcher's flags and defaults; the sharded path's flags
-(``--shards``, ``--fault-plan``, ``--replicate-hot``) are not ported yet
-and raise ``NotImplementedError`` naming ROADMAP A10.
+the JAX launcher's flags and defaults.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from repro_torch.core.model_runtime import (LearnedController,
 from repro_torch.core.recmg import (RecMGOutputs, frequency_outputs,
                                     precompute_outputs)
 from repro_torch.core.serving import MultiTableTieredStore
+from repro_torch.core.sharded_serving import ShardedTieredStore
 from repro_torch.core.tiered import TieredEmbeddingStore, fast_row_bytes
 from repro_torch.core.trace import Trace, TraceGenConfig, generate_trace
 from repro_torch.device import resolve_device, synchronize
@@ -62,13 +64,17 @@ from repro_torch.workloads import make_trace, parse_workload
 def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
                 outputs: Optional[RecMGOutputs], batch_queries: int = 64,
                 fetch_us_per_row: float = 10.0, multi_table: bool = False,
+                shards: int = 0, placement: str = "table",
                 async_prefetch: bool = False, pipeline_depth: int = 2,
                 scheduler: str = "inline", interarrival_us: float = 0.0,
                 compute_us: Optional[float] = None, adapt: bool = False,
                 adapt_cfg=None, model=None, overload: float = 0.0,
                 priority_mix=None, queue_bound: int = 0,
-                quantize: bool = False, row_format: Optional[str] = None,
-                log=None, device="cuda", collect_logits: bool = False
+                fault_plan: str = "", fault_seed: int = 0,
+                replicate_hot: int = 0, quantize: bool = False,
+                row_format: Optional[str] = None, log=None, device="cuda",
+                collect_logits: bool = False,
+                host: Optional[np.ndarray] = None
                 ) -> Dict:
     """Replay a trace as DLRM inference batches through the tiered store.
 
@@ -81,6 +87,22 @@ def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
     ``multi_table=True`` serves through the per-table facade (one batched
     store per sparse feature under the shared row budget) instead of one
     monolithic store; the result gains ``per_table_hit_rates``.
+
+    ``shards > 0`` serves through the sharded multi-worker store
+    (:class:`~repro_torch.core.sharded_serving.ShardedTieredStore`): the
+    tables are partitioned across ``shards`` simulated workers under the
+    chosen ``placement`` policy (``table`` / ``row`` / ``hash`` / ``freq``;
+    the frequency-aware planner profiles the first quarter of the trace),
+    each batch is routed shard-locally, every shard reads its slice with its
+    own fused gather and one device-side index puts the rows in request
+    order.  The result gains ``shard`` (per-shard load/skew/stall
+    telemetry) and ``shard_load_imbalance``.  ``fault_plan`` (requires
+    ``shards``) arms deterministic fault injection — the
+    :class:`~repro_torch.runtime.faults.FaultPlan` grammar
+    (``"kill:1@mid,recover:1@75%"``; fractional times resolve against the
+    batch count), drawn from ``fault_seed`` — and ``replicate_hot`` keeps
+    the top-k profiled rows answerable on every shard; the result gains
+    ``ft`` and the reconciled ``ft.*`` namespace.
 
     ``async_prefetch=True`` serves through the pipelined runtime
     (:mod:`repro_torch.runtime`): requests go through the micro-batcher,
@@ -112,17 +134,37 @@ def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
     ``params`` must live on ``device`` (``"cuda"`` by default; it raises
     when CUDA is absent).  ``collect_logits=True`` adds ``"logits"``, the
     (batches, batch_queries) fp32 outputs, copied to the host after each
-    batch's timed window."""
+    batch's timed window.  ``host`` is the host-tier table; by default
+    :func:`host_table` draws it (as the JAX launcher does), and a caller
+    serving one trace several times may draw it once and pass it."""
     dev = resolve_device(device)
     T, P = cfg.n_tables, cfg.multi_hot
     per_batch = batch_queries * T * P
-    host_rows = int(trace.rows_per_table.sum())
-    host = np.random.default_rng(0).normal(
-        size=(host_rows, cfg.emb_dim)).astype(np.float32)
+    if host is None:
+        host = host_table(cfg, trace)
     pol = "recmg" if policy == "recmg" else "lru"
+    if shards and multi_table:
+        raise ValueError("pass at most one of shards / multi_table")
+    if fault_plan and not shards:
+        raise ValueError("--fault-plan requires --shards (the fault layer "
+                         "lives in the sharded store)")
     # The warm-up (kernel library load and one launch at the batch's size)
     # runs at construction, off the measured path.
-    if multi_table:
+    if shards:
+        profile = (trace.global_id
+                   if placement == "freq" or replicate_hot else None)
+        store = ShardedTieredStore.build(
+            host, trace.rows_per_table, shards, placement,
+            capacity=capacity, policy=pol, profile_ids=profile,
+            replicate_hot=int(replicate_hot),
+            quantize=quantize, row_format=row_format,
+            fetch_us_per_row=fetch_us_per_row, warmup_batch=per_batch,
+            device=dev)
+        if fault_plan:
+            store.arm_faults(
+                fault_plan, seed=fault_seed,
+                horizon_batches=len(trace.global_id) // per_batch)
+    elif multi_table:
         store = MultiTableTieredStore.from_global_table(
             host, trace.rows_per_table, capacity=capacity, policy=pol,
             quantize=quantize, row_format=row_format,
@@ -347,6 +389,12 @@ def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
     if multi_table:
         st["per_table_hit_rates"] = [
             round(h, 4) for h in store.per_table_hit_rates()]
+    if shards:
+        st["shard"] = store.shard_telemetry()
+        st["shard_load_imbalance"] = st["shard"]["load_imbalance"]
+        if store.ft_stats is not None:
+            store.ft_stats.check()
+            st["ft"] = store.ft_stats.as_dict()
     # One registry for every telemetry producer of the run (store, runtime
     # and admission, drift controller), so the reconciliation checker and
     # ``--metrics-out`` see a single flat counter space.
@@ -363,21 +411,21 @@ def serve_trace(cfg, params, trace: Trace, capacity: int, policy: str,
     return st
 
 
+def host_table(cfg, trace: Trace) -> np.ndarray:
+    """The host-tier table ``serve_trace`` serves from: one fp32 row of
+    ``cfg.emb_dim`` per vector of the trace's tables, drawn from seed 0
+    (the JAX launcher's draw)."""
+    return np.random.default_rng(0).normal(
+        size=(int(trace.rows_per_table.sum()), cfg.emb_dim)).astype(
+            np.float32)
+
+
 def _dense_forward(params, cfg, dense, pooled):
     """DLRM forward given already-pooled embeddings (B, T, D) -> (B,)
     logits in the compute dtype."""
     ct = torch_dtype(cfg.compute_dtype)
     bot = _mlp(params["bottom"], dense.to(ct))
     return interact_top(params, bot, pooled.to(ct))
-
-
-# Flags whose subsystem is not ported yet, with the ROADMAP item that
-# ports it.  Each raises NotImplementedError when set.
-_NOT_PORTED = (
-    ("shards", "--shards", "A10 (sharded + fault path)"),
-    ("fault_plan", "--fault-plan", "A10 (sharded + fault path)"),
-    ("replicate_hot", "--replicate-hot", "A10 (sharded + fault path)"),
-)
 
 
 def cli_outputs(args, trace: Trace, capacity: int, dev):
@@ -433,9 +481,14 @@ def main(argv=None):
     ap.add_argument("--quantize", action="store_true")
     ap.add_argument("--row-format", default="int8", choices=("int8", "fp8"))
     ap.add_argument("--multi-table", action="store_true")
-    ap.add_argument("--shards", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="partition the tables across this many simulated "
+                         "workers (0 = single-worker store)")
     ap.add_argument("--placement", default="table",
-                    choices=["table", "row", "hash", "freq"])
+                    choices=["table", "row", "hash", "freq"],
+                    help="shard placement policy: table-wise bin-pack, "
+                         "row-wise round-robin, keyed hash, or the "
+                         "frequency-aware (RecShard-style) planner")
     ap.add_argument("--async-prefetch", action="store_true",
                     help="serve through the pipelined runtime: "
                          "micro-batcher, prefetch engine, fetch/compute "
@@ -458,9 +511,18 @@ def main(argv=None):
     ap.add_argument("--queue-bound", type=int, default=0,
                     help="admission-queue bound in requests (default: 4 "
                          "batches)")
-    ap.add_argument("--fault-plan", default="")
-    ap.add_argument("--fault-seed", type=int, default=0)
-    ap.add_argument("--replicate-hot", type=int, default=0)
+    ap.add_argument("--fault-plan", default="",
+                    help="deterministic fault schedule for the sharded "
+                         "store (requires --shards): comma-separated "
+                         "kind[:shard[xfactor]]@start[..end] events, kinds "
+                         "kill/recover/slow/flaky, e.g. "
+                         "'kill:1@mid,recover:1@75%%'")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault plan's transient-failure draws")
+    ap.add_argument("--replicate-hot", type=int, default=0,
+                    help="replicate the top-k profiled hot rows on every "
+                         "shard, so a dead shard's hot rows are answered "
+                         "exactly")
     ap.add_argument("--workload", default="",
                     help="serve a named workload scenario instead of the "
                          "default calibrated trace: a catalog name "
@@ -483,11 +545,6 @@ def main(argv=None):
     ap.add_argument("--trace-ring", type=int, default=64,
                     help="flight-recorder ring size in batches")
     args = ap.parse_args(argv)
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(args, attr):
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet: ROADMAP {item}")
-
     if args.overload:
         args.async_prefetch = True
 
@@ -530,6 +587,7 @@ def main(argv=None):
         res = serve_trace(cfg, params, trace, capacity, pol, outputs,
                           batch_queries=args.batch_queries,
                           multi_table=args.multi_table,
+                          shards=args.shards, placement=args.placement,
                           async_prefetch=args.async_prefetch,
                           pipeline_depth=args.pipeline_depth,
                           scheduler=args.scheduler, adapt=args.adapt,
@@ -539,6 +597,9 @@ def main(argv=None):
                               args.priority_mix.split(","))
                           if args.priority_mix else None,
                           queue_bound=args.queue_bound,
+                          fault_plan=args.fault_plan,
+                          fault_seed=args.fault_seed,
+                          replicate_hot=args.replicate_hot,
                           quantize=args.quantize,
                           row_format=(args.row_format if args.quantize
                                       else None),

@@ -11,8 +11,8 @@ JAX layout ``(in, out)`` and apply as ``x @ w + b``, so
 :func:`params_from_jax` copies arrays without transposing them.
 ``init_dlrm`` draws from a ``torch.Generator``; its numbers differ from
 ``jax.random``'s, so the parity tests load JAX's parameters through
-:func:`params_from_jax`.  ``embedding_lookup_rowsharded`` comes with the
-sharded slice.
+:func:`params_from_jax`.  ``embedding_lookup_rowsharded`` (a lookup
+sharded across devices) waits for several cards: ROADMAP A10b.
 
 :func:`quantize_tables` stores the tables as the quantized fast tier does
 (int8 or fp8 codes and one fp32 scale per row, ``emb_scales`` (T, R)

@@ -3,9 +3,8 @@ regimes behind one ``WorkloadSpec -> trace / iterator-of-batches`` API.
 
 Ported from ``src/repro/workloads/__init__.py``.  ``spec``, ``regimes``
 and ``replay`` are copies (NumPy and stdlib only: the port imports nothing
-of the JAX package); ``harness`` and ``overload`` serve on the port's
-stores on a ``device``.  ``chaos`` (the sharded fault sweeps) waits for
-the sharded path (ROADMAP A10), so this package does not export it.
+of the JAX package); ``harness``, ``overload`` and ``chaos`` serve on the
+port's stores (single, or sharded with faults) on a ``device``.
 
 See :mod:`repro_torch.workloads.spec` for the API,
 :mod:`repro_torch.workloads.regimes` for the generator taxonomy,
@@ -14,6 +13,9 @@ See :mod:`repro_torch.workloads.spec` for the API,
 """
 from repro_torch.workloads import regimes as _regimes  # noqa: F401  (registers)
 from repro_torch.workloads import replay as _replay  # noqa: F401  (registers)
+from repro_torch.workloads.chaos import (CHAOS_KEYS, DEFAULT_FAULT_PLAN,
+                                         chaos_sweep, failover_goodput,
+                                         replay_chaos)
 from repro_torch.workloads.harness import (GOLDEN_KEYS, build_store,
                                            golden_metrics,
                                            phase_steady_hit_rates,
@@ -28,10 +30,12 @@ from repro_torch.workloads.spec import (DRIFT_SCENARIOS,
                                         parse_workload, scenario)
 
 __all__ = [
-    "DRIFT_SCENARIOS", "GOLDEN_KEYS", "OVERLOAD_KEYS",
+    "CHAOS_KEYS", "DEFAULT_FAULT_PLAN", "DRIFT_SCENARIOS", "GOLDEN_KEYS",
+    "OVERLOAD_KEYS",
     "PAPER_TARGET_SCENARIOS", "REGIMES", "SCENARIOS", "WorkloadSpec",
-    "build_store", "degradation_ratio", "golden_metrics", "iter_batches",
+    "build_store", "chaos_sweep", "degradation_ratio", "failover_goodput",
+    "golden_metrics", "iter_batches",
     "make_spec", "make_trace", "overload_sweep", "parse_workload",
-    "phase_steady_hit_rates", "replay_overload", "replay_scenario",
-    "scenario",
+    "phase_steady_hit_rates", "replay_chaos", "replay_overload",
+    "replay_scenario", "scenario",
 ]

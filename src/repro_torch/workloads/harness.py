@@ -8,10 +8,10 @@ tens of milliseconds, so the regression tests can afford
 rows.
 
 Ported from ``src/repro/workloads/harness.py``: the replay loop is a
-copy.  What changed: the store, and the learned and Voyager models, live
-on ``device`` (``"cuda"`` by default; it raises when CUDA is absent), and
-``shards > 0`` raises ``NotImplementedError``: the sharded store waits
-for ROADMAP A10.
+copy.  What changed: the store (one store, or the sharded store of
+:mod:`repro_torch.core.sharded_serving` for ``shards > 0``), and the
+learned and Voyager models, live on ``device`` (``"cuda"`` by default; it
+raises when CUDA is absent).
 
 The recmg arm's outputs come from the ``model`` switch: ``"frequency"``
 (the deterministic frequency-heuristic stand-in, the default),
@@ -35,6 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.core.recmg import frequency_outputs
+from repro_torch.core.sharded_serving import ShardedTieredStore
 from repro_torch.core.tiered import TieredEmbeddingStore
 from repro_torch.device import resolve_device
 from repro_torch.obs import MetricsRegistry
@@ -54,17 +55,18 @@ def build_store(host: np.ndarray, rows_per_table: np.ndarray, capacity: int,
                 fetch_us_per_row: float = 10.0,
                 quantize: bool = False, row_format: Optional[str] = None,
                 warmup_batch: Optional[int] = None, device="cuda"):
-    """The same store-selection switch ``serve_trace`` uses: one store on
-    ``device``.  ``shards > 0`` (the sharded store) raises."""
+    """The same store-selection switch ``serve_trace`` uses (shards=0 ->
+    single worker), on ``device``."""
     if shards:
-        raise NotImplementedError(
-            "shards > 0 (the sharded store) is not ported to repro_torch "
-            "yet: ROADMAP A10 (sharded + fault path)")
+        return ShardedTieredStore.build(
+            host, rows_per_table, shards, placement, capacity=capacity,
+            policy=policy, quantize=quantize, row_format=row_format,
+            fetch_us_per_row=fetch_us_per_row, warmup_batch=warmup_batch,
+            device=device)
     return TieredEmbeddingStore(
         host, capacity, policy=policy, quantize=quantize,
         row_format=row_format, fetch_us_per_row=fetch_us_per_row,
         warmup_batch=warmup_batch, device=device)
-
 
 
 def replay_scenario(spec: WorkloadSpec, policy: str = "lru",
@@ -101,8 +103,7 @@ def replay_scenario(spec: WorkloadSpec, policy: str = "lru",
     through this knob.
 
     The store and the models live on ``device`` (``"cuda"`` by default;
-    it raises when CUDA is absent); ``shards > 0`` raises
-    ``NotImplementedError`` (ROADMAP A10).
+    it raises when CUDA is absent).
     """
     dev = resolve_device(device)
     if model not in ("frequency", "learned", "voyager"):
@@ -213,6 +214,8 @@ def replay_scenario(spec: WorkloadSpec, policy: str = "lru",
         modeled_fetch_ms_per_batch=store.modeled_batch_ms(),
         batch_hit_rates=batch_hit_rates,
     )
+    if shards:
+        res["shard"] = store.shard_telemetry()
     if learned is not None:
         res["learned"] = learned.telemetry()
     if controller is not None:

@@ -754,3 +754,65 @@ def test_overload_runtime_on_card_matches_cpu(dev, row_format):
     assert out["cuda"][0]["admission"]["degraded_rows_stale"] > 0
     for a, c in zip(out["cpu"][1], out["cuda"][1]):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("placement", ["row", "freq"])
+@pytest.mark.parametrize("row_format", [None, "int8"])
+def test_sharded_store_on_card_matches_cpu(dev, row_format, placement):
+    """The sharded store on the card, 4 shards with hot-row replicas and a
+    kill then a recovery of shard 1: every batch (assembled on the card by
+    one ``index_copy_``) equals the CPU's bit for bit, and so do the
+    counters, the shard telemetry and the ``ft.*`` fates; the card's
+    shards launched their gather kernel."""
+    from repro_torch.core.sharded_serving import ShardedTieredStore
+
+    trace = _runtime_trace()
+    gid = trace.global_id
+    host = np.random.default_rng(0).normal(
+        size=(int(trace.rows_per_table.sum()), 16)).astype(np.float32)
+    q = dict(quantize=True, row_format=row_format) if row_format else {}
+    kernel = (eg.gather_rows_dequant_expand if row_format is not None
+              else eg.gather_rows_expand)
+    runs = {}
+    for d in ("cpu", dev):
+        st = ShardedTieredStore.build(
+            host, trace.rows_per_table, 4, placement, capacity=300,
+            policy="recmg", profile_ids=gid[:2000], replicate_hot=64,
+            device=d, **q)
+        st.arm_faults("kill:1@3,recover:1@7", horizon_batches=12)
+        n0 = kernel.launches
+        rows = []
+        for b in range(12):
+            ids = gid[b * 400: (b + 1) * 400]
+            rows.append(st.lookup(ids).cpu())
+            st.apply_model_outputs(ids[:15], np.ones(15, np.int64),
+                                   np.unique(gid[(b + 1) * 400:
+                                                 (b + 1) * 400 + 20]))
+        runs[torch.device(d).type] = (rows, st.stats.as_dict(),
+                                      st.shard_telemetry(),
+                                      kernel.launches - n0)
+    cpu, card = runs["cpu"], runs["cuda"]
+    for a, c in zip(cpu[0], card[0]):
+        assert torch.equal(a, c)
+    for wall in ("fetch_s", "gather_s", "model_s"):
+        cpu[1].pop(wall), card[1].pop(wall)
+    assert cpu[1] == card[1]
+    assert cpu[2] == card[2] and card[2]["ft"]["kills"] == 1
+    assert card[3] > 0
+
+
+def test_chaos_on_card_has_zero_wrong_rows_and_cpu_fates(dev):
+    """``replay_chaos`` under the kill-and-recover plan on the card: the
+    clean-shadow audit counts 0 wrong rows, and the fates equal the CPU
+    run's."""
+    from repro_torch.workloads import CHAOS_KEYS, make_spec, replay_chaos
+
+    spec = make_spec("shard_failure", n_accesses=10_240, n_tables=4,
+                     rows_per_table=256)
+    got = {d: replay_chaos(spec, batch=128, shards=4, device=d)
+           for d in ("cpu", "cuda")}
+    assert got["cuda"]["wrong_rows"] == 0
+    keys = CHAOS_KEYS + ("kills", "recoveries", "recovery_rows",
+                         "degraded_default")
+    assert {k: got["cuda"][k] for k in keys} == \
+        {k: got["cpu"][k] for k in keys}

@@ -65,6 +65,7 @@ def _entry_points():
     from repro_torch.core.model_runtime import (LearnedRecMGModel,
                                                 voyager_outputs)
     from repro_torch.core.serving import MultiTableTieredStore
+    from repro_torch.core.sharded_serving import ShardedTieredStore
     from repro_torch.core.tiered import TieredEmbeddingStore
     from repro_torch.core.trace import TraceGenConfig, generate_trace
     from repro_torch.launch.serve import main, serve_trace
@@ -73,8 +74,9 @@ def _entry_points():
     from repro_torch.models.dlrm import init_dlrm
     from repro_torch.models.model_api import build
     from repro_torch.models.transformer import init_lm
-    from repro_torch.workloads import (make_spec, replay_overload,
-                                       replay_scenario, scenario)
+    from repro_torch.workloads import (make_spec, replay_chaos,
+                                       replay_overload, replay_scenario,
+                                       scenario)
 
     cfg = get_config("dlrm-recmg").reduced()
     lm = get_config("smollm-135m").reduced()
@@ -88,6 +90,10 @@ def _entry_points():
             np.zeros((8, 4), np.float32), 4, quantize=True),
         "multi_table_store": lambda: MultiTableTieredStore(
             [np.zeros((8, 4), np.float32)] * 2, capacity=4),
+        "sharded_store": lambda: ShardedTieredStore.build(
+            np.zeros((16, 4), np.float32), [8, 8], 2, capacity=4),
+        "cli_sharded": lambda: main(["--policy", "lru", "--accesses", "500",
+                                     "--shards", "2"]),
         "serve_trace": lambda: serve_trace(cfg, None, trace, 4, "lru", None),
         "init_dlrm": lambda: init_dlrm(cfg),
         "cli": lambda: main(["--policy", "lru", "--accesses", "500"]),
@@ -100,6 +106,10 @@ def _entry_points():
         "train_prefetch_model": lambda: PM.train_prefetch_model(
             PM.make_prefetch_data(trace),
             PM.PrefetchModelConfig(n_tables=2, hidden=8), epochs=1),
+        "train_transformer_prefetch_model": lambda: PM.train_prefetch_model(
+            PM.make_prefetch_data(trace),
+            PM.PrefetchModelConfig(n_tables=2, hidden=8,
+                                   backbone="transformer"), epochs=1),
         "train_voyager": lambda: VY.train_voyager(
             windows, VY.VoyagerConfig(n_vectors=trace.n_vectors), 2,
             epochs=1),
@@ -111,18 +121,24 @@ def _entry_points():
         "replay_scenario": lambda: replay_scenario(scenario("zipf_mid")),
         "replay_overload": lambda: replay_overload(make_spec(
             "sustained_overload", n_accesses=1000)),
+        "replay_chaos": lambda: replay_chaos(make_spec(
+            "shard_failure", n_accesses=2000)),
     }
 
 
 @pytest.mark.parametrize("entry", ["store", "quantized_store",
-                                   "multi_table_store", "serve_trace",
-                                   "init_dlrm", "cli", "learned_model",
+                                   "multi_table_store", "sharded_store",
+                                   "serve_trace", "init_dlrm", "cli",
+                                   "cli_sharded", "learned_model",
                                    "voyager_outputs", "cli_learned",
                                    "train_caching_model",
-                                   "train_prefetch_model", "train_voyager",
+                                   "train_prefetch_model",
+                                   "train_transformer_prefetch_model",
+                                   "train_voyager",
                                    "serve_lm_tiered", "serve_lm_cli",
                                    "lm_prefill", "init_lm",
-                                   "replay_scenario", "replay_overload"])
+                                   "replay_scenario", "replay_overload",
+                                   "replay_chaos"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

@@ -92,11 +92,12 @@ def _grads(module):
 
 def _flat(tree, prefix=""):
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out.update(_flat(v, f"{prefix}{k}."))
         else:
-            out[prefix + k] = np.asarray(v)
+            out[f"{prefix}{k}"] = np.asarray(v)
     return out
 
 
@@ -111,18 +112,48 @@ def test_params_from_jax_maps_every_key():
 
 
 def test_port_init_draws_the_jax_shapes():
-    from repro.core import caching_model as JCM
-    from repro.core import prefetch_model as JPM
-
     (mcfg, jc, _), (pcfg, jp, _), _ = _carried()
+    tcfg, jt, _ = _carried_transformer()
     for tree, mod in ((jc, CM.CachingModel(mcfg, seed=5)),
-                      (jp, PM.PrefetchModel(pcfg, seed=5))):
+                      (jp, PM.PrefetchModel(pcfg, seed=5)),
+                      (jt, PM.PrefetchModel(tcfg, seed=5))):
         shapes = {k: v.shape for k, v in _flat(_np_tree(tree)).items()}
         assert shapes == {k: tuple(v.shape)
                           for k, v in mod.state_dict().items()}
-    del JCM, JPM
-    with pytest.raises(NotImplementedError, match="A13"):
-        PM.PrefetchModel(PM.PrefetchModelConfig(backbone="transformer"))
+    with pytest.raises(ValueError, match="backbone"):
+        PM.PrefetchModel(PM.PrefetchModelConfig(backbone="gru"))
+
+
+@lru_cache(maxsize=None)
+def _carried_transformer():
+    """JAX-drawn parameters of the transformer-backbone prefetch model and
+    the port's module carrying them (``tblocks`` is a list in JAX, an
+    ``nn.ModuleList`` in the port)."""
+    from repro.core import prefetch_model as JPM
+
+    tr = _trace()
+    kw = dict(n_tables=tr.n_tables, hidden=HID, backbone="transformer")
+    jt = JPM.init_prefetch_model(jax.random.PRNGKey(8),
+                                 JPM.PrefetchModelConfig(**kw))
+    cfg = PM.PrefetchModelConfig(**kw)
+    return cfg, jt, params_from_jax(PM.PrefetchModel(cfg), _np_tree(jt))
+
+
+def test_transformer_prefetch_points_and_ids_match_jax():
+    from repro.core import prefetch_model as JPM
+
+    cfg, jt, tt = _carried_transformer()
+    tr, data = _trace(), _windows()
+    jcfg = JPM.PrefetchModelConfig(n_tables=tr.n_tables, hidden=HID,
+                                   backbone="transformer")
+    want = np.asarray(JPM.prefetch_predict_batch(jt, jcfg,
+                                                 *_jax_inputs(data)))
+    got = PM.predict_sequences(tt, cfg, data, batch_size=64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    cand = np.sort(np.unique(tr.global_id))[::3]
+    np.testing.assert_array_equal(
+        PM.decode_to_ids(tt, cfg, got, cand, tr),
+        JPM.decode_to_ids(jt, jcfg, want, cand, tr))
 
 
 def test_caching_logits_and_bits_match_jax():
@@ -236,6 +267,39 @@ def test_prefetch_loss_and_grads_match_jax(loss_kind):
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5, atol=1e-6)
     _assert_grads_match(tp, jg)
     del pcfg
+
+
+@pytest.mark.parametrize("loss_kind", ["chamfer", "l2"])
+def test_transformer_prefetch_loss_and_grads_match_jax(loss_kind):
+    from repro.core import prefetch_model as JPM
+
+    _, jt, _ = _carried_transformer()
+    tr = _trace()
+    kw = dict(n_tables=tr.n_tables, hidden=HID, backbone="transformer",
+              loss=loss_kind)
+    cfg, jcfg = PM.PrefetchModelConfig(**kw), JPM.PrefetchModelConfig(**kw)
+    tt = params_from_jax(PM.PrefetchModel(cfg), _np_tree(jt))
+    idx = np.arange(0, 96, 3)
+    t = PM.make_prefetch_data(tr, stride=5).batch_dict(idx)
+    j = JPM.make_prefetch_data(tr, stride=5).batch_dict(idx)
+    loss = PM.prefetch_loss(tt, cfg, t)
+    loss.backward()
+    jl, jg = jax.value_and_grad(
+        lambda p: JPM.prefetch_loss(p, jcfg, j))(jt)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5, atol=1e-6)
+    _assert_grads_match(tt, jg)
+
+
+def test_transformer_backbone_trains_with_falling_loss():
+    tr = _trace()
+    cfg = PM.PrefetchModelConfig(n_tables=tr.n_tables, hidden=HID,
+                                 backbone="transformer")
+    m, losses = PM.train_prefetch_model(
+        PM.make_prefetch_data(tr, stride=5), cfg, epochs=2, batch_size=64,
+        device="cpu")
+    assert m.tblocks is not None and m.enc1 is None
+    assert np.isfinite(losses).all() and len(losses) >= 8
+    assert np.mean(losses[-4:]) < np.mean(losses[:4])
 
 
 @pytest.mark.parametrize("grad_scale", [1e-2, 10.0],

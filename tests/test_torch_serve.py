@@ -147,8 +147,24 @@ def test_cli_multi_table():
     (["--replicate-hot", "8"], "A10"),
 ])
 def test_cli_flags_not_ported_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--device", "cpu", "--policy", "recmg", *argv])
+    """The sharded path's flags (ROADMAP ``item``), which raised
+    ``NotImplementedError`` before that item was ported, now serve on the
+    CPU and give the JAX CLI's counters, ``shard`` telemetry and ``ft.*``
+    fates (``--fault-plan`` and ``--replicate-hot`` on 2 shards)."""
+    from repro.launch.serve import main as jax_main
+
+    shards = [] if "--shards" in argv else ["--shards", "2"]
+    common = ["--policy", "recmg", "--model", "frequency", "--accesses",
+              "3000", "--batch-queries", "4", *shards, *argv]
+    got = main(["--device", "cpu", *common])
+    want = jax_main(common)
+    keys = CLI_COUNTERS + ("on_demand_stall_ms", "shard",
+                           "shard_load_imbalance")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert ("ft" in got) == ("--fault-plan" in argv) == ("ft" in want)
+    if "--fault-plan" in argv:
+        assert got["ft"] == want["ft"] and got["ft"]["kills"] == 1
+    assert item == "A10"
 
 
 CLI_COUNTERS = ("batches", "lookups", "hits", "misses", "prefetch_hits",
@@ -198,6 +214,46 @@ def test_cli_runtime_flags_match_jax(argv, extra):
             {k: want["runtime"][k] for k in RT_COUNTERS}
         assert got["on_demand_stall_ms"] < \
             got["runtime"]["demand_fetch_ms"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--async-prefetch", "--fault-plan", "kill:1@mid,recover:1@75%",
+     "--replicate-hot", "16"],
+    ["--overload", "4", "--placement", "freq"],
+    ["--quantize", "--placement", "hash", "--fault-plan",
+     "flaky:1x0.5@25%..75%", "--fault-seed", "3"],
+], ids=["async-prefetch-faults", "overload-freq", "int8-flaky"])
+def test_cli_sharded_runtime_flags_match_jax(argv):
+    """The sharded store under ``--async-prefetch`` (with a kill and a
+    recovery), under ``--overload`` and with quantized rows on a flaky
+    shard: the JAX CLI's counters, shard telemetry and fates."""
+    from repro.launch.serve import main as jax_main
+
+    common = ["--policy", "recmg", "--model", "frequency", "--accesses",
+              "3000", "--batch-queries", "4", "--shards", "2", *argv]
+    got = main(["--device", "cpu", *common])
+    want = jax_main(common)
+    keys = CLI_COUNTERS + ("shard_load_imbalance",)
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    for k in ("per_shard_lookups", "per_shard_hit_rate",
+              "per_shard_evictions", "modeled_fetch_ms_critical",
+              "per_shard_pf_issued", "ft"):
+        assert got["shard"].get(k) == want["shard"].get(k), k
+    assert got.get("ft") == want.get("ft")
+    if "--overload" in argv:
+        assert got["admission"] == want["admission"]
+    if "--async-prefetch" in argv:
+        assert {k: got["runtime"][k] for k in RT_COUNTERS} == \
+            {k: want["runtime"][k] for k in RT_COUNTERS}
+
+
+def test_cli_sharded_flag_errors():
+    with pytest.raises(ValueError, match="requires --shards"):
+        main(["--device", "cpu", "--policy", "lru", "--accesses", "3000",
+              "--fault-plan", "kill:1@mid"])
+    with pytest.raises(ValueError, match="at most one"):
+        main(["--device", "cpu", "--policy", "lru", "--accesses", "3000",
+              "--shards", "2", "--multi-table"])
 
 
 def test_cli_thread_scheduler_traced(tmp_path, capsys):

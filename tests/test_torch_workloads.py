@@ -4,8 +4,9 @@ Workload generation is NumPy on both sides: an equal ``WorkloadSpec``
 gives byte-identical traces, batches and DLRM query streams.  The port's
 ``replay_scenario`` serves on its own store (on the CPU here) and must
 reproduce the heuristic scenario goldens ``tests/golden/scenario_*_{lru,
-recmg}_n1.json`` exactly; this file only reads them.  The sharded cells
-(``shards > 0``) raise until ROADMAP A10.
+recmg}_n1.json`` exactly; this file only reads them.  With ``shards > 0``
+the harness serves through the port's sharded store
+(``tests/test_torch_sharded_serving.py`` holds the ``*_n2`` goldens).
 """
 import json
 from pathlib import Path
@@ -182,15 +183,36 @@ def test_replay_scenario_quantized_byte_budget_equals_jax():
 @pytest.mark.parametrize("call", ["replay_scenario", "build_store",
                                   "replay_overload"])
 def test_shards_raise_naming_a10(call):
-    calls = {
-        "replay_scenario": lambda: replay_scenario(
-            scenario("zipf_mid", **SCALE), shards=2, device="cpu"),
-        "build_store": lambda: build_store(
-            np.zeros((8, 4), np.float32), np.array([8]), 4, "lru", shards=2,
-            device="cpu"),
-        "replay_overload": lambda: replay_overload(
-            make_spec("sustained_overload", n_accesses=1000), shards=2,
-            device="cpu"),
-    }
-    with pytest.raises(NotImplementedError, match="A10"):
-        calls[call]()
+    """``shards=2``, which raised ``NotImplementedError`` naming ROADMAP
+    A10 until the sharded store was ported, now serves through the port's
+    sharded store and gives the JAX package's counters and shard
+    telemetry."""
+    from repro.workloads import build_store as jax_build_store
+    from repro.workloads import replay_overload as jax_replay_overload
+
+    if call == "replay_scenario":
+        kw = dict(policy="recmg", batch=BATCH, shards=2, placement="hash")
+        got = replay_scenario(scenario("zipf_mid", **SCALE), device="cpu",
+                              **kw)
+        want = jax_replay_scenario(jax_scenario("zipf_mid", **SCALE), **kw)
+        assert golden_metrics(got) == golden_metrics(want)
+        assert got["shard"] == want["shard"]
+    elif call == "build_store":
+        host = np.random.default_rng(0).normal(size=(64, 4)).astype(
+            np.float32)
+        args = (host, np.array([40, 24]), 16, "lru")
+        got = build_store(*args, shards=2, placement="hash", device="cpu")
+        want = jax_build_store(*args, shards=2, placement="hash")
+        ids = np.random.default_rng(1).integers(0, 64, 200)
+        np.testing.assert_array_equal(got.lookup(ids).numpy(),
+                                      np.asarray(want.lookup(ids)))
+        assert got.shard_telemetry() == want.shard_telemetry()
+    else:
+        kw = dict(load_x=4.0, shards=2, placement="row")
+        got = replay_overload(make_spec("sustained_overload",
+                                        n_accesses=4000), device="cpu", **kw)
+        want = jax_replay_overload(jax_make_spec("sustained_overload",
+                                                 n_accesses=4000), **kw)
+        keys = [k for k in want if k != "metrics"]
+        assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+        assert got["degraded"] > 0 and got["shards"] == 2
