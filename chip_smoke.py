@@ -4,9 +4,10 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card, checks that the card serves
-the same counters as the CPU, then drives the port's main paths at the full
+and trains as the CPU does, then drives the port's main paths at the full
 widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs)
-and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
+and of ``smollm-135m`` (LM serving with the vocab on tiered memory, and
+training through the launcher):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc for sm_90a, one process per source, with the build seconds;
@@ -101,7 +102,15 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
     1e-2; each timed beside its bound and beside
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``, with
     its achieved TFLOP/s, share of the bound, design (bf16: tensor cores;
-    fp32: FMAs) and, at bf16, its largest error in bf16 ulps;
+    fp32: FMAs) and, at bf16, its largest error in bf16 ulps; at each shape
+    the output written beside the log-sum-exp (the training forward) has
+    the serve path's bits, and the log-sum-exp is within rtol/atol 1e-5 of
+    ``torch.logsumexp`` of the plain scores;
+10'. ``flash_attention_bwd`` vs plain on the card at the LM training cut
+    (4, 4096, 9/3, 64), qwen2.5-3b's heads (1, 4096, 16/2, 128), a ragged
+    S=1,000 and head dims 16 and 32, both dtypes: each gradient within 1e-5
+    (fp32) or 2e-2 (bf16) of its largest magnitude; each timed beside its
+    bound (five causal products) and beside SDPA's backward;
 11. LM parity: full-width smollm-135m (30 layers, d_model 576, 9/3 heads,
     vocab 49,152) from the same seeded parameters on the CPU and on the
     card, a B=2, S=256 prefill and 8 teacher-forced decode steps: logits
@@ -112,7 +121,26 @@ and of ``smollm-135m`` (LM serving with the vocab on tiered memory):
     rows, ``lru``); its first step's logits must equal those of the token
     path (``decode_step``) bit for bit; then one prefill and 8 tiered
     decode steps under ``torch.profiler`` (device busy time and idle
-    share, the largest kernels).
+    share, the largest kernels);
+13. DLRM training (before phase 6, while the serve trace exists):
+    ``dlrm-recmg`` at bf16 with ``rows_per_table`` cut to 16,384 (the
+    full tables, their gradient and the fp32 AdamW moments would take 95.6
+    GB) and B=256 (cut from ``train_6k``'s 6,144): the serve trace's one
+    batch of 256 x 856 x 20 ids through ``query_batches``, 4 steps of
+    ``make_train_step`` (``gather_pool`` forward, scatter-add backward);
+14. train parity: one ``make_train_step`` on the CPU and on the card from
+    the same parameters and batch (fp32 reduced smollm-135m, B=2, S=128, 2
+    microbatches; fp32 reduced dlrm-recmg, B=64): loss within rtol 1e-5,
+    every parameter within 1e-5; then full-width bf16 smollm-135m
+    gradients (B=1, S=1024) with the attention's backward the kernel and
+    its plain version: each leaf within 5e-2 of its largest magnitude;
+15. LM training: full-width bf16 smollm-135m through ``launch/train.main``
+    at ``train_4k``'s S=4,096, the global batch cut from 256 to 8 (2
+    microbatches, ``--remat full``): run A 6 steps with checkpoints every
+    3, run B from A's step-3 checkpoint alone to step 6 (losses within
+    rtol 1e-3 of A's), the kernels' launches (forward 2 and backward 1 a
+    layer and microbatch), tokens/s, peak memory and one step under
+    ``torch.profiler``.
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
@@ -121,14 +149,19 @@ that design (``quantize_scatter`` also with its launches from the single
 quantized stores and from the per-table facade of phase ``serve``); the
 kernels that the runtime phases drive add those phases' launches and show
 them as ``launches_runtime``, the sharded serve as ``launches_sharded``
-and the transformer backbone's training as ``launches_transfetch``; the
-last line is the result.  Imports nothing of JAX and nothing of the JAX package.
+and the transformer backbone's training as ``launches_transfetch``, and
+training (phases 13 and 15) as ``launches_train``; the last line is the
+result.  Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -140,7 +173,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.core import prefetch_model as PM  # noqa: E402
 from repro_torch.core.model_runtime import (  # noqa: E402
     LearnedRecMGModel, train_voyager_arm, voyager_arm_outputs)
@@ -149,6 +182,9 @@ from repro_torch.core.serving import MultiTableTieredStore  # noqa: E402
 from repro_torch.core.tiered import (TieredEmbeddingStore,  # noqa: E402
                                      fast_row_bytes)
 from repro_torch.core.trace import TraceGenConfig, generate_trace  # noqa: E402
+from repro_torch.data.dlrm_data import (DLRMDataConfig,  # noqa: E402
+                                        query_batches)
+from repro_torch.data.lm_data import LMDataConfig, batch_at  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import chamfer_kernel as ck  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg  # noqa: E402
@@ -159,11 +195,16 @@ from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
                                       serve_trace)
 from repro_torch.launch.serve import main as cli_main  # noqa: E402
 from repro_torch.launch.serve_lm import serve_lm_tiered  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
                                      quantize_tables)
+from repro_torch.models.model_api import build  # noqa: E402
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
-                                            init_lm, prefill)
+                                            init_lm, lm_loss, prefill)
+from repro_torch.optim.adamw import OptConfig, init_opt  # noqa: E402
 from repro_torch.runtime import DriftConfig  # noqa: E402
+from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.workloads import (CHAOS_KEYS, chaos_sweep,  # noqa: E402
                                    make_spec, make_trace, scenario)
 
@@ -192,6 +233,26 @@ FLASH_SHAPES = (("serve_prefill", 8, 2048, 9, 3, 64, "bf16"),
                 ("fp32", 2, 1024, 8, 2, 64, "fp32"),
                 ("ragged", 4, 1000, 9, 3, 64, "fp32"),
                 ("ragged", 4, 1000, 9, 3, 64, "bf16"))
+CU_FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+# flash_attention_bwd shapes (name, B, S, H, K, hd, dtype): the LM training
+# cut (smollm-135m at train_4k's S, a microbatch of 4), qwen2.5-3b's heads,
+# a ragged S and the two small head dims; the first bf16 one is the kernels
+# line's.
+FLASH_BWD_SHAPES = tuple(
+    (name, b, s, h, n_kv, hd, dt)
+    for name, b, s, h, n_kv, hd in (
+        ("train_cut", 4, 4096, 9, 3, 64),
+        ("qwen2.5-3b_heads", 1, 4096, 16, 2, 128),
+        ("ragged", 2, 1000, 9, 3, 64),
+        ("hd16", 2, 1024, 4, 2, 16),
+        ("hd32", 2, 1024, 8, 2, 32))
+    for dt in ("bf16", "fp32"))
+FLASH_BWD_DESIGN = ("fp32 FMAs from shared memory, bf16 widened on load; a "
+                    "delta pass, then a block per (batch, KV head, 64-key "
+                    "tile) keeping dK, dV in registers over the G heads "
+                    "and the query tiles, and a block per (batch, head, "
+                    "64-query tile) for dQ; p and dS recomputed from the "
+                    "forward's log-sum-exp, no atomics")
 # The designs of the two kernels redesigned after their first port, as
 # their records name them (flash_attention by dtype: fp32 keeps the first
 # port's kernel).
@@ -1760,7 +1821,9 @@ def phase_flash_kernels(timer):
         q, k, v = (torch.randn((b, s, n, hd), generator=g, device="cuda")
                    .to(dt) for n in (h, n_kv, n_kv))
         got = fa.flash_attention(q, k, v)
-        want = ref.causal_attention_ref(q, k, v)
+        want, lse_want = ref.causal_attention_lse_ref(q, k, v)
+        # The training forward: the same bits, and each row's log-sum-exp.
+        o_lse, lse = fa.flash_attention(q, k, v, with_lse=True)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         ulps = bf16_ulps(got, want) if dt_name == "bf16" else None
@@ -1768,7 +1831,14 @@ def phase_flash_kernels(timer):
         require(torch.allclose(got.float(), want.float(), rtol=tol,
                                atol=tol),
                 f"flash_attention {name} {dt_name}: max abs err {err}")
-        del got, want
+        bits_equal = bool(torch.equal(o_lse, got))
+        lse_err = float((lse - lse_want).abs().max())
+        require(bits_equal, f"flash_attention {name} {dt_name}: the output "
+                "changes when the kernel also writes the log-sum-exp")
+        require(torch.allclose(lse, lse_want, rtol=1e-5, atol=1e-5),
+                f"flash_attention {name} {dt_name}: lse max abs err "
+                f"{lse_err}")
+        del got, want, o_lse, lse, lse_want
         # SDPA takes (B, H, S, hd): transposed once, outside the timing.
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
@@ -1782,6 +1852,8 @@ def phase_flash_kernels(timer):
                "dtype": dt_name, "B": b, "S": s, "H": h, "K": n_kv, "hd": hd,
                "max_abs_err": err, "tolerance": tol,
                **({"max_err_bf16_ulps": ulps} if ulps is not None else {}),
+               "o_bits_equal_without_lse": bits_equal,
+               "lse_max_abs_err_vs_logsumexp": lse_err,
                "design": FLASH_DESIGN[dt_name],
                "library_max_abs_err": lib_err,
                "ms": timer(lambda: fa.flash_attention(q, k, v)),
@@ -1973,6 +2045,318 @@ def lm_profile(cfg, model, batch, prompt_len, n_steps=8):
                 full["launches"] - setup["launches"], diff, n_steps)}
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-16: training (the attention backward, parity, LM and DLRM).
+# ---------------------------------------------------------------------------
+
+def phase_flash_bwd_kernels(timer):
+    """``flash_attention_bwd`` against its plain version at
+    ``FLASH_BWD_SHAPES``, each timed beside its bound and beside the
+    backward of SDPA.  Returns the record of the training cut at bf16."""
+    main = None
+    for name, b, s, h, n_kv, hd, dt_name in FLASH_BWD_SHAPES:
+        dt = DTYPES[dt_name]
+        g = torch.Generator(device="cuda").manual_seed(s + hd + 1)
+        q, k, v, do = (torch.randn((b, s, n, hd), generator=g,
+                                   device="cuda").to(dt)
+                       for n in (h, n_kv, n_kv, h))
+        o, lse = fa.flash_attention(q, k, v, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dt_name == "fp32" else 2e-2
+        errs, shares = {}, {}
+        for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+            errs[gname] = float((a.float() - w.float()).abs().max())
+            shares[gname] = errs[gname] / float(w.float().abs().max())
+        require(max(shares.values()) <= tol,
+                f"flash_attention_bwd {name} {dt_name}: error / largest "
+                f"gradient {shares} (tolerance {tol})")
+        del got, want
+        # SDPA's backward alone, on (B, H, S, hd) copies made outside the
+        # timing: the yardstick, never called by the port.
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        rec = {"phase": "kernel", "name": "flash_attention_bwd",
+               "shape": name, "dtype": dt_name, "B": b, "S": s, "H": h,
+               "K": n_kv, "hd": hd, "max_abs_err": max(errs.values()),
+               "max_abs_err_share_of_largest_grad": shares,
+               "tolerance": tol, "design": FLASH_BWD_DESIGN,
+               "ms": timer(lambda: fa.flash_attention_bwd(q, k, v, o, do,
+                                                          lse)),
+               "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
+                   q, k, v, o, do, lse)),
+               "library_ms": timer(lambda: torch.autograd.grad(
+                   out, (qt, kt, vt), dot, retain_graph=True))}
+        # Five causal products of 2 * (S^2 / 2) * hd per (batch, head);
+        # q, k, v, o, dO and lse read once, dq, dk, dv written once.
+        n_bytes = q.element_size() * b * s * hd * (4 * h + 4 * n_kv) \
+            + 4 * b * h * s
+        n_ops = 5 * 2 * b * h * s * s / 2 * hd
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            n_bytes, n_ops,
+            BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
+        achieved(rec, n_ops)
+        emit(rec)
+        if name == "train_cut" and dt_name == "bf16":
+            main = rec
+        del q, k, v, do, o, lse, qt, kt, vt, out, dot
+        torch.cuda.empty_cache()
+    return main
+
+
+class _PlainAttentionBackward:
+    """Within the block, ``ops.flash_attention``'s backward on the card is
+    the plain version (``flash_attention_bwd_ref``) in place of the
+    kernel; the forward stays the kernel."""
+
+    def __enter__(self):
+        self._kept = fa.flash_attention_bwd
+        fa.flash_attention_bwd = ref.flash_attention_bwd_ref
+        return self
+
+    def __exit__(self, *exc):
+        fa.flash_attention_bwd = self._kept
+
+
+def _step_on(dev, bundle_cfg, run, params, batch, microbatches):
+    bundle = build(bundle_cfg, device=dev, run=run)
+    opt = init_opt(OptConfig(lr=1e-3), tree_leaves(params))
+    m = make_train_step(bundle, microbatches)(params, opt, batch)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def phase_train_parity():
+    """One train step from the same parameters and batch on the CPU and on
+    the card (fp32 reduced smollm-135m, B=2, S=128, 2 microbatches; fp32
+    reduced dlrm-recmg, B=64); then full-width bf16 smollm-135m gradients
+    (B=1, S=1024) through the kernels against the same code with the
+    plain attention, both on the card."""
+    out = {}
+    lm = get_config("smollm-135m").reduced()
+    dl = get_config("dlrm-recmg").reduced()
+    rng = np.random.default_rng(21)
+    tokens = rng.integers(0, lm.vocab, (2, 128)).astype(np.int32)
+    labels = np.concatenate([tokens[:, 1:], np.full((2, 1), -1, np.int32)],
+                            axis=1)
+    cases = {
+        "smollm-135m.reduced": (lm, init_lm(lm, seed=0, device="cpu"),
+                                {"tokens": tokens, "labels": labels}, 2),
+        "dlrm-recmg.reduced": (dl, init_dlrm(dl, seed=0, device="cpu"), {
+            "dense": rng.normal(size=(64, dl.dense_features)).astype(
+                np.float32),
+            "sparse": rng.integers(0, dl.rows_per_table, (
+                64, dl.n_tables, dl.multi_hot)).astype(np.int32),
+            "label": (rng.random(64) < 0.5).astype(np.float32)}, 1)}
+    for name, (cfg, params, batch, mb) in cases.items():
+        card = (copy.deepcopy(params).to("cuda") if name.startswith("smollm")
+                else to_device(params, "cuda"))
+        ops.reset_launches()
+        res = {dev: _step_on(dev, cfg, RunConfig(remat="full"), p, batch, mb)
+               for dev, p in (("cpu", params), ("cuda", card))}
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                    if fn.launches}
+        diffs = [float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(tree_leaves(card), tree_leaves(params))]
+        rec = {"loss_cpu": res["cpu"][0], "loss_card": res["cuda"][0],
+               "grad_norm_cpu": res["cpu"][1],
+               "grad_norm_card": res["cuda"][1], "microbatches": mb,
+               "params_max_abs_diff": max(diffs), "n_leaves": len(diffs),
+               "launches": launches}
+        out[name] = rec
+        require(abs(rec["loss_card"] - rec["loss_cpu"])
+                <= 1e-5 * abs(rec["loss_cpu"]) and max(diffs) <= 1e-5,
+                f"train_parity {name}: {rec}")
+    # Full-width bf16 gradients through the same code, the attention's
+    # backward the kernel in one arm and its plain version in the other.
+    full = get_config("smollm-135m")
+    model = init_lm(full, seed=0, device="cuda").requires_grad_(True)
+    toks = torch.from_numpy(rng.integers(0, full.vocab, (1, 1024))).cuda()
+    lab = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -1)], dim=1)
+    grads = {}
+    for arm in ("kernel", "plain"):
+        ops.reset_launches()
+        with (_PlainAttentionBackward() if arm == "plain"
+              else contextlib.nullcontext()):
+            loss = lm_loss(model, full, RunConfig(remat="full"), toks, lab)
+            grads[arm] = (loss.item(), torch.autograd.grad(
+                loss, list(model.parameters())))
+        if arm == "kernel":
+            kernel_launches = {fn.__name__: fn.launches
+                               for fn in ops.KERNELS if fn.launches}
+    shares = [float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30))
+              for a, b in zip(grads["kernel"][1], grads["plain"][1])]
+    names = [n for n, _ in model.named_parameters()]
+    worst = int(np.argmax(shares))
+    out["smollm-135m.bf16_grads"] = {
+        "B": 1, "S": 1024, "loss_kernel": grads["kernel"][0],
+        "loss_plain": grads["plain"][0],
+        "worst_leaf": names[worst], "worst_err_share_of_largest": shares[
+            worst], "median_err_share": float(np.median(shares)),
+        "tolerance": 5e-2, "launches": kernel_launches}
+    emit({"phase": "train_parity", **out})
+    require(kernel_launches.get("flash_attention_bwd") == full.n_layers,
+            f"train_parity: {kernel_launches}")
+    require(shares[worst] <= 5e-2,
+            f"train_parity bf16 grads: {names[worst]} {shares[worst]}")
+    del model, grads
+    torch.cuda.empty_cache()
+
+
+STEP_LINE = re.compile(r"step\s+(\d+) loss (\S+) \((\d+) ms")
+
+
+def _train_cli(argv):
+    """``launch/train.main`` with its printed lines captured: ``(losses,
+    {step: ms}, lines)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses = train_main(argv)
+    lines = buf.getvalue().splitlines()
+    ms = {int(m.group(1)): float(m.group(3))
+          for m in map(STEP_LINE.match, lines) if m}
+    return losses, ms, lines
+
+
+def phase_lm_train():
+    """Full-width bf16 smollm-135m trained through the launcher: run A (6
+    steps, checkpoints every 3) and run B (A's step-3 checkpoint alone in a
+    fresh directory, run to step 6), then one step under the profiler."""
+    cfg = get_config("smollm-135m")
+    steps, seq, batch, mb = 6, 4096, 8, 2
+    argv = ["--arch", cfg.name, "--steps", str(steps), "--seq-len", str(seq),
+            "--batch", str(batch), "--microbatches", str(mb), "--remat",
+            "full", "--lr", "3e-4", "--log-every", "1"]
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    a_dir, b_dir = root / "a", root / "b"
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run_a, ms_a, lines_a = _train_cli(argv + ["--ckpt", str(a_dir),
+                                              "--ckpt-every", "3"])
+    a_s = time.perf_counter() - t0
+    launches_a = {fn.__name__: fn.launches for fn in ops.KERNELS
+                  if fn.launches}
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    b_dir.mkdir(parents=True)
+    shutil.copytree(a_dir / "step_00000003", b_dir / "step_00000003")
+    ops.reset_launches()
+    run_b, ms_b, lines_b = _train_cli(argv + ["--ckpt", str(b_dir)])
+    launches_b = {fn.__name__: fn.launches for fn in ops.KERNELS
+                  if fn.launches}
+    shutil.rmtree(root, ignore_errors=True)
+    want = {"flash_attention": 2 * mb * cfg.n_layers,
+            "flash_attention_bwd": mb * cfg.n_layers}
+    for run, n, got in (("A", steps, launches_a), ("B", steps - 3,
+                                                   launches_b)):
+        for k, per_step in want.items():
+            require(got.get(k) == n * per_step,
+                    f"lm_train run {run}: {k} launched {got.get(k)}, "
+                    f"expected {n * per_step}")
+    require(len(run_a) == steps and all(np.isfinite(run_a))
+            and len(run_b) == steps - 3, f"lm_train losses {run_a} {run_b}")
+    rel = [abs(b - a) / abs(a) for a, b in zip(run_a[3:], run_b)]
+    require(any("restored step 3" in ln for ln in lines_b)
+            and max(rel) <= 1e-3,
+            f"lm_train resume: B {run_b} vs A {run_a[3:]}")
+    steady = [ms_a[i] for i in range(1, steps)]
+    emit({"phase": "lm_train", "arch": cfg.name, "dtype": cfg.param_dtype,
+          "cuts": {"from": "train_4k S=4096 global_batch=256",
+                   "global_batch": batch, "microbatches": mb},
+          "argv": argv, "losses_a": run_a, "step_ms_a": ms_a,
+          "losses_b": run_b, "step_ms_b": ms_b,
+          "resumed_max_rel_diff": max(rel), "run_a_s": a_s,
+          "tokens_per_s_median": batch * seq / (np.median(steady) / 1e3),
+          "peak_device_gb": peak_gb, "launches_a": launches_a,
+          "launches_b": launches_b,
+          "profile": train_profile(cfg, seq, batch, mb)})
+    torch.cuda.empty_cache()
+    return {k: launches_a.get(k, 0) + launches_b.get(k, 0)
+            for k in set(launches_a) | set(launches_b)}
+
+
+def train_profile(cfg, seq, batch, mb):
+    """One train step of the launcher's configuration under
+    ``torch.profiler``, after one warm step."""
+    run = RunConfig(remat="full")
+    bundle = build(cfg, device="cuda", run=run)
+    model = bundle.init(seed=0)
+    opt = init_opt(OptConfig(lr=3e-4, total_steps=6),
+                   list(model.parameters()))
+    step = make_train_step(bundle, mb)
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    step(model, opt, batch_at(data, 0))
+    prof = _device_profile(lambda: step(model, opt, batch_at(data, 1)))
+    del model, opt
+    if prof is None:
+        return "not measured: the profiler recorded no device time"
+    return _profile_summary(prof["wall_ms"], prof["busy_ms"],
+                            prof["launches"], prof["kernels"], 1)
+
+
+def phase_dlrm_train(full, trace):
+    """dlrm-recmg at bf16 trained 4 steps on the serve trace's one batch of
+    256 queries, the tables cut to 16,384 rows; counts set to 0 just
+    before the steps and read just after."""
+    cfg = dataclasses.replace(full, rows_per_table=16384)
+    b = 256
+    batch = next(query_batches(DLRMDataConfig(
+        n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
+        multi_hot=cfg.multi_hot, dense_features=cfg.dense_features,
+        batch=b, seed=0), trace=trace, n_batches=1))
+    require(len(trace.row_id) == b * cfg.n_tables * cfg.multi_hot,
+            "dlrm_train: the trace is not one batch of 256 queries")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    bundle = build(cfg, device="cuda")
+    opt = init_opt(OptConfig(), tree_leaves(params))
+    step = make_train_step(bundle, 1)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    # The tables' gradient once more, outside the counted steps: its
+    # nonzero rows are the rows the batch reads.
+    g = torch.autograd.grad(bundle.loss(params, batch), params["emb"])[0]
+    nonzero_rows = int((g.reshape(-1, cfg.emb_dim) != 0).any(dim=1).sum())
+    flat = (batch["sparse"].long() + torch.arange(
+        cfg.n_tables, device="cuda")[None, :, None] * cfg.rows_per_table)
+    read_rows = int(torch.unique(flat).numel())
+    del g, params, opt
+    torch.cuda.empty_cache()
+    require(launches.get("gather_pool") == 4,
+            f"dlrm_train: gather_pool launched {launches} (expected 4)")
+    require(all(np.isfinite(losses)) and nonzero_rows == read_rows,
+            f"dlrm_train: losses {losses}, {nonzero_rows} nonzero gradient "
+            f"rows, {read_rows} rows read by the batch")
+    emit({"phase": "dlrm_train", "arch": full.name, "dtype": cfg.param_dtype,
+          "cuts": {"rows_per_table": [full.rows_per_table,
+                                      cfg.rows_per_table],
+                   "batch": [6144, b]},
+          "losses": losses, "step_ms": step_ms, "peak_device_gb": peak_gb,
+          "launches": launches, "nonzero_grad_rows": nonzero_rows,
+          "rows_read_by_batch": read_rows})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -2011,6 +2395,7 @@ def main():
                                          qcapacity, full))
     main_recs.update(phase_learned_kernels(timer))
     main_recs["flash_attention"] = phase_flash_kernels(timer)
+    main_recs["flash_attention_bwd"] = phase_flash_bwd_kernels(timer)
     phase_learned_grads()
     phase_parity()
     phase_learned_parity()
@@ -2041,11 +2426,16 @@ def main():
                                            qcapacity, batch_queries,
                                            serve_results)
     transfetch_launches = phase_transfetch(trace, per_batch)
-    del trace, host, serve_results
+    del host, serve_results
+    train_launches = phase_dlrm_train(full, trace)
+    del trace
     pool_rec, pool_launches, qpool_rec, qpool_launches = phase_forward(
         timer, full, fwd_b)
     phase_lm_parity()
     lm_launches = phase_lm_serve()
+    phase_train_parity()
+    for name, k in phase_lm_train().items():
+        train_launches[name] = train_launches.get(name, 0) + k
 
     kernels = []
     for name, rec, n, src, replaces in (
@@ -2069,13 +2459,17 @@ def main():
              CU_CHAMFER_SOURCE, TPU_CHAMFER),
             ("flash_attention", main_recs["flash_attention"],
              lm_launches["flash_attention"], CU_FLASH_SOURCE,
-             TPU_FLASH_ATTENTION)):
+             TPU_FLASH_ATTENTION),
+            ("flash_attention_bwd", main_recs["flash_attention_bwd"], 0,
+             CU_FLASH_BWD_SOURCE, None)):
         # The runtime phases drive the store's kernels and the learned
         # model's fine-tune through their own paths, the sharded serve the
         # store's kernels in every shard, and the transformer backbone's
         # training lstm_cell (dec2) and chamfer (the loss).
+        # Training (phases dlrm_train and lm_train) drives gather_pool,
+        # flash_attention and flash_attention_bwd, which runs nowhere else.
         n += runtime_launches.get(name, 0) + sharded_launches.get(name, 0) \
-            + transfetch_launches.get(name, 0)
+            + transfetch_launches.get(name, 0) + train_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -2090,6 +2484,10 @@ def main():
             kernels[-1]["launches_sharded"] = sharded_launches[name]
         if name in transfetch_launches:
             kernels[-1]["launches_transfetch"] = transfetch_launches[name]
+        if name in train_launches:
+            kernels[-1]["launches_train"] = train_launches[name]
+        if name == "flash_attention_bwd":
+            kernels[-1]["design"] = FLASH_BWD_DESIGN
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])

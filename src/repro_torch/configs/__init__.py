@@ -8,7 +8,7 @@ their ROADMAP item.
 from __future__ import annotations
 
 from repro_torch.configs.base import (LM_SHAPES, ModelConfig,  # noqa: F401
-                                      ShapeConfig)
+                                      RunConfig, ShapeConfig)
 from repro_torch.configs.dlrm_recmg import CONFIG as _DLRM_RECMG
 from repro_torch.configs.qwen2_5_3b import CONFIG as _QWEN2_5_3B
 from repro_torch.configs.qwen3_14b import CONFIG as _QWEN3_14B

@@ -1,11 +1,13 @@
 """Model configuration for the port: ``ModelConfig`` and ``reduced()``,
-and the LM shape cells.
+the LM shape cells and the training knobs of ``RunConfig``.
 
 Copied from ``src/repro/configs/base.py``: lines 16-156 (the dataclass and
-its CPU-scale ``reduced()``) and 164-178 (``ShapeConfig``, ``LM_SHAPES``).
-The JAX ``RunConfig`` (mesh, remat, microbatching and attention-block
-knobs) has no counterpart: the port's serving path reads none of them, and
-the CUDA kernels tile by their own sizes.
+its CPU-scale ``reduced()``), 164-178 (``ShapeConfig``, ``LM_SHAPES``) and,
+trimmed to the fields that training reads, 208-230 (``RunConfig``).  The
+other JAX knobs (sharding variants, mesh constraints, the Pallas switch,
+attention block sizes, the optimizer's moment dtype and gradient
+compression) are about the mesh or XLA: the port runs on one card and its
+CUDA kernels tile by their own sizes.
 """
 from __future__ import annotations
 
@@ -166,6 +168,28 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
     seq_len: int
     global_batch: int
+
+
+# ---------------------------------------------------------------------------
+# Runtime knobs of training
+# ---------------------------------------------------------------------------
+
+REMAT = ("full", "none")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    remat: str = "full"  # full | none: recompute each layer in the backward
+    logits_chunk: int = 0  # 0 -> whole-sequence logits; else chunked loss
+
+    def __post_init__(self):
+        if self.remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' is not ported: it is an XLA checkpoint policy "
+                "(dots_with_no_batch_dims_saveable); use 'full' or 'none'")
+        if self.remat not in REMAT:
+            raise ValueError(f"remat {self.remat!r}: expected one of "
+                             f"{REMAT}")
 
 
 LM_SHAPES = {

@@ -1,18 +1,23 @@
-"""Transient-failure retry for the serving path.
+"""Transient-failure retry, straggler detection and liveness.
 
-Copied from ``src/repro/distributed/fault_tolerance.py`` (lines 30-78,
-stdlib only): :class:`RetryDeadlineExceeded` and :func:`retry_step`, which
-the sharded store's flaky-shard fetch runs through
+Copied from ``src/repro/distributed/fault_tolerance.py`` (stdlib only):
+:class:`RetryDeadlineExceeded` and :func:`retry_step` (lines 30-78), which
+the sharded store's flaky-shard fetch
 (:meth:`repro_torch.core.sharded_serving.ShardedTieredStore.
-_fetch_with_retry`).  The rest of that module belongs to the training
-loop and is not ported here: ``StragglerMonitor``, ``ElasticMesh`` and
-``Heartbeat`` go with ``launch/train.py`` to ROADMAP A11b, their only
-user.
+_fetch_with_retry`) and the training launcher run through, and
+:class:`StragglerMonitor` and :class:`Heartbeat` (lines 80-130, 149-168),
+which the training launcher (``launch/train.py``) keeps.  ``ElasticMesh``
+re-factors a device mesh: it waits for several cards (ROADMAP A10b).
 """
 from __future__ import annotations
 
+import json
+import math
+import os
 import time
-from typing import Callable, Optional, Tuple, Type, Union
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple, Type, Union
 
 
 class RetryDeadlineExceeded(TimeoutError):
@@ -63,3 +68,76 @@ def retry_step(fn: Callable, *args, retries: int = 3, backoff_s: float = 0.5,
             if on_retry:
                 on_retry(attempt, e)
             _sleep(pause)
+
+
+@dataclass
+class StragglerMonitor:
+    """EWMA step-time tracker with outlier detection.
+
+    ``clock`` is optional and only used by :meth:`record_since` for
+    callers that want the monitor to own timing; ``record`` takes an
+    explicit duration and needs no clock at all.
+    """
+
+    alpha: float = 0.1
+    k_sigma: float = 3.0
+    warmup: int = 10
+    mean: float = 0.0
+    var: float = 0.0
+    n: int = 0
+    slow_steps: List[int] = field(default_factory=list)
+    clock: Optional[Callable[[], float]] = None
+    _last_t: Optional[float] = None
+
+    def record_since(self, step: int) -> bool:
+        """Record the interval since the previous call using the injected
+        clock (defaults to ``time.monotonic``). First call only arms."""
+        now = (self.clock or time.monotonic)()
+        prev, self._last_t = self._last_t, now
+        if prev is None:
+            return False
+        return self.record(step, now - prev)
+
+    def record(self, step: int, dt: float) -> bool:
+        """Returns True if this step is a straggler outlier."""
+        self.n += 1
+        if self.n == 1:
+            self.mean = dt
+            return False
+        slow = False
+        if self.n > self.warmup:
+            sd = math.sqrt(max(self.var, 1e-12))
+            if dt > self.mean + self.k_sigma * sd and dt > 1.2 * self.mean:
+                slow = True
+                self.slow_steps.append(step)
+        d = dt - self.mean
+        self.mean += self.alpha * d
+        self.var = (1 - self.alpha) * (self.var + self.alpha * d * d)
+        return slow
+
+    def summary(self):
+        return {"mean_s": round(self.mean, 4),
+                "std_s": round(math.sqrt(max(self.var, 0.0)), 4),
+                "stragglers": len(self.slow_steps)}
+
+
+class Heartbeat:
+    """Periodic liveness file; ``clock`` is injectable so the cadence can
+    run on a virtual timeline in tests (first beat always writes)."""
+
+    def __init__(self, path: str, every_s: float = 30.0,
+                 clock: Optional[Callable[[], float]] = None):
+        self.path = Path(path)
+        self.every_s = every_s
+        self.clock = clock or time.time
+        self._last: Optional[float] = None
+
+    def beat(self, step: int, **info):
+        now = self.clock()
+        if self._last is not None and now - self._last < self.every_s:
+            return
+        self._last = now
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = self.path.with_suffix(".tmp")
+        tmp.write_text(json.dumps({"step": step, "time": now, **info}))
+        os.replace(tmp, self.path)

@@ -59,6 +59,14 @@
 // relative error is far below p's bf16 rounding); 1/l is a true division
 // (the build has no fast-math flag).
 //
+// With a non-null lse pointer both kernels also write each row's
+// log-sum-exp of its scaled scores, lse (B, H, S) fp32 in natural-log
+// units, m * scale + log(l): what the backward (flash_attention_bwd.cu)
+// recomputes p from.  The mma kernel keeps m in raw scores and l in base 2
+// units of the same exponent, so its lse is (m * scale_log2 + log2(l)) *
+// ln(2).  A null lse is the serve path: no other instruction changes, so o
+// keeps its bits.
+//
 // The kernels launch on the caller's stream, allocate nothing and never
 // synchronise; the C function returns cudaGetLastError() after its launch.
 
@@ -90,7 +98,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    int s_len, int n_heads, int n_kv, float scale) {
+                    float* __restrict__ lse, int s_len, int n_heads, int n_kv,
+                    float scale) {
   constexpr int kStride = HD + 1;           // padded row of q and k
   constexpr int kCols = HD / kColGroups;    // accumulator columns a thread
   extern __shared__ float smem[];
@@ -249,6 +258,11 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) {
       orow[cg + kColGroups * c] = acc[i][c] / denom;
     }
+    // m is the row's largest scaled score; its 8 threads hold the same m, l.
+    if (lse != nullptr && cg == 0) {
+      lse[(static_cast<int64_t>(b) * n_heads + h) * s_len + qpos] =
+          m[i] + logf(l[i]);
+    }
   }
 }
 
@@ -262,6 +276,7 @@ constexpr int kMmaThreads = 32 * kMmaWarps;     // 256
 constexpr int kMmaBlockQ = 16 * kMmaWarps;      // 128 queries, 16 a warp
 constexpr int kMmaBlockK = 64;                  // keys per KV tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 constexpr int64_t mma_smem_bytes() {
@@ -342,8 +357,8 @@ __global__ void __launch_bounds__(kMmaThreads, HD <= 64 ? 2 : 1)
 flash_attention_mma(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int s_len, int n_heads,
-                    int n_kv, float scale_log2) {
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int s_len, int n_heads, int n_kv, float scale_log2) {
   constexpr int kStride = HD + 8;              // padded row, bf16
   constexpr int kChunks = HD / 8;              // 16-byte chunks a row
   constexpr int kDSteps = HD / 16;             // k16 steps of q k^T
@@ -540,6 +555,16 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
   }
   const float den_lo = fmaxf(l_lo, 1e-30f);
   const float den_hi = fmaxf(l_hi, 1e-30f);
+  // The quad's 4 lanes hold the row's m and, after the shuffles, its l.
+  if (lse != nullptr && t4 == 0) {
+    const int64_t lse_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
+    if (row_lo < s_len) {
+      lse[lse_base + row_lo] = fmaf(m_lo, scale_log2, log2f(l_lo)) * kLn2;
+    }
+    if (row_hi < s_len) {
+      lse[lse_base + row_hi] = fmaf(m_hi, scale_log2, log2f(l_hi)) * kLn2;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < kOTiles; ++n) {
     const int col = 8 * n + 2 * t4;
@@ -572,8 +597,8 @@ cudaError_t allow_smem(Kernel kernel, int64_t smem, bool* done) {
 
 template <int HD>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int64_t batch, int s_len, int n_heads, int n_kv,
-                       float scale, cudaStream_t stream) {
+                       void* lse, int64_t batch, int s_len, int n_heads,
+                       int n_kv, float scale, cudaStream_t stream) {
   constexpr int64_t smem = fma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
   cudaError_t err = allow_smem(flash_attention_fma<HD>, smem, &smem_set);
@@ -583,15 +608,15 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   flash_attention_fma<HD><<<grid, kThreads, static_cast<size_t>(smem),
                             stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s_len, n_heads,
-      n_kv, scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), s_len, n_heads, n_kv, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int64_t batch, int s_len, int n_heads, int n_kv,
-                       float scale, cudaStream_t stream) {
+                       void* lse, int64_t batch, int s_len, int n_heads,
+                       int n_kv, float scale, cudaStream_t stream) {
   constexpr int64_t smem = mma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
   cudaError_t err = allow_smem(flash_attention_mma<HD>, smem, &smem_set);
@@ -604,18 +629,18 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      s_len, n_heads, n_kv, scale * kLog2e);
+      static_cast<float*>(lse), s_len, n_heads, n_kv, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t batch, int s_len, int n_heads, int n_kv, int dtype,
-                   float scale, cudaStream_t stream) {
-  return dtype == 0 ? launch_fma<HD>(q, k, v, o, batch, s_len, n_heads, n_kv,
-                                     scale, stream)
-                    : launch_mma<HD>(q, k, v, o, batch, s_len, n_heads, n_kv,
-                                     scale, stream);
+                   void* lse, int64_t batch, int s_len, int n_heads, int n_kv,
+                   int dtype, float scale, cudaStream_t stream) {
+  return dtype == 0 ? launch_fma<HD>(q, k, v, o, lse, batch, s_len, n_heads,
+                                     n_kv, scale, stream)
+                    : launch_mma<HD>(q, k, v, o, lse, batch, s_len, n_heads,
+                                     n_kv, scale, stream);
 }
 
 }  // namespace
@@ -626,11 +651,12 @@ extern "C" {
 // head_dim), o like q; contiguous, all float32 (dtype 0) or all bfloat16
 // (dtype 1; 16-byte aligned, for the 16-byte copies).  n_heads % n_kv ==
 // 0, head_dim in {16, 32, 64, 128}, scale the softmax scale (1 /
-// sqrt(head_dim) for the model).
+// sqrt(head_dim) for the model).  lse: null, or (batch, n_heads, s_len)
+// float32 for each row's log-sum-exp.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int64_t batch, int64_t s_len, int n_heads,
-                          int n_kv, int head_dim, int dtype, float scale,
-                          void* stream) {
+                          void* o, void* lse, int64_t batch, int64_t s_len,
+                          int n_heads, int n_kv, int head_dim, int dtype,
+                          float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
       n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
@@ -648,17 +674,20 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   cudaError_t err;
   switch (head_dim) {
     case 16:
-      err = launch<16>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale, s);
+      err = launch<16>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
+                         scale, s);
       break;
     case 32:
-      err = launch<32>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale, s);
+      err = launch<32>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
+                         scale, s);
       break;
     case 64:
-      err = launch<64>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale, s);
+      err = launch<64>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
+                         scale, s);
       break;
     case 128:
-      err = launch<128>(q, k, v, o, batch, sl, n_heads, n_kv, dtype, scale,
-                        s);
+      err = launch<128>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
+                        scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,4 +1,5 @@
-"""ctypes-bound wrapper of the CUDA kernel in ``csrc/flash_attention.cu``.
+"""ctypes-bound wrappers of the CUDA kernels in ``csrc/flash_attention.cu``
+and ``csrc/flash_attention_bwd.cu``.
 
 Counterpart of ``src/repro/kernels/flash_attention.py::flash_attention``:
 causal attention with an online softmax in fp32, scale ``1/sqrt(hd)``.
@@ -9,9 +10,15 @@ tensor cores (p rounded to bf16 for the p v product); fp32 runs fp32 FMAs.
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, copies a bf16 input that is not 16-byte aligned, allocates its
 output with ``torch.empty``, launches on the current stream, raises if the
-launch reports an error, and adds one to its ``launches`` count.  The plain
-versions are :func:`repro_torch.kernels.ref.causal_attention_ref` and
-:func:`~repro_torch.kernels.ref.flash_attention_ref`;
+launch reports an error, and adds one to its ``launches`` count.  Asked
+for it (``with_lse``), the forward also returns each row's log-sum-exp,
+(B, H, S) fp32, which :func:`flash_attention_bwd` (no TPU counterpart: JAX
+differentiates the attention's XLA version) takes to give dq, dk and dv
+without storing the scores.  The plain versions are
+:func:`repro_torch.kernels.ref.causal_attention_ref`,
+:func:`~repro_torch.kernels.ref.causal_attention_lse_ref`,
+:func:`~repro_torch.kernels.ref.flash_attention_ref` and
+:func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`;
 :func:`repro_torch.kernels.ops.flash_attention` picks between kernel and
 plain version by the tensors' device.
 """
@@ -32,6 +39,7 @@ _VP, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 HEAD_DIMS = (16, 32, 64, 128)
 
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -39,19 +47,28 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("flash_attention")
-        lib.repro_flash_attention.argtypes = [_VP] * 4 + [
+        lib.repro_flash_attention.argtypes = [_VP] * 5 + [
             _I64, _I64, _INT, _INT, _INT, _INT, _F32, _VP]
         lib.repro_flash_attention.restype = _INT
         _LIB = lib
     return _LIB
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, S, K, hd), one dtype (fp32 or bf16) on one
-    card -> (B, S, H, hd) causal attention in q's dtype."""
-    dtypes = tuple(_DTYPE_CODE)
-    _check(q, "q", 4, dtypes)
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward's library, built at first use, with its C signature."""
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _build.load("flash_attention_bwd")
+        lib.repro_flash_attention_bwd.argtypes = [_VP] * 10 + [
+            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _VP]
+        lib.repro_flash_attention_bwd.restype = _INT
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               fn: str):
+    _check(q, "q", 4, tuple(_DTYPE_CODE))
     _check(k, "k", 4, (q.dtype,), q.device)
     _check(v, "v", 4, (q.dtype,), q.device)
     b, s, h, hd = q.shape
@@ -59,15 +76,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if (k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != hd
             or kv == 0 or h % kv):
         raise ValueError(
-            f"flash_attention shapes do not match: q {tuple(q.shape)}, k "
+            f"{fn} shapes do not match: q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)} (expected k/v (B, S, K, "
             "hd) with H % K == 0)")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, "
-                         f"got {hd}")
+        raise ValueError(f"{fn} takes head_dim in {HEAD_DIMS}, got {hd}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    with_lse: bool = False):
+    """q: (B, S, H, hd); k/v: (B, S, K, hd), one dtype (fp32 or bf16) on one
+    card -> (B, S, H, hd) causal attention in q's dtype; with ``with_lse``,
+    ``(out, lse)`` with lse (B, H, S) fp32, each row's log-sum-exp of its
+    scaled scores (natural log).  Without it the output's bits are those
+    of the serve path."""
+    _check_qkv(q, k, v, "flash_attention")
+    b, s, h, hd = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b == 0 or s == 0 or h == 0:
-        return out
+        return (out, lse) if with_lse else out
     if q.dtype == torch.bfloat16:
         # The bf16 kernel copies 16 bytes at a time: a view that starts
         # inside an allocation off a 16-byte boundary is copied first.
@@ -76,11 +105,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            h, kv, hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], hd,
+            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
     _raise_on(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor):
+    """The gradients of :func:`flash_attention`: q, o and do (B, S, H, hd);
+    k/v (B, S, K, hd), one dtype on one card; lse (B, H, S) fp32 from the
+    forward -> ``(dq, dk, dv)``, dq in q's dtype and dk, dv in k's."""
+    _check_qkv(q, k, v, "flash_attention_bwd")
+    _check(o, "o", 4, (q.dtype,), q.device)
+    _check(do, "do", 4, (q.dtype,), q.device)
+    _check(lse, "lse", 3, (torch.float32,), q.device)
+    b, s, h, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
+        raise ValueError(
+            f"flash_attention_bwd shapes do not match: q {tuple(q.shape)}, "
+            f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+            f"{tuple(lse.shape)} (expected o, do like q, lse (B, H, S))")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if b == 0 or s == 0 or h == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib().repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], hd,
+            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
+    _raise_on(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -5,16 +5,18 @@ knob: a CUDA tensor goes to the CUDA kernel (which launches or raises),
 and a CPU tensor goes to the plain PyTorch version.  Nothing falls back
 from the card to the plain path.
 
-``flash_attention`` serves only (LM prefill runs under
-``torch.inference_mode()``): on the card a call whose inputs require grad
-raises, since the kernel has no backward yet.
-
-``lstm_cell`` and ``chamfer`` sit under gradients (every LSTM step of the
-learned models, the prefetch model's loss), so they are
-``torch.autograd.Function``s: the forward is the kernel (or the plain
-version on the CPU), and the backward is device-agnostic PyTorch on what
-the forward saved (the activated gates, the argmins).  The Pallas kernels
-have no backward either.
+``lstm_cell``, ``chamfer``, ``gather_pool`` and ``flash_attention`` sit
+under gradients (every LSTM step of the learned models, the prefetch
+model's loss, the DLRM and LM training losses), so under autograd they are
+``torch.autograd.Function``s whose forward is the kernel (or the plain
+version on the CPU).  The backwards of ``lstm_cell``, ``chamfer`` and
+``gather_pool`` are device-agnostic PyTorch on what the forward saved (the
+activated gates, the argmins, the ids: a scatter-add); the Pallas kernels
+have no backward either.  ``flash_attention``'s backward is a kernel of
+its own on the card (``flash_attention_bwd``, from the forward's
+log-sum-exp) and its plain version on the CPU.  Outside autograd (serving
+under ``torch.inference_mode()``) each op calls its kernel directly, and
+``flash_attention`` writes no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch.kernels import ref
 
 # Every kernel wrapper of the port, each with its ``launches`` count.
 KERNELS = _eg.KERNELS + (_lc.lstm_cell, _ck.chamfer,
-                         _fa.flash_attention)
+                         _fa.flash_attention, _fa.flash_attention_bwd)
 
 
 def reset_launches():
@@ -57,11 +59,46 @@ def gather_rows_expand(table: torch.Tensor, slots: torch.Tensor,
     return ref.gather_rows_expand_ref(table, slots, inv, ov, host_rows)
 
 
-def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table: (N, D); idx: (B, P) int32 -> (B, D) fp32 sum-pool."""
+def _requires_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _gather_pool_forward(table: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
     if _on_cuda(table):
         return _eg.gather_pool(table, idx)
     return ref.gather_pool_ref(table, idx)
+
+
+class _GatherPool(torch.autograd.Function):
+    """Sum-pool; the table's gradient is a scatter-add of the pooled
+    gradient into a dense fp32 table, cast once to the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        ctx.save_for_backward(idx)
+        return _gather_pool_forward(table, idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (idx,) = ctx.saved_tensors
+        n = ctx.table_shape[0]
+        grad = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                           device=dout.device)
+        dout = dout.float()
+        # One scatter-add per pooled position: never a (B * P, D) copy.
+        for p in range(idx.shape[1]):
+            grad.index_add_(0, ref._clamped(idx[:, p], n), dout)
+        return grad.to(ctx.table_dtype), None
+
+
+def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table: (N, D); idx: (B, P) int32 -> (B, D) fp32 sum-pool,
+    differentiable in ``table``."""
+    if _requires_grad(table):
+        return _GatherPool.apply(table, idx)
+    return _gather_pool_forward(table, idx)
 
 
 def quantize_scatter(buf: torch.Tensor, scales: torch.Tensor,
@@ -147,8 +184,7 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     """x: (B, in); h/c: (B, H); w: (in+H, 4H); b: (4H,) -> ``(h', c')``
     of one LSTM step, differentiable in every input.  Outside autograd
     (inference) the kernel writes no gates."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, h, c, w, b)):
+    if _requires_grad(x, h, c, w, b):
         return _LSTMCell.apply(x, h, c, w, b)
     return _lstm_forward(x, h, c, w, b, save_gates=False)[:2]
 
@@ -194,18 +230,38 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
     return _Chamfer.apply(po, w, alpha)[0]
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Causal attention; the backward recomputes p from the forward's
+    log-sum-exp: ``flash_attention_bwd`` on the card, its plain version on
+    the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if _on_cuda(q):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            o, lse = _fa.flash_attention(q, k, v, with_lse=True)
+        else:
+            o, lse = ref.causal_attention_lse_ref(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if _on_cuda(q):
+            return _fa.flash_attention_bwd(q, k, v, o, do.contiguous(), lse)
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype (query head h reads KV head
-    ``h // (H // K)``), scale ``1/sqrt(hd)``, any S."""
+    ``h // (H // K)``), scale ``1/sqrt(hd)``, any S; differentiable in q,
+    k and v."""
+    if _requires_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v)
     if _on_cuda(q):
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention has no backward on the card: the attention "
-                "backward comes with LM training (ROADMAP A11b); call it "
-                "under torch.inference_mode()")
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous())
     return ref.causal_attention_ref(q, k, v)

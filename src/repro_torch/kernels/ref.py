@@ -14,9 +14,10 @@ symmetric int8 in +-127, or ``float8_e4m3fn`` in +-448) and one fp32 scale
 per row.  Every division here is a true IEEE division by a tensor, never a
 multiply by a reciprocal (PyTorch's CUDA ``div`` by a Python scalar is
 one), so the plain versions give the kernels' bits on both devices.
-The attention versions (``causal_attention_ref``, ``flash_attention_ref``)
-sum in another order than the kernel and agree with it within a
-tolerance.
+The attention versions (``causal_attention_ref``,
+``causal_attention_lse_ref``, ``flash_attention_ref`` and the backward
+``flash_attention_bwd_ref``) sum in another order than the kernels and
+agree with them within a tolerance.
 """
 from __future__ import annotations
 
@@ -217,6 +218,26 @@ def chamfer_ref(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 # LM attention.
 # ---------------------------------------------------------------------------
 
+def _causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, S, H, hd); k: (B, S, K, hd) -> (B, K, G, S, S) scaled scores
+    in the compute dtype, -inf above the diagonal."""
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    ct = _compute_dtype(q)
+    qg = q.to(ct).reshape(b, s, n_kv, h // n_kv, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct)) * (
+        1.0 / math.sqrt(hd))
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    return scores.masked_fill(~causal, float("-inf"))
+
+
+def _attend(scores: torch.Tensor, q: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(p.dtype))
+    return o.reshape(q.shape).to(q.dtype)
+
+
 def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
@@ -227,15 +248,47 @@ def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
     Heads are grouped as ``src/repro/models/layers.py:65-75`` groups them:
     ``q.reshape(B, S, K, G, hd)`` with ``G = H // K``, so query head
     ``h = kv * G + g`` reads KV head ``h // G`` (not ``h % K``)."""
+    return _attend(_causal_scores(q, k), q, v)
+
+
+def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor):
+    """:func:`causal_attention_ref` and each row's log-sum-exp of its
+    scaled scores: ``(o, lse)``, lse (B, H, S) in the compute dtype (fp32;
+    fp64 for fp64 inputs), what the backward recomputes p from."""
+    b, s, h, _ = q.shape
+    scores = _causal_scores(q, k)
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+    return _attend(scores, q, v), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor):
+    """The plain attention backward: q, o, do (B, S, H, hd); k/v (B, S, K,
+    hd); lse (B, H, S) from the forward -> ``(dq, dk, dv)`` in q's and k's
+    dtypes.  With s the scaled scores, p = exp(s - lse) below the diagonal
+    and delta = sum_d do o: dV = p^T dO, dS = p (dO v^T - delta), dQ =
+    dS k * scale, dK = dS^T q * scale, dK and dV summed over the query
+    heads of a KV head.  Materialises (B, K, G, S, S) in the compute
+    dtype."""
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
-    qg = q.float().reshape(b, s, n_kv, h // n_kv, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (
-        1.0 / math.sqrt(hd))
-    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(b, s, h, hd).to(q.dtype)
+    g = h // n_kv
+    scale = 1.0 / math.sqrt(hd)
+    scores = _causal_scores(q, k)
+    ct = scores.dtype
+    p = torch.exp(scores - lse.to(ct).reshape(b, n_kv, g, s, 1))
+    qg, og, dog = (t.to(ct).reshape(b, s, n_kv, g, hd) for t in (q, o, do))
+    kc, vc = k.to(ct), v.to(ct)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vc)
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kc) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,

@@ -1,0 +1,146 @@
+"""LM training launcher: config-driven, fault-tolerant, resumable.
+
+    rm -rf build/ck build/ck_full   # a fresh run; keep them to resume
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --reduced --steps 6 --seq-len 64 --batch 2 --ckpt build/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 6 \
+        --seq-len 4096 --batch 8 --microbatches 2 --remat full \
+        --ckpt build/ck_full
+
+Ported from ``src/repro/launch/train.py``: the same flags and printed lines,
+plus ``--device`` (``cuda`` unless the caller asks for ``cpu``; without
+CUDA the default raises).  The ``mesh:`` line becomes a ``device:`` line:
+the port trains on one card.  Deterministic resumable data
+(:mod:`repro_torch.data.lm_data`), atomic async checkpoints of the
+parameters and the AdamW state (its step count included), retry of a
+failed step, straggler monitoring and a heartbeat file.  A restart
+restores the latest checkpoint and runs on to ``--steps``, whose value also
+sets the schedule (``OptConfig(lr, total_steps=steps)``), so a resumed run
+takes the same ``--steps`` as the run it resumes.
+
+Not ported: ``--model-parallel > 1`` and ``--grad-compression int8_ef``
+(they need several cards: ROADMAP A10b).  Like JAX's launcher this one
+feeds LM data only, so ``--arch`` must be a dense LM.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.data.lm_data import LMDataConfig, batch_at
+from repro_torch.device import resolve_device
+from repro_torch.distributed.fault_tolerance import (Heartbeat,
+                                                     StragglerMonitor,
+                                                     retry_step)
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.model_api import build
+from repro_torch.optim.adamw import OptConfig, init_opt
+from repro_torch.tree import named_leaves
+
+
+def _restore(ckpt_dir: str, params, opt):
+    """Loads the latest checkpoint of ``ckpt_dir`` into ``params`` and
+    ``opt`` in place; returns its step."""
+    tree, start = ckpt.restore(ckpt_dir,
+                               {"params": params, "opt": opt.state_dict()})
+    with torch.no_grad():
+        for (_, p), (_, t) in zip(named_leaves(params),
+                                  named_leaves(tree["params"])):
+            p.copy_(t)
+    opt.load_state_dict(tree["opt"])
+    return start
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-sized config of the same family")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--remat", default="none")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--grad-compression", default="",
+                    choices=["", "int8_ef"])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 needs several cards (ROADMAP A10b)")
+    if args.grad_compression:
+        raise NotImplementedError(
+            f"--grad-compression {args.grad_compression} compresses a "
+            "data-parallel all-reduce across cards (ROADMAP A10b)")
+    cfg = get_config(args.arch)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"--arch {args.arch} ({cfg.family}): the launcher feeds LM data "
+            "only and the port trains the dense LMs (other families: "
+            "ROADMAP A11c)")
+    if args.reduced:
+        cfg = cfg.reduced()
+    run = RunConfig(remat=args.remat)
+    dev = resolve_device(args.device)
+    print(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
+                              if dev.type == "cuda" else ""))
+
+    bundle = build(cfg, device=dev, run=run)
+    opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps)
+    data_cfg = LMDataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                            global_batch=args.batch)
+
+    # Init or restore.
+    start = 0
+    params = bundle.init(seed=0)
+    opt = init_opt(opt_cfg, list(params.parameters()))
+    if args.ckpt and ckpt.latest_step(args.ckpt) is not None:
+        start = _restore(args.ckpt, params, opt)
+        print(f"restored step {start} from {args.ckpt}")
+
+    step_fn = make_train_step(bundle, args.microbatches)
+    mon = StragglerMonitor()
+    hb = Heartbeat(Path(args.ckpt) / "heartbeat.json") if args.ckpt else None
+    losses = []
+    for step in range(start, args.steps):
+        batch = batch_at(data_cfg, step)
+        t0 = time.perf_counter()
+        # A retried step starts over: a failure before the update leaves
+        # the parameters and the optimizer as they were.
+        m = retry_step(step_fn, params, opt, batch)
+        loss = float(m["loss"])  # waits for the step's device work
+        dt = time.perf_counter() - t0
+        slow = mon.record(step, dt)
+        losses.append(loss)
+        if hb:
+            hb.beat(step, loss=loss)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"({dt*1e3:.0f} ms{' STRAGGLER' if slow else ''})",
+                  flush=True)
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt.save_async(args.ckpt, step + 1,
+                            {"params": params, "opt": opt.state_dict()})
+    if args.ckpt:
+        ckpt.wait_pending(args.ckpt)
+        ckpt.save(args.ckpt, args.steps,
+                  {"params": params, "opt": opt.state_dict()})
+    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"steps/s {1.0/max(mon.mean,1e-9):.2f}; {mon.summary()}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,10 @@
 Ported from ``src/repro/models/dlrm.py``: a bottom MLP projects the dense
 features to ``emb_dim``, each sparse feature sum-pools ``multi_hot`` rows of
 its table, a pairwise dot-product interaction feeds the top MLP, and the
-output is one logit per query.
+output is one logit per query; ``dlrm_loss`` (:153-160) is the training
+loss.  The pooled lookup is differentiable in the tables
+(:func:`repro_torch.kernels.ops.gather_pool`: the kernel forward, a
+scatter-add backward).
 
 Parameters are a plain dict shaped like the JAX pytree: ``{"emb": (T, R, D),
 "bottom": {"w": [...], "b": [...]}, "top": {...}}``.  MLP weights keep the
@@ -200,3 +203,15 @@ def dlrm_forward(params, cfg: ModelConfig, dense: torch.Tensor,
     else:
         pooled = embedding_lookup(params["emb"].to(ct), sparse_idx)
     return interact_top(params, bot, pooled).float()
+
+
+def dlrm_loss(params, cfg: ModelConfig, dense: torch.Tensor,
+              sparse_idx: torch.Tensor, labels: torch.Tensor
+              ) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``labels`` (B,)
+    in {0, 1}, in the numerically stable form JAX writes: ``max(x, 0) - x
+    y + log1p(exp(-|x|))``."""
+    logit = dlrm_forward(params, cfg, dense, sparse_idx)
+    loss = (torch.clamp_min(logit, 0.0) - logit * labels
+            + torch.log1p(torch.exp(-logit.abs())))
+    return loss.mean()

@@ -4,9 +4,10 @@ Counterpart of ``src/repro/models/model_api.py``.  The bundle is bound to a
 device (``"cuda"`` by default): each of its functions resolves it when
 called, so on a machine without CUDA they raise unless the bundle was
 built with ``device="cpu"``.  Ported families: ``dense`` (``init``,
-``prefill``, ``decode``) and ``dlrm`` (``init``, ``prefill`` = the
-forward).  Every other family, and ``loss`` (training), raise
-``NotImplementedError`` naming their ROADMAP item.
+``loss`` = ``lm_loss`` under the bundle's ``RunConfig``, ``prefill``,
+``decode``) and ``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill`` =
+the forward).  Every other family (encoder-decoder, MoE, SSM, hybrid, VLM)
+raises ``NotImplementedError`` naming ROADMAP A11c.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import dlrm as D
 from repro_torch.models import transformer as T
@@ -33,14 +34,10 @@ class ModelBundle:
     cfg: ModelConfig
     device: str
     init: Callable[..., Any]  # init(seed=0) -> params on the device
+    loss: Callable[..., Any]  # loss(params, batch) -> scalar fp32
     prefill: Callable[..., Any]  # prefill(params, batch[, cache_len])
     decode: Optional[Callable[..., Any]]  # decode(params, token, cache)
     n_params: Callable[[], int]
-
-    def loss(self, params, batch):
-        raise NotImplementedError(
-            "training losses are not ported: LM training is ROADMAP A11b "
-            "(the DLRM loss has no port yet either)")
 
 
 def _lm_n_params(cfg: ModelConfig) -> int:
@@ -67,8 +64,16 @@ def _dlrm_n_params(cfg: ModelConfig) -> int:
                   + tuple(cfg.top_mlp)))
 
 
-def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
+def build(cfg: ModelConfig, device="cuda",
+          run: Optional[RunConfig] = None) -> ModelBundle:
+    run = run or RunConfig()
     if cfg.family == "dlrm":
+        def loss(params, batch):
+            dev = resolve_device(device)
+            return D.dlrm_loss(params, cfg, _on(batch["dense"], dev),
+                               _on(batch["sparse"], dev),
+                               _on(batch["label"], dev, torch.float32))
+
         def serve(params, batch):
             dev = resolve_device(device)
             return D.dlrm_forward(params, cfg, _on(batch["dense"], dev),
@@ -77,13 +82,19 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
         return ModelBundle(
             cfg=cfg, device=device,
             init=lambda seed=0: D.init_dlrm(cfg, seed, device),
-            prefill=serve, decode=None,
+            loss=loss, prefill=serve, decode=None,
             n_params=lambda: _dlrm_n_params(cfg))
 
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r}: the port has the dense LM and DLRM "
             "only (MoE, SSM, hybrid, encoder-decoder, VLM: ROADMAP A11c)")
+
+    def loss(params, batch):
+        dev = resolve_device(device)
+        return T.lm_loss(params, cfg, run,
+                         _on(batch["tokens"], dev, torch.int64),
+                         _on(batch["labels"], dev, torch.int64))
 
     def prefill_fn(params, batch, cache_len=None):
         dev = resolve_device(device)
@@ -97,6 +108,6 @@ def build(cfg: ModelConfig, device="cuda") -> ModelBundle:
     return ModelBundle(
         cfg=cfg, device=device,
         init=lambda seed=0: T.init_lm(cfg, seed, device),
-        prefill=prefill_fn, decode=decode_fn,
+        loss=loss, prefill=prefill_fn, decode=decode_fn,
         n_params=lambda: _lm_n_params(cfg))
 

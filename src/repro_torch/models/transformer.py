@@ -1,14 +1,22 @@
-"""Decoder-only dense LM in PyTorch: init, prefill and decode.
+"""Decoder-only dense LM in PyTorch: init, training loss, prefill and decode.
 
 Ported from the dense family of ``src/repro/models/transformer.py``:
 ``init_layer``/``init_lm`` (:30-66) as the ``nn.Module``
 :class:`TransformerLM` with a ``ModuleList`` of blocks in place of the
 stacked ``lax.scan``; ``_layer_forward``/``_layer_decode`` (:74-133, dense
-branch); ``_embed``/``_logits`` (:148-187); ``init_cache``, ``prefill``,
-``decode_step``, ``decode_step_embeds`` and ``_decode_from`` (:234-314).
-``constrain_batch`` is a no-op without a mesh and is dropped; ``lm_loss``
-comes with LM training (ROADMAP A11b); the MoE, SSM, hybrid and VLM
-branches with the other families (A11c).
+branch); ``_remat``, ``backbone``, ``_embed``, ``_logits``, ``_ce`` and
+``lm_loss`` (:133-231); ``init_cache``, ``prefill``, ``decode_step``,
+``decode_step_embeds`` and ``_decode_from`` (:234-314).
+``constrain_batch`` is a no-op without a mesh and is dropped; the MoE,
+SSM, hybrid and VLM branches (and their auxiliary loss, 0 for a dense
+model) come with the other families (ROADMAP A11c).
+
+``remat="full"`` runs each layer under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+counterpart of ``jax.checkpoint``: the backward recomputes the layer's
+forward (so ``flash_attention`` runs twice per layer and step).
+``remat="dots"`` (an XLA checkpoint policy) is refused by
+:class:`~repro_torch.configs.base.RunConfig`.
 
 The cache is ``{"pos": int, "k": (L, B, C, K, hd), "v": ...}`` in the
 compute dtype, a ring buffer (slot = pos % C).  Decode steps write each
@@ -16,7 +24,9 @@ new key and value into it in place and return the same tensors with
 ``pos + 1``.  Prefill and decode run under ``torch.inference_mode()``.
 Parameters are drawn from a seeded ``torch.Generator`` (same shapes and
 scales as ``jax.random``'s, other numbers); :func:`params_from_jax` carries
-JAX's parameters over for the parity tests.
+JAX's parameters over for the parity tests.  They are created with
+``requires_grad=False`` (serving needs no graph); training switches them on
+(:func:`repro_torch.launch.steps.make_train_step`).
 """
 from __future__ import annotations
 
@@ -26,8 +36,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.dlrm import _tensor, torch_dtype
@@ -60,8 +71,8 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """``embed`` (V, D), ``blocks``, ``final_norm`` (D,) and, without tied
-    embeddings, ``lm_head`` (D, V).  The parameters hold no gradients: the
-    port serves only (training is ROADMAP A11b)."""
+    embeddings, ``lm_head`` (D, V).  The parameters are created without
+    gradients; training turns them on."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor, blocks,
                  final_norm: torch.Tensor,
@@ -154,6 +165,56 @@ def _logits(model: TransformerLM, cfg: ModelConfig,
     summed in fp32 (JAX's ``preferred_element_type=float32``)."""
     head = model.embed.t() if model.lm_head is None else model.lm_head
     return x.float() @ head.to(x.dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# Backbone and training loss
+# ---------------------------------------------------------------------------
+
+
+def backbone(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
+             x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The layers, each recomputed in the backward under ``remat="full"``,
+    then the final norm: x (B, S, D) -> (B, S, D)."""
+    def layer(blk, x_):
+        return _layer_forward(blk, cfg, x_, positions)[0]
+
+    for blk in model.blocks:
+        if run.remat == "full":
+            x = checkpoint(layer, blk, x, use_reentrant=False)
+        else:
+            x = layer(blk, x)
+    return L.rms_norm(x, model.final_norm, cfg.norm_eps)
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Summed masked negative log-likelihood and the mask's sum."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
+            tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Causal LM loss, fp32: tokens/labels (B, S) int; labels < 0 are
+    masked.  The logits and their cross-entropy go chunk by chunk of
+    ``run.logits_chunk`` positions when it divides S (and is below it), as
+    JAX's ``lax.scan`` over chunks does."""
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    x = backbone(model, cfg, run, _embed(model, cfg, tokens), positions)
+    mask = (labels >= 0).float()
+    labels_c = labels.clamp_min(0).long()
+    ch = run.logits_chunk
+    if ch and s > ch and s % ch == 0:
+        num = den = torch.zeros((), device=x.device)
+        for i in range(0, s, ch):
+            n, d = _ce(_logits(model, cfg, x[:, i:i + ch]),
+                       labels_c[:, i:i + ch], mask[:, i:i + ch])
+            num, den = num + n, den + d
+    else:
+        num, den = _ce(_logits(model, cfg, x), labels_c, mask)
+    return num / den.clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -16,14 +16,23 @@ Ported from ``src/repro/optim/adamw.py`` (``OptConfig``, ``schedule``,
 ``torch.optim.AdamW`` with ``clip_grad_norm_`` and ``LambdaLR`` is not
 this update: its schedule is one step behind (``LambdaLR`` gives the
 first update the factor of step 0) and its clip divides by the norm plus
-1e-6.  The moments are
-fp32 (the JAX default ``moment_dtype``); ``master_fp32`` has no use in the
-port, whose models are fp32.
+1e-6.  The moments are fp32 (the JAX default ``moment_dtype``), one pair a
+parameter from the start (``init_opt``'s state).  Like JAX's default
+(``master_fp32=False``) the update runs in fp32 and is cast back to the
+parameter's dtype, bf16 parameters included, with no fp32 master copy.
+
+:meth:`AdamW.apply` takes the gradients as a list, in any float dtype (the
+train step hands in fp32 sums over microbatches, as JAX's
+``apply_updates`` takes them); :meth:`AdamW.step` reads ``.grad``.
+``state_dict`` is ``{"count", "m", "v"}`` with the moments in parameter
+order, and ``load_state_dict`` copies them back in place, so a restored
+optimizer resumes the schedule at its step.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -61,6 +70,12 @@ class AdamW(torch.optim.Optimizer):
         super().__init__(params, {})
         self.cfg = cfg
         self.count = 0
+        for p in self._params():
+            self.state[p]["m"] = torch.zeros_like(p, dtype=torch.float32)
+            self.state[p]["v"] = torch.zeros_like(p, dtype=torch.float32)
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for g in self.param_groups for p in g["params"]]
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -68,24 +83,33 @@ class AdamW(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        params = [p for p in self._params() if p.grad is not None]
+        if params:
+            self._update(params, [p.grad for p in params])
+        return loss
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor]) -> Dict[str, object]:
+        """One update of every parameter from ``grads`` (in parameter
+        order).  Returns ``{"grad_norm": tensor, "lr": float}``."""
+        params = self._params()
+        if len(grads) != len(params):
+            raise ValueError(f"{len(grads)} gradients for {len(params)} "
+                             "parameters")
+        return self._update(params, list(grads))
+
+    def _update(self, params, grads) -> Dict[str, object]:
         cfg = self.cfg
-        params = [p for g in self.param_groups for p in g["params"]
-                  if p.grad is not None]
-        if not params:
-            return loss
         self.count += 1
         lr = schedule(cfg, self.count)
-        gnorm = global_norm([p.grad for p in params])
+        gnorm = global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         bc1 = 1.0 - cfg.b1 ** self.count
         bc2 = 1.0 - cfg.b2 ** self.count
-        for p in params:
+        for p, grad in zip(params, grads):
             st = self.state[p]
-            if not st:
-                st["m"] = torch.zeros_like(p, dtype=torch.float32)
-                st["v"] = torch.zeros_like(p, dtype=torch.float32)
-            g = p.grad.float() * scale
+            g = grad.float() * scale
             m, v = st["m"], st["v"]
             m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
             v.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
@@ -94,4 +118,27 @@ class AdamW(torch.optim.Optimizer):
             if cfg.weight_decay:
                 upd = upd + cfg.weight_decay * p32
             p.copy_(p32 - lr * upd)
-        return loss
+        return {"grad_norm": gnorm, "lr": lr}
+
+    def state_dict(self) -> Dict[str, object]:
+        params = self._params()
+        return {"count": self.count,
+                "m": [self.state[p]["m"] for p in params],
+                "v": [self.state[p]["v"] for p in params]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict) -> None:
+        params = self._params()
+        if len(state_dict["m"]) != len(params):
+            raise ValueError(f"state for {len(state_dict['m'])} parameters, "
+                             f"the optimizer has {len(params)}")
+        for p, m, v in zip(params, state_dict["m"], state_dict["v"]):
+            self.state[p]["m"].copy_(m)
+            self.state[p]["v"].copy_(v)
+        self.count = int(state_dict["count"])
+
+
+def init_opt(cfg: OptConfig, params: Sequence[torch.Tensor]) -> AdamW:
+    """An :class:`AdamW` over ``params`` with zeroed fp32 moments and count
+    0, JAX's ``init_opt``."""
+    return AdamW(params, cfg)

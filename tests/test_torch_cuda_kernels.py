@@ -14,7 +14,13 @@ own and summed in the order p = 0..P-1 on both sides, so 0 is expected).
 The pipelined runtime on the card: the thread scheduler's worker gives the
 inline engine's counters and stored bytes exactly, and the degraded read
 (the store's gather kernel) and the admission path's batches equal the
-CPU's bit for bit.
+CPU's bit for bit.  Training: ``flash_attention_bwd`` against the plain
+backward within 1e-5 (fp32) and 2e-2 (bf16, the bound bf16 LM parity uses)
+of each gradient's largest magnitude; the forward's output bits do not
+change when it also writes the log-sum-exp; ``gather_pool``'s table
+gradient on the card within 1e-5 of its largest magnitude of the CPU's
+(the card's scatter-adds use atomics, so the order of summation differs;
+a bf16 table's gradient within one bf16 ulp, 2^-8).
 """
 import numpy as np
 import pytest
@@ -581,8 +587,8 @@ def test_flash_attention_refuses_what_it_cannot_serve(dev):
 
     q = torch.zeros((1, 8, 4, 16), device=dev, requires_grad=True)
     kv = torch.zeros((1, 8, 2, 16), device=dev)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        ops.flash_attention(q, kv, kv)
+    # Under autograd the op trains (its backward is flash_attention_bwd).
+    assert ops.flash_attention(q, kv, kv).grad_fn is not None
     with torch.inference_mode():
         assert ops.flash_attention(q, kv, kv).shape == q.shape
     with pytest.raises(ValueError, match="head_dim"):
@@ -593,6 +599,98 @@ def test_flash_attention_refuses_what_it_cannot_serve(dev):
         fa.flash_attention(torch.zeros((1, 8, 4, 16), device=dev),
                            torch.zeros((1, 8, 3, 16), device=dev),
                            torch.zeros((1, 8, 3, 16), device=dev))
+
+
+# flash_attention_bwd: the training cut's heads, qwen2.5-3b's, a ragged S,
+# head dims 16 and 32 (B, S, H, K, hd).
+FLASH_BWD_SHAPES = [(2, 256, 9, 3, 64), (1, 200, 16, 2, 128),
+                    (2, 1000, 9, 3, 64), (2, 130, 4, 2, 16),
+                    (1, 65, 6, 3, 32), (3, 17, 2, 1, 16)]
+
+
+def _attn_inputs(dev, dt, b, s, h, n_kv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32)).to(DTYPES[dt]).to(dev) for n in (h, n_kv, n_kv, h)]
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_matches_plain(dev, dt, shape):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, dt, *shape, seed=sum(shape))
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    n0 = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n0 + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    tol = 1e-5 if dt == "fp32" else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert err <= tol * scale, f"{name}: {err} > {tol} * {scale}"
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 9, 3, 64), (1, 129, 16, 2, 128),
+                                   (2, 1000, 4, 2, 16)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_lse_keeps_the_output_bits(dev, dt, shape):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _attn_inputs(dev, dt, *shape, seed=7)
+    served = fa.flash_attention(q, k, v)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, served)
+    _, want = ref.causal_attention_lse_ref(q, k, v)
+    assert lse.shape == want.shape == (shape[0], shape[2], shape[1])
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_trains_through_the_kernels(dev):
+    """``ops.flash_attention`` under autograd: forward and backward are the
+    kernels, and the gradients match autograd through the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    q, k, v, do = _attn_inputs(dev, "fp32", 2, 100, 4, 2, 32, seed=11)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_fwd, n_bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    got = torch.autograd.grad(ops.flash_attention(*ins), ins, do)
+    assert fa.flash_attention.launches == n_fwd + 1
+    assert fa.flash_attention_bwd.launches == n_bwd + 1
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.causal_attention_ref(*ref_ins), ref_ins,
+                               do)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gather_pool_table_gradient_on_card_matches_cpu(dev, dt):
+    from repro_torch.kernels import ops
+
+    table = _table(500, 128, DTYPES[dt], 12, dev)
+    rng = np.random.default_rng(13)
+    idx = torch.from_numpy(rng.integers(0, 500, (256, 20)).astype(np.int32))
+    dout = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32))
+    grads = {}
+    for d in ("cpu", dev):
+        t = table.detach().to(d).requires_grad_()
+        n0 = eg.gather_pool.launches
+        ops.gather_pool(t, idx.to(d)).backward(dout.to(d))
+        assert eg.gather_pool.launches == n0 + (d != "cpu")
+        assert t.grad is not None and t.grad.dtype == table.dtype
+        grads[str(d)] = t.grad.float().cpu()
+    want = grads["cpu"]
+    err = float((grads[str(dev)] - want).abs().max())
+    # bf16: the two fp32 sums, rounded once to bf16, may land one bf16 ulp
+    # (2^-8 of a magnitude) apart.
+    tol = 1e-5 if dt == "fp32" else 2.0 ** -8
+    assert err <= tol * float(want.abs().max())
 
 
 def test_gather_rows_expand_at_the_vocab_width(dev):

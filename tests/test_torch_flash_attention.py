@@ -97,8 +97,8 @@ def test_ops_flash_attention_is_the_plain_version_on_the_cpu(dt):
 
 
 def test_ops_flash_attention_keeps_gradients_on_the_cpu():
-    """On the CPU the plain version runs under autograd (the card's kernel
-    has no backward and refuses such inputs)."""
+    """On the CPU the plain forward and backward run under autograd (on the
+    card, the kernel and ``flash_attention_bwd``)."""
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _draw(
         [(1, 5, 2, 16), (1, 5, 1, 16), (1, 5, 1, 16)], seed=5))
     ops.flash_attention(q, k, v).sum().backward()

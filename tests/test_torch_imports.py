@@ -71,6 +71,7 @@ def _entry_points():
     from repro_torch.launch.serve import main, serve_trace
     from repro_torch.launch.serve_lm import main as serve_lm_main
     from repro_torch.launch.serve_lm import serve_lm_tiered
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models.dlrm import init_dlrm
     from repro_torch.models.model_api import build
     from repro_torch.models.transformer import init_lm
@@ -117,6 +118,11 @@ def _entry_points():
         "serve_lm_cli": lambda: serve_lm_main(["--reduced", "--steps", "2"]),
         "lm_prefill": lambda: build(lm).prefill(
             None, {"tokens": np.zeros((1, 4), np.int64)}),
+        "lm_loss": lambda: build(lm).loss(
+            None, {"tokens": np.zeros((1, 4), np.int64),
+                   "labels": np.zeros((1, 4), np.int64)}),
+        "train_cli": lambda: train_main(["--reduced", "--steps", "1",
+                                         "--seq-len", "8", "--batch", "1"]),
         "init_lm": lambda: init_lm(lm),
         "replay_scenario": lambda: replay_scenario(scenario("zipf_mid")),
         "replay_overload": lambda: replay_overload(make_spec(
@@ -136,7 +142,8 @@ def _entry_points():
                                    "train_transformer_prefetch_model",
                                    "train_voyager",
                                    "serve_lm_tiered", "serve_lm_cli",
-                                   "lm_prefill", "init_lm",
+                                   "lm_prefill", "lm_loss", "train_cli",
+                                   "init_lm",
                                    "replay_scenario", "replay_overload",
                                    "replay_chaos"])
 def test_default_device_raises_without_cuda(entry):

@@ -29,7 +29,7 @@ from repro.models import model_api as JMA
 from repro.models import transformer as JT
 from repro.models.dlrm import dlrm_forward as jax_dlrm_forward
 from repro.models.dlrm import init_dlrm as jax_init_dlrm
-from repro_torch.configs import LM_SHAPES, NOT_PORTED, get_config
+from repro_torch.configs import LM_SHAPES, NOT_PORTED, RunConfig, get_config
 from repro_torch.core.tiered import TieredEmbeddingStore
 from repro_torch.kernels import ref
 from repro_torch.launch.serve_lm import STORE_KEYS, main, serve_lm_tiered
@@ -426,9 +426,13 @@ def test_build_dlrm_prefill_is_the_forward():
 
 
 def test_build_refuses_unported_families_and_losses():
+    """The other families raise naming A11c; the dense and DLRM losses are
+    ported (``tests/test_torch_train.py``), but not the XLA remat policy
+    their ``RunConfig`` could ask for."""
     moe = dataclasses.replace(get_config("smollm-135m"), family="moe")
     with pytest.raises(NotImplementedError, match="A11c"):
         build(moe, device="cpu")
     cfg, _ = _cfgs("smollm-135m")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        build(cfg, device="cpu").loss(None, {})
+    assert callable(build(cfg, device="cpu").loss)
+    with pytest.raises(NotImplementedError, match="XLA"):
+        build(cfg, device="cpu", run=RunConfig(remat="dots"))

@@ -1,0 +1,392 @@
+"""The port's training path against the JAX package's, on the CPU.
+
+Parameters are JAX's (``init_lm``/``init_dlrm`` of ``PRNGKey(0)``) carried
+over by ``params_from_jax``; tokens, labels and features are numpy draws
+handed to both.  Tolerances: the attention backward within 1e-5 x max(1,
+max |JAX grad|) (fp32, the sums run in another order); ``lm_loss`` and
+``dlrm_loss`` within rtol 1e-5 and every gradient within 1e-5 x max(1,
+max |JAX grad|); one ``make_train_step`` within 1e-5 on the loss and 1e-5
+abs on every parameter after the step; three launcher steps within rtol
+1e-4 on the losses (the differences compound over the steps).  The
+launcher's data (``batch_at``) is byte-equal, and a resumed CPU run's
+losses are bit-equal to the uninterrupted run's.
+"""
+import dataclasses
+import shutil
+from functools import lru_cache
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import RunConfig as JaxRunConfig
+from repro.configs import get_config as jax_get_config
+from repro.data import lm_data as jax_lm_data
+from repro.launch.steps import make_train_step as jax_make_train_step
+from repro.models import dlrm as JD
+from repro.models import layers as JL
+from repro.models import model_api as JMA
+from repro.models import transformer as JT
+from repro.optim.adamw import OptConfig as JaxOptConfig
+from repro.optim.adamw import init_opt as jax_init_opt
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.data import lm_data
+from repro_torch.kernels import ops
+from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.train import main as train_main
+from repro_torch.models import dlrm as D
+from repro_torch.models import transformer as T
+from repro_torch.models.model_api import build
+from repro_torch.optim.adamw import OptConfig, init_opt
+from repro_torch.tree import named_leaves
+
+TOL = 1e-5
+
+
+@lru_cache(maxsize=None)
+def _lm():
+    """(port cfg, JAX cfg, JAX params as numpy) of smollm-135m reduced."""
+    jcfg = jax_get_config("smollm-135m").reduced()
+    jp = jax.tree_util.tree_map(np.asarray,
+                                JT.init_lm(jax.random.PRNGKey(0), jcfg))
+    return get_config("smollm-135m").reduced(), jcfg, jp
+
+
+@lru_cache(maxsize=None)
+def _dlrm():
+    jcfg = jax_get_config("dlrm-recmg").reduced()
+    jp = jax.tree_util.tree_map(np.asarray,
+                                JD.init_dlrm(jax.random.PRNGKey(0), jcfg))
+    return get_config("dlrm-recmg").reduced(), jcfg, jp
+
+
+def _port_params(arch):
+    cfg, _, jp = _lm() if arch == "lm" else _dlrm()
+    if arch == "lm":
+        return T.params_from_jax(jp, cfg, device="cpu")
+    return D.params_from_jax(jp, device="cpu")
+
+
+def _jax_named(tree):
+    """{key path: array} of a JAX tree, named as the port's leaves: the
+    stacked L axis of an LM's ``blocks`` unrolled."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        names = [str(getattr(p, "key", getattr(p, "idx", p))) for p in path]
+        leaf = np.asarray(leaf)
+        if names[0] == "blocks":
+            for i in range(leaf.shape[0]):
+                out[".".join([names[0], str(i)] + names[1:])] = leaf[i]
+        else:
+            out[".".join(names)] = leaf
+    return out
+
+
+def _assert_grads_close(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = got[name].detach().float().numpy()
+        bound = TOL * max(1.0, float(np.abs(w).max()))
+        err = float(np.abs(g - w).max())
+        assert err <= bound, f"{name}: max abs err {err} > {bound}"
+
+
+def _lm_batch(cfg, b, s, seed, masked=True):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    labels = np.concatenate([tokens[:, 1:], np.full((b, 1), -1, np.int32)],
+                            axis=1)
+    if masked:
+        labels[rng.random((b, s)) < 0.2] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+def _dlrm_batch(cfg, b, seed):
+    rng = np.random.default_rng(seed)
+    return {"dense": rng.normal(size=(b, cfg.dense_features)).astype(
+                np.float32),
+            "sparse": rng.integers(0, cfg.rows_per_table,
+                                   (b, cfg.n_tables, cfg.multi_hot)).astype(
+                np.int32),
+            "label": (rng.random(b) < 0.5).astype(np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# Attention backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,n_kv", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("s", [64, 100])
+def test_attention_backward_matches_jax_grad(s, h, n_kv):
+    b, hd = 2, 16
+    rng = np.random.default_rng(s + n_kv)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32) for shape in (
+        (b, s, h, hd), (b, s, n_kv, hd), (b, s, n_kv, hd), (b, s, h, hd)))
+    _, vjp = jax.vjp(lambda *a: JL.blocked_causal_attention(*a),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        bound = TOL * max(1.0, float(np.abs(w).max()))
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= bound, f"d{name}: {err} > {bound}"
+
+
+def test_attention_function_gradcheck_float64():
+    """Two query heads on one KV head, a ragged S.  One thread: the
+    numerical Jacobian takes ~900 tiny forwards, which a busy machine's
+    thread pool would slow a hundredfold."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape)).requires_grad_()
+               for shape in ((1, 7, 2, 16), (1, 7, 1, 16), (1, 7, 1, 16)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert torch.autograd.gradcheck(ops.flash_attention, (q, k, v))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_gather_pool_gives_the_table_a_gradient():
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.normal(size=(40, 8))).requires_grad_()
+    idx = torch.from_numpy(rng.integers(0, 40, (6, 3)).astype(np.int32))
+    dout = torch.from_numpy(rng.normal(size=(6, 8)).astype(np.float32))
+    ops.gather_pool(table, idx).backward(dout)
+    want = np.zeros((40, 8))
+    for i in range(6):
+        for p in range(3):
+            want[idx[i, p]] += dout[i].numpy()
+    np.testing.assert_allclose(table.grad.numpy(), want, rtol=1e-6,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chunk", [0, 16])
+def test_lm_loss_and_grads_match_jax(chunk):
+    cfg, jcfg, jp = _lm()
+    batch = _lm_batch(cfg, 2, 64, seed=3)
+    jrun = JaxRunConfig(remat="none", logits_chunk=chunk)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: JT.lm_loss(p, jcfg, jrun, jnp.asarray(batch["tokens"]),
+                             jnp.asarray(batch["labels"])))(
+        jax.tree_util.tree_map(jnp.asarray, jp))
+    model = _port_params("lm").requires_grad_(True)
+    loss = T.lm_loss(model, cfg, RunConfig(remat="none", logits_chunk=chunk),
+                     torch.from_numpy(batch["tokens"]).long(),
+                     torch.from_numpy(batch["labels"]).long())
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=TOL)
+    names, ps = zip(*named_leaves(model))
+    grads = torch.autograd.grad(loss, ps)
+    _assert_grads_close(dict(zip(names, grads)), _jax_named(jgrads))
+
+
+def test_lm_remat_full_and_none_give_equal_grads():
+    cfg, _, _ = _lm()
+    batch = _lm_batch(cfg, 2, 64, seed=4)
+    out = {}
+    for remat in ("full", "none"):
+        model = _port_params("lm").requires_grad_(True)
+        loss = T.lm_loss(model, cfg, RunConfig(remat=remat),
+                         torch.from_numpy(batch["tokens"]).long(),
+                         torch.from_numpy(batch["labels"]).long())
+        out[remat] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    assert torch.equal(out["full"][0], out["none"][0])
+    for a, b in zip(out["full"][1], out["none"][1]):
+        assert torch.equal(a, b)
+
+
+def test_remat_dots_is_refused():
+    with pytest.raises(NotImplementedError, match="XLA"):
+        RunConfig(remat="dots")
+    with pytest.raises(ValueError, match="remat"):
+        RunConfig(remat="some")
+
+
+def test_dlrm_loss_and_grads_match_jax():
+    cfg, jcfg, jp = _dlrm()
+    batch = _dlrm_batch(cfg, 16, seed=5)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: JD.dlrm_loss(p, jcfg, *(jnp.asarray(batch[k]) for k in (
+            "dense", "sparse", "label"))))(
+        jax.tree_util.tree_map(jnp.asarray, jp))
+    params = _port_params("dlrm")
+    names, ps = zip(*named_leaves(params))
+    for p in ps:
+        p.requires_grad_(True)
+    loss = D.dlrm_loss(params, cfg, *(torch.from_numpy(batch[k]) for k in (
+        "dense", "sparse", "label")))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=TOL)
+    grads = dict(zip(names, torch.autograd.grad(loss, ps)))
+    assert float(grads["emb"].abs().sum()) > 0
+    _assert_grads_close(grads, _jax_named(jgrads))
+
+
+def test_bundle_losses_are_the_model_losses():
+    cfg, _, _ = _dlrm()
+    batch = _dlrm_batch(cfg, 8, seed=6)
+    params = _port_params("dlrm")
+    got = build(cfg, device="cpu").loss(params, batch)
+    want = D.dlrm_loss(params, cfg, *(torch.from_numpy(batch[k]) for k in (
+        "dense", "sparse", "label")))
+    assert torch.equal(got, want)
+    lcfg, _, _ = _lm()
+    lb = _lm_batch(lcfg, 2, 16, seed=7)
+    model = _port_params("lm")
+    run = RunConfig(remat="none")
+    assert torch.equal(
+        build(lcfg, device="cpu", run=run).loss(model, lb),
+        T.lm_loss(model, lcfg, run, torch.from_numpy(lb["tokens"]).long(),
+                  torch.from_numpy(lb["labels"]).long()))
+
+
+# ---------------------------------------------------------------------------
+# The train step and the launcher's loop
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("microbatches", [1, 4])
+@pytest.mark.parametrize("arch", ["lm", "dlrm"])
+def test_train_step_matches_jax(arch, microbatches):
+    cfg, jcfg, jp = _lm() if arch == "lm" else _dlrm()
+    batch = (_lm_batch(cfg, 4, 32, seed=8) if arch == "lm"
+             else _dlrm_batch(cfg, 16, seed=8))
+    jbundle = JMA.build(jcfg, JaxRunConfig(remat="none"))
+    jopt_cfg = JaxOptConfig(lr=1e-3)
+    jparams = jax.tree_util.tree_map(jnp.asarray, jp)
+    jstep = jax.jit(jax_make_train_step(jbundle, jopt_cfg, microbatches))
+    jparams, _, jm = jstep(jparams, jax_init_opt(jopt_cfg, jparams),
+                           {k: jnp.asarray(v) for k, v in batch.items()})
+
+    params = _port_params(arch)
+    bundle = build(cfg, device="cpu", run=RunConfig(remat="none"))
+    opt = init_opt(OptConfig(lr=1e-3), [p for _, p in named_leaves(params)])
+    m = make_train_step(bundle, microbatches)(params, opt, batch)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=TOL)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=TOL)
+    assert opt.count == 1
+    want = _jax_named(jparams)
+    got = dict(named_leaves(params))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].detach().numpy(), w, rtol=0,
+                                   atol=TOL, err_msg=name)
+
+
+def test_microbatches_accumulate_in_fp32_for_bf16_parameters():
+    """bf16 parameters: each microbatch's gradient goes into an fp32 sum,
+    so four microbatches of one repeated batch give the one-batch step."""
+    cfg, _, _ = _lm()
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    one = _lm_batch(cfg, 1, 16, seed=9)
+    four = {k: np.repeat(v, 4, axis=0) for k, v in one.items()}
+    bundle = build(cfg, device="cpu", run=RunConfig(remat="none"))
+    out = []
+    for batch, mb in ((one, 1), (four, 4)):
+        model = T.init_lm(cfg, seed=0, device="cpu")
+        opt = init_opt(OptConfig(lr=1e-3), list(model.parameters()))
+        m = make_train_step(bundle, mb)(model, opt, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-6)
+
+
+def test_launcher_loop_matches_jax_loop():
+    """The launcher's loop (``make_train_step`` over ``batch_at`` with
+    ``OptConfig(lr, total_steps=steps)``) for 3 steps, against the same
+    loop in JAX from the same carried parameters."""
+    cfg, jcfg, jp = _lm()
+    steps = 3
+    data = lm_data.LMDataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2)
+    jdata = jax_lm_data.LMDataConfig(vocab=cfg.vocab, seq_len=32,
+                                     global_batch=2)
+    jopt_cfg = JaxOptConfig(lr=3e-4, total_steps=steps)
+    jstep = jax.jit(jax_make_train_step(
+        JMA.build(jcfg, JaxRunConfig(remat="none")), jopt_cfg, 1))
+    jparams = jax.tree_util.tree_map(jnp.asarray, jp)
+    jopt = jax_init_opt(jopt_cfg, jparams)
+    jlosses = []
+    for step in range(steps):
+        batch = {k: jnp.asarray(v)
+                 for k, v in jax_lm_data.batch_at(jdata, step).items()}
+        jparams, jopt, m = jstep(jparams, jopt, batch)
+        jlosses.append(float(m["loss"]))
+
+    model = _port_params("lm")
+    opt = init_opt(OptConfig(lr=3e-4, total_steps=steps),
+                   list(model.parameters()))
+    step_fn = make_train_step(build(cfg, device="cpu",
+                                    run=RunConfig(remat="none")), 1)
+    losses = [float(step_fn(model, opt, lm_data.batch_at(data, s))["loss"])
+              for s in range(steps)]
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+
+
+@pytest.mark.parametrize("step", [0, 1, 7])
+def test_batch_at_is_byte_equal_to_jax(step):
+    kw = dict(vocab=512, seq_len=48, global_batch=3)
+    got = lm_data.batch_at(lm_data.LMDataConfig(**kw), step)
+    want = jax_lm_data.batch_at(jax_lm_data.LMDataConfig(**kw), step)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert got[k].tobytes() == want[k].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# The launcher
+# ---------------------------------------------------------------------------
+
+ARGS = ["--device", "cpu", "--reduced", "--steps", "6", "--seq-len", "32",
+        "--batch", "2", "--log-every", "1"]
+
+
+def test_launcher_resumes_bit_equal(tmp_path, capsys):
+    """Run A: 6 steps, checkpoints every 3.  Run B: A's step-3 checkpoint
+    alone in a fresh directory, run to 6: it restores step 3 and its
+    losses are A's steps 3-5, bit for bit."""
+    a_dir, b_dir = tmp_path / "a", tmp_path / "b"
+    run_a = train_main(ARGS + ["--ckpt", str(a_dir), "--ckpt-every", "3"])
+    assert len(run_a) == 6 and all(np.isfinite(run_a))
+    assert (a_dir / "step_00000003").is_dir()
+    assert (a_dir / "heartbeat.json").exists()
+    b_dir.mkdir()
+    shutil.copytree(a_dir / "step_00000003", b_dir / "step_00000003")
+    run_b = train_main(ARGS + ["--ckpt", str(b_dir)])
+    assert run_b == run_a[3:]
+    out = capsys.readouterr().out
+    assert "device: cpu" in out
+    assert f"restored step 3 from {b_dir}" in out
+    assert "step     5 loss" in out and "done: loss" in out
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--model-parallel", "2"], "A10b"),
+    (["--grad-compression", "int8_ef"], "A10b"),
+    (["--arch", "dlrm-recmg"], "LM data"),
+    (["--remat", "dots"], "XLA"),
+])
+def test_launcher_refuses_what_it_does_not_port(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        train_main(ARGS + argv)
+
+
+def test_launcher_has_no_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--reduced", "--steps", "1", "--seq-len", "8",
+                    "--batch", "1"])
