@@ -110,7 +110,10 @@ training through the launcher):
     (4, 4096, 9/3, 64), qwen2.5-3b's heads (1, 4096, 16/2, 128), a ragged
     S=1,000 and head dims 16 and 32, both dtypes: each gradient within 1e-5
     (fp32) or 2e-2 (bf16) of its largest magnitude; each timed beside its
-    bound (five causal products) and beside SDPA's backward;
+    bound (five causal products) and beside SDPA's backward, bf16 also with
+    the dK/dV grid at every split of the G query heads (``ms_by_splits``);
+    the build's registers and spill bytes of its kernels are a line of
+    their own (``build_flash_attention_bwd``);
 11. LM parity: full-width smollm-135m (30 layers, d_model 576, 9/3 heads,
     vocab 49,152) from the same seeded parameters on the CPU and on the
     card, a B=2, S=256 prefill and 8 teacher-forced decode steps: logits
@@ -140,11 +143,12 @@ training through the launcher):
     3, run B from A's step-3 checkpoint alone to step 6 (losses within
     rtol 1e-3 of A's), the kernels' launches (forward 2 and backward 1 a
     layer and microbatch), tokens/s, peak memory and one step under
-    ``torch.profiler``.
+    ``torch.profiler`` (which must show the bf16 backward's tensor-core
+    kernels, ``attention_backward_ms``).
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
-error, times and bound, and for the four kernels in their second design
+error, times and bound, and for the five kernels in their second design
 that design (``quantize_scatter`` also with its launches from the single
 quantized stores and from the per-table facade of phase ``serve``); the
 kernels that the runtime phases drive add those phases' launches and show
@@ -247,12 +251,24 @@ FLASH_BWD_SHAPES = tuple(
         ("hd16", 2, 1024, 4, 2, 16),
         ("hd32", 2, 1024, 8, 2, 32))
     for dt in ("bf16", "fp32"))
-FLASH_BWD_DESIGN = ("fp32 FMAs from shared memory, bf16 widened on load; a "
-                    "delta pass, then a block per (batch, KV head, 64-key "
-                    "tile) keeping dK, dV in registers over the G heads "
-                    "and the query tiles, and a block per (batch, head, "
-                    "64-query tile) for dQ; p and dS recomputed from the "
-                    "forward's log-sum-exp, no atomics")
+# flash_attention_bwd's designs by dtype (bf16 redesigned on the tensor
+# cores; fp32 keeps the first port's kernels).
+FLASH_BWD_DESIGN = {
+    "bf16": "mma.sync m16n8k16 bf16 -> fp32, FA2's backward without "
+            "atomics: a delta pass; a block per (batch, KV head, 64-key "
+            "tile, split of the G heads), 4 warps of 16 keys computing "
+            "S^T = k q^T and dP^T = v dO^T, P^T and dS^T packed from the C "
+            "fragments as the A operands of dV += P^T dO and dK += dS^T q "
+            "(ldmatrix.trans), dK and dV in fp32 registers (split: fp32 "
+            "partials summed in order), query steps of 64 (32 at hd 128); a "
+            "block per (batch, head, 64-query tile) for dQ, key steps of "
+            "32; bf16 tiles double-buffered by 16-byte cp.async; 3 blocks an "
+            "SM at hd <= 64, no spills",
+    "fp32": "fp32 FMAs from shared memory; a delta pass, then a block per "
+            "(batch, KV head, 64-key tile) keeping dK, dV in registers over "
+            "the G heads and the query tiles, and a block per (batch, head, "
+            "64-query tile) for dQ; p and dS recomputed from the forward's "
+            "log-sum-exp, no atomics (the first port's kernels)"}
 # The designs of the two kernels redesigned after their first port, as
 # their records name them (flash_attention by dtype: fp32 keeps the first
 # port's kernel).
@@ -281,6 +297,7 @@ CHAMFER_DESIGN = ("a row is a group of 16 lanes (2 a warp, __syncwarp only); "
                   "B=256, 8 at B=65,536")
 # Kernel -> its design, for the kernels redesigned after their first port.
 REDESIGNED = {"flash_attention": FLASH_DESIGN["bf16"],
+              "flash_attention_bwd": FLASH_BWD_DESIGN["bf16"],
               "lstm_cell": LSTM_DESIGN,
               "quantize_scatter": QUANT_DESIGN,
               "chamfer": CHAMFER_DESIGN}
@@ -407,6 +424,41 @@ def phase_device():
           "cuda": torch.version.cuda})
 
 
+def ptxas_kernels(report: str) -> dict:
+    """``{kernel<template ints>: {"registers", "spill_store_bytes",
+    "spill_load_bytes"}}`` from nvcc's ``-Xptxas -v`` report of a
+    source."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        # '_ZN55_GLOBAL__N__<file hash>17attn_bwd_dkdv_mmaILi64EEEv...':
+        # the anonymous namespace and the name, each length-prefixed, then
+        # the template arguments.
+        m = re.search(r"Compiling entry function '_ZN(\d+)(\w+)'", ln)
+        if m:
+            rest = m.group(2)[int(m.group(1)):]
+            n = re.match(r"\d+", rest)
+            if n is None:
+                continue
+            rest = rest[n.end():]
+            n = int(n.group())
+            targs = rest[n:].split("Ev", 1)[0]
+            args = (["bf16"] if targs.startswith("I13__nv_bfloat16") else
+                    ["float"] if targs.startswith("If") else []) \
+                + re.findall(r"Li(\d+)E", targs)
+            name = rest[:n] + (f"<{','.join(args)}>" if args else "")
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                out[name]["spill_store_bytes"] = int(m.group(1))
+                out[name]["spill_load_bytes"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     res = _build.build_all()
     ptxas = [ln.strip() for rep in res["ptxas"].values()
@@ -414,6 +466,12 @@ def phase_build():
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": round(res["seconds"], 3),
           "built": res["built"], "ptxas": ptxas})
+    # flash_attention_bwd's kernels: registers a thread and spill bytes
+    # (the hd-128 tiles are sized to stay under 255 registers unspilled).
+    bwd = ptxas_kernels(_build.ptxas_report("flash_attention_bwd"))
+    require(any(k.startswith("attn_bwd_dkdv_mma") for k in bwd),
+            f"no attn_bwd_dkdv_mma in the backward's build report: {bwd}")
+    emit({"phase": "build_flash_attention_bwd", "kernels": bwd})
     eg._lib()
     eg._qlib()
     lc._lib()
@@ -2084,13 +2142,25 @@ def phase_flash_bwd_kernels(timer):
                "shape": name, "dtype": dt_name, "B": b, "S": s, "H": h,
                "K": n_kv, "hd": hd, "max_abs_err": max(errs.values()),
                "max_abs_err_share_of_largest_grad": shares,
-               "tolerance": tol, "design": FLASH_BWD_DESIGN,
+               "tolerance": tol, "design": FLASH_BWD_DESIGN[dt_name],
                "ms": timer(lambda: fa.flash_attention_bwd(q, k, v, o, do,
                                                           lse)),
                "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
                    q, k, v, o, do, lse)),
                "library_ms": timer(lambda: torch.autograd.grad(
                    out, (qt, kt, vt), dot, retain_graph=True))}
+        if dt_name == "bf16":
+            # Both dK/dV grids: the G query heads of a KV head in one block
+            # or split over blocks (every divisor of G), beside the split
+            # the wrapper picks.
+            group = h // n_kv
+            rec["splits"] = fa.bwd_splits(
+                b, s, n_kv, group,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            rec["ms_by_splits"] = {
+                str(sp): timer(lambda: fa.flash_attention_bwd(
+                    q, k, v, o, do, lse, splits=sp))
+                for sp in range(1, group + 1) if group % sp == 0}
         # Five causal products of 2 * (S^2 / 2) * hd per (batch, head);
         # q, k, v, o, dO and lse read once, dq, dk, dv written once.
         n_bytes = q.element_size() * b * s * hd * (4 * h + 4 * n_kv) \
@@ -2297,8 +2367,15 @@ def train_profile(cfg, seq, batch, mb):
     del model, opt
     if prof is None:
         return "not measured: the profiler recorded no device time"
-    return _profile_summary(prof["wall_ms"], prof["busy_ms"],
-                            prof["launches"], prof["kernels"], 1)
+    # The attention backward's kernels by name: the step must have run the
+    # bf16 tensor-core ones.
+    bwd = {k: ms for k, ms in prof["kernels"].items() if "attn_bwd" in k}
+    for name in ("attn_bwd_dkdv_mma", "attn_bwd_dq_mma"):
+        require(any(name in k for k in bwd),
+                f"lm_train profile: no {name} among {sorted(bwd)}")
+    return dict(_profile_summary(prof["wall_ms"], prof["busy_ms"],
+                                 prof["launches"], prof["kernels"], 1),
+                attention_backward_ms=bwd)
 
 
 def phase_dlrm_train(full, trace):
@@ -2486,8 +2563,6 @@ def main():
             kernels[-1]["launches_transfetch"] = transfetch_launches[name]
         if name in train_launches:
             kernels[-1]["launches_train"] = train_launches[name]
-        if name == "flash_attention_bwd":
-            kernels[-1]["design"] = FLASH_BWD_DESIGN
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])

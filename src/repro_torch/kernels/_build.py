@@ -6,7 +6,8 @@ at the root of the checkout, and loaded with ``ctypes``.  The library's name
 carries a hash of its source, the ``csrc/*.cuh`` headers the sources share
 and the compiler flags, so a build runs at first use and again only when
 one of them changes.  All sources are compiled in parallel, one ``nvcc``
-each.  A failed build raises with nvcc's output.
+each.  A failed build raises with nvcc's output; a build's ``-Xptxas -v``
+report (registers, spills) is kept beside its library.
 """
 from __future__ import annotations
 
@@ -73,10 +74,18 @@ def build_all() -> Dict[str, object]:
                           f"(exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, lib)
+            lib.with_suffix(".ptxas.txt").write_text(out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {"seconds": time.perf_counter() - t0,
             "built": [src.stem for src, _ in todo], "ptxas": reports}
+
+
+def ptxas_report(stem: str) -> str:
+    """nvcc's ``-Xptxas -v`` report of the build of ``csrc/<stem>.cu``'s
+    current library, kept beside it ("" if it has not been built)."""
+    path = _lib_path(CSRC / f"{stem}.cu").with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -13,39 +13,83 @@
 // Contract: q (B, S, H, hd), k and v (B, S, K, hd) with H % K == 0 (query
 // head h reads KV head h / (H / K)), o and dO like q, lse (B, H, S) fp32 in
 // natural-log units; any S (the ragged tail is masked), hd in {16, 32, 64,
-// 128}, fp32 or bf16 (widened to fp32 on load).  With s = q k^T * scale,
-// p = exp(s - lse) (0 above the diagonal) and delta_i = sum_d dO_i o_i:
+// 128}, fp32 or bf16.  With s = q k^T * scale, p = exp(s - lse) (0 above
+// the diagonal) and delta_i = sum_d dO_i o_i:
 //   dV = sum p^T dO,   dP = dO v^T,   dS = p (dP - delta),
 //   dQ = dS k * scale, dK = sum dS^T q * scale,
 // dK and dV summed over the G = H / K query heads that share a KV head.
 // dq is written in q's dtype, dk and dv in k's.
 //
 // What bounds it: the five products, 5 * 2 * B * H * S^2 / 2 * hd
-// operations (causal).  This first design runs them on fp32 FMAs from
-// shared memory, bf16 included (tensor cores are a later redesign), in
-// three kernels on the caller's stream:
-//   1. attn_bwd_delta: delta (B, H, S) fp32, 8 lanes a row;
-//   2. attn_bwd_dkdv: a block per (batch, KV head, 64-key tile) stages its
-//      k and v once, walks the G query heads and, for each, the query
-//      tiles from its own to the end of S (tiles before the diagonal have
-//      no unmasked entry and are skipped), and keeps dK and dV in
-//      registers in fp32: each written once, no atomics, deterministic;
-//   3. attn_bwd_dq: a block per (batch, head, 64-query tile) stages q, dO,
-//      lse and delta once, walks the KV tiles up to the diagonal and writes
-//      dQ once.
-// Both recompute the score tile (s and dP in one pass over hd, 4 x 4
-// entries a thread) and put p and dS through shared memory for the
-// products that sum over the tile's other axis (4 rows x hd / 16 columns
-// of the accumulator a thread).  Shared rows are padded by one float
-// against bank conflicts.  Blocks of the costliest tiles are issued first.
-// exp is the accurate expf; nothing is allocated here (the wrapper hands
-// in delta's buffer) and nothing synchronises.  The C function returns
-// cudaGetLastError() after its three launches.
+// operations (causal): 0.1954 ms on the bf16 tensor cores (989 TFLOP/s)
+// at the LM training cut, q (4, 4096, 9, 64), k/v (4, 4096, 3, 64).  A
+// delta pass (attn_bwd_delta: delta (B, H, S) fp32, 8 lanes a row) comes
+// first in both dtypes.  No atomics anywhere: each gradient element is
+// summed by one thread in a fixed order, so a call gives the same bits
+// every time (a resumed training run repeats the uninterrupted one's
+// losses bit for bit).  Blocks of the costliest tiles are issued first.
+//
+// bf16: FlashAttention-2's backward on mma.sync.m16n8k16 bf16 x bf16 ->
+// fp32 (the forward's inline-PTX helpers, mma_bf16.cuh), two kernels:
+//   1. attn_bwd_dkdv_mma: a block per (batch, KV head, 64-key tile, split
+//      of the G query heads), 4 warps, each owning 16 keys.  A warp
+//      computes the transposed tiles S^T = k q^T and dP^T = v dO^T with k
+//      and v as the A operands (held in registers for the whole block at
+//      hd <= 64, re-read by ldmatrix at hd 128 to stay under 255 registers)
+//      and q, dO tiles as B operands read by ldmatrix; P^T = 2^(S^T *
+//      scale * log2 e - lse * log2 e) and dS^T = P^T (dP^T - delta), lse
+//      and delta being the column values staged per query tile, masked on
+//      the tiles that cross the warp's diagonal or the end of S.  P^T and
+//      dS^T are packed to bf16 straight from the C fragments as the A
+//      operands of dV += P^T dO and dK += dS^T q (dO and q read by
+//      ldmatrix.trans): P and dS never go through shared memory.  dK and dV
+//      accumulate in fp32 registers over the split's query heads and every
+//      query tile from the diagonal on, and are written once.  Query tiles
+//      are 64 rows (32 at hd 128, for registers).
+//   2. attn_bwd_dq_mma: a block per (batch, head, 64-query tile), 4 warps
+//      of 16 queries holding their q and dO A fragments in registers; K and
+//      V tiles of 32 keys as B operands.  S = q k^T, dP = dO
+//      v^T, dS = P (dP - delta) and dQ += dS k, dS packed from the C
+//      fragments and k read by ldmatrix.trans.  S and dP are computed again
+//      here (7 products where FA2 with atomics does 5): the price of
+//      determinism; the bound counts the function's 5.
+//   Tiles stay bf16 in shared memory, rows padded by 16 bytes (hd + 8) so
+//   each ldmatrix's 8 row addresses fall in distinct banks, loaded by
+//   16-byte cp.async (4-byte for lse and delta) with the next tile's copy
+//   in flight under this tile's products; ragged tails are zero-filled.
+//   Where the key tiles of all KV heads would not fill the card
+//   (qwen2.5-3b's 1 x 2 KV heads x 64 tiles = 128 blocks for 132 SMs,
+//   the block of key tile 0 walking 8 heads x 64 query tiles), the G query
+//   heads are split over blocks (the caller picks the count): each split
+//   writes fp32 dK/dV partials to a scratch the wrapper allocates, and
+//   attn_bwd_sum_splits adds them in split order, scales and rounds once.
+//   Registers: 3 blocks of 128 threads an SM at hd <= 64 (168 a thread for
+//   dK/dV with k and v held), 2 at hd 128 (242); no spills.
+//   Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PR 21): 1.12
+//   ms at the training cut (17% of the bound; SDPA's backward 0.59 ms; the
+//   FMA design it replaces 11.08 ms), 1.04 ms at qwen2.5-3b's heads (1,
+//   4096, 16/2, 128) with the heads split 4 ways (2.00 ms unsplit; the
+//   plain version 15.3 ms, SDPA 0.47 ms).  What holds it back: mma.sync
+//   with 16-row warp tiles reads every B fragment from shared memory by
+//   ldmatrix for one use, and dQ recomputes S and dP.
+//
+// fp32: the first port's kernels on FMAs (attn_bwd_dkdv, attn_bwd_dq): the
+// same two walks with 64 x 64 tiles staged in shared memory (rows padded by
+// one float), the score tile recomputed as s and dP in one pass over hd (4
+// x 4 entries a thread), p and dS through shared memory.  They beat the
+// library's fp32 backward, and TF32 tensor cores would not hold 1e-5.
+//
+// exp is the SFU's 2^x for bf16 and the accurate expf for fp32.  Nothing is
+// allocated here (the wrapper hands in delta's buffer and the partials)
+// and nothing synchronises.  The C functions return cudaGetLastError()
+// after their launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -61,10 +105,6 @@ constexpr int64_t kDefaultSmem = 48 * 1024;
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] * o[b, s, h, d]: kDeltaLanes lanes
@@ -102,10 +142,11 @@ attn_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // Stages rows [row0, row0 + kTile) of one head of a (B, S, heads, HD)
-// tensor (base already at the batch and head) as fp32, row stride HD + 1;
+// fp32 tensor (base already at the batch and head), row stride HD + 1;
 // rows past S are zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src,
                                       int64_t row_stride, int row0,
                                       int s_len) {
   for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
@@ -113,7 +154,7 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     const int d = i - r * HD;
     const int pos = row0 + r;
     dst[r * (HD + 1) + d] =
-        pos < s_len ? widen(src[pos * row_stride + d]) : 0.0f;
+        pos < s_len ? src[pos * row_stride + d] : 0.0f;
   }
 }
 
@@ -201,13 +242,13 @@ constexpr int64_t dq_smem_bytes() {
                               2 * kTile) * 4;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dk, T* __restrict__ dv, int s_len, int n_heads,
-              int n_kv, float scale) {
+              float* __restrict__ dk, float* __restrict__ dv, int s_len,
+              int n_heads, int n_kv, float scale) {
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;  // accumulator columns a thread
   extern __shared__ float smem[];
@@ -233,8 +274,8 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
   const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
-  stage<T, HD>(s_k, k + kv_base, kv_row, k0, s_len);
-  stage<T, HD>(s_v, v + kv_base, kv_row, k0, s_len);
+  stage<HD>(s_k, k + kv_base, kv_row, k0, s_len);
+  stage<HD>(s_v, v + kv_base, kv_row, k0, s_len);
 
   // Thread (rg, cg) accumulates keys rg + 16 a, head dims cg + 16 c.
   float acc_k[kPer][kCols];
@@ -257,8 +298,8 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = kt; qt < n_qt; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();  // the last tile's q, dO, p and dS are read
-      stage<T, HD>(s_q, q + q_base, q_row, q0, s_len);
-      stage<T, HD>(s_do, dout + q_base, q_row, q0, s_len);
+      stage<HD>(s_q, q + q_base, q_row, q0, s_len);
+      stage<HD>(s_do, dout + q_base, q_row, q0, s_len);
       stage_rows(s_lse, s_delta, lse + row_base, delta + row_base, q0,
                  s_len);
       __syncthreads();
@@ -298,18 +339,18 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t at = kv_base + kpos * kv_row;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      store(dk + at + cg + kGrid * c, acc_k[a][c] * scale);
-      store(dv + at + cg + kGrid * c, acc_v[a][c]);
+      dk[at + cg + kGrid * c] = acc_k[a][c] * scale;
+      dv[at + cg + kGrid * c] = acc_v[a][c];
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dq, int s_len, int n_heads, int n_kv,
+            float* __restrict__ dq, int s_len, int n_heads, int n_kv,
             float scale) {
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;
@@ -338,8 +379,8 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
   const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
-  stage<T, HD>(s_q, q + q_base, q_row, q0, s_len);
-  stage<T, HD>(s_do, dout + q_base, q_row, q0, s_len);
+  stage<HD>(s_q, q + q_base, q_row, q0, s_len);
+  stage<HD>(s_do, dout + q_base, q_row, q0, s_len);
   stage_rows(s_lse, s_delta, lse + row_base, delta + row_base, q0, s_len);
 
   // Thread (rg, cg) accumulates queries rg + 16 a, head dims cg + 16 c.
@@ -354,8 +395,8 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // q, dO staged; the last tile's k and dS are read
-    stage<T, HD>(s_k, k + kv_base, kv_row, k0, s_len);
-    stage<T, HD>(s_v, v + kv_base, kv_row, k0, s_len);
+    stage<HD>(s_k, k + kv_base, kv_row, k0, s_len);
+    stage<HD>(s_v, v + kv_base, kv_row, k0, s_len);
     __syncthreads();
     score_tile<HD>(s_q, s_do, s_k, s_v, s_lse, s_delta, nullptr, s_ds, q0,
                    k0, s_len, scale, rg, cg);
@@ -387,7 +428,541 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t at = q_base + qpos * q_row;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      store(dq + at + cg + kGrid * c, acc[a][c] * scale);
+      dq[at + cg + kGrid * c] = acc[a][c] * scale;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;  // 128
+constexpr int kMmaRows = 16 * kMmaWarps;     // 64 keys (dK/dV), queries (dQ)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The inner tile of each walk.  dK/dV steps over 64 query rows, 32 at hd
+// 128, where the fp32 dK and dV of 16 keys x 128 already take 128
+// registers a thread.  dQ steps over 32 keys: its S and dP then take 32
+// registers, which keeps it unspilled at 3 blocks an SM at hd 64.
+template <int HD>
+constexpr int kQStep = HD <= 64 ? 64 : 32;
+constexpr int kKStep = 32;
+// Blocks an SM the register budget is sized for (launch bounds): 3 at hd
+// <= 64; at hd 128 the compiler's choice (2, at 236-242 registers).
+template <int HD>
+constexpr int kMinBlocks = HD <= 64 ? 3 : 1;
+
+// dK/dV warps hold their k and v A fragments (hd / 2 registers) for the
+// whole block at hd <= 64; at hd 128 they re-read them by ldmatrix.
+template <int HD>
+constexpr bool kMmaHoldKV = HD <= 64;
+
+template <int HD>
+constexpr int64_t dkdv_mma_smem_bytes() {
+  // k and v, two stages of q and of dO, rows padded to hd + 8 bf16; two
+  // stages of lse and of delta.
+  return static_cast<int64_t>(2 * kMmaRows + 4 * kQStep<HD>) * (HD + 8) *
+             2 +
+         4 * kQStep<HD> * 4;
+}
+
+template <int HD>
+constexpr int64_t dq_mma_smem_bytes() {
+  // q and dO, two stages of k and of v, rows padded to hd + 8 bf16.
+  return static_cast<int64_t>(2 * kMmaRows + 4 * kKStep) * (HD + 8) * 2;
+}
+
+// 4 bytes from global to shared; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+// Copies rows [row0, row0 + ROWS) of one head of a (B, S, heads, HD) bf16
+// tensor (src already at the batch and head) into dst, row stride HD + 8,
+// by 16-byte cp.async; rows past S are zero-filled (their source address
+// stays in bounds).
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+    int64_t row_stride, int row0, int s_len) {
+  constexpr int kChunks = HD / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int pos = row0 + r;
+    cp_async16(smem_addr(dst + r * (HD + 8) + c * 8),
+               src + min(pos, s_len - 1) * row_stride + c * 8,
+               pos < s_len ? 16 : 0);
+  }
+}
+
+// The A fragment of k16 step d of tile rows row0 .. row0 + 15.
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int row0,
+                                       int d, int lane) {
+  ldmatrix_x4(a, smem_addr(tile + (row0 + (lane & 15)) * (HD + 8) + 16 * d +
+                           8 * (lane >> 4)));
+}
+
+// b0, b1 of n8 tiles n and n + 1 at k16 step d of B = tile^T (the tile's
+// rows are B's columns): lanes 8 i .. 8 i + 7 address rows 8 (n + i / 2)
+// .. + 7 at columns 16 d + 8 (i % 2).
+template <int HD>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4],
+                                       const __nv_bfloat16* tile, int n,
+                                       int d, int lane) {
+  ldmatrix_x4(b, smem_addr(tile + (8 * (n + (lane >> 4)) + (lane & 7)) *
+                                      (HD + 8) +
+                           16 * d + 8 * ((lane >> 3) & 1)));
+}
+
+// b0, b1 of n8 tiles n and n + 1 at k16 step j of B = tile (the tile's
+// rows are B's rows): lanes 8 i .. 8 i + 7 address rows 16 j + 8 (i % 2)
+// .. + 7 at columns 8 (n + i / 2).
+template <int HD>
+__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
+                                             const __nv_bfloat16* tile, int n,
+                                             int j, int lane) {
+  ldmatrix_x4_trans(b, smem_addr(tile + (16 * j + 8 * ((lane >> 3) & 1) +
+                                         (lane & 7)) *
+                                            (HD + 8) +
+                                 8 * (n + (lane >> 4))));
+}
+
+// The A fragment of k16 step j of the next product, from the fp32 C
+// fragments of n8 tiles 2 j (lo) and 2 j + 1 (hi), rounded to bf16.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// dK and dV of one 64-key tile over the query heads h0 .. h0 + n_heads_split
+// - 1 of its KV head.  With partial null, dk = acc_k * scale and dv = acc_v
+// are written as bf16; otherwise acc_k and acc_v go, fp32 and unscaled, to
+// partial[0][split] and partial[1][split], each (B, S, K, hd).
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, kMinBlocks<HD>)
+attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, float* __restrict__ partial,
+                  int s_len, int n_heads, int n_kv, int splits, float scale,
+                  float scale_log2) {
+  constexpr int kStride = HD + 8;
+  constexpr int kStep = kQStep<HD>;  // queries a tile
+  constexpr int kDSteps = HD / 16;       // k16 steps of S^T, dP^T
+  constexpr int kQTiles = kStep / 8;     // n8 tiles of S^T, dP^T
+  constexpr int kDTiles = HD / 8;        // n8 tiles of dK, dV
+  constexpr bool kHold = kMmaHoldKV<HD>;
+  constexpr int kQElems = kStep * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* s_k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_v = s_k + kMmaRows * kStride;
+  __nv_bfloat16* s_q = s_v + kMmaRows * kStride;  // 2 stages
+  __nv_bfloat16* s_do = s_q + 2 * kQElems;        // 2 stages
+  float* s_lse = reinterpret_cast<float*>(s_do + 2 * kQElems);  // 2 stages
+  float* s_delta = s_lse + 2 * kStep;                           // 2 stages
+
+  const int split = blockIdx.x % splits;
+  const int bk = blockIdx.x / splits;
+  const int b = bk / n_kv;
+  const int kvh = bk - b * n_kv;
+  const int per_split = n_heads / n_kv / splits;
+  const int h0 = kvh * (n_heads / n_kv) + split * per_split;
+  // Key tile 0 sees every query tile: the costliest blocks come first.
+  const int k0 = blockIdx.y * kMmaRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int kw0 = k0 + 16 * warp;  // this warp's first key
+  const int key_lo = kw0 + g;      // the lane's two keys
+  const int key_hi = key_lo + 8;
+
+  const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
+  const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
+  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+                          static_cast<int64_t>(kvh) * HD;
+  load_tile<HD, kMmaRows>(s_k, k + kv_base, kv_row, k0, s_len);
+  load_tile<HD, kMmaRows>(s_v, v + kv_base, kv_row, k0, s_len);
+
+  // The walk: the split's heads, and for each the query tiles from the
+  // one holding key k0 to the end of S (earlier tiles are all masked).
+  const int qt0 = k0 / kStep;
+  const int per_head = (s_len + kStep - 1) / kStep - qt0;
+  const int n_it = per_split * per_head;
+  auto load_q = [&](int it, int stage) {
+    const int h = h0 + it / per_head;
+    const int q0 = (qt0 + it % per_head) * kStep;
+    const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+                           static_cast<int64_t>(h) * HD;
+    load_tile<HD, kStep>(s_q + stage * kQElems, q + q_base, q_row, q0, s_len);
+    load_tile<HD, kStep>(s_do + stage * kQElems, dout + q_base, q_row, q0,
+                         s_len);
+    const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
+    for (int i = tid; i < 2 * kStep; i += kMmaThreads) {
+      const int r = i < kStep ? i : i - kStep;
+      const int pos = q0 + r;
+      const float* src = (i < kStep ? lse : delta) + row_base +
+                         min(pos, s_len - 1);
+      float* dst = (i < kStep ? s_lse : s_delta) + stage * kStep + r;
+      cp_async4(smem_addr(dst), src, pos < s_len ? 4 : 0);
+    }
+  };
+  load_q(0, 0);
+  cp_async_commit();
+
+  float acc_k[kDTiles][4];
+  float acc_v[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_k[n][e] = 0.0f;
+      acc_v[n][e] = 0.0f;
+    }
+  }
+  uint32_t kf[kHold ? kDSteps : 1][4];
+  uint32_t vf[kHold ? kDSteps : 1][4];
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      load_q(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kHold) {
+      if (it == 0) {
+#pragma unroll
+        for (int d = 0; d < kDSteps; ++d) {
+          load_a<HD>(kf[d], s_k, 16 * warp, d, lane);
+          load_a<HD>(vf[d], s_v, 16 * warp, d, lane);
+        }
+      }
+    }
+    const int q0 = (qt0 + it % per_head) * kStep;
+    // A warp whose keys all lie past this tile's queries, or past S,
+    // skips it.
+    if (q0 + kStep - 1 >= kw0 && kw0 < s_len) {
+      const __nv_bfloat16* sq = s_q + (it & 1) * kQElems;
+      const __nv_bfloat16* sdo = s_do + (it & 1) * kQElems;
+      const float* sl = s_lse + (it & 1) * kStep;
+      const float* sd = s_delta + (it & 1) * kStep;
+      float st[kQTiles][4];   // S^T, then P^T
+      float dpt[kQTiles][4];  // dP^T, then dS^T
+#pragma unroll
+      for (int n = 0; n < kQTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[n][e] = 0.0f;
+          dpt[n][e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < kDSteps; ++d) {
+        uint32_t ka[4], va[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[d][e];
+            va[e] = vf[d][e];
+          }
+        } else {
+          load_a<HD>(ka, s_k, 16 * warp, d, lane);
+          load_a<HD>(va, s_v, 16 * warp, d, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < kQTiles; n += 2) {
+          uint32_t bq[4], bd[4];
+          load_b<HD>(bq, sq, n, d, lane);
+          mma_bf16(st[n], ka, bq[0], bq[1]);
+          mma_bf16(st[n + 1], ka, bq[2], bq[3]);
+          load_b<HD>(bd, sdo, n, d, lane);
+          mma_bf16(dpt[n], va, bd[0], bd[1]);
+          mma_bf16(dpt[n + 1], va, bd[2], bd[3]);
+        }
+      }
+      // P^T and dS^T; the mask where the tile crosses the warp's diagonal
+      // (a key after a query) or the end of S (a query past it).
+      const bool edge = kw0 + 15 > q0 || q0 + kStep > s_len;
+#pragma unroll
+      for (int n = 0; n < kQTiles; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * n + 2 * t4 + c;
+          const int query = q0 + col;
+          const float lse2 = sl[col] * kLog2e;
+          const float dl = sd[col];
+          float p_lo = exp2_approx(fmaf(st[n][c], scale_log2, -lse2));
+          float p_hi = exp2_approx(fmaf(st[n][2 + c], scale_log2, -lse2));
+          if (edge) {
+            if (key_lo > query || query >= s_len) p_lo = 0.0f;
+            if (key_hi > query || query >= s_len) p_hi = 0.0f;
+          }
+          st[n][c] = p_lo;
+          st[n][2 + c] = p_hi;
+          dpt[n][c] = p_lo * (dpt[n][c] - dl);
+          dpt[n][2 + c] = p_hi * (dpt[n][2 + c] - dl);
+        }
+      }
+      // dV += P^T dO and dK += dS^T q over the tile's queries.
+#pragma unroll
+      for (int j = 0; j < kStep / 16; ++j) {
+        uint32_t pa[4], da[4];
+        c_to_a(pa, st[2 * j], st[2 * j + 1]);
+        c_to_a(da, dpt[2 * j], dpt[2 * j + 1]);
+#pragma unroll
+        for (int n = 0; n < kDTiles; n += 2) {
+          uint32_t bd[4], bq[4];
+          load_b_trans<HD>(bd, sdo, n, j, lane);
+          mma_bf16(acc_v[n], pa, bd[0], bd[1]);
+          mma_bf16(acc_v[n + 1], pa, bd[2], bd[3]);
+          load_b_trans<HD>(bq, sq, n, j, lane);
+          mma_bf16(acc_k[n], da, bq[0], bq[1]);
+          mma_bf16(acc_k[n + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+  const int64_t n_elems = static_cast<int64_t>(gridDim.x / splits) / n_kv *
+                          s_len * kv_row;
+  float* part_k = partial == nullptr ? nullptr : partial + split * n_elems;
+  float* part_v =
+      partial == nullptr ? nullptr : partial + (splits + split) * n_elems;
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) {
+    const int col = 8 * n + 2 * t4;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = half ? key_hi : key_lo;
+      if (key >= s_len) continue;
+      const int64_t at = kv_base + key * kv_row + col;
+      const float k0v = acc_k[n][2 * half], k1v = acc_k[n][2 * half + 1];
+      const float v0v = acc_v[n][2 * half], v1v = acc_v[n][2 * half + 1];
+      if (partial == nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(k0v * scale, k1v * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(v0v, v1v);
+      } else {
+        *reinterpret_cast<float2*>(part_k + at) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(part_v + at) = make_float2(v0v, v1v);
+      }
+    }
+  }
+}
+
+// dk = scale * (partial[0][0] + ... + partial[0][splits - 1]) and dv = the
+// same sum of partial[1], each (B, S, K, hd) of n elements, added in split
+// order (deterministic) and rounded once: 4 elements a thread.
+__global__ void __launch_bounds__(256)
+attn_bwd_sum_splits(const float* __restrict__ partial,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int64_t n, int splits,
+                    float scale) {
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const int kind = i >= n;  // 0: dk, 1: dv (n is a multiple of 4)
+  const int64_t e = i - kind * n;
+  const float* src = partial + kind * splits * n + e;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(src + s * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float f = kind ? 1.0f : scale;
+  __nv_bfloat162* out =
+      reinterpret_cast<__nv_bfloat162*>((kind ? dv : dk) + e);
+  out[0] = __floats2bfloat162_rn(acc.x * f, acc.y * f);
+  out[1] = __floats2bfloat162_rn(acc.z * f, acc.w * f);
+}
+
+// dQ of one 64-query tile of one head.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, kMinBlocks<HD>)
+attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dq, int s_len, int n_heads,
+                int n_kv, float scale, float scale_log2) {
+  constexpr int kStride = HD + 8;
+  constexpr int kStep = kKStep;  // keys a tile
+  constexpr int kDSteps = HD / 16;       // k16 steps of S, dP
+  constexpr int kKTiles = kStep / 8;     // n8 tiles of S, dP
+  constexpr int kDTiles = HD / 8;        // n8 tiles of dQ
+  constexpr int kKElems = kStep * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_do = s_q + kMmaRows * kStride;
+  __nv_bfloat16* s_k = s_do + kMmaRows * kStride;  // 2 stages
+  __nv_bfloat16* s_v = s_k + 2 * kKElems;          // 2 stages
+
+  const int b = blockIdx.x / n_heads;
+  const int h = blockIdx.x - b * n_heads;
+  const int kvh = h / (n_heads / n_kv);
+  // The last query tile walks the most KV tiles: issued first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
+  const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
+  const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+                         static_cast<int64_t>(h) * HD;
+  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+                          static_cast<int64_t>(kvh) * HD;
+  load_tile<HD, kMmaRows>(s_q, q + q_base, q_row, q0, s_len);
+  load_tile<HD, kMmaRows>(s_do, dout + q_base, q_row, q0, s_len);
+  auto load_kv = [&](int tile, int stage) {
+    load_tile<HD, kStep>(s_k + stage * kKElems, k + kv_base, kv_row,
+                         tile * kStep, s_len);
+    load_tile<HD, kStep>(s_v + stage * kKElems, v + kv_base, kv_row,
+                         tile * kStep, s_len);
+  };
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // This warp's 16 queries: g and g + 8 of them are this lane's, with
+  // their lse (log2 units) and delta.
+  const int w_first = q0 + 16 * warp;
+  const int w_last = w_first + 15;
+  const int row_lo = w_first + g;
+  const int row_hi = row_lo + 8;
+  const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
+  const float lse2_lo =
+      row_lo < s_len ? lse[row_base + row_lo] * kLog2e : 0.0f;
+  const float lse2_hi =
+      row_hi < s_len ? lse[row_base + row_hi] * kLog2e : 0.0f;
+  const float d_lo = row_lo < s_len ? delta[row_base + row_lo] : 0.0f;
+  const float d_hi = row_hi < s_len ? delta[row_base + row_hi] : 0.0f;
+  uint32_t qf[kDSteps][4];
+  uint32_t df[kDSteps][4];
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+
+  // KV tiles up to the causal frontier of the tile's last real query.
+  const int q_last = min(q0 + kMmaRows, s_len) - 1;
+  const int n_tiles = q_last / kStep + 1;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int d = 0; d < kDSteps; ++d) {
+        load_a<HD>(qf[d], s_q, 16 * warp, d, lane);
+        load_a<HD>(df[d], s_do, 16 * warp, d, lane);
+      }
+    }
+    const int k0 = t * kStep;
+    // A warp whose queries all lie before this tile, or past S, skips it.
+    if (k0 <= w_last && w_first < s_len) {
+      const __nv_bfloat16* sk = s_k + (t & 1) * kKElems;
+      const __nv_bfloat16* sv = s_v + (t & 1) * kKElems;
+      float s[kKTiles][4];   // S, then dS
+      float dp[kKTiles][4];  // dP
+#pragma unroll
+      for (int n = 0; n < kKTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = 0.0f;
+          dp[n][e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < kDSteps; ++d) {
+#pragma unroll
+        for (int n = 0; n < kKTiles; n += 2) {
+          uint32_t bk[4], bv[4];
+          load_b<HD>(bk, sk, n, d, lane);
+          mma_bf16(s[n], qf[d], bk[0], bk[1]);
+          mma_bf16(s[n + 1], qf[d], bk[2], bk[3]);
+          load_b<HD>(bv, sv, n, d, lane);
+          mma_bf16(dp[n], df[d], bv[0], bv[1]);
+          mma_bf16(dp[n + 1], df[d], bv[2], bv[3]);
+        }
+      }
+      // dS = P (dP - delta); the mask where the tile crosses the warp's
+      // diagonal or the end of S (a key past it).
+      const bool edge = k0 + kStep - 1 > w_first || k0 + kStep > s_len;
+#pragma unroll
+      for (int n = 0; n < kKTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo = e < 2;
+          float p = exp2_approx(
+              fmaf(s[n][e], scale_log2, -(lo ? lse2_lo : lse2_hi)));
+          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+          if (edge && (key > (lo ? row_lo : row_hi) || key >= s_len)) {
+            p = 0.0f;
+          }
+          s[n][e] = p * (dp[n][e] - (lo ? d_lo : d_hi));
+        }
+      }
+      // dQ += dS k over the tile's keys.
+#pragma unroll
+      for (int j = 0; j < kStep / 16; ++j) {
+        uint32_t da[4];
+        c_to_a(da, s[2 * j], s[2 * j + 1]);
+#pragma unroll
+        for (int n = 0; n < kDTiles; n += 2) {
+          uint32_t bk[4];
+          load_b_trans<HD>(bk, sk, n, j, lane);
+          mma_bf16(acc[n], da, bk[0], bk[1]);
+          mma_bf16(acc[n + 1], da, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (row_lo < s_len) {
+      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + row_lo * q_row + col) =
+          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
+    }
+    if (row_hi < s_len) {
+      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + row_hi * q_row + col) =
+          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
     }
   }
 }
@@ -409,58 +984,118 @@ cudaError_t allow_smem(Kernel kernel, int64_t smem, bool* done) {
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int64_t batch,
-                   int s_len, int n_heads, int n_kv, float scale,
-                   cudaStream_t stream) {
-  constexpr int64_t dkdv_smem = dkdv_smem_bytes<HD>();
-  constexpr int64_t dq_smem = dq_smem_bytes<HD>();
-  static bool dkdv_set = false;  // per instantiation
-  static bool dq_set = false;
-  cudaError_t err = allow_smem(attn_bwd_dkdv<T, HD>, dkdv_smem, &dkdv_set);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_dq<T, HD>, dq_smem, &dq_set);
-  if (err != cudaSuccess) return err;
-
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         int64_t batch, int s_len, int n_heads,
+                         cudaStream_t stream) {
   const int64_t rows = batch * s_len * n_heads;
-  const int64_t delta_blocks = (rows * kDeltaLanes + kThreads - 1) / kThreads;
-  attn_bwd_delta<T, HD><<<static_cast<unsigned>(delta_blocks), kThreads, 0,
+  const int64_t blocks = (rows * kDeltaLanes + kThreads - 1) / kThreads;
+  attn_bwd_delta<T, HD><<<static_cast<unsigned>(blocks), kThreads, 0,
                           stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows,
       s_len, n_heads);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const unsigned n_tiles = static_cast<unsigned>((s_len + kTile - 1) / kTile);
-  attn_bwd_dkdv<T, HD><<<dim3(static_cast<unsigned>(batch * n_kv), n_tiles),
-                         kThreads, static_cast<size_t>(dkdv_smem), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), s_len, n_heads, n_kv, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  attn_bwd_dq<T, HD><<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles),
-                       kThreads, static_cast<size_t>(dq_smem), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), s_len, n_heads, n_kv, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_dtype(int dtype, const void* q, const void* k,
-                         const void* v, const void* o, const void* dout,
-                         const float* lse, float* delta, void* dq, void* dk,
-                         void* dv, int64_t batch, int s_len, int n_heads,
-                         int n_kv, float scale, cudaStream_t stream) {
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv,
+                       int64_t batch, int s_len, int n_heads, int n_kv,
+                       float scale, cudaStream_t stream) {
+  constexpr int64_t dkdv_smem = dkdv_smem_bytes<HD>();
+  constexpr int64_t dq_smem = dq_smem_bytes<HD>();
+  static bool dkdv_set = false;  // per instantiation
+  static bool dq_set = false;
+  cudaError_t err = allow_smem(attn_bwd_dkdv<HD>, dkdv_smem, &dkdv_set);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(attn_bwd_dq<HD>, dq_smem, &dq_set);
+  if (err != cudaSuccess) return err;
+  err = launch_delta<float, HD>(o, dout, delta, batch, s_len, n_heads,
+                                stream);
+  if (err != cudaSuccess) return err;
+
+  const unsigned n_tiles = static_cast<unsigned>((s_len + kTile - 1) / kTile);
+  attn_bwd_dkdv<HD><<<dim3(static_cast<unsigned>(batch * n_kv), n_tiles),
+                      kThreads, static_cast<size_t>(dkdv_smem), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), s_len,
+      n_heads, n_kv, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  attn_bwd_dq<HD><<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles),
+                    kThreads, static_cast<size_t>(dq_smem), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), s_len, n_heads, n_kv, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv,
+                       float* partial, int64_t batch, int s_len, int n_heads,
+                       int n_kv, int splits, float scale,
+                       cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int64_t dkdv_smem = dkdv_mma_smem_bytes<HD>();
+  constexpr int64_t dq_smem = dq_mma_smem_bytes<HD>();
+  static bool dkdv_set = false;  // per instantiation
+  static bool dq_set = false;
+  cudaError_t err = allow_smem(attn_bwd_dkdv_mma<HD>, dkdv_smem, &dkdv_set);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(attn_bwd_dq_mma<HD>, dq_smem, &dq_set);
+  if (err != cudaSuccess) return err;
+  err = launch_delta<bf16, HD>(o, dout, delta, batch, s_len, n_heads, stream);
+  if (err != cudaSuccess) return err;
+
+  const float scale_log2 = scale * kLog2e;
+  const unsigned n_tiles =
+      static_cast<unsigned>((s_len + kMmaRows - 1) / kMmaRows);
+  attn_bwd_dkdv_mma<HD>
+      <<<dim3(static_cast<unsigned>(batch * n_kv * splits), n_tiles),
+         kMmaThreads, static_cast<size_t>(dkdv_smem), stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+          delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+          splits > 1 ? partial : nullptr, s_len, n_heads, n_kv, splits,
+          scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    const int64_t n = batch * s_len * n_kv * HD;
+    const int64_t blocks = (2 * n / 4 + 255) / 256;
+    attn_bwd_sum_splits<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+        partial, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits,
+        scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  attn_bwd_dq_mma<HD>
+      <<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles), kMmaThreads,
+         static_cast<size_t>(dq_smem), stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+          delta, static_cast<bf16*>(dq), s_len, n_heads, n_kv, scale,
+          scale_log2);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv,
+                   float* partial, int64_t batch, int s_len, int n_heads,
+                   int n_kv, int splits, float scale, cudaStream_t stream) {
   return dtype == 0
-             ? launch<float, HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                 batch, s_len, n_heads, n_kv, scale, stream)
-             : launch<__nv_bfloat16, HD>(q, k, v, o, dout, lse, delta, dq,
-                                         dk, dv, batch, s_len, n_heads, n_kv,
-                                         scale, stream);
+             ? launch_fma<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                              batch, s_len, n_heads, n_kv, scale, stream)
+             : launch_mma<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                              partial, batch, s_len, n_heads, n_kv, splits,
+                              scale, stream);
 }
 
 }  // namespace
@@ -469,10 +1104,66 @@ extern "C" {
 
 // q, o, dout, dq (batch, s_len, n_heads, head_dim); k, v, dk, dv (batch,
 // s_len, n_kv, head_dim); contiguous, all float32 (dtype 0) or all
-// bfloat16 (dtype 1).  lse (batch, n_heads, s_len) float32 from the
-// forward; delta a float32 scratch of the same shape, overwritten.
-// n_heads % n_kv == 0, head_dim in {16, 32, 64, 128}, scale the forward's
-// softmax scale.
+// bfloat16 (dtype 1; q, k, v and dout 16-byte aligned, for the 16-byte
+// copies).  lse (batch, n_heads, s_len) float32 from the forward; delta a
+// float32 scratch of the same shape, overwritten.  n_heads % n_kv == 0,
+// head_dim in {16, 32, 64, 128}, scale the forward's softmax scale.
+// splits: the number of blocks over which each KV head's n_heads / n_kv
+// query heads are split for dK and dV (bf16 only; it divides n_heads /
+// n_kv); with splits > 1, partial is a float32 scratch of 2 * splits *
+// batch * s_len * n_kv * head_dim elements, overwritten.
+int repro_flash_attention_bwd_split(const void* q, const void* k,
+                                    const void* v, const void* o,
+                                    const void* dout, const void* lse,
+                                    void* delta, void* dq, void* dk, void* dv,
+                                    void* partial, int64_t batch,
+                                    int64_t s_len, int n_heads, int n_kv,
+                                    int head_dim, int dtype, float scale,
+                                    int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
+      n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
+      (s_len + kTile - 1) / kTile > kMaxTiles ||
+      (dtype != 0 && dtype != 1) || splits < 1 ||
+      (n_heads / n_kv) % splits != 0 ||
+      (splits > 1 && (dtype != 1 || partial == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 1 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+       15)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const int sl = static_cast<int>(s_len);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  float* part = static_cast<float*>(partial);
+  cudaError_t err;
+  switch (head_dim) {
+    case 16:
+      err = launch<16>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
+                       batch, sl, n_heads, n_kv, splits, scale, s);
+      break;
+    case 32:
+      err = launch<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
+                       batch, sl, n_heads, n_kv, splits, scale, s);
+      break;
+    case 64:
+      err = launch<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
+                       batch, sl, n_heads, n_kv, splits, scale, s);
+      break;
+    case 128:
+      err = launch<128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
+                        batch, sl, n_heads, n_kv, splits, scale, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// The same with the G query heads of a KV head in one block (splits 1).
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* delta, void* dq,
@@ -480,38 +1171,10 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               int64_t s_len, int n_heads, int n_kv,
                               int head_dim, int dtype, float scale,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
-      n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
-      (s_len + kTile - 1) / kTile > kMaxTiles ||
-      (dtype != 0 && dtype != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int sl = static_cast<int>(s_len);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  cudaError_t err;
-  switch (head_dim) {
-    case 16:
-      err = launch_dtype<16>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv,
-                             batch, sl, n_heads, n_kv, scale, s);
-      break;
-    case 32:
-      err = launch_dtype<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv,
-                             batch, sl, n_heads, n_kv, scale, s);
-      break;
-    case 64:
-      err = launch_dtype<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv,
-                             batch, sl, n_heads, n_kv, scale, s);
-      break;
-    case 128:
-      err = launch_dtype<128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv,
-                              batch, sl, n_heads, n_kv, scale, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return repro_flash_attention_bwd_split(q, k, v, o, dout, lse, delta, dq,
+                                         dk, dv, nullptr, batch, s_len,
+                                         n_heads, n_kv, head_dim, dtype,
+                                         scale, 1, stream);
 }
 
 }  // extern "C"

@@ -5,12 +5,14 @@ Counterpart of ``src/repro/kernels/flash_attention.py::flash_attention``:
 causal attention with an online softmax in fp32, scale ``1/sqrt(hd)``.
 The kernel takes the model's layout, q (B, S, H, hd) and k/v (B, S, K, hd)
 with ``H % K == 0`` (query head h reads KV head ``h // (H // K)``), any S,
-fp32 or bf16, hd in {16, 32, 64, 128}.  bf16 runs both products on the
-tensor cores (p rounded to bf16 for the p v product); fp32 runs fp32 FMAs.
+fp32 or bf16, hd in {16, 32, 64, 128}.  bf16 runs the products on the
+tensor cores (p rounded to bf16 for the p v product), forward and
+backward; fp32 runs fp32 FMAs.
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, copies a bf16 input that is not 16-byte aligned, allocates its
-output with ``torch.empty``, launches on the current stream, raises if the
-launch reports an error, and adds one to its ``launches`` count.  Asked
+outputs and scratch with ``torch.empty``, launches on the current stream,
+raises if the launch reports an error, and adds one to its ``launches``
+count.  Asked
 for it (``with_lse``), the forward also returns each row's log-sum-exp,
 (B, H, S) fp32, which :func:`flash_attention_bwd` (no TPU counterpart: JAX
 differentiates the attention's XLA version) takes to give dq, dk and dv
@@ -59,9 +61,9 @@ def _bwd_lib() -> ctypes.CDLL:
     global _BWD_LIB
     if _BWD_LIB is None:
         lib = _build.load("flash_attention_bwd")
-        lib.repro_flash_attention_bwd.argtypes = [_VP] * 10 + [
-            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _VP]
-        lib.repro_flash_attention_bwd.restype = _INT
+        lib.repro_flash_attention_bwd_split.argtypes = [_VP] * 11 + [
+            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _INT, _VP]
+        lib.repro_flash_attention_bwd_split.restype = _INT
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -116,12 +118,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+# The dK/dV kernel's key tile (csrc/flash_attention_bwd.cu, kMmaRows).
+BWD_KEY_TILE = 64
+
+
+def bwd_splits(b: int, s: int, n_kv: int, group: int, sms: int) -> int:
+    """Over how many blocks the bf16 backward splits each KV head's
+    ``group`` query heads for dK and dV: 1 when the B * K * ceil(S / 64)
+    key-tile blocks reach two a streaming multiprocessor, else the least
+    divisor of ``group`` that brings them there (or ``group``).  A split
+    costs an fp32 partial of dK and dV each and a pass that sums them."""
+    blocks = b * n_kv * -(-s // BWD_KEY_TILE)
+    for d in range(1, group + 1):
+        if group % d == 0 and blocks * d >= 2 * sms:
+            return d
+    return group
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
-                        lse: torch.Tensor):
+                        lse: torch.Tensor, splits: Optional[int] = None):
     """The gradients of :func:`flash_attention`: q, o and do (B, S, H, hd);
     k/v (B, S, K, hd), one dtype on one card; lse (B, H, S) fp32 from the
-    forward -> ``(dq, dk, dv)``, dq in q's dtype and dk, dv in k's."""
+    forward -> ``(dq, dk, dv)``, dq in q's dtype and dk, dv in k's.
+    ``splits`` (bf16 only) overrides :func:`bwd_splits`'s choice; it must
+    divide H / K."""
     _check_qkv(q, k, v, "flash_attention_bwd")
     _check(o, "o", 4, (q.dtype,), q.device)
     _check(do, "do", 4, (q.dtype,), q.device)
@@ -132,17 +153,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention_bwd shapes do not match: q {tuple(q.shape)}, "
             f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
             f"{tuple(lse.shape)} (expected o, do like q, lse (B, H, S))")
+    n_kv = k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if splits is not None and (splits < 1 or (h // n_kv) % splits
+                               or (splits > 1 and not bf16)):
+        raise ValueError(f"flash_attention_bwd splits {splits}: a divisor "
+                         f"of H / K = {h // n_kv}, above 1 only for bf16")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if b == 0 or s == 0 or h == 0:
         return dq, dk.zero_(), dv.zero_()
+    if bf16:
+        # The bf16 kernels copy q, k, v and do 16 bytes at a time: a view
+        # that starts off a 16-byte boundary is copied first.
+        q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (q, k, v, do))
+        if splits is None:
+            splits = bwd_splits(b, s, n_kv, h // n_kv, torch.cuda
+                                .get_device_properties(q.device)
+                                .multi_processor_count)
+    splits = splits or 1
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    partial = (torch.empty((2, splits, b, s, n_kv, hd), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_lib().repro_flash_attention_bwd(
+        err = _bwd_lib().repro_flash_attention_bwd_split(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], hd,
-            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
+            dk.data_ptr(), dv.data_ptr(),
+            None if partial is None else partial.data_ptr(), b, s, h, n_kv,
+            hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), splits, stream)
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -13,10 +13,11 @@ CUDA the default raises).  The ``mesh:`` line becomes a ``device:`` line:
 the port trains on one card.  Deterministic resumable data
 (:mod:`repro_torch.data.lm_data`), atomic async checkpoints of the
 parameters and the AdamW state (its step count included), retry of a
-failed step, straggler monitoring and a heartbeat file.  A restart
-restores the latest checkpoint and runs on to ``--steps``, whose value also
-sets the schedule (``OptConfig(lr, total_steps=steps)``), so a resumed run
-takes the same ``--steps`` as the run it resumes.
+step that failed before its update (:func:`run_step`), straggler
+monitoring and a heartbeat file.  A restart restores the latest
+checkpoint and runs on to ``--steps``, whose value also sets the schedule
+(``OptConfig(lr, total_steps=steps)``), so a resumed run takes the same
+``--steps`` as the run it resumes.
 
 Not ported: ``--model-parallel > 1`` and ``--grad-compression int8_ef``
 (they need several cards: ROADMAP A10b).  Like JAX's launcher this one
@@ -54,6 +55,36 @@ def _restore(ckpt_dir: str, params, opt):
             p.copy_(t)
     opt.load_state_dict(tree["opt"])
     return start
+
+
+class _BeforeUpdate(Exception):
+    """A step's failure that left the parameters and the optimizer as they
+    were; its cause is the failure itself."""
+
+
+def run_step(step_fn, params, opt, batch, **retry_kw):
+    """``step_fn(params, opt, batch)`` under :func:`retry_step` (``retry_kw``
+    goes to it).  A failure before the update (the loss, the backward)
+    leaves the parameters and the optimizer as they were, so the step is
+    retried from the same state, as JAX's pure step is.  The update
+    changes them in place, leaf by leaf, after ``opt.count`` has moved: a
+    failure once the count has moved is raised at once, since a retry
+    would apply the step a second time.  Either way the error that
+    surfaces is the step's own."""
+    def attempt():
+        count = opt.count
+        try:
+            return step_fn(params, opt, batch)
+        except Exception as e:
+            if opt.count != count:
+                raise
+            raise _BeforeUpdate() from e
+
+    try:
+        return retry_step(attempt, retryable=_BeforeUpdate, **retry_kw)
+    except _BeforeUpdate as e:
+        err = e.__cause__
+    raise err
 
 
 def main(argv=None):
@@ -117,9 +148,7 @@ def main(argv=None):
     for step in range(start, args.steps):
         batch = batch_at(data_cfg, step)
         t0 = time.perf_counter()
-        # A retried step starts over: a failure before the update leaves
-        # the parameters and the optimizer as they were.
-        m = retry_step(step_fn, params, opt, batch)
+        m = run_step(step_fn, params, opt, batch)
         loss = float(m["loss"])  # waits for the step's device work
         dt = time.perf_counter() - t0
         slow = mon.record(step, dt)

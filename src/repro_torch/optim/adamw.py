@@ -108,17 +108,24 @@ class AdamW(torch.optim.Optimizer):
         bc1 = 1.0 - cfg.b1 ** self.count
         bc2 = 1.0 - cfg.b2 ** self.count
         for p, grad in zip(params, grads):
-            st = self.state[p]
-            g = grad.float() * scale
-            m, v = st["m"], st["v"]
-            m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-            v.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-            p32 = p.float()
-            if cfg.weight_decay:
-                upd = upd + cfg.weight_decay * p32
-            p.copy_(p32 - lr * upd)
+            self._update_leaf(p, grad, scale, lr, bc1, bc2)
         return {"grad_norm": gnorm, "lr": lr}
+
+    def _update_leaf(self, p, grad, scale, lr, bc1, bc2) -> None:
+        """One leaf's moments and value, in place.  The leaves are updated
+        one after another, after ``count`` has moved: a failure here leaves
+        the step half applied (the launcher does not retry it)."""
+        cfg = self.cfg
+        st = self.state[p]
+        g = grad.float() * scale
+        m, v = st["m"], st["v"]
+        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        p32 = p.float()
+        if cfg.weight_decay:
+            upd = upd + cfg.weight_decay * p32
+        p.copy_(p32 - lr * upd)
 
     def state_dict(self) -> Dict[str, object]:
         params = self._params()

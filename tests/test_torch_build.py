@@ -1,0 +1,49 @@
+"""The kernel build's bookkeeping, on the CPU (no nvcc here): the
+``-Xptxas -v`` report kept beside a library, and ``chip_smoke.py``'s reading
+of it (registers a thread and spill bytes of each kernel).  The report
+lines are nvcc 12.8's for ``csrc/flash_attention_bwd.cu``."""
+import sys
+from pathlib import Path
+
+from repro_torch.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23414attn_bwd_deltaI13__nv_bfloat16Li16EEEvPKT_S4_Pflii' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23414attn_bwd_deltaI13__nv_bfloat16Li16EEEvPKT_S4_Pflii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23415attn_bwd_dq_mmaILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23415attn_bwd_dq_mmaILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiiff
+    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23414attn_bwd_deltaIfLi16EEEvPKT_S3_Pflii' for 'sm_90a'
+ptxas info    : Used 26 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23419attn_bwd_sum_splitsEPKfP13__nv_bfloat16S3_lif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_ptxas_report_is_kept_beside_the_library(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert _build.ptxas_report("flash_attention_bwd") == ""
+    lib = _build._lib_path(_build.CSRC / "flash_attention_bwd.cu")
+    lib.with_suffix(".ptxas.txt").write_text(REPORT)
+    assert _build.ptxas_report("flash_attention_bwd") == REPORT
+
+
+def test_chip_smoke_reads_registers_and_spills_by_kernel():
+    assert chip_smoke.ptxas_kernels(REPORT) == {
+        "attn_bwd_delta<bf16,16>": {"spill_store_bytes": 0,
+                                    "spill_load_bytes": 0, "registers": 26},
+        "attn_bwd_dq_mma<64>": {"spill_store_bytes": 20,
+                                "spill_load_bytes": 20, "registers": 168},
+        "attn_bwd_delta<float,16>": {"registers": 26},
+        "attn_bwd_sum_splits": {"spill_store_bytes": 0,
+                                "spill_load_bytes": 0, "registers": 32},
+    }

@@ -16,7 +16,9 @@ inline engine's counters and stored bytes exactly, and the degraded read
 (the store's gather kernel) and the admission path's batches equal the
 CPU's bit for bit.  Training: ``flash_attention_bwd`` against the plain
 backward within 1e-5 (fp32) and 2e-2 (bf16, the bound bf16 LM parity uses)
-of each gradient's largest magnitude; the forward's output bits do not
+of each gradient's largest magnitude, also across the bf16 kernels' tile
+edges and with the query heads split over blocks, and bit-equal over two
+calls (no atomics); the forward's output bits do not
 change when it also writes the log-sum-exp; ``gather_pool``'s table
 gradient on the card within 1e-5 of its largest magnitude of the CPU's
 (the card's scatter-adds use atomics, so the order of summation differs;
@@ -614,8 +616,26 @@ def _attn_inputs(dev, dt, b, s, h, n_kv, hd, seed):
         np.float32)).to(DTYPES[dt]).to(dev) for n in (h, n_kv, n_kv, h)]
 
 
-@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
-@pytest.mark.parametrize("dt", sorted(DTYPES))
+# The bf16 kernels' tile edges: warps of 16 rows, 64-key blocks, query or
+# key steps of 64 (32 at hd 128); S under one warp's rows, 16 n +- 1 and
+# across a step, at G = H / K of 1 and 8 (B, S, H, K, hd).
+FLASH_BWD_BF16_EDGES = [(1, s, 2 * g, 2, hd) for hd in (64, 128)
+                        for s in (5, 15, 17, 31, 33, 63, 65, 129)
+                        for g in (1, 8)]
+
+
+def _assert_bwd_close(dt, got, want):
+    tol = 1e-5 if dt == "fp32" else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert err <= tol * scale, f"{name}: {err} > {tol} * {scale}"
+
+
+@pytest.mark.parametrize("dt,shape", [
+    (dt, shape) for dt in sorted(DTYPES) for shape in FLASH_BWD_SHAPES] + [
+    ("bf16", shape) for shape in FLASH_BWD_BF16_EDGES])
 def test_flash_attention_bwd_matches_plain(dev, dt, shape):
     from repro_torch.kernels import flash_attention as fa
 
@@ -625,13 +645,69 @@ def test_flash_attention_bwd_matches_plain(dev, dt, shape):
     got = fa.flash_attention_bwd(q, k, v, o, do, lse)
     torch.cuda.synchronize()
     assert fa.flash_attention_bwd.launches == n0 + 1
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
-    tol = 1e-5 if dt == "fp32" else 2e-2
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape, name
-        err = float((g.float() - w.float()).abs().max())
-        scale = float(w.float().abs().max())
-        assert err <= tol * scale, f"{name}: {err} > {tol} * {scale}"
+    _assert_bwd_close(dt, got, ref.flash_attention_bwd_ref(q, k, v, o, do,
+                                                           lse))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 200, 16, 2, 128), (2, 130, 8, 1, 64)])
+def test_flash_attention_bwd_splits_match_plain(dev, shape, splits):
+    """bf16 dK/dV with the G query heads split over blocks (fp32 partials
+    summed by a second pass) at every divisor of G = 8."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, "bf16", *shape, seed=5)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, splits=splits)
+    torch.cuda.synchronize()
+    _assert_bwd_close("bf16", got, ref.flash_attention_bwd_ref(q, k, v, o,
+                                                               do, lse))
+
+
+# The training cut's heads (9/3, hd 64) and qwen2.5-3b's (16/2, hd 128,
+# where the default splits the G heads over blocks).
+@pytest.mark.parametrize("shape", [(2, 1000, 9, 3, 64), (1, 1024, 16, 2, 128)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_gives_the_same_bits_every_call(dev, dt, shape):
+    """No atomics: two calls on the same inputs give bit-equal dq, dk and
+    dv (a resumed training run repeats the uninterrupted run's losses)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, dt, *shape, seed=13)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    second = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_attention_bwd_takes_views_off_16_byte_boundaries(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, "bf16", 2, 130, 6, 2, 64, seed=3)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    views = []
+    for t in (q, k, v, o, do):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 2
+        views.append(view)
+    got = fa.flash_attention_bwd(*views, lse)
+    torch.cuda.synchronize()
+    _assert_bwd_close("bf16", got, ref.flash_attention_bwd_ref(q, k, v, o,
+                                                               do, lse))
+
+
+def test_flash_attention_bwd_refuses_splits_it_cannot_take(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    for dt, splits in (("bf16", 3), ("bf16", 0), ("fp32", 2)):
+        q, k, v, do = _attn_inputs(dev, dt, 1, 32, 4, 1, 16, seed=1)
+        o, lse = fa.flash_attention(q, k, v, with_lse=True)
+        with pytest.raises(ValueError, match="splits"):
+            fa.flash_attention_bwd(q, k, v, o, do, lse, splits=splits)
 
 
 @pytest.mark.parametrize("shape", [(2, 300, 9, 3, 64), (1, 129, 16, 2, 128),

@@ -112,3 +112,24 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention(q, q[:, :, :1].contiguous(),
                            q[:, :, :1].contiguous())
+
+
+@pytest.mark.parametrize("b,s,n_kv,group,sms,want", [
+    (4, 4096, 3, 3, 132, 1),   # the LM training cut: 768 key-tile blocks
+    (1, 4096, 2, 8, 132, 4),   # qwen2.5-3b's heads: 128 blocks -> 512
+    (1, 200, 2, 8, 132, 8),    # 8 blocks: every head a block of its own
+    (1, 4096, 2, 1, 132, 1),   # one head a KV head: nothing to split
+    (2, 1000, 3, 3, 132, 3),   # 96 blocks -> 288
+])
+def test_bwd_splits_fill_two_blocks_an_sm(b, s, n_kv, group, sms, want):
+    """The bf16 backward splits a KV head's query heads over blocks only
+    until its dK/dV grid gives each SM two blocks."""
+    assert fa.bwd_splits(b, s, n_kv, group, sms) == want
+
+
+def test_bwd_wrapper_refuses_cpu_tensors():
+    q = torch.zeros((1, 4, 2, 16))
+    kv = q[:, :, :1].contiguous()
+    lse = torch.zeros((1, 2, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_bwd(q, kv, kv, q, q, lse)

@@ -9,7 +9,9 @@ max |JAX grad|); one ``make_train_step`` within 1e-5 on the loss and 1e-5
 abs on every parameter after the step; three launcher steps within rtol
 1e-4 on the losses (the differences compound over the steps).  The
 launcher's data (``batch_at``) is byte-equal, and a resumed CPU run's
-losses are bit-equal to the uninterrupted run's.
+losses are bit-equal to the uninterrupted run's.  The launcher's retry
+never runs an update twice: a failure inside the update surfaces at once,
+and a retried failure before it gives one clean step, bit for bit.
 """
 import dataclasses
 import shutil
@@ -36,10 +38,11 @@ from repro_torch.data import lm_data
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import main as train_main
+from repro_torch.launch.train import run_step
 from repro_torch.models import dlrm as D
 from repro_torch.models import transformer as T
 from repro_torch.models.model_api import build
-from repro_torch.optim.adamw import OptConfig, init_opt
+from repro_torch.optim.adamw import AdamW, OptConfig, init_opt
 from repro_torch.tree import named_leaves
 
 TOL = 1e-5
@@ -349,6 +352,75 @@ def test_batch_at_is_byte_equal_to_jax(step):
 # ---------------------------------------------------------------------------
 # The launcher
 # ---------------------------------------------------------------------------
+
+
+def _counted_lm_step(bundle):
+    """(the launcher's step over the reduced LM's carried parameters, its
+    call count, the parameters, their optimizer, a batch)."""
+    params = _port_params("lm")
+    opt = init_opt(OptConfig(lr=1e-3), list(params.parameters()))
+    step_fn = make_train_step(bundle, 1)
+    calls = []
+
+    def counted(*a):
+        calls.append(1)
+        return step_fn(*a)
+
+    cfg, _, _ = _lm()
+    return counted, calls, params, opt, _lm_batch(cfg, 2, 16, seed=12)
+
+
+def test_launcher_does_not_retry_a_half_applied_update(monkeypatch):
+    """The second leaf's update raises: the step is not retried (a retry
+    would apply the update again), the error surfaces, and the count moved
+    by exactly one."""
+    cfg, _, _ = _lm()
+    bundle = build(cfg, device="cpu", run=RunConfig(remat="none"))
+    step_fn, calls, params, opt, batch = _counted_lm_step(bundle)
+    leaf_update = AdamW._update_leaf
+    leaves_done = []
+
+    def second_leaf_fails(self, *a):
+        if len(leaves_done) == 1:
+            raise RuntimeError("out of memory in the second leaf's update")
+        leaves_done.append(1)
+        return leaf_update(self, *a)
+
+    monkeypatch.setattr(AdamW, "_update_leaf", second_leaf_fails)
+    with pytest.raises(RuntimeError, match="second leaf"):
+        run_step(step_fn, params, opt, batch, sleep=lambda s: None)
+    assert len(calls) == 1
+    assert opt.count == 1
+
+
+def test_launcher_retries_a_failure_before_the_update():
+    """The loss raises once: the retried step's parameters, moments and
+    count equal one clean step's, bit for bit."""
+    cfg, _, _ = _lm()
+    bundle = build(cfg, device="cpu", run=RunConfig(remat="none"))
+    failed = []
+
+    def flaky_loss(params, batch):
+        if not failed:
+            failed.append(1)
+            raise RuntimeError("transient failure in the loss")
+        return bundle.loss(params, batch)
+
+    flaky = dataclasses.replace(bundle, loss=flaky_loss)
+    step_fn, calls, params, opt, batch = _counted_lm_step(flaky)
+    retries = []
+    run_step(step_fn, params, opt, batch, sleep=lambda s: None,
+             on_retry=lambda attempt, e: retries.append(attempt))
+    assert len(calls) == 2 and retries == [1] and failed == [1]
+
+    clean_fn, _, clean, clean_opt, _ = _counted_lm_step(bundle)
+    clean_fn(clean, clean_opt, batch)
+    assert opt.count == clean_opt.count == 1
+    for (name, p), (_, c) in zip(named_leaves(params), named_leaves(clean)):
+        assert torch.equal(p, c), name
+    for key in ("m", "v"):
+        for a, b in zip(opt.state_dict()[key], clean_opt.state_dict()[key]):
+            assert torch.equal(a, b), key
 
 ARGS = ["--device", "cpu", "--reduced", "--steps", "6", "--seq-len", "32",
         "--batch", "2", "--log-every", "1"]
