@@ -5,9 +5,10 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card, checks that the card serves
 and trains as the CPU does, then drives the port's main paths at the full
-widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs)
-and of ``smollm-135m`` (LM serving with the vocab on tiered memory, and
-training through the launcher):
+widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs),
+of ``smollm-135m`` and ``granite-moe-1b-a400m`` (LM serving with the vocab
+on tiered memory, and training through the launcher) and of
+``internvl2-26b`` (served with a frontend, its depth cut):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc for sm_90a, one process per source, with the build seconds;
@@ -108,7 +109,9 @@ training through the launcher):
     ``torch.logsumexp`` of the plain scores;
 10'. ``flash_attention_bwd`` vs plain on the card at the LM training cut
     (4, 4096, 9/3, 64), qwen2.5-3b's heads (1, 4096, 16/2, 128), a ragged
-    S=1,000 and head dims 16 and 32, both dtypes: each gradient within 1e-5
+    S=1,000 and head dims 16 and 32, both dtypes, and at granite-moe's
+    training cut (4, 4096, 16/8, 64) and internvl2's heads (1, 2048, 48/8,
+    128) in bf16: each gradient within 1e-5
     (fp32) or 2e-2 (bf16) of its largest magnitude; each timed beside its
     bound (five causal products) and beside SDPA's backward, bf16 also with
     the dK/dV grid at every split of the G query heads (``ms_by_splits``);
@@ -140,11 +143,36 @@ training through the launcher):
 15. LM training: full-width bf16 smollm-135m through ``launch/train.main``
     at ``train_4k``'s S=4,096, the global batch cut from 256 to 8 (2
     microbatches, ``--remat full``): run A 6 steps with checkpoints every
-    3, run B from A's step-3 checkpoint alone to step 6 (losses within
-    rtol 1e-3 of A's), the kernels' launches (forward 2 and backward 1 a
+    3, run B from A's step-3 checkpoint alone to step 6 (losses equal
+    A's bit for bit), the kernels' launches (forward 2 and backward 1 a
     layer and microbatch), tokens/s, peak memory and one step under
     ``torch.profiler`` (which must show the bf16 backward's tensor-core
-    kernels, ``attention_backward_ms``).
+    kernels, ``attention_backward_ms``);
+16. MoE parity: full-width granite-moe-1b-a400m (24 layers, d_model 1024,
+    16/8 heads, 32 experts top-8, expert width 512, vocab 49,155) from the
+    same seeded parameters on the CPU and on the card, a B=2, S=256
+    prefill and 8 teacher-forced decode steps, fp32 then bf16, every
+    layer's routing recorded: at fp32 the top-K sets equal wherever the
+    CPU's K-th and (K+1)-th probabilities differ by more than 1e-5 (in
+    rows no earlier flip has changed), keep masks equal while no
+    selection has flipped, and the logits of the rows whose routing never
+    flipped within rtol/atol 1e-4; at bf16 the flips counted, and the
+    logits within 5e-2 of a CPU run given the card's expert choices; the
+    dropped share of assignments at cf 1.25;
+17. MoE serve: phase 12 at granite's full width (B=8, a 2,048-token
+    prompt, 64 greedy steps, capacity 0.1 = 4,915 rows): the prefill's
+    capacity dispatch, dense routing on each decode step;
+18. MoE training: phase 15 at granite's full width, the resumed run's
+    losses bit-equal to run A's; then 2 steps of ``make_train_step`` at
+    each AdamW setting (fp32 moments, bf16 moments, bf16 moments and an
+    fp32 master copy) with each one's peak memory;
+19. VLM serve: internvl2-26b at full width (d_model 6,144, 48/8 heads, hd
+    128, d_ff 16,384, vocab 92,553), its depth cut from 48 to 8 layers
+    (4.3 B parameters): a seeded bf16 frontend (1, 256, 6144) spliced into
+    a 2,048-token prompt, prefill and 16 greedy decode steps through
+    ``build(cfg).prefill``/``.decode``, and the same prompt without the
+    frontend (the logits must differ); the reduced fp32 config with a
+    frontend on the card against the CPU within rtol/atol 1e-4.
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
@@ -153,9 +181,12 @@ that design (``quantize_scatter`` also with its launches from the single
 quantized stores and from the per-table facade of phase ``serve``); the
 kernels that the runtime phases drive add those phases' launches and show
 them as ``launches_runtime``, the sharded serve as ``launches_sharded``
-and the transformer backbone's training as ``launches_transfetch``, and
-training (phases 13 and 15) as ``launches_train``; the last line is the
-result.  Imports nothing of JAX and nothing of the JAX package.
+the transformer backbone's training as ``launches_transfetch``,
+training (phases 13 and 15) as ``launches_train``, the LM serve as
+``launches_lm_serve``, the MoE's serve and training (17, 18) as
+``launches_moe`` and the VLM's serve as ``launches_vlm``; the ``done``
+line gives each phase's seconds; the last line is the result.  Imports
+nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -201,8 +232,9 @@ from repro_torch.launch.serve import main as cli_main  # noqa: E402
 from repro_torch.launch.serve_lm import serve_lm_tiered  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.dlrm import (dlrm_forward, init_dlrm,  # noqa: E402
-                                     quantize_tables)
+                                     quantize_tables, torch_dtype)
 from repro_torch.models.model_api import build  # noqa: E402
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_lm, lm_loss, prefill)
@@ -234,14 +266,18 @@ TPU_FLASH_ATTENTION = "src/repro/kernels/flash_attention.py:80"
 # LM serve prefill's, which the kernels line reports.
 FLASH_SHAPES = (("serve_prefill", 8, 2048, 9, 3, 64, "bf16"),
                 ("qwen2.5-3b_heads", 1, 8192, 16, 2, 128, "bf16"),
+                ("granite_serve", 8, 2048, 16, 8, 64, "bf16"),
+                ("granite_train", 4, 4096, 16, 8, 64, "bf16"),
+                ("internvl2_heads", 1, 2048, 48, 8, 128, "bf16"),
                 ("fp32", 2, 1024, 8, 2, 64, "fp32"),
                 ("ragged", 4, 1000, 9, 3, 64, "fp32"),
                 ("ragged", 4, 1000, 9, 3, 64, "bf16"))
 CU_FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 # flash_attention_bwd shapes (name, B, S, H, K, hd, dtype): the LM training
 # cut (smollm-135m at train_4k's S, a microbatch of 4), qwen2.5-3b's heads,
-# a ragged S and the two small head dims; the first bf16 one is the kernels
-# line's.
+# a ragged S and the two small head dims in both dtypes; granite's training
+# cut and internvl2's heads (G = 6) in bf16, the dtype they train in; the
+# first bf16 one is the kernels line's.
 FLASH_BWD_SHAPES = tuple(
     (name, b, s, h, n_kv, hd, dt)
     for name, b, s, h, n_kv, hd in (
@@ -250,7 +286,9 @@ FLASH_BWD_SHAPES = tuple(
         ("ragged", 2, 1000, 9, 3, 64),
         ("hd16", 2, 1024, 4, 2, 16),
         ("hd32", 2, 1024, 8, 2, 32))
-    for dt in ("bf16", "fp32"))
+    for dt in ("bf16", "fp32")) + (
+        ("granite_train", 4, 4096, 16, 8, 64, "bf16"),
+        ("internvl2_heads", 1, 2048, 48, 8, 128, "bf16"))
 # flash_attention_bwd's designs by dtype (bf16 redesigned on the tensor
 # cores; fp32 keeps the first port's kernels).
 FLASH_BWD_DESIGN = {
@@ -1987,10 +2025,281 @@ def phase_lm_parity():
     torch.cuda.empty_cache()
 
 
-def phase_lm_serve():
+class _RoutingRecorder:
+    """Within the block, every MoE routing call records, in call order and
+    on the host, its fp32 router probabilities, its top-K experts and, on
+    the capacity path, its keep mask (one record a layer of a prefill or
+    decode step).  Given ``forced`` (another run's records, in the same
+    call order), each call takes that run's experts in place of its own
+    top-K, weighted by its own renormalised probabilities: the two runs
+    then differ by their arithmetic alone, not by near-tied choices."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+
+    def __enter__(self):
+        self.records = []
+        self._route, self._slots = L._route, L._capacity_slots
+
+        def route(p, cfg, xf):
+            probs, top_p, top_e = self._route(p, cfg, xf)
+            if self.forced is not None:
+                top_e = self.forced[len(self.records)]["top_e"].to(
+                    top_e.device)
+                top_p = probs.gather(-1, top_e)
+                top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.records.append({"probs": probs.detach().cpu(),
+                                 "top_e": top_e.cpu(), "keep": None})
+            return probs, top_p, top_e
+
+        def slots(flat_e, n_experts, capacity):
+            slot, keep = self._slots(flat_e, n_experts, capacity)
+            self.records[-1]["keep"] = keep.cpu()
+            return slot, keep
+
+        L._route, L._capacity_slots = route, slots
+        return self
+
+    def __exit__(self, *exc):
+        L._route, L._capacity_slots = self._route, self._slots
+
+
+def routing_compare(cpu_recs, card_recs, n_rows, top_k, margin,
+                    strict=True):
+    """The card's routing against the CPU's, record by record in call
+    order.  A token's top-K set is "inside the margin" where the CPU's
+    K-th and (K+1)-th probabilities differ by ``margin`` or less.  A row
+    (a sequence) turns "dirty" once one of its selections differs, since
+    the flip changes that row's later inputs.  Returns the counts and the
+    rows still clean at the end.  ``strict``: fails on a flip outside the
+    margin in a clean row, and on keep masks that differ while no row is
+    dirty."""
+    dirty = torch.zeros(n_rows, dtype=torch.bool)
+    out = {"token_layers": 0, "inside_margin": 0, "flips": 0,
+           "flips_inside_margin": 0, "flips_outside_margin_clean_rows": 0,
+           "keep_masks_compared": 0, "keep_masks_equal": 0}
+    for i, (cpu, card) in enumerate(zip(cpu_recs, card_recs)):
+        t = cpu["top_e"].shape[0]
+        rows = torch.arange(t) // (t // n_rows)
+        ranked = cpu["probs"].sort(dim=-1, descending=True).values
+        inside = (ranked[:, top_k - 1] - ranked[:, top_k]) <= margin
+        flip = (cpu["top_e"].sort(-1).values
+                != card["top_e"].sort(-1).values).any(-1)
+        bad = int((flip & ~inside & ~dirty[rows]).sum())
+        require(not strict or bad == 0, f"routing record {i}: {bad} top-K "
+                f"sets differ outside the {margin} margin in clean rows")
+        if cpu["keep"] is not None and not dirty.any() and not flip.any():
+            equal = bool(torch.equal(cpu["keep"], card["keep"]))
+            require(not strict or equal,
+                    f"routing record {i}: keep masks differ")
+            out["keep_masks_compared"] += 1
+            out["keep_masks_equal"] += int(equal)
+        out["token_layers"] += t
+        out["inside_margin"] += int(inside.sum())
+        out["flips"] += int(flip.sum())
+        out["flips_inside_margin"] += int((flip & inside).sum())
+        out["flips_outside_margin_clean_rows"] += bad
+        dirty[rows[flip]] = True
+    out["clean_rows"] = [int(r) for r in torch.nonzero(~dirty)[:, 0]]
+    return out
+
+
+def _cast_params(model, cfg):
+    """The model's parameters in ``cfg.param_dtype``, in place, the MoE
+    router kept fp32 (as ``init_lm`` draws it)."""
+    dt = torch_dtype(cfg.param_dtype)
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if not name.endswith("router"):
+                prm.data = prm.data.to(dt)
+    return model
+
+
+def _moe_run(model, cfg, tokens, s, n_dec, dev, forced=None):
+    """A prefill of ``tokens[:, :s]`` and ``n_dec`` teacher-forced decode
+    steps on ``dev`` with the routing recorded (or forced): ``(logits
+    (1 + n_dec, B, V) on the host, routing records, seconds)``."""
+    t0 = time.perf_counter()
+    with _RoutingRecorder(forced) as rec:
+        lg, cache = prefill(model, cfg, tokens[:, :s].to(dev),
+                            cache_len=s + n_dec)
+        steps = [lg]
+        for i in range(n_dec):
+            lg, cache = decode_step(model, cfg,
+                                    tokens[:, s + i:s + i + 1].to(dev), cache)
+            steps.append(lg)
+    return torch.stack(steps).cpu(), rec.records, time.perf_counter() - t0
+
+
+def phase_moe_parity():
+    """Full-width granite-moe-1b-a400m from the same seeded parameters on
+    the CPU and on the card: a B=2, S=256 prefill and 8 teacher-forced
+    decode steps, fp32 then bf16, every layer's routing recorded.  fp32:
+    the top-K sets equal outside a 1e-5 margin, the logits of rows whose
+    routing never flipped within 1e-4.  bf16 (an ulp of an activation
+    moves a router logit by ~1e-2, so near-tied choices flip): the flips
+    counted, then the CPU run again with the card's choices forced, its
+    logits within 5e-2 of the card's."""
+    full = get_config("granite-moe-1b-a400m")
+    b, s, n_dec = 2, 256, 8
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, full.vocab, (b, s + n_dec)))
+    cfg32 = dataclasses.replace(full, param_dtype="float32",
+                                compute_dtype="float32")
+    base = init_lm(cfg32, seed=0, device="cpu")
+    out = {}
+    for dt_name, tol, margin in (("fp32", 1e-4, 1e-5),
+                                 ("bf16", 5e-2, 1e-5)):
+        cfg = cfg32 if dt_name == "fp32" else full
+        cpu = base if dt_name == "fp32" else _cast_params(base, full)
+        card = copy.deepcopy(cpu).to("cuda")
+        ops.reset_launches()
+        card_lg, card_recs, card_s = _moe_run(card, cfg, tokens, s, n_dec,
+                                              "cuda")
+        require(fa.flash_attention.launches == full.n_layers,
+                f"moe_parity {dt_name}: {fa.flash_attention.launches} "
+                f"flash_attention launches, expected {full.n_layers}")
+        del card
+        cpu_lg, cpu_recs, cpu_s = _moe_run(cpu, cfg, tokens, s, n_dec, "cpu")
+        require(len(cpu_recs) == len(card_recs)
+                == full.n_layers * (1 + n_dec),
+                f"moe_parity {dt_name}: {len(cpu_recs)} routing records")
+        routing = routing_compare(cpu_recs, card_recs, b, full.top_k, margin,
+                                  strict=dt_name == "fp32")
+        prefill_keep = torch.stack([r["keep"] for r in card_recs[
+            :full.n_layers]]).float()
+        rec = {"tolerance": tol, "margin": margin, "routing": routing,
+               "dropped_assignment_share_cf_1.25": float(
+                   1.0 - prefill_keep.mean()),
+               "max_abs_logit": float(cpu_lg.abs().max()),
+               "cpu_s": cpu_s, "card_s": card_s}
+        if dt_name == "bf16":
+            # The CPU again, the card's expert choices forced.
+            forced_lg, _, rec["cpu_forced_s"] = _moe_run(
+                cpu, cfg, tokens, s, n_dec, "cpu", forced=card_recs)
+            rec["max_abs_err_free_routing"] = float(
+                (card_lg - cpu_lg).abs().max())
+            cpu_lg, clean = forced_lg, list(range(b))
+        else:
+            clean = routing["clean_rows"]
+        diff = (card_lg - cpu_lg).abs()
+        rec.update(max_abs_err=float(diff.max()), compared_rows=clean,
+                   worst_share_of_bound=float(
+                       (diff / (tol + tol * cpu_lg.abs()))[:, clean].max())
+                   if clean else None,
+                   argmax_equal_share=float(
+                       (card_lg.argmax(-1) == cpu_lg.argmax(-1))
+                       .float().mean()))
+        out[dt_name] = rec
+        require(bool(torch.isfinite(card_lg).all()),
+                f"moe_parity {dt_name}: non-finite logits on the card")
+        require(bool(clean), f"moe_parity {dt_name}: every row's routing "
+                f"flipped {routing}")
+        require(torch.allclose(card_lg[:, clean], cpu_lg[:, clean],
+                               rtol=tol, atol=tol),
+                f"moe_parity {dt_name}: card vs CPU logits {rec}")
+        del cpu_recs, card_recs
+    del base
+    emit({"phase": "moe_parity", "arch": full.name, "B": b, "S": s,
+          "decode_steps": n_dec, "teacher_forced": True,
+          "capacity_factor": full.capacity_factor, **out})
+    torch.cuda.empty_cache()
+
+
+def phase_vlm_serve():
+    """internvl2-26b at full width, its depth cut to 8 of 48 layers: a
+    seeded bf16 frontend (1, 256, 6144) spliced into a 2,048-token prompt,
+    prefill and 16 greedy decode steps through ``build(cfg).prefill`` and
+    ``.decode``, and the same prompt without the frontend; then the reduced
+    fp32 config on the card against the CPU.  Counts set to 0 just before
+    the serves and read just after."""
+    full = get_config("internvl2-26b")
+    cfg = dataclasses.replace(full, n_layers=8)
+    prompt_len, n_dec = 2048, 16
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, cfg.vocab, (1, prompt_len))
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build(cfg, device="cuda")
+    model = bundle.init(seed=0)
+    fe = torch.from_numpy(rng.normal(size=(
+        1, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    ops.reset_launches()
+    runs = {}
+    for arm, batch in (("frontend", {"tokens": prompt, "frontend": fe}),
+                       ("text_only", {"tokens": prompt})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = bundle.prefill(model, batch,
+                                   cache_len=prompt_len + n_dec)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        steps, step_ms = [lg], []
+        for _ in range(n_dec):
+            t0 = time.perf_counter()
+            lg, cache = bundle.decode(model, lg.argmax(-1)[:, None], cache)
+            steps.append(lg)
+            lg.argmax(-1).cpu()  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        runs[arm] = {"logits": torch.stack(steps).cpu(),
+                     "prefill_ms": prefill_ms,
+                     "decode_ms_p50": float(np.median(step_ms))}
+        del cache
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    del model, fe
+    torch.cuda.empty_cache()
+    a, b_ = runs["frontend"]["logits"], runs["text_only"]["logits"]
+    require(bool(torch.isfinite(a).all() and torch.isfinite(b_).all()),
+            "vlm_serve: non-finite logits")
+    fe_diff = float((a[0] - b_[0]).abs().max())
+    require(fe_diff > 1e-3, f"vlm_serve: the frontend changes the first "
+            f"logits by {fe_diff}")
+    require(launches.get("flash_attention") == 2 * cfg.n_layers,
+            f"vlm_serve: flash_attention launched {launches}, expected "
+            f"{2 * cfg.n_layers}")
+    # The reduced config in fp32, with a frontend, on both devices.
+    red = full.reduced()
+    rb = {dev: build(red, device=dev) for dev in ("cpu", "cuda")}
+    rm = rb["cpu"].init(seed=0)
+    rbatch = {"tokens": rng.integers(0, red.vocab, (2, 24)),
+              "frontend": rng.normal(size=(2, red.n_frontend_tokens,
+                                           red.d_model)).astype(np.float32)}
+    reduced = {}
+    for dev, model in (("cpu", rm), ("cuda", copy.deepcopy(rm).to("cuda"))):
+        lg, cache = rb[dev].prefill(model, rbatch, cache_len=28)
+        steps = [lg]
+        for i in range(4):
+            lg, cache = rb[dev].decode(model, rbatch["tokens"][:, i:i + 1],
+                                       cache)
+            steps.append(lg)
+        reduced[dev] = torch.stack(steps).cpu()
+    red_err = float((reduced["cuda"] - reduced["cpu"]).abs().max())
+    require(torch.allclose(reduced["cuda"], reduced["cpu"], rtol=1e-4,
+                           atol=1e-4),
+            f"vlm_serve reduced fp32: card vs CPU max abs err {red_err}")
+    emit({"phase": "vlm_serve", "arch": full.name, "dtype": cfg.param_dtype,
+          "cuts": {"n_layers": [full.n_layers, cfg.n_layers], "batch": 1,
+                   "prompt_len": prompt_len, "decode_steps": n_dec},
+          "n_params": build(cfg, device="cuda").n_params(),
+          "frontend_shape": [1, cfg.n_frontend_tokens, cfg.d_model],
+          "launches": launches, "peak_device_gb": peak_gb,
+          "frontend_changes_first_logits_by": fe_diff,
+          **{f"{arm}_{k}": v for arm, r in runs.items()
+             for k, v in r.items() if k != "logits"},
+          "reduced_fp32_card_vs_cpu_max_abs_err": red_err,
+          "reduced_tolerance": 1e-4})
+    return launches
+
+
+def phase_lm_serve(arch="smollm-135m", phase="lm_serve"):
     """The LM serving path at full width; counts set to 0 just before the
     serve and read just after.  Returns the kernels' launches."""
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
     b, prompt_len, steps = 8, 2048, 64
     # The path's own peak: device bytes above what earlier phases left
     # allocated, from the model's weights through the serve.
@@ -2007,17 +2316,17 @@ def phase_lm_serve():
     torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
     require(launches.get("flash_attention") == cfg.n_layers,
-            f"lm_serve: flash_attention launched {launches} (expected "
+            f"{phase}: flash_attention launched {launches} (expected "
             f"{cfg.n_layers}, one per prefill layer)")
     require(launches.get("gather_rows_expand") == steps,
-            f"lm_serve: gather_rows_expand launched {launches} (expected "
+            f"{phase}: gather_rows_expand launched {launches} (expected "
             f"{steps}, one per decode step)")
     require(res["hits"] + res["misses"] == res["lookups"] == b * steps,
-            "lm_serve: hits + misses != lookups")
+            f"{phase}: hits + misses != lookups")
     lg, tok = res["logits"], res["tokens"]
     require(lg.shape == (steps, b, cfg.vocab) and np.isfinite(lg).all()
             and tok.shape == (steps, b) and (tok >= 0).all()
-            and (tok < cfg.vocab).all(), "lm_serve: bad logits or tokens")
+            and (tok < cfg.vocab).all(), f"{phase}: bad logits or tokens")
     # The tiered path's first step against the token path on the same
     # prompt: the cast store rows are the token's embedding, so the two
     # agree bit for bit.
@@ -2026,9 +2335,9 @@ def phase_lm_serve():
     _, cache = prefill(model, cfg, pt, prompt_len + steps)
     ref_logits, _ = decode_step(model, cfg, pt[:, -1:], cache)
     require(np.array_equal(ref_logits.cpu().numpy(), lg[0]),
-            "lm_serve: the tiered first step differs from the token path")
+            f"{phase}: the tiered first step differs from the token path")
     del cache, pt
-    emit({"phase": "lm_serve", "arch": cfg.name, "dtype": cfg.param_dtype,
+    emit({"phase": phase, "arch": cfg.name, "dtype": cfg.param_dtype,
           "cuts": {"from": "prefill_32k B=32 S=32768", "batch": b,
                    "prompt_len": prompt_len},
           "launches": launches, "peak_device_gb": peak_gb,
@@ -2071,7 +2380,7 @@ def _device_profile(fn):
 
 
 def _profile_summary(wall_ms, busy_ms, launches, kernels, n):
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms / n, "device_busy_ms": busy_ms / n,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernel_launches": launches / n,
@@ -2292,11 +2601,13 @@ def _train_cli(argv):
     return losses, ms, lines
 
 
-def phase_lm_train():
-    """Full-width bf16 smollm-135m trained through the launcher: run A (6
+def phase_lm_train(arch="smollm-135m", phase="lm_train",
+                   opt_settings=False):
+    """Full-width bf16 ``arch`` trained through the launcher: run A (6
     steps, checkpoints every 3) and run B (A's step-3 checkpoint alone in a
-    fresh directory, run to step 6), then one step under the profiler."""
-    cfg = get_config("smollm-135m")
+    fresh directory, run to step 6), then one step under the profiler and,
+    with ``opt_settings``, 2 steps at each AdamW setting."""
+    cfg = get_config(arch)
     steps, seq, batch, mb = 6, 4096, 8, 2
     argv = ["--arch", cfg.name, "--steps", str(steps), "--seq-len", str(seq),
             "--batch", str(batch), "--microbatches", str(mb), "--remat",
@@ -2315,10 +2626,15 @@ def phase_lm_train():
     launches_a = {fn.__name__: fn.launches for fn in ops.KERNELS
                   if fn.launches}
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    # A's step-3 checkpoint alone in B's directory (moved: a checkpoint of
+    # granite's parameters and moments is 14 GB).
     b_dir.mkdir(parents=True)
-    shutil.copytree(a_dir / "step_00000003", b_dir / "step_00000003")
+    shutil.move(a_dir / "step_00000003", b_dir / "step_00000003")
+    shutil.rmtree(a_dir)
     ops.reset_launches()
+    t0 = time.perf_counter()
     run_b, ms_b, lines_b = _train_cli(argv + ["--ckpt", str(b_dir)])
+    b_s = time.perf_counter() - t0
     launches_b = {fn.__name__: fn.launches for fn in ops.KERNELS
                   if fn.launches}
     shutil.rmtree(root, ignore_errors=True)
@@ -2328,28 +2644,68 @@ def phase_lm_train():
                                                    launches_b)):
         for k, per_step in want.items():
             require(got.get(k) == n * per_step,
-                    f"lm_train run {run}: {k} launched {got.get(k)}, "
+                    f"{phase} run {run}: {k} launched {got.get(k)}, "
                     f"expected {n * per_step}")
     require(len(run_a) == steps and all(np.isfinite(run_a))
-            and len(run_b) == steps - 3, f"lm_train losses {run_a} {run_b}")
-    rel = [abs(b - a) / abs(a) for a, b in zip(run_a[3:], run_b)]
+            and len(run_b) == steps - 3, f"{phase} losses {run_a} {run_b}")
     require(any("restored step 3" in ln for ln in lines_b)
-            and max(rel) <= 1e-3,
-            f"lm_train resume: B {run_b} vs A {run_a[3:]}")
+            and run_b == run_a[3:],
+            f"{phase} resume: B {run_b} vs A {run_a[3:]}")
     steady = [ms_a[i] for i in range(1, steps)]
-    emit({"phase": "lm_train", "arch": cfg.name, "dtype": cfg.param_dtype,
-          "cuts": {"from": "train_4k S=4096 global_batch=256",
-                   "global_batch": batch, "microbatches": mb},
-          "argv": argv, "losses_a": run_a, "step_ms_a": ms_a,
-          "losses_b": run_b, "step_ms_b": ms_b,
-          "resumed_max_rel_diff": max(rel), "run_a_s": a_s,
-          "tokens_per_s_median": batch * seq / (np.median(steady) / 1e3),
-          "peak_device_gb": peak_gb, "launches_a": launches_a,
-          "launches_b": launches_b,
-          "profile": train_profile(cfg, seq, batch, mb)})
+    rec = {"phase": phase, "arch": cfg.name, "dtype": cfg.param_dtype,
+           "cuts": {"from": "train_4k S=4096 global_batch=256",
+                    "global_batch": batch, "microbatches": mb},
+           "argv": argv, "losses_a": run_a, "step_ms_a": ms_a,
+           "losses_b": run_b, "step_ms_b": ms_b,
+           "resumed_losses_bit_equal": True, "run_a_s": a_s, "run_b_s": b_s,
+           "tokens_per_s_median": batch * seq / (np.median(steady) / 1e3),
+           "peak_device_gb": peak_gb, "launches_a": launches_a,
+           "launches_b": launches_b,
+           "profile": train_profile(cfg, seq, batch, mb)}
+    if opt_settings:
+        rec["optimizer_settings"] = optimizer_settings(cfg, seq, batch, mb)
+    emit(rec)
     torch.cuda.empty_cache()
     return {k: launches_a.get(k, 0) + launches_b.get(k, 0)
             for k in set(launches_a) | set(launches_b)}
+
+
+def optimizer_settings(cfg, seq, batch, mb):
+    """2 steps of ``make_train_step`` from the same seeded model at each
+    AdamW setting: fp32 moments, bf16 moments, bf16 moments with an fp32
+    master copy.  Each setting's peak device GB (above what was allocated
+    before its model), step ms and losses."""
+    out = {}
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    step = make_train_step(build(cfg, device="cuda",
+                                 run=RunConfig(remat="full")), mb)
+    for name, kw in (("fp32_moments", {}),
+                     ("bf16_moments", dict(moment_dtype="bfloat16")),
+                     ("bf16_moments_fp32_master",
+                      dict(moment_dtype="bfloat16", master_fp32=True))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_lm(cfg, seed=0, device="cuda")
+        opt = init_opt(OptConfig(lr=3e-4, total_steps=6, **kw),
+                       list(model.parameters()))
+        losses, ms = [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            losses.append(float(step(model, opt, batch_at(data, i))["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"peak_device_gb": (torch.cuda.max_memory_allocated()
+                                        - base_bytes) / 1e9,
+                     "state_gb": sum(t.numel() * t.element_size()
+                                     for key, ts in opt.state_dict().items()
+                                     if key != "count" for t in ts) / 1e9,
+                     "step_ms": ms, "losses": losses}
+        require(all(np.isfinite(losses)), f"optimizer setting {name}: "
+                f"losses {losses}")
+        del model, opt
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_profile(cfg, seq, batch, mb):
@@ -2443,8 +2799,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     phase_device()
-    phase_build()
+    timed("build", phase_build)
     timer = Timer()
 
     full = get_config("dlrm-recmg")
@@ -2464,21 +2828,23 @@ def main():
     host = host_table(serve_cfg, trace)
     fwd_b = 256
 
-    main_recs = phase_kernels(timer, trace.global_id[:per_batch], capacity,
-                              full.n_tables * serve_cfg.rows_per_table,
-                              fwd_b, full)
-    main_recs.update(phase_quant_kernels(timer, trace,
-                                         trace.global_id[:per_batch],
-                                         qcapacity, full))
-    main_recs.update(phase_learned_kernels(timer))
-    main_recs["flash_attention"] = phase_flash_kernels(timer)
-    main_recs["flash_attention_bwd"] = phase_flash_bwd_kernels(timer)
-    phase_learned_grads()
-    phase_parity()
-    phase_learned_parity()
+    main_recs = timed("kernels", phase_kernels, timer,
+                      trace.global_id[:per_batch], capacity,
+                      full.n_tables * serve_cfg.rows_per_table, fwd_b, full)
+    main_recs.update(timed("quant_kernels", phase_quant_kernels, timer,
+                           trace, trace.global_id[:per_batch], qcapacity,
+                           full))
+    main_recs.update(timed("learned_kernels", phase_learned_kernels, timer))
+    main_recs["flash_attention"] = timed("flash_kernels",
+                                         phase_flash_kernels, timer)
+    main_recs["flash_attention_bwd"] = timed(
+        "flash_bwd_kernels", phase_flash_bwd_kernels, timer)
+    timed("learned_grads", phase_learned_grads)
+    timed("parity", phase_parity)
+    timed("learned_parity", phase_learned_parity)
     int8 = dict(quantize=True, row_format="int8")
-    serve_launches, serve_results, qs_by_store = phase_serve(
-        serve_cfg, trace, host, [
+    serve_launches, serve_results, qs_by_store = timed(
+        "serve", phase_serve, serve_cfg, trace, host, [
             ("fp32", "lru", capacity, {}),
             ("fp32", "recmg", capacity, {}),
             ("int8", "lru", qcapacity, int8),
@@ -2487,32 +2853,41 @@ def main():
             ("int8-multi_table", "lru", qcapacity,
              dict(multi_table=True, **int8)),
         ], batch_queries)
-    learned_launches, learned_model = phase_learned_serve(
-        serve_cfg, trace, host, capacity, qcapacity, per_batch,
-        batch_queries, serve_results)
-    runtime_launches = phase_runtime_parity(serve_cfg, trace, host, capacity,
-                                            qcapacity, batch_queries,
-                                            serve_results)
-    for name, k in phase_runtime_serve(serve_cfg, trace, host, per_batch,
-                                       capacity, qcapacity, batch_queries,
-                                       learned_model).items():
+    learned_launches, learned_model = timed(
+        "learned_serve", phase_learned_serve, serve_cfg, trace, host,
+        capacity, qcapacity, per_batch, batch_queries, serve_results)
+    runtime_launches = timed("runtime_parity", phase_runtime_parity,
+                             serve_cfg, trace, host, capacity, qcapacity,
+                             batch_queries, serve_results)
+    for name, k in timed("runtime_serve", phase_runtime_serve, serve_cfg,
+                         trace, host, per_batch, capacity, qcapacity,
+                         batch_queries, learned_model).items():
         runtime_launches[name] = runtime_launches.get(name, 0) + k
     del learned_model
-    phase_sharded_parity()
-    sharded_launches = phase_sharded_serve(serve_cfg, trace, host, capacity,
-                                           qcapacity, batch_queries,
-                                           serve_results)
-    transfetch_launches = phase_transfetch(trace, per_batch)
+    timed("sharded_parity", phase_sharded_parity)
+    sharded_launches = timed("sharded_serve", phase_sharded_serve,
+                             serve_cfg, trace, host, capacity, qcapacity,
+                             batch_queries, serve_results)
+    transfetch_launches = timed("transfetch", phase_transfetch, trace,
+                                per_batch)
     del host, serve_results
-    train_launches = phase_dlrm_train(full, trace)
+    train_launches = timed("dlrm_train", phase_dlrm_train, full, trace)
     del trace
-    pool_rec, pool_launches, qpool_rec, qpool_launches = phase_forward(
-        timer, full, fwd_b)
-    phase_lm_parity()
-    lm_launches = phase_lm_serve()
-    phase_train_parity()
-    for name, k in phase_lm_train().items():
+    pool_rec, pool_launches, qpool_rec, qpool_launches = timed(
+        "forward", phase_forward, timer, full, fwd_b)
+    timed("lm_parity", phase_lm_parity)
+    lm_launches = timed("lm_serve", phase_lm_serve)
+    timed("train_parity", phase_train_parity)
+    for name, k in timed("lm_train", phase_lm_train).items():
         train_launches[name] = train_launches.get(name, 0) + k
+    # The MoE and VLM LMs (granite-moe-1b-a400m, internvl2-26b).
+    timed("moe_parity", phase_moe_parity)
+    moe_launches = timed("moe_serve", phase_lm_serve, "granite-moe-1b-a400m",
+                         "moe_serve")
+    for name, k in timed("moe_train", phase_lm_train, "granite-moe-1b-a400m",
+                         "moe_train", opt_settings=True).items():
+        moe_launches[name] = moe_launches.get(name, 0) + k
+    vlm_launches = timed("vlm_serve", phase_vlm_serve)
 
     kernels = []
     for name, rec, n, src, replaces in (
@@ -2534,9 +2909,8 @@ def main():
              learned_launches["lstm_cell"], CU_LSTM_SOURCE, TPU_LSTM_CELL),
             ("chamfer", main_recs["chamfer"], learned_launches["chamfer"],
              CU_CHAMFER_SOURCE, TPU_CHAMFER),
-            ("flash_attention", main_recs["flash_attention"],
-             lm_launches["flash_attention"], CU_FLASH_SOURCE,
-             TPU_FLASH_ATTENTION),
+            ("flash_attention", main_recs["flash_attention"], 0,
+             CU_FLASH_SOURCE, TPU_FLASH_ATTENTION),
             ("flash_attention_bwd", main_recs["flash_attention_bwd"], 0,
              CU_FLASH_BWD_SOURCE, None)):
         # The runtime phases drive the store's kernels and the learned
@@ -2545,8 +2919,12 @@ def main():
         # training lstm_cell (dec2) and chamfer (the loss).
         # Training (phases dlrm_train and lm_train) drives gather_pool,
         # flash_attention and flash_attention_bwd, which runs nowhere else.
+        # The LM serves drive flash_attention and gather_rows_expand; the
+        # MoE's serve and training and the VLM's serve add theirs.
         n += runtime_launches.get(name, 0) + sharded_launches.get(name, 0) \
-            + transfetch_launches.get(name, 0) + train_launches.get(name, 0)
+            + transfetch_launches.get(name, 0) + train_launches.get(name, 0) \
+            + lm_launches.get(name, 0) + moe_launches.get(name, 0) \
+            + vlm_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -2563,10 +2941,17 @@ def main():
             kernels[-1]["launches_transfetch"] = transfetch_launches[name]
         if name in train_launches:
             kernels[-1]["launches_train"] = train_launches[name]
+        if name in lm_launches:
+            kernels[-1]["launches_lm_serve"] = lm_launches[name]
+        if name in moe_launches:
+            kernels[-1]["launches_moe"] = moe_launches[name]
+        if name in vlm_launches:
+            kernels[-1]["launches_vlm"] = vlm_launches[name]
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])
-    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1),
+          "phase_seconds": seconds})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,13 @@ the LM shape cells and the training knobs of ``RunConfig``.
 Copied from ``src/repro/configs/base.py``: lines 16-156 (the dataclass and
 its CPU-scale ``reduced()``), 164-178 (``ShapeConfig``, ``LM_SHAPES``) and,
 trimmed to the fields that training reads, 208-230 (``RunConfig``).  The
-other JAX knobs (sharding variants, mesh constraints, the Pallas switch,
-attention block sizes, the optimizer's moment dtype and gradient
+other JAX knobs (sharding variants, mesh constraints, the MoE's data-local
+dispatch, the Pallas switch, attention block sizes and gradient
 compression) are about the mesh or XLA: the port runs on one card and its
-CUDA kernels tile by their own sizes.
+CUDA kernels tile by their own sizes.  JAX's ``opt_dtype`` feeds only its
+dry run (``launch/dryrun.py``, XLA tooling); the moments' dtype is
+``OptConfig.moment_dtype`` (``repro_torch.optim.adamw``), as in JAX's
+optimizer.
 """
 from __future__ import annotations
 

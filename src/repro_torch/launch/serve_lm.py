@@ -17,7 +17,10 @@ the rows of a table stored in that dtype, so a step sees what ``_embed``
 gives for the same token.  (The JAX example feeds the store's fp32 rows
 as they are, which only works at fp32: at bf16 ``decode_step_embeds``
 raises there.)  As in the example, the first step feeds the prompt's last
-token again.
+token again.  An MoE LM is served unchanged: its prefill dispatches by
+capacity, its decode steps route densely (``dense_route``).  There is no
+frontend argument, as the example has none: a VLM is served through
+``build(cfg).prefill({"tokens", "frontend"})`` and ``.decode``.
 """
 from __future__ import annotations
 
@@ -129,7 +132,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     choices=["smollm-135m", "smollm-360m", "qwen2.5-3b",
-                             "qwen3-14b"])
+                             "qwen3-14b", "granite-moe-1b-a400m"])
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's small CPU-scale config (fp32)")
     ap.add_argument("--batch", type=int, default=8)

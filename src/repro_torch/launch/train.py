@@ -21,7 +21,12 @@ checkpoint and runs on to ``--steps``, whose value also sets the schedule
 
 Not ported: ``--model-parallel > 1`` and ``--grad-compression int8_ef``
 (they need several cards: ROADMAP A10b).  Like JAX's launcher this one
-feeds LM data only, so ``--arch`` must be a dense LM.
+feeds LM data only (tokens and labels), so ``--arch`` is an LM the port
+builds: dense, MoE (its loss adds the load-balance term) or the VLM (its
+text alone, no frontend, as in JAX); DLRM is refused, and the SSM, hybrid
+and encoder-decoder LMs are not ported (ROADMAP A11c).  The optimizer is
+``OptConfig(lr, total_steps)`` with JAX's defaults (fp32 moments, no
+master copy): JAX's launcher has no flag for either knob.
 """
 from __future__ import annotations
 
@@ -116,11 +121,10 @@ def main(argv=None):
             f"--grad-compression {args.grad_compression} compresses a "
             "data-parallel all-reduce across cards (ROADMAP A10b)")
     cfg = get_config(args.arch)
-    if cfg.family != "dense":
+    if cfg.family == "dlrm":
         raise NotImplementedError(
-            f"--arch {args.arch} ({cfg.family}): the launcher feeds LM data "
-            "only and the port trains the dense LMs (other families: "
-            "ROADMAP A11c)")
+            f"--arch {args.arch}: the launcher feeds LM data only, as JAX's "
+            "does (DLRM trains through make_train_step)")
     if args.reduced:
         cfg = cfg.reduced()
     run = RunConfig(remat=args.remat)
@@ -166,8 +170,12 @@ def main(argv=None):
         ckpt.wait_pending(args.ckpt)
         ckpt.save(args.ckpt, args.steps,
                   {"params": params, "opt": opt.state_dict()})
-    print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"steps/s {1.0/max(mon.mean,1e-9):.2f}; {mon.summary()}")
+    if losses:
+        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"steps/s {1.0/max(mon.mean,1e-9):.2f}; {mon.summary()}")
+    else:  # restored at --steps: nothing left to train
+        print(f"done: no step to run (restored step {start} of "
+              f"{args.steps})")
     return losses
 
 

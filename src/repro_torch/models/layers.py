@@ -1,11 +1,12 @@
-"""Building blocks of the dense LM, in PyTorch.
+"""Building blocks of the dense and MoE LMs, in PyTorch.
 
-Ported from ``src/repro/models/layers.py`` (the dense subset): ``rms_norm``
-(:35), ``rope`` (:42), ``blocked_causal_attention`` (:142),
-``decode_attention`` (:246), ``init_attn``/``_qkv``/``attn_block``/
-``attn_decode_block`` (:270-349) and ``init_mlp``/``mlp_block``
-(:378-397).  Layouts are the JAX package's: x (B, S, D), q (B, S, H, hd),
-k/v and the KV cache (B, S, K, hd), weights (in, out) applied as ``x @ w``.
+Ported from ``src/repro/models/layers.py``: ``rms_norm`` (:35), ``rope``
+(:42), ``blocked_causal_attention`` (:142), ``decode_attention`` (:246),
+``init_attn``/``_qkv``/``attn_block``/``attn_decode_block`` (:270-349),
+``init_mlp``/``mlp_block`` (:378-397) and ``init_moe``/
+``_moe_dispatch_ffn``/``moe_block`` (:406-504).  Layouts are the JAX
+package's: x (B, S, D), q (B, S, H, hd), k/v and the KV cache (B, S, K,
+hd), weights (in, out) applied as ``x @ w``.
 Query head h reads KV head ``h // G`` with ``G = H // K``
 (``q.reshape(B, S, K, G, hd)``).
 
@@ -16,15 +17,22 @@ S <= 2048 and its padding to whole blocks change no result beyond
 rounding.  For the p v product the bf16 kernel rounds p to bf16, as
 ``plain_attention`` rounds it to v's dtype; the fp32 kernel and the plain
 version keep p in fp32.  Not ported:
-``kv_stream_attention`` and the sequence-parallel branch of ``attn_block``
-(they need a mesh), sliding windows (no dense config has one, and the
-kernel takes none), the MoE, SSM and cross-attention blocks (ROADMAP A11c).
+``kv_stream_attention``, the sequence-parallel branch of ``attn_block``
+and the MoE's data-local dispatch (``_moe_dispatch_ffn_sharded``,
+``local_dispatch``): they need a mesh (ROADMAP A10b); sliding windows (the
+kernel takes none), the SSM and cross-attention blocks (ROADMAP A11c).
 
 Products whose JAX einsum asks for ``preferred_element_type=float32`` are
 taken on fp32 copies of their inputs (a bf16 product is exact in fp32), so
 bf16 scores are not rounded to bf16.  ``attn_decode_block`` writes the new
 key and value into the cache in place (JAX returns updated copies); the
 cache's position is a Python int.
+
+The MoE's expert products are plain batched matrix products
+(``torch.bmm``/``matmul``), as JAX leaves them to XLA outside any Pallas
+kernel.  Its top-K is ``lax.top_k``'s: probabilities in descending order,
+ties to the lower expert index (a stable descending sort; ``torch.topk``
+promises no order on ties).
 """
 from __future__ import annotations
 
@@ -196,3 +204,111 @@ def init_mlp(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
 
 def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based scatter dispatch; dense routing on decode)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
+             dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_moe`` draws: an fp32 router (D, E), ``w1``/``w3``
+    (E, D, Fe) and ``w2`` (E, Fe, D) in ``dt``."""
+    d, e, fe = cfg.d_model, cfg.n_experts, cfg.expert_ff
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(fe)
+    return {"router": _normal(g, (d, e), sc_in, torch.float32, dev),
+            "w1": _normal(g, (e, d, fe), sc_in, dt, dev),
+            "w3": _normal(g, (e, d, fe), sc_in, dt, dev),
+            "w2": _normal(g, (e, fe, d), sc_out, dt, dev)}
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: the k largest in descending order,
+    equal values in ascending index order.  Returns ``(values, indices)``."""
+    idx = torch.sort(x, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def _route(p, cfg: ModelConfig, xf: torch.Tensor):
+    """xf (T, D) -> ``(probs (T, E), top_p (T, K), top_e (T, K))``: the fp32
+    router softmax, its top-K, and the top-K renormalised by ``max(sum,
+    1e-9)``."""
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    top_p, top_e = _top_k(probs, cfg.top_k)
+    return probs, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+
+
+def _capacity_slots(flat_e: torch.Tensor, n_experts: int, capacity: int):
+    """flat_e (T*K,) expert of each assignment, token-major -> ``(slot,
+    keep)``: an assignment's rank among its expert's assignments is a
+    cumulative count in that order; ranks below ``capacity`` go to slot
+    ``e * capacity + rank``, the rest to the drop slot ``E * capacity``.
+    The counts run along the last axis of an (E, T*K) indicator (JAX's
+    one-hot transposed): a scan down the first axis of (T*K, E) runs one
+    thread per expert on the card."""
+    onehot = flat_e[None, :] == torch.arange(n_experts,
+                                             device=flat_e.device)[:, None]
+    rank = onehot.cumsum(dim=1, dtype=torch.int32).gather(
+        0, flat_e[None, :])[0] - 1
+    keep = rank < capacity
+    slot = torch.where(keep, flat_e * capacity + rank,
+                       n_experts * capacity)
+    return slot, keep
+
+
+def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor):
+    """Capacity dispatch and the expert SwiGLU.  xf (T, D) -> ``(out (T,
+    D), aux)``, aux the Switch load-balance loss ``E * sum(me * ce)`` (ce
+    counts every top-K assignment, dropped ones too).
+
+    The tokens scatter into an (E*C+1, D) buffer whose last row takes every
+    dropped assignment; which of those writes lands there is unspecified,
+    and the row is discarded, so its gradient is zero (JAX's scatter
+    transpose).  No (T, E, C) one-hot is built."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs, top_p, top_e = _route(p, cfg, xf)
+    ce = torch.bincount(top_e.reshape(-1), minlength=e).float() / (t * k)
+    aux = e * torch.sum(probs.mean(dim=0) * ce)
+
+    c = max(1, int(math.ceil(cfg.capacity_factor * t * k / e)))
+    slot, _ = _capacity_slots(top_e.reshape(-1), e, c)
+    # Token-major copies of each token, one per assignment; the backward
+    # sums them over K (no atomics).
+    x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = xf.new_zeros((e * c + 1, d)).index_put((slot,), x_rep)
+    h = buf[:e * c].view(e, c, d)
+    y = torch.bmm(F.silu(torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"]),
+                  p["w2"])
+    y_flat = torch.cat([y.reshape(e * c, d), y.new_zeros((1, d))])
+    # index_select, whose backward adds into the rows (only the discarded
+    # zero row takes several); indexing's backward sorts the slots and
+    # walks the drop slot's duplicates one after another.
+    gathered = y_flat.index_select(0, slot) * top_p.reshape(-1, 1).to(
+        y.dtype)
+    return gathered.view(t, k, d).sum(dim=1), aux
+
+
+def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
+              dense_route: bool = False):
+    """Top-K capacity-dispatched MoE.  x (B, S, D) -> ``(out, aux)``.
+
+    ``dense_route=True`` (decode: few tokens) runs every expert on every
+    token and combines them with a (T, E) weight matrix holding each
+    token's renormalised top-K probabilities: no token is dropped, and the
+    aux loss is 0."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    if not dense_route:
+        out, aux = _moe_dispatch_ffn(p, cfg, xf)
+        return out.view(b, s, d), aux
+    _, top_p, top_e = _route(p, cfg, xf)
+    g = torch.matmul(xf, p["w1"])  # (E, T, Fe)
+    u = torch.matmul(xf, p["w3"])
+    y = torch.matmul(F.silu(g) * u, p["w2"])  # (E, T, D)
+    w = torch.zeros((b * s, cfg.n_experts), dtype=top_p.dtype,
+                    device=x.device).scatter(1, top_e, top_p)
+    out = torch.bmm(w.to(y.dtype)[:, None, :], y.transpose(0, 1))  # (T, 1, D)
+    return out.view(b, s, d), torch.zeros((), device=x.device)

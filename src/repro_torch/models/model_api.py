@@ -3,21 +3,25 @@
 Counterpart of ``src/repro/models/model_api.py``.  The bundle is bound to a
 device (``"cuda"`` by default): each of its functions resolves it when
 called, so on a machine without CUDA they raise unless the bundle was
-built with ``device="cpu"``.  Ported families: ``dense`` (``init``,
-``loss`` = ``lm_loss`` under the bundle's ``RunConfig``, ``prefill``,
-``decode``) and ``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill`` =
-the forward).  Every other family (encoder-decoder, MoE, SSM, hybrid, VLM)
-raises ``NotImplementedError`` naming ROADMAP A11c.
+built with ``device="cpu"``.  Ported families: the LMs ``dense``, ``moe``
+and ``vlm`` (``init``, ``loss`` = ``lm_loss`` under the bundle's
+``RunConfig``, ``prefill``, ``decode``; ``loss`` and ``prefill`` pass the
+batch's ``"frontend"``, when it has one, as the VLM's frontend
+embeddings) and ``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill``
+= the forward).  Every other family (SSM, hybrid, encoder-decoder) raises
+``NotImplementedError`` naming ROADMAP A11c.  ``n_params`` and
+``n_active_params`` count from the config without allocating, and
+``batch_struct`` gives a shape cell's batch as ``{name: (shape, dtype)}``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import dlrm as D
 from repro_torch.models import transformer as T
@@ -38,11 +42,37 @@ class ModelBundle:
     prefill: Callable[..., Any]  # prefill(params, batch[, cache_len])
     decode: Optional[Callable[..., Any]]  # decode(params, token, cache)
     n_params: Callable[[], int]
+    # The MoE's experts count at top_k / n_experts; equal to n_params else.
+    n_active_params: Callable[[], int]
+
+    def batch_struct(self, shape: ShapeConfig
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """The batch of one shape cell as ``{name: (shape, dtype)}``, JAX's
+        ``batch_struct`` without its JAX types."""
+        cfg, b = self.cfg, shape.global_batch
+        if cfg.family == "dlrm":
+            d = {"dense": ((b, cfg.dense_features), torch.float32),
+                 "sparse": ((b, cfg.n_tables, cfg.multi_hot), torch.int32)}
+            if shape.kind == "train":
+                d["label"] = ((b,), torch.float32)
+            return d
+        if shape.kind == "decode":
+            return {"token": ((b, 1), torch.int32)}
+        d = {"tokens": ((b, shape.seq_len), torch.int32)}
+        if shape.kind == "train":
+            d["labels"] = ((b, shape.seq_len), torch.int32)
+        if cfg.frontend == "vision":
+            d["frontend"] = ((b, cfg.n_frontend_tokens, cfg.d_model),
+                             D.torch_dtype(cfg.compute_dtype))
+        return d
 
 
-def _lm_n_params(cfg: ModelConfig) -> int:
+def _lm_n_params(cfg: ModelConfig, active: bool = False) -> int:
     """Parameter count of :func:`repro_torch.models.transformer.init_lm`'s
-    shapes, computed without allocating them."""
+    shapes, computed without allocating them.  ``active``: each of an
+    MoE's three expert weights, stacked over the layers, counts at
+    ``int(n * top_k / n_experts)`` as JAX's ``n_active_params`` counts it;
+    the router counts fully."""
     d, h, n_kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                          cfg.d_ff)
     attn = 2 * d * h * hd + 2 * d * n_kv * hd
@@ -50,9 +80,18 @@ def _lm_n_params(cfg: ModelConfig) -> int:
         attn += (h + 2 * n_kv) * hd
     if cfg.qk_norm:
         attn += 2 * hd
-    per_layer = attn + 3 * d * f + 2 * d
+    per_layer = attn + 2 * d
+    experts = 0
+    if cfg.n_experts:
+        per_layer += d * cfg.n_experts  # the router
+        experts = cfg.n_layers * cfg.n_experts * d * cfg.expert_ff
+        if active:
+            experts = int(experts * cfg.top_k / cfg.n_experts)
+        experts *= 3
+    else:
+        per_layer += 3 * d * f
     head = 0 if cfg.tie_embeddings else d * cfg.vocab
-    return cfg.n_layers * per_layer + cfg.vocab * d + d + head
+    return cfg.n_layers * per_layer + experts + cfg.vocab * d + d + head
 
 
 def _dlrm_n_params(cfg: ModelConfig) -> int:
@@ -83,23 +122,29 @@ def build(cfg: ModelConfig, device="cuda",
             cfg=cfg, device=device,
             init=lambda seed=0: D.init_dlrm(cfg, seed, device),
             loss=loss, prefill=serve, decode=None,
-            n_params=lambda: _dlrm_n_params(cfg))
+            n_params=lambda: _dlrm_n_params(cfg),
+            n_active_params=lambda: _dlrm_n_params(cfg))
 
-    if cfg.family != "dense":
+    if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense LM and DLRM "
-            "only (MoE, SSM, hybrid, encoder-decoder, VLM: ROADMAP A11c)")
+            f"family {cfg.family!r}: the port has DLRM and the LM families "
+            f"{T.FAMILIES} (SSM, hybrid, encoder-decoder: ROADMAP A11c)")
+
+    def frontend(batch, dev):
+        fe = batch.get("frontend")
+        return None if fe is None else _on(fe, dev)
 
     def loss(params, batch):
         dev = resolve_device(device)
         return T.lm_loss(params, cfg, run,
                          _on(batch["tokens"], dev, torch.int64),
-                         _on(batch["labels"], dev, torch.int64))
+                         _on(batch["labels"], dev, torch.int64),
+                         frontend(batch, dev))
 
     def prefill_fn(params, batch, cache_len=None):
         dev = resolve_device(device)
         return T.prefill(params, cfg, _on(batch["tokens"], dev, torch.int64),
-                         cache_len)
+                         cache_len, frontend(batch, dev))
 
     def decode_fn(params, token, cache):
         dev = resolve_device(device)
@@ -109,5 +154,6 @@ def build(cfg: ModelConfig, device="cuda",
         cfg=cfg, device=device,
         init=lambda seed=0: T.init_lm(cfg, seed, device),
         loss=loss, prefill=prefill_fn, decode=decode_fn,
-        n_params=lambda: _lm_n_params(cfg))
+        n_params=lambda: _lm_n_params(cfg),
+        n_active_params=lambda: _lm_n_params(cfg, active=True))
 

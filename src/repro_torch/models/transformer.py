@@ -1,20 +1,25 @@
-"""Decoder-only dense LM in PyTorch: init, training loss, prefill and decode.
+"""Decoder-only LMs in PyTorch (dense, MoE, VLM): init, training loss,
+prefill and decode.
 
-Ported from the dense family of ``src/repro/models/transformer.py``:
-``init_layer``/``init_lm`` (:30-66) as the ``nn.Module``
-:class:`TransformerLM` with a ``ModuleList`` of blocks in place of the
-stacked ``lax.scan``; ``_layer_forward``/``_layer_decode`` (:74-133, dense
-branch); ``_remat``, ``backbone``, ``_embed``, ``_logits``, ``_ce`` and
-``lm_loss`` (:133-231); ``init_cache``, ``prefill``, ``decode_step``,
+Ported from ``src/repro/models/transformer.py``: ``init_layer``/
+``init_lm`` (:30-66) as the ``nn.Module`` :class:`TransformerLM` with a
+``ModuleList`` of blocks in place of the stacked ``lax.scan``, each block
+holding a SwiGLU ``mlp`` or, with ``cfg.n_experts``, a ``moe``;
+``_layer_forward``/``_layer_decode`` (:74-130; the MoE decodes through
+``dense_route``); ``_remat``, ``backbone`` (the layers' mean aux loss),
+``_embed`` (a VLM's frontend embeddings spliced over the first positions),
+``_logits``, ``_ce`` and ``lm_loss`` (``+ 0.01 * aux`` for the MoE)
+(:133-231); ``init_cache``, ``prefill``, ``decode_step``,
 ``decode_step_embeds`` and ``_decode_from`` (:234-314).
-``constrain_batch`` is a no-op without a mesh and is dropped; the MoE,
-SSM, hybrid and VLM branches (and their auxiliary loss, 0 for a dense
-model) come with the other families (ROADMAP A11c).
+``constrain_batch`` is a no-op without a mesh and is dropped.  Not ported:
+the SSM, hybrid and sliding-window branches (ROADMAP A11c) and the MoE's
+data-local dispatch (a mesh: A10b).
 
 ``remat="full"`` runs each layer under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
 counterpart of ``jax.checkpoint``: the backward recomputes the layer's
-forward (so ``flash_attention`` runs twice per layer and step).
+forward (so ``flash_attention`` runs twice per layer and step, and the
+MoE routes the same tokens again).
 ``remat="dots"`` (an XLA checkpoint policy) is refused by
 :class:`~repro_torch.configs.base.RunConfig`.
 
@@ -44,11 +49,16 @@ from repro_torch.models import layers as L
 from repro_torch.models.dlrm import _tensor, torch_dtype
 
 
-def _check_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+# The LM families this module builds: those whose backbone is attention
+# plus a feed-forward block.
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def _check_family(cfg: ModelConfig):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense LM only (the "
-            "other families are ROADMAP A11c)")
+            f"family {cfg.family!r}: the port's LMs are {FAMILIES} (SSM, "
+            "hybrid and encoder-decoder: ROADMAP A11c)")
 
 
 def _params(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -57,16 +67,18 @@ def _params(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One pre-norm layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One pre-norm layer: ``ln1``, ``attn``, ``ln2`` and the feed-forward
+    block, ``mlp`` (SwiGLU) or ``moe`` (router and experts), whichever
+    ``ffn_name`` says."""
 
     def __init__(self, attn: Dict[str, torch.Tensor],
-                 mlp: Dict[str, torch.Tensor], ln1: torch.Tensor,
-                 ln2: torch.Tensor):
+                 ffn: Dict[str, torch.Tensor], ln1: torch.Tensor,
+                 ln2: torch.Tensor, ffn_name: str = "mlp"):
         super().__init__()
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
         self.attn = _params(attn)
-        self.mlp = _params(mlp)
+        setattr(self, ffn_name, _params(ffn))
 
 
 class TransformerLM(nn.Module):
@@ -78,7 +90,7 @@ class TransformerLM(nn.Module):
                  final_norm: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
-        _check_dense(cfg)
+        _check_family(cfg)
         if (lm_head is None) != cfg.tie_embeddings:
             raise ValueError(f"{cfg.name}: lm_head must be given iff the "
                              "embeddings are not tied")
@@ -90,18 +102,24 @@ class TransformerLM(nn.Module):
                         else nn.Parameter(lm_head, requires_grad=False))
 
 
+def _ffn_name(cfg: ModelConfig) -> str:
+    return "moe" if cfg.n_experts else "mlp"
+
+
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> TransformerLM:
     """Random parameters on ``device`` from one seeded ``torch.Generator``,
     with the shapes and scales of the JAX ``init_lm``: weights normal times
-    ``1/sqrt(fan_in)``, the embedding normal times 0.02, norms ones, biases
-    zeros."""
-    _check_dense(cfg)
+    ``1/sqrt(fan_in)`` (the MoE router in fp32), the embedding normal
+    times 0.02, norms ones, biases zeros."""
+    _check_family(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = torch_dtype(cfg.param_dtype)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
-    blocks = [Block(L.init_attn(g, cfg, dt, dev), L.init_mlp(g, cfg, dt, dev),
-                    ones(), ones()) for _ in range(cfg.n_layers)]
+    ffn_name = _ffn_name(cfg)
+    init_ffn = L.init_moe if cfg.n_experts else L.init_mlp
+    blocks = [Block(L.init_attn(g, cfg, dt, dev), init_ffn(g, cfg, dt, dev),
+                    ones(), ones(), ffn_name) for _ in range(cfg.n_layers)]
     embed = L._normal(g, (cfg.vocab, cfg.d_model), 0.02, dt, dev)
     head = (None if cfg.tie_embeddings else L._normal(
         g, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model), dt, dev))
@@ -110,17 +128,19 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> TransformerLM:
 
 def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> TransformerLM:
     """The JAX ``init_lm`` pytree, as NumPy arrays (``{"embed", "blocks":
-    {"ln1", "ln2", "attn": {...}, "mlp": {...}}`` stacked on a leading L
-    axis, ``"final_norm"``, [``"lm_head"``]}), as the port's model on
-    ``device``: the L axis unstacked, same dtypes, same bits."""
+    {"ln1", "ln2", "attn": {...}, "mlp" or "moe": {...}}`` stacked on a
+    leading L axis, ``"final_norm"``, [``"lm_head"``]}), as the port's
+    model on ``device``: the L axis unstacked, same dtypes, same bits."""
     dev = resolve_device(device)
     bl = tree["blocks"]
-    blocks = [Block({k: _tensor(np.asarray(a)[i], dev)
-                     for k, a in bl["attn"].items()},
-                    {k: _tensor(np.asarray(a)[i], dev)
-                     for k, a in bl["mlp"].items()},
+    ffn_name = _ffn_name(cfg)
+
+    def layer(sub, i):
+        return {k: _tensor(np.asarray(a)[i], dev) for k, a in sub.items()}
+
+    blocks = [Block(layer(bl["attn"], i), layer(bl[ffn_name], i),
                     _tensor(np.asarray(bl["ln1"])[i], dev),
-                    _tensor(np.asarray(bl["ln2"])[i], dev))
+                    _tensor(np.asarray(bl["ln2"])[i], dev), ffn_name)
               for i in range(cfg.n_layers)]
     head = tree.get("lm_head")
     return TransformerLM(cfg, _tensor(tree["embed"], dev), blocks,
@@ -135,12 +155,17 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> TransformerLM:
 
 def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor):
-    """Full-sequence layer.  Returns ``(x, (k, v))``."""
+    """Full-sequence layer.  Returns ``(x, aux, (k, v))``: aux is the MoE's
+    load-balance loss, or ``None`` for a dense layer (JAX's zero)."""
     attn_out, kv = L.attn_block(blk.attn, cfg,
                                 L.rms_norm(x, blk.ln1, cfg.norm_eps),
                                 positions)
     x = x + attn_out
-    return x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps)), kv
+    h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
+    if cfg.n_experts:
+        ff, aux = L.moe_block(blk.moe, cfg, h2)
+        return x + ff, aux, kv
+    return x + L.mlp_block(blk.mlp, h2), None, kv
 
 
 def _layer_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -149,14 +174,33 @@ def _layer_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
         blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps), k_cache,
         v_cache, pos)
     x = x + attn_out
-    return x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
+    h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
+    if cfg.n_experts:
+        return x + L.moe_block(blk.moe, cfg, h2, dense_route=True)[0]
+    return x + L.mlp_block(blk.mlp, h2)
 
 
-def _embed(model: TransformerLM, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
+           frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> (B, S, D) rows of ``embed`` in the compute dtype
-    (indexing then casting gives JAX's cast-then-index values)."""
-    return model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+    (indexing then casting gives JAX's cast-then-index values).  With
+    ``frontend_embeds`` (B, F, D) and a config that has a frontend, those
+    embeddings, cast to the compute dtype, replace the first F positions
+    (JAX's ``dynamic_update_slice(x, fe, (0, 0, 0))``); an S below F
+    raises rather than clamp."""
+    x = model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+    if frontend_embeds is None or not cfg.n_frontend_tokens:
+        return x
+    n = frontend_embeds.shape[1]
+    if frontend_embeds.shape[0] != x.shape[0] or \
+            frontend_embeds.shape[2] != x.shape[2]:
+        raise ValueError(f"frontend_embeds {tuple(frontend_embeds.shape)} "
+                         f"for tokens {tuple(tokens.shape)} and d_model "
+                         f"{x.shape[2]}")
+    if n > x.shape[1]:
+        raise ValueError(f"a sequence of {x.shape[1]} tokens cannot hold "
+                         f"{n} frontend positions")
+    return torch.cat([frontend_embeds.to(x.dtype), x[:, n:]], dim=1)
 
 
 def _logits(model: TransformerLM, cfg: ModelConfig,
@@ -173,18 +217,25 @@ def _logits(model: TransformerLM, cfg: ModelConfig,
 
 
 def backbone(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
-             x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, positions: torch.Tensor):
     """The layers, each recomputed in the backward under ``remat="full"``,
-    then the final norm: x (B, S, D) -> (B, S, D)."""
+    then the final norm: x (B, S, D) -> ``(x (B, S, D), aux)``, aux the
+    layers' summed load-balance losses over ``n_layers`` (fp32, 0 for a
+    dense model)."""
     def layer(blk, x_):
-        return _layer_forward(blk, cfg, x_, positions)[0]
+        x_, aux_, _ = _layer_forward(blk, cfg, x_, positions)
+        return x_, aux_
 
+    aux = torch.zeros((), device=x.device)
     for blk in model.blocks:
         if run.remat == "full":
-            x = checkpoint(layer, blk, x, use_reentrant=False)
+            x, a = checkpoint(layer, blk, x, use_reentrant=False)
         else:
-            x = layer(blk, x)
-    return L.rms_norm(x, model.final_norm, cfg.norm_eps)
+            x, a = layer(blk, x)
+        if a is not None:
+            aux = aux + a
+    return (L.rms_norm(x, model.final_norm, cfg.norm_eps),
+            aux / max(cfg.n_layers, 1))
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
@@ -195,14 +246,17 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
 
 
 def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
-            tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+            tokens: torch.Tensor, labels: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal LM loss, fp32: tokens/labels (B, S) int; labels < 0 are
-    masked.  The logits and their cross-entropy go chunk by chunk of
-    ``run.logits_chunk`` positions when it divides S (and is below it), as
-    JAX's ``lax.scan`` over chunks does."""
+    masked; ``frontend_embeds`` as :func:`_embed` takes them.  The logits
+    and their cross-entropy go chunk by chunk of ``run.logits_chunk``
+    positions when it divides S (and is below it), as JAX's ``lax.scan``
+    over chunks does.  An MoE adds ``0.01 * aux``."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x = backbone(model, cfg, run, _embed(model, cfg, tokens), positions)
+    x, aux = backbone(model, cfg, run,
+                      _embed(model, cfg, tokens, frontend_embeds), positions)
     mask = (labels >= 0).float()
     labels_c = labels.clamp_min(0).long()
     ch = run.logits_chunk
@@ -214,7 +268,10 @@ def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
             num, den = num + n, den + d
     else:
         num, den = _ce(_logits(model, cfg, x), labels_c, mask)
-    return num / den.clamp_min(1.0)
+    loss = num / den.clamp_min(1.0)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +282,7 @@ def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device="cuda") -> Dict:
     """Zeroed decode cache with room for ``cache_len`` positions."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.compute_dtype)
     shape = (cfg.n_layers, batch, cache_len, cfg.kv_heads, cfg.hd)
@@ -235,18 +292,20 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 
 @torch.inference_mode()
 def prefill(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None,
+            frontend_embeds: Optional[torch.Tensor] = None):
     """tokens (B, S) on the model's device -> ``(last-token logits (B, V)
     fp32, cache at pos = S)``.  ``cache_len`` is the cache's capacity C:
     above S the cache is padded with zeros, below S it keeps the last C
-    keys rotated so that slot = pos % C (``transformer.py:269-278``)."""
+    keys rotated so that slot = pos % C (``transformer.py:269-278``).
+    ``frontend_embeds`` as :func:`_embed` takes them (a VLM's image)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x = _embed(model, cfg, tokens)
+    x = _embed(model, cfg, tokens, frontend_embeds)
     cap = cache_len or s
     cache = init_cache(cfg, b, cap, x.dtype, tokens.device)
     for i, blk in enumerate(model.blocks):
-        x, (k, v) = _layer_forward(blk, cfg, x, positions)
+        x, _, (k, v) = _layer_forward(blk, cfg, x, positions)
         if s > cap:
             cache["k"][i] = torch.roll(k[:, s - cap:], s % cap, dims=1)
             cache["v"][i] = torch.roll(v[:, s - cap:], s % cap, dims=1)

@@ -16,17 +16,27 @@ Ported from ``src/repro/optim/adamw.py`` (``OptConfig``, ``schedule``,
 ``torch.optim.AdamW`` with ``clip_grad_norm_`` and ``LambdaLR`` is not
 this update: its schedule is one step behind (``LambdaLR`` gives the
 first update the factor of step 0) and its clip divides by the norm plus
-1e-6.  The moments are fp32 (the JAX default ``moment_dtype``), one pair a
-parameter from the start (``init_opt``'s state).  Like JAX's default
-(``master_fp32=False``) the update runs in fp32 and is cast back to the
-parameter's dtype, bf16 parameters included, with no fp32 master copy.
+1e-6.  One pair of moments a parameter exists from the start
+(``init_opt``'s state).  The update math runs in fp32 whatever the
+storage, as JAX's ``upd`` does:
+
+* ``moment_dtype`` (``"float32"``, the default, or ``"bfloat16"``) is the
+  moments' storage: ``m`` and ``v`` are widened to fp32, updated, used for
+  the step and rounded back once a step (round to nearest even, as
+  ``astype`` rounds);
+* ``master_fp32`` keeps an fp32 copy of every parameter
+  (``state["master"]``): the step reads it (weight decay too), writes it,
+  and casts it into the parameter.  Without it (the default) the update
+  reads the parameter widened to fp32 and is cast back to the parameter's
+  dtype, bf16 parameters included.
 
 :meth:`AdamW.apply` takes the gradients as a list, in any float dtype (the
 train step hands in fp32 sums over microbatches, as JAX's
 ``apply_updates`` takes them); :meth:`AdamW.step` reads ``.grad``.
-``state_dict`` is ``{"count", "m", "v"}`` with the moments in parameter
-order, and ``load_state_dict`` copies them back in place, so a restored
-optimizer resumes the schedule at its step.
+``state_dict`` is ``{"count", "m", "v"}`` (and ``"master"`` with
+``master_fp32``), each a list in parameter order in its stored dtype, and
+``load_state_dict`` copies them back in place, so a restored optimizer
+resumes the schedule at its step with the same bits.
 """
 from __future__ import annotations
 
@@ -35,6 +45,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
 import torch
+
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -47,6 +59,13 @@ class OptConfig:
     clip_norm: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 10_000
+    moment_dtype: str = "float32"
+    master_fp32: bool = False
+
+    def __post_init__(self):
+        if self.moment_dtype not in MOMENT_DTYPES:
+            raise ValueError(f"moment_dtype {self.moment_dtype!r}: expected "
+                             f"one of {sorted(MOMENT_DTYPES)}")
 
 
 def schedule(cfg: OptConfig, step: int) -> float:
@@ -70,9 +89,13 @@ class AdamW(torch.optim.Optimizer):
         super().__init__(params, {})
         self.cfg = cfg
         self.count = 0
+        mdt = MOMENT_DTYPES[cfg.moment_dtype]
         for p in self._params():
-            self.state[p]["m"] = torch.zeros_like(p, dtype=torch.float32)
-            self.state[p]["v"] = torch.zeros_like(p, dtype=torch.float32)
+            self.state[p]["m"] = torch.zeros_like(p, dtype=mdt)
+            self.state[p]["v"] = torch.zeros_like(p, dtype=mdt)
+            if cfg.master_fp32:
+                self.state[p]["master"] = p.detach().to(torch.float32,
+                                                        copy=True)
 
     def _params(self) -> List[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]]
@@ -112,26 +135,39 @@ class AdamW(torch.optim.Optimizer):
         return {"grad_norm": gnorm, "lr": lr}
 
     def _update_leaf(self, p, grad, scale, lr, bc1, bc2) -> None:
-        """One leaf's moments and value, in place.  The leaves are updated
-        one after another, after ``count`` has moved: a failure here leaves
-        the step half applied (the launcher does not retry it)."""
+        """One leaf's moments and value (and master copy), in place.  The
+        leaves are updated one after another, after ``count`` has moved: a
+        failure here leaves the step half applied (the launcher does not
+        retry it)."""
         cfg = self.cfg
         st = self.state[p]
         g = grad.float() * scale
         m, v = st["m"], st["v"]
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        p32 = p.float()
+        m32 = m if m.dtype == torch.float32 else m.float()
+        v32 = v if v.dtype == torch.float32 else v.float()
+        m32.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v32.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
+        upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+        master = st.get("master")
+        p32 = p.float() if master is None else master
         if cfg.weight_decay:
             upd = upd + cfg.weight_decay * p32
-        p.copy_(p32 - lr * upd)
+        new = p32 - lr * upd
+        if m32 is not m:  # bf16 moments: rounded once, to nearest even
+            m.copy_(m32)
+            v.copy_(v32)
+        if master is not None:
+            master.copy_(new)
+        p.copy_(new)
 
     def state_dict(self) -> Dict[str, object]:
         params = self._params()
-        return {"count": self.count,
-                "m": [self.state[p]["m"] for p in params],
-                "v": [self.state[p]["v"] for p in params]}
+        out = {"count": self.count,
+               "m": [self.state[p]["m"] for p in params],
+               "v": [self.state[p]["v"] for p in params]}
+        if self.cfg.master_fp32:
+            out["master"] = [self.state[p]["master"] for p in params]
+        return out
 
     @torch.no_grad()
     def load_state_dict(self, state_dict) -> None:
@@ -139,13 +175,20 @@ class AdamW(torch.optim.Optimizer):
         if len(state_dict["m"]) != len(params):
             raise ValueError(f"state for {len(state_dict['m'])} parameters, "
                              f"the optimizer has {len(params)}")
-        for p, m, v in zip(params, state_dict["m"], state_dict["v"]):
-            self.state[p]["m"].copy_(m)
-            self.state[p]["v"].copy_(v)
+        if ("master" in state_dict) != self.cfg.master_fp32:
+            raise ValueError(
+                "the state " + ("holds" if "master" in state_dict else
+                                "lacks") + " an fp32 master copy; the "
+                f"optimizer has master_fp32={self.cfg.master_fp32}")
+        keys = ("m", "v", "master") if self.cfg.master_fp32 else ("m", "v")
+        for key in keys:
+            for p, t in zip(params, state_dict[key]):
+                self.state[p][key].copy_(t)
         self.count = int(state_dict["count"])
 
 
 def init_opt(cfg: OptConfig, params: Sequence[torch.Tensor]) -> AdamW:
-    """An :class:`AdamW` over ``params`` with zeroed fp32 moments and count
-    0, JAX's ``init_opt``."""
+    """An :class:`AdamW` over ``params`` with zeroed moments in
+    ``cfg.moment_dtype``, an fp32 master copy with ``cfg.master_fp32``, and
+    count 0: JAX's ``init_opt``."""
     return AdamW(params, cfg)

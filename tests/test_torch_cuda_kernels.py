@@ -22,8 +22,16 @@ calls (no atomics); the forward's output bits do not
 change when it also writes the log-sum-exp; ``gather_pool``'s table
 gradient on the card within 1e-5 of its largest magnitude of the CPU's
 (the card's scatter-adds use atomics, so the order of summation differs;
-a bf16 table's gradient within one bf16 ulp, 2^-8).
+a bf16 table's gradient within one bf16 ulp, 2^-8).  The MoE and VLM LMs
+on the card, in fp32 (a bf16 activation's ulp flips near-tied expert
+choices between the devices): one MoE block's routing (top-K sets, keep
+masks) equal to the CPU's, its output, aux and gradients within 1e-5 of
+their largest magnitude; reduced granite-moe and internvl2 (with a
+frontend) prefill and decode within 1e-4; the bf16 MoE's loss and
+gradients bit-equal over two calls.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -537,7 +545,8 @@ def test_lstm_cell_and_chamfer_grads_match_plain(dev):
 # ---------------------------------------------------------------------------
 
 FLASH_SHAPES = [(2, 100, 4, 2, 16), (1, 1, 2, 1, 16), (2, 1000, 9, 3, 64),
-                (1, 300, 16, 2, 128), (3, 77, 8, 8, 32), (2, 64, 6, 3, 64)]
+                (1, 300, 16, 2, 128), (3, 77, 8, 8, 32), (2, 64, 6, 3, 64),
+                (2, 300, 16, 8, 64), (1, 300, 48, 8, 128)]
 # The bf16 tensor-core kernel's tile edges: 128-query blocks of 16-row
 # warps, 64-key tiles; S below, at and one past a key tile, ragged, one
 # and two whole query blocks' multiples; G = H / K in {1, 3, 8}.
@@ -604,10 +613,12 @@ def test_flash_attention_refuses_what_it_cannot_serve(dev):
 
 
 # flash_attention_bwd: the training cut's heads, qwen2.5-3b's, a ragged S,
-# head dims 16 and 32 (B, S, H, K, hd).
+# head dims 16 and 32, granite-moe's heads (16/8, hd 64) and internvl2's
+# (48/8, hd 128: G = 6) (B, S, H, K, hd).
 FLASH_BWD_SHAPES = [(2, 256, 9, 3, 64), (1, 200, 16, 2, 128),
                     (2, 1000, 9, 3, 64), (2, 130, 4, 2, 16),
-                    (1, 65, 6, 3, 32), (3, 17, 2, 1, 16)]
+                    (1, 65, 6, 3, 32), (3, 17, 2, 1, 16),
+                    (2, 256, 16, 8, 64), (1, 200, 48, 8, 128)]
 
 
 def _attn_inputs(dev, dt, b, s, h, n_kv, hd, seed):
@@ -808,6 +819,127 @@ def test_lm_prefill_and_decode_on_card_match_cpu(dev, dtype, tol):
         out[name] = torch.stack(steps).cpu()
     assert fa.flash_attention.launches == n0 + cfg.n_layers
     torch.testing.assert_close(out["card"], out["cpu"], rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# The MoE and VLM LMs on the card (fp32: bf16 router inputs differ by an
+# ulp between the devices and flip near-tied selections).
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(cf):
+    from repro_torch.configs.base import ModelConfig
+
+    return ModelConfig(name="t", family="moe", n_layers=1, d_model=64,
+                       d_ff=64, vocab=64, n_experts=8, top_k=2, moe_d_ff=64,
+                       capacity_factor=cf, param_dtype="float32",
+                       compute_dtype="float32")
+
+
+@pytest.mark.parametrize("dense_route", [False, True])
+@pytest.mark.parametrize("cf", [0.5, 8.0])
+def test_moe_block_on_card_matches_cpu(dev, cf, dense_route):
+    """One MoE block from the same parameters on both devices: routing
+    (top-K sets and keep masks) equal, outputs, aux and the gradients of
+    the input and every parameter within 1e-5 of their largest
+    magnitude."""
+    from repro_torch.models import layers as L
+
+    cfg = _moe_cfg(cf)
+    g = torch.Generator().manual_seed(0)
+    params = L.init_moe(g, cfg, torch.float32, torch.device("cpu"))
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(4, 96, 64)).astype(np.float32))
+    dy = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(4, 96, 64)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        p = {k: v.to(d).requires_grad_() for k, v in params.items()}
+        xd = x.to(d).requires_grad_()
+        y, aux = L.moe_block(p, cfg, xd, dense_route=dense_route)
+        xf = x.to(d).reshape(-1, 64)
+        _, _, top_e = L._route(p, cfg, xf)
+        c = max(1, int(np.ceil(cf * xf.shape[0] * 2 / 8)))
+        _, keep = L._capacity_slots(top_e.reshape(-1), 8, c)
+        names = ["x"] + list(p)
+        grads = torch.autograd.grad((y * dy.to(d)).sum() + aux,
+                                    [xd] + list(p.values()),
+                                    allow_unused=True)
+        out[str(d)] = {"y": y.detach().cpu(), "aux": aux.detach().cpu(),
+                       "top_e": top_e.cpu(), "keep": keep.cpu(),
+                       **{f"d{n}": (torch.zeros(1) if gr is None
+                                    else gr.cpu())
+                          for n, gr in zip(names, grads)}}
+    cpu, card = out["cpu"], out[str(dev)]
+    assert torch.equal(cpu["top_e"], card["top_e"])
+    assert torch.equal(cpu["keep"], card["keep"])
+    if cf == 0.5:
+        assert not cpu["keep"].all()
+    for k, want in cpu.items():
+        if k in ("top_e", "keep"):
+            continue
+        err = float((card[k] - want).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want.abs().max())), k
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-26b"])
+def test_moe_and_vlm_prefill_and_decode_on_card_match_cpu(dev, arch):
+    """The reduced fp32 MoE (cf 1.25, so tokens drop) and VLM (with a
+    frontend) from the same parameters on both devices: prefill and three
+    decode steps within 1e-4, flash_attention in every prefill layer."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model_api import build
+
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=1.25)
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 70))}
+    if cfg.frontend:
+        batch["frontend"] = rng.normal(size=(
+            2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    model = build(cfg, device="cpu").init(seed=0)
+    n0 = fa.flash_attention.launches
+    out = {}
+    for d in ("cpu", dev):
+        bundle = build(cfg, device=d)
+        m = model if d == "cpu" else copy.deepcopy(model).to(d)
+        logits, cache = bundle.prefill(m, batch, cache_len=80)
+        steps = [logits]
+        for i in range(3):
+            logits, cache = bundle.decode(m, batch["tokens"][:, i:i + 1],
+                                          cache)
+            steps.append(logits)
+        out["cpu" if d == "cpu" else "card"] = torch.stack(steps).cpu()
+    assert fa.flash_attention.launches == n0 + cfg.n_layers
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_moe_training_step_on_card_gives_the_same_bits_twice(dev):
+    """The reduced bf16 MoE's loss and gradients (capacity dispatch, drop
+    slot and all, remat full) are bit-equal over two calls, so a resumed
+    run repeats the uninterrupted run's losses."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.models.model_api import build
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                              capacity_factor=1.25, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    bundle = build(cfg, device=dev, run=RunConfig(remat="full"))
+    model = bundle.init(seed=0).requires_grad_(True)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (4, 128))
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    runs = []
+    for _ in range(2):
+        loss = bundle.loss(model, batch)
+        runs.append([loss.detach()] + list(torch.autograd.grad(
+            loss, list(model.parameters()))))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model_api import build
 
-ARCHS = ["smollm-135m", "smollm-360m", "qwen2.5-3b", "qwen3-14b"]
+ARCHS = ["smollm-135m", "smollm-360m", "qwen2.5-3b", "qwen3-14b",
+         "granite-moe-1b-a400m", "grok-1-314b", "internvl2-26b"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JRUN = JaxRunConfig()
 
@@ -372,7 +373,8 @@ def _jax_serve(jcfg, jp, prompt, forced, cap):
     return store.stats, np.stack(logits)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-3b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-3b",
+                                  "granite-moe-1b-a400m"])
 def test_teacher_forced_tiered_serve_matches_jax(arch):
     cfg, jcfg, jp, model = _both(arch)
     prompt = _tokens(cfg, (4, 8), 13)
@@ -426,12 +428,12 @@ def test_build_dlrm_prefill_is_the_forward():
 
 
 def test_build_refuses_unported_families_and_losses():
-    """The other families raise naming A11c; the dense and DLRM losses are
+    """The other families raise naming A11c; the LM and DLRM losses are
     ported (``tests/test_torch_train.py``), but not the XLA remat policy
     their ``RunConfig`` could ask for."""
-    moe = dataclasses.replace(get_config("smollm-135m"), family="moe")
+    ssm = dataclasses.replace(get_config("smollm-135m"), family="ssm")
     with pytest.raises(NotImplementedError, match="A11c"):
-        build(moe, device="cpu")
+        build(ssm, device="cpu")
     cfg, _ = _cfgs("smollm-135m")
     assert callable(build(cfg, device="cpu").loss)
     with pytest.raises(NotImplementedError, match="XLA"):

@@ -445,6 +445,18 @@ def test_launcher_resumes_bit_equal(tmp_path, capsys):
     assert "step     5 loss" in out and "done: loss" in out
 
 
+def test_launcher_rerun_after_the_last_step_trains_nothing(tmp_path,
+                                                          capsys):
+    """A second run of a finished run's command restores step 6, trains no
+    step and says so (it raised IndexError on the empty loss list)."""
+    argv = ARGS + ["--ckpt", str(tmp_path)]
+    assert len(train_main(argv)) == 6
+    assert train_main(argv) == []
+    out = capsys.readouterr().out
+    assert f"restored step 6 from {tmp_path}" in out
+    assert "done: no step to run (restored step 6 of 6)" in out
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--model-parallel", "2"], "A10b"),
     (["--grad-compression", "int8_ef"], "A10b"),
@@ -462,3 +474,171 @@ def test_launcher_has_no_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--reduced", "--steps", "1", "--seq-len", "8",
                     "--batch", "1"])
+
+
+# ---------------------------------------------------------------------------
+# AdamW's knobs: bf16 moments and the fp32 master copy
+# ---------------------------------------------------------------------------
+
+KNOBS = [("bfloat16", False), ("float32", True), ("bfloat16", True)]
+
+
+@pytest.mark.parametrize("moment_dtype,master_fp32", KNOBS)
+def test_adamw_knobs_match_apply_updates_on_bf16_params(moment_dtype,
+                                                        master_fp32):
+    """Three steps on bf16 parameters against JAX's ``apply_updates`` with
+    the same knobs: parameters, moments (in their stored dtype) and the
+    master copy within 1e-6."""
+    from repro.optim.adamw import apply_updates
+
+    rng = np.random.default_rng(3)
+    shapes = {"a": (6, 5), "b": (9,), "c": ()}
+    p0 = {k: np.asarray(rng.normal(size=s), np.float32)
+          for k, s in shapes.items()}
+    grads = [{k: np.asarray(rng.normal(size=s), np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    kw = dict(lr=3e-3, weight_decay=0.1, warmup_steps=2, total_steps=10,
+              moment_dtype=moment_dtype, master_fp32=master_fp32)
+    jcfg = JaxOptConfig(**kw)
+    jparams = {k: jnp.asarray(v, jnp.bfloat16) for k, v in p0.items()}
+    jopt = jax_init_opt(jcfg, jparams)
+    params = [torch.from_numpy(v).to(torch.bfloat16) for v in p0.values()]
+    opt = init_opt(OptConfig(**kw), params)
+    for g in grads:
+        jparams, jopt, _ = apply_updates(
+            jcfg, jparams, jopt, {k: jnp.asarray(v) for k, v in g.items()})
+        opt.apply([torch.from_numpy(v) for v in g.values()])
+        sd = opt.state_dict()
+        for i, k in enumerate(shapes):
+            assert params[i].dtype == torch.bfloat16
+            pairs = [(params[i], jparams[k]), (sd["m"][i], jopt["m"][k]),
+                     (sd["v"][i], jopt["v"][k])]
+            if master_fp32:
+                pairs.append((sd["master"][i], jopt["master"][k]))
+            for got, want in pairs:
+                assert str(got.dtype).split(".")[-1] == want.dtype.name, k
+                np.testing.assert_allclose(
+                    got.float().numpy(), np.asarray(want, np.float32),
+                    rtol=0, atol=1e-6, err_msg=k)
+    assert opt.count == int(jopt["count"]) == 3
+    assert ("master" in opt.state_dict()) == master_fp32
+
+
+def test_adamw_refuses_unknown_moment_dtypes_and_mismatched_state():
+    with pytest.raises(ValueError, match="moment_dtype"):
+        OptConfig(moment_dtype="float16")
+    p = [torch.zeros(3)]
+    plain = init_opt(OptConfig(), p)
+    mastered = init_opt(OptConfig(master_fp32=True), [torch.zeros(3)])
+    with pytest.raises(ValueError, match="master"):
+        mastered.load_state_dict(plain.state_dict())
+    with pytest.raises(ValueError, match="master"):
+        plain.load_state_dict(mastered.state_dict())
+
+
+def _bf16_lm():
+    cfg, _, _ = _lm()
+    return dataclasses.replace(cfg, param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("moment_dtype,master_fp32", KNOBS)
+def test_checkpoint_keeps_master_and_bf16_moments_and_resumes_bit_equal(
+        tmp_path, moment_dtype, master_fp32):
+    """Four steps of reduced bf16 smollm with the knobs; a checkpoint after
+    step 2 restored into a fresh model and optimizer keeps every leaf's
+    dtype and bits (the master copy and bf16 moments included), and steps
+    3-4 from it give the uninterrupted run's losses and state bit for
+    bit."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.train import _restore
+
+    cfg = _bf16_lm()
+    ocfg = OptConfig(lr=1e-3, moment_dtype=moment_dtype,
+                     master_fp32=master_fp32)
+    bundle = build(cfg, device="cpu", run=RunConfig(remat="none"))
+    step_fn = make_train_step(bundle, 2)
+    batches = [_lm_batch(cfg, 2, 16, seed=20 + i) for i in range(4)]
+
+    def fresh():
+        model = T.init_lm(cfg, seed=0, device="cpu")
+        return model, init_opt(ocfg, list(model.parameters()))
+
+    model, opt = fresh()
+    losses = []
+    for i, batch in enumerate(batches):
+        losses.append(float(step_fn(model, opt, batch)["loss"]))
+        if i == 1:
+            ckpt.save(str(tmp_path), 2, {"params": model,
+                                         "opt": opt.state_dict()})
+    model_b, opt_b = fresh()
+    assert _restore(str(tmp_path), model_b, opt_b) == 2
+    assert opt_b.count == 2
+    saved = ckpt.restore(str(tmp_path), {"params": model_b,
+                                         "opt": opt_b.state_dict()})[0]
+    for (name, a), (_, b) in zip(named_leaves(saved["opt"]),
+                                 named_leaves(opt_b.state_dict())):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+    want_mdt = torch.bfloat16 if moment_dtype == "bfloat16" else \
+        torch.float32
+    assert all(m.dtype == want_mdt for m in opt_b.state_dict()["m"])
+    if master_fp32:
+        assert all(m.dtype == torch.float32
+                   for m in opt_b.state_dict()["master"])
+    resumed = [float(step_fn(model_b, opt_b, b)["loss"])
+               for b in batches[2:]]
+    assert resumed == losses[2:]
+    for (name, a), (_, b) in zip(named_leaves(model), named_leaves(model_b)):
+        assert torch.equal(a, b), name
+    for key, ts in opt.state_dict().items():
+        if key != "count":
+            for a, b in zip(ts, opt_b.state_dict()[key]):
+                assert torch.equal(a, b), key
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-26b"])
+def test_launcher_trains_and_resumes_moe_and_vlm(tmp_path, capsys, arch):
+    """The launcher trains the reduced MoE and VLM from LM data (the VLM
+    on its text alone, as JAX's launcher does) with two microbatches, and a
+    run resumed from step 3 gives the last three losses bit for bit."""
+    argv = ["--device", "cpu", "--reduced", "--arch", arch, "--steps", "6",
+            "--seq-len", "32", "--batch", "2", "--microbatches", "2",
+            "--remat", "full", "--log-every", "1"]
+    a_dir, b_dir = tmp_path / "a", tmp_path / "b"
+    run_a = train_main(argv + ["--ckpt", str(a_dir), "--ckpt-every", "3"])
+    assert len(run_a) == 6 and all(np.isfinite(run_a))
+    b_dir.mkdir()
+    shutil.copytree(a_dir / "step_00000003", b_dir / "step_00000003")
+    run_b = train_main(argv + ["--ckpt", str(b_dir)])
+    assert run_b == run_a[3:]
+    assert f"restored step 3 from {b_dir}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-26b"])
+def test_moe_and_vlm_train_step_matches_jax(arch):
+    """One ``make_train_step`` of the reduced MoE (its aux term in the loss)
+    and VLM at 2 microbatches against JAX's, from the same parameters."""
+    jcfg = jax_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    jp = jax.tree_util.tree_map(np.asarray,
+                                JT.init_lm(jax.random.PRNGKey(0), jcfg))
+    batch = _lm_batch(cfg, 4, 32, seed=30)
+    jopt_cfg = JaxOptConfig(lr=1e-3)
+    jparams = jax.tree_util.tree_map(jnp.asarray, jp)
+    jstep = jax.jit(jax_make_train_step(
+        JMA.build(jcfg, JaxRunConfig(remat="none")), jopt_cfg, 2))
+    jparams, _, jm = jstep(jparams, jax_init_opt(jopt_cfg, jparams),
+                           {k: jnp.asarray(v) for k, v in batch.items()})
+    model = T.params_from_jax(jp, cfg, device="cpu")
+    opt = init_opt(OptConfig(lr=1e-3), list(model.parameters()))
+    m = make_train_step(build(cfg, device="cpu",
+                              run=RunConfig(remat="full")), 2)(
+        model, opt, batch)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=TOL)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=TOL)
+    want = _jax_named(jparams)
+    for name, p in named_leaves(model):
+        np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=0,
+                                   atol=TOL, err_msg=name)
