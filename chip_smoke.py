@@ -61,10 +61,11 @@ on tiered memory, and training through the launcher) and of
    counters and logits within rtol/atol 1e-4;
 9. the CLI's default path at full width (``--model learned``, the widths
    of ``src/repro/launch/serve.py:569-572``): both models trained on the
-   card on the first 2 of the 8 serve batches (1 epoch), their outputs over
-   the whole trace, served fp32 (185,651 rows) and int8 (720,100 rows);
-   the Voyager arm trained on the first batch and served fp32 on an LRU
-   store;
+   card on the first half of the first of the 8 serve batches (1 epoch;
+   the first 2 batches before the SSM phases needed the time), their
+   outputs over the whole trace, served fp32 (185,651 rows) and int8
+   (720,100 rows); the Voyager arm trained on the same accesses (the
+   first batch before) and served fp32 on an LRU store;
 9'. runtime parity at the serve width: the pipelined runtime
    (``async_prefetch``) through the inline scheduler at depths 1 and 2,
    fp32 ``recmg`` (frequency) and int8 ``lru``: counters equal those of
@@ -172,7 +173,32 @@ on tiered memory, and training through the launcher) and of
     a 2,048-token prompt, prefill and 16 greedy decode steps through
     ``build(cfg).prefill``/``.decode``, and the same prompt without the
     frontend (the logits must differ); the reduced fp32 config with a
-    frontend on the card against the CPU within rtol/atol 1e-4.
+    frontend on the card against the CPU within rtol/atol 1e-4;
+20. ``selective_scan`` vs plain on the card (phase ``ssm_kernels``, run
+    after phase 10'): at falcon-mamba-7b's and hymba-1.5b's prefill layers
+    (B=8, S=2,048, Di 8,192 / 3,200, N=16), bf16 and fp32: y within 1e-5
+    (fp32) or 1e-2 (bf16) of its largest magnitude, h_last within 1e-5 of
+    its; each timed beside its bound (no PyTorch call computes the scan);
+    then the windowed ``flash_attention`` at hymba's prefill (8, 2048,
+    25/5, 64), window 1,024, within 1e-2 of the plain windowed version,
+    beside the same shape without a window, SDPA with a boolean band mask
+    and its bound; a window of S or more gives the causal kernel's bits
+    there and at the LM serve prefill's shape;
+21. scan share (run after phase 20): one falcon-mamba-7b prefill layer
+    (B=8 x 2,048, bf16) with the plain scan and with the kernel, and the
+    kernel alone on the same inputs, under ``torch.profiler`` and between
+    CUDA events: the scan's share of the layer's device busy time and of
+    its device timeline;
+22. SSM parity: reduced falcon-mamba-7b and hymba-1.5b (window cut to 8)
+    from the same seeded parameters on the CPU and on the card, a B=2,
+    S=24 prefill into a 16-slot cache (hymba's key ring holds 8) and 8
+    teacher-forced decode steps: logits within rtol/atol 1e-4 (fp32) and
+    5e-2 (bf16), as phase 11 holds them;
+23. SSM and hybrid serve: phase 12 at falcon-mamba-7b's full width and
+    depth (64 layers, d_model 4,096, Di 8,192, 7.27 B parameters) and at
+    hymba-1.5b's (32 layers, d_model 1,600, 25/5 heads, window 1,024,
+    1.66 B parameters): the 2,048-token prompt exceeds the window, so
+    hymba's key cache is a 1,024-slot ring that the decode wraps.
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
@@ -184,7 +210,10 @@ them as ``launches_runtime``, the sharded serve as ``launches_sharded``
 the transformer backbone's training as ``launches_transfetch``,
 training (phases 13 and 15) as ``launches_train``, the LM serve as
 ``launches_lm_serve``, the MoE's serve and training (17, 18) as
-``launches_moe`` and the VLM's serve as ``launches_vlm``; the ``done``
+``launches_moe``, the VLM's serve as ``launches_vlm`` and the SSM and
+hybrid serves (23) as ``launches_ssm``; ``selective_scan`` has no TPU
+kernel (``replaces`` null, a ``note`` says why) and ``flash_attention``
+carries its ``windowed`` record; the ``done``
 line gives each phase's seconds; the last line is the result.  Imports
 nothing of JAX and nothing of the JAX package.
 """
@@ -225,6 +254,7 @@ from repro_torch.kernels import chamfer_kernel as ck  # noqa: E402
 from repro_torch.kernels import embedding_gather as eg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lstm_cell as lc  # noqa: E402
+from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
                                       cli_learned_config, host_table,
                                       serve_trace)
@@ -317,6 +347,24 @@ FLASH_DESIGN = {
             "in registers as bf16",
     "fp32": "fp32 FMAs from shared memory, 64-query x 32-key tiles, p "
             "through shared memory (the first port's kernel)"}
+CU_SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+# JAX computes the scan in XLA: no TPU kernel stands behind this one.
+SCAN_REPLACES_NOTE = ("no TPU kernel: JAX computes the mamba-1 scan in XLA, "
+                      "src/repro/models/layers.py:612 (selective_scan)")
+# selective_scan shapes (name, B, S, Di, N, dtype): falcon-mamba-7b's and
+# hymba-1.5b's prefill layers at the LM serve cut (B=8 x 2,048 tokens); the
+# first is the kernels line's.
+SCAN_SHAPES = tuple((name, 8, 2048, di, 16, dt)
+                    for name, di in (("falcon_prefill", 8192),
+                                     ("hymba_prefill", 3200))
+                    for dt in ("bf16", "fp32"))
+SCAN_DESIGN = ("one thread per (batch, channel), its N states in fp32 "
+               "registers, sequential over S; 128 channels of one batch row "
+               "a block; 64-step tiles of Bm and Cm in shared memory by "
+               "16-byte cp.async, double-buffered (broadcast reads); x, z, "
+               "dt read 8 steps ahead into registers; accurate expf")
+# The windowed attention at hymba-1.5b's prefill: (B, S, H, K, hd, window).
+WINDOW_SHAPE = (8, 2048, 25, 5, 64, 1024)
 LSTM_DESIGN = ("fp32 FMAs; blocks tile (16-64 rows) x (8 units, 4 gates "
                "each); rows and the block's W slice staged by 16-byte "
                "cp.async; a thread holds 4 rows x 4 gates, 3.2 FMAs a "
@@ -515,6 +563,7 @@ def phase_build():
     lc._lib()
     ck._lib()
     fa._lib()
+    ss._lib()
 
 
 # ---------------------------------------------------------------------------
@@ -1274,13 +1323,17 @@ def phase_learned_parity():
 def phase_learned_serve(cfg, trace, host, capacity, qcapacity, per_batch,
                         batch_queries, baseline):
     """The CLI's default path at full width: ``--model learned`` trained on
-    the first 2 of the 8 batches (1 epoch) and served fp32 and int8, and the
-    Voyager arm trained on the first batch and served fp32 on LRU.  Counts
+    the first half of the first of the 8 batches (1 epoch) and served fp32
+    and int8, and the Voyager arm trained on the same accesses and served
+    fp32 on LRU.  Counts
     are set to 0 just before each arm's training and read just after its
     serve.  Returns each kernel's launches summed over the arms, and the
     fp32 learned model."""
     params = init_dlrm(cfg, seed=0, device="cuda")
     lcfg = cli_learned_config(1)
+    # The accesses the arms train on: half a serve batch (the first 2
+    # batches before the SSM phases needed the script's time).
+    train_upto = per_batch // 2
     launches = {"lstm_cell": 0, "chamfer": 0}
     summary = {}
     int8 = dict(quantize=True, row_format="int8")
@@ -1288,7 +1341,7 @@ def phase_learned_serve(cfg, trace, host, capacity, qcapacity, per_batch,
         ops.reset_launches()
         t0 = time.perf_counter()
         model = LearnedRecMGModel.train_from_trace(
-            trace, cap, lcfg, profile_upto=2 * per_batch, device="cuda")
+            trace, cap, lcfg, profile_upto=train_upto, device="cuda")
         train_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         outputs = model.outputs_for(trace)
@@ -1317,8 +1370,9 @@ def phase_learned_serve(cfg, trace, host, capacity, qcapacity, per_batch,
         summary[(rows, "recmg-learned")] = res
         emit({"phase": "learned_serve", "rows": rows, "model": "learned",
               "capacity": cap, "launches": n,
-              "cuts": {"profile_upto": 2 * per_batch,
-                       "train_batches": "first 2 of 8", "epochs": 1},
+              "cuts": {"profile_upto": train_upto,
+                       "train_batches": "first half of 1 of 8",
+                       "epochs": 1},
               "train_windows_stride": lcfg.train_stride,
               "stage_s": {**{k: round(v, 3) for k, v in
                              model.timings.items()},
@@ -1339,7 +1393,7 @@ def phase_learned_serve(cfg, trace, host, capacity, qcapacity, per_batch,
     ops.reset_launches()
     t0 = time.perf_counter()
     vmodel, cand, vlosses = train_voyager_arm(trace, capacity, epochs=1,
-                                              profile_upto=per_batch,
+                                              profile_upto=train_upto,
                                               device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
@@ -1359,8 +1413,8 @@ def phase_learned_serve(cfg, trace, host, capacity, qcapacity, per_batch,
     summary[("fp32", "voyager")] = res
     emit({"phase": "learned_serve", "rows": "fp32", "model": "voyager",
           "capacity": capacity, "launches": n,
-          "cuts": {"profile_upto": per_batch, "train_batches": "first 1 of 8",
-                   "epochs": 1},
+          "cuts": {"profile_upto": train_upto,
+                   "train_batches": "first half of 1 of 8", "epochs": 1},
           "stage_s": {"train_s": round(train_s, 3),
                       "outputs_s": round(outputs_s, 3)},
           "steps": len(vlosses), "loss_first_last": [vlosses[0], vlosses[-1]],
@@ -1971,6 +2025,162 @@ def phase_flash_kernels(timer):
     return main
 
 
+def scan_inputs(b, s, di, n, dt):
+    """The scan's inputs at a prefill layer's shape and the model's scales:
+    x and z normal in the compute dtype, dt = softplus(normal - 2) (the
+    init's dt_bias), a = -(1 .. N) per channel (``-exp(A_log)`` of
+    ``init_mamba``), Bm and Cm normal, D ones."""
+    g = torch.Generator(device="cuda").manual_seed(di + n + s)
+    xc, z = (torch.randn((b, s, di), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    dtv = torch.nn.functional.softplus(
+        torch.randn((b, s, di), generator=g, device="cuda") - 2.0)
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device="cuda").repeat(di, 1)
+    bm, cm = (torch.randn((b, s, n), generator=g, device="cuda")
+              for _ in range(2))
+    return xc, z, dtv, a, bm, cm, torch.ones(di, device="cuda")
+
+
+def scan_bound(b, s, di, n, elt):
+    """x and z read and y written in the compute dtype, dt read, Bm and Cm
+    read, a and D read, h_last written (fp32); ~8 fp32 operations per
+    state and step (dt a, exp, two products and sums) and 8 per channel
+    and step (dt x, D x, silu, the gate)."""
+    n_bytes = (3 * elt + 4) * b * s * di + 4 * (2 * b * s * n + di * n + di
+                                                 + b * di * n)
+    return bound_ms(n_bytes, b * s * di * (8 * n + 8))
+
+
+def phase_ssm_kernels(timer):
+    """``selective_scan`` against its plain version at ``SCAN_SHAPES``, each
+    timed beside its bound (no PyTorch call computes the scan); then the
+    windowed ``flash_attention`` at hymba-1.5b's prefill against its plain
+    version and SDPA with a band mask, beside the same shape unwindowed,
+    and a window of S or more against no window at the LM serve prefill's
+    shape and at hymba's (bit-equal).  Returns (the record of falcon's bf16
+    layer, the windowed attention's record)."""
+    plain_timer = Timer(reps=2)  # the plain scan: ~10 launches a step
+    main = None
+    for name, b, s, di, n, dt_name in SCAN_SHAPES:
+        dt = DTYPES[dt_name]
+        ins = scan_inputs(b, s, di, n, dt)
+        y, h = ss.selective_scan(*ins)
+        wy, wh = ref.selective_scan_ref(*ins)
+        torch.cuda.synchronize()
+        # fp32: the same recurrence in the same order (FMAs and expf's last
+        # ulp aside); bf16: one rounding of nearly the same fp32 value.
+        tol = 1e-5 if dt_name == "fp32" else 1e-2
+        y_err = float((y.float() - wy.float()).abs().max())
+        y_scale = float(wy.float().abs().max())
+        h_err = float((h - wh).abs().max())
+        h_scale = float(wh.abs().max())
+        require(y_err <= tol * y_scale and h_err <= 1e-5 * h_scale,
+                f"selective_scan {name} {dt_name}: y err {y_err} (of "
+                f"{y_scale}), h err {h_err} (of {h_scale})")
+        del y, h, wy, wh
+        blocks = -(-di // 128) * b
+        rec = {"phase": "kernel", "name": "selective_scan", "shape": name,
+               "dtype": dt_name, "B": b, "S": s, "Di": di, "N": n,
+               "max_abs_err": y_err, "max_abs_y": y_scale,
+               "tolerance_share_of_largest": tol,
+               "h_last_max_abs_err": h_err, "max_abs_h": h_scale,
+               "design": SCAN_DESIGN, "blocks": blocks,
+               "warps_per_sm": blocks * 4 / torch.cuda.get_device_properties(
+                   0).multi_processor_count,
+               "ms": timer(lambda: ss.selective_scan(*ins)),
+               "plain_ms": plain_timer(lambda: ref.selective_scan_ref(*ins)),
+               "library_ms": None,
+               "library": "none: no PyTorch call computes a selective scan"}
+        rec["bound_ms"], rec["bound_by"] = scan_bound(
+            b, s, di, n, torch.empty((), dtype=dt).element_size())
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        if main is None:
+            main = rec
+        del ins
+        torch.cuda.empty_cache()
+    return main, window_attention(timer)
+
+
+def window_attention(timer):
+    b, s, h, n_kv, hd, w = WINDOW_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(s + w)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g, device="cuda")
+               .to(torch.bfloat16) for n in (h, n_kv, n_kv))
+    got = fa.flash_attention(q, k, v, window=w)
+    want, lse_want = ref.causal_attention_lse_ref(q, k, v, w)
+    o_lse, lse = fa.flash_attention(q, k, v, with_lse=True, window=w)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    require(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+            f"flash_attention window {w}: max abs err {err}")
+    require(torch.equal(o_lse, got), "flash_attention window: the output "
+            "changes when the kernel also writes the log-sum-exp")
+    lse_err = float((lse - lse_want).abs().max())
+    require(torch.allclose(lse, lse_want, rtol=1e-5, atol=1e-5),
+            f"flash_attention window: lse max abs err {lse_err}")
+    ulps = bf16_ulps(got, want)
+    del want, lse_want, o_lse, lse
+    # The library: SDPA with an explicit boolean band mask (no call takes a
+    # window), the KV heads repeated to H outside the timing.
+    g_ = h // n_kv
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(g_, dim=1).contiguous()
+              for t in (k, v))
+    band = torch.ones((s, s), dtype=torch.bool, device="cuda").tril().triu(
+        1 - w)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band)
+    lib_err = float((sdpa().transpose(1, 2).float() - got.float())
+                    .abs().max())
+    rec = {"phase": "kernel", "name": "flash_attention", "shape":
+           "hymba_prefill_window", "dtype": "bf16", "B": b, "S": s, "H": h,
+           "K": n_kv, "hd": hd, "window": w, "max_abs_err": err,
+           "tolerance": 1e-2, "max_err_bf16_ulps": ulps,
+           "o_bits_equal_without_lse": True,
+           "lse_max_abs_err_vs_logsumexp": lse_err,
+           "design": FLASH_DESIGN["bf16"] + "; KV walk from the window's "
+           "edge, edge tiles masked",
+           "library": "SDPA with an explicit boolean band mask, KV heads "
+                      "repeated outside the timing",
+           "library_max_abs_err_vs_kernel": lib_err,
+           "ms": timer(lambda: fa.flash_attention(q, k, v, window=w)),
+           "causal_ms": timer(lambda: fa.flash_attention(q, k, v)),
+           "plain_ms": timer(lambda: ref.causal_attention_ref(q, k, v, w)),
+           "library_ms": timer(sdpa)}
+    del qt, kt, vt, band
+    rec["windowed_over_causal"] = rec["ms"] / rec["causal_ms"]
+    # Work inside the window: query i sees min(i + 1, w) keys.
+    n_ops = 4 * b * h * hd * sum(min(i + 1, w) for i in range(s))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        2 * b * s * hd * (2 * h + 2 * n_kv), n_ops, BF16_OPS_PER_S)
+    rec["causal_bound_ms"] = bound_ms(0, 4 * b * h * hd * s * (s + 1) / 2,
+                                      BF16_OPS_PER_S)[0]
+    achieved(rec, n_ops)
+    # A window of S or more masks no key: the causal kernel's bits.
+    same = {}
+    for name, shape in (("hymba_prefill", (b, s, h, n_kv)),
+                        ("serve_prefill", (8, 2048, 9, 3))):
+        bb, ss_, hh, kk = shape
+        if name == "serve_prefill":
+            q, k, v = (torch.randn((bb, ss_, n, hd), generator=g,
+                                   device="cuda").to(torch.bfloat16)
+                       for n in (hh, kk, kk))
+        causal = fa.flash_attention(q, k, v)
+        same[name] = all(torch.equal(fa.flash_attention(q, k, v, window=x),
+                                     causal) for x in (ss_, 10 ** 12))
+    require(all(same.values()), f"flash_attention: a window >= S changes "
+            f"the causal bits {same}")
+    rec["window_at_or_above_s_bit_equal_causal"] = same
+    emit(rec)
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_lm_parity():
     """Full-width smollm-135m from the same parameters on both devices: a
     B=2, S=256 prefill and 8 teacher-forced decode steps, fp32 and bf16."""
@@ -2296,9 +2506,170 @@ def phase_vlm_serve():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-23: the SSM and hybrid LMs (selective_scan, the window).
+# ---------------------------------------------------------------------------
+
+def _timeline_ms(fn):
+    """Device time from ``fn``'s first kernel to its last (CUDA events):
+    its kernels and the idle gaps between them."""
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e)
+
+
+def phase_scan_share():
+    """One falcon-mamba-7b prefill layer (``rms_norm``, ``mamba_block``) at
+    the LM serve cut, B=8 x 2,048 bf16, seed-0 weights, with the plain scan
+    in place of the kernel and with the kernel, under ``torch.profiler``
+    (device busy time) and between CUDA events (the device timeline, idle
+    gaps included; the kernel also alone on the layer's scan inputs).  The
+    layer's work besides the scan is the same in both arms, so the plain
+    scan's time in the layer is the plain layer's less the kernel layer's
+    besides its scan.  The scan's share of the layer is what decides
+    whether the scan needs a kernel."""
+    cfg = get_config("falcon-mamba-7b")
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = L.init_mamba(g, cfg, dt, torch.device("cuda"))
+    ln = torch.ones(cfg.d_model, dtype=dt, device="cuda")
+    x = torch.randn((8, 2048, cfg.d_model), generator=g,
+                    device="cuda").to(dt)
+    with torch.inference_mode():
+        hn = L.rms_norm(x, ln, cfg.norm_eps)
+        xz = hn @ p["in_proj"]
+        xc = L._silu(L._causal_conv(xz[..., :cfg.inner], p["conv_w"],
+                                    p["conv_b"]))
+        dtv, bm, cm = L._ssm_params(p, cfg, xc)
+        ins = (xc, xz[..., cfg.inner:].contiguous(), dtv,
+               -torch.exp(p["A_log"]), bm.contiguous(), cm.contiguous(),
+               p["D_skip"])
+        del xz, hn
+
+    def layer():
+        with torch.inference_mode():
+            return x + L.mamba_block(p, cfg, L.rms_norm(x, ln,
+                                                        cfg.norm_eps))[0]
+
+    def scan():
+        return ss.selective_scan(*ins)
+    kernel_scan = ops.selective_scan
+    ops.selective_scan = ref.selective_scan_ref
+    try:
+        layer()  # warm-up
+        plain_tl = _timeline_ms(layer)
+        # A profile that records no device time is taken once more.
+        plain = _device_profile(layer) or _device_profile(layer)
+    finally:
+        ops.selective_scan = kernel_scan
+    layer()
+    kernel_tl, scan_tl = _timeline_ms(layer), _timeline_ms(scan)
+    kernel = _device_profile(layer) or _device_profile(layer)
+    rec = {"phase": "scan_share", "arch": cfg.name, "dtype": "bf16",
+           "shape": {"B": 8, "S": 2048, "D": cfg.d_model, "Di": cfg.inner,
+                     "N": cfg.ssm_state},
+           "prefill_layers": cfg.n_layers,
+           "timeline_ms": {"plain_layer": plain_tl, "kernel_layer": kernel_tl,
+                           "kernel_scan": scan_tl},
+           "plain_scan_share_of_layer_timeline":
+               1.0 - (kernel_tl - scan_tl) / plain_tl,
+           "kernel_scan_share_of_layer_timeline": scan_tl / kernel_tl}
+    missing = [name for name, prof in (("plain layer", plain),
+                                       ("kernel layer", kernel))
+               if prof is None]
+    if missing:
+        rec["busy"] = ("not measured: the profiler recorded no device time "
+                       f"for the {', '.join(missing)}")
+    else:
+        # The kernel's own time in the kernel layer's profile.
+        kernel_ms = sum(ms for name, ms in kernel["kernels"].items()
+                        if "selective_scan_kernel" in name)
+        other = kernel["busy_ms"] - kernel_ms
+        for arm, prof, scan_ms in (("plain", plain, plain["busy_ms"] - other),
+                                   ("kernel", kernel, kernel_ms)):
+            rec[arm] = {"layer_wall_ms": prof["wall_ms"],
+                        "layer_busy_ms": prof["busy_ms"],
+                        "layer_launches": prof["launches"],
+                        "scan_busy_ms": scan_ms,
+                        "scan_share_of_layer_busy": scan_ms / prof["busy_ms"],
+                        "layer_top_kernels_ms": dict(sorted(
+                            prof["kernels"].items(),
+                            key=lambda kv: -kv[1])[:6])}
+    emit(rec)
+    del p, x, ins
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_parity():
+    """Reduced falcon-mamba-7b and hymba-1.5b (its window cut to 8) from
+    the same seeded parameters on both devices: a B=2, S=24 prefill into a
+    16-slot cache (hymba's key ring holds 8, so it wraps) and 8
+    teacher-forced decode steps, fp32 then bf16, as ``lm_parity`` holds
+    them (fp32 rtol/atol 1e-4, bf16 5e-2)."""
+    out = {}
+    for arch in ("falcon-mamba-7b", "hymba-1.5b"):
+        base = dataclasses.replace(get_config(arch).reduced(), window=8)
+        tokens = torch.from_numpy(np.random.default_rng(7).integers(
+            0, base.vocab, (2, 24 + 8)))
+        for dt_name, tol in (("fp32", 1e-4), ("bf16", 5e-2)):
+            kw = {} if dt_name == "fp32" else dict(
+                param_dtype="bfloat16", compute_dtype="bfloat16")
+            cfg = dataclasses.replace(base, **kw)
+            cpu = init_lm(cfg, seed=0, device="cpu")
+            logits = {}
+            for dev, model in (("cpu", cpu),
+                               ("cuda", copy.deepcopy(cpu).to("cuda"))):
+                ops.reset_launches()
+                lg, cache = prefill(model, cfg, tokens[:, :24].to(dev),
+                                    cache_len=16)
+                steps = [lg]
+                for i in range(8):
+                    lg, cache = decode_step(
+                        model, cfg, tokens[:, 24 + i:25 + i].to(dev), cache)
+                    steps.append(lg)
+                logits[dev] = torch.stack(steps).cpu()
+                if dev == "cuda":
+                    want = {"selective_scan": cfg.n_layers,
+                            "flash_attention": cfg.n_layers
+                            if cfg.family == "hybrid" else 0}
+                    got = {k: getattr(ss if k == "selective_scan" else fa,
+                                      k).launches for k in want}
+                    require(got == want, f"ssm_parity {arch} {dt_name}: "
+                            f"launches {got}, expected {want}")
+                    if "k" in cache:
+                        require(cache["k"].shape[2] == cfg.window,
+                                f"ssm_parity {arch}: key cache of "
+                                f"{cache['k'].shape[2]} slots")
+                del model, cache
+            diff = (logits["cuda"] - logits["cpu"]).abs()
+            rec = {"max_abs_err": float(diff.max()), "tolerance": tol,
+                   "worst_share_of_bound": float(
+                       (diff / (tol + tol * logits["cpu"].abs())).max()),
+                   "max_abs_logit": float(logits["cpu"].abs().max()),
+                   "argmax_equal_share": float(
+                       (logits["cuda"].argmax(-1)
+                        == logits["cpu"].argmax(-1)).float().mean())}
+            require(bool(torch.isfinite(logits["cuda"]).all()),
+                    f"ssm_parity {arch} {dt_name}: non-finite logits")
+            require(torch.allclose(logits["cuda"], logits["cpu"], rtol=tol,
+                                   atol=tol),
+                    f"ssm_parity {arch} {dt_name}: card vs CPU {rec}")
+            out[f"{arch}_{dt_name}"] = rec
+    emit({"phase": "ssm_parity", "B": 2, "S": 24, "cache_len": 16,
+          "window": 8, "decode_steps": 8, "teacher_forced": True, **out})
+    torch.cuda.empty_cache()
+
+
 def phase_lm_serve(arch="smollm-135m", phase="lm_serve"):
     """The LM serving path at full width; counts set to 0 just before the
-    serve and read just after.  Returns the kernels' launches."""
+    serve and read just after: ``flash_attention`` once per attention
+    layer, ``selective_scan`` once per mamba layer (SSM and hybrid),
+    ``gather_rows_expand`` once per decode step.  Returns the kernels'
+    launches."""
     cfg = get_config(arch)
     b, prompt_len, steps = 8, 2048, 64
     # The path's own peak: device bytes above what earlier phases left
@@ -2315,12 +2686,13 @@ def phase_lm_serve(arch="smollm-135m", phase="lm_serve"):
                 if fn.launches}
     torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-    require(launches.get("flash_attention") == cfg.n_layers,
-            f"{phase}: flash_attention launched {launches} (expected "
-            f"{cfg.n_layers}, one per prefill layer)")
-    require(launches.get("gather_rows_expand") == steps,
-            f"{phase}: gather_rows_expand launched {launches} (expected "
-            f"{steps}, one per decode step)")
+    want = {"flash_attention": 0 if cfg.family == "ssm" else cfg.n_layers,
+            "selective_scan": cfg.n_layers
+            if cfg.family in ("ssm", "hybrid") else 0,
+            "gather_rows_expand": steps}
+    require(all(launches.get(k, 0) == n for k, n in want.items()),
+            f"{phase}: launched {launches}, expected {want} (one per "
+            "prefill layer, one per decode step)")
     require(res["hits"] + res["misses"] == res["lookups"] == b * steps,
             f"{phase}: hits + misses != lookups")
     lg, tok = res["logits"], res["tokens"]
@@ -2333,6 +2705,11 @@ def phase_lm_serve(arch="smollm-135m", phase="lm_serve"):
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, (b, prompt_len))
     pt = torch.from_numpy(prompt).to("cuda")
     _, cache = prefill(model, cfg, pt, prompt_len + steps)
+    # A sliding window caps the key ring at the window; the decode wraps it.
+    kv_slots = cache["k"].shape[2] if "k" in cache else 0
+    if cfg.attn_type == "sliding":
+        require(kv_slots == min(cfg.window, prompt_len + steps),
+                f"{phase}: {kv_slots} key slots for window {cfg.window}")
     ref_logits, _ = decode_step(model, cfg, pt[:, -1:], cache)
     require(np.array_equal(ref_logits.cpu().numpy(), lg[0]),
             f"{phase}: the tiered first step differs from the token path")
@@ -2341,6 +2718,8 @@ def phase_lm_serve(arch="smollm-135m", phase="lm_serve"):
           "cuts": {"from": "prefill_32k B=32 S=32768", "batch": b,
                    "prompt_len": prompt_len},
           "launches": launches, "peak_device_gb": peak_gb,
+          "n_params": build(cfg, device="cuda").n_params(),
+          "kv_cache_slots": kv_slots,
           "first_step_equals_token_path": True,
           "profile": lm_profile(cfg, model, b, prompt_len),
           **{k: res[k] for k in ("steps", "capacity", "policy", "batches",
@@ -2839,6 +3218,9 @@ def main():
                                          phase_flash_kernels, timer)
     main_recs["flash_attention_bwd"] = timed(
         "flash_bwd_kernels", phase_flash_bwd_kernels, timer)
+    main_recs["selective_scan"], window_rec = timed(
+        "ssm_kernels", phase_ssm_kernels, timer)
+    timed("scan_share", phase_scan_share)
     timed("learned_grads", phase_learned_grads)
     timed("parity", phase_parity)
     timed("learned_parity", phase_learned_parity)
@@ -2888,6 +3270,13 @@ def main():
                          "moe_train", opt_settings=True).items():
         moe_launches[name] = moe_launches.get(name, 0) + k
     vlm_launches = timed("vlm_serve", phase_vlm_serve)
+    # The SSM and hybrid LMs (falcon-mamba-7b, hymba-1.5b).
+    timed("ssm_parity", phase_ssm_parity)
+    ssm_launches = timed("ssm_serve", phase_lm_serve, "falcon-mamba-7b",
+                         "ssm_serve")
+    for name, k in timed("hybrid_serve", phase_lm_serve, "hymba-1.5b",
+                         "hybrid_serve").items():
+        ssm_launches[name] = ssm_launches.get(name, 0) + k
 
     kernels = []
     for name, rec, n, src, replaces in (
@@ -2912,7 +3301,9 @@ def main():
             ("flash_attention", main_recs["flash_attention"], 0,
              CU_FLASH_SOURCE, TPU_FLASH_ATTENTION),
             ("flash_attention_bwd", main_recs["flash_attention_bwd"], 0,
-             CU_FLASH_BWD_SOURCE, None)):
+             CU_FLASH_BWD_SOURCE, None),
+            ("selective_scan", main_recs["selective_scan"], 0,
+             CU_SCAN_SOURCE, None)):
         # The runtime phases drive the store's kernels and the learned
         # model's fine-tune through their own paths, the sharded serve the
         # store's kernels in every shard, and the transformer backbone's
@@ -2920,11 +3311,13 @@ def main():
         # Training (phases dlrm_train and lm_train) drives gather_pool,
         # flash_attention and flash_attention_bwd, which runs nowhere else.
         # The LM serves drive flash_attention and gather_rows_expand; the
-        # MoE's serve and training and the VLM's serve add theirs.
+        # MoE's serve and training and the VLM's serve add theirs; the SSM
+        # and hybrid serves drive selective_scan, which runs nowhere else,
+        # and the hybrid's windowed flash_attention.
         n += runtime_launches.get(name, 0) + sharded_launches.get(name, 0) \
             + transfetch_launches.get(name, 0) + train_launches.get(name, 0) \
             + lm_launches.get(name, 0) + moe_launches.get(name, 0) \
-            + vlm_launches.get(name, 0)
+            + vlm_launches.get(name, 0) + ssm_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -2947,6 +3340,17 @@ def main():
             kernels[-1]["launches_moe"] = moe_launches[name]
         if name in vlm_launches:
             kernels[-1]["launches_vlm"] = vlm_launches[name]
+        if name in ssm_launches:
+            kernels[-1]["launches_ssm"] = ssm_launches[name]
+        if name == "selective_scan":
+            kernels[-1].update(note=SCAN_REPLACES_NOTE,
+                               design=SCAN_DESIGN)
+        if name == "flash_attention":
+            kernels[-1]["windowed"] = {
+                k: window_rec[k] for k in (
+                    "shape", "B", "S", "H", "K", "hd", "window",
+                    "max_abs_err", "ms", "causal_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "library")}
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])

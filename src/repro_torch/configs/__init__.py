@@ -1,17 +1,20 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
 Counterpart of ``src/repro/configs/__init__.py``.  Ported: ``dlrm-recmg``,
-the four dense LMs, the two MoE LMs and the VLM.  The other LM families of
-the JAX registry (SSM, hybrid, encoder-decoder) raise
-``NotImplementedError`` naming their ROADMAP item.
+the four dense LMs, the two MoE LMs, the VLM, the SSM LM
+(``falcon-mamba-7b``) and the hybrid LM (``hymba-1.5b``).  The
+encoder-decoder LM of the JAX registry raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import (LM_SHAPES, ModelConfig,  # noqa: F401
                                       RunConfig, ShapeConfig)
 from repro_torch.configs.dlrm_recmg import CONFIG as _DLRM_RECMG
+from repro_torch.configs.falcon_mamba_7b import CONFIG as _FALCON_MAMBA_7B
 from repro_torch.configs.granite_moe_1b import CONFIG as _GRANITE_MOE_1B
 from repro_torch.configs.grok1_314b import CONFIG as _GROK1_314B
+from repro_torch.configs.hymba_1_5b import CONFIG as _HYMBA_1_5B
 from repro_torch.configs.internvl2_26b import CONFIG as _INTERNVL2_26B
 from repro_torch.configs.qwen2_5_3b import CONFIG as _QWEN2_5_3B
 from repro_torch.configs.qwen3_14b import CONFIG as _QWEN3_14B
@@ -26,17 +29,19 @@ _ARCHS = {
     "internvl2-26b": _INTERNVL2_26B,
     "granite-moe-1b-a400m": _GRANITE_MOE_1B,
     "grok-1-314b": _GROK1_314B,
+    "falcon-mamba-7b": _FALCON_MAMBA_7B,
+    "hymba-1.5b": _HYMBA_1_5B,
     "dlrm-recmg": _DLRM_RECMG,
 }
 # LM archs of the JAX registry whose families are not ported yet.
-NOT_PORTED = ("whisper-large-v3", "hymba-1.5b", "falcon-mamba-7b")
+NOT_PORTED = ("whisper-large-v3",)
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch in NOT_PORTED:
         raise NotImplementedError(
             f"{arch!r} belongs to an LM family the port does not have yet "
-            "(SSM, hybrid, encoder-decoder: ROADMAP A11c)")
+            "(encoder-decoder: ROADMAP A11c-5)")
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCHS)}")
     return _ARCHS[arch]

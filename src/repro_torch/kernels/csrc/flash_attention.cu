@@ -59,6 +59,19 @@
 // relative error is far below p's bf16 rounding); 1/l is a true division
 // (the build has no fast-math flag).
 //
+// A sliding window (window > 0; the Pallas kernel has none, JAX's windowed
+// attention is XLA: src/repro/models/layers.py:77-191) limits query q to
+// keys q - window < k <= q.  Both kernels then start their KV walk at the
+// tile holding the block's first visible key, max(0, q0 - window + 1), and
+// mask the tiles that cross that lower edge for any of their rows; the mma
+// kernel's warps also skip a tile that lies wholly below their window.  A
+// row late in a query tile can meet tiles that are all masked for it
+// before its first visible key: it keeps m = -inf, l = 0 and a zero
+// accumulator through them (p = 0, and the rescale of a row that has seen
+// nothing is 1 or 0, never NaN).  window = 0 is the causal walk, with no
+// instruction of its arithmetic changed, so its bits are those of the
+// causal kernel; a window >= S masks no key of a real row.
+//
 // With a non-null lse pointer both kernels also write each row's
 // log-sum-exp of its scaled scores, lse (B, H, S) fp32 in natural-log
 // units, m * scale + log(l): what the backward (flash_attention_bwd.cu)
@@ -101,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int s_len, int n_heads, int n_kv,
-                    float scale) {
+                    float scale, int window) {
   constexpr int kStride = HD + 1;           // padded row of q and k
   constexpr int kCols = HD / kColGroups;    // accumulator columns a thread
   extern __shared__ float smem[];
@@ -145,10 +158,12 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
   }
 
-  // KV tiles up to the causal frontier of the tile's last real query.
+  // KV tiles from the window's edge for the block's first query up to the
+  // causal frontier of its last real query.
   const int q_last = min(q0 + kBlockQ, s_len) - 1;
   const int n_tiles = q_last / kBlockK + 1;
-  for (int t = 0; t < n_tiles; ++t) {
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kBlockK : 0;
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();  // s_q written; the last tile's s_k, s_v, s_p read
     for (int i = tid; i < kBlockK * HD; i += kThreads) {
@@ -200,7 +215,8 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kKeysPerThread; ++j) {
         const int kpos = k0 + cg + kColGroups * j;
-        const bool keep = kpos <= qpos && kpos < s_len;
+        const bool keep = kpos <= qpos && kpos < s_len &&
+                          (window == 0 || qpos - kpos < window);
         s[i][j] = keep ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -295,7 +311,8 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int s_len, int n_heads, int n_kv, float scale_log2) {
+                    int s_len, int n_heads, int n_kv, float scale_log2,
+                    int window) {
   constexpr int kStride = HD + 8;              // padded row, bf16
   constexpr int kChunks = HD / 8;              // 16-byte chunks a row
   constexpr int kDSteps = HD / 16;             // k16 steps of q k^T
@@ -346,7 +363,12 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       cp_async16(smem_addr(dv + r * kStride + c * 8), v + at, n);
     }
   };
-  load_kv(0, 0);
+  // KV tiles from the window's edge for the block's first query up to the
+  // causal frontier of its last real query; stage t & 1 holds tile t.
+  const int q_last = min(q0 + kMmaBlockQ, s_len) - 1;
+  const int n_tiles = q_last / kMmaBlockK + 1;
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kMmaBlockK : 0;
+  load_kv(t_first, t_first & 1);
   cp_async_commit();
 
   // This warp's 16 rows: g and g + 8 of them are this lane's.
@@ -364,10 +386,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
   float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, raw scores
   float l_lo = 0.0f, l_hi = 0.0f;            // this lane's share of l
 
-  // KV tiles up to the causal frontier of the tile's last real query.
-  const int q_last = min(q0 + kMmaBlockQ, s_len) - 1;
-  const int n_tiles = q_last / kMmaBlockK + 1;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {
       load_kv(t + 1, (t + 1) & 1);
       cp_async_commit();
@@ -376,7 +395,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if (t == t_first) {
 #pragma unroll
       for (int d = 0; d < kDSteps; ++d) {
         ldmatrix_x4(qf[d], smem_addr(s_q + (16 * warp + (lane & 15)) *
@@ -385,8 +404,10 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int k0 = t * kMmaBlockK;
-    // A warp whose queries all lie before this tile, or past S, skips it.
-    if (k0 <= w_last && w_first < s_len) {
+    // A warp whose queries all lie before this tile, or past S, skips it;
+    // so does a warp whose window starts after the tile's last key.
+    if (k0 <= w_last && w_first < s_len &&
+        (window == 0 || k0 + kMmaBlockK > w_first - window + 1)) {
       const __nv_bfloat16* sk = s_k + (t & 1) * kTileElems;
       const __nv_bfloat16* sv = s_v + (t & 1) * kTileElems;
       float s[kSTiles][4];
@@ -410,15 +431,20 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
           mma_bf16(s[n + 1], qf[d], kb[2], kb[3]);
         }
       }
-      // The causal mask and the end of S, on the tiles that reach them.
-      if (k0 + kMmaBlockK - 1 > w_first || k0 + kMmaBlockK > s_len) {
+      // The causal mask, the end of S and the window's lower edge, on the
+      // tiles that reach them.
+      if (k0 + kMmaBlockK - 1 > w_first || k0 + kMmaBlockK > s_len ||
+          (window > 0 && k0 < w_last - window + 1)) {
 #pragma unroll
         for (int n = 0; n < kSTiles; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * n + 2 * t4 + (e & 1);
             const int row = e < 2 ? row_lo : row_hi;
-            if (key > row || key >= s_len) s[n][e] = -INFINITY;
+            if (key > row || key >= s_len ||
+                (window > 0 && row - key >= window)) {
+              s[n][e] = -INFINITY;
+            }
           }
         }
       }
@@ -535,7 +561,8 @@ cudaError_t allow_smem(Kernel kernel, int64_t smem, bool* done) {
 template <int HD>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int64_t batch, int s_len, int n_heads,
-                       int n_kv, float scale, cudaStream_t stream) {
+                       int n_kv, float scale, int window,
+                       cudaStream_t stream) {
   constexpr int64_t smem = fma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
   cudaError_t err = allow_smem(flash_attention_fma<HD>, smem, &smem_set);
@@ -546,14 +573,15 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                             stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), s_len, n_heads, n_kv, scale);
+      static_cast<float*>(lse), s_len, n_heads, n_kv, scale, window);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int64_t batch, int s_len, int n_heads,
-                       int n_kv, float scale, cudaStream_t stream) {
+                       int n_kv, float scale, int window,
+                       cudaStream_t stream) {
   constexpr int64_t smem = mma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
   cudaError_t err = allow_smem(flash_attention_mma<HD>, smem, &smem_set);
@@ -566,18 +594,19 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), s_len, n_heads, n_kv, scale * kLog2e);
+      static_cast<float*>(lse), s_len, n_heads, n_kv, scale * kLog2e,
+      window);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int64_t batch, int s_len, int n_heads, int n_kv,
-                   int dtype, float scale, cudaStream_t stream) {
+                   int dtype, float scale, int window, cudaStream_t stream) {
   return dtype == 0 ? launch_fma<HD>(q, k, v, o, lse, batch, s_len, n_heads,
-                                     n_kv, scale, stream)
+                                     n_kv, scale, window, stream)
                     : launch_mma<HD>(q, k, v, o, lse, batch, s_len, n_heads,
-                                     n_kv, scale, stream);
+                                     n_kv, scale, window, stream);
 }
 
 }  // namespace
@@ -589,13 +618,14 @@ extern "C" {
 // (dtype 1; 16-byte aligned, for the 16-byte copies).  n_heads % n_kv ==
 // 0, head_dim in {16, 32, 64, 128}, scale the softmax scale (1 /
 // sqrt(head_dim) for the model).  lse: null, or (batch, n_heads, s_len)
-// float32 for each row's log-sum-exp.
+// float32 for each row's log-sum-exp.  window: 0 (causal), or the sliding
+// window's size (query q sees keys q - window < k <= q).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, void* lse, int64_t batch, int64_t s_len,
                           int n_heads, int n_kv, int head_dim, int dtype,
-                          float scale, void* stream) {
+                          float scale, int64_t window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
+  if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv || window < 0 ||
       n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
       (s_len + kBlockQ - 1) / kBlockQ > kMaxQTiles ||
       (dtype != 0 && dtype != 1)) {
@@ -608,23 +638,25 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const int sl = static_cast<int>(s_len);
+  // A window wider than S masks nothing: it is kept within int.
+  const int win = static_cast<int>(window < s_len ? window : s_len);
   cudaError_t err;
   switch (head_dim) {
     case 16:
       err = launch<16>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, s);
+                         scale, win, s);
       break;
     case 32:
       err = launch<32>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, s);
+                         scale, win, s);
       break;
     case 64:
       err = launch<64>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, s);
+                         scale, win, s);
       break;
     case 128:
       err = launch<128>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                        scale, s);
+                        scale, win, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -3,6 +3,9 @@ and ``csrc/flash_attention_bwd.cu``.
 
 Counterpart of ``src/repro/kernels/flash_attention.py::flash_attention``:
 causal attention with an online softmax in fp32, scale ``1/sqrt(hd)``.
+The forward also takes a sliding ``window`` (query q sees keys ``q -
+window < k <= q``), which the Pallas kernel does not have: JAX computes
+the windowed attention in XLA (``blocked_causal_attention(window=)``).
 The kernel takes the model's layout, q (B, S, H, hd) and k/v (B, S, K, hd)
 with ``H % K == 0`` (query head h reads KV head ``h // (H // K)``), any S,
 fp32 or bf16, hd in {16, 32, 64, 128}.  bf16 runs the products on the
@@ -50,7 +53,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("flash_attention")
         lib.repro_flash_attention.argtypes = [_VP] * 5 + [
-            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _VP]
+            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _I64, _VP]
         lib.repro_flash_attention.restype = _INT
         _LIB = lib
     return _LIB
@@ -86,13 +89,17 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    with_lse: bool = False):
+                    with_lse: bool = False, window: int = 0):
     """q: (B, S, H, hd); k/v: (B, S, K, hd), one dtype (fp32 or bf16) on one
     card -> (B, S, H, hd) causal attention in q's dtype; with ``with_lse``,
     ``(out, lse)`` with lse (B, H, S) fp32, each row's log-sum-exp of its
     scaled scores (natural log).  Without it the output's bits are those
-    of the serve path."""
+    of the serve path.  ``window > 0``: query q sees keys ``q - window < k
+    <= q`` only (JAX's sliding window); 0 is causal."""
     _check_qkv(q, k, v, "flash_attention")
+    if window < 0:
+        raise ValueError(f"flash_attention window {window}: expected >= 0 "
+                         "(0 is causal)")
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -109,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], hd,
-            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), stream)
+            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), window, stream)
     _raise_on(err, "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if with_lse else out

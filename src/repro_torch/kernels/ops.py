@@ -16,7 +16,10 @@ have no backward either.  ``flash_attention``'s backward is a kernel of
 its own on the card (``flash_attention_bwd``, from the forward's
 log-sum-exp) and its plain version on the CPU.  Outside autograd (serving
 under ``torch.inference_mode()``) each op calls its kernel directly, and
-``flash_attention`` writes no log-sum-exp.
+``flash_attention`` writes no log-sum-exp.  ``flash_attention`` with a
+sliding window and ``selective_scan`` (the mamba-1 scan, a kernel with no
+TPU counterpart) serve only: under autograd they raise (their backwards
+are ROADMAP A11c-3t).
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ from repro_torch.kernels import embedding_gather as _eg
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lstm_cell as _lc
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as _ss
 
 # Every kernel wrapper of the port, each with its ``launches`` count.
 KERNELS = _eg.KERNELS + (_lc.lstm_cell, _ck.chamfer,
-                         _fa.flash_attention, _fa.flash_attention_bwd)
+                         _fa.flash_attention, _fa.flash_attention_bwd,
+                         _ss.selective_scan)
 
 
 def reset_launches():
@@ -231,9 +236,9 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal attention; the backward recomputes p from the forward's
-    log-sum-exp: ``flash_attention_bwd`` on the card, its plain version on
-    the CPU."""
+    """Causal attention (no window); the backward recomputes p from the
+    forward's log-sum-exp: ``flash_attention_bwd`` on the card, its plain
+    version on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -253,15 +258,43 @@ class _FlashAttention(torch.autograd.Function):
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype (query head h reads KV head
-    ``h // (H // K)``), scale ``1/sqrt(hd)``, any S; differentiable in q,
-    k and v."""
+    ``h // (H // K)``), scale ``1/sqrt(hd)``, any S; ``window > 0`` limits
+    query q to keys ``q - window < k <= q`` (0 is causal).  Differentiable
+    in q, k and v without a window; with one, inputs that require grad
+    are refused (the backward kernel takes no window: ROADMAP A11c-3t)."""
     if _requires_grad(q, k, v):
+        if window:
+            raise NotImplementedError(
+                "flash_attention with a sliding window has no backward yet "
+                "(ROADMAP A11c-3t): serve under torch.inference_mode()")
         return _FlashAttention.apply(q, k, v)
     if _on_cuda(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous())
-    return ref.causal_attention_ref(q, k, v)
+                                   v.contiguous(), window=window)
+    return ref.causal_attention_ref(q, k, v, window)
+
+
+def selective_scan(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
+                   a: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                   d_skip: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """The mamba-1 scan: xc, z (B, S, Di); dt (B, S, Di), a (Di, N), bm/cm
+    (B, S, N), d_skip (Di,), h0 None or (B, Di, N), fp32 -> ``(y (B, S,
+    Di) in xc's dtype, h_last (B, Di, N) fp32)``.  Serving only: inputs
+    that require grad are refused (the scan's backward kernel is ROADMAP
+    A11c-3t)."""
+    if _requires_grad(xc, z, dt, a, bm, cm, d_skip,
+                      *(() if h0 is None else (h0,))):
+        raise NotImplementedError(
+            "selective_scan has no backward yet (ROADMAP A11c-3t): serve "
+            "under torch.inference_mode()")
+    if _on_cuda(xc):
+        return _ss.selective_scan(
+            xc.contiguous(), z.contiguous(), dt.contiguous(), a.contiguous(),
+            bm.contiguous(), cm.contiguous(), d_skip.contiguous(),
+            None if h0 is None else h0.contiguous())
+    return ref.selective_scan_ref(xc, z, dt, a, bm, cm, d_skip, h0)

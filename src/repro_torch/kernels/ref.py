@@ -17,7 +17,10 @@ one), so the plain versions give the kernels' bits on both devices.
 The attention versions (``causal_attention_ref``,
 ``causal_attention_lse_ref``, ``flash_attention_ref`` and the backward
 ``flash_attention_bwd_ref``) sum in another order than the kernels and
-agree with them within a tolerance.
+agree with them within a tolerance; the first two take the forward's
+sliding ``window``.  ``selective_scan_ref`` is the mamba-1 scan's plain
+version (its kernel has no TPU counterpart: JAX's scan is XLA), the same
+recurrence step by step.
 """
 from __future__ import annotations
 
@@ -218,17 +221,21 @@ def chamfer_ref(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 # LM attention.
 # ---------------------------------------------------------------------------
 
-def _causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _causal_scores(q: torch.Tensor, k: torch.Tensor,
+                   window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k: (B, S, K, hd) -> (B, K, G, S, S) scaled scores
-    in the compute dtype, -inf above the diagonal."""
+    in the compute dtype, -inf above the diagonal and, with a ``window``,
+    where ``q - k >= window`` (JAX's ``plain_attention`` mask)."""
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
     ct = _compute_dtype(q)
     qg = q.to(ct).reshape(b, s, n_kv, h // n_kv, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct)) * (
         1.0 / math.sqrt(hd))
-    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    return scores.masked_fill(~causal, float("-inf"))
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    if window:
+        keep = keep.triu(1 - window)
+    return scores.masked_fill(~keep, float("-inf"))
 
 
 def _attend(scores: torch.Tensor, q: torch.Tensor,
@@ -239,25 +246,26 @@ def _attend(scores: torch.Tensor, q: torch.Tensor,
 
 
 def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
+                         v: torch.Tensor, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype, scale ``1/sqrt(hd)``, computed in
     fp32 (p stays fp32 for the p v product, as in the Pallas kernel; the
-    bf16 CUDA kernel rounds it to bf16 there).
+    bf16 CUDA kernel rounds it to bf16 there).  ``window > 0``: query q
+    sees keys ``q - window < k <= q`` only (a sliding window; 0 is causal).
 
     Heads are grouped as ``src/repro/models/layers.py:65-75`` groups them:
     ``q.reshape(B, S, K, G, hd)`` with ``G = H // K``, so query head
     ``h = kv * G + g`` reads KV head ``h // G`` (not ``h % K``)."""
-    return _attend(_causal_scores(q, k), q, v)
+    return _attend(_causal_scores(q, k, window), q, v)
 
 
 def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor):
+                             v: torch.Tensor, window: int = 0):
     """:func:`causal_attention_ref` and each row's log-sum-exp of its
     scaled scores: ``(o, lse)``, lse (B, H, S) in the compute dtype (fp32;
     fp64 for fp64 inputs), what the backward recomputes p from."""
     b, s, h, _ = q.shape
-    scores = _causal_scores(q, k)
+    scores = _causal_scores(q, k, window)
     lse = torch.logsumexp(scores, dim=-1).reshape(b, h, s)
     return _attend(scores, q, v), lse
 
@@ -298,3 +306,35 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
     attention in q's dtype."""
     return causal_attention_ref(q[:, :, None], k[:, :, None],
                                 v[:, :, None])[:, :, 0]
+
+
+# ---------------------------------------------------------------------------
+# The mamba-1 selective scan (no TPU kernel: JAX's is XLA).
+# ---------------------------------------------------------------------------
+
+def selective_scan_ref(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
+                       a: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                       d_skip: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None):
+    """xc, z: (B, S, Di); dt: (B, S, Di); a = -exp(A_log): (Di, N); bm/cm:
+    (B, S, N); d_skip: (Di,); h0: None or (B, Di, N) -> ``(y (B, S, Di) in
+    xc's dtype, h_last (B, Di, N))``, step by step in the compute dtype
+    (fp32; fp64 for fp64 inputs): ``h_t = exp(dt_t a) h_{t-1} + (dt_t x_t)
+    bm_t`` from ``h0`` (zeros when None), ``y_t = (sum_n h_t cm_t + d_skip
+    x_t) silu(z_t)``.  The literal recurrence of JAX's sequential oracle
+    (``tests/test_layers.py::_mamba_sequential_ref``) with ``h0``; JAX's
+    ``selective_scan`` associates the same products in chunks."""
+    b, s, di = xc.shape
+    ct = _compute_dtype(dt)
+    x, dtc, a = xc.to(ct), dt.to(ct), a.to(ct)
+    bm, cm = bm.to(ct), cm.to(ct)
+    h = (torch.zeros((b, di, a.shape[1]), dtype=ct, device=xc.device)
+         if h0 is None else h0.to(ct))
+    ys = []
+    for t in range(s):
+        h = torch.exp(dtc[:, t, :, None] * a) * h \
+            + (dtc[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+        ys.append((h * cm[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, dim=1) if s else x.new_zeros((b, 0, di))
+    y = (y + d_skip.to(ct) * x) * torch.nn.functional.silu(z.to(ct))
+    return y.to(xc.dtype), h

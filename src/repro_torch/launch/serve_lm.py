@@ -4,10 +4,16 @@ on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve_lm          # full width
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu \\
         --reduced --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm \\
+        --arch falcon-mamba-7b                                  # or hymba-1.5b
 
 Counterpart of ``examples/serve_lm_tiered.py``: the paper's technique
-applied to an LM.  The prompt is prefilled (every layer's attention through
-the CUDA ``flash_attention`` kernel); the token-embedding table then lives
+applied to an LM.  The prompt is prefilled: every attention layer through
+the CUDA ``flash_attention`` kernel (in its sliding window for
+``hymba-1.5b``) and every mamba layer (``falcon-mamba-7b``'s, and
+``hymba-1.5b``'s beside its attention) through the CUDA ``selective_scan``
+kernel; a decode step's mamba update is plain PyTorch on (B, Di, N), as
+JAX leaves it to XLA.  The token-embedding table then lives
 on the host tier as an fp32 copy of ``embed``, and a small device buffer
 managed by the port's ``TieredEmbeddingStore`` (LRU by default) serves each
 decode step's rows through the CUDA ``gather_rows_expand`` kernel.  Each
@@ -20,7 +26,10 @@ raises there.)  As in the example, the first step feeds the prompt's last
 token again.  An MoE LM is served unchanged: its prefill dispatches by
 capacity, its decode steps route densely (``dense_route``).  There is no
 frontend argument, as the example has none: a VLM is served through
-``build(cfg).prefill({"tokens", "frontend"})`` and ``.decode``.
+``build(cfg).prefill({"tokens", "frontend"})`` and ``.decode``.  An SSM or
+hybrid LM is served unchanged too: its cache carries each layer's conv
+and SSM states, and a sliding window caps the key cache at the window, a
+ring that the decode wraps.
 """
 from __future__ import annotations
 
@@ -37,13 +46,15 @@ from repro_torch.core.tiered import TieredEmbeddingStore
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import embedding_gather as _eg
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.models.dlrm import torch_dtype
 from repro_torch.models.transformer import (TransformerLM,
                                             decode_step_embeds, init_lm,
                                             prefill)
 
 # The kernels of this path, by the name their launches are reported under.
-PATH_KERNELS = (_fa.flash_attention, _eg.gather_rows_expand)
+PATH_KERNELS = (_fa.flash_attention, _ss.selective_scan,
+                _eg.gather_rows_expand)
 STORE_KEYS = ("batches", "lookups", "hits", "misses", "on_demand_rows",
               "evictions")
 
@@ -80,6 +91,7 @@ def serve_lm_tiered(cfg: ModelConfig, *, batch: int = 8,
     ct = torch_dtype(cfg.compute_dtype)
     if dev.type == "cuda":  # load (or build) the kernels off the clock
         _fa._lib()
+        _ss._lib()
         _eg._lib()
     n0 = [fn.launches for fn in PATH_KERNELS]
 
@@ -132,7 +144,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     choices=["smollm-135m", "smollm-360m", "qwen2.5-3b",
-                             "qwen3-14b", "granite-moe-1b-a400m"])
+                             "qwen3-14b", "granite-moe-1b-a400m",
+                             "falcon-mamba-7b", "hymba-1.5b"])
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's small CPU-scale config (fp32)")
     ap.add_argument("--batch", type=int, default=8)

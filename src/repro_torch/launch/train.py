@@ -23,8 +23,9 @@ Not ported: ``--model-parallel > 1`` and ``--grad-compression int8_ef``
 (they need several cards: ROADMAP A10b).  Like JAX's launcher this one
 feeds LM data only (tokens and labels), so ``--arch`` is an LM the port
 builds: dense, MoE (its loss adds the load-balance term) or the VLM (its
-text alone, no frontend, as in JAX); DLRM is refused, and the SSM, hybrid
-and encoder-decoder LMs are not ported (ROADMAP A11c).  The optimizer is
+text alone, no frontend, as in JAX); DLRM is refused, the SSM and hybrid
+LMs serve only (their training is ROADMAP A11c-3t), and the
+encoder-decoder LM is not ported (ROADMAP A11c-5).  The optimizer is
 ``OptConfig(lr, total_steps)`` with JAX's defaults (fp32 moments, no
 master copy): JAX's launcher has no flag for either knob.
 """
@@ -125,6 +126,11 @@ def main(argv=None):
         raise NotImplementedError(
             f"--arch {args.arch}: the launcher feeds LM data only, as JAX's "
             "does (DLRM trains through make_train_step)")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"--arch {args.arch}: the {cfg.family} family serves only; "
+            "training it needs the selective scan's backward and the "
+            "windowed attention's (ROADMAP A11c-3t)")
     if args.reduced:
         cfg = cfg.reduced()
     run = RunConfig(remat=args.remat)

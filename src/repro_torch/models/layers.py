@@ -3,8 +3,10 @@
 Ported from ``src/repro/models/layers.py``: ``rms_norm`` (:35), ``rope``
 (:42), ``blocked_causal_attention`` (:142), ``decode_attention`` (:246),
 ``init_attn``/``_qkv``/``attn_block``/``attn_decode_block`` (:270-349),
-``init_mlp``/``mlp_block`` (:378-397) and ``init_moe``/
-``_moe_dispatch_ffn``/``moe_block`` (:406-504).  Layouts are the JAX
+``init_mlp``/``mlp_block`` (:378-397), ``init_moe``/
+``_moe_dispatch_ffn``/``moe_block`` (:406-504) and the mamba-1 block,
+``init_mamba``/``_causal_conv``/``_ssm_params``/``selective_scan``/
+``mamba_block``/``mamba_decode_block`` (:559-694).  Layouts are the JAX
 package's: x (B, S, D), q (B, S, H, hd), k/v and the KV cache (B, S, K,
 hd), weights (in, out) applied as ``x @ w``.
 Query head h reads KV head ``h // G`` with ``G = H // K``
@@ -12,15 +14,24 @@ Query head h reads KV head ``h // G`` with ``G = H // K``
 
 ``blocked_causal_attention`` is the port's CUDA ``flash_attention`` kernel
 on the card (its plain version, ``kernels/ref.py::causal_attention_ref``,
-on the CPU) at every S: the JAX switch to ``plain_attention`` (:77) at
+on the CPU) at every S, with ``window`` for a sliding-window config
+(``attn_type="sliding"``): the JAX switch to ``plain_attention`` (:77) at
 S <= 2048 and its padding to whole blocks change no result beyond
 rounding.  For the p v product the bf16 kernel rounds p to bf16, as
 ``plain_attention`` rounds it to v's dtype; the fp32 kernel and the plain
-version keep p in fp32.  Not ported:
-``kv_stream_attention``, the sequence-parallel branch of ``attn_block``
-and the MoE's data-local dispatch (``_moe_dispatch_ffn_sharded``,
-``local_dispatch``): they need a mesh (ROADMAP A10b); sliding windows (the
-kernel takes none), the SSM and cross-attention blocks (ROADMAP A11c).
+version keep p in fp32.  ``decode_attention`` ignores the window, as
+JAX's does: a sliding config's cache is a ring capped at the window.  Not
+ported: ``kv_stream_attention``, the sequence-parallel branch of
+``attn_block`` and the MoE's data-local dispatch
+(``_moe_dispatch_ffn_sharded``, ``local_dispatch``): they need a mesh
+(ROADMAP A10b); the cross-attention block (ROADMAP A11c-5).
+
+``selective_scan`` is the port's CUDA ``selective_scan`` kernel on the
+card (``kernels/ref.py::selective_scan_ref`` on the CPU): a sequential
+recurrence over S in fp32, which needs no padding to whole
+``ssm_chunk`` chunks (JAX pads with identity steps and associates within
+chunks; the two agree within rounding).  It serves only: training the SSM
+and hybrid families is ROADMAP A11c-3t.
 
 Products whose JAX einsum asks for ``preferred_element_type=float32`` are
 taken on fp32 copies of their inputs (a bf16 product is exact in fp32), so
@@ -85,11 +96,13 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
 
 
 def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor) -> torch.Tensor:
+                             v: torch.Tensor,
+                             window: int = 0) -> torch.Tensor:
     """Causal attention, q (B, S, H, hd), k/v (B, S, K, hd) -> q's shape
-    and dtype: :func:`repro_torch.kernels.ops.flash_attention` (the CUDA
-    kernel on the card)."""
-    return ops.flash_attention(q, k, v)
+    and dtype; ``window > 0`` limits query q to keys ``q - window < k <=
+    q``: :func:`repro_torch.kernels.ops.flash_attention` (the CUDA kernel
+    on the card)."""
+    return ops.flash_attention(q, k, v, window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -155,19 +168,13 @@ def _qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _check_full_attention(cfg: ModelConfig):
-    if cfg.attn_type != "full":
-        raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r}: the port has full causal "
-            "attention only (sliding windows: ROADMAP A11c)")
-
-
 def attn_block(p, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor):
-    """Full-sequence (prefill) self-attention.  Returns ``(out, (k, v))``."""
-    _check_full_attention(cfg)
+    """Full-sequence (prefill) self-attention, in a sliding window when
+    ``cfg.attn_type == "sliding"``.  Returns ``(out, (k, v))``."""
     q, k, v = _qkv(p, cfg, x, positions)
-    o = blocked_causal_attention(q, k, v)
+    window = cfg.window if cfg.attn_type == "sliding" else 0
+    o = blocked_causal_attention(q, k, v, window)
     return o.reshape(*o.shape[:2], -1) @ p["wo"], (k, v)
 
 
@@ -177,7 +184,6 @@ def attn_decode_block(p, cfg: ModelConfig, x: torch.Tensor,
     """One-token self-attention.  x: (B, 1, D); the new key and value go to
     ring slot ``pos % S`` of the caches, in place.  Returns ``(out,
     k_cache, v_cache)``."""
-    _check_full_attention(cfg)
     s = k_cache.shape[1]
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(p, cfg, x, positions)
@@ -312,3 +318,110 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
                     device=x.device).scatter(1, top_e, top_p)
     out = torch.bmm(w.to(y.dtype)[:, None, :], y.transpose(0, 1))  # (T, 1, D)
     return out.view(b, s, d), torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (the selective scan: a CUDA kernel on the card)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
+               dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_mamba`` draws (same shapes, scales and dtypes), from
+    ``g``: ``in_proj`` (D, 2 Di), ``conv_w`` (W, Di), ``x_proj`` (Di, R +
+    2N), ``dt_proj`` (R, Di) and ``out_proj`` (Di, D) normal in ``dt``;
+    ``conv_b`` zeros in ``dt``; ``dt_bias`` -2, ``A_log`` = log(1..N) per
+    channel and ``D_skip`` ones, all fp32."""
+    d, di, n, r, w = (cfg.d_model, cfg.inner, cfg.ssm_state, cfg.dtrank,
+                      cfg.conv_width)
+    f32 = torch.float32
+    a = torch.arange(1, n + 1, dtype=f32, device=dev).repeat(di, 1)
+    return {"in_proj": _normal(g, (d, 2 * di), 1.0 / math.sqrt(d), dt, dev),
+            "conv_w": _normal(g, (w, di), 0.5, dt, dev),
+            "conv_b": torch.zeros((di,), dtype=dt, device=dev),
+            "x_proj": _normal(g, (di, r + 2 * n), 1.0 / math.sqrt(di), dt,
+                              dev),
+            "dt_proj": _normal(g, (r, di), 1.0 / math.sqrt(r), dt, dev),
+            "dt_bias": torch.full((di,), -2.0, dtype=f32, device=dev),
+            "A_log": torch.log(a),
+            "D_skip": torch.ones((di,), dtype=f32, device=dev),
+            "out_proj": _normal(g, (di, d), 1.0 / math.sqrt(di), dt, dev)}
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` at its rounding points: ``x * (1 / (1 + exp(-x)))``,
+    each operation in x's dtype (at bf16, ``F.silu`` rounds once and
+    differs from JAX by an ulp in about a third of the elements)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, x (B, S, Di), w (W, Di): JAX's shifted sum
+    over the W taps in the order 0 .. W-1 (in x's dtype), then the bias."""
+    n_taps, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, n_taps - 1, 0))
+    out = 0
+    for i in range(n_taps):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b
+
+
+def _ssm_params(p, cfg: ModelConfig, xc: torch.Tensor):
+    """xc (B, S, Di) post-conv -> ``(dt (B, S, Di), Bm, Cm (B, S, N))``,
+    fp32: the ``x_proj`` product in xc's dtype, then cast to fp32 (JAX
+    :589), ``dt_proj`` in fp32, softplus."""
+    n, r = cfg.ssm_state, cfg.dtrank
+    proj = (xc @ p["x_proj"]).float()
+    dtr, bm, cm = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
+    dt = F.softplus(dtr @ p["dt_proj"].float() + p["dt_bias"])
+    return dt, bm, cm
+
+
+def selective_scan(p, cfg: ModelConfig, xc: torch.Tensor, z: torch.Tensor,
+                   h0=None):
+    """The mamba-1 scan.  xc/z: (B, S, Di) (post-conv / gate); h0: None
+    (zeros) or (B, Di, N) fp32.  Returns ``(y (B, S, Di) in xc's dtype,
+    h_last (B, Di, N) fp32)``, h_last the state after step S-1 (JAX's
+    padded steps are identities, so it is JAX's too)."""
+    dt, bm, cm = _ssm_params(p, cfg, xc)
+    a = -torch.exp(p["A_log"])
+    return ops.selective_scan(xc, z, dt, a, bm, cm, p["D_skip"], h0)
+
+
+def mamba_block(p, cfg: ModelConfig, x: torch.Tensor):
+    """Full-sequence mamba-1 block.  x: (B, S, D) -> ``(out, (conv_tail,
+    h_last))``: conv_tail (B, W-1, Di) the last W-1 *pre-conv* inputs,
+    left-padded with zeros when S < W-1 (the decode's conv state)."""
+    s = x.shape[1]
+    di, w = cfg.inner, cfg.conv_width
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :di], xz[..., di:]
+    xc = _silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
+    y, h_last = selective_scan(p, cfg, xc, z)
+    out = y @ p["out_proj"]
+    conv_tail = (xi[:, s - (w - 1):] if s >= w - 1
+                 else F.pad(xi, (0, 0, w - 1 - s, 0)))
+    return out, (conv_tail, h_last)
+
+
+def mamba_decode_block(p, cfg: ModelConfig, x: torch.Tensor,
+                       conv_state: torch.Tensor, h: torch.Tensor):
+    """One-token mamba step, plain PyTorch (JAX leaves it to XLA).  x: (B,
+    1, D); conv_state: (B, W-1, Di); h: (B, Di, N) fp32.  Returns ``(out,
+    conv_state, h)``, the two states new tensors."""
+    di = cfg.inner
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :di], xz[..., di:]  # (B, 1, Di)
+    window = torch.cat([conv_state, xi], dim=1)  # (B, W, Di)
+    xc = _silu(torch.einsum("bwd,wd->bd", window, p["conv_w"])
+               + p["conv_b"])[:, None, :]
+    dt, bm, cm = _ssm_params(p, cfg, xc)
+    a = -torch.exp(p["A_log"])
+    xf = xc[:, 0].float()
+    h = torch.exp(dt[:, 0, :, None] * a) * h \
+        + (dt[:, 0] * xf)[..., None] * bm[:, 0, None, :]
+    y = torch.einsum("bdn,bn->bd", h, cm[:, 0]) + p["D_skip"] * xf
+    y = y * _silu(z[:, 0].float())
+    out = (y.to(x.dtype) @ p["out_proj"])[:, None, :]
+    return out, window[:, 1:], h

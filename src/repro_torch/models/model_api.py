@@ -3,13 +3,14 @@
 Counterpart of ``src/repro/models/model_api.py``.  The bundle is bound to a
 device (``"cuda"`` by default): each of its functions resolves it when
 called, so on a machine without CUDA they raise unless the bundle was
-built with ``device="cpu"``.  Ported families: the LMs ``dense``, ``moe``
-and ``vlm`` (``init``, ``loss`` = ``lm_loss`` under the bundle's
-``RunConfig``, ``prefill``, ``decode``; ``loss`` and ``prefill`` pass the
-batch's ``"frontend"``, when it has one, as the VLM's frontend
-embeddings) and ``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill``
-= the forward).  Every other family (SSM, hybrid, encoder-decoder) raises
-``NotImplementedError`` naming ROADMAP A11c.  ``n_params`` and
+built with ``device="cpu"``.  Ported families: the LMs ``dense``, ``moe``,
+``vlm``, ``ssm`` and ``hybrid`` (``init``, ``loss`` = ``lm_loss`` under the
+bundle's ``RunConfig``, ``prefill``, ``decode``; ``loss`` and ``prefill``
+pass the batch's ``"frontend"``, when it has one, as the VLM's frontend
+embeddings; the SSM and hybrid families serve only, so their ``loss``
+raises naming ROADMAP A11c-3t) and ``dlrm`` (``init``, ``loss`` =
+``dlrm_loss``, ``prefill`` = the forward).  The encoder-decoder family
+raises ``NotImplementedError`` naming ROADMAP A11c-5.  ``n_params`` and
 ``n_active_params`` count from the config without allocating, and
 ``batch_struct`` gives a shape cell's batch as ``{name: (shape, dtype)}``.
 """
@@ -72,15 +73,26 @@ def _lm_n_params(cfg: ModelConfig, active: bool = False) -> int:
     shapes, computed without allocating them.  ``active``: each of an
     MoE's three expert weights, stacked over the layers, counts at
     ``int(n * top_k / n_experts)`` as JAX's ``n_active_params`` counts it;
-    the router counts fully."""
+    the router counts fully.  An SSM layer is ``ln1`` and a mamba block; a
+    hybrid layer adds a mamba block to the attention layer."""
     d, h, n_kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd,
                          cfg.d_ff)
+    di, n, r = cfg.inner, cfg.ssm_state, cfg.dtrank
+    # in_proj, conv_w + conv_b, x_proj, dt_proj + dt_bias, A_log, D_skip,
+    # out_proj.
+    mamba = (d * 2 * di + (cfg.conv_width + 1) * di + di * (r + 2 * n)
+             + (r + 1) * di + di * n + di + di * d)
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab
+    if cfg.family == "ssm":
+        return cfg.n_layers * (d + mamba) + cfg.vocab * d + d + head
     attn = 2 * d * h * hd + 2 * d * n_kv * hd
     if cfg.qkv_bias:
         attn += (h + 2 * n_kv) * hd
     if cfg.qk_norm:
         attn += 2 * hd
     per_layer = attn + 2 * d
+    if cfg.family == "hybrid":
+        per_layer += mamba
     experts = 0
     if cfg.n_experts:
         per_layer += d * cfg.n_experts  # the router
@@ -90,7 +102,6 @@ def _lm_n_params(cfg: ModelConfig, active: bool = False) -> int:
         experts *= 3
     else:
         per_layer += 3 * d * f
-    head = 0 if cfg.tie_embeddings else d * cfg.vocab
     return cfg.n_layers * per_layer + experts + cfg.vocab * d + d + head
 
 
@@ -128,13 +139,14 @@ def build(cfg: ModelConfig, device="cuda",
     if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port has DLRM and the LM families "
-            f"{T.FAMILIES} (SSM, hybrid, encoder-decoder: ROADMAP A11c)")
+            f"{T.FAMILIES} (encoder-decoder: ROADMAP A11c-5)")
 
     def frontend(batch, dev):
         fe = batch.get("frontend")
         return None if fe is None else _on(fe, dev)
 
     def loss(params, batch):
+        T._check_trainable(cfg)
         dev = resolve_device(device)
         return T.lm_loss(params, cfg, run,
                          _on(batch["tokens"], dev, torch.int64),

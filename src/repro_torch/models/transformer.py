@@ -1,10 +1,13 @@
-"""Decoder-only LMs in PyTorch (dense, MoE, VLM): init, training loss,
-prefill and decode.
+"""Decoder-only LMs in PyTorch (dense, MoE, VLM, SSM, hybrid): init,
+training loss, prefill and decode.
 
 Ported from ``src/repro/models/transformer.py``: ``init_layer``/
 ``init_lm`` (:30-66) as the ``nn.Module`` :class:`TransformerLM` with a
 ``ModuleList`` of blocks in place of the stacked ``lax.scan``, each block
-holding a SwiGLU ``mlp`` or, with ``cfg.n_experts``, a ``moe``;
+holding what JAX's layer holds: a mamba-1 ``ssm`` alone (family ``ssm``),
+or ``attn`` and a SwiGLU ``mlp`` or, with ``cfg.n_experts``, a ``moe``,
+plus an ``ssm`` beside the attention (family ``hybrid``: the two read the
+same normed input and their outputs are averaged);
 ``_layer_forward``/``_layer_decode`` (:74-130; the MoE decodes through
 ``dense_route``); ``_remat``, ``backbone`` (the layers' mean aux loss),
 ``_embed`` (a VLM's frontend embeddings spliced over the first positions),
@@ -12,8 +15,10 @@ holding a SwiGLU ``mlp`` or, with ``cfg.n_experts``, a ``moe``;
 (:133-231); ``init_cache``, ``prefill``, ``decode_step``,
 ``decode_step_embeds`` and ``_decode_from`` (:234-314).
 ``constrain_batch`` is a no-op without a mesh and is dropped.  Not ported:
-the SSM, hybrid and sliding-window branches (ROADMAP A11c) and the MoE's
-data-local dispatch (a mesh: A10b).
+the MoE's data-local dispatch (a mesh: A10b).  The SSM and hybrid
+families serve only: ``lm_loss`` and ``backbone`` refuse them (their
+backwards, of the scan and of the windowed attention, are ROADMAP
+A11c-3t).
 
 ``remat="full"`` runs each layer under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
@@ -24,9 +29,12 @@ MoE routes the same tokens again).
 :class:`~repro_torch.configs.base.RunConfig`.
 
 The cache is ``{"pos": int, "k": (L, B, C, K, hd), "v": ...}`` in the
-compute dtype, a ring buffer (slot = pos % C).  Decode steps write each
-new key and value into it in place and return the same tensors with
-``pos + 1``.  Prefill and decode run under ``torch.inference_mode()``.
+compute dtype, a ring buffer (slot = pos % C; a sliding-window config
+caps C at its window), plus, for the SSM and hybrid families, ``"conv"``
+(L, B, W-1, Di) in the compute dtype and ``"h"`` (L, B, Di, N) in fp32;
+an SSM has no ``k``/``v``.  Decode steps write each new key, value,
+conv state and SSM state into it in place and return the same tensors
+with ``pos + 1``.  Prefill and decode run under ``torch.inference_mode()``.
 Parameters are drawn from a seeded ``torch.Generator`` (same shapes and
 scales as ``jax.random``'s, other numbers); :func:`params_from_jax` carries
 JAX's parameters over for the parity tests.  They are created with
@@ -49,16 +57,27 @@ from repro_torch.models import layers as L
 from repro_torch.models.dlrm import _tensor, torch_dtype
 
 
-# The LM families this module builds: those whose backbone is attention
-# plus a feed-forward block.
-FAMILIES = ("dense", "moe", "vlm")
+# The LM families this module builds: attention plus a feed-forward block
+# (dense, moe, vlm), mamba-1 blocks alone (ssm), or both side by side
+# (hybrid).
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+# The families whose decode state is a recurrence (conv and h).
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port's LMs are {FAMILIES} (SSM, "
-            "hybrid and encoder-decoder: ROADMAP A11c)")
+            f"family {cfg.family!r}: the port's LMs are {FAMILIES} "
+            "(encoder-decoder: ROADMAP A11c-5)")
+
+
+def _check_trainable(cfg: ModelConfig):
+    if cfg.family in SSM_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} serves only: training it needs the "
+            "selective scan's backward and the windowed attention's "
+            "(ROADMAP A11c-3t)")
 
 
 def _params(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -67,18 +86,26 @@ def _params(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One pre-norm layer: ``ln1``, ``attn``, ``ln2`` and the feed-forward
-    block, ``mlp`` (SwiGLU) or ``moe`` (router and experts), whichever
-    ``ffn_name`` says."""
+    """One pre-norm layer: ``ln1`` and, as the family has them, ``attn``,
+    ``ssm`` (mamba-1), ``ln2`` and the feed-forward block, ``mlp``
+    (SwiGLU) or ``moe`` (router and experts), whichever ``ffn_name``
+    says.  An SSM layer holds ``ln1`` and ``ssm`` only."""
 
-    def __init__(self, attn: Dict[str, torch.Tensor],
-                 ffn: Dict[str, torch.Tensor], ln1: torch.Tensor,
-                 ln2: torch.Tensor, ffn_name: str = "mlp"):
+    def __init__(self, ln1: torch.Tensor,
+                 attn: Optional[Dict[str, torch.Tensor]] = None,
+                 ffn: Optional[Dict[str, torch.Tensor]] = None,
+                 ln2: Optional[torch.Tensor] = None, ffn_name: str = "mlp",
+                 ssm: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
-        self.ln2 = nn.Parameter(ln2, requires_grad=False)
-        self.attn = _params(attn)
-        setattr(self, ffn_name, _params(ffn))
+        if ln2 is not None:
+            self.ln2 = nn.Parameter(ln2, requires_grad=False)
+        if attn is not None:
+            self.attn = _params(attn)
+        if ssm is not None:
+            self.ssm = _params(ssm)
+        if ffn is not None:
+            setattr(self, ffn_name, _params(ffn))
 
 
 class TransformerLM(nn.Module):
@@ -106,20 +133,33 @@ def _ffn_name(cfg: ModelConfig) -> str:
     return "moe" if cfg.n_experts else "mlp"
 
 
+def _init_block(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
+                dev: torch.device) -> Block:
+    """One layer in JAX's ``init_layer`` order: ``ssm`` alone for an SSM;
+    else ``attn``, the hybrid's ``ssm``, then ``moe`` or ``mlp``."""
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
+    if cfg.family == "ssm":
+        return Block(ones(), ssm=L.init_mamba(g, cfg, dt, dev))
+    attn = L.init_attn(g, cfg, dt, dev)
+    ssm = L.init_mamba(g, cfg, dt, dev) if cfg.family == "hybrid" else None
+    init_ffn = L.init_moe if cfg.n_experts else L.init_mlp
+    return Block(ones(), attn, init_ffn(g, cfg, dt, dev), ones(),
+                 _ffn_name(cfg), ssm)
+
+
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> TransformerLM:
     """Random parameters on ``device`` from one seeded ``torch.Generator``,
     with the shapes and scales of the JAX ``init_lm``: weights normal times
     ``1/sqrt(fan_in)`` (the MoE router in fp32), the embedding normal
-    times 0.02, norms ones, biases zeros."""
+    times 0.02, norms ones, biases zeros; mamba's fp32 ``dt_bias``,
+    ``A_log`` and ``D_skip`` as :func:`repro_torch.models.layers.init_mamba`
+    makes them."""
     _check_family(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = torch_dtype(cfg.param_dtype)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
-    ffn_name = _ffn_name(cfg)
-    init_ffn = L.init_moe if cfg.n_experts else L.init_mlp
-    blocks = [Block(L.init_attn(g, cfg, dt, dev), init_ffn(g, cfg, dt, dev),
-                    ones(), ones(), ffn_name) for _ in range(cfg.n_layers)]
+    blocks = [_init_block(g, cfg, dt, dev) for _ in range(cfg.n_layers)]
     embed = L._normal(g, (cfg.vocab, cfg.d_model), 0.02, dt, dev)
     head = (None if cfg.tie_embeddings else L._normal(
         g, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model), dt, dev))
@@ -128,19 +168,24 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> TransformerLM:
 
 def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> TransformerLM:
     """The JAX ``init_lm`` pytree, as NumPy arrays (``{"embed", "blocks":
-    {"ln1", "ln2", "attn": {...}, "mlp" or "moe": {...}}`` stacked on a
-    leading L axis, ``"final_norm"``, [``"lm_head"``]}), as the port's
-    model on ``device``: the L axis unstacked, same dtypes, same bits."""
+    {"ln1", ["ln2", "attn": {...}, "mlp" or "moe": {...}], ["ssm":
+    {...}]}`` stacked on a leading L axis, ``"final_norm"``,
+    [``"lm_head"``]}), as the port's model on ``device``: the L axis
+    unstacked, same dtypes, same bits."""
     dev = resolve_device(device)
     bl = tree["blocks"]
     ffn_name = _ffn_name(cfg)
 
-    def layer(sub, i):
+    def layer(name, i):
+        if name not in bl:
+            return None
+        sub = bl[name]
+        if not isinstance(sub, dict):
+            return _tensor(np.asarray(sub)[i], dev)
         return {k: _tensor(np.asarray(a)[i], dev) for k, a in sub.items()}
 
-    blocks = [Block(layer(bl["attn"], i), layer(bl[ffn_name], i),
-                    _tensor(np.asarray(bl["ln1"])[i], dev),
-                    _tensor(np.asarray(bl["ln2"])[i], dev), ffn_name)
+    blocks = [Block(layer("ln1", i), layer("attn", i), layer(ffn_name, i),
+                    layer("ln2", i), ffn_name, layer("ssm", i))
               for i in range(cfg.n_layers)]
     head = tree.get("lm_head")
     return TransformerLM(cfg, _tensor(tree["embed"], dev), blocks,
@@ -155,24 +200,51 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> TransformerLM:
 
 def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor):
-    """Full-sequence layer.  Returns ``(x, aux, (k, v))``: aux is the MoE's
-    load-balance loss, or ``None`` for a dense layer (JAX's zero)."""
-    attn_out, kv = L.attn_block(blk.attn, cfg,
-                                L.rms_norm(x, blk.ln1, cfg.norm_eps),
-                                positions)
+    """Full-sequence layer.  Returns ``(x, aux, cache)``: aux is the MoE's
+    load-balance loss, or ``None`` for a layer without one (JAX's zero);
+    cache is this layer's ``{"k", "v"}`` and, for the SSM and hybrid
+    families, ``{"conv", "h"}`` (an SSM has no ``k``/``v``)."""
+    h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+    if cfg.family == "ssm":
+        out, (conv_tail, h_last) = L.mamba_block(blk.ssm, cfg, h)
+        return x + out, None, {"conv": conv_tail, "h": h_last}
+    attn_out, (k, v) = L.attn_block(blk.attn, cfg, h, positions)
+    cache = {"k": k, "v": v}
+    if cfg.family == "hybrid":
+        ssm_out, (conv_tail, h_last) = L.mamba_block(blk.ssm, cfg, h)
+        attn_out = (attn_out + ssm_out) * 0.5
+        cache.update(conv=conv_tail, h=h_last)
     x = x + attn_out
     h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
     if cfg.n_experts:
         ff, aux = L.moe_block(blk.moe, cfg, h2)
-        return x + ff, aux, kv
-    return x + L.mlp_block(blk.mlp, h2), None, kv
+        return x + ff, aux, cache
+    return x + L.mlp_block(blk.mlp, h2), None, cache
+
+
+def _mamba_decode(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The layer's mamba step; its conv and SSM states are written back
+    into ``cache["conv"]`` and ``cache["h"]`` in place."""
+    out, conv, hs = L.mamba_decode_block(blk.ssm, cfg, h, cache["conv"],
+                                         cache["h"])
+    cache["conv"].copy_(conv)
+    cache["h"].copy_(hs)
+    return out
 
 
 def _layer_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
-                  k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int):
-    attn_out, _, _ = L.attn_decode_block(
-        blk.attn, cfg, L.rms_norm(x, blk.ln1, cfg.norm_eps), k_cache,
-        v_cache, pos)
+                  cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+    """One-token layer; ``cache`` holds this layer's slices of the decode
+    cache (``k``, ``v``, ``conv``, ``h`` as the family has them), updated
+    in place."""
+    h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+    if cfg.family == "ssm":
+        return x + _mamba_decode(blk, cfg, h, cache)
+    attn_out, _, _ = L.attn_decode_block(blk.attn, cfg, h, cache["k"],
+                                         cache["v"], pos)
+    if cfg.family == "hybrid":
+        attn_out = (attn_out + _mamba_decode(blk, cfg, h, cache)) * 0.5
     x = x + attn_out
     h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
     if cfg.n_experts:
@@ -221,7 +293,9 @@ def backbone(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     """The layers, each recomputed in the backward under ``remat="full"``,
     then the final norm: x (B, S, D) -> ``(x (B, S, D), aux)``, aux the
     layers' summed load-balance losses over ``n_layers`` (fp32, 0 for a
-    dense model)."""
+    dense model).  The SSM and hybrid families raise (ROADMAP A11c-3t)."""
+    _check_trainable(cfg)
+
     def layer(blk, x_):
         x_, aux_, _ = _layer_forward(blk, cfg, x_, positions)
         return x_, aux_
@@ -252,7 +326,8 @@ def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     masked; ``frontend_embeds`` as :func:`_embed` takes them.  The logits
     and their cross-entropy go chunk by chunk of ``run.logits_chunk``
     positions when it divides S (and is below it), as JAX's ``lax.scan``
-    over chunks does.  An MoE adds ``0.01 * aux``."""
+    over chunks does.  An MoE adds ``0.01 * aux``.  The SSM and hybrid
+    families raise, in :func:`backbone` (ROADMAP A11c-3t)."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
     x, aux = backbone(model, cfg, run,
@@ -281,13 +356,26 @@ def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device="cuda") -> Dict:
-    """Zeroed decode cache with room for ``cache_len`` positions."""
+    """Zeroed decode cache with room for ``cache_len`` positions (at most
+    the window's for a sliding-window config; no keys for an SSM), plus the
+    SSM and hybrid families' conv (compute dtype) and h (fp32) states."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.compute_dtype)
-    shape = (cfg.n_layers, batch, cache_len, cfg.kv_heads, cfg.hd)
-    return {"pos": 0, "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    n = cfg.n_layers
+    cache = {"pos": 0}
+    if cfg.family != "ssm":
+        cap = (min(cache_len, cfg.window) if cfg.attn_type == "sliding"
+               else cache_len)
+        shape = (n, batch, cap, cfg.kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.family in SSM_FAMILIES:
+        cache["conv"] = torch.zeros((n, batch, cfg.conv_width - 1,
+                                     cfg.inner), dtype=dt, device=dev)
+        cache["h"] = torch.zeros((n, batch, cfg.inner, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev)
+    return cache
 
 
 @torch.inference_mode()
@@ -295,23 +383,30 @@ def prefill(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: Optional[int] = None,
             frontend_embeds: Optional[torch.Tensor] = None):
     """tokens (B, S) on the model's device -> ``(last-token logits (B, V)
-    fp32, cache at pos = S)``.  ``cache_len`` is the cache's capacity C:
-    above S the cache is padded with zeros, below S it keeps the last C
-    keys rotated so that slot = pos % C (``transformer.py:269-278``).
+    fp32, cache at pos = S)``.  ``cache_len`` is the key cache's capacity
+    C, capped at the window for a sliding-window config: above S the cache
+    is padded with zeros, below S it keeps the last C keys rotated so that
+    slot = pos % C (``transformer.py:266-278``).  The SSM and hybrid
+    families also keep each layer's conv tail and last state.
     ``frontend_embeds`` as :func:`_embed` takes them (a VLM's image)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     x = _embed(model, cfg, tokens, frontend_embeds)
     cap = cache_len or s
+    if cfg.attn_type == "sliding":
+        cap = min(cap, cfg.window)
     cache = init_cache(cfg, b, cap, x.dtype, tokens.device)
     for i, blk in enumerate(model.blocks):
-        x, _, (k, v) = _layer_forward(blk, cfg, x, positions)
-        if s > cap:
-            cache["k"][i] = torch.roll(k[:, s - cap:], s % cap, dims=1)
-            cache["v"][i] = torch.roll(v[:, s - cap:], s % cap, dims=1)
-        else:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+        x, _, lc = _layer_forward(blk, cfg, x, positions)
+        if "k" in lc and s > cap:
+            cache["k"][i] = torch.roll(lc["k"][:, s - cap:], s % cap, dims=1)
+            cache["v"][i] = torch.roll(lc["v"][:, s - cap:], s % cap, dims=1)
+        elif "k" in lc:
+            cache["k"][i, :, :s] = lc["k"]
+            cache["v"][i, :, :s] = lc["v"]
+        if "conv" in lc:
+            cache["conv"][i] = lc["conv"]
+            cache["h"][i] = lc["h"]
     x = L.rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
     cache["pos"] = s
     return _logits(model, cfg, x)[:, 0], cache
@@ -341,7 +436,8 @@ def decode_step_embeds(model: TransformerLM, cfg: ModelConfig,
 def _decode_from(model: TransformerLM, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict):
     pos = cache["pos"]
+    state = [k for k in cache if k != "pos"]
     for i, blk in enumerate(model.blocks):
-        x = _layer_decode(blk, cfg, x, cache["k"][i], cache["v"][i], pos)
+        x = _layer_decode(blk, cfg, x, {k: cache[k][i] for k in state}, pos)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return _logits(model, cfg, x)[:, 0], {**cache, "pos": pos + 1}

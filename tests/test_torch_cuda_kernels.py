@@ -1122,3 +1122,218 @@ def test_chaos_on_card_has_zero_wrong_rows_and_cpu_fates(dev):
                          "degraded_default")
     assert {k: got["cuda"][k] for k in keys} == \
         {k: got["cpu"][k] for k in keys}
+
+
+# ---------------------------------------------------------------------------
+# The SSM and hybrid LMs: selective_scan and the windowed flash_attention.
+# selective_scan runs the plain version's recurrence in the same order in
+# fp32 (fused multiply-adds and expf's last ulp aside): fp32 y and h_last
+# within 1e-5 of their largest magnitudes; bf16 y within 1e-2 of its largest
+# magnitude (one bf16 rounding of nearly the same fp32 value: 2^-8), its
+# h_last (fp32) within 1e-5.  The windowed attention as the causal one
+# above: fp32 rtol/atol 1e-5, bf16 1e-2.
+# ---------------------------------------------------------------------------
+
+# (B, S, Di, N): ragged S and Di, S = 1, one step past a 64-step tile and
+# two tiles and one step, both compiled state sizes, and hymba's channels.
+SCAN_SHAPES = [(2, 100, 256, 16), (1, 1, 128, 16), (3, 77, 200, 8),
+               (2, 129, 64, 8), (1, 65, 300, 16), (2, 64, 3200, 16)]
+
+
+def _scan_inputs(dev, dt_name, b, s, di, n, seed, with_h0=False):
+    """The block's inputs at the model's scales: dt = softplus(. - 2),
+    a = -(1 .. N) jittered, bm/cm/x/z standard normal."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    xc, z = (f(b, s, di).to(DTYPES[dt_name]).to(dev) for _ in range(2))
+    dt = torch.nn.functional.softplus(f(b, s, di) - 2.0).to(dev)
+    a = (-torch.arange(1, n + 1, dtype=torch.float32).repeat(di, 1)
+         * torch.exp(0.1 * f(di, n))).to(dev)
+    bm, cm = f(b, s, n).to(dev), f(b, s, n).to(dev)
+    d_skip = f(di).to(dev)
+    h0 = f(b, di, n).to(dev) if with_h0 else None
+    return xc, z, dt, a, bm, cm, d_skip, h0
+
+
+def _assert_scan_close(dt_name, got, want):
+    (y, h), (wy, wh) = got, want
+    assert y.dtype == wy.dtype and y.shape == wy.shape
+    assert h.dtype == wh.dtype == torch.float32 and h.shape == wh.shape
+    tol = 1e-5 if dt_name == "fp32" else 1e-2
+    for name, g, w, t in (("y", y, wy, tol), ("h_last", h, wh, 1e-5)):
+        err = float((g.float() - w.float()).abs().max())
+        scale = max(1.0, float(w.float().abs().max()))
+        assert err <= t * scale, f"{name}: {err} > {t} * {scale}"
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_matches_plain(dev, dt, shape, with_h0):
+    from repro_torch.kernels import selective_scan as ss
+
+    ins = _scan_inputs(dev, dt, *shape, seed=sum(shape), with_h0=with_h0)
+    n0 = ss.selective_scan.launches
+    got = ss.selective_scan(*ins)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == n0 + 1
+    _assert_scan_close(dt, got, ref.selective_scan_ref(*ins))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_dt_zero_is_an_exact_identity(dev, dt):
+    """dt = 0 everywhere: every step keeps the state, bit for bit, and y is
+    (h0 . C_t + D x_t) silu(z_t)."""
+    from repro_torch.kernels import selective_scan as ss
+
+    xc, z, dt_, a, bm, cm, d_skip, h0 = _scan_inputs(
+        dev, dt, 2, 70, 130, 16, seed=5, with_h0=True)
+    y, h = ss.selective_scan(xc, z, torch.zeros_like(dt_), a, bm, cm,
+                             d_skip, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h0)
+    wy, wh = ref.selective_scan_ref(xc, z, torch.zeros_like(dt_), a, bm, cm,
+                                    d_skip, h0)
+    assert torch.equal(wh, h0)
+    _assert_scan_close(dt, (y, h), (wy, wh))
+
+
+def test_selective_scan_takes_views_off_16_byte_boundaries(dev):
+    from repro_torch.kernels import selective_scan as ss
+
+    xc, z, dt, a, bm, cm, d_skip, _ = _scan_inputs(dev, "fp32", 2, 50, 96,
+                                                   8, seed=9)
+    views = []
+    for t in (bm, cm):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        views.append(view)
+    _assert_scan_close("fp32", ss.selective_scan(xc, z, dt, a, *views,
+                                                 d_skip),
+                       ref.selective_scan_ref(xc, z, dt, a, bm, cm, d_skip))
+
+
+def test_selective_scan_refuses_what_it_cannot_serve(dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+
+    ins = _scan_inputs(dev, "fp32", 1, 8, 32, 16, seed=2)
+    grad_ins = [t.clone().requires_grad_() if t is not None else None
+                for t in ins]
+    with pytest.raises(NotImplementedError, match="A11c-3t"):
+        ops.selective_scan(*grad_ins)
+    with torch.inference_mode():
+        assert ops.selective_scan(*grad_ins)[0].shape == ins[0].shape
+    with pytest.raises(ValueError, match="state size"):
+        bad = _scan_inputs(dev, "fp32", 1, 8, 32, 12, seed=2)
+        ss.selective_scan(*bad)
+    with pytest.raises(ValueError, match="shapes"):
+        ss.selective_scan(ins[0], ins[1][:, :4], *ins[2:])
+
+
+# (B, S, H, K, hd, window): windows below one KV tile, at and one past it,
+# across query blocks, and hymba's heads (25/5, hd 64) with its window at
+# S = 2 windows; at S = 1000 with W = 100 a block's late rows meet KV tiles
+# that are wholly masked for them before their first visible key.
+FLASH_WINDOW_SHAPES = [(2, 300, 4, 2, 16, 1), (2, 300, 9, 3, 64, 17),
+                       (1, 1000, 8, 2, 64, 100), (2, 257, 16, 8, 64, 64),
+                       (1, 300, 16, 2, 128, 65), (2, 200, 6, 3, 32, 130),
+                       (1, 2048, 25, 5, 64, 1024)]
+
+
+@pytest.mark.parametrize("shape", FLASH_WINDOW_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_window_matches_plain(dev, dt, shape):
+    from repro_torch.kernels import flash_attention as fa
+
+    *dims, window = shape
+    q, k, v, _ = _attn_inputs(dev, dt, *dims, seed=sum(shape))
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, window=window)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 2
+    assert torch.equal(o, got)
+    want, want_lse = ref.causal_attention_lse_ref(q, k, v, window)
+    tol = 1e-5 if dt == "fp32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    # The window bites: the result is not the causal one.
+    assert not torch.allclose(got.float(), ref.causal_attention_ref(
+        q, k, v).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 9, 3, 64), (2, 1000, 9, 3, 64),
+                                   (1, 300, 25, 5, 64)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_window_at_or_above_s_gives_the_causal_bits(
+        dev, dt, shape):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _attn_inputs(dev, dt, *shape, seed=3)
+    s = shape[1]
+    causal = fa.flash_attention(q, k, v)
+    causal_o, causal_lse = fa.flash_attention(q, k, v, with_lse=True)
+    for window in (s, s + 5, 10 ** 12):
+        assert torch.equal(fa.flash_attention(q, k, v, window=window),
+                           causal)
+        o, lse = fa.flash_attention(q, k, v, with_lse=True, window=window)
+        assert torch.equal(o, causal_o) and torch.equal(lse, causal_lse)
+
+
+def test_windowed_flash_attention_refuses_grad_inputs(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 8, 4, 16), device=dev, requires_grad=True)
+    kv = torch.zeros((1, 8, 2, 16), device=dev)
+    with pytest.raises(NotImplementedError, match="A11c-3t"):
+        ops.flash_attention(q, kv, kv, window=4)
+    with torch.inference_mode():
+        assert ops.flash_attention(q, kv, kv, window=4).shape == q.shape
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q.detach(), kv, kv, window=-1)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_and_hybrid_prefill_and_decode_on_card_match_cpu(dev, arch,
+                                                            dtype, tol):
+    """The reduced SSM and hybrid LMs (hymba's window cut to 8, so a
+    24-token prompt is windowed and a 16-slot cache ring holds 8) from the
+    same parameters on both devices: prefill and eight decode steps; the
+    card runs selective_scan in every prefill layer and, for hymba, the
+    windowed flash_attention."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models.model_api import build
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype=dtype,
+                              compute_dtype=dtype, window=8)
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab, (2, 32))
+    model = build(cfg, device="cpu").init(seed=0)
+    n_fa, n_ss = fa.flash_attention.launches, ss.selective_scan.launches
+    out = {}
+    for d in ("cpu", dev):
+        bundle = build(cfg, device=d)
+        m = model if d == "cpu" else copy.deepcopy(model).to(d)
+        logits, cache = bundle.prefill(m, {"tokens": tokens[:, :24]},
+                                       cache_len=16)
+        steps = [logits]
+        for i in range(8):
+            logits, cache = bundle.decode(m, tokens[:, 24 + i:25 + i], cache)
+            steps.append(logits)
+        out["cpu" if d == "cpu" else "card"] = torch.stack(steps).cpu()
+    assert ss.selective_scan.launches == n_ss + cfg.n_layers
+    assert fa.flash_attention.launches == n_fa + (
+        cfg.n_layers if cfg.family == "hybrid" else 0)
+    assert torch.isfinite(out["card"]).all()
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=tol, atol=tol)

@@ -265,14 +265,6 @@ def test_plain_and_decode_attention_match_jax(dtype):
                                    jnp.asarray(pos, jnp.int32)), TOL[dtype])
 
 
-def test_attn_block_refuses_sliding_windows():
-    cfg, _, _, blk = _layer_params("smollm-135m")
-    cfg = dataclasses.replace(cfg, attn_type="sliding", window=4)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        L.attn_block(blk.attn, cfg, torch.zeros((1, 3, cfg.d_model)),
-                     torch.arange(3)[None, :])
-
-
 # ---------------------------------------------------------------------------
 # The model: prefill and decode
 # ---------------------------------------------------------------------------
@@ -401,7 +393,8 @@ def test_serve_lm_cli_on_the_cpu(capsys):
     assert "vocab-buffer hit rate" in out
     assert res["lookups"] == 64 and res["hits"] + res["misses"] == 64
     assert res["tokens"].shape == (8, 8)
-    assert res["launches"] == {"flash_attention": 0, "gather_rows_expand": 0}
+    assert res["launches"] == {"flash_attention": 0, "selective_scan": 0,
+                               "gather_rows_expand": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -428,12 +421,13 @@ def test_build_dlrm_prefill_is_the_forward():
 
 
 def test_build_refuses_unported_families_and_losses():
-    """The other families raise naming A11c; the LM and DLRM losses are
-    ported (``tests/test_torch_train.py``), but not the XLA remat policy
-    their ``RunConfig`` could ask for."""
-    ssm = dataclasses.replace(get_config("smollm-135m"), family="ssm")
+    """The encoder-decoder family (whisper's) raises naming A11c; the LM
+    and DLRM losses are ported (``tests/test_torch_train.py``), but not
+    the XLA remat policy their ``RunConfig`` could ask for."""
+    audio = dataclasses.replace(get_config("smollm-135m"), family="audio",
+                                enc_dec=True)
     with pytest.raises(NotImplementedError, match="A11c"):
-        build(ssm, device="cpu")
+        build(audio, device="cpu")
     cfg, _ = _cfgs("smollm-135m")
     assert callable(build(cfg, device="cpu").loss)
     with pytest.raises(NotImplementedError, match="XLA"):
