@@ -11,7 +11,9 @@ on tiered memory, and training through the launcher) and of
 ``internvl2-26b`` (served with a frontend, its depth cut):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: nvcc for sm_90a, one process per source, with the build seconds;
+2. build: nvcc for sm_90a, one process per source, with the build seconds
+   and the registers and spills of the attention backward's and the
+   scan's kernels;
 3. kernels vs plain on the card at the serve and forward shapes, fp32 and
    bf16, D in {16, 128}: the row gathers bit-exact, the pooled gather
    within fp32 rtol 1e-5; each timed beside its byte bound;
@@ -178,7 +180,11 @@ on tiered memory, and training through the launcher) and of
     after phase 10'): at falcon-mamba-7b's and hymba-1.5b's prefill layers
     (B=8, S=2,048, Di 8,192 / 3,200, N=16), bf16 and fp32: y within 1e-5
     (fp32) or 1e-2 (bf16) of its largest magnitude, h_last within 1e-5 of
-    its; each timed beside its bound (no PyTorch call computes the scan);
+    its; each timed beside its byte bound, its SFU floor (N + 2 SFU
+    operations a (b, t, d) at 16 a clock an SM, at the SM's top clock)
+    and its first design's time (``earlier_ms``, a constant of this
+    script), with its launch geometry, registers and spills (no PyTorch
+    call computes the scan);
     then the windowed ``flash_attention`` at hymba's prefill (8, 2048,
     25/5, 64), window 1,024, within 1e-2 of the plain windowed version,
     beside the same shape without a window, SDPA with a boolean band mask
@@ -202,7 +208,7 @@ on tiered memory, and training through the launcher) and of
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
-error, times and bound, and for the five kernels in their second design
+error, times and bound, and for the six kernels in their second design
 that design (``quantize_scatter`` also with its launches from the single
 quantized stores and from the per-table facade of phase ``serve``); the
 kernels that the runtime phases drive add those phases' launches and show
@@ -212,7 +218,8 @@ training (phases 13 and 15) as ``launches_train``, the LM serve as
 ``launches_lm_serve``, the MoE's serve and training (17, 18) as
 ``launches_moe``, the VLM's serve as ``launches_vlm`` and the SSM and
 hybrid serves (23) as ``launches_ssm``; ``selective_scan`` has no TPU
-kernel (``replaces`` null, a ``note`` says why) and ``flash_attention``
+kernel (``replaces`` null, a ``note`` says why) and carries its SFU
+floor, and ``flash_attention``
 carries its ``windowed`` record; the ``done``
 line gives each phase's seconds; the last line is the result.  Imports
 nothing of JAX and nothing of the JAX package.
@@ -358,11 +365,26 @@ SCAN_SHAPES = tuple((name, 8, 2048, di, 16, dt)
                     for name, di in (("falcon_prefill", 8192),
                                      ("hymba_prefill", 3200))
                     for dt in ("bf16", "fp32"))
-SCAN_DESIGN = ("one thread per (batch, channel), its N states in fp32 "
-               "registers, sequential over S; 128 channels of one batch row "
-               "a block; 64-step tiles of Bm and Cm in shared memory by "
-               "16-byte cp.async, double-buffered (broadcast reads); x, z, "
-               "dt read 8 steps ahead into registers; accurate expf")
+SCAN_DESIGN = ("exps on the SFU: ex2.approx on A scaled by log2(e) once, "
+               "silu by ex2 and rcp.approx; a channel's N states split "
+               "across N/4 lanes, 4 a lane, 2 adjacent channels a lane (one "
+               "B/C load for both), sums by a shuffle reduce-scatter over "
+               "N/4 steps so each gate runs once; 64-thread blocks of 32 "
+               "channels (N=16), at most 80 registers; 16-step tiles of x, "
+               "z, dt, Bm and Cm staged by 16-byte cp.async, "
+               "double-buffered, y written out through shared memory in "
+               "16-byte stores; sequential over S")
+# The scan's first design (one thread per (batch, channel), accurate
+# expf) at SCAN_SHAPES: constants, not readings of the run, its ms in an
+# earlier run of this script on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md, row 9, in brackets).
+SCAN_FIRST_DESIGN_MS = {("falcon_prefill", "bf16"): 1.6021,
+                   ("hymba_prefill", "bf16"): 1.0073,
+                   ("falcon_prefill", "fp32"): 1.5272,
+                   ("hymba_prefill", "fp32"): 0.8188}
+# The SFU's 2^x and 1/x on one SM, a clock (NVIDIA's CUDA guide, compute
+# capability 9.0).
+SFU_OPS_PER_SM_CLOCK = 16
 # The windowed attention at hymba-1.5b's prefill: (B, S, H, K, hd, window).
 WINDOW_SHAPE = (8, 2048, 25, 5, 64, 1024)
 LSTM_DESIGN = ("fp32 FMAs; blocks tile (16-64 rows) x (8 units, 4 gates "
@@ -386,7 +408,8 @@ REDESIGNED = {"flash_attention": FLASH_DESIGN["bf16"],
               "flash_attention_bwd": FLASH_BWD_DESIGN["bf16"],
               "lstm_cell": LSTM_DESIGN,
               "quantize_scatter": QUANT_DESIGN,
-              "chamfer": CHAMFER_DESIGN}
+              "chamfer": CHAMFER_DESIGN,
+              "selective_scan": SCAN_DESIGN}
 # Why no single PyTorch call stands beside a quantized kernel.
 NO_LIBRARY = {
     "quantize_scatter": "no PyTorch call quantizes rows per row and "
@@ -546,6 +569,8 @@ def ptxas_kernels(report: str) -> dict:
 
 
 def phase_build():
+    """Builds every kernel; returns the scan's kernels' registers and
+    spills."""
     res = _build.build_all()
     ptxas = [ln.strip() for rep in res["ptxas"].values()
              for ln in rep.splitlines()
@@ -558,12 +583,19 @@ def phase_build():
     require(any(k.startswith("attn_bwd_dkdv_mma") for k in bwd),
             f"no attn_bwd_dkdv_mma in the backward's build report: {bwd}")
     emit({"phase": "build_flash_attention_bwd", "kernels": bwd})
+    # selective_scan's kernels (by dtype and N): at most 80 registers a
+    # thread.
+    scan = ptxas_kernels(_build.ptxas_report("selective_scan"))
+    require(any(k.startswith("selective_scan_kernel") for k in scan),
+            f"no selective_scan_kernel in the scan's build report: {scan}")
+    emit({"phase": "build_selective_scan", "kernels": scan})
     eg._lib()
     eg._qlib()
     lc._lib()
     ck._lib()
     fa._lib()
     ss._lib()
+    return scan
 
 
 # ---------------------------------------------------------------------------
@@ -2052,49 +2084,90 @@ def scan_bound(b, s, di, n, elt):
     return bound_ms(n_bytes, b * s * di * (8 * n + 8))
 
 
-def phase_ssm_kernels(timer):
+def sm_clock_max_mhz() -> float:
+    """The SM clock's maximum, MHz (``nvidia-smi``'s ``clocks.max.sm``)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def scan_errors(dt_name, got, want):
+    """(y's and h_last's largest errors and largest magnitudes, whether
+    both are within the kernel's tolerances): fp32 y within 1e-5 of its
+    largest magnitude, bf16 y within 1e-2 (one bf16 rounding of nearly the
+    same fp32 value), h_last (fp32) within 1e-5."""
+    (y, h), (wy, wh) = got, want
+    tol = 1e-5 if dt_name == "fp32" else 1e-2
+    y_err = float((y.float() - wy.float()).abs().max())
+    y_scale = float(wy.float().abs().max())
+    h_err = float((h - wh).abs().max())
+    h_scale = float(wh.abs().max())
+    return (y_err, y_scale, h_err, h_scale,
+            y_err <= tol * y_scale and h_err <= 1e-5 * h_scale)
+
+
+def phase_ssm_kernels(timer, scan_ptxas):
     """``selective_scan`` against its plain version at ``SCAN_SHAPES``, each
-    timed beside its bound (no PyTorch call computes the scan); then the
-    windowed ``flash_attention`` at hymba-1.5b's prefill against its plain
-    version and SDPA with a band mask, beside the same shape unwindowed,
-    and a window of S or more against no window at the LM serve prefill's
-    shape and at hymba's (bit-equal).  Returns (the record of falcon's bf16
-    layer, the windowed attention's record)."""
+    timed beside its byte bound and its SFU floor (no PyTorch call
+    computes the scan), its first design's time (``SCAN_FIRST_DESIGN_MS``), its
+    launch geometry and registers; then the windowed ``flash_attention`` at hymba-1.5b's
+    prefill against its plain version and SDPA with a band mask, beside the
+    same shape unwindowed, and a window of S or more against no window at
+    the LM serve prefill's shape and at hymba's (bit-equal).  Returns (the
+    record of falcon's bf16 layer, the windowed attention's record)."""
     plain_timer = Timer(reps=2)  # the plain scan: ~10 launches a step
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_max_mhz()
     main = None
     for name, b, s, di, n, dt_name in SCAN_SHAPES:
         dt = DTYPES[dt_name]
         ins = scan_inputs(b, s, di, n, dt)
-        y, h = ss.selective_scan(*ins)
         wy, wh = ref.selective_scan_ref(*ins)
+        y_err, y_scale, h_err, h_scale, ok = scan_errors(
+            dt_name, ss.selective_scan(*ins), (wy, wh))
         torch.cuda.synchronize()
-        # fp32: the same recurrence in the same order (FMAs and expf's last
-        # ulp aside); bf16: one rounding of nearly the same fp32 value.
-        tol = 1e-5 if dt_name == "fp32" else 1e-2
-        y_err = float((y.float() - wy.float()).abs().max())
-        y_scale = float(wy.float().abs().max())
-        h_err = float((h - wh).abs().max())
-        h_scale = float(wh.abs().max())
-        require(y_err <= tol * y_scale and h_err <= 1e-5 * h_scale,
-                f"selective_scan {name} {dt_name}: y err {y_err} (of "
-                f"{y_scale}), h err {h_err} (of {h_scale})")
-        del y, h, wy, wh
-        blocks = -(-di // 128) * b
+        require(ok, f"selective_scan {name} {dt_name}: y err {y_err} (of "
+                    f"{y_scale}), h err {h_err} (of {h_scale})")
+        del wy, wh
+        geo = ss.geometry(n, dt)
+        blocks = -(-di // geo["channels"]) * b
+        ptx = scan_ptxas.get(
+            f"selective_scan_kernel<{'bf16' if dt_name == 'bf16' else 'float'}"
+            f",{n}>", {})
+        # The SFU's 2^x per state and the gate's 2^x and 1/x, per (b, t, d).
+        sfu_ops = (n + 2) * b * s * di
         rec = {"phase": "kernel", "name": "selective_scan", "shape": name,
                "dtype": dt_name, "B": b, "S": s, "Di": di, "N": n,
                "max_abs_err": y_err, "max_abs_y": y_scale,
-               "tolerance_share_of_largest": tol,
+               "tolerance_share_of_largest": 1e-5 if dt_name == "fp32"
+               else 1e-2,
                "h_last_max_abs_err": h_err, "max_abs_h": h_scale,
-               "design": SCAN_DESIGN, "blocks": blocks,
-               "warps_per_sm": blocks * 4 / torch.cuda.get_device_properties(
-                   0).multi_processor_count,
+               "design": SCAN_DESIGN,
+               "threads_per_block": geo["threads"],
+               "channels_per_block": geo["channels"], "blocks": blocks,
+               "blocks_per_sm": blocks / n_sm,
+               "max_blocks_per_sm": geo["blocks_per_sm"],
+               "waves": blocks / (n_sm * geo["blocks_per_sm"]),
+               "warps_per_sm": min(blocks / n_sm, geo["blocks_per_sm"])
+               * geo["threads"] / 32,
+               "registers": ptx.get("registers"),
+               "spill_store_bytes": ptx.get("spill_store_bytes"),
+               "spill_load_bytes": ptx.get("spill_load_bytes"),
                "ms": timer(lambda: ss.selective_scan(*ins)),
+               "earlier_ms": SCAN_FIRST_DESIGN_MS[(name, dt_name)],
+               "earlier_from": "a constant of this script: the first "
+                               "design's ms, not measured in this run",
                "plain_ms": plain_timer(lambda: ref.selective_scan_ref(*ins)),
                "library_ms": None,
-               "library": "none: no PyTorch call computes a selective scan"}
+               "library": "none: no PyTorch call computes a selective scan",
+               "sfu_ops": sfu_ops, "sm_clock_max_mhz": mhz,
+               "sfu_floor_ms": sfu_ops / (SFU_OPS_PER_SM_CLOCK * n_sm
+                                          * mhz * 1e6) * 1e3}
         rec["bound_ms"], rec["bound_by"] = scan_bound(
             b, s, di, n, torch.empty((), dtype=dt).element_size())
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["sfu_floor_share"] = rec["sfu_floor_ms"] / rec["ms"]
         emit(rec)
         if main is None:
             main = rec
@@ -3187,7 +3260,7 @@ def main():
         return out
 
     phase_device()
-    timed("build", phase_build)
+    scan_ptxas = timed("build", phase_build)
     timer = Timer()
 
     full = get_config("dlrm-recmg")
@@ -3219,7 +3292,7 @@ def main():
     main_recs["flash_attention_bwd"] = timed(
         "flash_bwd_kernels", phase_flash_bwd_kernels, timer)
     main_recs["selective_scan"], window_rec = timed(
-        "ssm_kernels", phase_ssm_kernels, timer)
+        "ssm_kernels", phase_ssm_kernels, timer, scan_ptxas)
     timed("scan_share", phase_scan_share)
     timed("learned_grads", phase_learned_grads)
     timed("parity", phase_parity)
@@ -3344,7 +3417,7 @@ def main():
             kernels[-1]["launches_ssm"] = ssm_launches[name]
         if name == "selective_scan":
             kernels[-1].update(note=SCAN_REPLACES_NOTE,
-                               design=SCAN_DESIGN)
+                               sfu_floor_ms=rec["sfu_floor_ms"])
         if name == "flash_attention":
             kernels[-1]["windowed"] = {
                 k: window_rec[k] for k in (

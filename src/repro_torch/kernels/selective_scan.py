@@ -3,13 +3,14 @@
 No TPU kernel is its counterpart: JAX computes the mamba-1 scan of
 ``src/repro/models/layers.py::selective_scan`` (:612-657) in XLA, as a
 chunked ``lax.associative_scan`` over (B, S, Di, N) arrays.  The kernel
-runs the same recurrence sequentially over S, one thread per (batch,
-channel) with its states in registers, in one pass over the block's
-inputs.  The wrapper takes CUDA tensors only: it checks device, dtype,
-shape and contiguity, copies ``Bm`` or ``Cm`` if it is not 16-byte
-aligned (the kernel stages them 16 bytes at a time), allocates its outputs
-with ``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and adds one to its ``launches`` count.  The plain
+runs the same recurrence sequentially over S in one pass over the block's
+inputs, each channel's N states in registers split across a group of N / 4
+lanes, its exponentials on the SFU.  The wrapper takes CUDA tensors only:
+it checks device, dtype, shape and contiguity, copies ``Bm`` or ``Cm`` if
+it is not 16-byte aligned (the kernel stages them 16 bytes at a time),
+allocates its outputs with ``torch.empty``, launches on the current
+stream, raises if the launch reports an error, and adds one to its
+``launches`` count.  The plain
 version is :func:`repro_torch.kernels.ref.selective_scan_ref`;
 :func:`repro_torch.kernels.ops.selective_scan` picks between the two by
 the tensors' device.
@@ -34,15 +35,31 @@ _LIB: Optional[ctypes.CDLL] = None
 
 
 def _lib() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signature."""
+    """The kernel library, built at first use, with its C signatures."""
     global _LIB
     if _LIB is None:
         lib = _build.load("selective_scan")
         lib.repro_selective_scan.argtypes = [_VP] * 10 + [
             _I64, _I64, _I64, _INT, _INT, _VP]
         lib.repro_selective_scan.restype = _INT
+        lib.repro_selective_scan_geometry.argtypes = [_INT, _INT] + [
+            ctypes.POINTER(_INT)] * 3
+        lib.repro_selective_scan_geometry.restype = _INT
         _LIB = lib
     return _LIB
+
+
+def geometry(n_state: int, dtype: torch.dtype) -> dict:
+    """The kernel's launch geometry on the current card for ``n_state`` and
+    x's ``dtype``: ``{"threads", "channels"}`` a block (the grid is
+    ``ceil(Di / channels) x B`` blocks) and ``"blocks_per_sm"``, the blocks
+    an SM holds at once by the runtime's occupancy calculator."""
+    out = [_INT() for _ in range(3)]
+    err = _lib().repro_selective_scan_geometry(
+        n_state, _DTYPE_CODE[dtype], *(ctypes.byref(v) for v in out))
+    _raise_on(err, "selective_scan geometry")
+    return dict(zip(("threads", "channels", "blocks_per_sm"),
+                    (v.value for v in out)))
 
 
 def selective_scan(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,

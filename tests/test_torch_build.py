@@ -47,3 +47,24 @@ def test_chip_smoke_reads_registers_and_spills_by_kernel():
         "attn_bwd_sum_splits": {"spill_store_bytes": 0,
                                 "spill_load_bytes": 0, "registers": 32},
     }
+
+
+# nvcc 12.8's report lines for csrc/selective_scan.cu, two of its four
+# kernels: the template's first argument is the element type.
+SCAN_REPORT = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__74da2e5e_17_selective_scan_cu_12829b1b21selective_scan_kernelI13__nv_bfloat16Li16EEEvPKT_S4_PKfS6_S6_S6_S6_S6_PS2_Pfiib' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 13312 bytes smem
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__74da2e5e_17_selective_scan_cu_12829b1b21selective_scan_kernelIfLi8EEEvPKT_S3_PKfS5_S5_S5_S5_S5_PS1_Pfiib' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 30720 bytes smem
+"""
+
+
+def test_chip_smoke_reads_the_scans_kernels_by_dtype_and_state_size():
+    assert chip_smoke.ptxas_kernels(SCAN_REPORT) == {
+        "selective_scan_kernel<bf16,16>": {
+            "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 80},
+        "selective_scan_kernel<float,8>": {
+            "spill_store_bytes": 4, "spill_load_bytes": 4, "registers": 72},
+    }

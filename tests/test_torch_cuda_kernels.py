@@ -1135,9 +1135,16 @@ def test_chaos_on_card_has_zero_wrong_rows_and_cpu_fates(dev):
 # ---------------------------------------------------------------------------
 
 # (B, S, Di, N): ragged S and Di, S = 1, one step past a 64-step tile and
-# two tiles and one step, both compiled state sizes, and hymba's channels.
+# two tiles and one step, both compiled state sizes, and hymba's channels;
+# then the kernel's geometry (16-step tiles; blocks of 32 channels at
+# N = 16, 64 at N = 8, 4 and 2 lanes a channel): a Di that fills no whole
+# block (80; 100, whose bf16 rows are off 16-byte boundaries), S one step
+# past a tile and past two tiles, N = 8 over its 2 lanes, and hymba-1.5b's
+# Di at B = 8.
 SCAN_SHAPES = [(2, 100, 256, 16), (1, 1, 128, 16), (3, 77, 200, 8),
-               (2, 129, 64, 8), (1, 65, 300, 16), (2, 64, 3200, 16)]
+               (2, 129, 64, 8), (1, 65, 300, 16), (2, 64, 3200, 16),
+               (2, 17, 80, 16), (1, 33, 100, 16), (2, 17, 96, 8),
+               (8, 40, 3200, 16)]
 
 
 def _scan_inputs(dev, dt_name, b, s, di, n, seed, with_h0=False):
@@ -1199,6 +1206,25 @@ def test_selective_scan_dt_zero_is_an_exact_identity(dev, dt):
                                     d_skip, h0)
     assert torch.equal(wh, h0)
     _assert_scan_close(dt, (y, h), (wy, wh))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_decays_to_the_new_input(dev, dt):
+    """dt up to 20 from a large h0: exp(dt a) reaches 2^-126 and below,
+    where the SFU's 2^x flushes to 0, so a state keeps only its new input;
+    the kernel still agrees with the plain version."""
+    from repro_torch.kernels import selective_scan as ss
+
+    xc, z, _, a, bm, cm, d_skip, h0 = _scan_inputs(dev, dt, 2, 40, 96, 16,
+                                                   seed=13, with_h0=True)
+    rng = np.random.default_rng(14)
+    big = torch.from_numpy(rng.uniform(0.0, 20.0, (2, 40, 96)).astype(
+        np.float32)).to(dev)
+    assert float((big[..., None] * a).min()) < -126.0 / 1.4426950408889634
+    ins = (xc, z, big, a, bm, cm, d_skip, 1e3 * h0)
+    got = ss.selective_scan(*ins)
+    torch.cuda.synchronize()
+    _assert_scan_close(dt, got, ref.selective_scan_ref(*ins))
 
 
 def test_selective_scan_takes_views_off_16_byte_boundaries(dev):

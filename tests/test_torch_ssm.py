@@ -292,6 +292,29 @@ def test_selective_scan_ref_matches_jax(s):
     _close(h, wh, TOL["float32"])
 
 
+def test_selective_scan_ref_matches_jax_where_the_state_decays_away():
+    """dt up to ~20 (dt_bias up to 20) from a large h0: exp(dt A) reaches
+    2^-126 and below, so a state keeps only its new input; the kernel's
+    plain version and JAX's chunked scan agree there too."""
+    cfg, jcfg, jp, _ = _scan_params()
+    jp = dict(jp, dt_bias=jnp.linspace(0.0, 20.0, 64, dtype=jnp.float32))
+    xc, z = _normal((2, 37, 64), 12), _normal((2, 37, 64), 13)
+    h0 = 100.0 * _normal((2, 64, 8), 14)
+    dt, bm, cm = (torch.from_numpy(np.array(a)) for a in JL._ssm_params(
+        jp, jcfg, jnp.asarray(xc)))
+    a = torch.from_numpy(-np.exp(np.asarray(jp["A_log"])))
+    assert float(dt.max()) > 19.0
+    assert float((dt[..., None] * a).min()) < -126.0 / np.log2(np.e)
+    y, h = ref.selective_scan_ref(torch.from_numpy(xc), torch.from_numpy(z),
+                                  dt, a, bm, cm,
+                                  torch.from_numpy(np.array(jp["D_skip"])),
+                                  torch.from_numpy(h0))
+    wy, wh = JL.selective_scan(jp, jcfg, jnp.asarray(xc), jnp.asarray(z),
+                               jnp.asarray(h0))
+    _close(y, wy, TOL["float32"])
+    _close(h, wh, TOL["float32"])
+
+
 def test_selective_scan_dt_zero_keeps_the_state_exactly():
     _, _, _, p = _scan_params()
     rng = np.random.default_rng(11)
