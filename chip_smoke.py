@@ -7,13 +7,15 @@ against its plain PyTorch version on the card, checks that the card serves
 and trains as the CPU does, then drives the port's main paths at the full
 widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs),
 of ``smollm-135m`` and ``granite-moe-1b-a400m`` (LM serving with the vocab
-on tiered memory, and training through the launcher) and of
-``internvl2-26b`` (served with a frontend, its depth cut):
+on tiered memory, and training through the launcher), of
+``internvl2-26b`` (served with a frontend, its depth cut) and of
+``falcon-mamba-7b`` and ``hymba-1.5b`` (served, and trained through the
+launcher with their depth cut):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc for sm_90a, one process per source, with the build seconds
    and the registers and spills of the attention backward's and the
-   scan's kernels;
+   scan's forward and backward kernels;
 3. kernels vs plain on the card at the serve and forward shapes, fp32 and
    bf16, D in {16, 128}: the row gathers bit-exact, the pooled gather
    within fp32 rtol 1e-5; each timed beside its byte bound;
@@ -119,7 +121,11 @@ on tiered memory, and training through the launcher) and of
     bound (five causal products) and beside SDPA's backward, bf16 also with
     the dK/dV grid at every split of the G query heads (``ms_by_splits``);
     the build's registers and spill bytes of its kernels are a line of
-    their own (``build_flash_attention_bwd``);
+    their own (``build_flash_attention_bwd``); then the bf16 backward in
+    hymba-1.5b's 1,024-token window at its training microbatch (4, 4096,
+    25/5, 64): within 2e-2 of the plain windowed backward (batch row 0),
+    beside the same shape causal and SDPA's backward with a boolean band
+    mask, and a window of S giving the causal backward's bits;
 11. LM parity: full-width smollm-135m (30 layers, d_model 576, 9/3 heads,
     vocab 49,152) from the same seeded parameters on the CPU and on the
     card, a B=2, S=256 prefill and 8 teacher-forced decode steps: logits
@@ -140,9 +146,14 @@ on tiered memory, and training through the launcher) and of
 14. train parity: one ``make_train_step`` on the CPU and on the card from
     the same parameters and batch (fp32 reduced smollm-135m, B=2, S=128, 2
     microbatches; fp32 reduced dlrm-recmg, B=64): loss within rtol 1e-5,
-    every parameter within 1e-5; then full-width bf16 smollm-135m
-    gradients (B=1, S=1024) with the attention's backward the kernel and
-    its plain version: each leaf within 5e-2 of its largest magnitude;
+    every parameter within 1e-5; the same for reduced falcon-mamba-7b and
+    hymba-1.5b (fp32, window 8, B=2, S=24, 2 microbatches), whose card
+    step launches ``selective_scan_bwd`` (and, for hymba, the windowed
+    ``flash_attention_bwd``) once a layer and microbatch; then full-width
+    bf16 gradients with the backward kernels and with their plain
+    versions, both on the card: smollm-135m (B=1, S=1024), one
+    falcon-mamba-7b layer (S=1024) and one hymba-1.5b layer (S=2,048): each
+    leaf within 5e-2 of its largest magnitude;
 15. LM training: full-width bf16 smollm-135m through ``launch/train.main``
     at ``train_4k``'s S=4,096, the global batch cut from 256 to 8 (2
     microbatches, ``--remat full``): run A 6 steps with checkpoints every
@@ -150,7 +161,7 @@ on tiered memory, and training through the launcher) and of
     A's bit for bit), the kernels' launches (forward 2 and backward 1 a
     layer and microbatch), tokens/s, peak memory and one step under
     ``torch.profiler`` (which must show the bf16 backward's tensor-core
-    kernels, ``attention_backward_ms``);
+    kernels, ``backward_kernels_ms``);
 16. MoE parity: full-width granite-moe-1b-a400m (24 layers, d_model 1024,
     16/8 heads, 32 experts top-8, expert width 512, vocab 49,155) from the
     same seeded parameters on the CPU and on the card, a B=2, S=256
@@ -165,9 +176,9 @@ on tiered memory, and training through the launcher) and of
 17. MoE serve: phase 12 at granite's full width (B=8, a 2,048-token
     prompt, 64 greedy steps, capacity 0.1 = 4,915 rows): the prefill's
     capacity dispatch, dense routing on each decode step;
-18. MoE training: phase 15 at granite's full width, the resumed run's
-    losses bit-equal to run A's; then 2 steps of ``make_train_step`` at
-    each AdamW setting (fp32 moments, bf16 moments, bf16 moments and an
+18. MoE training: phase 15 at granite's full width, its depth cut from 24
+    to 8 layers (``cuts``), the resumed run's losses bit-equal to run A's;
+    then 2 steps of ``make_train_step`` at each AdamW setting (fp32 moments, bf16 moments, bf16 moments and an
     fp32 master copy) with each one's peak memory;
 19. VLM serve: internvl2-26b at full width (d_model 6,144, 48/8 heads, hd
     128, d_ff 16,384, vocab 92,553), its depth cut from 48 to 8 layers
@@ -190,6 +201,14 @@ on tiered memory, and training through the launcher) and of
     beside the same shape without a window, SDPA with a boolean band mask
     and its bound; a window of S or more gives the causal kernel's bits
     there and at the LM serve prefill's shape;
+20'. ``selective_scan_bwd`` vs plain on the card (phase
+    ``scan_bwd_kernels``) at falcon-mamba-7b's and hymba-1.5b's training
+    microbatch (B=4, S=4,096, Di 8,192 / 3,200, N=16), bf16 and fp32, from
+    an h0 and a dh_last with dt = 0 every seventh step: every gradient
+    within 1e-4 of its largest magnitude (bf16 dx, dz 1e-2), two calls
+    bit-equal, the forward's bits unchanged by saving its states; each
+    timed beside its byte bound, its SFU floor and the plain version, with
+    its registers and spills;
 21. scan share (run after phase 20): one falcon-mamba-7b prefill layer
     (B=8 x 2,048, bf16) with the plain scan and with the kernel, and the
     kernel alone on the same inputs, under ``torch.profiler`` and between
@@ -204,7 +223,14 @@ on tiered memory, and training through the launcher) and of
     depth (64 layers, d_model 4,096, Di 8,192, 7.27 B parameters) and at
     hymba-1.5b's (32 layers, d_model 1,600, 25/5 heads, window 1,024,
     1.66 B parameters): the 2,048-token prompt exceeds the window, so
-    hymba's key cache is a 1,024-slot ring that the decode wraps.
+    hymba's key cache is a 1,024-slot ring that the decode wraps;
+24. SSM and hybrid training: phase 15 at falcon-mamba-7b's full width cut
+    to 4 of 64 layers and at hymba-1.5b's cut to 8 of 32 (``cuts``; S =
+    4,096 exceeds hymba's window), run A 4 steps with a checkpoint at step
+    2 and run B from it (losses equal A's bit for bit), ``selective_scan``
+    twice and ``selective_scan_bwd`` once a layer and microbatch (and
+    hymba's windowed attention forward twice and backward once), step ms,
+    tokens/s, peak memory and one step under the profiler.
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
 before the last lists every kernel of the main path with its launches,
@@ -217,10 +243,11 @@ the transformer backbone's training as ``launches_transfetch``,
 training (phases 13 and 15) as ``launches_train``, the LM serve as
 ``launches_lm_serve``, the MoE's serve and training (17, 18) as
 ``launches_moe``, the VLM's serve as ``launches_vlm`` and the SSM and
-hybrid serves (23) as ``launches_ssm``; ``selective_scan`` has no TPU
-kernel (``replaces`` null, a ``note`` says why) and carries its SFU
-floor, and ``flash_attention``
-carries its ``windowed`` record; the ``done``
+hybrid serves (23) as ``launches_ssm`` and their training (24) as
+``launches_ssm_train``; ``selective_scan`` and ``selective_scan_bwd``
+have no TPU kernel (``replaces`` null, a ``note`` says why) and carry
+their SFU floors, and ``flash_attention`` and ``flash_attention_bwd``
+carry their ``windowed`` records; the ``done``
 line gives each phase's seconds; the last line is the result.  Imports
 nothing of JAX and nothing of the JAX package.
 """
@@ -387,6 +414,28 @@ SCAN_FIRST_DESIGN_MS = {("falcon_prefill", "bf16"): 1.6021,
 SFU_OPS_PER_SM_CLOCK = 16
 # The windowed attention at hymba-1.5b's prefill: (B, S, H, K, hd, window).
 WINDOW_SHAPE = (8, 2048, 25, 5, 64, 1024)
+# The windowed attention's backward at hymba-1.5b's training microbatch
+# (S = 4,096 at train_4k, a microbatch of 4): (B, S, H, K, hd, window).
+WINDOW_BWD_SHAPE = (4, 4096, 25, 5, 64, 1024)
+CU_SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
+SCAN_BWD_NOTE = ("no TPU kernel: JAX differentiates its XLA scan, "
+                 "src/repro/models/layers.py:612 (selective_scan), in XLA")
+# selective_scan_bwd shapes (name, B, S, Di, N, dtype): falcon-mamba-7b's
+# and hymba-1.5b's training microbatch (S = 4,096, 4 rows); the first is
+# the kernels line's.
+SCAN_BWD_SHAPES = tuple((name, 4, 4096, di, 16, dt)
+                        for name, di in (("falcon_train", 8192),
+                                         ("hymba_train", 3200))
+                        for dt in ("bf16", "fp32"))
+SCAN_BWD_DESIGN = ("one thread per (batch, channel), 64-channel blocks; "
+                   "the forward saves the state entering every 16 steps, "
+                   "the backward walks those tiles in reverse, recomputing "
+                   "a tile's h_{t-1} into shared memory with the forward's "
+                   "ex2.approx arithmetic, then the reverse recurrence in "
+                   "registers; dB, dC by a warp shuffle reduce-scatter and "
+                   "the block's 2 warps in order into per-block partials, "
+                   "da, dD per batch row, summed by torch.sum: no atomics; "
+                   "2 N + 2 SFU operations a (b, t, d)")
 LSTM_DESIGN = ("fp32 FMAs; blocks tile (16-64 rows) x (8 units, 4 gates "
                "each); rows and the block's W slice staged by 16-byte "
                "cp.async; a thread holds 4 rows x 4 gates, 3.2 FMAs a "
@@ -553,7 +602,7 @@ def ptxas_kernels(report: str) -> dict:
             targs = rest[n:].split("Ev", 1)[0]
             args = (["bf16"] if targs.startswith("I13__nv_bfloat16") else
                     ["float"] if targs.startswith("If") else []) \
-                + re.findall(r"Li(\d+)E", targs)
+                + re.findall(r"L[ib](\d+)E", targs)
             name = rest[:n] + (f"<{','.join(args)}>" if args else "")
             out[name] = {}
         elif name is not None:
@@ -569,8 +618,8 @@ def ptxas_kernels(report: str) -> dict:
 
 
 def phase_build():
-    """Builds every kernel; returns the scan's kernels' registers and
-    spills."""
+    """Builds every kernel; returns the scan's forward and backward
+    kernels' registers and spills."""
     res = _build.build_all()
     ptxas = [ln.strip() for rep in res["ptxas"].values()
              for ln in rep.splitlines()
@@ -589,13 +638,18 @@ def phase_build():
     require(any(k.startswith("selective_scan_kernel") for k in scan),
             f"no selective_scan_kernel in the scan's build report: {scan}")
     emit({"phase": "build_selective_scan", "kernels": scan})
+    scan_bwd = ptxas_kernels(_build.ptxas_report("selective_scan_bwd"))
+    require(any(k.startswith("selective_scan_bwd_kernel") for k in scan_bwd),
+            f"no selective_scan_bwd_kernel in its build report: {scan_bwd}")
+    emit({"phase": "build_selective_scan_bwd", "kernels": scan_bwd})
     eg._lib()
     eg._qlib()
     lc._lib()
     ck._lib()
     fa._lib()
     ss._lib()
-    return scan
+    ss._bwd_lib()
+    return {**scan, **scan_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -2134,7 +2188,7 @@ def phase_ssm_kernels(timer, scan_ptxas):
         blocks = -(-di // geo["channels"]) * b
         ptx = scan_ptxas.get(
             f"selective_scan_kernel<{'bf16' if dt_name == 'bf16' else 'float'}"
-            f",{n}>", {})
+            f",{n},0>", {})
         # The SFU's 2^x per state and the gate's 2^x and 1/x, per (b, t, d).
         sfu_ops = (n + 2) * b * s * di
         rec = {"phase": "kernel", "name": "selective_scan", "shape": name,
@@ -2252,6 +2306,133 @@ def window_attention(timer):
     del q, k, v, got
     torch.cuda.empty_cache()
     return rec
+
+
+def scan_bwd_bound(b, s, di, n, elt):
+    """The function's own traffic: x, z and dy read and dx, dz written in
+    the compute dtype, dt read and ddt written (fp32), Bm, Cm, a, D, h0 and
+    dh_last read and their gradients and dh0 written (fp32); ~16 fp32
+    operations per state and step (the state, dh, its carry and the four
+    gradients' terms) and 16 per channel and step (the gate's and D's).
+    The states the forward saves are this design's checkpoint, not the
+    function's: :func:`scan_bwd_state_bytes` counts them apart."""
+    n_bytes = (5 * elt + 8) * b * s * di + 4 * (
+        4 * b * s * n + 2 * di * n + 2 * di + 3 * b * di * n)
+    return bound_ms(n_bytes, b * s * di * (16 * n + 16))
+
+
+def scan_bwd_state_bytes(b, s, di, n):
+    """The bytes of the states the saving forward writes and the backward
+    reads (fp32, one every chunk of steps): the design's, outside the
+    bound."""
+    return 4 * ss.n_chunks(s) * b * di * n
+
+
+SCAN_BWD_NAMES = ("dx", "dz", "ddt", "da", "dbm", "dcm", "dd", "dh0")
+
+
+def phase_scan_bwd_kernels(timer, ptxas):
+    """``selective_scan_bwd`` against its plain version at
+    ``SCAN_BWD_SHAPES`` (falcon-mamba-7b's and hymba-1.5b's training
+    microbatch, bf16 and fp32), from an h0 and a dh_last, with dt = 0 on
+    every seventh step: every gradient within 1e-4 of its largest
+    magnitude (dx and dz at bf16 within 1e-2: one bf16 rounding); a second
+    call gives the same bits; the forward's y and h_last have the same
+    bits with and without saving states.  Each timed beside its byte bound,
+    its SFU floor as the forward's is reckoned (N + 2 a (b, t, d); the
+    kernel takes N more to recompute the states) and the plain version,
+    with its registers and spills (no PyTorch call computes the scan's
+    backward).  The plain version is timed on its one call (~1.5 s, some
+    50,000 launches).  Returns the record of falcon's bf16 shape."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_max_mhz()
+    main = None
+    for name, b, s, di, n, dt_name in SCAN_BWD_SHAPES:
+        dt = DTYPES[dt_name]
+        xc, z, dtv, a, bm, cm, d_skip = scan_inputs(b, s, di, n, dt)
+        dtv[:, ::7] = 0.0  # identity steps
+        g = torch.Generator(device="cuda").manual_seed(di + s + 1)
+        h0, dh_last = (torch.randn((b, di, n), generator=g, device="cuda")
+                       for _ in range(2))
+        dy = torch.randn((b, s, di), generator=g, device="cuda").to(dt)
+        ins = (xc, z, dtv, a, bm, cm, d_skip)
+        y, h_last, states = ss.selective_scan(*ins, h0, save_states=True)
+        y_serve, h_serve = ss.selective_scan(*ins, h0)
+        require(torch.equal(y, y_serve) and torch.equal(h_last, h_serve),
+                f"selective_scan {name} {dt_name}: saving states changes "
+                "the forward's bits")
+        require(torch.equal(states[:, 0], h0), f"selective_scan {name}: "
+                "the first saved state is not h0")
+        del y, h_last, y_serve, h_serve
+        got = ss.selective_scan_bwd(*ins, states, dy, dh_last)
+        again = ss.selective_scan_bwd(*ins, states, dy, dh_last)
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        del again
+        torch.cuda.synchronize()
+        s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_ev.record()
+        want = ref.selective_scan_bwd_ref(*ins, h0, dy, dh_last)
+        e_ev.record()
+        torch.cuda.synchronize()
+        plain_ms = s_ev.elapsed_time(e_ev)
+        require(same, f"selective_scan_bwd {name} {dt_name}: two calls "
+                "give different bits")
+        errs, shares, tols = {}, {}, {}
+        for gname, u, w in zip(SCAN_BWD_NAMES, got, want):
+            require(u.dtype == w.dtype and u.shape == w.shape,
+                    f"selective_scan_bwd {name} {gname}: {u.dtype} "
+                    f"{tuple(u.shape)} vs {w.dtype} {tuple(w.shape)}")
+            errs[gname] = float((u.float() - w.float()).abs().max())
+            shares[gname] = errs[gname] / max(float(w.float().abs().max()),
+                                              1e-30)
+            tols[gname] = 1e-2 if (dt_name == "bf16"
+                                   and gname in ("dx", "dz")) else 1e-4
+        require(all(shares[k] <= tols[k] for k in shares),
+                f"selective_scan_bwd {name} {dt_name}: error / largest "
+                f"gradient {shares} (tolerances {tols})")
+        del got, want
+        ptx = ptxas.get(f"selective_scan_bwd_kernel<"
+                        f"{'bf16' if dt_name == 'bf16' else 'float'},{n}>",
+                        {})
+        sfu_ops = (n + 2) * b * s * di
+        rec = {"phase": "kernel", "name": "selective_scan_bwd",
+               "shape": name, "dtype": dt_name, "B": b, "S": s, "Di": di,
+               "N": n, "max_abs_err": max(errs.values()),
+               "max_abs_err_by_grad": errs,
+               "err_share_of_largest": shares, "tolerance": tols,
+               "two_calls_bit_equal": True,
+               "forward_bits_equal_with_states": True,
+               "dt_zero_every": 7, "h0_and_dh_last_given": True,
+               "design": SCAN_BWD_DESIGN,
+               "registers": ptx.get("registers"),
+               "spill_store_bytes": ptx.get("spill_store_bytes"),
+               "spill_load_bytes": ptx.get("spill_load_bytes"),
+               "ms": timer(lambda: ss.selective_scan_bwd(*ins, states, dy,
+                                                         dh_last)),
+               "ms_includes": "the kernel and the wrapper's torch.sum of "
+                              "the partials",
+               "plain_ms": plain_ms,
+               "plain_timing": "its one call, between CUDA events",
+               "library_ms": None,
+               "library": "none: no PyTorch call computes a selective "
+                          "scan's backward",
+               "sfu_ops": sfu_ops, "kernel_sfu_ops": (2 * n + 2) * b * s * di,
+               "sm_clock_max_mhz": mhz,
+               "sfu_floor_ms": sfu_ops / (SFU_OPS_PER_SM_CLOCK * n_sm
+                                          * mhz * 1e6) * 1e3}
+        rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(
+            b, s, di, n, torch.empty((), dtype=dt).element_size())
+        rec["design_bytes"] = scan_bwd_state_bytes(b, s, di, n)
+        rec["design_bytes_are"] = ("the saved states the backward reads, "
+                                   "not in bound_ms")
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["sfu_floor_share"] = rec["sfu_floor_ms"] / rec["ms"]
+        emit(rec)
+        if main is None:
+            main = rec
+        del ins, xc, z, dtv, states, dy, h0, dh_last
+        torch.cuda.empty_cache()
+    return main
 
 
 def phase_lm_parity():
@@ -2871,7 +3052,9 @@ def lm_profile(cfg, model, batch, prompt_len, n_steps=8):
 def phase_flash_bwd_kernels(timer):
     """``flash_attention_bwd`` against its plain version at
     ``FLASH_BWD_SHAPES``, each timed beside its bound and beside the
-    backward of SDPA.  Returns the record of the training cut at bf16."""
+    backward of SDPA, then in a sliding window at ``WINDOW_BWD_SHAPE``
+    (:func:`window_attention_bwd`).  Returns (the record of the training
+    cut at bf16, the windowed record)."""
     main = None
     for name, b, s, h, n_kv, hd, dt_name in FLASH_BWD_SHAPES:
         dt = DTYPES[dt_name]
@@ -2936,7 +3119,97 @@ def phase_flash_bwd_kernels(timer):
             main = rec
         del q, k, v, do, o, lse, qt, kt, vt, out, dot
         torch.cuda.empty_cache()
-    return main
+    return main, window_attention_bwd(timer)
+
+
+def window_attention_bwd(timer):
+    """The bf16 backward in hymba-1.5b's 1,024-token window at its training
+    microbatch: each gradient within 2e-2 of its largest magnitude of the
+    plain windowed backward (run one batch row at a time, every row: the
+    plain version holds (H, S, S) fp32 tensors; timed on row 0), beside
+    the same shape causal and SDPA's
+    backward with a boolean band mask; a window of S or more gives the
+    causal backward's bits."""
+    b, s, h, n_kv, hd, w = WINDOW_BWD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(s + w + 1)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=g, device="cuda")
+                   .to(torch.bfloat16) for n in (h, n_kv, n_kv, h))
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, window=w)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, window=w)
+    names = ("dq", "dk", "dv")
+    errs, peaks = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for r in range(b):
+        row = slice(r, r + 1)
+        want = ref.flash_attention_bwd_ref(q[row], k[row], v[row], o[row],
+                                           do[row], lse[row], w)
+        for gname, u, x in zip(names, got, want):
+            errs[gname] = max(errs[gname], float(
+                (u[row].float() - x.float()).abs().max()))
+            peaks[gname] = max(peaks[gname], float(x.float().abs().max()))
+        del want
+    shares = {gname: errs[gname] / peaks[gname] for gname in names}
+    require(max(shares.values()) <= 2e-2,
+            f"flash_attention_bwd window {w}: error / largest gradient "
+            f"{shares}")
+    # A window of S or more: the causal backward's bits.
+    co, clse = fa.flash_attention(q, k, v, with_lse=True)
+    causal = fa.flash_attention_bwd(q, k, v, co, do, clse)
+    wide = fa.flash_attention_bwd(q, k, v, co, do, clse, window=s)
+    same = all(torch.equal(x, y) for x, y in zip(causal, wide))
+    require(same, "flash_attention_bwd: a window of S changes the causal "
+                  "bits")
+    # The window bites: the gradients are not the causal ones.
+    require(not torch.equal(got[0], causal[0]),
+            "flash_attention_bwd: the window changed nothing")
+    del causal, wide
+    # SDPA with a boolean band mask, the KV heads repeated to H outside the
+    # timing; its backward alone is the library's time.
+    g_ = h // n_kv
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(g_, dim=1).contiguous()
+              .requires_grad_() for t in (k, v))
+    band = torch.ones((s, s), dtype=torch.bool, device="cuda").tril().triu(
+        1 - w)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band)
+    dot = do.transpose(1, 2).contiguous()
+    plain = (q[:1], k[:1], v[:1], o[:1], do[:1], lse[:1])
+    rec = {"phase": "kernel", "name": "flash_attention_bwd",
+           "shape": "hymba_train_window", "dtype": "bf16", "B": b, "S": s,
+           "H": h, "K": n_kv, "hd": hd, "window": w,
+           "max_abs_err": max(errs.values()),
+           "max_abs_err_share_of_largest_grad": shares, "tolerance": 2e-2,
+           "compared_rows": "every batch row, the plain version one row "
+                            "at a time",
+           "window_at_or_above_s_bit_equal_causal": True,
+           "design": FLASH_BWD_DESIGN["bf16"] + "; the window's own "
+           "instantiation of both kernels (the causal one folds the "
+           "window's terms away): query walk to the last key's window, key "
+           "walk from the first query's, edge tiles masked",
+           "library": "SDPA's backward with an explicit boolean band mask, "
+                      "KV heads repeated outside the timing",
+           "ms": timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      window=w)),
+           "causal_ms": timer(lambda: fa.flash_attention_bwd(
+               q, k, v, co, do, clse)),
+           "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(*plain, w)),
+           "plain_B": 1, "plain_timing": "batch row 0 alone",
+           "library_ms": timer(lambda: torch.autograd.grad(
+               out, (qt, kt, vt), dot, retain_graph=True))}
+    rec["windowed_over_causal"] = rec["ms"] / rec["causal_ms"]
+    # Five products over the visible pairs: query i sees min(i + 1, w)
+    # keys; q, k, v, o, dO and lse read once, dq, dk, dv written once.
+    pairs = sum(min(i + 1, w) for i in range(s))
+    n_ops = 5 * 2 * b * h * hd * pairs
+    rec["visible_share_of_causal"] = pairs / (s * (s + 1) / 2)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        2 * b * s * hd * (4 * h + 4 * n_kv) + 4 * b * h * s, n_ops,
+        BF16_OPS_PER_S)
+    achieved(rec, n_ops)
+    emit(rec)
+    del q, k, v, do, o, lse, co, clse, got, qt, kt, vt, out, dot, band, plain
+    torch.cuda.empty_cache()
+    return rec
 
 
 class _PlainAttentionBackward:
@@ -2953,6 +3226,74 @@ class _PlainAttentionBackward:
         fa.flash_attention_bwd = self._kept
 
 
+class _PlainScanBackward:
+    """Within the block, ``ops.selective_scan``'s backward on the card is
+    the plain version (``selective_scan_bwd_ref``, from the first saved
+    state: h0, or zeros) in place of the kernel; the forward stays the
+    kernel."""
+
+    def __enter__(self):
+        self._kept = ss.selective_scan_bwd
+
+        def plain(xc, z, dt, a, bm, cm, d_skip, states, dy, dh_last=None):
+            return ref.selective_scan_bwd_ref(xc, z, dt, a, bm, cm, d_skip,
+                                              states[:, 0], dy, dh_last)
+        ss.selective_scan_bwd = plain
+        return self
+
+    def __exit__(self, *exc):
+        ss.selective_scan_bwd = self._kept
+
+
+def _bf16_grads(cfg, s, rng):
+    """``lm_loss`` gradients of ``cfg`` (bf16, seed-0 weights, B=1, S=s,
+    ``remat="full"``) on the card, the backward kernels in one arm and
+    their plain versions in the other (the forwards stay the kernels):
+    each leaf's largest difference over its largest magnitude, and the
+    kernel arm's launches."""
+    model = init_lm(cfg, seed=0, device="cuda").requires_grad_(True)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, s))).cuda()
+    lab = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -1)], dim=1)
+    grads = {}
+    for arm in ("kernel", "plain"):
+        ops.reset_launches()
+        with contextlib.ExitStack() as stack:
+            if arm == "plain":
+                stack.enter_context(_PlainAttentionBackward())
+                stack.enter_context(_PlainScanBackward())
+            loss = lm_loss(model, cfg, RunConfig(remat="full"), toks, lab)
+            grads[arm] = (loss.item(), torch.autograd.grad(
+                loss, list(model.parameters())))
+        if arm == "kernel":
+            launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                        if fn.launches}
+    shares = [float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30))
+              for a, b in zip(grads["kernel"][1], grads["plain"][1])]
+    names = [n for n, _ in model.named_parameters()]
+    worst = int(np.argmax(shares))
+    losses = {arm: grads[arm][0] for arm in grads}
+    del model, grads
+    torch.cuda.empty_cache()
+    return {"B": 1, "S": s, "n_layers": cfg.n_layers,
+            "loss_kernel": losses["kernel"], "loss_plain": losses["plain"],
+            "worst_leaf": names[worst],
+            "worst_err_share_of_largest": shares[worst],
+            "median_err_share": float(np.median(shares)),
+            "tolerance": 5e-2, "launches": launches}
+
+
+def _train_backwards(cfg):
+    """The backward kernels an LM's training step launches, once a layer
+    and microbatch: the attention's (every family with attention) and the
+    scan's (the SSM and the hybrid)."""
+    if cfg.family == "dlrm":
+        return ()
+    return ((() if cfg.family == "ssm" else ("flash_attention_bwd",))
+            + (("selective_scan_bwd",) if cfg.family in ("ssm", "hybrid")
+               else ()))
+
+
 def _step_on(dev, bundle_cfg, run, params, batch, microbatches):
     bundle = build(bundle_cfg, device=dev, run=run)
     opt = init_opt(OptConfig(lr=1e-3), tree_leaves(params))
@@ -2963,9 +3304,12 @@ def _step_on(dev, bundle_cfg, run, params, batch, microbatches):
 def phase_train_parity():
     """One train step from the same parameters and batch on the CPU and on
     the card (fp32 reduced smollm-135m, B=2, S=128, 2 microbatches; fp32
-    reduced dlrm-recmg, B=64); then full-width bf16 smollm-135m gradients
-    (B=1, S=1024) through the kernels against the same code with the
-    plain attention, both on the card."""
+    reduced dlrm-recmg, B=64; fp32 reduced falcon-mamba-7b and hymba-1.5b,
+    its window cut to 8, B=2, S=24, 2 microbatches); then full-width bf16
+    gradients through the backward kernels against the same code with
+    their plain versions, both on the card: smollm-135m (B=1, S=1024), one
+    falcon-mamba-7b layer (S=1024) and one hymba-1.5b layer (S=2048, two
+    windows)."""
     out = {}
     lm = get_config("smollm-135m").reduced()
     dl = get_config("dlrm-recmg").reduced()
@@ -2982,8 +3326,17 @@ def phase_train_parity():
             "sparse": rng.integers(0, dl.rows_per_table, (
                 64, dl.n_tables, dl.multi_hot)).astype(np.int32),
             "label": (rng.random(64) < 0.5).astype(np.float32)}, 1)}
+    for arch in ("falcon-mamba-7b", "hymba-1.5b"):
+        scfg = dataclasses.replace(get_config(arch).reduced(), window=8)
+        stoks = rng.integers(0, scfg.vocab, (2, 24)).astype(np.int32)
+        cases[f"{arch}.reduced"] = (scfg, init_lm(scfg, seed=0, device="cpu"),
+                                    {"tokens": stoks, "labels": np.concatenate(
+                                        [stoks[:, 1:],
+                                         np.full((2, 1), -1, np.int32)],
+                                        axis=1)}, 2)
     for name, (cfg, params, batch, mb) in cases.items():
-        card = (copy.deepcopy(params).to("cuda") if name.startswith("smollm")
+        card = (copy.deepcopy(params).to("cuda")
+                if isinstance(params, torch.nn.Module)
                 else to_device(params, "cuda"))
         ops.reset_launches()
         res = {dev: _step_on(dev, cfg, RunConfig(remat="full"), p, batch, mb)
@@ -3001,52 +3354,46 @@ def phase_train_parity():
         require(abs(rec["loss_card"] - rec["loss_cpu"])
                 <= 1e-5 * abs(rec["loss_cpu"]) and max(diffs) <= 1e-5,
                 f"train_parity {name}: {rec}")
-    # Full-width bf16 gradients through the same code, the attention's
-    # backward the kernel in one arm and its plain version in the other.
-    full = get_config("smollm-135m")
-    model = init_lm(full, seed=0, device="cuda").requires_grad_(True)
-    toks = torch.from_numpy(rng.integers(0, full.vocab, (1, 1024))).cuda()
-    lab = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -1)], dim=1)
-    grads = {}
-    for arm in ("kernel", "plain"):
-        ops.reset_launches()
-        with (_PlainAttentionBackward() if arm == "plain"
-              else contextlib.nullcontext()):
-            loss = lm_loss(model, full, RunConfig(remat="full"), toks, lab)
-            grads[arm] = (loss.item(), torch.autograd.grad(
-                loss, list(model.parameters())))
-        if arm == "kernel":
-            kernel_launches = {fn.__name__: fn.launches
-                               for fn in ops.KERNELS if fn.launches}
-    shares = [float((a.float() - b.float()).abs().max()
-                    / b.float().abs().max().clamp_min(1e-30))
-              for a, b in zip(grads["kernel"][1], grads["plain"][1])]
-    names = [n for n, _ in model.named_parameters()]
-    worst = int(np.argmax(shares))
-    out["smollm-135m.bf16_grads"] = {
-        "B": 1, "S": 1024, "loss_kernel": grads["kernel"][0],
-        "loss_plain": grads["plain"][0],
-        "worst_leaf": names[worst], "worst_err_share_of_largest": shares[
-            worst], "median_err_share": float(np.median(shares)),
-        "tolerance": 5e-2, "launches": kernel_launches}
+        want = {k: mb * cfg.n_layers for k in _train_backwards(cfg)}
+        require({k: launches.get(k) for k in want} == want,
+                f"train_parity {name}: launches {launches}, expected "
+                f"{want}")
+    # Full-width bf16 gradients through the same code, the backward kernels
+    # in one arm and their plain versions in the other.
+    for name, cfg, s in (
+            ("smollm-135m", get_config("smollm-135m"), 1024),
+            ("falcon-mamba-7b", dataclasses.replace(
+                get_config("falcon-mamba-7b"), n_layers=1), 1024),
+            ("hymba-1.5b", dataclasses.replace(get_config("hymba-1.5b"),
+                                               n_layers=1), 2048)):
+        rec = _bf16_grads(cfg, s, rng)
+        rec["backward_launches_expected"] = {
+            k: cfg.n_layers for k in _train_backwards(cfg)}
+        out[f"{name}.bf16_grads"] = rec
     emit({"phase": "train_parity", **out})
-    require(kernel_launches.get("flash_attention_bwd") == full.n_layers,
-            f"train_parity: {kernel_launches}")
-    require(shares[worst] <= 5e-2,
-            f"train_parity bf16 grads: {names[worst]} {shares[worst]}")
-    del model, grads
+    for name, rec in out.items():
+        if not name.endswith(".bf16_grads"):
+            continue
+        want = rec["backward_launches_expected"]
+        got = {k: rec["launches"].get(k) for k in want}
+        require(got == want, f"train_parity {name}: backward launches "
+                f"{got}, expected {want}")
+        require(rec["worst_err_share_of_largest"] <= 5e-2,
+                f"train_parity {name}: {rec['worst_leaf']} "
+                f"{rec['worst_err_share_of_largest']}")
     torch.cuda.empty_cache()
 
 
 STEP_LINE = re.compile(r"step\s+(\d+) loss (\S+) \((\d+) ms")
 
 
-def _train_cli(argv):
-    """``launch/train.main`` with its printed lines captured: ``(losses,
+def _train_cli(argv, cfg):
+    """``launch/train.main`` on ``cfg`` (its depth cut here: JAX's launcher
+    has no flag for one) with its printed lines captured: ``(losses,
     {step: ms}, lines)``."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        losses = train_main(argv)
+        losses = train_main(argv, cfg=cfg)
     lines = buf.getvalue().splitlines()
     ms = {int(m.group(1)): float(m.group(3))
           for m in map(STEP_LINE.match, lines) if m}
@@ -3054,13 +3401,16 @@ def _train_cli(argv):
 
 
 def phase_lm_train(arch="smollm-135m", phase="lm_train",
-                   opt_settings=False):
-    """Full-width bf16 ``arch`` trained through the launcher: run A (6
-    steps, checkpoints every 3) and run B (A's step-3 checkpoint alone in a
-    fresh directory, run to step 6), then one step under the profiler and,
-    with ``opt_settings``, 2 steps at each AdamW setting."""
-    cfg = get_config(arch)
-    steps, seq, batch, mb = 6, 4096, 8, 2
+                   opt_settings=False, n_layers=None, steps=6):
+    """Full-width bf16 ``arch`` (its depth cut to ``n_layers`` when given)
+    trained through the launcher: run A (``steps`` steps, checkpoints every
+    ``steps // 2``) and run B (A's checkpoint at ``steps // 2`` alone in a
+    fresh directory, run to ``steps``), then one step under the profiler
+    and, with ``opt_settings``, 2 steps at each AdamW setting."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+    half = steps // 2
+    seq, batch, mb = 4096, 8, 2
     argv = ["--arch", cfg.name, "--steps", str(steps), "--seq-len", str(seq),
             "--batch", str(batch), "--microbatches", str(mb), "--remat",
             "full", "--lr", "3e-4", "--log-every", "1"]
@@ -3073,46 +3423,55 @@ def phase_lm_train(arch="smollm-135m", phase="lm_train",
     ops.reset_launches()
     t0 = time.perf_counter()
     run_a, ms_a, lines_a = _train_cli(argv + ["--ckpt", str(a_dir),
-                                              "--ckpt-every", "3"])
+                                              "--ckpt-every", str(half)],
+                                       cfg)
     a_s = time.perf_counter() - t0
     launches_a = {fn.__name__: fn.launches for fn in ops.KERNELS
                   if fn.launches}
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-    # A's step-3 checkpoint alone in B's directory (moved: a checkpoint of
-    # granite's parameters and moments is 14 GB).
+    # A's checkpoint at ``half`` alone in B's directory (moved: a
+    # checkpoint of granite's parameters and moments is 14 GB).
     b_dir.mkdir(parents=True)
-    shutil.move(a_dir / "step_00000003", b_dir / "step_00000003")
+    ck = f"step_{half:08d}"
+    shutil.move(a_dir / ck, b_dir / ck)
     shutil.rmtree(a_dir)
     ops.reset_launches()
     t0 = time.perf_counter()
-    run_b, ms_b, lines_b = _train_cli(argv + ["--ckpt", str(b_dir)])
+    run_b, ms_b, lines_b = _train_cli(argv + ["--ckpt", str(b_dir)], cfg)
     b_s = time.perf_counter() - t0
     launches_b = {fn.__name__: fn.launches for fn in ops.KERNELS
                   if fn.launches}
     shutil.rmtree(root, ignore_errors=True)
-    want = {"flash_attention": 2 * mb * cfg.n_layers,
-            "flash_attention_bwd": mb * cfg.n_layers}
-    for run, n, got in (("A", steps, launches_a), ("B", steps - 3,
+    # The forwards run twice a layer and microbatch under --remat full,
+    # the backwards once.
+    want = {k: mb * cfg.n_layers for k in _train_backwards(cfg)}
+    for k in list(want):
+        want[k.replace("_bwd", "")] = 2 * mb * cfg.n_layers
+    for run, n, got in (("A", steps, launches_a), ("B", steps - half,
                                                    launches_b)):
         for k, per_step in want.items():
             require(got.get(k) == n * per_step,
                     f"{phase} run {run}: {k} launched {got.get(k)}, "
                     f"expected {n * per_step}")
     require(len(run_a) == steps and all(np.isfinite(run_a))
-            and len(run_b) == steps - 3, f"{phase} losses {run_a} {run_b}")
-    require(any("restored step 3" in ln for ln in lines_b)
-            and run_b == run_a[3:],
-            f"{phase} resume: B {run_b} vs A {run_a[3:]}")
+            and len(run_b) == steps - half,
+            f"{phase} losses {run_a} {run_b}")
+    require(any(f"restored step {half}" in ln for ln in lines_b)
+            and run_b == run_a[half:],
+            f"{phase} resume: B {run_b} vs A {run_a[half:]}")
     steady = [ms_a[i] for i in range(1, steps)]
+    cuts = {"from": "train_4k S=4096 global_batch=256",
+            "global_batch": batch, "microbatches": mb}
+    if cfg.n_layers != full.n_layers:
+        cuts["n_layers"] = [full.n_layers, cfg.n_layers]
     rec = {"phase": phase, "arch": cfg.name, "dtype": cfg.param_dtype,
-           "cuts": {"from": "train_4k S=4096 global_batch=256",
-                    "global_batch": batch, "microbatches": mb},
+           "cuts": cuts, "n_params": build(cfg).n_params(),
            "argv": argv, "losses_a": run_a, "step_ms_a": ms_a,
            "losses_b": run_b, "step_ms_b": ms_b,
            "resumed_losses_bit_equal": True, "run_a_s": a_s, "run_b_s": b_s,
            "tokens_per_s_median": batch * seq / (np.median(steady) / 1e3),
            "peak_device_gb": peak_gb, "launches_a": launches_a,
-           "launches_b": launches_b,
+           "launches_b": launches_b, "launches_expected_per_step": want,
            "profile": train_profile(cfg, seq, batch, mb)}
     if opt_settings:
         rec["optimizer_settings"] = optimizer_settings(cfg, seq, batch, mb)
@@ -3175,15 +3534,19 @@ def train_profile(cfg, seq, batch, mb):
     del model, opt
     if prof is None:
         return "not measured: the profiler recorded no device time"
-    # The attention backward's kernels by name: the step must have run the
-    # bf16 tensor-core ones.
-    bwd = {k: ms for k, ms in prof["kernels"].items() if "attn_bwd" in k}
-    for name in ("attn_bwd_dkdv_mma", "attn_bwd_dq_mma"):
+    # The backwards' kernels by name: the step must have run the bf16
+    # tensor-core attention kernels and the scan's backward, as the family
+    # has them.
+    bwd = {k: ms for k, ms in prof["kernels"].items()
+           if "attn_bwd" in k or "selective_scan_bwd" in k}
+    need = {"flash_attention_bwd": ("attn_bwd_dkdv_mma", "attn_bwd_dq_mma"),
+            "selective_scan_bwd": ("selective_scan_bwd_kernel",)}
+    for name in (n for k in _train_backwards(cfg) for n in need[k]):
         require(any(name in k for k in bwd),
                 f"lm_train profile: no {name} among {sorted(bwd)}")
     return dict(_profile_summary(prof["wall_ms"], prof["busy_ms"],
                                  prof["launches"], prof["kernels"], 1),
-                attention_backward_ms=bwd)
+                backward_kernels_ms=bwd)
 
 
 def phase_dlrm_train(full, trace):
@@ -3289,10 +3652,12 @@ def main():
     main_recs.update(timed("learned_kernels", phase_learned_kernels, timer))
     main_recs["flash_attention"] = timed("flash_kernels",
                                          phase_flash_kernels, timer)
-    main_recs["flash_attention_bwd"] = timed(
+    main_recs["flash_attention_bwd"], window_bwd_rec = timed(
         "flash_bwd_kernels", phase_flash_bwd_kernels, timer)
     main_recs["selective_scan"], window_rec = timed(
         "ssm_kernels", phase_ssm_kernels, timer, scan_ptxas)
+    main_recs["selective_scan_bwd"] = timed(
+        "scan_bwd_kernels", phase_scan_bwd_kernels, timer, scan_ptxas)
     timed("scan_share", phase_scan_share)
     timed("learned_grads", phase_learned_grads)
     timed("parity", phase_parity)
@@ -3339,8 +3704,11 @@ def main():
     timed("moe_parity", phase_moe_parity)
     moe_launches = timed("moe_serve", phase_lm_serve, "granite-moe-1b-a400m",
                          "moe_serve")
+    # granite's depth cut from 24 to 8 layers: a third of the checkpoints'
+    # bytes and of the steps, to pay for the SSM and hybrid training.
     for name, k in timed("moe_train", phase_lm_train, "granite-moe-1b-a400m",
-                         "moe_train", opt_settings=True).items():
+                         "moe_train", opt_settings=True,
+                         n_layers=8).items():
         moe_launches[name] = moe_launches.get(name, 0) + k
     vlm_launches = timed("vlm_serve", phase_vlm_serve)
     # The SSM and hybrid LMs (falcon-mamba-7b, hymba-1.5b).
@@ -3350,6 +3718,14 @@ def main():
     for name, k in timed("hybrid_serve", phase_lm_serve, "hymba-1.5b",
                          "hybrid_serve").items():
         ssm_launches[name] = ssm_launches.get(name, 0) + k
+    # Their training at full width, the depth cut: falcon 4 of 64 layers,
+    # hymba 8 of 32.
+    ssm_train_launches = timed("ssm_train", phase_lm_train,
+                               "falcon-mamba-7b", "ssm_train", n_layers=4,
+                               steps=4)
+    for name, k in timed("hybrid_train", phase_lm_train, "hymba-1.5b",
+                         "hybrid_train", n_layers=8, steps=4).items():
+        ssm_train_launches[name] = ssm_train_launches.get(name, 0) + k
 
     kernels = []
     for name, rec, n, src, replaces in (
@@ -3376,7 +3752,9 @@ def main():
             ("flash_attention_bwd", main_recs["flash_attention_bwd"], 0,
              CU_FLASH_BWD_SOURCE, None),
             ("selective_scan", main_recs["selective_scan"], 0,
-             CU_SCAN_SOURCE, None)):
+             CU_SCAN_SOURCE, None),
+            ("selective_scan_bwd", main_recs["selective_scan_bwd"], 0,
+             CU_SCAN_BWD_SOURCE, None)):
         # The runtime phases drive the store's kernels and the learned
         # model's fine-tune through their own paths, the sharded serve the
         # store's kernels in every shard, and the transformer backbone's
@@ -3385,12 +3763,14 @@ def main():
         # flash_attention and flash_attention_bwd, which runs nowhere else.
         # The LM serves drive flash_attention and gather_rows_expand; the
         # MoE's serve and training and the VLM's serve add theirs; the SSM
-        # and hybrid serves drive selective_scan, which runs nowhere else,
-        # and the hybrid's windowed flash_attention.
+        # and hybrid serves drive selective_scan and the hybrid's windowed
+        # flash_attention, and their training selective_scan_bwd, which
+        # runs nowhere else, and the windowed flash_attention_bwd.
         n += runtime_launches.get(name, 0) + sharded_launches.get(name, 0) \
             + transfetch_launches.get(name, 0) + train_launches.get(name, 0) \
             + lm_launches.get(name, 0) + moe_launches.get(name, 0) \
-            + vlm_launches.get(name, 0) + ssm_launches.get(name, 0)
+            + vlm_launches.get(name, 0) + ssm_launches.get(name, 0) \
+            + ssm_train_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -3415,9 +3795,20 @@ def main():
             kernels[-1]["launches_vlm"] = vlm_launches[name]
         if name in ssm_launches:
             kernels[-1]["launches_ssm"] = ssm_launches[name]
+        if name in ssm_train_launches:
+            kernels[-1]["launches_ssm_train"] = ssm_train_launches[name]
         if name == "selective_scan":
             kernels[-1].update(note=SCAN_REPLACES_NOTE,
                                sfu_floor_ms=rec["sfu_floor_ms"])
+        if name == "selective_scan_bwd":
+            kernels[-1].update(note=SCAN_BWD_NOTE,
+                               sfu_floor_ms=rec["sfu_floor_ms"])
+        if name == "flash_attention_bwd":
+            kernels[-1]["windowed"] = {
+                k: window_bwd_rec[k] for k in (
+                    "shape", "B", "S", "H", "K", "hd", "window",
+                    "max_abs_err", "ms", "causal_ms", "plain_ms", "plain_B",
+                    "bound_ms", "bound_by", "library_ms", "library")}
         if name == "flash_attention":
             kernels[-1]["windowed"] = {
                 k: window_rec[k] for k in (

@@ -79,6 +79,19 @@
 // x 4 entries a thread), p and dS through shared memory.  They beat the
 // library's fp32 backward, and TF32 tensor cores would not hold 1e-5.
 //
+// A sliding window (window > 0, as the forward takes it: query q sees keys
+// q - window < k <= q) shortens both walks in both dtypes: a key tile's
+// query walk (dK/dV) ends at the tile of its last key + window - 1, and a
+// query tile's key walk (dQ) starts at the tile of max(0, q0 - window + 1).
+// The tiles that cross the window's lower edge mask q - k >= window as the
+// forward does (p = 0, so dS = 0 there), and the mma kernels' warps skip a
+// tile that lies wholly outside their window.  Every row keeps its
+// diagonal key, so no row is fully masked.  window = 0 is the causal walk,
+// in an instantiation of its own (kWindow false) where the window's terms
+// fold away, so the causal kernels run the instructions they ran without it;
+// the wrapper passes a window of S or more as S, which masks no key of a
+// real row and walks every causal tile, so it gives the causal bits.
+//
 // exp is the SFU's 2^x for bf16 and the accurate expf for fp32.  Nothing is
 // allocated here (the wrapper hands in delta's buffer and the partials)
 // and nothing synchronises.  The C functions return cudaGetLastError()
@@ -173,14 +186,15 @@ __device__ __forceinline__ void stage_rows(float* s_lse, float* s_delta,
 
 // One 64 x 64 score tile: s = q k^T and dP = dO v^T in one pass over hd,
 // thread (rg, cg) owning query rows rg + 16 i and keys cg + 16 j; then
-// p = exp(s * scale - lse) where key <= query < S (else 0) and dS =
+// p = exp(s * scale - lse) where key <= query < S and, with a window,
+// query - key < window (else 0) and dS =
 // p (dP - delta).  Writes dS, and p when s_p is not null, with rows =
 // queries, row stride kSStride.
 template <int HD>
 __device__ __forceinline__ void score_tile(
     const float* s_q, const float* s_do, const float* s_k, const float* s_v,
     const float* s_lse, const float* s_delta, float* s_p, float* s_ds,
-    int q0, int k0, int s_len, float scale, int rg, int cg) {
+    int q0, int k0, int s_len, int window, float scale, int rg, int cg) {
   constexpr int kStride = HD + 1;
   float s[kPer][kPer];
   float dp[kPer][kPer];
@@ -220,7 +234,8 @@ __device__ __forceinline__ void score_tile(
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int c = cg + kGrid * j;
-      const bool keep = k0 + c <= qpos && qpos < s_len;
+      const bool keep = k0 + c <= qpos && qpos < s_len &&
+                        (window == 0 || qpos - (k0 + c) < window);
       const float p = keep ? expf(fmaf(s[i][j], scale, -row_lse)) : 0.0f;
       if (s_p != nullptr) s_p[r * kSStride + c] = p;
       s_ds[r * kSStride + c] = p * (dp[i][j] - row_delta);
@@ -242,13 +257,14 @@ constexpr int64_t dq_smem_bytes() {
                               2 * kTile) * 4;
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dk, float* __restrict__ dv, int s_len,
-              int n_heads, int n_kv, float scale) {
+              int n_heads, int n_kv, int window_arg, float scale) {
+  const int window = kWindow ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;  // accumulator columns a thread
   extern __shared__ float smem[];
@@ -289,7 +305,12 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  const int n_qt = (s_len + kTile - 1) / kTile;
+  // Query tiles from the diagonal to the end of S or, with a window, to
+  // the tile of the last key's last visible query.
+  int n_qt = (s_len + kTile - 1) / kTile;
+  if (window > 0) {
+    n_qt = min(n_qt, (min(k0 + kTile, s_len) + window - 2) / kTile + 1);
+  }
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
     const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
@@ -304,7 +325,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                  s_len);
       __syncthreads();
       score_tile<HD>(s_q, s_do, s_k, s_v, s_lse, s_delta, s_p, s_ds, q0, k0,
-                     s_len, scale, rg, cg);
+                     s_len, window, scale, rg, cg);
       __syncthreads();
       // dV += p^T dO and dK += dS^T q over the tile's queries.
 #pragma unroll 2
@@ -345,13 +366,14 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dq, int s_len, int n_heads, int n_kv,
-            float scale) {
+            int window_arg, float scale) {
+  const int window = kWindow ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;
   extern __shared__ float smem[];
@@ -391,15 +413,17 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[a][c] = 0.0f;
   }
 
-  // KV tiles up to the diagonal (tiles of queries and keys coincide).
-  for (int kt = 0; kt <= qt; ++kt) {
+  // KV tiles up to the diagonal (tiles of queries and keys coincide),
+  // from the tile of the first query's first visible key.
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
+  for (int kt = kt0; kt <= qt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // q, dO staged; the last tile's k and dS are read
     stage<HD>(s_k, k + kv_base, kv_row, k0, s_len);
     stage<HD>(s_v, v + kv_base, kv_row, k0, s_len);
     __syncthreads();
     score_tile<HD>(s_q, s_do, s_k, s_v, s_lse, s_delta, nullptr, s_ds, q0,
-                   k0, s_len, scale, rg, cg);
+                   k0, s_len, window, scale, rg, cg);
     __syncthreads();
     // dQ += dS k over the tile's keys.
 #pragma unroll 2
@@ -548,7 +572,7 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
 // - 1 of its KV head.  With partial null, dk = acc_k * scale and dv = acc_v
 // are written as bf16; otherwise acc_k and acc_v go, fp32 and unscaled, to
 // partial[0][split] and partial[1][split], each (B, S, K, hd).
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kMmaThreads, kMinBlocks<HD>)
 attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -558,8 +582,9 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, float* __restrict__ partial,
-                  int s_len, int n_heads, int n_kv, int splits, float scale,
-                  float scale_log2) {
+                  int s_len, int n_heads, int n_kv, int splits,
+                  int window_arg, float scale, float scale_log2) {
+  const int window = kWindow ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;
   constexpr int kStep = kQStep<HD>;  // queries a tile
   constexpr int kDSteps = HD / 16;       // k16 steps of S^T, dP^T
@@ -600,9 +625,16 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
   load_tile<HD, kMmaRows>(s_v, v + kv_base, kv_row, k0, s_len);
 
   // The walk: the split's heads, and for each the query tiles from the
-  // one holding key k0 to the end of S (earlier tiles are all masked).
+  // one holding key k0 to the end of S (earlier tiles are all masked) or,
+  // with a window, to the tile of the block's last key's last visible
+  // query.
   const int qt0 = k0 / kStep;
-  const int per_head = (s_len + kStep - 1) / kStep - qt0;
+  int qt_end = (s_len + kStep - 1) / kStep;
+  if (window > 0) {
+    qt_end = min(qt_end,
+                 (min(k0 + kMmaRows, s_len) + window - 2) / kStep + 1);
+  }
+  const int per_head = qt_end - qt0;
   const int n_it = per_split * per_head;
   auto load_q = [&](int it, int stage) {
     const int h = h0 + it / per_head;
@@ -658,8 +690,10 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
     }
     const int q0 = (qt0 + it % per_head) * kStep;
     // A warp whose keys all lie past this tile's queries, or past S,
-    // skips it.
-    if (q0 + kStep - 1 >= kw0 && kw0 < s_len) {
+    // skips it; so does a warp whose keys all lie below the window of the
+    // tile's first query.
+    if (q0 + kStep - 1 >= kw0 && kw0 < s_len &&
+        (window == 0 || q0 - (kw0 + 15) < window)) {
       const __nv_bfloat16* sq = s_q + (it & 1) * kQElems;
       const __nv_bfloat16* sdo = s_do + (it & 1) * kQElems;
       const float* sl = s_lse + (it & 1) * kStep;
@@ -699,8 +733,10 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
         }
       }
       // P^T and dS^T; the mask where the tile crosses the warp's diagonal
-      // (a key after a query) or the end of S (a query past it).
-      const bool edge = kw0 + 15 > q0 || q0 + kStep > s_len;
+      // (a key after a query), the end of S (a query past it) or the
+      // window's lower edge (a key window or more before a query).
+      const bool edge = kw0 + 15 > q0 || q0 + kStep > s_len ||
+                        (window > 0 && q0 + kStep - 1 - kw0 >= window);
 #pragma unroll
       for (int n = 0; n < kQTiles; ++n) {
 #pragma unroll
@@ -712,8 +748,14 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
           float p_lo = exp2_approx(fmaf(st[n][c], scale_log2, -lse2));
           float p_hi = exp2_approx(fmaf(st[n][2 + c], scale_log2, -lse2));
           if (edge) {
-            if (key_lo > query || query >= s_len) p_lo = 0.0f;
-            if (key_hi > query || query >= s_len) p_hi = 0.0f;
+            if (key_lo > query || query >= s_len ||
+                (window > 0 && query - key_lo >= window)) {
+              p_lo = 0.0f;
+            }
+            if (key_hi > query || query >= s_len ||
+                (window > 0 && query - key_hi >= window)) {
+              p_hi = 0.0f;
+            }
           }
           st[n][c] = p_lo;
           st[n][2 + c] = p_hi;
@@ -800,7 +842,7 @@ attn_bwd_sum_splits(const float* __restrict__ partial,
 }
 
 // dQ of one 64-query tile of one head.
-template <int HD>
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kMmaThreads, kMinBlocks<HD>)
 attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -809,7 +851,8 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dq, int s_len, int n_heads,
-                int n_kv, float scale, float scale_log2) {
+                int n_kv, int window_arg, float scale, float scale_log2) {
+  const int window = kWindow ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;
   constexpr int kStep = kKStep;  // keys a tile
   constexpr int kDSteps = HD / 16;       // k16 steps of S, dP
@@ -847,7 +890,13 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
     load_tile<HD, kStep>(s_v + stage * kKElems, v + kv_base, kv_row,
                          tile * kStep, s_len);
   };
-  load_kv(0, 0);
+  // KV tiles from the one holding the first query's first visible key (0
+  // without a window) up to the causal frontier of the tile's last real
+  // query.
+  const int q_last = min(q0 + kMmaRows, s_len) - 1;
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kStep : 0;
+  const int n_it = q_last / kStep + 1 - t_first;
+  load_kv(t_first, 0);
   cp_async_commit();
 
   // This warp's 16 queries: g and g + 8 of them are this lane's, with
@@ -872,19 +921,17 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   }
 
-  // KV tiles up to the causal frontier of the tile's last real query.
-  const int q_last = min(q0 + kMmaRows, s_len) - 1;
-  const int n_tiles = q_last / kStep + 1;
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, (t + 1) & 1);
+  for (int it = 0; it < n_it; ++it) {
+    const int t = t_first + it;
+    if (it + 1 < n_it) {
+      load_kv(t + 1, (it + 1) & 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if (it == 0) {
 #pragma unroll
       for (int d = 0; d < kDSteps; ++d) {
         load_a<HD>(qf[d], s_q, 16 * warp, d, lane);
@@ -892,10 +939,12 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int k0 = t * kStep;
-    // A warp whose queries all lie before this tile, or past S, skips it.
-    if (k0 <= w_last && w_first < s_len) {
-      const __nv_bfloat16* sk = s_k + (t & 1) * kKElems;
-      const __nv_bfloat16* sv = s_v + (t & 1) * kKElems;
+    // A warp whose queries all lie before this tile, or past S, skips it;
+    // so does a warp whose first query's window starts after the tile.
+    if (k0 <= w_last && w_first < s_len &&
+        (window == 0 || w_first - (k0 + kStep - 1) < window)) {
+      const __nv_bfloat16* sk = s_k + (it & 1) * kKElems;
+      const __nv_bfloat16* sv = s_v + (it & 1) * kKElems;
       float s[kKTiles][4];   // S, then dS
       float dp[kKTiles][4];  // dP
 #pragma unroll
@@ -920,8 +969,9 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
         }
       }
       // dS = P (dP - delta); the mask where the tile crosses the warp's
-      // diagonal or the end of S (a key past it).
-      const bool edge = k0 + kStep - 1 > w_first || k0 + kStep > s_len;
+      // diagonal, the end of S (a key past it) or the window's lower edge.
+      const bool edge = k0 + kStep - 1 > w_first || k0 + kStep > s_len ||
+                        (window > 0 && w_last - k0 >= window);
 #pragma unroll
       for (int n = 0; n < kKTiles; ++n) {
 #pragma unroll
@@ -930,7 +980,9 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
           float p = exp2_approx(
               fmaf(s[n][e], scale_log2, -(lo ? lse2_lo : lse2_hi)));
           const int key = k0 + 8 * n + 2 * t4 + (e & 1);
-          if (edge && (key > (lo ? row_lo : row_hi) || key >= s_len)) {
+          const int row = lo ? row_lo : row_hi;
+          if (edge && (key > row || key >= s_len ||
+                       (window > 0 && row - key >= window))) {
             p = 0.0f;
           }
           s[n][e] = p * (dp[n][e] - (lo ? d_lo : d_hi));
@@ -996,57 +1048,61 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv,
                        int64_t batch, int s_len, int n_heads, int n_kv,
-                       float scale, cudaStream_t stream) {
+                       int window, float scale, cudaStream_t stream) {
   constexpr int64_t dkdv_smem = dkdv_smem_bytes<HD>();
   constexpr int64_t dq_smem = dq_smem_bytes<HD>();
   static bool dkdv_set = false;  // per instantiation
   static bool dq_set = false;
-  cudaError_t err = allow_smem(attn_bwd_dkdv<HD>, dkdv_smem, &dkdv_set);
+  cudaError_t err =
+      allow_smem(attn_bwd_dkdv<HD, kWindow>, dkdv_smem, &dkdv_set);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_dq<HD>, dq_smem, &dq_set);
+  err = allow_smem(attn_bwd_dq<HD, kWindow>, dq_smem, &dq_set);
   if (err != cudaSuccess) return err;
   err = launch_delta<float, HD>(o, dout, delta, batch, s_len, n_heads,
                                 stream);
   if (err != cudaSuccess) return err;
 
   const unsigned n_tiles = static_cast<unsigned>((s_len + kTile - 1) / kTile);
-  attn_bwd_dkdv<HD><<<dim3(static_cast<unsigned>(batch * n_kv), n_tiles),
-                      kThreads, static_cast<size_t>(dkdv_smem), stream>>>(
+  attn_bwd_dkdv<HD, kWindow>
+      <<<dim3(static_cast<unsigned>(batch * n_kv), n_tiles), kThreads,
+         static_cast<size_t>(dkdv_smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
       delta, static_cast<float*>(dk), static_cast<float*>(dv), s_len,
-      n_heads, n_kv, scale);
+      n_heads, n_kv, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  attn_bwd_dq<HD><<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles),
-                    kThreads, static_cast<size_t>(dq_smem), stream>>>(
+  attn_bwd_dq<HD, kWindow>
+      <<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles), kThreads,
+         static_cast<size_t>(dq_smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), s_len, n_heads, n_kv, scale);
+      delta, static_cast<float*>(dq), s_len, n_heads, n_kv, window, scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kWindow>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv,
                        float* partial, int64_t batch, int s_len, int n_heads,
-                       int n_kv, int splits, float scale,
+                       int n_kv, int splits, int window, float scale,
                        cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int64_t dkdv_smem = dkdv_mma_smem_bytes<HD>();
   constexpr int64_t dq_smem = dq_mma_smem_bytes<HD>();
   static bool dkdv_set = false;  // per instantiation
   static bool dq_set = false;
-  cudaError_t err = allow_smem(attn_bwd_dkdv_mma<HD>, dkdv_smem, &dkdv_set);
+  cudaError_t err =
+      allow_smem(attn_bwd_dkdv_mma<HD, kWindow>, dkdv_smem, &dkdv_set);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_dq_mma<HD>, dq_smem, &dq_set);
+  err = allow_smem(attn_bwd_dq_mma<HD, kWindow>, dq_smem, &dq_set);
   if (err != cudaSuccess) return err;
   err = launch_delta<bf16, HD>(o, dout, delta, batch, s_len, n_heads, stream);
   if (err != cudaSuccess) return err;
@@ -1054,14 +1110,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * kLog2e;
   const unsigned n_tiles =
       static_cast<unsigned>((s_len + kMmaRows - 1) / kMmaRows);
-  attn_bwd_dkdv_mma<HD>
+  attn_bwd_dkdv_mma<HD, kWindow>
       <<<dim3(static_cast<unsigned>(batch * n_kv * splits), n_tiles),
          kMmaThreads, static_cast<size_t>(dkdv_smem), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
           delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
           splits > 1 ? partial : nullptr, s_len, n_heads, n_kv, splits,
-          scale, scale_log2);
+          window, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
@@ -1074,12 +1130,12 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
 
-  attn_bwd_dq_mma<HD>
+  attn_bwd_dq_mma<HD, kWindow>
       <<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles), kMmaThreads,
          static_cast<size_t>(dq_smem), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-          delta, static_cast<bf16*>(dq), s_len, n_heads, n_kv, scale,
+          delta, static_cast<bf16*>(dq), s_len, n_heads, n_kv, window, scale,
           scale_log2);
   return cudaGetLastError();
 }
@@ -1089,13 +1145,24 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv,
                    float* partial, int64_t batch, int s_len, int n_heads,
-                   int n_kv, int splits, float scale, cudaStream_t stream) {
+                   int n_kv, int splits, int window, float scale,
+                   cudaStream_t stream) {
+  if (window > 0) {
+    return dtype == 0
+               ? launch_fma<HD, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, batch, s_len, n_heads, n_kv,
+                                      window, scale, stream)
+               : launch_mma<HD, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, partial, batch, s_len, n_heads,
+                                      n_kv, splits, window, scale, stream);
+  }
   return dtype == 0
-             ? launch_fma<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                              batch, s_len, n_heads, n_kv, scale, stream)
-             : launch_mma<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                              partial, batch, s_len, n_heads, n_kv, splits,
-                              scale, stream);
+             ? launch_fma<HD, false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                     dv, batch, s_len, n_heads, n_kv, 0,
+                                     scale, stream)
+             : launch_mma<HD, false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                     dv, partial, batch, s_len, n_heads,
+                                     n_kv, splits, 0, scale, stream);
 }
 
 }  // namespace
@@ -1111,7 +1178,9 @@ extern "C" {
 // splits: the number of blocks over which each KV head's n_heads / n_kv
 // query heads are split for dK and dV (bf16 only; it divides n_heads /
 // n_kv); with splits > 1, partial is a float32 scratch of 2 * splits *
-// batch * s_len * n_kv * head_dim elements, overwritten.
+// batch * s_len * n_kv * head_dim elements, overwritten.  window: 0 is
+// causal; 1 .. s_len the forward's sliding window (larger values are
+// refused: the caller passes s_len for them).
 int repro_flash_attention_bwd_split(const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* dout, const void* lse,
@@ -1119,14 +1188,15 @@ int repro_flash_attention_bwd_split(const void* q, const void* k,
                                     void* partial, int64_t batch,
                                     int64_t s_len, int n_heads, int n_kv,
                                     int head_dim, int dtype, float scale,
-                                    int splits, void* stream) {
+                                    int splits, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
       n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
       (s_len + kTile - 1) / kTile > kMaxTiles ||
       (dtype != 0 && dtype != 1) || splits < 1 ||
       (n_heads / n_kv) % splits != 0 ||
-      (splits > 1 && (dtype != 1 || partial == nullptr))) {
+      (splits > 1 && (dtype != 1 || partial == nullptr)) || window < 0 ||
+      window > s_len) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1 &&
@@ -1143,19 +1213,19 @@ int repro_flash_attention_bwd_split(const void* q, const void* k,
   switch (head_dim) {
     case 16:
       err = launch<16>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, scale, s);
+                       batch, sl, n_heads, n_kv, splits, window, scale, s);
       break;
     case 32:
       err = launch<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, scale, s);
+                       batch, sl, n_heads, n_kv, splits, window, scale, s);
       break;
     case 64:
       err = launch<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, scale, s);
+                       batch, sl, n_heads, n_kv, splits, window, scale, s);
       break;
     case 128:
       err = launch<128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                        batch, sl, n_heads, n_kv, splits, scale, s);
+                        batch, sl, n_heads, n_kv, splits, window, scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1170,11 +1240,11 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               void* dk, void* dv, int64_t batch,
                               int64_t s_len, int n_heads, int n_kv,
                               int head_dim, int dtype, float scale,
-                              void* stream) {
+                              int window, void* stream) {
   return repro_flash_attention_bwd_split(q, k, v, o, dout, lse, delta, dq,
                                          dk, dv, nullptr, batch, s_len,
                                          n_heads, n_kv, head_dim, dtype,
-                                         scale, 1, stream);
+                                         scale, 1, window, stream);
 }
 
 }  // extern "C"

@@ -71,6 +71,14 @@
 // Registers: at most 80 a thread (12 blocks, 24 warps an SM): a lane holds
 // 8 states, 8 scaled A, 8 partial sums and 2 D.
 //
+// Training: given a states pointer, the kernel also writes the state
+// entering every tile of 16 steps, states (B, ceil(S / 16), Di, N) fp32
+// (h0, or zeros, for the first), one float4 store a lane and channel per
+// tile.  The backward (selective_scan_bwd.cu) recomputes each tile's steps
+// from it.  That path is a template instantiation of its own, so the serve
+// path (a null states pointer) runs the same instructions as without it
+// and gives the same bits.
+//
 // The kernel launches on the caller's stream, allocates nothing and never
 // synchronises; the C function returns cudaGetLastError() after its launch.
 
@@ -165,7 +173,7 @@ __device__ __forceinline__ void reduce_scatter(float (&p)[L * K], int j) {
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, bool kSave>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ z,
                       const float* __restrict__ dt,
@@ -174,7 +182,8 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ z,
                       const float* __restrict__ cm,
                       const float* __restrict__ dskip,
                       const float* __restrict__ h0, T* __restrict__ y,
-                      float* __restrict__ h_last, int s_len, int di,
+                      float* __restrict__ h_last,
+                      float* __restrict__ states, int s_len, int di,
                       bool vec) {
   constexpr int L = lanes<N>();
   constexpr int K = kK;
@@ -300,6 +309,22 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ z,
   const int n_tiles = (s_len + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int st = tile & 1;
+    if constexpr (kSave) {
+      // The state entering this tile, for the backward.
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int d = d0 + c + k;
+        if (d < di) {
+          float* dst = states + ((static_cast<int64_t>(b) * n_tiles + tile) *
+                                     di + d) * N + j * kSpl;
+#pragma unroll
+          for (int v = 0; v < kSpl; v += 4) {
+            *reinterpret_cast<float4*>(dst + v) =
+                make_float4(h[k][v], h[k][v + 1], h[k][v + 2], h[k][v + 3]);
+          }
+        }
+      }
+    }
     if (tile + 1 < n_tiles) {
       load_stage(tile + 1, st ^ 1);
       cp_async_commit();
@@ -376,62 +401,80 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ z,
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, bool kSave>
 void set_carveout() {
   // The most shared memory for the L1/shared split, so that the blocks the
   // registers allow also fit the SM's shared memory.
   static bool done = false;
   if (!done) {
-    cudaFuncSetAttribute(selective_scan_kernel<T, N>,
+    cudaFuncSetAttribute(selective_scan_kernel<T, N, kSave>,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
     done = true;
   }
 }
 
-template <typename T, int N>
-cudaError_t launch(const void* x, const void* z, const void* dt,
-                   const void* a, const void* bm, const void* cm,
-                   const void* dskip, const void* h0, void* y, void* h_last,
-                   int batch, int s_len, int di, cudaStream_t stream) {
+template <typename T, int N, bool kSave>
+cudaError_t launch_save(const void* x, const void* z, const void* dt,
+                        const void* a, const void* bm, const void* cm,
+                        const void* dskip, const void* h0, void* y,
+                        void* h_last, void* states, int batch, int s_len,
+                        int di, cudaStream_t stream) {
   constexpr int C = channels<N>();
   const bool vec =
       (static_cast<int64_t>(di) * sizeof(T)) % 16 == 0 &&
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(z) |
         reinterpret_cast<uintptr_t>(dt) | reinterpret_cast<uintptr_t>(y)) &
        15) == 0;
-  set_carveout<T, N>();
+  set_carveout<T, N, kSave>();
   const dim3 grid(static_cast<unsigned>((di + C - 1) / C),
                   static_cast<unsigned>(batch));
-  selective_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
+  selective_scan_kernel<T, N, kSave><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(z),
       static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(dskip), static_cast<const float*>(h0),
-      static_cast<T*>(y), static_cast<float*>(h_last), s_len, di, vec);
+      static_cast<T*>(y), static_cast<float*>(h_last),
+      static_cast<float*>(states), s_len, di, vec);
   return cudaGetLastError();
+}
+
+template <typename T, int N>
+cudaError_t launch(const void* x, const void* z, const void* dt,
+                   const void* a, const void* bm, const void* cm,
+                   const void* dskip, const void* h0, void* y, void* h_last,
+                   void* states, int batch, int s_len, int di,
+                   cudaStream_t stream) {
+  return states == nullptr
+             ? launch_save<T, N, false>(x, z, dt, a, bm, cm, dskip, h0, y,
+                                        h_last, states, batch, s_len, di,
+                                        stream)
+             : launch_save<T, N, true>(x, z, dt, a, bm, cm, dskip, h0, y,
+                                       h_last, states, batch, s_len, di,
+                                       stream);
 }
 
 template <int N>
 cudaError_t launch_dtype(int dtype, const void* x, const void* z,
                          const void* dt, const void* a, const void* bm,
                          const void* cm, const void* dskip, const void* h0,
-                         void* y, void* h_last, int batch, int s_len, int di,
-                         cudaStream_t stream) {
+                         void* y, void* h_last, void* states, int batch,
+                         int s_len, int di, cudaStream_t stream) {
   return dtype == 0
              ? launch<float, N>(x, z, dt, a, bm, cm, dskip, h0, y, h_last,
-                                batch, s_len, di, stream)
+                                states, batch, s_len, di, stream)
              : launch<__nv_bfloat16, N>(x, z, dt, a, bm, cm, dskip, h0, y,
-                                        h_last, batch, s_len, di, stream);
+                                        h_last, states, batch, s_len, di,
+                                        stream);
 }
 
 template <typename T, int N>
 int geometry(int* threads, int* chans, int* blocks_per_sm) {
-  set_carveout<T, N>();
+  set_carveout<T, N, false>();
   *threads = kThreads;
   *chans = channels<N>();
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, selective_scan_kernel<T, N>, kThreads, 0));
+      blocks_per_sm, selective_scan_kernel<T, N, false>, kThreads, 0));
 }
 
 }  // namespace
@@ -442,19 +485,24 @@ extern "C" {
 // (dtype 1); dt (batch, s_len, d_inner), a (d_inner, n_state), bm and cm
 // (batch, s_len, n_state; 16-byte aligned, for the 16-byte copies),
 // d_skip (d_inner,), h0 (null, or batch, d_inner, n_state) and h_last
-// (batch, d_inner, n_state), all float32; all contiguous.  n_state 8 (the
-// reduced configs) or 16 (falcon-mamba-7b's and hymba-1.5b's).
+// (batch, d_inner, n_state), all float32; states null (serving), or
+// (batch, ceil(s_len / 16), d_inner, n_state) float32, 16-byte aligned,
+// written with the state entering each tile of 16 steps (training); all
+// contiguous.  n_state 8 (the reduced configs) or 16 (falcon-mamba-7b's
+// and hymba-1.5b's).
 int repro_selective_scan(const void* x, const void* z, const void* dt,
                          const void* a, const void* bm, const void* cm,
                          const void* dskip, const void* h0, void* y,
-                         void* h_last, int64_t batch, int64_t s_len,
-                         int64_t di, int n_state, int dtype, void* stream) {
+                         void* h_last, void* states, int64_t batch,
+                         int64_t s_len, int64_t di, int n_state, int dtype,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || batch > 65535 || s_len < 1 || s_len > 0x7fffffffLL ||
       di < 1 || di > 0x7fffffffLL - kThreads || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((reinterpret_cast<uintptr_t>(bm) | reinterpret_cast<uintptr_t>(cm)) &
+  if ((reinterpret_cast<uintptr_t>(bm) | reinterpret_cast<uintptr_t>(cm) |
+       reinterpret_cast<uintptr_t>(states)) &
       15) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
@@ -464,16 +512,20 @@ int repro_selective_scan(const void* x, const void* z, const void* dt,
   switch (n_state) {
     case 8:
       return static_cast<int>(launch_dtype<8>(dtype, x, z, dt, a, bm, cm,
-                                              dskip, h0, y, h_last, nb, sl,
-                                              nd, s));
+                                              dskip, h0, y, h_last, states,
+                                              nb, sl, nd, s));
     case 16:
       return static_cast<int>(launch_dtype<16>(dtype, x, z, dt, a, bm, cm,
-                                               dskip, h0, y, h_last, nb, sl,
-                                               nd, s));
+                                               dskip, h0, y, h_last, states,
+                                               nb, sl, nd, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// Steps between the states that the saving forward writes: the backward's
+// library exports its own, and the wrapper refuses a pair that differs.
+int repro_selective_scan_state_chunk(void) { return kTile; }
 
 // The launch geometry of n_state and dtype: threads a block, channels a
 // block (the grid is ceil(d_inner / channels) x batch blocks) and the

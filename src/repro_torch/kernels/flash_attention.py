@@ -19,8 +19,8 @@ count.  Asked
 for it (``with_lse``), the forward also returns each row's log-sum-exp,
 (B, H, S) fp32, which :func:`flash_attention_bwd` (no TPU counterpart: JAX
 differentiates the attention's XLA version) takes to give dq, dk and dv
-without storing the scores.  The plain versions are
-:func:`repro_torch.kernels.ref.causal_attention_ref`,
+without storing the scores, under the same ``window``.  The plain versions
+are :func:`repro_torch.kernels.ref.causal_attention_ref`,
 :func:`~repro_torch.kernels.ref.causal_attention_lse_ref`,
 :func:`~repro_torch.kernels.ref.flash_attention_ref` and
 :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`;
@@ -65,7 +65,7 @@ def _bwd_lib() -> ctypes.CDLL:
     if _BWD_LIB is None:
         lib = _build.load("flash_attention_bwd")
         lib.repro_flash_attention_bwd_split.argtypes = [_VP] * 11 + [
-            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _INT, _VP]
+            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _INT, _INT, _VP]
         lib.repro_flash_attention_bwd_split.restype = _INT
         _BWD_LIB = lib
     return _BWD_LIB
@@ -97,10 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of the serve path.  ``window > 0``: query q sees keys ``q - window < k
     <= q`` only (JAX's sliding window); 0 is causal."""
     _check_qkv(q, k, v, "flash_attention")
-    if window < 0:
-        raise ValueError(f"flash_attention window {window}: expected >= 0 "
-                         "(0 is causal)")
     b, s, h, hd = q.shape
+    window = _window(window, s, "flash_attention")
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -125,6 +123,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+def _window(window: int, s: int, fn: str) -> int:
+    """The window as the kernels take it: 0 (causal) or 1 .. S; a window
+    of S or more masks no key of a real row, so it is passed as S."""
+    if window < 0:
+        raise ValueError(f"{fn} window {window}: expected >= 0 (0 is "
+                         "causal)")
+    return min(window, s)
+
+
 # The dK/dV kernel's key tile (csrc/flash_attention_bwd.cu, kMmaRows).
 BWD_KEY_TILE = 64
 
@@ -144,12 +151,13 @@ def bwd_splits(b: int, s: int, n_kv: int, group: int, sms: int) -> int:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
-                        lse: torch.Tensor, splits: Optional[int] = None):
+                        lse: torch.Tensor, splits: Optional[int] = None,
+                        window: int = 0):
     """The gradients of :func:`flash_attention`: q, o and do (B, S, H, hd);
     k/v (B, S, K, hd), one dtype on one card; lse (B, H, S) fp32 from the
-    forward -> ``(dq, dk, dv)``, dq in q's dtype and dk, dv in k's.
-    ``splits`` (bf16 only) overrides :func:`bwd_splits`'s choice; it must
-    divide H / K."""
+    forward of the same ``window`` (0 is causal) -> ``(dq, dk, dv)``, dq
+    in q's dtype and dk, dv in k's.  ``splits`` (bf16 only) overrides
+    :func:`bwd_splits`'s choice; it must divide H / K."""
     _check_qkv(q, k, v, "flash_attention_bwd")
     _check(o, "o", 4, (q.dtype,), q.device)
     _check(do, "do", 4, (q.dtype,), q.device)
@@ -160,6 +168,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention_bwd shapes do not match: q {tuple(q.shape)}, "
             f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
             f"{tuple(lse.shape)} (expected o, do like q, lse (B, H, S))")
+    window = _window(window, s, "flash_attention_bwd")
     n_kv = k.shape[2]
     bf16 = q.dtype == torch.bfloat16
     if splits is not None and (splits < 1 or (h // n_kv) % splits
@@ -189,7 +198,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             None if partial is None else partial.data_ptr(), b, s, h, n_kv,
-            hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), splits, stream)
+            hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), splits, window,
+            stream)
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -5,21 +5,23 @@ knob: a CUDA tensor goes to the CUDA kernel (which launches or raises),
 and a CPU tensor goes to the plain PyTorch version.  Nothing falls back
 from the card to the plain path.
 
-``lstm_cell``, ``chamfer``, ``gather_pool`` and ``flash_attention`` sit
-under gradients (every LSTM step of the learned models, the prefetch
-model's loss, the DLRM and LM training losses), so under autograd they are
+``lstm_cell``, ``chamfer``, ``gather_pool``, ``flash_attention`` and
+``selective_scan`` sit under gradients (every LSTM step of the learned
+models, the prefetch model's loss, the DLRM and LM training losses, the
+SSM and hybrid LMs' included), so under autograd they are
 ``torch.autograd.Function``s whose forward is the kernel (or the plain
 version on the CPU).  The backwards of ``lstm_cell``, ``chamfer`` and
 ``gather_pool`` are device-agnostic PyTorch on what the forward saved (the
 activated gates, the argmins, the ids: a scatter-add); the Pallas kernels
-have no backward either.  ``flash_attention``'s backward is a kernel of
-its own on the card (``flash_attention_bwd``, from the forward's
-log-sum-exp) and its plain version on the CPU.  Outside autograd (serving
-under ``torch.inference_mode()``) each op calls its kernel directly, and
-``flash_attention`` writes no log-sum-exp.  ``flash_attention`` with a
-sliding window and ``selective_scan`` (the mamba-1 scan, a kernel with no
-TPU counterpart) serve only: under autograd they raise (their backwards
-are ROADMAP A11c-3t).
+have no backward either.  ``flash_attention``'s backward, causal or in a
+sliding window, is a kernel of its own on the card
+(``flash_attention_bwd``, from the forward's log-sum-exp) and its plain
+version on the CPU; so is ``selective_scan``'s (the mamba-1 scan, a
+kernel with no TPU counterpart: ``selective_scan_bwd``, from the states
+the forward saved every 16 steps).  Outside autograd (serving under
+``torch.inference_mode()``) each op calls its kernel directly:
+``flash_attention`` writes no log-sum-exp and ``selective_scan`` saves
+no states.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from repro_torch.kernels import selective_scan as _ss
 # Every kernel wrapper of the port, each with its ``launches`` count.
 KERNELS = _eg.KERNELS + (_lc.lstm_cell, _ck.chamfer,
                          _fa.flash_attention, _fa.flash_attention_bwd,
-                         _ss.selective_scan)
+                         _ss.selective_scan, _ss.selective_scan_bwd)
 
 
 def reset_launches():
@@ -236,17 +238,20 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal attention (no window); the backward recomputes p from the
-    forward's log-sum-exp: ``flash_attention_bwd`` on the card, its plain
-    version on the CPU."""
+    """Causal attention, in a sliding ``window`` when it is above 0; the
+    backward recomputes p from the forward's log-sum-exp under the same
+    window: ``flash_attention_bwd`` on the card, its plain version on the
+    CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, window):
         if _on_cuda(q):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            o, lse = _fa.flash_attention(q, k, v, with_lse=True)
+            o, lse = _fa.flash_attention(q, k, v, with_lse=True,
+                                         window=window)
         else:
-            o, lse = ref.causal_attention_lse_ref(q, k, v)
+            o, lse = ref.causal_attention_lse_ref(q, k, v, window)
+        ctx.window = window
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -254,8 +259,12 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         if _on_cuda(q):
-            return _fa.flash_attention_bwd(q, k, v, o, do.contiguous(), lse)
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+            grads = _fa.flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                            window=ctx.window)
+        else:
+            grads = ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                ctx.window)
+        return (*grads, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -264,18 +273,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H, hd) causal attention in q's dtype (query head h reads KV head
     ``h // (H // K)``), scale ``1/sqrt(hd)``, any S; ``window > 0`` limits
     query q to keys ``q - window < k <= q`` (0 is causal).  Differentiable
-    in q, k and v without a window; with one, inputs that require grad
-    are refused (the backward kernel takes no window: ROADMAP A11c-3t)."""
+    in q, k and v, with or without a window."""
     if _requires_grad(q, k, v):
-        if window:
-            raise NotImplementedError(
-                "flash_attention with a sliding window has no backward yet "
-                "(ROADMAP A11c-3t): serve under torch.inference_mode()")
-        return _FlashAttention.apply(q, k, v)
+        return _FlashAttention.apply(q, k, v, window)
     if _on_cuda(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), window=window)
     return ref.causal_attention_ref(q, k, v, window)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The mamba-1 scan; the backward walks the recurrence in reverse:
+    ``selective_scan_bwd`` on the card, from the states the forward kernel
+    saved every 16 steps, and ``selective_scan_bwd_ref`` on the CPU.  An
+    output that the loss does not use (``h_last`` in training) gets a
+    gradient of zeros (autograd materialises it)."""
+
+    @staticmethod
+    def forward(ctx, xc, z, dt, a, bm, cm, d_skip, h0):
+        if _on_cuda(xc):
+            xc, z, dt, a, bm, cm, d_skip = (t.contiguous() for t in (
+                xc, z, dt, a, bm, cm, d_skip))
+            h0 = None if h0 is None else h0.contiguous()
+            y, h_last, states = _ss.selective_scan(
+                xc, z, dt, a, bm, cm, d_skip, h0, save_states=True)
+        else:
+            (y, h_last), states = ref.selective_scan_ref(
+                xc, z, dt, a, bm, cm, d_skip, h0), None
+        ctx.has_h0 = h0 is not None
+        ctx.save_for_backward(xc, z, dt, a, bm, cm, d_skip, h0, states)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        xc, z, dt, a, bm, cm, d_skip, h0, states = ctx.saved_tensors
+        if _on_cuda(xc):
+            grads = _ss.selective_scan_bwd(
+                xc, z, dt, a, bm, cm, d_skip, states, dy.contiguous(),
+                dh_last.contiguous())
+        else:
+            grads = ref.selective_scan_bwd_ref(xc, z, dt, a, bm, cm, d_skip,
+                                               h0, dy, dh_last)
+        return (*grads[:7], grads[7] if ctx.has_h0 else None)
 
 
 def selective_scan(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
@@ -284,14 +323,11 @@ def selective_scan(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
                    h0: Optional[torch.Tensor] = None):
     """The mamba-1 scan: xc, z (B, S, Di); dt (B, S, Di), a (Di, N), bm/cm
     (B, S, N), d_skip (Di,), h0 None or (B, Di, N), fp32 -> ``(y (B, S,
-    Di) in xc's dtype, h_last (B, Di, N) fp32)``.  Serving only: inputs
-    that require grad are refused (the scan's backward kernel is ROADMAP
-    A11c-3t)."""
+    Di) in xc's dtype, h_last (B, Di, N) fp32)``, differentiable in every
+    input.  Outside autograd (serving) the kernel saves no states."""
     if _requires_grad(xc, z, dt, a, bm, cm, d_skip,
                       *(() if h0 is None else (h0,))):
-        raise NotImplementedError(
-            "selective_scan has no backward yet (ROADMAP A11c-3t): serve "
-            "under torch.inference_mode()")
+        return _SelectiveScan.apply(xc, z, dt, a, bm, cm, d_skip, h0)
     if _on_cuda(xc):
         return _ss.selective_scan(
             xc.contiguous(), z.contiguous(), dt.contiguous(), a.contiguous(),

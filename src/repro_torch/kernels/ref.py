@@ -272,19 +272,21 @@ def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
-                            do: torch.Tensor, lse: torch.Tensor):
+                            do: torch.Tensor, lse: torch.Tensor,
+                            window: int = 0):
     """The plain attention backward: q, o, do (B, S, H, hd); k/v (B, S, K,
-    hd); lse (B, H, S) from the forward -> ``(dq, dk, dv)`` in q's and k's
-    dtypes.  With s the scaled scores, p = exp(s - lse) below the diagonal
-    and delta = sum_d do o: dV = p^T dO, dS = p (dO v^T - delta), dQ =
-    dS k * scale, dK = dS^T q * scale, dK and dV summed over the query
-    heads of a KV head.  Materialises (B, K, G, S, S) in the compute
-    dtype."""
+    hd); lse (B, H, S) from the forward of the same ``window`` (0 is
+    causal) -> ``(dq, dk, dv)`` in q's and k's dtypes.  With s the scaled
+    scores, p = exp(s - lse) where the forward lets a query see a key (0
+    elsewhere) and delta = sum_d do o: dV = p^T dO, dS = p (dO v^T -
+    delta), dQ = dS k * scale, dK = dS^T q * scale, dK and dV summed over
+    the query heads of a KV head.  Materialises (B, K, G, S, S) in the
+    compute dtype."""
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
     g = h // n_kv
     scale = 1.0 / math.sqrt(hd)
-    scores = _causal_scores(q, k)
+    scores = _causal_scores(q, k, window)
     ct = scores.dtype
     p = torch.exp(scores - lse.to(ct).reshape(b, n_kv, g, s, 1))
     qg, og, dog = (t.to(ct).reshape(b, s, n_kv, g, hd) for t in (q, o, do))
@@ -338,3 +340,59 @@ def selective_scan_ref(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
     y = torch.stack(ys, dim=1) if s else x.new_zeros((b, 0, di))
     y = (y + d_skip.to(ct) * x) * torch.nn.functional.silu(z.to(ct))
     return y.to(xc.dtype), h
+
+
+def selective_scan_bwd_ref(xc: torch.Tensor, z: torch.Tensor,
+                           dt: torch.Tensor, a: torch.Tensor,
+                           bm: torch.Tensor, cm: torch.Tensor,
+                           d_skip: torch.Tensor,
+                           h0: Optional[torch.Tensor], dy: torch.Tensor,
+                           dh_last: Optional[torch.Tensor] = None):
+    """The gradients of :func:`selective_scan_ref`, the reverse recurrence
+    written out step by step (not autograd): its inputs, dy (B, S, Di) and
+    dh_last None (zeros) or (B, Di, N) -> ``(dx, dz, ddt, da, dbm, dcm, dd,
+    dh0)``, dx and dz in xc's dtype, the rest in the compute dtype (fp32;
+    fp64 for fp64 inputs).  With g = silu(z), r_t = h_t . cm_t + d_skip
+    x_t and e_t = dy_t g_t, from t = S-1 down to 0: ``dh_t = e_t cm_t +
+    exp(dt_{t+1} a) dh_{t+1}`` (dh_last past the end), ``ddt_t = sum_n
+    dh_t (a exp(dt_t a) h_{t-1} + x_t bm_t)``, ``da += dh_t dt_t exp(dt_t
+    a) h_{t-1}``, ``dx_t = e_t d_skip + sum_n dh_t dt_t bm_t``, ``dbm_t =
+    sum_d dh_t dt_t x_t``, ``dcm_t = sum_d h_t e_t``, ``dz_t = dy_t r_t
+    silu'(z_t)``, ``dd = sum e_t x_t`` and ``dh0 = exp(dt_0 a) dh_0``.
+    The states come from the forward recurrence, kept for every step
+    ((B, S + 1, Di, N) in the compute dtype)."""
+    b, s, di = xc.shape
+    ct = _compute_dtype(dt)
+    x, zc, dtc, a = xc.to(ct), z.to(ct), dt.to(ct), a.to(ct)
+    bm, cm, dsk, dyc = bm.to(ct), cm.to(ct), d_skip.to(ct), dy.to(ct)
+    n = a.shape[1]
+    h = (torch.zeros((b, di, n), dtype=ct, device=xc.device)
+         if h0 is None else h0.to(ct))
+    hs = [h]
+    for t in range(s):
+        h = torch.exp(dtc[:, t, :, None] * a) * h \
+            + (dtc[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)
+    sig = torch.sigmoid(zc)
+    e = dyc * zc * sig
+    r = torch.einsum("btdn,btn->btd", hs[:, 1:], cm) + dsk * x
+    dz = dyc * r * sig * (1.0 + zc * (1.0 - sig))
+    dd = (e * x).sum(dim=(0, 1))
+    dcm = torch.einsum("btdn,btd->btn", hs[:, 1:], e)
+    dx = e * dsk
+    ddt = torch.zeros_like(dtc)
+    dbm = torch.zeros_like(bm)
+    da = torch.zeros_like(a)
+    carry = (torch.zeros((b, di, n), dtype=ct, device=xc.device)
+             if dh_last is None else dh_last.to(ct))
+    for t in range(s - 1, -1, -1):
+        dh = e[:, t, :, None] * cm[:, t, None, :] + carry
+        ea = torch.exp(dtc[:, t, :, None] * a)
+        w = dh * ea * hs[:, t]
+        ddt[:, t] = (w * a + dh * x[:, t, :, None] * bm[:, t, None, :]).sum(-1)
+        da += (w * dtc[:, t, :, None]).sum(0)
+        dx[:, t] += (dh * bm[:, t, None, :]).sum(-1) * dtc[:, t]
+        dbm[:, t] = (dh * (dtc[:, t] * x[:, t])[..., None]).sum(1)
+        carry = ea * dh
+    return (dx.to(xc.dtype), dz.to(xc.dtype), ddt, da, dbm, dcm, dd, carry)

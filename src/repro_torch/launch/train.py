@@ -22,10 +22,10 @@ checkpoint and runs on to ``--steps``, whose value also sets the schedule
 Not ported: ``--model-parallel > 1`` and ``--grad-compression int8_ef``
 (they need several cards: ROADMAP A10b).  Like JAX's launcher this one
 feeds LM data only (tokens and labels), so ``--arch`` is an LM the port
-builds: dense, MoE (its loss adds the load-balance term) or the VLM (its
-text alone, no frontend, as in JAX); DLRM is refused, the SSM and hybrid
-LMs serve only (their training is ROADMAP A11c-3t), and the
-encoder-decoder LM is not ported (ROADMAP A11c-5).  The optimizer is
+builds: dense, MoE (its loss adds the load-balance term), the VLM (its
+text alone, no frontend, as in JAX), the SSM LM or the hybrid LM
+(falcon-mamba-7b, hymba-1.5b); DLRM is refused, and the encoder-decoder
+LM is not ported (ROADMAP A11c-5).  The optimizer is
 ``OptConfig(lr, total_steps)`` with JAX's defaults (fp32 moments, no
 master copy): JAX's launcher has no flag for either knob.
 """
@@ -93,7 +93,10 @@ def run_step(step_fn, params, opt, batch, **retry_kw):
     raise err
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """The launcher over ``argv``; a Python caller may pass ``cfg``, a
+    ``ModelConfig`` that stands in for ``--arch``'s (a depth cut, say),
+    which the command line cannot name."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true",
@@ -121,16 +124,12 @@ def main(argv=None):
         raise NotImplementedError(
             f"--grad-compression {args.grad_compression} compresses a "
             "data-parallel all-reduce across cards (ROADMAP A10b)")
-    cfg = get_config(args.arch)
+    if cfg is None:
+        cfg = get_config(args.arch)
     if cfg.family == "dlrm":
         raise NotImplementedError(
-            f"--arch {args.arch}: the launcher feeds LM data only, as JAX's "
+            f"--arch {cfg.name}: the launcher feeds LM data only, as JAX's "
             "does (DLRM trains through make_train_step)")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"--arch {args.arch}: the {cfg.family} family serves only; "
-            "training it needs the selective scan's backward and the "
-            "windowed attention's (ROADMAP A11c-3t)")
     if args.reduced:
         cfg = cfg.reduced()
     run = RunConfig(remat=args.remat)

@@ -30,8 +30,11 @@ ported: ``kv_stream_attention``, the sequence-parallel branch of
 card (``kernels/ref.py::selective_scan_ref`` on the CPU): a sequential
 recurrence over S in fp32, which needs no padding to whole
 ``ssm_chunk`` chunks (JAX pads with identity steps and associates within
-chunks; the two agree within rounding).  It serves only: training the SSM
-and hybrid families is ROADMAP A11c-3t.
+chunks; the two agree within rounding).  Under autograd its backward is
+the port's ``selective_scan_bwd`` kernel on the card (the plain
+``selective_scan_bwd_ref`` on the CPU), and the windowed attention's is
+``flash_attention_bwd`` with the window, so the SSM and hybrid families
+train as the others do.
 
 Products whose JAX einsum asks for ``preferred_element_type=float32`` are
 taken on fp32 copies of their inputs (a bf16 product is exact in fp32), so

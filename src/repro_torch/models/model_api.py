@@ -7,8 +7,7 @@ built with ``device="cpu"``.  Ported families: the LMs ``dense``, ``moe``,
 ``vlm``, ``ssm`` and ``hybrid`` (``init``, ``loss`` = ``lm_loss`` under the
 bundle's ``RunConfig``, ``prefill``, ``decode``; ``loss`` and ``prefill``
 pass the batch's ``"frontend"``, when it has one, as the VLM's frontend
-embeddings; the SSM and hybrid families serve only, so their ``loss``
-raises naming ROADMAP A11c-3t) and ``dlrm`` (``init``, ``loss`` =
+embeddings) and ``dlrm`` (``init``, ``loss`` =
 ``dlrm_loss``, ``prefill`` = the forward).  The encoder-decoder family
 raises ``NotImplementedError`` naming ROADMAP A11c-5.  ``n_params`` and
 ``n_active_params`` count from the config without allocating, and
@@ -146,7 +145,6 @@ def build(cfg: ModelConfig, device="cuda",
         return None if fe is None else _on(fe, dev)
 
     def loss(params, batch):
-        T._check_trainable(cfg)
         dev = resolve_device(device)
         return T.lm_loss(params, cfg, run,
                          _on(batch["tokens"], dev, torch.int64),

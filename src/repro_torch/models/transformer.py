@@ -15,10 +15,9 @@ same normed input and their outputs are averaged);
 (:133-231); ``init_cache``, ``prefill``, ``decode_step``,
 ``decode_step_embeds`` and ``_decode_from`` (:234-314).
 ``constrain_batch`` is a no-op without a mesh and is dropped.  Not ported:
-the MoE's data-local dispatch (a mesh: A10b).  The SSM and hybrid
-families serve only: ``lm_loss`` and ``backbone`` refuse them (their
-backwards, of the scan and of the windowed attention, are ROADMAP
-A11c-3t).
+the MoE's data-local dispatch (a mesh: A10b).  Every family trains: the
+SSM and hybrid LMs' gradients go through the scan's backward kernel
+and, for the hybrid, the windowed attention's.
 
 ``remat="full"`` runs each layer under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
@@ -70,14 +69,6 @@ def _check_family(cfg: ModelConfig):
         raise NotImplementedError(
             f"family {cfg.family!r}: the port's LMs are {FAMILIES} "
             "(encoder-decoder: ROADMAP A11c-5)")
-
-
-def _check_trainable(cfg: ModelConfig):
-    if cfg.family in SSM_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} serves only: training it needs the "
-            "selective scan's backward and the windowed attention's "
-            "(ROADMAP A11c-3t)")
 
 
 def _params(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -293,8 +284,7 @@ def backbone(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     """The layers, each recomputed in the backward under ``remat="full"``,
     then the final norm: x (B, S, D) -> ``(x (B, S, D), aux)``, aux the
     layers' summed load-balance losses over ``n_layers`` (fp32, 0 for a
-    dense model).  The SSM and hybrid families raise (ROADMAP A11c-3t)."""
-    _check_trainable(cfg)
+    dense model)."""
 
     def layer(blk, x_):
         x_, aux_, _ = _layer_forward(blk, cfg, x_, positions)
@@ -326,8 +316,7 @@ def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     masked; ``frontend_embeds`` as :func:`_embed` takes them.  The logits
     and their cross-entropy go chunk by chunk of ``run.logits_chunk``
     positions when it divides S (and is below it), as JAX's ``lax.scan``
-    over chunks does.  An MoE adds ``0.01 * aux``.  The SSM and hybrid
-    families raise, in :func:`backbone` (ROADMAP A11c-3t)."""
+    over chunks does.  An MoE adds ``0.01 * aux``."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
     x, aux = backbone(model, cfg, run,

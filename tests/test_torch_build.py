@@ -68,3 +68,25 @@ def test_chip_smoke_reads_the_scans_kernels_by_dtype_and_state_size():
         "selective_scan_kernel<float,8>": {
             "spill_store_bytes": 4, "spill_load_bytes": 4, "registers": 72},
     }
+
+
+# The forward's two instantiations for one dtype and state size, serving
+# (kSave false) and training (true): a bool template argument mangles as
+# Lb0E / Lb1E, and the two must not fold into one entry.
+SCAN_SAVE_REPORT = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__74da2e5e_17_selective_scan_cu_12829b1b21selective_scan_kernelI13__nv_bfloat16Li16ELb0EEEvPKT_S4_PKfS6_S6_S6_S6_S6_PS2_Pfiib' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 13312 bytes smem
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__74da2e5e_17_selective_scan_cu_12829b1b21selective_scan_kernelI13__nv_bfloat16Li16ELb1EEEvPKT_S4_PKfS6_S6_S6_S6_S6_PS2_S6_iib' for 'sm_90a'
+    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 13312 bytes smem
+"""
+
+
+def test_chip_smoke_tells_the_scans_serve_and_train_kernels_apart():
+    assert chip_smoke.ptxas_kernels(SCAN_SAVE_REPORT) == {
+        "selective_scan_kernel<bf16,16,0>": {
+            "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 80},
+        "selective_scan_kernel<bf16,16,1>": {
+            "spill_store_bytes": 8, "spill_load_bytes": 8, "registers": 80},
+    }

@@ -17,8 +17,13 @@ inline engine's counters and stored bytes exactly, and the degraded read
 CPU's bit for bit.  Training: ``flash_attention_bwd`` against the plain
 backward within 1e-5 (fp32) and 2e-2 (bf16, the bound bf16 LM parity uses)
 of each gradient's largest magnitude, also across the bf16 kernels' tile
-edges and with the query heads split over blocks, and bit-equal over two
-calls (no atomics); the forward's output bits do not
+edges, with the query heads split over blocks and in a sliding window (a
+window of S or more gives the causal bits), and bit-equal over two calls
+(no atomics); ``selective_scan_bwd`` against the plain reverse recurrence
+within 1e-4 of each gradient's largest magnitude (bf16 dx, dz 1e-2), also
+where exp(dt a) flushes to 0, and bit-equal over two calls; the reduced
+SSM and hybrid LMs' gradients on the card within 1e-4 of the CPU's; the
+forward's output bits do not
 change when it also writes the log-sum-exp; ``gather_pool``'s table
 gradient on the card within 1e-5 of its largest magnitude of the CPU's
 (the card's scatter-adds use atomics, so the order of summation differs;
@@ -635,12 +640,14 @@ FLASH_BWD_BF16_EDGES = [(1, s, 2 * g, 2, hd) for hd in (64, 128)
                         for g in (1, 8)]
 
 
-def _assert_bwd_close(dt, got, want):
+def _assert_bwd_close(dt, got, want, floor=0.0):
+    """Each gradient within the tolerance of max(its largest magnitude,
+    ``floor``)."""
     tol = 1e-5 if dt == "fp32" else 2e-2
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         err = float((g.float() - w.float()).abs().max())
-        scale = float(w.float().abs().max())
+        scale = max(float(w.float().abs().max()), floor)
         assert err <= tol * scale, f"{name}: {err} > {tol} * {scale}"
 
 
@@ -1244,22 +1251,146 @@ def test_selective_scan_takes_views_off_16_byte_boundaries(dev):
                        ref.selective_scan_ref(xc, z, dt, a, bm, cm, d_skip))
 
 
-def test_selective_scan_refuses_what_it_cannot_serve(dev):
+def test_selective_scan_trains_and_refuses_what_it_cannot_take(dev):
+    """Under autograd the op launches the forward (saving states) and, in
+    the backward, selective_scan_bwd; serving launches the forward alone;
+    state sizes and shapes the kernels do not take raise."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
 
-    ins = _scan_inputs(dev, "fp32", 1, 8, 32, 16, seed=2)
-    grad_ins = [t.clone().requires_grad_() if t is not None else None
-                for t in ins]
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        ops.selective_scan(*grad_ins)
+    ins = _scan_inputs(dev, "fp32", 1, 8, 32, 16, seed=2, with_h0=True)
+    grad_ins = [t.clone().requires_grad_() for t in ins]
+    n_f, n_b = ss.selective_scan.launches, ss.selective_scan_bwd.launches
+    y, h = ops.selective_scan(*grad_ins)
+    grads = torch.autograd.grad(y.sum() + h.sum(), grad_ins)
+    torch.cuda.synchronize()
+    assert (ss.selective_scan.launches, ss.selective_scan_bwd.launches) == (
+        n_f + 1, n_b + 1)
+    assert all(torch.isfinite(g).all() for g in grads)
     with torch.inference_mode():
         assert ops.selective_scan(*grad_ins)[0].shape == ins[0].shape
+    assert ss.selective_scan_bwd.launches == n_b + 1
     with pytest.raises(ValueError, match="state size"):
         bad = _scan_inputs(dev, "fp32", 1, 8, 32, 12, seed=2)
         ss.selective_scan(*bad)
     with pytest.raises(ValueError, match="shapes"):
         ss.selective_scan(ins[0], ins[1][:, :4], *ins[2:])
+    _, _, states = ss.selective_scan(*ins, save_states=True)
+    dy = torch.ones_like(ins[0])
+    with pytest.raises(ValueError, match="shapes"):
+        ss.selective_scan_bwd(*ins[:7], states[:, :, :16], dy)
+    with pytest.raises(ValueError, match="state size"):
+        bad = _scan_inputs(dev, "fp32", 1, 8, 32, 12, seed=2)
+        ss.selective_scan_bwd(*bad[:7], states, dy)
+
+
+# The scan's backward: its plain version's names, and the shapes of
+# SCAN_SHAPES plus S = 16 (one whole tile of saved states), S = 15 and 33
+# (a ragged last tile) and one Di past a 64-channel block.
+SCAN_GRADS = ("dx", "dz", "ddt", "da", "dbm", "dcm", "dd", "dh0")
+SCAN_BWD_SHAPES = SCAN_SHAPES + [(2, 16, 64, 16), (1, 15, 130, 8),
+                                 (3, 33, 65, 16)]
+
+
+def _scan_bwd_case(dev, dt_name, b, s, di, n, seed, with_h0, with_dh):
+    """The scan's inputs (dt = 0 every fifth step), the forward's saved
+    states, dy and dh_last."""
+    from repro_torch.kernels import selective_scan as ss
+
+    ins = list(_scan_inputs(dev, dt_name, b, s, di, n, seed,
+                            with_h0=with_h0))
+    ins[2][:, ::5] = 0.0
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.normal(size=(b, s, di)).astype(
+        np.float32)).to(DTYPES[dt_name]).to(dev)
+    dh = (torch.from_numpy(rng.normal(size=(b, di, n)).astype(
+        np.float32)).to(dev) if with_dh else None)
+    y, h, states = ss.selective_scan(*ins, save_states=True)
+    wy, wh = ss.selective_scan(*ins)
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    assert states.shape == (b, -(-s // 16), di, n)
+    return ins, states, dy, dh
+
+
+def _assert_scan_grads_close(dt_name, got, want):
+    """Each gradient within 1e-4 of its largest magnitude (exps by
+    ex2.approx through the reverse recurrence and sums over channels, rows
+    and steps in another order); dx and dz at bf16 within 1e-2 (one bf16
+    rounding)."""
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = 1e-2 if dt_name == "bf16" and name in ("dx", "dz") else 1e-4
+        err = float((g.float() - w.float()).abs().max())
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert err <= tol * scale, f"{name}: {err} > {tol} * {scale}"
+
+
+@pytest.mark.parametrize("with_h0,with_dh", [(False, False), (True, True)])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_bwd_matches_plain(dev, dt, shape, with_h0, with_dh):
+    from repro_torch.kernels import selective_scan as ss
+
+    ins, states, dy, dh = _scan_bwd_case(dev, dt, *shape, seed=sum(shape),
+                                         with_h0=with_h0, with_dh=with_dh)
+    h0 = ins[7]
+    n0 = ss.selective_scan_bwd.launches
+    got = ss.selective_scan_bwd(*ins[:7], states, dy, dh)
+    torch.cuda.synchronize()
+    assert ss.selective_scan_bwd.launches == n0 + 1
+    _assert_scan_grads_close(dt, got, ref.selective_scan_bwd_ref(
+        *ins[:7], h0, dy, dh))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_bwd_gives_the_same_bits_every_call(dev, dt):
+    """No atomics: two calls give bit-equal gradients (a resumed training
+    run repeats the uninterrupted run's losses)."""
+    from repro_torch.kernels import selective_scan as ss
+
+    ins, states, dy, dh = _scan_bwd_case(dev, dt, 2, 300, 3200, 16, seed=3,
+                                         with_h0=True, with_dh=True)
+    first = ss.selective_scan_bwd(*ins[:7], states, dy, dh)
+    second = ss.selective_scan_bwd(*ins[:7], states, dy, dh)
+    torch.cuda.synchronize()
+    for name, a, b in zip(SCAN_GRADS, first, second):
+        assert torch.equal(a, b), name
+
+
+def test_selective_scan_libraries_agree_on_the_saved_state_layout(dev):
+    """The forward's chunk between saved states is the backward's, both
+    read from the compiled libraries; the states a forward saves are the
+    shape the backward takes."""
+    from repro_torch.kernels import selective_scan as ss
+
+    ss._bwd_lib()
+    assert ss._BWD_LAYOUT["chunk"] == ss.state_chunk()
+    assert ss._BWD_LAYOUT["channels"] >= 1
+    ins = _scan_inputs(dev, "fp32", 1, 37, 64, 8, seed=4, with_h0=False)
+    _, _, states = ss.selective_scan(*ins[:7], save_states=True)
+    assert states.shape == (1, ss.n_chunks(37), 64, 8)
+    assert ss.n_chunks(37) == -(-37 // ss.state_chunk())
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_bwd_where_the_state_decays_away(dev, dt):
+    """dt up to 20 from a large h0: exp(dt a) flushes to 0 on the SFU; the
+    backward, which never inverts the recurrence, still agrees."""
+    from repro_torch.kernels import selective_scan as ss
+
+    xc, z, _, a, bm, cm, d_skip, h0 = _scan_inputs(dev, dt, 2, 40, 96, 16,
+                                                   seed=13, with_h0=True)
+    rng = np.random.default_rng(15)
+    big = torch.from_numpy(rng.uniform(0.0, 20.0, (2, 40, 96)).astype(
+        np.float32)).to(dev)
+    ins = (xc, z, big, a, bm, cm, d_skip)
+    _, _, states = ss.selective_scan(*ins, 1e3 * h0, save_states=True)
+    dy = torch.ones_like(xc)
+    got = ss.selective_scan_bwd(*ins, states, dy)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in got)
+    _assert_scan_grads_close(dt, got, ref.selective_scan_bwd_ref(
+        *ins, 1e3 * h0, dy))
 
 
 # (B, S, H, K, hd, window): windows below one KV tile, at and one past it,
@@ -1313,18 +1444,89 @@ def test_flash_attention_window_at_or_above_s_gives_the_causal_bits(
         assert torch.equal(o, causal_o) and torch.equal(lse, causal_lse)
 
 
-def test_windowed_flash_attention_refuses_grad_inputs(dev):
+def test_windowed_flash_attention_trains(dev):
+    """Under autograd the windowed op launches the forward with its
+    log-sum-exp and, in the backward, flash_attention_bwd with the window:
+    the gradients equal the kernel's called directly; a negative window
+    raises in both."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
-    q = torch.zeros((1, 8, 4, 16), device=dev, requires_grad=True)
-    kv = torch.zeros((1, 8, 2, 16), device=dev)
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        ops.flash_attention(q, kv, kv, window=4)
+    q, k, v, do = _attn_inputs(dev, "bf16", 1, 40, 4, 2, 16, seed=8)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    o = ops.flash_attention(*leaves, window=4)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (n_f + 1, n_b + 1)
+    o2, lse = fa.flash_attention(q, k, v, with_lse=True, window=4)
+    assert torch.equal(o.detach(), o2)
+    for a, b in zip(got, fa.flash_attention_bwd(q, k, v, o2, do, lse,
+                                                window=4)):
+        assert torch.equal(a, b)
     with torch.inference_mode():
-        assert ops.flash_attention(q, kv, kv, window=4).shape == q.shape
+        assert ops.flash_attention(*leaves, window=4).shape == q.shape
     with pytest.raises(ValueError, match="window"):
-        fa.flash_attention(q.detach(), kv, kv, window=-1)
+        fa.flash_attention(q, k, v, window=-1)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_bwd(q, k, v, o2, do, lse, window=-1)
+
+
+@pytest.mark.parametrize("shape", FLASH_WINDOW_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_window_matches_plain(dev, dt, shape):
+    """Within the tolerance of max(1, the gradient's largest magnitude), as
+    the CPU tests hold the backward to JAX's: at window 1 a query sees only
+    its own key, p = 1, and dq and dk are 0 up to rounding."""
+    from repro_torch.kernels import flash_attention as fa
+
+    *dims, window = shape
+    q, k, v, do = _attn_inputs(dev, dt, *dims, seed=sum(shape) + 1)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, window=window)
+    n0 = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n0 + 1
+    _assert_bwd_close(dt, got, ref.flash_attention_bwd_ref(
+        q, k, v, o, do, lse, window), floor=1.0)
+    if dt == "bf16":
+        # Both dK/dV grids: the query heads split over blocks.
+        group = dims[2] // dims[3]
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, splits=group,
+                                     window=window)
+        _assert_bwd_close(dt, got, ref.flash_attention_bwd_ref(
+            q, k, v, o, do, lse, window), floor=1.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 9, 3, 64), (1, 300, 25, 5, 64),
+                                   (1, 200, 16, 2, 128)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_window_at_or_above_s_gives_the_causal_bits(
+        dev, dt, shape):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, dt, *shape, seed=4)
+    s = shape[1]
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    causal = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    for window in (s, s + 5, 10 ** 12):
+        for a, b in zip(fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                               window=window), causal):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_window_gives_the_same_bits_every_call(dev, dt):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, dt, 2, 1000, 25, 5, 64, seed=6)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, window=100)
+    first = fa.flash_attention_bwd(q, k, v, o, do, lse, window=100)
+    second = fa.flash_attention_bwd(q, k, v, o, do, lse, window=100)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
@@ -1363,3 +1565,43 @@ def test_ssm_and_hybrid_prefill_and_decode_on_card_match_cpu(dev, arch,
         cfg.n_layers if cfg.family == "hybrid" else 0)
     assert torch.isfinite(out["card"]).all()
     torch.testing.assert_close(out["card"], out["cpu"], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_and_hybrid_grads_on_card_match_cpu(dev, arch):
+    """The reduced SSM and hybrid LMs in fp32 (hymba's window cut to 8, S =
+    24) from the same parameters on both devices: the loss within rtol
+    1e-5 and every gradient within 1e-4 of its largest magnitude; the card
+    runs selective_scan_bwd (and the windowed flash_attention_bwd) once a
+    layer."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models.transformer import init_lm, lm_loss
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), window=8)
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                       dim=1)
+    cpu = init_lm(cfg, seed=0, device="cpu").requires_grad_(True)
+    card = copy.deepcopy(cpu).to(dev)
+    n_ss, n_fa = ss.selective_scan_bwd.launches, \
+        fa.flash_attention_bwd.launches
+    res = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        d = next(model.parameters()).device
+        loss = lm_loss(model, cfg, RunConfig(remat="full"), tokens.to(d),
+                       labels.to(d))
+        res[name] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, list(model.parameters()))])
+    assert ss.selective_scan_bwd.launches == n_ss + cfg.n_layers
+    assert fa.flash_attention_bwd.launches == n_fa + (
+        cfg.n_layers if cfg.family == "hybrid" else 0)
+    np.testing.assert_allclose(res["card"][0], res["cpu"][0], rtol=1e-5)
+    for (name, _), g, w in zip(cpu.named_parameters(), res["card"][1],
+                               res["cpu"][1]):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * max(float(w.abs().max()), 1e-30), name

@@ -27,11 +27,10 @@ from repro.core.tiered import TieredEmbeddingStore as JaxStore
 from repro.models import layers as JL
 from repro.models import model_api as JMA
 from repro.models import transformer as JT
-from repro_torch.configs import RunConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tiered import TieredEmbeddingStore
 from repro_torch.kernels import ops, ref
-from repro_torch.launch import train as train_cli
 from repro_torch.launch.serve_lm import STORE_KEYS, main, serve_lm_tiered
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -610,58 +609,3 @@ def test_serve_lm_cli_serves_the_ssm_and_hybrid_on_the_cpu(arch, capsys):
     assert "decoded 6 steps x 8 streams" in out
     assert res["lookups"] == 48 and res["tokens"].shape == (6, 8)
     assert np.isfinite(res["prefill_ms"])
-
-
-# ---------------------------------------------------------------------------
-# Training is refused (ROADMAP A11c-3t)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_lm_loss_refuses_the_ssm_and_hybrid_families(arch):
-    cfg, _, _, model = _both(arch)
-    tokens = torch.from_numpy(_tokens(cfg, (1, 8), 19))
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        T.lm_loss(model, cfg, RunConfig(remat="none"), tokens, tokens)
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        T.backbone(model, cfg, RunConfig(remat="none"),
-                   torch.zeros((1, 8, cfg.d_model)),
-                   torch.arange(8)[None, :])
-
-
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_build_loss_refuses_the_ssm_and_hybrid_families(arch, device):
-    """On every device, before any device is resolved."""
-    cfg, _ = _cfgs(arch)
-    tokens = _tokens(cfg, (1, 8), 20)
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        build(cfg, device=device).loss(None, {"tokens": tokens,
-                                              "labels": tokens})
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_launcher_refuses_the_ssm_and_hybrid_families(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--steps", "1", "--seq-len", "8", "--batch", "1",
-                        "--ckpt", str(tmp_path / "ck")])
-    assert not (tmp_path / "ck").exists()
-
-
-def test_the_scan_and_the_windowed_attention_refuse_grad_inputs():
-    _, _, _, p = _scan_params()
-    xc = torch.zeros((1, 4, 64), requires_grad=True)
-    ins = (xc, torch.zeros((1, 4, 64)), torch.zeros((1, 4, 64)),
-           -torch.exp(p["A_log"]), torch.zeros((1, 4, 8)),
-           torch.zeros((1, 4, 8)), p["D_skip"])
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        ops.selective_scan(*ins)
-    with torch.no_grad():
-        assert ops.selective_scan(*ins)[0].shape == (1, 4, 64)
-    q = torch.zeros((1, 6, 4, 16), requires_grad=True)
-    kv = torch.zeros((1, 6, 2, 16))
-    with pytest.raises(NotImplementedError, match="A11c-3t"):
-        ops.flash_attention(q, kv, kv, window=2)
-    # Without a window the attention still trains.
-    assert ops.flash_attention(q, kv, kv).grad_fn is not None
