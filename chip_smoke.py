@@ -207,8 +207,10 @@ launcher with their depth cut):
     an h0 and a dh_last with dt = 0 every seventh step: every gradient
     within 1e-4 of its largest magnitude (bf16 dx, dz 1e-2), two calls
     bit-equal, the forward's bits unchanged by saving its states; each
-    timed beside its byte bound, its SFU floor and the plain version, with
-    its registers and spills;
+    timed beside its byte bound, its SFU floors (the function's N + 2 and
+    the kernel's 2 N + 2 a (b, t, d)), its design bytes (the saved states
+    and the per-block partials) and the plain version, with its launch
+    geometry, registers and spills;
 21. scan share (run after phase 20): one falcon-mamba-7b prefill layer
     (B=8 x 2,048, bf16) with the plain scan and with the kernel, and the
     kernel alone on the same inputs, under ``torch.profiler`` and between
@@ -427,15 +429,22 @@ SCAN_BWD_SHAPES = tuple((name, 4, 4096, di, 16, dt)
                         for name, di in (("falcon_train", 8192),
                                          ("hymba_train", 3200))
                         for dt in ("bf16", "fp32"))
-SCAN_BWD_DESIGN = ("one thread per (batch, channel), 64-channel blocks; "
-                   "the forward saves the state entering every 16 steps, "
-                   "the backward walks those tiles in reverse, recomputing "
-                   "a tile's h_{t-1} into shared memory with the forward's "
-                   "ex2.approx arithmetic, then the reverse recurrence in "
-                   "registers; dB, dC by a warp shuffle reduce-scatter and "
-                   "the block's 2 warps in order into per-block partials, "
-                   "da, dD per batch row, summed by torch.sum: no atomics; "
-                   "2 N + 2 SFU operations a (b, t, d)")
+SCAN_BWD_DESIGN = ("a channel's N states over N / 4 lanes, 4 a lane; "
+                   "64-channel blocks of 64 N / 4 threads (8 warps at "
+                   "N = 16), at most 128 registers, 2 blocks an SM; the "
+                   "forward saves the state entering every 16 steps, the "
+                   "backward walks those tiles in reverse, recomputing a "
+                   "tile's 16 states into registers (both passes unrolled) "
+                   "with the forward's ex2.approx arithmetic; sums over n "
+                   "by a group reduce-scatter over 4 (2) steps, the gate, "
+                   "dz, dx, ddt once per (b, t, d); dB, dC by a 7-shuffle "
+                   "reduce-scatter over a warp's channels and the block's "
+                   "warps in order into per-block partials, da, dD per "
+                   "batch row, summed by torch.sum: no atomics; x, z, dy, "
+                   "dt, B, C and the states staged by 16-byte cp.async, "
+                   "double-buffered, dx, dz, ddt out through shared "
+                   "memory; 2 N + 2 SFU operations a (b, t, d)")
+
 LSTM_DESIGN = ("fp32 FMAs; blocks tile (16-64 rows) x (8 units, 4 gates "
                "each); rows and the block's W slice staged by 16-byte "
                "cp.async; a thread holds 4 rows x 4 gates, 3.2 FMAs a "
@@ -458,7 +467,8 @@ REDESIGNED = {"flash_attention": FLASH_DESIGN["bf16"],
               "lstm_cell": LSTM_DESIGN,
               "quantize_scatter": QUANT_DESIGN,
               "chamfer": CHAMFER_DESIGN,
-              "selective_scan": SCAN_DESIGN}
+              "selective_scan": SCAN_DESIGN,
+              "selective_scan_bwd": SCAN_BWD_DESIGN}
 # Why no single PyTorch call stands beside a quantized kernel.
 NO_LIBRARY = {
     "quantize_scatter": "no PyTorch call quantizes rows per row and "
@@ -2328,6 +2338,15 @@ def scan_bwd_state_bytes(b, s, di, n):
     return 4 * ss.n_chunks(s) * b * di * n
 
 
+def scan_bwd_partial_bytes(b, s, di, n, channels):
+    """The bytes of the backward's per-block partials, each written by the
+    kernel and read by the wrapper's sum (fp32): dB and dC (ceil(Di /
+    channels), B, S, 2 N), da (B, Di, N) and dD (B, Di).  The design's,
+    outside the bound."""
+    return 2 * 4 * (-(-di // channels) * b * s * 2 * n + b * di * n
+                    + b * di)
+
+
 SCAN_BWD_NAMES = ("dx", "dz", "ddt", "da", "dbm", "dcm", "dd", "dh0")
 
 
@@ -2342,7 +2361,7 @@ def phase_scan_bwd_kernels(timer, ptxas):
     its SFU floor as the forward's is reckoned (N + 2 a (b, t, d); the
     kernel takes N more to recompute the states) and the plain version,
     with its registers and spills (no PyTorch call computes the scan's
-    backward).  The plain version is timed on its one call (~1.5 s, some
+    backward), with its launch geometry from the occupancy calculator.  The plain version is timed on its one call (~1.5 s, some
     50,000 launches).  Returns the record of falcon's bf16 shape."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = sm_clock_max_mhz()
@@ -2395,6 +2414,12 @@ def phase_scan_bwd_kernels(timer, ptxas):
                         f"{'bf16' if dt_name == 'bf16' else 'float'},{n}>",
                         {})
         sfu_ops = (n + 2) * b * s * di
+        # The kernel's own: N exponentials to recompute the tile's states,
+        # N to walk them back, and the gate's two once per (b, t, d) (the
+        # lane that owns the step computes its gate).
+        kernel_sfu_ops = (2 * n + 2) * b * s * di
+        geo = ss.bwd_geometry(n, dt)
+        blocks = -(-di // geo["channels"]) * b
         rec = {"phase": "kernel", "name": "selective_scan_bwd",
                "shape": name, "dtype": dt_name, "B": b, "S": s, "Di": di,
                "N": n, "max_abs_err": max(errs.values()),
@@ -2404,6 +2429,13 @@ def phase_scan_bwd_kernels(timer, ptxas):
                "forward_bits_equal_with_states": True,
                "dt_zero_every": 7, "h0_and_dh_last_given": True,
                "design": SCAN_BWD_DESIGN,
+               "threads_per_block": geo["threads"],
+               "channels_per_block": geo["channels"], "blocks": blocks,
+               "blocks_per_sm": blocks / n_sm,
+               "max_blocks_per_sm": geo["blocks_per_sm"],
+               "waves": blocks / (n_sm * geo["blocks_per_sm"]),
+               "warps_per_sm": min(blocks / n_sm, geo["blocks_per_sm"])
+               * geo["threads"] / 32,
                "registers": ptx.get("registers"),
                "spill_store_bytes": ptx.get("spill_store_bytes"),
                "spill_load_bytes": ptx.get("spill_load_bytes"),
@@ -2416,17 +2448,26 @@ def phase_scan_bwd_kernels(timer, ptxas):
                "library_ms": None,
                "library": "none: no PyTorch call computes a selective "
                           "scan's backward",
-               "sfu_ops": sfu_ops, "kernel_sfu_ops": (2 * n + 2) * b * s * di,
+               "sfu_ops": sfu_ops, "kernel_sfu_ops": kernel_sfu_ops,
                "sm_clock_max_mhz": mhz,
                "sfu_floor_ms": sfu_ops / (SFU_OPS_PER_SM_CLOCK * n_sm
-                                          * mhz * 1e6) * 1e3}
+                                          * mhz * 1e6) * 1e3,
+               "kernel_sfu_floor_ms": kernel_sfu_ops / (
+                   SFU_OPS_PER_SM_CLOCK * n_sm * mhz * 1e6) * 1e3}
         rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(
             b, s, di, n, torch.empty((), dtype=dt).element_size())
-        rec["design_bytes"] = scan_bwd_state_bytes(b, s, di, n)
-        rec["design_bytes_are"] = ("the saved states the backward reads, "
+        rec["design_bytes_by"] = {
+            "states": scan_bwd_state_bytes(b, s, di, n),
+            "partials": scan_bwd_partial_bytes(b, s, di, n,
+                                               geo["channels"])}
+        rec["design_bytes"] = sum(rec["design_bytes_by"].values())
+        rec["design_bytes_are"] = ("the saved states the backward reads "
+                                   "and its per-block partials, written "
+                                   "and read back by the wrapper's sum; "
                                    "not in bound_ms")
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["sfu_floor_share"] = rec["sfu_floor_ms"] / rec["ms"]
+        rec["kernel_sfu_floor_share"] = rec["kernel_sfu_floor_ms"] / rec["ms"]
         emit(rec)
         if main is None:
             main = rec
@@ -3801,8 +3842,14 @@ def main():
             kernels[-1].update(note=SCAN_REPLACES_NOTE,
                                sfu_floor_ms=rec["sfu_floor_ms"])
         if name == "selective_scan_bwd":
-            kernels[-1].update(note=SCAN_BWD_NOTE,
-                               sfu_floor_ms=rec["sfu_floor_ms"])
+            kernels[-1].update(
+                note=SCAN_BWD_NOTE, sfu_floor_ms=rec["sfu_floor_ms"],
+                kernel_sfu_floor_ms=rec["kernel_sfu_floor_ms"],
+                design_bytes=rec["design_bytes"],
+                geometry={k: rec[k] for k in (
+                    "threads_per_block", "channels_per_block",
+                    "max_blocks_per_sm", "warps_per_sm", "registers",
+                    "spill_store_bytes", "spill_load_bytes")})
         if name == "flash_attention_bwd":
             kernels[-1]["windowed"] = {
                 k: window_bwd_rec[k] for k in (

@@ -8,12 +8,13 @@ differentiates it there.  The forward kernel runs the same recurrence
 sequentially over S in one pass over the block's inputs, each channel's N
 states in registers split across a group of N / 4 lanes, its exponentials
 on the SFU; asked for them (training), it also writes the state entering
-every 16 steps.  The backward kernel walks those tiles in reverse, one
-thread a channel, recomputing each tile's states from the saved one, and
-sums over channels without atomics (per-block partials that the wrapper
-adds in a fixed order).  The wrappers take CUDA tensors only: they check
-device, dtype, shape and contiguity, copy ``Bm`` or ``Cm`` if it is not
-16-byte aligned (the forward stages them 16 bytes at a time), allocate
+every 16 steps.  The backward kernel walks those tiles in reverse, a
+channel's states over the same N / 4 lanes, recomputing each tile's states
+from the saved one into registers, and sums over channels without atomics
+(per-block partials that the wrapper adds in a fixed order).  The wrappers
+take CUDA tensors only: they check device, dtype, shape and contiguity,
+copy ``Bm``, ``Cm`` or the saved states if one is not 16-byte aligned (the
+kernels stage them 16 bytes at a time), allocate
 their outputs and scratch with ``torch.empty``, launch on the current
 stream, raise if the launch reports an error, and add one to their
 ``launches`` counts.  The plain versions are
@@ -75,6 +76,9 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.repro_selective_scan_bwd_layout.argtypes = [
             ctypes.POINTER(_INT)] * 2
         lib.repro_selective_scan_bwd_layout.restype = None
+        lib.repro_selective_scan_bwd_geometry.argtypes = [_INT, _INT] + [
+            ctypes.POINTER(_INT)] * 3
+        lib.repro_selective_scan_bwd_geometry.restype = _INT
         chunk, channels = _INT(), _INT()
         lib.repro_selective_scan_bwd_layout(ctypes.byref(chunk),
                                             ctypes.byref(channels))
@@ -98,17 +102,27 @@ def n_chunks(s: int) -> int:
     return -(-s // state_chunk())
 
 
+def _geometry(query, n_state: int, dtype: torch.dtype, what: str) -> dict:
+    out = [_INT() for _ in range(3)]
+    err = query(n_state, _DTYPE_CODE[dtype], *(ctypes.byref(v) for v in out))
+    _raise_on(err, what)
+    return dict(zip(("threads", "channels", "blocks_per_sm"),
+                    (v.value for v in out)))
+
+
 def geometry(n_state: int, dtype: torch.dtype) -> dict:
     """The kernel's launch geometry on the current card for ``n_state`` and
     x's ``dtype``: ``{"threads", "channels"}`` a block (the grid is
     ``ceil(Di / channels) x B`` blocks) and ``"blocks_per_sm"``, the blocks
     an SM holds at once by the runtime's occupancy calculator."""
-    out = [_INT() for _ in range(3)]
-    err = _lib().repro_selective_scan_geometry(
-        n_state, _DTYPE_CODE[dtype], *(ctypes.byref(v) for v in out))
-    _raise_on(err, "selective_scan geometry")
-    return dict(zip(("threads", "channels", "blocks_per_sm"),
-                    (v.value for v in out)))
+    return _geometry(_lib().repro_selective_scan_geometry, n_state, dtype,
+                     "selective_scan geometry")
+
+
+def bwd_geometry(n_state: int, dtype: torch.dtype) -> dict:
+    """:func:`geometry` of the backward kernel, from its library."""
+    return _geometry(_bwd_lib().repro_selective_scan_bwd_geometry, n_state,
+                     dtype, "selective_scan_bwd geometry")
 
 
 def _check_scan(xc, z, dt, a, bm, cm, d_skip, h0, fn):
@@ -234,6 +248,8 @@ def selective_scan_bwd(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
     dbc_part = torch.empty((-(-di // _BWD_LAYOUT["channels"]), b, s, 2 * n),
                            dtype=torch.float32, device=dev)
     dd_part = torch.empty((b, di), dtype=torch.float32, device=dev)
+    bm, cm, states = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (bm, cm, states))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_selective_scan_bwd(

@@ -1393,6 +1393,69 @@ def test_selective_scan_bwd_where_the_state_decays_away(dev, dt):
         *ins, 1e3 * h0, dy))
 
 
+# The backward's lane layout: a channel's N states over N / 4 lanes, 64
+# channels a block.  Di not a multiple of the block's channels with B > 1
+# (200, bf16 rows on 16-byte boundaries; 72 at N = 8), N = 8 over its 2
+# lanes, and a last tile of exactly one step (S = 17, 4,097), whose 15
+# zero-staged steps the reverse walk meets first.
+SCAN_BWD_LAYOUT_SHAPES = [(3, 40, 200, 16), (2, 33, 72, 8), (1, 17, 64, 16),
+                          (2, 17, 64, 8), (2, 4097, 64, 16)]
+
+
+@pytest.mark.parametrize("shape", SCAN_BWD_LAYOUT_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_bwd_lane_layout_edges(dev, dt, shape):
+    from repro_torch.kernels import selective_scan as ss
+
+    ins, states, dy, dh = _scan_bwd_case(dev, dt, *shape, seed=sum(shape),
+                                         with_h0=True, with_dh=True)
+    got = ss.selective_scan_bwd(*ins[:7], states, dy, dh)
+    again = ss.selective_scan_bwd(*ins[:7], states, dy, dh)
+    torch.cuda.synchronize()
+    for name, u, w in zip(SCAN_GRADS, got, again):
+        assert torch.equal(u, w), name
+    _assert_scan_grads_close(dt, got, ref.selective_scan_bwd_ref(
+        *ins[:7], ins[7], dy, dh))
+
+
+def test_selective_scan_bwd_takes_views_off_16_byte_boundaries(dev):
+    """Bm, Cm and the saved states are staged 16 bytes at a time: the
+    wrapper copies a view that is off a 16-byte boundary first."""
+    from repro_torch.kernels import selective_scan as ss
+
+    ins, states, dy, dh = _scan_bwd_case(dev, "fp32", 2, 50, 96, 8, seed=9,
+                                         with_h0=False, with_dh=True)
+    views = []
+    for t in (ins[4], ins[5], states):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        views.append(view)
+    got = ss.selective_scan_bwd(*ins[:4], views[0], views[1], ins[6],
+                                views[2], dy, dh)
+    want = ss.selective_scan_bwd(*ins[:7], states, dy, dh)
+    torch.cuda.synchronize()
+    for name, u, w in zip(SCAN_GRADS, got, want):
+        assert torch.equal(u, w), name
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_selective_scan_bwd_geometry_matches_its_layout(dev, dt, n):
+    """The geometry query's channels a block are the layout's (the leading
+    extent of the dB, dC partials); N / 4 lanes a channel; at N = 16 an SM
+    holds at least 16 of its warps."""
+    from repro_torch.kernels import selective_scan as ss
+
+    geo = ss.bwd_geometry(n, DTYPES[dt])
+    assert geo["channels"] == ss._BWD_LAYOUT["channels"] == 64
+    assert geo["threads"] == geo["channels"] * n // 4
+    assert geo["blocks_per_sm"] >= 1
+    if n == 16:
+        assert geo["blocks_per_sm"] * geo["threads"] // 32 >= 16
+
+
 # (B, S, H, K, hd, window): windows below one KV tile, at and one past it,
 # across query blocks, and hymba's heads (25/5, hd 64) with its window at
 # S = 2 windows; at S = 1000 with W = 100 a block's late rows meet KV tiles
