@@ -8,9 +8,10 @@ and trains as the CPU does, then drives the port's main paths at the full
 widths of ``dlrm-recmg`` (emb_dim 128, multi_hot 20, 856 tables, bf16 MLPs),
 of ``smollm-135m`` and ``granite-moe-1b-a400m`` (LM serving with the vocab
 on tiered memory, and training through the launcher), of
-``internvl2-26b`` (served with a frontend, its depth cut) and of
+``internvl2-26b`` (served with a frontend, its depth cut), of
 ``falcon-mamba-7b`` and ``hymba-1.5b`` (served, and trained through the
-launcher with their depth cut):
+launcher with their depth cut) and of ``whisper-large-v3`` (served and
+trained at full depth):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: nvcc for sm_90a, one process per source, with the build seconds
@@ -232,6 +233,35 @@ launcher with their depth cut):
     2 and run B from it (losses equal A's bit for bit), ``selective_scan``
     twice and ``selective_scan_bwd`` once a layer and microbatch (and
     hymba's windowed attention forward twice and backward once), step ms,
+    tokens/s, peak memory and one step under the profiler;
+25. the unmasked ``flash_attention`` (``causal=False``, whisper's encoder;
+    phase ``encdec_kernels``, after phase 24) at whisper's serve shape (8,
+    1500, 20/20, 64) in bf16 and fp32 and at its training microbatch (4,
+    1500, 20/20, 64) in bf16, and its backward at the training microbatch
+    in both dtypes, then both at S = 1, 17 and 1,500 (B = 2) in both
+    dtypes: the forward within 1e-5 (fp32) or 1e-2 (bf16) of the plain
+    unmasked version with the log-sum-exp's output bits, the backward
+    within 1e-5 / 2e-2 of max(1, each gradient's largest magnitude) and
+    bit-equal over two calls; each timed beside its bound (4 B H S^2 hd
+    operations forward, 2.5 times that backward), the plain version and
+    SDPA without a mask (and its backward);
+26. encoder-decoder parity: reduced fp32 whisper-large-v3 from the same
+    parameters on the CPU and on the card, the loss and every gradient
+    under ``remat="full"``, then a prefill into a 20-slot cache and 3
+    decode steps: logits, caches, loss and gradients within 1e-5 of each
+    tensor's largest magnitude;
+27. encoder-decoder serve: whisper-large-v3 at full width and depth (32 +
+    32 layers, d_model 1,280, 20/20 heads, vocab 51,866, 1.60 B
+    parameters, bf16) through ``build(cfg).prefill``/``.decode``: 8 clips
+    of seeded frames (8, 1500, 1280), a 4-token prompt, 64 greedy steps
+    into a 448-slot cache (the published ``max_target_positions``);
+    ``flash_attention`` 64 launches, all in the prefill (32 unmasked, 32
+    causal); prefill ms, decode p50, tok/s, peak memory and a profile;
+28. encoder-decoder training: whisper-large-v3 at full width and depth,
+    3 steps of ``make_train_step`` (global batch 8 in 2 microbatches, 448
+    decoder tokens and 1,500 frames, ``remat="full"``, AdamW with fp32
+    moments): finite losses and gradient norms, ``flash_attention`` twice
+    and ``flash_attention_bwd`` once a layer and microbatch, step ms,
     tokens/s, peak memory and one step under the profiler.
 
 Each phase prints one JSON line; any failure exits nonzero.  The line
@@ -245,11 +275,12 @@ the transformer backbone's training as ``launches_transfetch``,
 training (phases 13 and 15) as ``launches_train``, the LM serve as
 ``launches_lm_serve``, the MoE's serve and training (17, 18) as
 ``launches_moe``, the VLM's serve as ``launches_vlm`` and the SSM and
-hybrid serves (23) as ``launches_ssm`` and their training (24) as
-``launches_ssm_train``; ``selective_scan`` and ``selective_scan_bwd``
+hybrid serves (23) as ``launches_ssm``, their training (24) as
+``launches_ssm_train`` and whisper's serve and training (27, 28) as
+``launches_encdec``; ``selective_scan`` and ``selective_scan_bwd``
 have no TPU kernel (``replaces`` null, a ``note`` says why) and carry
 their SFU floors, and ``flash_attention`` and ``flash_attention_bwd``
-carry their ``windowed`` records; the ``done``
+carry their ``windowed`` and ``noncausal`` records; the ``done``
 line gives each phase's seconds; the last line is the result.  Imports
 nothing of JAX and nothing of the JAX package.
 """
@@ -3646,6 +3677,369 @@ def phase_dlrm_train(full, trace):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-28: the encoder-decoder LM (whisper-large-v3) and the unmasked
+# attention of its encoder.
+# ---------------------------------------------------------------------------
+
+# The unmasked attention's shapes (B, S, H, K, hd): whisper's encoder at the
+# serve batch (8 clips of 1,500 frames) and at the training microbatch (4);
+# the kernels line's records are the serve forward and the training
+# backward, both bf16.
+ENCDEC_SERVE_ATTN = (8, 1500, 20, 20, 64)
+ENCDEC_TRAIN_ATTN = (4, 1500, 20, 20, 64)
+# Ragged S at whisper's heads: one frame, one past a 16-row warp tile, and
+# the 30-second window (against 64-key tiles and 128-query blocks).
+ENCDEC_RAGGED_S = (1, 17, 1500)
+# What the kernels line keeps of the unmasked records.
+NONCAUSAL_KEYS = ("shape", "dtype", "B", "S", "H", "K", "hd", "max_abs_err",
+                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "library", "design")
+NONCAUSAL_DESIGN = ("the causal kernels' designs in an unmasked "
+                    "instantiation of their own (template flag): the KV "
+                    "walk (forward, dQ) to the end of S and the query walk "
+                    "(dK/dV) from tile 0, only the ragged end of S masked")
+
+
+def _noncausal_fwd(timer, shape, dt_name, name):
+    """The unmasked forward at ``shape`` against its plain version (with
+    the log-sum-exp), timed beside the plain version, SDPA without a mask
+    and its bound (4 B H S^2 hd operations)."""
+    b, s, h, n_kv, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(s + hd + 7)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g, device="cuda")
+               .to(DTYPES[dt_name]) for n in (h, n_kv, n_kv))
+    got = fa.flash_attention(q, k, v, causal=False)
+    o_lse, lse = fa.flash_attention(q, k, v, with_lse=True, causal=False)
+    want, lse_want = ref.causal_attention_lse_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-5 if dt_name == "fp32" else 1e-2
+    require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+            f"flash_attention causal=False {name} {dt_name}: max abs err "
+            f"{err}")
+    require(torch.equal(o_lse, got), f"flash_attention causal=False "
+            f"{name}: the output changes when it also writes the lse")
+    lse_err = float((lse - lse_want).abs().max())
+    require(torch.allclose(lse, lse_want, rtol=1e-5, atol=1e-5),
+            f"flash_attention causal=False {name}: lse max abs err {lse_err}")
+    del got, want, o_lse, lse, lse_want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True)
+    rec = {"phase": "kernel", "name": "flash_attention", "shape": name,
+           "causal": False, "dtype": dt_name, "B": b, "S": s, "H": h,
+           "K": n_kv, "hd": hd, "max_abs_err": err, "tolerance": tol,
+           "lse_max_abs_err_vs_logsumexp": lse_err,
+           "design": NONCAUSAL_DESIGN,
+           "ms": timer(lambda: fa.flash_attention(q, k, v, causal=False)),
+           "plain_ms": timer(lambda: ref.causal_attention_ref(
+               q, k, v, causal=False)),
+           "library": "SDPA without a mask", "library_ms": timer(sdpa)}
+    n_ops = 4 * b * h * s * s * hd
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        q.element_size() * b * s * hd * (2 * h + 2 * n_kv), n_ops,
+        BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
+    achieved(rec, n_ops)
+    emit(rec)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _noncausal_bwd(timer, shape, dt_name, name):
+    """The unmasked backward at ``shape`` against its plain version (each
+    gradient within 1e-5 / 2e-2 of max(1, its largest magnitude)), two
+    calls bit-equal, timed beside the
+    plain version, SDPA's backward without a mask and its bound (five
+    products: 10 B H S^2 hd operations)."""
+    b, s, h, n_kv, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(s + hd + 8)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=g, device="cuda")
+                   .to(DTYPES[dt_name]) for n in (h, n_kv, n_kv, h))
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, causal=False)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=False)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dt_name == "fp32" else 2e-2
+    # Against max(1, the largest magnitude): at S = 1 a query sees only its
+    # own key, p = 1, and dq and dk are 0 up to rounding.
+    errs, shares = {}, {}
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        errs[gname] = float((a.float() - w.float()).abs().max())
+        shares[gname] = errs[gname] / max(float(w.float().abs().max()), 1.0)
+    require(max(shares.values()) <= tol,
+            f"flash_attention_bwd causal=False {name} {dt_name}: error / "
+            f"largest gradient {shares} (tolerance {tol})")
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            f"flash_attention_bwd causal=False {name}: two calls differ")
+    del got, want, again
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    rec = {"phase": "kernel", "name": "flash_attention_bwd", "shape": name,
+           "causal": False, "dtype": dt_name, "B": b, "S": s, "H": h,
+           "K": n_kv, "hd": hd, "max_abs_err": max(errs.values()),
+           "max_abs_err_share_of_largest_grad_or_1": shares,
+           "tolerance": tol, "bit_equal_over_two_calls": True,
+           "design": NONCAUSAL_DESIGN,
+           "ms": timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      causal=False)),
+           "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
+               q, k, v, o, do, lse, causal=False)),
+           "library": "SDPA's backward without a mask",
+           "library_ms": timer(lambda: torch.autograd.grad(
+               out, (qt, kt, vt), dot, retain_graph=True))}
+    n_ops = 10 * b * h * s * s * hd
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        q.element_size() * b * s * hd * (4 * h + 4 * n_kv) + 4 * b * h * s,
+        n_ops, BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
+    achieved(rec, n_ops)
+    emit(rec)
+    del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_encdec_kernels(timer):
+    """The unmasked ``flash_attention`` at whisper's serve shape and its
+    backward at the training microbatch, bf16 and fp32, then the forward
+    at the training shape (bf16) and both at ragged S in both dtypes, each
+    against its plain version and timed.  Returns (the bf16 serve forward's
+    record, the bf16 training backward's)."""
+    fwd = {dt: _noncausal_fwd(timer, ENCDEC_SERVE_ATTN, dt, "whisper_serve")
+           for dt in ("bf16", "fp32")}
+    _noncausal_fwd(timer, ENCDEC_TRAIN_ATTN, "bf16", "whisper_train")
+    bwd = {dt: _noncausal_bwd(timer, ENCDEC_TRAIN_ATTN, dt, "whisper_train")
+           for dt in ("bf16", "fp32")}
+    b, _, h, n_kv, hd = ENCDEC_SERVE_ATTN
+    for s in ENCDEC_RAGGED_S:
+        for dt in ("bf16", "fp32"):
+            _noncausal_fwd(timer, (2, s, h, n_kv, hd), dt, f"ragged_{s}")
+            _noncausal_bwd(timer, (2, s, h, n_kv, hd), dt, f"ragged_{s}")
+    return fwd["bf16"], bwd["bf16"]
+
+
+def _encdec_batch(cfg, b, s, rng, dev="cuda"):
+    """Seeded tokens, labels (the next token, -1 at the end) and audio
+    frames (B, enc_len, d_model) in the compute dtype on ``dev``."""
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                       dim=1)
+    frames = torch.from_numpy(rng.normal(size=(
+        b, cfg.enc_len, cfg.d_model)).astype(np.float32)).to(
+        dev, torch_dtype(cfg.compute_dtype))
+    return {"tokens": tokens, "labels": labels, "frontend": frames}
+
+
+def _share(got, want):
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def phase_encdec_parity():
+    """Reduced fp32 whisper-large-v3 from the same parameters on the CPU
+    and on the card: ``encdec_loss`` and every gradient (``remat="full"``),
+    then a prefill into a 20-slot cache and 3 teacher-forced decode steps;
+    each tensor within 1e-5 of its largest magnitude on the CPU."""
+    cfg = get_config("whisper-large-v3").reduced()
+    rng = np.random.default_rng(23)
+    batch = _encdec_batch(cfg, 2, 12, rng, "cpu")
+    cpu = build(cfg, device="cpu").init(seed=0).requires_grad_(True)
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
+        bundle = build(cfg, device=dev, run=RunConfig(remat="full"))
+        loss = bundle.loss(model, batch)
+        grads = [g.cpu() for g in torch.autograd.grad(
+            loss, list(model.parameters()))]
+        lg, cache = bundle.prefill(model, batch, cache_len=20)
+        steps = [lg]
+        for i in range(3):
+            lg, cache = bundle.decode(model, batch["tokens"][:, i:i + 1],
+                                      cache)
+            steps.append(lg)
+        res[dev] = (loss.detach().cpu(), grads, torch.stack(steps).cpu(),
+                    {k: cache[k].cpu() for k in ("k", "v", "xk", "xv")})
+    names = [n for n, _ in cpu.named_parameters()]
+    shares = {"loss": _share(res["cuda"][0], res["cpu"][0]),
+              "logits": _share(res["cuda"][2], res["cpu"][2]),
+              **{f"cache_{k}": _share(res["cuda"][3][k], res["cpu"][3][k])
+                 for k in res["cpu"][3]}}
+    grad_shares = [_share(g, w) for g, w in zip(res["cuda"][1],
+                                                res["cpu"][1])]
+    worst = int(np.argmax(grad_shares))
+    require(max(shares.values()) <= 1e-5 and grad_shares[worst] <= 1e-5,
+            f"encdec_parity: card vs CPU {shares}, worst gradient "
+            f"{names[worst]} {grad_shares[worst]}")
+    emit({"phase": "encdec_parity", "arch": cfg.name, "dtype": "float32",
+          "B": 2, "S": 12, "frames": cfg.enc_len, "cache_len": 20,
+          "decode_steps": 3, "err_share_of_largest": shares,
+          "worst_grad": names[worst],
+          "worst_grad_err_share": grad_shares[worst], "tolerance": 1e-5})
+
+
+def phase_encdec_serve():
+    """whisper-large-v3 at full width and depth through
+    ``build(cfg).prefill``/``.decode``: 8 clips of seeded bf16 frames
+    (8, 1500, 1280), a 4-token start-of-transcript prompt, 64 greedy steps
+    into a 448-slot cache; counts set to 0 just before the prefill and
+    read after the last step: ``flash_attention`` 32 unmasked (the
+    encoder) and 32 causal (the decoder) launches in the prefill, none in
+    a decode step (its attention and cross-attention are plain PyTorch, as
+    JAX's are XLA).  Then one prefill and 8 steps under the profiler."""
+    cfg = get_config("whisper-large-v3")
+    b, prompt_len, n_dec, cache_len = 8, 4, 64, 448
+    rng = np.random.default_rng(29)
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build(cfg, device="cuda")
+    model = bundle.init(seed=0)
+    batch = _encdec_batch(cfg, b, prompt_len, rng)
+    del batch["labels"]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = bundle.prefill(model, batch, cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                        if fn.launches}
+    steps, step_ms = [lg], []
+    t_dec = time.perf_counter()
+    for _ in range(n_dec):
+        t0 = time.perf_counter()
+        lg, cache = bundle.decode(model, lg.argmax(-1)[:, None], cache)
+        steps.append(lg)
+        lg.argmax(-1).cpu()  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_s = time.perf_counter() - t_dec
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    logits = torch.stack(steps)
+    require(bool(torch.isfinite(logits).all()) and tuple(logits.shape) ==
+            (n_dec + 1, b, cfg.vocab), "encdec_serve: bad logits")
+    require(cache["pos"] == prompt_len + n_dec and
+            tuple(cache["k"].shape) == (cfg.n_layers, b, cache_len,
+                                        cfg.kv_heads, cfg.hd) and
+            tuple(cache["xk"].shape) == (cfg.n_layers, b, cfg.enc_len,
+                                         cfg.kv_heads, cfg.hd),
+            f"encdec_serve: cache pos {cache['pos']}")
+    want = {"flash_attention": cfg.n_enc_layers + cfg.n_layers}
+    require(prefill_launches == want and launches == want,
+            f"encdec_serve: launched {prefill_launches} in the prefill and "
+            f"{launches} in all, expected {want}")
+    del cache, logits, steps
+
+    def serve(k):
+        def run():
+            lg_, c = bundle.prefill(model, batch, cache_len=cache_len)
+            for _ in range(k):
+                lg_, c = bundle.decode(model, lg_.argmax(-1)[:, None], c)
+        return run
+    setup, full = _device_profile(serve(0)), _device_profile(serve(8))
+    if setup is None or full is None:
+        profile = "not measured: the profiler recorded no device time"
+    else:
+        diff = {k: full["kernels"][k] - setup["kernels"].get(k, 0.0)
+                for k in full["kernels"]}
+        profile = {"prefill": _profile_summary(
+                       setup["wall_ms"], setup["busy_ms"],
+                       setup["launches"], setup["kernels"], 1),
+                   "decode_per_step": _profile_summary(
+                       full["wall_ms"] - setup["wall_ms"],
+                       full["busy_ms"] - setup["busy_ms"],
+                       full["launches"] - setup["launches"], diff, 8)}
+    emit({"phase": "encdec_serve", "arch": cfg.name,
+          "dtype": cfg.param_dtype, "n_params": bundle.n_params(),
+          "batch": b, "frames": [b, cfg.enc_len, cfg.d_model],
+          "prompt_len": prompt_len, "decode_steps": n_dec,
+          "cache_len": cache_len, "cuts": "none (full width and depth)",
+          "prefill_ms": prefill_ms,
+          "decode_ms_p50": float(np.median(step_ms)),
+          "decode_ms_first": step_ms[0], "decode_s": decode_s,
+          "tok_per_s": b * n_dec / decode_s, "peak_device_gb": peak_gb,
+          "launches_prefill": prefill_launches, "launches": launches,
+          "profile": profile})
+    del model, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_encdec_train():
+    """whisper-large-v3 at full width and depth, bf16, 3 steps of
+    ``make_train_step``: a global batch of 8 clips in 2 microbatches,
+    1,500 frames and 448 decoder tokens each, ``remat="full"``, AdamW with
+    fp32 moments; counts set to 0 just before the steps and read just
+    after: per microbatch ``flash_attention`` twice and
+    ``flash_attention_bwd`` once in each of the 64 layers.  Then one step
+    under the profiler."""
+    cfg = get_config("whisper-large-v3")
+    b, s, mb, n_steps = 8, 448, 2, 3
+    rng = np.random.default_rng(31)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build(cfg, device="cuda", run=RunConfig(remat="full"))
+    model = bundle.init(seed=0)
+    opt = init_opt(OptConfig(lr=3e-4, total_steps=n_steps + 1),
+                   list(model.parameters()))
+    step = make_train_step(bundle, mb)
+    batches = [_encdec_batch(cfg, b, s, rng) for _ in range(n_steps + 1)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    losses, norms, step_ms = [], [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        m = step(model, opt, batches[i])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    layers = cfg.n_enc_layers + cfg.n_layers
+    want = {"flash_attention": n_steps * mb * 2 * layers,
+            "flash_attention_bwd": n_steps * mb * layers}
+    require(launches == want, f"encdec_train: launched {launches}, expected "
+            f"{want}")
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"encdec_train: losses {losses}, grad norms {norms}")
+    prof = _device_profile(lambda: step(model, opt, batches[n_steps]))
+    if prof is None:
+        profile = "not measured: the profiler recorded no device time"
+    else:
+        bwd = {k: ms for k, ms in prof["kernels"].items() if "attn_bwd" in k}
+        require(any("attn_bwd_dkdv_mma" in k for k in bwd),
+                f"encdec_train profile: no attn_bwd_dkdv_mma among {bwd}")
+        profile = dict(_profile_summary(prof["wall_ms"], prof["busy_ms"],
+                                        prof["launches"], prof["kernels"],
+                                        1), backward_kernels_ms=bwd)
+    steady = step_ms[1:]
+    emit({"phase": "encdec_train", "arch": cfg.name,
+          "dtype": cfg.param_dtype, "n_params": bundle.n_params(),
+          "global_batch": b, "microbatches": mb, "decoder_seq_len": s,
+          "frames": cfg.enc_len, "remat": "full", "optimizer": "AdamW, fp32 "
+          "moments", "cuts": "none (full width and depth)",
+          "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+          "decoder_tokens_per_s": b * s / (np.median(steady) / 1e3),
+          "frames_per_s": b * cfg.enc_len / (np.median(steady) / 1e3),
+          "peak_device_gb": peak_gb, "launches": launches,
+          "launches_expected": want, "profile": profile})
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -3767,6 +4161,14 @@ def main():
     for name, k in timed("hybrid_train", phase_lm_train, "hymba-1.5b",
                          "hybrid_train", n_layers=8, steps=4).items():
         ssm_train_launches[name] = ssm_train_launches.get(name, 0) + k
+    # The encoder-decoder LM (whisper-large-v3) at full width and depth,
+    # and the unmasked attention of its encoder.
+    noncausal_rec, noncausal_bwd_rec = timed(
+        "encdec_kernels", phase_encdec_kernels, timer)
+    timed("encdec_parity", phase_encdec_parity)
+    encdec_launches = timed("encdec_serve", phase_encdec_serve)
+    for name, k in timed("encdec_train", phase_encdec_train).items():
+        encdec_launches[name] = encdec_launches.get(name, 0) + k
 
     kernels = []
     for name, rec, n, src, replaces in (
@@ -3806,12 +4208,14 @@ def main():
         # MoE's serve and training and the VLM's serve add theirs; the SSM
         # and hybrid serves drive selective_scan and the hybrid's windowed
         # flash_attention, and their training selective_scan_bwd, which
-        # runs nowhere else, and the windowed flash_attention_bwd.
+        # runs nowhere else, and the windowed flash_attention_bwd; whisper's
+        # serve and training the unmasked and causal flash_attention and
+        # flash_attention_bwd.
         n += runtime_launches.get(name, 0) + sharded_launches.get(name, 0) \
             + transfetch_launches.get(name, 0) + train_launches.get(name, 0) \
             + lm_launches.get(name, 0) + moe_launches.get(name, 0) \
             + vlm_launches.get(name, 0) + ssm_launches.get(name, 0) \
-            + ssm_train_launches.get(name, 0)
+            + ssm_train_launches.get(name, 0) + encdec_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -3838,6 +4242,8 @@ def main():
             kernels[-1]["launches_ssm"] = ssm_launches[name]
         if name in ssm_train_launches:
             kernels[-1]["launches_ssm_train"] = ssm_train_launches[name]
+        if name in encdec_launches:
+            kernels[-1]["launches_encdec"] = encdec_launches[name]
         if name == "selective_scan":
             kernels[-1].update(note=SCAN_REPLACES_NOTE,
                                sfu_floor_ms=rec["sfu_floor_ms"])
@@ -3856,12 +4262,16 @@ def main():
                     "shape", "B", "S", "H", "K", "hd", "window",
                     "max_abs_err", "ms", "causal_ms", "plain_ms", "plain_B",
                     "bound_ms", "bound_by", "library_ms", "library")}
+            kernels[-1]["noncausal"] = {
+                k: noncausal_bwd_rec[k] for k in NONCAUSAL_KEYS}
         if name == "flash_attention":
             kernels[-1]["windowed"] = {
                 k: window_rec[k] for k in (
                     "shape", "B", "S", "H", "K", "hd", "window",
                     "max_abs_err", "ms", "causal_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms", "library")}
+            kernels[-1]["noncausal"] = {
+                k: noncausal_rec[k] for k in NONCAUSAL_KEYS}
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])

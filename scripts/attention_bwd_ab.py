@@ -1,6 +1,7 @@
 """Compare the bf16 attention backward (``csrc/flash_attention_bwd.cu``) of
 two checkouts of this repo on one card: device times at the LM training
-shapes, and the registers and spills of the tensor-core kernels.
+shapes, the registers and spills of the tensor-core kernels, and whether
+the two trees' causal and windowed attention give the same bits.
 
     python scripts/attention_bwd_ab.py --trees OLD NEW [--order ABBA]
 
@@ -10,14 +11,19 @@ kernels into that tree's ``build/`` and times
 ``flash_attention_bwd`` at ``SHAPES`` (the median of ``--reps`` launches,
 CUDA events, L2 flushed before each, a spin kernel hiding the host's
 launches).  A tree whose wrapper takes no ``window`` reports null for the
-windowed shape.  Prints one JSON line per worker and a summary line: each
-tree's times by run and its ``attn_bwd_*_mma`` kernels' registers and
-spills, read from its build's ``-Xptxas -v`` report by
-``chip_smoke.ptxas_kernels``.  Needs one card and nvcc.
+windowed shape.  Each worker also hashes (SHA-256) the forward's output,
+its output and log-sum-exp, and the backward's dq, dk and dv at
+``BIT_SHAPES`` in both dtypes, from inputs drawn the same way in every
+tree.  Prints one JSON line per worker and a summary line: each tree's
+times by run, its ``attn_bwd_*_mma`` kernels' registers and spills, read
+from its build's ``-Xptxas -v`` report by ``chip_smoke.ptxas_kernels``,
+and by shape whether every worker of both trees gave the same bits.
+Needs one card and nvcc.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -32,6 +38,12 @@ SHAPES = (("smollm_train", 4, 4096, 9, 3, 64, 0),
           ("granite_train", 4, 4096, 16, 8, 64, 0),
           ("hymba_train_causal", 4, 4096, 25, 5, 64, 0),
           ("hymba_train_window", 4, 4096, 25, 5, 64, 1024))
+# (name, B, S, H, K, hd, window): causal at the training cut, a ragged S
+# and hd 128 (G = 8), and in a window.
+BIT_SHAPES = (("train_cut", 4, 4096, 9, 3, 64, 0),
+              ("ragged", 2, 1000, 9, 3, 64, 0),
+              ("hd128", 1, 300, 16, 2, 128, 0),
+              ("window", 1, 2048, 25, 5, 64, 1024))
 
 
 def _median_ms(fn, reps):
@@ -76,7 +88,36 @@ def worker(reps):
             out[name] = None
         del q, k, v, do
         torch.cuda.empty_cache()
-    return {"ms": out, "ptxas": _build.ptxas_report("flash_attention_bwd")}
+    return {"ms": out, "digests": digests(),
+            "ptxas": _build.ptxas_report("flash_attention_bwd")}
+
+
+def digests():
+    """{shape/dtype: SHA-256 of the forward's output (serve path), its
+    output and log-sum-exp, and dq, dk, dv} at ``BIT_SHAPES``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for name, b, s, h, n_kv, hd, w in BIT_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(s + hd + w)
+            q, k, v, do = (torch.randn((b, s, n, hd), generator=g,
+                                       device="cuda").to(dt)
+                           for n in (h, n_kv, n_kv, h))
+            kw = {"window": w} if w else {}
+            h_ = hashlib.sha256()
+            served = fa.flash_attention(q, k, v, **kw)
+            o, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+            for t in (served, o, lse,
+                      *fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)):
+                h_.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+            out[f"{name}/{str(dt).split('.')[-1]}"] = h_.hexdigest()
+            del q, k, v, do, served, o, lse
+            torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -99,7 +140,7 @@ def main():
     print(smi)
     trees = dict(zip("AB", (Path(t).resolve() for t in args.trees)))
     runs = {t: [] for t in trees}
-    kernels = {}
+    kernels, bits = {}, []
     for i, t in enumerate(args.order):
         env = dict(os.environ, PYTHONPATH=str(trees[t] / "src"))
         res = subprocess.run(
@@ -110,12 +151,15 @@ def main():
             sys.exit(f"worker {i} ({t}) failed:\n{res.stderr[-4000:]}")
         rec = json.loads(res.stdout.strip().splitlines()[-1])
         runs[t].append(rec["ms"])
+        bits.append(rec["digests"])
         kernels[t] = {k: v for k, v in ptxas_kernels(rec["ptxas"]).items()
                       if "_mma" in k}
         print(json.dumps({"run": i, "tree": t, "ms": rec["ms"]}))
     print(json.dumps({"trees": {t: str(p) for t, p in trees.items()},
                       "order": args.order, "device": smi,
-                      "ms_by_run": runs, "mma_kernels": kernels}))
+                      "ms_by_run": runs, "mma_kernels": kernels,
+                      "bits_equal": {key: len({d[key] for d in bits}) == 1
+                                     for key in bits[0]}}))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,9 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Counterpart of ``src/repro/configs/__init__.py``.  Ported: ``dlrm-recmg``,
-the four dense LMs, the two MoE LMs, the VLM, the SSM LM
-(``falcon-mamba-7b``) and the hybrid LM (``hymba-1.5b``).  The
-encoder-decoder LM of the JAX registry raises ``NotImplementedError``
-naming its ROADMAP item.
+Counterpart of ``src/repro/configs/__init__.py``, every arch of it:
+``dlrm-recmg``, the four dense LMs, the two MoE LMs, the VLM, the SSM LM
+(``falcon-mamba-7b``), the hybrid LM (``hymba-1.5b``) and the
+encoder-decoder LM (``whisper-large-v3``).
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ from repro_torch.configs.qwen2_5_3b import CONFIG as _QWEN2_5_3B
 from repro_torch.configs.qwen3_14b import CONFIG as _QWEN3_14B
 from repro_torch.configs.smollm_135m import CONFIG as _SMOLLM_135M
 from repro_torch.configs.smollm_360m import CONFIG as _SMOLLM_360M
+from repro_torch.configs.whisper_large_v3 import CONFIG as _WHISPER_LARGE_V3
 
 _ARCHS = {
     "qwen2.5-3b": _QWEN2_5_3B,
@@ -31,17 +31,14 @@ _ARCHS = {
     "grok-1-314b": _GROK1_314B,
     "falcon-mamba-7b": _FALCON_MAMBA_7B,
     "hymba-1.5b": _HYMBA_1_5B,
+    "whisper-large-v3": _WHISPER_LARGE_V3,
     "dlrm-recmg": _DLRM_RECMG,
 }
-# LM archs of the JAX registry whose families are not ported yet.
-NOT_PORTED = ("whisper-large-v3",)
+# Archs of the JAX registry that the port does not build: none.
+NOT_PORTED: tuple = ()
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} belongs to an LM family the port does not have yet "
-            "(encoder-decoder: ROADMAP A11c-5)")
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCHS)}")
     return _ARCHS[arch]

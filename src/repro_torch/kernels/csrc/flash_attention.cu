@@ -72,6 +72,16 @@
 // instruction of its arithmetic changed, so its bits are those of the
 // causal kernel; a window >= S masks no key of a real row.
 //
+// Unmasked attention (causal = 0; an encoder's self-attention, which JAX
+// computes in XLA: src/repro/models/encdec.py::encode, plain_attention
+// with causal=False) is an instantiation of its own (kCausal false): the
+// KV walk runs to the end of S for every query tile, the warps skip no
+// tile below S, and only the ragged end of S is masked.  The causal
+// instantiation folds the flag away, so its instructions and bits are
+// those of the kernels before it.  The work is twice the causal one's
+// (4 * B * H * S^2 * hd operations); blocks are still issued last query
+// tile first, which here orders nothing.
+//
 // With a non-null lse pointer both kernels also write each row's
 // log-sum-exp of its scaled scores, lse (B, H, S) fp32 in natural-log
 // units, m * scale + log(l): what the backward (flash_attention_bwd.cu)
@@ -109,12 +119,13 @@ constexpr int64_t fma_smem_bytes() {
                               kBlockK * HD + kBlockQ * kPStride) * 4;
 }
 
-template <int HD>
+template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int s_len, int n_heads, int n_kv,
-                    float scale, int window) {
+                    float scale, int window_arg) {
+  const int window = kCausal ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;           // padded row of q and k
   constexpr int kCols = HD / kColGroups;    // accumulator columns a thread
   extern __shared__ float smem[];
@@ -159,9 +170,9 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // KV tiles from the window's edge for the block's first query up to the
-  // causal frontier of its last real query.
+  // causal frontier of its last real query (to the end of S unmasked).
   const int q_last = min(q0 + kBlockQ, s_len) - 1;
-  const int n_tiles = q_last / kBlockK + 1;
+  const int n_tiles = (kCausal ? q_last : s_len - 1) / kBlockK + 1;
   const int t_first = window > 0 ? max(0, q0 - window + 1) / kBlockK : 0;
   for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
@@ -215,7 +226,7 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kKeysPerThread; ++j) {
         const int kpos = k0 + cg + kColGroups * j;
-        const bool keep = kpos <= qpos && kpos < s_len &&
+        const bool keep = (!kCausal || kpos <= qpos) && kpos < s_len &&
                           (window == 0 || qpos - kpos < window);
         s[i][j] = keep ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
@@ -305,14 +316,15 @@ constexpr int64_t mma_smem_bytes() {
 // Fragment layouts: mma_bf16.cuh.  The C fragments of score columns
 // 16 s .. 16 s + 7 and 16 s + 8 .. 16 s + 15 are, packed, the A fragment
 // of p for key step s.
-template <int HD>
+template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads, HD <= 64 ? 2 : 1)
 flash_attention_mma(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int s_len, int n_heads, int n_kv, float scale_log2,
-                    int window) {
+                    int window_arg) {
+  const int window = kCausal ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;              // padded row, bf16
   constexpr int kChunks = HD / 8;              // 16-byte chunks a row
   constexpr int kDSteps = HD / 16;             // k16 steps of q k^T
@@ -364,9 +376,10 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
     }
   };
   // KV tiles from the window's edge for the block's first query up to the
-  // causal frontier of its last real query; stage t & 1 holds tile t.
+  // causal frontier of its last real query (to the end of S unmasked);
+  // stage t & 1 holds tile t.
   const int q_last = min(q0 + kMmaBlockQ, s_len) - 1;
-  const int n_tiles = q_last / kMmaBlockK + 1;
+  const int n_tiles = (kCausal ? q_last : s_len - 1) / kMmaBlockK + 1;
   const int t_first = window > 0 ? max(0, q0 - window + 1) / kMmaBlockK : 0;
   load_kv(t_first, t_first & 1);
   cp_async_commit();
@@ -404,9 +417,10 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int k0 = t * kMmaBlockK;
-    // A warp whose queries all lie before this tile, or past S, skips it;
-    // so does a warp whose window starts after the tile's last key.
-    if (k0 <= w_last && w_first < s_len &&
+    // A warp whose queries all lie before this tile (causal), or past S,
+    // skips it; so does a warp whose window starts after the tile's last
+    // key.
+    if ((!kCausal || k0 <= w_last) && w_first < s_len &&
         (window == 0 || k0 + kMmaBlockK > w_first - window + 1)) {
       const __nv_bfloat16* sk = s_k + (t & 1) * kTileElems;
       const __nv_bfloat16* sv = s_v + (t & 1) * kTileElems;
@@ -433,7 +447,8 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       }
       // The causal mask, the end of S and the window's lower edge, on the
       // tiles that reach them.
-      if (k0 + kMmaBlockK - 1 > w_first || k0 + kMmaBlockK > s_len ||
+      if ((kCausal && k0 + kMmaBlockK - 1 > w_first) ||
+          k0 + kMmaBlockK > s_len ||
           (window > 0 && k0 < w_last - window + 1)) {
 #pragma unroll
         for (int n = 0; n < kSTiles; ++n) {
@@ -441,7 +456,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * n + 2 * t4 + (e & 1);
             const int row = e < 2 ? row_lo : row_hi;
-            if (key > row || key >= s_len ||
+            if ((kCausal && key > row) || key >= s_len ||
                 (window > 0 && row - key >= window)) {
               s[n][e] = -INFINITY;
             }
@@ -558,39 +573,41 @@ cudaError_t allow_smem(Kernel kernel, int64_t smem, bool* done) {
   return err;
 }
 
-template <int HD>
+template <int HD, bool kCausal>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int64_t batch, int s_len, int n_heads,
                        int n_kv, float scale, int window,
                        cudaStream_t stream) {
   constexpr int64_t smem = fma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
-  cudaError_t err = allow_smem(flash_attention_fma<HD>, smem, &smem_set);
+  cudaError_t err =
+      allow_smem(flash_attention_fma<HD, kCausal>, smem, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(batch * n_heads),
                   static_cast<unsigned>((s_len + kBlockQ - 1) / kBlockQ));
-  flash_attention_fma<HD><<<grid, kThreads, static_cast<size_t>(smem),
-                            stream>>>(
+  flash_attention_fma<HD, kCausal><<<grid, kThreads,
+                                     static_cast<size_t>(smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), s_len, n_heads, n_kv, scale, window);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kCausal>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int64_t batch, int s_len, int n_heads,
                        int n_kv, float scale, int window,
                        cudaStream_t stream) {
   constexpr int64_t smem = mma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
-  cudaError_t err = allow_smem(flash_attention_mma<HD>, smem, &smem_set);
+  cudaError_t err =
+      allow_smem(flash_attention_mma<HD, kCausal>, smem, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(batch * n_heads),
                   static_cast<unsigned>((s_len + kMmaBlockQ - 1) /
                                         kMmaBlockQ));
-  flash_attention_mma<HD><<<grid, kMmaThreads, static_cast<size_t>(smem),
-                            stream>>>(
+  flash_attention_mma<HD, kCausal><<<grid, kMmaThreads,
+                                     static_cast<size_t>(smem), stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -599,14 +616,29 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int HD, bool kCausal>
+cudaError_t launch_dtype(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int64_t batch, int s_len,
+                         int n_heads, int n_kv, int dtype, float scale,
+                         int window, cudaStream_t stream) {
+  return dtype == 0
+             ? launch_fma<HD, kCausal>(q, k, v, o, lse, batch, s_len,
+                                       n_heads, n_kv, scale, window, stream)
+             : launch_mma<HD, kCausal>(q, k, v, o, lse, batch, s_len,
+                                       n_heads, n_kv, scale, window, stream);
+}
+
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int64_t batch, int s_len, int n_heads, int n_kv,
-                   int dtype, float scale, int window, cudaStream_t stream) {
-  return dtype == 0 ? launch_fma<HD>(q, k, v, o, lse, batch, s_len, n_heads,
-                                     n_kv, scale, window, stream)
-                    : launch_mma<HD>(q, k, v, o, lse, batch, s_len, n_heads,
-                                     n_kv, scale, window, stream);
+                   int dtype, float scale, int window, bool causal,
+                   cudaStream_t stream) {
+  return causal ? launch_dtype<HD, true>(q, k, v, o, lse, batch, s_len,
+                                         n_heads, n_kv, dtype, scale, window,
+                                         stream)
+                : launch_dtype<HD, false>(q, k, v, o, lse, batch, s_len,
+                                          n_heads, n_kv, dtype, scale, 0,
+                                          stream);
 }
 
 }  // namespace
@@ -619,13 +651,16 @@ extern "C" {
 // 0, head_dim in {16, 32, 64, 128}, scale the softmax scale (1 /
 // sqrt(head_dim) for the model).  lse: null, or (batch, n_heads, s_len)
 // float32 for each row's log-sum-exp.  window: 0 (causal), or the sliding
-// window's size (query q sees keys q - window < k <= q).
+// window's size (query q sees keys q - window < k <= q).  causal: 1, or 0
+// for every query to see every key (window 0 only).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, void* lse, int64_t batch, int64_t s_len,
                           int n_heads, int n_kv, int head_dim, int dtype,
-                          float scale, int64_t window, void* stream) {
+                          float scale, int64_t window, int causal,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv || window < 0 ||
+      (causal != 0 && causal != 1) || (causal == 0 && window != 0) ||
       n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
       (s_len + kBlockQ - 1) / kBlockQ > kMaxQTiles ||
       (dtype != 0 && dtype != 1)) {
@@ -644,19 +679,19 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 16:
       err = launch<16>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, win, s);
+                         scale, win, causal == 1, s);
       break;
     case 32:
       err = launch<32>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, win, s);
+                         scale, win, causal == 1, s);
       break;
     case 64:
       err = launch<64>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, win, s);
+                         scale, win, causal == 1, s);
       break;
     case 128:
       err = launch<128>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                        scale, win, s);
+                        scale, win, causal == 1, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -87,10 +87,18 @@
 // forward does (p = 0, so dS = 0 there), and the mma kernels' warps skip a
 // tile that lies wholly outside their window.  Every row keeps its
 // diagonal key, so no row is fully masked.  window = 0 is the causal walk,
-// in an instantiation of its own (kWindow false) where the window's terms
+// in an instantiation of its own (kMask kCausal) where the window's terms
 // fold away, so the causal kernels run the instructions they ran without it;
 // the wrapper passes a window of S or more as S, which masks no key of a
 // real row and walks every causal tile, so it gives the causal bits.
+//
+// Unmasked attention (causal = 0: an encoder's self-attention, whose
+// gradient JAX takes through XLA's plain_attention(causal=False)) is a
+// third instantiation (kMask kFull): the dK/dV walk starts at query tile
+// 0, the dQ walk runs to the end of S, the warps skip no tile below S and
+// only the ragged end of S is masked.  The causal and windowed
+// instantiations fold its terms away.  Its work is twice the causal
+// backward's, 5 * 2 * B * H * S^2 * hd operations.
 //
 // exp is the SFU's 2^x for bf16 and the accurate expf for fp32.  Nothing is
 // allocated here (the wrapper hands in delta's buffer and the partials)
@@ -105,6 +113,12 @@
 #include "mma_bf16.cuh"
 
 namespace {
+
+// The mask of an instantiation: causal, causal in a sliding window, or
+// none (every query sees every key).
+constexpr int kCausal = 0;
+constexpr int kWindowed = 1;
+constexpr int kFull = 2;
 
 constexpr int kTile = 64;                      // queries or keys a tile
 constexpr int kGrid = 16;                      // 16 x 16 threads a tile
@@ -187,10 +201,10 @@ __device__ __forceinline__ void stage_rows(float* s_lse, float* s_delta,
 // One 64 x 64 score tile: s = q k^T and dP = dO v^T in one pass over hd,
 // thread (rg, cg) owning query rows rg + 16 i and keys cg + 16 j; then
 // p = exp(s * scale - lse) where key <= query < S and, with a window,
-// query - key < window (else 0) and dS =
-// p (dP - delta).  Writes dS, and p when s_p is not null, with rows =
+// query - key < window (kFull: where query < S and key < S), else 0, and
+// dS = p (dP - delta).  Writes dS, and p when s_p is not null, with rows =
 // queries, row stride kSStride.
-template <int HD>
+template <int HD, int kMask>
 __device__ __forceinline__ void score_tile(
     const float* s_q, const float* s_do, const float* s_k, const float* s_v,
     const float* s_lse, const float* s_delta, float* s_p, float* s_ds,
@@ -234,7 +248,8 @@ __device__ __forceinline__ void score_tile(
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int c = cg + kGrid * j;
-      const bool keep = k0 + c <= qpos && qpos < s_len &&
+      const bool keep = (kMask == kFull ? k0 + c < s_len : k0 + c <= qpos) &&
+                        qpos < s_len &&
                         (window == 0 || qpos - (k0 + c) < window);
       const float p = keep ? expf(fmaf(s[i][j], scale, -row_lse)) : 0.0f;
       if (s_p != nullptr) s_p[r * kSStride + c] = p;
@@ -257,14 +272,14 @@ constexpr int64_t dq_smem_bytes() {
                               2 * kTile) * 4;
 }
 
-template <int HD, bool kWindow>
+template <int HD, int kMask>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dk, float* __restrict__ dv, int s_len,
               int n_heads, int n_kv, int window_arg, float scale) {
-  const int window = kWindow ? window_arg : 0;  // 0: folds away
+  const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;  // accumulator columns a thread
   extern __shared__ float smem[];
@@ -305,8 +320,8 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // Query tiles from the diagonal to the end of S or, with a window, to
-  // the tile of the last key's last visible query.
+  // Query tiles from the diagonal (from 0 unmasked) to the end of S or,
+  // with a window, to the tile of the last key's last visible query.
   int n_qt = (s_len + kTile - 1) / kTile;
   if (window > 0) {
     n_qt = min(n_qt, (min(k0 + kTile, s_len) + window - 2) / kTile + 1);
@@ -316,7 +331,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
                            static_cast<int64_t>(h) * HD;
     const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
-    for (int qt = kt; qt < n_qt; ++qt) {
+    for (int qt = kMask == kFull ? 0 : kt; qt < n_qt; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();  // the last tile's q, dO, p and dS are read
       stage<HD>(s_q, q + q_base, q_row, q0, s_len);
@@ -324,8 +339,8 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
       stage_rows(s_lse, s_delta, lse + row_base, delta + row_base, q0,
                  s_len);
       __syncthreads();
-      score_tile<HD>(s_q, s_do, s_k, s_v, s_lse, s_delta, s_p, s_ds, q0, k0,
-                     s_len, window, scale, rg, cg);
+      score_tile<HD, kMask>(s_q, s_do, s_k, s_v, s_lse, s_delta, s_p, s_ds,
+                            q0, k0, s_len, window, scale, rg, cg);
       __syncthreads();
       // dV += p^T dO and dK += dS^T q over the tile's queries.
 #pragma unroll 2
@@ -366,14 +381,14 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD, bool kWindow>
+template <int HD, int kMask>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dq, int s_len, int n_heads, int n_kv,
             int window_arg, float scale) {
-  const int window = kWindow ? window_arg : 0;  // 0: folds away
+  const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;
   extern __shared__ float smem[];
@@ -413,17 +428,19 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[a][c] = 0.0f;
   }
 
-  // KV tiles up to the diagonal (tiles of queries and keys coincide),
-  // from the tile of the first query's first visible key.
+  // KV tiles up to the diagonal (tiles of queries and keys coincide; to
+  // the end of S unmasked), from the tile of the first query's first
+  // visible key.
   const int kt0 = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
-  for (int kt = kt0; kt <= qt; ++kt) {
+  const int kt_last = kMask == kFull ? gridDim.y - 1 : qt;
+  for (int kt = kt0; kt <= kt_last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // q, dO staged; the last tile's k and dS are read
     stage<HD>(s_k, k + kv_base, kv_row, k0, s_len);
     stage<HD>(s_v, v + kv_base, kv_row, k0, s_len);
     __syncthreads();
-    score_tile<HD>(s_q, s_do, s_k, s_v, s_lse, s_delta, nullptr, s_ds, q0,
-                   k0, s_len, window, scale, rg, cg);
+    score_tile<HD, kMask>(s_q, s_do, s_k, s_v, s_lse, s_delta, nullptr,
+                          s_ds, q0, k0, s_len, window, scale, rg, cg);
     __syncthreads();
     // dQ += dS k over the tile's keys.
 #pragma unroll 2
@@ -572,7 +589,7 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
 // - 1 of its KV head.  With partial null, dk = acc_k * scale and dv = acc_v
 // are written as bf16; otherwise acc_k and acc_v go, fp32 and unscaled, to
 // partial[0][split] and partial[1][split], each (B, S, K, hd).
-template <int HD, bool kWindow>
+template <int HD, int kMask>
 __global__ void __launch_bounds__(kMmaThreads, kMinBlocks<HD>)
 attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -584,7 +601,7 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ dv, float* __restrict__ partial,
                   int s_len, int n_heads, int n_kv, int splits,
                   int window_arg, float scale, float scale_log2) {
-  const int window = kWindow ? window_arg : 0;  // 0: folds away
+  const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;
   constexpr int kStep = kQStep<HD>;  // queries a tile
   constexpr int kDSteps = HD / 16;       // k16 steps of S^T, dP^T
@@ -625,10 +642,10 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
   load_tile<HD, kMmaRows>(s_v, v + kv_base, kv_row, k0, s_len);
 
   // The walk: the split's heads, and for each the query tiles from the
-  // one holding key k0 to the end of S (earlier tiles are all masked) or,
-  // with a window, to the tile of the block's last key's last visible
-  // query.
-  const int qt0 = k0 / kStep;
+  // one holding key k0 (earlier tiles are all masked; from tile 0
+  // unmasked) to the end of S or, with a window, to the tile of the
+  // block's last key's last visible query.
+  const int qt0 = kMask == kFull ? 0 : k0 / kStep;
   int qt_end = (s_len + kStep - 1) / kStep;
   if (window > 0) {
     qt_end = min(qt_end,
@@ -689,10 +706,10 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int q0 = (qt0 + it % per_head) * kStep;
-    // A warp whose keys all lie past this tile's queries, or past S,
-    // skips it; so does a warp whose keys all lie below the window of the
-    // tile's first query.
-    if (q0 + kStep - 1 >= kw0 && kw0 < s_len &&
+    // A warp whose keys all lie past this tile's queries (causal), or past
+    // S, skips it; so does a warp whose keys all lie below the window of
+    // the tile's first query.
+    if ((kMask == kFull || q0 + kStep - 1 >= kw0) && kw0 < s_len &&
         (window == 0 || q0 - (kw0 + 15) < window)) {
       const __nv_bfloat16* sq = s_q + (it & 1) * kQElems;
       const __nv_bfloat16* sdo = s_do + (it & 1) * kQElems;
@@ -735,7 +752,8 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
       // P^T and dS^T; the mask where the tile crosses the warp's diagonal
       // (a key after a query), the end of S (a query past it) or the
       // window's lower edge (a key window or more before a query).
-      const bool edge = kw0 + 15 > q0 || q0 + kStep > s_len ||
+      const bool edge = (kMask != kFull && kw0 + 15 > q0) ||
+                        q0 + kStep > s_len ||
                         (window > 0 && q0 + kStep - 1 - kw0 >= window);
 #pragma unroll
       for (int n = 0; n < kQTiles; ++n) {
@@ -748,11 +766,11 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
           float p_lo = exp2_approx(fmaf(st[n][c], scale_log2, -lse2));
           float p_hi = exp2_approx(fmaf(st[n][2 + c], scale_log2, -lse2));
           if (edge) {
-            if (key_lo > query || query >= s_len ||
+            if ((kMask != kFull && key_lo > query) || query >= s_len ||
                 (window > 0 && query - key_lo >= window)) {
               p_lo = 0.0f;
             }
-            if (key_hi > query || query >= s_len ||
+            if ((kMask != kFull && key_hi > query) || query >= s_len ||
                 (window > 0 && query - key_hi >= window)) {
               p_hi = 0.0f;
             }
@@ -842,7 +860,7 @@ attn_bwd_sum_splits(const float* __restrict__ partial,
 }
 
 // dQ of one 64-query tile of one head.
-template <int HD, bool kWindow>
+template <int HD, int kMask>
 __global__ void __launch_bounds__(kMmaThreads, kMinBlocks<HD>)
 attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -852,7 +870,7 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dq, int s_len, int n_heads,
                 int n_kv, int window_arg, float scale, float scale_log2) {
-  const int window = kWindow ? window_arg : 0;  // 0: folds away
+  const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;
   constexpr int kStep = kKStep;  // keys a tile
   constexpr int kDSteps = HD / 16;       // k16 steps of S, dP
@@ -892,10 +910,11 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   };
   // KV tiles from the one holding the first query's first visible key (0
   // without a window) up to the causal frontier of the tile's last real
-  // query.
+  // query (to the end of S unmasked).
   const int q_last = min(q0 + kMmaRows, s_len) - 1;
   const int t_first = window > 0 ? max(0, q0 - window + 1) / kStep : 0;
-  const int n_it = q_last / kStep + 1 - t_first;
+  const int n_it =
+      (kMask == kFull ? s_len - 1 : q_last) / kStep + 1 - t_first;
   load_kv(t_first, 0);
   cp_async_commit();
 
@@ -939,9 +958,10 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int k0 = t * kStep;
-    // A warp whose queries all lie before this tile, or past S, skips it;
-    // so does a warp whose first query's window starts after the tile.
-    if (k0 <= w_last && w_first < s_len &&
+    // A warp whose queries all lie before this tile (causal), or past S,
+    // skips it; so does a warp whose first query's window starts after the
+    // tile.
+    if ((kMask == kFull || k0 <= w_last) && w_first < s_len &&
         (window == 0 || w_first - (k0 + kStep - 1) < window)) {
       const __nv_bfloat16* sk = s_k + (it & 1) * kKElems;
       const __nv_bfloat16* sv = s_v + (it & 1) * kKElems;
@@ -970,7 +990,8 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
       }
       // dS = P (dP - delta); the mask where the tile crosses the warp's
       // diagonal, the end of S (a key past it) or the window's lower edge.
-      const bool edge = k0 + kStep - 1 > w_first || k0 + kStep > s_len ||
+      const bool edge = (kMask != kFull && k0 + kStep - 1 > w_first) ||
+                        k0 + kStep > s_len ||
                         (window > 0 && w_last - k0 >= window);
 #pragma unroll
       for (int n = 0; n < kKTiles; ++n) {
@@ -981,7 +1002,7 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
               fmaf(s[n][e], scale_log2, -(lo ? lse2_lo : lse2_hi)));
           const int key = k0 + 8 * n + 2 * t4 + (e & 1);
           const int row = lo ? row_lo : row_hi;
-          if (edge && (key > row || key >= s_len ||
+          if (edge && ((kMask != kFull && key > row) || key >= s_len ||
                        (window > 0 && row - key >= window))) {
             p = 0.0f;
           }
@@ -1048,7 +1069,7 @@ cudaError_t launch_delta(const void* o, const void* dout, float* delta,
   return cudaGetLastError();
 }
 
-template <int HD, bool kWindow>
+template <int HD, int kMask>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv,
@@ -1059,16 +1080,16 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
   static bool dkdv_set = false;  // per instantiation
   static bool dq_set = false;
   cudaError_t err =
-      allow_smem(attn_bwd_dkdv<HD, kWindow>, dkdv_smem, &dkdv_set);
+      allow_smem(attn_bwd_dkdv<HD, kMask>, dkdv_smem, &dkdv_set);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_dq<HD, kWindow>, dq_smem, &dq_set);
+  err = allow_smem(attn_bwd_dq<HD, kMask>, dq_smem, &dq_set);
   if (err != cudaSuccess) return err;
   err = launch_delta<float, HD>(o, dout, delta, batch, s_len, n_heads,
                                 stream);
   if (err != cudaSuccess) return err;
 
   const unsigned n_tiles = static_cast<unsigned>((s_len + kTile - 1) / kTile);
-  attn_bwd_dkdv<HD, kWindow>
+  attn_bwd_dkdv<HD, kMask>
       <<<dim3(static_cast<unsigned>(batch * n_kv), n_tiles), kThreads,
          static_cast<size_t>(dkdv_smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1078,7 +1099,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  attn_bwd_dq<HD, kWindow>
+  attn_bwd_dq<HD, kMask>
       <<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles), kThreads,
          static_cast<size_t>(dq_smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1087,7 +1108,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int HD, bool kWindow>
+template <int HD, int kMask>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv,
@@ -1100,9 +1121,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   static bool dkdv_set = false;  // per instantiation
   static bool dq_set = false;
   cudaError_t err =
-      allow_smem(attn_bwd_dkdv_mma<HD, kWindow>, dkdv_smem, &dkdv_set);
+      allow_smem(attn_bwd_dkdv_mma<HD, kMask>, dkdv_smem, &dkdv_set);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_dq_mma<HD, kWindow>, dq_smem, &dq_set);
+  err = allow_smem(attn_bwd_dq_mma<HD, kMask>, dq_smem, &dq_set);
   if (err != cudaSuccess) return err;
   err = launch_delta<bf16, HD>(o, dout, delta, batch, s_len, n_heads, stream);
   if (err != cudaSuccess) return err;
@@ -1110,7 +1131,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * kLog2e;
   const unsigned n_tiles =
       static_cast<unsigned>((s_len + kMmaRows - 1) / kMmaRows);
-  attn_bwd_dkdv_mma<HD, kWindow>
+  attn_bwd_dkdv_mma<HD, kMask>
       <<<dim3(static_cast<unsigned>(batch * n_kv * splits), n_tiles),
          kMmaThreads, static_cast<size_t>(dkdv_smem), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -1130,7 +1151,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
 
-  attn_bwd_dq_mma<HD, kWindow>
+  attn_bwd_dq_mma<HD, kMask>
       <<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles), kMmaThreads,
          static_cast<size_t>(dq_smem), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -1140,29 +1161,43 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int HD, int kMask>
+cudaError_t launch_dtype(int dtype, const void* q, const void* k,
+                         const void* v, const void* o, const void* dout,
+                         const float* lse, float* delta, void* dq, void* dk,
+                         void* dv, float* partial, int64_t batch, int s_len,
+                         int n_heads, int n_kv, int splits, int window,
+                         float scale, cudaStream_t stream) {
+  return dtype == 0
+             ? launch_fma<HD, kMask>(q, k, v, o, dout, lse, delta, dq, dk,
+                                     dv, batch, s_len, n_heads, n_kv, window,
+                                     scale, stream)
+             : launch_mma<HD, kMask>(q, k, v, o, dout, lse, delta, dq, dk,
+                                     dv, partial, batch, s_len, n_heads,
+                                     n_kv, splits, window, scale, stream);
+}
+
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv,
                    float* partial, int64_t batch, int s_len, int n_heads,
-                   int n_kv, int splits, int window, float scale,
-                   cudaStream_t stream) {
-  if (window > 0) {
-    return dtype == 0
-               ? launch_fma<HD, true>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, batch, s_len, n_heads, n_kv,
-                                      window, scale, stream)
-               : launch_mma<HD, true>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, partial, batch, s_len, n_heads,
-                                      n_kv, splits, window, scale, stream);
+                   int n_kv, int splits, int window, bool causal,
+                   float scale, cudaStream_t stream) {
+  if (!causal) {
+    return launch_dtype<HD, kFull>(dtype, q, k, v, o, dout, lse, delta, dq,
+                                   dk, dv, partial, batch, s_len, n_heads,
+                                   n_kv, splits, 0, scale, stream);
   }
-  return dtype == 0
-             ? launch_fma<HD, false>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, batch, s_len, n_heads, n_kv, 0,
-                                     scale, stream)
-             : launch_mma<HD, false>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, partial, batch, s_len, n_heads,
-                                     n_kv, splits, 0, scale, stream);
+  if (window > 0) {
+    return launch_dtype<HD, kWindowed>(dtype, q, k, v, o, dout, lse, delta,
+                                       dq, dk, dv, partial, batch, s_len,
+                                       n_heads, n_kv, splits, window, scale,
+                                       stream);
+  }
+  return launch_dtype<HD, kCausal>(dtype, q, k, v, o, dout, lse, delta, dq,
+                                   dk, dv, partial, batch, s_len, n_heads,
+                                   n_kv, splits, 0, scale, stream);
 }
 
 }  // namespace
@@ -1180,7 +1215,8 @@ extern "C" {
 // n_kv); with splits > 1, partial is a float32 scratch of 2 * splits *
 // batch * s_len * n_kv * head_dim elements, overwritten.  window: 0 is
 // causal; 1 .. s_len the forward's sliding window (larger values are
-// refused: the caller passes s_len for them).
+// refused: the caller passes s_len for them).  causal: 1, or 0 for the
+// unmasked forward's gradients (window 0 only).
 int repro_flash_attention_bwd_split(const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* dout, const void* lse,
@@ -1188,7 +1224,8 @@ int repro_flash_attention_bwd_split(const void* q, const void* k,
                                     void* partial, int64_t batch,
                                     int64_t s_len, int n_heads, int n_kv,
                                     int head_dim, int dtype, float scale,
-                                    int splits, int window, void* stream) {
+                                    int splits, int window, int causal,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
       n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
@@ -1196,7 +1233,8 @@ int repro_flash_attention_bwd_split(const void* q, const void* k,
       (dtype != 0 && dtype != 1) || splits < 1 ||
       (n_heads / n_kv) % splits != 0 ||
       (splits > 1 && (dtype != 1 || partial == nullptr)) || window < 0 ||
-      window > s_len) {
+      window > s_len || (causal != 0 && causal != 1) ||
+      (causal == 0 && window != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1 &&
@@ -1213,19 +1251,23 @@ int repro_flash_attention_bwd_split(const void* q, const void* k,
   switch (head_dim) {
     case 16:
       err = launch<16>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, window, scale, s);
+                       batch, sl, n_heads, n_kv, splits, window, causal == 1,
+                       scale, s);
       break;
     case 32:
       err = launch<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, window, scale, s);
+                       batch, sl, n_heads, n_kv, splits, window, causal == 1,
+                       scale, s);
       break;
     case 64:
       err = launch<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, window, scale, s);
+                       batch, sl, n_heads, n_kv, splits, window, causal == 1,
+                       scale, s);
       break;
     case 128:
       err = launch<128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                        batch, sl, n_heads, n_kv, splits, window, scale, s);
+                        batch, sl, n_heads, n_kv, splits, window, causal == 1,
+                       scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1240,11 +1282,11 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               void* dk, void* dv, int64_t batch,
                               int64_t s_len, int n_heads, int n_kv,
                               int head_dim, int dtype, float scale,
-                              int window, void* stream) {
+                              int window, int causal, void* stream) {
   return repro_flash_attention_bwd_split(q, k, v, o, dout, lse, delta, dq,
                                          dk, dv, nullptr, batch, s_len,
                                          n_heads, n_kv, head_dim, dtype,
-                                         scale, 1, window, stream);
+                                         scale, 1, window, causal, stream);
 }
 
 }  // extern "C"

@@ -6,6 +6,9 @@ causal attention with an online softmax in fp32, scale ``1/sqrt(hd)``.
 The forward also takes a sliding ``window`` (query q sees keys ``q -
 window < k <= q``), which the Pallas kernel does not have: JAX computes
 the windowed attention in XLA (``blocked_causal_attention(window=)``).
+``causal=False`` lets every query see every key (an encoder's
+self-attention, JAX's ``plain_attention(causal=False)`` in XLA), forward
+and backward, with no window.
 The kernel takes the model's layout, q (B, S, H, hd) and k/v (B, S, K, hd)
 with ``H % K == 0`` (query head h reads KV head ``h // (H // K)``), any S,
 fp32 or bf16, hd in {16, 32, 64, 128}.  bf16 runs the products on the
@@ -53,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("flash_attention")
         lib.repro_flash_attention.argtypes = [_VP] * 5 + [
-            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _I64, _VP]
+            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _I64, _INT, _VP]
         lib.repro_flash_attention.restype = _INT
         _LIB = lib
     return _LIB
@@ -65,7 +68,7 @@ def _bwd_lib() -> ctypes.CDLL:
     if _BWD_LIB is None:
         lib = _build.load("flash_attention_bwd")
         lib.repro_flash_attention_bwd_split.argtypes = [_VP] * 11 + [
-            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _INT, _INT, _VP]
+            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _INT, _INT, _INT, _VP]
         lib.repro_flash_attention_bwd_split.restype = _INT
         _BWD_LIB = lib
     return _BWD_LIB
@@ -89,16 +92,18 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    with_lse: bool = False, window: int = 0):
+                    with_lse: bool = False, window: int = 0,
+                    causal: bool = True):
     """q: (B, S, H, hd); k/v: (B, S, K, hd), one dtype (fp32 or bf16) on one
     card -> (B, S, H, hd) causal attention in q's dtype; with ``with_lse``,
     ``(out, lse)`` with lse (B, H, S) fp32, each row's log-sum-exp of its
     scaled scores (natural log).  Without it the output's bits are those
     of the serve path.  ``window > 0``: query q sees keys ``q - window < k
-    <= q`` only (JAX's sliding window); 0 is causal."""
+    <= q`` only (JAX's sliding window); 0 is causal.  ``causal=False``:
+    every query sees every key (no window)."""
     _check_qkv(q, k, v, "flash_attention")
     b, s, h, hd = q.shape
-    window = _window(window, s, "flash_attention")
+    window = _window(window, s, causal, "flash_attention")
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -114,7 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], hd,
-            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), window, stream)
+            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), window, int(causal),
+            stream)
     _raise_on(err, "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if with_lse else out
@@ -123,12 +129,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def _window(window: int, s: int, fn: str) -> int:
+def _window(window: int, s: int, causal: bool, fn: str) -> int:
     """The window as the kernels take it: 0 (causal) or 1 .. S; a window
-    of S or more masks no key of a real row, so it is passed as S."""
+    of S or more masks no key of a real row, so it is passed as S.  An
+    unmasked (``causal=False``) attention takes none."""
     if window < 0:
         raise ValueError(f"{fn} window {window}: expected >= 0 (0 is "
                          "causal)")
+    if window and not causal:
+        raise ValueError(f"{fn}: a window ({window}) is causal; "
+                         "causal=False takes none")
     return min(window, s)
 
 
@@ -152,12 +162,12 @@ def bwd_splits(b: int, s: int, n_kv: int, group: int, sms: int) -> int:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         lse: torch.Tensor, splits: Optional[int] = None,
-                        window: int = 0):
+                        window: int = 0, causal: bool = True):
     """The gradients of :func:`flash_attention`: q, o and do (B, S, H, hd);
     k/v (B, S, K, hd), one dtype on one card; lse (B, H, S) fp32 from the
-    forward of the same ``window`` (0 is causal) -> ``(dq, dk, dv)``, dq
-    in q's dtype and dk, dv in k's.  ``splits`` (bf16 only) overrides
-    :func:`bwd_splits`'s choice; it must divide H / K."""
+    forward of the same ``window`` (0 is causal) and ``causal`` -> ``(dq,
+    dk, dv)``, dq in q's dtype and dk, dv in k's.  ``splits`` (bf16 only)
+    overrides :func:`bwd_splits`'s choice; it must divide H / K."""
     _check_qkv(q, k, v, "flash_attention_bwd")
     _check(o, "o", 4, (q.dtype,), q.device)
     _check(do, "do", 4, (q.dtype,), q.device)
@@ -168,7 +178,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention_bwd shapes do not match: q {tuple(q.shape)}, "
             f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
             f"{tuple(lse.shape)} (expected o, do like q, lse (B, H, S))")
-    window = _window(window, s, "flash_attention_bwd")
+    window = _window(window, s, causal, "flash_attention_bwd")
     n_kv = k.shape[2]
     bf16 = q.dtype == torch.bfloat16
     if splits is not None and (splits < 1 or (h // n_kv) % splits
@@ -199,7 +209,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dk.data_ptr(), dv.data_ptr(),
             None if partial is None else partial.data_ptr(), b, s, h, n_kv,
             hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), splits, window,
-            stream)
+            int(causal), stream)
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -238,20 +238,20 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal attention, in a sliding ``window`` when it is above 0; the
-    backward recomputes p from the forward's log-sum-exp under the same
-    window: ``flash_attention_bwd`` on the card, its plain version on the
-    CPU."""
+    """Causal attention, in a sliding ``window`` when it is above 0, or
+    unmasked (``causal`` False); the backward recomputes p from the
+    forward's log-sum-exp under the same mask: ``flash_attention_bwd`` on
+    the card, its plain version on the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
+    def forward(ctx, q, k, v, window, causal):
         if _on_cuda(q):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             o, lse = _fa.flash_attention(q, k, v, with_lse=True,
-                                         window=window)
+                                         window=window, causal=causal)
         else:
-            o, lse = ref.causal_attention_lse_ref(q, k, v, window)
-        ctx.window = window
+            o, lse = ref.causal_attention_lse_ref(q, k, v, window, causal)
+        ctx.window, ctx.causal = window, causal
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -260,26 +260,29 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if _on_cuda(q):
             grads = _fa.flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
-                                            window=ctx.window)
+                                            window=ctx.window,
+                                            causal=ctx.causal)
         else:
             grads = ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                ctx.window)
-        return (*grads, None)
+                                                ctx.window, ctx.causal)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype (query head h reads KV head
     ``h // (H // K)``), scale ``1/sqrt(hd)``, any S; ``window > 0`` limits
-    query q to keys ``q - window < k <= q`` (0 is causal).  Differentiable
-    in q, k and v, with or without a window."""
+    query q to keys ``q - window < k <= q`` (0 is causal); ``causal=False``
+    lets every query see every key (no window).  Differentiable in q, k and
+    v, whatever the mask."""
     if _requires_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, window)
+        return _FlashAttention.apply(q, k, v, window, causal)
     if _on_cuda(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), window=window)
-    return ref.causal_attention_ref(q, k, v, window)
+                                   v.contiguous(), window=window,
+                                   causal=causal)
+    return ref.causal_attention_ref(q, k, v, window, causal)
 
 
 class _SelectiveScan(torch.autograd.Function):

@@ -17,10 +17,11 @@ one), so the plain versions give the kernels' bits on both devices.
 The attention versions (``causal_attention_ref``,
 ``causal_attention_lse_ref``, ``flash_attention_ref`` and the backward
 ``flash_attention_bwd_ref``) sum in another order than the kernels and
-agree with them within a tolerance; the first two take the forward's
-sliding ``window``.  ``selective_scan_ref`` is the mamba-1 scan's plain
-version (its kernel has no TPU counterpart: JAX's scan is XLA), the same
-recurrence step by step.
+agree with them within a tolerance; all but ``flash_attention_ref`` take
+the forward's sliding ``window`` and ``causal=False`` (no mask).
+``selective_scan_ref`` is the mamba-1 scan's plain version (its kernel
+has no TPU counterpart: JAX's scan is XLA), the same recurrence step by
+step.
 """
 from __future__ import annotations
 
@@ -221,17 +222,23 @@ def chamfer_ref(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 # LM attention.
 # ---------------------------------------------------------------------------
 
-def _causal_scores(q: torch.Tensor, k: torch.Tensor,
-                   window: int = 0) -> torch.Tensor:
+def _scores(q: torch.Tensor, k: torch.Tensor, window: int = 0,
+            causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, hd); k: (B, S, K, hd) -> (B, K, G, S, S) scaled scores
     in the compute dtype, -inf above the diagonal and, with a ``window``,
-    where ``q - k >= window`` (JAX's ``plain_attention`` mask)."""
+    where ``q - k >= window`` (JAX's ``plain_attention`` mask); unmasked
+    when ``causal`` is False (which takes no window)."""
+    if window and not causal:
+        raise ValueError(f"a window ({window}) is causal; causal=False "
+                         "takes none")
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
     ct = _compute_dtype(q)
     qg = q.to(ct).reshape(b, s, n_kv, h // n_kv, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct)) * (
         1.0 / math.sqrt(hd))
+    if not causal:
+        return scores
     keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     if window:
         keep = keep.triu(1 - window)
@@ -246,26 +253,30 @@ def _attend(scores: torch.Tensor, q: torch.Tensor,
 
 
 def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, window: int = 0) -> torch.Tensor:
+                         v: torch.Tensor, window: int = 0,
+                         causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype, scale ``1/sqrt(hd)``, computed in
     fp32 (p stays fp32 for the p v product, as in the Pallas kernel; the
     bf16 CUDA kernel rounds it to bf16 there).  ``window > 0``: query q
     sees keys ``q - window < k <= q`` only (a sliding window; 0 is causal).
+    ``causal=False``: every query sees every key, no window (JAX's
+    ``plain_attention(causal=False)``, an encoder's self-attention).
 
     Heads are grouped as ``src/repro/models/layers.py:65-75`` groups them:
     ``q.reshape(B, S, K, G, hd)`` with ``G = H // K``, so query head
     ``h = kv * G + g`` reads KV head ``h // G`` (not ``h % K``)."""
-    return _attend(_causal_scores(q, k, window), q, v)
+    return _attend(_scores(q, k, window, causal), q, v)
 
 
 def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, window: int = 0):
+                             v: torch.Tensor, window: int = 0,
+                             causal: bool = True):
     """:func:`causal_attention_ref` and each row's log-sum-exp of its
     scaled scores: ``(o, lse)``, lse (B, H, S) in the compute dtype (fp32;
     fp64 for fp64 inputs), what the backward recomputes p from."""
     b, s, h, _ = q.shape
-    scores = _causal_scores(q, k, window)
+    scores = _scores(q, k, window, causal)
     lse = torch.logsumexp(scores, dim=-1).reshape(b, h, s)
     return _attend(scores, q, v), lse
 
@@ -273,10 +284,10 @@ def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor,
-                            window: int = 0):
+                            window: int = 0, causal: bool = True):
     """The plain attention backward: q, o, do (B, S, H, hd); k/v (B, S, K,
     hd); lse (B, H, S) from the forward of the same ``window`` (0 is
-    causal) -> ``(dq, dk, dv)`` in q's and k's dtypes.  With s the scaled
+    causal) and ``causal`` -> ``(dq, dk, dv)`` in q's and k's dtypes.  With s the scaled
     scores, p = exp(s - lse) where the forward lets a query see a key (0
     elsewhere) and delta = sum_d do o: dV = p^T dO, dS = p (dO v^T -
     delta), dQ = dS k * scale, dK = dS^T q * scale, dK and dV summed over
@@ -286,7 +297,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     n_kv = k.shape[2]
     g = h // n_kv
     scale = 1.0 / math.sqrt(hd)
-    scores = _causal_scores(q, k, window)
+    scores = _scores(q, k, window, causal)
     ct = scores.dtype
     p = torch.exp(scores - lse.to(ct).reshape(b, n_kv, g, s, 1))
     qg, og, dog = (t.to(ct).reshape(b, s, n_kv, g, hd) for t in (q, o, do))

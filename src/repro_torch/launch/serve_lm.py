@@ -25,8 +25,10 @@ as they are, which only works at fp32: at bf16 ``decode_step_embeds``
 raises there.)  As in the example, the first step feeds the prompt's last
 token again.  An MoE LM is served unchanged: its prefill dispatches by
 capacity, its decode steps route densely (``dense_route``).  There is no
-frontend argument, as the example has none: a VLM is served through
-``build(cfg).prefill({"tokens", "frontend"})`` and ``.decode``.  An SSM or
+frontend argument, as the example has none: a VLM, and the
+encoder-decoder LM (``whisper-large-v3``, whose encoder reads audio
+frames), are served through ``build(cfg).prefill({"tokens",
+"frontend"})`` and ``.decode``.  An SSM or
 hybrid LM is served unchanged too: its cache carries each layer's conv
 and SSM states, and a sliding window caps the key cache at the window, a
 ring that the decode wraps.

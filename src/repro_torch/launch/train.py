@@ -24,8 +24,9 @@ Not ported: ``--model-parallel > 1`` and ``--grad-compression int8_ef``
 feeds LM data only (tokens and labels), so ``--arch`` is an LM the port
 builds: dense, MoE (its loss adds the load-balance term), the VLM (its
 text alone, no frontend, as in JAX), the SSM LM or the hybrid LM
-(falcon-mamba-7b, hymba-1.5b); DLRM is refused, and the encoder-decoder
-LM is not ported (ROADMAP A11c-5).  The optimizer is
+(falcon-mamba-7b, hymba-1.5b); DLRM and the encoder-decoder LM (whose
+data would need audio frames) are refused and train through
+:func:`repro_torch.launch.steps.make_train_step`.  The optimizer is
 ``OptConfig(lr, total_steps)`` with JAX's defaults (fp32 moments, no
 master copy): JAX's launcher has no flag for either knob.
 """
@@ -130,6 +131,11 @@ def main(argv=None, cfg=None):
         raise NotImplementedError(
             f"--arch {cfg.name}: the launcher feeds LM data only, as JAX's "
             "does (DLRM trains through make_train_step)")
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"--arch {cfg.name}: the launcher's data feeds no frontend, as "
+            "JAX's feeds none (the encoder-decoder LM trains through "
+            "make_train_step)")
     if args.reduced:
         cfg = cfg.reduced()
     run = RunConfig(remat=args.remat)

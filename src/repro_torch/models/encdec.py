@@ -1,0 +1,280 @@
+"""The whisper-style encoder-decoder LM in PyTorch: init, training loss,
+prefill and decode.
+
+Ported from ``src/repro/models/encdec.py``: ``init_enc_layer``/
+``init_dec_layer``/``init_encdec`` (:23-61) as the ``nn.Module``
+:class:`EncDecLM` with ``ModuleList``s of blocks in place of the stacked
+``lax.scan``; ``encode`` (:70-92), ``_dec_layer`` (:100),
+``decode_forward`` (:114), ``encdec_loss`` (:132), ``encdec_prefill``
+(:142), ``init_encdec_cache`` (:160) and ``encdec_decode_step`` (:171).
+The conv/mel frontend is a stub, as in JAX: the encoder reads
+precomputed frame embeddings (B, Se, D).  The encoder's self-attention
+is unmasked, JAX's ``plain_attention(causal=False)`` in XLA: here
+``flash_attention``'s unmasked instantiation on the card (its plain
+version on the CPU), forward and, under autograd, backward.  The
+decoder's causal self-attention is the same kernel's causal path, and
+its cross-attention over the encoder output ``plain_attention`` in
+PyTorch (queries and keys of different lengths; XLA in JAX).  The MLPs
+are whisper's ungated GELU.  Positions are rotary, as in JAX (the TPU-era
+stand-in for whisper's learned and sinusoidal embeddings).
+
+``remat="full"`` runs each encoder and decoder layer under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as
+:func:`repro_torch.models.transformer.backbone` does: the backward
+recomputes the layer, so each layer's attention forward runs twice a
+training step.
+
+The cache is ``{"pos": int, "k", "v": (L, B, C, K, hd), "xk", "xv": (L,
+B, Se, K, hd)}`` in the compute dtype: the decoder's self-attention keys
+(C slots, a ring as in the decoder-only LMs) and the cross-attention's
+keys and values, computed once at prefill.  Decode writes each new key and
+value into the cache in place and returns the same tensors with ``pos +
+1``.  Prefill and decode run under ``torch.inference_mode()``.  Parameters
+come from a seeded ``torch.Generator`` with JAX's shapes and scales (other
+numbers); :func:`params_from_jax` carries JAX's parameters over for the
+parity tests.  They are created with ``requires_grad=False``; training
+switches them on.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.dlrm import _tensor, torch_dtype
+
+
+class DecBlock(T.Block):
+    """A decoder layer: ``ln1``, causal self-``attn``, ``lnx``, the
+    cross-attention ``xattn`` (no biases, no qk norms), ``ln2`` and the
+    GELU ``mlp``.  An encoder layer is a :class:`~repro_torch.models.
+    transformer.Block` of ``ln1``, ``attn``, ``ln2`` and ``mlp``."""
+
+    def __init__(self, ln1, attn, lnx, xattn, ln2, mlp):
+        super().__init__(ln1, attn, mlp, ln2)
+        self.lnx = nn.Parameter(lnx, requires_grad=False)
+        self.xattn = T._params(xattn)
+
+
+class EncDecLM(nn.Module):
+    """``embed`` (V, D), ``enc_blocks``, ``dec_blocks``, ``enc_norm`` and
+    ``final_norm`` (D,), ``lm_head`` (D, V)."""
+
+    def __init__(self, cfg: ModelConfig, embed, enc_blocks, dec_blocks,
+                 enc_norm, final_norm, lm_head):
+        super().__init__()
+        if not cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is not an encoder-decoder config")
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.enc_blocks = nn.ModuleList(enc_blocks)
+        self.dec_blocks = nn.ModuleList(dec_blocks)
+        self.enc_norm = nn.Parameter(enc_norm, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+
+
+def init_encdec(cfg: ModelConfig, seed: int = 0,
+                device="cuda") -> EncDecLM:
+    """Random parameters on ``device`` from one seeded ``torch.Generator``,
+    with the shapes and scales of the JAX ``init_encdec``: weights normal
+    times ``1/sqrt(fan_in)``, the embedding normal times 0.02, norms
+    ones."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch_dtype(cfg.param_dtype)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
+    enc = [T.Block(ones(), L.init_attn(g, cfg, dt, dev),
+                   L.init_mlp(g, cfg, dt, dev, gated=False), ones())
+           for _ in range(cfg.n_enc_layers)]
+    dec = [DecBlock(ones(), L.init_attn(g, cfg, dt, dev), ones(),
+                    L.init_attn(g, cfg, dt, dev, cross=True), ones(),
+                    L.init_mlp(g, cfg, dt, dev, gated=False))
+           for _ in range(cfg.n_layers)]
+    embed = L._normal(g, (cfg.vocab, cfg.d_model), 0.02, dt, dev)
+    head = L._normal(g, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(
+        cfg.d_model), dt, dev)
+    return EncDecLM(cfg, embed, enc, dec, ones(), ones(), head)
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> EncDecLM:
+    """The JAX ``init_encdec`` pytree, as NumPy arrays (``{"embed",
+    "enc_blocks", "dec_blocks"`` stacked on a leading L axis,
+    ``"enc_norm", "final_norm", "lm_head"}``), as the port's model on
+    ``device``: the L axes unstacked, same dtypes, same bits."""
+    dev = resolve_device(device)
+
+    def layer(stack, i):
+        return {name: (_tensor(np.asarray(sub)[i], dev)
+                       if not isinstance(sub, dict) else
+                       {k: _tensor(np.asarray(a)[i], dev)
+                        for k, a in sub.items()})
+                for name, sub in stack.items()}
+
+    enc = [layer(tree["enc_blocks"], i) for i in range(cfg.n_enc_layers)]
+    dec = [layer(tree["dec_blocks"], i) for i in range(cfg.n_layers)]
+    return EncDecLM(
+        cfg, _tensor(tree["embed"], dev),
+        [T.Block(e["ln1"], e["attn"], e["mlp"], e["ln2"]) for e in enc],
+        [DecBlock(d["ln1"], d["attn"], d["lnx"], d["xattn"], d["ln2"],
+                  d["mlp"]) for d in dec],
+        _tensor(tree["enc_norm"], dev), _tensor(tree["final_norm"], dev),
+        _tensor(tree["lm_head"], dev))
+
+
+# ---------------------------------------------------------------------------
+# Encoder and decoder
+# ---------------------------------------------------------------------------
+
+
+def _run_layers(blocks, run: RunConfig, fn, x: torch.Tensor,
+                *extra) -> torch.Tensor:
+    """x through ``fn(blk, x, *extra) -> x`` for each block, each
+    recomputed in the backward under ``remat="full"``."""
+    for blk in blocks:
+        if run.remat == "full":
+            x = checkpoint(fn, blk, x, *extra, use_reentrant=False)
+        else:
+            x = fn(blk, x, *extra)
+    return x
+
+
+def encode(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, Se, D) precomputed stub embeddings -> (B, Se, D) in the
+    compute dtype: pre-norm layers of unmasked self-attention and the GELU
+    MLP, then ``enc_norm``."""
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+
+    def layer(blk, x):
+        h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+        x = x + L.attn_block(blk.attn, cfg, h, positions, causal=False)[0]
+        return x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
+
+    x = _run_layers(model.enc_blocks, run, layer,
+                    frames.to(torch_dtype(cfg.compute_dtype)))
+    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
+def _dec_layer(blk: DecBlock, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, enc_out: torch.Tensor):
+    """One decoder layer over the whole sequence: causal self-attention,
+    cross-attention over ``enc_out``, the MLP.  Returns ``(x, {"k", "v",
+    "xk", "xv"})``."""
+    h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+    attn_out, (k, v) = L.attn_block(blk.attn, cfg, h, positions)
+    x = x + attn_out
+    hx = L.rms_norm(x, blk.lnx, cfg.norm_eps)
+    xk, xv = L.cross_kv(blk.xattn, cfg, enc_out)
+    x = x + L.cross_attn_block(blk.xattn, cfg, hx, xk, xv)
+    x = x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
+    return x, {"k": k, "v": v, "xk": xk, "xv": xv}
+
+
+def decode_forward(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
+                   tokens: torch.Tensor, enc_out: torch.Tensor,
+                   want_cache: bool = False):
+    """tokens (B, S) over ``enc_out`` (B, Se, D) -> ``(x (B, S, D) after
+    ``final_norm``, caches)``: with ``want_cache`` each layer's ``{"k",
+    "v", "xk", "xv"}`` in a list (no remat), else None."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = T._embed(model, cfg, tokens)
+    caches = None
+    if want_cache:
+        caches = []
+        for blk in model.dec_blocks:
+            x, c = _dec_layer(blk, cfg, x, positions, enc_out)
+            caches.append(c)
+    else:
+        x = _run_layers(
+            model.dec_blocks, run,
+            lambda blk, x_, e: _dec_layer(blk, cfg, x_, positions, e)[0],
+            x, enc_out)
+    return L.rms_norm(x, model.final_norm, cfg.norm_eps), caches
+
+
+def encdec_loss(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
+                tokens: torch.Tensor, labels: torch.Tensor,
+                frames: torch.Tensor) -> torch.Tensor:
+    """The decoder's LM loss over the encoded frames, fp32: tokens/labels
+    (B, S) int, labels < 0 masked."""
+    x, _ = decode_forward(model, cfg, run, tokens,
+                          encode(model, cfg, run, frames))
+    mask = (labels >= 0).float()
+    num, den = T._ce(T._logits(model, cfg, x), labels.clamp_min(0).long(),
+                     mask)
+    return num / den.clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_encdec_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype=None, device="cuda",
+                      enc_len: Optional[int] = None) -> Dict:
+    """Zeroed decode cache: ``cache_len`` self-attention slots and
+    ``enc_len`` (``cfg.enc_len`` by default) cross-attention positions a
+    layer, in the compute dtype."""
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.compute_dtype)
+    n, kv, hd = cfg.n_layers, cfg.kv_heads, cfg.hd
+    se = cfg.enc_len if enc_len is None else enc_len
+    cache = {"pos": 0}
+    for name, length in (("k", cache_len), ("v", cache_len), ("xk", se),
+                         ("xv", se)):
+        cache[name] = torch.zeros((n, batch, length, kv, hd), dtype=dt,
+                                  device=dev)
+    return cache
+
+
+@torch.inference_mode()
+def encdec_prefill(model: EncDecLM, cfg: ModelConfig, tokens: torch.Tensor,
+                   frames: torch.Tensor, cache_len: Optional[int] = None):
+    """tokens (B, S) and frames (B, Se, D) on the model's device ->
+    ``(last-token logits (B, V) fp32, cache at pos = S)``.  The
+    self-attention cache holds ``max(cache_len, S)`` slots, zero-padded past
+    S (JAX pads a ``cache_len`` above S and keeps S below it)."""
+    run = RunConfig()
+    b, s = tokens.shape
+    enc_out = encode(model, cfg, run, frames)
+    x, caches = decode_forward(model, cfg, run, tokens, enc_out,
+                               want_cache=True)
+    cache = init_encdec_cache(cfg, b, max(cache_len or s, s), x.dtype,
+                              tokens.device, enc_out.shape[1])
+    for i, c in enumerate(caches):
+        cache["k"][i, :, :s] = c["k"]
+        cache["v"][i, :, :s] = c["v"]
+        cache["xk"][i] = c["xk"]
+        cache["xv"][i] = c["xv"]
+    cache["pos"] = s
+    return T._logits(model, cfg, x[:, -1:])[:, 0], cache
+
+
+@torch.inference_mode()
+def encdec_decode_step(model: EncDecLM, cfg: ModelConfig,
+                       token: torch.Tensor, cache: Dict):
+    """token (B, 1) -> ``(logits (B, V) fp32, cache)``: the new key and
+    value of every layer written into slot ``pos % C`` in place, the
+    cross-attention over the cached ``xk``/``xv``."""
+    pos = cache["pos"]
+    x = T._embed(model, cfg, token)
+    for i, blk in enumerate(model.dec_blocks):
+        h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+        x = x + L.attn_decode_block(blk.attn, cfg, h, cache["k"][i],
+                                    cache["v"][i], pos)[0]
+        hx = L.rms_norm(x, blk.lnx, cfg.norm_eps)
+        x = x + L.cross_attn_block(blk.xattn, cfg, hx, cache["xk"][i],
+                                   cache["xv"][i])
+        x = x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return T._logits(model, cfg, x)[:, 0], {**cache, "pos": pos + 1}

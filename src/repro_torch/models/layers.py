@@ -1,9 +1,13 @@
 """Building blocks of the dense and MoE LMs, in PyTorch.
 
 Ported from ``src/repro/models/layers.py``: ``rms_norm`` (:35), ``rope``
-(:42), ``blocked_causal_attention`` (:142), ``decode_attention`` (:246),
+(:42), ``plain_attention`` (:77, the unmasked case the cross-attention
+takes), ``blocked_causal_attention`` (:142),
+``decode_attention`` (:246),
 ``init_attn``/``_qkv``/``attn_block``/``attn_decode_block`` (:270-349),
-``init_mlp``/``mlp_block`` (:378-397), ``init_moe``/
+the whisper decoder's ``cross_attn_block``/``cross_kv`` (:356-370),
+``init_mlp``/``mlp_block`` (:378-397; gated SwiGLU, or whisper's ungated
+GELU with ``jax.nn.gelu``'s default tanh approximation), ``init_moe``/
 ``_moe_dispatch_ffn``/``moe_block`` (:406-504) and the mamba-1 block,
 ``init_mamba``/``_causal_conv``/``_ssm_params``/``selective_scan``/
 ``mamba_block``/``mamba_decode_block`` (:559-694).  Layouts are the JAX
@@ -24,7 +28,11 @@ JAX's does: a sliding config's cache is a ring capped at the window.  Not
 ported: ``kv_stream_attention``, the sequence-parallel branch of
 ``attn_block`` and the MoE's data-local dispatch
 (``_moe_dispatch_ffn_sharded``, ``local_dispatch``): they need a mesh
-(ROADMAP A10b); the cross-attention block (ROADMAP A11c-5).
+(ROADMAP A10b).  ``attn_block(causal=False)`` is the encoder's
+self-attention (JAX's ``plain_attention(causal=False)``, XLA), the same
+kernel with its unmasked instantiation; the cross-attention, whose queries
+and keys differ in length, is ``plain_attention`` in PyTorch, as JAX's is
+XLA.
 
 ``selective_scan`` is the port's CUDA ``selective_scan`` kernel on the
 card (``kernels/ref.py::selective_scan_ref`` on the CPU): a sequential
@@ -98,6 +106,21 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
 
 
+def plain_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """JAX's ``plain_attention(causal=False)``, unmasked, materialising its
+    (Sq, Sk) scores: q (B, Sq, H, hd), k/v (B, Sk, K, hd) -> q's shape, in
+    v's dtype.  Scores and softmax in fp32, p rounded to v's dtype for the
+    p v product (JAX's ``_gqa_out``)."""
+    b, sq, h, hd = q.shape
+    n_kv = k.shape[2]
+    p = torch.softmax(_gqa_scores(q.reshape(b, sq, n_kv, h // n_kv, hd), k,
+                                  1.0 / math.sqrt(hd)), dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(),
+                     v.float()).to(v.dtype)
+    return o.reshape(b, sq, h, hd)
+
+
 def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor,
                              window: int = 0) -> torch.Tensor:
@@ -138,18 +161,20 @@ def _normal(g: torch.Generator, shape, scale: float, dt: torch.dtype,
 
 
 def init_attn(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
-              dev: torch.device) -> Dict[str, torch.Tensor]:
-    """The JAX ``init_attn`` draws (same shapes and scales), from ``g``."""
+              dev: torch.device, cross: bool = False
+              ) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_attn`` draws (same shapes and scales), from ``g``; a
+    cross-attention (``cross``) has no biases and no qk norms."""
     d, h, n_kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
     sc = 1.0 / math.sqrt(d)
     p = {"wq": _normal(g, (d, h * hd), sc, dt, dev),
          "wk": _normal(g, (d, n_kv * hd), sc, dt, dev),
          "wv": _normal(g, (d, n_kv * hd), sc, dt, dev),
          "wo": _normal(g, (h * hd, d), 1.0 / math.sqrt(h * hd), dt, dev)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", h), ("bk", n_kv), ("bv", n_kv)):
             p[name] = torch.zeros((n * hd,), dtype=dt, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((hd,), dtype=dt, device=dev)
         p["k_norm"] = torch.ones((hd,), dtype=dt, device=dev)
     return p
@@ -172,12 +197,16 @@ def _qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def attn_block(p, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor):
+               positions: torch.Tensor, causal: bool = True):
     """Full-sequence (prefill) self-attention, in a sliding window when
-    ``cfg.attn_type == "sliding"``.  Returns ``(out, (k, v))``."""
+    ``cfg.attn_type == "sliding"``; unmasked with ``causal=False`` (the
+    encoder's).  Returns ``(out, (k, v))``."""
     q, k, v = _qkv(p, cfg, x, positions)
-    window = cfg.window if cfg.attn_type == "sliding" else 0
-    o = blocked_causal_attention(q, k, v, window)
+    if causal:
+        window = cfg.window if cfg.attn_type == "sliding" else 0
+        o = blocked_causal_attention(q, k, v, window)
+    else:
+        o = ops.flash_attention(q, k, v, causal=False)
     return o.reshape(*o.shape[:2], -1) @ p["wo"], (k, v)
 
 
@@ -198,21 +227,49 @@ def attn_decode_block(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# Cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_block(p, cfg: ModelConfig, x: torch.Tensor,
+                     k_enc: torch.Tensor, v_enc: torch.Tensor):
+    """x: (B, S, D); k_enc/v_enc: (B, Se, K, hd) from :func:`cross_kv`.
+    Queries without rope over every encoder position."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    o = plain_attention(q, k_enc, v_enc)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
+    """enc_out (B, Se, D) -> the cross-attention's keys and values, (B, Se,
+    K, hd) each, without rope."""
+    b, se, _ = enc_out.shape
+    return ((enc_out @ p["wk"]).reshape(b, se, cfg.kv_heads, cfg.hd),
+            (enc_out @ p["wv"]).reshape(b, se, cfg.kv_heads, cfg.hd))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU for the LMs, GELU for whisper)
 # ---------------------------------------------------------------------------
 
 
 def init_mlp(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
-             dev: torch.device) -> Dict[str, torch.Tensor]:
+             dev: torch.device, gated: bool = True
+             ) -> Dict[str, torch.Tensor]:
     d, f = cfg.d_model, cfg.d_ff
     sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    return {"w1": _normal(g, (d, f), sc_in, dt, dev),
-            "w2": _normal(g, (f, d), sc_out, dt, dev),
-            "w3": _normal(g, (d, f), sc_in, dt, dev)}
+    p = {"w1": _normal(g, (d, f), sc_in, dt, dev),
+         "w2": _normal(g, (f, d), sc_out, dt, dev)}
+    if gated:
+        p["w3"] = _normal(g, (d, f), sc_in, dt, dev)
+    return p
 
 
 def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    if "w3" in p:
+        return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
 
 
 # ---------------------------------------------------------------------------

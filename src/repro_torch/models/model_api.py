@@ -3,15 +3,17 @@
 Counterpart of ``src/repro/models/model_api.py``.  The bundle is bound to a
 device (``"cuda"`` by default): each of its functions resolves it when
 called, so on a machine without CUDA they raise unless the bundle was
-built with ``device="cpu"``.  Ported families: the LMs ``dense``, ``moe``,
-``vlm``, ``ssm`` and ``hybrid`` (``init``, ``loss`` = ``lm_loss`` under the
-bundle's ``RunConfig``, ``prefill``, ``decode``; ``loss`` and ``prefill``
-pass the batch's ``"frontend"``, when it has one, as the VLM's frontend
-embeddings) and ``dlrm`` (``init``, ``loss`` =
-``dlrm_loss``, ``prefill`` = the forward).  The encoder-decoder family
-raises ``NotImplementedError`` naming ROADMAP A11c-5.  ``n_params`` and
-``n_active_params`` count from the config without allocating, and
-``batch_struct`` gives a shape cell's batch as ``{name: (shape, dtype)}``.
+built with ``device="cpu"``.  Every family of the JAX package: the LMs
+``dense``, ``moe``, ``vlm``, ``ssm`` and ``hybrid`` (``init``, ``loss`` =
+``lm_loss`` under the bundle's ``RunConfig``, ``prefill``, ``decode``;
+``loss`` and ``prefill`` pass the batch's ``"frontend"``, when it has one,
+as the VLM's frontend embeddings), the encoder-decoder LM (``enc_dec``:
+``encdec_loss``, ``encdec_prefill`` and ``encdec_decode_step``, ``loss``
+and ``prefill`` reading the audio frames from ``batch["frontend"]``) and
+``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill`` = the forward).
+``n_params`` and ``n_active_params`` count from the config without
+allocating, and ``batch_struct`` gives a shape cell's batch as ``{name:
+(shape, dtype)}``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import dlrm as D
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 
 
@@ -63,6 +66,9 @@ class ModelBundle:
             d["labels"] = ((b, shape.seq_len), torch.int32)
         if cfg.frontend == "vision":
             d["frontend"] = ((b, cfg.n_frontend_tokens, cfg.d_model),
+                             D.torch_dtype(cfg.compute_dtype))
+        elif cfg.frontend == "audio":
+            d["frontend"] = ((b, cfg.enc_len, cfg.d_model),
                              D.torch_dtype(cfg.compute_dtype))
         return d
 
@@ -104,6 +110,20 @@ def _lm_n_params(cfg: ModelConfig, active: bool = False) -> int:
     return cfg.n_layers * per_layer + experts + cfg.vocab * d + d + head
 
 
+def _encdec_n_params(cfg: ModelConfig) -> int:
+    """Parameter count of :func:`repro_torch.models.encdec.init_encdec`'s
+    shapes: encoder layers of two norms, self-attention and the ungated
+    MLP; decoder layers adding a norm and the cross-attention (no biases,
+    no qk norms); the embedding, ``lm_head`` and the two final norms."""
+    d, h, n_kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
+    cross = 2 * d * h * hd + 2 * d * n_kv * hd
+    attn = cross + (h + 2 * n_kv) * hd * cfg.qkv_bias + 2 * hd * cfg.qk_norm
+    mlp = 2 * d * cfg.d_ff
+    return (cfg.n_enc_layers * (2 * d + attn + mlp)
+            + cfg.n_layers * (3 * d + attn + cross + mlp)
+            + 2 * cfg.vocab * d + 2 * d)
+
+
 def _dlrm_n_params(cfg: ModelConfig) -> int:
     def mlp(dims):
         return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
@@ -135,10 +155,36 @@ def build(cfg: ModelConfig, device="cuda",
             n_params=lambda: _dlrm_n_params(cfg),
             n_active_params=lambda: _dlrm_n_params(cfg))
 
+    if cfg.enc_dec:
+        def ed_loss(params, batch):
+            dev = resolve_device(device)
+            return ED.encdec_loss(params, cfg, run,
+                                  _on(batch["tokens"], dev, torch.int64),
+                                  _on(batch["labels"], dev, torch.int64),
+                                  _on(batch["frontend"], dev))
+
+        def ed_prefill(params, batch, cache_len=None):
+            dev = resolve_device(device)
+            return ED.encdec_prefill(params, cfg,
+                                     _on(batch["tokens"], dev, torch.int64),
+                                     _on(batch["frontend"], dev), cache_len)
+
+        def ed_decode(params, token, cache):
+            dev = resolve_device(device)
+            return ED.encdec_decode_step(params, cfg,
+                                         _on(token, dev, torch.int64), cache)
+
+        return ModelBundle(
+            cfg=cfg, device=device,
+            init=lambda seed=0: ED.init_encdec(cfg, seed, device),
+            loss=ed_loss, prefill=ed_prefill, decode=ed_decode,
+            n_params=lambda: _encdec_n_params(cfg),
+            n_active_params=lambda: _encdec_n_params(cfg))
+
     if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has DLRM and the LM families "
-            f"{T.FAMILIES} (encoder-decoder: ROADMAP A11c-5)")
+            f"family {cfg.family!r}: the port has DLRM, the encoder-decoder "
+            f"LM and the LM families {T.FAMILIES}")
 
     def frontend(batch, dev):
         fe = batch.get("frontend")

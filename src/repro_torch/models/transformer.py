@@ -67,8 +67,8 @@ SSM_FAMILIES = ("ssm", "hybrid")
 def _check_family(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port's LMs are {FAMILIES} "
-            "(encoder-decoder: ROADMAP A11c-5)")
+            f"family {cfg.family!r}: this module's LMs are {FAMILIES} (the "
+            "encoder-decoder LM is repro_torch.models.encdec)")
 
 
 def _params(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:

@@ -100,3 +100,32 @@ def test_chip_smoke_counts_the_scan_backwards_partials():
     dbc = 2 * 4 * 128 * 4 * 4096 * 32
     assert dbc < got < dbc * 1.01
     assert abs(got / 1e9 - 0.54) < 0.005
+
+
+# The attention's instantiations by mask: the backward's int template
+# argument (0 causal, 1 windowed, 2 unmasked) mangles as Li<n>E, the
+# forward's bool (causal) as Lb<n>E; each is an entry of its own.
+ATTN_MASK_REPORT = """\
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23417attn_bwd_dkdv_mmaILi64ELi0EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_Pfiiiiiff' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_420ab23417attn_bwd_dkdv_mmaILi64ELi2EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_Pfiiiiiff' for 'sm_90a'
+    168 bytes stack frame, 160 bytes spill stores, 140 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__5d1c0e2a_18_flash_attention_cu_7a3f6b2119flash_attention_mmaILi64ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiifi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_tells_the_attention_masks_apart():
+    assert chip_smoke.ptxas_kernels(ATTN_MASK_REPORT) == {
+        "attn_bwd_dkdv_mma<64,0>": {"spill_store_bytes": 0,
+                                    "spill_load_bytes": 0, "registers": 168},
+        "attn_bwd_dkdv_mma<64,2>": {"spill_store_bytes": 160,
+                                    "spill_load_bytes": 140,
+                                    "registers": 168},
+        "flash_attention_mma<64,0>": {"spill_store_bytes": 0,
+                                      "spill_load_bytes": 0,
+                                      "registers": 128},
+    }

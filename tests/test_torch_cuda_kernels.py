@@ -33,7 +33,11 @@ choices between the devices): one MoE block's routing (top-K sets, keep
 masks) equal to the CPU's, its output, aux and gradients within 1e-5 of
 their largest magnitude; reduced granite-moe and internvl2 (with a
 frontend) prefill and decode within 1e-4; the bf16 MoE's loss and
-gradients bit-equal over two calls.
+gradients bit-equal over two calls.  The unmasked attention
+(``causal=False``, whisper's encoder) forward and backward against their
+plain versions at the tolerances above, bit-equal over two calls; reduced
+whisper-large-v3's loss, gradients, prefill and decode on the card within
+1e-4 of the CPU's.
 """
 import copy
 
@@ -1668,3 +1672,149 @@ def test_ssm_and_hybrid_grads_on_card_match_cpu(dev, arch):
                                res["cpu"][1]):
         err = float((g - w).abs().max())
         assert err <= 1e-4 * max(float(w.abs().max()), 1e-30), name
+
+
+# The unmasked (causal=False) attention, whisper's encoder's: (B, S, H, K,
+# hd) at whisper's heads (20/20, hd 64) with S = 1, 17 and 1,500 (a
+# 30-second window), a GQA layout, hd 16, 32 and 128, S ragged against the
+# bf16 kernels' 64-key tiles and 128-query blocks.
+FLASH_FULL_SHAPES = [(2, 1, 20, 20, 64), (2, 17, 20, 20, 64),
+                     (1, 1500, 20, 20, 64), (2, 300, 9, 3, 64),
+                     (2, 100, 4, 2, 16), (1, 65, 6, 3, 32),
+                     (1, 129, 16, 2, 128), (2, 200, 48, 8, 128)]
+
+
+@pytest.mark.parametrize("shape", FLASH_FULL_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_unmasked_matches_plain(dev, dt, shape):
+    """The forward, served and with its log-sum-exp (the same output
+    bits), against ``causal_attention_ref(causal=False)``; not the causal
+    result (S > 1)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _attn_inputs(dev, dt, *shape, seed=sum(shape) + 2)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 2
+    assert torch.equal(o, got)
+    want, want_lse = ref.causal_attention_lse_ref(q, k, v, causal=False)
+    tol = 1e-5 if dt == "fp32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    if shape[1] > 1:
+        assert not torch.allclose(got.float(), ref.causal_attention_ref(
+            q, k, v).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", FLASH_FULL_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_unmasked_matches_plain(dev, dt, shape):
+    """Each gradient within 1e-5 (fp32) or 2e-2 (bf16) of max(1, its
+    largest magnitude) of ``flash_attention_bwd_ref(causal=False)``, as the
+    windowed backward is held: at S = 1 a query sees only its own key, p =
+    1, and dq and dk are 0 up to rounding.  bf16 also with the G query
+    heads split over blocks."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, dt, *shape, seed=sum(shape) + 3)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, causal=False)
+    n0 = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n0 + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=False)
+    _assert_bwd_close(dt, got, want, floor=1.0)
+    group = shape[2] // shape[3]
+    if dt == "bf16" and group > 1:
+        _assert_bwd_close(dt, fa.flash_attention_bwd(
+            q, k, v, o, do, lse, splits=group, causal=False), want,
+            floor=1.0)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_unmasked_gives_the_same_bits_every_call(dev,
+                                                                     dt):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _attn_inputs(dev, dt, 2, 1000, 20, 20, 64, seed=9)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, causal=False)
+    first = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    second = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_unmasked_flash_attention_trains_and_refuses_a_window(dev):
+    """Under autograd ``ops.flash_attention(causal=False)`` launches the
+    unmasked forward and backward: the gradients equal the kernels' called
+    directly; a window with causal=False raises in both wrappers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    q, k, v, do = _attn_inputs(dev, "bf16", 1, 40, 4, 2, 16, seed=8)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    o = ops.flash_attention(*leaves, causal=False)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (n_f + 1, n_b + 1)
+    o2, lse = fa.flash_attention(q, k, v, with_lse=True, causal=False)
+    assert torch.equal(o.detach(), o2)
+    for a, b in zip(got, fa.flash_attention_bwd(q, k, v, o2, do, lse,
+                                                causal=False)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, k, v, window=4, causal=False)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_bwd(q, k, v, o2, do, lse, window=4, causal=False)
+
+
+def test_whisper_on_card_matches_cpu(dev):
+    """Reduced whisper-large-v3 in fp32 from the same parameters on both
+    devices: the loss within rtol 1e-5 and every gradient within 1e-4 of
+    its largest magnitude under ``remat="full"``, then prefill and three
+    decode steps within 1e-4; the card runs the unmasked flash_attention
+    and its backward in every encoder layer and the causal ones in every
+    decoder layer."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model_api import build
+
+    cfg = get_config("whisper-large-v3").reduced()
+    rng = np.random.default_rng(22)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 12)),
+             "frontend": rng.normal(size=(2, cfg.enc_len, cfg.d_model))
+             .astype(np.float32)}
+    batch["labels"] = np.roll(batch["tokens"], -1, axis=1)
+    cpu = build(cfg, device="cpu").init(seed=0).requires_grad_(True)
+    card = copy.deepcopy(cpu).to(dev)
+    n_f, n_b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    res = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        bundle = build(cfg, device=d, run=RunConfig(remat="full"))
+        loss = bundle.loss(model, batch)
+        grads = [g.cpu() for g in torch.autograd.grad(
+            loss, list(model.parameters()))]
+        logits, cache = bundle.prefill(model, batch, cache_len=16)
+        steps = [logits]
+        for i in range(3):
+            logits, cache = bundle.decode(model, batch["tokens"][:, i:i + 1],
+                                          cache)
+            steps.append(logits)
+        res[name] = (loss.item(), grads, torch.stack(steps).cpu())
+    layers = cfg.n_enc_layers + cfg.n_layers
+    # Loss (twice a layer under remat) and prefill (once).
+    assert fa.flash_attention.launches == n_f + 3 * layers
+    assert fa.flash_attention_bwd.launches == n_b + layers
+    np.testing.assert_allclose(res["card"][0], res["cpu"][0], rtol=1e-5)
+    for (name, _), g, w in zip(cpu.named_parameters(), res["card"][1],
+                               res["cpu"][1]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), \
+            name
+    torch.testing.assert_close(res["card"][2], res["cpu"][2], rtol=1e-4,
+                               atol=1e-4)

@@ -29,17 +29,21 @@ from repro.models import model_api as JMA
 from repro.models import transformer as JT
 from repro.models.dlrm import dlrm_forward as jax_dlrm_forward
 from repro.models.dlrm import init_dlrm as jax_init_dlrm
-from repro_torch.configs import LM_SHAPES, NOT_PORTED, RunConfig, get_config
+from repro_torch.configs import LM_SHAPES, RunConfig, get_config
 from repro_torch.core.tiered import TieredEmbeddingStore
 from repro_torch.kernels import ref
 from repro_torch.launch.serve_lm import STORE_KEYS, main, serve_lm_tiered
 from repro_torch.models import dlrm as D
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model_api import build
 
 ARCHS = ["smollm-135m", "smollm-360m", "qwen2.5-3b", "qwen3-14b",
-         "granite-moe-1b-a400m", "grok-1-314b", "internvl2-26b"]
+         "granite-moe-1b-a400m", "grok-1-314b", "internvl2-26b",
+         "whisper-large-v3"]
+# The decoder-only LMs of ARCHS (whisper's decoder reads an encoder).
+DECODER_ARCHS = [a for a in ARCHS if a != "whisper-large-v3"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JRUN = JaxRunConfig()
 
@@ -55,9 +59,9 @@ def _cfgs(arch, dtype="float32"):
 def _both(arch, dtype="float32"):
     """(port cfg, JAX cfg, JAX params, the port's model on them)."""
     cfg, jcfg = _cfgs(arch, dtype)
-    jp = JT.init_lm(jax.random.PRNGKey(0), jcfg)
-    model = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg,
-                              device="cpu")
+    jp = JMA.build(jcfg).init(jax.random.PRNGKey(0))
+    model = (ED if cfg.enc_dec else T).params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), cfg, device="cpu")
     return cfg, jcfg, jp, model
 
 
@@ -87,6 +91,16 @@ def _tokens(cfg, shape, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab, shape)
 
 
+def _with_frontend(cfg, batch, seed):
+    """``batch`` plus the encoder-decoder LM's audio frames (B, enc_len,
+    d_model), fp32 (both encoders cast them to the compute dtype)."""
+    if cfg.frontend != "audio":
+        return batch
+    b = batch["tokens"].shape[0]
+    return {**batch,
+            "frontend": _normal((b, cfg.enc_len, cfg.d_model), seed)}
+
+
 def _clone(cache):
     return {k: v.clone() if isinstance(v, torch.Tensor) else v
             for k, v in cache.items()}
@@ -105,13 +119,6 @@ def test_configs_match_jax():
         {k: dataclasses.asdict(v) for k, v in JAX_LM_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise_naming_their_item(arch):
-    jax_get_config(arch)  # an arch the JAX package has
-    with pytest.raises(NotImplementedError, match="A11c"):
-        get_config(arch)
-
-
 def test_unknown_arch_is_a_key_error():
     with pytest.raises(KeyError):
         get_config("no-such-arch")
@@ -119,11 +126,12 @@ def test_unknown_arch_is_a_key_error():
 
 def _jax_leaves(tree):
     """{'blocks.3.attn.wq': array, 'embed': array, ...} with the stacked L
-    axis of ``blocks`` unrolled, named like the port's state_dict."""
+    axis of ``blocks`` (``enc_blocks`` and ``dec_blocks``) unrolled, named
+    like the port's state_dict."""
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         names = [str(p.key) for p in path]
-        if names[0] == "blocks":
+        if names[0] in ("blocks", "enc_blocks", "dec_blocks"):
             for i in range(leaf.shape[0]):
                 out[".".join([names[0], str(i)] + names[1:])] = (
                     jax.ShapeDtypeStruct(leaf.shape[1:], leaf.dtype)
@@ -151,15 +159,15 @@ def test_params_from_jax_maps_every_key(arch, dtype):
 def test_port_init_draws_the_jax_shapes(arch):
     cfg, jcfg = _cfgs(arch)
     want = _jax_leaves(jax.eval_shape(
-        lambda: JT.init_lm(jax.random.PRNGKey(0), jcfg)))
-    model = T.init_lm(cfg, seed=0, device="cpu")
+        lambda: JMA.build(jcfg).init(jax.random.PRNGKey(0))))
+    model = build(cfg, device="cpu").init(seed=0)
     got = model.state_dict()
     assert {k: tuple(v.shape) for k, v in got.items()} == \
         {k: tuple(v.shape) for k, v in want.items()}
     assert all(v.dtype == torch.float32 for v in got.values())
     assert not any(p.requires_grad for p in model.parameters())
     # Port init is seeded: same seed, same numbers.
-    again = T.init_lm(cfg, seed=0, device="cpu").state_dict()
+    again = build(cfg, device="cpu").init(seed=0).state_dict()
     assert all(torch.equal(got[k], again[k]) for k in got)
 
 
@@ -277,19 +285,21 @@ def test_plain_and_decode_attention_match_jax(dtype):
 def test_prefill_and_decode_match_jax(arch, dtype, cache_len):
     """S=12 prompt, cache of 12, 16 or 8 slots (below S the cache keeps
     the last 8 keys rotated, and decode wraps the ring), then three decode
-    steps, against ``repro.models.model_api.build``."""
+    steps, against ``repro.models.model_api.build``; whisper's batch adds
+    its audio frames, and its cache keeps S slots below S, as JAX's does."""
     cfg, jcfg, jp, model = _both(arch, dtype)
     jb = JMA.build(jcfg)
     pb = build(cfg, device="cpu")
     tol = TOL[dtype]
-    prompt = _tokens(cfg, (2, 12), 7)
-    wl, wc = jb.prefill(jp, {"tokens": jnp.asarray(prompt)},
+    batch = _with_frontend(cfg, {"tokens": _tokens(cfg, (2, 12), 7)}, 17)
+    wl, wc = jb.prefill(jp, {k: jnp.asarray(v) for k, v in batch.items()},
                         cache_len=cache_len)
-    gl, gc = pb.prefill(model, {"tokens": prompt}, cache_len=cache_len)
+    gl, gc = pb.prefill(model, batch, cache_len=cache_len)
     assert gl.dtype == torch.float32 and gl.shape == (2, cfg.vocab)
     assert gc["pos"] == int(wc["pos"]) == 12
     assert gc["k"].shape == wc["k"].shape
-    for key in ("k", "v"):
+    keys = [k for k in ("k", "v", "xk", "xv") if k in wc]
+    for key in keys:
         _close(gc[key], wc[key], tol)
     _close(gl, wl, tol)
     steps = _tokens(cfg, (3, 2, 1), 8)
@@ -298,11 +308,11 @@ def test_prefill_and_decode_match_jax(arch, dtype, cache_len):
         gl, gc = pb.decode(model, tok, gc)
         assert gc["pos"] == int(wc["pos"])
         _close(gl, wl, tol)
-        for key in ("k", "v"):
+        for key in keys:
             _close(gc[key], wc[key], tol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
 def test_decode_step_embeds_on_cast_store_rows_is_decode_step_at_bf16(arch):
     """At bf16 the store's fp32 host copy of ``embed`` holds bf16 values,
     so its rows cast back to bf16 are the token's embedding: the step
@@ -421,14 +431,13 @@ def test_build_dlrm_prefill_is_the_forward():
 
 
 def test_build_refuses_unported_families_and_losses():
-    """The encoder-decoder family (whisper's) raises naming A11c; the LM
-    and DLRM losses are ported (``tests/test_torch_train.py``), but not
-    the XLA remat policy their ``RunConfig`` could ask for."""
-    audio = dataclasses.replace(get_config("smollm-135m"), family="audio",
-                                enc_dec=True)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        build(audio, device="cpu")
+    """Every family builds; the LM and DLRM losses are ported
+    (``tests/test_torch_train.py``), but not the XLA remat policy their
+    ``RunConfig`` could ask for."""
     cfg, _ = _cfgs("smollm-135m")
     assert callable(build(cfg, device="cpu").loss)
+    whisper = build(get_config("whisper-large-v3"), device="cpu")
+    assert all(callable(f) for f in (whisper.loss, whisper.prefill,
+                                     whisper.decode))
     with pytest.raises(NotImplementedError, match="XLA"):
         build(cfg, device="cpu", run=RunConfig(remat="dots"))

@@ -461,6 +461,7 @@ def test_launcher_rerun_after_the_last_step_trains_nothing(tmp_path,
     (["--model-parallel", "2"], "A10b"),
     (["--grad-compression", "int8_ef"], "A10b"),
     (["--arch", "dlrm-recmg"], "LM data"),
+    (["--arch", "whisper-large-v3"], "frontend"),
     (["--remat", "dots"], "XLA"),
 ])
 def test_launcher_refuses_what_it_does_not_port(argv, match):
