@@ -184,6 +184,9 @@ REMAT = ("full", "none")
 class RunConfig:
     remat: str = "full"  # full | none: recompute each layer in the backward
     logits_chunk: int = 0  # 0 -> whole-sequence logits; else chunked loss
+    # DLRM serves through the row-sharded, pool-before-reduce lookup on the
+    # active mesh (repro_torch.distributed.mesh); its loss raises (A10b-2).
+    dlrm_sharded_lookup: bool = False
 
     def __post_init__(self):
         if self.remat == "dots":

@@ -8,10 +8,10 @@ sizes a recovering shard's modeled int8 transfers with it
 (:meth:`repro_torch.core.sharded_serving.ShardedTieredStore.
 _pump_recovery`).
 
-The rest of that module, the error-feedback gradient all-reduce under
-``shard_map`` (``psum``/``pmean`` across devices), exists only across
-several devices: it is deferred to ROADMAP A10b (several cards,
-``torch.distributed``).
+The rest of that module (:29-103), the error-feedback gradient
+all-reduce under ``shard_map`` (``psum``/``pmean`` across devices), runs
+across the ranks of a :mod:`repro_torch.distributed.mesh` mesh in
+training, which is ROADMAP A10b-2.
 """
 from __future__ import annotations
 

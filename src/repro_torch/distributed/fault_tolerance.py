@@ -6,8 +6,9 @@ the sharded store's flaky-shard fetch
 (:meth:`repro_torch.core.sharded_serving.ShardedTieredStore.
 _fetch_with_retry`) and the training launcher run through, and
 :class:`StragglerMonitor` and :class:`Heartbeat` (lines 80-130, 149-168),
-which the training launcher (``launch/train.py``) keeps.  ``ElasticMesh``
-re-factors a device mesh: it waits for several cards (ROADMAP A10b).
+which the training launcher (``launch/train.py``) keeps, and
+:class:`ElasticMesh` (lines 131-147), which re-factors the (data, model)
+mesh of :mod:`repro_torch.distributed.mesh` to the ranks that are live.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, List, Optional, Tuple, Type, Union
+
+from repro_torch.distributed import mesh
 
 
 class RetryDeadlineExceeded(TimeoutError):
@@ -119,6 +122,32 @@ class StragglerMonitor:
         return {"mean_s": round(self.mean, 4),
                 "std_s": round(math.sqrt(max(self.var, 0.0)), 4),
                 "stragglers": len(self.slow_steps)}
+
+
+def elastic_mesh_shape(n: int, model_parallel: int) -> Tuple[int, int]:
+    """``ElasticMesh``'s rule: the largest model axis up to
+    ``model_parallel`` that divides ``n``.  It differs from
+    ``make_host_mesh``'s ``gcd`` rule: at n = 6 and 4 it gives 3, gcd 2."""
+    mp = model_parallel
+    while n % mp:
+        mp -= 1
+    return n // mp, mp
+
+
+class ElasticMesh:
+    """Re-factor (data, model) to the live rank count on restart.
+
+    model_parallel is treated as an upper bound: if ranks were lost and
+    the count no longer factors, model parallelism shrinks to the largest
+    divisor, so the job resumes at reduced model parallelism rather than
+    not at all."""
+
+    def __init__(self, model_parallel: int = 1):
+        self.model_parallel = model_parallel
+
+    def make(self) -> mesh.Mesh:
+        n = mesh.world_rank()[0]
+        return mesh.make_mesh(*elastic_mesh_shape(n, self.model_parallel))
 
 
 class Heartbeat:

@@ -10,6 +10,10 @@
 //     by one launch.  With no inverse it is the plain gather
 //     out[i] = table[idx[i]].
 //   * repro_gather_pool  <- gather_pool: out[b] = sum_p float(table[idx[b,p]]).
+//     With skip_negative it is also the body of the row-sharded lookup's
+//     per-shard pool (src/repro/models/dlrm.py:86-98, XLA inside a
+//     shard_map there): an id < 0 marks a row another shard owns and adds
+//     nothing, where JAX adds a zero row (where(ok, rows, 0).sum).
 //
 // Both are bound by device-memory bytes: they do no arithmetic beyond one
 // add per gathered element.  The design therefore only moves bytes well:
@@ -18,7 +22,9 @@
 // output row is written once, straight from registers.  The expanded rows
 // never round-trip through a unique-row intermediate, and the pooled sum
 // stays in fp32 registers across the P gathered rows.  Indices are clamped
-// into range, as XLA's gather clamps them in the JAX package.
+// into range, as XLA's gather clamps them in the JAX package; the pool's
+// shard window (kSkipNegative) skips a negative id instead, a template flag
+// so that the unmasked instantiations compile to the code they had.
 //
 // The kernels launch on the caller's stream, allocate nothing and never
 // synchronise; each C function returns cudaGetLastError() after its launch.
@@ -114,7 +120,7 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&f)[1]) 
   f[0] = __bfloat162float(*p);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kSkipNegative>
 __global__ void __launch_bounds__(kBlock)
 gather_pool_kernel(const T* __restrict__ table, int64_t n_rows, int64_t d,
                    const int32_t* __restrict__ idx, int64_t b, int p,
@@ -131,7 +137,11 @@ gather_pool_kernel(const T* __restrict__ table, int64_t n_rows, int64_t d,
     for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
 #pragma unroll 4
     for (int j = 0; j < p; ++j) {
-      const int64_t r = clamp_index(ix[j], n_rows);
+      const int32_t id = ix[j];
+      if constexpr (kSkipNegative) {
+        if (id < 0) continue;
+      }
+      const int64_t r = clamp_index(id, n_rows);
       float f[VEC];
       load_vec(table + r * d + c * VEC, f);
 #pragma unroll
@@ -153,12 +163,18 @@ gather_pool_kernel(const T* __restrict__ table, int64_t n_rows, int64_t d,
 template <typename T, int VEC>
 void launch_gather_pool(const void* table, int64_t n_rows, int64_t d,
                         const int32_t* idx, int64_t b, int p, float* out,
-                        cudaStream_t stream) {
+                        bool skip_negative, cudaStream_t stream) {
   const int lg = threads_per_row_log2(d / VEC);
   const int64_t rows_per_block = kBlock >> lg;
-  const int64_t blocks = (b + rows_per_block - 1) / rows_per_block;
-  gather_pool_kernel<T, VEC><<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(
-      static_cast<const T*>(table), n_rows, d, idx, b, p, out, lg);
+  const unsigned blocks =
+      static_cast<unsigned>((b + rows_per_block - 1) / rows_per_block);
+  if (skip_negative) {
+    gather_pool_kernel<T, VEC, true><<<blocks, kBlock, 0, stream>>>(
+        static_cast<const T*>(table), n_rows, d, idx, b, p, out, lg);
+  } else {
+    gather_pool_kernel<T, VEC, false><<<blocks, kBlock, 0, stream>>>(
+        static_cast<const T*>(table), n_rows, d, idx, b, p, out, lg);
+  }
 }
 
 bool aligned(const void* ptr, int64_t bytes) {
@@ -195,19 +211,21 @@ int repro_gather_rows(const void* table, int64_t n_rows, int64_t row_bytes,
 }
 
 // table (n_rows, d) of dtype 0 = float32 or 1 = bfloat16; idx (b, p)
-// int32; out (b, d) float32.
+// int32; out (b, d) float32.  skip_negative != 0: an id < 0 adds nothing
+// (the shard window); else every id is clamped into [0, n_rows).
 int repro_gather_pool(const void* table, int64_t n_rows, int64_t d, int dtype,
                       const int32_t* idx, int64_t b, int p, float* out,
-                      void* stream) {
+                      int skip_negative, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t itemsize = dtype == 0 ? 4 : 2;
   const bool vec = (d * itemsize) % 16 == 0 && aligned(table, 16) && aligned(out, 16);
+  const bool skip = skip_negative != 0;
   if (dtype == 0) {
-    if (vec) launch_gather_pool<float, 4>(table, n_rows, d, idx, b, p, out, s);
-    else launch_gather_pool<float, 1>(table, n_rows, d, idx, b, p, out, s);
+    if (vec) launch_gather_pool<float, 4>(table, n_rows, d, idx, b, p, out, skip, s);
+    else launch_gather_pool<float, 1>(table, n_rows, d, idx, b, p, out, skip, s);
   } else if (dtype == 1) {
-    if (vec) launch_gather_pool<__nv_bfloat16, 8>(table, n_rows, d, idx, b, p, out, s);
-    else launch_gather_pool<__nv_bfloat16, 1>(table, n_rows, d, idx, b, p, out, s);
+    if (vec) launch_gather_pool<__nv_bfloat16, 8>(table, n_rows, d, idx, b, p, out, skip, s);
+    else launch_gather_pool<__nv_bfloat16, 1>(table, n_rows, d, idx, b, p, out, skip, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,7 +5,9 @@ tier).
 Counterpart of ``src/repro/kernels/embedding_gather.py``: ``gather_rows``,
 ``gather_pool``, ``gather_rows_dequant``, ``gather_pool_dequant`` and
 ``quantize_rows`` (here fused with the store's scatter as
-``quantize_scatter``).  Each wrapper takes CUDA tensors only: it checks
+``quantize_scatter``).  ``gather_pool_shard`` is ``gather_pool``'s shard
+window, the per-shard pool of the row-sharded DLRM lookup: an id < 0 adds
+nothing.  Each wrapper takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates its output with
 ``torch.empty``, launches on the current stream, raises if the launch
 reports an error, and adds one to its ``launches`` count.  The plain
@@ -41,7 +43,7 @@ def _lib() -> ctypes.CDLL:
                                           _VP, _VP, _VP, _I64, _VP]
         lib.repro_gather_rows.restype = _INT
         lib.repro_gather_pool.argtypes = [_VP, _I64, _I64, _INT, _VP, _I64,
-                                          _INT, _VP, _VP]
+                                          _INT, _VP, _INT, _VP]
         lib.repro_gather_pool.restype = _INT
         _LIB = lib
     return _LIB
@@ -157,9 +159,9 @@ def gather_rows_expand(table: torch.Tensor, slots: torch.Tensor,
 gather_rows_expand.launches = 0
 
 
-def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table: (N, D) fp32/bf16; idx: (B, P) int32 -> (B, D) fp32 sum-pool,
-    accumulated in fp32 in the order p = 0 .. P-1."""
+def _launch_pool(table, idx, skip_negative: bool, wrapper) -> torch.Tensor:
+    """The pooled gather's launch for ``wrapper`` (``gather_pool`` or
+    ``gather_pool_shard``), which it counts."""
     _check(table, "table", 2, _DTYPE_CODE)
     _check(idx, "idx", 2, (torch.int32,), table.device)
     b, p = idx.shape
@@ -175,13 +177,33 @@ def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_gather_pool(
             table.data_ptr(), table.shape[0], d, _DTYPE_CODE[table.dtype],
-            idx.data_ptr(), b, p, out.data_ptr(), stream)
-    _raise_on(err, "gather_pool")
-    gather_pool.launches += 1
+            idx.data_ptr(), b, p, out.data_ptr(), int(skip_negative), stream)
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
     return out
 
 
+def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table: (N, D) fp32/bf16; idx: (B, P) int32 -> (B, D) fp32 sum-pool,
+    accumulated in fp32 in the order p = 0 .. P-1; ids clamped into
+    [0, N)."""
+    return _launch_pool(table, idx, False, gather_pool)
+
+
 gather_pool.launches = 0
+
+
+def gather_pool_shard(table: torch.Tensor, idx: torch.Tensor
+                      ) -> torch.Tensor:
+    """``gather_pool`` in its shard window: an id < 0 (a row that another
+    shard owns) adds nothing; the others, in [0, N), are summed in fp32 in
+    the order p = 0 .. P-1, so with no negative id the result has
+    ``gather_pool``'s bits.  table: (N, D) fp32/bf16, the rank's shard;
+    idx: (B, P) int32 -> (B, D) fp32."""
+    return _launch_pool(table, idx, True, gather_pool_shard)
+
+
+gather_pool_shard.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +356,8 @@ def gather_pool_dequant(table: torch.Tensor, scales: torch.Tensor,
 
 gather_pool_dequant.launches = 0
 
-KERNELS = (gather_rows, gather_rows_expand, gather_pool, quantize_scatter,
-           gather_rows_dequant, gather_rows_dequant_expand,
+KERNELS = (gather_rows, gather_rows_expand, gather_pool, gather_pool_shard,
+           quantize_scatter, gather_rows_dequant, gather_rows_dequant_expand,
            gather_pool_dequant)
 
 

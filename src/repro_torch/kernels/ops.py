@@ -108,6 +108,21 @@ def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _gather_pool_forward(table, idx)
 
 
+def gather_pool_shard(table: torch.Tensor, idx: torch.Tensor
+                      ) -> torch.Tensor:
+    """table: (N, D), a rank's shard of rows; idx: (B, P) int32 with -1
+    for a row the shard does not own -> (B, D) fp32 sum-pool of the owned
+    rows.  Serving only: its backward, and the all-reduce's around it, are
+    ROADMAP A10b-2."""
+    if _requires_grad(table):
+        raise NotImplementedError(
+            "the row-sharded lookup has no backward yet: the masked pool's "
+            "and the all-reduce's gradients are ROADMAP A10b-2")
+    if _on_cuda(table):
+        return _eg.gather_pool_shard(table, idx)
+    return ref.gather_pool_shard_ref(table, idx)
+
+
 def quantize_scatter(buf: torch.Tensor, scales: torch.Tensor,
                      slots: torch.Tensor, rows: torch.Tensor,
                      row_format: str) -> None:

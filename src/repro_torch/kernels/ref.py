@@ -66,6 +66,15 @@ def gather_pool_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[_clamped(idx, table.shape[0])].float().sum(dim=1)
 
 
+def gather_pool_shard_ref(table: torch.Tensor, idx: torch.Tensor
+                          ) -> torch.Tensor:
+    """``gather_pool_ref`` in the shard window: an id < 0 adds nothing
+    (JAX's ``where(ok, rows, 0).sum`` of ``src/repro/models/dlrm.py:91-
+    93``).  table: (N, D); idx: (B, P) -> (B, D) fp32."""
+    rows = table[_clamped(idx, table.shape[0])].float()
+    return torch.where((idx >= 0)[..., None], rows, 0.0).sum(dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Quantized fast tier.
 # ---------------------------------------------------------------------------

@@ -19,8 +19,8 @@ checkpoint and runs on to ``--steps``, whose value also sets the schedule
 (``OptConfig(lr, total_steps=steps)``), so a resumed run takes the same
 ``--steps`` as the run it resumes.
 
-Not ported: ``--model-parallel > 1`` and ``--grad-compression int8_ef``
-(they need several cards: ROADMAP A10b).  Like JAX's launcher this one
+Not ported yet: ``--model-parallel > 1`` and ``--grad-compression
+int8_ef`` (training across the ranks of a mesh: ROADMAP A10b-2).  Like JAX's launcher this one
 feeds LM data only (tokens and labels), so ``--arch`` is an LM the port
 builds: dense, MoE (its loss adds the load-balance term), the VLM (its
 text alone, no frontend, as in JAX), the SSM LM or the hybrid LM
@@ -120,11 +120,13 @@ def main(argv=None, cfg=None):
 
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs several cards (ROADMAP A10b)")
+            "--model-parallel > 1 trains across the ranks of a mesh, which "
+            "is not ported yet (ROADMAP A10b-2)")
     if args.grad_compression:
         raise NotImplementedError(
             f"--grad-compression {args.grad_compression} compresses a "
-            "data-parallel all-reduce across cards (ROADMAP A10b)")
+            "data-parallel all-reduce across ranks, not ported yet "
+            "(ROADMAP A10b-2)")
     if cfg is None:
         cfg = get_config(args.arch)
     if cfg.family == "dlrm":

@@ -27,8 +27,8 @@ version keep p in fp32.  ``decode_attention`` ignores the window, as
 JAX's does: a sliding config's cache is a ring capped at the window.  Not
 ported: ``kv_stream_attention``, the sequence-parallel branch of
 ``attn_block`` and the MoE's data-local dispatch
-(``_moe_dispatch_ffn_sharded``, ``local_dispatch``): they need a mesh
-(ROADMAP A10b).  ``attn_block(causal=False)`` is the encoder's
+(``_moe_dispatch_ffn_sharded``, ``local_dispatch``): the MoE across
+ranks is ROADMAP A10b-2.  ``attn_block(causal=False)`` is the encoder's
 self-attention (JAX's ``plain_attention(causal=False)``, XLA), the same
 kernel with its unmasked instantiation; the cross-attention, whose queries
 and keys differ in length, is ``plain_attention`` in PyTorch, as JAX's is

@@ -10,7 +10,9 @@ built with ``device="cpu"``.  Every family of the JAX package: the LMs
 as the VLM's frontend embeddings), the encoder-decoder LM (``enc_dec``:
 ``encdec_loss``, ``encdec_prefill`` and ``encdec_decode_step``, ``loss``
 and ``prefill`` reading the audio frames from ``batch["frontend"]``) and
-``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill`` = the forward).
+``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill`` = the forward;
+both take ``RunConfig.dlrm_sharded_lookup``, as JAX's do, and the loss
+raises with it until ROADMAP A10b-2).
 ``n_params`` and ``n_active_params`` count from the config without
 allocating, and ``batch_struct`` gives a shape cell's batch as ``{name:
 (shape, dtype)}``.
@@ -141,12 +143,14 @@ def build(cfg: ModelConfig, device="cuda",
             dev = resolve_device(device)
             return D.dlrm_loss(params, cfg, _on(batch["dense"], dev),
                                _on(batch["sparse"], dev),
-                               _on(batch["label"], dev, torch.float32))
+                               _on(batch["label"], dev, torch.float32),
+                               run.dlrm_sharded_lookup)
 
         def serve(params, batch):
             dev = resolve_device(device)
             return D.dlrm_forward(params, cfg, _on(batch["dense"], dev),
-                                  _on(batch["sparse"], dev))
+                                  _on(batch["sparse"], dev),
+                                  run.dlrm_sharded_lookup)
 
         return ModelBundle(
             cfg=cfg, device=device,

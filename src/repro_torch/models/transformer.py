@@ -15,7 +15,7 @@ same normed input and their outputs are averaged);
 (:133-231); ``init_cache``, ``prefill``, ``decode_step``,
 ``decode_step_embeds`` and ``_decode_from`` (:234-314).
 ``constrain_batch`` is a no-op without a mesh and is dropped.  Not ported:
-the MoE's data-local dispatch (a mesh: A10b).  Every family trains: the
+the MoE's data-local dispatch (across ranks: ROADMAP A10b-2).  Every family trains: the
 SSM and hybrid LMs' gradients go through the scan's backward kernel
 and, for the hybrid, the windowed attention's.
 

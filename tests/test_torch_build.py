@@ -129,3 +129,30 @@ def test_chip_smoke_tells_the_attention_masks_apart():
                                       "spill_load_bytes": 0,
                                       "registers": 128},
     }
+
+
+# The pooled gather's instantiations: the element type, the vector width
+# and the shard window (kSkipNegative, a bool) each mangle into the name,
+# so the unmasked kernel's registers stay readable beside the window's.
+POOL_REPORT = """\
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__1f2e3d4c_19_embedding_gather_cu_5a6b7c8d18gather_pool_kernelI13__nv_bfloat16Li8ELb0EEEvPKT_llPKiliPfi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__1f2e3d4c_19_embedding_gather_cu_5a6b7c8d18gather_pool_kernelI13__nv_bfloat16Li8ELb1EEEvPKT_llPKiliPfi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 42 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__1f2e3d4c_19_embedding_gather_cu_5a6b7c8d18gather_pool_kernelIfLi1ELb0EEEvPKT_llPKiliPfi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers
+"""
+
+
+def test_chip_smoke_tells_the_pools_shard_window_apart():
+    assert chip_smoke.ptxas_kernels(POOL_REPORT) == {
+        "gather_pool_kernel<bf16,8,0>": {
+            "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 40},
+        "gather_pool_kernel<bf16,8,1>": {
+            "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 42},
+        "gather_pool_kernel<float,1,0>": {
+            "spill_store_bytes": 0, "spill_load_bytes": 0, "registers": 24},
+    }

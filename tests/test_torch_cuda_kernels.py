@@ -6,7 +6,8 @@ file imports no JAX, so it runs on a machine that has none:
 
 Tolerances: the row gathers are pure copies, so bit-exact; the pooled
 gather sums P rows in fp32 in another order than ``torch.sum``, so fp32
-rtol 1e-5.  Quantized tier: codes bit-exact, scales within one ulp (fp32
+rtol 1e-5, in its shard window too (which gives the unmasked kernel's
+bits when no id is masked).  Quantized tier: codes bit-exact, scales within one ulp (fp32
 rtol 2e-7; both sides divide with IEEE division, so 0 is expected); the
 dequantizing row gathers bit-exact (one multiply per element); the
 dequantizing pooled gather fp32 rtol/atol 1e-6 (each product rounded on its
@@ -123,6 +124,48 @@ def test_gather_pool_matches_plain(dev, dt, d):
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, ref.gather_pool_ref(table, idx),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [16, 128, 20])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gather_pool_shard_matches_plain(dev, dt, d):
+    """The shard window: ids < 0 add nothing; with every id in range it
+    gives ``gather_pool``'s bits (the same sums in the same order)."""
+    table = _table(500, d, DTYPES[dt], 5, dev)
+    rng = np.random.default_rng(8)
+    idx = rng.integers(0, 500, (97, 20)).astype(np.int32)
+    masked = np.where(rng.random(idx.shape) < 0.5, -1, idx).astype(np.int32)
+    masked[0] = -1  # nothing owned: a row of zeros
+    idx, masked = (torch.from_numpy(a).to(dev) for a in (idx, masked))
+    n0 = eg.gather_pool_shard.launches
+    out = eg.gather_pool_shard(table, masked)
+    torch.cuda.synchronize()
+    assert eg.gather_pool_shard.launches == n0 + 1
+    assert out.dtype == torch.float32 and not out[0].any()
+    torch.testing.assert_close(out, ref.gather_pool_shard_ref(table, masked),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(eg.gather_pool_shard(table, idx),
+                       eg.gather_pool(table, idx))
+
+
+def test_one_rank_sharded_forward_on_card_is_the_dense_forward(dev):
+    """A (1, 1) mesh of this process: the sharded forward on the card has
+    the unsharded forward's bits when every id is in range."""
+    from repro_torch.distributed import mesh as M
+
+    cfg = get_config("dlrm-recmg").reduced()
+    params = init_dlrm(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(9)
+    dense = torch.from_numpy(rng.normal(size=(16, cfg.dense_features))
+                             .astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(
+        0, cfg.rows_per_table, (16, cfg.n_tables, cfg.multi_hot))
+        .astype(np.int32)).to(dev)
+    n0 = eg.gather_pool_shard.launches
+    with M.activation_sharding(M.make_host_mesh()):
+        got = dlrm_forward(params, cfg, dense, idx, sharded_lookup=True)
+    assert eg.gather_pool_shard.launches == n0 + 1
+    assert torch.equal(got, dlrm_forward(params, cfg, dense, idx))
 
 
 @pytest.mark.parametrize("policy", ["lru", "recmg"])
