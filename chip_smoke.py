@@ -61,6 +61,22 @@ trained at full depth):
    beside its bound and ``embedding_bag`` with per-sample weights, and
    the all-reduce of its pooled partials timed beside the unpooled
    exchange's bytes (gloo through host memory, not an NCCL figure);
+6''. distributed training: world 1 over NCCL in this process, DLRM with
+   ``rows_per_table`` cut to 4,096 through ``make_train_step`` on a (1, 1)
+   mesh (ids in range): the loss bit-equal to the unsharded step's, the
+   table gradient within one bf16 ulp, the others bit-equal, and
+   ``compress_tree``/``psum_int8`` over the one rank equal to
+   ``dequant(quant(g))``; then, in the four gloo ranks after they serve:
+   DLRM on the (2, 2) mesh (bf16, B=256 in 2 microbatches, ids over [-2,
+   R + 2), 2 steps) against one rank's step on the whole tables (losses
+   within 2e-2, first-step gradients within 2e-2 of each leaf's largest
+   magnitude), the window's forward and its masked and unmasked
+   backwards timed beside their bounds, the fp32 gradient all-reduce
+   over ``data`` timed; granite-moe-1b-a400m cut to 2 layers through the
+   launcher on (4, 1) (S=4,096, global batch 8 in 2 microbatches) in
+   fp32 against one rank (losses and gradients within 1e-4, the global
+   top-K equal), then bf16 with ``--grad-compression int8_ef`` (its int32
+   wire's bytes and all-reduce time);
 7. the learned models' kernels vs plain on the card: ``lstm_cell`` at the
    inference (B=4096) and training (B=256) shapes of every LSTM layer of
    the path (K = 57, 67, 80, 88, 120 at H = 32 or 40), within fp32 abs
@@ -102,10 +118,10 @@ trained at full depth):
    (stale degraded rows read on the card by ``gather_rows_dequant_expand``
    inside ``lookup_resident_device``), ``adapt`` with the frequency model
    and with phase 9's fp32 learned model (its fine-tunes launch
-   ``lstm_cell``) on 3 batches of the diurnal regime (a hot-set switch a
-   batch; drift windows of one batch, so 2 refreshes), and the CLI's
-   ``main`` with ``--workload zipf_hot --async-prefetch`` (its reduced
-   config);
+   ``lstm_cell``) on 3 batches of 8 queries of the diurnal regime (a
+   hot-set switch a batch; drift windows of one batch, so 2 refreshes),
+   and the CLI's ``main`` with ``--workload zipf_hot --async-prefetch``
+   (its reduced config);
 9'''. sharded parity: the golden fixture through the sharded store on the
    CPU and on the card, 2 and 4 shards, the four placements, fp32 ``lru``
    and ``recmg`` (frequency model) and int8 ``lru``: counters and shard
@@ -299,13 +315,16 @@ training (phases 13 and 15) as ``launches_train``, the LM serve as
 hybrid serves (23) as ``launches_ssm``, their training (24) as
 ``launches_ssm_train`` and whisper's serve and training (27, 28) as
 ``launches_encdec``; ``gather_pool_shard``, ``gather_pool``'s shard
-window, counts the distributed serve's launches (6') and carries them by
-run as ``launches_distributed``, with the all-reduce's time and bytes; ``selective_scan`` and ``selective_scan_bwd``
-have no TPU kernel (``replaces`` null, a ``note`` says why) and carry
-their SFU floors, and ``flash_attention`` and ``flash_attention_bwd``
-carry their ``windowed`` and ``noncausal`` records; the ``done``
-line gives each phase's seconds; the last line is the result.  Imports
-nothing of JAX and nothing of the JAX package.
+window, counts the distributed serve's and training's launches (6',
+6'') and carries them by run as ``launches_distributed``, with the
+all-reduce's time and bytes, and the training's launches of it and of
+the attention kernels show as ``launches_distributed_train``;
+``selective_scan`` and ``selective_scan_bwd`` have no TPU kernel
+(``replaces`` null, a ``note`` says why) and carry their SFU floors, and
+``flash_attention`` and ``flash_attention_bwd`` carry their ``windowed``
+and ``noncausal`` records; the ``done`` line gives each phase's seconds;
+the last line is the result.  Imports nothing of JAX and nothing of the
+JAX package.
 """
 from __future__ import annotations
 
@@ -314,6 +333,7 @@ import copy
 import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -352,7 +372,11 @@ from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
                                       serve_trace)
 from repro_torch.launch.serve import main as cli_main  # noqa: E402
 from repro_torch.launch.serve_lm import serve_lm_tiered  # noqa: E402
-from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.distributed.compression import (  # noqa: E402
+    compress_tree, dequantize_int8, init_error, make_compressed_dp_grads,
+    psum_int8, quantize_int8)
+from repro_torch.launch.steps import (make_grads_fn,  # noqa: E402
+                                      make_train_step)
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.distributed import mesh as M  # noqa: E402
@@ -364,6 +388,7 @@ from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_lm, lm_loss, prefill)
 from repro_torch.optim.adamw import OptConfig, init_opt  # noqa: E402
 from repro_torch.runtime import DriftConfig  # noqa: E402
+from repro_torch.tree import jax_stacks, named_leaves  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.workloads import (CHAOS_KEYS, chaos_sweep,  # noqa: E402
                                    make_spec, make_trace, scenario)
@@ -1345,17 +1370,22 @@ def phase_distributed_nccl(cfg, fwd, b):
     return want.float().cpu(), launches["gather_pool_shard"]
 
 
-def distributed_rank(rank, world, work, b):
+def distributed_rank(rank, world, work, b, train_ref):
     """One gloo rank of the (2, 2) mesh on the card, in a process of its
     own: draws its rows of the full-width tables, serves its quarter of
     the batch through ``build(...).prefill``, gathers the logits over
     ``data``, then holds the shard window against its plain twin, times
     it (one rank at a time) and times the all-reduce of the pooled
-    partials over ``model``.  Writes ``rank<r>.json`` (and rank 0 the
-    logits) into ``work``; any failure raises and fails the spawn."""
+    partials over ``model``; then trains (:func:`distributed_train_rank`).
+    Writes ``rank<r>.json`` (and rank 0 the logits) into ``work``; any
+    failure raises and fails the spawn."""
     t0 = time.perf_counter()
+    # Four ranks' training share the card: segments that grow in place
+    # keep each rank's freed blocks usable by its next, larger tensors.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     dev = M.init_distributed("gloo", f"file://{work}/store", rank, world,
-                             device="cuda:0", timeout=60)
+                             device="cuda:0", timeout=120)
     cfg = get_config("dlrm-recmg")
     mesh = M.make_mesh(*DIST_MESH)
     lo, hi = shard_rows(cfg.rows_per_table, mesh)
@@ -1420,26 +1450,32 @@ def distributed_rank(rank, world, work, b):
     rec.update(allreduce_ms=float(np.median(times)),
                allreduce_bytes=got.numel() * 4,
                unpooled_exchange_bytes=got.numel() * 4 * cfg.multi_hot)
-    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
     if rank == 0:
         torch.save(logits.cpu(), Path(work, "logits.pt"))
+    del params, got, table, logits
+    torch.cuda.empty_cache()
+    rec["train"] = distributed_train_rank(rank, world, work, dev, mesh,
+                                          train_ref)
+    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
     M.close_distributed()
 
 
-def phase_distributed_serve(b, want):
+def phase_distributed_serve(b, want, train_ref, work):
     """Four gloo ranks on the one card, a (2, 2) mesh, the full-width
     tables row-sharded over model (7.97 GB a rank): the gathered logits
     within 2e-2 (bf16) of ``want``, each rank's shard window within fp32
-    1e-5 of its plain twin.  Returns rank 0's kernel record (errors the
-    largest over the ranks) and the window's launches over the ranks."""
+    1e-5 of its plain twin; then, in the same ranks, phase
+    ``distributed_train`` against ``train_ref`` (its references' files in
+    ``work``, which this removes).  Returns rank 0's kernel record (errors
+    the largest over the ranks), the window's serve launches over the
+    ranks and the training's launches over the ranks."""
     world = DIST_MESH[0] * DIST_MESH[1]
     torch.cuda.empty_cache()
-    work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     try:
         t0 = time.perf_counter()
         torch.multiprocessing.spawn(distributed_rank,
-                                    args=(world, work, b), nprocs=world,
-                                    join=True)
+                                    args=(world, work, b, train_ref),
+                                    nprocs=world, join=True)
         spawn_s = time.perf_counter() - t0
         recs = [json.loads(Path(work, f"rank{r}.json").read_text())
                 for r in range(world)]
@@ -1473,7 +1509,436 @@ def phase_distributed_serve(b, want):
     rec.update(name="gather_pool_shard", dtype="bf16",
                max_abs_err=max(r["max_abs_err"] for r in recs),
                library="embedding_bag(mode='sum', per_sample_weights=owned)")
-    return rec, launches
+    return rec, launches, report_distributed_train(recs, spawn_s)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6'': training across the ranks of a mesh.
+# ---------------------------------------------------------------------------
+
+# DLRM: rows_per_table cut to the full-width serve's 4,096 (2,048 a model
+# rank), B = 256 in 2 microbatches, 2 steps.  granite-moe: its depth cut
+# to 2 layers, train_4k's S = 4,096 and the global batch cut to 8 in 2
+# microbatches (1 row a data rank and microbatch on (4, 1)), 2 steps.
+DT_ROWS = 4096
+DT_B, DT_MB, DT_STEPS = 256, 2, 2
+DT_LR = 1e-3
+MOE_DT = dict(n_layers=2, seq=4096, batch=8, mb=2, steps=2)
+DT_TOL_BF16, DT_TOL_FP32 = 2e-2, 1e-4
+
+
+def dt_dlrm_cfg():
+    return dataclasses.replace(get_config("dlrm-recmg"),
+                               rows_per_table=DT_ROWS)
+
+
+def dt_granite_cfg(dtype):
+    full = get_config("granite-moe-1b-a400m")
+    return dataclasses.replace(full, n_layers=MOE_DT["n_layers"],
+                               param_dtype=dtype, compute_dtype=dtype)
+
+
+def dt_batches(cfg, lo=-2, extra=2):
+    """The DLRM training's batches on the host, one a step: ids over [lo,
+    R + extra) (by default some that no shard owns, which the row-sharded
+    lookup drops)."""
+    rng = np.random.default_rng(DIST_SEED + 1)
+    out = []
+    for _ in range(DT_STEPS):
+        out.append({
+            "dense": torch.from_numpy(rng.normal(
+                size=(DT_B, cfg.dense_features)).astype(np.float32)),
+            "sparse": torch.from_numpy(rng.integers(
+                lo, cfg.rows_per_table + extra,
+                (DT_B, cfg.n_tables, cfg.multi_hot)).astype(np.int32)),
+            "label": torch.from_numpy(
+                (rng.random(DT_B) < 0.5).astype(np.float32))})
+    return out
+
+
+def dt_lm_argv(steps, extra=()):
+    return ["--arch", "granite-moe-1b-a400m", "--steps", str(steps),
+            "--seq-len", str(MOE_DT["seq"]), "--batch", str(MOE_DT["batch"]),
+            "--microbatches", str(MOE_DT["mb"]), "--lr", str(DT_LR),
+            "--log-every", "1", *extra]
+
+
+class RouteLog:
+    """Records each call of the MoE's router (``layers._route``): its
+    top-K experts and the margin between the K-th and (K+1)-th
+    probabilities, one record a layer and microbatch."""
+
+    def __enter__(self):
+        self.top_e, self.margin = [], []
+        self._route = L._route
+
+        def route(p, cfg, xf):
+            probs, top_p, top_e = self._route(p, cfg, xf)
+            srt = torch.sort(probs.detach(), dim=-1, descending=True).values
+            self.top_e.append(top_e.detach().clone())
+            self.margin.append(srt[:, cfg.top_k - 1] - srt[:, cfg.top_k])
+            return probs, top_p, top_e
+
+        L._route = route
+        return self
+
+    def __exit__(self, *exc):
+        L._route = self._route
+        return False
+
+
+def leaf_errors(got, want, rows=None):
+    """{leaf: max |got - want| over max |want|}; ``rows`` cuts a table's
+    rows of ``want`` to a rank's shard."""
+    out = {}
+    for (name, g), w in zip(got, want):
+        if rows is not None and name == "emb":
+            w = w[:, rows[0]:rows[1]]
+        w = w.to(g.device).float()
+        out[name] = float((g.float() - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+    return out
+
+
+def pool_bwd_bound(idx, n_rows, d, elt):
+    """Bound of a sum-pool's backward: the pooled gradient (fp32) and the
+    ids read once, the table's gradient written once in its dtype; one add
+    per owned id and element."""
+    b, _ = idx.shape
+    owned = int((idx >= 0).sum())
+    return bound_ms(b * d * 4 + idx.numel() * 4 + n_rows * d * elt,
+                    owned * d)
+
+
+def phase_distributed_train_nccl(work):
+    """World 1 over NCCL in this process, a (1, 1) mesh with its groups:
+    the DLRM step through the row-sharded lookup (ids in range, one
+    microbatch) gives the unsharded step's loss bit for bit, its table
+    gradient within one bf16 ulp (the scatter-add's atomics) and every
+    other gradient bit for bit; ``compress_tree`` and ``psum_int8`` over
+    the one NCCL rank give ``dequant(quant(g))`` bit for bit, and the
+    compressed step runs.  Then, outside any process group, the references
+    of the four ranks on a (1, 1) mesh: the DLRM sharded step (bf16) on the
+    whole tables over the global batches (the first step's gradients saved
+    to ``work``) and granite's fp32 step over the launcher's batches (its
+    first step's gradients and every router call's top-K saved)."""
+    cfg = dt_dlrm_cfg()
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_train_")
+    try:
+        M.init_distributed("nccl", f"file://{store}/store", 0, 1,
+                           device="cuda:0", timeout=120)
+        mesh = M.make_host_mesh()
+        params = init_dlrm(cfg, seed=0, device="cuda")
+        batch = dt_batches(cfg, lo=0, extra=0)[0]
+        sharded = build(cfg, device="cuda", run=RunConfig(
+            remat="none", dlrm_sharded_lookup=True))
+        dense = build(cfg, device="cuda", run=RunConfig(remat="none"))
+        ops.reset_launches()
+        loss_s, grads_s = make_grads_fn(sharded, 1, mesh)(params, batch)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                    if fn.launches}
+        loss_d, grads_d = make_grads_fn(dense, 1)(params, batch)
+        names = [n for n, _ in named_leaves(params)]
+        require(torch.equal(loss_s, loss_d),
+                f"nccl world 1: sharded loss {float(loss_s)} vs "
+                f"{float(loss_d)}")
+        ulps = {}
+        for n, a, b in zip(names, grads_s, grads_d):
+            if n == "emb":
+                ulps[n] = bf16_ulps(a, b.float())
+            else:
+                require(torch.equal(a, b.float()),
+                        f"nccl world 1: gradient {n} differs")
+        require(ulps["emb"] <= 1.0, f"nccl world 1: table gradient "
+                                    f"{ulps['emb']} bf16 ulps off")
+        stacks = jax_stacks(params)
+        q, sc, _ = compress_tree(grads_d, init_error(params), stacks)
+        summed = psum_int8(q, sc, mesh.data_group, 1)
+        for n, g, got in zip(names, grads_d, summed):
+            require(torch.equal(got, dequantize_int8(*quantize_int8(g))),
+                    f"nccl world 1: psum_int8 of {n} is not "
+                    "dequant(quant(g))")
+        loss_c, grads_c, _ = make_compressed_dp_grads(dense.loss, mesh)(
+            params, init_error(params), batch)
+        require(torch.equal(loss_c, loss_d) and all(
+            bool(torch.isfinite(g).all()) for g in grads_c),
+            "nccl world 1: the compressed step")
+        torch.cuda.synchronize()
+    finally:
+        M.close_distributed()
+        shutil.rmtree(store, ignore_errors=True)
+    del params, grads_s, grads_d, grads_c, q, summed
+    rec = {"phase": "distributed_train", "world": 1, "backend": "nccl",
+           "mesh": mesh.shape, "B": DT_B, "rows_per_table": DT_ROWS,
+           "launches": launches, "loss_bit_equal_unsharded": True,
+           "table_grad_bf16_ulps": ulps["emb"],
+           "other_grads_bit_equal": True,
+           "int8_ef_is_dequant_of_quant": True,
+           "seconds": round(time.perf_counter() - t0, 1)}
+    require(launches.get("gather_pool_shard") == 1,
+            f"nccl world 1 train: launches {launches}")
+
+    # The four ranks' references, one rank owning every row.
+    t0 = time.perf_counter()
+    mesh = M.make_host_mesh()
+    params = init_dlrm(cfg, seed=0, device="cuda")
+    bundle = build(cfg, device="cuda", run=RunConfig(
+        remat="none", dlrm_sharded_lookup=True))
+    batches = dt_batches(cfg)
+    # The gradients of the same rows in the same 64-row pieces that the two
+    # data ranks' microbatches hold (DT_MB x 2 microbatches here): the bf16
+    # gradients of another cut of the batch (DT_MB here) differ by up to
+    # 27% of a leaf's largest magnitude (the rows' terms cancel), which the
+    # record shows as ``dlrm_grad_split_noise``.
+    _, grads = make_grads_fn(bundle, DT_MB * DIST_MESH[0], mesh)(
+        params, batches[0])
+    torch.save([g.to(torch.bfloat16).cpu() for g in grads],
+               Path(work, "dlrm_ref.pt"))
+    _, other = make_grads_fn(bundle, DT_MB, mesh)(params, batches[0])
+    rec["dlrm_grad_split_noise"] = leaf_errors(
+        zip([n for n, _ in named_leaves(params)], other), grads)
+    del grads, other
+    opt = init_opt(OptConfig(lr=DT_LR), tree_leaves(params))
+    step = make_train_step(bundle, DT_MB, mesh)
+    dlrm_losses = [float(step(params, opt, b)["loss"]) for b in batches]
+    del params, opt
+    torch.cuda.empty_cache()
+    lm = dt_granite_cfg("float32")
+    bundle = build(lm, device="cuda", run=RunConfig(remat="none"))
+    model = bundle.init(seed=0)
+    data = LMDataConfig(vocab=lm.vocab, seq_len=MOE_DT["seq"],
+                        global_batch=MOE_DT["batch"])
+    with RouteLog() as log:
+        _, grads = make_grads_fn(bundle, MOE_DT["mb"])(model, batch_at(data,
+                                                                       0))
+    torch.save({"grads": [g.cpu() for g in grads],
+                "top_e": [t.cpu() for t in log.top_e],
+                "margin": [m.cpu() for m in log.margin]},
+               Path(work, "granite_ref.pt"))
+    del grads, log
+    opt = init_opt(OptConfig(lr=DT_LR, total_steps=MOE_DT["steps"]),
+                   list(model.parameters()))
+    step = make_train_step(bundle, MOE_DT["mb"])
+    granite_losses = [float(step(model, opt, batch_at(data, s))["loss"])
+                      for s in range(MOE_DT["steps"])]
+    del model, opt
+    torch.cuda.empty_cache()
+    rec["reference_s"] = round(time.perf_counter() - t0, 1)
+    emit(rec)
+    return ({"dlrm_losses": dlrm_losses, "granite_losses": granite_losses},
+            launches["gather_pool_shard"])
+
+
+def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
+    """The gloo rank's training, after its serve: (a) DLRM through the
+    row-sharded lookup on the (2, 2) mesh, its first step's gradients and
+    every step's loss against the one-rank reference, the window's forward
+    and the masked and unmasked backwards timed (one rank at a time) and
+    the gradient all-reduce over ``data`` timed; (b) granite-moe through
+    the launcher on (4, 1), fp32 on the global dispatch against the
+    reference (rank 0 compares the gradients and the top-K), then bf16
+    with ``--grad-compression int8_ef``.  Returns the rank's record."""
+    t_start = time.perf_counter()
+    rec = {}
+    cfg = dt_dlrm_cfg()
+    lo, hi = shard_rows(cfg.rows_per_table, mesh)
+    params = init_dlrm(cfg, seed=0, device=dev, rows=(lo, hi))
+    bundle = build(cfg, device=dev, run=RunConfig(
+        remat="none", dlrm_sharded_lookup=True))
+    batches = dt_batches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, grads = make_grads_fn(bundle, DT_MB, mesh)(params, batches[0])
+    want = torch.load(Path(work, "dlrm_ref.pt"), mmap=True)
+    errs = leaf_errors(zip([n for n, _ in named_leaves(params)], grads),
+                       want, (lo, hi))
+    del want
+    # The gradient all-reduce over data: the dense shard gradient and the
+    # MLPs', fp32, leaf by leaf, as the step runs it.
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for g in grads:
+        dist.all_reduce(g, group=mesh.data_group)
+    torch.cuda.synchronize()
+    allreduce = {"allreduce_bytes": sum(g.numel() * 4 for g in grads),
+                 "allreduce_ms": (time.perf_counter() - t0) * 1e3}
+    del grads
+    opt = init_opt(OptConfig(lr=DT_LR), tree_leaves(params))
+    step = make_train_step(bundle, DT_MB, mesh)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(step(params, opt, b)["loss"]) for b in batches]
+    step_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    rec["dlrm"] = {
+        "rows": [lo, hi], "losses": losses,
+        "ref_losses": train_ref["dlrm_losses"], "grad_err_share": errs,
+        "launches": launches, "steps_s": step_s, **allreduce,
+        "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    del opt
+    # The window's forward and both backwards at the rank's step shape (its
+    # 128 rows of the step's 256 queries), one rank at a time.
+    t, rs, d = params["emb"].shape
+    table = params["emb"].detach().reshape(t * rs, d)
+    ids = _flat_shard_ids(M.batch_shard(batches[0]["sparse"].to(dev), mesh),
+                          t, rs, lo)
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    ids_in = torch.where(ids < 0, torch.randint(
+        0, t * rs, ids.shape, generator=gen, device=dev,
+        dtype=ids.dtype), ids)
+    dout = torch.randn((ids.shape[0], d), generator=gen, device=dev)
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            timer = Timer()
+            fwd = eg.gather_pool_shard(table, ids)
+            require(torch.allclose(fwd, ref.gather_pool_shard_ref(table, ids),
+                                   rtol=1e-5, atol=1e-5),
+                    f"rank {rank}: the window against its twin")
+            del fwd
+            w = {"B": int(ids.shape[0]), "P": int(ids.shape[1]),
+                 "N": t * rs, "D": d,
+                 "owned_share": float((ids >= 0).float().mean()),
+                 "fwd_ms": timer(lambda: eg.gather_pool_shard(table, ids)),
+                 "masked_bwd_ms": timer(lambda: ops._pool_backward(
+                     ids, dout, table.shape, table.dtype, True)),
+                 "unmasked_bwd_ms": timer(lambda: ops._pool_backward(
+                     ids_in, dout, table.shape, table.dtype, False))}
+            w["fwd_bound_ms"], _ = shard_pool_bound(table, ids)
+            w["masked_bwd_bound_ms"], w["bwd_bound_by"] = pool_bwd_bound(
+                ids, t * rs, d, table.element_size())
+            w["unmasked_bwd_bound_ms"], _ = pool_bwd_bound(
+                ids_in, t * rs, d, table.element_size())
+            rec["window"] = w
+            del timer
+    del ids, ids_in, dout, params, table
+    torch.cuda.empty_cache()
+
+    # (b) granite-moe on (4, 1): fp32, global dispatch, then int8_ef.
+    lm = dt_granite_cfg("float32")
+    mesh41 = M.make_mesh(world, 1)
+    bundle = build(lm, device=dev, run=RunConfig(remat="none"))
+    model = bundle.init(seed=0)
+    data = LMDataConfig(vocab=lm.vocab, seq_len=MOE_DT["seq"],
+                        global_batch=MOE_DT["batch"])
+    with RouteLog() as log:
+        _, grads = make_grads_fn(bundle, MOE_DT["mb"], mesh41)(
+            model, batch_at(data, 0))
+    top_e = [M.gather_batch(e, mesh41) for e in log.top_e]
+    moe = {}
+    if rank == 0:
+        want = torch.load(Path(work, "granite_ref.pt"), mmap=True)
+        moe["grad_err_share"] = leaf_errors(
+            zip([n for n, _ in named_leaves(model)], grads), want["grads"])
+        diff = [(a.cpu() != b).any(dim=1) for a, b in zip(top_e,
+                                                          want["top_e"])]
+        moe["top_e_rows_differing"] = [int(x.sum()) for x in diff]
+        moe["top_e_equal"] = not any(x.any() for x in diff)
+        moe["differing_rows_max_margin"] = max(
+            [float(m[x].max()) for m, x in zip(want["margin"], diff)
+             if x.any()], default=0.0)
+        moe["top_e_calls"] = len(top_e)
+        del want
+    del model, grads, log, top_e
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    moe["losses"], moe["step_ms"], _ = _train_cli(
+        dt_lm_argv(MOE_DT["steps"]), lm)
+    moe["launcher_s"] = time.perf_counter() - t0
+    moe["launches"] = {fn.__name__: fn.launches for fn in ops.KERNELS
+                       if fn.launches}
+    moe["ref_losses"] = train_ref["granite_losses"]
+    bf16 = dt_granite_cfg("bfloat16")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    moe["int8_losses"], moe["int8_step_ms"], lines = _train_cli(
+        dt_lm_argv(MOE_DT["steps"], ("--grad-compression", "int8_ef")),
+        bf16)
+    moe["int8_launcher_s"] = time.perf_counter() - t0
+    moe["int8_launches"] = {fn.__name__: fn.launches for fn in ops.KERNELS
+                            if fn.launches}
+    moe["int8_lines"] = [ln for ln in lines if "microbatches" in ln
+                         or ln.startswith("mesh:")]
+    # The int8 wire: the int32 codes of every parameter and a scale a leaf.
+    shapes = [p.shape for p in bundle.init(seed=0).parameters()]
+    codes = [torch.zeros(s, dtype=torch.int8, device=dev) for s in shapes]
+    scales = [torch.ones((), device=dev) for _ in shapes]
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    psum_int8(codes, scales, mesh41.data_group, mesh41.data)
+    torch.cuda.synchronize()
+    moe.update(int8_wire_bytes=sum(c.numel() * 4 + 4 for c in codes),
+               int8_allreduce_ms=(time.perf_counter() - t0) * 1e3)
+    del codes, scales
+    torch.cuda.empty_cache()
+    rec["moe"] = moe
+    rec["train_s"] = time.perf_counter() - t_start
+    return rec
+
+
+def report_distributed_train(recs, spawn_s):
+    """Holds the gloo ranks' training against the references and emits
+    the phase's line; returns the launches over the ranks."""
+    emit({"phase": "distributed_train", "world": len(recs),
+          "backend": "gloo", "ranks_on_one_card": len(recs),
+          "allreduce_note": GLOO_NOTE, "spawn_s_serve_and_train": spawn_s,
+          "dlrm": {"mesh": dict(zip(("data", "model"), DIST_MESH)),
+                   "rows_per_table": DT_ROWS, "B": DT_B,
+                   "microbatches": DT_MB, "steps": DT_STEPS,
+                   "ids": "[-2, R + 2)"},
+          "granite": {"mesh": {"data": len(recs), "model": 1},
+                      "cuts": {"n_layers": [24, MOE_DT["n_layers"]],
+                               "from": "train_4k S=4096 global_batch=256",
+                               "global_batch": MOE_DT["batch"],
+                               "microbatches": MOE_DT["mb"]},
+                      "dtype": "fp32 (plain), bf16 (int8_ef)"},
+          "ranks": [{"rank": r["rank"], "coords": r["coords"],
+                     **r["train"]} for r in recs]})
+    launches = {}
+    for r in recs:
+        t = r["train"]
+        a, b = t["dlrm"], t["moe"]
+        require(np.allclose(a["losses"], a["ref_losses"], rtol=DT_TOL_BF16,
+                            atol=DT_TOL_BF16),
+                f"rank {r['rank']} DLRM losses {a['losses']} vs "
+                f"{a['ref_losses']}")
+        worst = max(a["grad_err_share"].values())
+        require(worst <= DT_TOL_BF16, f"rank {r['rank']} DLRM gradients: "
+                f"{a['grad_err_share']}")
+        require(a["launches"].get("gather_pool_shard") == DT_STEPS * DT_MB,
+                f"rank {r['rank']} DLRM launches {a['launches']}")
+        require(np.allclose(b["losses"], b["ref_losses"], rtol=DT_TOL_FP32,
+                            atol=DT_TOL_FP32),
+                f"rank {r['rank']} granite losses {b['losses']} vs "
+                f"{b['ref_losses']}")
+        require(len(b["int8_losses"]) == MOE_DT["steps"]
+                and all(np.isfinite(b["int8_losses"])),
+                f"rank {r['rank']} int8_ef losses {b['int8_losses']}")
+        n_fwd = MOE_DT["steps"] * MOE_DT["mb"] * MOE_DT["n_layers"]
+        for key in ("launches", "int8_launches"):
+            per = n_fwd if key == "launches" else n_fwd // MOE_DT["mb"]
+            require(b[key].get("flash_attention") == per
+                    and b[key].get("flash_attention_bwd") == per,
+                    f"rank {r['rank']} granite {key} {b[key]}")
+        for src in (a["launches"], b["launches"], b["int8_launches"]):
+            for k, v in src.items():
+                launches[k] = launches.get(k, 0) + v
+    b0 = recs[0]["train"]["moe"]
+    require(max(b0["grad_err_share"].values()) <= DT_TOL_FP32,
+            f"granite gradients over 4 ranks: {b0['grad_err_share']}")
+    require(b0["top_e_equal"] or b0["differing_rows_max_margin"] <= 1e-5,
+            f"granite's global top-K differs where the margin is "
+            f"{b0['differing_rows_max_margin']}")
+    require(any("does not apply" in ln for ln in b0["int8_lines"]),
+            f"int8_ef: {b0['int8_lines']}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1987,9 +2452,10 @@ def phase_runtime_serve(cfg, trace, host, per_batch, capacity, qcapacity,
     """The runtime's other paths at full width: ``--overload 2`` on the
     int8 store (degraded reads on the card), ``--adapt`` with the
     frequency model and with the learned model of phase ``learned_serve``
-    on a drift workload (3 batches of the diurnal regime, one hot-set
-    switch a batch), and ``--workload zipf_hot`` through the CLI's
-    ``main``.  Returns the kernels' launches summed over the runs."""
+    on a drift workload (3 batches of a quarter of the serve's queries in
+    the diurnal regime, one hot-set switch a batch), and ``--workload
+    zipf_hot`` through the CLI's ``main``.  Returns the kernels' launches
+    summed over the runs."""
     params = init_dlrm(cfg, seed=0, device="cuda")
     total = {}
 
@@ -2034,10 +2500,15 @@ def phase_runtime_serve(cfg, trace, host, per_batch, capacity, qcapacity,
             return out
         return run
 
+    # Batches of a quarter of the serve's queries (three of them, one
+    # hot-set switch a batch): the learned arm's three outputs_for over
+    # the drift trace took ~47 s at full batches.
+    adapt_queries = batch_queries // 4
+    adapt_batch = per_batch // 4
     drift = make_trace(scenario(
         "diurnal", n_tables=cfg.n_tables, rows_per_table=cfg.rows_per_table,
-        n_accesses=3 * per_batch, seed=0, n_phases=3))
-    adapt_cfg = DriftConfig(window=per_batch, hot_k=256, warmup_windows=1)
+        n_accesses=3 * adapt_batch, seed=0, n_phases=3))
+    adapt_cfg = DriftConfig(window=adapt_batch, hot_k=256, warmup_windows=1)
     for arm in ("frequency", "learned"):
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -2054,7 +2525,7 @@ def phase_runtime_serve(cfg, trace, host, per_batch, capacity, qcapacity,
             model.outputs_for = timed(model.outputs_for, "outputs_for")
         t0 = time.perf_counter()
         res = serve_trace(cfg, params, drift, capacity, "recmg", outputs,
-                          batch_queries=batch_queries, device="cuda",
+                          batch_queries=adapt_queries, device="cuda",
                           async_prefetch=True, adapt=True,
                           adapt_cfg=adapt_cfg,
                           model=model if arm == "learned" else None,
@@ -2074,7 +2545,8 @@ def phase_runtime_serve(cfg, trace, host, per_batch, capacity, qcapacity,
         require(np.isfinite(res["logits"]).all(),
                 f"runtime_serve (adapt, {arm}): logits not finite")
         emit({"phase": "runtime_serve", "run": f"adapt, {arm}, fp32 recmg",
-              "workload": "diurnal, n_phases=3, 3 batches",
+              "workload": "diurnal, n_phases=3, 3 batches of "
+                          f"{adapt_queries} queries",
               **runtime_report(res), "drift": d,
               "seconds": {"outputs_before_serve_s": round(outputs_s, 3),
                           "serve_s": round(serve_s, 3),
@@ -3768,12 +4240,14 @@ def _train_cli(argv, cfg):
 
 
 def phase_lm_train(arch="smollm-135m", phase="lm_train",
-                   opt_settings=False, n_layers=None, steps=6):
+                   opt_settings=False, n_layers=None, steps=6, resume=True):
     """Full-width bf16 ``arch`` (its depth cut to ``n_layers`` when given)
     trained through the launcher: run A (``steps`` steps, checkpoints every
     ``steps // 2``) and run B (A's checkpoint at ``steps // 2`` alone in a
     fresh directory, run to ``steps``), then one step under the profiler
-    and, with ``opt_settings``, 2 steps at each AdamW setting."""
+    and, with ``opt_settings``, 2 steps at each AdamW setting.  Without
+    ``resume``, run A alone and without checkpoints (their ``np.savez``
+    writes were most of falcon-mamba-7b's seconds)."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
     half = steps // 2
@@ -3789,25 +4263,29 @@ def phase_lm_train(arch="smollm-135m", phase="lm_train",
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    run_a, ms_a, lines_a = _train_cli(argv + ["--ckpt", str(a_dir),
-                                              "--ckpt-every", str(half)],
-                                       cfg)
+    run_a, ms_a, lines_a = _train_cli(
+        argv + (["--ckpt", str(a_dir), "--ckpt-every", str(half)]
+                if resume else []), cfg)
     a_s = time.perf_counter() - t0
     launches_a = {fn.__name__: fn.launches for fn in ops.KERNELS
                   if fn.launches}
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-    # A's checkpoint at ``half`` alone in B's directory (moved: a
-    # checkpoint of granite's parameters and moments is 14 GB).
-    b_dir.mkdir(parents=True)
-    ck = f"step_{half:08d}"
-    shutil.move(a_dir / ck, b_dir / ck)
-    shutil.rmtree(a_dir)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    run_b, ms_b, lines_b = _train_cli(argv + ["--ckpt", str(b_dir)], cfg)
-    b_s = time.perf_counter() - t0
-    launches_b = {fn.__name__: fn.launches for fn in ops.KERNELS
-                  if fn.launches}
+    if not resume:
+        half, run_b, ms_b, lines_b, b_s, launches_b = steps, [], {}, [], \
+            0.0, {}
+    else:
+        # A's checkpoint at ``half`` alone in B's directory (moved: a
+        # checkpoint of granite's parameters and moments is 14 GB).
+        b_dir.mkdir(parents=True)
+        ck = f"step_{half:08d}"
+        shutil.move(a_dir / ck, b_dir / ck)
+        shutil.rmtree(a_dir)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run_b, ms_b, lines_b = _train_cli(argv + ["--ckpt", str(b_dir)], cfg)
+        b_s = time.perf_counter() - t0
+        launches_b = {fn.__name__: fn.launches for fn in ops.KERNELS
+                      if fn.launches}
     shutil.rmtree(root, ignore_errors=True)
     # The forwards run twice a layer and microbatch under --remat full,
     # the backwards once.
@@ -3817,14 +4295,15 @@ def phase_lm_train(arch="smollm-135m", phase="lm_train",
     for run, n, got in (("A", steps, launches_a), ("B", steps - half,
                                                    launches_b)):
         for k, per_step in want.items():
-            require(got.get(k) == n * per_step,
+            require(got.get(k, 0) == n * per_step,
                     f"{phase} run {run}: {k} launched {got.get(k)}, "
                     f"expected {n * per_step}")
     require(len(run_a) == steps and all(np.isfinite(run_a))
             and len(run_b) == steps - half,
             f"{phase} losses {run_a} {run_b}")
-    require(any(f"restored step {half}" in ln for ln in lines_b)
-            and run_b == run_a[half:],
+    require(not resume or (any(f"restored step {half}" in ln
+                               for ln in lines_b)
+                           and run_b == run_a[half:]),
             f"{phase} resume: B {run_b} vs A {run_a[half:]}")
     steady = [ms_a[i] for i in range(1, steps)]
     cuts = {"from": "train_4k S=4096 global_batch=256",
@@ -3835,7 +4314,8 @@ def phase_lm_train(arch="smollm-135m", phase="lm_train",
            "cuts": cuts, "n_params": build(cfg).n_params(),
            "argv": argv, "losses_a": run_a, "step_ms_a": ms_a,
            "losses_b": run_b, "step_ms_b": ms_b,
-           "resumed_losses_bit_equal": True, "run_a_s": a_s, "run_b_s": b_s,
+           "resumed_losses_bit_equal": True if resume else None,
+           "run_a_s": a_s, "run_b_s": b_s,
            "tokens_per_s_median": batch * seq / (np.median(steady) / 1e3),
            "peak_device_gb": peak_gb, "launches_a": launches_a,
            "launches_b": launches_b, "launches_expected_per_step": want,
@@ -4442,9 +4922,15 @@ def main():
         "forward_quantized", forward_quantized, timer, full, fwd["params"],
         fwd["dense"], fwd["idx"], fwd["logits"])
     del fwd
-    shard_rec, gloo_launches = timed("distributed_serve",
-                                     phase_distributed_serve, fwd_b,
-                                     shard_want)
+    # Training across the ranks: world 1 over NCCL and the references
+    # here, then the four gloo ranks train after they serve, in one spawn.
+    dist_work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    train_ref, nccl_train_launches = timed(
+        "distributed_train_nccl", phase_distributed_train_nccl, dist_work)
+    shard_rec, gloo_launches, dist_train_launches = timed(
+        "distributed_serve", phase_distributed_serve, fwd_b, shard_want,
+        train_ref, dist_work)
+    dist_train_launches["gather_pool_shard"] += nccl_train_launches
     timed("lm_parity", phase_lm_parity)
     lm_launches = timed("lm_serve", phase_lm_serve)
     timed("train_parity", phase_train_parity)
@@ -4470,9 +4956,10 @@ def main():
         ssm_launches[name] = ssm_launches.get(name, 0) + k
     # Their training at full width, the depth cut: falcon 2 of 64 layers,
     # hymba 4 of 32, 2 steps each (a checkpoint at 1, resumed from it).
+    # falcon's run A alone, without checkpoints (hymba's resumes).
     ssm_train_launches = timed("ssm_train", phase_lm_train,
                                "falcon-mamba-7b", "ssm_train", n_layers=2,
-                               steps=2)
+                               steps=2, resume=False)
     for name, k in timed("hybrid_train", phase_lm_train, "hymba-1.5b",
                          "hybrid_train", n_layers=4, steps=2).items():
         ssm_train_launches[name] = ssm_train_launches.get(name, 0) + k
@@ -4532,7 +5019,8 @@ def main():
             + transfetch_launches.get(name, 0) + train_launches.get(name, 0) \
             + lm_launches.get(name, 0) + moe_launches.get(name, 0) \
             + vlm_launches.get(name, 0) + ssm_launches.get(name, 0) \
-            + ssm_train_launches.get(name, 0) + encdec_launches.get(name, 0)
+            + ssm_train_launches.get(name, 0) + encdec_launches.get(name, 0) \
+            + dist_train_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -4561,6 +5049,9 @@ def main():
             kernels[-1]["launches_ssm_train"] = ssm_train_launches[name]
         if name in encdec_launches:
             kernels[-1]["launches_encdec"] = encdec_launches[name]
+        if name in dist_train_launches:
+            kernels[-1]["launches_distributed_train"] = \
+                dist_train_launches[name]
         if name == "selective_scan":
             kernels[-1].update(note=SCAN_REPLACES_NOTE,
                                sfu_floor_ms=rec["sfu_floor_ms"])
@@ -4596,7 +5087,12 @@ def main():
             kernels[-1].update(
                 mode="gather_pool's shard window (ids < 0 skipped)",
                 launches_distributed={"gloo_world_4": gloo_launches,
-                                      "nccl_world_1": nccl_launches},
+                                      "nccl_world_1": nccl_launches,
+                                      "train_gloo_world_4":
+                                          dist_train_launches[name]
+                                          - nccl_train_launches,
+                                      "train_nccl_world_1":
+                                          nccl_train_launches},
                 library=rec["library"], shape={
                     k: rec[k] for k in ("B", "P", "N", "D", "dtype")},
                 allreduce={k: rec[k] for k in (

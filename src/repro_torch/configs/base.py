@@ -178,15 +178,20 @@ class ShapeConfig:
 # ---------------------------------------------------------------------------
 
 REMAT = ("full", "none")
+GRAD_COMPRESSION = ("", "int8_ef")
 
 
 @dataclass(frozen=True)
 class RunConfig:
     remat: str = "full"  # full | none: recompute each layer in the backward
     logits_chunk: int = 0  # 0 -> whole-sequence logits; else chunked loss
-    # DLRM serves through the row-sharded, pool-before-reduce lookup on the
-    # active mesh (repro_torch.distributed.mesh); its loss raises (A10b-2).
+    # DLRM serves and trains through the row-sharded, pool-before-reduce
+    # lookup on the active mesh (repro_torch.distributed.mesh).
     dlrm_sharded_lookup: bool = False
+    # The MoE's capacity dispatch per data rank (JAX's
+    # _moe_dispatch_ffn_sharded) instead of over the global batch.
+    moe_local_dispatch: bool = False
+    grad_compression: str = ""  # "" | int8_ef: the data all-reduce in int8
 
     def __post_init__(self):
         if self.remat == "dots":
@@ -196,6 +201,9 @@ class RunConfig:
         if self.remat not in REMAT:
             raise ValueError(f"remat {self.remat!r}: expected one of "
                              f"{REMAT}")
+        if self.grad_compression not in GRAD_COMPRESSION:
+            raise ValueError(f"grad_compression {self.grad_compression!r}: "
+                             f"expected one of {GRAD_COMPRESSION}")
 
 
 LM_SHAPES = {

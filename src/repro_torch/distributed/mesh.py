@@ -135,6 +135,21 @@ def batch_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x[lo:hi]
 
 
+def microbatch_shard(x: torch.Tensor, microbatches: int, i: int,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This rank's rows of microbatch ``i`` of a global batch: the batch
+    is cut into ``microbatches`` first, and the microbatch is then split
+    over ``data`` (rank r's rows of it are ``i B/mb + r B/(mb n) ..``, not
+    a contiguous block of the whole batch); without a mesh, the whole
+    microbatch."""
+    n = x.shape[0]
+    if n % microbatches:
+        raise ValueError(f"batch of {n} does not split into "
+                         f"{microbatches} microbatches")
+    mb = x.reshape(microbatches, n // microbatches, *x.shape[1:])[i]
+    return mb if mesh is None else batch_shard(mb, mesh)
+
+
 def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The global batch from every data rank's part, in data order."""
     if mesh.data_group is None:

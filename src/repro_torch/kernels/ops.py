@@ -5,23 +5,24 @@ knob: a CUDA tensor goes to the CUDA kernel (which launches or raises),
 and a CPU tensor goes to the plain PyTorch version.  Nothing falls back
 from the card to the plain path.
 
-``lstm_cell``, ``chamfer``, ``gather_pool``, ``flash_attention`` and
-``selective_scan`` sit under gradients (every LSTM step of the learned
-models, the prefetch model's loss, the DLRM and LM training losses, the
-SSM and hybrid LMs' included), so under autograd they are
+``lstm_cell``, ``chamfer``, ``gather_pool`` (and its shard window
+``gather_pool_shard``), ``flash_attention`` and ``selective_scan`` sit
+under gradients (every LSTM step of the learned models, the prefetch
+model's loss, the DLRM and LM training losses, the row-sharded DLRM's and
+the SSM and hybrid LMs' included), so under autograd they are
 ``torch.autograd.Function``s whose forward is the kernel (or the plain
 version on the CPU).  The backwards of ``lstm_cell``, ``chamfer`` and
 ``gather_pool`` are device-agnostic PyTorch on what the forward saved (the
-activated gates, the argmins, the ids: a scatter-add); the Pallas kernels
-have no backward either.  ``flash_attention``'s backward, causal or in a
-sliding window, is a kernel of its own on the card
-(``flash_attention_bwd``, from the forward's log-sum-exp) and its plain
-version on the CPU; so is ``selective_scan``'s (the mamba-1 scan, a
-kernel with no TPU counterpart: ``selective_scan_bwd``, from the states
-the forward saved every 16 steps).  Outside autograd (serving under
+activated gates, the argmins, the ids: a scatter-add, which skips the
+shard window's ids < 0); the Pallas kernels have no backward either.
+``flash_attention``'s backward, causal or in a sliding window, is a kernel of
+its own on the card (``flash_attention_bwd``, from the forward's log-sum-exp)
+and its plain version on the CPU; so is ``selective_scan``'s (the mamba-1 scan,
+a kernel with no TPU counterpart: ``selective_scan_bwd``, from the states the
+forward saved every 16 steps).  Outside autograd (serving under
 ``torch.inference_mode()``) each op calls its kernel directly:
-``flash_attention`` writes no log-sum-exp and ``selective_scan`` saves
-no states.
+``flash_attention`` writes no log-sum-exp and ``selective_scan`` saves no
+states.
 """
 from __future__ import annotations
 
@@ -77,50 +78,80 @@ def _gather_pool_forward(table: torch.Tensor,
     return ref.gather_pool_ref(table, idx)
 
 
+# Spare rows past the table that take the shard window's ids < 0 in the
+# backward, spread by pooled row so that their atomic adds do not pile onto
+# one address (a rank's foreign ids are half of them).
+_SPARE_ROWS = 256
+
+
+def _pool_backward(idx: torch.Tensor, dout: torch.Tensor, shape,
+                   dtype: torch.dtype, skip_negative: bool) -> torch.Tensor:
+    """The table's gradient of a sum-pool: the pooled gradient scatter-added
+    into a dense fp32 table, one scatter per pooled position (never a (B *
+    P, D) copy), cast once to ``dtype``.  With ``skip_negative`` an id < 0
+    adds nothing: it goes to one of ``_SPARE_ROWS`` rows past the table,
+    which are dropped (clamping it would add every foreign row's gradient
+    into row 0)."""
+    n = shape[0]
+    spare = _SPARE_ROWS if skip_negative else 0
+    grad = torch.zeros((n + spare, *shape[1:]), dtype=torch.float32,
+                       device=dout.device)
+    dout = dout.float()
+    if spare:
+        spill = n + torch.arange(idx.shape[0], device=idx.device) % spare
+    for p in range(idx.shape[1]):
+        ids = ref._clamped(idx[:, p], n)
+        if spare:
+            ids = torch.where(idx[:, p] < 0, spill, ids)
+        grad.index_add_(0, ids, dout)
+    return grad[:n].to(dtype)
+
+
 class _GatherPool(torch.autograd.Function):
-    """Sum-pool; the table's gradient is a scatter-add of the pooled
-    gradient into a dense fp32 table, cast once to the table's dtype."""
+    """Sum-pool; the table's gradient is :func:`_pool_backward`.  With
+    ``skip_negative`` it is the shard window: ids < 0 add nothing, forward
+    and backward."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, skip_negative):
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        ctx.skip_negative = skip_negative
         ctx.save_for_backward(idx)
+        if skip_negative:
+            return _gather_pool_shard_forward(table, idx)
         return _gather_pool_forward(table, idx)
 
     @staticmethod
     def backward(ctx, dout):
         (idx,) = ctx.saved_tensors
-        n = ctx.table_shape[0]
-        grad = torch.zeros(ctx.table_shape, dtype=torch.float32,
-                           device=dout.device)
-        dout = dout.float()
-        # One scatter-add per pooled position: never a (B * P, D) copy.
-        for p in range(idx.shape[1]):
-            grad.index_add_(0, ref._clamped(idx[:, p], n), dout)
-        return grad.to(ctx.table_dtype), None
+        return _pool_backward(idx, dout, ctx.table_shape, ctx.table_dtype,
+                              ctx.skip_negative), None, None
 
 
 def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table: (N, D); idx: (B, P) int32 -> (B, D) fp32 sum-pool,
     differentiable in ``table``."""
     if _requires_grad(table):
-        return _GatherPool.apply(table, idx)
+        return _GatherPool.apply(table, idx, False)
     return _gather_pool_forward(table, idx)
+
+
+def _gather_pool_shard_forward(table: torch.Tensor,
+                               idx: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(table):
+        return _eg.gather_pool_shard(table, idx)
+    return ref.gather_pool_shard_ref(table, idx)
 
 
 def gather_pool_shard(table: torch.Tensor, idx: torch.Tensor
                       ) -> torch.Tensor:
     """table: (N, D), a rank's shard of rows; idx: (B, P) int32 with -1
     for a row the shard does not own -> (B, D) fp32 sum-pool of the owned
-    rows.  Serving only: its backward, and the all-reduce's around it, are
-    ROADMAP A10b-2."""
+    rows, differentiable in ``table``: the backward scatter-adds the
+    pooled gradient into the owned rows only (:func:`_pool_backward`)."""
     if _requires_grad(table):
-        raise NotImplementedError(
-            "the row-sharded lookup has no backward yet: the masked pool's "
-            "and the all-reduce's gradients are ROADMAP A10b-2")
-    if _on_cuda(table):
-        return _eg.gather_pool_shard(table, idx)
-    return ref.gather_pool_shard_ref(table, idx)
+        return _GatherPool.apply(table, idx, True)
+    return _gather_pool_shard_forward(table, idx)
 
 
 def quantize_scatter(buf: torch.Tensor, scales: torch.Tensor,

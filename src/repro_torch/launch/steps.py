@@ -1,10 +1,11 @@
-"""The training step: gradient accumulation over microbatches and AdamW.
+"""The training step: gradient accumulation over microbatches, the
+data-parallel all-reduce over the ranks of a mesh, and AdamW.
 
-Ported from ``src/repro/launch/steps.py::make_train_step`` (:15-94).  The
-mesh and gradient-sharding constraints are dropped (one card), and so is
-``opt_struct_and_specs`` (sharding specs only).  PyTorch updates in place,
-so the step returns only its metrics: the parameters and the optimizer
-(:func:`repro_torch.optim.adamw.init_opt`) hold the new state.
+Ported from ``src/repro/launch/steps.py::make_train_step`` (:15-94).
+``opt_struct_and_specs`` (sharding specs only) is not ported.  PyTorch
+updates in place, so the step returns only its metrics: the parameters and
+the optimizer (:func:`repro_torch.optim.adamw.init_opt`) hold the new
+state.
 
 As in JAX, with ``microbatches > 1`` the batch is split along its first
 axis, each microbatch's gradients are summed into **fp32** accumulators
@@ -13,15 +14,31 @@ bf16 between microbatches, as ``.grad`` accumulation would round them),
 and the sums and the loss are divided by the count.  With one microbatch
 the gradients keep the parameters' dtype, as ``jax.value_and_grad`` gives
 them; the optimizer widens them to fp32 either way.
+
+With a ``mesh`` (:mod:`repro_torch.distributed.mesh`) the step runs in its
+activation scope on this rank's rows: the microbatches are cut first and
+each is split over ``data``
+(:func:`repro_torch.distributed.mesh.microbatch_shard`, JAX's ``[None,
+dp]`` constraint on the ``(mb, B/mb, ...)`` reshape).  The gradients are
+then all-reduced over ``data`` in fp32, leaf by leaf, and divided by the
+data rank count, and the loss is the data mean; nothing is reduced over
+``model`` (a DLRM's MLP gradients are equal on the model ranks and each
+table gradient covers the rank's own rows; an LM's model ranks hold the
+whole model and run the same step).  ``grad_norm`` is taken after the
+reduction.  A (1, 1) mesh outside a process group reduces nothing: the
+step gives the bits it gives without a mesh.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import contextlib
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import mesh as M
 from repro_torch.models.model_api import ModelBundle
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import leaves
@@ -32,54 +49,88 @@ def _on(x, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def _grads(loss: torch.Tensor, params):
-    """d loss / d params, zeros for a parameter the loss does not reach
-    (JAX's gradient of an unused leaf)."""
-    gs = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, gs)]
+def trainable_leaves(params) -> List[torch.Tensor]:
+    """``leaves(params)``, each switched to ``requires_grad``."""
+    ps = leaves(params)
+    for p in ps:
+        if not p.requires_grad:
+            p.requires_grad_(True)
+    return ps
 
 
-def make_train_step(bundle: ModelBundle, microbatches: int = 1
+def value_and_grad(loss_fn: Callable, params, ps, batch):
+    """``(loss, grads)``: ``loss_fn(params, batch)`` detached, and its
+    gradients in the leaves ``ps``, zeros for a leaf the loss does not
+    reach (JAX's gradient of an unused leaf)."""
+    loss = loss_fn(params, batch)
+    gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(ps, gs)]
+
+
+def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
+                  mesh: Optional[M.Mesh] = None
+                  ) -> Callable[[Any, Dict], tuple]:
+    """Returns ``grads_fn(params, batch) -> (loss, grads)``: the step's
+    loss (0-d fp32) and gradients (a list in the order of
+    ``repro_torch.tree.leaves(params)``), accumulated over the
+    microbatches and, with a mesh, reduced over its data ranks."""
+    loss_fn = bundle.loss
+    reduce = mesh is not None and mesh.data_group is not None
+
+    def grads_fn(params, batch: Dict):
+        dev = resolve_device(bundle.device)
+        ps = trainable_leaves(params)
+        batch = {k: _on(v, dev) for k, v in batch.items()}
+        scope = (M.activation_sharding(mesh) if mesh is not None
+                 else contextlib.nullcontext())
+        with scope:
+            if microbatches <= 1:
+                if mesh is not None:
+                    batch = {k: M.batch_shard(v, mesh)
+                             for k, v in batch.items()}
+                loss, grads = value_and_grad(loss_fn, params, ps, batch)
+            else:
+                acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                for i in range(microbatches):
+                    mb = {k: M.microbatch_shard(v, microbatches, i, mesh)
+                          for k, v in batch.items()}
+                    li, gi = value_and_grad(loss_fn, params, ps, mb)
+                    for a, g in zip(acc, gi):
+                        a.add_(g)  # widened inside the add: no fp32 copy
+                    loss = loss + li
+                loss = loss / microbatches
+                grads = [a.div_(microbatches) for a in acc]
+        if reduce:
+            grads, loss = [g.float() for g in grads], loss.clone()
+            for g in grads + [loss]:
+                dist.all_reduce(g, op=dist.ReduceOp.SUM,
+                                group=mesh.data_group)
+                g.div_(mesh.data)
+        return loss, grads
+
+    return grads_fn
+
+
+def make_train_step(bundle: ModelBundle, microbatches: int = 1,
+                    mesh: Optional[M.Mesh] = None
                     ) -> Callable[[Any, AdamW, Dict], Dict[str, Any]]:
     """Returns ``train_step(params, opt, batch) -> {"loss", "grad_norm",
     "lr"}`` (loss and grad_norm 0-d fp32 tensors on the device), which
     updates ``params`` (a module or a dict of tensors, trained through
-    ``opt``) in place.  ``batch`` holds arrays or tensors whose first axis
-    is the batch; they go to the bundle's device once a step."""
-    loss_fn = bundle.loss
+    ``opt``; with a mesh, this rank's: a DLRM's table shard) in place.
+    ``batch`` holds arrays or tensors whose first axis is the global batch;
+    they go to the bundle's device once a step."""
+    grads_fn = make_grads_fn(bundle, microbatches, mesh)
 
     def train_step(params, opt: AdamW, batch: Dict) -> Dict[str, Any]:
-        dev = resolve_device(bundle.device)
         ps = leaves(params)
         held = [p for g in opt.param_groups for p in g["params"]]
         if len(held) != len(ps) or any(p is not q for p, q in zip(ps, held)):
             raise ValueError("the optimizer must hold the parameters in the "
                              "order of repro_torch.tree.leaves(params)")
-        for p in ps:
-            if not p.requires_grad:
-                p.requires_grad_(True)
-        batch = {k: _on(v, dev) for k, v in batch.items()}
-        if microbatches <= 1:
-            loss = loss_fn(params, batch)
-            grads = _grads(loss, ps)
-            loss = loss.detach()
-        else:
-            n = next(iter(batch.values())).shape[0]
-            if n % microbatches:
-                raise ValueError(f"batch of {n} does not split into "
-                                 f"{microbatches} microbatches")
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(microbatches):
-                mb = {k: v.reshape(microbatches, n // microbatches,
-                                   *v.shape[1:])[i] for k, v in batch.items()}
-                li = loss_fn(params, mb)
-                for a, g in zip(acc, _grads(li, ps)):
-                    a.add_(g.float())
-                loss = loss + li.detach()
-            loss = loss / microbatches
-            grads = [a.div_(microbatches) for a in acc]
+        loss, grads = grads_fn(params, batch)
         metrics = opt.apply(grads)
         metrics["loss"] = loss
         return metrics

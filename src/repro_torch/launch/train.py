@@ -9,8 +9,22 @@
 
 Ported from ``src/repro/launch/train.py``: the same flags and printed lines,
 plus ``--device`` (``cuda`` unless the caller asks for ``cpu``; without
-CUDA the default raises).  The ``mesh:`` line becomes a ``device:`` line:
-the port trains on one card.  Deterministic resumable data
+CUDA the default raises) and ``--dist-backend``.  Without a process group
+it trains on one device and prints a ``device:`` line.  Under one (started
+by the caller, or by the launcher from torchrun's ``WORLD_SIZE``, ``RANK``
+and ``MASTER_ADDR`` with the backend ``--dist-backend`` names; nothing
+picks one), it prints JAX's ``mesh:`` line and trains on
+``ElasticMesh(--model-parallel)``: every rank takes its part of each
+step's global batch (``distributed/mesh.py::microbatch_shard``), the
+gradients are all-reduced over ``data`` in fp32, or with
+``--grad-compression int8_ef`` as int8 codes with error feedback
+(:func:`repro_torch.distributed.compression.make_compressed_dp_grads`:
+each rank's whole part in one pass, so ``--microbatches`` does not apply,
+as in JAX).  An LM's model ranks hold the whole model and run the same
+step (JAX's tensor parallelism is GSPMD's, not ported).  Rank 0 writes the
+checkpoints and the heartbeat and every rank restores them; a restart on
+fewer ranks re-factors the mesh and reads the same global batches.
+Deterministic resumable data
 (:mod:`repro_torch.data.lm_data`), atomic async checkpoints of the
 parameters and the AdamW state (its step count included), retry of a
 step that failed before its update (:func:`run_step`), straggler
@@ -19,30 +33,33 @@ checkpoint and runs on to ``--steps``, whose value also sets the schedule
 (``OptConfig(lr, total_steps=steps)``), so a resumed run takes the same
 ``--steps`` as the run it resumes.
 
-Not ported yet: ``--model-parallel > 1`` and ``--grad-compression
-int8_ef`` (training across the ranks of a mesh: ROADMAP A10b-2).  Like JAX's launcher this one
-feeds LM data only (tokens and labels), so ``--arch`` is an LM the port
-builds: dense, MoE (its loss adds the load-balance term), the VLM (its
-text alone, no frontend, as in JAX), the SSM LM or the hybrid LM
-(falcon-mamba-7b, hymba-1.5b); DLRM and the encoder-decoder LM (whose
+Like JAX's launcher this one feeds LM data only (tokens and labels), so
+``--arch`` is an LM the port builds: dense, MoE (its loss adds the load-balance
+term), the VLM (its text alone, no frontend, as in JAX), the SSM LM or the
+hybrid LM (falcon-mamba-7b, hymba-1.5b); DLRM and the encoder-decoder LM (whose
 data would need audio frames) are refused and train through
 :func:`repro_torch.launch.steps.make_train_step`.  The optimizer is
-``OptConfig(lr, total_steps)`` with JAX's defaults (fp32 moments, no
-master copy): JAX's launcher has no flag for either knob.
+``OptConfig(lr, total_steps)`` with JAX's defaults (fp32 moments, no master
+copy): JAX's launcher has no flag for either knob.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data.lm_data import LMDataConfig, batch_at
 from repro_torch.device import resolve_device
-from repro_torch.distributed.fault_tolerance import (Heartbeat,
+from repro_torch.distributed import mesh as M
+from repro_torch.distributed.compression import (init_error,
+                                                 make_compressed_dp_grads)
+from repro_torch.distributed.fault_tolerance import (ElasticMesh, Heartbeat,
                                                      StragglerMonitor,
                                                      retry_step)
 from repro_torch.launch.steps import make_train_step
@@ -116,17 +133,11 @@ def main(argv=None, cfg=None):
                     choices=["", "int8_ef"])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--dist-backend", default="", choices=["", *M.BACKENDS],
+                    help="the process group's backend, when the launcher "
+                    "starts it (WORLD_SIZE set by torchrun)")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 trains across the ranks of a mesh, which "
-            "is not ported yet (ROADMAP A10b-2)")
-    if args.grad_compression:
-        raise NotImplementedError(
-            f"--grad-compression {args.grad_compression} compresses a "
-            "data-parallel all-reduce across ranks, not ported yet "
-            "(ROADMAP A10b-2)")
     if cfg is None:
         cfg = get_config(args.arch)
     if cfg.family == "dlrm":
@@ -140,10 +151,42 @@ def main(argv=None, cfg=None):
             "make_train_step)")
     if args.reduced:
         cfg = cfg.reduced()
-    run = RunConfig(remat=args.remat)
+    run = RunConfig(remat=args.remat, grad_compression=args.grad_compression)
+    started = _start_group(args)
+    try:
+        return _train(args, cfg, run)
+    finally:
+        if started:
+            M.close_distributed()
+
+
+def _start_group(args) -> bool:
+    """Starts the process group from torchrun's environment when no group
+    runs and ``WORLD_SIZE`` is set, with the backend the caller named;
+    returns whether it did."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False
+    if not args.dist_backend:
+        raise ValueError("WORLD_SIZE is set: name the process group's "
+                         "backend with --dist-backend nccl or gloo")
+    M.init_distributed(args.dist_backend,
+                       device=None if args.device == "cuda" else args.device)
+    return True
+
+
+def _train(args, cfg, run: RunConfig):
+    grouped = dist.is_initialized()
+    rank0 = not grouped or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **kw: None)
     dev = resolve_device(args.device)
-    print(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
-                              if dev.type == "cuda" else ""))
+    mesh = None
+    if grouped or run.grad_compression:
+        mesh = ElasticMesh(args.model_parallel).make()
+    if grouped:
+        say(f"mesh: {mesh.shape} devices={mesh.data * mesh.model}")
+    else:
+        say(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
+                                if dev.type == "cuda" else ""))
 
     bundle = build(cfg, device=dev, run=run)
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps)
@@ -156,16 +199,37 @@ def main(argv=None, cfg=None):
     opt = init_opt(opt_cfg, list(params.parameters()))
     if args.ckpt and ckpt.latest_step(args.ckpt) is not None:
         start = _restore(args.ckpt, params, opt)
-        print(f"restored step {start} from {args.ckpt}")
+        say(f"restored step {start} from {args.ckpt}")
 
-    step_fn = make_train_step(bundle, args.microbatches)
+    if run.grad_compression == "int8_ef":
+        if args.microbatches > 1:
+            say(f"--microbatches {args.microbatches} does not apply under "
+                "--grad-compression int8_ef: each data rank's part of the "
+                "batch runs in one pass")
+        grads_fn = make_compressed_dp_grads(bundle.loss, mesh)
+        err = init_error(params)
+
+        def step_fn(params, opt, batch):
+            nonlocal err
+            loss, grads, new_err = grads_fn(params, err, batch)
+            m = opt.apply(grads)
+            err = new_err
+            m["loss"] = loss
+            return m
+    else:
+        step_fn = make_train_step(bundle, args.microbatches,
+                                  mesh if grouped else None)
     mon = StragglerMonitor()
-    hb = Heartbeat(Path(args.ckpt) / "heartbeat.json") if args.ckpt else None
+    hb = (Heartbeat(Path(args.ckpt) / "heartbeat.json")
+          if args.ckpt and rank0 else None)
+    # A rank retries no step alone: its collectives would pair with the
+    # other ranks' next ones.
+    retries = 0 if grouped else 3
     losses = []
     for step in range(start, args.steps):
         batch = batch_at(data_cfg, step)
         t0 = time.perf_counter()
-        m = run_step(step_fn, params, opt, batch)
+        m = run_step(step_fn, params, opt, batch, retries=retries)
         loss = float(m["loss"])  # waits for the step's device work
         dt = time.perf_counter() - t0
         slow = mon.record(step, dt)
@@ -173,22 +237,24 @@ def main(argv=None, cfg=None):
         if hb:
             hb.beat(step, loss=loss)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"({dt*1e3:.0f} ms{' STRAGGLER' if slow else ''})",
-                  flush=True)
-        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            say(f"step {step:5d} loss {loss:.4f} "
+                f"({dt*1e3:.0f} ms{' STRAGGLER' if slow else ''})",
+                flush=True)
+        if args.ckpt and rank0 and (step + 1) % args.ckpt_every == 0:
             ckpt.save_async(args.ckpt, step + 1,
                             {"params": params, "opt": opt.state_dict()})
-    if args.ckpt:
+    if args.ckpt and rank0:
         ckpt.wait_pending(args.ckpt)
         ckpt.save(args.ckpt, args.steps,
                   {"params": params, "opt": opt.state_dict()})
+    if grouped:
+        dist.barrier()  # every rank returns once the checkpoint is written
     if losses:
-        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-              f"steps/s {1.0/max(mon.mean,1e-9):.2f}; {mon.summary()}")
+        say(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"steps/s {1.0/max(mon.mean,1e-9):.2f}; {mon.summary()}")
     else:  # restored at --steps: nothing left to train
-        print(f"done: no step to run (restored step {start} of "
-              f"{args.steps})")
+        say(f"done: no step to run (restored step {start} of "
+            f"{args.steps})")
     return losses
 
 

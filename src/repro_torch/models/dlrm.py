@@ -26,7 +26,11 @@ JAX's ``shard_map`` does; ``dlrm_forward(sharded_lookup=True)`` runs it on
 the rank's ``data`` part of the batch.  An id outside ``[0, R)`` is owned
 by no shard and adds nothing there, where the dense lookup wraps or clamps
 it.  :func:`shard_params` and ``init_dlrm(rows=)`` give a rank its rows.
-Training through it (the masked pool's backward) is ROADMAP A10b-2.
+``dlrm_loss(sharded_lookup=True)`` trains through it: the shard window's
+backward scatter-adds into the owned rows only, and the all-reduce over
+``model`` passes its gradient through unchanged (the loss is replicated
+over the model ranks), so each rank's table gradient is its rows' slice
+of the dense lookup's.
 
 :func:`quantize_tables` stores the tables as the quantized fast tier does
 (int8 or fp8 codes and one fp32 scale per row, ``emb_scales`` (T, R)
@@ -41,11 +45,11 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import mesh as M
+from repro_torch.distributed.collectives import all_reduce_identity_bwd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ROW_FORMATS
 
@@ -215,7 +219,9 @@ def embedding_lookup_rowsharded(emb_shard: torch.Tensor,
     in fp32 (P times fewer bytes than exchanging the rows) and cast once.
     An id outside ``[0, R)`` is owned by no rank and adds nothing, as in
     JAX.  ``rows``, when given, is R: it must split evenly over the model
-    axis into the shard's rows."""
+    axis into the shard's rows.  Differentiable in ``emb_shard``: the
+    all-reduce's backward is the identity, as the ``psum`` inside JAX's
+    ``shard_map`` transposes for a loss replicated over ``model``."""
     t, rs, d = emb_shard.shape
     if rows:
         lo, hi = shard_rows(rows, mesh)
@@ -226,8 +232,7 @@ def embedding_lookup_rowsharded(emb_shard: torch.Tensor,
     pooled = ops.gather_pool_shard(
         emb_shard.reshape(t * rs, d),
         _flat_shard_ids(sparse_idx, t, rs, mesh.model_rank * rs))
-    if mesh.model_group is not None:
-        dist.all_reduce(pooled, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    pooled = all_reduce_identity_bwd(pooled, mesh.model_group)
     return pooled.reshape(-1, t, d).to(emb_shard.dtype)
 
 
@@ -318,13 +323,9 @@ def dlrm_loss(params, cfg: ModelConfig, dense: torch.Tensor,
               sharded_lookup: bool = False) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``labels`` (B,)
     in {0, 1}, in the numerically stable form JAX writes: ``max(x, 0) - x
-    y + log1p(exp(-|x|))``.  ``sharded_lookup`` raises: training through
-    the row-sharded lookup is ROADMAP A10b-2."""
-    if sharded_lookup:
-        raise NotImplementedError(
-            "dlrm_loss(sharded_lookup=True): training through the "
-            "row-sharded lookup is ROADMAP A10b-2")
-    logit = dlrm_forward(params, cfg, dense, sparse_idx)
+    y + log1p(exp(-|x|))``.  ``sharded_lookup``: the forward's, on this
+    rank's ``data`` part of the batch; the loss is that part's mean."""
+    logit = dlrm_forward(params, cfg, dense, sparse_idx, sharded_lookup)
     loss = (torch.clamp_min(logit, 0.0) - logit * labels
             + torch.log1p(torch.exp(-logit.abs())))
     return loss.mean()

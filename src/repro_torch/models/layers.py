@@ -26,10 +26,11 @@ rounding.  For the p v product the bf16 kernel rounds p to bf16, as
 version keep p in fp32.  ``decode_attention`` ignores the window, as
 JAX's does: a sliding config's cache is a ring capped at the window.  Not
 ported: ``kv_stream_attention``, the sequence-parallel branch of
-``attn_block`` and the MoE's data-local dispatch
-(``_moe_dispatch_ffn_sharded``, ``local_dispatch``): the MoE across
-ranks is ROADMAP A10b-2.  ``attn_block(causal=False)`` is the encoder's
-self-attention (JAX's ``plain_attention(causal=False)``, XLA), the same
+``attn_block``.  The MoE's dispatch over the data ranks of a mesh, global
+or data-local (``_moe_dispatch_ffn_sharded``, ``local_dispatch``), runs
+on each rank's own tokens with collectives over ``data``.
+``attn_block(causal=False)`` is the encoder's self-attention (JAX's
+``plain_attention(causal=False)``, XLA), the same
 kernel with its unmasked instantiation; the cross-attention, whose queries
 and keys differ in length, is ``plain_attention`` in PyTorch, as JAX's is
 XLA.
@@ -59,12 +60,14 @@ promises no order on ties).
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import mesh as M
+from repro_torch.distributed.collectives import all_reduce_sum_bwd
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -324,10 +327,20 @@ def _capacity_slots(flat_e: torch.Tensor, n_experts: int, capacity: int):
     return slot, keep
 
 
-def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor):
+def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
+                      mesh: Optional[M.Mesh] = None):
     """Capacity dispatch and the expert SwiGLU.  xf (T, D) -> ``(out (T,
     D), aux)``, aux the Switch load-balance loss ``E * sum(me * ce)`` (ce
     counts every top-K assignment, dropped ones too).
+
+    With ``mesh`` (data ranks > 1) the dispatch is global, as JAX's over
+    the microbatch's tokens, which the data ranks hold in data order: the
+    ranks' top-K, all-gathered, give every assignment's position within its
+    expert, the capacity counts all the ranks' tokens, and ``me`` sums
+    every rank's router probabilities (its backward sums over the ranks:
+    each rank's loss holds the same aux and the step averages the ranks'
+    gradients).  A token's expert output needs no other token, so the
+    experts then run on this rank's kept tokens only.
 
     The tokens scatter into an (E*C+1, D) buffer whose last row takes every
     dropped assignment; which of those writes lands there is unspecified,
@@ -336,11 +349,19 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor):
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
     probs, top_p, top_e = _route(p, cfg, xf)
-    ce = torch.bincount(top_e.reshape(-1), minlength=e).float() / (t * k)
-    aux = e * torch.sum(probs.mean(dim=0) * ce)
+    if mesh is None:
+        all_e, n_tok, me = top_e, t, probs.mean(dim=0)
+    else:
+        all_e = M.gather_batch(top_e, mesh)
+        n_tok = all_e.shape[0]
+        me = all_reduce_sum_bwd(probs.sum(dim=0), mesh.data_group) / n_tok
+    ce = torch.bincount(all_e.reshape(-1), minlength=e).float() / (n_tok * k)
+    aux = e * torch.sum(me * ce)
 
-    c = max(1, int(math.ceil(cfg.capacity_factor * t * k / e)))
-    slot, _ = _capacity_slots(top_e.reshape(-1), e, c)
+    c = max(1, int(math.ceil(cfg.capacity_factor * n_tok * k / e)))
+    slot, _ = _capacity_slots(all_e.reshape(-1), e, c)
+    if mesh is not None:
+        slot = slot[mesh.data_rank * t * k:(mesh.data_rank + 1) * t * k]
     # Token-major copies of each token, one per assignment; the backward
     # sums them over K (no atomics).
     x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
@@ -357,9 +378,21 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor):
     return gathered.view(t, k, d).sum(dim=1), aux
 
 
+def _data_mesh() -> Optional[M.Mesh]:
+    """The active mesh when it has more than one data rank, else None."""
+    mesh = M.active_mesh()
+    return mesh if mesh is not None and mesh.data > 1 else None
+
+
 def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
-              dense_route: bool = False):
+              dense_route: bool = False, local_dispatch: bool = False):
     """Top-K capacity-dispatched MoE.  x (B, S, D) -> ``(out, aux)``.
+
+    Under a mesh scope with more than one data rank (x this rank's rows)
+    the dispatch is global (:func:`_moe_dispatch_ffn`), or with
+    ``local_dispatch`` JAX's ``_moe_dispatch_ffn_sharded``: each rank
+    dispatches its own tokens with capacity ``ceil(cf * T_local * K / E)``
+    and the aux is the mean of the ranks' (its backward sums over them).
 
     ``dense_route=True`` (decode: few tokens) runs every expert on every
     token and combines them with a (T, E) weight matrix holding each
@@ -368,7 +401,12 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     if not dense_route:
-        out, aux = _moe_dispatch_ffn(p, cfg, xf)
+        mesh = _data_mesh()
+        if local_dispatch and mesh is not None:
+            out, aux = _moe_dispatch_ffn(p, cfg, xf)
+            aux = all_reduce_sum_bwd(aux, mesh.data_group) / mesh.data
+        else:
+            out, aux = _moe_dispatch_ffn(p, cfg, xf, mesh)
         return out.view(b, s, d), aux
     _, top_p, top_e = _route(p, cfg, xf)
     g = torch.matmul(xf, p["w1"])  # (E, T, Fe)

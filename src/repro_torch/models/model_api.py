@@ -11,8 +11,8 @@ as the VLM's frontend embeddings), the encoder-decoder LM (``enc_dec``:
 ``encdec_loss``, ``encdec_prefill`` and ``encdec_decode_step``, ``loss``
 and ``prefill`` reading the audio frames from ``batch["frontend"]``) and
 ``dlrm`` (``init``, ``loss`` = ``dlrm_loss``, ``prefill`` = the forward;
-both take ``RunConfig.dlrm_sharded_lookup``, as JAX's do, and the loss
-raises with it until ROADMAP A10b-2).
+both take ``RunConfig.dlrm_sharded_lookup``, as JAX's do: the
+row-sharded lookup on the active mesh).
 ``n_params`` and ``n_active_params`` count from the config without
 allocating, and ``batch_struct`` gives a shape cell's batch as ``{name:
 (shape, dtype)}``.

@@ -14,10 +14,11 @@ same normed input and their outputs are averaged);
 ``_logits``, ``_ce`` and ``lm_loss`` (``+ 0.01 * aux`` for the MoE)
 (:133-231); ``init_cache``, ``prefill``, ``decode_step``,
 ``decode_step_embeds`` and ``_decode_from`` (:234-314).
-``constrain_batch`` is a no-op without a mesh and is dropped.  Not ported:
-the MoE's data-local dispatch (across ranks: ROADMAP A10b-2).  Every family trains: the
-SSM and hybrid LMs' gradients go through the scan's backward kernel
-and, for the hybrid, the windowed attention's.
+``constrain_batch`` is a no-op without a mesh and is dropped; the MoE's
+dispatch over the data ranks of a mesh (global, or data-local with
+``RunConfig.moe_local_dispatch``) is :func:`layers.moe_block`'s.  Every
+family trains: the SSM and hybrid LMs' gradients go through the scan's
+backward kernel and, for the hybrid, the windowed attention's.
 
 ``remat="full"`` runs each layer under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
@@ -190,9 +191,10 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> TransformerLM:
 
 
 def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor):
+                   positions: torch.Tensor, local_dispatch: bool = False):
     """Full-sequence layer.  Returns ``(x, aux, cache)``: aux is the MoE's
-    load-balance loss, or ``None`` for a layer without one (JAX's zero);
+    load-balance loss (``local_dispatch`` as :func:`layers.moe_block`
+    takes it), or ``None`` for a layer without one (JAX's zero);
     cache is this layer's ``{"k", "v"}`` and, for the SSM and hybrid
     families, ``{"conv", "h"}`` (an SSM has no ``k``/``v``)."""
     h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
@@ -208,7 +210,8 @@ def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     x = x + attn_out
     h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
     if cfg.n_experts:
-        ff, aux = L.moe_block(blk.moe, cfg, h2)
+        ff, aux = L.moe_block(blk.moe, cfg, h2,
+                              local_dispatch=local_dispatch)
         return x + ff, aux, cache
     return x + L.mlp_block(blk.mlp, h2), None, cache
 
@@ -287,7 +290,8 @@ def backbone(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     dense model)."""
 
     def layer(blk, x_):
-        x_, aux_, _ = _layer_forward(blk, cfg, x_, positions)
+        x_, aux_, _ = _layer_forward(blk, cfg, x_, positions,
+                                     run.moe_local_dispatch)
         return x_, aux_
 
     aux = torch.zeros((), device=x.device)

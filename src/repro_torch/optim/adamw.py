@@ -47,6 +47,8 @@ from typing import Dict, List, Sequence
 import torch
 
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Elements a leaf's update takes at a time (its fp32 temporaries: 256 MB).
+CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -138,17 +140,29 @@ class AdamW(torch.optim.Optimizer):
         """One leaf's moments and value (and master copy), in place.  The
         leaves are updated one after another, after ``count`` has moved: a
         failure here leaves the step half applied (the launcher does not
-        retry it)."""
-        cfg = self.cfg
+        retry it).  A leaf of more than ``CHUNK`` elements is updated a
+        chunk of its flat view at a time, so the update's fp32
+        temporaries stay a chunk's size (the arithmetic is elementwise:
+        the same bits)."""
         st = self.state[p]
+        parts = [p, grad, st["m"], st["v"], st.get("master")]
+        if p.numel() <= CHUNK or not p.is_contiguous():
+            self._update_part(*parts, scale, lr, bc1, bc2)
+            return
+        flat = [None if t is None else t.reshape(-1) for t in parts]
+        for i in range(0, p.numel(), CHUNK):
+            self._update_part(*[None if t is None else t[i:i + CHUNK]
+                                for t in flat], scale, lr, bc1, bc2)
+
+    def _update_part(self, p, grad, m, v, master, scale, lr, bc1,
+                     bc2) -> None:
+        cfg = self.cfg
         g = grad.float() * scale
-        m, v = st["m"], st["v"]
         m32 = m if m.dtype == torch.float32 else m.float()
         v32 = v if v.dtype == torch.float32 else v.float()
         m32.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         v32.mul_(cfg.b2).add_(g * g, alpha=1 - cfg.b2)
         upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        master = st.get("master")
         p32 = p.float() if master is None else master
         if cfg.weight_decay:
             upd = upd + cfg.weight_decay * p32

@@ -31,6 +31,26 @@ def named_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def jax_stacks(tree: Any) -> List[int]:
+    """For each leaf, in order, the index of the array of JAX's tree that
+    holds it: JAX stacks an LM's layers on a leading axis, one array a
+    weight, where the port keeps them in an ``nn.ModuleList``, so the
+    leaves of every layer that differ only in their index in a
+    ``ModuleList`` share one; in a dict tree each leaf is its own."""
+    if not isinstance(tree, nn.Module):
+        return list(range(len(named_leaves(tree))))
+    lists = {name for name, m in tree.named_modules()
+             if isinstance(m, nn.ModuleList)}
+    keys: dict = {}
+    out = []
+    for name, _ in tree.named_parameters():
+        parts = name.split(".")
+        key = [p for i, p in enumerate(parts)
+               if not (p.isdigit() and ".".join(parts[:i]) in lists)]
+        out.append(keys.setdefault(".".join(key), len(keys)))
+    return out
+
+
 def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in named_leaves(tree)]
 

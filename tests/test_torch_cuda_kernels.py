@@ -148,6 +148,41 @@ def test_gather_pool_shard_matches_plain(dev, dt, d):
                        eg.gather_pool(table, idx))
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gather_pool_shard_backward_on_card_matches_plain(dev, dt):
+    """The shard window under autograd on the card: its forward launches
+    the kernel, its backward (a scatter-add that skips ids < 0) matches
+    the same backward on the CPU twin's tensors, within one bf16 ulp of
+    the largest magnitude (atomics); with every id in range it is
+    ``gather_pool``'s backward within one ulp."""
+    from repro_torch.kernels import ops
+
+    table = _table(500, 128, DTYPES[dt], 5, dev)
+    rng = np.random.default_rng(8)
+    idx = rng.integers(0, 500, (97, 20)).astype(np.int32)
+    masked = np.where(rng.random(idx.shape) < 0.5, -1, idx).astype(np.int32)
+    masked[0] = -1
+    dout = torch.from_numpy(rng.normal(size=(97, 128)).astype(np.float32))
+    tol = 2.0 ** -7 if dt == "bf16" else 1e-5
+
+    def grad(fn, t, ids, d):
+        t = t.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(t, torch.from_numpy(ids).to(t.device)),
+                                   [t], d.to(t.device))[0]
+
+    n0 = eg.gather_pool_shard.launches
+    card = grad(ops.gather_pool_shard, table, masked, dout)
+    torch.cuda.synchronize()
+    assert eg.gather_pool_shard.launches == n0 + 1
+    plain = grad(ops.gather_pool_shard, table.cpu(), masked, dout)
+    bound = tol * float(plain.float().abs().max())
+    assert float((card.cpu().float() - plain.float()).abs().max()) <= bound
+    full = grad(ops.gather_pool, table, idx, dout)
+    window = grad(ops.gather_pool_shard, table, idx, dout)
+    bound = tol * float(full.float().abs().max())
+    assert float((full.float() - window.float()).abs().max()) <= bound
+
+
 def test_one_rank_sharded_forward_on_card_is_the_dense_forward(dev):
     """A (1, 1) mesh of this process: the sharded forward on the card has
     the unsharded forward's bits when every id is in range."""

@@ -295,22 +295,32 @@ def test_rows_that_do_not_split_over_the_model_axis_raise():
                                       two, rows=128)
 
 
-def test_training_through_the_sharded_lookup_raises_naming_a10b_2():
+def test_training_through_the_sharded_lookup_on_one_rank():
+    """On a (1, 1) mesh with ids in range, the sharded loss and its
+    gradients are the dense lookup's bit for bit, through ``dlrm_loss``,
+    the bundle's loss and ``ops.gather_pool_shard`` under autograd (the
+    four-rank training: ``test_torch_distributed_train.py``)."""
     cfg = ranks.cfg_for("float32")
     params = D.init_dlrm(cfg, device="cpu")
     dense, idx = (torch.from_numpy(a) for a in _inputs("in", b=2))
-    emb = params["emb"].clone().requires_grad_(True)
-    with M.activation_sharding(M.make_host_mesh()):
-        with pytest.raises(NotImplementedError, match="A10b-2"):
-            D.dlrm_forward({**params, "emb": emb}, cfg, dense, idx,
-                           sharded_lookup=True)
-        with pytest.raises(NotImplementedError, match="A10b-2"):
-            build(cfg, "cpu", RunConfig(dlrm_sharded_lookup=True)).loss(
-                params, {"dense": dense, "sparse": idx,
-                         "label": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="A10b-2"):
-        ops.gather_pool_shard(emb.reshape(-1, cfg.emb_dim),
-                              torch.zeros((1, 2), dtype=torch.int32))
+    label = torch.tensor([1.0, 0.0])
+    grads = []
+    for sharded in (False, True):
+        emb = params["emb"].clone().requires_grad_(True)
+        with M.activation_sharding(M.make_host_mesh()):
+            loss = D.dlrm_loss({**params, "emb": emb}, cfg, dense, idx,
+                               label, sharded_lookup=sharded)
+            bundle_loss = build(cfg, "cpu", RunConfig(
+                dlrm_sharded_lookup=sharded)).loss(
+                    {**params, "emb": emb},
+                    {"dense": dense, "sparse": idx, "label": label})
+        assert torch.equal(loss, bundle_loss)
+        grads.append((loss, *torch.autograd.grad(loss, [emb])))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    table = params["emb"].reshape(-1, cfg.emb_dim).clone().requires_grad_()
+    out = ops.gather_pool_shard(table, torch.zeros((1, 2), dtype=torch.int32))
+    assert out.requires_grad
 
 
 def test_quantized_tables_have_no_sharded_lookup():

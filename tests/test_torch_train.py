@@ -35,6 +35,9 @@ from repro.optim.adamw import OptConfig as JaxOptConfig
 from repro.optim.adamw import init_opt as jax_init_opt
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import lm_data
+from repro_torch.distributed import mesh as M
+from repro_torch.distributed.compression import (init_error,
+                                                 make_compressed_dp_grads)
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import main as train_main
@@ -458,8 +461,6 @@ def test_launcher_rerun_after_the_last_step_trains_nothing(tmp_path,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model-parallel", "2"], "A10b"),
-    (["--grad-compression", "int8_ef"], "A10b"),
     (["--arch", "dlrm-recmg"], "LM data"),
     (["--arch", "whisper-large-v3"], "frontend"),
     (["--remat", "dots"], "XLA"),
@@ -467,6 +468,39 @@ def test_launcher_rerun_after_the_last_step_trains_nothing(tmp_path,
 def test_launcher_refuses_what_it_does_not_port(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         train_main(ARGS + argv)
+
+
+def test_launcher_model_parallel_without_a_process_group(capsys):
+    """``--model-parallel 2`` in one process: the mesh is this process, (1,
+    1), as JAX's over one device, and the run is the plain run bit for
+    bit (the multi-rank runs: ``test_torch_distributed_train.py``)."""
+    want = train_main(ARGS)
+    assert train_main(ARGS + ["--model-parallel", "2"]) == want
+    assert "device: cpu" in capsys.readouterr().out
+
+
+def test_launcher_int8_ef_without_a_process_group():
+    """``--grad-compression int8_ef`` in one process: one data rank, so
+    each step's gradient is ``dequant(quant(g + err))`` with the error
+    carried between steps; the launcher's losses equal that loop's."""
+    steps = 3
+    argv = ARGS[:3] + ["--steps", str(steps)] + ARGS[5:]
+    got = train_main(argv + ["--grad-compression", "int8_ef"])
+    cfg = get_config("smollm-135m").reduced()
+    bundle = build(cfg, device="cpu", run=RunConfig(remat="none"))
+    model = bundle.init(seed=0)
+    opt = init_opt(OptConfig(lr=3e-4, total_steps=steps),
+                   list(model.parameters()))
+    grads_fn = make_compressed_dp_grads(bundle.loss, M.make_host_mesh())
+    err = init_error(model)
+    data = lm_data.LMDataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2)
+    want = []
+    for step in range(steps):
+        loss, grads, err = grads_fn(model, err, lm_data.batch_at(data, step))
+        opt.apply(grads)
+        want.append(float(loss))
+    assert got == want
+    assert got != train_main(argv)
 
 
 def test_launcher_has_no_cpu_fallback():
