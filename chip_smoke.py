@@ -77,6 +77,29 @@ trained at full depth):
    fp32 against one rank (losses and gradients within 1e-4, the global
    top-K equal), then bf16 with ``--grad-compression int8_ef`` (its int32
    wire's bytes and all-reduce time);
+6'''. the LMs' parameters and AdamW state sharded by JAX's partition
+   rules (phase ``sharded_train``): world 1 over NCCL in this process,
+   qwen2.5-3b at full width cut to 2 layers through ``build(...,
+   mesh=)`` on a (1, 1) ``fsdp_tp`` mesh (every gather, reduce-scatter
+   and tensor-parallel collective runs over the one rank): loss, grad
+   norm and parameters bit-equal to the step without a mesh; rows 8 and
+   8b at qwen's per-rank layout on (2, 2) ((2, 2048, 8/1, 128) bf16)
+   against their plain versions, timed beside their bounds and SDPA; then,
+   in the four gloo ranks after their distributed training: qwen's cut on
+   (2, 2) in bf16 (S = 2,048, a global batch of 8 in 2 microbatches,
+   remat full, logits in chunks of 1,024, 2 steps, no warmup), each
+   rank's bytes of parameters and moments equal to ``shard_bytes`` and a
+   quarter of the dp layout's, its peak memory, step times and collective
+   bytes, layer 0's gathers and reduce-scatters timed, the losses and
+   gradient norms against one rank's (``ST_TOL_LOSS``, ``ST_TOL_NORM``);
+   smollm-135m on (1, 4) (its heads split: the attention gathered) and
+   granite-moe on (2, 2) (tensor-parallel experts, the vocab whole) at
+   full width cut to 2 layers in fp32 (S = 512): first-step gradients
+   within 1e-4 of each leaf's largest magnitude, the parameters after
+   the second step within 5e-2 of the update (L2 norms over each shard)
+   and both losses within 1e-4 of one rank's; the
+   launches counted are the (1, 1) step's and the four ranks' sharded
+   runs';
 7. the learned models' kernels vs plain on the card: ``lstm_cell`` at the
    inference (B=4096) and training (B=256) shapes of every LSTM layer of
    the path (K = 57, 67, 80, 88, 120 at H = 32 or 40), within fp32 abs
@@ -318,7 +341,9 @@ hybrid serves (23) as ``launches_ssm``, their training (24) as
 window, counts the distributed serve's and training's launches (6',
 6'') and carries them by run as ``launches_distributed``, with the
 all-reduce's time and bytes, and the training's launches of it and of
-the attention kernels show as ``launches_distributed_train``;
+the attention kernels show as ``launches_distributed_train``, the
+sharded LMs' (6''') as ``launches_sharded_train`` beside the kernels'
+``sharded_layout`` records;
 ``selective_scan`` and ``selective_scan_bwd`` have no TPU kernel
 (``replaces`` null, a ``note`` says why) and carry their SFU floors, and
 ``flash_attention`` and ``flash_attention_bwd`` carry their ``windowed``
@@ -379,6 +404,7 @@ from repro_torch.launch.steps import (make_grads_fn,  # noqa: E402
                                       make_train_step)
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.distributed import collectives as C  # noqa: E402
 from repro_torch.distributed import mesh as M  # noqa: E402
 from repro_torch.models.dlrm import (_flat_shard_ids, dlrm_forward,  # noqa: E402
                                      init_dlrm, quantize_tables, shard_params,
@@ -388,6 +414,7 @@ from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_lm, lm_loss, prefill)
 from repro_torch.optim.adamw import OptConfig, init_opt  # noqa: E402
 from repro_torch.runtime import DriftConfig  # noqa: E402
+from repro_torch.sharding import partition as SP  # noqa: E402
 from repro_torch.tree import jax_stacks, named_leaves  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.workloads import (CHAOS_KEYS, chaos_sweep,  # noqa: E402
@@ -594,6 +621,10 @@ MOE_PARITY_LAYERS = 8
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def max_abs_diff(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
 def require(cond, msg):
@@ -1456,19 +1487,23 @@ def distributed_rank(rank, world, work, b, train_ref):
     torch.cuda.empty_cache()
     rec["train"] = distributed_train_rank(rank, world, work, dev, mesh,
                                           train_ref)
+    rec["sharded"] = sharded_train_rank(rank, work, dev, train_ref["sharded"])
     Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
     M.close_distributed()
 
 
-def phase_distributed_serve(b, want, train_ref, work):
+def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches):
     """Four gloo ranks on the one card, a (2, 2) mesh, the full-width
     tables row-sharded over model (7.97 GB a rank): the gathered logits
     within 2e-2 (bf16) of ``want``, each rank's shard window within fp32
     1e-5 of its plain twin; then, in the same ranks, phase
     ``distributed_train`` against ``train_ref`` (its references' files in
-    ``work``, which this removes).  Returns rank 0's kernel record (errors
-    the largest over the ranks), the window's serve launches over the
-    ranks and the training's launches over the ranks."""
+    ``work``, which this removes), and phase ``sharded_train``'s four
+    ranks (:func:`report_sharded_train`, with the world-1 run's launches
+    ``st_nccl_launches``).  Returns rank 0's kernel record (errors the
+    largest over the ranks), the window's serve launches over the ranks,
+    the training's launches over the ranks and the sharded training's
+    attention launches."""
     world = DIST_MESH[0] * DIST_MESH[1]
     torch.cuda.empty_cache()
     try:
@@ -1509,7 +1544,8 @@ def phase_distributed_serve(b, want, train_ref, work):
     rec.update(name="gather_pool_shard", dtype="bf16",
                max_abs_err=max(r["max_abs_err"] for r in recs),
                library="embedding_bag(mode='sum', per_sample_weights=owned)")
-    return rec, launches, report_distributed_train(recs, spawn_s)
+    return (rec, launches, report_distributed_train(recs, spawn_s),
+            report_sharded_train(recs, st_nccl_launches))
 
 
 # ---------------------------------------------------------------------------
@@ -1938,6 +1974,440 @@ def report_distributed_train(recs, spawn_s):
             f"{b0['differing_rows_max_margin']}")
     require(any("does not apply" in ln for ln in b0["int8_lines"]),
             f"int8_ef: {b0['int8_lines']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6''': the LMs' parameters and AdamW state sharded over the mesh.
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at full width (d 2,048, 16/2 heads of 128, ff 11,008, vocab
+# 151,936, bf16, qkv bias), its depth cut from 36 to 2 layers: fsdp_tp on
+# (2, 2), S = 2,048, a global batch of 8 in 2 microbatches (2 rows a data
+# rank and microbatch), remat full, logits in chunks of 1,024, 2 steps.
+ST = dict(arch="qwen2.5-3b", n_layers=2, seq=2048, batch=8, mb=2, steps=2,
+          chunk=1024, mesh=(2, 2))
+# fp32 parity at full width, 2 layers, S = 512, the same batch and steps:
+# smollm-135m on (1, 4) (9 heads: each rank holds part of a head, so the
+# attention is gathered; the tied head vocab parallel), granite-moe on
+# (2, 2) (tensor-parallel experts; its 49,155-row vocab stays whole).
+ST_PARITY = (("smollm-135m", (1, 4)), ("granite-moe-1b-a400m", (2, 2)))
+ST_PARITY_SEQ = 512
+# No warmup: both updates take the schedule's full rate, so the second
+# step's loss and the parity runs' parameters after it see the update.
+ST_LR = 1e-3
+# qwen in bf16 against one rank: each step's loss within ST_TOL_LOSS
+# (absolute; 5.8e-4 read after a step that moved it by 6.0) and its grad
+# norm within ST_TOL_NORM of the reference's largest (4.8e-5 read).  The
+# fp32 parity runs: losses and first-step gradients within ST_TOL_FP32
+# (a gradient leaf's largest error as a share of its largest magnitude);
+# the parameters after the last step within ST_TOL_UPDATE as the L2 norm
+# of a shard's error over that of the reference's update there (a shard
+# left without its update reads 1).  Their largest element error is
+# reported, not held: Adam's first update is about lr * sign(g) an
+# element, so an element whose gradient lies within the sum's rounding
+# takes either sign, up to 1.3e-3 of granite's embed's largest magnitude.
+ST_TOL_LOSS, ST_TOL_NORM, ST_TOL_FP32, ST_TOL_UPDATE = 2e-3, 5e-4, 1e-4, 5e-2
+# World 1 over NCCL: qwen's cut at 2 sequences of 512 in 2 microbatches.
+ST_NCCL_BATCH, ST_NCCL_SEQ = 2, 512
+
+
+def st_cfg(arch, dtype=None):
+    cfg = dataclasses.replace(get_config(arch), n_layers=ST["n_layers"])
+    if dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                  compute_dtype=dtype)
+    return cfg
+
+
+def st_trainer(cfg, seq, mesh=None, dev="cuda", batch=None):
+    """``(bundle, model, opt, step, data)``: ``cfg`` from seed 0 through
+    ``build(..., mesh=)`` (this rank's shards on a mesh with groups),
+    AdamW over its leaves, the step of ``ST["mb"]`` microbatches."""
+    run = RunConfig(remat="full", logits_chunk=ST["chunk"])
+    bundle = build(cfg, device=dev, run=run, mesh=mesh)
+    model = bundle.init(seed=0)
+    opt = init_opt(OptConfig(lr=ST_LR, warmup_steps=0,
+                             total_steps=ST["steps"]),
+                   list(model.parameters()))
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=seq,
+                        global_batch=batch or ST["batch"])
+    return bundle, model, opt, make_train_step(bundle, ST["mb"], mesh), data
+
+
+def st_attention_kernels(timer):
+    """Rows 8 and 8b at the per-rank layout of qwen2.5-3b on (2, 2): each
+    rank's 2 sequences of 2,048 a microbatch, its 8 query heads and 1 kv
+    head of 128, bf16; each against its plain version, timed beside its
+    bound and SDPA's forward or backward."""
+    b, s, h, n_kv, hd = 2, ST["seq"], 8, 1, 128
+    g = torch.Generator(device="cuda").manual_seed(30)
+    q, k, v, do = (torch.randn((b, s, n, hd), generator=g, device="cuda")
+                   .to(torch.bfloat16) for n in (h, n_kv, n_kv, h))
+    got = fa.flash_attention(q, k, v)
+    want = ref.causal_attention_ref(q, k, v)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    wants = ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    fwd_err = float((got.float() - want.float()).abs().max())
+    require(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+            f"flash_attention at the sharded layout: max abs err {fwd_err}")
+    shares = {n: float((a.float() - w.float()).abs().max()
+                       / w.float().abs().max())
+              for n, a, w in zip(("dq", "dk", "dv"), grads, wants)}
+    require(max(shares.values()) <= 2e-2,
+            f"flash_attention_bwd at the sharded layout: {shares}")
+    del got, want, grads, wants
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    shape = {"B": b, "S": s, "H": h, "K": n_kv, "hd": hd, "dtype": "bf16",
+             "layout": "qwen2.5-3b per rank on (2, 2): 8/1 of 16/2 heads"}
+    fwd = {**shape, "max_abs_err": fwd_err,
+           "ms": timer(lambda: fa.flash_attention(q, k, v)),
+           "plain_ms": timer(lambda: ref.causal_attention_ref(q, k, v)),
+           "library_ms": timer(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+                   enable_gqa=True))}
+    n_ops = 2 * 2 * b * h * s * s / 2 * hd
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        q.element_size() * b * s * hd * (2 * h + 2 * n_kv), n_ops,
+        BF16_OPS_PER_S)
+    achieved(fwd, n_ops)
+    bwd = {**shape, "max_abs_err_share_of_largest_grad": shares,
+           "ms": timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse)),
+           "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
+               q, k, v, o, do, lse)),
+           "library_ms": timer(lambda: torch.autograd.grad(
+               out, (qt, kt, vt), dot, retain_graph=True))}
+    n_ops = 5 * 2 * b * h * s * s / 2 * hd
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+        q.element_size() * b * s * hd * (4 * h + 4 * n_kv) + 4 * b * h * s,
+        n_ops, BF16_OPS_PER_S)
+    achieved(bwd, n_ops)
+    del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_sharded_train_nccl(work, timer):
+    """World 1 over NCCL in this process: qwen2.5-3b's cut through
+    ``build(..., mesh=)`` on a (1, 1) mesh under ``fsdp_tp`` (its
+    gathers, reduce-scatters, tensor-parallel and vocab-parallel
+    collectives all run, over one rank) gives the step without a mesh
+    bit for bit: loss, grad norm and every parameter after it.  Then,
+    outside any process group, the references of the four ranks: qwen's
+    bf16 losses and gradient norms on one rank, and smollm-135m's and
+    granite-moe's fp32 losses, first-step gradients and last parameters
+    (saved to ``work``); then rows 8 and 8b at qwen's per-rank layout.
+    Returns ``(the references, the kernels' records, the attention
+    launches of the (1, 1) step)``."""
+    t0 = time.perf_counter()
+    cfg = st_cfg(ST["arch"])
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_sharded_")
+    launches = {}
+    try:
+        M.init_distributed("nccl", f"file://{store}/store", 0, 1,
+                           device="cuda:0", timeout=120)
+        mesh = M.make_host_mesh()
+        out = []
+        for m in (mesh, None):
+            _, model, opt, step, data = st_trainer(
+                cfg, ST_NCCL_SEQ, m, batch=ST_NCCL_BATCH)
+            C.reset_traffic()
+            ops.reset_launches()
+            metrics = step(model, opt, batch_at(data, 0))
+            torch.cuda.synchronize()
+            traffic = copy.deepcopy(C.TRAFFIC)
+            if m is not None:
+                launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+            out.append((metrics, [p.detach().clone()
+                                  for p in model.parameters()], traffic,
+                        sum(M.placement(p) is not None
+                            for p in model.parameters())))
+            del model, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        M.close_distributed()
+        shutil.rmtree(store, ignore_errors=True)
+    (m1, p1, traffic, tagged), (m0, p0, _, _) = out
+    require(tagged == len(p1) and traffic["all_gather"]["calls"] > 0
+            and traffic["reduce_scatter"]["calls"] > 0,
+            f"nccl world 1 sharded: {tagged} placements, traffic {traffic}")
+    require(torch.equal(m1["loss"], m0["loss"])
+            and torch.equal(m1["grad_norm"], m0["grad_norm"]),
+            f"nccl world 1 sharded: loss {float(m1['loss'])} vs "
+            f"{float(m0['loss'])}, norm {float(m1['grad_norm'])} vs "
+            f"{float(m0['grad_norm'])}")
+    differ = sum(not torch.equal(a, b) for a, b in zip(p1, p0))
+    require(differ == 0, f"nccl world 1 sharded: {differ} parameters differ")
+    del out, p0, p1
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded_train", "world": 1, "backend": "nccl",
+          "mesh": mesh.shape, "sharding": "fsdp_tp", "arch": ST["arch"],
+          "n_layers": ST["n_layers"], "S": ST_NCCL_SEQ, "B": ST_NCCL_BATCH,
+          "loss_bit_equal_without_mesh": True,
+          "grad_norm_bit_equal_without_mesh": True,
+          "params_bit_equal_without_mesh": True, "traffic": traffic,
+          "launches": {k: v for k, v in launches.items() if v},
+          "seconds": round(time.perf_counter() - t0, 1)})
+
+    # The references, one rank holding every leaf.
+    t0 = time.perf_counter()
+    ref_rec = {}
+    _, model, opt, step, data = st_trainer(cfg, ST["seq"])
+    ref_rec["qwen_losses"], ref_rec["qwen_grad_norms"] = [], []
+    for s in range(ST["steps"]):
+        metrics = step(model, opt, batch_at(data, s))
+        ref_rec["qwen_losses"].append(float(metrics["loss"]))
+        ref_rec["qwen_grad_norms"].append(float(metrics["grad_norm"]))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    for arch, _ in ST_PARITY:
+        pcfg = st_cfg(arch, "float32")
+        bundle, model, opt, step, data = st_trainer(pcfg, ST_PARITY_SEQ)
+        ref_rec[arch] = st_parity_steps(bundle, model, opt, step, data, None,
+                                        Path(work, f"sharded_{arch}"))
+        del model, opt, step, bundle
+        torch.cuda.empty_cache()
+    ref_rec["reference_s"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    fwd, bwd = st_attention_kernels(timer)
+    ref_rec["kernels_s"] = round(time.perf_counter() - t0, 1)
+    return ref_rec, {"flash_attention": fwd, "flash_attention_bwd": bwd}, \
+        {k: launches.get(k, 0) for k in ("flash_attention",
+                                          "flash_attention_bwd")}
+
+
+def _leaf_errors(tensors, named, path, mesh, start=None):
+    """Each leaf's error against the whole leaves saved at ``path`` (this
+    rank's shard of each): its largest as a share of the saved leaf's
+    largest magnitude, and with ``start`` (the shards before the steps)
+    also its L2 norm as a share of that of the saved leaf's update over
+    the shard.  Returns ``{name: share}`` (and ``{name: update share}``
+    with ``start``)."""
+    want = torch.load(path, mmap=True)
+    errs, upd = {}, {}
+    for i, ((n, p), t) in enumerate(zip(named, tensors)):
+        w = SP.shard_of(want[n], M.placement(p).spec, mesh).to(t.device)
+        errs[n] = float((t - w).abs().max()
+                        / want[n].abs().max().clamp_min(1e-30))
+        if start is not None:
+            upd[n] = float(torch.linalg.vector_norm(t - w)
+                           / torch.linalg.vector_norm(w - start[i])
+                           .clamp_min(1e-30))
+    return errs if start is None else (errs, upd)
+
+
+def st_parity_steps(bundle, model, opt, step, data, mesh, path):
+    """The parity runs' two steps, the first as ``make_train_step`` runs
+    it (``make_grads_fn``, then AdamW) with its gradients kept.  The
+    reference (``mesh`` None) saves the first step's gradients and the
+    parameters after the last step to ``path`` + ``_grads.pt`` /
+    ``_params.pt``; a rank measures its shards against them
+    (:func:`_leaf_errors`, the parameters also against the update from
+    its shards at the start).  Returns the losses, and on a rank
+    ``(losses, gradient errors, parameter errors, parameter errors over
+    the update)``."""
+    named = list(named_leaves(model))
+    start = None if mesh is None else [p.detach().clone() for _, p in named]
+    loss, grads = make_grads_fn(bundle, ST["mb"], mesh)(model,
+                                                        batch_at(data, 0))
+    if mesh is None:
+        torch.save({n: g.cpu() for (n, _), g in zip(named, grads)},
+                   f"{path}_grads.pt")
+    else:
+        grad_errs = _leaf_errors(grads, named, f"{path}_grads.pt", mesh)
+    opt.apply(grads)
+    del grads
+    losses = [float(loss)] + [float(step(model, opt, batch_at(data, s))[
+        "loss"]) for s in range(1, ST["steps"])]
+    params = [p.detach() for _, p in named]
+    if mesh is None:
+        torch.save({n: p.cpu() for (n, _), p in zip(named, params)},
+                   f"{path}_params.pt")
+        return losses
+    return (losses, grad_errs) + _leaf_errors(
+        params, named, f"{path}_params.pt", mesh, start)
+
+
+def _state_bytes(model, opt) -> int:
+    """This rank's bytes of parameters and AdamW moments."""
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    for st in opt.state.values():
+        n += sum(t.numel() * t.element_size() for t in st.values())
+    return n
+
+
+def _layer_collectives(model, mesh):
+    """Layer 0's gathers over data (its leaves as the forward gathers
+    them) and the reduce-scatters of their gradients, timed on their
+    own: ``(all-gather bytes, ms, reduce-scatter bytes, ms)``."""
+    blk = model.blocks[0]
+    keep = {"attn": True, "mlp": True}
+    leaves = [(p, keep.get(n.split(".")[0], False))
+              for n, p in blk.named_parameters()]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        full = [C.gather_leaf(p, k) for p, k in leaves]
+        torch.cuda.synchronize()
+        ag_ms = (time.perf_counter() - t0) * 1e3
+        dims = [M.placement(p).spec.index("data")
+                if "data" in M.placement(p).spec else None for p, _ in leaves]
+        dist.barrier()
+        t0 = time.perf_counter()
+        for f, d in zip(full, dims):
+            if d is not None:
+                C.reduce_scatter(f, mesh.data_group, d, mesh.data)
+        torch.cuda.synchronize()
+        rs_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = [f.numel() * f.element_size() for f in full]
+    return (sum(nbytes), ag_ms,
+            sum(b for b, d in zip(nbytes, dims) if d is not None), rs_ms)
+
+
+def sharded_train_rank(rank, work, dev, ref_rec):
+    """The gloo rank's sharded training, after its distributed training:
+    qwen2.5-3b's cut on (2, 2) under fsdp_tp in bf16 (its bytes of
+    parameters and moments against ``shard_bytes`` and the dp layout's,
+    its peak memory, step times, the steps' collective traffic and layer
+    0's gathers and reduce-scatters timed, the losses and gradient norms
+    against one rank's), then smollm-135m on (1, 4) and granite-moe on
+    (2, 2) in fp32 (the first step's gradient shards, the parameter shards
+    after the second and both losses against one rank's).  Returns the
+    rank's record."""
+    t_start = time.perf_counter()
+    rec = {}
+    cfg = st_cfg(ST["arch"])
+    mesh = M.make_mesh(*ST["mesh"])
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    bundle, model, opt, step, data = st_trainer(cfg, ST["seq"], mesh, dev)
+    struct = bundle.param_struct()
+    specs = SP.param_specs(struct, mesh)
+    dp_specs = SP.param_specs(struct, mesh, "dp")
+    held = _state_bytes(model, opt)
+    rule = SP.shard_bytes(struct, specs, mesh) \
+        + 2 * SP.shard_bytes(struct, specs, mesh, itemsize=4)
+    dp = SP.shard_bytes(struct, dp_specs, mesh) \
+        + 2 * SP.shard_bytes(struct, dp_specs, mesh, itemsize=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_traffic()
+    ops.reset_launches()
+    losses, norms, step_ms = [], [], []
+    for s in range(ST["steps"]):
+        dist.barrier()
+        t0 = time.perf_counter()
+        metrics = step(model, opt, batch_at(data, s))
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    traffic = copy.deepcopy(C.TRAFFIC)
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS
+                if fn.launches}
+    ag_bytes, ag_ms, rs_bytes, rs_ms = _layer_collectives(model, mesh)
+    rec["qwen"] = {
+        "coords": [mesh.data_rank, mesh.model_rank],
+        "param_and_adamw_bytes": held, "shard_bytes_rule": rule,
+        "dp_layout_bytes": dp, "share_of_dp": held / dp,
+        "peak_gb_steps": (torch.cuda.max_memory_allocated() - base) / 1e9,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "ref_losses": ref_rec["qwen_losses"],
+        "grad_norms": norms, "ref_grad_norms": ref_rec["qwen_grad_norms"],
+        "step_ms": step_ms, "traffic_two_steps": traffic,
+        "layer0_allgather_bytes": ag_bytes, "layer0_allgather_ms": ag_ms,
+        "layer0_reduce_scatter_bytes": rs_bytes,
+        "layer0_reduce_scatter_ms": rs_ms, "launches": launches,
+        "seconds": time.perf_counter() - t_start}
+    del model, opt, step, bundle
+    torch.cuda.empty_cache()
+    for arch, shape in ST_PARITY:
+        pcfg = st_cfg(arch, "float32")
+        mesh = M.make_mesh(*shape)
+        t0 = time.perf_counter()
+        bundle, model, opt, step, data = st_trainer(pcfg, ST_PARITY_SEQ,
+                                                    mesh, dev)
+        ops.reset_launches()
+        losses, errs, perrs, uerrs = st_parity_steps(
+            bundle, model, opt, step, data, mesh, Path(work, f"sharded_{arch}"))
+        worst, pworst = max(errs, key=errs.get), max(perrs, key=perrs.get)
+        uworst = max(uerrs, key=uerrs.get)
+        rec[arch] = {
+            "mesh": dict(zip(("data", "model"), shape)),
+            "losses": losses, "ref_losses": ref_rec[arch],
+            "grad_err_share_max": errs[worst], "grad_err_worst_leaf": worst,
+            "param_err_share_max": perrs[pworst],
+            "param_err_worst_leaf": pworst,
+            "param_err_of_update_max": uerrs[uworst],
+            "param_err_of_update_worst_leaf": uworst,
+            "attention": ("tensor parallel" if pcfg.n_heads % shape[1] == 0
+                          and pcfg.kv_heads % shape[1] == 0 else "gathered"),
+            "vocab_parallel": pcfg.vocab % shape[1] == 0,
+            "launches": {fn.__name__: fn.launches for fn in ops.KERNELS
+                         if fn.launches},
+            "seconds": time.perf_counter() - t0}
+        del model, opt, step, bundle
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def report_sharded_train(recs, nccl_launches):
+    """Holds the gloo ranks' sharded training against the references and
+    emits the phase's line; returns the attention launches over the ranks
+    and the world-1 run."""
+    ranks = [r["sharded"] for r in recs]
+    emit({"phase": "sharded_train", "world": len(recs), "backend": "gloo",
+          "ranks_on_one_card": len(recs), "collective_note": GLOO_NOTE,
+          "qwen": {"arch": ST["arch"], "mesh": dict(zip(
+              ("data", "model"), ST["mesh"])), "sharding": "fsdp_tp",
+              "cuts": {"n_layers": [36, ST["n_layers"]]},
+              "S": ST["seq"], "global_batch": ST["batch"],
+              "microbatches": ST["mb"], "steps": ST["steps"],
+              "remat": "full", "logits_chunk": ST["chunk"],
+              "dtype": "bf16"},
+          "parity": {"S": ST_PARITY_SEQ, "dtype": "fp32",
+                     "n_layers": ST["n_layers"], "tol": ST_TOL_FP32},
+          "tol": {"loss": ST_TOL_LOSS, "grad_norm_share": ST_TOL_NORM,
+                  "param_err_of_update": ST_TOL_UPDATE},
+          "lr": ST_LR, "warmup_steps": 0,
+          "seconds_ranks": max(r["seconds"] for r in ranks),
+          "ranks": [{"rank": r["rank"], **r["sharded"]} for r in recs]})
+    launches = dict(nccl_launches)
+    for r, rk in zip(recs, ranks):
+        q = rk["qwen"]
+        require(0.24 <= q["share_of_dp"] <= 0.26
+                and q["param_and_adamw_bytes"] == q["shard_bytes_rule"],
+                f"rank {r['rank']}: {q['param_and_adamw_bytes']} bytes of "
+                f"parameters and moments, rule {q['shard_bytes_rule']}, dp "
+                f"{q['dp_layout_bytes']}")
+        require(max_abs_diff(q["losses"], q["ref_losses"]) <= ST_TOL_LOSS
+                and max_abs_diff(q["grad_norms"], q["ref_grad_norms"])
+                <= ST_TOL_NORM * max(q["ref_grad_norms"]),
+                f"rank {r['rank']} qwen losses {q['losses']} vs "
+                f"{q['ref_losses']}, grad norms {q['grad_norms']} vs "
+                f"{q['ref_grad_norms']}")
+        for arch, _ in ST_PARITY:
+            p = rk[arch]
+            require(p["grad_err_share_max"] <= ST_TOL_FP32
+                    and p["param_err_of_update_max"] <= ST_TOL_UPDATE
+                    and max_abs_diff(p["losses"], p["ref_losses"])
+                    <= ST_TOL_FP32,
+                    f"rank {r['rank']} {arch}: {p}")
+        for src in [q["launches"]] + [rk[a]["launches"]
+                                      for a, _ in ST_PARITY]:
+            for k in ("flash_attention", "flash_attention_bwd"):
+                launches[k] = launches.get(k, 0) + src.get(k, 0)
+        require(q["launches"].get("flash_attention", 0) > 0
+                and q["launches"].get("flash_attention_bwd", 0) > 0,
+                f"rank {r['rank']} qwen launched {q['launches']}")
     return launches
 
 
@@ -4927,9 +5397,14 @@ def main():
     dist_work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     train_ref, nccl_train_launches = timed(
         "distributed_train_nccl", phase_distributed_train_nccl, dist_work)
-    shard_rec, gloo_launches, dist_train_launches = timed(
+    # The LMs sharded over the mesh: world 1 over NCCL, the references and
+    # rows 8 and 8b at the per-rank layout here; the four ranks train after
+    # their distributed training, in the same spawn.
+    train_ref["sharded"], st_kernels, st_nccl_launches = timed(
+        "sharded_train_nccl", phase_sharded_train_nccl, dist_work, timer)
+    shard_rec, gloo_launches, dist_train_launches, st_launches = timed(
         "distributed_serve", phase_distributed_serve, fwd_b, shard_want,
-        train_ref, dist_work)
+        train_ref, dist_work, st_nccl_launches)
     dist_train_launches["gather_pool_shard"] += nccl_train_launches
     timed("lm_parity", phase_lm_parity)
     lm_launches = timed("lm_serve", phase_lm_serve)
@@ -5020,7 +5495,7 @@ def main():
             + lm_launches.get(name, 0) + moe_launches.get(name, 0) \
             + vlm_launches.get(name, 0) + ssm_launches.get(name, 0) \
             + ssm_train_launches.get(name, 0) + encdec_launches.get(name, 0) \
-            + dist_train_launches.get(name, 0)
+            + dist_train_launches.get(name, 0) + st_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -5052,6 +5527,9 @@ def main():
         if name in dist_train_launches:
             kernels[-1]["launches_distributed_train"] = \
                 dist_train_launches[name]
+        if name in st_kernels:
+            kernels[-1]["launches_sharded_train"] = st_launches[name]
+            kernels[-1]["sharded_layout"] = st_kernels[name]
         if name == "selective_scan":
             kernels[-1].update(note=SCAN_REPLACES_NOTE,
                                sfu_floor_ms=rec["sfu_floor_ms"])

@@ -10,8 +10,16 @@ Leaves are taken in the tree's fixed key-path order
 (:func:`repro_torch.tree.named_leaves`).  npz has no bfloat16, so a bf16
 tensor is stored as its uint16 bits and the manifest records
 ``bfloat16``; ints and floats (the optimizer's count) are stored as 0-d
-arrays.  One process writes one shard, ``shard_0`` (the port runs on one
-card).
+arrays.  One process writes one shard, ``shard_0``, of whole leaves.
+
+A leaf that is this rank's shard of a mesh layout (a tensor with a
+:class:`~repro_torch.distributed.mesh.Placement`: a sharded model's
+parameters and their AdamW state) is saved whole, gathered leaf by leaf
+to host memory, as JAX's ``np.asarray`` of a sharded array
+(``src/repro/checkpoint/checkpoint.py:51``): every rank of the mesh takes
+part in :func:`save` (``write=False`` on all but the writer), and
+:func:`restore` cuts the rank's shard of each such leaf of ``like``, so a
+checkpoint moves between meshes and to one rank.
 
 Fault-tolerance properties, as in the JAX package:
   * atomic publish: written to ``step_<N>.tmp`` then ``os.replace``'d, so a
@@ -36,6 +44,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import mesh as M
+from repro_torch.distributed.collectives import gather_leaf
+from repro_torch.sharding.partition import shard_of
 from repro_torch.tree import named_leaves, unflatten
 
 # (key path, host array, dtype name) of each leaf.
@@ -43,10 +54,15 @@ Snapshot = List[Tuple[str, np.ndarray, str]]
 
 
 def _snapshot(tree: Any) -> Snapshot:
-    """Host copies of the tree's leaves, bf16 as uint16 bits."""
+    """Host copies of the tree's leaves, bf16 as uint16 bits; a shard
+    gathered whole first (a collective over its mesh), one leaf at a
+    time."""
     snap = []
     for path, leaf in named_leaves(tree):
         if isinstance(leaf, torch.Tensor):
+            if M.placement(leaf) is not None:
+                with torch.no_grad():
+                    leaf = gather_leaf(leaf)
             t = leaf.detach().to("cpu", copy=True)
             if t.dtype == torch.bfloat16:
                 snap.append((path, t.view(torch.int16).numpy().view(
@@ -92,18 +108,24 @@ def _write(ckpt_dir: str, step: int, snap: Snapshot,
 
 
 def save(ckpt_dir: str, step: int, tree: Any, meta: Optional[Dict] = None,
-         keep: int = 3) -> str:
-    """Synchronous atomic save.  Returns the final directory path."""
-    return _write(ckpt_dir, step, _snapshot(tree), meta, keep)
+         keep: int = 3, write: bool = True) -> Optional[str]:
+    """Synchronous atomic save.  Returns the final directory path (None
+    for a rank that only took part in the gathers, ``write=False``)."""
+    snap = _snapshot(tree)
+    return _write(ckpt_dir, step, snap, meta, keep) if write else None
 
 
 _PENDING: Dict[str, threading.Thread] = {}
 
 
 def save_async(ckpt_dir: str, step: int, tree: Any,
-               meta: Optional[Dict] = None,
-               keep: int = 3) -> threading.Thread:
-    """Snapshot to host memory now, write in the background."""
+               meta: Optional[Dict] = None, keep: int = 3,
+               write: bool = True) -> Optional[threading.Thread]:
+    """Snapshot to host memory now, write in the background (``write``
+    as :func:`save` takes it)."""
+    if not write:
+        _snapshot(tree)
+        return None
     wait_pending(ckpt_dir)
     t = threading.Thread(target=_write, args=(ckpt_dir, step,
                                               _snapshot(tree), meta, keep),
@@ -136,6 +158,9 @@ def _leaf(a: np.ndarray, dtype: str, like: Any, device) -> Any:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
+    pl = M.placement(like)
+    if pl is not None:
+        t = shard_of(t, pl.spec, pl.mesh)
     return t.to(like.device if device is None else device)
 
 
@@ -144,7 +169,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
     """``(tree, step)``: the checkpoint of ``step`` (the latest by default)
     in ``like``'s structure (a module becomes the dict of its parameters),
     each tensor on ``device`` or, by default, on the device of ``like``'s
-    leaf.  Raises ``FileNotFoundError`` when there is no such checkpoint."""
+    leaf; this rank's shard where ``like``'s leaf is one.  Raises
+    ``FileNotFoundError`` when there is no such checkpoint."""
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None:

@@ -3,19 +3,21 @@ the LM shape cells and the training knobs of ``RunConfig``.
 
 Copied from ``src/repro/configs/base.py``: lines 16-156 (the dataclass and
 its CPU-scale ``reduced()``), 164-178 (``ShapeConfig``, ``LM_SHAPES``) and,
-trimmed to the fields that training reads, 208-230 (``RunConfig``).  The
-other JAX knobs (sharding variants, mesh constraints, the MoE's data-local
-dispatch, the Pallas switch, attention block sizes and gradient
-compression) are about the mesh or XLA: the port runs on one card and its
-CUDA kernels tile by their own sizes.  JAX's ``opt_dtype`` feeds only its
-dry run (``launch/dryrun.py``, XLA tooling); the moments' dtype is
-``OptConfig.moment_dtype`` (``repro_torch.optim.adamw``), as in JAX's
-optimizer.
+trimmed to the fields that training reads, 208-230 (``RunConfig``): the
+sharding variant (:mod:`repro_torch.sharding.partition`), the MoE's
+data-local dispatch and gradient compression among them.  The knobs left
+out are XLA's (``constrain_grads``, ``shard_kv_seq``, the Pallas switch,
+attention block sizes): the port's CUDA kernels tile by their own sizes.
+JAX's ``opt_dtype`` feeds only its dry run (``launch/dryrun.py``, XLA
+tooling); the moments' dtype is ``OptConfig.moment_dtype``
+(``repro_torch.optim.adamw``), as in JAX's optimizer.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Tuple
+
+from repro_torch.sharding.partition import VARIANTS
 
 # ---------------------------------------------------------------------------
 # Model config
@@ -192,8 +194,22 @@ class RunConfig:
     # _moe_dispatch_ffn_sharded) instead of over the global batch.
     moe_local_dispatch: bool = False
     grad_compression: str = ""  # "" | int8_ef: the data all-reduce in int8
+    # How an LM's parameters and AdamW state lie over a mesh's ranks
+    # (JAX's partition.py:178-208): "fsdp_tp" (tensor parallel over
+    # model, FSDP over data), "tp" (no FSDP), "dp" (replicated) or "fsdp"
+    # (every axis FSDP, the batch over every axis).  int8_ef keeps the
+    # parameters replicated, as JAX's make_compressed_dp_grads runs under
+    # shard_map with P() specs (distributed/compression.py:88).
+    sharding: str = "fsdp_tp"
 
     def __post_init__(self):
+        if self.sharding == "fsdp_seq":
+            raise NotImplementedError(
+                "sharding='fsdp_seq' (sequence-parallel prefill, a sharded "
+                "decode cache) is not ported: ROADMAP A11c-6c")
+        if self.sharding not in VARIANTS:
+            raise ValueError(f"sharding {self.sharding!r}: expected one of "
+                             f"{VARIANTS}")
         if self.remat == "dots":
             raise NotImplementedError(
                 "remat='dots' is not ported: it is an XLA checkpoint policy "

@@ -1,4 +1,4 @@
-"""All-reduces over a process group, each with the backward its use needs.
+"""Collectives over a process group, each with the backward its use needs.
 
 JAX's ``shard_map`` transposes a ``psum`` to fit the values around it;
 under autograd a collective's backward is written out, and which one is
@@ -14,16 +14,54 @@ right depends on how the losses of the group's ranks combine:
   ``data``: with an identity backward the router's aux gradient would come
   out ``n_data`` times too small, and no error would show it.
 
-Outside a process group (``group`` None) both are the identity: there is
+The same rule picks the backward of a sharded parameter's all-gather
+(:func:`gather_leaf`, before the parameter is used):
+
+- over the axes the **batch** splits over (``data``; every axis under
+  ``"fsdp"``), where each rank's loss covers other rows and the step
+  averages the ranks' gradients: a reduce-scatter, each rank keeping the
+  sum of the ranks' gradients of its part (FSDP);
+- over ``model`` when the model ranks compute the same replicated loss
+  from the gathered leaf: this rank's slice of the gradient, **not**
+  summed (a sum would multiply the gradient by ``model``, and no shape
+  error would show it).
+
+Tensor parallelism over ``model`` (Megatron's) uses two more: "f",
+:func:`copy_all_reduce_bwd`, the identity forward with an all-reduced
+backward, on the input of a column-parallel product, and "g",
+:func:`all_reduce_identity_bwd`, on the partial output of a row-parallel
+one.  :func:`all_reduce_max` takes no gradient (the vocab-parallel
+softmax's shift).
+
+Outside a process group (``group`` None) each is the identity: there is
 one rank.  :func:`repro_torch.distributed.mesh.gather_batch` is the
-all-gather over ``data`` without a gradient.
+all-gather over ``data`` without a gradient.  :data:`TRAFFIC` counts the
+gathers' and reduce-scatters' calls and bytes (the whole tensor's, in
+its dtype), which the card's smoke run reads.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed import mesh as M
+from repro_torch.sharding.partition import axes_of, batch_entry
+
+TRAFFIC: Dict[str, Dict[str, int]] = {
+    "all_gather": {"calls": 0, "bytes": 0},
+    "reduce_scatter": {"calls": 0, "bytes": 0}}
+
+
+def reset_traffic() -> None:
+    for rec in TRAFFIC.values():
+        rec.update(calls=0, bytes=0)
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    TRAFFIC[kind]["calls"] += 1
+    TRAFFIC[kind]["bytes"] += t.numel() * t.element_size()
 
 
 def _summed(x: torch.Tensor, group) -> torch.Tensor:
@@ -68,3 +106,117 @@ def all_reduce_sum_bwd(x: torch.Tensor,
     For a value that every rank's loss uses when the ranks' gradients are
     averaged (the MoE's aux statistics over ``data``)."""
     return x if group is None else _AllReduceSumBwd.apply(x, group)
+
+
+class _CopyAllReduceBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+def copy_all_reduce_bwd(x: torch.Tensor,
+                        group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """Megatron's "f": ``x`` itself; the gradient is summed over
+    ``group``.  On the replicated input of a column-parallel product,
+    whose ranks each give a partial gradient of it."""
+    return x if group is None else _CopyAllReduceBwd.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor,
+                   group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, without a gradient."""
+    y = x.detach().clone()
+    if group is not None:
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
+def all_gather(x: torch.Tensor, group, dim: int, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``x`` concatenated along ``dim`` in group order."""
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _count("all_gather", out)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int, n: int
+                   ) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum of the ``n`` ranks'
+    ``x``."""
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _count("reduce_scatter", src)
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _GatherReduceScatterBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        ctx.args = (group, dim, n)
+        return all_gather(x, group, dim, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, *ctx.args), None, None, None
+
+
+class _GatherSliceBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n, index):
+        ctx.part = (dim, index, x.shape[dim])
+        return all_gather(x, group, dim, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, index, size = ctx.part
+        return (grad.narrow(dim, index * size, size).contiguous(), None,
+                None, None, None)
+
+
+def all_gather_reduce_scatter_bwd(x, group, dim: int, n: int):
+    """All-gather along ``dim``; the backward reduce-scatters (sums) the
+    gradient back to this rank's part."""
+    return (x if group is None
+            else _GatherReduceScatterBwd.apply(x, group, dim, n))
+
+
+def all_gather_slice_bwd(x, group, dim: int, n: int, index: int):
+    """All-gather along ``dim``; the backward keeps this rank's slice
+    (``index``) of the gradient, unsummed."""
+    return (x if group is None
+            else _GatherSliceBwd.apply(x, group, dim, n, index))
+
+
+def gather_leaf(p: torch.Tensor, keep_model: bool = False) -> torch.Tensor:
+    """The leaf ``p`` as the compute uses it: a parameter without a
+    :class:`~repro_torch.distributed.mesh.Placement` as it is; a shard
+    gathered along each sharded dim, the minor axis of a tuple first, with
+    the backward the axis needs (reduce-scatter over the batch's axes,
+    this rank's slice over ``model`` otherwise).  ``keep_model`` keeps
+    the ``model`` part (tensor-parallel compute) and gathers the rest."""
+    pl = M.placement(p)
+    if pl is None:
+        return p
+    mesh, batch = pl.mesh, batch_entry(pl.mesh, pl.variant)
+    x = p
+    for dim, ent in enumerate(pl.spec):
+        axes = axes_of(ent)
+        if keep_model and "model" in axes:
+            if axes != ("model",):
+                raise ValueError(f"spec {pl.spec}: dim {dim} mixes model "
+                                 "with other axes under tensor parallelism")
+            continue
+        for ax in reversed(axes):
+            group, n = mesh.group(ax), mesh.size(ax)
+            if ax in batch:
+                x = all_gather_reduce_scatter_bwd(x, group, dim, n)
+            else:
+                x = all_gather_slice_bwd(x, group, dim, n, mesh.index(ax))
+    return x

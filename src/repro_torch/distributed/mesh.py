@@ -8,15 +8,23 @@ JAX lays its devices out as ``jax.make_mesh((n // mp, mp), ("data",
 model)`` in the same layout, and a :class:`Mesh` holds the two process
 groups through that rank: the ``data`` group (the ranks that share its
 model coordinate) and the ``model`` group (those that share its data
-coordinate).
+coordinate), and the world group over all of them.
 
 :func:`init_distributed` starts the process group with an explicit
 backend, device and timeout: nothing here picks a backend or a device on
 its own.  Without an initialised process group a mesh is the one process
 it runs in, ``(1, 1)`` with no groups, as ``make_host_mesh`` over one JAX
-device is.  :class:`activation_sharding` sets the mesh that
-``models/dlrm.py::dlrm_forward(sharded_lookup=True)`` reads, as JAX's
-``_p._ACT_MESH`` is read.
+device is.  :class:`activation_sharding` sets the mesh and the sharding
+variant that ``models/dlrm.py::dlrm_forward(sharded_lookup=True)``, the
+MoE's dispatch and the batch split read, as JAX's ``_ACT_MESH`` and
+``_ACT_VARIANT`` are read: the batch splits over ``data``, or over
+``data`` x ``model`` under ``"fsdp"`` (``batch_entry``, :57-63), whose
+ranks then all act as data ranks (:func:`batch_mesh`).
+
+A parameter stored as this rank's shard carries a :class:`Placement`
+(``p.placement``): its mesh, its spec
+(:mod:`repro_torch.sharding.partition`) and the variant, which the layers'
+gathers, the step's reduction, AdamW's norm and the checkpoint read.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from repro_torch.device import resolve_device
 
 BACKENDS = ("nccl", "gloo")
 _ACT_MESH: Optional["Mesh"] = None
+_ACT_VARIANT = "fsdp_tp"
 
 
 @dataclass(frozen=True)
@@ -46,10 +55,28 @@ class Mesh:
     rank: int
     data_group: Optional[dist.ProcessGroup] = None
     model_group: Optional[dist.ProcessGroup] = None
+    world_group: Optional[dist.ProcessGroup] = None
 
     @property
     def shape(self) -> dict:
         return {"data": self.data, "model": self.model}
+
+    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
+        return self.data_group if axis == "data" else self.model_group
+
+    def groups(self, axes) -> Tuple[Optional[dist.ProcessGroup], ...]:
+        """The groups whose all-reduces together cover the mesh ``axes``:
+        the world group for both axes, else one a named axis."""
+        axes = set(axes)
+        if axes == {"data", "model"}:
+            return (self.world_group,)
+        return tuple(self.group(a) for a in sorted(axes))
+
+    def size(self, axis: str) -> int:
+        return self.data if axis == "data" else self.model
+
+    def index(self, axis: str) -> int:
+        return self.data_rank if axis == "data" else self.model_rank
 
     @property
     def data_rank(self) -> int:
@@ -88,7 +115,8 @@ def make_mesh(data: int, model: int) -> Mesh:
         [[d * model + m for d in range(data)] for m in range(model)])
     model_group, _ = dist.new_subgroups_by_enumeration(
         [[d * model + m for m in range(model)] for d in range(data)])
-    return Mesh(data, model, rank, data_group, model_group)
+    return Mesh(data, model, rank, data_group, model_group,
+                dist.group.WORLD)
 
 
 def make_host_mesh(model_parallel: int = 1) -> Mesh:
@@ -98,26 +126,55 @@ def make_host_mesh(model_parallel: int = 1) -> Mesh:
 
 
 class activation_sharding:
-    """Scope in which ``dlrm_forward(sharded_lookup=True)`` runs on
-    ``mesh``; scopes nest and restore the previous mesh on exit."""
+    """Scope in which the model runs on ``mesh`` under the sharding
+    ``variant``; scopes nest and restore the previous ones on exit."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, variant: str = "fsdp_tp"):
         self.mesh = mesh
+        self.variant = variant
 
     def __enter__(self):
-        global _ACT_MESH
-        self._prev = _ACT_MESH
-        _ACT_MESH = self.mesh
+        global _ACT_MESH, _ACT_VARIANT
+        self._prev = (_ACT_MESH, _ACT_VARIANT)
+        _ACT_MESH, _ACT_VARIANT = self.mesh, self.variant
         return self
 
     def __exit__(self, *exc):
-        global _ACT_MESH
-        _ACT_MESH = self._prev
+        global _ACT_MESH, _ACT_VARIANT
+        _ACT_MESH, _ACT_VARIANT = self._prev
         return False
 
 
 def active_mesh() -> Optional[Mesh]:
     return _ACT_MESH
+
+
+def active_variant() -> str:
+    return _ACT_VARIANT
+
+
+def batch_mesh(mesh: Mesh, variant: Optional[str] = None) -> Mesh:
+    """The mesh whose ``data`` axis is the batch's: ``mesh`` itself, or
+    under ``"fsdp"`` every rank as a data rank (``(data * model, 1)``
+    over the world group), in the rank order JAX's ``("data", "model")``
+    batch split gives."""
+    if (variant or _ACT_VARIANT) != "fsdp" or mesh.model == 1:
+        return mesh
+    return Mesh(mesh.data * mesh.model, 1, mesh.rank, mesh.world_group,
+                None, mesh.world_group)
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a parameter stored as this rank's shard lives: ``spec`` over
+    ``mesh`` under the sharding ``variant``."""
+    mesh: Mesh
+    spec: tuple
+    variant: str
+
+
+def placement(t: torch.Tensor) -> Optional[Placement]:
+    return getattr(t, "placement", None)
 
 
 def shard_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
@@ -129,25 +186,30 @@ def shard_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
     return index * size, (index + 1) * size
 
 
-def batch_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's rows of a global batch: its part along ``data``."""
-    lo, hi = shard_bounds(x.shape[0], mesh.data, mesh.data_rank)
+def batch_shard(x: torch.Tensor, mesh: Mesh,
+                variant: Optional[str] = None) -> torch.Tensor:
+    """This rank's rows of a global batch: its part along ``data``, or
+    along ``data`` x ``model`` under ``"fsdp"`` (``variant``, by default
+    the active scope's)."""
+    bm = batch_mesh(mesh, variant)
+    lo, hi = shard_bounds(x.shape[0], bm.data, bm.data_rank)
     return x[lo:hi]
 
 
 def microbatch_shard(x: torch.Tensor, microbatches: int, i: int,
-                     mesh: Optional[Mesh] = None) -> torch.Tensor:
+                     mesh: Optional[Mesh] = None,
+                     variant: Optional[str] = None) -> torch.Tensor:
     """This rank's rows of microbatch ``i`` of a global batch: the batch
     is cut into ``microbatches`` first, and the microbatch is then split
-    over ``data`` (rank r's rows of it are ``i B/mb + r B/(mb n) ..``, not
-    a contiguous block of the whole batch); without a mesh, the whole
-    microbatch."""
+    as :func:`batch_shard` splits it (rank r's rows of it are ``i B/mb +
+    r B/(mb n) ..``, not a contiguous block of the whole batch); without a
+    mesh, the whole microbatch."""
     n = x.shape[0]
     if n % microbatches:
         raise ValueError(f"batch of {n} does not split into "
                          f"{microbatches} microbatches")
     mb = x.reshape(microbatches, n // microbatches, *x.shape[1:])[i]
-    return mb if mesh is None else batch_shard(mb, mesh)
+    return mb if mesh is None else batch_shard(mb, mesh, variant)
 
 
 def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -16,16 +16,27 @@ the gradients keep the parameters' dtype, as ``jax.value_and_grad`` gives
 them; the optimizer widens them to fp32 either way.
 
 With a ``mesh`` (:mod:`repro_torch.distributed.mesh`) the step runs in its
-activation scope on this rank's rows: the microbatches are cut first and
-each is split over ``data``
+activation scope under the bundle's sharding variant, on this rank's rows:
+the microbatches are cut first and each is split over the batch's axes
 (:func:`repro_torch.distributed.mesh.microbatch_shard`, JAX's ``[None,
-dp]`` constraint on the ``(mb, B/mb, ...)`` reshape).  The gradients are
-then all-reduced over ``data`` in fp32, leaf by leaf, and divided by the
-data rank count, and the loss is the data mean; nothing is reduced over
-``model`` (a DLRM's MLP gradients are equal on the model ranks and each
-table gradient covers the rank's own rows; an LM's model ranks hold the
-whole model and run the same step).  ``grad_norm`` is taken after the
-reduction.  A (1, 1) mesh outside a process group reduces nothing: the
+dp]`` constraint on the ``(mb, B/mb, ...)`` reshape; ``data``, or every
+axis under ``"fsdp"``).  Each gradient is then reduced by its leaf's
+layout (:class:`~repro_torch.distributed.mesh.Placement`), in fp32:
+
+- a leaf sharded over a batch axis got the sum of the ranks' gradients of
+  its part from its gather's reduce-scatter (in the backward);
+- over the batch axes it is replicated on, it is all-reduced (a whole
+  leaf: over ``data``);
+- nothing is reduced over ``model`` under ``"fsdp_tp"`` or ``"tp"``: the
+  model ranks compute one replicated loss, a tensor-parallel leaf's
+  gradient covers its own part, and a leaf replicated over ``model``
+  gets equal gradients on its ranks (through Megatron's "f");
+
+and every gradient is divided by the batch's rank count; the loss is the
+mean over those ranks.  ``grad_norm`` is the whole gradient's
+(:func:`repro_torch.optim.adamw.global_norm`).  A DLRM's MLP gradients
+are equal on the model ranks and each table gradient covers the rank's
+own rows.  A (1, 1) mesh outside a process group reduces nothing: the
 step gives the bits it gives without a mesh.
 """
 from __future__ import annotations
@@ -41,6 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import mesh as M
 from repro_torch.models.model_api import ModelBundle
 from repro_torch.optim.adamw import AdamW
+from repro_torch.sharding.partition import batch_entry, spec_axes
 from repro_torch.tree import leaves
 
 
@@ -68,33 +80,44 @@ def value_and_grad(loss_fn: Callable, params, ps, batch):
                            for p, g in zip(ps, gs)]
 
 
+def _reduce_groups(p: torch.Tensor, mesh: M.Mesh, variant: str) -> tuple:
+    """The groups to all-reduce ``p``'s gradient over: the batch's axes
+    its layout does not shard it on (all of them for a whole leaf)."""
+    pl = M.placement(p)
+    held = set(spec_axes(pl.spec)) if pl is not None else set()
+    return mesh.groups(a for a in batch_entry(mesh, variant)
+                       if a not in held)
+
+
 def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
                   mesh: Optional[M.Mesh] = None
                   ) -> Callable[[Any, Dict], tuple]:
     """Returns ``grads_fn(params, batch) -> (loss, grads)``: the step's
     loss (0-d fp32) and gradients (a list in the order of
     ``repro_torch.tree.leaves(params)``), accumulated over the
-    microbatches and, with a mesh, reduced over its data ranks."""
+    microbatches and, with a mesh, reduced over the batch's ranks."""
     loss_fn = bundle.loss
     reduce = mesh is not None and mesh.data_group is not None
+    variant = bundle.run.sharding
 
     def grads_fn(params, batch: Dict):
         dev = resolve_device(bundle.device)
         ps = trainable_leaves(params)
         batch = {k: _on(v, dev) for k, v in batch.items()}
-        scope = (M.activation_sharding(mesh) if mesh is not None
+        scope = (M.activation_sharding(mesh, variant) if mesh is not None
                  else contextlib.nullcontext())
         with scope:
             if microbatches <= 1:
                 if mesh is not None:
-                    batch = {k: M.batch_shard(v, mesh)
+                    batch = {k: M.batch_shard(v, mesh, variant)
                              for k, v in batch.items()}
                 loss, grads = value_and_grad(loss_fn, params, ps, batch)
             else:
                 acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
                 for i in range(microbatches):
-                    mb = {k: M.microbatch_shard(v, microbatches, i, mesh)
+                    mb = {k: M.microbatch_shard(v, microbatches, i, mesh,
+                                                variant)
                           for k, v in batch.items()}
                     li, gi = value_and_grad(loss_fn, params, ps, mb)
                     for a, g in zip(acc, gi):
@@ -103,11 +126,14 @@ def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
                 loss = loss / microbatches
                 grads = [a.div_(microbatches) for a in acc]
         if reduce:
+            bm = M.batch_mesh(mesh, variant)
             grads, loss = [g.float() for g in grads], loss.clone()
-            for g in grads + [loss]:
-                dist.all_reduce(g, op=dist.ReduceOp.SUM,
-                                group=mesh.data_group)
-                g.div_(mesh.data)
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=bm.data_group)
+            loss.div_(bm.data)
+            for p, g in zip(ps, grads):
+                for group in _reduce_groups(p, mesh, variant):
+                    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+                g.div_(bm.data)
         return loss, grads
 
     return grads_fn

@@ -14,16 +14,21 @@ it trains on one device and prints a ``device:`` line.  Under one (started
 by the caller, or by the launcher from torchrun's ``WORLD_SIZE``, ``RANK``
 and ``MASTER_ADDR`` with the backend ``--dist-backend`` names; nothing
 picks one), it prints JAX's ``mesh:`` line and trains on
-``ElasticMesh(--model-parallel)``: every rank takes its part of each
-step's global batch (``distributed/mesh.py::microbatch_shard``), the
-gradients are all-reduced over ``data`` in fp32, or with
-``--grad-compression int8_ef`` as int8 codes with error feedback
-(:func:`repro_torch.distributed.compression.make_compressed_dp_grads`:
-each rank's whole part in one pass, so ``--microbatches`` does not apply,
-as in JAX).  An LM's model ranks hold the whole model and run the same
-step (JAX's tensor parallelism is GSPMD's, not ported).  Rank 0 writes the
-checkpoints and the heartbeat and every rank restores them; a restart on
-fewer ranks re-factors the mesh and reads the same global batches.
+``ElasticMesh(--model-parallel)``: every rank holds and updates its
+shard of each parameter and of AdamW's state as JAX's ``param_pspecs``
+places them under ``RunConfig.sharding`` (``"fsdp_tp"``: tensor parallel
+over ``model``, FSDP over ``data``; :func:`repro_torch.models.
+transformer.shard_model`), takes its part of each step's global batch
+(``distributed/mesh.py::microbatch_shard``), and reduces each gradient
+by its layout (:func:`repro_torch.launch.steps.make_grads_fn`).  With
+``--grad-compression int8_ef`` the parameters stay whole on every rank
+and the gradients are all-reduced over ``data`` as int8 codes with error
+feedback (:func:`repro_torch.distributed.compression.
+make_compressed_dp_grads`: each rank's whole part in one pass, so
+``--microbatches`` does not apply, as in JAX).  Every rank gathers the
+checkpoints' leaves whole and rank 0 writes them and the heartbeat;
+every rank restores them, cutting its own shards, so a restart on fewer
+ranks re-factors the mesh and reads the same global batches.
 Deterministic resumable data
 (:mod:`repro_torch.data.lm_data`), atomic async checkpoints of the
 parameters and the AdamW state (its step count included), retry of a
@@ -188,7 +193,7 @@ def _train(args, cfg, run: RunConfig):
         say(f"device: {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                                 if dev.type == "cuda" else ""))
 
-    bundle = build(cfg, device=dev, run=run)
+    bundle = build(cfg, device=dev, run=run, mesh=mesh if grouped else None)
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps)
     data_cfg = LMDataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                             global_batch=args.batch)
@@ -240,13 +245,14 @@ def _train(args, cfg, run: RunConfig):
             say(f"step {step:5d} loss {loss:.4f} "
                 f"({dt*1e3:.0f} ms{' STRAGGLER' if slow else ''})",
                 flush=True)
-        if args.ckpt and rank0 and (step + 1) % args.ckpt_every == 0:
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save_async(args.ckpt, step + 1,
-                            {"params": params, "opt": opt.state_dict()})
-    if args.ckpt and rank0:
+                            {"params": params, "opt": opt.state_dict()},
+                            write=rank0)
+    if args.ckpt:
         ckpt.wait_pending(args.ckpt)
         ckpt.save(args.ckpt, args.steps,
-                  {"params": params, "opt": opt.state_dict()})
+                  {"params": params, "opt": opt.state_dict()}, write=rank0)
     if grouped:
         dist.barrier()  # every rank returns once the checkpoint is written
     if losses:

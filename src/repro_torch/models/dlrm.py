@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.collectives import all_reduce_identity_bwd
 from repro_torch.kernels import ops
@@ -105,7 +105,7 @@ def init_dlrm(cfg: ModelConfig, seed: int = 0, device="cuda", rows=None):
     bits of the unsharded tables' slice, and the MLPs are the same."""
     dev = resolve_device(device)
     lo, hi = _rows(rows, cfg.rows_per_table)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = generator(dev, seed)
     dt = torch_dtype(cfg.param_dtype)
     emb = torch.empty((cfg.n_tables, hi - lo, cfg.emb_dim), dtype=dt,
                       device=dev)

@@ -46,7 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.dlrm import _tensor, torch_dtype
@@ -89,7 +89,7 @@ def init_encdec(cfg: ModelConfig, seed: int = 0,
     times ``1/sqrt(fan_in)``, the embedding normal times 0.02, norms
     ones."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = generator(dev, seed)
     dt = torch_dtype(cfg.param_dtype)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
     enc = [T.Block(ones(), L.init_attn(g, cfg, dt, dev),
@@ -138,12 +138,17 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> EncDecLM:
 def _run_layers(blocks, run: RunConfig, fn, x: torch.Tensor,
                 *extra) -> torch.Tensor:
     """x through ``fn(blk, x, *extra) -> x`` for each block, each
-    recomputed in the backward under ``remat="full"``."""
+    recomputed in the backward under ``remat="full"``; a sharded block's
+    leaves are gathered whole inside it (so the checkpoint gathers them
+    again in the backward)."""
+    def step(blk, *args):
+        return fn(T.gathered(blk), *args)
+
     for blk in blocks:
         if run.remat == "full":
-            x = checkpoint(fn, blk, x, *extra, use_reentrant=False)
+            x = checkpoint(step, blk, x, *extra, use_reentrant=False)
         else:
-            x = fn(blk, x, *extra)
+            x = step(blk, x, *extra)
     return x
 
 
@@ -189,6 +194,7 @@ def decode_forward(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
     x = T._embed(model, cfg, tokens)
     caches = None
     if want_cache:
+        T._check_whole(model)
         caches = []
         for blk in model.dec_blocks:
             x, c = _dec_layer(blk, cfg, x, positions, enc_out)
@@ -208,10 +214,7 @@ def encdec_loss(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
     (B, S) int, labels < 0 masked."""
     x, _ = decode_forward(model, cfg, run, tokens,
                           encode(model, cfg, run, frames))
-    mask = (labels >= 0).float()
-    num, den = T._ce(T._logits(model, cfg, x), labels.clamp_min(0).long(),
-                     mask)
-    return num / den.clamp_min(1.0)
+    return T.head_loss(model, cfg, x, labels)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,16 @@ the port's ``selective_scan_bwd`` kernel on the card (the plain
 ``flash_attention_bwd`` with the window, so the SSM and hybrid families
 train as the others do.
 
+Tensor parallelism over ``model`` (``tp``, the model group, given by
+``models/transformer.py`` for a sharded layer): the projections into
+heads, ``w1``/``w3`` and the experts' ``w1``/``w3`` are column parallel
+(this rank's output features; their input goes through Megatron's "f",
+:func:`~repro_torch.distributed.collectives.copy_all_reduce_bwd`), and
+``wo``, ``w2`` and the experts' ``w2`` row parallel (their partial
+output summed by "g", :func:`~repro_torch.distributed.collectives.
+all_reduce_identity_bwd`).  The attention then runs on the rank's heads:
+``_qkv`` reads the head counts from the shapes it gets.
+
 Products whose JAX einsum asks for ``preferred_element_type=float32`` are
 taken on fp32 copies of their inputs (a bf16 product is exact in fp32), so
 bf16 scores are not rounded to bf16.  ``attn_decode_block`` writes the new
@@ -67,7 +77,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import mesh as M
-from repro_torch.distributed.collectives import all_reduce_sum_bwd
+from repro_torch.distributed.collectives import (all_reduce_identity_bwd,
+                                                 all_reduce_sum_bwd,
+                                                 copy_all_reduce_bwd)
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -184,8 +196,11 @@ def init_attn(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
 
 
 def _qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """q (B, S, H, hd), k and v (B, S, K, hd), H and K as many heads as
+    the projections hold (a tensor-parallel rank's)."""
     b, s, _ = x.shape
-    h, n_kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    hd = cfg.hd
+    h, n_kv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -200,17 +215,19 @@ def _qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def attn_block(p, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, causal: bool = True):
+               positions: torch.Tensor, causal: bool = True, tp=None):
     """Full-sequence (prefill) self-attention, in a sliding window when
     ``cfg.attn_type == "sliding"``; unmasked with ``causal=False`` (the
-    encoder's).  Returns ``(out, (k, v))``."""
-    q, k, v = _qkv(p, cfg, x, positions)
+    encoder's); on this rank's heads, tensor parallel over ``tp``.
+    Returns ``(out, (k, v))``."""
+    q, k, v = _qkv(p, cfg, copy_all_reduce_bwd(x, tp), positions)
     if causal:
         window = cfg.window if cfg.attn_type == "sliding" else 0
         o = blocked_causal_attention(q, k, v, window)
     else:
         o = ops.flash_attention(q, k, v, causal=False)
-    return o.reshape(*o.shape[:2], -1) @ p["wo"], (k, v)
+    out = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    return all_reduce_identity_bwd(out, tp), (k, v)
 
 
 def attn_decode_block(p, cfg: ModelConfig, x: torch.Tensor,
@@ -269,10 +286,15 @@ def init_mlp(g: torch.Generator, cfg: ModelConfig, dt: torch.dtype,
     return p
 
 
-def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU (or whisper's GELU), on this rank's ``d_ff`` part, tensor
+    parallel over ``tp``."""
+    x = copy_all_reduce_bwd(x, tp)
     if "w3" in p:
-        return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+        y = (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    else:
+        y = F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+    return all_reduce_identity_bwd(y, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +350,7 @@ def _capacity_slots(flat_e: torch.Tensor, n_experts: int, capacity: int):
 
 
 def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
-                      mesh: Optional[M.Mesh] = None):
+                      mesh: Optional[M.Mesh] = None, tp=None):
     """Capacity dispatch and the expert SwiGLU.  xf (T, D) -> ``(out (T,
     D), aux)``, aux the Switch load-balance loss ``E * sum(me * ce)`` (ce
     counts every top-K assignment, dropped ones too).
@@ -345,7 +367,12 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
     The tokens scatter into an (E*C+1, D) buffer whose last row takes every
     dropped assignment; which of those writes lands there is unspecified,
     and the row is discarded, so its gradient is zero (JAX's scatter
-    transpose).  No (T, E, C) one-hot is built."""
+    transpose).  No (T, E, C) one-hot is built.
+
+    With ``tp`` the experts run on this rank's ``moe_d_ff`` part: the
+    tokens enter them through "f", and each token's rows of their partial
+    outputs are summed by "g" before the router's weights scale them (so
+    the weights' gradient sums every rank's part)."""
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
     probs, top_p, top_e = _route(p, cfg, xf)
@@ -364,7 +391,8 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
         slot = slot[mesh.data_rank * t * k:(mesh.data_rank + 1) * t * k]
     # Token-major copies of each token, one per assignment; the backward
     # sums them over K (no atomics).
-    x_rep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+    xd = copy_all_reduce_bwd(xf, tp)
+    x_rep = xd[:, None, :].expand(t, k, d).reshape(t * k, d)
     buf = xf.new_zeros((e * c + 1, d)).index_put((slot,), x_rep)
     h = buf[:e * c].view(e, c, d)
     y = torch.bmm(F.silu(torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"]),
@@ -373,20 +401,27 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
     # index_select, whose backward adds into the rows (only the discarded
     # zero row takes several); indexing's backward sorts the slots and
     # walks the drop slot's duplicates one after another.
-    gathered = y_flat.index_select(0, slot) * top_p.reshape(-1, 1).to(
-        y.dtype)
+    gathered = all_reduce_identity_bwd(y_flat.index_select(0, slot), tp) \
+        * top_p.reshape(-1, 1).to(y.dtype)
     return gathered.view(t, k, d).sum(dim=1), aux
 
 
 def _data_mesh() -> Optional[M.Mesh]:
-    """The active mesh when it has more than one data rank, else None."""
+    """The active scope's batch mesh (:func:`repro_torch.distributed.mesh.
+    batch_mesh`: every rank a data rank under ``"fsdp"``) when it has more
+    than one data rank, else None."""
     mesh = M.active_mesh()
-    return mesh if mesh is not None and mesh.data > 1 else None
+    if mesh is None:
+        return None
+    mesh = M.batch_mesh(mesh)
+    return mesh if mesh.data > 1 else None
 
 
 def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
-              dense_route: bool = False, local_dispatch: bool = False):
-    """Top-K capacity-dispatched MoE.  x (B, S, D) -> ``(out, aux)``.
+              dense_route: bool = False, local_dispatch: bool = False,
+              tp=None):
+    """Top-K capacity-dispatched MoE.  x (B, S, D) -> ``(out, aux)``; the
+    dispatched experts tensor parallel over ``tp``.
 
     Under a mesh scope with more than one data rank (x this rank's rows)
     the dispatch is global (:func:`_moe_dispatch_ffn`), or with
@@ -403,10 +438,10 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     if not dense_route:
         mesh = _data_mesh()
         if local_dispatch and mesh is not None:
-            out, aux = _moe_dispatch_ffn(p, cfg, xf)
+            out, aux = _moe_dispatch_ffn(p, cfg, xf, tp=tp)
             aux = all_reduce_sum_bwd(aux, mesh.data_group) / mesh.data
         else:
-            out, aux = _moe_dispatch_ffn(p, cfg, xf, mesh)
+            out, aux = _moe_dispatch_ffn(p, cfg, xf, mesh, tp)
         return out.view(b, s, d), aux
     _, top_p, top_e = _route(p, cfg, xf)
     g = torch.matmul(xf, p["w1"])  # (E, T, Fe)

@@ -14,8 +14,18 @@ and ``prefill`` reading the audio frames from ``batch["frontend"]``) and
 both take ``RunConfig.dlrm_sharded_lookup``, as JAX's do: the
 row-sharded lookup on the active mesh).
 ``n_params`` and ``n_active_params`` count from the config without
-allocating, and ``batch_struct`` gives a shape cell's batch as ``{name:
-(shape, dtype)}``.
+allocating, ``param_struct`` builds the parameters on the ``meta`` device
+(shapes and dtypes, JAX's ``eval_shape`` of ``init``), and
+``batch_struct`` gives a shape cell's batch as ``{name: (shape,
+dtype)}``.
+
+``build(..., mesh=)`` makes ``init`` give this rank's shards of an LM or
+of the encoder-decoder LM: the whole model drawn from the seed, then cut by
+:func:`repro_torch.models.transformer.shard_model` under
+``run.sharding`` (``"dp"`` under ``run.grad_compression``: the
+compressed all-reduce takes whole gradients), so every rank's shard has
+the bits of the same whole model.  DLRM keeps its row-sharded tables
+(``init_dlrm(rows=)``).
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import Mesh
 from repro_torch.models import dlrm as D
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
@@ -49,6 +60,8 @@ class ModelBundle:
     n_params: Callable[[], int]
     # The MoE's experts count at top_k / n_experts; equal to n_params else.
     n_active_params: Callable[[], int]
+    param_struct: Callable[[], Any]  # the parameters on the meta device
+    run: RunConfig = RunConfig()
 
     def batch_struct(self, shape: ShapeConfig
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
@@ -136,8 +149,15 @@ def _dlrm_n_params(cfg: ModelConfig) -> int:
 
 
 def build(cfg: ModelConfig, device="cuda",
-          run: Optional[RunConfig] = None) -> ModelBundle:
+          run: Optional[RunConfig] = None,
+          mesh: Optional[Mesh] = None) -> ModelBundle:
     run = run or RunConfig()
+    common = dict(cfg=cfg, device=device, run=run)
+    sharding = "dp" if run.grad_compression else run.sharding
+
+    def sharded(init):
+        return lambda seed=0: T.shard_model(init(seed), mesh, sharding)
+
     if cfg.family == "dlrm":
         def loss(params, batch):
             dev = resolve_device(device)
@@ -153,11 +173,11 @@ def build(cfg: ModelConfig, device="cuda",
                                   run.dlrm_sharded_lookup)
 
         return ModelBundle(
-            cfg=cfg, device=device,
             init=lambda seed=0: D.init_dlrm(cfg, seed, device),
             loss=loss, prefill=serve, decode=None,
             n_params=lambda: _dlrm_n_params(cfg),
-            n_active_params=lambda: _dlrm_n_params(cfg))
+            n_active_params=lambda: _dlrm_n_params(cfg),
+            param_struct=lambda: D.init_dlrm(cfg, 0, "meta"), **common)
 
     if cfg.enc_dec:
         def ed_loss(params, batch):
@@ -179,11 +199,11 @@ def build(cfg: ModelConfig, device="cuda",
                                          _on(token, dev, torch.int64), cache)
 
         return ModelBundle(
-            cfg=cfg, device=device,
-            init=lambda seed=0: ED.init_encdec(cfg, seed, device),
+            init=sharded(lambda seed: ED.init_encdec(cfg, seed, device)),
             loss=ed_loss, prefill=ed_prefill, decode=ed_decode,
             n_params=lambda: _encdec_n_params(cfg),
-            n_active_params=lambda: _encdec_n_params(cfg))
+            n_active_params=lambda: _encdec_n_params(cfg),
+            param_struct=lambda: ED.init_encdec(cfg, 0, "meta"), **common)
 
     if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
@@ -211,9 +231,9 @@ def build(cfg: ModelConfig, device="cuda",
         return T.decode_step(params, cfg, _on(token, dev, torch.int64), cache)
 
     return ModelBundle(
-        cfg=cfg, device=device,
-        init=lambda seed=0: T.init_lm(cfg, seed, device),
+        init=sharded(lambda seed: T.init_lm(cfg, seed, device)),
         loss=loss, prefill=prefill_fn, decode=decode_fn,
         n_params=lambda: _lm_n_params(cfg),
-        n_active_params=lambda: _lm_n_params(cfg, active=True))
+        n_active_params=lambda: _lm_n_params(cfg, active=True),
+        param_struct=lambda: T.init_lm(cfg, 0, "meta"), **common)
 

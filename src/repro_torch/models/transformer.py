@@ -20,6 +20,24 @@ dispatch over the data ranks of a mesh (global, or data-local with
 family trains: the SSM and hybrid LMs' gradients go through the scan's
 backward kernel and, for the hybrid, the windowed attention's.
 
+:func:`shard_model` cuts each leaf to this rank's shard of JAX's
+``param_pspecs`` layout (:mod:`repro_torch.sharding.partition`) and tags
+it with its :class:`~repro_torch.distributed.mesh.Placement`.  A sharded
+model trains only (prefill and decode refuse it).  Each layer's leaves are
+gathered inside ``_layer_forward``, so under ``remat="full"`` the
+checkpoint gathers them again in the backward instead of keeping them.
+Where a leaf's feature dim lies on ``model``, the layer computes tensor
+parallel on this rank's part (Megatron's column- then row-parallel
+products, ``layers.attn_block``/``mlp_block``/``moe_block``'s ``tp``):
+attention when the model ranks each hold whole heads of both q and kv
+(``H % model == K % model == 0``), the SwiGLU and the experts when
+``model`` divides ``d_ff``.  The other leaves are gathered whole (the
+SSM's, an attention whose heads split) and computed replicated over
+``model``.  The embedding and head are vocab parallel when ``model``
+divides the vocab: each rank looks up the ids of its vocab range and
+the ranks' rows are summed, and the cross-entropy takes the max and the
+sums of exps and gold logits over the ranks (:func:`_ce`).
+
 ``remat="full"`` runs each layer under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
 counterpart of ``jax.checkpoint``: the backward recomputes the layer's
@@ -52,9 +70,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import mesh as M
 from repro_torch.models import layers as L
 from repro_torch.models.dlrm import _tensor, torch_dtype
+from repro_torch.sharding import partition as SP
 
 
 # The LM families this module builds: attention plus a feed-forward block
@@ -148,7 +169,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> TransformerLM:
     makes them."""
     _check_family(cfg)
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = generator(dev, seed)
     dt = torch_dtype(cfg.param_dtype)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=dev)  # noqa: E731
     blocks = [_init_block(g, cfg, dt, dev) for _ in range(cfg.n_layers)]
@@ -186,6 +207,98 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> TransformerLM:
 
 
 # ---------------------------------------------------------------------------
+# Sharded storage
+# ---------------------------------------------------------------------------
+
+
+def shard_model(model: nn.Module, mesh: Optional[M.Mesh],
+                sharding: str = "fsdp_tp") -> nn.Module:
+    """Cuts each leaf of ``model`` (a whole, seeded or carried model) to
+    this rank's shard of ``sharding``'s layout on ``mesh``, in place, and
+    tags every leaf with its :class:`~repro_torch.distributed.mesh.
+    Placement`; the whole tensors are freed.  ``"dp"``, or a mesh outside
+    a process group (no groups), leaves the model as it is: every rank
+    holds it whole, untagged."""
+    if sharding == "dp" or mesh is None or mesh.data_group is None:
+        return model
+    specs = SP.param_specs(model, mesh, sharding)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if specs[name]:
+                p.data = SP.shard_of(p.data, specs[name], mesh).clone(
+                    memory_format=torch.contiguous_format)
+            p.placement = M.Placement(mesh, specs[name], sharding)
+    return model
+
+
+def _check_whole(model: nn.Module) -> None:
+    if any(M.placement(p) is not None for p in model.parameters()):
+        raise NotImplementedError(
+            "this model holds its rank's shards (shard_model): it trains; "
+            "serve a whole model")
+
+
+def _on_model(p: torch.Tensor, dim: int) -> bool:
+    """Whether ``p`` is a shard whose ``dim`` lies on ``model`` alone."""
+    pl = M.placement(p)
+    return pl is not None and len(pl.spec) > dim and pl.spec[dim] == "model"
+
+
+def _tp_group(p: torch.Tensor):
+    return M.placement(p).mesh.model_group
+
+
+def view(sub, keep_model: bool = False) -> Dict[str, torch.Tensor]:
+    """A sub-block's leaves as the compute uses them
+    (:func:`repro_torch.distributed.collectives.gather_leaf`)."""
+    return {k: C.gather_leaf(v, keep_model) for k, v in sub.items()}
+
+
+class _Gathered:
+    """A block's sub-blocks and leaves, each gathered whole."""
+
+    def __init__(self, blk: nn.Module):
+        for name, child in blk.named_children():
+            setattr(self, name, view(child))
+        for name, p in blk.named_parameters(recurse=False):
+            setattr(self, name, C.gather_leaf(p))
+
+
+def gathered(blk: nn.Module):
+    """``blk`` itself when it holds whole leaves, else a stand-in with the
+    same attributes holding every leaf gathered whole (a layer computed
+    replicated over ``model``: the encoder-decoder LM's)."""
+    if all(M.placement(p) is None for p in blk.parameters()):
+        return blk
+    return _Gathered(blk)
+
+
+def _attn_view(p, cfg: ModelConfig):
+    """``(leaves, tp group)``: the model ranks' heads when each holds
+    whole q and kv heads, else every leaf whole and no group."""
+    mp = M.placement(p["wq"])
+    if _on_model(p["wq"], 1) and cfg.n_heads % mp.mesh.model == 0 \
+            and cfg.kv_heads % mp.mesh.model == 0:
+        return view(p, True), _tp_group(p["wq"])
+    return view(p), None
+
+
+def _ffn_view(p, model_dim: int):
+    if _on_model(p["w1"], model_dim):
+        return view(p, True), _tp_group(p["w1"])
+    return view(p), None
+
+
+def _vocab_view(p: torch.Tensor, dim: int):
+    """``(table, group, first id)``: this rank's vocab range of ``p`` when
+    ``dim`` lies on ``model``, else ``p`` whole."""
+    if _on_model(p, dim):
+        t = C.gather_leaf(p, True)
+        return t, _tp_group(p), M.placement(p).mesh.model_rank * t.shape[dim]
+    return C.gather_leaf(p), None, 0
+
+
+# ---------------------------------------------------------------------------
 # Per-layer bodies, embedding and head
 # ---------------------------------------------------------------------------
 
@@ -196,24 +309,29 @@ def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     load-balance loss (``local_dispatch`` as :func:`layers.moe_block`
     takes it), or ``None`` for a layer without one (JAX's zero);
     cache is this layer's ``{"k", "v"}`` and, for the SSM and hybrid
-    families, ``{"conv", "h"}`` (an SSM has no ``k``/``v``)."""
-    h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+    families, ``{"conv", "h"}`` (an SSM has no ``k``/``v``).  A sharded
+    layer's leaves are gathered here (tensor parallel where they allow
+    it)."""
+    h = L.rms_norm(x, C.gather_leaf(blk.ln1), cfg.norm_eps)
     if cfg.family == "ssm":
-        out, (conv_tail, h_last) = L.mamba_block(blk.ssm, cfg, h)
+        out, (conv_tail, h_last) = L.mamba_block(view(blk.ssm), cfg, h)
         return x + out, None, {"conv": conv_tail, "h": h_last}
-    attn_out, (k, v) = L.attn_block(blk.attn, cfg, h, positions)
+    attn, tp = _attn_view(blk.attn, cfg)
+    attn_out, (k, v) = L.attn_block(attn, cfg, h, positions, tp=tp)
     cache = {"k": k, "v": v}
     if cfg.family == "hybrid":
-        ssm_out, (conv_tail, h_last) = L.mamba_block(blk.ssm, cfg, h)
+        ssm_out, (conv_tail, h_last) = L.mamba_block(view(blk.ssm), cfg, h)
         attn_out = (attn_out + ssm_out) * 0.5
         cache.update(conv=conv_tail, h=h_last)
     x = x + attn_out
-    h2 = L.rms_norm(x, blk.ln2, cfg.norm_eps)
+    h2 = L.rms_norm(x, C.gather_leaf(blk.ln2), cfg.norm_eps)
     if cfg.n_experts:
-        ff, aux = L.moe_block(blk.moe, cfg, h2,
-                              local_dispatch=local_dispatch)
+        moe, tp = _ffn_view(blk.moe, 2)
+        ff, aux = L.moe_block(moe, cfg, h2, local_dispatch=local_dispatch,
+                              tp=tp)
         return x + ff, aux, cache
-    return x + L.mlp_block(blk.mlp, h2), None, cache
+    mlp, tp = _ffn_view(blk.mlp, 1)
+    return x + L.mlp_block(mlp, h2, tp=tp), None, cache
 
 
 def _mamba_decode(blk: Block, cfg: ModelConfig, h: torch.Tensor,
@@ -253,8 +371,19 @@ def _embed(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     ``frontend_embeds`` (B, F, D) and a config that has a frontend, those
     embeddings, cast to the compute dtype, replace the first F positions
     (JAX's ``dynamic_update_slice(x, fe, (0, 0, 0))``); an S below F
-    raises rather than clamp."""
-    x = model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+    raises rather than clamp.  Vocab parallel (``embed``'s rows on
+    ``model``), each rank adds its range's rows and zeros for the other
+    ids, and the ranks' rows are summed (Megatron's "g")."""
+    table, group, lo = _vocab_view(model.embed, 0)
+    if group is None:
+        x = table[tokens].to(torch_dtype(cfg.compute_dtype))
+    else:
+        local = tokens - lo
+        mine = (local >= 0) & (local < table.shape[0])
+        rows = table[local.clamp(0, table.shape[0] - 1)]
+        x = torch.where(mine[..., None], rows, rows.new_zeros(()))
+        x = C.all_reduce_identity_bwd(
+            x.to(torch_dtype(cfg.compute_dtype)), group)
     if frontend_embeds is None or not cfg.n_frontend_tokens:
         return x
     n = frontend_embeds.shape[1]
@@ -269,12 +398,24 @@ def _embed(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     return torch.cat([frontend_embeds.to(x.dtype), x[:, n:]], dim=1)
 
 
-def _logits(model: TransformerLM, cfg: ModelConfig,
-            x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, V) fp32: the head in x's dtype, the products
-    summed in fp32 (JAX's ``preferred_element_type=float32``)."""
-    head = model.embed.t() if model.lm_head is None else model.lm_head
+def _logits(model: TransformerLM, cfg: ModelConfig, x: torch.Tensor,
+            head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, V) fp32: the head (``head``, by default the
+    model's) in x's dtype, the products summed in fp32 (JAX's
+    ``preferred_element_type=float32``)."""
+    if head is None:
+        head = model.embed.t() if model.lm_head is None else model.lm_head
     return x.float() @ head.to(x.dtype).float()
+
+
+def _head_view(model: nn.Module):
+    """``(head (D, V or V/model), group, first id)``: the tied embedding
+    or ``lm_head``, vocab parallel where its vocab dim lies on
+    ``model``."""
+    if model.lm_head is None:
+        table, group, lo = _vocab_view(model.embed, 0)
+        return table.t(), group, lo
+    return _vocab_view(model.lm_head, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -306,11 +447,73 @@ def backbone(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
             aux / max(cfg.n_layers, 1))
 
 
-def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
-    """Summed masked negative log-likelihood and the mask's sum."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+class _VocabLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last axis of logits split over ``group``'s
+    ranks by vocab: the max and the sum of exps over the ranks.  Its
+    arithmetic and backward are ``torch.logsumexp``'s (ATen's
+    ``logsumexp_out_impl`` and ``logsumexp_backward``), so one rank gives
+    its bits; the backward is local (the loss is replicated over the
+    group)."""
+
+    @staticmethod
+    def forward(ctx, logits, group):
+        m = C.all_reduce_max(logits.amax(dim=-1), group)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        s = C.all_reduce_identity_bwd((logits - m[..., None]).exp().sum(-1),
+                                      group)
+        logz = s.log().add(m)
+        ctx.save_for_backward(logits, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, logz = ctx.saved_tensors
+        return grad[..., None] * (logits - logz[..., None]).exp(), None
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+        group=None, lo: int = 0):
+    """Summed masked negative log-likelihood and the mask's sum.  With
+    ``group``, logits hold this rank's vocab range from id ``lo`` (vocab
+    parallel): the log-partition over the ranks, and the gold logit
+    summed over them (the one rank whose range holds it).  Without, the
+    same arithmetic gives ``torch.logsumexp``'s and ``torch.gather``'s
+    bits."""
+    v = logits.shape[-1]
+    logz = _VocabLogSumExp.apply(logits, group)
+    local = labels - lo
+    mine = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    gold = C.all_reduce_identity_bwd(
+        torch.where(mine, gold, gold.new_zeros(())), group)
     return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def head_loss(model: nn.Module, cfg: ModelConfig, x: torch.Tensor,
+              labels: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+    """The mean masked cross-entropy of the head over x (B, S, D), fp32:
+    labels (B, S) int, labels < 0 masked; chunk by chunk of ``chunk``
+    positions when it divides S (and is below it), as JAX's ``lax.scan``
+    over chunks does.  A vocab-parallel head takes its input through
+    Megatron's "f"."""
+    s = x.shape[1]
+    mask = (labels >= 0).float()
+    labels_c = labels.clamp_min(0).long()
+    head, group, lo = _head_view(model)
+
+    def ce(sl):
+        xc = C.copy_all_reduce_bwd(x[:, sl], group)
+        return _ce(_logits(model, cfg, xc, head), labels_c[:, sl],
+                   mask[:, sl], group, lo)
+
+    if chunk and s > chunk and s % chunk == 0:
+        num = den = torch.zeros((), device=x.device)
+        for i in range(0, s, chunk):
+            n, d = ce(slice(i, i + chunk))
+            num, den = num + n, den + d
+    else:
+        num, den = ce(slice(None))
+    return num / den.clamp_min(1.0)
 
 
 def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
@@ -325,18 +528,7 @@ def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     positions = torch.arange(s, device=tokens.device)[None, :]
     x, aux = backbone(model, cfg, run,
                       _embed(model, cfg, tokens, frontend_embeds), positions)
-    mask = (labels >= 0).float()
-    labels_c = labels.clamp_min(0).long()
-    ch = run.logits_chunk
-    if ch and s > ch and s % ch == 0:
-        num = den = torch.zeros((), device=x.device)
-        for i in range(0, s, ch):
-            n, d = _ce(_logits(model, cfg, x[:, i:i + ch]),
-                       labels_c[:, i:i + ch], mask[:, i:i + ch])
-            num, den = num + n, den + d
-    else:
-        num, den = _ce(_logits(model, cfg, x), labels_c, mask)
-    loss = num / den.clamp_min(1.0)
+    loss = head_loss(model, cfg, x, labels, run.logits_chunk)
     if cfg.n_experts:
         loss = loss + 0.01 * aux
     return loss
@@ -382,6 +574,7 @@ def prefill(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     slot = pos % C (``transformer.py:266-278``).  The SSM and hybrid
     families also keep each layer's conv tail and last state.
     ``frontend_embeds`` as :func:`_embed` takes them (a VLM's image)."""
+    _check_whole(model)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     x = _embed(model, cfg, tokens, frontend_embeds)
@@ -428,6 +621,7 @@ def decode_step_embeds(model: TransformerLM, cfg: ModelConfig,
 
 def _decode_from(model: TransformerLM, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict):
+    _check_whole(model)
     pos = cache["pos"]
     state = [k for k in cache if k != "pos"]
     for i, blk in enumerate(model.blocks):

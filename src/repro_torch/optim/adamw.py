@@ -37,14 +37,26 @@ train step hands in fp32 sums over microbatches, as JAX's
 ``master_fp32``), each a list in parameter order in its stored dtype, and
 ``load_state_dict`` copies them back in place, so a restored optimizer
 resumes the schedule at its step with the same bits.
+
+A parameter stored as this rank's shard (one with a
+:class:`~repro_torch.distributed.mesh.Placement`) has moments and a
+master copy of its shard's shape, each tagged with the same placement
+(the checkpoint gathers and cuts them as it does the parameter), and
+:func:`global_norm` takes the norm of the whole gradient: a leaf's sum of
+squares is summed over the axes its layout shards it on, and a
+replicated leaf counts once.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import mesh as M
+from repro_torch.sharding.partition import spec_axes
 
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Elements a leaf's update takes at a time (its fp32 temporaries: 256 MB).
@@ -80,8 +92,34 @@ def schedule(cfg: OptConfig, step: int) -> float:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+def _shard_groups(p: torch.Tensor) -> Tuple:
+    """The groups over which ``p``'s shards differ: one a sharded axis
+    (the world group when a leaf is sharded over both)."""
+    pl = M.placement(p)
+    return () if pl is None else pl.mesh.groups(spec_axes(pl.spec))
+
+
+def global_norm(tensors, params: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """The L2 norm of the gradients ``tensors``; with ``params`` (the
+    parameters they belong to, in order) each sharded leaf's sum of
+    squares is first summed over the ranks that hold its other parts,
+    one all-reduce a set of groups."""
+    sq = [torch.sum(t.float() * t.float()) for t in tensors]
+    if params is not None:
+        by_groups: Dict[Tuple, List[int]] = {}
+        for i, p in enumerate(params):
+            groups = _shard_groups(p)
+            if groups:
+                by_groups.setdefault(groups, []).append(i)
+        for groups, idx in by_groups.items():
+            part = torch.stack([sq[i] for i in idx])
+            for group in groups:
+                if group is not None:
+                    dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+            for j, i in enumerate(idx):
+                sq[i] = part[j]
+    return torch.sqrt(sum(sq))
 
 
 class AdamW(torch.optim.Optimizer):
@@ -98,6 +136,9 @@ class AdamW(torch.optim.Optimizer):
             if cfg.master_fp32:
                 self.state[p]["master"] = p.detach().to(torch.float32,
                                                         copy=True)
+            if M.placement(p) is not None:
+                for t in self.state[p].values():
+                    t.placement = p.placement
 
     def _params(self) -> List[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]]
@@ -127,7 +168,7 @@ class AdamW(torch.optim.Optimizer):
         cfg = self.cfg
         self.count += 1
         lr = schedule(cfg, self.count)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, params)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         bc1 = 1.0 - cfg.b1 ** self.count
