@@ -76,7 +76,13 @@ trained at full depth):
    launcher on (4, 1) (S=4,096, global batch 8 in 2 microbatches) in
    fp32 against one rank (losses and gradients within 1e-4, the global
    top-K equal), then bf16 with ``--grad-compression int8_ef`` (its int32
-   wire's bytes and all-reduce time);
+   wire's bytes and all-reduce time); DLRM's arm runs twice, its
+   tables' rows over ``model`` (``emb_rows="model"``) and over both axes
+   (``emb_rows="all"``, JAX's default layout: a quarter of every table a
+   rank, the ids all-gathered over ``data``, the pooled partials
+   reduce-scattered over it), the second's losses against the first's
+   and one rank's, its step time, peak and collective bytes, its
+   all-reduces short of the first's by the table gradient;
 6'''. the LMs' parameters and AdamW state sharded by JAX's partition
    rules (phase ``sharded_train``): world 1 over NCCL in this process,
    qwen2.5-3b at full width cut to 2 layers through ``build(...,
@@ -97,9 +103,23 @@ trained at full depth):
    full width cut to 2 layers in fp32 (S = 512): first-step gradients
    within 1e-4 of each leaf's largest magnitude, the parameters after
    the second step within 5e-2 of the update (L2 norms over each shard)
-   and both losses within 1e-4 of one rank's; the
-   launches counted are the (1, 1) step's and the four ranks' sharded
-   runs';
+   and both losses within 1e-4 of one rank's; then the arms whose
+   layers compute tensor parallel (``scripts/sharded_layers_ab.py``'s
+   ``lm_arm``): falcon-mamba-7b (channel-parallel mamba blocks, the
+   in_proj exchange) at 2 of 64 layers, S = 2,048, and whisper-large-v3
+   (tensor-parallel attention, cross-attention and MLP) at 2 + 2 layers,
+   448 tokens over 8 clips of seeded frames, bf16 on (2, 2): each
+   rank's bytes of parameters and moments equal to ``shard_bytes``, peak,
+   step times and collective bytes by kind (all-gathers, reduce-scatters,
+   all-reduces, exchanges), and their fp32 parity against one rank
+   (falcon on (1, 4) at S = 512, whisper on (2, 2)): losses within 1e-6
+   of their magnitude, first-step gradients within 2e-5, the parameters
+   after step 2 within 5e-2 of the update; and, in this process, the scan and its backward
+   at the ranks' channels (falcon's 4,096, hymba's 1,600 and 800) and
+   the attention kernels at qwen's and whisper's ranks' heads (whisper's
+   encoder unmasked, its decoder causal, (2, 1500 or 448, 10/10, 64)).
+   The launches counted are the (1, 1) step's and the four ranks'
+   sharded runs';
 7. the learned models' kernels vs plain on the card: ``lstm_cell`` at the
    inference (B=4096) and training (B=256) shapes of every LSTM layer of
    the path (K = 57, 67, 80, 88, 120 at H = 32 or 40), within fp32 abs
@@ -373,6 +393,7 @@ import torch
 import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 
 from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.core import prefetch_model as PM  # noqa: E402
@@ -419,6 +440,7 @@ from repro_torch.tree import jax_stacks, named_leaves  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.workloads import (CHAOS_KEYS, chaos_sweep,  # noqa: E402
                                    make_spec, make_trace, scenario)
+from sharded_layers_ab import ARMS, arm_batch, arm_cfg, lm_arm  # noqa: E402
 
 # H100 SXM peaks (NVIDIA's data sheet): device-memory rate, fp32 rate
 # outside the tensor cores and the dense bf16 tensor-core rate.
@@ -1503,7 +1525,7 @@ def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches):
     ``st_nccl_launches``).  Returns rank 0's kernel record (errors the
     largest over the ranks), the window's serve launches over the ranks,
     the training's launches over the ranks and the sharded training's
-    attention launches."""
+    launches of ``ST_KERNELS``."""
     world = DIST_MESH[0] * DIST_MESH[1]
     torch.cuda.empty_cache()
     try:
@@ -1767,12 +1789,31 @@ def phase_distributed_train_nccl(work):
             launches["gather_pool_shard"])
 
 
+def dt_steps(step, params, opt, batches):
+    """Every batch's step, the ranks aligned by a barrier before each:
+    ``(losses, step ms by the host clock, the steps' collective
+    traffic)``."""
+    C.reset_traffic()
+    losses, step_ms = [], []
+    for b in batches:
+        dist.barrier()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt, b)["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, copy.deepcopy(C.TRAFFIC)
+
+
 def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
     """The gloo rank's training, after its serve: (a) DLRM through the
-    row-sharded lookup on the (2, 2) mesh, its first step's gradients and
+    row-sharded lookup on the (2, 2) mesh with its tables' rows over
+    ``model`` (``emb_rows="model"``), its first step's gradients and
     every step's loss against the one-rank reference, the window's forward
     and the masked and unmasked backwards timed (one rank at a time) and
-    the gradient all-reduce over ``data`` timed; (b) granite-moe through
+    the gradient all-reduce over ``data`` timed; (a') the same with the
+    rows over both axes (``emb_rows="all"``, JAX's default layout): its
+    losses against (a)'s and the reference's, its step time, peak and
+    collective traffic, whose all-reduces lack (a)'s table gradient;
+    (b) granite-moe through
     the launcher on (4, 1), fp32 on the global dispatch against the
     reference (rank 0 compares the gradients and the top-K), then bf16
     with ``--grad-compression int8_ef``.  Returns the rank's record."""
@@ -1780,9 +1821,9 @@ def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
     rec = {}
     cfg = dt_dlrm_cfg()
     lo, hi = shard_rows(cfg.rows_per_table, mesh)
-    params = init_dlrm(cfg, seed=0, device=dev, rows=(lo, hi))
     bundle = build(cfg, device=dev, run=RunConfig(
-        remat="none", dlrm_sharded_lookup=True))
+        remat="none", dlrm_sharded_lookup=True, emb_rows="model"), mesh=mesh)
+    params = bundle.init(seed=0)
     batches = dt_batches(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1806,15 +1847,15 @@ def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
     opt = init_opt(OptConfig(lr=DT_LR), tree_leaves(params))
     step = make_train_step(bundle, DT_MB, mesh)
     ops.reset_launches()
-    t0 = time.perf_counter()
-    losses = [float(step(params, opt, b)["loss"]) for b in batches]
-    step_s = time.perf_counter() - t0
+    losses, step_ms, traffic = dt_steps(step, params, opt, batches)
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS
                 if fn.launches}
     rec["dlrm"] = {
-        "rows": [lo, hi], "losses": losses,
+        "emb_rows": "model", "rows": [lo, hi],
+        "spec": params["emb"].placement.spec, "losses": losses,
         "ref_losses": train_ref["dlrm_losses"], "grad_err_share": errs,
-        "launches": launches, "steps_s": step_s, **allreduce,
+        "launches": launches, "step_ms": step_ms, **allreduce,
+        "traffic_steps": traffic,
         "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
     del opt
     # The window's forward and both backwards at the rank's step shape (its
@@ -1853,6 +1894,33 @@ def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
             rec["window"] = w
             del timer
     del ids, ids_in, dout, params, table
+    torch.cuda.empty_cache()
+
+    # (a') The rows over both axes: part d * 2 + m of every table.
+    bundle = build(cfg, device=dev, run=RunConfig(
+        remat="none", dlrm_sharded_lookup=True, emb_rows="all"), mesh=mesh)
+    params = bundle.init(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    opt = init_opt(OptConfig(lr=DT_LR), tree_leaves(params))
+    step = make_train_step(bundle, DT_MB, mesh)
+    ops.reset_launches()
+    losses, step_ms, traffic = dt_steps(step, params, opt, batches)
+    emb = params["emb"]
+    rec["dlrm_all"] = {
+        "emb_rows": "all", "spec": emb.placement.spec,
+        "part_of_parts": list(SP.part_index(emb.placement.spec[1], mesh)),
+        "table_bytes": emb.numel() * emb.element_size(),
+        "model_arm_table_bytes": t * rs * d * emb.element_size(),
+        "losses": losses, "model_arm_losses": rec["dlrm"]["losses"],
+        "ref_losses": train_ref["dlrm_losses"],
+        "launches": {fn.__name__: fn.launches for fn in ops.KERNELS
+                     if fn.launches},
+        "step_ms": step_ms, "traffic_steps": traffic,
+        "model_arm_table_grad_fp32_bytes": t * rs * d * 4,
+        "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    del params, opt, step, bundle, emb
     torch.cuda.empty_cache()
 
     # (b) granite-moe on (4, 1): fp32, global dispatch, then int8_ef.
@@ -1928,7 +1996,9 @@ def report_distributed_train(recs, spawn_s):
           "dlrm": {"mesh": dict(zip(("data", "model"), DIST_MESH)),
                    "rows_per_table": DT_ROWS, "B": DT_B,
                    "microbatches": DT_MB, "steps": DT_STEPS,
-                   "ids": "[-2, R + 2)"},
+                   "ids": "[-2, R + 2)",
+                   "arms": {"dlrm": "emb_rows=model",
+                            "dlrm_all": "emb_rows=all"}},
           "granite": {"mesh": {"data": len(recs), "model": 1},
                       "cuts": {"n_layers": [24, MOE_DT["n_layers"]],
                                "from": "train_4k S=4096 global_batch=256",
@@ -1950,6 +2020,26 @@ def report_distributed_train(recs, spawn_s):
                 f"{a['grad_err_share']}")
         require(a["launches"].get("gather_pool_shard") == DT_STEPS * DT_MB,
                 f"rank {r['rank']} DLRM launches {a['launches']}")
+        c = t["dlrm_all"]
+        require(np.allclose(c["losses"], c["ref_losses"], rtol=DT_TOL_BF16,
+                            atol=DT_TOL_BF16)
+                and np.allclose(c["losses"], a["losses"], rtol=DT_TOL_BF16,
+                                atol=DT_TOL_BF16),
+                f"rank {r['rank']} DLRM emb_rows=all losses {c['losses']} "
+                f"vs {c['ref_losses']} and {a['losses']}")
+        require(c["launches"].get("gather_pool_shard") == DT_STEPS * DT_MB
+                and 2 * c["table_bytes"] == c["model_arm_table_bytes"],
+                f"rank {r['rank']} DLRM emb_rows=all: launches "
+                f"{c['launches']}, {c['table_bytes']} table bytes")
+        # The step's all-reduces: (a)'s hold the table gradient (fp32)
+        # each step, (a')'s none of it; the rest (the loss, the MLPs, the
+        # pooled partials over model) are the same bytes.
+        require(a["traffic_steps"]["all_reduce"]["bytes"]
+                - c["traffic_steps"]["all_reduce"]["bytes"]
+                == DT_STEPS * c["model_arm_table_grad_fp32_bytes"],
+                f"rank {r['rank']} DLRM all-reduce bytes "
+                f"{a['traffic_steps']['all_reduce']} (model) vs "
+                f"{c['traffic_steps']['all_reduce']} (all)")
         require(np.allclose(b["losses"], b["ref_losses"], rtol=DT_TOL_FP32,
                             atol=DT_TOL_FP32),
                 f"rank {r['rank']} granite losses {b['losses']} vs "
@@ -1963,7 +2053,8 @@ def report_distributed_train(recs, spawn_s):
             require(b[key].get("flash_attention") == per
                     and b[key].get("flash_attention_bwd") == per,
                     f"rank {r['rank']} granite {key} {b[key]}")
-        for src in (a["launches"], b["launches"], b["int8_launches"]):
+        for src in (a["launches"], c["launches"], b["launches"],
+                    b["int8_launches"]):
             for k, v in src.items():
                 launches[k] = launches.get(k, 0) + v
     b0 = recs[0]["train"]["moe"]
@@ -2010,6 +2101,37 @@ ST_LR = 1e-3
 ST_TOL_LOSS, ST_TOL_NORM, ST_TOL_FP32, ST_TOL_UPDATE = 2e-3, 5e-4, 1e-4, 5e-2
 # World 1 over NCCL: qwen's cut at 2 sequences of 512 in 2 microbatches.
 ST_NCCL_BATCH, ST_NCCL_SEQ = 2, 512
+# The layers this script's arms compute tensor parallel beside qwen's
+# (scripts/sharded_layers_ab.py's ARMS, run through its lm_arm): bf16 on
+# (2, 2), falcon-mamba-7b at 2 of 64 layers (S 2,048) and
+# whisper-large-v3 at 2 + 2 of 32 + 32 (448 tokens over 8 clips of
+# (1500, 1280) seeded frames).  Their fp32 parity against one rank, held
+# tighter than ST_PARITY's: falcon on (1, 4) at S = 512 (the in_proj
+# exchange over four ranks), whisper on (2, 2); losses within
+# ST_TP_TOL_LOSS of their magnitude (falcon's second, after an update
+# whose sign noise ST_TOL_UPDATE's note describes, read 3.2e-7 of it:
+# 2.9e-6 absolute), first-step gradients within ST_TP_TOL_GRAD of each
+# leaf's largest magnitude (whisper's vocab-parallel lm_head read
+# 1.02e-5, granite's 8.7e-6 in the same code), the parameters by
+# ST_TOL_UPDATE.
+ST_TP_PARITY = (("falcon-mamba-7b", (1, 4), ST_PARITY_SEQ),
+                ("whisper-large-v3", (2, 2), 448))
+ST_TP_TOL_LOSS, ST_TP_TOL_GRAD = 1e-6, 2e-5
+ST_ALL_PARITY = tuple((a, m, ST_PARITY_SEQ) for a, m in ST_PARITY) \
+    + ST_TP_PARITY
+ST_KERNELS = ("flash_attention", "flash_attention_bwd", "selective_scan",
+              "selective_scan_bwd")
+# The scan's and the attention's kernels at the ranks' layouts: a rank's
+# microbatch of 2 rows; falcon's Di 8,192 over model 2 at the arm's S;
+# hymba-1.5b's 3,200 over 2 and 4 (800 channels: not a whole number of
+# the kernels' 64-channel blocks), S cut to 512 (these two check the
+# channel counts; the plain versions' seconds grow with S); whisper's
+# 20/20 heads over 2, its encoder (unmasked) and decoder (causal).
+ST_SCAN_SHAPES = (("falcon_rank_model2", 2, 2048, 4096, 16, "bf16"),
+                  ("hymba_rank_model2", 2, 512, 1600, 16, "bf16"),
+                  ("hymba_rank_model4", 2, 512, 800, 16, "bf16"))
+ST_WHISPER_ENC = (2, 1500, 10, 10, 64)
+ST_WHISPER_DEC = (2, 448, 10, 10, 64)
 
 
 def st_cfg(arch, dtype=None):
@@ -2021,26 +2143,30 @@ def st_cfg(arch, dtype=None):
 
 
 def st_trainer(cfg, seq, mesh=None, dev="cuda", batch=None):
-    """``(bundle, model, opt, step, data)``: ``cfg`` from seed 0 through
-    ``build(..., mesh=)`` (this rank's shards on a mesh with groups),
-    AdamW over its leaves, the step of ``ST["mb"]`` microbatches."""
+    """``(bundle, model, opt, step, batch(s))``: ``cfg`` from seed 0
+    through ``build(..., mesh=)`` (this rank's shards on a mesh with
+    groups), AdamW over its leaves, the step of ``ST["mb"]``
+    microbatches, step s's global batch (``arm_batch``: whisper's with
+    seeded frames)."""
     run = RunConfig(remat="full", logits_chunk=ST["chunk"])
     bundle = build(cfg, device=dev, run=run, mesh=mesh)
     model = bundle.init(seed=0)
     opt = init_opt(OptConfig(lr=ST_LR, warmup_steps=0,
                              total_steps=ST["steps"]),
                    list(model.parameters()))
-    data = LMDataConfig(vocab=cfg.vocab, seq_len=seq,
-                        global_batch=batch or ST["batch"])
-    return bundle, model, opt, make_train_step(bundle, ST["mb"], mesh), data
+    return (bundle, model, opt, make_train_step(bundle, ST["mb"], mesh),
+            lambda s: arm_batch(cfg, seq, batch or ST["batch"], s, dev))
 
 
-def st_attention_kernels(timer):
-    """Rows 8 and 8b at the per-rank layout of qwen2.5-3b on (2, 2): each
-    rank's 2 sequences of 2,048 a microbatch, its 8 query heads and 1 kv
-    head of 128, bf16; each against its plain version, timed beside its
-    bound and SDPA's forward or backward."""
-    b, s, h, n_kv, hd = 2, ST["seq"], 8, 1, 128
+def st_attention_kernels(timer, shape=(2, ST["seq"], 8, 1, 128),
+                         layout="qwen2.5-3b per rank on (2, 2): 8/1 of "
+                                "16/2 heads"):
+    """Rows 8 and 8b (causal) at a rank's layout, by default
+    qwen2.5-3b's on (2, 2): each rank's 2 sequences of 2,048 a
+    microbatch, its 8 query heads and 1 kv head of 128, bf16; each
+    against its plain version, timed beside its bound and SDPA's forward
+    or backward."""
+    b, s, h, n_kv, hd = shape
     g = torch.Generator(device="cuda").manual_seed(30)
     q, k, v, do = (torch.randn((b, s, n, hd), generator=g, device="cuda")
                    .to(torch.bfloat16) for n in (h, n_kv, n_kv, h))
@@ -2065,7 +2191,7 @@ def st_attention_kernels(timer):
         qt, kt, vt, is_causal=True, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
     shape = {"B": b, "S": s, "H": h, "K": n_kv, "hd": hd, "dtype": "bf16",
-             "layout": "qwen2.5-3b per rank on (2, 2): 8/1 of 16/2 heads"}
+             "causal": True, "layout": layout}
     fwd = {**shape, "max_abs_err": fwd_err,
            "ms": timer(lambda: fa.flash_attention(q, k, v)),
            "plain_ms": timer(lambda: ref.causal_attention_ref(q, k, v)),
@@ -2094,18 +2220,60 @@ def st_attention_kernels(timer):
     return fwd, bwd
 
 
-def phase_sharded_train_nccl(work, timer):
+def tp_cfg(arch, dtype=None):
+    """``arch`` at the depth this phase trains it: qwen's and the parity
+    runs' ``ST["n_layers"]``, whisper's 2 + 2."""
+    for a, n_layers, n_enc, _ in ARMS:
+        if a == arch:
+            return arm_cfg(a, n_layers, n_enc, dtype or "bfloat16")
+    return st_cfg(arch, dtype)
+
+
+def st_layer_kernels(timer, ptxas):
+    """The kernels of the sharded arms at their ranks' layouts:
+    ``ST_SCAN_SHAPES`` through ``selective_scan`` and its backward,
+    whisper's heads through the unmasked and the causal attention and
+    their backwards, qwen's through the causal ones.  Returns ``{kernel:
+    {layout: record}}``."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_max_mhz()
+    plain_timer = Timer(reps=2)
+    out = {k: {} for k in ST_KERNELS}
+    for name, b, s, di, n, dt_name in ST_SCAN_SHAPES:
+        out["selective_scan"][name] = scan_rec(
+            timer, plain_timer, name, b, s, di, n, dt_name, ptxas, n_sm, mhz)
+        out["selective_scan_bwd"][name] = scan_bwd_rec(
+            timer, name, b, s, di, n, dt_name, ptxas, n_sm, mhz)
+    for name, shape, layout in (
+            ("qwen_rank_2x2", (2, ST["seq"], 8, 1, 128),
+             "qwen2.5-3b per rank on (2, 2): 8/1 of 16/2 heads"),
+            ("whisper_decoder_rank_2x2", ST_WHISPER_DEC,
+             "whisper-large-v3's decoder per rank on (2, 2): 10/10 of "
+             "20/20 heads")):
+        fwd, bwd = st_attention_kernels(timer, shape, layout)
+        out["flash_attention"][name] = fwd
+        out["flash_attention_bwd"][name] = bwd
+    out["flash_attention"]["whisper_encoder_rank_2x2"] = _noncausal_fwd(
+        timer, ST_WHISPER_ENC, "bf16", "whisper_encoder_rank_2x2")
+    out["flash_attention_bwd"]["whisper_encoder_rank_2x2"] = _noncausal_bwd(
+        timer, ST_WHISPER_ENC, "bf16", "whisper_encoder_rank_2x2")
+    return out
+
+
+def phase_sharded_train_nccl(work, timer, ptxas):
     """World 1 over NCCL in this process: qwen2.5-3b's cut through
     ``build(..., mesh=)`` on a (1, 1) mesh under ``fsdp_tp`` (its
     gathers, reduce-scatters, tensor-parallel and vocab-parallel
     collectives all run, over one rank) gives the step without a mesh
     bit for bit: loss, grad norm and every parameter after it.  Then,
     outside any process group, the references of the four ranks: qwen's
-    bf16 losses and gradient norms on one rank, and smollm-135m's and
-    granite-moe's fp32 losses, first-step gradients and last parameters
-    (saved to ``work``); then rows 8 and 8b at qwen's per-rank layout.
-    Returns ``(the references, the kernels' records, the attention
-    launches of the (1, 1) step)``."""
+    bf16 losses and gradient norms on one rank, and the fp32 losses,
+    first-step gradients and last parameters of smollm-135m, granite-moe,
+    falcon-mamba-7b and whisper-large-v3 (saved to ``work``); then the
+    attention's and the scan's kernels at the ranks' layouts
+    (:func:`st_layer_kernels`; ``ptxas`` the build's report).  Returns
+    ``(the references, the kernels' records by layout, the launches of
+    ``ST_KERNELS`` in the (1, 1) step)``."""
     t0 = time.perf_counter()
     cfg = st_cfg(ST["arch"])
     store = tempfile.mkdtemp(prefix="chip_smoke_nccl_sharded_")
@@ -2120,7 +2288,7 @@ def phase_sharded_train_nccl(work, timer):
                 cfg, ST_NCCL_SEQ, m, batch=ST_NCCL_BATCH)
             C.reset_traffic()
             ops.reset_launches()
-            metrics = step(model, opt, batch_at(data, 0))
+            metrics = step(model, opt, data(0))
             torch.cuda.synchronize()
             traffic = copy.deepcopy(C.TRAFFIC)
             if m is not None:
@@ -2162,25 +2330,23 @@ def phase_sharded_train_nccl(work, timer):
     _, model, opt, step, data = st_trainer(cfg, ST["seq"])
     ref_rec["qwen_losses"], ref_rec["qwen_grad_norms"] = [], []
     for s in range(ST["steps"]):
-        metrics = step(model, opt, batch_at(data, s))
+        metrics = step(model, opt, data(s))
         ref_rec["qwen_losses"].append(float(metrics["loss"]))
         ref_rec["qwen_grad_norms"].append(float(metrics["grad_norm"]))
     del model, opt, step
     torch.cuda.empty_cache()
-    for arch, _ in ST_PARITY:
-        pcfg = st_cfg(arch, "float32")
-        bundle, model, opt, step, data = st_trainer(pcfg, ST_PARITY_SEQ)
+    for arch, _, seq in ST_ALL_PARITY:
+        pcfg = tp_cfg(arch, "float32")
+        bundle, model, opt, step, data = st_trainer(pcfg, seq)
         ref_rec[arch] = st_parity_steps(bundle, model, opt, step, data, None,
                                         Path(work, f"sharded_{arch}"))
         del model, opt, step, bundle
         torch.cuda.empty_cache()
     ref_rec["reference_s"] = round(time.perf_counter() - t0, 1)
     t0 = time.perf_counter()
-    fwd, bwd = st_attention_kernels(timer)
+    layouts = st_layer_kernels(timer, ptxas)
     ref_rec["kernels_s"] = round(time.perf_counter() - t0, 1)
-    return ref_rec, {"flash_attention": fwd, "flash_attention_bwd": bwd}, \
-        {k: launches.get(k, 0) for k in ("flash_attention",
-                                          "flash_attention_bwd")}
+    return ref_rec, layouts, {k: launches.get(k, 0) for k in ST_KERNELS}
 
 
 def _leaf_errors(tensors, named, path, mesh, start=None):
@@ -2215,8 +2381,7 @@ def st_parity_steps(bundle, model, opt, step, data, mesh, path):
     the update)``."""
     named = list(named_leaves(model))
     start = None if mesh is None else [p.detach().clone() for _, p in named]
-    loss, grads = make_grads_fn(bundle, ST["mb"], mesh)(model,
-                                                        batch_at(data, 0))
+    loss, grads = make_grads_fn(bundle, ST["mb"], mesh)(model, data(0))
     if mesh is None:
         torch.save({n: g.cpu() for (n, _), g in zip(named, grads)},
                    f"{path}_grads.pt")
@@ -2224,8 +2389,8 @@ def st_parity_steps(bundle, model, opt, step, data, mesh, path):
         grad_errs = _leaf_errors(grads, named, f"{path}_grads.pt", mesh)
     opt.apply(grads)
     del grads
-    losses = [float(loss)] + [float(step(model, opt, batch_at(data, s))[
-        "loss"]) for s in range(1, ST["steps"])]
+    losses = [float(loss)] + [float(step(model, opt, data(s))["loss"])
+                              for s in range(1, ST["steps"])]
     params = [p.detach() for _, p in named]
     if mesh is None:
         torch.save({n: p.cpu() for (n, _), p in zip(named, params)},
@@ -2280,8 +2445,10 @@ def sharded_train_rank(rank, work, dev, ref_rec):
     0's gathers and reduce-scatters timed, the losses and gradient norms
     against one rank's), then smollm-135m on (1, 4) and granite-moe on
     (2, 2) in fp32 (the first step's gradient shards, the parameter shards
-    after the second and both losses against one rank's).  Returns the
-    rank's record."""
+    after the second and both losses against one rank's); then the arms
+    whose layers compute tensor parallel, falcon-mamba-7b and
+    whisper-large-v3 in bf16 on (2, 2) (``lm_arm``), and their fp32 parity
+    (``ST_TP_PARITY``).  Returns the rank's record."""
     t_start = time.perf_counter()
     rec = {}
     cfg = st_cfg(ST["arch"])
@@ -2305,7 +2472,7 @@ def sharded_train_rank(rank, work, dev, ref_rec):
     for s in range(ST["steps"]):
         dist.barrier()
         t0 = time.perf_counter()
-        metrics = step(model, opt, batch_at(data, s))
+        metrics = step(model, opt, data(s))
         losses.append(float(metrics["loss"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
         norms.append(float(metrics["grad_norm"]))
@@ -2328,27 +2495,35 @@ def sharded_train_rank(rank, work, dev, ref_rec):
         "seconds": time.perf_counter() - t_start}
     del model, opt, step, bundle
     torch.cuda.empty_cache()
-    for arch, shape in ST_PARITY:
-        pcfg = st_cfg(arch, "float32")
+    # The SSM's and whisper's layers tensor parallel, bf16 on (2, 2).
+    for arch, n_layers, n_enc, seq in ARMS:
+        ops.reset_launches()
+        rec[arch] = lm_arm(arm_cfg(arch, n_layers, n_enc), mesh, dev, seq)
+        rec[arch]["launches"] = {fn.__name__: fn.launches
+                                 for fn in ops.KERNELS if fn.launches}
+    for arch, shape, seq in ST_ALL_PARITY:
+        pcfg = tp_cfg(arch, "float32")
         mesh = M.make_mesh(*shape)
         t0 = time.perf_counter()
-        bundle, model, opt, step, data = st_trainer(pcfg, ST_PARITY_SEQ,
-                                                    mesh, dev)
+        bundle, model, opt, step, data = st_trainer(pcfg, seq, mesh, dev)
         ops.reset_launches()
         losses, errs, perrs, uerrs = st_parity_steps(
             bundle, model, opt, step, data, mesh, Path(work, f"sharded_{arch}"))
         worst, pworst = max(errs, key=errs.get), max(perrs, key=perrs.get)
         uworst = max(uerrs, key=uerrs.get)
-        rec[arch] = {
-            "mesh": dict(zip(("data", "model"), shape)),
+        rec[f"{arch}_fp32"] = {
+            "mesh": dict(zip(("data", "model"), shape)), "S": seq,
             "losses": losses, "ref_losses": ref_rec[arch],
             "grad_err_share_max": errs[worst], "grad_err_worst_leaf": worst,
             "param_err_share_max": perrs[pworst],
             "param_err_worst_leaf": pworst,
             "param_err_of_update_max": uerrs[uworst],
             "param_err_of_update_worst_leaf": uworst,
-            "attention": ("tensor parallel" if pcfg.n_heads % shape[1] == 0
+            "attention": ("none" if not pcfg.n_heads else "tensor parallel"
+                          if pcfg.n_heads % shape[1] == 0
                           and pcfg.kv_heads % shape[1] == 0 else "gathered"),
+            "mamba": ("none" if not pcfg.ssm_state else "channel parallel"
+                      if pcfg.inner % shape[1] == 0 else "gathered"),
             "vocab_parallel": pcfg.vocab % shape[1] == 0,
             "launches": {fn.__name__: fn.launches for fn in ops.KERNELS
                          if fn.launches},
@@ -2361,8 +2536,8 @@ def sharded_train_rank(rank, work, dev, ref_rec):
 
 def report_sharded_train(recs, nccl_launches):
     """Holds the gloo ranks' sharded training against the references and
-    emits the phase's line; returns the attention launches over the ranks
-    and the world-1 run."""
+    emits the phase's line; returns the launches of ``ST_KERNELS`` over
+    the ranks and the world-1 run."""
     ranks = [r["sharded"] for r in recs]
     emit({"phase": "sharded_train", "world": len(recs), "backend": "gloo",
           "ranks_on_one_card": len(recs), "collective_note": GLOO_NOTE,
@@ -2373,8 +2548,17 @@ def report_sharded_train(recs, nccl_launches):
               "microbatches": ST["mb"], "steps": ST["steps"],
               "remat": "full", "logits_chunk": ST["chunk"],
               "dtype": "bf16"},
+          "tp_arms": {"archs": [{"arch": a, "n_layers": n, "n_enc_layers": e,
+                                 "S": s} for a, n, e, s in ARMS],
+                      "mesh": dict(zip(("data", "model"), ST["mesh"])),
+                      "sharding": "fsdp_tp", "global_batch": ST["batch"],
+                      "microbatches": ST["mb"], "steps": ST["steps"],
+                      "remat": "full", "dtype": "bf16"},
           "parity": {"S": ST_PARITY_SEQ, "dtype": "fp32",
-                     "n_layers": ST["n_layers"], "tol": ST_TOL_FP32},
+                     "n_layers": ST["n_layers"], "tol": ST_TOL_FP32,
+                     "tp_runs": [list(p) for p in ST_TP_PARITY],
+                     "tp_tol": {"loss_share": ST_TP_TOL_LOSS,
+                                "grad": ST_TP_TOL_GRAD}},
           "tol": {"loss": ST_TOL_LOSS, "grad_norm_share": ST_TOL_NORM,
                   "param_err_of_update": ST_TOL_UPDATE},
           "lr": ST_LR, "warmup_steps": 0,
@@ -2394,16 +2578,42 @@ def report_sharded_train(recs, nccl_launches):
                 f"rank {r['rank']} qwen losses {q['losses']} vs "
                 f"{q['ref_losses']}, grad norms {q['grad_norms']} vs "
                 f"{q['ref_grad_norms']}")
-        for arch, _ in ST_PARITY:
-            p = rk[arch]
-            require(p["grad_err_share_max"] <= ST_TOL_FP32
+        for arch, shape, _ in ST_ALL_PARITY:
+            p = rk[f"{arch}_fp32"]
+            if (arch, shape) in ST_PARITY:
+                tol_grad = ST_TOL_FP32
+                losses_ok = max_abs_diff(p["losses"], p["ref_losses"]) \
+                    <= ST_TOL_FP32
+            else:
+                tol_grad = ST_TP_TOL_GRAD
+                losses_ok = np.allclose(p["losses"], p["ref_losses"],
+                                        rtol=ST_TP_TOL_LOSS, atol=0)
+            require(p["grad_err_share_max"] <= tol_grad
                     and p["param_err_of_update_max"] <= ST_TOL_UPDATE
-                    and max_abs_diff(p["losses"], p["ref_losses"])
-                    <= ST_TOL_FP32,
-                    f"rank {r['rank']} {arch}: {p}")
-        for src in [q["launches"]] + [rk[a]["launches"]
-                                      for a, _ in ST_PARITY]:
-            for k in ("flash_attention", "flash_attention_bwd"):
+                    and losses_ok, f"rank {r['rank']} {arch} fp32: {p}")
+        for arch, _, _, _ in ARMS:
+            a = rk[arch]
+            require(a["param_and_adamw_bytes"] == a["shard_bytes_rule"]
+                    and all(np.isfinite(a["losses"])),
+                    f"rank {r['rank']} {arch}: {a['param_and_adamw_bytes']} "
+                    f"bytes (rule {a['shard_bytes_rule']}), losses "
+                    f"{a['losses']}")
+            require(a["traffic_two_steps"]["all_reduce"]["calls"] > 0,
+                    f"rank {r['rank']} {arch}: no tensor-parallel sum "
+                    f"{a['traffic_two_steps']}")
+        falcon = rk[ARMS[0][0]]
+        require(falcon["traffic_two_steps"]["exchange"]["calls"] > 0
+                and falcon["launches"].get("selective_scan", 0) > 0
+                and falcon["launches"].get("selective_scan_bwd", 0) > 0,
+                f"rank {r['rank']} falcon: {falcon['traffic_two_steps']}, "
+                f"launches {falcon['launches']}")
+        whisper = rk[ARMS[1][0]]["launches"]
+        require(whisper.get("flash_attention", 0) > 0
+                and whisper.get("flash_attention_bwd", 0) > 0,
+                f"rank {r['rank']} whisper launched {whisper}")
+        for src in [q["launches"]] + [rk[a]["launches"] for a, *_ in ARMS] \
+                + [rk[f"{a}_fp32"]["launches"] for a, *_ in ST_ALL_PARITY]:
+            for k in ST_KERNELS:
                 launches[k] = launches.get(k, 0) + src.get(k, 0)
         require(q["launches"].get("flash_attention", 0) > 0
                 and q["launches"].get("flash_attention_bwd", 0) > 0,
@@ -3412,6 +3622,64 @@ def scan_errors(dt_name, got, want):
             y_err <= tol * y_scale and h_err <= 1e-5 * h_scale)
 
 
+def scan_rec(timer, plain_timer, name, b, s, di, n, dt_name, scan_ptxas,
+             n_sm, mhz):
+    """``selective_scan`` at (b, s, di, n) in ``dt_name`` against its plain
+    version, timed beside its byte bound and its SFU floor, with its
+    launch geometry and registers; emits and returns the record."""
+    dt = DTYPES[dt_name]
+    ins = scan_inputs(b, s, di, n, dt)
+    wy, wh = ref.selective_scan_ref(*ins)
+    y_err, y_scale, h_err, h_scale, ok = scan_errors(
+        dt_name, ss.selective_scan(*ins), (wy, wh))
+    torch.cuda.synchronize()
+    require(ok, f"selective_scan {name} {dt_name}: y err {y_err} (of "
+                f"{y_scale}), h err {h_err} (of {h_scale})")
+    del wy, wh
+    geo = ss.geometry(n, dt)
+    blocks = -(-di // geo["channels"]) * b
+    ptx = scan_ptxas.get(
+        f"selective_scan_kernel<{'bf16' if dt_name == 'bf16' else 'float'}"
+        f",{n},0>", {})
+    # The SFU's 2^x per state and the gate's 2^x and 1/x, per (b, t, d).
+    sfu_ops = (n + 2) * b * s * di
+    rec = {"phase": "kernel", "name": "selective_scan", "shape": name,
+           "dtype": dt_name, "B": b, "S": s, "Di": di, "N": n,
+           "max_abs_err": y_err, "max_abs_y": y_scale,
+           "tolerance_share_of_largest": 1e-5 if dt_name == "fp32"
+           else 1e-2,
+           "h_last_max_abs_err": h_err, "max_abs_h": h_scale,
+           "design": SCAN_DESIGN,
+           "threads_per_block": geo["threads"],
+           "channels_per_block": geo["channels"], "blocks": blocks,
+           "blocks_per_sm": blocks / n_sm,
+           "max_blocks_per_sm": geo["blocks_per_sm"],
+           "waves": blocks / (n_sm * geo["blocks_per_sm"]),
+           "warps_per_sm": min(blocks / n_sm, geo["blocks_per_sm"])
+           * geo["threads"] / 32,
+           "registers": ptx.get("registers"),
+           "spill_store_bytes": ptx.get("spill_store_bytes"),
+           "spill_load_bytes": ptx.get("spill_load_bytes"),
+           "ms": timer(lambda: ss.selective_scan(*ins)),
+           "earlier_ms": SCAN_FIRST_DESIGN_MS.get((name, dt_name)),
+           "earlier_from": "a constant of this script: the first "
+                           "design's ms, not measured in this run",
+           "plain_ms": plain_timer(lambda: ref.selective_scan_ref(*ins)),
+           "library_ms": None,
+           "library": "none: no PyTorch call computes a selective scan",
+           "sfu_ops": sfu_ops, "sm_clock_max_mhz": mhz,
+           "sfu_floor_ms": sfu_ops / (SFU_OPS_PER_SM_CLOCK * n_sm
+                                      * mhz * 1e6) * 1e3}
+    rec["bound_ms"], rec["bound_by"] = scan_bound(
+        b, s, di, n, torch.empty((), dtype=dt).element_size())
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["sfu_floor_share"] = rec["sfu_floor_ms"] / rec["ms"]
+    emit(rec)
+    del ins
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_ssm_kernels(timer, scan_ptxas):
     """``selective_scan`` against its plain version at ``SCAN_SHAPES``, each
     timed beside its byte bound and its SFU floor (no PyTorch call
@@ -3426,58 +3694,10 @@ def phase_ssm_kernels(timer, scan_ptxas):
     mhz = sm_clock_max_mhz()
     main = None
     for name, b, s, di, n, dt_name in SCAN_SHAPES:
-        dt = DTYPES[dt_name]
-        ins = scan_inputs(b, s, di, n, dt)
-        wy, wh = ref.selective_scan_ref(*ins)
-        y_err, y_scale, h_err, h_scale, ok = scan_errors(
-            dt_name, ss.selective_scan(*ins), (wy, wh))
-        torch.cuda.synchronize()
-        require(ok, f"selective_scan {name} {dt_name}: y err {y_err} (of "
-                    f"{y_scale}), h err {h_err} (of {h_scale})")
-        del wy, wh
-        geo = ss.geometry(n, dt)
-        blocks = -(-di // geo["channels"]) * b
-        ptx = scan_ptxas.get(
-            f"selective_scan_kernel<{'bf16' if dt_name == 'bf16' else 'float'}"
-            f",{n},0>", {})
-        # The SFU's 2^x per state and the gate's 2^x and 1/x, per (b, t, d).
-        sfu_ops = (n + 2) * b * s * di
-        rec = {"phase": "kernel", "name": "selective_scan", "shape": name,
-               "dtype": dt_name, "B": b, "S": s, "Di": di, "N": n,
-               "max_abs_err": y_err, "max_abs_y": y_scale,
-               "tolerance_share_of_largest": 1e-5 if dt_name == "fp32"
-               else 1e-2,
-               "h_last_max_abs_err": h_err, "max_abs_h": h_scale,
-               "design": SCAN_DESIGN,
-               "threads_per_block": geo["threads"],
-               "channels_per_block": geo["channels"], "blocks": blocks,
-               "blocks_per_sm": blocks / n_sm,
-               "max_blocks_per_sm": geo["blocks_per_sm"],
-               "waves": blocks / (n_sm * geo["blocks_per_sm"]),
-               "warps_per_sm": min(blocks / n_sm, geo["blocks_per_sm"])
-               * geo["threads"] / 32,
-               "registers": ptx.get("registers"),
-               "spill_store_bytes": ptx.get("spill_store_bytes"),
-               "spill_load_bytes": ptx.get("spill_load_bytes"),
-               "ms": timer(lambda: ss.selective_scan(*ins)),
-               "earlier_ms": SCAN_FIRST_DESIGN_MS[(name, dt_name)],
-               "earlier_from": "a constant of this script: the first "
-                               "design's ms, not measured in this run",
-               "plain_ms": plain_timer(lambda: ref.selective_scan_ref(*ins)),
-               "library_ms": None,
-               "library": "none: no PyTorch call computes a selective scan",
-               "sfu_ops": sfu_ops, "sm_clock_max_mhz": mhz,
-               "sfu_floor_ms": sfu_ops / (SFU_OPS_PER_SM_CLOCK * n_sm
-                                          * mhz * 1e6) * 1e3}
-        rec["bound_ms"], rec["bound_by"] = scan_bound(
-            b, s, di, n, torch.empty((), dtype=dt).element_size())
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        rec["sfu_floor_share"] = rec["sfu_floor_ms"] / rec["ms"]
-        emit(rec)
+        rec = scan_rec(timer, plain_timer, name, b, s, di, n, dt_name,
+                       scan_ptxas, n_sm, mhz)
         if main is None:
             main = rec
-        del ins
-        torch.cuda.empty_cache()
     return main, window_attention(timer)
 
 
@@ -3591,6 +3811,117 @@ def scan_bwd_partial_bytes(b, s, di, n, channels):
 SCAN_BWD_NAMES = ("dx", "dz", "ddt", "da", "dbm", "dcm", "dd", "dh0")
 
 
+def scan_bwd_rec(timer, name, b, s, di, n, dt_name, ptxas, n_sm, mhz):
+    """``selective_scan_bwd`` at (b, s, di, n) in ``dt_name`` against its
+    plain version, as :func:`phase_scan_bwd_kernels` holds it; emits and
+    returns the record."""
+    dt = DTYPES[dt_name]
+    xc, z, dtv, a, bm, cm, d_skip = scan_inputs(b, s, di, n, dt)
+    dtv[:, ::7] = 0.0  # identity steps
+    g = torch.Generator(device="cuda").manual_seed(di + s + 1)
+    h0, dh_last = (torch.randn((b, di, n), generator=g, device="cuda")
+                   for _ in range(2))
+    dy = torch.randn((b, s, di), generator=g, device="cuda").to(dt)
+    ins = (xc, z, dtv, a, bm, cm, d_skip)
+    y, h_last, states = ss.selective_scan(*ins, h0, save_states=True)
+    y_serve, h_serve = ss.selective_scan(*ins, h0)
+    require(torch.equal(y, y_serve) and torch.equal(h_last, h_serve),
+            f"selective_scan {name} {dt_name}: saving states changes "
+            "the forward's bits")
+    require(torch.equal(states[:, 0], h0), f"selective_scan {name}: "
+            "the first saved state is not h0")
+    del y, h_last, y_serve, h_serve
+    got = ss.selective_scan_bwd(*ins, states, dy, dh_last)
+    again = ss.selective_scan_bwd(*ins, states, dy, dh_last)
+    same = all(torch.equal(u, v) for u, v in zip(got, again))
+    del again
+    torch.cuda.synchronize()
+    s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s_ev.record()
+    want = ref.selective_scan_bwd_ref(*ins, h0, dy, dh_last)
+    e_ev.record()
+    torch.cuda.synchronize()
+    plain_ms = s_ev.elapsed_time(e_ev)
+    require(same, f"selective_scan_bwd {name} {dt_name}: two calls "
+            "give different bits")
+    errs, shares, tols = {}, {}, {}
+    for gname, u, w in zip(SCAN_BWD_NAMES, got, want):
+        require(u.dtype == w.dtype and u.shape == w.shape,
+                f"selective_scan_bwd {name} {gname}: {u.dtype} "
+                f"{tuple(u.shape)} vs {w.dtype} {tuple(w.shape)}")
+        errs[gname] = float((u.float() - w.float()).abs().max())
+        shares[gname] = errs[gname] / max(float(w.float().abs().max()),
+                                          1e-30)
+        tols[gname] = 1e-2 if (dt_name == "bf16"
+                               and gname in ("dx", "dz")) else 1e-4
+    require(all(shares[k] <= tols[k] for k in shares),
+            f"selective_scan_bwd {name} {dt_name}: error / largest "
+            f"gradient {shares} (tolerances {tols})")
+    del got, want
+    ptx = ptxas.get(f"selective_scan_bwd_kernel<"
+                    f"{'bf16' if dt_name == 'bf16' else 'float'},{n}>",
+                    {})
+    sfu_ops = (n + 2) * b * s * di
+    # The kernel's own: N exponentials to recompute the tile's states,
+    # N to walk them back, and the gate's two once per (b, t, d) (the
+    # lane that owns the step computes its gate).
+    kernel_sfu_ops = (2 * n + 2) * b * s * di
+    geo = ss.bwd_geometry(n, dt)
+    blocks = -(-di // geo["channels"]) * b
+    rec = {"phase": "kernel", "name": "selective_scan_bwd",
+           "shape": name, "dtype": dt_name, "B": b, "S": s, "Di": di,
+           "N": n, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_grad": errs,
+           "err_share_of_largest": shares, "tolerance": tols,
+           "two_calls_bit_equal": True,
+           "forward_bits_equal_with_states": True,
+           "dt_zero_every": 7, "h0_and_dh_last_given": True,
+           "design": SCAN_BWD_DESIGN,
+           "threads_per_block": geo["threads"],
+           "channels_per_block": geo["channels"], "blocks": blocks,
+           "blocks_per_sm": blocks / n_sm,
+           "max_blocks_per_sm": geo["blocks_per_sm"],
+           "waves": blocks / (n_sm * geo["blocks_per_sm"]),
+           "warps_per_sm": min(blocks / n_sm, geo["blocks_per_sm"])
+           * geo["threads"] / 32,
+           "registers": ptx.get("registers"),
+           "spill_store_bytes": ptx.get("spill_store_bytes"),
+           "spill_load_bytes": ptx.get("spill_load_bytes"),
+           "ms": timer(lambda: ss.selective_scan_bwd(*ins, states, dy,
+                                                     dh_last)),
+           "ms_includes": "the kernel and the wrapper's torch.sum of "
+                          "the partials",
+           "plain_ms": plain_ms,
+           "plain_timing": "its one call, between CUDA events",
+           "library_ms": None,
+           "library": "none: no PyTorch call computes a selective "
+                      "scan's backward",
+           "sfu_ops": sfu_ops, "kernel_sfu_ops": kernel_sfu_ops,
+           "sm_clock_max_mhz": mhz,
+           "sfu_floor_ms": sfu_ops / (SFU_OPS_PER_SM_CLOCK * n_sm
+                                      * mhz * 1e6) * 1e3,
+           "kernel_sfu_floor_ms": kernel_sfu_ops / (
+               SFU_OPS_PER_SM_CLOCK * n_sm * mhz * 1e6) * 1e3}
+    rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(
+        b, s, di, n, torch.empty((), dtype=dt).element_size())
+    rec["design_bytes_by"] = {
+        "states": scan_bwd_state_bytes(b, s, di, n),
+        "partials": scan_bwd_partial_bytes(b, s, di, n,
+                                           geo["channels"])}
+    rec["design_bytes"] = sum(rec["design_bytes_by"].values())
+    rec["design_bytes_are"] = ("the saved states the backward reads "
+                               "and its per-block partials, written "
+                               "and read back by the wrapper's sum; "
+                               "not in bound_ms")
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["sfu_floor_share"] = rec["sfu_floor_ms"] / rec["ms"]
+    rec["kernel_sfu_floor_share"] = rec["kernel_sfu_floor_ms"] / rec["ms"]
+    emit(rec)
+    del ins, xc, z, dtv, states, dy, h0, dh_last
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_scan_bwd_kernels(timer, ptxas):
     """``selective_scan_bwd`` against its plain version at
     ``SCAN_BWD_SHAPES`` (falcon-mamba-7b's and hymba-1.5b's training
@@ -3608,112 +3939,10 @@ def phase_scan_bwd_kernels(timer, ptxas):
     mhz = sm_clock_max_mhz()
     main = None
     for name, b, s, di, n, dt_name in SCAN_BWD_SHAPES:
-        dt = DTYPES[dt_name]
-        xc, z, dtv, a, bm, cm, d_skip = scan_inputs(b, s, di, n, dt)
-        dtv[:, ::7] = 0.0  # identity steps
-        g = torch.Generator(device="cuda").manual_seed(di + s + 1)
-        h0, dh_last = (torch.randn((b, di, n), generator=g, device="cuda")
-                       for _ in range(2))
-        dy = torch.randn((b, s, di), generator=g, device="cuda").to(dt)
-        ins = (xc, z, dtv, a, bm, cm, d_skip)
-        y, h_last, states = ss.selective_scan(*ins, h0, save_states=True)
-        y_serve, h_serve = ss.selective_scan(*ins, h0)
-        require(torch.equal(y, y_serve) and torch.equal(h_last, h_serve),
-                f"selective_scan {name} {dt_name}: saving states changes "
-                "the forward's bits")
-        require(torch.equal(states[:, 0], h0), f"selective_scan {name}: "
-                "the first saved state is not h0")
-        del y, h_last, y_serve, h_serve
-        got = ss.selective_scan_bwd(*ins, states, dy, dh_last)
-        again = ss.selective_scan_bwd(*ins, states, dy, dh_last)
-        same = all(torch.equal(u, v) for u, v in zip(got, again))
-        del again
-        torch.cuda.synchronize()
-        s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s_ev.record()
-        want = ref.selective_scan_bwd_ref(*ins, h0, dy, dh_last)
-        e_ev.record()
-        torch.cuda.synchronize()
-        plain_ms = s_ev.elapsed_time(e_ev)
-        require(same, f"selective_scan_bwd {name} {dt_name}: two calls "
-                "give different bits")
-        errs, shares, tols = {}, {}, {}
-        for gname, u, w in zip(SCAN_BWD_NAMES, got, want):
-            require(u.dtype == w.dtype and u.shape == w.shape,
-                    f"selective_scan_bwd {name} {gname}: {u.dtype} "
-                    f"{tuple(u.shape)} vs {w.dtype} {tuple(w.shape)}")
-            errs[gname] = float((u.float() - w.float()).abs().max())
-            shares[gname] = errs[gname] / max(float(w.float().abs().max()),
-                                              1e-30)
-            tols[gname] = 1e-2 if (dt_name == "bf16"
-                                   and gname in ("dx", "dz")) else 1e-4
-        require(all(shares[k] <= tols[k] for k in shares),
-                f"selective_scan_bwd {name} {dt_name}: error / largest "
-                f"gradient {shares} (tolerances {tols})")
-        del got, want
-        ptx = ptxas.get(f"selective_scan_bwd_kernel<"
-                        f"{'bf16' if dt_name == 'bf16' else 'float'},{n}>",
-                        {})
-        sfu_ops = (n + 2) * b * s * di
-        # The kernel's own: N exponentials to recompute the tile's states,
-        # N to walk them back, and the gate's two once per (b, t, d) (the
-        # lane that owns the step computes its gate).
-        kernel_sfu_ops = (2 * n + 2) * b * s * di
-        geo = ss.bwd_geometry(n, dt)
-        blocks = -(-di // geo["channels"]) * b
-        rec = {"phase": "kernel", "name": "selective_scan_bwd",
-               "shape": name, "dtype": dt_name, "B": b, "S": s, "Di": di,
-               "N": n, "max_abs_err": max(errs.values()),
-               "max_abs_err_by_grad": errs,
-               "err_share_of_largest": shares, "tolerance": tols,
-               "two_calls_bit_equal": True,
-               "forward_bits_equal_with_states": True,
-               "dt_zero_every": 7, "h0_and_dh_last_given": True,
-               "design": SCAN_BWD_DESIGN,
-               "threads_per_block": geo["threads"],
-               "channels_per_block": geo["channels"], "blocks": blocks,
-               "blocks_per_sm": blocks / n_sm,
-               "max_blocks_per_sm": geo["blocks_per_sm"],
-               "waves": blocks / (n_sm * geo["blocks_per_sm"]),
-               "warps_per_sm": min(blocks / n_sm, geo["blocks_per_sm"])
-               * geo["threads"] / 32,
-               "registers": ptx.get("registers"),
-               "spill_store_bytes": ptx.get("spill_store_bytes"),
-               "spill_load_bytes": ptx.get("spill_load_bytes"),
-               "ms": timer(lambda: ss.selective_scan_bwd(*ins, states, dy,
-                                                         dh_last)),
-               "ms_includes": "the kernel and the wrapper's torch.sum of "
-                              "the partials",
-               "plain_ms": plain_ms,
-               "plain_timing": "its one call, between CUDA events",
-               "library_ms": None,
-               "library": "none: no PyTorch call computes a selective "
-                          "scan's backward",
-               "sfu_ops": sfu_ops, "kernel_sfu_ops": kernel_sfu_ops,
-               "sm_clock_max_mhz": mhz,
-               "sfu_floor_ms": sfu_ops / (SFU_OPS_PER_SM_CLOCK * n_sm
-                                          * mhz * 1e6) * 1e3,
-               "kernel_sfu_floor_ms": kernel_sfu_ops / (
-                   SFU_OPS_PER_SM_CLOCK * n_sm * mhz * 1e6) * 1e3}
-        rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(
-            b, s, di, n, torch.empty((), dtype=dt).element_size())
-        rec["design_bytes_by"] = {
-            "states": scan_bwd_state_bytes(b, s, di, n),
-            "partials": scan_bwd_partial_bytes(b, s, di, n,
-                                               geo["channels"])}
-        rec["design_bytes"] = sum(rec["design_bytes_by"].values())
-        rec["design_bytes_are"] = ("the saved states the backward reads "
-                                   "and its per-block partials, written "
-                                   "and read back by the wrapper's sum; "
-                                   "not in bound_ms")
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        rec["sfu_floor_share"] = rec["sfu_floor_ms"] / rec["ms"]
-        rec["kernel_sfu_floor_share"] = rec["kernel_sfu_floor_ms"] / rec["ms"]
-        emit(rec)
+        rec = scan_bwd_rec(timer, name, b, s, di, n, dt_name, ptxas, n_sm,
+                           mhz)
         if main is None:
             main = rec
-        del ins, xc, z, dtv, states, dy, h0, dh_last
-        torch.cuda.empty_cache()
     return main
 
 
@@ -5401,7 +5630,8 @@ def main():
     # rows 8 and 8b at the per-rank layout here; the four ranks train after
     # their distributed training, in the same spawn.
     train_ref["sharded"], st_kernels, st_nccl_launches = timed(
-        "sharded_train_nccl", phase_sharded_train_nccl, dist_work, timer)
+        "sharded_train_nccl", phase_sharded_train_nccl, dist_work, timer,
+        scan_ptxas)
     shard_rec, gloo_launches, dist_train_launches, st_launches = timed(
         "distributed_serve", phase_distributed_serve, fwd_b, shard_want,
         train_ref, dist_work, st_nccl_launches)

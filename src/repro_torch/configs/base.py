@@ -4,8 +4,9 @@ the LM shape cells and the training knobs of ``RunConfig``.
 Copied from ``src/repro/configs/base.py``: lines 16-156 (the dataclass and
 its CPU-scale ``reduced()``), 164-178 (``ShapeConfig``, ``LM_SHAPES``) and,
 trimmed to the fields that training reads, 208-230 (``RunConfig``): the
-sharding variant (:mod:`repro_torch.sharding.partition`), the MoE's
-data-local dispatch and gradient compression among them.  The knobs left
+sharding variant (:mod:`repro_torch.sharding.partition`), DLRM's
+``emb_rows``, the MoE's data-local dispatch and gradient compression
+among them.  The knobs left
 out are XLA's (``constrain_grads``, ``shard_kv_seq``, the Pallas switch,
 attention block sizes): the port's CUDA kernels tile by their own sizes.
 JAX's ``opt_dtype`` feeds only its dry run (``launch/dryrun.py``, XLA
@@ -17,7 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Tuple
 
-from repro_torch.sharding.partition import VARIANTS
+from repro_torch.sharding.partition import EMB_ROWS, VARIANTS
 
 # ---------------------------------------------------------------------------
 # Model config
@@ -201,6 +202,10 @@ class RunConfig:
     # parameters replicated, as JAX's make_compressed_dp_grads runs under
     # shard_map with P() specs (distributed/compression.py:88).
     sharding: str = "fsdp_tp"
+    # How DLRM's table rows lie over a mesh (JAX's base.py:218): "all"
+    # over data and model, "model" over model alone (each data rank holds
+    # every row of its model part).
+    emb_rows: str = "all"
 
     def __post_init__(self):
         if self.sharding == "fsdp_seq":
@@ -210,6 +215,9 @@ class RunConfig:
         if self.sharding not in VARIANTS:
             raise ValueError(f"sharding {self.sharding!r}: expected one of "
                              f"{VARIANTS}")
+        if self.emb_rows not in EMB_ROWS:
+            raise ValueError(f"emb_rows {self.emb_rows!r}: expected one of "
+                             f"{EMB_ROWS}")
         if self.remat == "dots":
             raise NotImplementedError(
                 "remat='dots' is not ported: it is an XLA checkpoint policy "

@@ -33,11 +33,21 @@ backward, on the input of a column-parallel product, and "g",
 one.  :func:`all_reduce_max` takes no gradient (the vocab-parallel
 softmax's shift).
 
+Two more move a tensor's parts between ranks, each with its reverse as
+its backward: :func:`all_to_all` (the mamba block's exchange of
+``in_proj``'s columns within ``model``: the backward sends the gradient's
+columns back to their owners) and :func:`reduce_scatter_all_gather_bwd`
+(DLRM's pooled partials over ``data`` when the tables' rows lie over
+``data`` too: every data rank's rows pool the global batch, and each data
+rank's loss reads its part of the sum, so the backward all-gathers the
+ranks' gradients of their parts).
+
 Outside a process group (``group`` None) each is the identity: there is
 one rank.  :func:`repro_torch.distributed.mesh.gather_batch` is the
 all-gather over ``data`` without a gradient.  :data:`TRAFFIC` counts the
-gathers' and reduce-scatters' calls and bytes (the whole tensor's, in
-its dtype), which the card's smoke run reads.
+calls and bytes (the whole tensor's, in its dtype) of the gathers,
+reduce-scatters, sum all-reduces (:func:`all_reduce_`, forward and
+backward) and exchanges, which the card's smoke run reads.
 """
 from __future__ import annotations
 
@@ -50,8 +60,8 @@ from repro_torch.distributed import mesh as M
 from repro_torch.sharding.partition import axes_of, batch_entry
 
 TRAFFIC: Dict[str, Dict[str, int]] = {
-    "all_gather": {"calls": 0, "bytes": 0},
-    "reduce_scatter": {"calls": 0, "bytes": 0}}
+    kind: {"calls": 0, "bytes": 0}
+    for kind in ("all_gather", "reduce_scatter", "all_reduce", "exchange")}
 
 
 def reset_traffic() -> None:
@@ -64,10 +74,15 @@ def _count(kind: str, t: torch.Tensor) -> None:
     TRAFFIC[kind]["bytes"] += t.numel() * t.element_size()
 
 
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in place, counted; returns ``x``."""
+    _count("all_reduce", x)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
 def _summed(x: torch.Tensor, group) -> torch.Tensor:
-    y = x.contiguous().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-    return y
+    return all_reduce_(x.contiguous().clone(), group)
 
 
 class _AllReduceIdentityBwd(torch.autograd.Function):
@@ -178,6 +193,58 @@ class _GatherSliceBwd(torch.autograd.Function):
         dim, index, size = ctx.part
         return (grad.narrow(dim, index * size, size).contiguous(), None,
                 None, None, None)
+
+
+class _ReduceScatterGatherBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        ctx.args = (group, dim, n)
+        return reduce_scatter(x, group, dim, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, *ctx.args), None, None, None
+
+
+def reduce_scatter_all_gather_bwd(x, group, dim: int, n: int):
+    """This rank's part along ``dim`` of the ranks' sum; the backward
+    all-gathers the ranks' gradients of their parts (each rank's ``x``
+    feeds every rank's part)."""
+    return (x if group is None
+            else _ReduceScatterGatherBwd.apply(x, group, dim, n))
+
+
+def _exchange(x: torch.Tensor, group, dim: int, send, recv
+              ) -> torch.Tensor:
+    src = x.movedim(dim, 0).contiguous()
+    rest = tuple(src.shape[1:])
+    out = src.new_empty((sum(recv),) + rest)
+    _count("exchange", src)
+    dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, send, recv):
+        ctx.args = (group, dim, recv, send)
+        return _exchange(x, group, dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, *ctx.args), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, dim: int, send, recv
+               ) -> torch.Tensor:
+    """The exchange within ``group``: ``x``'s first ``send[0]`` entries
+    along ``dim`` go to rank 0 of the group, the next ``send[1]`` to rank
+    1, and so on; returns what the ranks sent here, ``recv[r]`` entries
+    from rank ``r``, in rank order.  The backward sends the gradient's
+    parts back where they came from."""
+    return (x if group is None
+            else _AllToAll.apply(x, group, dim, tuple(send), tuple(recv)))
 
 
 def all_gather_reduce_scatter_bwd(x, group, dim: int, n: int):

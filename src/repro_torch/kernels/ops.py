@@ -110,13 +110,15 @@ def _pool_backward(idx: torch.Tensor, dout: torch.Tensor, shape,
 class _GatherPool(torch.autograd.Function):
     """Sum-pool; the table's gradient is :func:`_pool_backward`.  With
     ``skip_negative`` it is the shard window: ids < 0 add nothing, forward
-    and backward."""
+    and backward.  ``grad_idx``, when given, holds the ids the backward
+    scatters to, ids < 0 adding nothing (a gather whose forward clamped an
+    id that its gradient drops)."""
 
     @staticmethod
-    def forward(ctx, table, idx, skip_negative):
+    def forward(ctx, table, idx, skip_negative, grad_idx):
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        ctx.skip_negative = skip_negative
-        ctx.save_for_backward(idx)
+        ctx.skip_negative = skip_negative or grad_idx is not None
+        ctx.save_for_backward(idx if grad_idx is None else grad_idx)
         if skip_negative:
             return _gather_pool_shard_forward(table, idx)
         return _gather_pool_forward(table, idx)
@@ -125,14 +127,16 @@ class _GatherPool(torch.autograd.Function):
     def backward(ctx, dout):
         (idx,) = ctx.saved_tensors
         return _pool_backward(idx, dout, ctx.table_shape, ctx.table_dtype,
-                              ctx.skip_negative), None, None
+                              ctx.skip_negative), None, None, None
 
 
-def gather_pool(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_pool(table: torch.Tensor, idx: torch.Tensor,
+                grad_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """table: (N, D); idx: (B, P) int32 -> (B, D) fp32 sum-pool,
-    differentiable in ``table``."""
+    differentiable in ``table`` (the backward into ``grad_idx``'s rows
+    when given, ids < 0 dropped)."""
     if _requires_grad(table):
-        return _GatherPool.apply(table, idx, False)
+        return _GatherPool.apply(table, idx, False, grad_idx)
     return _gather_pool_forward(table, idx)
 
 
@@ -143,14 +147,16 @@ def _gather_pool_shard_forward(table: torch.Tensor,
     return ref.gather_pool_shard_ref(table, idx)
 
 
-def gather_pool_shard(table: torch.Tensor, idx: torch.Tensor
+def gather_pool_shard(table: torch.Tensor, idx: torch.Tensor,
+                      grad_idx: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """table: (N, D), a rank's shard of rows; idx: (B, P) int32 with -1
     for a row the shard does not own -> (B, D) fp32 sum-pool of the owned
     rows, differentiable in ``table``: the backward scatter-adds the
-    pooled gradient into the owned rows only (:func:`_pool_backward`)."""
+    pooled gradient into the owned rows only (:func:`_pool_backward`;
+    those of ``grad_idx`` when given)."""
     if _requires_grad(table):
-        return _GatherPool.apply(table, idx, True)
+        return _GatherPool.apply(table, idx, True, grad_idx)
     return _gather_pool_shard_forward(table, idx)
 
 

@@ -33,8 +33,11 @@ layout (:class:`~repro_torch.distributed.mesh.Placement`), in fp32:
   gets equal gradients on its ranks (through Megatron's "f");
 
 and every gradient is divided by the batch's rank count; the loss is the
-mean over those ranks.  ``grad_norm`` is the whole gradient's
-(:func:`repro_torch.optim.adamw.global_norm`).  A DLRM's MLP gradients
+mean over those ranks.  A DLRM table whose rows lie over ``data`` too
+(``RunConfig.emb_rows="all"``) is not all-reduced either: its lookup's
+backward all-gathers every data rank's gradient of the pooled rows, so
+its rows' gradient already sums the data ranks' losses.  ``grad_norm``
+is the whole gradient's (:func:`repro_torch.optim.adamw.global_norm`).  A DLRM's MLP gradients
 are equal on the model ranks and each table gradient covers the rank's
 own rows.  A (1, 1) mesh outside a process group reduces nothing: the
 step gives the bits it gives without a mesh.
@@ -46,9 +49,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import mesh as M
 from repro_torch.models.model_api import ModelBundle
 from repro_torch.optim.adamw import AdamW
@@ -128,11 +131,10 @@ def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
         if reduce:
             bm = M.batch_mesh(mesh, variant)
             grads, loss = [g.float() for g in grads], loss.clone()
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=bm.data_group)
-            loss.div_(bm.data)
+            C.all_reduce_(loss, bm.data_group).div_(bm.data)
             for p, g in zip(ps, grads):
                 for group in _reduce_groups(p, mesh, variant):
-                    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+                    C.all_reduce_(g, group)
                 g.div_(bm.data)
         return loss, grads
 

@@ -25,12 +25,24 @@ sums are all-reduced over the ``model`` group, pool before reduce, as
 JAX's ``shard_map`` does; ``dlrm_forward(sharded_lookup=True)`` runs it on
 the rank's ``data`` part of the batch.  An id outside ``[0, R)`` is owned
 by no shard and adds nothing there, where the dense lookup wraps or clamps
-it.  :func:`shard_params` and ``init_dlrm(rows=)`` give a rank its rows.
+it.  :func:`shard_params` and ``init_dlrm(rows=)`` give a rank its rows
+(the first tags them with their placement; an untagged shard trains, but
+the step's gradient norm then counts only the rank's rows).
 ``dlrm_loss(sharded_lookup=True)`` trains through it: the shard window's
 backward scatter-adds into the owned rows only, and the all-reduce over
 ``model`` passes its gradient through unchanged (the loss is replicated
 over the model ranks), so each rank's table gradient is its rows' slice
 of the dense lookup's.
+
+:func:`init_placed` (or :func:`place_tables`, from whole tables) gives a
+rank its rows of JAX's ``param_pspecs`` layout (``RunConfig.emb_rows``;
+``"all"``: over ``data`` and ``model``, part ``d * model + m`` on rank
+(d, m)) and tags the shard with its
+:class:`~repro_torch.distributed.mesh.Placement`; :func:`dlrm_forward`
+then looks the ids up through :func:`embedding_lookup_placed`, which
+keeps JAX's semantics of each flag: with ``sharded_lookup`` an id outside
+``[0, R)`` is dropped (the ``shard_map`` lookup), without it the ids are
+first wrapped and clamped (the dense lookup's gather).
 
 :func:`quantize_tables` stores the tables as the quantized fast tier does
 (int8 or fp8 codes and one fp32 scale per row, ``emb_scales`` (T, R)
@@ -49,9 +61,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator, resolve_device
 from repro_torch.distributed import mesh as M
-from repro_torch.distributed.collectives import all_reduce_identity_bwd
+from repro_torch.distributed.collectives import (
+    all_reduce_identity_bwd, reduce_scatter_all_gather_bwd)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ROW_FORMATS
+from repro_torch.sharding import partition as SP
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -144,17 +158,35 @@ def params_from_jax(tree, device="cuda", rows=None) -> Dict:
     }
 
 
+def _wrapped(sparse_idx: torch.Tensor, r: int) -> torch.Tensor:
+    """int32 ids of tables of ``r`` rows, a negative id counted from the
+    end of its table (``jnp`` indexing)."""
+    ids = sparse_idx.to(torch.int32)
+    return torch.where(ids < 0, ids + r, ids)
+
+
+def _in_range(sparse_idx: torch.Tensor, r: int) -> torch.Tensor:
+    """:func:`_wrapped`, an id still out of range clamped: the rows
+    ``jnp`` indexing reads.  Its gradient drops such an id (the
+    transpose of the clamped gather is a scatter that skips it)."""
+    return _wrapped(sparse_idx, r).clamp(0, r - 1)
+
+
 def _flat_ids(sparse_idx: torch.Tensor, t: int, r: int,
               dev: torch.device) -> torch.Tensor:
     """(B, T, P) per-table ids -> (B*T, P) int32 ids into the (T*R, D)
-    view of the tables: a negative id counts from the end of its table,
-    one out of range is clamped (``jnp`` indexing), then table t is offset
-    by t*R."""
-    ids = sparse_idx.to(torch.int32)
-    ids = torch.where(ids < 0, ids + r, ids).clamp(0, r - 1)
+    view of the tables: :func:`_in_range`, then table t offset by t*R."""
+    ids = _in_range(sparse_idx, r)
     off = torch.arange(t, device=dev, dtype=torch.int32) * r
     b, _, p = ids.shape
     return (ids + off[None, :, None]).reshape(b * t, p).contiguous()
+
+
+def _flat_grad_ids(sparse_idx: torch.Tensor, t: int, r: int
+                   ) -> torch.Tensor:
+    """The ids :func:`_flat_ids`'s gather sends its gradient to: an id out
+    of range after :func:`_wrapped` is -1 (dropped), as in JAX."""
+    return _flat_shard_ids(_wrapped(sparse_idx, r), t, r, 0)
 
 
 def embedding_lookup(emb: torch.Tensor, sparse_idx: torch.Tensor
@@ -167,10 +199,14 @@ def embedding_lookup(emb: torch.Tensor, sparse_idx: torch.Tensor
     :func:`repro_torch.kernels.ops.gather_pool` (one CUDA launch on the
     card), summed in fp32 and cast back to the tables' dtype as the JAX
     path yields it.  Ids index their own table as ``jnp`` indexing does:
-    a negative id counts from the end, and one out of range is clamped."""
+    a negative id counts from the end, and one out of range is clamped,
+    and its gradient drops such an id, as JAX's does."""
     t, r, d = emb.shape
+    grad_ids = (_flat_grad_ids(sparse_idx, t, r) if emb.requires_grad
+                else None)
     pooled = ops.gather_pool(emb.reshape(t * r, d),
-                             _flat_ids(sparse_idx, t, r, emb.device))
+                             _flat_ids(sparse_idx, t, r, emb.device),
+                             grad_ids)
     return pooled.reshape(-1, t, d).to(emb.dtype)
 
 
@@ -183,12 +219,18 @@ def shard_rows(r: int, mesh: M.Mesh):
 
 def shard_params(params, mesh: M.Mesh):
     """``params`` with ``emb`` cut to this rank's rows of every table (a
-    contiguous copy, unless the rank owns every row); the MLPs whole."""
+    contiguous copy, unless the rank owns every row) and tagged with its
+    :class:`~repro_torch.distributed.mesh.Placement`, rows over ``model``
+    (:func:`place_tables`'s ``emb_rows="model"`` layout, so a training
+    step's gradient norm sums every model rank's rows); the MLPs
+    whole."""
     if "emb_scales" in params:
         raise NotImplementedError("quantized tables have no row-sharded "
                                   "lookup (JAX has none)")
     lo, hi = shard_rows(params["emb"].shape[1], mesh)
-    return {**params, "emb": params["emb"][:, lo:hi].contiguous()}
+    emb = params["emb"][:, lo:hi].contiguous()
+    emb.placement = M.Placement(mesh, (None, "model"), "fsdp_tp")
+    return {**params, "emb": emb}
 
 
 def _flat_shard_ids(sparse_idx: torch.Tensor, t: int, rs: int, lo: int
@@ -222,17 +264,93 @@ def embedding_lookup_rowsharded(emb_shard: torch.Tensor,
     axis into the shard's rows.  Differentiable in ``emb_shard``: the
     all-reduce's backward is the identity, as the ``psum`` inside JAX's
     ``shard_map`` transposes for a loss replicated over ``model``."""
-    t, rs, d = emb_shard.shape
+    rs = emb_shard.shape[1]
     if rows:
         lo, hi = shard_rows(rows, mesh)
         if hi - lo != rs:
             raise ValueError(f"the shard holds {rs} rows of each table; "
                              f"model rank {mesh.model_rank} of "
                              f"{mesh.model} owns {hi - lo} of {rows}")
-    pooled = ops.gather_pool_shard(
-        emb_shard.reshape(t * rs, d),
-        _flat_shard_ids(sparse_idx, t, rs, mesh.model_rank * rs))
-    pooled = all_reduce_identity_bwd(pooled, mesh.model_group)
+    return embedding_lookup_placed(emb_shard, sparse_idx, mesh, ("model",))
+
+
+def _row_axes(spec) -> tuple:
+    return SP.axes_of(spec[1]) if len(spec) > 1 else ()
+
+
+def _placed(shape, mesh: M.Mesh, sharding: str, emb_rows: str):
+    """``(spec, (lo, hi))``: the tables' spec of ``shape`` on ``mesh``
+    (JAX's ``param_pspecs`` rule) and this rank's rows of every table."""
+    spec = SP.leaf_spec("emb", shape, mesh, sharding, emb_rows)
+    index, parts = SP.part_index(_row_axes(spec), mesh)
+    rs = shape[1] // parts
+    return spec, (index * rs, (index + 1) * rs)
+
+
+def init_placed(cfg: ModelConfig, seed: int, device, mesh: M.Mesh,
+                sharding: str = "fsdp_tp", emb_rows: str = "all"):
+    """:func:`init_dlrm` with ``emb`` this rank's rows of the tables'
+    layout on ``mesh`` (the bits of the whole tables' slice), tagged with
+    its :class:`~repro_torch.distributed.mesh.Placement`; the MLPs whole
+    and untagged."""
+    spec, rows = _placed((cfg.n_tables, cfg.rows_per_table, cfg.emb_dim),
+                         mesh, sharding, emb_rows)
+    params = init_dlrm(cfg, seed, device, rows=rows)
+    params["emb"].placement = M.Placement(mesh, spec, sharding)
+    return params
+
+
+def place_tables(params, mesh: M.Mesh, sharding: str = "fsdp_tp",
+                 emb_rows: str = "all"):
+    """Whole ``params`` with ``emb`` cut to this rank's rows, as
+    :func:`init_placed` gives them (a copy), tagged."""
+    spec, (lo, hi) = _placed(tuple(params["emb"].shape), mesh, sharding,
+                             emb_rows)
+    emb = params["emb"][:, lo:hi].clone()
+    emb.placement = M.Placement(mesh, spec, sharding)
+    return {**params, "emb": emb}
+
+
+def embedding_lookup_placed(emb_shard: torch.Tensor,
+                            sparse_idx: torch.Tensor, mesh: M.Mesh,
+                            axes: tuple, grad_idx=None) -> torch.Tensor:
+    """Pool-before-reduce lookup of tables whose rows lie over the mesh
+    ``axes`` (a spec entry's: ``("data", "model")``, ``("model",)``,
+    ``("data",)`` or none), part ``index`` of them on this rank
+    (:func:`repro_torch.sharding.partition.part_index`).
+
+    emb_shard: (T, Rs, D) this rank's rows ``[index Rs, (index + 1) Rs)``
+    of each table; sparse_idx: (B_local, T, P) ids of the whole tables,
+    this rank's part of the batch -> pooled (B_local, T, D) in
+    emb_shard's dtype.  Over ``data`` the data ranks hold other rows, so
+    the ids are all-gathered over ``data`` first and the rank pools its
+    rows for the global batch.  One launch of the shard window of
+    ``gather_pool`` pools the owned rows in fp32 (an id no rank owns adds
+    nothing); the (B, T, D) partials are reduce-scattered over ``data``
+    to this rank's B_local (the backward all-gathers the upstream
+    gradient: each data rank's loss reads its part) and summed over
+    ``model`` (the loss is replicated there: the identity backward), in
+    fp32, and cast once.  ``grad_idx`` (B_local, T, P), when given, holds
+    the ids the backward scatters to.  :func:`embedding_lookup_rowsharded`
+    is the ``("model",)`` case."""
+    t, rs, d = emb_shard.shape
+    over_data = "data" in axes and mesh.data_group is not None
+    index, _ = SP.part_index(axes, mesh)
+
+    def window(ids):
+        if ids is None:
+            return None
+        if over_data:
+            ids = M.gather_batch(ids, mesh)
+        return _flat_shard_ids(ids, t, rs, index * rs)
+
+    pooled = ops.gather_pool_shard(emb_shard.reshape(t * rs, d),
+                                   window(sparse_idx), window(grad_idx))
+    if over_data:
+        pooled = reduce_scatter_all_gather_bwd(pooled, mesh.data_group, 0,
+                                               mesh.data)
+    if "model" in axes:
+        pooled = all_reduce_identity_bwd(pooled, mesh.model_group)
     return pooled.reshape(-1, t, d).to(emb_shard.dtype)
 
 
@@ -296,10 +414,23 @@ def dlrm_forward(params, cfg: ModelConfig, dense: torch.Tensor,
     activation_sharding`, ``params["emb"]`` this rank's shard of rows
     (:func:`shard_params`), dense and sparse_idx this rank's ``data`` part
     of the batch; the logits are this rank's, and
-    :func:`repro_torch.distributed.mesh.gather_batch` gathers them."""
+    :func:`repro_torch.distributed.mesh.gather_batch` gathers them.
+
+    With ``params["emb"]`` placed (:func:`init_placed`) the lookup is
+    :func:`embedding_lookup_placed` on the placement's mesh, dense and
+    sparse_idx this rank's part of the batch, the ids wrapped and clamped
+    first unless ``sharded_lookup``."""
     ct = torch_dtype(cfg.compute_dtype)
     bot = _mlp(params["bottom"], dense.to(ct))
-    if sharded_lookup:
+    pl = M.placement(params["emb"])
+    if pl is not None:
+        r = cfg.rows_per_table
+        ids, grad_ids = ((sparse_idx, None) if sharded_lookup
+                         else (_in_range(sparse_idx, r),
+                               _wrapped(sparse_idx, r)))
+        pooled = embedding_lookup_placed(params["emb"].to(ct), ids, pl.mesh,
+                                         _row_axes(pl.spec), grad_ids)
+    elif sharded_lookup:
         mesh = M.active_mesh()
         if mesh is None:
             raise RuntimeError("the sharded lookup needs a mesh scope "

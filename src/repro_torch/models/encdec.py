@@ -24,6 +24,15 @@ stand-in for whisper's learned and sinusoidal embeddings).
 recomputes the layer, so each layer's attention forward runs twice a
 training step.
 
+A sharded model (``build(..., mesh=)``) computes each sub-block as the
+decoder-only LMs do (:mod:`repro_torch.models.transformer`'s views):
+the self-attention and the cross-attention tensor parallel on the rank's
+heads when ``model`` divides the heads (the cross-attention's ``wk`` and
+``wv`` read the encoder output through Megatron's "f"), the GELU MLP on
+the rank's part of ``d_ff``, the norms gathered; each layer's leaves are
+gathered inside the (checkpointed) layer, so the backward gathers them
+again.
+
 The cache is ``{"pos": int, "k", "v": (L, B, C, K, hd), "xk", "xv": (L,
 B, Se, K, hd)}`` in the compute dtype: the decoder's self-attention keys
 (C slots, a ring as in the decoder-only LMs) and the cross-attention's
@@ -47,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import generator, resolve_device
+from repro_torch.distributed.collectives import gather_leaf
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.dlrm import _tensor, torch_dtype
@@ -138,18 +148,24 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> EncDecLM:
 def _run_layers(blocks, run: RunConfig, fn, x: torch.Tensor,
                 *extra) -> torch.Tensor:
     """x through ``fn(blk, x, *extra) -> x`` for each block, each
-    recomputed in the backward under ``remat="full"``; a sharded block's
-    leaves are gathered whole inside it (so the checkpoint gathers them
-    again in the backward)."""
-    def step(blk, *args):
-        return fn(T.gathered(blk), *args)
-
+    recomputed in the backward under ``remat="full"``; ``fn`` gathers a
+    sharded block's leaves itself (so the checkpoint gathers them again in
+    the backward)."""
     for blk in blocks:
         if run.remat == "full":
-            x = checkpoint(step, blk, x, *extra, use_reentrant=False)
+            x = checkpoint(fn, blk, x, *extra, use_reentrant=False)
         else:
-            x = step(blk, x, *extra)
+            x = fn(blk, x, *extra)
     return x
+
+
+def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig):
+    return L.rms_norm(x, gather_leaf(w), cfg.norm_eps)
+
+
+def _mlp(blk, x: torch.Tensor) -> torch.Tensor:
+    mlp, tp = T._ffn_view(blk.mlp, 1)
+    return L.mlp_block(mlp, x, tp=tp)
 
 
 def encode(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
@@ -160,13 +176,14 @@ def encode(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
     positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
 
     def layer(blk, x):
-        h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
-        x = x + L.attn_block(blk.attn, cfg, h, positions, causal=False)[0]
-        return x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
+        attn, tp = T._attn_view(blk.attn, cfg)
+        x = x + L.attn_block(attn, cfg, _norm(x, blk.ln1, cfg), positions,
+                             causal=False, tp=tp)[0]
+        return x + _mlp(blk, _norm(x, blk.ln2, cfg))
 
     x = _run_layers(model.enc_blocks, run, layer,
                     frames.to(torch_dtype(cfg.compute_dtype)))
-    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+    return _norm(x, model.enc_norm, cfg)
 
 
 def _dec_layer(blk: DecBlock, cfg: ModelConfig, x: torch.Tensor,
@@ -174,13 +191,15 @@ def _dec_layer(blk: DecBlock, cfg: ModelConfig, x: torch.Tensor,
     """One decoder layer over the whole sequence: causal self-attention,
     cross-attention over ``enc_out``, the MLP.  Returns ``(x, {"k", "v",
     "xk", "xv"})``."""
-    h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
-    attn_out, (k, v) = L.attn_block(blk.attn, cfg, h, positions)
+    attn, tp = T._attn_view(blk.attn, cfg)
+    attn_out, (k, v) = L.attn_block(attn, cfg, _norm(x, blk.ln1, cfg),
+                                    positions, tp=tp)
     x = x + attn_out
-    hx = L.rms_norm(x, blk.lnx, cfg.norm_eps)
-    xk, xv = L.cross_kv(blk.xattn, cfg, enc_out)
-    x = x + L.cross_attn_block(blk.xattn, cfg, hx, xk, xv)
-    x = x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
+    xattn, tp = T._attn_view(blk.xattn, cfg)
+    xk, xv = L.cross_kv(xattn, cfg, enc_out, tp)
+    x = x + L.cross_attn_block(xattn, cfg, _norm(x, blk.lnx, cfg), xk, xv,
+                               tp)
+    x = x + _mlp(blk, _norm(x, blk.ln2, cfg))
     return x, {"k": k, "v": v, "xk": xk, "xv": xv}
 
 
@@ -204,7 +223,7 @@ def decode_forward(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
             model.dec_blocks, run,
             lambda blk, x_, e: _dec_layer(blk, cfg, x_, positions, e)[0],
             x, enc_out)
-    return L.rms_norm(x, model.final_norm, cfg.norm_eps), caches
+    return _norm(x, model.final_norm, cfg), caches
 
 
 def encdec_loss(model: EncDecLM, cfg: ModelConfig, run: RunConfig,

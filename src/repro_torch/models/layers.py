@@ -53,7 +53,18 @@ heads, ``w1``/``w3`` and the experts' ``w1``/``w3`` are column parallel
 ``wo``, ``w2`` and the experts' ``w2`` row parallel (their partial
 output summed by "g", :func:`~repro_torch.distributed.collectives.
 all_reduce_identity_bwd`).  The attention then runs on the rank's heads:
-``_qkv`` reads the head counts from the shapes it gets.
+``_qkv`` reads the head counts from the shapes it gets, and so do
+``cross_kv`` and ``cross_attn_block``, whose ``wk``/``wv`` read the
+encoder output through "f".  The mamba block is channel parallel: its
+``in_proj`` (whose columns the caller has exchanged so that the rank holds
+``xi`` and ``z`` of its own channels), the conv, ``dt_proj`` and the scan
+on the rank's channels, ``out_proj`` row parallel through "g", and
+``x_proj`` row parallel: its partial products are taken in fp32 (a
+product of bf16 values is exact there), summed over the ranks in fp32
+(:func:`~repro_torch.distributed.collectives.all_reduce_sum_bwd`: every
+rank's channels read the whole sum) and rounded once to xc's dtype before
+the split into dt-rank, B and C, where JAX rounds the whole product once
+(:589).
 
 Products whose JAX einsum asks for ``preferred_element_type=float32`` are
 taken on fp32 copies of their inputs (a bf16 product is exact in fp32), so
@@ -252,21 +263,23 @@ def attn_decode_block(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def cross_attn_block(p, cfg: ModelConfig, x: torch.Tensor,
-                     k_enc: torch.Tensor, v_enc: torch.Tensor):
+                     k_enc: torch.Tensor, v_enc: torch.Tensor, tp=None):
     """x: (B, S, D); k_enc/v_enc: (B, Se, K, hd) from :func:`cross_kv`.
-    Queries without rope over every encoder position."""
+    Queries without rope over every encoder position; on this rank's
+    heads, tensor parallel over ``tp``."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    q = (copy_all_reduce_bwd(x, tp) @ p["wq"]).reshape(b, s, -1, cfg.hd)
     o = plain_attention(q, k_enc, v_enc)
-    return o.reshape(b, s, -1) @ p["wo"]
+    return all_reduce_identity_bwd(o.reshape(b, s, -1) @ p["wo"], tp)
 
 
-def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
+def cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor, tp=None):
     """enc_out (B, Se, D) -> the cross-attention's keys and values, (B, Se,
-    K, hd) each, without rope."""
+    K, hd) each (K this rank's heads under ``tp``), without rope."""
     b, se, _ = enc_out.shape
-    return ((enc_out @ p["wk"]).reshape(b, se, cfg.kv_heads, cfg.hd),
-            (enc_out @ p["wv"]).reshape(b, se, cfg.kv_heads, cfg.hd))
+    enc_out = copy_all_reduce_bwd(enc_out, tp)
+    return ((enc_out @ p["wk"]).reshape(b, se, -1, cfg.hd),
+            (enc_out @ p["wv"]).reshape(b, se, -1, cfg.hd))
 
 
 # ---------------------------------------------------------------------------
@@ -500,39 +513,48 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _ssm_params(p, cfg: ModelConfig, xc: torch.Tensor):
+def _ssm_params(p, cfg: ModelConfig, xc: torch.Tensor, tp=None):
     """xc (B, S, Di) post-conv -> ``(dt (B, S, Di), Bm, Cm (B, S, N))``,
     fp32: the ``x_proj`` product in xc's dtype, then cast to fp32 (JAX
-    :589), ``dt_proj`` in fp32, softplus."""
+    :589), ``dt_proj`` in fp32, softplus.  Under ``tp`` xc holds the
+    rank's channels: the partial products summed over the ranks in fp32
+    and rounded once to xc's dtype."""
     n, r = cfg.ssm_state, cfg.dtrank
-    proj = (xc @ p["x_proj"]).float()
+    if tp is None:
+        proj = (xc @ p["x_proj"]).float()
+    else:
+        proj = all_reduce_sum_bwd(xc.float() @ p["x_proj"].float(), tp)
+        proj = proj.to(xc.dtype).float()
     dtr, bm, cm = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
     dt = F.softplus(dtr @ p["dt_proj"].float() + p["dt_bias"])
     return dt, bm, cm
 
 
 def selective_scan(p, cfg: ModelConfig, xc: torch.Tensor, z: torch.Tensor,
-                   h0=None):
-    """The mamba-1 scan.  xc/z: (B, S, Di) (post-conv / gate); h0: None
-    (zeros) or (B, Di, N) fp32.  Returns ``(y (B, S, Di) in xc's dtype,
-    h_last (B, Di, N) fp32)``, h_last the state after step S-1 (JAX's
-    padded steps are identities, so it is JAX's too)."""
-    dt, bm, cm = _ssm_params(p, cfg, xc)
+                   h0=None, tp=None):
+    """The mamba-1 scan.  xc/z: (B, S, Di) (post-conv / gate; the rank's
+    channels under ``tp``); h0: None (zeros) or (B, Di, N) fp32.  Returns
+    ``(y (B, S, Di) in xc's dtype, h_last (B, Di, N) fp32)``, h_last the
+    state after step S-1 (JAX's padded steps are identities, so it is
+    JAX's too)."""
+    dt, bm, cm = _ssm_params(p, cfg, xc, tp)
     a = -torch.exp(p["A_log"])
     return ops.selective_scan(xc, z, dt, a, bm, cm, p["D_skip"], h0)
 
 
-def mamba_block(p, cfg: ModelConfig, x: torch.Tensor):
+def mamba_block(p, cfg: ModelConfig, x: torch.Tensor, tp=None):
     """Full-sequence mamba-1 block.  x: (B, S, D) -> ``(out, (conv_tail,
     h_last))``: conv_tail (B, W-1, Di) the last W-1 *pre-conv* inputs,
-    left-padded with zeros when S < W-1 (the decode's conv state)."""
+    left-padded with zeros when S < W-1 (the decode's conv state).  Under
+    ``tp`` channel parallel: Di is the rank's channels (``in_proj``'s
+    columns ``[xi | z]`` of them), and so are conv_tail and h_last."""
     s = x.shape[1]
-    di, w = cfg.inner, cfg.conv_width
-    xz = x @ p["in_proj"]
+    di, w = p["conv_w"].shape[1], cfg.conv_width
+    xz = copy_all_reduce_bwd(x, tp) @ p["in_proj"]
     xi, z = xz[..., :di], xz[..., di:]
     xc = _silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
-    y, h_last = selective_scan(p, cfg, xc, z)
-    out = y @ p["out_proj"]
+    y, h_last = selective_scan(p, cfg, xc, z, tp=tp)
+    out = all_reduce_identity_bwd(y @ p["out_proj"], tp)
     conv_tail = (xi[:, s - (w - 1):] if s >= w - 1
                  else F.pad(xi, (0, 0, w - 1 - s, 0)))
     return out, (conv_tail, h_last)

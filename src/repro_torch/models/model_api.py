@@ -24,8 +24,11 @@ of the encoder-decoder LM: the whole model drawn from the seed, then cut by
 :func:`repro_torch.models.transformer.shard_model` under
 ``run.sharding`` (``"dp"`` under ``run.grad_compression``: the
 compressed all-reduce takes whole gradients), so every rank's shard has
-the bits of the same whole model.  DLRM keeps its row-sharded tables
-(``init_dlrm(rows=)``).
+the bits of the same whole model.  DLRM's ``init`` gives the rank its rows
+of ``run.emb_rows``'s layout (:func:`repro_torch.models.dlrm.init_placed`,
+the MLPs whole) under ``"fsdp_tp"`` and ``"tp"``; under ``"dp"`` (and so
+under ``run.grad_compression``) the tables stay whole, and ``"fsdp"``,
+whose batch splits over both axes, is refused for DLRM.
 """
 from __future__ import annotations
 
@@ -172,9 +175,18 @@ def build(cfg: ModelConfig, device="cuda",
                                   _on(batch["sparse"], dev),
                                   run.dlrm_sharded_lookup)
 
+        def dlrm_init(seed=0):
+            if mesh is None or mesh.data_group is None or sharding == "dp":
+                return D.init_dlrm(cfg, seed, device)
+            if sharding == "fsdp":
+                raise NotImplementedError(
+                    "DLRM's tables under sharding='fsdp' (the batch over "
+                    "both axes): use 'fsdp_tp', 'tp' or 'dp'")
+            return D.init_placed(cfg, seed, device, mesh, sharding,
+                                 run.emb_rows)
+
         return ModelBundle(
-            init=lambda seed=0: D.init_dlrm(cfg, seed, device),
-            loss=loss, prefill=serve, decode=None,
+            init=dlrm_init, loss=loss, prefill=serve, decode=None,
             n_params=lambda: _dlrm_n_params(cfg),
             n_active_params=lambda: _dlrm_n_params(cfg),
             param_struct=lambda: D.init_dlrm(cfg, 0, "meta"), **common)

@@ -28,13 +28,18 @@ gathered inside ``_layer_forward``, so under ``remat="full"`` the
 checkpoint gathers them again in the backward instead of keeping them.
 Where a leaf's feature dim lies on ``model``, the layer computes tensor
 parallel on this rank's part (Megatron's column- then row-parallel
-products, ``layers.attn_block``/``mlp_block``/``moe_block``'s ``tp``):
-attention when the model ranks each hold whole heads of both q and kv
-(``H % model == K % model == 0``), the SwiGLU and the experts when
-``model`` divides ``d_ff``.  The other leaves are gathered whole (the
-SSM's, an attention whose heads split) and computed replicated over
-``model``.  The embedding and head are vocab parallel when ``model``
-divides the vocab: each rank looks up the ids of its vocab range and
+products, ``layers.attn_block``/``mlp_block``/``moe_block``/
+``mamba_block``'s ``tp``): attention when the model ranks each hold whole
+heads of both q and kv (``H % model == K % model == 0``), the SwiGLU and
+the experts when ``model`` divides ``d_ff``, the mamba block when it
+divides ``Di`` (its channel leaves then lie on ``model``; ``in_proj``'s
+columns are exchanged within ``model`` after the gather over ``data``,
+:func:`_in_proj_channels`).  A hybrid layer takes the attention's view
+and the mamba block's each on its own.  The other leaves are gathered
+whole (an attention whose heads split, a block ``fit_spec`` kept off
+``model``) and computed replicated over ``model``.  The embedding and
+head are vocab parallel when ``model`` divides the vocab: each rank
+looks up the ids of its vocab range and
 the ranks' rows are summed, and the cross-entropy takes the max and the
 sums of exps and gold logits over the ranks (:func:`_ce`).
 
@@ -254,25 +259,6 @@ def view(sub, keep_model: bool = False) -> Dict[str, torch.Tensor]:
     return {k: C.gather_leaf(v, keep_model) for k, v in sub.items()}
 
 
-class _Gathered:
-    """A block's sub-blocks and leaves, each gathered whole."""
-
-    def __init__(self, blk: nn.Module):
-        for name, child in blk.named_children():
-            setattr(self, name, view(child))
-        for name, p in blk.named_parameters(recurse=False):
-            setattr(self, name, C.gather_leaf(p))
-
-
-def gathered(blk: nn.Module):
-    """``blk`` itself when it holds whole leaves, else a stand-in with the
-    same attributes holding every leaf gathered whole (a layer computed
-    replicated over ``model``: the encoder-decoder LM's)."""
-    if all(M.placement(p) is None for p in blk.parameters()):
-        return blk
-    return _Gathered(blk)
-
-
 def _attn_view(p, cfg: ModelConfig):
     """``(leaves, tp group)``: the model ranks' heads when each holds
     whole q and kv heads, else every leaf whole and no group."""
@@ -281,6 +267,39 @@ def _attn_view(p, cfg: ModelConfig):
             and cfg.kv_heads % mp.mesh.model == 0:
         return view(p, True), _tp_group(p["wq"])
     return view(p), None
+
+
+def _in_proj_channels(w: torch.Tensor, mesh: M.Mesh) -> torch.Tensor:
+    """``in_proj``'s model shard (D, 2 Di/model) as JAX lays it out (the
+    rank's two blocks of the fused columns) -> (D, 2 Di/model) holding
+    ``[xi | z]`` of the rank's channels: the blocks sent to their channel
+    ranks (:func:`repro_torch.sharding.partition.in_proj_blocks`) by one
+    exchange within ``model``, whose backward sends the gradient's columns
+    back."""
+    n, m = mesh.model, mesh.model_rank
+    di = w.shape[1] * n // 2
+    mine = sorted(SP.in_proj_blocks(di, n, m), key=lambda b: b[0])
+    send = [sum(hi - lo for d, _, lo, hi in mine if d == r)
+            for r in range(n)]
+    # What each rank sends here, in rank order: xi before z, since xi's
+    # block m lies on rank m // 2, below z's block n + m on (n + m) // 2.
+    recv = [sum(hi - lo for d, _, lo, hi in SP.in_proj_blocks(di, n, r)
+                if d == m) for r in range(n)]
+    x = torch.cat([w[:, lo:hi] for _, _, lo, hi in mine], dim=1)
+    return C.all_to_all(x, mesh.model_group, 1, send, recv)
+
+
+def _ssm_view(p):
+    """``(leaves, tp group)``: the model ranks' channels when the block's
+    channel leaves lie on ``model`` alone (``model`` divides Di), with
+    ``in_proj`` exchanged to ``[xi | z]`` of them; else every leaf whole
+    and no group."""
+    if not _on_model(p["conv_w"], 1):
+        return view(p), None
+    leaves = view(p, True)
+    leaves["in_proj"] = _in_proj_channels(
+        leaves["in_proj"], M.placement(p["in_proj"]).mesh)
+    return leaves, _tp_group(p["conv_w"])
 
 
 def _ffn_view(p, model_dim: int):
@@ -314,13 +333,15 @@ def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     it)."""
     h = L.rms_norm(x, C.gather_leaf(blk.ln1), cfg.norm_eps)
     if cfg.family == "ssm":
-        out, (conv_tail, h_last) = L.mamba_block(view(blk.ssm), cfg, h)
+        ssm, tp = _ssm_view(blk.ssm)
+        out, (conv_tail, h_last) = L.mamba_block(ssm, cfg, h, tp=tp)
         return x + out, None, {"conv": conv_tail, "h": h_last}
     attn, tp = _attn_view(blk.attn, cfg)
     attn_out, (k, v) = L.attn_block(attn, cfg, h, positions, tp=tp)
     cache = {"k": k, "v": v}
     if cfg.family == "hybrid":
-        ssm_out, (conv_tail, h_last) = L.mamba_block(view(blk.ssm), cfg, h)
+        ssm, tp = _ssm_view(blk.ssm)
+        ssm_out, (conv_tail, h_last) = L.mamba_block(ssm, cfg, h, tp=tp)
         attn_out = (attn_out + ssm_out) * 0.5
         cache.update(conv=conv_tail, h=h_last)
     x = x + attn_out

@@ -26,6 +26,13 @@ out.
 A mesh here is anything with a ``shape`` mapping (a
 :class:`repro_torch.distributed.mesh.Mesh`, a stand-in), the mapping
 itself or a ``(data, model)`` pair.
+
+The mamba block's fused ``in_proj`` (D, 2 Di) lies over ``model`` by its
+columns as one block, so at model 2 rank 0 holds every channel of ``xi``
+and rank 1 every channel of ``z`` (JAX splits ``xz`` after the product,
+``layers.py:664-665``); a channel-parallel block wants ``xi`` and ``z`` of
+its own channels.  :func:`in_proj_blocks` says where each column of a
+rank's shard belongs.
 """
 from __future__ import annotations
 
@@ -241,6 +248,23 @@ def shard_of(full: torch.Tensor, spec: Spec, mesh,
                              f"split into {parts}")
         out = out.narrow(dim, index * size, size)
     return out
+
+
+def in_proj_blocks(di: int, model: int, rank: int
+                   ) -> Tuple[Tuple[int, str, int, int], ...]:
+    """Where the columns of model rank ``rank``'s shard of the fused
+    ``in_proj`` (D, 2 Di) belong: ``((dest, part, lo, hi), ...)``, columns
+    ``[lo, hi)`` of the rank's (D, 2 Di / model) shard are channels
+    ``[dest Di/model, (dest + 1) Di/model)`` of ``part`` (``"xi"`` or
+    ``"z"``), in the shard's column order.  The shard holds blocks ``2
+    rank`` and ``2 rank + 1`` of the 2 ``model`` blocks of Di/model
+    columns; block ``j`` is ``xi`` for ``j < model``, else ``z``, of rank
+    ``j % model``."""
+    if di % model:
+        raise ValueError(f"Di {di} does not split over {model} model ranks")
+    c = di // model
+    return tuple((j % model, "xi" if j < model else "z", i * c, (i + 1) * c)
+                 for i, j in enumerate((2 * rank, 2 * rank + 1)))
 
 
 def shard_bytes(model, specs: Dict[str, Spec], mesh,

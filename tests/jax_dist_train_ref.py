@@ -41,14 +41,18 @@ from repro.optim.adamw import OptConfig, apply_updates, init_opt
 from repro.sharding import partition as sp
 
 
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def named(tree):
     """{port leaf name: array}: key paths joined by dots, the stacked
-    layer axis of an LM's ``blocks`` unrolled."""
+    layer axis of an LM's ``blocks`` (whisper's ``enc_blocks`` and
+    ``dec_blocks``) unrolled."""
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         names = [str(getattr(p, "key", getattr(p, "idx", p))) for p in path]
         leaf = np.asarray(leaf, np.float32)
-        if names[0] == "blocks":
+        if names[0] in STACKED:
             for i in range(leaf.shape[0]):
                 out[".".join([names[0], str(i)] + names[1:])] = leaf[i]
         else:

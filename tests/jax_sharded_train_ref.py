@@ -2,18 +2,22 @@
 a script in a process of its own with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``.
 
-    python tests/jax_sharded_train_ref.py INPUTS.npz OUT.npz
+    python tests/jax_sharded_train_ref.py INPUTS.npz OUT.npz [PART/PARTS]
 
-For each case of the inputs (``arch|sharding|data|model``): the reduced
-arch's ``init_lm(PRNGKey(0))`` placed by ``param_pspecs`` on a (data,
-model) mesh of Auto axes over the four CPU devices, AdamW's state by
-``opt_struct_and_specs``, and ``make_train_step`` jitted with those
-shardings (two microbatches, the case's variant under
-``activation_sharding``) over ``batch_at``'s batches.  Writes each step's
-loss and grad norm, and each device's shard of every parameter and of the
-moments after the last step, keyed by the rank at the device's mesh
-position (``mesh.devices``) and the port's leaf name (the stacked layer
-axis unrolled).
+(with ``PART/PARTS``, the cases whose index modulo PARTS is PART).
+
+For each case of the inputs (``arch|sharding|data|model``, a DLRM case
+with ``|sharded`` or ``|dense``, its lookup): the reduced arch's
+``build(cfg).init(PRNGKey(0))`` placed by ``param_pspecs`` (DLRM's tables
+by ``emb_rows="all"``) on a (data, model) mesh of Auto axes over the four
+CPU devices, AdamW's state by ``opt_struct_and_specs``, and
+``make_train_step`` jitted with those shardings (two microbatches, the
+case's variant under ``activation_sharding``) over ``batch_at``'s batches
+(whisper's with the inputs' audio frames; DLRM's the inputs' batches).
+Writes each step's loss and grad norm, and each device's shard of every
+parameter and of the moments after the last step, keyed by the rank at
+the device's mesh position (``mesh.devices``) and the port's leaf name
+(the stacked layer axes unrolled).
 """
 import sys
 
@@ -21,12 +25,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jax_dist_train_ref import make_mesh
+from jax_dist_train_ref import STACKED, make_mesh
 from repro.configs import RunConfig, get_config
 from repro.data.lm_data import LMDataConfig, batch_at
 from repro.launch.steps import make_train_step, opt_struct_and_specs
 from repro.models import model_api as MA
-from repro.models import transformer as T
 from repro.optim.adamw import OptConfig, init_opt
 from repro.sharding import partition as sp
 
@@ -43,7 +46,7 @@ def put_shards(out, prefix, tree, mesh):
         for shard in arr.addressable_shards:
             data = np.asarray(shard.data, np.float32)
             rank = where[shard.device.id]
-            if names[0] == "blocks":
+            if names[0] in STACKED:
                 for i in range(data.shape[0]):
                     key = ".".join([names[0], str(i)] + names[1:])
                     out[f"{prefix}/r{rank}/{key}"] = data[i]
@@ -51,29 +54,45 @@ def put_shards(out, prefix, tree, mesh):
                 out[f"{prefix}/r{rank}/{'.'.join(names)}"] = data
 
 
+def batches(data, arch, cfg, steps):
+    """The case's batches: DLRM's from the inputs, an LM's ``batch_at``'s
+    (with whisper's frames from the inputs)."""
+    if cfg.family == "dlrm":
+        return [{k: jnp.asarray(data[f"dlrm/{s}/{k}"])
+                 for k in ("dense", "sparse", "label")} for s in range(steps)]
+    dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=int(data["seq"]),
+                        global_batch=int(data["batch"]))
+    out = []
+    for s in range(steps):
+        b = {k: jnp.asarray(v) for k, v in batch_at(dcfg, s).items()}
+        if cfg.enc_dec:
+            b["frontend"] = jnp.asarray(data[f"frames/{arch}/{s}"])
+        out.append(b)
+    return out
+
+
 def run_case(data, case, out):
-    arch, sharding, nd, nm = case.split("|")
+    arch, sharding, nd, nm, *lookup = case.split("|")
     cfg = get_config(arch).reduced()
     steps, mb = int(data["steps"]), int(data["microbatches"])
-    bundle = MA.build(cfg, RunConfig(remat="none", sharding=sharding))
+    bundle = MA.build(cfg, RunConfig(
+        remat="none", sharding=sharding,
+        dlrm_sharded_lookup=lookup == ["sharded"]))
     opt_cfg = OptConfig(lr=float(data["lr"]), total_steps=steps)
     mesh = make_mesh((int(nd), int(nm)))
     pspecs = sp.param_pspecs(bundle.param_struct(), mesh, sharding)
     param_sh = sp.to_shardings(pspecs, mesh)
     _, opt_pspecs = opt_struct_and_specs(bundle, pspecs, opt_cfg)
     opt_sh = sp.to_shardings(opt_pspecs, mesh)
-    params = jax.device_put(T.init_lm(jax.random.PRNGKey(0), cfg), param_sh)
+    params = jax.device_put(bundle.init(jax.random.PRNGKey(0)), param_sh)
     opt = jax.jit(lambda p: init_opt(opt_cfg, p), out_shardings=opt_sh)(
         params)
-    dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=int(data["seq"]),
-                        global_batch=int(data["batch"]))
     losses, norms = [], []
     with mesh, sp.activation_sharding(mesh, sharding):
         step = jax.jit(make_train_step(bundle, opt_cfg, mb, mesh),
                        in_shardings=(param_sh, opt_sh, None),
                        out_shardings=(param_sh, opt_sh, None))
-        for s in range(steps):
-            batch = {k: jnp.asarray(v) for k, v in batch_at(dcfg, s).items()}
+        for batch in batches(data, arch, cfg, steps):
             params, opt, m = step(params, opt, batch)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
@@ -84,13 +103,15 @@ def run_case(data, case, out):
     put_shards(out, f"{case}/v", opt["v"], mesh)
 
 
-def main(inputs, out_path):
+def main(inputs, out_path, part="0/1"):
     assert len(jax.devices()) == 4, jax.devices()
     data, out = np.load(inputs), {}
-    for case in data["cases"]:
+    index, parts = (int(x) for x in part.split("/"))
+    cases = list(data["cases"]) + list(data["dlrm_cases"])
+    for case in cases[index::parts]:
         run_case(data, str(case), out)
     np.savez(out_path, **out)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:4])

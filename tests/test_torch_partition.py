@@ -9,7 +9,10 @@ a stand-in mesh with ``axis_names`` and ``shape``, which is all
 ``param_pspecs`` reads.  ``shard_bytes`` equals the per-device bytes that
 ``launch/dryrun.py::_sizeof`` (:46-62) computes from JAX's specs.  Then a
 rank's ``shard_of`` against ``shard_shape``, and the rule's per-rank
-parameter counts at (2, 2) for qwen2.5-3b and qwen3-14b.
+parameter counts at (2, 2) for qwen2.5-3b and qwen3-14b; where the
+fused ``in_proj``'s columns go (``in_proj_blocks``); and a DLRM rank's
+rows of the tables under both ``emb_rows`` against the JAX device's at
+the same mesh position (four CPU devices in a subprocess).
 """
 import functools
 from types import SimpleNamespace
@@ -158,3 +161,93 @@ def test_variants_and_fsdp_seq():
         RunConfig(sharding="fsdp_seq")
     with pytest.raises(ValueError, match="sharding"):
         RunConfig(sharding="zero")
+
+
+def test_emb_rows_is_jax_option():
+    from repro_torch.configs import RunConfig
+
+    assert RunConfig().emb_rows == "all"
+    assert RunConfig(emb_rows="model").emb_rows == "model"
+    with pytest.raises(ValueError, match="emb_rows"):
+        RunConfig(emb_rows="data")
+
+
+@pytest.mark.parametrize("model", [1, 2, 4])
+def test_in_proj_blocks_send_each_channel_to_its_rank(model):
+    """JAX lays the fused ``in_proj`` (D, 2 Di) over ``model`` by columns as
+    one block; ``in_proj_blocks`` sends each column of each rank's shard
+    to the rank whose channels it holds: rank m then holds columns ``[m c,
+    (m + 1) c)`` (``xi``) and ``Di + [m c, (m + 1) c)`` (``z``), c = Di /
+    model, the split JAX's ``xz[..., :Di]`` / ``xz[..., Di:]`` makes."""
+    di, c = 24, 24 // model
+    cols = torch.arange(2 * di).reshape(1, -1)
+    got = {(m, part): [] for m in range(model) for part in ("xi", "z")}
+    for r in range(model):
+        shard = SP.shard_of(cols, (None, "model"), (1, model), rank=r)
+        blocks = SP.in_proj_blocks(di, model, r)
+        assert sum(hi - lo for _, _, lo, hi in blocks) == shard.shape[1]
+        for dest, part, lo, hi in blocks:
+            got[(dest, part)] += shard[0, lo:hi].tolist()
+    for m in range(model):
+        assert got[(m, "xi")] == list(range(m * c, (m + 1) * c))
+        assert got[(m, "z")] == list(range(di + m * c, di + (m + 1) * c))
+    if model == 2:  # rank 0 holds every xi channel, rank 1 every z one
+        assert SP.in_proj_blocks(di, 2, 0) == ((0, "xi", 0, 12),
+                                              (1, "xi", 12, 24))
+    with pytest.raises(ValueError, match="Di"):
+        SP.in_proj_blocks(di + 1, 2, 0)
+
+
+_JAX_ROWS = """
+import json, jax, numpy as np
+from jax.sharding import NamedSharding
+from repro.configs import get_config
+from repro.models.model_api import build
+from repro.sharding.partition import param_pspecs
+cfg = get_config("dlrm-recmg").reduced()
+struct = build(cfg).param_struct()
+mesh = jax.make_mesh((2, 2), ("data", "model"))
+out = {}
+for emb_rows in ("all", "model"):
+    spec = param_pspecs(struct, mesh, "fsdp_tp", emb_rows)["emb"]
+    idx = NamedSharding(mesh, spec).devices_indices_map(struct["emb"].shape)
+    where = {d.id: i for i, d in enumerate(mesh.devices.reshape(-1))}
+    out[emb_rows] = {where[d.id]: [s[1].start or 0, s[1].stop or
+                                   cfg.rows_per_table]
+                     for d, s in idx.items()}
+print(json.dumps(out))
+"""
+
+
+def test_dlrm_rank_rows_match_jax_on_four_devices():
+    """A DLRM rank's rows of every table under ``emb_rows`` "all" (part d
+    * model + m of both axes) and "model" (part m), on (2, 2), against the
+    rows of the JAX device at its mesh position under ``param_pspecs``'s
+    sharding of the tables (four CPU devices in a subprocess)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.distributed import mesh as M
+    from repro_torch.models import dlrm as D
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(
+        root / "src"), "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    want = json.loads(subprocess.run(
+        [sys.executable, "-c", _JAX_ROWS], env=env, check=True,
+        capture_output=True, text=True).stdout)
+    cfg = get_config("dlrm-recmg").reduced()
+    shape = (cfg.n_tables, cfg.rows_per_table, cfg.emb_dim)
+    for emb_rows in ("all", "model"):
+        for r in range(4):
+            mesh = M.Mesh(2, 2, r)
+            spec, rows = D._placed(shape, mesh, "fsdp_tp", emb_rows)
+            assert list(rows) == want[emb_rows][str(r)], (emb_rows, r)
+            params = D.init_placed(cfg, 0, "cpu", mesh, emb_rows=emb_rows)
+            assert params["emb"].placement.spec == spec
+            assert params["emb"].shape[1] == rows[1] - rows[0]
+        if emb_rows == "model":
+            assert D.shard_rows(cfg.rows_per_table, mesh) == rows

@@ -1,34 +1,46 @@
 """The port's sharded training (JAX's ``param_pspecs`` layouts) against
 the JAX package's, on the CPU.
 
-JAX runs in one subprocess of its own with
+JAX runs in two subprocesses of its own, each with half the cases and
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``
 (``tests/jax_sharded_train_ref.py``): ``make_train_step`` jitted with the
 parameter and AdamW shardings of each variant on a mesh of the four
 devices.  The port runs as four ``gloo`` processes on a ``file://`` store
 (``tests/torch_sharded_train_ranks.py``), each holding its shard of every
 leaf (``shard_model``) and training under ``remat="full"``.  Both start
-from JAX's ``init_lm(PRNGKey(0))`` and train two steps of two
+from JAX's ``build(cfg).init(PRNGKey(0))`` and train two steps of two
 microbatches over ``batch_at``'s batches, for reduced qwen2.5-3b (GQA
 4/2 with qkv bias: whole heads at model 2, half a kv head a rank at model
 4, so the attention is gathered there), smollm-135m (tied embeddings:
 the vocab-parallel head is the embedding's shard) and granite-moe
 (tensor-parallel experts, global dispatch), under ``fsdp_tp`` at (2, 2),
 (1, 4) and (4, 1) and ``tp`` and ``fsdp`` at (2, 2) (``fsdp`` splits the
-batch over all four ranks), and qwen under ``dp``.
+batch over all four ranks), and qwen under ``dp``; and for reduced
+falcon-mamba-7b (channel-parallel mamba blocks, Di 128 over 2 or 4),
+hymba-1.5b (its 4/2 heads tensor parallel at model 2 and gathered at
+model 4, its mamba channel parallel at both) and whisper-large-v3
+(tensor-parallel self-attention, cross-attention and GELU MLP; seeded
+audio frames) under ``fsdp_tp`` at (2, 2) and (1, 4).  Reduced fp32
+DLRM trains with its tables under ``emb_rows="all"`` (rows over both
+axes) on (2, 2), through the row-sharded lookup (ids out of range
+dropped) and the dense one (wrapped and clamped), ids over [-2, R + 2).
 
 Held: each step's loss and grad norm, and each rank's shard of every
 parameter and of both moments against the JAX device at the same mesh
 position, within 1e-5 of each leaf's largest magnitude (or 1).  AdamW's
-``clip_norm`` is 1.0 and every step's norm is above it, so every step
-clips by the whole gradient's norm (summed over the shards).  ``dp``
-gives the bits of the step of a model built without the mesh.  A
-checkpoint written at (2, 2) resumes at (1, 4) and on one rank with the
-unbroken run's third loss and parameters.  The families whose layers
-are gathered whole (the SSM, the hybrid, whisper) train on (2, 2) as on
-one rank, within the same 1e-5.
+``clip_norm`` is 1.0 and every LM step's norm is above it, so every step
+clips by the whole gradient's norm (summed over the shards).  No mamba
+leaf and no whisper attention, cross-attention or MLP leaf is gathered
+over ``model``, and DLRM's table gradient is not all-reduced.  ``dp``
+gives the bits of the step of a model built without the mesh, and DLRM
+under ``emb_rows="model"`` those of the row-sharded training set up
+without it.  Checkpoints written at (2, 2) (qwen; DLRM under
+``emb_rows="all"``) resume at (1, 4) and on one rank with the unbroken
+run's third loss and parameters.  The SSM, the hybrid and whisper train
+on (2, 2) as on one rank, within the same 1e-5.
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -41,42 +53,70 @@ import torch.multiprocessing as mp
 import torch_sharded_train_ranks as ranks
 from jax_dist_train_ref import named
 from repro.configs import get_config as jax_get_config
-from repro.models import transformer as JT
+from repro.models import model_api as JMA
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 ARCHS = ("qwen2.5-3b", "smollm-135m", "granite-moe-1b-a400m")
 LAYOUTS = (("fsdp_tp", 2, 2), ("fsdp_tp", 1, 4), ("fsdp_tp", 4, 1),
            ("tp", 2, 2), ("fsdp", 2, 2))
+TP_LAYOUTS = (("fsdp_tp", 2, 2), ("fsdp_tp", 1, 4))
 CASES = tuple(f"{a}|{s}|{d}|{m}" for a in ARCHS for s, d, m in LAYOUTS) \
-    + (f"{ARCHS[0]}|dp|2|2",)
+    + (f"{ARCHS[0]}|dp|2|2",) \
+    + tuple(f"{a}|{s}|{d}|{m}" for a in ranks.TP_FAMILIES
+            for s, d, m in TP_LAYOUTS)
+DLRM_CASES = tuple(f"{ranks.DLRM}|fsdp_tp|2|2|{lookup}"
+                   for lookup in ("sharded", "dense"))
 SETTINGS = dict(lr=1e-3, steps=2, microbatches=2, seq=16, batch=8)
+DLRM_B = 8
+# JAX's cases split over this many subprocesses, which compile in
+# parallel with each other and with the ranks.
+JAX_PROCS = 2
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """``(JAX's results, every rank's results)``; JAX's subprocess runs
+    """``(JAX's results, every rank's results)``; JAX's subprocesses run
     while the ranks do."""
     work = tmp_path_factory.mktemp("sharded_train")
-    data = {"cases": np.array(CASES)}
+    data = {"cases": np.array(CASES), "dlrm_cases": np.array(DLRM_CASES)}
     data.update({k: np.array(v) for k, v in SETTINGS.items()})
-    for arch in ARCHS:
-        tree = JT.init_lm(jax.random.PRNGKey(0),
-                          jax_get_config(arch).reduced())
+    rng = np.random.default_rng(31)
+    for arch in ARCHS + ranks.TP_FAMILIES + (ranks.DLRM,):
+        cfg = jax_get_config(arch).reduced()
+        tree = JMA.build(cfg).init(jax.random.PRNGKey(0))
         data.update({f"init/{arch}/{k}": v for k, v in named(tree).items()})
+        if cfg.enc_dec:
+            for s in range(SETTINGS["steps"]):
+                data[f"frames/{arch}/{s}"] = rng.normal(size=(
+                    SETTINGS["batch"], cfg.enc_len, cfg.d_model)).astype(
+                        np.float32)
+    cfg = jax_get_config(ranks.DLRM).reduced()
+    for s in range(ranks.CKPT_STEPS):
+        data[f"dlrm/{s}/dense"] = rng.normal(
+            size=(DLRM_B, cfg.dense_features)).astype(np.float32)
+        data[f"dlrm/{s}/sparse"] = rng.integers(
+            -2, cfg.rows_per_table + 2,
+            (DLRM_B, cfg.n_tables, cfg.multi_hot)).astype(np.int32)
+        data[f"dlrm/{s}/label"] = (rng.random(DLRM_B) < 0.5).astype(
+            np.float32)
     np.savez(work / "inputs.npz", **data)
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
            "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.Popen(
+    procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "jax_sharded_train_ref.py"),
-         str(work / "inputs.npz"), str(work / "jax.npz")],
+         str(work / "inputs.npz"), str(work / f"jax{i}.npz"),
+         f"{i}/{JAX_PROCS}"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(JAX_PROCS)]
     mp.spawn(ranks.rank_main, args=(4, str(work)), nprocs=4, join=True)
-    log, _ = proc.communicate(timeout=300)
-    assert proc.returncode == 0, log
-    return (dict(np.load(work / "jax.npz")),
-            [dict(np.load(work / f"rank{r}.npz")) for r in range(4)])
+    jx = {}
+    for i, proc in enumerate(procs):
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, log
+        jx.update(np.load(work / f"jax{i}.npz"))
+    return jx, [dict(np.load(work / f"rank{r}.npz")) for r in range(4)]
 
 
 def _close(got, want, what, tol=TOL):
@@ -152,11 +192,106 @@ def test_checkpoint_moves_between_meshes_and_to_one_rank(runs):
     assert float(by_rank[0]["ckpt/param_err_11"]) <= TOL
 
 
-@pytest.mark.parametrize("arch", ranks.GATHERED)
+@pytest.mark.parametrize("arch", ranks.TP_FAMILIES)
 def test_gathered_families_match_one_rank(runs, arch):
+    """The SSM, the hybrid and whisper, whose layers were gathered whole
+    and now compute tensor parallel, train on (2, 2) as on one rank."""
     _, by_rank = runs
     for res in by_rank:
-        (whole, sharded) = res[f"gathered/{arch}/loss"]
+        (whole, sharded) = res[f"tp_family/{arch}/loss"]
         np.testing.assert_allclose(sharded, whole, rtol=TOL)
-        assert int(res[f"gathered/{arch}/sharded_leaves"]) > 0
-        assert float(res[f"gathered/{arch}/param_err"]) <= TOL
+        assert int(res[f"tp_family/{arch}/sharded_leaves"]) > 0
+        assert float(res[f"tp_family/{arch}/param_err"]) <= TOL
+
+
+# Leaves that JAX's rules put on ``model`` and that the tensor-parallel
+# layers compute on the rank's part.
+_TP_LEAF = re.compile(r"\.(ssm\.\w+|(attn|xattn)\.w[qkvo]|mlp\.w[12])$")
+
+
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c.split("|")[0] in ranks.TP_FAMILIES])
+def test_tp_layers_gather_nothing_over_model(runs, case):
+    """No mamba leaf and no whisper attention, cross-attention or MLP
+    leaf is gathered over ``model``: they lie there (the specs) and the
+    layers compute on the rank's part.  Only hymba's attention at model 4
+    (2 kv heads) is gathered."""
+    _, by_rank = runs
+    arch, _, _, nm = case.split("|")
+    for res in by_rank:
+        specs = eval(str(res[f"{case}/specs"]))
+        on_model = sorted(n for n, s in specs.items() if _TP_LEAF.search(n)
+                          and any("model" in (e if isinstance(e, tuple)
+                                              else (e,)) for e in s))
+        assert on_model, case
+        gathered = eval(str(res[f"{case}/model_gathered"]))
+        if arch == "hymba-1.5b" and nm == "4":
+            assert gathered and all(".attn." in n for n in gathered)
+        else:
+            assert not gathered, (case, gathered)
+
+
+def _dlrm_shards(jx, res, case, what, r):
+    want = {k.split("/", 3)[3]: v for k, v in jx.items()
+            if k.startswith(f"{case}/{what}/r{r}/")}
+    got = {k.split("/", 2)[2]: v for k, v in res.items()
+           if k.startswith(f"{case}/{what}/")}
+    return got, want
+
+
+@pytest.mark.parametrize("case", DLRM_CASES)
+def test_dlrm_rows_over_both_axes_match_jax(runs, case):
+    """Losses, grad norms and every rank's shard of the tables, the MLPs
+    and both moments against the JAX device at its position; the table's
+    spec is rows over ("data", "model") and its gradient is never
+    all-reduced (its shape is not among the step's all-reduces)."""
+    jx, by_rank = runs
+    for r, res in enumerate(by_rank):
+        np.testing.assert_allclose(res[f"{case}/loss"], jx[f"{case}/loss"],
+                                   rtol=TOL)
+        np.testing.assert_allclose(res[f"{case}/grad_norm"],
+                                   jx[f"{case}/grad_norm"], rtol=TOL)
+        for what in ("param", "m", "v"):
+            got, want = _dlrm_shards(jx, res, case, what, r)
+            assert sorted(got) == sorted(want)
+            for name, w in want.items():
+                _close(got[name], w, f"rank {r} {what} {name}")
+        assert eval(str(res[f"{case}/specs"]))["emb"] == (
+            None, ("data", "model"))
+        emb = res[f"{case}/param/emb"].shape
+        assert emb[1] * 4 == 256
+        assert emb not in eval(str(res[f"{case}/reduced"]))
+
+
+def test_dlrm_lookups_differ_on_ids_out_of_range(runs):
+    """The two lookups give other losses: the batches' ids out of [0, R)
+    are dropped by one and wrapped or clamped by the other."""
+    jx, _ = runs
+    a, b = (jx[f"{c}/loss"] for c in DLRM_CASES)
+    assert float(np.abs(a - b).max()) > 100 * TOL
+
+
+def test_dlrm_emb_rows_model_is_the_row_sharded_training(runs):
+    """``emb_rows="model"`` is the row-sharded training's layout and
+    arithmetic, bit for bit; the grad norm is the whole gradient's, the
+    same on every rank (above 1 at the second step, which clips)."""
+    _, by_rank = runs
+    norms = by_rank[0]["dlrm_model/grad_norm"]
+    assert norms[1] > 1.0
+    for res in by_rank:
+        assert eval(str(res["dlrm_model/spec"])) == (None, "model")
+        assert bool(res["dlrm_model/bit_equal"])
+        np.testing.assert_array_equal(res["dlrm_model/grad_norm"], norms)
+
+
+def test_dlrm_checkpoint_moves_between_meshes_and_to_one_rank(runs):
+    _, by_rank = runs
+    want = float(by_rank[0]["dlrm_ckpt/loss"])
+    for res in by_rank:
+        assert int(res["dlrm_ckpt/start_14"]) == ranks.CKPT_STEPS - 1
+        np.testing.assert_allclose(float(res["dlrm_ckpt/loss_14"]), want,
+                                   rtol=TOL)
+        assert float(res["dlrm_ckpt/param_err_14"]) <= TOL
+    np.testing.assert_allclose(float(by_rank[0]["dlrm_ckpt/loss_11"]), want,
+                               rtol=TOL)
+    assert float(by_rank[0]["dlrm_ckpt/param_err_11"]) <= TOL

@@ -5,23 +5,31 @@ parameters from the ``.npz`` the test wrote and leaves its results in
 ``rank<r>.npz``.
 
 Every rank, over the world of four:
-- for each case (``arch|sharding|data|model``), builds the reduced arch
-  from JAX's parameters, cuts its shards (``shard_model``) and trains two
-  steps of two microbatches under ``remat="full"``: each step's loss and
-  grad norm, and its shard of every parameter and moment after them;
+- for each case (``arch|sharding|data|model``; DLRM's add ``|sharded`` or
+  ``|dense``, the lookup), builds the reduced arch from JAX's parameters,
+  cuts its shards (``shard_model``; DLRM's tables by ``place_tables``
+  under ``emb_rows="all"``) and trains two steps of two microbatches
+  under ``remat="full"``: each step's loss and grad norm, and its shard of
+  every parameter and moment after them; with them the names of the
+  leaves gathered over ``model`` (a view that keeps the model part does
+  not count) and the shapes the step all-reduced;
 - trains the first arch with ``sharding="dp"`` and with a bundle built
   without the mesh (whole parameters, the mesh's data all-reduce): every
   loss and parameter, bit for bit (``dp/...``);
 - trains the first arch under ``fsdp_tp`` on (2, 2) for three steps,
   checkpointing after two (``ckpt/...``), and resumes that checkpoint on a
   (1, 4) mesh: the third step's loss and its shards against the unbroken
-  run's.
-- trains reduced falcon-mamba-7b, hymba-1.5b and whisper-large-v3
-  (whose layers are gathered whole and computed replicated over
-  ``model``) under ``fsdp_tp`` on (2, 2) and, in the same process, on one
+  run's; and DLRM with its tables under ``emb_rows="all"`` the same way
+  (``dlrm_ckpt/...``);
+- trains DLRM through ``build(..., mesh=)`` under ``emb_rows="model"``
+  and as a bundle without the mesh over its ``shard_params``: every loss,
+  grad norm and parameter, bit for bit (``dlrm_model/...``);
+- trains reduced falcon-mamba-7b, hymba-1.5b and whisper-large-v3 (whose
+  mamba blocks, attention, cross-attention and MLPs compute tensor
+  parallel) under ``fsdp_tp`` on (2, 2) and, in the same process, on one
   rank: the losses and its shard of every parameter against the one
-  rank's (``gathered/...``).
-Then rank 0 alone, outside any process group, resumes the checkpoint on
+  rank's (``tp_family/...``).
+Then rank 0 alone, outside any process group, resumes both checkpoints on
 one rank.
 """
 from pathlib import Path
@@ -32,44 +40,65 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data.lm_data import LMDataConfig, batch_at
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.collectives import gather_leaf
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import _restore
+from repro_torch.models import dlrm as D
 from repro_torch.models import transformer as T
 from repro_torch.models.model_api import build
 from repro_torch.optim.adamw import OptConfig, init_opt
-from repro_torch.sharding.partition import shard_of
-from repro_torch.tree import named_leaves
+from repro_torch.sharding.partition import shard_of, spec_axes
+from repro_torch.tree import leaves, named_leaves
 
 CKPT_STEPS = 3
-GATHERED = ("falcon-mamba-7b", "hymba-1.5b", "whisper-large-v3")
+TP_FAMILIES = ("falcon-mamba-7b", "hymba-1.5b", "whisper-large-v3")
+DLRM = "dlrm-recmg"
 
 
 def whole_model(data, arch):
     """The reduced arch with JAX's initial parameters, whole."""
     cfg = get_config(arch).reduced()
-    model = T.init_lm(cfg, device="cpu")
+    model = build(cfg, device="cpu").init(seed=0)
     with torch.no_grad():
         for name, p in named_leaves(model):
             p.copy_(torch.from_numpy(data[f"init/{arch}/{name}"]))
     return cfg, model
 
 
-def trainer(data, arch, sharding, mesh, steps, build_mesh=True):
+def batch_fn(data, arch, cfg, seq=None):
+    """``batch(s)``: DLRM's step-s batch of the inputs, else ``batch_at``'s
+    (whisper's with the inputs' frames)."""
+    if cfg.family == "dlrm":
+        return lambda s: {k: data[f"dlrm/{s}/{k}"]
+                          for k in ("dense", "sparse", "label")}
+    dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=seq or int(data["seq"]),
+                        global_batch=int(data["batch"]))
+
+    def batch(s):
+        b = batch_at(dcfg, s)
+        if cfg.enc_dec:
+            b["frontend"] = data[f"frames/{arch}/{s}"]
+        return b
+
+    return batch
+
+
+def trainer(data, arch, sharding, mesh, steps, build_mesh=True, **run_kw):
     """``(model, opt, step_fn, batch(s))`` for ``arch`` on ``mesh``."""
     cfg, model = whole_model(data, arch)
-    run = RunConfig(remat="full", sharding=sharding)
+    run = RunConfig(remat="full", sharding=sharding, **run_kw)
     bundle = build(cfg, device="cpu", run=run,
                    mesh=mesh if build_mesh else None)
-    if build_mesh:
-        T.shard_model(model, mesh, sharding)
+    if build_mesh and mesh is not None:
+        model = (D.place_tables(model, mesh, sharding, run.emb_rows)
+                 if cfg.family == "dlrm"
+                 else T.shard_model(model, mesh, sharding))
     opt = init_opt(OptConfig(lr=float(data["lr"]), total_steps=steps),
-                   list(model.parameters()))
+                   leaves(model))
     step = make_train_step(bundle, int(data["microbatches"]), mesh)
-    dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=int(data["seq"]),
-                        global_batch=int(data["batch"]))
-    return model, opt, step, lambda s: batch_at(dcfg, s)
+    return model, opt, step, batch_fn(data, arch, cfg)
 
 
 def put(res, prefix, named):
@@ -77,12 +106,46 @@ def put(res, prefix, named):
         res[f"{prefix}/{name}"] = t.detach().float().numpy().copy()
 
 
+class Watch:
+    """Within the scope: the names of ``model``'s leaves that a view
+    gathers over the ``model`` axis (``gather_leaf`` without
+    ``keep_model`` on a leaf placed there), and the shapes of the
+    tensors the sum all-reduces."""
+
+    def __init__(self, model):
+        self.names = {id(p): n for n, p in named_leaves(model)}
+
+    def __enter__(self):
+        self.model_gathered, self.reduced = set(), []
+        self._gather, self._reduce = C.gather_leaf, C.all_reduce_
+
+        def gather(p, keep_model=False):
+            pl = M.placement(p)
+            if pl is not None and not keep_model \
+                    and "model" in spec_axes(pl.spec):
+                self.model_gathered.add(self.names.get(id(p), "?"))
+            return self._gather(p, keep_model)
+
+        def reduce(x, group):
+            self.reduced.append(tuple(x.shape))
+            return self._reduce(x, group)
+
+        C.gather_leaf, C.all_reduce_ = gather, reduce
+        return self
+
+    def __exit__(self, *exc):
+        C.gather_leaf, C.all_reduce_ = self._gather, self._reduce
+
+
 def train_case(data, case, res):
-    arch, sharding, nd, nm = case.split("|")
+    arch, sharding, nd, nm, *lookup = case.split("|")
     mesh = M.make_mesh(int(nd), int(nm))
     steps = int(data["steps"])
-    model, opt, step, batch = trainer(data, arch, sharding, mesh, steps)
-    ms = [step(model, opt, batch(s)) for s in range(steps)]
+    kw = {"dlrm_sharded_lookup": lookup == ["sharded"]} if lookup else {}
+    model, opt, step, batch = trainer(data, arch, sharding, mesh, steps,
+                                      **kw)
+    with Watch(model) as watch:
+        ms = [step(model, opt, batch(s)) for s in range(steps)]
     res[f"{case}/loss"] = np.array([float(m["loss"]) for m in ms])
     res[f"{case}/grad_norm"] = np.array([float(m["grad_norm"]) for m in ms])
     names = [n for n, _ in named_leaves(model)]
@@ -93,6 +156,9 @@ def train_case(data, case, res):
     res[f"{case}/specs"] = np.array(repr({n: p.placement.spec
                                           for n, p in named_leaves(model)
                                           if M.placement(p) is not None}))
+    res[f"{case}/model_gathered"] = np.array(repr(sorted(
+        watch.model_gathered)))
+    res[f"{case}/reduced"] = np.array(repr(watch.reduced))
 
 
 def dp_bits(data, arch, res):
@@ -115,18 +181,45 @@ def dp_bits(data, arch, res):
         and all(torch.equal(a, b) for a, b in zip(p0, p1)))
 
 
-def checkpoint_across_meshes(data, arch, work, res):
+def dlrm_model_bits(data, res):
+    """DLRM through ``build(..., mesh=)`` with ``emb_rows="model"`` against
+    a bundle built without the mesh over the rank's ``shard_params`` (the
+    row-sharded training's own set-up): the same losses, grad norms (the
+    second step's above 1: it clips) and parameters, bit for bit."""
+    mesh = M.make_mesh(2, 2)
+    steps = int(data["steps"])
+    out = []
+    for placed in (True, False):
+        model, opt, step, batch = trainer(
+            data, DLRM, "fsdp_tp", mesh, steps, build_mesh=placed,
+            dlrm_sharded_lookup=True, emb_rows="model")
+        if not placed:
+            model = D.shard_params(model, mesh)
+            opt = init_opt(OptConfig(lr=float(data["lr"]),
+                                     total_steps=steps), leaves(model))
+        ms = [step(model, opt, batch(s)) for s in range(steps)]
+        out.append(([m["loss"] for m in ms] + [m["grad_norm"] for m in ms],
+                    [p.detach().clone() for p in leaves(model)], model))
+    (m0, p0, model), (m1, p1, _) = out
+    res["dlrm_model/spec"] = np.array(repr(model["emb"].placement.spec))
+    res["dlrm_model/grad_norm"] = np.array([float(n) for n in m0[steps:]])
+    res["dlrm_model/bit_equal"] = np.array(
+        all(torch.equal(a, b) for a, b in zip(m0, m1))
+        and all(torch.equal(a, b) for a, b in zip(p0, p1)))
+
+
+def checkpoint_across_meshes(data, arch, work, res, key="ckpt", **kw):
     """Three steps on (2, 2), checkpointed after two; the third step
     resumed on (1, 4).  Returns the unbroken run's whole parameters."""
     mesh = M.make_mesh(2, 2)
     model, opt, step, batch = trainer(data, arch, "fsdp_tp", mesh,
-                                      CKPT_STEPS)
+                                      CKPT_STEPS, **kw)
     for s in range(CKPT_STEPS - 1):
         step(model, opt, batch(s))
-    ckpt.save(str(work / "ckpt"), CKPT_STEPS - 1,
+    ckpt.save(str(work / key), CKPT_STEPS - 1,
               {"params": model, "opt": opt.state_dict()},
               write=mesh.rank == 0)
-    res["ckpt/loss"] = np.array(float(step(model, opt, batch(
+    res[f"{key}/loss"] = np.array(float(step(model, opt, batch(
         CKPT_STEPS - 1))["loss"]))
     with torch.no_grad():
         whole = {n: gather_leaf(p) for n, p in named_leaves(model)}
@@ -134,38 +227,39 @@ def checkpoint_across_meshes(data, arch, work, res):
 
     mesh = M.make_mesh(1, 4)
     model, opt, step, batch = trainer(data, arch, "fsdp_tp", mesh,
-                                      CKPT_STEPS)
-    start = _restore(str(work / "ckpt"), model, opt)
-    res["ckpt/start_14"] = np.array(start)
-    res["ckpt/loss_14"] = np.array(float(step(model, opt, batch(
+                                      CKPT_STEPS, **kw)
+    start = _restore(str(work / key), model, opt)
+    res[f"{key}/start_14"] = np.array(start)
+    res[f"{key}/loss_14"] = np.array(float(step(model, opt, batch(
         start))["loss"]))
     err = 0.0
     for n, p in named_leaves(model):
-        want = shard_of(whole[n], p.placement.spec, mesh)
+        pl = M.placement(p)
+        want = whole[n] if pl is None else shard_of(whole[n], pl.spec, mesh)
         err = max(err, float((p.detach() - want).abs().max())
                   / max(1.0, float(want.abs().max())))
-    res["ckpt/param_err_14"] = np.array(err)
+    res[f"{key}/param_err_14"] = np.array(err)
     return whole
 
 
-def one_rank_resume(data, arch, work, whole, res):
+def one_rank_resume(data, arch, work, whole, res, key="ckpt", **kw):
     model, opt, step, batch = trainer(data, arch, "fsdp_tp", None,
-                                      CKPT_STEPS)
-    start = _restore(str(work / "ckpt"), model, opt)
-    res["ckpt/loss_11"] = np.array(float(step(model, opt, batch(
+                                      CKPT_STEPS, **kw)
+    start = _restore(str(work / key), model, opt)
+    res[f"{key}/loss_11"] = np.array(float(step(model, opt, batch(
         start))["loss"]))
-    res["ckpt/param_err_11"] = np.array(max(
+    res[f"{key}/param_err_11"] = np.array(max(
         float((p.detach() - whole[n]).abs().max())
         / max(1.0, float(whole[n].abs().max()))
         for n, p in named_leaves(model)))
 
 
-def gathered_families(data, res):
-    """Each arch of ``GATHERED`` trained two steps on (2, 2) and on one
+def tp_families(data, res):
+    """Each arch of ``TP_FAMILIES`` trained two steps on (2, 2) and on one
     rank from seed 0 (whisper's audio frames a seeded draw)."""
     mesh = M.make_mesh(2, 2)
     steps, mb = int(data["steps"]), int(data["microbatches"])
-    for arch in GATHERED:
+    for arch in TP_FAMILIES:
         cfg = get_config(arch).reduced()
         dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=int(data["seq"]),
                             global_batch=int(data["batch"]))
@@ -190,10 +284,10 @@ def gathered_families(data, res):
                          for s in range(steps)], model))
         (l0, whole), (l1, model) = out
         want = dict(named_leaves(whole))
-        res[f"gathered/{arch}/loss"] = np.array([l0, l1])
-        res[f"gathered/{arch}/sharded_leaves"] = np.array(sum(
+        res[f"tp_family/{arch}/loss"] = np.array([l0, l1])
+        res[f"tp_family/{arch}/sharded_leaves"] = np.array(sum(
             bool(p.placement.spec) for p in model.parameters()))
-        res[f"gathered/{arch}/param_err"] = np.array(max(
+        res[f"tp_family/{arch}/param_err"] = np.array(max(
             float((p.detach() - shard_of(want[n].detach(), p.placement.spec,
                                          mesh)).abs().max())
             / max(1.0, float(want[n].abs().max()))
@@ -207,13 +301,17 @@ def rank_main(rank, world, work):
     res = {}
     M.init_distributed("gloo", f"file://{work}/store", rank, world,
                        device="cpu", timeout=120)
-    for case in data["cases"]:
+    for case in list(data["cases"]) + list(data["dlrm_cases"]):
         train_case(data, str(case), res)
     first = str(data["cases"][0]).split("|")[0]
     dp_bits(data, first, res)
-    gathered_families(data, res)
+    dlrm_model_bits(data, res)
+    tp_families(data, res)
     whole = checkpoint_across_meshes(data, first, work, res)
+    dlrm_whole = checkpoint_across_meshes(data, DLRM, work, res,
+                                          "dlrm_ckpt")
     M.close_distributed()
     if rank == 0:
         one_rank_resume(data, first, work, whole, res)
+        one_rank_resume(data, DLRM, work, dlrm_whole, res, "dlrm_ckpt")
     np.savez(work / f"rank{rank}.npz", **res)
