@@ -120,6 +120,27 @@ trained at full depth):
    encoder unmasked, its decoder causal, (2, 1500 or 448, 10/10, 64)).
    The launches counted are the (1, 1) step's and the four ranks'
    sharded runs';
+6''''. the LMs served over the mesh (phase ``lm_sharded_serve``): the
+   forward kernel's query-offset mode (row 8''''') at qwen2.5-3b's rank
+   shapes of a four-way sequence split, q (8, 512, 16, 128) at offsets
+   0, 512, 1,024 and 1,536 against k/v (8, 2,048, 2, 128), causal, the
+   last also windowed and the first unmasked, bf16 and fp32, against
+   ``ref.kv_stream_attention_ref`` (fp32 1e-5, bf16 1e-2), each shard's
+   rows bit-equal to the whole attention's and offset 0 to the old call,
+   the costliest shard timed beside its bound and SDPA with the explicit
+   offset mask; world 1 over NCCL in this process (qwen's cut, 2 of 36
+   layers, through ``build(..., mesh=)`` on (1, 1): the fsdp_seq prefill
+   and tp decode against the whole model's logits); then, in the four
+   gloo ranks after their sharded training: qwen's cut in bf16 on (2, 2),
+   an fsdp_seq prefill of 8 x 2,048 tokens (each rank 1,024 positions at
+   its offset) and 16 tp decode steps, the cache's slots over model
+   (``shard_kv_seq``) and then its KV heads, each within 2e-2 of the
+   whole model's largest logit; in fp32 on (1, 4) at S = 512 within
+   1e-5; and falcon-mamba-7b at 2 of 64 layers in bf16 on (2, 2), S =
+   512 (its mamba blocks gather the sequence, decode channel parallel on
+   the conv and SSM states' channels over model) within 2e-2; each
+   rank's collective calls and bytes, cache bytes and host ms.  The
+   launches counted are the (1, 1) run's and the ranks' served runs';
 7. the learned models' kernels vs plain on the card: ``lstm_cell`` at the
    inference (B=4096) and training (B=256) shapes of every LSTM layer of
    the path (K = 57, 67, 80, 88, 120 at H = 32 or 40), within fp32 abs
@@ -363,7 +384,9 @@ window, counts the distributed serve's and training's launches (6',
 all-reduce's time and bytes, and the training's launches of it and of
 the attention kernels show as ``launches_distributed_train``, the
 sharded LMs' (6''') as ``launches_sharded_train`` beside the kernels'
-``sharded_layout`` records;
+``sharded_layout`` records, and the served LMs' (6'''') as
+``launches_lm_sharded_serve`` (``flash_attention``'s beside its
+``offset`` record; ``selective_scan``'s);
 ``selective_scan`` and ``selective_scan_bwd`` have no TPU kernel
 (``replaces`` null, a ``note`` says why) and carry their SFU floors, and
 ``flash_attention`` and ``flash_attention_bwd`` carry their ``windowed``
@@ -1510,11 +1533,13 @@ def distributed_rank(rank, world, work, b, train_ref):
     rec["train"] = distributed_train_rank(rank, world, work, dev, mesh,
                                           train_ref)
     rec["sharded"] = sharded_train_rank(rank, work, dev, train_ref["sharded"])
+    rec["lm_serve"] = lm_sharded_serve_rank(rank, work, dev)
     Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
     M.close_distributed()
 
 
-def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches):
+def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches,
+                            ss_nccl_launches):
     """Four gloo ranks on the one card, a (2, 2) mesh, the full-width
     tables row-sharded over model (7.97 GB a rank): the gathered logits
     within 2e-2 (bf16) of ``want``, each rank's shard window within fp32
@@ -1522,10 +1547,12 @@ def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches):
     ``distributed_train`` against ``train_ref`` (its references' files in
     ``work``, which this removes), and phase ``sharded_train``'s four
     ranks (:func:`report_sharded_train`, with the world-1 run's launches
-    ``st_nccl_launches``).  Returns rank 0's kernel record (errors the
-    largest over the ranks), the window's serve launches over the ranks,
-    the training's launches over the ranks and the sharded training's
-    launches of ``ST_KERNELS``."""
+    ``st_nccl_launches``), then phase ``lm_sharded_serve``'s
+    (:func:`report_lm_sharded_serve`, with ``ss_nccl_launches``).  Returns
+    rank 0's kernel record (errors the largest over the ranks), the
+    window's serve launches over the ranks, the training's launches over
+    the ranks, the sharded training's launches of ``ST_KERNELS`` and the
+    served LM's offset-kernel launches."""
     world = DIST_MESH[0] * DIST_MESH[1]
     torch.cuda.empty_cache()
     try:
@@ -1567,7 +1594,8 @@ def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches):
                max_abs_err=max(r["max_abs_err"] for r in recs),
                library="embedding_bag(mode='sum', per_sample_weights=owned)")
     return (rec, launches, report_distributed_train(recs, spawn_s),
-            report_sharded_train(recs, st_nccl_launches))
+            report_sharded_train(recs, st_nccl_launches),
+            report_lm_sharded_serve(recs, ss_nccl_launches))
 
 
 # ---------------------------------------------------------------------------
@@ -2618,6 +2646,307 @@ def report_sharded_train(recs, nccl_launches):
         require(q["launches"].get("flash_attention", 0) > 0
                 and q["launches"].get("flash_attention_bwd", 0) > 0,
                 f"rank {r['rank']} qwen launched {q['launches']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6'''': the LMs served over the mesh (each rank's shards, JAX's batch
+# and cache layouts, fsdp_seq's sequence split through the offset kernel).
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at full width (16/2 heads of 128, bf16), its depth cut from 36
+# to 2 layers: an fsdp_seq prefill of 8 x 2,048 tokens on (2, 2) (a rank's
+# 4 rows x 1,024 positions, the queries at offset 0 or 1,024), then 16
+# decode steps under tp, once with the cache's slots over model
+# (shard_kv_seq) and once with its 2 KV heads over model; each against the
+# same parameters served whole on the card within SS_TOL_BF16 of the
+# largest logit magnitude.  fp32 parity at S = 512 on (1, 4) (128 positions
+# a rank; 2 KV heads do not split over 4: the attention gathered, the
+# cache's slots over model) within SS_TOL_FP32.
+SS = dict(arch="qwen2.5-3b", n_layers=2, seq=2048, batch=8, steps=16,
+          mesh=(2, 2), parity_seq=512, parity_mesh=(1, 4))
+SS_TOL_BF16, SS_TOL_FP32 = 2e-2, 1e-5
+# The served runs of the ranks: (name, arch, dtype, mesh, S, shard_kv_seq
+# values).  falcon-mamba-7b at 2 of 64 layers, bf16 on (2, 2), S = 512:
+# the mamba blocks gather the sequence under fsdp_seq, and decode channel
+# parallel under tp on the conv and SSM states' channels over model.
+SS_RUNS = (("bf16", SS["arch"], "bfloat16", SS["mesh"], SS["seq"],
+            (True, False)),
+           ("fp32", SS["arch"], "float32", SS["parity_mesh"],
+            SS["parity_seq"], (True,)),
+           ("falcon_bf16", "falcon-mamba-7b", "bfloat16", SS["mesh"], 512,
+            (True,)))
+# The offset kernel at the rank shapes of a four-way split of qwen's 2,048
+# positions: q shards (8, 512, 16, 128) at these offsets against k/v
+# (8, 2,048, 2, 128), causal; the last shard also in a window and the
+# first unmasked.  Its plain version is ref.kv_stream_attention_ref (fp32
+# within 1e-5, bf16 within 1e-2); each shard's rows equal the whole
+# attention's rows bit for bit, and offset 0 at Sq = Sk is the old call.
+SS_OFFSETS = (0, 512, 1024, 1536)
+SS_Q, SS_SK, SS_KV_HEADS, SS_WINDOW = (8, 512, 16, 128), 2048, 2, 700
+# World 1 over NCCL: the cut's served path on a (1, 1) mesh, 2 x 512.
+SS_NCCL_BATCH, SS_NCCL_SEQ, SS_NCCL_STEPS = 2, 512, 4
+
+
+def ss_cfg(dtype, arch=SS["arch"]):
+    return dataclasses.replace(get_config(arch), n_layers=SS["n_layers"],
+                               param_dtype=dtype, compute_dtype=dtype)
+
+
+def ss_batch(cfg, b, seq, steps):
+    """The prompt (b, seq) and ``steps`` decode tokens (b, 1), seeded."""
+    rng = np.random.default_rng(seq + b)
+    return (torch.from_numpy(rng.integers(0, cfg.vocab, (b, seq))),
+            [torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1)))
+             for _ in range(steps)])
+
+
+def ss_serve(cfg, model, tokens, steps, mesh=None, kv_seq=True, dev="cuda"):
+    """The prefill (whole, or on ``mesh`` under fsdp_seq) and the decode
+    steps (on ``mesh`` under tp): ``(the logits stacked (1 + steps, B_r,
+    V) on the host, the cache, prefill ms, decode ms a step)``.  ``model``
+    is one whole model, or a mesh's fsdp_seq and tp models."""
+    cap = tokens.shape[1] + len(steps)
+    pre = build(cfg, device=dev, run=RunConfig(
+        sharding="fsdp_seq", shard_kv_seq=kv_seq), mesh=mesh)
+    dec = build(cfg, device=dev, run=RunConfig(
+        sharding="tp", shard_kv_seq=kv_seq), mesh=mesh)
+    first, second = model if mesh is not None else (model, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre.prefill(first, {"tokens": tokens}, cap)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for tok in steps:
+        logits, cache = dec.decode(second, tok, cache)
+        out.append(logits.float().cpu())
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(len(steps), 1)
+    return torch.stack(out), cache, prefill_ms, decode_ms
+
+
+def _share_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def ss_offset_kernels(timer):
+    """Row 8''''': the forward kernel's offset mode at ``SS_Q`` against
+    its plain version in both dtypes, the shards' rows against the whole
+    attention's bits, offset 0 against the old call; the costliest shard
+    (offset 1,536, bf16) timed beside its bound (its visible keys'
+    products and its bytes) and SDPA with the same explicit mask."""
+    b, sq, h, hd = SS_Q
+    sk, n_kv = SS_SK, SS_KV_HEADS
+    g = torch.Generator(device="cuda").manual_seed(32)
+    rec = {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": n_kv, "hd": hd,
+           "offsets": list(SS_OFFSETS), "window": SS_WINDOW,
+           "layout": "qwen2.5-3b's queries split four ways over model",
+           "errors": {}, "rows_bit_equal_whole": True,
+           "offset0_bit_equal_old_call": True}
+    for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        tol = 1e-2 if dt_name == "bf16" else 1e-5
+        qf = torch.randn((b, sk, h, hd), generator=g, device="cuda").to(dt)
+        k, v = (torch.randn((b, sk, n_kv, hd), generator=g, device="cuda")
+                .to(dt) for _ in range(2))
+        cases = [(off, 0, True) for off in SS_OFFSETS] + [
+            (SS_OFFSETS[-1], SS_WINDOW, True), (0, 0, False)]
+        for off, w, causal in cases:
+            q = qf[:, off:off + sq].contiguous()
+            got = fa.flash_attention(q, k, v, window=w, causal=causal,
+                                     q_offset=off)
+            want = ref.kv_stream_attention_ref(q, k, v, w, 512, off, causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            key = f"{dt_name}_{'causal' if causal else 'unmasked'}_{off}" \
+                + (f"_window{w}" if w else "")
+            rec["errors"][key] = err
+            require(err <= tol, f"flash_attention offset {key}: max abs err "
+                    f"{err}")
+            if causal:
+                whole = fa.flash_attention(qf, k, v, window=w)
+                require(torch.equal(got, whole[:, off:off + sq]),
+                        f"flash_attention offset {key}: the rows differ "
+                        "from the whole attention's")
+                del whole
+            del got, want
+        require(torch.equal(fa.flash_attention(qf, k, v),
+                            fa.flash_attention(qf, k, v, q_offset=0)),
+                f"flash_attention {dt_name}: offset 0 differs from the old "
+                "call")
+        if dt_name == "bf16":
+            off = SS_OFFSETS[-1]
+            q = qf[:, off:off + sq].contiguous()
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = (torch.arange(sk, device="cuda")[None, :]
+                    <= off + torch.arange(sq, device="cuda")[:, None])
+            rec.update(
+                dtype="bf16", timed_offset=off,
+                ms=timer(lambda: fa.flash_attention(q, k, v, q_offset=off)),
+                plain_ms=timer(lambda: ref.kv_stream_attention_ref(
+                    q, k, v, 0, 512, off)),
+                library_ms=timer(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+                library="scaled_dot_product_attention(attn_mask=offset "
+                        "mask, enable_gqa=True)")
+            visible = sq * off + sq * (sq + 1) // 2  # keys over the rows
+            n_ops = 4 * b * h * hd * visible
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                q.element_size() * b * hd * (2 * sq * h + 2 * sk * n_kv),
+                n_ops, BF16_OPS_PER_S)
+            achieved(rec, n_ops)
+            del qt, kt, vt, mask
+        del qf, k, v
+    torch.cuda.empty_cache()
+    rec["max_abs_err"] = max(v for k, v in rec["errors"].items()
+                             if k.startswith("bf16"))
+    return rec
+
+
+def phase_lm_sharded_serve_nccl(work, timer):
+    """Row 8''''' (:func:`ss_offset_kernels`); then world 1 over NCCL in
+    this process: the cut's fsdp_seq prefill and tp decode through
+    ``build(..., mesh=)`` on a (1, 1) mesh (its gathers, the sequence
+    split and the cache's exchange run over the one rank) against the
+    same parameters served whole; then the four ranks' references, the
+    cut served whole in bf16 (S 2,048) and fp32 (S 512), saved to
+    ``work``.  Returns ``(the kernel record, the (1, 1) run's
+    flash_attention launches)``."""
+    t0 = time.perf_counter()
+    rec = ss_offset_kernels(timer)
+    cfg = ss_cfg("bfloat16")
+    tokens, steps = ss_batch(cfg, SS_NCCL_BATCH, SS_NCCL_SEQ, SS_NCCL_STEPS)
+    whole = build(cfg, device="cuda").init(seed=0)
+    want = ss_serve(cfg, whole, tokens, steps)[0]
+    del whole
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_serve_")
+    try:
+        M.init_distributed("nccl", f"file://{store}/store", 0, 1,
+                           device="cuda:0", timeout=120)
+        mesh = M.make_host_mesh()
+        models = tuple(build(cfg, device="cuda", run=RunConfig(sharding=s),
+                             mesh=mesh).init(seed=0)
+                       for s in ("fsdp_seq", "tp"))
+        C.reset_traffic()
+        ops.reset_launches()
+        got = ss_serve(cfg, models, tokens, steps, mesh)[0]
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        traffic = copy.deepcopy(C.TRAFFIC)
+        del models
+    finally:
+        M.close_distributed()
+        shutil.rmtree(store, ignore_errors=True)
+    err = _share_err(got, want)
+    require(err <= SS_TOL_BF16 and launches == cfg.n_layers
+            and traffic["all_gather"]["calls"] > 0,
+            f"nccl world 1 served: logits err {err}, flash_attention "
+            f"{launches}, traffic {traffic}")
+    emit({"phase": "lm_sharded_serve", "world": 1, "backend": "nccl",
+          "mesh": mesh.shape, "arch": SS["arch"], "n_layers": SS["n_layers"],
+          "prefill": "fsdp_seq", "decode": "tp", "B": SS_NCCL_BATCH,
+          "S": SS_NCCL_SEQ, "steps": SS_NCCL_STEPS,
+          "logits_err_share_vs_whole": err,
+          "logits_bit_equal_whole": bool(torch.equal(got, want)),
+          "flash_attention_launches": launches, "traffic": traffic,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    torch.cuda.empty_cache()
+    # The references: the cut served whole, one process holding it.
+    for dt_name, arch, dtype, _, seq, _ in SS_RUNS:
+        cfg = ss_cfg(dtype, arch)
+        tokens, steps = ss_batch(cfg, SS["batch"], seq, SS["steps"])
+        model = build(cfg, device="cuda").init(seed=0)
+        logits, _, pre_ms, dec_ms = ss_serve(cfg, model, tokens, steps)
+        torch.save({"logits": logits, "prefill_ms": pre_ms,
+                    "decode_ms": dec_ms}, Path(work, f"ss_ref_{dt_name}.pt"))
+        del model
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def lm_sharded_serve_rank(rank, work, dev):
+    """The gloo rank's served LMs, after its sharded training (``SS_RUNS``):
+    qwen's cut in bf16 on (2, 2) (the fsdp_seq prefill, then the tp
+    decode, for both cache layouts), in fp32 on (1, 4) (the slots over
+    model) and falcon-mamba-7b's in bf16 on (2, 2), each against the whole
+    model's logits saved in ``work``: the rank's rows' errors as a share of
+    their largest magnitude, the collectives' calls and bytes, its bytes
+    of cache, the prefill's and a decode step's host ms, and the kernels'
+    launches.  Returns the rank's record."""
+    t_start = time.perf_counter()
+    rec = {}
+    for dt_name, arch, dtype, shape, seq, kv_seqs in SS_RUNS:
+        cfg = ss_cfg(dtype, arch)
+        mesh = M.make_mesh(*shape)
+        want = torch.load(Path(work, f"ss_ref_{dt_name}.pt"))
+        tokens, steps = ss_batch(cfg, SS["batch"], seq, SS["steps"])
+        rows = SP.shard_of(torch.arange(SS["batch"]), SP.batch_spec(
+            (SS["batch"], seq), mesh, "fsdp_seq")[:1], mesh)
+        models = tuple(build(cfg, device=dev, run=RunConfig(sharding=s),
+                             mesh=mesh).init(seed=0)
+                       for s in ("fsdp_seq", "tp"))
+        for kv_seq in kv_seqs:
+            dist.barrier()
+            C.reset_traffic()
+            ops.reset_launches()
+            got, cache, pre_ms, dec_ms = ss_serve(cfg, models, tokens, steps,
+                                                  mesh, kv_seq, dev)
+            torch.cuda.synchronize()
+            rec[f"{dt_name}_kv_seq_{int(kv_seq)}"] = {
+                "arch": arch, "mesh": dict(zip(("data", "model"), shape)),
+                "S": seq,
+                "rows": rows.tolist(),
+                "logits_err_share": _share_err(got, want["logits"][:, rows]),
+                "cache_bytes": sum(t.numel() * t.element_size()
+                                   for t in cache.values()
+                                   if isinstance(t, torch.Tensor)),
+                "cache_shapes": {n: list(t.shape) for n, t in cache.items()
+                                 if isinstance(t, torch.Tensor)},
+                "traffic": copy.deepcopy(C.TRAFFIC),
+                "launches": {fn.__name__: fn.launches for fn in ops.KERNELS
+                             if fn.launches},
+                "prefill_ms_host": pre_ms, "decode_ms_host_per_step": dec_ms,
+                "whole_prefill_ms_host": want["prefill_ms"],
+                "whole_decode_ms_host_per_step": want["decode_ms"]}
+            del cache
+        del models
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def report_lm_sharded_serve(recs, nccl_launches):
+    """Holds the gloo ranks' served LMs against the whole models and emits
+    the phase's line; returns ``{kernel: launches}`` over the ranks and
+    the world-1 run (``flash_attention``'s offset mode, falcon's
+    ``selective_scan``)."""
+    ranks = [r["lm_serve"] for r in recs]
+    launches = {"flash_attention": nccl_launches}
+    for r, rk in zip(recs, ranks):
+        for key, run in rk.items():
+            if key == "seconds":
+                continue
+            tol = SS_TOL_FP32 if key.startswith("fp32") else SS_TOL_BF16
+            kernel = ("selective_scan" if run["arch"] == "falcon-mamba-7b"
+                      else "flash_attention")
+            n = run["launches"].get(kernel, 0)
+            require(run["logits_err_share"] <= tol and n == SS["n_layers"]
+                    and run["traffic"]["all_gather"]["calls"] > 0,
+                    f"rank {r['rank']} {key}: logits err "
+                    f"{run['logits_err_share']}, {kernel} {n}, "
+                    f"traffic {run['traffic']}")
+            launches[kernel] = launches.get(kernel, 0) + n
+    emit({"phase": "lm_sharded_serve", "world": len(recs), "backend": "gloo",
+          "ranks_on_one_card": len(recs), "collective_note": GLOO_NOTE,
+          "arch": SS["arch"], "cuts": {"n_layers": [36, SS["n_layers"]],
+                                       "falcon-mamba-7b": [64,
+                                                           SS["n_layers"]]},
+          "prefill": "fsdp_seq (the sequence over model)",
+          "decode": "tp", "global_batch": SS["batch"], "steps": SS["steps"],
+          "tol": {"bf16": SS_TOL_BF16, "fp32": SS_TOL_FP32},
+          "seconds_ranks": max(rk["seconds"] for rk in ranks),
+          "ranks": [{"rank": r["rank"], **r["lm_serve"]} for r in recs]})
     return launches
 
 
@@ -5632,9 +5961,16 @@ def main():
     train_ref["sharded"], st_kernels, st_nccl_launches = timed(
         "sharded_train_nccl", phase_sharded_train_nccl, dist_work, timer,
         scan_ptxas)
-    shard_rec, gloo_launches, dist_train_launches, st_launches = timed(
+    # The LMs served over the mesh: the offset kernel, world 1 over NCCL
+    # and the whole model's references here; the four ranks serve after
+    # their sharded training, in the same spawn.
+    ss_rec, ss_nccl_launches = timed(
+        "lm_sharded_serve_nccl", phase_lm_sharded_serve_nccl, dist_work,
+        timer)
+    (shard_rec, gloo_launches, dist_train_launches, st_launches,
+     ss_launches) = timed(
         "distributed_serve", phase_distributed_serve, fwd_b, shard_want,
-        train_ref, dist_work, st_nccl_launches)
+        train_ref, dist_work, st_nccl_launches, ss_nccl_launches)
     dist_train_launches["gather_pool_shard"] += nccl_train_launches
     timed("lm_parity", phase_lm_parity)
     lm_launches = timed("lm_serve", phase_lm_serve)
@@ -5725,7 +6061,8 @@ def main():
             + lm_launches.get(name, 0) + moe_launches.get(name, 0) \
             + vlm_launches.get(name, 0) + ssm_launches.get(name, 0) \
             + ssm_train_launches.get(name, 0) + encdec_launches.get(name, 0) \
-            + dist_train_launches.get(name, 0) + st_launches.get(name, 0)
+            + dist_train_launches.get(name, 0) + st_launches.get(name, 0) \
+            + ss_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
@@ -5757,6 +6094,8 @@ def main():
         if name in dist_train_launches:
             kernels[-1]["launches_distributed_train"] = \
                 dist_train_launches[name]
+        if name in ss_launches:
+            kernels[-1]["launches_lm_sharded_serve"] = ss_launches[name]
         if name in st_kernels:
             kernels[-1]["launches_sharded_train"] = st_launches[name]
             kernels[-1]["sharded_layout"] = st_kernels[name]
@@ -5788,6 +6127,7 @@ def main():
                     "bound_ms", "bound_by", "library_ms", "library")}
             kernels[-1]["noncausal"] = {
                 k: noncausal_rec[k] for k in NONCAUSAL_KEYS}
+            kernels[-1]["offset"] = ss_rec
         if name == "quantize_scatter":
             kernels[-1].update(launches_full_batch=qs_by_store["full_batch"],
                                launches_per_table=qs_by_store["per_table"])

@@ -7,8 +7,10 @@ encoder-decoder LM (``whisper-large-v3``).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import (LM_SHAPES, ModelConfig,  # noqa: F401
-                                      RunConfig, ShapeConfig)
+from repro_torch.configs.base import (DLRM_SHAPES, LM_SHAPES,  # noqa: F401
+                                      ModelConfig, RunConfig, ShapeConfig,
+                                      auto_microbatches, shape_applicable,
+                                      shapes_for)
 from repro_torch.configs.dlrm_recmg import CONFIG as _DLRM_RECMG
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _FALCON_MAMBA_7B
 from repro_torch.configs.granite_moe_1b import CONFIG as _GRANITE_MOE_1B
@@ -36,6 +38,11 @@ _ARCHS = {
 }
 # Archs of the JAX registry that the port does not build: none.
 NOT_PORTED: tuple = ()
+# In JAX's registry order (configs/__init__.py:24-38), as --all walks them.
+ALL_ARCHS = ["internvl2-26b", "qwen2.5-3b", "qwen3-14b", "smollm-360m",
+             "smollm-135m", "granite-moe-1b-a400m", "grok-1-314b",
+             "whisper-large-v3", "hymba-1.5b", "falcon-mamba-7b",
+             "dlrm-recmg"]
 
 
 def get_config(arch: str) -> ModelConfig:

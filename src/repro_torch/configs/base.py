@@ -1,17 +1,18 @@
 """Model configuration for the port: ``ModelConfig`` and ``reduced()``,
-the LM shape cells and the training knobs of ``RunConfig``.
+the shape cells and the knobs of ``RunConfig``.
 
 Copied from ``src/repro/configs/base.py``: lines 16-156 (the dataclass and
-its CPU-scale ``reduced()``), 164-178 (``ShapeConfig``, ``LM_SHAPES``) and,
-trimmed to the fields that training reads, 208-230 (``RunConfig``): the
-sharding variant (:mod:`repro_torch.sharding.partition`), DLRM's
-``emb_rows``, the MoE's data-local dispatch and gradient compression
-among them.  The knobs left
-out are XLA's (``constrain_grads``, ``shard_kv_seq``, the Pallas switch,
-attention block sizes): the port's CUDA kernels tile by their own sizes.
-JAX's ``opt_dtype`` feeds only its dry run (``launch/dryrun.py``, XLA
-tooling); the moments' dtype is ``OptConfig.moment_dtype``
-(``repro_torch.optim.adamw``), as in JAX's optimizer.
+its CPU-scale ``reduced()``), 164-200 (``ShapeConfig``, ``LM_SHAPES``,
+``DLRM_SHAPES``, ``shapes_for``, ``shape_applicable``), 233-243
+(``auto_microbatches``) and, trimmed to the fields that the port reads,
+208-230 (``RunConfig``): the sharding variant
+(:mod:`repro_torch.sharding.partition`), DLRM's ``emb_rows``, the MoE's
+data-local dispatch, gradient compression, the decode cache's layout
+(``shard_kv_seq``) among them.  The knobs left out are XLA's (``constrain_grads``, the Pallas
+switch, attention block sizes): the port's CUDA kernels tile by their own
+sizes.  JAX's ``opt_dtype`` feeds only its dry run; the moments' dtype is
+``OptConfig.moment_dtype`` (``repro_torch.optim.adamw``), as in JAX's
+optimizer.
 """
 from __future__ import annotations
 
@@ -206,12 +207,15 @@ class RunConfig:
     # over data and model, "model" over model alone (each data rank holds
     # every row of its model part).
     emb_rows: str = "all"
+    # "fsdp_seq" lays the parameters out as "fsdp"; a sharded prefill then
+    # splits the sequence over model (JAX's seq_entry); training keeps
+    # JAX's trainer's semantics: the batch over the data axes, no split.
+    # The decode cache's length lies over model when shard_kv_seq (JAX's
+    # default), else its KV heads where model divides them
+    # (sharding/partition.py::cache_pspecs).
+    shard_kv_seq: bool = True
 
     def __post_init__(self):
-        if self.sharding == "fsdp_seq":
-            raise NotImplementedError(
-                "sharding='fsdp_seq' (sequence-parallel prefill, a sharded "
-                "decode cache) is not ported: ROADMAP A11c-6c")
         if self.sharding not in VARIANTS:
             raise ValueError(f"sharding {self.sharding!r}: expected one of "
                              f"{VARIANTS}")
@@ -236,3 +240,39 @@ LM_SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+# The paper's DLRM has its own serving-style shapes (Table I batch sizes).
+DLRM_SHAPES = {
+    "infer_6k": ShapeConfig("infer_6k", "prefill", 0, 6144),
+    "infer_18k": ShapeConfig("infer_18k", "prefill", 0, 18432),
+    "train_6k": ShapeConfig("train_6k", "train", 0, 6144),
+}
+
+
+def shapes_for(cfg: ModelConfig):
+    if cfg.family == "dlrm":
+        return dict(DLRM_SHAPES)
+    return dict(LM_SHAPES)
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, and why not if it doesn't."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "pure full-attention arch: 500k-token decode requires "
+            "sub-quadratic attention (skip per assignment; see DESIGN.md)"
+        )
+    return True, ""
+
+
+def auto_microbatches(cfg: ModelConfig, shape: ShapeConfig, n_data_shards: int,
+                      tokens_budget: int = 4096) -> int:
+    """Pick a microbatch count so per-device microbatch tokens <= budget."""
+    if shape.kind != "train" or cfg.family == "dlrm":
+        return 1
+    per_dev_seqs = max(1, shape.global_batch // max(n_data_shards, 1))
+    per_dev_tokens = per_dev_seqs * shape.seq_len
+    mb = 1
+    while per_dev_tokens // mb > tokens_budget and mb < per_dev_seqs:
+        mb *= 2
+    return mb

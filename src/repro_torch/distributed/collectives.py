@@ -33,8 +33,10 @@ backward, on the input of a column-parallel product, and "g",
 one.  :func:`all_reduce_max` takes no gradient (the vocab-parallel
 softmax's shift).
 
-Two more move a tensor's parts between ranks, each with its reverse as
-its backward: :func:`all_to_all` (the mamba block's exchange of
+:func:`exchange_dims` moves a tensor's split from one dim to another
+without a gradient (a served model's keys and values from the layout
+that computed them to the decode cache's).  Two more move a tensor's
+parts between ranks, each with its reverse as its backward: :func:`all_to_all` (the mamba block's exchange of
 ``in_proj``'s columns within ``model``: the backward sends the gradient's
 columns back to their owners) and :func:`reduce_scatter_all_gather_bwd`
 (DLRM's pooled partials over ``data`` when the tables' rows lie over
@@ -245,6 +247,20 @@ def all_to_all(x: torch.Tensor, group, dim: int, send, recv
     parts back where they came from."""
     return (x if group is None
             else _AllToAll.apply(x, group, dim, tuple(send), tuple(recv)))
+
+
+def exchange_dims(x: torch.Tensor, group, n: int, split_dim: int,
+                  cat_dim: int) -> torch.Tensor:
+    """Moves a tensor split over ``group``'s ``n`` ranks along ``cat_dim``
+    to a split along ``split_dim``, without a gradient (serving): ``x``
+    cut into ``n`` equal parts along ``split_dim``, part ``r`` sent to rank
+    ``r``, the parts received concatenated along ``cat_dim`` in rank
+    order."""
+    parts = torch.stack(x.chunk(n, split_dim)).contiguous()
+    out = torch.empty_like(parts)
+    _count("exchange", parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return torch.cat(out.unbind(0), dim=cat_dim)
 
 
 def all_gather_reduce_scatter_bwd(x, group, dim: int, n: int):

@@ -165,6 +165,17 @@ def batch_mesh(mesh: Mesh, variant: Optional[str] = None) -> Mesh:
 
 
 @dataclass(frozen=True)
+class SeqSplit:
+    """This rank's part of a sequence split over ``model`` (a prefill under
+    ``"fsdp_seq"``, JAX's ``seq_entry``): positions ``[offset, offset +
+    length)`` of the ``mesh.model`` equal parts, the batch's rows over
+    ``data`` as usual."""
+    mesh: "Mesh"
+    offset: int
+    length: int
+
+
+@dataclass(frozen=True)
 class Placement:
     """Where a parameter stored as this rank's shard lives: ``spec`` over
     ``mesh`` under the sharding ``variant``."""

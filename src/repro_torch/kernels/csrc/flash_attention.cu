@@ -90,6 +90,20 @@
 // ln(2).  A null lse is the serve path: no other instruction changes, so o
 // keeps its bits.
 //
+// A query offset (sequence-parallel prefill: a rank's slice of the queries
+// against every key; JAX's kv_stream_attention, XLA, in
+// src/repro/models/layers.py:194) takes q (B, Sq, H, hd) against k, v (B,
+// Sk, K, hd): query row i sits at absolute position q_off + i, the keys at
+// 0 .. Sk - 1.  Causal, key j is visible to row i iff j <= q_off + i (and
+// within the window), which needs q_off + Sq <= Sk; unmasked, every key is
+// visible for any Sk.  Every place that compares a query with a key (the
+// tile-skip frontier, the window's first tile, the mask on diagonal tiles)
+// takes the absolute position; the ragged ends are Sq for queries and Sk
+// for keys; rows, grid tiles (kMaxQTiles) and lse (B, H, Sq) count local
+// rows.  Blocks are still issued last query tile first, the costliest
+// under any offset.  Sq = Sk with q_off = 0 changes only integer
+// arithmetic that gives the old values, so its bits are the old kernel's.
+//
 // The kernels launch on the caller's stream, allocate nothing and never
 // synchronise; the C function returns cudaGetLastError() after its launch.
 
@@ -123,8 +137,9 @@ template <int HD, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    float* __restrict__ lse, int s_len, int n_heads, int n_kv,
-                    float scale, int window_arg) {
+                    float* __restrict__ lse, int sq_len, int sk_len,
+                    int q_off, int n_heads, int n_kv, float scale,
+                    int window_arg) {
   const int window = kCausal ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;           // padded row of q and k
   constexpr int kCols = HD / kColGroups;    // accumulator columns a thread
@@ -145,9 +160,9 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
   // Row strides (elements) of the (B, S, H, hd) and (B, S, K, hd) layouts.
   const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
   const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
-  const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+  const int64_t q_base = static_cast<int64_t>(b) * sq_len * q_row +
                          static_cast<int64_t>(h) * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+  const int64_t kv_base = static_cast<int64_t>(b) * sk_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
 
   for (int i = tid; i < kBlockQ * HD; i += kThreads) {
@@ -155,7 +170,7 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
     const int d = i - r * HD;
     const int pos = q0 + r;
     s_q[r * kStride + d] =
-        pos < s_len ? q[q_base + pos * q_row + d] : 0.0f;
+        pos < sq_len ? q[q_base + pos * q_row + d] : 0.0f;
   }
 
   float m[kRowsPerThread];
@@ -170,10 +185,12 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // KV tiles from the window's edge for the block's first query up to the
-  // causal frontier of its last real query (to the end of S unmasked).
-  const int q_last = min(q0 + kBlockQ, s_len) - 1;
-  const int n_tiles = (kCausal ? q_last : s_len - 1) / kBlockK + 1;
-  const int t_first = window > 0 ? max(0, q0 - window + 1) / kBlockK : 0;
+  // causal frontier of its last real query (to the end of Sk unmasked),
+  // at absolute positions.
+  const int q_last = q_off + min(q0 + kBlockQ, sq_len) - 1;
+  const int n_tiles = (kCausal ? q_last : sk_len - 1) / kBlockK + 1;
+  const int t_first =
+      window > 0 ? max(0, q_off + q0 - window + 1) / kBlockK : 0;
   for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();  // s_q written; the last tile's s_k, s_v, s_p read
@@ -181,7 +198,7 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
       const int r = i / HD;
       const int d = i - r * HD;
       const int pos = k0 + r;
-      const bool ok = pos < s_len;
+      const bool ok = pos < sk_len;
       const int64_t at = kv_base + pos * kv_row + d;
       s_k[r * kStride + d] = ok ? k[at] : 0.0f;
       s_v[r * HD + d] = ok ? v[at] : 0.0f;
@@ -221,12 +238,12 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int row = rg + kRowGroups * i;
-      const int qpos = q0 + row;
+      const int qpos = q_off + q0 + row;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kKeysPerThread; ++j) {
         const int kpos = k0 + cg + kColGroups * j;
-        const bool keep = (!kCausal || kpos <= qpos) && kpos < s_len &&
+        const bool keep = (!kCausal || kpos <= qpos) && kpos < sk_len &&
                           (window == 0 || qpos - kpos < window);
         s[i][j] = keep ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
@@ -279,8 +296,8 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
-    const int qpos = q0 + rg + kRowGroups * i;
-    if (qpos >= s_len) continue;
+    const int qpos = q0 + rg + kRowGroups * i;  // local row
+    if (qpos >= sq_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     float* orow = o + q_base + qpos * q_row;
 #pragma unroll
@@ -289,7 +306,7 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
     }
     // m is the row's largest scaled score; its 8 threads hold the same m, l.
     if (lse != nullptr && cg == 0) {
-      lse[(static_cast<int64_t>(b) * n_heads + h) * s_len + qpos] =
+      lse[(static_cast<int64_t>(b) * n_heads + h) * sq_len + qpos] =
           m[i] + logf(l[i]);
     }
   }
@@ -322,8 +339,8 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int s_len, int n_heads, int n_kv, float scale_log2,
-                    int window_arg) {
+                    int sq_len, int sk_len, int q_off, int n_heads, int n_kv,
+                    float scale_log2, int window_arg) {
   const int window = kCausal ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;              // padded row, bf16
   constexpr int kChunks = HD / 8;              // 16-byte chunks a row
@@ -348,19 +365,20 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
 
   const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
   const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
-  const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+  const int64_t q_base = static_cast<int64_t>(b) * sq_len * q_row +
                          static_cast<int64_t>(h) * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+  const int64_t kv_base = static_cast<int64_t>(b) * sk_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
 
-  // Rows past S are zero-filled (their source address stays in bounds).
+  // Rows past Sq (keys past Sk) are zero-filled (their source address stays
+  // in bounds).
   for (int i = tid; i < kMmaBlockQ * kChunks; i += kMmaThreads) {
     const int r = i / kChunks;
     const int c = i - r * kChunks;
     const int pos = q0 + r;
     cp_async16(smem_addr(s_q + r * kStride + c * 8),
-               q + q_base + min(pos, s_len - 1) * q_row + c * 8,
-               pos < s_len ? 16 : 0);
+               q + q_base + min(pos, sq_len - 1) * q_row + c * 8,
+               pos < sq_len ? 16 : 0);
   }
   auto load_kv = [&](int tile, int stage) {
     __nv_bfloat16* dk = s_k + stage * kTileElems;
@@ -369,26 +387,32 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       const int r = i / kChunks;
       const int c = i - r * kChunks;
       const int pos = tile * kMmaBlockK + r;
-      const int64_t at = kv_base + min(pos, s_len - 1) * kv_row + c * 8;
-      const int n = pos < s_len ? 16 : 0;
+      const int64_t at = kv_base + min(pos, sk_len - 1) * kv_row + c * 8;
+      const int n = pos < sk_len ? 16 : 0;
       cp_async16(smem_addr(dk + r * kStride + c * 8), k + at, n);
       cp_async16(smem_addr(dv + r * kStride + c * 8), v + at, n);
     }
   };
   // KV tiles from the window's edge for the block's first query up to the
-  // causal frontier of its last real query (to the end of S unmasked);
-  // stage t & 1 holds tile t.
-  const int q_last = min(q0 + kMmaBlockQ, s_len) - 1;
-  const int n_tiles = (kCausal ? q_last : s_len - 1) / kMmaBlockK + 1;
-  const int t_first = window > 0 ? max(0, q0 - window + 1) / kMmaBlockK : 0;
+  // causal frontier of its last real query (to the end of Sk unmasked), at
+  // absolute positions; stage t & 1 holds tile t.
+  const int q_last = q_off + min(q0 + kMmaBlockQ, sq_len) - 1;
+  const int n_tiles = (kCausal ? q_last : sk_len - 1) / kMmaBlockK + 1;
+  const int t_first =
+      window > 0 ? max(0, q_off + q0 - window + 1) / kMmaBlockK : 0;
   load_kv(t_first, t_first & 1);
   cp_async_commit();
 
-  // This warp's 16 rows: g and g + 8 of them are this lane's.
-  const int w_first = q0 + 16 * warp;
+  // This warp's 16 rows: g and g + 8 of them are this lane's; w_ and row_
+  // are absolute positions, w_local and the rows' local indices are q0 +
+  // 16 warp (+ g, + 8) without the offset.
+  const int w_local = q0 + 16 * warp;
+  const int w_first = q_off + w_local;
   const int w_last = w_first + 15;
   const int row_lo = w_first + g;
   const int row_hi = row_lo + 8;
+  const int loc_lo = w_local + g;
+  const int loc_hi = loc_lo + 8;
   uint32_t qf[kDSteps][4];
   float acc[kOTiles][4];
 #pragma unroll
@@ -417,10 +441,10 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int k0 = t * kMmaBlockK;
-    // A warp whose queries all lie before this tile (causal), or past S,
+    // A warp whose queries all lie before this tile (causal), or past Sq,
     // skips it; so does a warp whose window starts after the tile's last
     // key.
-    if ((!kCausal || k0 <= w_last) && w_first < s_len &&
+    if ((!kCausal || k0 <= w_last) && w_local < sq_len &&
         (window == 0 || k0 + kMmaBlockK > w_first - window + 1)) {
       const __nv_bfloat16* sk = s_k + (t & 1) * kTileElems;
       const __nv_bfloat16* sv = s_v + (t & 1) * kTileElems;
@@ -445,10 +469,10 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
           mma_bf16(s[n + 1], qf[d], kb[2], kb[3]);
         }
       }
-      // The causal mask, the end of S and the window's lower edge, on the
+      // The causal mask, the end of Sk and the window's lower edge, on the
       // tiles that reach them.
       if ((kCausal && k0 + kMmaBlockK - 1 > w_first) ||
-          k0 + kMmaBlockK > s_len ||
+          k0 + kMmaBlockK > sk_len ||
           (window > 0 && k0 < w_last - window + 1)) {
 #pragma unroll
         for (int n = 0; n < kSTiles; ++n) {
@@ -456,7 +480,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * n + 2 * t4 + (e & 1);
             const int row = e < 2 ? row_lo : row_hi;
-            if ((kCausal && key > row) || key >= s_len ||
+            if ((kCausal && key > row) || key >= sk_len ||
                 (window > 0 && row - key >= window)) {
               s[n][e] = -INFINITY;
             }
@@ -535,23 +559,23 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
   const float den_hi = fmaxf(l_hi, 1e-30f);
   // The quad's 4 lanes hold the row's m and, after the shuffles, its l.
   if (lse != nullptr && t4 == 0) {
-    const int64_t lse_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
-    if (row_lo < s_len) {
-      lse[lse_base + row_lo] = fmaf(m_lo, scale_log2, log2f(l_lo)) * kLn2;
+    const int64_t lse_base = (static_cast<int64_t>(b) * n_heads + h) * sq_len;
+    if (loc_lo < sq_len) {
+      lse[lse_base + loc_lo] = fmaf(m_lo, scale_log2, log2f(l_lo)) * kLn2;
     }
-    if (row_hi < s_len) {
-      lse[lse_base + row_hi] = fmaf(m_hi, scale_log2, log2f(l_hi)) * kLn2;
+    if (loc_hi < sq_len) {
+      lse[lse_base + loc_hi] = fmaf(m_hi, scale_log2, log2f(l_hi)) * kLn2;
     }
   }
 #pragma unroll
   for (int n = 0; n < kOTiles; ++n) {
     const int col = 8 * n + 2 * t4;
-    if (row_lo < s_len) {
-      *reinterpret_cast<__nv_bfloat162*>(o + q_base + row_lo * q_row + col) =
+    if (loc_lo < sq_len) {
+      *reinterpret_cast<__nv_bfloat162*>(o + q_base + loc_lo * q_row + col) =
           __floats2bfloat162_rn(acc[n][0] / den_lo, acc[n][1] / den_lo);
     }
-    if (row_hi < s_len) {
-      *reinterpret_cast<__nv_bfloat162*>(o + q_base + row_hi * q_row + col) =
+    if (loc_hi < sq_len) {
+      *reinterpret_cast<__nv_bfloat162*>(o + q_base + loc_hi * q_row + col) =
           __floats2bfloat162_rn(acc[n][2] / den_hi, acc[n][3] / den_hi);
     }
   }
@@ -575,94 +599,103 @@ cudaError_t allow_smem(Kernel kernel, int64_t smem, bool* done) {
 
 template <int HD, bool kCausal>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int64_t batch, int s_len, int n_heads,
-                       int n_kv, float scale, int window,
-                       cudaStream_t stream) {
+                       void* lse, int64_t batch, int sq_len, int sk_len,
+                       int q_off, int n_heads, int n_kv, float scale,
+                       int window, cudaStream_t stream) {
   constexpr int64_t smem = fma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
   cudaError_t err =
       allow_smem(flash_attention_fma<HD, kCausal>, smem, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(batch * n_heads),
-                  static_cast<unsigned>((s_len + kBlockQ - 1) / kBlockQ));
+                  static_cast<unsigned>((sq_len + kBlockQ - 1) / kBlockQ));
   flash_attention_fma<HD, kCausal><<<grid, kThreads,
                                      static_cast<size_t>(smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), s_len, n_heads, n_kv, scale, window);
+      static_cast<float*>(lse), sq_len, sk_len, q_off, n_heads, n_kv, scale,
+      window);
   return cudaGetLastError();
 }
 
 template <int HD, bool kCausal>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int64_t batch, int s_len, int n_heads,
-                       int n_kv, float scale, int window,
-                       cudaStream_t stream) {
+                       void* lse, int64_t batch, int sq_len, int sk_len,
+                       int q_off, int n_heads, int n_kv, float scale,
+                       int window, cudaStream_t stream) {
   constexpr int64_t smem = mma_smem_bytes<HD>();
   static bool smem_set = false;  // per instantiation
   cudaError_t err =
       allow_smem(flash_attention_mma<HD, kCausal>, smem, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(batch * n_heads),
-                  static_cast<unsigned>((s_len + kMmaBlockQ - 1) /
+                  static_cast<unsigned>((sq_len + kMmaBlockQ - 1) /
                                         kMmaBlockQ));
   flash_attention_mma<HD, kCausal><<<grid, kMmaThreads,
                                      static_cast<size_t>(smem), stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), s_len, n_heads, n_kv, scale * kLog2e,
-      window);
+      static_cast<float*>(lse), sq_len, sk_len, q_off, n_heads, n_kv,
+      scale * kLog2e, window);
   return cudaGetLastError();
 }
 
 template <int HD, bool kCausal>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         void* o, void* lse, int64_t batch, int s_len,
-                         int n_heads, int n_kv, int dtype, float scale,
-                         int window, cudaStream_t stream) {
+                         void* o, void* lse, int64_t batch, int sq_len,
+                         int sk_len, int q_off, int n_heads, int n_kv,
+                         int dtype, float scale, int window,
+                         cudaStream_t stream) {
   return dtype == 0
-             ? launch_fma<HD, kCausal>(q, k, v, o, lse, batch, s_len,
-                                       n_heads, n_kv, scale, window, stream)
-             : launch_mma<HD, kCausal>(q, k, v, o, lse, batch, s_len,
-                                       n_heads, n_kv, scale, window, stream);
+             ? launch_fma<HD, kCausal>(q, k, v, o, lse, batch, sq_len, sk_len,
+                                       q_off, n_heads, n_kv, scale, window,
+                                       stream)
+             : launch_mma<HD, kCausal>(q, k, v, o, lse, batch, sq_len, sk_len,
+                                       q_off, n_heads, n_kv, scale, window,
+                                       stream);
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int64_t batch, int s_len, int n_heads, int n_kv,
-                   int dtype, float scale, int window, bool causal,
-                   cudaStream_t stream) {
-  return causal ? launch_dtype<HD, true>(q, k, v, o, lse, batch, s_len,
-                                         n_heads, n_kv, dtype, scale, window,
-                                         stream)
-                : launch_dtype<HD, false>(q, k, v, o, lse, batch, s_len,
-                                          n_heads, n_kv, dtype, scale, 0,
-                                          stream);
+                   void* lse, int64_t batch, int sq_len, int sk_len, int q_off,
+                   int n_heads, int n_kv, int dtype, float scale, int window,
+                   bool causal, cudaStream_t stream) {
+  return causal ? launch_dtype<HD, true>(q, k, v, o, lse, batch, sq_len,
+                                         sk_len, q_off, n_heads, n_kv, dtype,
+                                         scale, window, stream)
+                : launch_dtype<HD, false>(q, k, v, o, lse, batch, sq_len,
+                                          sk_len, q_off, n_heads, n_kv, dtype,
+                                          scale, 0, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (batch, s_len, n_heads, head_dim), k and v (batch, s_len, n_kv,
+// q (batch, sq_len, n_heads, head_dim), k and v (batch, sk_len, n_kv,
 // head_dim), o like q; contiguous, all float32 (dtype 0) or all bfloat16
 // (dtype 1; 16-byte aligned, for the 16-byte copies).  n_heads % n_kv ==
 // 0, head_dim in {16, 32, 64, 128}, scale the softmax scale (1 /
-// sqrt(head_dim) for the model).  lse: null, or (batch, n_heads, s_len)
-// float32 for each row's log-sum-exp.  window: 0 (causal), or the sliding
-// window's size (query q sees keys q - window < k <= q).  causal: 1, or 0
-// for every query to see every key (window 0 only).
+// sqrt(head_dim) for the model).  q_offset: the absolute position of query
+// row 0 (keys sit at 0 .. sk_len - 1); causal needs q_offset + sq_len <=
+// sk_len.  lse: null, or (batch, n_heads, sq_len) float32 for each row's
+// log-sum-exp.  window: 0 (causal), or the sliding window's size (query q
+// sees keys q - window < k <= q).  causal: 1, or 0 for every query to see
+// every key (window 0 only).
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, void* lse, int64_t batch, int64_t s_len,
-                          int n_heads, int n_kv, int head_dim, int dtype,
-                          float scale, int64_t window, int causal,
-                          void* stream) {
+                          void* o, void* lse, int64_t batch, int64_t sq_len,
+                          int64_t sk_len, int64_t q_offset, int n_heads,
+                          int n_kv, int head_dim, int dtype, float scale,
+                          int64_t window, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv || window < 0 ||
-      (causal != 0 && causal != 1) || (causal == 0 && window != 0) ||
-      n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
-      (s_len + kBlockQ - 1) / kBlockQ > kMaxQTiles ||
+  if (batch < 1 || sq_len < 1 || sk_len < 1 || q_offset < 0 || n_kv < 1 ||
+      n_heads < n_kv || window < 0 || (causal != 0 && causal != 1) ||
+      (causal == 0 && window != 0) ||
+      (causal == 1 && q_offset + sq_len > sk_len) ||
+      sk_len > 0x7fffffffLL || n_heads % n_kv != 0 ||
+      batch * n_heads > 0x7fffffffLL ||
+      (sq_len + kBlockQ - 1) / kBlockQ > kMaxQTiles ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -672,26 +705,28 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
        15)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const int sl = static_cast<int>(s_len);
-  // A window wider than S masks nothing: it is kept within int.
-  const int win = static_cast<int>(window < s_len ? window : s_len);
+  const int sq = static_cast<int>(sq_len);
+  const int sk = static_cast<int>(sk_len);
+  const int off = static_cast<int>(q_offset);
+  // A window wider than Sk masks nothing: it is kept within int.
+  const int win = static_cast<int>(window < sk_len ? window : sk_len);
   cudaError_t err;
   switch (head_dim) {
     case 16:
-      err = launch<16>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, win, causal == 1, s);
+      err = launch<16>(q, k, v, o, lse, batch, sq, sk, off, n_heads, n_kv,
+                         dtype, scale, win, causal == 1, s);
       break;
     case 32:
-      err = launch<32>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, win, causal == 1, s);
+      err = launch<32>(q, k, v, o, lse, batch, sq, sk, off, n_heads, n_kv,
+                         dtype, scale, win, causal == 1, s);
       break;
     case 64:
-      err = launch<64>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                         scale, win, causal == 1, s);
+      err = launch<64>(q, k, v, o, lse, batch, sq, sk, off, n_heads, n_kv,
+                         dtype, scale, win, causal == 1, s);
       break;
     case 128:
-      err = launch<128>(q, k, v, o, lse, batch, sl, n_heads, n_kv, dtype,
-                        scale, win, causal == 1, s);
+      err = launch<128>(q, k, v, o, lse, batch, sq, sk, off, n_heads, n_kv,
+                        dtype, scale, win, causal == 1, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

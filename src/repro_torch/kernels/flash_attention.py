@@ -8,7 +8,11 @@ window < k <= q``), which the Pallas kernel does not have: JAX computes
 the windowed attention in XLA (``blocked_causal_attention(window=)``).
 ``causal=False`` lets every query see every key (an encoder's
 self-attention, JAX's ``plain_attention(causal=False)`` in XLA), forward
-and backward, with no window.
+and backward, with no window.  The forward also takes q (B, Sq, H, hd)
+against k/v (B, Sk, K, hd) at a query offset (``q_offset``: query row i
+sits at position ``q_offset + i``, the keys at 0 .. Sk - 1; causal needs
+``q_offset + Sq <= Sk``): a sequence-parallel rank's queries against
+every key (JAX's ``kv_stream_attention``, XLA).
 The kernel takes the model's layout, q (B, S, H, hd) and k/v (B, S, K, hd)
 with ``H % K == 0`` (query head h reads KV head ``h // (H // K)``), any S,
 fp32 or bf16, hd in {16, 32, 64, 128}.  bf16 runs the products on the
@@ -56,7 +60,8 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("flash_attention")
         lib.repro_flash_attention.argtypes = [_VP] * 5 + [
-            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _I64, _INT, _VP]
+            _I64, _I64, _I64, _I64, _INT, _INT, _INT, _INT, _F32, _I64, _INT,
+            _VP]
         lib.repro_flash_attention.restype = _INT
         _LIB = lib
     return _LIB
@@ -75,39 +80,56 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               fn: str):
+               fn: str, q_offset: Optional[int] = None,
+               causal: bool = True):
+    """Device, dtype and shapes; ``q_offset`` None asks for k/v of q's
+    length (the backward), else k/v may be of any length Sk, and a causal
+    attention needs ``0 <= q_offset`` and ``q_offset + Sq <= Sk``."""
     _check(q, "q", 4, tuple(_DTYPE_CODE))
     _check(k, "k", 4, (q.dtype,), q.device)
     _check(v, "v", 4, (q.dtype,), q.device)
     b, s, h, hd = q.shape
     kv = k.shape[2]
-    if (k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != hd
+    s_k = s if q_offset is None else k.shape[1]
+    if (k.shape != v.shape or k.shape[:2] != (b, s_k) or k.shape[3] != hd
             or kv == 0 or h % kv):
         raise ValueError(
             f"{fn} shapes do not match: q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}, v {tuple(v.shape)} (expected k/v (B, S, K, "
-            "hd) with H % K == 0)")
+            f"{tuple(k.shape)}, v {tuple(v.shape)} (expected k/v (B, "
+            f"{'S' if q_offset is None else 'Sk'}, K, hd) with H % K == 0)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"{fn} takes head_dim in {HEAD_DIMS}, got {hd}")
+    if q_offset is not None and (q_offset < 0 or (
+            causal and q_offset + s > k.shape[1])):
+        raise ValueError(
+            f"{fn} q_offset {q_offset}: queries at {q_offset} .. "
+            f"{q_offset + s - 1} need keys up to there (Sk "
+            f"{k.shape[1]}){' under causal' if causal else ''}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     with_lse: bool = False, window: int = 0,
-                    causal: bool = True):
-    """q: (B, S, H, hd); k/v: (B, S, K, hd), one dtype (fp32 or bf16) on one
-    card -> (B, S, H, hd) causal attention in q's dtype; with ``with_lse``,
-    ``(out, lse)`` with lse (B, H, S) fp32, each row's log-sum-exp of its
-    scaled scores (natural log).  Without it the output's bits are those
-    of the serve path.  ``window > 0``: query q sees keys ``q - window < k
-    <= q`` only (JAX's sliding window); 0 is causal.  ``causal=False``:
-    every query sees every key (no window)."""
-    _check_qkv(q, k, v, "flash_attention")
+                    causal: bool = True, q_offset: int = 0):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd), one dtype (fp32 or bf16) on
+    one card -> (B, Sq, H, hd) causal attention in q's dtype; with
+    ``with_lse``, ``(out, lse)`` with lse (B, H, Sq) fp32, each row's
+    log-sum-exp of its scaled scores (natural log).  Without it the
+    output's bits are those of the serve path.  Query row i sits at
+    position ``q_offset + i`` (causal: ``q_offset + Sq <= Sk``); Sq = Sk
+    at offset 0 is the model's prefill.  ``window > 0``: query q sees keys
+    ``q - window < k <= q`` only (JAX's sliding window); 0 is causal.
+    ``causal=False``: every query sees every key (no window)."""
+    _check_qkv(q, k, v, "flash_attention", q_offset, causal)
     b, s, h, hd = q.shape
-    window = _window(window, s, causal, "flash_attention")
+    s_k = k.shape[1]
+    window = _window(window, s_k, causal, "flash_attention")
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if b == 0 or s == 0 or h == 0:
+    if b == 0 or s == 0 or h == 0 or s_k == 0:
+        if s_k == 0:  # unmasked rows that see no key
+            out.zero_()
+            lse = None if lse is None else lse.fill_(-math.inf)
         return (out, lse) if with_lse else out
     if q.dtype == torch.bfloat16:
         # The bf16 kernel copies 16 bytes at a time: a view that starts
@@ -118,9 +140,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, s, h, k.shape[2], hd,
-            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), window, int(causal),
-            stream)
+            None if lse is None else lse.data_ptr(), b, s, s_k, q_offset, h,
+            k.shape[2], hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), window,
+            int(causal), stream)
     _raise_on(err, "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if with_lse else out

@@ -321,20 +321,32 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0, causal: bool = True) -> torch.Tensor:
+                    window: int = 0, causal: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype (query head h reads KV head
     ``h // (H // K)``), scale ``1/sqrt(hd)``, any S; ``window > 0`` limits
     query q to keys ``q - window < k <= q`` (0 is causal); ``causal=False``
     lets every query see every key (no window).  Differentiable in q, k and
-    v, whatever the mask."""
+    v, whatever the mask.
+
+    Outside autograd q may hold Sq rows at positions ``q_offset ..
+    q_offset + Sq - 1`` against Sk keys (a sequence-parallel rank's
+    queries; the kernel's offset mode on the card).  Its backward is not
+    ported (ROADMAP A11c-6e): under autograd Sq = Sk at offset 0."""
+    offset_mode = q_offset != 0 or q.shape[1] != k.shape[1]
     if _requires_grad(q, k, v):
+        if offset_mode:
+            raise NotImplementedError(
+                "flash_attention at a query offset (Sq != Sk) has no "
+                "backward: the sequence split under a gradient is ROADMAP "
+                "A11c-6e")
         return _FlashAttention.apply(q, k, v, window, causal)
     if _on_cuda(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), window=window,
-                                   causal=causal)
-    return ref.causal_attention_ref(q, k, v, window, causal)
+                                   causal=causal, q_offset=q_offset)
+    return ref.causal_attention_ref(q, k, v, window, causal, q_offset)
 
 
 class _SelectiveScan(torch.autograd.Function):

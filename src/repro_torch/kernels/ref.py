@@ -19,6 +19,8 @@ The attention versions (``causal_attention_ref``,
 ``flash_attention_bwd_ref``) sum in another order than the kernels and
 agree with them within a tolerance; all but ``flash_attention_ref`` take
 the forward's sliding ``window`` and ``causal=False`` (no mask).
+``kv_stream_attention_ref`` is JAX's ``kv_stream_attention`` with a query
+offset, the twin of the forward kernel's offset mode.
 ``selective_scan_ref`` is the mamba-1 scan's plain version (its kernel
 has no TPU counterpart: JAX's scan is XLA), the same recurrence step by
 step.
@@ -232,11 +234,12 @@ def chamfer_ref(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 # ---------------------------------------------------------------------------
 
 def _scores(q: torch.Tensor, k: torch.Tensor, window: int = 0,
-            causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, hd); k: (B, S, K, hd) -> (B, K, G, S, S) scaled scores
-    in the compute dtype, -inf above the diagonal and, with a ``window``,
-    where ``q - k >= window`` (JAX's ``plain_attention`` mask); unmasked
-    when ``causal`` is False (which takes no window)."""
+            causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k: (B, Sk, K, hd) -> (B, K, G, Sq, Sk) scaled
+    scores in the compute dtype, -inf where a key lies past its query (query
+    row i at position ``q_offset + i``) and, with a ``window``, where ``q -
+    k >= window`` (JAX's ``plain_attention`` mask); unmasked when
+    ``causal`` is False (which takes no window)."""
     if window and not causal:
         raise ValueError(f"a window ({window}) is causal; causal=False "
                          "takes none")
@@ -248,9 +251,10 @@ def _scores(q: torch.Tensor, k: torch.Tensor, window: int = 0,
         1.0 / math.sqrt(hd))
     if not causal:
         return scores
-    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    keep = torch.ones((s, k.shape[1]), dtype=torch.bool,
+                      device=q.device).tril(q_offset)
     if window:
-        keep = keep.triu(1 - window)
+        keep = keep.triu(q_offset + 1 - window)
     return scores.masked_fill(~keep, float("-inf"))
 
 
@@ -263,19 +267,72 @@ def _attend(scores: torch.Tensor, q: torch.Tensor,
 
 def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, window: int = 0,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True,
+                         q_offset: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
     H, hd) causal attention in q's dtype, scale ``1/sqrt(hd)``, computed in
     fp32 (p stays fp32 for the p v product, as in the Pallas kernel; the
     bf16 CUDA kernel rounds it to bf16 there).  ``window > 0``: query q
     sees keys ``q - window < k <= q`` only (a sliding window; 0 is causal).
     ``causal=False``: every query sees every key, no window (JAX's
-    ``plain_attention(causal=False)``, an encoder's self-attention).
+    ``plain_attention(causal=False)``, an encoder's self-attention).  k/v
+    may hold Sk keys against Sq queries, query row i at position
+    ``q_offset + i``.
 
     Heads are grouped as ``src/repro/models/layers.py:65-75`` groups them:
     ``q.reshape(B, S, K, G, hd)`` with ``G = H // K``, so query head
     ``h = kv * G + g`` reads KV head ``h // G`` (not ``h % K``)."""
-    return _attend(_scores(q, k, window, causal), q, v)
+    return _attend(_scores(q, k, window, causal, q_offset), q, v)
+
+
+def kv_stream_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, window: int = 0, bk: int = 512,
+                            q_offset: int = 0,
+                            causal: bool = True) -> torch.Tensor:
+    """JAX's ``kv_stream_attention`` (``src/repro/models/layers.py:194``):
+    every query row against keys streamed in blocks of ``bk``, an online
+    softmax in fp32 (running max m, sum l and accumulator, block by block
+    in key order, p rounded to v's dtype for the p v product, the
+    accumulator over ``max(l, 1e-30)`` at the end).  q (B, Sq, H, hd), query
+    row i at position ``q_offset + i``; k/v (B, Sk, K, hd) at 0 .. Sk - 1;
+    causal (with ``window``) or, with ``causal=False``, unmasked.  JAX's
+    function is this with Sq = Sk and offset 0; the sequence-parallel
+    prefill gives each rank its rows."""
+    if window and not causal:
+        raise ValueError(f"a window ({window}) is causal; causal=False "
+                         "takes none")
+    b, s, h, hd = q.shape
+    s_k, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    ct = _compute_dtype(q)
+    qg = q.to(ct).reshape(b, s, n_kv, g, hd)
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = torch.arange(s, device=q.device) + q_offset
+    m = torch.full((b, n_kv, g, s), float("-inf"), dtype=ct, device=q.device)
+    l_sum = torch.zeros((b, n_kv, g, s), dtype=ct, device=q.device)
+    acc = torch.zeros((b, s, n_kv, g, hd), dtype=ct, device=q.device)
+    for j in range(0, s_k, bk):
+        k_blk, v_blk = k[:, j:j + bk], v[:, j:j + bk]
+        kpos = torch.arange(j, j + k_blk.shape[1], device=q.device)
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_blk.to(ct)) * scale
+        if causal:
+            mask = q_pos[:, None] >= kpos[None, :]
+            if window:
+                mask &= q_pos[:, None] - kpos[None, :] < window
+            sc = sc.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        corr = torch.exp(torch.where(m == float("-inf"),
+                                     torch.zeros_like(m), m - m_new))
+        p = torch.exp(sc - m_new[..., None])
+        if causal:
+            p = p.masked_fill(~mask, 0.0)
+        l_sum = l_sum * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).to(ct),
+                          v_blk.to(ct))
+        acc = acc * corr.movedim(-1, 1)[..., None] + pv
+        m = m_new
+    out = acc / l_sum.movedim(-1, 1)[..., None].clamp_min(1e-30)
+    return out.reshape(b, s, h, hd).to(q.dtype)
 
 
 def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,

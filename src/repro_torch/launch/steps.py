@@ -107,6 +107,10 @@ def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
         dev = resolve_device(bundle.device)
         ps = trainable_leaves(params)
         batch = {k: _on(v, dev) for k, v in batch.items()}
+        # The scope carries the variant (the batch over its axes).  Under
+        # "fsdp_seq" that is the data axes, and nothing here splits the
+        # sequence: only a prefill does (transformer.prefill_sharded), as
+        # JAX's trainer splits nothing by sequence (launch/train.py:83).
         scope = (M.activation_sharding(mesh, variant) if mesh is not None
                  else contextlib.nullcontext())
         with scope:

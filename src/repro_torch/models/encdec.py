@@ -31,7 +31,13 @@ heads when ``model`` divides the heads (the cross-attention's ``wk`` and
 ``wv`` read the encoder output through Megatron's "f"), the GELU MLP on
 the rank's part of ``d_ff``, the norms gathered; each layer's leaves are
 gathered inside the (checkpointed) layer, so the backward gathers them
-again.
+again.  Served over a mesh (:func:`encdec_prefill_sharded`,
+:func:`encdec_decode_sharded`) each rank computes its part of the batch
+by JAX's ``batch_pspecs`` (under ``"fsdp_seq"`` its decoder positions and
+its encoder frames, each attention over every rank's keys) and holds its
+part of the cache by ``cache_pspecs``: the cross-attention's xk/xv by
+encoder position over ``model`` with ``shard_kv_seq``, their decode
+combined over the ranks by max and sum.
 
 The cache is ``{"pos": int, "k", "v": (L, B, C, K, hd), "xk", "xv": (L,
 B, Se, K, hd)}`` in the compute dtype: the decoder's self-attention keys
@@ -56,10 +62,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import generator, resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import mesh as M
 from repro_torch.distributed.collectives import gather_leaf
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.dlrm import _tensor, torch_dtype
+from repro_torch.sharding import partition as SP
 
 
 class DecBlock(T.Block):
@@ -169,16 +178,21 @@ def _mlp(blk, x: torch.Tensor) -> torch.Tensor:
 
 
 def encode(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+           frames: torch.Tensor, seq: Optional[M.SeqSplit] = None
+           ) -> torch.Tensor:
     """frames (B, Se, D) precomputed stub embeddings -> (B, Se, D) in the
     compute dtype: pre-norm layers of unmasked self-attention and the GELU
-    MLP, then ``enc_norm``."""
-    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    MLP, then ``enc_norm``.  ``seq``: frames hold this rank's positions of
+    a sequence split (a served prefill under ``"fsdp_seq"``), whose
+    attention sees every rank's."""
+    lo = 0 if seq is None else seq.offset
+    positions = torch.arange(lo, lo + frames.shape[1],
+                             device=frames.device)[None, :]
 
     def layer(blk, x):
         attn, tp = T._attn_view(blk.attn, cfg)
         x = x + L.attn_block(attn, cfg, _norm(x, blk.ln1, cfg), positions,
-                             causal=False, tp=tp)[0]
+                             causal=False, tp=tp, seq=seq)[0]
         return x + _mlp(blk, _norm(x, blk.ln2, cfg))
 
     x = _run_layers(model.enc_blocks, run, layer,
@@ -187,17 +201,25 @@ def encode(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
 
 
 def _dec_layer(blk: DecBlock, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, enc_out: torch.Tensor):
+               positions: torch.Tensor, enc_out: torch.Tensor,
+               seq: Optional[M.SeqSplit] = None,
+               enc_seq: Optional[M.SeqSplit] = None):
     """One decoder layer over the whole sequence: causal self-attention,
     cross-attention over ``enc_out``, the MLP.  Returns ``(x, {"k", "v",
-    "xk", "xv"})``."""
+    "xk", "xv"})``.  Under a served prefill's sequence split, ``seq``: x
+    holds this rank's positions; ``enc_seq``: enc_out holds the rank's
+    encoder positions, whose keys and values are gathered over ``model``
+    for the attention (the returned xk/xv stay the rank's)."""
     attn, tp = T._attn_view(blk.attn, cfg)
     attn_out, (k, v) = L.attn_block(attn, cfg, _norm(x, blk.ln1, cfg),
-                                    positions, tp=tp)
+                                    positions, tp=tp, seq=seq)
     x = x + attn_out
     xattn, tp = T._attn_view(blk.xattn, cfg)
     xk, xv = L.cross_kv(xattn, cfg, enc_out, tp)
-    x = x + L.cross_attn_block(xattn, cfg, _norm(x, blk.lnx, cfg), xk, xv,
+    keys = (xk, xv) if enc_seq is None else tuple(
+        C.all_gather(t, enc_seq.mesh.model_group, 1, enc_seq.mesh.model)
+        for t in (xk, xv))
+    x = x + L.cross_attn_block(xattn, cfg, _norm(x, blk.lnx, cfg), *keys,
                                tp)
     x = x + _mlp(blk, _norm(x, blk.ln2, cfg))
     return x, {"k": k, "v": v, "xk": xk, "xv": xv}
@@ -300,3 +322,117 @@ def encdec_decode_step(model: EncDecLM, cfg: ModelConfig,
         x = x + L.mlp_block(blk.mlp, L.rms_norm(x, blk.ln2, cfg.norm_eps))
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return T._logits(model, cfg, x)[:, 0], {**cache, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Serving over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _cache_dims(cfg: ModelConfig, b: int, cap: int, se: int, mesh: M.Mesh,
+                run: RunConfig) -> Dict[str, tuple]:
+    """``{leaf: (one layer's whole shape, cache_spec, its model dim)}``
+    of the self-attention's k/v (``cap`` slots) and the cross-attention's
+    xk/xv (``se`` encoder positions)."""
+    out = {}
+    for name, length in (("k", cap), ("v", cap), ("xk", se), ("xv", se)):
+        shape = (b, length, cfg.kv_heads, cfg.hd)
+        spec = SP.cache_spec(name, shape, mesh, run.shard_kv_seq)
+        out[name] = (shape, spec, T._model_dim(spec))
+    return out
+
+
+@torch.inference_mode()
+def encdec_prefill_sharded(model: EncDecLM, cfg: ModelConfig,
+                           run: RunConfig, mesh: M.Mesh,
+                           tokens: torch.Tensor, frames: torch.Tensor,
+                           cache_len: Optional[int] = None):
+    """:func:`encdec_prefill` on this rank's shards of a model served over
+    ``mesh``, as :func:`repro_torch.models.transformer.prefill_sharded`
+    serves a decoder-only LM: tokens (B, S) and frames (B, Se, D) the
+    global batch, of which the rank computes its part by ``batch_pspecs``
+    (under ``"fsdp_seq"`` its decoder positions and its encoder positions,
+    the encoder's unmasked attention and the decoder's over every rank's
+    keys).  Returns the rank's logits rows and its part of the cache by
+    ``cache_pspecs``: k/v (L, B_c, C_c, K_c, hd) and the cross-attention's
+    xk/xv (L, B_c, Se_c, K_c, hd), the encoder positions over ``model``
+    with ``shard_kv_seq`` (a rank's own under the split); ``"pos"``,
+    ``"cap"`` and ``"enc_len"`` Python ints."""
+    T._check_serve(model, mesh)
+    b, s = tokens.shape
+    toks, rows_dim, seq = T._rank_part(tokens, mesh, run)
+    fr, _, enc_seq = T._rank_part(frames, mesh, run)
+    lo = seq.offset if seq else 0
+    positions = torch.arange(lo, lo + toks.shape[1],
+                             device=tokens.device)[None, :]
+    cap, se = max(cache_len or s, s), frames.shape[1]
+    dims = _cache_dims(cfg, b, cap, se, mesh, run)
+    with M.activation_sharding(mesh, run.sharding):
+        enc_out = encode(model, cfg, run, fr, enc_seq)
+        x = T._embed(model, cfg, toks)
+        cache = {"pos": s, "cap": cap, "enc_len": se}
+        for name, (shape, sp, _) in dims.items():
+            cache[name] = x.new_zeros(
+                (cfg.n_layers,) + SP.shard_shape(shape, sp, mesh))
+        for i, blk in enumerate(model.dec_blocks):
+            x, c = _dec_layer(blk, cfg, x, positions, enc_out, seq, enc_seq)
+            for name, (_, _, dst) in dims.items():
+                t = T._ring(c[name], cap) if name in ("k", "v") else c[name]
+                src = (1 if enc_seq is not None and name in ("xk", "xv")
+                       else T._state_dim("k", t, cfg, rows_dim))
+                cache[name][i] = T._reshard(t, src, dst, mesh)
+        last = _norm(T._last_position(x, seq, mesh), model.final_norm, cfg)
+        return T._serve_logits(model, cfg, last, mesh), cache
+
+
+def _cross_decode_sharded(blk: DecBlock, cfg: ModelConfig, hx: torch.Tensor,
+                          xk: torch.Tensor, xv: torch.Tensor, se: int,
+                          mesh: M.Mesh, rows_dim: Optional[int],
+                          dst: Optional[int]) -> torch.Tensor:
+    """One token's cross-attention on this rank's part of xk/xv: the query
+    brought to the cache's layout (its rows; its KV heads, or every head
+    when the encoder positions lie over ``model`` and the ranks are
+    combined by :func:`layers.decode_attention_sharded`), the output back
+    to the view's layout for ``wo``."""
+    xattn, tp = T._attn_view(blk.xattn, cfg)
+    q = (hx @ xattn["wq"]).reshape(hx.shape[0], 1, -1, cfg.hd)
+    src = 2 if q.shape[2] != cfg.n_heads else rows_dim
+    at = 2 if dst == 2 else None
+    q = T._reshard(q, src, at, mesh)
+    if dst == 1:
+        o = L.decode_attention_sharded(q, xk, xv, se,
+                                       mesh.model_rank * xk.shape[1],
+                                       mesh.model_group)
+    else:
+        o = L.plain_attention(q, xk, xv)
+    o = T._reshard(o, at, src, mesh)
+    return C.all_reduce_identity_bwd(o.reshape(o.shape[0], 1, -1)
+                                     @ xattn["wo"], tp)
+
+
+@torch.inference_mode()
+def encdec_decode_sharded(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
+                          mesh: M.Mesh, token: torch.Tensor, cache: Dict):
+    """:func:`encdec_decode_step` on this rank's shards and its part of
+    the cache (:func:`encdec_prefill_sharded`'s), token (B, 1) the global
+    batch; the cache written in place and returned with ``pos + 1``, the
+    logits the rank's rows'."""
+    T._check_serve(model, mesh)
+    b = token.shape[0]
+    tok, rows_dim, _ = T._rank_part(token, mesh, run)
+    pos, se = cache["pos"], cache["enc_len"]
+    dims = {k: d for k, (_, _, d) in _cache_dims(
+        cfg, b, cache["cap"], se, mesh, run).items()}
+    with M.activation_sharding(mesh, run.sharding):
+        x = T._embed(model, cfg, tok)
+        for i, blk in enumerate(model.dec_blocks):
+            x = x + T._attn_decode_sharded(
+                blk, cfg, _norm(x, blk.ln1, cfg),
+                {"k": cache["k"][i], "v": cache["v"][i]}, pos, mesh,
+                rows_dim, dims["k"])
+            x = x + _cross_decode_sharded(
+                blk, cfg, _norm(x, blk.lnx, cfg), cache["xk"][i],
+                cache["xv"][i], se, mesh, rows_dim, dims["xk"])
+            x = x + _mlp(blk, _norm(x, blk.ln2, cfg))
+        x = _norm(x, model.final_norm, cfg)
+        return T._serve_logits(model, cfg, x, mesh), {**cache, "pos": pos + 1}

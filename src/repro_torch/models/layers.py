@@ -24,11 +24,20 @@ S <= 2048 and its padding to whole blocks change no result beyond
 rounding.  For the p v product the bf16 kernel rounds p to bf16, as
 ``plain_attention`` rounds it to v's dtype; the fp32 kernel and the plain
 version keep p in fp32.  ``decode_attention`` ignores the window, as
-JAX's does: a sliding config's cache is a ring capped at the window.  Not
-ported: ``kv_stream_attention``, the sequence-parallel branch of
-``attn_block``.  The MoE's dispatch over the data ranks of a mesh, global
-or data-local (``_moe_dispatch_ffn_sharded``, ``local_dispatch``), runs
-on each rank's own tokens with collectives over ``data``.
+JAX's does: a sliding config's cache is a ring capped at the window.
+``kv_stream_attention`` (:194) is the sequence-parallel branch of
+``attn_block`` (:311-330): a rank's queries, at an offset, against the
+keys and values gathered over ``model``; on the card the kernel's offset
+mode, on the CPU JAX's online softmax over key blocks
+(``kernels/ref.py::kv_stream_attention_ref``).  Over a decode cache
+whose length lies on ``model`` (``shard_kv_seq``),
+:func:`decode_attention_sharded` attends each rank's slots and combines
+the ranks by their max and sum (JAX: GSPMD's reduction of the softmax
+across the sharded length).  The MoE's dispatch over the data ranks of a
+mesh, global or data-local (``_moe_dispatch_ffn_sharded``,
+``local_dispatch``), runs on each rank's own tokens with collectives over
+``data``; under a sequence split the global dispatch is over every
+rank's tokens.
 ``attn_block(causal=False)`` is the encoder's self-attention (JAX's
 ``plain_attention(causal=False)``, XLA), the same
 kernel with its unmasked instantiation; the cross-attention, whose queries
@@ -87,11 +96,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import mesh as M
 from repro_torch.distributed.collectives import (all_reduce_identity_bwd,
                                                  all_reduce_sum_bwd,
                                                  copy_all_reduce_bwd)
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 # ---------------------------------------------------------------------------
 # Norms / rotary embeddings
@@ -155,6 +165,44 @@ def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     q``: :func:`repro_torch.kernels.ops.flash_attention` (the CUDA kernel
     on the card)."""
     return ops.flash_attention(q, k, v, window)
+
+
+def kv_stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = 0, bk: int = 512, q_offset: int = 0,
+                        causal: bool = True) -> torch.Tensor:
+    """JAX's ``kv_stream_attention`` (:194) with a query offset: q (B, Sq,
+    H, hd), row i at position ``q_offset + i``, against k/v (B, Sk, K, hd)
+    at 0 .. Sk - 1 (causal: ``q_offset + Sq <= Sk``; or unmasked) -> q's
+    shape and dtype.  On the card the forward kernel's offset mode
+    (:func:`repro_torch.kernels.ops.flash_attention`), on the CPU the
+    online softmax over ``bk``-key blocks in JAX's order."""
+    if q.is_cuda:
+        return ops.flash_attention(q, k, v, window, causal, q_offset)
+    return ref.kv_stream_attention_ref(q, k, v, window, bk, q_offset, causal)
+
+
+def decode_attention_sharded(q: torch.Tensor, k_part: torch.Tensor,
+                             v_part: torch.Tensor, n_valid: int, first: int,
+                             group) -> torch.Tensor:
+    """:func:`decode_attention` over a cache whose slots lie over
+    ``group``'s ranks: q (B, 1, H, hd) every head; k_part/v_part (B, C_r,
+    K, hd) slots ``[first, first + C_r)``; slots below ``n_valid`` are
+    valid.  Each rank's scores give the max over the ranks, then the sum
+    of exps; p (normalised, rounded to v's dtype as JAX rounds it) times
+    the rank's values is an fp32 partial, summed over the ranks and rounded
+    once.  Three all-reduces: max, sum, partial."""
+    b, _, h, hd = q.shape
+    c, n_kv = k_part.shape[1], k_part.shape[2]
+    scores = _gqa_scores(q.reshape(b, 1, n_kv, h // n_kv, hd), k_part,
+                         1.0 / math.sqrt(hd))[..., 0, :]  # (B, K, G, C_r)
+    valid = torch.arange(first, first + c, device=q.device) < n_valid
+    scores = scores.masked_fill(~valid, float("-inf"))
+    mx = C.all_reduce_max(scores.amax(dim=-1), group)
+    e = torch.exp(scores - mx[..., None])
+    total = C.all_reduce_(e.sum(dim=-1), group)
+    p = (e / total[..., None]).to(v_part.dtype)
+    o = torch.einsum("bkgs,bskh->bkgh", p.float(), v_part.float())
+    return C.all_reduce_(o, group).to(v_part.dtype).reshape(b, 1, h, hd)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -226,13 +274,24 @@ def _qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def attn_block(p, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, causal: bool = True, tp=None):
+               positions: torch.Tensor, causal: bool = True, tp=None,
+               seq: Optional[M.SeqSplit] = None):
     """Full-sequence (prefill) self-attention, in a sliding window when
     ``cfg.attn_type == "sliding"``; unmasked with ``causal=False`` (the
-    encoder's); on this rank's heads, tensor parallel over ``tp``.
-    Returns ``(out, (k, v))``."""
+    encoder's); on this rank's heads, tensor parallel over ``tp``.  With
+    ``seq`` (x this rank's positions of a sequence split over ``model``,
+    no gradient) the keys and values are gathered over ``model`` (JAX's
+    ``constrain_kv_gather``) and the rank's queries attend them at their
+    offset (:func:`kv_stream_attention`).  Returns ``(out, (k, v))``, k/v
+    over the whole sequence under ``seq``."""
     q, k, v = _qkv(p, cfg, copy_all_reduce_bwd(x, tp), positions)
-    if causal:
+    if seq is not None:
+        group, n = seq.mesh.model_group, seq.mesh.model
+        k, v = C.all_gather(k, group, 1, n), C.all_gather(v, group, 1, n)
+        window = cfg.window if causal and cfg.attn_type == "sliding" else 0
+        o = kv_stream_attention(q, k, v, window, q_offset=seq.offset,
+                                causal=causal)
+    elif causal:
         window = cfg.window if cfg.attn_type == "sliding" else 0
         o = blocked_causal_attention(q, k, v, window)
     else:
@@ -362,8 +421,22 @@ def _capacity_slots(flat_e: torch.Tensor, n_experts: int, capacity: int):
     return slot, keep
 
 
+def _split_tokens(top_e: torch.Tensor, seq: M.SeqSplit) -> torch.Tensor:
+    """Every rank's top-K experts (T_r, K) of a sequence split, in the
+    global batch's token order (b-major over (B, S)): rank (d, m) holds
+    rows ``d`` and positions ``m`` of the (data, model) blocks."""
+    mesh = seq.mesh
+    k = top_e.shape[1]
+    rows = top_e.shape[0] // seq.length
+    parts = C.all_gather(top_e.reshape(1, rows, seq.length, k),
+                         mesh.world_group, 0, mesh.data * mesh.model)
+    return parts.reshape(mesh.data, mesh.model, rows, seq.length, k) \
+        .permute(0, 2, 1, 3, 4).reshape(-1, k)
+
+
 def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
-                      mesh: Optional[M.Mesh] = None, tp=None):
+                      mesh: Optional[M.Mesh] = None, tp=None,
+                      seq: Optional[M.SeqSplit] = None):
     """Capacity dispatch and the expert SwiGLU.  xf (T, D) -> ``(out (T,
     D), aux)``, aux the Switch load-balance loss ``E * sum(me * ce)`` (ce
     counts every top-K assignment, dropped ones too).
@@ -385,11 +458,19 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
     With ``tp`` the experts run on this rank's ``moe_d_ff`` part: the
     tokens enter them through "f", and each token's rows of their partial
     outputs are summed by "g" before the router's weights scale them (so
-    the weights' gradient sums every rank's part)."""
+    the weights' gradient sums every rank's part).
+
+    With ``seq`` (a prefill's sequence split, no gradient) the dispatch
+    is over the tokens of every rank of the mesh, in the global batch's
+    order (JAX's combined axes, ``partition.py:102-104``)."""
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
     probs, top_p, top_e = _route(p, cfg, xf)
-    if mesh is None:
+    if seq is not None:
+        all_e = _split_tokens(top_e, seq)
+        n_tok = all_e.shape[0]
+        me = C.all_reduce_(probs.sum(dim=0), seq.mesh.world_group) / n_tok
+    elif mesh is None:
         all_e, n_tok, me = top_e, t, probs.mean(dim=0)
     else:
         all_e = M.gather_batch(top_e, mesh)
@@ -400,7 +481,13 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
 
     c = max(1, int(math.ceil(cfg.capacity_factor * n_tok * k / e)))
     slot, _ = _capacity_slots(all_e.reshape(-1), e, c)
-    if mesh is not None:
+    if seq is not None:
+        sm = seq.mesh
+        rows = t // seq.length
+        slot = slot.view(sm.data * rows, sm.model * seq.length, k)[
+            sm.data_rank * rows:(sm.data_rank + 1) * rows,
+            seq.offset:seq.offset + seq.length].reshape(-1)
+    elif mesh is not None:
         slot = slot[mesh.data_rank * t * k:(mesh.data_rank + 1) * t * k]
     # Token-major copies of each token, one per assignment; the backward
     # sums them over K (no atomics).
@@ -432,7 +519,7 @@ def _data_mesh() -> Optional[M.Mesh]:
 
 def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
               dense_route: bool = False, local_dispatch: bool = False,
-              tp=None):
+              tp=None, seq: Optional[M.SeqSplit] = None):
     """Top-K capacity-dispatched MoE.  x (B, S, D) -> ``(out, aux)``; the
     dispatched experts tensor parallel over ``tp``.
 
@@ -442,12 +529,24 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     dispatches its own tokens with capacity ``ceil(cf * T_local * K / E)``
     and the aux is the mean of the ranks' (its backward sums over them).
 
+    With ``seq`` (x this rank's positions of a prefill's sequence split)
+    the global dispatch takes every rank's tokens (data-local dispatch is
+    not ported there).
+
     ``dense_route=True`` (decode: few tokens) runs every expert on every
     token and combines them with a (T, E) weight matrix holding each
     token's renormalised top-K probabilities: no token is dropped, and the
-    aux loss is 0."""
+    aux loss is 0; under ``tp`` each rank's experts give a partial sum,
+    summed over the ranks after the combine."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
+    if seq is not None and not dense_route:
+        if local_dispatch:
+            raise NotImplementedError(
+                "moe_local_dispatch under a sequence split (fsdp_seq "
+                "prefill): the global dispatch is ported")
+        out, aux = _moe_dispatch_ffn(p, cfg, xf, tp=tp, seq=seq)
+        return out.view(b, s, d), aux
     if not dense_route:
         mesh = _data_mesh()
         if local_dispatch and mesh is not None:
@@ -457,12 +556,14 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
             out, aux = _moe_dispatch_ffn(p, cfg, xf, mesh, tp)
         return out.view(b, s, d), aux
     _, top_p, top_e = _route(p, cfg, xf)
-    g = torch.matmul(xf, p["w1"])  # (E, T, Fe)
-    u = torch.matmul(xf, p["w3"])
+    xd = copy_all_reduce_bwd(xf, tp)
+    g = torch.matmul(xd, p["w1"])  # (E, T, Fe)
+    u = torch.matmul(xd, p["w3"])
     y = torch.matmul(F.silu(g) * u, p["w2"])  # (E, T, D)
     w = torch.zeros((b * s, cfg.n_experts), dtype=top_p.dtype,
                     device=x.device).scatter(1, top_e, top_p)
     out = torch.bmm(w.to(y.dtype)[:, None, :], y.transpose(0, 1))  # (T, 1, D)
+    out = all_reduce_identity_bwd(out, tp)
     return out.view(b, s, d), torch.zeros((), device=x.device)
 
 
@@ -561,22 +662,24 @@ def mamba_block(p, cfg: ModelConfig, x: torch.Tensor, tp=None):
 
 
 def mamba_decode_block(p, cfg: ModelConfig, x: torch.Tensor,
-                       conv_state: torch.Tensor, h: torch.Tensor):
+                       conv_state: torch.Tensor, h: torch.Tensor, tp=None):
     """One-token mamba step, plain PyTorch (JAX leaves it to XLA).  x: (B,
     1, D); conv_state: (B, W-1, Di); h: (B, Di, N) fp32.  Returns ``(out,
-    conv_state, h)``, the two states new tensors."""
-    di = cfg.inner
-    xz = x @ p["in_proj"]
+    conv_state, h)``, the two states new tensors.  Under ``tp`` channel
+    parallel, as :func:`mamba_block`: Di and both states are the rank's
+    channels."""
+    di = p["conv_w"].shape[1]
+    xz = copy_all_reduce_bwd(x, tp) @ p["in_proj"]
     xi, z = xz[..., :di], xz[..., di:]  # (B, 1, Di)
     window = torch.cat([conv_state, xi], dim=1)  # (B, W, Di)
     xc = _silu(torch.einsum("bwd,wd->bd", window, p["conv_w"])
                + p["conv_b"])[:, None, :]
-    dt, bm, cm = _ssm_params(p, cfg, xc)
+    dt, bm, cm = _ssm_params(p, cfg, xc, tp)
     a = -torch.exp(p["A_log"])
     xf = xc[:, 0].float()
     h = torch.exp(dt[:, 0, :, None] * a) * h \
         + (dt[:, 0] * xf)[..., None] * bm[:, 0, None, :]
     y = torch.einsum("bdn,bn->bd", h, cm[:, 0]) + p["D_skip"] * xf
     y = y * _silu(z[:, 0].float())
-    out = (y.to(x.dtype) @ p["out_proj"])[:, None, :]
-    return out, window[:, 1:], h
+    out = all_reduce_identity_bwd(y.to(x.dtype) @ p["out_proj"], tp)
+    return out[:, None, :], window[:, 1:], h

@@ -17,7 +17,9 @@ row-sharded lookup on the active mesh).
 allocating, ``param_struct`` builds the parameters on the ``meta`` device
 (shapes and dtypes, JAX's ``eval_shape`` of ``init``), and
 ``batch_struct`` gives a shape cell's batch as ``{name: (shape,
-dtype)}``.
+dtype)}`` and ``cache_struct`` its decode cache on the ``meta`` device
+(JAX's names and stacked shapes: ``k``, ``v``, ``xk``, ``xv``, ``conv``,
+``h`` (L, ...) and a 0-d int32 ``pos``).
 
 ``build(..., mesh=)`` makes ``init`` give this rank's shards of an LM or
 of the encoder-decoder LM: the whole model drawn from the seed, then cut by
@@ -29,6 +31,15 @@ of ``run.emb_rows``'s layout (:func:`repro_torch.models.dlrm.init_placed`,
 the MLPs whole) under ``"fsdp_tp"`` and ``"tp"``; under ``"dp"`` (and so
 under ``run.grad_compression``) the tables stay whole, and ``"fsdp"``,
 whose batch splits over both axes, is refused for DLRM.
+
+With a mesh inside a process group, an LM's ``prefill(params, batch,
+cache_len)`` and ``decode(params, token, cache)`` serve this rank's
+shards (:func:`repro_torch.models.transformer.prefill_sharded` and
+``decode_sharded``; whisper's :func:`repro_torch.models.encdec.
+encdec_prefill_sharded` and ``encdec_decode_sharded``): the batch is the
+global one, of which the rank computes its part by ``batch_pspecs`` (the
+sequence split under ``"fsdp_seq"``), and the cache is the rank's part by
+``cache_pspecs(run.shard_kv_seq)``; the logits are the rank's rows'.
 """
 from __future__ import annotations
 
@@ -65,6 +76,19 @@ class ModelBundle:
     n_active_params: Callable[[], int]
     param_struct: Callable[[], Any]  # the parameters on the meta device
     run: RunConfig = RunConfig()
+
+    def cache_struct(self, shape: ShapeConfig) -> Optional[Dict]:
+        """The decode cache of one shape cell on the ``meta`` device: JAX's
+        ``cache_struct`` (the cache of ``shape.global_batch`` rows and
+        ``shape.seq_len`` slots, a sliding window's capped), ``pos`` a 0-d
+        int32 tensor; None for DLRM."""
+        cfg, b, c = self.cfg, shape.global_batch, shape.seq_len
+        if cfg.family == "dlrm":
+            return None
+        cache = (ED.init_encdec_cache(cfg, b, c, device="meta")
+                 if cfg.enc_dec else T.init_cache(cfg, b, c, device="meta"))
+        cache["pos"] = torch.zeros((), dtype=torch.int32, device="meta")
+        return cache
 
     def batch_struct(self, shape: ShapeConfig
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
@@ -157,6 +181,7 @@ def build(cfg: ModelConfig, device="cuda",
     run = run or RunConfig()
     common = dict(cfg=cfg, device=device, run=run)
     sharding = "dp" if run.grad_compression else run.sharding
+    served = mesh is not None and mesh.data_group is not None
 
     def sharded(init):
         return lambda seed=0: T.shard_model(init(seed), mesh, sharding)
@@ -201,14 +226,20 @@ def build(cfg: ModelConfig, device="cuda",
 
         def ed_prefill(params, batch, cache_len=None):
             dev = resolve_device(device)
-            return ED.encdec_prefill(params, cfg,
-                                     _on(batch["tokens"], dev, torch.int64),
-                                     _on(batch["frontend"], dev), cache_len)
+            tokens = _on(batch["tokens"], dev, torch.int64)
+            frames = _on(batch["frontend"], dev)
+            if served:
+                return ED.encdec_prefill_sharded(params, cfg, run, mesh,
+                                                 tokens, frames, cache_len)
+            return ED.encdec_prefill(params, cfg, tokens, frames, cache_len)
 
         def ed_decode(params, token, cache):
             dev = resolve_device(device)
-            return ED.encdec_decode_step(params, cfg,
-                                         _on(token, dev, torch.int64), cache)
+            token = _on(token, dev, torch.int64)
+            if served:
+                return ED.encdec_decode_sharded(params, cfg, run, mesh,
+                                                token, cache)
+            return ED.encdec_decode_step(params, cfg, token, cache)
 
         return ModelBundle(
             init=sharded(lambda seed: ED.init_encdec(cfg, seed, device)),
@@ -235,12 +266,19 @@ def build(cfg: ModelConfig, device="cuda",
 
     def prefill_fn(params, batch, cache_len=None):
         dev = resolve_device(device)
-        return T.prefill(params, cfg, _on(batch["tokens"], dev, torch.int64),
-                         cache_len, frontend(batch, dev))
+        tokens = _on(batch["tokens"], dev, torch.int64)
+        if served:
+            return T.prefill_sharded(params, cfg, run, mesh, tokens,
+                                     cache_len, frontend(batch, dev))
+        return T.prefill(params, cfg, tokens, cache_len,
+                         frontend(batch, dev))
 
     def decode_fn(params, token, cache):
         dev = resolve_device(device)
-        return T.decode_step(params, cfg, _on(token, dev, torch.int64), cache)
+        token = _on(token, dev, torch.int64)
+        if served:
+            return T.decode_sharded(params, cfg, run, mesh, token, cache)
+        return T.decode_step(params, cfg, token, cache)
 
     return ModelBundle(
         init=sharded(lambda seed: T.init_lm(cfg, seed, device)),

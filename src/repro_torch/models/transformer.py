@@ -23,7 +23,11 @@ backward kernel and, for the hybrid, the windowed attention's.
 :func:`shard_model` cuts each leaf to this rank's shard of JAX's
 ``param_pspecs`` layout (:mod:`repro_torch.sharding.partition`) and tags
 it with its :class:`~repro_torch.distributed.mesh.Placement`.  A sharded
-model trains only (prefill and decode refuse it).  Each layer's leaves are
+model also serves (:func:`prefill_sharded`, :func:`decode_sharded`:
+JAX's ``batch_pspecs`` and ``cache_pspecs`` layouts, ``fsdp_seq``'s
+sequence split; the mamba decode channel parallel on the conv and SSM
+states' channels over ``model``); :func:`prefill`/:func:`decode_step`
+serve a whole model.  Each layer's leaves are
 gathered inside ``_layer_forward``, so under ``remat="full"`` the
 checkpoint gathers them again in the backward instead of keeping them.
 Where a leaf's feature dim lies on ``model``, the layer computes tensor
@@ -239,8 +243,8 @@ def shard_model(model: nn.Module, mesh: Optional[M.Mesh],
 def _check_whole(model: nn.Module) -> None:
     if any(M.placement(p) is not None for p in model.parameters()):
         raise NotImplementedError(
-            "this model holds its rank's shards (shard_model): it trains; "
-            "serve a whole model")
+            "this model holds its rank's shards (shard_model): serve it "
+            "through build(..., mesh=) (prefill_sharded, decode_sharded)")
 
 
 def _on_model(p: torch.Tensor, dim: int) -> bool:
@@ -323,25 +327,25 @@ def _vocab_view(p: torch.Tensor, dim: int):
 
 
 def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor, local_dispatch: bool = False):
+                   positions: torch.Tensor, local_dispatch: bool = False,
+                   seq: Optional[M.SeqSplit] = None):
     """Full-sequence layer.  Returns ``(x, aux, cache)``: aux is the MoE's
     load-balance loss (``local_dispatch`` as :func:`layers.moe_block`
     takes it), or ``None`` for a layer without one (JAX's zero);
     cache is this layer's ``{"k", "v"}`` and, for the SSM and hybrid
     families, ``{"conv", "h"}`` (an SSM has no ``k``/``v``).  A sharded
     layer's leaves are gathered here (tensor parallel where they allow
-    it)."""
+    it).  ``seq``: x holds this rank's positions of a prefill's sequence
+    split (the attention and the MoE's dispatch see every rank's)."""
     h = L.rms_norm(x, C.gather_leaf(blk.ln1), cfg.norm_eps)
     if cfg.family == "ssm":
-        ssm, tp = _ssm_view(blk.ssm)
-        out, (conv_tail, h_last) = L.mamba_block(ssm, cfg, h, tp=tp)
+        out, (conv_tail, h_last) = _mamba_forward(blk, cfg, h, seq)
         return x + out, None, {"conv": conv_tail, "h": h_last}
     attn, tp = _attn_view(blk.attn, cfg)
-    attn_out, (k, v) = L.attn_block(attn, cfg, h, positions, tp=tp)
+    attn_out, (k, v) = L.attn_block(attn, cfg, h, positions, tp=tp, seq=seq)
     cache = {"k": k, "v": v}
     if cfg.family == "hybrid":
-        ssm, tp = _ssm_view(blk.ssm)
-        ssm_out, (conv_tail, h_last) = L.mamba_block(ssm, cfg, h, tp=tp)
+        ssm_out, (conv_tail, h_last) = _mamba_forward(blk, cfg, h, seq)
         attn_out = (attn_out + ssm_out) * 0.5
         cache.update(conv=conv_tail, h=h_last)
     x = x + attn_out
@@ -349,10 +353,25 @@ def _layer_forward(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     if cfg.n_experts:
         moe, tp = _ffn_view(blk.moe, 2)
         ff, aux = L.moe_block(moe, cfg, h2, local_dispatch=local_dispatch,
-                              tp=tp)
+                              tp=tp, seq=seq)
         return x + ff, aux, cache
     mlp, tp = _ffn_view(blk.mlp, 1)
     return x + L.mlp_block(mlp, h2, tp=tp), None, cache
+
+
+def _mamba_forward(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+                   seq: Optional[M.SeqSplit] = None):
+    """The layer's mamba block (channel parallel where its view allows).
+    Under ``seq`` (h this rank's positions of a sequence split) the block
+    gathers the sequence over ``model``, computes it whole and keeps the
+    rank's slice: the conv tail and the scan's state run across every
+    rank's positions, and the states returned are the sequence's."""
+    ssm, tp = _ssm_view(blk.ssm)
+    if seq is None:
+        return L.mamba_block(ssm, cfg, h, tp=tp)
+    whole = C.all_gather(h, seq.mesh.model_group, 1, seq.mesh.model)
+    out, states = L.mamba_block(ssm, cfg, whole, tp=tp)
+    return out[:, seq.offset:seq.offset + seq.length], states
 
 
 def _mamba_decode(blk: Block, cfg: ModelConfig, h: torch.Tensor,
@@ -605,12 +624,9 @@ def prefill(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
     cache = init_cache(cfg, b, cap, x.dtype, tokens.device)
     for i, blk in enumerate(model.blocks):
         x, _, lc = _layer_forward(blk, cfg, x, positions)
-        if "k" in lc and s > cap:
-            cache["k"][i] = torch.roll(lc["k"][:, s - cap:], s % cap, dims=1)
-            cache["v"][i] = torch.roll(lc["v"][:, s - cap:], s % cap, dims=1)
-        elif "k" in lc:
-            cache["k"][i, :, :s] = lc["k"]
-            cache["v"][i, :, :s] = lc["v"]
+        if "k" in lc:
+            cache["k"][i] = _ring(lc["k"], cap)
+            cache["v"][i] = _ring(lc["v"], cap)
         if "conv" in lc:
             cache["conv"][i] = lc["conv"]
             cache["h"][i] = lc["h"]
@@ -649,3 +665,293 @@ def _decode_from(model: TransformerLM, cfg: ModelConfig, x: torch.Tensor,
         x = _layer_decode(blk, cfg, x, {k: cache[k][i] for k in state}, pos)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return _logits(model, cfg, x)[:, 0], {**cache, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Serving over a mesh: each rank's shards, JAX's batch and cache layouts
+# ---------------------------------------------------------------------------
+
+def _check_serve(model: nn.Module, mesh: M.Mesh) -> None:
+    for p in model.parameters():
+        pl = M.placement(p)
+        if pl is not None and pl.mesh.shape != mesh.shape:
+            raise ValueError(f"a parameter placed on {pl.mesh.shape} served "
+                             f"on {mesh.shape}")
+
+
+def _rows_spec(mesh: M.Mesh, run: RunConfig, shape) -> tuple:
+    """The batch's spec (JAX's ``batch_pspecs``) for a (B, S) batch;
+    raises unless B splits over every axis of the variant's batch entry
+    (JAX would replicate the rows over an axis that does not divide
+    them; the port's MoE dispatch and cache layout count each row once)."""
+    spec = SP.batch_spec(tuple(shape), mesh, run.sharding)
+    want = SP.batch_entry(mesh, run.sharding)
+    if SP.axes_of(spec[0] if spec else None) != want:
+        raise ValueError(f"a batch of {shape[0]} rows does not split over "
+                         f"{want} ({mesh.shape}) under {run.sharding!r}")
+    return spec
+
+
+def _rank_part(t: torch.Tensor, mesh: M.Mesh, run: RunConfig):
+    """``(this rank's part of the global batch leaf t (B, S, ...) by
+    batch_pspecs, the dim its rows lie over model or None, its sequence
+    split or None)``."""
+    spec = _rows_spec(mesh, run, tuple(t.shape))
+    part = SP.shard_of(t, spec, mesh)
+    seq = None
+    if len(spec) > 1 and spec[1] == "model":
+        n = part.shape[1]
+        seq = M.SeqSplit(mesh, mesh.model_rank * n, n)
+    return part, (0 if _model_dim(spec[:1]) == 0 else None), seq
+
+
+def _last_position(x: torch.Tensor, seq: Optional[M.SeqSplit],
+                   mesh: M.Mesh) -> torch.Tensor:
+    """x (B_r, S_r, D) -> the sequence's last position (B_r, 1, D): this
+    rank's, or under a sequence split the last model rank's."""
+    last = x[:, -1:]
+    if seq is None:
+        return last
+    if mesh.model_rank != mesh.model - 1:
+        last = torch.zeros_like(last)
+    return C.all_reduce_(last.contiguous(), mesh.model_group)
+
+
+def _model_dim(spec) -> Optional[int]:
+    """The dim a spec lays over ``model`` (alone or as the minor axis of
+    a tuple), or None: replicated over ``model``."""
+    for d, e in enumerate(spec):
+        if "model" in SP.axes_of(e):
+            return d
+    return None
+
+
+def _reshard(x: torch.Tensor, src: Optional[int], dst: Optional[int],
+             mesh: M.Mesh) -> torch.Tensor:
+    """``x`` split over ``model`` along ``src`` (None: whole on every model
+    rank) -> along ``dst``: this rank's part, an all-gather or one
+    exchange within ``model``."""
+    n = mesh.model
+    if src == dst or n == 1:
+        return x
+    if src is None:
+        size = x.shape[dst] // n
+        return x.narrow(dst, mesh.model_rank * size, size)
+    if dst is None:
+        return C.all_gather(x, mesh.model_group, src, n)
+    return C.exchange_dims(x, mesh.model_group, n, dst, src)
+
+
+# The decode state's leaves by family, and the dim of each (one layer's)
+# that tensor parallelism splits: the KV heads, the mamba channels.
+_SPLIT_DIM = {"k": 2, "v": 2, "conv": 2, "h": 1}
+
+
+def _state_dim(name: str, t: torch.Tensor, cfg: ModelConfig,
+               rows_dim: Optional[int]) -> Optional[int]:
+    """Where a layer's computed state ``name`` lies over ``model``: its KV
+    heads or mamba channels (tensor parallel), else the batch's rows
+    (``"fsdp"``), else nowhere (whole on every model rank)."""
+    d = _SPLIT_DIM[name]
+    whole = cfg.kv_heads if name in ("k", "v") else cfg.inner
+    return d if t.shape[d] != whole else rows_dim
+
+
+def _cache_layout(cfg: ModelConfig, b: int, cap: int, mesh: M.Mesh,
+                  run: RunConfig) -> Dict[str, tuple]:
+    """``{leaf: (one layer's whole shape, its cache_spec, the dim it lies
+    over model or None)}`` for the family's decode state."""
+    shapes = {}
+    if cfg.family != "ssm":
+        shapes["k"] = shapes["v"] = (b, cap, cfg.kv_heads, cfg.hd)
+    if cfg.family in SSM_FAMILIES:
+        shapes["conv"] = (b, cfg.conv_width - 1, cfg.inner)
+        shapes["h"] = (b, cfg.inner, cfg.ssm_state)
+    out = {}
+    for name, shape in shapes.items():
+        spec = SP.cache_spec(name, shape, mesh, run.shard_kv_seq)
+        out[name] = (shape, spec, _model_dim(spec))
+    return out
+
+
+def _ring(kv: torch.Tensor, cap: int) -> torch.Tensor:
+    """(B, S, K, hd) -> the ring of ``cap`` slots at pos = S: the last
+    ``cap`` keys rotated so slot = pos % cap, or zeros past S."""
+    s = kv.shape[1]
+    if s > cap:
+        return torch.roll(kv[:, s - cap:], s % cap, dims=1)
+    out = kv.new_zeros((kv.shape[0], cap) + tuple(kv.shape[2:]))
+    out[:, :s] = kv
+    return out
+
+
+def _serve_logits(model: TransformerLM, cfg: ModelConfig,
+                  x: torch.Tensor, mesh: M.Mesh) -> torch.Tensor:
+    """x (B_r, 1, D) after the final norm -> logits (B_r, V) fp32 over the
+    whole vocab (a vocab-parallel head's parts gathered over ``model``)."""
+    head, group, _ = _head_view(model)
+    logits = _logits(model, cfg, x, head)[:, 0]
+    return logits if group is None else C.all_gather(
+        logits, group, 1, mesh.model)
+
+
+@torch.inference_mode()
+def prefill_sharded(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
+                    mesh: M.Mesh, tokens: torch.Tensor,
+                    cache_len: Optional[int] = None,
+                    frontend_embeds: Optional[torch.Tensor] = None):
+    """:func:`prefill` on this rank's shards (``shard_model`` under
+    ``run.sharding``, or whole under ``"dp"``) of a model served over
+    ``mesh``.  tokens (B, S) and ``frontend_embeds`` are the global
+    batch; the rank computes its part by ``batch_pspecs``: its rows over
+    the data axes (and ``model`` under ``"fsdp"``) and, under
+    ``"fsdp_seq"`` where ``model`` divides S, its positions ``[m S/model,
+    (m+1) S/model)`` (rope at the absolute positions, the frontend's
+    rows spliced where they fall, K/V gathered over ``model`` each layer,
+    the queries at their offset, the MoE's dispatch over every rank's
+    tokens, the last position's hidden row taken from the last model
+    rank).  Returns ``(logits (B_r, V) fp32 of the rank's rows, the rank's
+    part of the cache)``: k/v (L, B_c, C_c, K_c, hd) laid out by
+    ``cache_pspecs(run.shard_kv_seq)``, reached from the layout that
+    computed them by one exchange or slice within ``model``; ``"pos"``
+    and the ring's whole capacity ``"cap"`` are Python ints."""
+    _check_serve(model, mesh)
+    b, s = tokens.shape
+    toks, rows_dim, seq = _rank_part(tokens, mesh, run)
+    lo = seq.offset if seq else 0
+    positions = torch.arange(lo, lo + toks.shape[1],
+                             device=tokens.device)[None, :]
+    fe = None
+    if frontend_embeds is not None and cfg.n_frontend_tokens:
+        fe = SP.shard_of(frontend_embeds, _rows_spec(mesh, run, (b, s))[:1],
+                         mesh)[:, lo:lo + toks.shape[1]]
+        fe = fe if fe.shape[1] else None
+    cap = cache_len or s
+    if cfg.attn_type == "sliding":
+        cap = min(cap, cfg.window)
+    layout = _cache_layout(cfg, b, cap, mesh, run)
+    with M.activation_sharding(mesh, run.sharding):
+        x = _embed(model, cfg, toks, fe)
+        cache = {"pos": s, "cap": cap}
+        for name, (shape, spec, _) in layout.items():
+            dt = torch.float32 if name == "h" else x.dtype
+            cache[name] = x.new_zeros(
+                (cfg.n_layers,) + SP.shard_shape(shape, spec, mesh), dtype=dt)
+        for i, blk in enumerate(model.blocks):
+            x, _, lc = _layer_forward(blk, cfg, x, positions,
+                                      run.moe_local_dispatch, seq)
+            for name, (_, _, dst) in layout.items():
+                t = _ring(lc[name], cap) if name in ("k", "v") else lc[name]
+                cache[name][i] = _reshard(
+                    t, _state_dim(name, t, cfg, rows_dim), dst, mesh)
+        last = L.rms_norm(_last_position(x, seq, mesh),
+                          C.gather_leaf(model.final_norm), cfg.norm_eps)
+        return _serve_logits(model, cfg, last, mesh), cache
+
+
+def _attn_decode_sharded(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+                         cache: Dict[str, torch.Tensor], pos: int,
+                         mesh: M.Mesh, rows_dim: Optional[int],
+                         dst: Optional[int]) -> torch.Tensor:
+    """One token's self-attention on this rank's part of the cache, in
+    place.  q/k/v are computed where the layer's view puts them (the rank's
+    heads, its rows, or whole), then brought to the cache's layout (its
+    model dim ``dst``): the cache's rows, and the rank's KV heads (heads
+    over ``model``) or every head (slots over ``model``, or a cache whole
+    over it).  With the slots over ``model`` the new key goes to the rank
+    owning slot ``pos % C`` and the ranks' attentions are combined by
+    :func:`layers.decode_attention_sharded`.  The output goes back to the
+    view's layout for ``wo``."""
+    attn, tp = _attn_view(blk.attn, cfg)
+    positions = torch.full((1,), pos, dtype=torch.int64, device=h.device)
+    q, k, v = L._qkv(attn, cfg, h, positions)
+    src = _state_dim("k", k, cfg, rows_dim)
+    at = 2 if dst == 2 else None
+    q, k, v = (_reshard(t, src, at, mesh) for t in (q, k, v))
+    kc, vc = cache["k"], cache["v"]
+    c_r = kc.shape[1]
+    if dst == 1:  # the ring's slots over model
+        slot = pos % (c_r * mesh.model)
+        first = mesh.model_rank * c_r
+        if first <= slot < first + c_r:
+            kc[:, slot - first] = k[:, 0]
+            vc[:, slot - first] = v[:, 0]
+        o = L.decode_attention_sharded(q, kc, vc,
+                                       min(pos + 1, c_r * mesh.model), first,
+                                       mesh.model_group)
+    else:
+        slot = pos % c_r if c_r > 0 else 0
+        kc[:, slot] = k[:, 0]
+        vc[:, slot] = v[:, 0]
+        o = L.decode_attention(q, kc, vc, pos + 1)
+    o = _reshard(o, at, src, mesh)
+    out = o.reshape(*o.shape[:2], -1) @ attn["wo"]
+    return C.all_reduce_identity_bwd(out, tp)
+
+
+def _mamba_decode_sharded(blk: Block, cfg: ModelConfig, h: torch.Tensor,
+                          cache: Dict[str, torch.Tensor], mesh: M.Mesh,
+                          rows_dim: Optional[int],
+                          dims: Dict[str, Optional[int]]) -> torch.Tensor:
+    """One token's mamba step on this rank's part of the conv and SSM
+    states (channels over ``model`` where ``cache_pspecs`` puts them),
+    written back in place: channel parallel when the block's view is, on
+    the rank's channels; else the whole block on the cache's rows, the
+    states gathered over ``model`` and the rank's channels kept."""
+    ssm, tp = _ssm_view(blk.ssm)
+    conv, hs = cache["conv"], cache["h"]
+    if tp is not None:  # the view's channels are the cache's
+        out, conv_new, h_new = L.mamba_decode_block(ssm, cfg, h, conv, hs,
+                                                    tp)
+        conv.copy_(conv_new)
+        hs.copy_(h_new)
+        return out
+    out, conv_new, h_new = L.mamba_decode_block(
+        ssm, cfg, _reshard(h, rows_dim, None, mesh),
+        _reshard(conv, dims["conv"], None, mesh),
+        _reshard(hs, dims["h"], None, mesh))
+    conv.copy_(_reshard(conv_new, None, dims["conv"], mesh))
+    hs.copy_(_reshard(h_new, None, dims["h"], mesh))
+    return _reshard(out, None, rows_dim, mesh)
+
+
+@torch.inference_mode()
+def decode_sharded(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
+                   mesh: M.Mesh, token: torch.Tensor, cache: Dict):
+    """:func:`decode_step` on this rank's shards and its part of the cache
+    (:func:`prefill_sharded`'s): token (B, 1) the global batch, of which
+    the rank computes its rows (``batch_pspecs``; a one-position step is
+    never split by sequence).  The cache is written in place and returned
+    with ``pos + 1``; the logits (B_r, V) fp32 are the rank's rows'."""
+    _check_serve(model, mesh)
+    b = token.shape[0]
+    tok, rows_dim, _ = _rank_part(token, mesh, run)
+    pos = cache["pos"]
+    dims = {name: dim for name, (_, _, dim) in _cache_layout(
+        cfg, b, cache["cap"], mesh, run).items()}
+    state = list(dims)
+    with M.activation_sharding(mesh, run.sharding):
+        x = _embed(model, cfg, tok)
+        for i, blk in enumerate(model.blocks):
+            lc = {k: cache[k][i] for k in state}
+            h = L.rms_norm(x, C.gather_leaf(blk.ln1), cfg.norm_eps)
+            if cfg.family == "ssm":
+                x = x + _mamba_decode_sharded(blk, cfg, h, lc, mesh,
+                                              rows_dim, dims)
+                continue
+            out = _attn_decode_sharded(blk, cfg, h, lc, pos, mesh, rows_dim,
+                                       dims["k"])
+            if cfg.family == "hybrid":
+                out = (out + _mamba_decode_sharded(blk, cfg, h, lc, mesh,
+                                                   rows_dim, dims)) * 0.5
+            x = x + out
+            h2 = L.rms_norm(x, C.gather_leaf(blk.ln2), cfg.norm_eps)
+            if cfg.n_experts:
+                moe, tp = _ffn_view(blk.moe, 2)
+                x = x + L.moe_block(moe, cfg, h2, dense_route=True,
+                                    tp=tp)[0]
+            else:
+                mlp, tp = _ffn_view(blk.mlp, 1)
+                x = x + L.mlp_block(mlp, h2, tp=tp)
+        x = L.rms_norm(x, C.gather_leaf(model.final_norm), cfg.norm_eps)
+        return _serve_logits(model, cfg, x, mesh), {**cache, "pos": pos + 1}

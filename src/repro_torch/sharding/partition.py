@@ -1,8 +1,9 @@
 """Partitioning rules: which mesh axes each parameter's dims shard over.
 
-Copied from ``src/repro/sharding/partition.py:22-166`` (``STACKED_KEYS``,
-``data_axes``, ``batch_entry``, ``fit_spec``, ``_RULES`` and the rule of
-``param_pspecs``), without JAX: a spec is a tuple with one entry a dim,
+Copied from ``src/repro/sharding/partition.py:22-272`` (``STACKED_KEYS``,
+``data_axes``, ``batch_entry``, ``seq_entry``, ``fit_spec``, ``_RULES``
+and the rules of ``param_pspecs``, ``batch_pspecs`` and
+``cache_pspecs``), without JAX: a spec is a tuple with one entry a dim,
 ``None`` (replicated), an axis name or a tuple of axis names, trailing
 ``None``s dropped, as a ``PartitionSpec`` holds them.  Imports torch and
 nothing of JAX.
@@ -26,6 +27,13 @@ out.
 A mesh here is anything with a ``shape`` mapping (a
 :class:`repro_torch.distributed.mesh.Mesh`, a stand-in), the mapping
 itself or a ``(data, model)`` pair.
+
+A batch's layout is JAX's ``batch_pspecs`` (:func:`batch_spec`: the
+global batch over :func:`batch_entry`'s axes and, under ``"fsdp_seq"``,
+the sequence over ``model``, :func:`seq_entry`) and a decode cache's
+JAX's ``cache_pspecs`` (:func:`cache_spec`, one layer's slice: the batch
+over the data axes, the ring's slots or, without ``shard_kv_seq``, the
+KV heads over ``model``; the mamba states' channels over ``model``).
 
 The mamba block's fused ``in_proj`` (D, 2 Di) lies over ``model`` by its
 columns as one block, so at model 2 rank 0 holds every channel of ``xi``
@@ -90,6 +98,12 @@ def batch_entry(mesh, variant: str) -> Tuple[str, ...]:
     axis under ``"fsdp"`` (no tensor parallelism), else the data axes."""
     dp = data_axes(mesh)
     return dp + ("model",) if variant == "fsdp" else dp
+
+
+def seq_entry(mesh, variant: str) -> Optional[Tuple[str, ...]]:
+    """Axes the sequence dim of activations shards over: ``model`` under
+    ``"fsdp_seq"`` (sequence-parallel prefill), else none."""
+    return ("model",) if variant == "fsdp_seq" else None
 
 
 def axes_of(entry) -> Tuple[str, ...]:
@@ -194,6 +208,72 @@ def param_specs(model, mesh, sharding: str = "fsdp_tp",
                          f"{EMB_ROWS}")
     return {n: leaf_spec(n, t.shape, mesh, sharding, emb_rows)
             for n, t in named_leaves(model)}
+
+
+def batch_spec(shape: Sequence[int], mesh,
+               sharding: str = "fsdp_tp") -> Spec:
+    """JAX's ``batch_pspecs`` rule for one batch leaf of ``shape``: dim 0
+    (the global batch) over :func:`batch_entry`'s axes, and under
+    ``"fsdp_seq"`` dim 1 (the sequence; a VLM's frontend positions) over
+    ``model``, each dropped where it does not divide."""
+    check_variant(sharding)
+    if not shape:
+        return ()
+    entries = [batch_entry(mesh, sharding)] + [None] * (len(shape) - 1)
+    se = seq_entry(mesh, sharding)
+    if se and len(shape) >= 2:
+        entries[1] = se
+    return fit_spec(shape, entries, mesh)
+
+
+def batch_pspecs(batch_struct: Dict, mesh,
+                 sharding: str = "fsdp_tp") -> Dict[str, Spec]:
+    """``{name: spec}`` of a batch (tensors or anything with a
+    ``shape``): JAX's ``batch_pspecs`` (``partition.py:229``)."""
+    return {k: batch_spec(tuple(v.shape), mesh, sharding)
+            for k, v in batch_struct.items()}
+
+
+# The decode cache's leaves by JAX's name (``cache_pspecs``): attention
+# keys and values (self and cross), the mamba conv and SSM states.
+CACHE_KV = ("k", "v", "xk", "xv")
+
+
+def cache_spec(name: str, shape: Sequence[int], mesh,
+               shard_kv_seq: bool = True) -> Spec:
+    """JAX's ``cache_pspecs`` rule (``partition.py:246``) for one layer's
+    slice of the cache leaf ``name``, of ``shape`` without the stacked
+    layer dim (JAX's spec less its leading ``None``): k/v/xk/xv (B, C, K,
+    hd) the batch over the data axes and the length C over ``model`` when
+    ``shard_kv_seq``, else the KV heads over ``model``; ``conv`` (B, W-1,
+    Di) and ``h`` (B, Di, N) Di over ``model``; ``pos`` replicated.  An
+    axis that does not divide its dim is dropped (the cache is replicated
+    over it)."""
+    dp = data_axes(mesh)
+    shape = (1,) + tuple(shape)  # JAX's stacked leaf
+    if name == "pos" or len(shape) == 1:
+        return ()
+    if name in CACHE_KV:
+        entries = ([None, dp, "model", None, None] if shard_kv_seq
+                   else [None, dp, None, "model", None])
+    elif name == "conv":
+        entries = [None, dp, None, "model"]
+    elif name == "h":
+        entries = [None, dp, "model", None]
+    else:
+        entries = [None, dp]
+    return fit_spec(shape, entries, mesh)[1:]
+
+
+def cache_pspecs(cache_struct: Dict, mesh,
+                 shard_kv_seq: bool = True) -> Dict[str, Spec]:
+    """``{name: spec}`` of a decode cache whose leaves are stacked on a
+    leading layer dim (the port's ``init_cache``, ``ModelBundle.
+    cache_struct``): each leaf's :func:`cache_spec`, the spec of one
+    layer's slice."""
+    return {k: cache_spec(k, tuple(getattr(v, "shape", ()))[1:], mesh,
+                          shard_kv_seq)
+            for k, v in cache_struct.items()}
 
 
 def spec_axes(spec: Spec) -> Tuple[str, ...]:

@@ -1896,3 +1896,80 @@ def test_whisper_on_card_matches_cpu(dev):
             name
     torch.testing.assert_close(res["card"][2], res["cpu"][2], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The forward at a query offset (a sequence-parallel rank's queries against
+# every key): against ``ref.kv_stream_attention_ref`` at fp32 1e-5 and bf16
+# 1e-2; the rows of a split equal the same rows of the whole attention bit
+# for bit; offset 0 with Sq = Sk is the old call.
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, K, hd, offset, window, causal)
+OFFSET_SHAPES = [(2, 512, 2048, 16, 2, 128, off, 0, True)
+                 for off in (0, 512, 1024, 1536)] + [
+    (2, 512, 2048, 16, 2, 128, 1536, 700, True),
+    (2, 512, 2048, 16, 2, 128, 0, 0, False),
+    (2, 300, 1000, 9, 3, 64, 100, 0, True),
+    (1, 37, 120, 4, 2, 16, 60, 25, True),
+    (1, 17, 65, 6, 3, 32, 48, 0, True),
+    (1, 130, 70, 8, 8, 64, 0, 0, False)]
+
+
+@pytest.mark.parametrize("shape", OFFSET_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_offset_matches_plain(dev, dt, shape):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, sk, h, n_kv, hd, off, w, causal = shape
+    rng = np.random.default_rng(sk + off)
+    qf, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32)).to(DTYPES[dt]).to(dev)
+        for s, n in ((max(sk, off + sq), h), (sk, n_kv), (sk, n_kv)))
+    q = qf[:, off:off + sq].contiguous()
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, window=w, causal=causal, q_offset=off)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, window=w,
+                                causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 2
+    assert got.shape == q.shape and lse.shape == (b, h, sq)
+    assert torch.equal(o, got)
+    want = ref.kv_stream_attention_ref(q, k, v, w, 512, off, causal)
+    tol = 1e-5 if dt == "fp32" else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    if causal and sq + off <= sk:
+        whole = fa.flash_attention(qf[:, :sk].contiguous(), k, v, window=w)
+        assert torch.equal(got, whole[:, off:off + sq])
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_offset_zero_is_the_old_call(dev, dt):
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 1000, n, 64)).astype(
+        np.float32)).to(DTYPES[dt]).to(dev) for n in (9, 3, 3))
+    for w, causal in ((0, True), (300, True), (0, False)):
+        assert torch.equal(
+            fa.flash_attention(q, k, v, window=w, causal=causal),
+            fa.flash_attention(q, k, v, window=w, causal=causal,
+                               q_offset=0))
+
+
+def test_flash_attention_offset_refuses_queries_past_the_keys(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 64, 4, 16), device=dev)
+    kv = torch.zeros((1, 100, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, kv, kv, q_offset=37)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, kv, kv, q_offset=-1)
+    # Unmasked, any Sk serves every row.
+    assert fa.flash_attention(q, kv, kv, causal=False,
+                              q_offset=37).shape == q.shape
+    with pytest.raises(NotImplementedError, match="A11c-6e"):
+        ops.flash_attention(q.requires_grad_(True), kv, kv, q_offset=36)

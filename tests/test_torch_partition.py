@@ -157,8 +157,9 @@ def test_variants_and_fsdp_seq():
     from repro_torch.configs import RunConfig
 
     assert RunConfig().sharding == "fsdp_tp"
-    with pytest.raises(NotImplementedError, match="A11c-6c"):
-        RunConfig(sharding="fsdp_seq")
+    run = RunConfig(sharding="fsdp_seq")
+    assert run.sharding == "fsdp_seq" and run.shard_kv_seq
+    assert not RunConfig(shard_kv_seq=False).shard_kv_seq
     with pytest.raises(ValueError, match="sharding"):
         RunConfig(sharding="zero")
 
