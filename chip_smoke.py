@@ -73,7 +73,7 @@ trained at full depth):
    magnitude), the window's forward and its masked and unmasked
    backwards timed beside their bounds, the fp32 gradient all-reduce
    over ``data`` timed; granite-moe-1b-a400m cut to 2 layers through the
-   launcher on (4, 1) (S=4,096, global batch 8 in 2 microbatches) in
+   launcher on (4, 1) (S=2,048, global batch 8 in 2 microbatches) in
    fp32 against one rank (losses and gradients within 1e-4, the global
    top-K equal), then bf16 with ``--grad-compression int8_ef`` (its int32
    wire's bytes and all-reduce time); DLRM's arm runs twice, its
@@ -114,12 +114,25 @@ trained at full depth):
    all-reduces, exchanges), and their fp32 parity against one rank
    (falcon on (1, 4) at S = 512, whisper on (2, 2)): losses within 1e-6
    of their magnitude, first-step gradients within 2e-5, the parameters
-   after step 2 within 5e-2 of the update; and, in this process, the scan and its backward
-   at the ranks' channels (falcon's 4,096, hymba's 1,600 and 800) and
-   the attention kernels at qwen's and whisper's ranks' heads (whisper's
-   encoder unmasked, its decoder causal, (2, 1500 or 448, 10/10, 64)).
-   The launches counted are the (1, 1) step's and the four ranks'
-   sharded runs';
+   after step 2 within 5e-2 of the update; the sequence split under a
+   gradient: qwen's cut trained under fsdp_seq inside
+   ``activation_sharding(mesh, "fsdp_seq")`` on (2, 2) (each rank its 2
+   rows a microbatch x 1,024 positions at offset 0 or 1,024, K/V
+   gathered over ``model`` with a reduce-scatter backward, the loss the
+   mean over every rank's tokens), its losses and grad norms against the
+   same one-rank reference, its bytes, peak, step times, collective
+   bytes and launches, and granite-moe's fp32 parity under the split
+   (S = 512, the fp32 parity's bounds); and, in this process, the scan
+   and its backward at the ranks' channels (falcon's 4,096, hymba's
+   1,600 and 800), the attention kernels at qwen's and whisper's ranks'
+   heads (whisper's encoder unmasked, its decoder causal, (2, 1500 or
+   448, 10/10, 64)), and row 8b at an offset: the split's costlier rank,
+   q (2, 1,024, 16, 128) at offset 1,024 against k/v (2, 2,048, 2, 128),
+   against its plain version (bf16 2e-2), the two ranks' dk/dv summed and
+   dq rows stacked against the whole call's (dq bit for bit), timed
+   beside its bound, the plain version and SDPA's backward with the
+   offset's mask.  The launches counted are the (1, 1) step's and the
+   four ranks' sharded runs';
 6''''. the LMs served over the mesh (phase ``lm_sharded_serve``): the
    forward kernel's query-offset mode (row 8''''') at qwen2.5-3b's rank
    shapes of a four-way sequence split, q (8, 512, 16, 128) at offsets
@@ -263,7 +276,7 @@ trained at full depth):
     layer and microbatch), tokens/s, peak memory and one step under
     ``torch.profiler`` (which must show the bf16 backward's tensor-core
     kernels, ``backward_kernels_ms``);
-16. MoE parity: full-width granite-moe-1b-a400m (8 of its 24 layers, d_model 1024,
+16. MoE parity: full-width granite-moe-1b-a400m (4 of its 24 layers, d_model 1024,
     16/8 heads, 32 experts top-8, expert width 512, vocab 49,155) from the
     same seeded parameters on the CPU and on the card, a B=2, S=256
     prefill and 8 teacher-forced decode steps, fp32 then bf16, every
@@ -329,7 +342,7 @@ trained at full depth):
     1.66 B parameters): the 2,048-token prompt exceeds the window, so
     hymba's key cache is a 1,024-slot ring that the decode wraps;
 24. SSM and hybrid training: phase 15 at falcon-mamba-7b's full width cut
-    to 2 of 64 layers and at hymba-1.5b's cut to 4 of 32 (``cuts``; S =
+    to 2 of 64 layers and at hymba-1.5b's cut to 2 of 32 (``cuts``; S =
     4,096 exceeds hymba's window), run A 2 steps with a checkpoint at step
     1 and run B from it (losses equal A's bit for bit), ``selective_scan``
     twice and ``selective_scan_bwd`` once a layer and microbatch (and
@@ -386,7 +399,9 @@ the attention kernels show as ``launches_distributed_train``, the
 sharded LMs' (6''') as ``launches_sharded_train`` beside the kernels'
 ``sharded_layout`` records, and the served LMs' (6'''') as
 ``launches_lm_sharded_serve`` (``flash_attention``'s beside its
-``offset`` record; ``selective_scan``'s);
+``offset`` record; ``selective_scan``'s); ``flash_attention_bwd``'s
+``offset`` record is row 8b at the offset with the launches of the
+fsdp_seq arms (every one at an offset);
 ``selective_scan`` and ``selective_scan_bwd`` have no TPU kernel
 (``replaces`` null, a ``note`` says why) and carry their SFU floors, and
 ``flash_attention`` and ``flash_attention_bwd`` carry their ``windowed``
@@ -658,10 +673,12 @@ DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # trace's 8 batches (the buffers still 0.2 of the 8 batches' unique ids);
 # the learned arms train on a quarter of the first
 # batch, the transformer backbone on the first batch; granite's parity runs
-# 8 of its 24 layers; the launcher trains granite 4 of 24 layers, falcon 2
-# of 64 and hymba 4 of 32, the last two 2 steps (1 resumed).
+# 4 of its 24 layers (8 until the sequence split's arms came); the launcher
+# trains granite 4 of 24 layers, falcon 2 of 64 and hymba 2 of 32 (4
+# before), the last two 2 steps (1 resumed); the distributed granite
+# trains at S 2,048 of train_4k's 4,096.
 SERVE_BATCHES = 6
-MOE_PARITY_LAYERS = 8
+MOE_PARITY_LAYERS = 4
 
 
 def emit(obj):
@@ -1604,12 +1621,14 @@ def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches,
 
 # DLRM: rows_per_table cut to the full-width serve's 4,096 (2,048 a model
 # rank), B = 256 in 2 microbatches, 2 steps.  granite-moe: its depth cut
-# to 2 layers, train_4k's S = 4,096 and the global batch cut to 8 in 2
-# microbatches (1 row a data rank and microbatch on (4, 1)), 2 steps.
+# to 2 layers, train_4k's S of 4,096 cut to 2,048 (for the script's time,
+# when the sequence split's arms were added) and the global batch cut to
+# 8 in 2 microbatches (1 row a data rank and microbatch on (4, 1)), 2
+# steps.
 DT_ROWS = 4096
 DT_B, DT_MB, DT_STEPS = 256, 2, 2
 DT_LR = 1e-3
-MOE_DT = dict(n_layers=2, seq=4096, batch=8, mb=2, steps=2)
+MOE_DT = dict(n_layers=2, seq=2048, batch=8, mb=2, steps=2)
 DT_TOL_BF16, DT_TOL_FP32 = 2e-2, 1e-4
 
 
@@ -2030,6 +2049,7 @@ def report_distributed_train(recs, spawn_s):
           "granite": {"mesh": {"data": len(recs), "model": 1},
                       "cuts": {"n_layers": [24, MOE_DT["n_layers"]],
                                "from": "train_4k S=4096 global_batch=256",
+                               "S": [4096, MOE_DT["seq"]],
                                "global_batch": MOE_DT["batch"],
                                "microbatches": MOE_DT["mb"]},
                       "dtype": "fp32 (plain), bf16 (int8_ef)"},
@@ -2149,6 +2169,28 @@ ST_ALL_PARITY = tuple((a, m, ST_PARITY_SEQ) for a, m in ST_PARITY) \
     + ST_TP_PARITY
 ST_KERNELS = ("flash_attention", "flash_attention_bwd", "selective_scan",
               "selective_scan_bwd")
+# The sequence split under a gradient: qwen's cut (ST) trained under
+# fsdp_seq inside activation_sharding(mesh, "fsdp_seq") on (2, 2), each
+# rank its 2 rows a microbatch x 1,024 positions at offset 0 or 1,024
+# (every leaf FSDP over both axes, whole in the compute), against the
+# same one-rank reference as the fsdp_tp arm; and granite-moe's fp32
+# parity (ST_PARITY's reference, S 512) under the split.  Row 8b at the
+# split's costlier rank: no leaf is tensor parallel under fsdp_seq, so a
+# rank holds every head: bf16 q (2, 1,024, 16, 128) at offset 1,024
+# against k/v (2, 2,048, 2, 128) (B, Sq, Sk, H, K, hd, offset).
+ST_SEQ_PARITY = ("granite-moe-1b-a400m", (2, 2), ST_PARITY_SEQ)
+# The bf16 split's grad norm against the one-rank reference: within
+# ST_SEQ_TOL_NORM of it (1.8% read).  Every leaf's first-step gradient
+# but the embedding's agrees within 0.7% of its largest magnitude; the
+# embedding's is the lookup's scatter-add in bf16, whose sums over a
+# microbatch's repeated ids (8,192 tokens, 1,189 distinct, one id 888
+# times) stagnate: a rank's sum over its 2,048 tokens loses less than the
+# reference's over 8,192, so the split's norm reads higher.  Its losses
+# stay within ST_TOL_LOSS, and the fp32 parity arm holds the split's
+# arithmetic at ST_TOL_FP32.
+ST_SEQ_TOL_NORM = 3e-2
+ST_OFFSET_BWD = (2, 1024, 2048, 16, 2, 128, 1024)
+ST_OFFSET_LAYOUT = "qwen_rank_2x2_fsdp_seq_offset_1024"
 # The scan's and the attention's kernels at the ranks' layouts: a rank's
 # microbatch of 2 rows; falcon's Di 8,192 over model 2 at the arm's S;
 # hymba-1.5b's 3,200 over 2 and 4 (800 channels: not a whole number of
@@ -2170,13 +2212,15 @@ def st_cfg(arch, dtype=None):
     return cfg
 
 
-def st_trainer(cfg, seq, mesh=None, dev="cuda", batch=None):
+def st_trainer(cfg, seq, mesh=None, dev="cuda", batch=None,
+               sharding="fsdp_tp"):
     """``(bundle, model, opt, step, batch(s))``: ``cfg`` from seed 0
-    through ``build(..., mesh=)`` (this rank's shards on a mesh with
-    groups), AdamW over its leaves, the step of ``ST["mb"]``
-    microbatches, step s's global batch (``arm_batch``: whisper's with
-    seeded frames)."""
-    run = RunConfig(remat="full", logits_chunk=ST["chunk"])
+    through ``build(..., mesh=)`` (this rank's shards of ``sharding``'s
+    layout on a mesh with groups), AdamW over its leaves, the step of
+    ``ST["mb"]`` microbatches, step s's global batch (``arm_batch``:
+    whisper's with seeded frames)."""
+    run = RunConfig(remat="full", logits_chunk=ST["chunk"],
+                    sharding=sharding)
     bundle = build(cfg, device=dev, run=run, mesh=mesh)
     model = bundle.init(seed=0)
     opt = init_opt(OptConfig(lr=ST_LR, warmup_steps=0,
@@ -2248,6 +2292,95 @@ def st_attention_kernels(timer, shape=(2, ST["seq"], 8, 1, 128),
     return fwd, bwd
 
 
+def st_offset_bwd(timer):
+    """Row 8b at a query offset (``ST_OFFSET_BWD``: the fsdp_seq arm's
+    costlier model rank, bf16): against its plain version at the offset,
+    timed beside its bound (the five products over the visible (query,
+    key) pairs), the plain version and SDPA's backward with the offset's
+    causal mask (its kv heads expanded to H before the timed call: the
+    mask takes the memory-efficient backend, which takes no GQA); and
+    the split's two ranks' dk/dv summed and dq rows stacked against the
+    whole call's."""
+    b, sq, sk, h, n_kv, hd, off = ST_OFFSET_BWD
+    g = torch.Generator(device="cuda").manual_seed(33)
+    q, k, v, do = (torch.randn((b, n_s, n, hd), generator=g, device="cuda")
+                   .to(torch.bfloat16)
+                   for n_s, n in ((sq, h), (sk, n_kv), (sk, n_kv), (sq, h)))
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, q_offset=off)
+    grads = fa.flash_attention_bwd(q, k, v, o, do, lse, q_offset=off)
+    wants = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, 0, True, off)
+    torch.cuda.synchronize()
+    errs = [float((a.float() - w.float()).abs().max())
+            for a, w in zip(grads, wants)]
+    shares = {n: e / float(w.float().abs().max())
+              for n, e, w in zip(("dq", "dk", "dv"), errs, wants)}
+    require(max(shares.values()) <= 2e-2,
+            f"flash_attention_bwd at offset {off}: {shares}")
+    keys_unseen = max(float(t[:, off + sq:].float().abs().max())
+                      if off + sq < sk else 0.0 for t in grads[1:])
+    del wants
+    # The split of the whole sequence (queries 0 .. sk - 1) over 2 ranks:
+    # rank 1's call above and rank 0's at offset 0, against one call.
+    q0, do0 = (torch.randn((b, off, h, hd), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(2))
+    qw, dow = torch.cat([q0, q], 1), torch.cat([do0, do], 1)
+    ow, lsew = fa.flash_attention(qw, k, v, with_lse=True)
+    whole = fa.flash_attention_bwd(qw, k, v, ow, dow, lsew)
+    part0 = fa.flash_attention_bwd(
+        q0, k, v, ow[:, :off].contiguous(), do0, lsew[:, :, :off]
+        .contiguous(), q_offset=0)
+    part1 = fa.flash_attention_bwd(
+        q, k, v, ow[:, off:].contiguous(), do, lsew[:, :, off:]
+        .contiguous(), q_offset=off)
+    split = (torch.cat([part0[0], part1[0]], 1),
+             part0[1].float() + part1[1].float(),
+             part0[2].float() + part1[2].float())
+    split_shares = {n: float((a.float() - w.float()).abs().max()
+                             / w.float().abs().max())
+                    for n, a, w in zip(("dq", "dk", "dv"), split, whole)}
+    require(max(split_shares.values()) <= 2e-2
+            and torch.equal(split[0], whole[0]),
+            f"flash_attention_bwd's split over 2 ranks vs the whole call: "
+            f"{split_shares}")
+    del qw, dow, ow, lsew, whole, part0, part1, split, q0, do0
+    rep_h = h // n_kv
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.repeat_interleave(rep_h, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_() for t in (k, v))
+    mask = (torch.arange(sk, device="cuda")[None, :]
+            <= torch.arange(off, off + sq, device="cuda")[:, None])
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2).contiguous()
+    pairs = sq * off + sq * (sq + 1) // 2  # visible (query, key) pairs
+    n_ops = 5 * 2 * b * h * pairs * hd
+    rec = {"B": b, "Sq": sq, "Sk": sk, "q_offset": off, "H": h, "K": n_kv,
+           "hd": hd, "dtype": "bf16", "causal": True,
+           "layout": "qwen2.5-3b's model rank 1 of (2, 2) under fsdp_seq: "
+                     "all 16/2 heads, positions 1,024 .. 2,047",
+           "visible_pairs_per_head": pairs,
+           "max_abs_err": max(errs),
+           "max_abs_err_share_of_largest_grad": shares,
+           "unseen_keys_max_abs_grad": keys_unseen,
+           "split_vs_whole_share_of_largest_grad": split_shares,
+           "split_dq_bit_equal": True,
+           "ms": timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      q_offset=off)),
+           "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
+               q, k, v, o, do, lse, 0, True, off)),
+           "library_ms": timer(lambda: torch.autograd.grad(
+               out, (qt, kt, vt), dot, retain_graph=True)),
+           "library": "scaled_dot_product_attention backward, bool "
+                      "attn_mask of the offset, kv heads expanded"}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        q.element_size() * (4 * b * sq * h * hd + 4 * b * sk * n_kv * hd)
+        + 4 * b * h * sq, n_ops, BF16_OPS_PER_S)
+    achieved(rec, n_ops)
+    del q, k, v, do, o, lse, grads, qt, kt, vt, out, dot, mask
+    torch.cuda.empty_cache()
+    return rec
+
+
 def tp_cfg(arch, dtype=None):
     """``arch`` at the depth this phase trains it: qwen's and the parity
     runs' ``ST["n_layers"]``, whisper's 2 + 2."""
@@ -2285,6 +2418,7 @@ def st_layer_kernels(timer, ptxas):
         timer, ST_WHISPER_ENC, "bf16", "whisper_encoder_rank_2x2")
     out["flash_attention_bwd"]["whisper_encoder_rank_2x2"] = _noncausal_bwd(
         timer, ST_WHISPER_ENC, "bf16", "whisper_encoder_rank_2x2")
+    out["flash_attention_bwd"][ST_OFFSET_LAYOUT] = st_offset_bwd(timer)
     return out
 
 
@@ -2465,6 +2599,81 @@ def _layer_collectives(model, mesh):
             sum(b for b, d in zip(nbytes, dims) if d is not None), rs_ms)
 
 
+def _launches() -> dict:
+    return {fn.__name__: fn.launches for fn in ops.KERNELS if fn.launches}
+
+
+def st_seq_arm(cfg, mesh, dev, ref_rec):
+    """qwen's cut trained under fsdp_seq inside its scope
+    (``activation_sharding(mesh, "fsdp_seq")``): each rank its 1,024
+    positions at offset ``1,024 m`` of its data rank's rows, K/V gathered
+    over ``model`` each layer.  Its bytes of parameters and moments, peak
+    memory, step times, the steps' collective traffic and launches, and
+    the losses and grad norms against the one-rank reference."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    bundle, model, opt, step, data = st_trainer(cfg, ST["seq"], mesh, dev,
+                                                sharding="fsdp_seq")
+    held = _state_bytes(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_traffic()
+    ops.reset_launches()
+    losses, norms, step_ms = [], [], []
+    with M.activation_sharding(mesh, "fsdp_seq"):
+        for s in range(ST["steps"]):
+            dist.barrier()
+            t1 = time.perf_counter()
+            metrics = step(model, opt, data(s))
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            norms.append(float(metrics["grad_norm"]))
+    out = {"coords": [mesh.data_rank, mesh.model_rank],
+           "positions": [mesh.model_rank * ST["seq"] // mesh.model,
+                         (mesh.model_rank + 1) * ST["seq"] // mesh.model],
+           "param_and_adamw_bytes": held,
+           "peak_gb_steps": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "losses": losses, "ref_losses": ref_rec["qwen_losses"],
+           "grad_norms": norms, "ref_grad_norms": ref_rec["qwen_grad_norms"],
+           "step_ms": step_ms, "traffic_two_steps": copy.deepcopy(C.TRAFFIC),
+           "launches": _launches(), "seconds": time.perf_counter() - t0}
+    del model, opt, step, bundle
+    torch.cuda.empty_cache()
+    return out
+
+
+def st_seq_parity(work, dev, ref_rec):
+    """``ST_SEQ_PARITY``'s arch in fp32 under fsdp_seq inside its scope,
+    against ``ST_PARITY``'s one-rank reference of it (saved in ``work``):
+    the first step's gradient shards, the parameter shards after the
+    second and both losses."""
+    arch, shape, seq = ST_SEQ_PARITY
+    mesh = M.make_mesh(*shape)
+    t0 = time.perf_counter()
+    bundle, model, opt, step, data = st_trainer(
+        tp_cfg(arch, "float32"), seq, mesh, dev, sharding="fsdp_seq")
+    ops.reset_launches()
+    with M.activation_sharding(mesh, "fsdp_seq"):
+        losses, errs, perrs, uerrs = st_parity_steps(
+            bundle, model, opt, step, data, mesh,
+            Path(work, f"sharded_{arch}"))
+    worst, pworst = max(errs, key=errs.get), max(perrs, key=perrs.get)
+    uworst = max(uerrs, key=uerrs.get)
+    out = {"mesh": dict(zip(("data", "model"), shape)), "S": seq,
+           "sharding": "fsdp_seq", "losses": losses,
+           "ref_losses": ref_rec[arch], "grad_err_share_max": errs[worst],
+           "grad_err_worst_leaf": worst,
+           "param_err_share_max": perrs[pworst],
+           "param_err_worst_leaf": pworst,
+           "param_err_of_update_max": uerrs[uworst],
+           "param_err_of_update_worst_leaf": uworst,
+           "launches": _launches(), "seconds": time.perf_counter() - t0}
+    del model, opt, step, bundle
+    torch.cuda.empty_cache()
+    return out
+
+
 def sharded_train_rank(rank, work, dev, ref_rec):
     """The gloo rank's sharded training, after its distributed training:
     qwen2.5-3b's cut on (2, 2) under fsdp_tp in bf16 (its bytes of
@@ -2476,7 +2685,10 @@ def sharded_train_rank(rank, work, dev, ref_rec):
     after the second and both losses against one rank's); then the arms
     whose layers compute tensor parallel, falcon-mamba-7b and
     whisper-large-v3 in bf16 on (2, 2) (``lm_arm``), and their fp32 parity
-    (``ST_TP_PARITY``).  Returns the rank's record."""
+    (``ST_TP_PARITY``); qwen's cut under fsdp_seq with the sequence split
+    (:func:`st_seq_arm`) after its fsdp_tp run, and granite's fp32 parity
+    under the split (:func:`st_seq_parity`) last.  Returns the rank's
+    record."""
     t_start = time.perf_counter()
     rec = {}
     cfg = st_cfg(ST["arch"])
@@ -2523,6 +2735,7 @@ def sharded_train_rank(rank, work, dev, ref_rec):
         "seconds": time.perf_counter() - t_start}
     del model, opt, step, bundle
     torch.cuda.empty_cache()
+    rec["qwen_fsdp_seq"] = st_seq_arm(cfg, mesh, dev, ref_rec)
     # The SSM's and whisper's layers tensor parallel, bf16 on (2, 2).
     for arch, n_layers, n_enc, seq in ARMS:
         ops.reset_launches()
@@ -2558,6 +2771,8 @@ def sharded_train_rank(rank, work, dev, ref_rec):
             "seconds": time.perf_counter() - t0}
         del model, opt, step, bundle
         torch.cuda.empty_cache()
+    rec[f"{ST_SEQ_PARITY[0]}_fsdp_seq_fp32"] = st_seq_parity(work, dev,
+                                                            ref_rec)
     rec["seconds"] = time.perf_counter() - t_start
     return rec
 
@@ -2588,7 +2803,15 @@ def report_sharded_train(recs, nccl_launches):
                      "tp_tol": {"loss_share": ST_TP_TOL_LOSS,
                                 "grad": ST_TP_TOL_GRAD}},
           "tol": {"loss": ST_TOL_LOSS, "grad_norm_share": ST_TOL_NORM,
+                  "fsdp_seq_grad_norm_share": ST_SEQ_TOL_NORM,
                   "param_err_of_update": ST_TOL_UPDATE},
+          "fsdp_seq": {"arch": ST["arch"], "mesh": dict(zip(
+              ("data", "model"), ST["mesh"])), "sharding": "fsdp_seq",
+              "scope": "activation_sharding(mesh, 'fsdp_seq')",
+              "positions_per_rank": ST["seq"] // ST["mesh"][1],
+              "parity": {"arch": ST_SEQ_PARITY[0], "mesh": dict(zip(
+                  ("data", "model"), ST_SEQ_PARITY[1])),
+                  "S": ST_SEQ_PARITY[2], "dtype": "fp32"}},
           "lr": ST_LR, "warmup_steps": 0,
           "seconds_ranks": max(r["seconds"] for r in ranks),
           "ranks": [{"rank": r["rank"], **r["sharded"]} for r in recs]})
@@ -2646,6 +2869,30 @@ def report_sharded_train(recs, nccl_launches):
         require(q["launches"].get("flash_attention", 0) > 0
                 and q["launches"].get("flash_attention_bwd", 0) > 0,
                 f"rank {r['rank']} qwen launched {q['launches']}")
+        sq = rk["qwen_fsdp_seq"]
+        require(max_abs_diff(sq["losses"], sq["ref_losses"]) <= ST_TOL_LOSS
+                and max_abs_diff(sq["grad_norms"], sq["ref_grad_norms"])
+                <= ST_SEQ_TOL_NORM * max(sq["ref_grad_norms"])
+                and sq["launches"].get("flash_attention", 0) > 0
+                and sq["launches"].get("flash_attention_bwd", 0) > 0
+                and sq["traffic_two_steps"]["all_gather"]["calls"] > 0,
+                f"rank {r['rank']} qwen fsdp_seq: losses {sq['losses']} vs "
+                f"{sq['ref_losses']}, grad norms {sq['grad_norms']} vs "
+                f"{sq['ref_grad_norms']}, launches {sq['launches']}")
+        p = rk[f"{ST_SEQ_PARITY[0]}_fsdp_seq_fp32"]
+        require(p["grad_err_share_max"] <= ST_TOL_FP32
+                and p["param_err_of_update_max"] <= ST_TOL_UPDATE
+                and max_abs_diff(p["losses"], p["ref_losses"])
+                <= ST_TOL_FP32, f"rank {r['rank']} {ST_SEQ_PARITY[0]} "
+                f"fsdp_seq fp32: {p}")
+        for src in (sq["launches"], p["launches"]):
+            for k in ST_KERNELS:
+                launches[k] = launches.get(k, 0) + src.get(k, 0)
+        # Every attention backward of the split runs at an offset.
+        launches["flash_attention_bwd_offset"] = launches.get(
+            "flash_attention_bwd_offset", 0) \
+            + sq["launches"].get("flash_attention_bwd", 0) \
+            + p["launches"].get("flash_attention_bwd", 0)
     return launches
 
 
@@ -5996,13 +6243,14 @@ def main():
                          "hybrid_serve").items():
         ssm_launches[name] = ssm_launches.get(name, 0) + k
     # Their training at full width, the depth cut: falcon 2 of 64 layers,
-    # hymba 4 of 32, 2 steps each (a checkpoint at 1, resumed from it).
-    # falcon's run A alone, without checkpoints (hymba's resumes).
+    # hymba 2 of 32 (4 until the sequence split's arms needed the script's
+    # time), 2 steps each (a checkpoint at 1, resumed from it).  falcon's
+    # run A alone, without checkpoints (hymba's resumes).
     ssm_train_launches = timed("ssm_train", phase_lm_train,
                                "falcon-mamba-7b", "ssm_train", n_layers=2,
                                steps=2, resume=False)
     for name, k in timed("hybrid_train", phase_lm_train, "hymba-1.5b",
-                         "hybrid_train", n_layers=4, steps=2).items():
+                         "hybrid_train", n_layers=2, steps=2).items():
         ssm_train_launches[name] = ssm_train_launches.get(name, 0) + k
     # The encoder-decoder LM (whisper-large-v3) at full width and depth,
     # and the unmasked attention of its encoder.
@@ -6119,6 +6367,11 @@ def main():
                     "bound_ms", "bound_by", "library_ms", "library")}
             kernels[-1]["noncausal"] = {
                 k: noncausal_bwd_rec[k] for k in NONCAUSAL_KEYS}
+            kernels[-1]["offset"] = {
+                **st_kernels[name][ST_OFFSET_LAYOUT],
+                "launches": st_launches["flash_attention_bwd_offset"],
+                "launches_from": "phase sharded_train's fsdp_seq arms, "
+                                 "over the four ranks"}
         if name == "flash_attention":
             kernels[-1]["windowed"] = {
                 k: window_rec[k] for k in (

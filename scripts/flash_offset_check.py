@@ -1,12 +1,13 @@
-"""Check the query-offset mode of the attention forward
-(``csrc/flash_attention.cu``) on one card, and that it left the old calls'
-bits alone.
+"""Check the query-offset mode of the attention forward and backward
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) on one
+card, and that it left the old calls' bits alone.
 
     python scripts/flash_offset_check.py --trees OLD NEW
 
 Each tree runs in a worker process that imports ``repro_torch`` from that
 tree's ``src`` and builds its kernels into that tree's ``build/``.  Both
-workers hash (SHA-256) ``flash_attention``'s output and log-sum-exp at
+workers hash (SHA-256) ``flash_attention``'s output and log-sum-exp, and
+``flash_attention_bwd``'s dq, dk and dv (keys ending ``_bwd``), at
 ``BIT_SHAPES`` (causal, windowed, unmasked, a ragged S; fp32 and bf16),
 from inputs drawn the same way in both trees; the summary says by shape
 whether the two trees gave the same bits.  The NEW tree's worker also
@@ -15,7 +16,10 @@ holds the offset mode against ``ref.kv_stream_attention_ref`` at
 split, a window, an unmasked case and a ragged offset) and says whether
 each offset's rows equal the same rows of the whole attention bit for bit
 (expected where the offset is a whole number of query tiles: 64 rows
-fp32, 128 bf16).  Prints one JSON line per worker and a summary line.
+fp32, 128 bf16), and its backward's largest error against
+``ref.flash_attention_bwd_ref`` at the same offset (``bwd_max_rel_err``,
+over each gradient's largest magnitude; where the tree has the backward's
+offset mode).  Prints one JSON line per worker and a summary line.
 Needs one card and nvcc.
 """
 from __future__ import annotations
@@ -65,6 +69,10 @@ def worker(offsets: bool) -> dict:
             o2, lse = fa.flash_attention(q, k, v, with_lse=True, window=w,
                                          causal=causal)
             out["bits"][f"{name}_{str(dt)[6:]}"] = _digest(o, o2, lse)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dt)
+            out["bits"][f"{name}_{str(dt)[6:]}_bwd"] = _digest(
+                *fa.flash_attention_bwd(q, k, v, o2, do, lse, window=w,
+                                        causal=causal))
     if not offsets:
         return out
     from repro_torch.kernels import ref
@@ -84,12 +92,24 @@ def worker(offsets: bool) -> dict:
                 want = ref.kv_stream_attention_ref(q, k, v, w, 512, off,
                                                    causal)
                 tile = 64 if dt == torch.float32 else 128
-                res[f"{name}_{off}_{str(dt)[6:]}"] = {
+                entry = {
                     "max_abs_err": float((got.float() - want.float())
                                          .abs().max()),
                     "rows_bit_equal": bool(torch.equal(
                         got, whole[:, off:off + sq])),
                     "whole_tiles": off % tile == 0}
+                o, lse = fa.flash_attention(q, k, v, with_lse=True, window=w,
+                                            causal=causal, q_offset=off)
+                do = torch.randn(q.shape, generator=g, device="cuda").to(dt)
+                got_b = fa.flash_attention_bwd(q, k, v, o, do, lse, window=w,
+                                               causal=causal, q_offset=off)
+                want_b = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, w,
+                                                     causal, off)
+                entry["bwd_max_rel_err"] = max(
+                    float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30)
+                    for a, b in zip(got_b, want_b))
+                res[f"{name}_{off}_{str(dt)[6:]}"] = entry
     out["offset"] = res
     return out
 

@@ -24,7 +24,9 @@ The same rule picks the backward of a sharded parameter's all-gather
 - over ``model`` when the model ranks compute the same replicated loss
   from the gathered leaf: this rank's slice of the gradient, **not**
   summed (a sum would multiply the gradient by ``model``, and no shape
-  error would show it).
+  error would show it); but under a sequence split (``"fsdp_seq"``
+  training) the model ranks hold other positions of the rows, and their
+  gradients are summed by a reduce-scatter, as over ``data``.
 
 Tensor parallelism over ``model`` (Megatron's) uses two more: "f",
 :func:`copy_all_reduce_bwd`, the identity forward with an all-reduced
@@ -283,11 +285,16 @@ def gather_leaf(p: torch.Tensor, keep_model: bool = False) -> torch.Tensor:
     gathered along each sharded dim, the minor axis of a tuple first, with
     the backward the axis needs (reduce-scatter over the batch's axes,
     this rank's slice over ``model`` otherwise).  ``keep_model`` keeps
-    the ``model`` part (tensor-parallel compute) and gathers the rest."""
+    the ``model`` part (tensor-parallel compute) and gathers the rest.
+    Under a sequence split (:func:`repro_torch.distributed.mesh.
+    splits_sequence`) ``model`` counts as a batch axis: its ranks' losses
+    cover other positions, so their gradients are summed too."""
     pl = M.placement(p)
     if pl is None:
         return p
     mesh, batch = pl.mesh, batch_entry(pl.mesh, pl.variant)
+    if M.splits_sequence():  # the model ranks hold other tokens
+        batch = tuple(batch) + ("model",)
     x = p
     for dim, ent in enumerate(pl.spec):
         axes = axes_of(ent)

@@ -43,6 +43,7 @@ from repro_torch.device import resolve_device
 BACKENDS = ("nccl", "gloo")
 _ACT_MESH: Optional["Mesh"] = None
 _ACT_VARIANT = "fsdp_tp"
+_ACT_SPLIT_SEQ = False
 
 
 @dataclass(frozen=True)
@@ -127,21 +128,28 @@ def make_host_mesh(model_parallel: int = 1) -> Mesh:
 
 class activation_sharding:
     """Scope in which the model runs on ``mesh`` under the sharding
-    ``variant``; scopes nest and restore the previous ones on exit."""
+    ``variant``; scopes nest and restore the previous ones on exit.
+    ``split_seq``: whether a training step's (B, S, ...) activations are
+    split by sequence over ``model`` (JAX's ``seq_entry``); by default
+    under ``"fsdp_seq"``, as JAX splits them there."""
 
-    def __init__(self, mesh: Mesh, variant: str = "fsdp_tp"):
+    def __init__(self, mesh: Mesh, variant: str = "fsdp_tp",
+                 split_seq: Optional[bool] = None):
         self.mesh = mesh
         self.variant = variant
+        self.split_seq = (variant == "fsdp_seq" if split_seq is None
+                          else split_seq)
 
     def __enter__(self):
-        global _ACT_MESH, _ACT_VARIANT
-        self._prev = (_ACT_MESH, _ACT_VARIANT)
+        global _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ
+        self._prev = (_ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ)
         _ACT_MESH, _ACT_VARIANT = self.mesh, self.variant
+        _ACT_SPLIT_SEQ = self.split_seq
         return self
 
     def __exit__(self, *exc):
-        global _ACT_MESH, _ACT_VARIANT
-        _ACT_MESH, _ACT_VARIANT = self._prev
+        global _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ
+        _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ = self._prev
         return False
 
 
@@ -166,13 +174,40 @@ def batch_mesh(mesh: Mesh, variant: Optional[str] = None) -> Mesh:
 
 @dataclass(frozen=True)
 class SeqSplit:
-    """This rank's part of a sequence split over ``model`` (a prefill under
-    ``"fsdp_seq"``, JAX's ``seq_entry``): positions ``[offset, offset +
-    length)`` of the ``mesh.model`` equal parts, the batch's rows over
-    ``data`` as usual."""
+    """This rank's part of a sequence split over ``model`` (JAX's
+    ``seq_entry`` under ``"fsdp_seq"``: a prefill, or a training step in
+    that scope): positions ``[offset, offset + length)`` of the
+    ``mesh.model`` equal parts, the batch's rows over ``data`` as usual."""
     mesh: "Mesh"
     offset: int
     length: int
+
+    def part(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's positions of ``x``'s whole sequence along ``dim``."""
+        return x.narrow(dim, self.offset, self.length)
+
+
+def splits_sequence() -> bool:
+    """Whether the active scope splits a training step's sequence over a
+    ``model`` axis of more than one rank."""
+    return _ACT_SPLIT_SEQ and _ACT_MESH is not None and _ACT_MESH.model > 1
+
+
+def seq_split(s: int) -> Optional[SeqSplit]:
+    """This rank's part of a sequence of ``s`` positions when the active
+    scope splits the sequence (:func:`splits_sequence`), else None;
+    raises when ``model`` does not divide ``s``."""
+    if not splits_sequence():
+        return None
+    lo, hi = shard_bounds(s, _ACT_MESH.model, _ACT_MESH.model_rank)
+    return SeqSplit(_ACT_MESH, lo, hi - lo)
+
+
+def local_split(n: int) -> Optional[SeqSplit]:
+    """The split whose rank part holds ``n`` positions (tokens the step
+    has cut already), or None outside a split."""
+    return None if not splits_sequence() else SeqSplit(
+        _ACT_MESH, _ACT_MESH.model_rank * n, n)
 
 
 @dataclass(frozen=True)

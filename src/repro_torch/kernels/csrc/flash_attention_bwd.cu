@@ -10,11 +10,21 @@
 // recomputes the scores tile by tile from q, k and it, so nothing of size
 // S^2 reaches device memory.
 //
-// Contract: q (B, S, H, hd), k and v (B, S, K, hd) with H % K == 0 (query
-// head h reads KV head h / (H / K)), o and dO like q, lse (B, H, S) fp32 in
-// natural-log units; any S (the ragged tail is masked), hd in {16, 32, 64,
-// 128}, fp32 or bf16.  With s = q k^T * scale, p = exp(s - lse) (0 above
-// the diagonal) and delta_i = sum_d dO_i o_i:
+// Contract: q (B, Sq, H, hd), k and v (B, Sk, K, hd) with H % K == 0 (query
+// head h reads KV head h / (H / K)), o and dO like q, lse (B, H, Sq) fp32
+// in natural-log units from the forward of the same mask and offset; any
+// Sq and Sk (the ragged tails are masked), hd in {16, 32, 64, 128}, fp32
+// or bf16.  Query row i sits at absolute position q_offset + i, the keys at
+// 0 .. Sk - 1 (causal needs q_offset + Sq <= Sk); Sq = Sk at offset 0 is
+// the model's own attention, and a sequence-parallel rank's queries against
+// every key are the rest.  Every mask, tile frontier and walk below compares
+// absolute positions; with q_offset 0 and Sq = Sk only integer arithmetic
+// differs from a kernel of one length, so those calls keep their bits.
+// dK and dV cover all Sk keys, summed over this call's queries only (a
+// partial the caller sums over the ranks of a split); a key tile that no
+// query of the call sees is written as zeros.  With s = q k^T * scale,
+// p = exp(s - lse) (0 where the mask hides the key) and delta_i = sum_d
+// dO_i o_i:
 //   dV = sum p^T dO,   dP = dO v^T,   dS = p (dP - delta),
 //   dQ = dS k * scale, dK = sum dS^T q * scale,
 // dK and dV summed over the G = H / K query heads that share a KV head.
@@ -200,15 +210,17 @@ __device__ __forceinline__ void stage_rows(float* s_lse, float* s_delta,
 
 // One 64 x 64 score tile: s = q k^T and dP = dO v^T in one pass over hd,
 // thread (rg, cg) owning query rows rg + 16 i and keys cg + 16 j; then
-// p = exp(s * scale - lse) where key <= query < S and, with a window,
-// query - key < window (kFull: where query < S and key < S), else 0, and
+// p = exp(s * scale - lse) where the query row is below Sq, key <= its
+// absolute position q_off + row and, with a window, that position - key <
+// window (kFull: where the row is below Sq and key < Sk), else 0, and
 // dS = p (dP - delta).  Writes dS, and p when s_p is not null, with rows =
-// queries, row stride kSStride.
+// queries, row stride kSStride.  q0 is the tile's first local row.
 template <int HD, int kMask>
 __device__ __forceinline__ void score_tile(
     const float* s_q, const float* s_do, const float* s_k, const float* s_v,
     const float* s_lse, const float* s_delta, float* s_p, float* s_ds,
-    int q0, int k0, int s_len, int window, float scale, int rg, int cg) {
+    int q0, int k0, int q_off, int sq_len, int sk_len, int window,
+    float scale, int rg, int cg) {
   constexpr int kStride = HD + 1;
   float s[kPer][kPer];
   float dp[kPer][kPer];
@@ -242,15 +254,16 @@ __device__ __forceinline__ void score_tile(
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int r = rg + kGrid * i;
-    const int qpos = q0 + r;
+    const int qpos = q0 + r;        // local row
+    const int qabs = q_off + qpos;  // its absolute position
     const float row_lse = s_lse[r];
     const float row_delta = s_delta[r];
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int c = cg + kGrid * j;
-      const bool keep = (kMask == kFull ? k0 + c < s_len : k0 + c <= qpos) &&
-                        qpos < s_len &&
-                        (window == 0 || qpos - (k0 + c) < window);
+      const bool keep = (kMask == kFull ? k0 + c < sk_len : k0 + c <= qabs) &&
+                        qpos < sq_len &&
+                        (window == 0 || qabs - (k0 + c) < window);
       const float p = keep ? expf(fmaf(s[i][j], scale, -row_lse)) : 0.0f;
       if (s_p != nullptr) s_p[r * kSStride + c] = p;
       s_ds[r * kSStride + c] = p * (dp[i][j] - row_delta);
@@ -277,8 +290,9 @@ __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, int s_len,
-              int n_heads, int n_kv, int window_arg, float scale) {
+              float* __restrict__ dk, float* __restrict__ dv, int sq_len,
+              int sk_len, int q_off, int n_heads, int n_kv, int window_arg,
+              float scale) {
   const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;  // accumulator columns a thread
@@ -295,7 +309,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.x / n_kv;
   const int kvh = blockIdx.x - b * n_kv;
   const int group = n_heads / n_kv;
-  // Key tile 0 sees every query tile: the costliest blocks come first.
+  // Key tile 0 sees every query: the costliest blocks come first.
   const int kt = blockIdx.y;
   const int k0 = kt * kTile;
   const int rg = threadIdx.x / kGrid;
@@ -303,10 +317,10 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 
   const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
   const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+  const int64_t kv_base = static_cast<int64_t>(b) * sk_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
-  stage<HD>(s_k, k + kv_base, kv_row, k0, s_len);
-  stage<HD>(s_v, v + kv_base, kv_row, k0, s_len);
+  stage<HD>(s_k, k + kv_base, kv_row, k0, sk_len);
+  stage<HD>(s_v, v + kv_base, kv_row, k0, sk_len);
 
   // Thread (rg, cg) accumulates keys rg + 16 a, head dims cg + 16 c.
   float acc_k[kPer][kCols];
@@ -320,27 +334,33 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // Query tiles from the diagonal (from 0 unmasked) to the end of S or,
-  // with a window, to the tile of the last key's last visible query.
-  int n_qt = (s_len + kTile - 1) / kTile;
+  // Local query tiles from the first whose absolute positions reach key k0
+  // (from 0 unmasked) to the end of Sq or, with a window, to the tile of
+  // the last key's last visible query; none when that query lies before
+  // the call's rows (the tile's dK and dV are then written as zeros).
+  int n_qt = (sq_len + kTile - 1) / kTile;
   if (window > 0) {
-    n_qt = min(n_qt, (min(k0 + kTile, s_len) + window - 2) / kTile + 1);
+    const int last = min(k0 + kTile, sk_len) + window - 2 - q_off;
+    n_qt = last < 0 ? 0 : min(n_qt, last / kTile + 1);
   }
+  const int qt0 = kMask == kFull ? 0 : max(0, k0 - q_off) / kTile;
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
-    const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+    const int64_t q_base = static_cast<int64_t>(b) * sq_len * q_row +
                            static_cast<int64_t>(h) * HD;
-    const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
-    for (int qt = kMask == kFull ? 0 : kt; qt < n_qt; ++qt) {
+    const int64_t row_base =
+        (static_cast<int64_t>(b) * n_heads + h) * sq_len;
+    for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();  // the last tile's q, dO, p and dS are read
-      stage<HD>(s_q, q + q_base, q_row, q0, s_len);
-      stage<HD>(s_do, dout + q_base, q_row, q0, s_len);
+      stage<HD>(s_q, q + q_base, q_row, q0, sq_len);
+      stage<HD>(s_do, dout + q_base, q_row, q0, sq_len);
       stage_rows(s_lse, s_delta, lse + row_base, delta + row_base, q0,
-                 s_len);
+                 sq_len);
       __syncthreads();
       score_tile<HD, kMask>(s_q, s_do, s_k, s_v, s_lse, s_delta, s_p, s_ds,
-                            q0, k0, s_len, window, scale, rg, cg);
+                            q0, k0, q_off, sq_len, sk_len, window, scale, rg,
+                            cg);
       __syncthreads();
       // dV += p^T dO and dK += dS^T q over the tile's queries.
 #pragma unroll 2
@@ -371,7 +391,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < kPer; ++a) {
     const int kpos = k0 + rg + kGrid * a;
-    if (kpos >= s_len) continue;
+    if (kpos >= sk_len) continue;
     const int64_t at = kv_base + kpos * kv_row;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -386,8 +406,8 @@ __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dq, int s_len, int n_heads, int n_kv,
-            int window_arg, float scale) {
+            float* __restrict__ dq, int sq_len, int sk_len, int q_off,
+            int n_heads, int n_kv, int window_arg, float scale) {
   const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 1;
   constexpr int kCols = HD / kGrid;
@@ -411,14 +431,14 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
   const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
   const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
-  const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+  const int64_t q_base = static_cast<int64_t>(b) * sq_len * q_row +
                          static_cast<int64_t>(h) * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+  const int64_t kv_base = static_cast<int64_t>(b) * sk_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
-  const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
-  stage<HD>(s_q, q + q_base, q_row, q0, s_len);
-  stage<HD>(s_do, dout + q_base, q_row, q0, s_len);
-  stage_rows(s_lse, s_delta, lse + row_base, delta + row_base, q0, s_len);
+  const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * sq_len;
+  stage<HD>(s_q, q + q_base, q_row, q0, sq_len);
+  stage<HD>(s_do, dout + q_base, q_row, q0, sq_len);
+  stage_rows(s_lse, s_delta, lse + row_base, delta + row_base, q0, sq_len);
 
   // Thread (rg, cg) accumulates queries rg + 16 a, head dims cg + 16 c.
   float acc[kPer][kCols];
@@ -428,19 +448,22 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[a][c] = 0.0f;
   }
 
-  // KV tiles up to the diagonal (tiles of queries and keys coincide; to
-  // the end of S unmasked), from the tile of the first query's first
-  // visible key.
-  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
-  const int kt_last = kMask == kFull ? gridDim.y - 1 : qt;
+  // KV tiles up to the diagonal of the tile's last real query, at
+  // absolute positions (to the end of Sk unmasked), from the tile of the
+  // first query's first visible key.
+  const int kt0 = window > 0 ? max(0, q_off + q0 - window + 1) / kTile : 0;
+  const int kt_last = kMask == kFull
+                          ? (sk_len - 1) / kTile
+                          : (q_off + min(q0 + kTile, sq_len) - 1) / kTile;
   for (int kt = kt0; kt <= kt_last; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // q, dO staged; the last tile's k and dS are read
-    stage<HD>(s_k, k + kv_base, kv_row, k0, s_len);
-    stage<HD>(s_v, v + kv_base, kv_row, k0, s_len);
+    stage<HD>(s_k, k + kv_base, kv_row, k0, sk_len);
+    stage<HD>(s_v, v + kv_base, kv_row, k0, sk_len);
     __syncthreads();
     score_tile<HD, kMask>(s_q, s_do, s_k, s_v, s_lse, s_delta, nullptr,
-                          s_ds, q0, k0, s_len, window, scale, rg, cg);
+                          s_ds, q0, k0, q_off, sq_len, sk_len, window, scale,
+                          rg, cg);
     __syncthreads();
     // dQ += dS k over the tile's keys.
 #pragma unroll 2
@@ -465,7 +488,7 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < kPer; ++a) {
     const int qpos = q0 + rg + kGrid * a;
-    if (qpos >= s_len) continue;
+    if (qpos >= sq_len) continue;
     const int64_t at = q_base + qpos * q_row;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -599,8 +622,9 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, float* __restrict__ partial,
-                  int s_len, int n_heads, int n_kv, int splits,
-                  int window_arg, float scale, float scale_log2) {
+                  int sq_len, int sk_len, int q_off, int n_heads, int n_kv,
+                  int splits, int window_arg, float scale,
+                  float scale_log2) {
   const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;
   constexpr int kStep = kQStep<HD>;  // queries a tile
@@ -636,42 +660,48 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
 
   const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
   const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+  const int64_t kv_base = static_cast<int64_t>(b) * sk_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
-  load_tile<HD, kMmaRows>(s_k, k + kv_base, kv_row, k0, s_len);
-  load_tile<HD, kMmaRows>(s_v, v + kv_base, kv_row, k0, s_len);
 
-  // The walk: the split's heads, and for each the query tiles from the
-  // one holding key k0 (earlier tiles are all masked; from tile 0
-  // unmasked) to the end of S or, with a window, to the tile of the
-  // block's last key's last visible query.
-  const int qt0 = kMask == kFull ? 0 : k0 / kStep;
-  int qt_end = (s_len + kStep - 1) / kStep;
+  // The walk: the split's heads, and for each the local query tiles from
+  // the one whose absolute positions reach key k0 (earlier tiles are all
+  // masked; from tile 0 unmasked) to the end of Sq or, with a window, to
+  // the tile of the block's last key's last visible query.  A block that
+  // no query of the call sees copies nothing (no copy may be in flight
+  // when it exits) and writes zeros.
+  const int qt0 = kMask == kFull ? 0 : max(0, k0 - q_off) / kStep;
+  int qt_end = (sq_len + kStep - 1) / kStep;
   if (window > 0) {
-    qt_end = min(qt_end,
-                 (min(k0 + kMmaRows, s_len) + window - 2) / kStep + 1);
+    const int last = min(k0 + kMmaRows, sk_len) + window - 2 - q_off;
+    qt_end = last < 0 ? 0 : min(qt_end, last / kStep + 1);
   }
-  const int per_head = qt_end - qt0;
+  const int per_head = max(qt_end - qt0, 0);
   const int n_it = per_split * per_head;
   auto load_q = [&](int it, int stage) {
     const int h = h0 + it / per_head;
     const int q0 = (qt0 + it % per_head) * kStep;
-    const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+    const int64_t q_base = static_cast<int64_t>(b) * sq_len * q_row +
                            static_cast<int64_t>(h) * HD;
-    load_tile<HD, kStep>(s_q + stage * kQElems, q + q_base, q_row, q0, s_len);
+    load_tile<HD, kStep>(s_q + stage * kQElems, q + q_base, q_row, q0,
+                         sq_len);
     load_tile<HD, kStep>(s_do + stage * kQElems, dout + q_base, q_row, q0,
-                         s_len);
-    const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
+                         sq_len);
+    const int64_t row_base =
+        (static_cast<int64_t>(b) * n_heads + h) * sq_len;
     for (int i = tid; i < 2 * kStep; i += kMmaThreads) {
       const int r = i < kStep ? i : i - kStep;
       const int pos = q0 + r;
       const float* src = (i < kStep ? lse : delta) + row_base +
-                         min(pos, s_len - 1);
+                         min(pos, sq_len - 1);
       float* dst = (i < kStep ? s_lse : s_delta) + stage * kStep + r;
-      cp_async4(smem_addr(dst), src, pos < s_len ? 4 : 0);
+      cp_async4(smem_addr(dst), src, pos < sq_len ? 4 : 0);
     }
   };
-  load_q(0, 0);
+  if (n_it > 0) {
+    load_tile<HD, kMmaRows>(s_k, k + kv_base, kv_row, k0, sk_len);
+    load_tile<HD, kMmaRows>(s_v, v + kv_base, kv_row, k0, sk_len);
+    load_q(0, 0);
+  }
   cp_async_commit();
 
   float acc_k[kDTiles][4];
@@ -705,12 +735,13 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    const int q0 = (qt0 + it % per_head) * kStep;
+    const int q0 = (qt0 + it % per_head) * kStep;  // local
+    const int qa0 = q_off + q0;                     // absolute
     // A warp whose keys all lie past this tile's queries (causal), or past
-    // S, skips it; so does a warp whose keys all lie below the window of
+    // Sk, skips it; so does a warp whose keys all lie below the window of
     // the tile's first query.
-    if ((kMask == kFull || q0 + kStep - 1 >= kw0) && kw0 < s_len &&
-        (window == 0 || q0 - (kw0 + 15) < window)) {
+    if ((kMask == kFull || qa0 + kStep - 1 >= kw0) && kw0 < sk_len &&
+        (window == 0 || qa0 - (kw0 + 15) < window)) {
       const __nv_bfloat16* sq = s_q + (it & 1) * kQElems;
       const __nv_bfloat16* sdo = s_do + (it & 1) * kQElems;
       const float* sl = s_lse + (it & 1) * kStep;
@@ -750,28 +781,29 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
         }
       }
       // P^T and dS^T; the mask where the tile crosses the warp's diagonal
-      // (a key after a query), the end of S (a query past it) or the
+      // (a key after a query), the end of Sq (a query past it) or the
       // window's lower edge (a key window or more before a query).
-      const bool edge = (kMask != kFull && kw0 + 15 > q0) ||
-                        q0 + kStep > s_len ||
-                        (window > 0 && q0 + kStep - 1 - kw0 >= window);
+      const bool edge = (kMask != kFull && kw0 + 15 > qa0) ||
+                        q0 + kStep > sq_len ||
+                        (window > 0 && qa0 + kStep - 1 - kw0 >= window);
 #pragma unroll
       for (int n = 0; n < kQTiles; ++n) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = 8 * n + 2 * t4 + c;
-          const int query = q0 + col;
+          const int query = q0 + col;       // local
+          const int qabs = q_off + query;   // absolute
           const float lse2 = sl[col] * kLog2e;
           const float dl = sd[col];
           float p_lo = exp2_approx(fmaf(st[n][c], scale_log2, -lse2));
           float p_hi = exp2_approx(fmaf(st[n][2 + c], scale_log2, -lse2));
           if (edge) {
-            if ((kMask != kFull && key_lo > query) || query >= s_len ||
-                (window > 0 && query - key_lo >= window)) {
+            if ((kMask != kFull && key_lo > qabs) || query >= sq_len ||
+                (window > 0 && qabs - key_lo >= window)) {
               p_lo = 0.0f;
             }
-            if ((kMask != kFull && key_hi > query) || query >= s_len ||
-                (window > 0 && query - key_hi >= window)) {
+            if ((kMask != kFull && key_hi > qabs) || query >= sq_len ||
+                (window > 0 && qabs - key_hi >= window)) {
               p_hi = 0.0f;
             }
           }
@@ -803,7 +835,7 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
   }
 
   const int64_t n_elems = static_cast<int64_t>(gridDim.x / splits) / n_kv *
-                          s_len * kv_row;
+                          sk_len * kv_row;
   float* part_k = partial == nullptr ? nullptr : partial + split * n_elems;
   float* part_v =
       partial == nullptr ? nullptr : partial + (splits + split) * n_elems;
@@ -813,7 +845,7 @@ attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int key = half ? key_hi : key_lo;
-      if (key >= s_len) continue;
+      if (key >= sk_len) continue;
       const int64_t at = kv_base + key * kv_row + col;
       const float k0v = acc_k[n][2 * half], k1v = acc_k[n][2 * half + 1];
       const float v0v = acc_v[n][2 * half], v1v = acc_v[n][2 * half + 1];
@@ -868,8 +900,9 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, int s_len, int n_heads,
-                int n_kv, int window_arg, float scale, float scale_log2) {
+                __nv_bfloat16* __restrict__ dq, int sq_len, int sk_len,
+                int q_off, int n_heads, int n_kv, int window_arg,
+                float scale, float scale_log2) {
   const int window = kMask == kWindowed ? window_arg : 0;  // 0: folds away
   constexpr int kStride = HD + 8;
   constexpr int kStep = kKStep;  // keys a tile
@@ -896,41 +929,46 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 
   const int64_t q_row = static_cast<int64_t>(n_heads) * HD;
   const int64_t kv_row = static_cast<int64_t>(n_kv) * HD;
-  const int64_t q_base = static_cast<int64_t>(b) * s_len * q_row +
+  const int64_t q_base = static_cast<int64_t>(b) * sq_len * q_row +
                          static_cast<int64_t>(h) * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * s_len * kv_row +
+  const int64_t kv_base = static_cast<int64_t>(b) * sk_len * kv_row +
                           static_cast<int64_t>(kvh) * HD;
-  load_tile<HD, kMmaRows>(s_q, q + q_base, q_row, q0, s_len);
-  load_tile<HD, kMmaRows>(s_do, dout + q_base, q_row, q0, s_len);
+  load_tile<HD, kMmaRows>(s_q, q + q_base, q_row, q0, sq_len);
+  load_tile<HD, kMmaRows>(s_do, dout + q_base, q_row, q0, sq_len);
   auto load_kv = [&](int tile, int stage) {
     load_tile<HD, kStep>(s_k + stage * kKElems, k + kv_base, kv_row,
-                         tile * kStep, s_len);
+                         tile * kStep, sk_len);
     load_tile<HD, kStep>(s_v + stage * kKElems, v + kv_base, kv_row,
-                         tile * kStep, s_len);
+                         tile * kStep, sk_len);
   };
   // KV tiles from the one holding the first query's first visible key (0
   // without a window) up to the causal frontier of the tile's last real
-  // query (to the end of S unmasked).
-  const int q_last = min(q0 + kMmaRows, s_len) - 1;
-  const int t_first = window > 0 ? max(0, q0 - window + 1) / kStep : 0;
+  // query (to the end of Sk unmasked), at absolute positions.
+  const int q_last = q_off + min(q0 + kMmaRows, sq_len) - 1;
+  const int t_first =
+      window > 0 ? max(0, q_off + q0 - window + 1) / kStep : 0;
   const int n_it =
-      (kMask == kFull ? s_len - 1 : q_last) / kStep + 1 - t_first;
+      (kMask == kFull ? sk_len - 1 : q_last) / kStep + 1 - t_first;
   load_kv(t_first, 0);
   cp_async_commit();
 
   // This warp's 16 queries: g and g + 8 of them are this lane's, with
-  // their lse (log2 units) and delta.
-  const int w_first = q0 + 16 * warp;
+  // their lse (log2 units) and delta.  w_ and row_ are absolute positions,
+  // w_local and loc_ the rows' local indices (without the offset).
+  const int w_local = q0 + 16 * warp;
+  const int w_first = q_off + w_local;
   const int w_last = w_first + 15;
-  const int row_lo = w_first + g;
+  const int loc_lo = w_local + g;
+  const int loc_hi = loc_lo + 8;
+  const int row_lo = q_off + loc_lo;
   const int row_hi = row_lo + 8;
-  const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * s_len;
+  const int64_t row_base = (static_cast<int64_t>(b) * n_heads + h) * sq_len;
   const float lse2_lo =
-      row_lo < s_len ? lse[row_base + row_lo] * kLog2e : 0.0f;
+      loc_lo < sq_len ? lse[row_base + loc_lo] * kLog2e : 0.0f;
   const float lse2_hi =
-      row_hi < s_len ? lse[row_base + row_hi] * kLog2e : 0.0f;
-  const float d_lo = row_lo < s_len ? delta[row_base + row_lo] : 0.0f;
-  const float d_hi = row_hi < s_len ? delta[row_base + row_hi] : 0.0f;
+      loc_hi < sq_len ? lse[row_base + loc_hi] * kLog2e : 0.0f;
+  const float d_lo = loc_lo < sq_len ? delta[row_base + loc_lo] : 0.0f;
+  const float d_hi = loc_hi < sq_len ? delta[row_base + loc_hi] : 0.0f;
   uint32_t qf[kDSteps][4];
   uint32_t df[kDSteps][4];
   float acc[kDTiles][4];
@@ -958,10 +996,10 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
     const int k0 = t * kStep;
-    // A warp whose queries all lie before this tile (causal), or past S,
+    // A warp whose queries all lie before this tile (causal), or past Sq,
     // skips it; so does a warp whose first query's window starts after the
     // tile.
-    if ((kMask == kFull || k0 <= w_last) && w_first < s_len &&
+    if ((kMask == kFull || k0 <= w_last) && w_local < sq_len &&
         (window == 0 || w_first - (k0 + kStep - 1) < window)) {
       const __nv_bfloat16* sk = s_k + (it & 1) * kKElems;
       const __nv_bfloat16* sv = s_v + (it & 1) * kKElems;
@@ -989,9 +1027,9 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
         }
       }
       // dS = P (dP - delta); the mask where the tile crosses the warp's
-      // diagonal, the end of S (a key past it) or the window's lower edge.
+      // diagonal, the end of Sk (a key past it) or the window's lower edge.
       const bool edge = (kMask != kFull && k0 + kStep - 1 > w_first) ||
-                        k0 + kStep > s_len ||
+                        k0 + kStep > sk_len ||
                         (window > 0 && w_last - k0 >= window);
 #pragma unroll
       for (int n = 0; n < kKTiles; ++n) {
@@ -1002,7 +1040,7 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
               fmaf(s[n][e], scale_log2, -(lo ? lse2_lo : lse2_hi)));
           const int key = k0 + 8 * n + 2 * t4 + (e & 1);
           const int row = lo ? row_lo : row_hi;
-          if (edge && ((kMask != kFull && key > row) || key >= s_len ||
+          if (edge && ((kMask != kFull && key > row) || key >= sk_len ||
                        (window > 0 && row - key >= window))) {
             p = 0.0f;
           }
@@ -1029,12 +1067,12 @@ attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < kDTiles; ++n) {
     const int col = 8 * n + 2 * t4;
-    if (row_lo < s_len) {
-      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + row_lo * q_row + col) =
+    if (loc_lo < sq_len) {
+      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + loc_lo * q_row + col) =
           __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
     }
-    if (row_hi < s_len) {
-      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + row_hi * q_row + col) =
+    if (loc_hi < sq_len) {
+      *reinterpret_cast<__nv_bfloat162*>(dq + q_base + loc_hi * q_row + col) =
           __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
     }
   }
@@ -1073,8 +1111,9 @@ template <int HD, int kMask>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv,
-                       int64_t batch, int s_len, int n_heads, int n_kv,
-                       int window, float scale, cudaStream_t stream) {
+                       int64_t batch, int sq_len, int sk_len, int q_off,
+                       int n_heads, int n_kv, int window, float scale,
+                       cudaStream_t stream) {
   constexpr int64_t dkdv_smem = dkdv_smem_bytes<HD>();
   constexpr int64_t dq_smem = dq_smem_bytes<HD>();
   static bool dkdv_set = false;  // per instantiation
@@ -1084,27 +1123,31 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   err = allow_smem(attn_bwd_dq<HD, kMask>, dq_smem, &dq_set);
   if (err != cudaSuccess) return err;
-  err = launch_delta<float, HD>(o, dout, delta, batch, s_len, n_heads,
+  err = launch_delta<float, HD>(o, dout, delta, batch, sq_len, n_heads,
                                 stream);
   if (err != cudaSuccess) return err;
 
-  const unsigned n_tiles = static_cast<unsigned>((s_len + kTile - 1) / kTile);
+  const unsigned k_tiles =
+      static_cast<unsigned>((sk_len + kTile - 1) / kTile);
+  const unsigned q_tiles =
+      static_cast<unsigned>((sq_len + kTile - 1) / kTile);
   attn_bwd_dkdv<HD, kMask>
-      <<<dim3(static_cast<unsigned>(batch * n_kv), n_tiles), kThreads,
+      <<<dim3(static_cast<unsigned>(batch * n_kv), k_tiles), kThreads,
          static_cast<size_t>(dkdv_smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), s_len,
-      n_heads, n_kv, window, scale);
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), sq_len,
+      sk_len, q_off, n_heads, n_kv, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   attn_bwd_dq<HD, kMask>
-      <<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles), kThreads,
+      <<<dim3(static_cast<unsigned>(batch * n_heads), q_tiles), kThreads,
          static_cast<size_t>(dq_smem), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), s_len, n_heads, n_kv, window, scale);
+      delta, static_cast<float*>(dq), sq_len, sk_len, q_off, n_heads, n_kv,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -1112,9 +1155,9 @@ template <int HD, int kMask>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, void* dq, void* dk, void* dv,
-                       float* partial, int64_t batch, int s_len, int n_heads,
-                       int n_kv, int splits, int window, float scale,
-                       cudaStream_t stream) {
+                       float* partial, int64_t batch, int sq_len, int sk_len,
+                       int q_off, int n_heads, int n_kv, int splits,
+                       int window, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int64_t dkdv_smem = dkdv_mma_smem_bytes<HD>();
   constexpr int64_t dq_smem = dq_mma_smem_bytes<HD>();
@@ -1125,24 +1168,27 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   err = allow_smem(attn_bwd_dq_mma<HD, kMask>, dq_smem, &dq_set);
   if (err != cudaSuccess) return err;
-  err = launch_delta<bf16, HD>(o, dout, delta, batch, s_len, n_heads, stream);
+  err = launch_delta<bf16, HD>(o, dout, delta, batch, sq_len, n_heads,
+                               stream);
   if (err != cudaSuccess) return err;
 
   const float scale_log2 = scale * kLog2e;
-  const unsigned n_tiles =
-      static_cast<unsigned>((s_len + kMmaRows - 1) / kMmaRows);
+  const unsigned k_tiles =
+      static_cast<unsigned>((sk_len + kMmaRows - 1) / kMmaRows);
+  const unsigned q_tiles =
+      static_cast<unsigned>((sq_len + kMmaRows - 1) / kMmaRows);
   attn_bwd_dkdv_mma<HD, kMask>
-      <<<dim3(static_cast<unsigned>(batch * n_kv * splits), n_tiles),
+      <<<dim3(static_cast<unsigned>(batch * n_kv * splits), k_tiles),
          kMmaThreads, static_cast<size_t>(dkdv_smem), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
           delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-          splits > 1 ? partial : nullptr, s_len, n_heads, n_kv, splits,
-          window, scale, scale_log2);
+          splits > 1 ? partial : nullptr, sq_len, sk_len, q_off, n_heads,
+          n_kv, splits, window, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
-    const int64_t n = batch * s_len * n_kv * HD;
+    const int64_t n = batch * sk_len * n_kv * HD;
     const int64_t blocks = (2 * n / 4 + 255) / 256;
     attn_bwd_sum_splits<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
         partial, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits,
@@ -1152,88 +1198,104 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   }
 
   attn_bwd_dq_mma<HD, kMask>
-      <<<dim3(static_cast<unsigned>(batch * n_heads), n_tiles), kMmaThreads,
+      <<<dim3(static_cast<unsigned>(batch * n_heads), q_tiles), kMmaThreads,
          static_cast<size_t>(dq_smem), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-          delta, static_cast<bf16*>(dq), s_len, n_heads, n_kv, window, scale,
-          scale_log2);
+          delta, static_cast<bf16*>(dq), sq_len, sk_len, q_off, n_heads,
+          n_kv, window, scale, scale_log2);
   return cudaGetLastError();
 }
+
+// The shapes of one call: batch, query rows, keys, the queries' offset.
+struct Dims {
+  int64_t batch;
+  int sq_len;
+  int sk_len;
+  int q_off;
+  int n_heads;
+  int n_kv;
+};
 
 template <int HD, int kMask>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k,
                          const void* v, const void* o, const void* dout,
                          const float* lse, float* delta, void* dq, void* dk,
-                         void* dv, float* partial, int64_t batch, int s_len,
-                         int n_heads, int n_kv, int splits, int window,
-                         float scale, cudaStream_t stream) {
+                         void* dv, float* partial, const Dims& d, int splits,
+                         int window, float scale, cudaStream_t stream) {
   return dtype == 0
              ? launch_fma<HD, kMask>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, batch, s_len, n_heads, n_kv, window,
+                                     dv, d.batch, d.sq_len, d.sk_len,
+                                     d.q_off, d.n_heads, d.n_kv, window,
                                      scale, stream)
              : launch_mma<HD, kMask>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, partial, batch, s_len, n_heads,
-                                     n_kv, splits, window, scale, stream);
+                                     dv, partial, d.batch, d.sq_len,
+                                     d.sk_len, d.q_off, d.n_heads, d.n_kv,
+                                     splits, window, scale, stream);
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv,
-                   float* partial, int64_t batch, int s_len, int n_heads,
-                   int n_kv, int splits, int window, bool causal,
-                   float scale, cudaStream_t stream) {
+                   float* partial, const Dims& d, int splits, int window,
+                   bool causal, float scale, cudaStream_t stream) {
   if (!causal) {
     return launch_dtype<HD, kFull>(dtype, q, k, v, o, dout, lse, delta, dq,
-                                   dk, dv, partial, batch, s_len, n_heads,
-                                   n_kv, splits, 0, scale, stream);
+                                   dk, dv, partial, d, splits, 0, scale,
+                                   stream);
   }
   if (window > 0) {
     return launch_dtype<HD, kWindowed>(dtype, q, k, v, o, dout, lse, delta,
-                                       dq, dk, dv, partial, batch, s_len,
-                                       n_heads, n_kv, splits, window, scale,
-                                       stream);
+                                       dq, dk, dv, partial, d, splits,
+                                       window, scale, stream);
   }
   return launch_dtype<HD, kCausal>(dtype, q, k, v, o, dout, lse, delta, dq,
-                                   dk, dv, partial, batch, s_len, n_heads,
-                                   n_kv, splits, 0, scale, stream);
+                                   dk, dv, partial, d, splits, 0, scale,
+                                   stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o, dout, dq (batch, s_len, n_heads, head_dim); k, v, dk, dv (batch,
-// s_len, n_kv, head_dim); contiguous, all float32 (dtype 0) or all
+// q, o, dout, dq (batch, sq_len, n_heads, head_dim); k, v, dk, dv (batch,
+// sk_len, n_kv, head_dim); contiguous, all float32 (dtype 0) or all
 // bfloat16 (dtype 1; q, k, v and dout 16-byte aligned, for the 16-byte
-// copies).  lse (batch, n_heads, s_len) float32 from the forward; delta a
-// float32 scratch of the same shape, overwritten.  n_heads % n_kv == 0,
-// head_dim in {16, 32, 64, 128}, scale the forward's softmax scale.
+// copies).  q_offset: the absolute position of query row 0 (the keys sit
+// at 0 .. sk_len - 1); causal needs q_offset + sq_len <= sk_len.  lse
+// (batch, n_heads, sq_len) float32 from the forward of the same offset;
+// delta a float32 scratch of the same shape, overwritten.  n_heads % n_kv
+// == 0, head_dim in {16, 32, 64, 128}, scale the forward's softmax scale.
 // splits: the number of blocks over which each KV head's n_heads / n_kv
 // query heads are split for dK and dV (bf16 only; it divides n_heads /
 // n_kv); with splits > 1, partial is a float32 scratch of 2 * splits *
-// batch * s_len * n_kv * head_dim elements, overwritten.  window: 0 is
-// causal; 1 .. s_len the forward's sliding window (larger values are
-// refused: the caller passes s_len for them).  causal: 1, or 0 for the
+// batch * sk_len * n_kv * head_dim elements, overwritten.  window: 0 is
+// causal; 1 .. sk_len the forward's sliding window (larger values are
+// refused: the caller passes sk_len for them).  causal: 1, or 0 for the
 // unmasked forward's gradients (window 0 only).
 int repro_flash_attention_bwd_split(const void* q, const void* k,
                                     const void* v, const void* o,
                                     const void* dout, const void* lse,
                                     void* delta, void* dq, void* dk, void* dv,
                                     void* partial, int64_t batch,
-                                    int64_t s_len, int n_heads, int n_kv,
+                                    int64_t sq_len, int64_t sk_len,
+                                    int64_t q_offset, int n_heads, int n_kv,
                                     int head_dim, int dtype, float scale,
                                     int splits, int window, int causal,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch < 1 || s_len < 1 || n_kv < 1 || n_heads < n_kv ||
-      n_heads % n_kv != 0 || batch * n_heads > 0x7fffffffLL ||
-      (s_len + kTile - 1) / kTile > kMaxTiles ||
+  if (batch < 1 || sq_len < 1 || sk_len < 1 || q_offset < 0 || n_kv < 1 ||
+      n_heads < n_kv || n_heads % n_kv != 0 ||
+      batch * n_heads > 0x7fffffffLL || sk_len > 0x7fffffffLL ||
+      q_offset + sq_len > 0x7fffffffLL ||
+      (causal == 1 && q_offset + sq_len > sk_len) ||
+      (sq_len + kTile - 1) / kTile > kMaxTiles ||
+      (sk_len + kTile - 1) / kTile > kMaxTiles ||
       (dtype != 0 && dtype != 1) || splits < 1 ||
       (n_heads / n_kv) % splits != 0 ||
       (splits > 1 && (dtype != 1 || partial == nullptr)) || window < 0 ||
-      window > s_len || (causal != 0 && causal != 1) ||
+      window > sk_len || (causal != 0 && causal != 1) ||
       (causal == 0 && window != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1243,31 +1305,29 @@ int repro_flash_attention_bwd_split(const void* q, const void* k,
        15)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const int sl = static_cast<int>(s_len);
+  const Dims d{batch, static_cast<int>(sq_len), static_cast<int>(sk_len),
+               static_cast<int>(q_offset), n_heads, n_kv};
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   float* part = static_cast<float*>(partial);
+  const bool c = causal == 1;
   cudaError_t err;
   switch (head_dim) {
     case 16:
-      err = launch<16>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, window, causal == 1,
-                       scale, s);
+      err = launch<16>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part, d,
+                       splits, window, c, scale, s);
       break;
     case 32:
-      err = launch<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, window, causal == 1,
-                       scale, s);
+      err = launch<32>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part, d,
+                       splits, window, c, scale, s);
       break;
     case 64:
-      err = launch<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                       batch, sl, n_heads, n_kv, splits, window, causal == 1,
-                       scale, s);
+      err = launch<64>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part, d,
+                       splits, window, c, scale, s);
       break;
     case 128:
-      err = launch<128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part,
-                        batch, sl, n_heads, n_kv, splits, window, causal == 1,
-                       scale, s);
+      err = launch<128>(dtype, q, k, v, o, dout, l, dl, dq, dk, dv, part, d,
+                        splits, window, c, scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1275,7 +1335,8 @@ int repro_flash_attention_bwd_split(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The same with the G query heads of a KV head in one block (splits 1).
+// The same with the G query heads of a KV head in one block (splits 1),
+// Sq = Sk = s_len at offset 0.
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const void* lse, void* delta, void* dq,
@@ -1285,8 +1346,9 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                               int window, int causal, void* stream) {
   return repro_flash_attention_bwd_split(q, k, v, o, dout, lse, delta, dq,
                                          dk, dv, nullptr, batch, s_len,
-                                         n_heads, n_kv, head_dim, dtype,
-                                         scale, 1, window, causal, stream);
+                                         s_len, 0, n_heads, n_kv, head_dim,
+                                         dtype, scale, 1, window, causal,
+                                         stream);
 }
 
 }  // extern "C"

@@ -24,9 +24,10 @@ outputs and scratch with ``torch.empty``, launches on the current stream,
 raises if the launch reports an error, and adds one to its ``launches``
 count.  Asked
 for it (``with_lse``), the forward also returns each row's log-sum-exp,
-(B, H, S) fp32, which :func:`flash_attention_bwd` (no TPU counterpart: JAX
+(B, H, Sq) fp32, which :func:`flash_attention_bwd` (no TPU counterpart: JAX
 differentiates the attention's XLA version) takes to give dq, dk and dv
-without storing the scores, under the same ``window``.  The plain versions
+without storing the scores, under the same ``window``, mask and query
+offset (a sequence-parallel rank's dk and dv are its queries' partial).  The plain versions
 are :func:`repro_torch.kernels.ref.causal_attention_ref`,
 :func:`~repro_torch.kernels.ref.causal_attention_lse_ref`,
 :func:`~repro_torch.kernels.ref.flash_attention_ref` and
@@ -73,7 +74,8 @@ def _bwd_lib() -> ctypes.CDLL:
     if _BWD_LIB is None:
         lib = _build.load("flash_attention_bwd")
         lib.repro_flash_attention_bwd_split.argtypes = [_VP] * 11 + [
-            _I64, _I64, _INT, _INT, _INT, _INT, _F32, _INT, _INT, _INT, _VP]
+            _I64, _I64, _I64, _I64, _INT, _INT, _INT, _INT, _F32, _INT, _INT,
+            _INT, _VP]
         lib.repro_flash_attention_bwd_split.restype = _INT
         _BWD_LIB = lib
     return _BWD_LIB
@@ -83,8 +85,8 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                fn: str, q_offset: Optional[int] = None,
                causal: bool = True):
     """Device, dtype and shapes; ``q_offset`` None asks for k/v of q's
-    length (the backward), else k/v may be of any length Sk, and a causal
-    attention needs ``0 <= q_offset`` and ``q_offset + Sq <= Sk``."""
+    length, else k/v may be of any length Sk, and a causal attention
+    needs ``0 <= q_offset`` and ``q_offset + Sq <= Sk``."""
     _check(q, "q", 4, tuple(_DTYPE_CODE))
     _check(k, "k", 4, (q.dtype,), q.device)
     _check(v, "v", 4, (q.dtype,), q.device)
@@ -171,9 +173,10 @@ BWD_KEY_TILE = 64
 def bwd_splits(b: int, s: int, n_kv: int, group: int, sms: int) -> int:
     """Over how many blocks the bf16 backward splits each KV head's
     ``group`` query heads for dK and dV: 1 when the B * K * ceil(S / 64)
-    key-tile blocks reach two a streaming multiprocessor, else the least
-    divisor of ``group`` that brings them there (or ``group``).  A split
-    costs an fp32 partial of dK and dV each and a pass that sums them."""
+    key-tile blocks (S the keys that some query sees) reach two a
+    streaming multiprocessor, else the least divisor of ``group`` that
+    brings them there (or ``group``).  A split costs an fp32 partial of dK
+    and dV each and a pass that sums them."""
     blocks = b * n_kv * -(-s // BWD_KEY_TILE)
     for d in range(1, group + 1):
         if group % d == 0 and blocks * d >= 2 * sms:
@@ -184,23 +187,29 @@ def bwd_splits(b: int, s: int, n_kv: int, group: int, sms: int) -> int:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         lse: torch.Tensor, splits: Optional[int] = None,
-                        window: int = 0, causal: bool = True):
-    """The gradients of :func:`flash_attention`: q, o and do (B, S, H, hd);
-    k/v (B, S, K, hd), one dtype on one card; lse (B, H, S) fp32 from the
-    forward of the same ``window`` (0 is causal) and ``causal`` -> ``(dq,
-    dk, dv)``, dq in q's dtype and dk, dv in k's.  ``splits`` (bf16 only)
+                        window: int = 0, causal: bool = True,
+                        q_offset: int = 0):
+    """The gradients of :func:`flash_attention`: q, o and do (B, Sq, H,
+    hd); k/v (B, Sk, K, hd), one dtype on one card; lse (B, H, Sq) fp32
+    from the forward of the same ``window`` (0 is causal), ``causal`` and
+    ``q_offset`` (query row i at position ``q_offset + i``; causal needs
+    ``q_offset + Sq <= Sk``) -> ``(dq, dk, dv)``, dq in q's dtype and dk,
+    dv in k's.  dk and dv cover all Sk keys, summed over these queries
+    only: under a sequence split each rank's are a partial that the ranks
+    sum; keys that no query sees get zeros.  ``splits`` (bf16 only)
     overrides :func:`bwd_splits`'s choice; it must divide H / K."""
-    _check_qkv(q, k, v, "flash_attention_bwd")
+    _check_qkv(q, k, v, "flash_attention_bwd", q_offset, causal)
     _check(o, "o", 4, (q.dtype,), q.device)
     _check(do, "do", 4, (q.dtype,), q.device)
     _check(lse, "lse", 3, (torch.float32,), q.device)
     b, s, h, hd = q.shape
+    s_k = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
         raise ValueError(
             f"flash_attention_bwd shapes do not match: q {tuple(q.shape)}, "
             f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
-            f"{tuple(lse.shape)} (expected o, do like q, lse (B, H, S))")
-    window = _window(window, s, causal, "flash_attention_bwd")
+            f"{tuple(lse.shape)} (expected o, do like q, lse (B, H, Sq))")
+    window = _window(window, s_k, causal, "flash_attention_bwd")
     n_kv = k.shape[2]
     bf16 = q.dtype == torch.bfloat16
     if splits is not None and (splits < 1 or (h // n_kv) % splits
@@ -208,30 +217,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd splits {splits}: a divisor "
                          f"of H / K = {h // n_kv}, above 1 only for bf16")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if b == 0 or s == 0 or h == 0:
-        return dq, dk.zero_(), dv.zero_()
+    if b == 0 or h == 0 or s == 0 or s_k == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     if bf16:
         # The bf16 kernels copy q, k, v and do 16 bytes at a time: a view
         # that starts off a 16-byte boundary is copied first.
         q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
                        for t in (q, k, v, do))
         if splits is None:
-            splits = bwd_splits(b, s, n_kv, h // n_kv, torch.cuda
+            seen = min(s_k, q_offset + s) if causal else s_k
+            splits = bwd_splits(b, seen, n_kv, h // n_kv, torch.cuda
                                 .get_device_properties(q.device)
                                 .multi_processor_count)
     splits = splits or 1
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    partial = (torch.empty((2, splits, b, s, n_kv, hd), dtype=torch.float32,
-                           device=q.device) if splits > 1 else None)
+    partial = (torch.empty((2, splits, b, s_k, n_kv, hd),
+                           dtype=torch.float32, device=q.device)
+               if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib().repro_flash_attention_bwd_split(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
-            None if partial is None else partial.data_ptr(), b, s, h, n_kv,
-            hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd), splits, window,
-            int(causal), stream)
+            None if partial is None else partial.data_ptr(), b, s, s_k,
+            q_offset, h, n_kv, hd, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(hd),
+            splits, window, int(causal), stream)
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

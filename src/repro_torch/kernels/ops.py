@@ -291,19 +291,22 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
 
 class _FlashAttention(torch.autograd.Function):
     """Causal attention, in a sliding ``window`` when it is above 0, or
-    unmasked (``causal`` False); the backward recomputes p from the
-    forward's log-sum-exp under the same mask: ``flash_attention_bwd`` on
-    the card, its plain version on the CPU."""
+    unmasked (``causal`` False), with q's rows at ``q_offset`` against
+    every key; the backward recomputes p from the forward's log-sum-exp
+    under the same mask and offset: ``flash_attention_bwd`` on the card,
+    its plain version on the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, causal):
+    def forward(ctx, q, k, v, window, causal, q_offset):
         if _on_cuda(q):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             o, lse = _fa.flash_attention(q, k, v, with_lse=True,
-                                         window=window, causal=causal)
+                                         window=window, causal=causal,
+                                         q_offset=q_offset)
         else:
-            o, lse = ref.causal_attention_lse_ref(q, k, v, window, causal)
-        ctx.window, ctx.causal = window, causal
+            o, lse = ref.causal_attention_lse_ref(q, k, v, window, causal,
+                                                  q_offset)
+        ctx.window, ctx.causal, ctx.q_offset = window, causal, q_offset
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -313,35 +316,30 @@ class _FlashAttention(torch.autograd.Function):
         if _on_cuda(q):
             grads = _fa.flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
                                             window=ctx.window,
-                                            causal=ctx.causal)
+                                            causal=ctx.causal,
+                                            q_offset=ctx.q_offset)
         else:
             grads = ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                ctx.window, ctx.causal)
-        return (*grads, None, None)
+                                                ctx.window, ctx.causal,
+                                                ctx.q_offset)
+        return (*grads, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int = 0, causal: bool = True,
                     q_offset: int = 0) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, S, K, hd) with ``H % K == 0`` -> (B, S,
-    H, hd) causal attention in q's dtype (query head h reads KV head
+    """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd) with ``H % K == 0`` -> (B,
+    Sq, H, hd) causal attention in q's dtype (query head h reads KV head
     ``h // (H // K)``), scale ``1/sqrt(hd)``, any S; ``window > 0`` limits
     query q to keys ``q - window < k <= q`` (0 is causal); ``causal=False``
-    lets every query see every key (no window).  Differentiable in q, k and
-    v, whatever the mask.
-
-    Outside autograd q may hold Sq rows at positions ``q_offset ..
-    q_offset + Sq - 1`` against Sk keys (a sequence-parallel rank's
-    queries; the kernel's offset mode on the card).  Its backward is not
-    ported (ROADMAP A11c-6e): under autograd Sq = Sk at offset 0."""
-    offset_mode = q_offset != 0 or q.shape[1] != k.shape[1]
+    lets every query see every key (no window).  Query row i sits at
+    position ``q_offset + i`` (a sequence-parallel rank's queries; causal
+    needs ``q_offset + Sq <= Sk``); Sq = Sk at offset 0 is the model's own
+    attention.  Differentiable in q, k and v, whatever the mask and
+    offset: dk and dv are these queries' part (the kernel's offset mode
+    on the card, forward and backward)."""
     if _requires_grad(q, k, v):
-        if offset_mode:
-            raise NotImplementedError(
-                "flash_attention at a query offset (Sq != Sk) has no "
-                "backward: the sequence split under a gradient is ROADMAP "
-                "A11c-6e")
-        return _FlashAttention.apply(q, k, v, window, causal)
+        return _FlashAttention.apply(q, k, v, window, causal, q_offset)
     if _on_cuda(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), window=window,

@@ -337,12 +337,13 @@ def kv_stream_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, window: int = 0,
-                             causal: bool = True):
+                             causal: bool = True, q_offset: int = 0):
     """:func:`causal_attention_ref` and each row's log-sum-exp of its
-    scaled scores: ``(o, lse)``, lse (B, H, S) in the compute dtype (fp32;
-    fp64 for fp64 inputs), what the backward recomputes p from."""
+    scaled scores: ``(o, lse)``, lse (B, H, Sq) in the compute dtype (fp32;
+    fp64 for fp64 inputs), what the backward recomputes p from.  q (B, Sq,
+    H, hd) with row i at position ``q_offset + i``, k/v (B, Sk, K, hd)."""
     b, s, h, _ = q.shape
-    scores = _scores(q, k, window, causal)
+    scores = _scores(q, k, window, causal, q_offset)
     lse = torch.logsumexp(scores, dim=-1).reshape(b, h, s)
     return _attend(scores, q, v), lse
 
@@ -350,20 +351,23 @@ def causal_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor,
-                            window: int = 0, causal: bool = True):
-    """The plain attention backward: q, o, do (B, S, H, hd); k/v (B, S, K,
-    hd); lse (B, H, S) from the forward of the same ``window`` (0 is
-    causal) and ``causal`` -> ``(dq, dk, dv)`` in q's and k's dtypes.  With s the scaled
+                            window: int = 0, causal: bool = True,
+                            q_offset: int = 0):
+    """The plain attention backward: q, o, do (B, Sq, H, hd), query row i
+    at position ``q_offset + i``; k/v (B, Sk, K, hd); lse (B, H, Sq) from
+    the forward of the same ``window`` (0 is causal), ``causal`` and
+    offset -> ``(dq, dk, dv)`` in q's and k's dtypes.  With s the scaled
     scores, p = exp(s - lse) where the forward lets a query see a key (0
     elsewhere) and delta = sum_d do o: dV = p^T dO, dS = p (dO v^T -
     delta), dQ = dS k * scale, dK = dS^T q * scale, dK and dV summed over
-    the query heads of a KV head.  Materialises (B, K, G, S, S) in the
+    the query heads of a KV head and over these queries only (zeros for
+    a key none of them sees).  Materialises (B, K, G, Sq, Sk) in the
     compute dtype."""
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
     g = h // n_kv
     scale = 1.0 / math.sqrt(hd)
-    scores = _scores(q, k, window, causal)
+    scores = _scores(q, k, window, causal, q_offset)
     ct = scores.dtype
     p = torch.exp(scores - lse.to(ct).reshape(b, n_kv, g, s, 1))
     qg, og, dog = (t.to(ct).reshape(b, s, n_kv, g, hd) for t in (q, o, do))

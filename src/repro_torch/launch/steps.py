@@ -33,7 +33,24 @@ layout (:class:`~repro_torch.distributed.mesh.Placement`), in fp32:
   gets equal gradients on its ranks (through Megatron's "f");
 
 and every gradient is divided by the batch's rank count; the loss is the
-mean over those ranks.  A DLRM table whose rows lie over ``data`` too
+mean over those ranks.
+
+Called inside ``activation_sharding(mesh, "fsdp_seq")`` (JAX's
+``make_train_step`` in that scope: its ``constrain_batch`` puts the
+sequence of every (B, S, ...) activation over ``model``) the step also
+splits the sequence: each microbatch's rows follow ``run.sharding`` as
+above, and its ``tokens`` and ``labels`` are cut to the rank's positions
+``[m S/model, (m+1) S/model)`` (:class:`~repro_torch.distributed.mesh.
+SeqSplit`); the loss (:func:`repro_torch.models.transformer.lm_loss`,
+:func:`repro_torch.models.encdec.encdec_loss`) is then the mean over
+every rank's tokens, the same on every rank, and each gradient holds the
+rank's tokens' part of it.  The parts are summed, not averaged: over
+``data`` and ``model`` alike a sharded leaf's gather reduce-scatters its
+gradient, and a leaf whole on an axis is all-reduced over it.  Only
+``run.sharding="fsdp_seq"`` (whole leaves, no tensor parallelism) trains
+split, and only the LMs.  Outside that scope (``launch/train.py`` enters
+the default one, as JAX's launcher does) nothing is split by
+sequence.  A DLRM table whose rows lie over ``data`` too
 (``RunConfig.emb_rows="all"``) is not all-reduced either: its lookup's
 backward all-gathers every data rank's gradient of the pooled rows, so
 its rows' gradient already sums the data ranks' losses.  ``grad_norm``
@@ -83,13 +100,32 @@ def value_and_grad(loss_fn: Callable, params, ps, batch):
                            for p, g in zip(ps, gs)]
 
 
-def _reduce_groups(p: torch.Tensor, mesh: M.Mesh, variant: str) -> tuple:
-    """The groups to all-reduce ``p``'s gradient over: the batch's axes
-    its layout does not shard it on (all of them for a whole leaf)."""
+def _reduce_groups(p: torch.Tensor, mesh: M.Mesh, axes) -> tuple:
+    """The groups to all-reduce ``p``'s gradient over: the batch's
+    ``axes`` its layout does not shard it on (all of them for a whole
+    leaf)."""
     pl = M.placement(p)
     held = set(spec_axes(pl.spec)) if pl is not None else set()
-    return mesh.groups(a for a in batch_entry(mesh, variant)
-                       if a not in held)
+    return mesh.groups(a for a in axes if a not in held)
+
+
+def _check_split(bundle: ModelBundle) -> None:
+    """The sequence split trains the LMs' whole leaves only."""
+    run = bundle.run
+    if bundle.cfg.family == "dlrm" or run.sharding != "fsdp_seq" \
+            or run.grad_compression:
+        raise NotImplementedError(
+            f"a training step in an fsdp_seq scope splits the sequence of "
+            f"an LM under sharding='fsdp_seq' without grad compression; "
+            f"got family {bundle.cfg.family!r}, sharding {run.sharding!r}, "
+            f"grad_compression {run.grad_compression!r}")
+
+
+def _cut_sequence(mb: Dict) -> Dict:
+    """A microbatch's ``tokens`` and ``labels`` cut to this rank's
+    positions of the active scope's sequence split."""
+    return {k: M.seq_split(v.shape[1]).part(v)
+            if k in ("tokens", "labels") else v for k, v in mb.items()}
 
 
 def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
@@ -107,25 +143,27 @@ def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
         dev = resolve_device(bundle.device)
         ps = trainable_leaves(params)
         batch = {k: _on(v, dev) for k, v in batch.items()}
-        # The scope carries the variant (the batch over its axes).  Under
-        # "fsdp_seq" that is the data axes, and nothing here splits the
-        # sequence: only a prefill does (transformer.prefill_sharded), as
-        # JAX's trainer splits nothing by sequence (launch/train.py:83).
-        scope = (M.activation_sharding(mesh, variant) if mesh is not None
-                 else contextlib.nullcontext())
+        # The step's scope carries the variant (the batch over its axes)
+        # and, from the caller's scope, whether the sequence is split.
+        split = mesh is not None and M.splits_sequence()
+        if split:
+            _check_split(bundle)
+        scope = (M.activation_sharding(mesh, variant, split)
+                 if mesh is not None else contextlib.nullcontext())
+        cut = _cut_sequence if split else (lambda mb: mb)
         with scope:
             if microbatches <= 1:
                 if mesh is not None:
-                    batch = {k: M.batch_shard(v, mesh, variant)
-                             for k, v in batch.items()}
+                    batch = cut({k: M.batch_shard(v, mesh, variant)
+                                 for k, v in batch.items()})
                 loss, grads = value_and_grad(loss_fn, params, ps, batch)
             else:
                 acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
                 for i in range(microbatches):
-                    mb = {k: M.microbatch_shard(v, microbatches, i, mesh,
-                                                variant)
-                          for k, v in batch.items()}
+                    mb = cut({k: M.microbatch_shard(v, microbatches, i, mesh,
+                                                    variant)
+                              for k, v in batch.items()})
                     li, gi = value_and_grad(loss_fn, params, ps, mb)
                     for a, g in zip(acc, gi):
                         a.add_(g)  # widened inside the add: no fp32 copy
@@ -133,13 +171,20 @@ def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
                 loss = loss / microbatches
                 grads = [a.div_(microbatches) for a in acc]
         if reduce:
+            # Under the split each rank's loss is the global one and its
+            # gradients its tokens' part of it: summed over both axes,
+            # not averaged.
             bm = M.batch_mesh(mesh, variant)
+            axes = tuple(batch_entry(mesh, variant)) + (
+                ("model",) if split else ())
             grads, loss = [g.float() for g in grads], loss.clone()
-            C.all_reduce_(loss, bm.data_group).div_(bm.data)
+            if not split:
+                C.all_reduce_(loss, bm.data_group).div_(bm.data)
             for p, g in zip(ps, grads):
-                for group in _reduce_groups(p, mesh, variant):
+                for group in _reduce_groups(p, mesh, axes):
                     C.all_reduce_(g, group)
-                g.div_(bm.data)
+                if not split:
+                    g.div_(bm.data)
         return loss, grads
 
     return grads_fn

@@ -49,6 +49,8 @@ copy): JAX's launcher has no flag for either knob.
 """
 from __future__ import annotations
 
+import contextlib
+
 import argparse
 import os
 import time
@@ -231,10 +233,16 @@ def _train(args, cfg, run: RunConfig):
     # other ranks' next ones.
     retries = 0 if grouped else 3
     losses = []
+    # JAX's launcher trains in the default activation scope
+    # (src/repro/launch/train.py:83): no sequence split, whatever the
+    # sharding variant.
+    scope = (M.activation_sharding(mesh) if mesh is not None
+             else contextlib.nullcontext())
     for step in range(start, args.steps):
         batch = batch_at(data_cfg, step)
         t0 = time.perf_counter()
-        m = run_step(step_fn, params, opt, batch, retries=retries)
+        with scope:
+            m = run_step(step_fn, params, opt, batch, retries=retries)
         loss = float(m["loss"])  # waits for the step's device work
         dt = time.perf_counter() - t0
         slow = mon.record(step, dt)

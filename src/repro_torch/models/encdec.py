@@ -183,8 +183,8 @@ def encode(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
     """frames (B, Se, D) precomputed stub embeddings -> (B, Se, D) in the
     compute dtype: pre-norm layers of unmasked self-attention and the GELU
     MLP, then ``enc_norm``.  ``seq``: frames hold this rank's positions of
-    a sequence split (a served prefill under ``"fsdp_seq"``), whose
-    attention sees every rank's."""
+    a sequence split (a served prefill or a training step under
+    ``"fsdp_seq"``), whose attention sees every rank's."""
     lo = 0 if seq is None else seq.offset
     positions = torch.arange(lo, lo + frames.shape[1],
                              device=frames.device)[None, :]
@@ -206,8 +206,8 @@ def _dec_layer(blk: DecBlock, cfg: ModelConfig, x: torch.Tensor,
                enc_seq: Optional[M.SeqSplit] = None):
     """One decoder layer over the whole sequence: causal self-attention,
     cross-attention over ``enc_out``, the MLP.  Returns ``(x, {"k", "v",
-    "xk", "xv"})``.  Under a served prefill's sequence split, ``seq``: x
-    holds this rank's positions; ``enc_seq``: enc_out holds the rank's
+    "xk", "xv"})``.  Under a sequence split, ``seq``: x holds this rank's
+    positions; ``enc_seq`` (a served prefill): enc_out holds the rank's
     encoder positions, whose keys and values are gathered over ``model``
     for the attention (the returned xk/xv stay the rank's)."""
     attn, tp = T._attn_view(blk.attn, cfg)
@@ -227,11 +227,17 @@ def _dec_layer(blk: DecBlock, cfg: ModelConfig, x: torch.Tensor,
 
 def decode_forward(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
                    tokens: torch.Tensor, enc_out: torch.Tensor,
-                   want_cache: bool = False):
+                   want_cache: bool = False,
+                   seq: Optional[M.SeqSplit] = None):
     """tokens (B, S) over ``enc_out`` (B, Se, D) -> ``(x (B, S, D) after
     ``final_norm``, caches)``: with ``want_cache`` each layer's ``{"k",
-    "v", "xk", "xv"}`` in a list (no remat), else None."""
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    "v", "xk", "xv"}`` in a list (no remat), else None.  ``seq``: tokens
+    hold this rank's positions of a training step's sequence split (rope
+    at their absolute positions, the self-attention over every rank's
+    keys), ``enc_out`` the whole encoder output."""
+    lo = seq.offset if seq else 0
+    positions = torch.arange(lo, lo + tokens.shape[1],
+                             device=tokens.device)[None, :]
     x = T._embed(model, cfg, tokens)
     caches = None
     if want_cache:
@@ -243,7 +249,8 @@ def decode_forward(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
     else:
         x = _run_layers(
             model.dec_blocks, run,
-            lambda blk, x_, e: _dec_layer(blk, cfg, x_, positions, e)[0],
+            lambda blk, x_, e: _dec_layer(blk, cfg, x_, positions, e,
+                                          seq)[0],
             x, enc_out)
     return _norm(x, model.final_norm, cfg), caches
 
@@ -252,10 +259,26 @@ def encdec_loss(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
                 tokens: torch.Tensor, labels: torch.Tensor,
                 frames: torch.Tensor) -> torch.Tensor:
     """The decoder's LM loss over the encoded frames, fp32: tokens/labels
-    (B, S) int, labels < 0 masked."""
-    x, _ = decode_forward(model, cfg, run, tokens,
-                          encode(model, cfg, run, frames))
-    return T.head_loss(model, cfg, x, labels)
+    (B, S) int, labels < 0 masked.
+
+    In a scope that splits the sequence (a training step under
+    ``"fsdp_seq"``) tokens and labels are this rank's positions, cut by
+    the step; the rank encodes its part of the frames (the encoder's
+    attention over every rank's, :func:`encode`), the encoder output is
+    gathered over ``model`` for the cross-attention (its backward sums the
+    ranks' gradients and keeps the rank's frames), and the loss is the
+    mean over every rank's tokens (``transformer.head_loss``)."""
+    seq = M.local_split(tokens.shape[1])
+    if seq is None:
+        x, _ = decode_forward(model, cfg, run, tokens,
+                              encode(model, cfg, run, frames))
+        return T.head_loss(model, cfg, x, labels)
+    enc_seq = M.seq_split(frames.shape[1])
+    enc_out = C.all_gather_reduce_scatter_bwd(
+        encode(model, cfg, run, enc_seq.part(frames), enc_seq),
+        seq.mesh.model_group, 1, seq.mesh.model)
+    x, _ = decode_forward(model, cfg, run, tokens, enc_out, seq=seq)
+    return T.head_loss(model, cfg, x, labels, seq=seq)
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,8 @@ the ranks by their max and sum (JAX: GSPMD's reduction of the softmax
 across the sharded length).  The MoE's dispatch over the data ranks of a
 mesh, global or data-local (``_moe_dispatch_ffn_sharded``,
 ``local_dispatch``), runs on each rank's own tokens with collectives over
-``data``; under a sequence split the global dispatch is over every
-rank's tokens.
+``data``; under a sequence split (served or trained) the global
+dispatch is over every rank's tokens.
 ``attn_block(causal=False)`` is the encoder's self-attention (JAX's
 ``plain_attention(causal=False)``, XLA), the same
 kernel with its unmasked instantiation; the cross-attention, whose queries
@@ -276,18 +276,21 @@ def _qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
 def attn_block(p, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, causal: bool = True, tp=None,
                seq: Optional[M.SeqSplit] = None):
-    """Full-sequence (prefill) self-attention, in a sliding window when
-    ``cfg.attn_type == "sliding"``; unmasked with ``causal=False`` (the
-    encoder's); on this rank's heads, tensor parallel over ``tp``.  With
-    ``seq`` (x this rank's positions of a sequence split over ``model``,
-    no gradient) the keys and values are gathered over ``model`` (JAX's
-    ``constrain_kv_gather``) and the rank's queries attend them at their
-    offset (:func:`kv_stream_attention`).  Returns ``(out, (k, v))``, k/v
-    over the whole sequence under ``seq``."""
+    """Full-sequence (prefill or training) self-attention, in a sliding
+    window when ``cfg.attn_type == "sliding"``; unmasked with
+    ``causal=False`` (the encoder's); on this rank's heads, tensor parallel
+    over ``tp``.  With ``seq`` (x this rank's positions of a sequence split
+    over ``model``, rope at their absolute ``positions``) the keys and
+    values are gathered over ``model`` (JAX's ``constrain_kv_gather``),
+    whose backward sums the ranks' partial dK/dV and keeps the rank's
+    positions, and the rank's queries attend them at their offset
+    (:func:`kv_stream_attention`).  Returns ``(out, (k, v))``, k/v over the
+    whole sequence under ``seq``."""
     q, k, v = _qkv(p, cfg, copy_all_reduce_bwd(x, tp), positions)
     if seq is not None:
         group, n = seq.mesh.model_group, seq.mesh.model
-        k, v = C.all_gather(k, group, 1, n), C.all_gather(v, group, 1, n)
+        k, v = (C.all_gather_reduce_scatter_bwd(t, group, 1, n)
+                for t in (k, v))
         window = cfg.window if causal and cfg.attn_type == "sliding" else 0
         o = kv_stream_attention(q, k, v, window, q_offset=seq.offset,
                                 causal=causal)
@@ -460,16 +463,20 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
     outputs are summed by "g" before the router's weights scale them (so
     the weights' gradient sums every rank's part).
 
-    With ``seq`` (a prefill's sequence split, no gradient) the dispatch
-    is over the tokens of every rank of the mesh, in the global batch's
-    order (JAX's combined axes, ``partition.py:102-104``)."""
+    With ``seq`` (a sequence split: a prefill, or a training step whose
+    loss is the mean over every rank's tokens) the dispatch is over the
+    tokens of every rank of the mesh, in the global batch's order (JAX's
+    combined axes, ``partition.py:102-104``); ``me`` sums every rank's
+    probabilities with an identity backward: each rank's loss is the
+    whole step's, and the step sums the ranks' gradients."""
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
     probs, top_p, top_e = _route(p, cfg, xf)
     if seq is not None:
         all_e = _split_tokens(top_e, seq)
         n_tok = all_e.shape[0]
-        me = C.all_reduce_(probs.sum(dim=0), seq.mesh.world_group) / n_tok
+        me = all_reduce_identity_bwd(probs.sum(dim=0),
+                                     seq.mesh.world_group) / n_tok
     elif mesh is None:
         all_e, n_tok, me = top_e, t, probs.mean(dim=0)
     else:
@@ -529,9 +536,9 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     dispatches its own tokens with capacity ``ceil(cf * T_local * K / E)``
     and the aux is the mean of the ranks' (its backward sums over them).
 
-    With ``seq`` (x this rank's positions of a prefill's sequence split)
-    the global dispatch takes every rank's tokens (data-local dispatch is
-    not ported there).
+    With ``seq`` (x this rank's positions of a sequence split, a prefill
+    or a training step) the global dispatch takes every rank's tokens
+    (data-local dispatch is not ported there).
 
     ``dense_route=True`` (decode: few tokens) runs every expert on every
     token and combines them with a (T, E) weight matrix holding each
@@ -543,8 +550,8 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     if seq is not None and not dense_route:
         if local_dispatch:
             raise NotImplementedError(
-                "moe_local_dispatch under a sequence split (fsdp_seq "
-                "prefill): the global dispatch is ported")
+                "moe_local_dispatch under a sequence split (fsdp_seq): "
+                "the global dispatch is ported")
         out, aux = _moe_dispatch_ffn(p, cfg, xf, tp=tp, seq=seq)
         return out.view(b, s, d), aux
     if not dense_route:

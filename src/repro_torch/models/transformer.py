@@ -365,11 +365,15 @@ def _mamba_forward(blk: Block, cfg: ModelConfig, h: torch.Tensor,
     Under ``seq`` (h this rank's positions of a sequence split) the block
     gathers the sequence over ``model``, computes it whole and keeps the
     rank's slice: the conv tail and the scan's state run across every
-    rank's positions, and the states returned are the sequence's."""
+    rank's positions, and the states returned are the sequence's.  The
+    gather's backward sums the ranks' gradients of the whole input and
+    keeps the rank's positions (GSPMD would instead split the block's
+    products by sequence and pass the scan's state between the ranks)."""
     ssm, tp = _ssm_view(blk.ssm)
     if seq is None:
         return L.mamba_block(ssm, cfg, h, tp=tp)
-    whole = C.all_gather(h, seq.mesh.model_group, 1, seq.mesh.model)
+    whole = C.all_gather_reduce_scatter_bwd(h, seq.mesh.model_group, 1,
+                                            seq.mesh.model)
     out, states = L.mamba_block(ssm, cfg, whole, tp=tp)
     return out[:, seq.offset:seq.offset + seq.length], states
 
@@ -464,15 +468,17 @@ def _head_view(model: nn.Module):
 
 
 def backbone(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
-             x: torch.Tensor, positions: torch.Tensor):
+             x: torch.Tensor, positions: torch.Tensor,
+             seq: Optional[M.SeqSplit] = None):
     """The layers, each recomputed in the backward under ``remat="full"``,
     then the final norm: x (B, S, D) -> ``(x (B, S, D), aux)``, aux the
     layers' summed load-balance losses over ``n_layers`` (fp32, 0 for a
-    dense model)."""
+    dense model).  ``seq``: x holds this rank's positions of a sequence
+    split (:func:`_layer_forward`)."""
 
     def layer(blk, x_):
         x_, aux_, _ = _layer_forward(blk, cfg, x_, positions,
-                                     run.moe_local_dispatch)
+                                     run.moe_local_dispatch, seq)
         return x_, aux_
 
     aux = torch.zeros((), device=x.device)
@@ -530,12 +536,18 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
 
 
 def head_loss(model: nn.Module, cfg: ModelConfig, x: torch.Tensor,
-              labels: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+              labels: torch.Tensor, chunk: int = 0,
+              seq: Optional[M.SeqSplit] = None) -> torch.Tensor:
     """The mean masked cross-entropy of the head over x (B, S, D), fp32:
     labels (B, S) int, labels < 0 masked; chunk by chunk of ``chunk``
     positions when it divides S (and is below it), as JAX's ``lax.scan``
     over chunks does.  A vocab-parallel head takes its input through
-    Megatron's "f"."""
+    Megatron's "f".  Under ``seq`` (x and labels this rank's positions of
+    a sequence split) the numerator and the denominator are summed over
+    every rank of the mesh before the mean, so each rank's loss is the
+    step's mean over the global batch; the numerator's sum passes the
+    gradient through unchanged (each rank's own tokens), and the step
+    sums the ranks' gradients."""
     s = x.shape[1]
     mask = (labels >= 0).float()
     labels_c = labels.clamp_min(0).long()
@@ -553,6 +565,10 @@ def head_loss(model: nn.Module, cfg: ModelConfig, x: torch.Tensor,
             num, den = num + n, den + d
     else:
         num, den = ce(slice(None))
+    if seq is not None:
+        world = seq.mesh.world_group
+        num = C.all_reduce_identity_bwd(num, world)
+        den = C.all_reduce_identity_bwd(den, world)
     return num / den.clamp_min(1.0)
 
 
@@ -563,12 +579,25 @@ def lm_loss(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     masked; ``frontend_embeds`` as :func:`_embed` takes them.  The logits
     and their cross-entropy go chunk by chunk of ``run.logits_chunk``
     positions when it divides S (and is below it), as JAX's ``lax.scan``
-    over chunks does.  An MoE adds ``0.01 * aux``."""
+    over chunks does.  An MoE adds ``0.01 * aux``.
+
+    In a scope that splits the sequence (a training step under
+    ``"fsdp_seq"``, :func:`repro_torch.distributed.mesh.local_split`)
+    tokens and labels are this rank's S positions at offset ``m S`` of the
+    ``model`` parts: rope at their absolute positions, the frontend's rows
+    spliced where they fall, each layer as :func:`_layer_forward` runs it
+    under ``seq``, the chunks within the rank's part, and the loss the
+    mean over every rank's tokens (:func:`head_loss`)."""
     s = tokens.shape[1]
-    positions = torch.arange(s, device=tokens.device)[None, :]
+    seq = M.local_split(s)
+    lo = seq.offset if seq else 0
+    positions = torch.arange(lo, lo + s, device=tokens.device)[None, :]
+    if seq is not None and frontend_embeds is not None:
+        frontend_embeds = frontend_embeds[:, lo:lo + s]
     x, aux = backbone(model, cfg, run,
-                      _embed(model, cfg, tokens, frontend_embeds), positions)
-    loss = head_loss(model, cfg, x, labels, run.logits_chunk)
+                      _embed(model, cfg, tokens, frontend_embeds), positions,
+                      seq)
+    loss = head_loss(model, cfg, x, labels, run.logits_chunk, seq)
     if cfg.n_experts:
         loss = loss + 0.01 * aux
     return loss

@@ -38,7 +38,13 @@ gradients bit-equal over two calls.  The unmasked attention
 (``causal=False``, whisper's encoder) forward and backward against their
 plain versions at the tolerances above, bit-equal over two calls; reduced
 whisper-large-v3's loss, gradients, prefill and decode on the card within
-1e-4 of the CPU's.
+1e-4 of the CPU's.  The attention at a query offset (a sequence-parallel
+rank's queries): the forward against ``kv_stream_attention_ref``, the
+backward against ``flash_attention_bwd_ref`` at the offset (fp32 1e-5,
+bf16 2e-2 of each gradient's largest magnitude; zeros for keys no query
+sees), a split's dq rows stacked and dk/dv summed against the whole
+call's (dq bit for bit at whole 64-row tiles), and ``ops.flash_attention``
+trained at an offset against the CPU's autograd.
 """
 import copy
 
@@ -1971,5 +1977,119 @@ def test_flash_attention_offset_refuses_queries_past_the_keys(dev):
     # Unmasked, any Sk serves every row.
     assert fa.flash_attention(q, kv, kv, causal=False,
                               q_offset=37).shape == q.shape
-    with pytest.raises(NotImplementedError, match="A11c-6e"):
-        ops.flash_attention(q.requires_grad_(True), kv, kv, q_offset=36)
+    # Under autograd too: the backward takes the offset, within the keys.
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q.requires_grad_(True), kv, kv, q_offset=37)
+    assert ops.flash_attention(q, kv, kv, q_offset=36).requires_grad
+
+
+# ---------------------------------------------------------------------------
+# The backward at a query offset (a sequence-parallel rank's queries under
+# a gradient): against ``ref.flash_attention_bwd_ref`` at the offset within
+# 1e-5 (fp32) and 2e-2 (bf16) of each gradient's largest magnitude, with
+# offsets that are and are not whole query tiles, causal, windowed and
+# unmasked; the keys no query of the call sees get zeros; a split's dq
+# rows stacked and its dk/dv summed equal the whole call's (dq's rows bit
+# for bit where the offsets are whole 64-row tiles: each dq block walks the
+# keys the whole call's walks).
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, K, hd, offset, window, causal)
+OFFSET_BWD_SHAPES = [
+    (2, 512, 1024, 16, 2, 128, 512, 0, True),
+    (1, 300, 1000, 9, 3, 64, 100, 0, True),
+    (2, 17, 65, 6, 3, 32, 48, 0, True),
+    (1, 37, 120, 4, 2, 16, 60, 25, True),
+    (1, 200, 600, 8, 2, 64, 333, 150, True),
+    (1, 256, 1024, 8, 1, 64, 768, 100, True),
+    (1, 130, 70, 8, 8, 64, 0, 0, False),
+    (1, 100, 257, 6, 3, 32, 17, 0, False)]
+
+
+@pytest.mark.parametrize("shape", OFFSET_BWD_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_offset_matches_plain(dev, dt, shape):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, sk, h, n_kv, hd, off, w, causal = shape
+    rng = np.random.default_rng(sq + sk + off)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32)).to(DTYPES[dt]).to(dev)
+        for s, n in ((sq, h), (sk, n_kv), (sk, n_kv), (sq, h)))
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, window=w,
+                                causal=causal, q_offset=off)
+    n0 = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, window=w,
+                                 causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n0 + 1
+    _assert_bwd_close(dt, got, ref.flash_attention_bwd_ref(
+        q, k, v, o, do, lse, w, causal, off))
+    if causal:  # keys past the last query, or below the first's window
+        lo = max(0, off - w + 1) if w else 0
+        for g in got[1:]:
+            assert not g[:, off + sq:].any() and not g[:, :lo].any()
+
+
+# (B, S, H, K, hd, parts, window, causal)
+SPLIT_BWD_CASES = [(1, 1024, 16, 2, 128, 4, 0, True),
+                   (1, 1024, 16, 2, 128, 4, 300, True),
+                   (1, 1024, 16, 2, 128, 4, 0, False),
+                   (2, 300, 9, 3, 64, 3, 0, True),
+                   (2, 300, 9, 3, 64, 3, 70, True)]
+
+
+@pytest.mark.parametrize("case", SPLIT_BWD_CASES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_bwd_split_sums_to_the_whole(dev, dt, case):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, n_kv, hd, parts, w, causal = case
+    q, k, v, do = _attn_inputs(dev, dt, b, s, h, n_kv, hd, seed=s + w)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True, window=w,
+                                causal=causal)
+    whole = fa.flash_attention_bwd(q, k, v, o, do, lse, window=w,
+                                   causal=causal)
+    n = s // parts
+    dqs, dk, dv = [], torch.zeros_like(k, dtype=torch.float32), \
+        torch.zeros_like(v, dtype=torch.float32)
+    for i in range(parts):
+        sl = slice(i * n, (i + 1) * n)
+        gq, gk, gv = fa.flash_attention_bwd(
+            q[:, sl].contiguous(), k, v, o[:, sl].contiguous(),
+            do[:, sl].contiguous(), lse[:, :, sl].contiguous(), window=w,
+            causal=causal, q_offset=i * n)
+        dqs.append(gq)
+        dk += gk.float()
+        dv += gv.float()
+    got = (torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype))
+    _assert_bwd_close(dt, got, whole)
+    if n % 64 == 0:
+        assert torch.equal(got[0], whole[0])
+
+
+def test_offset_attention_trains_through_the_kernels(dev):
+    """ops.flash_attention at an offset under autograd: the kernels on the
+    card (one forward, one backward) against the plain versions' autograd
+    on the CPU, fp32."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(11)
+    base = [torch.from_numpy(rng.normal(size=(2, s, n, 32)).astype(
+        np.float32)) for s, n in ((96, 8), (256, 2), (256, 2), (96, 8))]
+    res = {}
+    for where in ("cpu", "card"):
+        q, k, v, dout = (t.to(dev if where == "card" else "cpu")
+                         for t in base)
+        q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+        n0 = fa.flash_attention_bwd.launches
+        o = ops.flash_attention(q, k, v, window=120, q_offset=130)
+        o.backward(dout)
+        if where == "card":
+            torch.cuda.synchronize()
+            assert fa.flash_attention_bwd.launches == n0 + 1
+        res[where] = [t.detach().cpu() for t in (o, q.grad, k.grad,
+                                                 v.grad)]
+    for g, w in zip(res["card"], res["cpu"]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())

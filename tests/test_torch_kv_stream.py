@@ -12,8 +12,10 @@ within 3e-4 (JAX's own bar between the two,
 query offset (the kernel's CPU twin) equals JAX's
 ``plain_attention(q_offset=)`` within 1e-5, causal, windowed and unmasked
 with Sq != Sk; Sq = Sk at offset 0 is the old call's bits; under autograd
-an offset is refused (its backward is ROADMAP A11c-6e).
+an offset trains: a split's dq rows and summed dk/dv equal ``jax.grad`` of
+JAX's whole attention within 1e-5, causal, windowed and unmasked.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,8 +82,48 @@ def test_offset_zero_is_the_old_call():
                        ref.causal_attention_ref(q, k, v, 9))
 
 
-def test_offset_under_autograd_is_refused():
-    q, k, v = (torch.from_numpy(t) for t in _qkv(4))
-    q = q[:, :50].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A11c-6e"):
-        ops.flash_attention(q, k, v, q_offset=100)
+GRAD_CASES = [(True, 0), (True, 50), (False, 0)]
+
+
+@pytest.mark.parametrize("impl", ["kv_stream", "flash_attention"])
+@pytest.mark.parametrize("causal,window", GRAD_CASES)
+def test_offset_under_autograd_is_refused(causal, window, impl):
+    """The offset under autograd is no longer refused: over the four
+    shards of a split, each shard's dq rows and the shards' summed dk/dv
+    (each shard's queries at their offset against every key) equal
+    ``jax.grad`` of JAX's whole attention (``kv_stream_attention``;
+    unmasked, ``plain_attention(causal=False)``) within 1e-5 of each
+    gradient's largest magnitude, fp32; through ``layers.
+    kv_stream_attention`` (its CPU path, autograd through JAX's online
+    softmax) and ``ops.flash_attention`` (the kernel's plain twins:
+    ``causal_attention_lse_ref`` and ``flash_attention_bwd_ref`` at the
+    offset)."""
+    q, k, v = _qkv(window + 11)
+    dout = np.random.default_rng(window + 12).normal(
+        size=q.shape).astype(np.float32)
+    if causal:
+        fn = lambda q_, k_, v_: JL.kv_stream_attention(  # noqa: E731
+            q_, k_, v_, window=window, bk=BK)
+    else:
+        fn = lambda q_, k_, v_: JL.plain_attention(  # noqa: E731
+            q_, k_, v_, causal=False)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(t) for t in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    kt, vt = (torch.from_numpy(t).requires_grad_(True) for t in (k, v))
+    n = S // SPLIT
+    dqs = []
+    for part in range(SPLIT):
+        lo = part * n
+        qs = torch.from_numpy(q[:, lo:lo + n].copy()).requires_grad_(True)
+        if impl == "kv_stream":
+            out = L.kv_stream_attention(qs, kt, vt, window, BK, q_offset=lo,
+                                        causal=causal)
+        else:
+            out = ops.flash_attention(qs, kt, vt, window, causal, lo)
+        out.backward(torch.from_numpy(dout[:, lo:lo + n].copy()))
+        dqs.append(qs.grad.numpy())
+    got = [np.concatenate(dqs, axis=1), kt.grad.numpy(), vt.grad.numpy()]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        err = float(np.abs(g - w).max())
+        assert err <= 1e-5 * max(1.0, float(np.abs(w).max())), (name, err)

@@ -32,10 +32,11 @@ part of every cache leaf after the prefill and after the last step
 against the JAX device at the same mesh position, within 1e-5 of the
 largest magnitude (or 1); under ``fsdp_seq`` each rank's attention took
 S/model query rows at offset ``m S/model`` against all S keys (whisper's
-encoder its frames likewise).  And
-``fsdp_seq`` training keeps JAX's trainer's semantics: bit for bit
-``fsdp``'s on (4, 1), no sequence split, and on (2, 2) within 1e-5 of the
-same steps on one rank.
+encoder its frames likewise).  And ``fsdp_seq`` training follows JAX's
+scopes: bit for bit ``fsdp``'s on (4, 1); on (2, 2) within 1e-5 of the
+same steps on one rank, with no sequence split in the default scope and
+each rank's S/2 positions at offset ``m S/2`` inside the ``fsdp_seq``
+one.
 """
 import os
 import subprocess
@@ -166,10 +167,24 @@ def test_fsdp_seq_prefill_splits_the_sequence(runs, case):
 
 
 def test_fsdp_seq_trains_as_jax_trainer(runs):
+    """fsdp_seq training follows JAX's scopes: in the default scope (JAX's
+    launcher) no sequence split, within 1e-5 of one rank; inside
+    ``activation_sharding(mesh, "fsdp_seq")`` (JAX's ``make_train_step``
+    there) each rank's attention takes its S/2 rows at offset ``m S/2``
+    against all S keys, every layer, forward and recompute, and the steps
+    stay within 1e-5 of one rank; on (4, 1) (one model rank: nothing to
+    split) bit for bit ``fsdp``'s steps."""
     _, rs = runs
-    for res in rs:
+    s = ranks.TRAIN_S
+    for rank, res in enumerate(rs):
         assert bool(res["train/bit_equal"])
-        assert int(res["train/kv_stream_calls"]) == 0
+        assert int(res["train/default_kv_stream_calls"]) == 0
+        assert float(res["train/default_param_err"]) <= TOL
+        calls = res["train/seq_calls"]
+        m = rank % 2
+        assert len(calls) > 0 and {tuple(c) for c in calls.tolist()} == {
+            (s // 2, m * s // 2, s)}, (rank, calls)
         losses = res["train/loss"]
-        assert np.allclose(losses[0], losses[1], rtol=0, atol=TOL), losses
+        assert np.allclose(losses[0], losses[2], rtol=0, atol=TOL), losses
+        assert np.allclose(losses[1], losses[2], rtol=0, atol=TOL), losses
         assert float(res["train/param_err"]) <= TOL

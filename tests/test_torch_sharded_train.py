@@ -24,6 +24,14 @@ audio frames) under ``fsdp_tp`` at (2, 2) and (1, 4).  Reduced fp32
 DLRM trains with its tables under ``emb_rows="all"`` (rows over both
 axes) on (2, 2), through the row-sharded lookup (ids out of range
 dropped) and the dense one (wrapped and clamped), ids over [-2, R + 2).
+Under ``fsdp_seq`` (every leaf FSDP over both axes) both sides train
+inside ``activation_sharding(mesh, "fsdp_seq")``, which splits the
+sequence: the three archs on (2, 2) and (1, 4), and falcon-mamba-7b,
+hymba-1.5b, whisper-large-v3 and internvl2-26b (on text) on (2, 2), each
+rank its S/model positions at offset ``m S/model`` (the attention's K/V
+and the mamba block's input gathered over ``model``, whisper's frames
+split and its encoder output gathered, the MoE's dispatch over every
+rank's tokens, the loss the mean over every rank's tokens).
 
 Held: each step's loss and grad norm, and each rank's shard of every
 parameter and of both moments against the JAX device at the same mesh
@@ -61,10 +69,16 @@ ARCHS = ("qwen2.5-3b", "smollm-135m", "granite-moe-1b-a400m")
 LAYOUTS = (("fsdp_tp", 2, 2), ("fsdp_tp", 1, 4), ("fsdp_tp", 4, 1),
            ("tp", 2, 2), ("fsdp", 2, 2))
 TP_LAYOUTS = (("fsdp_tp", 2, 2), ("fsdp_tp", 1, 4))
+# The sequence split under a gradient (fsdp_seq inside its scope): the
+# three archs on (2, 2) and (1, 4), every other family on (2, 2).
+SEQ_LAYOUTS = (("fsdp_seq", 2, 2), ("fsdp_seq", 1, 4))
+SEQ_FAMILIES = ranks.TP_FAMILIES + ("internvl2-26b",)
 CASES = tuple(f"{a}|{s}|{d}|{m}" for a in ARCHS for s, d, m in LAYOUTS) \
     + (f"{ARCHS[0]}|dp|2|2",) \
     + tuple(f"{a}|{s}|{d}|{m}" for a in ranks.TP_FAMILIES
-            for s, d, m in TP_LAYOUTS)
+            for s, d, m in TP_LAYOUTS) \
+    + tuple(f"{a}|{s}|{d}|{m}" for a in ARCHS for s, d, m in SEQ_LAYOUTS) \
+    + tuple(f"{a}|fsdp_seq|2|2" for a in SEQ_FAMILIES)
 DLRM_CASES = tuple(f"{ranks.DLRM}|fsdp_tp|2|2|{lookup}"
                    for lookup in ("sharded", "dense"))
 SETTINGS = dict(lr=1e-3, steps=2, microbatches=2, seq=16, batch=8)
@@ -82,7 +96,7 @@ def runs(tmp_path_factory):
     data = {"cases": np.array(CASES), "dlrm_cases": np.array(DLRM_CASES)}
     data.update({k: np.array(v) for k, v in SETTINGS.items()})
     rng = np.random.default_rng(31)
-    for arch in ARCHS + ranks.TP_FAMILIES + (ranks.DLRM,):
+    for arch in ARCHS + SEQ_FAMILIES + (ranks.DLRM,):
         cfg = jax_get_config(arch).reduced()
         tree = JMA.build(cfg).init(jax.random.PRNGKey(0))
         data.update({f"init/{arch}/{k}": v for k, v in named(tree).items()})
@@ -130,6 +144,10 @@ def _close(got, want, what, tol=TOL):
 def test_losses_and_norms_match_jax(runs, case):
     jx, by_rank = runs
     assert (jx[f"{case}/grad_norm"] > 1.0).all()  # every step clips
+    if "|fsdp_seq|" in case:  # the ranks trained their positions only
+        nm = int(case.split("|")[3])
+        for res in by_rank:
+            assert res[f"{case}/seq_rows"].tolist() == [SETTINGS["seq"] // nm]
     for res in by_rank:
         np.testing.assert_allclose(res[f"{case}/loss"], jx[f"{case}/loss"],
                                    rtol=TOL)
@@ -210,7 +228,8 @@ _TP_LEAF = re.compile(r"\.(ssm\.\w+|(attn|xattn)\.w[qkvo]|mlp\.w[12])$")
 
 
 @pytest.mark.parametrize("case", [c for c in CASES
-                                  if c.split("|")[0] in ranks.TP_FAMILIES])
+                                  if c.split("|")[0] in ranks.TP_FAMILIES
+                                  and c.split("|")[1] == "fsdp_tp"])
 def test_tp_layers_gather_nothing_over_model(runs, case):
     """No mamba leaf and no whisper attention, cross-attention or MLP
     leaf is gathered over ``model``: they lie there (the specs) and the

@@ -13,12 +13,17 @@ Every rank, over the world of four:
   step, the positions and offsets its sequence-parallel attention
   took (``kv_stream_attention``'s q rows, offset and key count) and its
   rows of the batch;
-- trains reduced qwen2.5-3b two steps under ``fsdp_seq`` and ``fsdp`` on
-  (4, 1), whose layouts coincide (``train/bit_equal``: losses and every
-  shard bit for bit), and under ``fsdp_seq`` on (2, 2) against the same
-  steps on one rank (``train/...``): JAX's trainer's semantics, the batch
-  over ``data`` and no sequence split (``train/kv_stream_calls``).
+- trains reduced qwen2.5-3b two steps under ``fsdp_seq`` inside its scope
+  and under ``fsdp`` on (4, 1), whose layouts coincide and where a split
+  over one model rank splits nothing (``train/bit_equal``: losses and
+  every shard bit for bit); and under ``fsdp_seq`` on (2, 2) against the
+  same steps on one rank (``train/...``): in the default scope (JAX's
+  launcher's) the batch over ``data`` and no sequence split
+  (``train/default_kv_stream_calls``), inside ``activation_sharding(mesh,
+  "fsdp_seq")`` (JAX's ``make_train_step`` there) each rank's attention
+  over its S/2 positions at offset ``m S/2`` (``train/seq_calls``).
 """
+import contextlib
 import dataclasses
 from pathlib import Path
 
@@ -37,6 +42,7 @@ from repro_torch.sharding import partition as SP
 from repro_torch.tree import leaves, named_leaves
 
 TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_S = 16
 
 
 def case_cfg(arch):
@@ -103,9 +109,10 @@ def serve_case(data, case, res):
         mesh).numpy()
 
 
-def train(data, sharding, mesh, steps=2):
+def train(data, sharding, mesh, steps=2, scope=None):
     """``(losses, {leaf: shard}, model)`` of two steps of two microbatches
-    of reduced qwen2.5-3b from JAX's parameters."""
+    of reduced qwen2.5-3b from JAX's parameters, inside the activation
+    scope of variant ``scope`` on ``mesh`` (none when None)."""
     cfg, model = whole_model(data, TRAIN_ARCH)
     bundle = build(cfg, device="cpu", run=RunConfig(sharding=sharding),
                    mesh=mesh)
@@ -113,34 +120,49 @@ def train(data, sharding, mesh, steps=2):
         model = T.shard_model(model, mesh, sharding)
     opt = init_opt(OptConfig(lr=1e-3, total_steps=steps), leaves(model))
     step = make_train_step(bundle, 2, mesh)
-    dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
-    losses = [step(model, opt, batch_at(dcfg, s))["loss"]
-              for s in range(steps)]
+    dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=8)
+    with (M.activation_sharding(mesh, scope) if scope
+          else contextlib.nullcontext()):
+        losses = [step(model, opt, batch_at(dcfg, s))["loss"]
+                  for s in range(steps)]
     return (losses, {n: p.detach().clone() for n, p in named_leaves(model)},
             model)
 
 
-def train_fsdp_seq(data, res):
-    mesh = M.make_mesh(4, 1)
-    (l0, p0, _), (l1, p1, _) = (train(data, s, mesh)
-                                for s in ("fsdp_seq", "fsdp"))
-    res["train/bit_equal"] = np.array(
-        all(torch.equal(a, b) for a, b in zip(l0, l1))
-        and all(torch.equal(p0[n], p1[n]) for n in p0))
-    mesh = M.make_mesh(2, 2)
-    with SeqCalls() as seq:
-        losses, shards, model = train(data, "fsdp_seq", mesh)
-    one, whole, _ = train(data, "fsdp_tp", None)
-    res["train/kv_stream_calls"] = np.array(len(seq.calls))
-    res["train/loss"] = np.array([[float(a) for a in losses],
-                                  [float(a) for a in one]])
+def _shard_err(model, shards, whole, mesh):
     err = 0.0
     for name, p in named_leaves(model):
         pl = M.placement(p)
         want = SP.shard_of(whole[name], () if pl is None else pl.spec, mesh)
         err = max(err, float((shards[name] - want).abs().max())
                   / max(1.0, float(want.abs().max())))
-    res["train/param_err"] = np.array(err)
+    return err
+
+
+def train_fsdp_seq(data, res):
+    mesh = M.make_mesh(4, 1)
+    (l0, p0, _), (l1, p1, _) = (train(data, s, mesh, scope=s)
+                                for s in ("fsdp_seq", "fsdp"))
+    res["train/bit_equal"] = np.array(
+        all(torch.equal(a, b) for a, b in zip(l0, l1))
+        and all(torch.equal(p0[n], p1[n]) for n in p0))
+    mesh = M.make_mesh(2, 2)
+    one, whole, _ = train(data, "fsdp_tp", None)
+    with SeqCalls() as seq:
+        losses, shards, model = train(data, "fsdp_seq", mesh,
+                                      scope="fsdp_tp")
+    res["train/default_kv_stream_calls"] = np.array(len(seq.calls))
+    res["train/default_param_err"] = np.array(
+        _shard_err(model, shards, whole, mesh))
+    with SeqCalls() as seq:
+        split, shards, model = train(data, "fsdp_seq", mesh,
+                                     scope="fsdp_seq")
+    res["train/seq_calls"] = np.array(seq.calls, np.int64).reshape(-1, 3)
+    res["train/loss"] = np.array([[float(a) for a in losses],
+                                  [float(a) for a in split],
+                                  [float(a) for a in one]])
+    res["train/param_err"] = np.array(_shard_err(model, shards, whole,
+                                                 mesh))
 
 
 def rank_main(rank, world, work):

@@ -9,10 +9,13 @@ Every rank, over the world of four:
   ``|dense``, the lookup), builds the reduced arch from JAX's parameters,
   cuts its shards (``shard_model``; DLRM's tables by ``place_tables``
   under ``emb_rows="all"``) and trains two steps of two microbatches
-  under ``remat="full"``: each step's loss and grad norm, and its shard of
-  every parameter and moment after them; with them the names of the
-  leaves gathered over ``model`` (a view that keeps the model part does
-  not count) and the shapes the step all-reduced;
+  under ``remat="full"`` inside ``activation_sharding(mesh, sharding)``
+  (as JAX's side does: under ``fsdp_seq`` the scope splits the
+  sequence): each step's loss and grad norm, and its shard of every
+  parameter and moment after them; with them the names of the leaves
+  gathered over ``model`` (a view that keeps the model part does not
+  count), the shapes the step all-reduced and the sequence lengths the
+  loss received;
 - trains the first arch with ``sharding="dp"`` and with a bundle built
   without the mesh (whole parameters, the mesh's data all-reduce): every
   loss and parameter, bit for bit (``dp/...``);
@@ -46,6 +49,7 @@ from repro_torch.distributed.collectives import gather_leaf
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import _restore
 from repro_torch.models import dlrm as D
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.model_api import build
 from repro_torch.optim.adamw import OptConfig, init_opt
@@ -137,6 +141,28 @@ class Watch:
         C.gather_leaf, C.all_reduce_ = self._gather, self._reduce
 
 
+class SeqRows:
+    """Within the scope: the sequence lengths of the token batches the
+    LM losses received (a split's rank part under ``fsdp_seq``)."""
+
+    def __enter__(self):
+        self.lengths, self._lm, self._ed = set(), T.lm_loss, ED.encdec_loss
+
+        def lm(model, cfg, run, tokens, *a, **kw):
+            self.lengths.add(tokens.shape[1])
+            return self._lm(model, cfg, run, tokens, *a, **kw)
+
+        def ed(model, cfg, run, tokens, *a, **kw):
+            self.lengths.add(tokens.shape[1])
+            return self._ed(model, cfg, run, tokens, *a, **kw)
+
+        T.lm_loss, ED.encdec_loss = lm, ed
+        return self
+
+    def __exit__(self, *exc):
+        T.lm_loss, ED.encdec_loss = self._lm, self._ed
+
+
 def train_case(data, case, res):
     arch, sharding, nd, nm, *lookup = case.split("|")
     mesh = M.make_mesh(int(nd), int(nm))
@@ -144,8 +170,12 @@ def train_case(data, case, res):
     kw = {"dlrm_sharded_lookup": lookup == ["sharded"]} if lookup else {}
     model, opt, step, batch = trainer(data, arch, sharding, mesh, steps,
                                       **kw)
-    with Watch(model) as watch:
+    # JAX's side trains inside activation_sharding(mesh, sharding): under
+    # fsdp_seq that scope splits the sequence.
+    with Watch(model) as watch, M.activation_sharding(mesh, sharding), \
+            SeqRows() as rows:
         ms = [step(model, opt, batch(s)) for s in range(steps)]
+    res[f"{case}/seq_rows"] = np.array(sorted(rows.lengths))
     res[f"{case}/loss"] = np.array([float(m["loss"]) for m in ms])
     res[f"{case}/grad_norm"] = np.array([float(m["grad_norm"]) for m in ms])
     names = [n for n, _ in named_leaves(model)]
