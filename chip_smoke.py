@@ -1628,7 +1628,7 @@ def phase_distributed_serve(b, want, train_ref, work, st_nccl_launches,
 DT_ROWS = 4096
 DT_B, DT_MB, DT_STEPS = 256, 2, 2
 DT_LR = 1e-3
-MOE_DT = dict(n_layers=2, seq=2048, batch=8, mb=2, steps=2)
+MOE_DT = dict(n_layers=2, seq=1024, batch=8, mb=2, steps=2)
 DT_TOL_BF16, DT_TOL_FP32 = 2e-2, 1e-4
 
 
@@ -1805,9 +1805,15 @@ def phase_distributed_train_nccl(work):
     rec["dlrm_grad_split_noise"] = leaf_errors(
         zip([n for n, _ in named_leaves(params)], other), grads)
     del grads, other
+    # The first loss under each lookup's ids (the fsdp arm's reference):
+    # the dense lookup wraps and clamps the ids the sharded one drops.
+    with torch.no_grad():
+        fsdp_losses = {"dense": float(build(cfg, device="cuda", run=RunConfig(
+            remat="none")).loss(params, batches[0]))}
     opt = init_opt(OptConfig(lr=DT_LR), tree_leaves(params))
     step = make_train_step(bundle, DT_MB, mesh)
     dlrm_losses = [float(step(params, opt, b)["loss"]) for b in batches]
+    fsdp_losses["sharded"] = dlrm_losses[0]
     del params, opt
     torch.cuda.empty_cache()
     lm = dt_granite_cfg("float32")
@@ -1832,7 +1838,8 @@ def phase_distributed_train_nccl(work):
     torch.cuda.empty_cache()
     rec["reference_s"] = round(time.perf_counter() - t0, 1)
     emit(rec)
-    return ({"dlrm_losses": dlrm_losses, "granite_losses": granite_losses},
+    return ({"dlrm_losses": dlrm_losses, "granite_losses": granite_losses,
+             "dlrm_fsdp_losses": fsdp_losses},
             launches["gather_pool_shard"])
 
 
@@ -1860,7 +1867,9 @@ def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
     rows over both axes (``emb_rows="all"``, JAX's default layout): its
     losses against (a)'s and the reference's, its step time, peak and
     collective traffic, whose all-reduces lack (a)'s table gradient;
-    (b) granite-moe through
+    (a'') one step with the batch over both axes too (``sharding="fsdp"``)
+    through each lookup, its loss against the reference's first; (b)
+    granite-moe through
     the launcher on (4, 1), fp32 on the global dispatch against the
     reference (rank 0 compares the gradients and the top-K), then bf16
     with ``--grad-compression int8_ef``.  Returns the rank's record."""
@@ -1970,6 +1979,28 @@ def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
     del params, opt, step, bundle, emb
     torch.cuda.empty_cache()
 
+    # (a'') The batch over both axes (sharding="fsdp"): the tables' rows
+    # over both axes, the ids gathered over the world and the partials
+    # reduce-scattered over it; one step, each lookup.
+    for lookup in ("sharded", "dense"):
+        bundle = build(cfg, device=dev, run=RunConfig(
+            remat="none", sharding="fsdp",
+            dlrm_sharded_lookup=lookup == "sharded"), mesh=mesh)
+        params = bundle.init(seed=0)
+        opt = init_opt(OptConfig(lr=DT_LR), tree_leaves(params))
+        step = make_train_step(bundle, DT_MB, mesh)
+        ops.reset_launches()
+        losses, step_ms, traffic = dt_steps(step, params, opt, batches[:1])
+        rec[f"dlrm_fsdp_{lookup}"] = {
+            "sharding": "fsdp", "spec": params["emb"].placement.spec,
+            "rows_per_rank": DT_B // DT_MB // world, "losses": losses,
+            "ref_loss": train_ref["dlrm_fsdp_losses"][lookup],
+            "launches": {fn.__name__: fn.launches for fn in ops.KERNELS
+                         if fn.launches},
+            "step_ms": step_ms, "traffic_steps": traffic}
+        del params, opt, step, bundle
+        torch.cuda.empty_cache()
+
     # (b) granite-moe on (4, 1): fp32, global dispatch, then int8_ef.
     lm = dt_granite_cfg("float32")
     mesh41 = M.make_mesh(world, 1)
@@ -2045,7 +2076,10 @@ def report_distributed_train(recs, spawn_s):
                    "microbatches": DT_MB, "steps": DT_STEPS,
                    "ids": "[-2, R + 2)",
                    "arms": {"dlrm": "emb_rows=model",
-                            "dlrm_all": "emb_rows=all"}},
+                            "dlrm_all": "emb_rows=all",
+                            "dlrm_fsdp_sharded": "sharding=fsdp, 1 step",
+                            "dlrm_fsdp_dense": "sharding=fsdp, the dense "
+                                               "lookup's ids, 1 step"}},
           "granite": {"mesh": {"data": len(recs), "model": 1},
                       "cuts": {"n_layers": [24, MOE_DT["n_layers"]],
                                "from": "train_4k S=4096 global_batch=256",
@@ -2088,6 +2122,15 @@ def report_distributed_train(recs, spawn_s):
                 f"rank {r['rank']} DLRM all-reduce bytes "
                 f"{a['traffic_steps']['all_reduce']} (model) vs "
                 f"{c['traffic_steps']['all_reduce']} (all)")
+        for lookup in ("sharded", "dense"):
+            f = t[f"dlrm_fsdp_{lookup}"]
+            require(np.allclose(f["losses"][0], f["ref_loss"],
+                                rtol=DT_TOL_BF16, atol=DT_TOL_BF16)
+                    and f["launches"].get("gather_pool_shard") == DT_MB
+                    and f["spec"] == [None, ["data", "model"]],
+                    f"rank {r['rank']} DLRM fsdp {lookup}: {f}")
+            for k, v in f["launches"].items():
+                launches[k] = launches.get(k, 0) + v
         require(np.allclose(b["losses"], b["ref_losses"], rtol=DT_TOL_FP32,
                             atol=DT_TOL_FP32),
                 f"rank {r['rank']} granite losses {b['losses']} vs "
@@ -2126,12 +2169,16 @@ def report_distributed_train(recs, spawn_s):
 # rank and microbatch), remat full, logits in chunks of 1,024, 2 steps.
 ST = dict(arch="qwen2.5-3b", n_layers=2, seq=2048, batch=8, mb=2, steps=2,
           chunk=1024, mesh=(2, 2))
-# fp32 parity at full width, 2 layers, S = 512, the same batch and steps:
+# fp32 parity at full width, 2 layers, S = 512, ST_PARITY_BATCH, the same
+# steps:
 # smollm-135m on (1, 4) (9 heads: each rank holds part of a head, so the
 # attention is gathered; the tied head vocab parallel), granite-moe on
 # (2, 2) (tensor-parallel experts; its 49,155-row vocab stays whole).
 ST_PARITY = (("smollm-135m", (1, 4)), ("granite-moe-1b-a400m", (2, 2)))
 ST_PARITY_SEQ = 512
+# The parity runs' global batch (2 microbatches): 4, one row a data rank
+# and microbatch on (2, 2) (cut from 8 to pay for ST_FIT_PARITY's arms).
+ST_PARITY_BATCH = 4
 # No warmup: both updates take the schedule's full rate, so the second
 # step's loss and the parity runs' parameters after it see the update.
 ST_LR = 1e-3
@@ -2151,7 +2198,8 @@ ST_TOL_LOSS, ST_TOL_NORM, ST_TOL_FP32, ST_TOL_UPDATE = 2e-3, 5e-4, 1e-4, 5e-2
 ST_NCCL_BATCH, ST_NCCL_SEQ = 2, 512
 # The layers this script's arms compute tensor parallel beside qwen's
 # (scripts/sharded_layers_ab.py's ARMS, run through its lm_arm): bf16 on
-# (2, 2), falcon-mamba-7b at 2 of 64 layers (S 2,048) and
+# (2, 2), falcon-mamba-7b at 2 of 64 layers (S 1,024 here, cut from the
+# script's 2,048: ST_ARMS) and
 # whisper-large-v3 at 2 + 2 of 32 + 32 (448 tokens over 8 clips of
 # (1500, 1280) seeded frames).  Their fp32 parity against one rank, held
 # tighter than ST_PARITY's: falcon on (1, 4) at S = 512 (the in_proj
@@ -2162,6 +2210,8 @@ ST_NCCL_BATCH, ST_NCCL_SEQ = 2, 512
 # leaf's largest magnitude (whisper's vocab-parallel lm_head read
 # 1.02e-5, granite's 8.7e-6 in the same code), the parameters by
 # ST_TOL_UPDATE.
+ST_ARMS = tuple((a, n, e, 1024 if a == "falcon-mamba-7b" else s)
+                for a, n, e, s in ARMS)
 ST_TP_PARITY = (("falcon-mamba-7b", (1, 4), ST_PARITY_SEQ),
                 ("whisper-large-v3", (2, 2), 448))
 ST_TP_TOL_LOSS, ST_TP_TOL_GRAD = 1e-6, 2e-5
@@ -2179,20 +2229,27 @@ ST_KERNELS = ("flash_attention", "flash_attention_bwd", "selective_scan",
 # rank holds every head: bf16 q (2, 1,024, 16, 128) at offset 1,024
 # against k/v (2, 2,048, 2, 128) (B, Sq, Sk, H, K, hd, offset).
 ST_SEQ_PARITY = ("granite-moe-1b-a400m", (2, 2), ST_PARITY_SEQ)
-# The bf16 split's grad norm against the one-rank reference: within
-# ST_SEQ_TOL_NORM of it (1.8% read).  Every leaf's first-step gradient
-# but the embedding's agrees within 0.7% of its largest magnitude; the
-# embedding's is the lookup's scatter-add in bf16, whose sums over a
-# microbatch's repeated ids (8,192 tokens, 1,189 distinct, one id 888
-# times) stagnate: a rank's sum over its 2,048 tokens loses less than the
-# reference's over 8,192, so the split's norm reads higher.  Its losses
-# stay within ST_TOL_LOSS, and the fp32 parity arm holds the split's
-# arithmetic at ST_TOL_FP32.
-ST_SEQ_TOL_NORM = 3e-2
+# The bf16 split's losses and grad norms are held as the fsdp_tp arm's
+# (ST_TOL_LOSS, ST_TOL_NORM): its norms read 1.55e-5 and 1.24e-4 of one
+# rank's since the embedding's gradient sums in fp32 (1.8% when the
+# lookup's scatter-add summed a microbatch's repeated ids in bf16, whose
+# sum over a rank's 2,048 tokens stagnated less than the reference's over
+# 8,192).
+# Shapes an axis does not divide, granite-moe in fp32 on (2, 2) under
+# fsdp_seq inside its scope against one rank, at ST_PARITY's tolerances:
+# (key, S, global batch, moe_local_dispatch).  "fit": S 511, which model
+# 2 does not divide (the step is not split), and 2 rows in 2 microbatches
+# (a microbatch of one row, replicated over data).  "local":
+# moe_local_dispatch under the split, 4 rows in 2 microbatches (one row a
+# data rank and microbatch): two dispatch shards, each a data rank's row
+# gathered over model; the one-rank reference dispatches the same two
+# shards in a scope on a (2, 1) stand-in mesh without groups.
+ST_FIT_PARITY = (("fit", 511, 2, False), ("local", 512, 4, True))
 ST_OFFSET_BWD = (2, 1024, 2048, 16, 2, 128, 1024)
 ST_OFFSET_LAYOUT = "qwen_rank_2x2_fsdp_seq_offset_1024"
 # The scan's and the attention's kernels at the ranks' layouts: a rank's
-# microbatch of 2 rows; falcon's Di 8,192 over model 2 at the arm's S;
+# microbatch of 2 rows; falcon's Di 8,192 over model 2 at S 2,048 (the
+# script's arm's S);
 # hymba-1.5b's 3,200 over 2 and 4 (800 channels: not a whole number of
 # the kernels' 64-channel blocks), S cut to 512 (these two check the
 # channel counts; the plain versions' seconds grow with S); whisper's
@@ -2213,14 +2270,14 @@ def st_cfg(arch, dtype=None):
 
 
 def st_trainer(cfg, seq, mesh=None, dev="cuda", batch=None,
-               sharding="fsdp_tp"):
+               sharding="fsdp_tp", **run_kw):
     """``(bundle, model, opt, step, batch(s))``: ``cfg`` from seed 0
     through ``build(..., mesh=)`` (this rank's shards of ``sharding``'s
     layout on a mesh with groups), AdamW over its leaves, the step of
     ``ST["mb"]`` microbatches, step s's global batch (``arm_batch``:
     whisper's with seeded frames)."""
     run = RunConfig(remat="full", logits_chunk=ST["chunk"],
-                    sharding=sharding)
+                    sharding=sharding, **run_kw)
     bundle = build(cfg, device=dev, run=run, mesh=mesh)
     model = bundle.init(seed=0)
     opt = init_opt(OptConfig(lr=ST_LR, warmup_steps=0,
@@ -2499,9 +2556,24 @@ def phase_sharded_train_nccl(work, timer, ptxas):
     torch.cuda.empty_cache()
     for arch, _, seq in ST_ALL_PARITY:
         pcfg = tp_cfg(arch, "float32")
-        bundle, model, opt, step, data = st_trainer(pcfg, seq)
+        bundle, model, opt, step, data = st_trainer(pcfg, seq,
+                                                    batch=ST_PARITY_BATCH)
         ref_rec[arch] = st_parity_steps(bundle, model, opt, step, data, None,
                                         Path(work, f"sharded_{arch}"))
+        del model, opt, step, bundle
+        torch.cuda.empty_cache()
+    arch = ST_SEQ_PARITY[0]
+    for key, seq, batch, local in ST_FIT_PARITY:
+        bundle, model, opt, step, data = st_trainer(
+            tp_cfg(arch, "float32"), seq, batch=batch,
+            moe_local_dispatch=local)
+        # The local dispatch's two shards on one rank: a scope on a (2, 1)
+        # stand-in mesh (no groups) whose rows lie on no axis.
+        with (M.activation_sharding(M.Mesh(2, 1, 0), "fsdp_seq", rows=())
+              if local else contextlib.nullcontext()):
+            ref_rec[f"{arch}_{key}"] = st_parity_steps(
+                bundle, model, opt, step, data, None,
+                Path(work, f"sharded_{arch}_{key}"))
         del model, opt, step, bundle
         torch.cuda.empty_cache()
     ref_rec["reference_s"] = round(time.perf_counter() - t0, 1)
@@ -2643,26 +2715,32 @@ def st_seq_arm(cfg, mesh, dev, ref_rec):
     return out
 
 
-def st_seq_parity(work, dev, ref_rec):
+def st_seq_parity(work, dev, ref_rec, key=None, seq=ST_SEQ_PARITY[2],
+                  batch=ST_PARITY_BATCH, local=False):
     """``ST_SEQ_PARITY``'s arch in fp32 under fsdp_seq inside its scope,
-    against ``ST_PARITY``'s one-rank reference of it (saved in ``work``):
-    the first step's gradient shards, the parameter shards after the
-    second and both losses."""
-    arch, shape, seq = ST_SEQ_PARITY
+    against ``ST_PARITY``'s one-rank reference of it (saved in ``work``),
+    or with ``key`` against ``ST_FIT_PARITY``'s at its S, global batch
+    and dispatch: the first step's gradient shards, the parameter shards
+    after the second and both losses."""
+    arch, shape, _ = ST_SEQ_PARITY
+    ref = arch if key is None else f"{arch}_{key}"
     mesh = M.make_mesh(*shape)
     t0 = time.perf_counter()
     bundle, model, opt, step, data = st_trainer(
-        tp_cfg(arch, "float32"), seq, mesh, dev, sharding="fsdp_seq")
+        tp_cfg(arch, "float32"), seq, mesh, dev, batch=batch,
+        sharding="fsdp_seq", moe_local_dispatch=local)
     ops.reset_launches()
     with M.activation_sharding(mesh, "fsdp_seq"):
         losses, errs, perrs, uerrs = st_parity_steps(
             bundle, model, opt, step, data, mesh,
-            Path(work, f"sharded_{arch}"))
+            Path(work, f"sharded_{ref}"))
     worst, pworst = max(errs, key=errs.get), max(perrs, key=perrs.get)
     uworst = max(uerrs, key=uerrs.get)
     out = {"mesh": dict(zip(("data", "model"), shape)), "S": seq,
+           "global_batch": batch,
+           "moe_local_dispatch": local, "split": seq % shape[1] == 0,
            "sharding": "fsdp_seq", "losses": losses,
-           "ref_losses": ref_rec[arch], "grad_err_share_max": errs[worst],
+           "ref_losses": ref_rec[ref], "grad_err_share_max": errs[worst],
            "grad_err_worst_leaf": worst,
            "param_err_share_max": perrs[pworst],
            "param_err_worst_leaf": pworst,
@@ -2737,7 +2815,7 @@ def sharded_train_rank(rank, work, dev, ref_rec):
     torch.cuda.empty_cache()
     rec["qwen_fsdp_seq"] = st_seq_arm(cfg, mesh, dev, ref_rec)
     # The SSM's and whisper's layers tensor parallel, bf16 on (2, 2).
-    for arch, n_layers, n_enc, seq in ARMS:
+    for arch, n_layers, n_enc, seq in ST_ARMS:
         ops.reset_launches()
         rec[arch] = lm_arm(arm_cfg(arch, n_layers, n_enc), mesh, dev, seq)
         rec[arch]["launches"] = {fn.__name__: fn.launches
@@ -2746,7 +2824,8 @@ def sharded_train_rank(rank, work, dev, ref_rec):
         pcfg = tp_cfg(arch, "float32")
         mesh = M.make_mesh(*shape)
         t0 = time.perf_counter()
-        bundle, model, opt, step, data = st_trainer(pcfg, seq, mesh, dev)
+        bundle, model, opt, step, data = st_trainer(
+            pcfg, seq, mesh, dev, batch=ST_PARITY_BATCH)
         ops.reset_launches()
         losses, errs, perrs, uerrs = st_parity_steps(
             bundle, model, opt, step, data, mesh, Path(work, f"sharded_{arch}"))
@@ -2773,6 +2852,9 @@ def sharded_train_rank(rank, work, dev, ref_rec):
         torch.cuda.empty_cache()
     rec[f"{ST_SEQ_PARITY[0]}_fsdp_seq_fp32"] = st_seq_parity(work, dev,
                                                             ref_rec)
+    for key, seq, batch, local in ST_FIT_PARITY:
+        rec[f"{ST_SEQ_PARITY[0]}_{key}_fp32"] = st_seq_parity(
+            work, dev, ref_rec, key, seq, batch, local)
     rec["seconds"] = time.perf_counter() - t_start
     return rec
 
@@ -2792,18 +2874,18 @@ def report_sharded_train(recs, nccl_launches):
               "remat": "full", "logits_chunk": ST["chunk"],
               "dtype": "bf16"},
           "tp_arms": {"archs": [{"arch": a, "n_layers": n, "n_enc_layers": e,
-                                 "S": s} for a, n, e, s in ARMS],
+                                 "S": s} for a, n, e, s in ST_ARMS],
                       "mesh": dict(zip(("data", "model"), ST["mesh"])),
                       "sharding": "fsdp_tp", "global_batch": ST["batch"],
                       "microbatches": ST["mb"], "steps": ST["steps"],
                       "remat": "full", "dtype": "bf16"},
-          "parity": {"S": ST_PARITY_SEQ, "dtype": "fp32",
+          "parity": {"S": ST_PARITY_SEQ, "global_batch": ST_PARITY_BATCH,
+                     "dtype": "fp32",
                      "n_layers": ST["n_layers"], "tol": ST_TOL_FP32,
                      "tp_runs": [list(p) for p in ST_TP_PARITY],
                      "tp_tol": {"loss_share": ST_TP_TOL_LOSS,
                                 "grad": ST_TP_TOL_GRAD}},
           "tol": {"loss": ST_TOL_LOSS, "grad_norm_share": ST_TOL_NORM,
-                  "fsdp_seq_grad_norm_share": ST_SEQ_TOL_NORM,
                   "param_err_of_update": ST_TOL_UPDATE},
           "fsdp_seq": {"arch": ST["arch"], "mesh": dict(zip(
               ("data", "model"), ST["mesh"])), "sharding": "fsdp_seq",
@@ -2811,7 +2893,10 @@ def report_sharded_train(recs, nccl_launches):
               "positions_per_rank": ST["seq"] // ST["mesh"][1],
               "parity": {"arch": ST_SEQ_PARITY[0], "mesh": dict(zip(
                   ("data", "model"), ST_SEQ_PARITY[1])),
-                  "S": ST_SEQ_PARITY[2], "dtype": "fp32"}},
+                  "S": ST_SEQ_PARITY[2], "dtype": "fp32"},
+              "fitted": [{"key": k, "S": s, "global_batch": b,
+                          "moe_local_dispatch": loc}
+                         for k, s, b, loc in ST_FIT_PARITY]},
           "lr": ST_LR, "warmup_steps": 0,
           "seconds_ranks": max(r["seconds"] for r in ranks),
           "ranks": [{"rank": r["rank"], **r["sharded"]} for r in recs]})
@@ -2872,27 +2957,31 @@ def report_sharded_train(recs, nccl_launches):
         sq = rk["qwen_fsdp_seq"]
         require(max_abs_diff(sq["losses"], sq["ref_losses"]) <= ST_TOL_LOSS
                 and max_abs_diff(sq["grad_norms"], sq["ref_grad_norms"])
-                <= ST_SEQ_TOL_NORM * max(sq["ref_grad_norms"])
+                <= ST_TOL_NORM * max(sq["ref_grad_norms"])
                 and sq["launches"].get("flash_attention", 0) > 0
                 and sq["launches"].get("flash_attention_bwd", 0) > 0
                 and sq["traffic_two_steps"]["all_gather"]["calls"] > 0,
                 f"rank {r['rank']} qwen fsdp_seq: losses {sq['losses']} vs "
                 f"{sq['ref_losses']}, grad norms {sq['grad_norms']} vs "
                 f"{sq['ref_grad_norms']}, launches {sq['launches']}")
-        p = rk[f"{ST_SEQ_PARITY[0]}_fsdp_seq_fp32"]
-        require(p["grad_err_share_max"] <= ST_TOL_FP32
-                and p["param_err_of_update_max"] <= ST_TOL_UPDATE
-                and max_abs_diff(p["losses"], p["ref_losses"])
-                <= ST_TOL_FP32, f"rank {r['rank']} {ST_SEQ_PARITY[0]} "
-                f"fsdp_seq fp32: {p}")
-        for src in (sq["launches"], p["launches"]):
+        seq_arms = [rk[f"{ST_SEQ_PARITY[0]}_{key}_fp32"] for key in
+                    ["fsdp_seq"] + [f[0] for f in ST_FIT_PARITY]]
+        for p in seq_arms:
+            require(p["grad_err_share_max"] <= ST_TOL_FP32
+                    and p["param_err_of_update_max"] <= ST_TOL_UPDATE
+                    and max_abs_diff(p["losses"], p["ref_losses"])
+                    <= ST_TOL_FP32
+                    and p["launches"].get("flash_attention_bwd", 0) > 0,
+                    f"rank {r['rank']} {ST_SEQ_PARITY[0]} fsdp_seq fp32 "
+                    f"(S {p['S']}, batch {p['global_batch']}): {p}")
+        for src in [sq["launches"]] + [p["launches"] for p in seq_arms]:
             for k in ST_KERNELS:
                 launches[k] = launches.get(k, 0) + src.get(k, 0)
-        # Every attention backward of the split runs at an offset.
+        # Every attention backward of a split runs at an offset.
         launches["flash_attention_bwd_offset"] = launches.get(
-            "flash_attention_bwd_offset", 0) \
-            + sq["launches"].get("flash_attention_bwd", 0) \
-            + p["launches"].get("flash_attention_bwd", 0)
+            "flash_attention_bwd_offset", 0) + sum(
+            src["launches"].get("flash_attention_bwd", 0)
+            for src in [sq] + [p for p in seq_arms if p["split"]])
     return launches
 
 
@@ -2903,26 +2992,32 @@ def report_sharded_train(recs, nccl_launches):
 
 # qwen2.5-3b at full width (16/2 heads of 128, bf16), its depth cut from 36
 # to 2 layers: an fsdp_seq prefill of 8 x 2,048 tokens on (2, 2) (a rank's
-# 4 rows x 1,024 positions, the queries at offset 0 or 1,024), then 16
-# decode steps under tp, once with the cache's slots over model
+# 4 rows x 1,024 positions, the queries at offset 0 or 1,024), then 8
+# decode steps (cut from 16) under tp, once with the cache's slots over model
 # (shard_kv_seq) and once with its 2 KV heads over model; each against the
 # same parameters served whole on the card within SS_TOL_BF16 of the
 # largest logit magnitude.  fp32 parity at S = 512 on (1, 4) (128 positions
 # a rank; 2 KV heads do not split over 4: the attention gathered, the
 # cache's slots over model) within SS_TOL_FP32.
-SS = dict(arch="qwen2.5-3b", n_layers=2, seq=2048, batch=8, steps=16,
+SS = dict(arch="qwen2.5-3b", n_layers=2, seq=2048, batch=8, steps=8,
           mesh=(2, 2), parity_seq=512, parity_mesh=(1, 4))
 SS_TOL_BF16, SS_TOL_FP32 = 2e-2, 1e-5
 # The served runs of the ranks: (name, arch, dtype, mesh, S, shard_kv_seq
-# values).  falcon-mamba-7b at 2 of 64 layers, bf16 on (2, 2), S = 512:
-# the mamba blocks gather the sequence under fsdp_seq, and decode channel
-# parallel under tp on the conv and SSM states' channels over model.
+# values, global batch, decode steps).  falcon-mamba-7b at 2 of 64 layers,
+# bf16 on (2, 2), S = 512: the mamba blocks gather the sequence under
+# fsdp_seq, and decode channel parallel under tp on the conv and SSM
+# states' channels over model.  "bf16_b1": one prompt of 2,048, which
+# data 2 does not divide, so JAX's fit_spec replicates its row over data:
+# every rank prefills its 1,024 positions of it and decodes it, in both
+# cache layouts.
 SS_RUNS = (("bf16", SS["arch"], "bfloat16", SS["mesh"], SS["seq"],
-            (True, False)),
+            (True, False), SS["batch"], SS["steps"]),
            ("fp32", SS["arch"], "float32", SS["parity_mesh"],
-            SS["parity_seq"], (True,)),
+            SS["parity_seq"], (True,), SS["batch"], SS["steps"]),
            ("falcon_bf16", "falcon-mamba-7b", "bfloat16", SS["mesh"], 512,
-            (True,)))
+            (True,), SS["batch"], SS["steps"]),
+           ("bf16_b1", SS["arch"], "bfloat16", SS["mesh"], SS["seq"],
+            (True, False), 1, 8))
 # The offset kernel at the rank shapes of a four-way split of qwen's 2,048
 # positions: q shards (8, 512, 16, 128) at these offsets against k/v
 # (8, 2,048, 2, 128), causal; the last shard also in a window and the
@@ -3100,9 +3195,9 @@ def phase_lm_sharded_serve_nccl(work, timer):
           "seconds": round(time.perf_counter() - t0, 1)})
     torch.cuda.empty_cache()
     # The references: the cut served whole, one process holding it.
-    for dt_name, arch, dtype, _, seq, _ in SS_RUNS:
+    for dt_name, arch, dtype, _, seq, _, batch, n_steps in SS_RUNS:
         cfg = ss_cfg(dtype, arch)
-        tokens, steps = ss_batch(cfg, SS["batch"], seq, SS["steps"])
+        tokens, steps = ss_batch(cfg, batch, seq, n_steps)
         model = build(cfg, device="cuda").init(seed=0)
         logits, _, pre_ms, dec_ms = ss_serve(cfg, model, tokens, steps)
         torch.save({"logits": logits, "prefill_ms": pre_ms,
@@ -3115,21 +3210,23 @@ def phase_lm_sharded_serve_nccl(work, timer):
 def lm_sharded_serve_rank(rank, work, dev):
     """The gloo rank's served LMs, after its sharded training (``SS_RUNS``):
     qwen's cut in bf16 on (2, 2) (the fsdp_seq prefill, then the tp
-    decode, for both cache layouts), in fp32 on (1, 4) (the slots over
-    model) and falcon-mamba-7b's in bf16 on (2, 2), each against the whole
+    decode, for both cache layouts; then a batch of one row, replicated
+    over data), in fp32 on (1, 4) (the slots over model) and
+    falcon-mamba-7b's in bf16 on (2, 2), each against the whole
     model's logits saved in ``work``: the rank's rows' errors as a share of
     their largest magnitude, the collectives' calls and bytes, its bytes
     of cache, the prefill's and a decode step's host ms, and the kernels'
     launches.  Returns the rank's record."""
     t_start = time.perf_counter()
     rec = {}
-    for dt_name, arch, dtype, shape, seq, kv_seqs in SS_RUNS:
+    for dt_name, arch, dtype, shape, seq, kv_seqs, batch, n_steps \
+            in SS_RUNS:
         cfg = ss_cfg(dtype, arch)
         mesh = M.make_mesh(*shape)
         want = torch.load(Path(work, f"ss_ref_{dt_name}.pt"))
-        tokens, steps = ss_batch(cfg, SS["batch"], seq, SS["steps"])
-        rows = SP.shard_of(torch.arange(SS["batch"]), SP.batch_spec(
-            (SS["batch"], seq), mesh, "fsdp_seq")[:1], mesh)
+        tokens, steps = ss_batch(cfg, batch, seq, n_steps)
+        rows = SP.shard_of(torch.arange(batch), SP.batch_spec(
+            (batch, seq), mesh, "fsdp_seq")[:1], mesh)
         models = tuple(build(cfg, device=dev, run=RunConfig(sharding=s),
                              mesh=mesh).init(seed=0)
                        for s in ("fsdp_seq", "tp"))
@@ -3142,7 +3239,7 @@ def lm_sharded_serve_rank(rank, work, dev):
             torch.cuda.synchronize()
             rec[f"{dt_name}_kv_seq_{int(kv_seq)}"] = {
                 "arch": arch, "mesh": dict(zip(("data", "model"), shape)),
-                "S": seq,
+                "S": seq, "global_batch": batch, "steps": n_steps,
                 "rows": rows.tolist(),
                 "logits_err_share": _share_err(got, want["logits"][:, rows]),
                 "cache_bytes": sum(t.numel() * t.element_size()

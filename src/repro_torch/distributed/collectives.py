@@ -18,15 +18,17 @@ The same rule picks the backward of a sharded parameter's all-gather
 (:func:`gather_leaf`, before the parameter is used):
 
 - over the axes the **batch** splits over (``data``; every axis under
-  ``"fsdp"``), where each rank's loss covers other rows and the step
-  averages the ranks' gradients: a reduce-scatter, each rank keeping the
-  sum of the ranks' gradients of its part (FSDP);
-- over ``model`` when the model ranks compute the same replicated loss
-  from the gathered leaf: this rank's slice of the gradient, **not**
-  summed (a sum would multiply the gradient by ``model``, and no shape
-  error would show it); but under a sequence split (``"fsdp_seq"``
-  training) the model ranks hold other positions of the rows, and their
-  gradients are summed by a reduce-scatter, as over ``data``.
+  ``"fsdp"``; each as far as it divides the rows, JAX's ``fit_spec``),
+  where each rank's loss covers other rows and the step averages the
+  ranks' gradients: a reduce-scatter, each rank keeping the sum of the
+  ranks' gradients of its part (FSDP);
+- over ``model``, or an axis the rows are replicated on, when its ranks
+  compute the same replicated loss from the gathered leaf: this rank's
+  slice of the gradient, **not** summed (a sum would multiply the
+  gradient by the axis's size, and no shape error would show it); but
+  under a sequence split (``"fsdp_seq"`` training) the model ranks hold
+  other positions of the rows, and their gradients are summed by a
+  reduce-scatter, as over ``data``.
 
 Tensor parallelism over ``model`` (Megatron's) uses two more: "f",
 :func:`copy_all_reduce_bwd`, the identity forward with an all-reduced
@@ -282,19 +284,22 @@ def all_gather_slice_bwd(x, group, dim: int, n: int, index: int):
 def gather_leaf(p: torch.Tensor, keep_model: bool = False) -> torch.Tensor:
     """The leaf ``p`` as the compute uses it: a parameter without a
     :class:`~repro_torch.distributed.mesh.Placement` as it is; a shard
-    gathered along each sharded dim, the minor axis of a tuple first, with
-    the backward the axis needs (reduce-scatter over the batch's axes,
-    this rank's slice over ``model`` otherwise).  ``keep_model`` keeps
-    the ``model`` part (tensor-parallel compute) and gathers the rest.
-    Under a sequence split (:func:`repro_torch.distributed.mesh.
-    splits_sequence`) ``model`` counts as a batch axis: its ranks' losses
-    cover other positions, so their gradients are summed too."""
+    gathered along each sharded dim, with the backward the axis needs:
+    a reduce-scatter over the axes whose ranks hold other tokens of the
+    batch (:func:`repro_torch.distributed.mesh.token_axes`: the rows'
+    fitted axes and, under a sequence split, ``model``; outside a scope
+    the variant's batch entry), this rank's slice over the others (they
+    compute the same rows).  A dim over both axes whose backward is the
+    same on both is gathered by one collective over the world group
+    (its parts lie in world rank order); else the minor axis first.
+    ``keep_model`` keeps the ``model`` part (tensor-parallel compute) and
+    gathers the rest."""
     pl = M.placement(p)
     if pl is None:
         return p
-    mesh, batch = pl.mesh, batch_entry(pl.mesh, pl.variant)
-    if M.splits_sequence():  # the model ranks hold other tokens
-        batch = tuple(batch) + ("model",)
+    mesh = pl.mesh
+    batch = (M.token_axes() if M.active_mesh() is not None
+             else batch_entry(mesh, pl.variant))
     x = p
     for dim, ent in enumerate(pl.spec):
         axes = axes_of(ent)
@@ -303,10 +308,13 @@ def gather_leaf(p: torch.Tensor, keep_model: bool = False) -> torch.Tensor:
                 raise ValueError(f"spec {pl.spec}: dim {dim} mixes model "
                                  "with other axes under tensor parallelism")
             continue
-        for ax in reversed(axes):
-            group, n = mesh.group(ax), mesh.size(ax)
-            if ax in batch:
+        summed = [ax in batch for ax in axes]
+        runs = ([axes] if len(set(summed)) == 1
+                else [(ax,) for ax in reversed(axes)])
+        for run in runs:
+            group, n, index = mesh.axes_group(run)
+            if run[0] in batch:
                 x = all_gather_reduce_scatter_bwd(x, group, dim, n)
             else:
-                x = all_gather_slice_bwd(x, group, dim, n, mesh.index(ax))
+                x = all_gather_slice_bwd(x, group, dim, n, index)
     return x

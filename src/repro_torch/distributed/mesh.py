@@ -19,7 +19,12 @@ variant that ``models/dlrm.py::dlrm_forward(sharded_lookup=True)``, the
 MoE's dispatch and the batch split read, as JAX's ``_ACT_MESH`` and
 ``_ACT_VARIANT`` are read: the batch splits over ``data``, or over
 ``data`` x ``model`` under ``"fsdp"`` (``batch_entry``, :57-63), whose
-ranks then all act as data ranks (:func:`batch_mesh`).
+ranks then all act as data ranks (:func:`batch_mesh`), each axis as far
+as it divides the rows (JAX's ``fit_spec``: over the axes it drops, the
+rows are replicated, and every rank of such an axis computes them).  The
+scope carries the axes the current batch's rows lie over
+(:func:`row_axes`), which the gradients' reductions, the MoE's dispatch
+and DLRM's lookup read.
 
 A parameter stored as this rank's shard carries a :class:`Placement`
 (``p.placement``): its mesh, its spec
@@ -39,11 +44,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.partition import batch_axes, batch_entry
 
 BACKENDS = ("nccl", "gloo")
 _ACT_MESH: Optional["Mesh"] = None
 _ACT_VARIANT = "fsdp_tp"
 _ACT_SPLIT_SEQ = False
+_ACT_ROWS: Optional[Tuple[str, ...]] = None
 
 
 @dataclass(frozen=True)
@@ -67,14 +74,27 @@ class Mesh:
 
     def groups(self, axes) -> Tuple[Optional[dist.ProcessGroup], ...]:
         """The groups whose all-reduces together cover the mesh ``axes``:
-        the world group for both axes, else one a named axis."""
-        axes = set(axes)
-        if axes == {"data", "model"}:
-            return (self.world_group,)
-        return tuple(self.group(a) for a in sorted(axes))
+        the world group for both axes, the axis's for one, none for
+        none (:meth:`axes_group`)."""
+        wanted = set(axes)
+        axes = tuple(a for a in ("data", "model") if a in wanted)
+        return (self.axes_group(axes)[0],) if axes else ()
 
     def size(self, axis: str) -> int:
         return self.data if axis == "data" else self.model
+
+    def axes_group(self, axes) -> Tuple[Optional[dist.ProcessGroup], int,
+                                        int]:
+        """``(group, size, index)`` of the ranks that differ only along the
+        mesh ``axes`` (none, one, or both in (data, model) order), in the
+        order JAX lays out a tuple of axes: the world group for both, no
+        group (size 1, index 0) for none."""
+        axes = tuple(axes)
+        if not axes:
+            return None, 1, 0
+        if len(axes) == 2:
+            return self.world_group, self.data * self.model, self.rank
+        return self.group(axes[0]), self.size(axes[0]), self.index(axes[0])
 
     def index(self, axis: str) -> int:
         return self.data_rank if axis == "data" else self.model_rank
@@ -131,25 +151,30 @@ class activation_sharding:
     ``variant``; scopes nest and restore the previous ones on exit.
     ``split_seq``: whether a training step's (B, S, ...) activations are
     split by sequence over ``model`` (JAX's ``seq_entry``); by default
-    under ``"fsdp_seq"``, as JAX splits them there."""
+    under ``"fsdp_seq"``, as JAX splits them there.  ``rows``: the axes
+    the batch's rows lie over (the step's and the served batch's fitted
+    spec, :func:`repro_torch.sharding.partition.batch_axes`); by default
+    the variant's batch entry."""
 
     def __init__(self, mesh: Mesh, variant: str = "fsdp_tp",
-                 split_seq: Optional[bool] = None):
+                 split_seq: Optional[bool] = None,
+                 rows: Optional[Sequence[str]] = None):
         self.mesh = mesh
         self.variant = variant
         self.split_seq = (variant == "fsdp_seq" if split_seq is None
                           else split_seq)
+        self.rows = None if rows is None else tuple(rows)
 
     def __enter__(self):
-        global _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ
-        self._prev = (_ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ)
+        global _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ, _ACT_ROWS
+        self._prev = (_ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ, _ACT_ROWS)
         _ACT_MESH, _ACT_VARIANT = self.mesh, self.variant
-        _ACT_SPLIT_SEQ = self.split_seq
+        _ACT_SPLIT_SEQ, _ACT_ROWS = self.split_seq, self.rows
         return self
 
     def __exit__(self, *exc):
-        global _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ
-        _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ = self._prev
+        global _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ, _ACT_ROWS
+        _ACT_MESH, _ACT_VARIANT, _ACT_SPLIT_SEQ, _ACT_ROWS = self._prev
         return False
 
 
@@ -161,15 +186,30 @@ def active_variant() -> str:
     return _ACT_VARIANT
 
 
-def batch_mesh(mesh: Mesh, variant: Optional[str] = None) -> Mesh:
-    """The mesh whose ``data`` axis is the batch's: ``mesh`` itself, or
-    under ``"fsdp"`` every rank as a data rank (``(data * model, 1)``
-    over the world group), in the rank order JAX's ``("data", "model")``
-    batch split gives."""
-    if (variant or _ACT_VARIANT) != "fsdp" or mesh.model == 1:
-        return mesh
-    return Mesh(mesh.data * mesh.model, 1, mesh.rank, mesh.world_group,
-                None, mesh.world_group)
+def row_axes() -> Tuple[str, ...]:
+    """The axes the active scope's batch rows lie over: those the scope
+    was given, by default its variant's batch entry; none outside a
+    scope."""
+    if _ACT_MESH is None:
+        return ()
+    return (batch_entry(_ACT_MESH, _ACT_VARIANT) if _ACT_ROWS is None
+            else _ACT_ROWS)
+
+
+def token_axes() -> Tuple[str, ...]:
+    """The axes whose ranks hold other tokens of the active scope's batch:
+    its rows' axes and, under a sequence split, ``model``."""
+    return row_axes() + (("model",) if splits_sequence() else ())
+
+
+def batch_mesh(mesh: Mesh, rows: Optional[Sequence[str]] = None) -> Mesh:
+    """The mesh whose ``data`` axis is the batch's rows: the ranks along
+    ``rows`` (by default :func:`row_axes`) as one axis over their group,
+    in the rank order JAX's tuple of axes gives (under ``"fsdp"`` every
+    rank a data rank), model 1; ``(1, 1)`` without groups where the rows
+    are replicated."""
+    group, n, index = mesh.axes_group(row_axes() if rows is None else rows)
+    return Mesh(n, 1, index, group, None, group)
 
 
 @dataclass(frozen=True)
@@ -177,14 +217,22 @@ class SeqSplit:
     """This rank's part of a sequence split over ``model`` (JAX's
     ``seq_entry`` under ``"fsdp_seq"``: a prefill, or a training step in
     that scope): positions ``[offset, offset + length)`` of the
-    ``mesh.model`` equal parts, the batch's rows over ``data`` as usual."""
+    ``mesh.model`` equal parts, the batch's rows over the axes ``rows``
+    (``data``, or none where ``data`` does not divide them)."""
     mesh: "Mesh"
     offset: int
     length: int
+    rows: Tuple[str, ...]
 
     def part(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """This rank's positions of ``x``'s whole sequence along ``dim``."""
         return x.narrow(dim, self.offset, self.length)
+
+    @property
+    def group(self) -> Optional[dist.ProcessGroup]:
+        """The ranks that hold the batch's other tokens: over the rows'
+        axes and ``model``."""
+        return self.mesh.axes_group(self.rows + ("model",))[0]
 
 
 def splits_sequence() -> bool:
@@ -195,19 +243,20 @@ def splits_sequence() -> bool:
 
 def seq_split(s: int) -> Optional[SeqSplit]:
     """This rank's part of a sequence of ``s`` positions when the active
-    scope splits the sequence (:func:`splits_sequence`), else None;
-    raises when ``model`` does not divide ``s``."""
-    if not splits_sequence():
+    scope splits the sequence (:func:`splits_sequence`) and ``model``
+    divides ``s``, else None: JAX's ``fit_spec`` drops the entry, and the
+    sequence is computed whole on every model rank."""
+    if not splits_sequence() or s % _ACT_MESH.model:
         return None
-    lo, hi = shard_bounds(s, _ACT_MESH.model, _ACT_MESH.model_rank)
-    return SeqSplit(_ACT_MESH, lo, hi - lo)
+    n = s // _ACT_MESH.model
+    return SeqSplit(_ACT_MESH, _ACT_MESH.model_rank * n, n, row_axes())
 
 
 def local_split(n: int) -> Optional[SeqSplit]:
     """The split whose rank part holds ``n`` positions (tokens the step
     has cut already), or None outside a split."""
     return None if not splits_sequence() else SeqSplit(
-        _ACT_MESH, _ACT_MESH.model_rank * n, n)
+        _ACT_MESH, _ACT_MESH.model_rank * n, n, row_axes())
 
 
 @dataclass(frozen=True)
@@ -234,12 +283,15 @@ def shard_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
 
 def batch_shard(x: torch.Tensor, mesh: Mesh,
                 variant: Optional[str] = None) -> torch.Tensor:
-    """This rank's rows of a global batch: its part along ``data``, or
-    along ``data`` x ``model`` under ``"fsdp"`` (``variant``, by default
-    the active scope's)."""
-    bm = batch_mesh(mesh, variant)
-    lo, hi = shard_bounds(x.shape[0], bm.data, bm.data_rank)
-    return x[lo:hi]
+    """This rank's rows of a global batch by its fitted spec
+    (:func:`repro_torch.sharding.partition.batch_axes` under ``variant``,
+    by default the active scope's): its part along ``data``, or along
+    ``data`` x ``model`` under ``"fsdp"``, the whole batch over an axis
+    that does not divide it."""
+    rows = batch_axes(tuple(x.shape[:1]), mesh, variant or _ACT_VARIANT)[0]
+    bm = batch_mesh(mesh, rows)
+    size = x.shape[0] // bm.data
+    return x[bm.data_rank * size:(bm.data_rank + 1) * size]
 
 
 def microbatch_shard(x: torch.Tensor, microbatches: int, i: int,
@@ -248,8 +300,10 @@ def microbatch_shard(x: torch.Tensor, microbatches: int, i: int,
     """This rank's rows of microbatch ``i`` of a global batch: the batch
     is cut into ``microbatches`` first, and the microbatch is then split
     as :func:`batch_shard` splits it (rank r's rows of it are ``i B/mb +
-    r B/(mb n) ..``, not a contiguous block of the whole batch); without a
-    mesh, the whole microbatch."""
+    r B/(mb n) ..``, not a contiguous block of the whole batch; the whole
+    microbatch over an axis that does not divide it); without a mesh, the
+    whole microbatch.  Raises when ``microbatches`` does not divide the
+    batch, as JAX's reshape does."""
     n = x.shape[0]
     if n % microbatches:
         raise ValueError(f"batch of {n} does not split into "
@@ -258,12 +312,15 @@ def microbatch_shard(x: torch.Tensor, microbatches: int, i: int,
     return mb if mesh is None else batch_shard(mb, mesh, variant)
 
 
-def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The global batch from every data rank's part, in data order."""
-    if mesh.data_group is None:
+def gather_batch(x: torch.Tensor, mesh: Mesh,
+                 rows: Sequence[str] = ("data",)) -> torch.Tensor:
+    """The batch from every rank's part along the axes ``rows`` (by
+    default ``data``), in their order; ``x`` itself over none."""
+    group, n, _ = mesh.axes_group(rows)
+    if group is None:
         return x
-    parts = [torch.empty_like(x) for _ in range(mesh.data)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
 
 

@@ -20,11 +20,16 @@ activation scope under the bundle's sharding variant, on this rank's rows:
 the microbatches are cut first and each is split over the batch's axes
 (:func:`repro_torch.distributed.mesh.microbatch_shard`, JAX's ``[None,
 dp]`` constraint on the ``(mb, B/mb, ...)`` reshape; ``data``, or every
-axis under ``"fsdp"``).  Each gradient is then reduced by its leaf's
-layout (:class:`~repro_torch.distributed.mesh.Placement`), in fp32:
+axis under ``"fsdp"``), each as far as it divides the microbatch's rows
+(``fit_spec``): over an axis it drops, the rows are replicated, every
+rank of it computes them, and nothing sums over it.  The scope carries
+those axes (the microbatch's rows).  Each gradient is then reduced by its
+leaf's layout (:class:`~repro_torch.distributed.mesh.Placement`), in
+fp32:
 
 - a leaf sharded over a batch axis got the sum of the ranks' gradients of
-  its part from its gather's reduce-scatter (in the backward);
+  its part from its gather's reduce-scatter (in the backward), and over
+  an axis the rows are replicated on, its slice of the gradient;
 - over the batch axes it is replicated on, it is all-reduced (a whole
   leaf: over ``data``);
 - nothing is reduced over ``model`` under ``"fsdp_tp"`` or ``"tp"``: the
@@ -32,8 +37,8 @@ layout (:class:`~repro_torch.distributed.mesh.Placement`), in fp32:
   gradient covers its own part, and a leaf replicated over ``model``
   gets equal gradients on its ranks (through Megatron's "f");
 
-and every gradient is divided by the batch's rank count; the loss is the
-mean over those ranks.
+and every gradient is divided by the rank count of the axes the rows lie
+over; the loss is the mean over those ranks.
 
 Called inside ``activation_sharding(mesh, "fsdp_seq")`` (JAX's
 ``make_train_step`` in that scope: its ``constrain_batch`` puts the
@@ -41,7 +46,9 @@ sequence of every (B, S, ...) activation over ``model``) the step also
 splits the sequence: each microbatch's rows follow ``run.sharding`` as
 above, and its ``tokens`` and ``labels`` are cut to the rank's positions
 ``[m S/model, (m+1) S/model)`` (:class:`~repro_torch.distributed.mesh.
-SeqSplit`); the loss (:func:`repro_torch.models.transformer.lm_loss`,
+SeqSplit`; where ``model`` does not divide S the step is not split, as
+JAX's ``fit_spec`` drops the entry); the loss
+(:func:`repro_torch.models.transformer.lm_loss`,
 :func:`repro_torch.models.encdec.encdec_loss`) is then the mean over
 every rank's tokens, the same on every rank, and each gradient holds the
 rank's tokens' part of it.  The parts are summed, not averaged: over
@@ -72,7 +79,7 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed import mesh as M
 from repro_torch.models.model_api import ModelBundle
 from repro_torch.optim.adamw import AdamW
-from repro_torch.sharding.partition import batch_entry, spec_axes
+from repro_torch.sharding.partition import batch_axes, spec_axes
 from repro_torch.tree import leaves
 
 
@@ -128,6 +135,25 @@ def _cut_sequence(mb: Dict) -> Dict:
             if k in ("tokens", "labels") else v for k, v in mb.items()}
 
 
+def _step_layout(bundle: ModelBundle, batch: Dict, microbatches: int,
+                 mesh: M.Mesh):
+    """``(rows, split)``: the axes a microbatch's rows lie over (JAX's
+    ``[None, dp]`` constraint on the ``(mb, B/mb, ...)`` reshape, fitted:
+    replicated over an axis that does not divide them) and whether the
+    step splits the sequence (the caller's scope splits it and ``model``
+    divides the tokens' positions; else JAX's ``constrain_batch`` drops
+    the entry)."""
+    lead = batch["tokens"] if "tokens" in batch else next(iter(
+        batch.values()))
+    rows = batch_axes((lead.shape[0] // max(microbatches, 1),),
+                      mesh, bundle.run.sharding)[0]
+    split = M.splits_sequence()
+    if split:
+        _check_split(bundle)
+        split = lead.shape[1] % mesh.model == 0
+    return rows, split
+
+
 def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
                   mesh: Optional[M.Mesh] = None
                   ) -> Callable[[Any, Dict], tuple]:
@@ -143,12 +169,12 @@ def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
         dev = resolve_device(bundle.device)
         ps = trainable_leaves(params)
         batch = {k: _on(v, dev) for k, v in batch.items()}
-        # The step's scope carries the variant (the batch over its axes)
-        # and, from the caller's scope, whether the sequence is split.
-        split = mesh is not None and M.splits_sequence()
-        if split:
-            _check_split(bundle)
-        scope = (M.activation_sharding(mesh, variant, split)
+        # The step's scope carries the variant, the axes the microbatch's
+        # rows lie over and, from the caller's scope, whether the
+        # sequence is split.
+        rows, split = ((), False) if mesh is None else _step_layout(
+            bundle, batch, microbatches, mesh)
+        scope = (M.activation_sharding(mesh, variant, split, rows)
                  if mesh is not None else contextlib.nullcontext())
         cut = _cut_sequence if split else (lambda mb: mb)
         with scope:
@@ -173,12 +199,12 @@ def make_grads_fn(bundle: ModelBundle, microbatches: int = 1,
         if reduce:
             # Under the split each rank's loss is the global one and its
             # gradients its tokens' part of it: summed over both axes,
-            # not averaged.
-            bm = M.batch_mesh(mesh, variant)
-            axes = tuple(batch_entry(mesh, variant)) + (
-                ("model",) if split else ())
+            # not averaged.  Ranks whose rows are replicated computed the
+            # same rows: no reduction over their axis.
+            bm = M.batch_mesh(mesh, rows)
+            axes = rows + (("model",) if split else ())
             grads, loss = [g.float() for g in grads], loss.clone()
-            if not split:
+            if not split and bm.data_group is not None:
                 C.all_reduce_(loss, bm.data_group).div_(bm.data)
             for p, g in zip(ps, grads):
                 for group in _reduce_groups(p, mesh, axes):

@@ -313,44 +313,46 @@ def place_tables(params, mesh: M.Mesh, sharding: str = "fsdp_tp",
 
 def embedding_lookup_placed(emb_shard: torch.Tensor,
                             sparse_idx: torch.Tensor, mesh: M.Mesh,
-                            axes: tuple, grad_idx=None) -> torch.Tensor:
+                            axes: tuple, grad_idx=None,
+                            rows: tuple = ("data",)) -> torch.Tensor:
     """Pool-before-reduce lookup of tables whose rows lie over the mesh
     ``axes`` (a spec entry's: ``("data", "model")``, ``("model",)``,
     ``("data",)`` or none), part ``index`` of them on this rank
-    (:func:`repro_torch.sharding.partition.part_index`).
+    (:func:`repro_torch.sharding.partition.part_index`), for a batch
+    whose rows lie over the mesh axes ``rows`` (``data``; both under
+    ``"fsdp"``; fewer where they do not divide it).
 
     emb_shard: (T, Rs, D) this rank's rows ``[index Rs, (index + 1) Rs)``
     of each table; sparse_idx: (B_local, T, P) ids of the whole tables,
     this rank's part of the batch -> pooled (B_local, T, D) in
-    emb_shard's dtype.  Over ``data`` the data ranks hold other rows, so
-    the ids are all-gathered over ``data`` first and the rank pools its
-    rows for the global batch.  One launch of the shard window of
-    ``gather_pool`` pools the owned rows in fp32 (an id no rank owns adds
-    nothing); the (B, T, D) partials are reduce-scattered over ``data``
-    to this rank's B_local (the backward all-gathers the upstream
-    gradient: each data rank's loss reads its part) and summed over
-    ``model`` (the loss is replicated there: the identity backward), in
-    fp32, and cast once.  ``grad_idx`` (B_local, T, P), when given, holds
-    the ids the backward scatters to.  :func:`embedding_lookup_rowsharded`
-    is the ``("model",)`` case."""
+    emb_shard's dtype.  Over the axes both the tables' rows and the
+    batch's lie on, the ranks hold other rows of the tables for other
+    rows of the batch, so the ids are all-gathered over them first and
+    the rank pools its rows for all of their batch.  One launch of the
+    shard window of ``gather_pool`` pools the owned rows in fp32 (an id
+    no rank owns adds nothing); the partials are reduce-scattered over
+    those axes to this rank's B_local (the backward all-gathers the
+    upstream gradient: each rank's loss reads its part) and summed over
+    the tables' other axes (the batch is replicated there, and so is the
+    loss: the identity backward), in fp32, and cast once.  ``grad_idx``
+    (B_local, T, P), when given, holds the ids the backward scatters to.
+    :func:`embedding_lookup_rowsharded` is the ``("model",)`` case."""
     t, rs, d = emb_shard.shape
-    over_data = "data" in axes and mesh.data_group is not None
     index, _ = SP.part_index(axes, mesh)
+    shared = tuple(a for a in axes if a in rows)
+    group, n, _ = mesh.axes_group(shared)
+    summed = mesh.axes_group(tuple(a for a in axes if a not in rows))[0]
 
     def window(ids):
         if ids is None:
             return None
-        if over_data:
-            ids = M.gather_batch(ids, mesh)
-        return _flat_shard_ids(ids, t, rs, index * rs)
+        return _flat_shard_ids(M.gather_batch(ids, mesh, shared), t, rs,
+                               index * rs)
 
     pooled = ops.gather_pool_shard(emb_shard.reshape(t * rs, d),
                                    window(sparse_idx), window(grad_idx))
-    if over_data:
-        pooled = reduce_scatter_all_gather_bwd(pooled, mesh.data_group, 0,
-                                               mesh.data)
-    if "model" in axes:
-        pooled = all_reduce_identity_bwd(pooled, mesh.model_group)
+    pooled = reduce_scatter_all_gather_bwd(pooled, group, 0, n)
+    pooled = all_reduce_identity_bwd(pooled, summed)
     return pooled.reshape(-1, t, d).to(emb_shard.dtype)
 
 
@@ -428,8 +430,12 @@ def dlrm_forward(params, cfg: ModelConfig, dense: torch.Tensor,
         ids, grad_ids = ((sparse_idx, None) if sharded_lookup
                          else (_in_range(sparse_idx, r),
                                _wrapped(sparse_idx, r)))
+        # The batch's rows: the step's or serve's scope, else the
+        # variant's batch entry (the caller passes the rank's part).
+        rows = (M.row_axes() if M.active_mesh() is not None
+                else SP.batch_entry(pl.mesh, pl.variant))
         pooled = embedding_lookup_placed(params["emb"].to(ct), ids, pl.mesh,
-                                         _row_axes(pl.spec), grad_ids)
+                                         _row_axes(pl.spec), grad_ids, rows)
     elif sharded_lookup:
         mesh = M.active_mesh()
         if mesh is None:

@@ -274,9 +274,12 @@ def encdec_loss(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
                               encode(model, cfg, run, frames))
         return T.head_loss(model, cfg, x, labels)
     enc_seq = M.seq_split(frames.shape[1])
-    enc_out = C.all_gather_reduce_scatter_bwd(
-        encode(model, cfg, run, enc_seq.part(frames), enc_seq),
-        seq.mesh.model_group, 1, seq.mesh.model)
+    if enc_seq is None:  # model does not divide the frames: whole
+        enc_out = encode(model, cfg, run, frames)
+    else:
+        enc_out = C.all_gather_reduce_scatter_bwd(
+            encode(model, cfg, run, enc_seq.part(frames), enc_seq),
+            seq.mesh.model_group, 1, seq.mesh.model)
     x, _ = decode_forward(model, cfg, run, tokens, enc_out, seq=seq)
     return T.head_loss(model, cfg, x, labels, seq=seq)
 
@@ -383,14 +386,14 @@ def encdec_prefill_sharded(model: EncDecLM, cfg: ModelConfig,
     ``"cap"`` and ``"enc_len"`` Python ints."""
     T._check_serve(model, mesh)
     b, s = tokens.shape
-    toks, rows_dim, seq = T._rank_part(tokens, mesh, run)
-    fr, _, enc_seq = T._rank_part(frames, mesh, run)
+    toks, rows_dim, seq, rows = T._rank_part(tokens, mesh, run)
+    fr, _, enc_seq, _ = T._rank_part(frames, mesh, run)
     lo = seq.offset if seq else 0
     positions = torch.arange(lo, lo + toks.shape[1],
                              device=tokens.device)[None, :]
     cap, se = max(cache_len or s, s), frames.shape[1]
     dims = _cache_dims(cfg, b, cap, se, mesh, run)
-    with M.activation_sharding(mesh, run.sharding):
+    with M.activation_sharding(mesh, run.sharding, rows=rows):
         enc_out = encode(model, cfg, run, fr, enc_seq)
         x = T._embed(model, cfg, toks)
         cache = {"pos": s, "cap": cap, "enc_len": se}
@@ -442,11 +445,11 @@ def encdec_decode_sharded(model: EncDecLM, cfg: ModelConfig, run: RunConfig,
     logits the rank's rows'."""
     T._check_serve(model, mesh)
     b = token.shape[0]
-    tok, rows_dim, _ = T._rank_part(token, mesh, run)
+    tok, rows_dim, _, rows = T._rank_part(token, mesh, run)
     pos, se = cache["pos"], cache["enc_len"]
     dims = {k: d for k, (_, _, d) in _cache_dims(
         cfg, b, cache["cap"], se, mesh, run).items()}
-    with M.activation_sharding(mesh, run.sharding):
+    with M.activation_sharding(mesh, run.sharding, rows=rows):
         x = T._embed(model, cfg, tok)
         for i, blk in enumerate(model.dec_blocks):
             x = x + T._attn_decode_sharded(

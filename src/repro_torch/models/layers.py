@@ -33,11 +33,13 @@ mode, on the CPU JAX's online softmax over key blocks
 whose length lies on ``model`` (``shard_kv_seq``),
 :func:`decode_attention_sharded` attends each rank's slots and combines
 the ranks by their max and sum (JAX: GSPMD's reduction of the softmax
-across the sharded length).  The MoE's dispatch over the data ranks of a
+across the sharded length).  The MoE's dispatch over the ranks of a
 mesh, global or data-local (``_moe_dispatch_ffn_sharded``,
-``local_dispatch``), runs on each rank's own tokens with collectives over
-``data``; under a sequence split (served or trained) the global
-dispatch is over every rank's tokens.
+``local_dispatch``), runs the experts on each rank's own tokens with the
+dispatch's collectives over the ranks that hold the batch's other tokens:
+the axes its rows lie over and, under a sequence split (served or
+trained), ``model``; the data-local dispatch's shards never cross a row
+part, so it gathers over ``model`` only.
 ``attn_block(causal=False)`` is the encoder's self-attention (JAX's
 ``plain_attention(causal=False)``, XLA), the same
 kernel with its unmasked instantiation; the cross-attention, whose queries
@@ -90,9 +92,11 @@ promises no order on ties).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -102,6 +106,7 @@ from repro_torch.distributed.collectives import (all_reduce_identity_bwd,
                                                  all_reduce_sum_bwd,
                                                  copy_all_reduce_bwd)
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding import partition as SP
 
 # ---------------------------------------------------------------------------
 # Norms / rotary embeddings
@@ -424,104 +429,192 @@ def _capacity_slots(flat_e: torch.Tensor, n_experts: int, capacity: int):
     return slot, keep
 
 
-def _split_tokens(top_e: torch.Tensor, seq: M.SeqSplit) -> torch.Tensor:
-    """Every rank's top-K experts (T_r, K) of a sequence split, in the
-    global batch's token order (b-major over (B, S)): rank (d, m) holds
-    rows ``d`` and positions ``m`` of the (data, model) blocks."""
-    mesh = seq.mesh
-    k = top_e.shape[1]
-    rows = top_e.shape[0] // seq.length
-    parts = C.all_gather(top_e.reshape(1, rows, seq.length, k),
-                         mesh.world_group, 0, mesh.data * mesh.model)
-    return parts.reshape(mesh.data, mesh.model, rows, seq.length, k) \
-        .permute(0, 2, 1, 3, 4).reshape(-1, k)
+@dataclass(frozen=True)
+class _Tokens:
+    """Where this rank's tokens, ``rows`` rows of ``length`` positions
+    (b-major), lie in the (b, s) order of the step's or prefill's global
+    batch: row part ``ri`` of ``nr`` over ``row_group`` (JAX's fitted
+    batch entry; 1 part where the rows are replicated) and position part
+    ``pi`` of ``np_`` over ``pos_group`` (a sequence split over
+    ``model``).  ``split``: a statistic summed over the ranks passes its
+    gradient through unchanged (under a sequence split each rank's loss is
+    the step's and the step sums the ranks' gradients) rather than summed
+    (the step averages the ranks' gradients)."""
+    rows: int
+    length: int
+    nr: int = 1
+    ri: int = 0
+    row_group: Optional[dist.ProcessGroup] = None
+    np_: int = 1
+    pi: int = 0
+    pos_group: Optional[dist.ProcessGroup] = None
+    group: Optional[dist.ProcessGroup] = None
+    split: bool = False
+
+    def gather(self, x: torch.Tensor, block: bool = False) -> torch.Tensor:
+        """x (rows * length, ...) of this rank -> every rank's in (b, s)
+        order: of the whole batch, or with ``block`` of this rank's row
+        part (gathered over the positions only)."""
+        nr, group = (1, self.pos_group) if block else (self.nr, self.group)
+        if nr * self.np_ == 1:
+            return x
+        rest = tuple(x.shape[1:])
+        parts = C.all_gather(x.reshape((1, self.rows, self.length) + rest),
+                             group, 0, nr * self.np_)
+        return parts.reshape((nr, self.np_, self.rows, self.length) + rest) \
+            .transpose(1, 2).reshape((-1,) + rest)
+
+    def mine(self, xg: torch.Tensor, block: bool = False) -> torch.Tensor:
+        """The inverse pick: this rank's tokens of ``xg`` (in
+        :meth:`gather`'s order, a leading token dim)."""
+        ri = 0 if block else self.ri
+        rest = tuple(xg.shape[1:])
+        v = xg.reshape((-1, self.np_ * self.length) + rest)
+        return v[ri * self.rows:(ri + 1) * self.rows,
+                 self.pi * self.length:(self.pi + 1) * self.length] \
+            .reshape((-1,) + rest)
+
+    def sum(self, x: torch.Tensor, group) -> torch.Tensor:
+        """``x`` summed over ``group`` (one of the three), with the
+        backward :attr:`split` asks for."""
+        if group is None:
+            return x
+        return (all_reduce_identity_bwd(x, group) if self.split
+                else all_reduce_sum_bwd(x, group))
 
 
-def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor,
-                      mesh: Optional[M.Mesh] = None, tp=None,
-                      seq: Optional[M.SeqSplit] = None):
-    """Capacity dispatch and the expert SwiGLU.  xf (T, D) -> ``(out (T,
-    D), aux)``, aux the Switch load-balance loss ``E * sum(me * ce)`` (ce
-    counts every top-K assignment, dropped ones too).
+def _tokens(b: int, s: int, seq: Optional[M.SeqSplit]) -> _Tokens:
+    """The layout of x (b, s) under the active scope: its rows over the
+    scope's row axes, its positions over ``model`` under ``seq``."""
+    mesh = M.active_mesh()
+    if mesh is None:
+        return _Tokens(b, s)
+    rows = seq.rows if seq is not None else M.row_axes()
+    row_group, nr, ri = mesh.axes_group(rows)
+    if seq is None:
+        return _Tokens(b, s, nr, ri, row_group, group=row_group)
+    return _Tokens(b, s, nr, ri, row_group, mesh.model, mesh.model_rank,
+                   mesh.model_group, seq.group, split=True)
 
-    With ``mesh`` (data ranks > 1) the dispatch is global, as JAX's over
-    the microbatch's tokens, which the data ranks hold in data order: the
-    ranks' top-K, all-gathered, give every assignment's position within its
-    expert, the capacity counts all the ranks' tokens, and ``me`` sums
-    every rank's router probabilities (its backward sums over the ranks:
-    each rank's loss holds the same aux and the step averages the ranks'
-    gradients).  A token's expert output needs no other token, so the
-    experts then run on this rank's kept tokens only.
 
-    The tokens scatter into an (E*C+1, D) buffer whose last row takes every
-    dropped assignment; which of those writes lands there is unspecified,
-    and the row is discarded, so its gradient is zero (JAX's scatter
-    transpose).  No (T, E, C) one-hot is built.
-
-    With ``tp`` the experts run on this rank's ``moe_d_ff`` part: the
-    tokens enter them through "f", and each token's rows of their partial
-    outputs are summed by "g" before the router's weights scale them (so
-    the weights' gradient sums every rank's part).
-
-    With ``seq`` (a sequence split: a prefill, or a training step whose
-    loss is the mean over every rank's tokens) the dispatch is over the
-    tokens of every rank of the mesh, in the global batch's order (JAX's
-    combined axes, ``partition.py:102-104``); ``me`` sums every rank's
-    probabilities with an identity backward: each rank's loss is the
-    whole step's, and the step sums the ranks' gradients."""
+def _experts(p, xf: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
+             n_experts: int, n_slots: int, tp=None) -> torch.Tensor:
+    """The expert SwiGLU over the capacity buffer: each of this rank's
+    T * K assignments (``slot``, token-major; ``n_slots`` the drop slot)
+    scattered into an (n_slots + 1, D) buffer whose last row takes every
+    dropped one (which write lands there is unspecified, and the row is
+    discarded, so its gradient is zero: JAX's scatter transpose), the
+    experts run on its (E, n_slots / E, D) view, and each token's outputs
+    gathered back and weighted by its renormalised top-K probabilities.
+    No (T, E, C) one-hot is built.  With ``tp`` the experts run on this
+    rank's ``moe_d_ff`` part: the tokens enter them through "f", and each
+    token's rows of their partial outputs are summed by "g" before the
+    router's weights scale them (so the weights' gradient sums every
+    rank's part)."""
     t, d = xf.shape
-    e, k = cfg.n_experts, cfg.top_k
-    probs, top_p, top_e = _route(p, cfg, xf)
-    if seq is not None:
-        all_e = _split_tokens(top_e, seq)
-        n_tok = all_e.shape[0]
-        me = all_reduce_identity_bwd(probs.sum(dim=0),
-                                     seq.mesh.world_group) / n_tok
-    elif mesh is None:
-        all_e, n_tok, me = top_e, t, probs.mean(dim=0)
-    else:
-        all_e = M.gather_batch(top_e, mesh)
-        n_tok = all_e.shape[0]
-        me = all_reduce_sum_bwd(probs.sum(dim=0), mesh.data_group) / n_tok
-    ce = torch.bincount(all_e.reshape(-1), minlength=e).float() / (n_tok * k)
-    aux = e * torch.sum(me * ce)
-
-    c = max(1, int(math.ceil(cfg.capacity_factor * n_tok * k / e)))
-    slot, _ = _capacity_slots(all_e.reshape(-1), e, c)
-    if seq is not None:
-        sm = seq.mesh
-        rows = t // seq.length
-        slot = slot.view(sm.data * rows, sm.model * seq.length, k)[
-            sm.data_rank * rows:(sm.data_rank + 1) * rows,
-            seq.offset:seq.offset + seq.length].reshape(-1)
-    elif mesh is not None:
-        slot = slot[mesh.data_rank * t * k:(mesh.data_rank + 1) * t * k]
+    k = top_p.shape[1]
     # Token-major copies of each token, one per assignment; the backward
     # sums them over K (no atomics).
     xd = copy_all_reduce_bwd(xf, tp)
     x_rep = xd[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = xf.new_zeros((e * c + 1, d)).index_put((slot,), x_rep)
-    h = buf[:e * c].view(e, c, d)
+    buf = xf.new_zeros((n_slots + 1, d)).index_put((slot,), x_rep)
+    h = buf[:n_slots].view(n_experts, n_slots // n_experts, d)
     y = torch.bmm(F.silu(torch.bmm(h, p["w1"])) * torch.bmm(h, p["w3"]),
                   p["w2"])
-    y_flat = torch.cat([y.reshape(e * c, d), y.new_zeros((1, d))])
+    y_flat = torch.cat([y.reshape(n_slots, d), y.new_zeros((1, d))])
     # index_select, whose backward adds into the rows (only the discarded
     # zero row takes several); indexing's backward sorts the slots and
     # walks the drop slot's duplicates one after another.
     gathered = all_reduce_identity_bwd(y_flat.index_select(0, slot), tp) \
         * top_p.reshape(-1, 1).to(y.dtype)
-    return gathered.view(t, k, d).sum(dim=1), aux
+    return gathered.view(t, k, d).sum(dim=1)
 
 
-def _data_mesh() -> Optional[M.Mesh]:
-    """The active scope's batch mesh (:func:`repro_torch.distributed.mesh.
-    batch_mesh`: every rank a data rank under ``"fsdp"``) when it has more
-    than one data rank, else None."""
-    mesh = M.active_mesh()
-    if mesh is None:
-        return None
-    mesh = M.batch_mesh(mesh)
-    return mesh if mesh.data > 1 else None
+def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor, lay: _Tokens,
+                      tp=None):
+    """Capacity dispatch over the batch's every token, and the expert
+    SwiGLU.  xf (T, D) this rank's tokens -> ``(out (T, D), aux)``, aux
+    the Switch load-balance loss ``E * sum(me * ce)`` (ce counts every
+    top-K assignment, dropped ones too).
+
+    The dispatch is global, as JAX's over the step's or prefill's tokens
+    (with a sequence split JAX's combined axes, ``partition.py:102-104``):
+    the ranks' top-K, all-gathered over ``lay.group`` into the global
+    (b, s) order, give every assignment's position within its expert, the
+    capacity counts every token, and ``me`` sums every rank's router
+    probabilities (:meth:`_Tokens.sum`).  Ranks whose rows are replicated
+    hold the same tokens and gather nothing over that axis.  A token's
+    expert output needs no other token, so the experts then run on this
+    rank's kept tokens only."""
+    t = xf.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    probs, top_p, top_e = _route(p, cfg, xf)
+    all_e = lay.gather(top_e)
+    n_tok = all_e.shape[0]
+    me = (probs.mean(dim=0) if lay.group is None
+          else lay.sum(probs.sum(dim=0), lay.group) / n_tok)
+    ce = torch.bincount(all_e.reshape(-1), minlength=e).float() / (n_tok * k)
+    aux = e * torch.sum(me * ce)
+    c = max(1, int(math.ceil(cfg.capacity_factor * n_tok * k / e)))
+    slot, _ = _capacity_slots(all_e.reshape(-1), e, c)
+    slot = lay.mine(slot.view(n_tok, k)).reshape(t * k)
+    return _experts(p, xf, slot, top_p, e, e * c, tp), aux
+
+
+def _moe_dispatch_ffn_sharded(p, cfg: ModelConfig, xf: torch.Tensor,
+                              lay: _Tokens, n_shards: int, tp=None):
+    """JAX's data-local dispatch (``_moe_dispatch_ffn_sharded``,
+    :507-556): the batch's T tokens in (b, s) order cut into ``n_shards``
+    contiguous shards of T / n_shards, each dispatched on its own with
+    capacity ``ceil(cf * T/n_shards * K / E)``, the aux the mean of the
+    shards' (each over its own ``me`` and ``ce``).
+
+    ``n_shards`` is the product of the variant's batch entry and the rows'
+    parts a prefix of it, so a shard never crosses a row part: the ranks'
+    top-K are gathered over the positions only (``model`` under a
+    sequence split), each shard's ranks counted within it, and each of
+    this rank's assignments goes to the buffer of its shard: expert ``e``,
+    shard ``j`` of the shards this rank's tokens touch, at ``(e nt + j) C
+    + rank`` (one shard a rank when each holds its own: JAX's shard's
+    buffer).  The shards' ``me`` sum the ranks' probabilities over the
+    positions; the aux is the mean over this row part's shards, summed
+    over the row parts and divided by their count."""
+    t = xf.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    probs, top_p, top_e = _route(p, cfg, xf)
+    blk_e = lay.gather(top_e, block=True)  # this row part's tokens
+    ns = n_shards // lay.nr  # shards within the row part
+    tl = blk_e.shape[0] // ns
+    shard = torch.arange(ns, device=xf.device).repeat_interleave(tl * k)
+    virt = blk_e.reshape(-1) * ns + shard  # expert e of shard j: e ns + j
+    ce = torch.bincount(virt, minlength=e * ns).float().view(e, ns).t() \
+        / (tl * k)
+    if ns == 1 and lay.pos_group is None:
+        me = probs.mean(dim=0)[None]
+    else:
+        mine = lay.mine(torch.arange(blk_e.shape[0], device=xf.device),
+                        block=True) // tl  # the shard of each token here
+        onehot = (mine[None, :] == torch.arange(ns, device=xf.device)[
+            :, None]).to(probs.dtype)
+        me = lay.sum(onehot @ probs, lay.pos_group) / tl
+    aux = lay.sum((e * (me * ce).sum(-1)).mean(), lay.row_group) / lay.nr
+    c = max(1, int(math.ceil(cfg.capacity_factor * tl * k / e)))
+    slot, _ = _capacity_slots(virt, e * ns, c)
+    slot = lay.mine(slot.view(-1, k), block=True).reshape(t * k)
+    # Keep the buffer of the shards this rank's tokens touch only.
+    lo, width = lay.pi * lay.length, lay.np_ * lay.length
+    touched = sorted({j for r in range(lay.rows)
+                      for j in range((r * width + lo) // tl,
+                                     (r * width + lo + lay.length - 1) // tl
+                                     + 1)})
+    nt = len(touched)
+    if nt < ns:
+        where = torch.full((ns,), -1, dtype=torch.int64, device=xf.device)
+        where[touched] = torch.arange(nt, device=xf.device)
+        kept = slot < e * ns * c
+        ex, j, r = slot // (ns * c), (slot // c) % ns, slot % c
+        slot = torch.where(kept, (ex * nt + where[j]) * c + r, e * nt * c)
+    return _experts(p, xf, slot, top_p, e, e * nt * c, tp), aux
 
 
 def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
@@ -530,15 +623,13 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     """Top-K capacity-dispatched MoE.  x (B, S, D) -> ``(out, aux)``; the
     dispatched experts tensor parallel over ``tp``.
 
-    Under a mesh scope with more than one data rank (x this rank's rows)
-    the dispatch is global (:func:`_moe_dispatch_ffn`), or with
-    ``local_dispatch`` JAX's ``_moe_dispatch_ffn_sharded``: each rank
-    dispatches its own tokens with capacity ``ceil(cf * T_local * K / E)``
-    and the aux is the mean of the ranks' (its backward sums over them).
-
-    With ``seq`` (x this rank's positions of a sequence split, a prefill
-    or a training step) the global dispatch takes every rank's tokens
-    (data-local dispatch is not ported there).
+    Under a mesh scope (x this rank's rows, the scope's row axes; with
+    ``seq`` its positions of a sequence split, a prefill or a training
+    step) the dispatch is global over every rank's tokens
+    (:func:`_moe_dispatch_ffn`), or with ``local_dispatch`` JAX's
+    ``_moe_dispatch_ffn_sharded`` over as many shards as the variant's
+    batch entry has ranks, when they divide the batch's tokens (else the
+    global dispatch, as JAX falls back).
 
     ``dense_route=True`` (decode: few tokens) runs every expert on every
     token and combines them with a (T, E) weight matrix holding each
@@ -547,20 +638,18 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor,
     summed over the ranks after the combine."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    if seq is not None and not dense_route:
-        if local_dispatch:
-            raise NotImplementedError(
-                "moe_local_dispatch under a sequence split (fsdp_seq): "
-                "the global dispatch is ported")
-        out, aux = _moe_dispatch_ffn(p, cfg, xf, tp=tp, seq=seq)
-        return out.view(b, s, d), aux
     if not dense_route:
-        mesh = _data_mesh()
+        lay = _tokens(b, s, seq)
+        mesh, n_shards = M.active_mesh(), 1
         if local_dispatch and mesh is not None:
-            out, aux = _moe_dispatch_ffn(p, cfg, xf, tp=tp)
-            aux = all_reduce_sum_bwd(aux, mesh.data_group) / mesh.data
+            for a in SP.batch_entry(mesh, M.active_variant()):
+                n_shards *= mesh.size(a)
+        n_tok = b * s * lay.nr * lay.np_
+        if n_shards > 1 and n_tok % n_shards == 0:
+            out, aux = _moe_dispatch_ffn_sharded(p, cfg, xf, lay, n_shards,
+                                                 tp)
         else:
-            out, aux = _moe_dispatch_ffn(p, cfg, xf, mesh, tp)
+            out, aux = _moe_dispatch_ffn(p, cfg, xf, lay, tp)
         return out.view(b, s, d), aux
     _, top_p, top_e = _route(p, cfg, xf)
     xd = copy_all_reduce_bwd(xf, tp)

@@ -28,9 +28,10 @@ of the encoder-decoder LM: the whole model drawn from the seed, then cut by
 compressed all-reduce takes whole gradients), so every rank's shard has
 the bits of the same whole model.  DLRM's ``init`` gives the rank its rows
 of ``run.emb_rows``'s layout (:func:`repro_torch.models.dlrm.init_placed`,
-the MLPs whole) under ``"fsdp_tp"`` and ``"tp"``; under ``"dp"`` (and so
-under ``run.grad_compression``) the tables stay whole, and ``"fsdp"``,
-whose batch splits over both axes, is refused for DLRM.
+the MLPs whole) under ``"fsdp_tp"``, ``"tp"`` and ``"fsdp"`` (whose
+batch splits over both axes: the lookup gathers the ids over every axis
+both the rows and the batch lie on); under ``"dp"`` (and so under
+``run.grad_compression``) the tables stay whole.
 
 With a mesh inside a process group, an LM's ``prefill(params, batch,
 cache_len)`` and ``decode(params, token, cache)`` serve this rank's
@@ -203,10 +204,6 @@ def build(cfg: ModelConfig, device="cuda",
         def dlrm_init(seed=0):
             if mesh is None or mesh.data_group is None or sharding == "dp":
                 return D.init_dlrm(cfg, seed, device)
-            if sharding == "fsdp":
-                raise NotImplementedError(
-                    "DLRM's tables under sharding='fsdp' (the batch over "
-                    "both axes): use 'fsdp_tp', 'tp' or 'dp'")
             return D.init_placed(cfg, seed, device, mesh, sharding,
                                  run.emb_rows)
 

@@ -408,23 +408,62 @@ def _layer_decode(blk: Block, cfg: ModelConfig, x: torch.Tensor,
     return x + L.mlp_block(blk.mlp, h2)
 
 
+class _EmbedRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each row's gradients in fp32 and
+    rounds the sum once to the table's dtype: an fp32 ``index_put_`` with
+    ``accumulate`` over the distinct ids (sorted, with no float atomics:
+    on the card PyTorch's sorted path, so two runs give the same bits),
+    then one cast.  A bf16 scatter-add stagnates over an id repeated
+    hundreds of times (JAX's transpose of ``embed[tokens]`` sums in the
+    compute dtype)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table = (tuple(table.shape), table.dtype)
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        uniq, where = torch.unique(ids.reshape(-1), return_inverse=True)
+        sums = grad.new_zeros((uniq.shape[0], shape[1]), dtype=torch.float32)
+        sums.index_put_((where,), grad.reshape(-1, shape[1]).float(),
+                        accumulate=True)
+        out = grad.new_zeros(shape, dtype=dtype)
+        return out.index_put_((uniq,), sums.to(dtype)), None
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; under autograd a table below fp32 sums its
+    gradient in fp32 (:class:`_EmbedRows`), a wider one as indexing
+    does."""
+    if table.element_size() >= 4 or not torch.is_grad_enabled() \
+            or not table.requires_grad:
+        return table[ids]
+    return _EmbedRows.apply(table, ids)
+
+
 def _embed(model: TransformerLM, cfg: ModelConfig, tokens: torch.Tensor,
            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> (B, S, D) rows of ``embed`` in the compute dtype
-    (indexing then casting gives JAX's cast-then-index values).  With
-    ``frontend_embeds`` (B, F, D) and a config that has a frontend, those
-    embeddings, cast to the compute dtype, replace the first F positions
-    (JAX's ``dynamic_update_slice(x, fe, (0, 0, 0))``); an S below F
-    raises rather than clamp.  Vocab parallel (``embed``'s rows on
-    ``model``), each rank adds its range's rows and zeros for the other
-    ids, and the ranks' rows are summed (Megatron's "g")."""
+    (indexing then casting gives JAX's cast-then-index values; a bf16
+    table's gradient is summed in fp32 and rounded once, :func:`_rows`).
+    With ``frontend_embeds`` (B, F, D) and a config that has a frontend,
+    those embeddings, cast to the compute dtype, replace the first F
+    positions (JAX's ``dynamic_update_slice(x, fe, (0, 0, 0))``); an S
+    below F raises, as ``dynamic_update_slice`` does for an update larger
+    than its operand.  Vocab parallel (``embed``'s rows on ``model``),
+    each rank adds its range's rows and zeros for the other ids, and the
+    ranks' rows are summed (Megatron's "g")."""
     table, group, lo = _vocab_view(model.embed, 0)
     if group is None:
-        x = table[tokens].to(torch_dtype(cfg.compute_dtype))
+        x = _rows(table, tokens).to(torch_dtype(cfg.compute_dtype))
     else:
         local = tokens - lo
         mine = (local >= 0) & (local < table.shape[0])
-        rows = table[local.clamp(0, table.shape[0] - 1)]
+        rows = _rows(table, local.clamp(0, table.shape[0] - 1))
         x = torch.where(mine[..., None], rows, rows.new_zeros(()))
         x = C.all_reduce_identity_bwd(
             x.to(torch_dtype(cfg.compute_dtype)), group)
@@ -544,10 +583,11 @@ def head_loss(model: nn.Module, cfg: ModelConfig, x: torch.Tensor,
     over chunks does.  A vocab-parallel head takes its input through
     Megatron's "f".  Under ``seq`` (x and labels this rank's positions of
     a sequence split) the numerator and the denominator are summed over
-    every rank of the mesh before the mean, so each rank's loss is the
-    step's mean over the global batch; the numerator's sum passes the
-    gradient through unchanged (each rank's own tokens), and the step
-    sums the ranks' gradients."""
+    the ranks that hold the batch's tokens (``seq.group``: its rows' axes
+    and ``model``) before the mean, so each rank's loss is the step's
+    mean over the global batch; the numerator's sum passes the gradient
+    through unchanged (each rank's own tokens), and the step sums the
+    ranks' gradients."""
     s = x.shape[1]
     mask = (labels >= 0).float()
     labels_c = labels.clamp_min(0).long()
@@ -566,9 +606,8 @@ def head_loss(model: nn.Module, cfg: ModelConfig, x: torch.Tensor,
     else:
         num, den = ce(slice(None))
     if seq is not None:
-        world = seq.mesh.world_group
-        num = C.all_reduce_identity_bwd(num, world)
-        den = C.all_reduce_identity_bwd(den, world)
+        num = C.all_reduce_identity_bwd(num, seq.group)
+        den = C.all_reduce_identity_bwd(den, seq.group)
     return num / den.clamp_min(1.0)
 
 
@@ -708,30 +747,20 @@ def _check_serve(model: nn.Module, mesh: M.Mesh) -> None:
                              f"on {mesh.shape}")
 
 
-def _rows_spec(mesh: M.Mesh, run: RunConfig, shape) -> tuple:
-    """The batch's spec (JAX's ``batch_pspecs``) for a (B, S) batch;
-    raises unless B splits over every axis of the variant's batch entry
-    (JAX would replicate the rows over an axis that does not divide
-    them; the port's MoE dispatch and cache layout count each row once)."""
-    spec = SP.batch_spec(tuple(shape), mesh, run.sharding)
-    want = SP.batch_entry(mesh, run.sharding)
-    if SP.axes_of(spec[0] if spec else None) != want:
-        raise ValueError(f"a batch of {shape[0]} rows does not split over "
-                         f"{want} ({mesh.shape}) under {run.sharding!r}")
-    return spec
-
-
 def _rank_part(t: torch.Tensor, mesh: M.Mesh, run: RunConfig):
     """``(this rank's part of the global batch leaf t (B, S, ...) by
     batch_pspecs, the dim its rows lie over model or None, its sequence
-    split or None)``."""
-    spec = _rows_spec(mesh, run, tuple(t.shape))
+    split or None, the axes its rows lie over)``.  Rows or positions that
+    an axis does not divide are replicated over it, as JAX's
+    ``fit_spec`` leaves them: every rank of that axis computes them."""
+    spec = SP.batch_spec(tuple(t.shape), mesh, run.sharding)
+    rows, pos = SP.batch_axes(tuple(t.shape), mesh, run.sharding)
     part = SP.shard_of(t, spec, mesh)
     seq = None
-    if len(spec) > 1 and spec[1] == "model":
+    if pos:
         n = part.shape[1]
-        seq = M.SeqSplit(mesh, mesh.model_rank * n, n)
-    return part, (0 if _model_dim(spec[:1]) == 0 else None), seq
+        seq = M.SeqSplit(mesh, mesh.model_rank * n, n, rows)
+    return part, (0 if "model" in rows else None), seq, rows
 
 
 def _last_position(x: torch.Tensor, seq: Optional[M.SeqSplit],
@@ -833,9 +862,11 @@ def prefill_sharded(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     ``run.sharding``, or whole under ``"dp"``) of a model served over
     ``mesh``.  tokens (B, S) and ``frontend_embeds`` are the global
     batch; the rank computes its part by ``batch_pspecs``: its rows over
-    the data axes (and ``model`` under ``"fsdp"``) and, under
-    ``"fsdp_seq"`` where ``model`` divides S, its positions ``[m S/model,
-    (m+1) S/model)`` (rope at the absolute positions, the frontend's
+    the data axes (and ``model`` under ``"fsdp"``) where they divide B,
+    the whole batch over the rest (JAX's ``fit_spec`` replicates it there),
+    and, under ``"fsdp_seq"`` where ``model`` divides S, its positions
+    ``[m S/model, (m+1) S/model)`` (rope at the absolute positions, the
+    frontend's
     rows spliced where they fall, K/V gathered over ``model`` each layer,
     the queries at their offset, the MoE's dispatch over every rank's
     tokens, the last position's hidden row taken from the last model
@@ -846,20 +877,21 @@ def prefill_sharded(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     and the ring's whole capacity ``"cap"`` are Python ints."""
     _check_serve(model, mesh)
     b, s = tokens.shape
-    toks, rows_dim, seq = _rank_part(tokens, mesh, run)
+    toks, rows_dim, seq, rows = _rank_part(tokens, mesh, run)
     lo = seq.offset if seq else 0
     positions = torch.arange(lo, lo + toks.shape[1],
                              device=tokens.device)[None, :]
     fe = None
     if frontend_embeds is not None and cfg.n_frontend_tokens:
-        fe = SP.shard_of(frontend_embeds, _rows_spec(mesh, run, (b, s))[:1],
+        fe = SP.shard_of(frontend_embeds,
+                         SP.batch_spec((b, s), mesh, run.sharding)[:1],
                          mesh)[:, lo:lo + toks.shape[1]]
         fe = fe if fe.shape[1] else None
     cap = cache_len or s
     if cfg.attn_type == "sliding":
         cap = min(cap, cfg.window)
     layout = _cache_layout(cfg, b, cap, mesh, run)
-    with M.activation_sharding(mesh, run.sharding):
+    with M.activation_sharding(mesh, run.sharding, rows=rows):
         x = _embed(model, cfg, toks, fe)
         cache = {"pos": s, "cap": cap}
         for name, (shape, spec, _) in layout.items():
@@ -954,12 +986,12 @@ def decode_sharded(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     with ``pos + 1``; the logits (B_r, V) fp32 are the rank's rows'."""
     _check_serve(model, mesh)
     b = token.shape[0]
-    tok, rows_dim, _ = _rank_part(token, mesh, run)
+    tok, rows_dim, _, rows = _rank_part(token, mesh, run)
     pos = cache["pos"]
     dims = {name: dim for name, (_, _, dim) in _cache_layout(
         cfg, b, cache["cap"], mesh, run).items()}
     state = list(dims)
-    with M.activation_sharding(mesh, run.sharding):
+    with M.activation_sharding(mesh, run.sharding, rows=rows):
         x = _embed(model, cfg, tok)
         for i, blk in enumerate(model.blocks):
             lc = {k: cache[k][i] for k in state}

@@ -226,6 +226,18 @@ def batch_spec(shape: Sequence[int], mesh,
     return fit_spec(shape, entries, mesh)
 
 
+def batch_axes(shape: Sequence[int], mesh, sharding: str = "fsdp_tp"
+               ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """``(rows, positions)``: the axes a batch leaf of ``shape``'s rows
+    (dim 0) and positions (dim 1) lie over after :func:`batch_spec`'s
+    ``fit_spec``; the leaf is replicated over every other axis (GSPMD then
+    computes its rows on each rank of such an axis, counted once).  The
+    rows' axes are a prefix of :func:`batch_entry`'s."""
+    spec = batch_spec(shape, mesh, sharding)
+    return (axes_of(spec[0]) if spec else (),
+            axes_of(spec[1]) if len(spec) > 1 else ())
+
+
 def batch_pspecs(batch_struct: Dict, mesh,
                  sharding: str = "fsdp_tp") -> Dict[str, Spec]:
     """``{name: spec}`` of a batch (tensors or anything with a

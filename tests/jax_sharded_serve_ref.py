@@ -5,7 +5,9 @@ a script in a process of its own with
     python tests/jax_sharded_serve_ref.py INPUTS.npz OUT.npz
 
 For each case of the inputs (``arch|sharding|data|model|shard_kv_seq|
-cap``): the reduced arch's ``build(cfg).init(PRNGKey(0))`` placed by
+cap``, some with ``|B|S``, the batch's shape, which the inputs hold, and
+``|bf16``): the reduced arch's ``build(cfg).init(PRNGKey(0))`` (in bf16
+the fp32 draws cast) placed by
 ``param_pspecs`` on a (data, model) mesh of Auto axes over the four CPU
 devices, the batch by ``batch_pspecs``, and, as ``launch/dryrun.py:104-122``
 lowers them, ``bundle.prefill`` (cache capacity ``cap``) and
@@ -30,12 +32,23 @@ from repro.models import model_api as MA
 from repro.sharding import partition as sp
 
 
-def case_cfg(arch):
-    """The reduced arch; hymba's window cut to 6, so its ring of keys is
-    shorter than the prompt."""
-    cfg = get_config(arch).reduced()
+def case_cfg(arch, dtype="float32"):
+    """The reduced arch in ``dtype``; hymba's window cut to 6, so its ring
+    of keys is shorter than the prompt."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype=dtype,
+                              compute_dtype=dtype)
     return dataclasses.replace(cfg, window=6) if cfg.family == "hybrid" \
         else cfg
+
+
+def init_params(bundle, cfg, run):
+    """``build(cfg).init(PRNGKey(0))`` of the fp32 arch, each leaf cast to
+    ``cfg``'s dtype for it (the port copies the same fp32 draws)."""
+    fp32 = MA.build(dataclasses.replace(cfg, param_dtype="float32",
+                                        compute_dtype="float32"), run)
+    return jax.tree.map(lambda a, s: a.astype(s.dtype),
+                        fp32.init(jax.random.PRNGKey(0)),
+                        bundle.param_struct())
 
 
 def put_cache(out, prefix, cache, mesh):
@@ -47,15 +60,16 @@ def put_cache(out, prefix, cache, mesh):
 
 
 def run_case(data, case, out):
-    arch, sharding, nd, nm, kv_seq, cap = case.split("|")
-    cfg = case_cfg(arch)
+    arch, sharding, nd, nm, kv_seq, cap = case.split("|")[:6]
+    cfg = case_cfg(arch, "bfloat16" if case.endswith("|bf16")
+                   else "float32")
     cap = int(cap)
     run = RunConfig(sharding=sharding, shard_kv_seq=kv_seq == "1")
     bundle = MA.build(cfg, run)
     mesh = make_mesh((int(nd), int(nm)))
     param_sh = sp.to_shardings(sp.param_pspecs(
         bundle.param_struct(), mesh, sharding), mesh)
-    params = jax.device_put(bundle.init(jax.random.PRNGKey(0)), param_sh)
+    params = jax.device_put(init_params(bundle, cfg, run), param_sh)
     batch = {"tokens": jnp.asarray(data[f"{case}/tokens"])}
     if f"{case}/frontend" in data:
         batch["frontend"] = jnp.asarray(data[f"{case}/frontend"])

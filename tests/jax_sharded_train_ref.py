@@ -7,10 +7,13 @@ a script in a process of its own with
 (with ``PART/PARTS``, the cases whose index modulo PARTS is PART).
 
 For each case of the inputs (``arch|sharding|data|model``, a DLRM case
-with ``|sharded`` or ``|dense``, its lookup): the reduced arch's
-``build(cfg).init(PRNGKey(0))`` placed by ``param_pspecs`` (DLRM's tables
-by ``emb_rows="all"``) on a (data, model) mesh of Auto axes over the four
-CPU devices, AdamW's state by ``opt_struct_and_specs``, and
+with ``|sharded`` or ``|dense``, its lookup; options ``|B=``, ``|S=``,
+the batch and sequence, ``|local``, ``moe_local_dispatch``, and
+``|bf16``): the reduced arch's ``build(cfg).init(PRNGKey(0))`` (in bf16
+the fp32 draws cast) placed by
+``param_pspecs`` (DLRM's tables by ``emb_rows="all"``) on a (data,
+model) mesh of Auto axes over the four CPU devices, AdamW's state by
+``opt_struct_and_specs``, and
 ``make_train_step`` jitted with those shardings (two microbatches, the
 case's variant under ``activation_sharding``) over ``batch_at``'s batches
 (whisper's with the inputs' audio frames; DLRM's the inputs' batches).
@@ -19,6 +22,7 @@ parameter and of the moments after the last step, keyed by the rank at
 the device's mesh position (``mesh.devices``) and the port's leaf name
 (the stacked layer axes unrolled).
 """
+import dataclasses
 import sys
 
 import jax
@@ -54,14 +58,26 @@ def put_shards(out, prefix, tree, mesh):
                 out[f"{prefix}/r{rank}/{'.'.join(names)}"] = data
 
 
-def batches(data, arch, cfg, steps):
+def case_opts(case):
+    """A case's options after ``arch|sharding|data|model``: ``{"B": n,
+    "S": n}`` where given, and its flags (``local``, DLRM's lookup)."""
+    out = {}
+    for opt in case.split("|")[4:]:
+        key, _, val = opt.partition("=")
+        out[key] = int(val) if val else True
+    return out
+
+
+def batches(data, arch, cfg, steps, opts):
     """The case's batches: DLRM's from the inputs, an LM's ``batch_at``'s
-    (with whisper's frames from the inputs)."""
+    (with whisper's frames from the inputs) at the case's ``S`` and ``B``
+    where it gives them."""
     if cfg.family == "dlrm":
         return [{k: jnp.asarray(data[f"dlrm/{s}/{k}"])
                  for k in ("dense", "sparse", "label")} for s in range(steps)]
-    dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=int(data["seq"]),
-                        global_batch=int(data["batch"]))
+    dcfg = LMDataConfig(vocab=cfg.vocab,
+                        seq_len=opts.get("S", int(data["seq"])),
+                        global_batch=opts.get("B", int(data["batch"])))
     out = []
     for s in range(steps):
         b = {k: jnp.asarray(v) for k, v in batch_at(dcfg, s).items()}
@@ -72,19 +88,28 @@ def batches(data, arch, cfg, steps):
 
 
 def run_case(data, case, out):
-    arch, sharding, nd, nm, *lookup = case.split("|")
-    cfg = get_config(arch).reduced()
+    arch, sharding, nd, nm = case.split("|")[:4]
+    opts = case_opts(case)
+    fp32 = get_config(arch).reduced()
+    dtype = "bfloat16" if "bf16" in opts else "float32"
+    cfg = dataclasses.replace(fp32, param_dtype=dtype, compute_dtype=dtype)
     steps, mb = int(data["steps"]), int(data["microbatches"])
-    bundle = MA.build(cfg, RunConfig(
-        remat="none", sharding=sharding,
-        dlrm_sharded_lookup=lookup == ["sharded"]))
+    run = RunConfig(remat="none", sharding=sharding,
+                    dlrm_sharded_lookup="sharded" in opts,
+                    moe_local_dispatch="local" in opts)
+    bundle = MA.build(cfg, run)
     opt_cfg = OptConfig(lr=float(data["lr"]), total_steps=steps)
     mesh = make_mesh((int(nd), int(nm)))
     pspecs = sp.param_pspecs(bundle.param_struct(), mesh, sharding)
     param_sh = sp.to_shardings(pspecs, mesh)
     _, opt_pspecs = opt_struct_and_specs(bundle, pspecs, opt_cfg)
     opt_sh = sp.to_shardings(opt_pspecs, mesh)
-    params = jax.device_put(bundle.init(jax.random.PRNGKey(0)), param_sh)
+    # The fp32 arch's draws, cast to the case's dtype leaf by leaf (the
+    # port copies the same fp32 draws).
+    params = jax.device_put(jax.tree.map(
+        lambda a, s: a.astype(s.dtype),
+        MA.build(fp32, run).init(jax.random.PRNGKey(0)),
+        bundle.param_struct()), param_sh)
     opt = jax.jit(lambda p: init_opt(opt_cfg, p), out_shardings=opt_sh)(
         params)
     losses, norms = [], []
@@ -92,7 +117,7 @@ def run_case(data, case, out):
         step = jax.jit(make_train_step(bundle, opt_cfg, mb, mesh),
                        in_shardings=(param_sh, opt_sh, None),
                        out_shardings=(param_sh, opt_sh, None))
-        for batch in batches(data, arch, cfg, steps):
+        for batch in batches(data, arch, cfg, steps, opts):
             params, opt, m = step(params, opt, batch)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))

@@ -446,6 +446,62 @@ def test_microbatch_shard_cuts_the_microbatches_first():
         M.microbatch_shard(x, 3, 0, mesh)
 
 
+@pytest.mark.parametrize("n,variant,want", [
+    (8, "fsdp_tp", [[4, 5, 6, 7], [4, 5, 6, 7]]),
+    (1, "fsdp_tp", [[0], [0]]),  # replicated over data
+    (2, "fsdp", [[1], [1]]),  # over data, replicated over model
+    (4, "fsdp", [[2], [3]]),  # over both axes
+    (3, "fsdp", [[0, 1, 2], [0, 1, 2]]),
+])
+def test_batch_shard_takes_the_fitted_rows(n, variant, want):
+    """Ranks (1, 0) and (1, 1) of a (2, 2) mesh: their rows by JAX's fitted
+    batch spec, the whole batch over an axis that does not divide it; a
+    microbatch that one data rank cannot split is whole on both."""
+    x = torch.arange(n)
+    got = [M.batch_shard(x, M.Mesh(2, 2, r), variant).tolist()
+           for r in (2, 3)]
+    assert got == want
+    mesh = M.Mesh(2, 2, 3)
+    assert [M.microbatch_shard(torch.arange(2), 2, i, mesh).tolist()
+            for i in (0, 1)] == [[0], [1]]
+
+
+def test_seq_split_drops_what_model_does_not_divide():
+    """Inside an fsdp_seq scope on a (2, 2) mesh, 16 positions split at
+    offset 8 on model rank 1 with the rows' axes of the scope; 15 are not
+    split (None), as JAX's ``fit_spec`` drops the entry."""
+    mesh = M.Mesh(2, 2, 3)
+    with M.activation_sharding(mesh, "fsdp_seq"):
+        assert M.seq_split(15) is None
+        sp = M.seq_split(16)
+        assert (sp.offset, sp.length, sp.rows) == (8, 8, ("data",))
+        assert M.token_axes() == ("data", "model")
+    with M.activation_sharding(mesh, "fsdp_seq", rows=()):
+        assert M.seq_split(16).rows == () and M.token_axes() == ("model",)
+    with M.activation_sharding(mesh, "fsdp", split_seq=False,
+                               rows=("data",)):
+        bm = M.batch_mesh(mesh)
+        assert (bm.data, bm.model, bm.data_rank) == (2, 1, 1)
+        assert M.token_axes() == ("data",)
+    assert M.row_axes() == () and M.batch_mesh(mesh, ()).data == 1
+
+
+@pytest.mark.parametrize("axes,want", [
+    (("data", "model"), ("W",)), (("model", "data"), ("W",)),
+    (("data",), ("D",)), (("model",), ("Mo",)), ((), ())])
+def test_mesh_groups_cover_the_axes(axes, want):
+    """One group whose all-reduce covers the axes (the world for both),
+    from any iterable of them, a generator included; axes_group's size and
+    index in JAX's order of a tuple of axes."""
+    mesh = M.Mesh(2, 2, 3, "D", "Mo", "W")
+    assert mesh.groups(a for a in axes) == want
+    assert mesh.groups(list(axes)) == want
+    order = tuple(a for a in ("data", "model") if a in axes)
+    assert mesh.axes_group(order)[1:] == {
+        (): (1, 0), ("data",): (2, 1), ("model",): (2, 1),
+        ("data", "model"): (4, 3)}[order]
+
+
 def test_collectives_without_a_group_are_the_identity():
     x = torch.randn(3, requires_grad=True)
     for fn in (C.all_reduce_identity_bwd, C.all_reduce_sum_bwd):

@@ -87,6 +87,37 @@ def _jax_keep(jp, jcfg, xf):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("n,cf,s", [(2, 1.25, 32), (4, 0.25, 32),
+                                    (2, 8.0, 10), (4, 1.25, 15)])
+def test_local_dispatch_shards_on_one_rank(n, cf, s):
+    """``local_dispatch`` in a scope on an (n, 1) stand-in mesh whose rows
+    lie on no axis: one process dispatches JAX's ``n`` shards of the
+    tokens (``_moe_dispatch_ffn_sharded``), outputs, aux and the input's
+    gradient; where n does not divide the 2 s tokens (s 15 at n 4), JAX's
+    fallback to the global dispatch."""
+    from repro_torch.distributed import mesh as M
+
+    cfg, jcfg = _moe_cfgs(cf)
+    jp, tp = _moe_params(jcfg)
+    x = _normal((2, s, cfg.d_model), 2)
+    xf = jnp.asarray(x.reshape(-1, cfg.d_model))
+    if xf.shape[0] % n:
+        jfn = lambda xf_: JL._moe_dispatch_ffn(jp, jcfg, xf_)  # noqa: E731
+    else:
+        jfn = lambda xf_: JL._moe_dispatch_ffn_sharded(  # noqa: E731
+            jp, jcfg, xf_, n)
+    jy, jaux = jax.jit(jfn)(xf)
+    jgrad = jax.jit(jax.grad(
+        lambda xf_: (lambda o: o[0].sum() + o[1])(jfn(xf_))))(xf)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    with M.activation_sharding(M.Mesh(n, 1, 0), "fsdp_tp", rows=()):
+        y, aux = L.moe_block(tp, cfg, tx, local_dispatch=True)
+    (y.sum() + aux).backward()
+    _close(y.reshape(-1, cfg.d_model), jy)
+    _close(aux, jaux)
+    _close(tx.grad.reshape(-1, cfg.d_model), jgrad)
+
+
 @pytest.mark.parametrize("cf,s", [(8.0, 10), (16.0, 10), (0.25, 32),
                                   (1.25, 32)])
 def test_moe_block_matches_jax(cf, s):

@@ -252,3 +252,95 @@ def test_dlrm_rank_rows_match_jax_on_four_devices():
             assert params["emb"].shape[1] == rows[1] - rows[0]
         if emb_rows == "model":
             assert D.shard_rows(cfg.rows_per_table, mesh) == rows
+
+
+_JAX_FSDP = """
+import json, jax
+from jax.sharding import NamedSharding
+from repro.configs import get_config
+from repro.models.model_api import build
+from repro.sharding.partition import param_pspecs
+cfg = get_config("dlrm-recmg").reduced()
+struct = build(cfg).param_struct()
+mesh = jax.make_mesh((2, 2), ("data", "model"))
+where = {d.id: i for i, d in enumerate(mesh.devices.reshape(-1))}
+out = {}
+for emb_rows in ("all", "model"):
+    specs = param_pspecs(struct, mesh, "fsdp", emb_rows)
+    flat = jax.tree_util.tree_flatten_with_path(specs)[0]
+    named = {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path): [list(e) if isinstance(e, tuple) else e
+                                       for e in spec]
+             for path, spec in flat}
+    idx = NamedSharding(mesh, specs["emb"]).devices_indices_map(
+        struct["emb"].shape)
+    out[emb_rows] = {"specs": named, "rows": {
+        where[d.id]: [s[1].start or 0, s[1].stop or cfg.rows_per_table]
+        for d, s in idx.items()}}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("emb_rows", SP.EMB_ROWS)
+def test_dlrm_under_fsdp_matches_jax_on_four_devices(emb_rows):
+    """DLRM under ``sharding="fsdp"`` (the batch over both axes): every
+    leaf's spec equals JAX's ``param_pspecs`` (the tables' rows over both
+    axes or ``model``, the MLPs whole), and each rank of ``init_placed``
+    holds the rows of the JAX device at its mesh position."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.distributed import mesh as M
+    from repro_torch.models import dlrm as D
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(
+        root / "src"), "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    want = json.loads(subprocess.run(
+        [sys.executable, "-c", _JAX_FSDP], env=env, check=True,
+        capture_output=True, text=True).stdout)[emb_rows]
+    cfg = get_config("dlrm-recmg").reduced()
+    got = SP.param_specs(D.init_dlrm(cfg, 0, "meta"), (2, 2), "fsdp",
+                         emb_rows)
+    norm = {n: [list(e) if isinstance(e, tuple) else e for e in s]
+            for n, s in got.items()}
+    # JAX's specs keep trailing Nones only where a dim is named after them.
+    assert sorted(norm) == sorted(want["specs"])
+    for name, spec in norm.items():
+        w = list(want["specs"][name])
+        while w and w[-1] is None:
+            w.pop()
+        assert spec == w, (name, spec, w)
+    for r in range(4):
+        params = D.init_placed(cfg, 0, "cpu", M.Mesh(2, 2, r), "fsdp",
+                               emb_rows)
+        lo, hi = want["rows"][str(r)]
+        assert params["emb"].placement.spec == got["emb"]
+        assert params["emb"].placement.variant == "fsdp"
+        assert params["emb"].shape[1] == hi - lo
+        whole = D.init_dlrm(cfg, 0, "cpu")["emb"]
+        assert torch.equal(params["emb"], whole[:, lo:hi])
+
+
+@pytest.mark.parametrize("shape,mesh,variant,want", [
+    ((8, 16), (2, 2), "fsdp_tp", (("data",), ())),
+    ((1, 16), (2, 2), "fsdp_tp", ((), ())),
+    ((8, 16), (2, 2), "fsdp", (("data", "model"), ())),
+    ((2, 16), (2, 2), "fsdp", (("data",), ())),
+    ((1, 16), (2, 2), "fsdp", ((), ())),
+    ((8, 16), (2, 2), "fsdp_seq", (("data",), ("model",))),
+    ((1, 16), (2, 2), "fsdp_seq", ((), ("model",))),
+    ((8, 15), (2, 2), "fsdp_seq", (("data",), ())),
+    ((3, 16), (4, 1), "dp", ((), ())),
+])
+def test_batch_axes_are_the_fitted_spec(shape, mesh, variant, want):
+    """The axes a batch leaf's rows and positions lie over after JAX's
+    ``fit_spec``, and ``batch_spec``'s entries."""
+    assert SP.batch_axes(shape, mesh, variant) == want
+    spec = SP.batch_spec(shape, mesh, variant)
+    rows, pos = want
+    assert tuple(SP.axes_of(spec[0]) if spec else ()) == rows
+    assert tuple(SP.axes_of(spec[1]) if len(spec) > 1 else ()) == pos

@@ -5,7 +5,9 @@ parameters and the batches from the ``.npz`` the test wrote and leaves its
 results in ``rank<r>.npz``.
 
 Every rank, over the world of four:
-- for each case (``arch|sharding|data|model|shard_kv_seq|cap``), builds
+- for each case (``arch|sharding|data|model|shard_kv_seq|cap``, some
+  with ``|B|S``: the batch's shape, read from the inputs, and ``|bf16``),
+  builds
   the reduced arch from JAX's parameters with ``build(..., mesh=)``, cuts
   its shards (``shard_model``) and serves the global batch: the prefill
   (capacity ``cap``) and three decode steps.  It keeps its logits rows,
@@ -45,17 +47,20 @@ TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_S = 16
 
 
-def case_cfg(arch):
-    """The reduced arch; hymba's window cut to 6 (its ring shorter than
-    the prompt), as ``tests/jax_sharded_serve_ref.py`` cuts it."""
-    cfg = get_config(arch).reduced()
+def case_cfg(arch, dtype="float32"):
+    """The reduced arch in ``dtype``; hymba's window cut to 6 (its ring
+    shorter than the prompt), as ``tests/jax_sharded_serve_ref.py`` cuts
+    it."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype=dtype,
+                              compute_dtype=dtype)
     return dataclasses.replace(cfg, window=6) if cfg.family == "hybrid" \
         else cfg
 
 
-def whole_model(data, arch):
-    """The reduced arch with JAX's initial parameters, whole."""
-    cfg = case_cfg(arch)
+def whole_model(data, arch, dtype="float32"):
+    """The reduced arch with JAX's initial parameters (cast to ``dtype``
+    where the arch holds a leaf in it), whole."""
+    cfg = case_cfg(arch, dtype)
     model = build(cfg, device="cpu").init(seed=0)
     with torch.no_grad():
         for name, p in named_leaves(model):
@@ -82,9 +87,10 @@ class SeqCalls:
 
 
 def serve_case(data, case, res):
-    arch, sharding, nd, nm, kv_seq, cap = case.split("|")
+    arch, sharding, nd, nm, kv_seq, cap = case.split("|")[:6]
     mesh = M.make_mesh(int(nd), int(nm))
-    cfg, model = whole_model(data, arch)
+    cfg, model = whole_model(data, arch, "bfloat16" if case.endswith(
+        "|bf16") else "float32")
     run = RunConfig(sharding=sharding, shard_kv_seq=kv_seq == "1")
     bundle = build(cfg, device="cpu", run=run, mesh=mesh)
     model = T.shard_model(model, mesh, sharding)

@@ -6,9 +6,11 @@ parameters from the ``.npz`` the test wrote and leaves its results in
 
 Every rank, over the world of four:
 - for each case (``arch|sharding|data|model``; DLRM's add ``|sharded`` or
-  ``|dense``, the lookup), builds the reduced arch from JAX's parameters,
-  cuts its shards (``shard_model``; DLRM's tables by ``place_tables``
-  under ``emb_rows="all"``) and trains two steps of two microbatches
+  ``|dense``, the lookup; ``FIT_CASES`` the batch, the sequence and
+  ``moe_local_dispatch``, :func:`case_opts`), builds the reduced arch
+  from JAX's parameters, cuts its shards (``shard_model``; DLRM's
+  tables by ``place_tables`` under ``emb_rows="all"``) and trains two
+  steps of two microbatches
   under ``remat="full"`` inside ``activation_sharding(mesh, sharding)``
   (as JAX's side does: under ``fsdp_seq`` the scope splits the
   sequence): each step's loss and grad norm, and its shard of every
@@ -35,6 +37,7 @@ Every rank, over the world of four:
 Then rank 0 alone, outside any process group, resumes both checkpoints on
 one rank.
 """
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -59,11 +62,35 @@ from repro_torch.tree import leaves, named_leaves
 CKPT_STEPS = 3
 TP_FAMILIES = ("falcon-mamba-7b", "hymba-1.5b", "whisper-large-v3")
 DLRM = "dlrm-recmg"
+# Shapes an axis does not divide (``|B=``: the global batch of two
+# microbatches, ``|S=``: the sequence, ``|local``: moe_local_dispatch).
+FIT_CASES = ("qwen2.5-3b|fsdp_tp|2|2|B=2", "qwen2.5-3b|fsdp|2|2|B=4",
+             "qwen2.5-3b|fsdp_seq|2|2|S=15",
+             "granite-moe-1b-a400m|fsdp_seq|2|2|local",
+             "granite-moe-1b-a400m|fsdp_seq|2|2|local|B=2",
+             "granite-moe-1b-a400m|fsdp_seq|2|2|B=2",
+             "granite-moe-1b-a400m|fsdp_seq|2|2|local|B=2|S=15",
+             "granite-moe-1b-a400m|fsdp_tp|2|2|local|B=2",
+             # bf16 (``|bf16``): JAX's parameters cast.
+             "qwen2.5-3b|fsdp_tp|2|2|B=2|bf16",
+             "granite-moe-1b-a400m|fsdp_seq|2|2|local|bf16")
 
 
-def whole_model(data, arch):
-    """The reduced arch with JAX's initial parameters, whole."""
-    cfg = get_config(arch).reduced()
+def case_opts(case):
+    """A case's options after ``arch|sharding|data|model``: ``{"B": n,
+    "S": n}`` where given, and its flags (``local``, DLRM's lookup)."""
+    out = {}
+    for opt in case.split("|")[4:]:
+        key, _, val = opt.partition("=")
+        out[key] = int(val) if val else True
+    return out
+
+
+def whole_model(data, arch, dtype="float32"):
+    """The reduced arch in ``dtype`` with JAX's initial parameters (cast
+    where the arch holds a leaf in it), whole."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), param_dtype=dtype,
+                              compute_dtype=dtype)
     model = build(cfg, device="cpu").init(seed=0)
     with torch.no_grad():
         for name, p in named_leaves(model):
@@ -71,14 +98,14 @@ def whole_model(data, arch):
     return cfg, model
 
 
-def batch_fn(data, arch, cfg, seq=None):
+def batch_fn(data, arch, cfg, seq=None, batch=None):
     """``batch(s)``: DLRM's step-s batch of the inputs, else ``batch_at``'s
     (whisper's with the inputs' frames)."""
     if cfg.family == "dlrm":
         return lambda s: {k: data[f"dlrm/{s}/{k}"]
                           for k in ("dense", "sparse", "label")}
     dcfg = LMDataConfig(vocab=cfg.vocab, seq_len=seq or int(data["seq"]),
-                        global_batch=int(data["batch"]))
+                        global_batch=batch or int(data["batch"]))
 
     def batch(s):
         b = batch_at(dcfg, s)
@@ -89,9 +116,10 @@ def batch_fn(data, arch, cfg, seq=None):
     return batch
 
 
-def trainer(data, arch, sharding, mesh, steps, build_mesh=True, **run_kw):
+def trainer(data, arch, sharding, mesh, steps, build_mesh=True, seq=None,
+            batch=None, dtype="float32", **run_kw):
     """``(model, opt, step_fn, batch(s))`` for ``arch`` on ``mesh``."""
-    cfg, model = whole_model(data, arch)
+    cfg, model = whole_model(data, arch, dtype)
     run = RunConfig(remat="full", sharding=sharding, **run_kw)
     bundle = build(cfg, device="cpu", run=run,
                    mesh=mesh if build_mesh else None)
@@ -102,7 +130,7 @@ def trainer(data, arch, sharding, mesh, steps, build_mesh=True, **run_kw):
     opt = init_opt(OptConfig(lr=float(data["lr"]), total_steps=steps),
                    leaves(model))
     step = make_train_step(bundle, int(data["microbatches"]), mesh)
-    return model, opt, step, batch_fn(data, arch, cfg)
+    return model, opt, step, batch_fn(data, arch, cfg, seq, batch)
 
 
 def put(res, prefix, named):
@@ -164,12 +192,17 @@ class SeqRows:
 
 
 def train_case(data, case, res):
-    arch, sharding, nd, nm, *lookup = case.split("|")
+    arch, sharding, nd, nm = case.split("|")[:4]
+    opts = case_opts(case)
     mesh = M.make_mesh(int(nd), int(nm))
     steps = int(data["steps"])
-    kw = {"dlrm_sharded_lookup": lookup == ["sharded"]} if lookup else {}
+    kw = ({"dlrm_sharded_lookup": "sharded" in opts} if arch == DLRM
+          else {"moe_local_dispatch": "local" in opts})
     model, opt, step, batch = trainer(data, arch, sharding, mesh, steps,
-                                      **kw)
+                                      seq=opts.get("S"),
+                                      batch=opts.get("B"),
+                                      dtype=("bfloat16" if "bf16" in opts
+                                             else "float32"), **kw)
     # JAX's side trains inside activation_sharding(mesh, sharding): under
     # fsdp_seq that scope splits the sequence.
     with Watch(model) as watch, M.activation_sharding(mesh, sharding), \
