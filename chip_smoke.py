@@ -88,7 +88,12 @@ trained at full depth):
    qwen2.5-3b at full width cut to 2 layers through ``build(...,
    mesh=)`` on a (1, 1) ``fsdp_tp`` mesh (every gather, reduce-scatter
    and tensor-parallel collective runs over the one rank): loss, grad
-   norm and parameters bit-equal to the step without a mesh; rows 8 and
+   norm and parameters bit-equal to the step without a mesh, and that
+   step against ``launch/accounting.py``'s trace of it on the meta
+   device: the predicted peak of the step's own allocations within
+   ``ACC_PEAK_RATIO`` of ``max_memory_allocated`` above what the step
+   found, its collectives equal, its ``dot_flops`` over a second step's
+   seconds printed; rows 8 and
    8b at qwen's per-rank layout on (2, 2) ((2, 2048, 8/1, 128) bf16)
    against their plain versions, timed beside their bounds and SDPA; then,
    in the four gloo ranks after their distributed training: qwen's cut on
@@ -96,7 +101,9 @@ trained at full depth):
    remat full, logits in chunks of 1,024, 2 steps, no warmup), each
    rank's bytes of parameters and moments equal to ``shard_bytes`` and a
    quarter of the dp layout's, its peak memory, step times and collective
-   bytes, layer 0's gathers and reduce-scatters timed, the losses and
+   bytes (the two steps' calls and result bytes of each kind equal to the
+   accountant's trace of that rank, times two), layer 0's gathers and
+   reduce-scatters timed, the losses and
    gradient norms against one rank's (``ST_TOL_LOSS``, ``ST_TOL_NORM``);
    smollm-135m on (1, 4) (its heads split: the attention gathered) and
    granite-moe on (2, 2) (tensor-parallel experts, the vocab whole) at
@@ -152,7 +159,9 @@ trained at full depth):
    1e-5; and falcon-mamba-7b at 2 of 64 layers in bf16 on (2, 2), S =
    512 (its mamba blocks gather the sequence, decode channel parallel on
    the conv and SSM states' channels over model) within 2e-2; each
-   rank's collective calls and bytes, cache bytes and host ms.  The
+   rank's collective calls and bytes (each run's equal to the
+   accountant's trace of that rank's prefill plus its decode steps),
+   cache bytes and host ms.  The
    launches counted are the (1, 1) run's and the ranks' served runs';
 7. the learned models' kernels vs plain on the card: ``lstm_cell`` at the
    inference (B=4096) and training (B=256) shapes of every LSTM layer of
@@ -434,6 +443,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 
 from repro_torch.configs import RunConfig, get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import prefetch_model as PM  # noqa: E402
 from repro_torch.core.model_runtime import (  # noqa: E402
     LearnedRecMGModel, train_voyager_arm, voyager_arm_outputs)
@@ -451,9 +461,11 @@ from repro_torch.kernels import embedding_gather as eg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lstm_cell as lc  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
+from repro_torch.kernels import work as W  # noqa: E402
 from repro_torch.launch.serve import (_dense_forward,  # noqa: E402
                                       cli_learned_config, host_table,
                                       serve_trace)
+from repro_torch.launch import accounting as A  # noqa: E402
 from repro_torch.launch.serve import main as cli_main  # noqa: E402
 from repro_torch.launch.serve_lm import serve_lm_tiered  # noqa: E402
 from repro_torch.distributed.compression import (  # noqa: E402
@@ -739,16 +751,18 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0,
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def work_bound(w: W.Work):
+    """A kernel's bound from its work (``repro_torch.kernels.work``, the
+    function its meta path charges): ``(ms, "bytes" or "operations")``."""
+    return bound_ms(w.bytes, w.ops, BF16_OPS_PER_S if w.dtype == "bf16"
+                    else FP32_OPS_PER_S)
+
+
 def achieved(rec, n_ops):
     """Adds the achieved TFLOP/s and the share of the bound a timed record
     reaches (``bound_ms / ms``)."""
     rec["tflops"] = n_ops / (rec["ms"] * 1e-3) / 1e12
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-
-
-def quantize_bound(m, d):
-    """Rows read once, slots read, codes and scales written."""
-    return bound_ms(m * d * 4 + m * 4 + m * d + m * 4, 3 * m * d)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -759,10 +773,6 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     mag = want.float().abs().clamp_min(1.0)
     ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
     return float(((got.float() - want.float()).abs() / ulp).max())
-
-
-def n_distinct(t: torch.Tensor) -> int:
-    return int(torch.unique(t).numel())
 
 
 def phase_device():
@@ -880,38 +890,6 @@ def serve_gather_inputs(uniq_n, inv, capacity, d, dtype, with_ov, seed=0):
     return table, slots, inv_t, ov, hr
 
 
-def expand_bound(table, slots, inv, ov, quantized=False):
-    """Bound of the store's fused read: each distinct buffer row read once
-    (``D + 4`` bytes with its scale when quantized), each overflow row
-    read once, each output row written once, the index vectors read once;
-    one multiply per dequantized element."""
-    d = table.shape[1]
-    rb_out = d * (4 if quantized else table.element_size())
-    rb_in = d * table.element_size() + (4 if quantized else 0)
-    used = torch.unique(inv).long()
-    if ov is None:
-        rows_read, ov_read, extra = n_distinct(slots[used]), 0, 0
-    else:
-        keep = ~ov[used]
-        rows_read = n_distinct(slots[used[keep]])
-        ov_read = int((~keep).sum())
-        extra = ov.numel()
-    n_bytes = (rows_read * rb_in + ov_read * rb_out + inv.numel() * rb_out
-               + inv.numel() * 4 + slots.numel() * 4 + extra)
-    return bound_ms(n_bytes, inv.numel() * d if quantized else 0)
-
-
-def pool_bound(table, idx, quantized=False):
-    """Bound of a pooled read: distinct rows read once (with their scale
-    when quantized), ids read once, the fp32 sums written once; one add
-    per gathered element, and one multiply more when dequantizing."""
-    b, p = idx.shape
-    d = table.shape[1]
-    rb_in = d * table.element_size() + (4 if quantized else 0)
-    n_bytes = n_distinct(idx) * rb_in + idx.numel() * 4 + b * d * 4
-    return bound_ms(n_bytes, (2 if quantized else 1) * b * p * d)
-
-
 def phase_kernels(timer, first_batch, capacity, fwd_table_rows, fwd_b, cfg):
     """Every kernel at the serve and forward shapes, fp32 and bf16,
     D in {16, 128}.  Returns the entry of the main path's configuration
@@ -943,8 +921,8 @@ def phase_kernels(timer, first_batch, capacity, fwd_table_rows, fwd_b, cfg):
                        "plain_ms": timer(lambda: ref.gather_rows_expand_ref(
                            table, slots, inv_t, ov, hr)),
                        "library_ms": None}
-                rec["bound_ms"], rec["bound_by"] = expand_bound(
-                    table, slots, inv_t, ov)
+                rec["bound_ms"], rec["bound_by"] = work_bound(
+                    W.gather_rows_expand(table, slots, inv_t, ov))
                 emit(rec)
                 if dt_name == "fp32" and d == 128 and with_ov == overflow:
                     main["gather_rows_expand"] = rec
@@ -959,9 +937,8 @@ def phase_kernels(timer, first_batch, capacity, fwd_table_rows, fwd_b, cfg):
                    "ms": timer(lambda: eg.gather_rows(table, idx)),
                    "plain_ms": timer(lambda: ref.gather_rows_ref(table, idx)),
                    "library_ms": timer(lambda: table.index_select(0, idx))}
-            rb = d * table.element_size()
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                n_distinct(idx) * rb + idx.numel() * (rb + 4))
+            rec["bound_ms"], rec["bound_by"] = work_bound(
+                W.gather_rows(table, idx))
             emit(rec)
             del table, slots, inv_t, ov, hr, idx
             # gather_pool at the forward shape (B*T rows of P ids).
@@ -984,7 +961,8 @@ def phase_kernels(timer, first_batch, capacity, fwd_table_rows, fwd_b, cfg):
                    "library_ms": timer(lambda: torch.nn.functional
                                        .embedding_bag(pidx, table,
                                                       mode="sum"))}
-            rec["bound_ms"], rec["bound_by"] = pool_bound(table, pidx)
+            rec["bound_ms"], rec["bound_by"] = work_bound(
+                W.gather_pool(table, pidx))
             emit(rec)
             del table, pidx, got, want
             torch.cuda.empty_cache()
@@ -1028,7 +1006,7 @@ def quantize_rec(timer, fmt, d, rows, slots, buf, sc, **kw):
            "plain_ms": timer(lambda: ref.quantize_scatter_ref(
                bufs[1], scs[1], slots, rows, fmt)),
            "library_ms": None, "library_note": NO_LIBRARY["quantize_scatter"]}
-    rec["bound_ms"], rec["bound_by"] = quantize_bound(m, d)
+    rec["bound_ms"], rec["bound_by"] = work_bound(W.quantize_scatter(m, d))
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     rec["design"] = QUANT_DESIGN
     return rec, bufs[0], scs[0]
@@ -1133,8 +1111,9 @@ def phase_quant_kernels(timer, trace, first_batch, qcapacity, cfg):
                         table, scales, slots_r, inv_t, ov, hr)),
                     plain_ms=timer(lambda: ref.gather_rows_dequant_expand_ref(
                         table, scales, slots_r, inv_t, ov, hr)))
-                rec["bound_ms"], rec["bound_by"] = expand_bound(
-                    table, slots_r, inv_t, ov, quantized=True)
+                rec["bound_ms"], rec["bound_by"] = work_bound(
+                    W.gather_rows_expand(table, slots_r, inv_t, ov,
+                                         quantized=True))
                 emit(rec)
                 if is_main and with_ov == overflow:
                     main["gather_rows_dequant_expand"] = rec
@@ -1152,9 +1131,8 @@ def phase_quant_kernels(timer, trace, first_batch, qcapacity, cfg):
                 ms=timer(lambda: eg.gather_rows_dequant(table, scales, idx)),
                 plain_ms=timer(lambda: ref.gather_rows_dequant_ref(
                     table, scales, idx)))
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                n_distinct(idx) * (d + 4) + idx.numel() * (4 * d + 4),
-                idx.numel() * d)
+            rec["bound_ms"], rec["bound_by"] = work_bound(
+                W.gather_rows_dequant(table, scales, idx))
             emit(rec)
             # The batch's pooled read: each query's P ids of each table.
             pidx = slots_r[inv_t.long()].reshape(-1, cfg.multi_hot)
@@ -1170,8 +1148,8 @@ def phase_quant_kernels(timer, trace, first_batch, qcapacity, cfg):
                 ms=timer(lambda: eg.gather_pool_dequant(table, scales, pidx)),
                 plain_ms=timer(lambda: ref.gather_pool_dequant_ref(
                     table, scales, pidx)))
-            rec["bound_ms"], rec["bound_by"] = pool_bound(table, pidx,
-                                                          quantized=True)
+            rec["bound_ms"], rec["bound_by"] = work_bound(
+                W.gather_pool(table, pidx, quantized=True))
             emit(rec)
             del table, scales, slots_r, idx, pidx, got, want
             torch.cuda.empty_cache()
@@ -1315,7 +1293,8 @@ def phase_forward(timer, cfg, b):
                                                          flat_idx)),
            "library_ms": timer(lambda: torch.nn.functional.embedding_bag(
                flat_idx, flat_table, mode="sum"))}
-    rec["bound_ms"], rec["bound_by"] = pool_bound(flat_table, flat_idx)
+    rec["bound_ms"], rec["bound_by"] = work_bound(
+        W.gather_pool(flat_table, flat_idx))
     fwd_ms = timer(lambda: dlrm_forward(params, cfg, dense, idx))
     emit({"phase": "forward", "B": b, "tables": t, "rows_per_table": r,
           "emb_gb": params["emb"].numel() * params["emb"].element_size()
@@ -1366,8 +1345,8 @@ def forward_quantized(timer, cfg, params, dense, idx, bf16_logits):
                codes, scales, flat_idx)),
            "library_ms": None,
            "library_note": NO_LIBRARY["gather_pool_dequant"]}
-    rec["bound_ms"], rec["bound_by"] = pool_bound(codes, flat_idx,
-                                                  quantized=True)
+    rec["bound_ms"], rec["bound_by"] = work_bound(
+        W.gather_pool(codes, flat_idx, quantized=True))
     fwd_ms = timer(lambda: dlrm_forward(qparams, cfg, dense, idx))
     emit({"phase": "forward_quantized", "row_format": "int8", "B": b,
           "emb_gb": (codes.numel() + 4 * scales.numel()) / 1e9,
@@ -1399,18 +1378,6 @@ def distributed_batch(cfg, b):
     idx = rng.integers(-2, cfg.rows_per_table + 2,
                        (b, cfg.n_tables, cfg.multi_hot)).astype(np.int32)
     return torch.from_numpy(dense), torch.from_numpy(idx)
-
-
-def shard_pool_bound(table, idx):
-    """Bound of the shard window: the distinct owned rows read once, the
-    ids read once, the fp32 sums written once; one add per owned id and
-    element (a skipped id reads no row)."""
-    b, _ = idx.shape
-    d = table.shape[1]
-    owned = idx[idx >= 0]
-    n_bytes = (n_distinct(owned) * d * table.element_size() + idx.numel() * 4
-               + b * d * 4)
-    return bound_ms(n_bytes, owned.numel() * d)
 
 
 def phase_distributed_nccl(cfg, fwd, b):
@@ -1528,7 +1495,8 @@ def distributed_rank(rank, world, work, b, train_ref):
                 plain_ms=timer(lambda: ref.gather_pool_shard_ref(table, ids)),
                 library_ms=timer(lambda: torch.nn.functional.embedding_bag(
                     clamped, table, mode="sum", per_sample_weights=weights)))
-            rec["bound_ms"], rec["bound_by"] = shard_pool_bound(table, ids)
+            rec["bound_ms"], rec["bound_by"] = work_bound(
+                W.gather_pool_shard(table, ids))
             del timer, weights, clamped
     # The all-reduce of the (B_local * T, D) fp32 partials over model.
     times = []
@@ -1942,7 +1910,7 @@ def distributed_train_rank(rank, world, work, dev, mesh, train_ref):
                      ids, dout, table.shape, table.dtype, True)),
                  "unmasked_bwd_ms": timer(lambda: ops._pool_backward(
                      ids_in, dout, table.shape, table.dtype, False))}
-            w["fwd_bound_ms"], _ = shard_pool_bound(table, ids)
+            w["fwd_bound_ms"], _ = work_bound(W.gather_pool_shard(table, ids))
             w["masked_bwd_bound_ms"], w["bwd_bound_by"] = pool_bwd_bound(
                 ids, t * rs, d, table.element_size())
             w["unmasked_bwd_bound_ms"], _ = pool_bwd_bound(
@@ -2261,6 +2229,26 @@ ST_WHISPER_ENC = (2, 1500, 10, 10, 64)
 ST_WHISPER_DEC = (2, 448, 10, 10, 64)
 
 
+def accounted(cfg, kind, seq, batch, run, mesh, microbatches=1, **kw):
+    """``(the accountant's collectives of this rank's step of ``kind``
+    on the meta device over a virtual mesh of ``mesh``'s shape (the cuts'
+    2 layers and 2 microbatches traced whole), its seconds)``
+    (``repro_torch.launch.accounting``)."""
+    t0 = time.perf_counter()
+    acc = A.account(cfg, ShapeConfig("smoke", kind, seq, batch), run,
+                    mesh.shape, microbatches, rank=mesh.rank, **kw)
+    return acc["collectives"], time.perf_counter() - t0
+
+
+def collectives_check(recorded, parts, seconds):
+    """The step's recorded collectives against the sum of the
+    accountant's ``parts`` (``(collectives, times)`` pairs): equal, key by
+    key (calls and result bytes of each kind)."""
+    want = {k: sum(p[k] * n for p, n in parts) for k in recorded}
+    return {"equal": recorded == want, "recorded": recorded,
+            "accountant": want, "accountant_s": round(seconds, 2)}
+
+
 def st_cfg(arch, dtype=None):
     cfg = dataclasses.replace(get_config(arch), n_layers=ST["n_layers"])
     if dtype:
@@ -2328,22 +2316,18 @@ def st_attention_kernels(timer, shape=(2, ST["seq"], 8, 1, 128),
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt.detach(), kt.detach(), vt.detach(), is_causal=True,
                    enable_gqa=True))}
-    n_ops = 2 * 2 * b * h * s * s / 2 * hd
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-        q.element_size() * b * s * hd * (2 * h + 2 * n_kv), n_ops,
-        BF16_OPS_PER_S)
-    achieved(fwd, n_ops)
+    work = W.flash_attention(b, s, s, h, n_kv, hd, q.element_size())
+    fwd["bound_ms"], fwd["bound_by"] = work_bound(work)
+    achieved(fwd, work.ops)
     bwd = {**shape, "max_abs_err_share_of_largest_grad": shares,
            "ms": timer(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse)),
            "plain_ms": timer(lambda: ref.flash_attention_bwd_ref(
                q, k, v, o, do, lse)),
            "library_ms": timer(lambda: torch.autograd.grad(
                out, (qt, kt, vt), dot, retain_graph=True))}
-    n_ops = 5 * 2 * b * h * s * s / 2 * hd
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-        q.element_size() * b * s * hd * (4 * h + 4 * n_kv) + 4 * b * h * s,
-        n_ops, BF16_OPS_PER_S)
-    achieved(bwd, n_ops)
+    work = W.flash_attention_bwd(b, s, s, h, n_kv, hd, q.element_size())
+    bwd["bound_ms"], bwd["bound_by"] = work_bound(work)
+    achieved(bwd, work.ops)
     del q, k, v, do, o, lse, qt, kt, vt, out, dot
     torch.cuda.empty_cache()
     return fwd, bwd
@@ -2409,8 +2393,9 @@ def st_offset_bwd(timer):
     out = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask)
     dot = do.transpose(1, 2).contiguous()
-    pairs = sq * off + sq * (sq + 1) // 2  # visible (query, key) pairs
-    n_ops = 5 * 2 * b * h * pairs * hd
+    pairs = W.visible_pairs(sq, sk, q_offset=off)  # (query, key) pairs
+    work = W.flash_attention_bwd(b, sq, sk, h, n_kv, hd, q.element_size(),
+                                 q_offset=off)
     rec = {"B": b, "Sq": sq, "Sk": sk, "q_offset": off, "H": h, "K": n_kv,
            "hd": hd, "dtype": "bf16", "causal": True,
            "layout": "qwen2.5-3b's model rank 1 of (2, 2) under fsdp_seq: "
@@ -2429,10 +2414,8 @@ def st_offset_bwd(timer):
                out, (qt, kt, vt), dot, retain_graph=True)),
            "library": "scaled_dot_product_attention backward, bool "
                       "attn_mask of the offset, kv heads expanded"}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        q.element_size() * (4 * b * sq * h * hd + 4 * b * sk * n_kv * hd)
-        + 4 * b * h * sq, n_ops, BF16_OPS_PER_S)
-    achieved(rec, n_ops)
+    rec["bound_ms"], rec["bound_by"] = work_bound(work)
+    achieved(rec, work.ops)
     del q, k, v, do, o, lse, grads, qt, kt, vt, out, dot, mask
     torch.cuda.empty_cache()
     return rec
@@ -2479,6 +2462,35 @@ def st_layer_kernels(timer, ptxas):
     return out
 
 
+# The accountant's peak of the (1, 1) step's own allocations over the
+# card's (max_memory_allocated above what the step found allocated).
+ACC_PEAK_RATIO = (0.8, 1.25)
+
+
+def nccl_step_vs_accountant(cfg, run, mesh, peak_bytes, step_s, warm_s,
+                            recorded):
+    """The (1, 1) step on the card against the accountant's trace of it on
+    the meta device (``repro_torch.launch.accounting``): its predicted
+    peak of the step's own allocations over the card's, its collectives
+    against the recorded ones, and its ``dot_flops`` over the host
+    seconds of the bundle's second step (``warm_step_s``: achieved
+    TFLOP/s; ``step_s``, the first step's, includes first-call costs)."""
+    t0 = time.perf_counter()
+    acc = A.account(cfg, ShapeConfig("nccl", "train", ST_NCCL_SEQ,
+                                     ST_NCCL_BATCH), run, mesh.shape,
+                    ST["mb"], rank=mesh.rank)
+    predicted = acc["memory_analysis"]["peak_new_bytes"]
+    return {"predicted_peak_new_bytes": predicted,
+            "measured_peak_new_bytes": int(peak_bytes),
+            "ratio": predicted / max(peak_bytes, 1),
+            "ratio_bounds": list(ACC_PEAK_RATIO),
+            "collectives_equal": acc["collectives"] == recorded,
+            "dot_flops": acc["cost"]["dot_flops"], "step_s": step_s,
+            "warm_step_s": warm_s,
+            "achieved_tflops": acc["cost"]["dot_flops"] / warm_s / 1e12,
+            "accountant_s": round(time.perf_counter() - t0, 2)}
+
+
 def phase_sharded_train_nccl(work, timer, ptxas):
     """World 1 over NCCL in this process: qwen2.5-3b's cut through
     ``build(..., mesh=)`` on a (1, 1) mesh under ``fsdp_tp`` (its
@@ -2503,17 +2515,32 @@ def phase_sharded_train_nccl(work, timer, ptxas):
         mesh = M.make_host_mesh()
         out = []
         for m in (mesh, None):
-            _, model, opt, step, data = st_trainer(
+            bundle, model, opt, step, data = st_trainer(
                 cfg, ST_NCCL_SEQ, m, batch=ST_NCCL_BATCH)
+            batch = data(0)
             C.reset_traffic()
+            C.reset_record()
             ops.reset_launches()
-            metrics = step(model, opt, data(0))
             torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t_step = time.perf_counter()
+            metrics = step(model, opt, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t_step
             traffic = copy.deepcopy(C.TRAFFIC)
+            params = [p.detach().clone() for p in model.parameters()]
             if m is not None:
                 launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-            out.append((metrics, [p.detach().clone()
-                                  for p in model.parameters()], traffic,
+                peak, recorded = (torch.cuda.max_memory_allocated() - base,
+                                  C.collective_stats())
+                t_step = time.perf_counter()
+                step(model, opt, data(1))
+                torch.cuda.synchronize()
+                memory = nccl_step_vs_accountant(
+                    cfg, bundle.run, mesh, peak, step_s,
+                    time.perf_counter() - t_step, recorded)
+            out.append((metrics, params, traffic,
                         sum(M.placement(p) is not None
                             for p in model.parameters())))
             del model, opt, step
@@ -2532,6 +2559,10 @@ def phase_sharded_train_nccl(work, timer, ptxas):
             f"{float(m0['grad_norm'])}")
     differ = sum(not torch.equal(a, b) for a, b in zip(p1, p0))
     require(differ == 0, f"nccl world 1 sharded: {differ} parameters differ")
+    require(ACC_PEAK_RATIO[0] <= memory["ratio"] <= ACC_PEAK_RATIO[1]
+            and memory["collectives_equal"],
+            f"nccl world 1 sharded: the accountant's step against the "
+            f"card's: {memory}")
     del out, p0, p1
     torch.cuda.empty_cache()
     emit({"phase": "sharded_train", "world": 1, "backend": "nccl",
@@ -2540,6 +2571,7 @@ def phase_sharded_train_nccl(work, timer, ptxas):
           "loss_bit_equal_without_mesh": True,
           "grad_norm_bit_equal_without_mesh": True,
           "params_bit_equal_without_mesh": True, "traffic": traffic,
+          "accountant": memory,
           "launches": {k: v for k, v in launches.items() if v},
           "seconds": round(time.perf_counter() - t0, 1)})
 
@@ -2785,6 +2817,7 @@ def sharded_train_rank(rank, work, dev, ref_rec):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     C.reset_traffic()
+    C.reset_record()
     ops.reset_launches()
     losses, norms, step_ms = [], [], []
     for s in range(ST["steps"]):
@@ -2795,6 +2828,10 @@ def sharded_train_rank(rank, work, dev, ref_rec):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         norms.append(float(metrics["grad_norm"]))
     traffic = copy.deepcopy(C.TRAFFIC)
+    recorded = C.collective_stats()
+    want, acc_s = accounted(cfg, "train", ST["seq"], ST["batch"],
+                            bundle.run, mesh, ST["mb"])
+    accountant = collectives_check(recorded, [(want, ST["steps"])], acc_s)
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS
                 if fn.launches}
     ag_bytes, ag_ms, rs_bytes, rs_ms = _layer_collectives(model, mesh)
@@ -2810,6 +2847,7 @@ def sharded_train_rank(rank, work, dev, ref_rec):
         "layer0_allgather_bytes": ag_bytes, "layer0_allgather_ms": ag_ms,
         "layer0_reduce_scatter_bytes": rs_bytes,
         "layer0_reduce_scatter_ms": rs_ms, "launches": launches,
+        "collectives_vs_accountant": accountant,
         "seconds": time.perf_counter() - t_start}
     del model, opt, step, bundle
     torch.cuda.empty_cache()
@@ -2914,6 +2952,9 @@ def report_sharded_train(recs, nccl_launches):
                 f"rank {r['rank']} qwen losses {q['losses']} vs "
                 f"{q['ref_losses']}, grad norms {q['grad_norms']} vs "
                 f"{q['ref_grad_norms']}")
+        acc = q["collectives_vs_accountant"]
+        require(acc["equal"], f"rank {r['rank']} qwen's steps recorded "
+                f"{acc['recorded']}, the accountant {acc['accountant']}")
         for arch, shape, _ in ST_ALL_PARITY:
             p = rk[f"{arch}_fp32"]
             if (arch, shape) in ST_PARITY:
@@ -3132,12 +3173,10 @@ def ss_offset_kernels(timer):
                         qt, kt, vt, attn_mask=mask, enable_gqa=True)),
                 library="scaled_dot_product_attention(attn_mask=offset "
                         "mask, enable_gqa=True)")
-            visible = sq * off + sq * (sq + 1) // 2  # keys over the rows
-            n_ops = 4 * b * h * hd * visible
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                q.element_size() * b * hd * (2 * sq * h + 2 * sk * n_kv),
-                n_ops, BF16_OPS_PER_S)
-            achieved(rec, n_ops)
+            work = W.flash_attention(b, sq, sk, h, n_kv, hd,
+                                     q.element_size(), q_offset=off)
+            rec["bound_ms"], rec["bound_by"] = work_bound(work)
+            achieved(rec, work.ops)
             del qt, kt, vt, mask
         del qf, k, v
     torch.cuda.empty_cache()
@@ -3233,10 +3272,18 @@ def lm_sharded_serve_rank(rank, work, dev):
         for kv_seq in kv_seqs:
             dist.barrier()
             C.reset_traffic()
+            C.reset_record()
             ops.reset_launches()
             got, cache, pre_ms, dec_ms = ss_serve(cfg, models, tokens, steps,
                                                   mesh, kv_seq, dev)
             torch.cuda.synchronize()
+            recorded = C.collective_stats()
+            cap = seq + n_steps
+            pre, pre_s = accounted(cfg, "prefill", seq, batch, RunConfig(
+                sharding="fsdp_seq", shard_kv_seq=kv_seq), mesh,
+                cache_len=cap)
+            dec, dec_s = accounted(cfg, "decode", cap, batch, RunConfig(
+                sharding="tp", shard_kv_seq=kv_seq), mesh, pos=seq)
             rec[f"{dt_name}_kv_seq_{int(kv_seq)}"] = {
                 "arch": arch, "mesh": dict(zip(("data", "model"), shape)),
                 "S": seq, "global_batch": batch, "steps": n_steps,
@@ -3248,6 +3295,8 @@ def lm_sharded_serve_rank(rank, work, dev):
                 "cache_shapes": {n: list(t.shape) for n, t in cache.items()
                                  if isinstance(t, torch.Tensor)},
                 "traffic": copy.deepcopy(C.TRAFFIC),
+                "collectives_vs_accountant": collectives_check(
+                    recorded, [(pre, 1), (dec, n_steps)], pre_s + dec_s),
                 "launches": {fn.__name__: fn.launches for fn in ops.KERNELS
                              if fn.launches},
                 "prefill_ms_host": pre_ms, "decode_ms_host_per_step": dec_ms,
@@ -3280,6 +3329,10 @@ def report_lm_sharded_serve(recs, nccl_launches):
                     f"rank {r['rank']} {key}: logits err "
                     f"{run['logits_err_share']}, {kernel} {n}, "
                     f"traffic {run['traffic']}")
+            acc = run["collectives_vs_accountant"]
+            require(acc["equal"], f"rank {r['rank']} {key}: the prefill and "
+                    f"decode steps recorded {acc['recorded']}, the "
+                    f"accountant {acc['accountant']}")
             launches[kernel] = launches.get(kernel, 0) + n
     emit({"phase": "lm_sharded_serve", "world": len(recs), "backend": "gloo",
           "ranks_on_one_card": len(recs), "collective_note": GLOO_NOTE,
@@ -3348,11 +3401,9 @@ def phase_learned_kernels(timer):
                                                                bias)),
                    "library_ms": timer(lambda: torch.lstm_cell(
                        x, (h, c), w_ih, w_hh, bias, b_hh))}
-            n_bytes = 4 * (b * in_dim + 4 * b * hid + k * 4 * hid + 4 * hid
-                           + (b * 4 * hid if train else 0))
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                n_bytes, 2 * b * k * 4 * hid)
-            achieved(rec, 2 * b * k * 4 * hid)
+            work = W.lstm_cell(b, in_dim, hid, train)
+            rec["bound_ms"], rec["bound_by"] = work_bound(work)
+            achieved(rec, work.ops)
             rec["beats_library"] = rec["ms"] <= rec["library_ms"]
             rec["timer_floor_ms"] = floor_ms
             rec["design"] = LSTM_DESIGN
@@ -3378,9 +3429,8 @@ def phase_learned_kernels(timer):
                "ms": timer(lambda: ck.chamfer(po, w, 0.7)),
                "plain_ms": timer(lambda: ref.chamfer_ref(po, w, 0.7)),
                "library_ms": None, "library_note": NO_LIBRARY["chamfer"]}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            4 * b * ((n_p + n_w) * n_f + 1 + n_p + n_w),
-            3 * b * n_p * n_w * n_f)
+        rec["bound_ms"], rec["bound_by"] = work_bound(
+            W.chamfer(b, n_p, n_w, n_f))
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["timer_floor_ms"] = floor_ms
         rec["design"] = CHAMFER_DESIGN
@@ -4229,14 +4279,11 @@ def phase_flash_kernels(timer):
                "ms": timer(lambda: fa.flash_attention(q, k, v)),
                "plain_ms": timer(lambda: ref.causal_attention_ref(q, k, v)),
                "library_ms": timer(sdpa)}
-        # Causal work: 2 products of 2 * (S^2 / 2) * hd per (batch, head);
-        # q, k, v read once and o written once.
-        n_bytes = q.element_size() * b * s * hd * (2 * h + 2 * n_kv)
-        n_ops = 2 * 2 * b * h * s * s / 2 * hd
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            n_bytes, n_ops,
-            BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
-        achieved(rec, n_ops)
+        # Causal work: 2 products of 2 hd over the S (S + 1) / 2 visible
+        # pairs of each (batch, head); q, k, v read once, o written once.
+        work = W.flash_attention(b, s, s, h, n_kv, hd, q.element_size())
+        rec["bound_ms"], rec["bound_by"] = work_bound(work)
+        achieved(rec, work.ops)
         emit(rec)
         if main is None:
             main = rec
@@ -4263,13 +4310,9 @@ def scan_inputs(b, s, di, n, dt):
 
 
 def scan_bound(b, s, di, n, elt):
-    """x and z read and y written in the compute dtype, dt read, Bm and Cm
-    read, a and D read, h_last written (fp32); ~8 fp32 operations per
-    state and step (dt a, exp, two products and sums) and 8 per channel
-    and step (dt x, D x, silu, the gate)."""
-    n_bytes = (3 * elt + 4) * b * s * di + 4 * (2 * b * s * n + di * n + di
-                                                 + b * di * n)
-    return bound_ms(n_bytes, b * s * di * (8 * n + 8))
+    """The scan's bound from its work (:func:`repro_torch.kernels.work.
+    selective_scan`)."""
+    return work_bound(W.selective_scan(b, s, di, n, elt))
 
 
 def sm_clock_max_mhz() -> float:
@@ -4425,12 +4468,11 @@ def window_attention(timer):
     del qt, kt, vt, band
     rec["windowed_over_causal"] = rec["ms"] / rec["causal_ms"]
     # Work inside the window: query i sees min(i + 1, w) keys.
-    n_ops = 4 * b * h * hd * sum(min(i + 1, w) for i in range(s))
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        2 * b * s * hd * (2 * h + 2 * n_kv), n_ops, BF16_OPS_PER_S)
-    rec["causal_bound_ms"] = bound_ms(0, 4 * b * h * hd * s * (s + 1) / 2,
-                                      BF16_OPS_PER_S)[0]
-    achieved(rec, n_ops)
+    work = W.flash_attention(b, s, s, h, n_kv, hd, 2, window=w)
+    rec["bound_ms"], rec["bound_by"] = work_bound(work)
+    rec["causal_bound_ms"] = bound_ms(0, W.flash_attention(
+        b, s, s, h, n_kv, hd, 2).ops, BF16_OPS_PER_S)[0]
+    achieved(rec, work.ops)
     # A window of S or more masks no key: the causal kernel's bits.
     same = {}
     for name, shape in (("hymba_prefill", (b, s, h, n_kv)),
@@ -4453,16 +4495,11 @@ def window_attention(timer):
 
 
 def scan_bwd_bound(b, s, di, n, elt):
-    """The function's own traffic: x, z and dy read and dx, dz written in
-    the compute dtype, dt read and ddt written (fp32), Bm, Cm, a, D, h0 and
-    dh_last read and their gradients and dh0 written (fp32); ~16 fp32
-    operations per state and step (the state, dh, its carry and the four
-    gradients' terms) and 16 per channel and step (the gate's and D's).
-    The states the forward saves are this design's checkpoint, not the
-    function's: :func:`scan_bwd_state_bytes` counts them apart."""
-    n_bytes = (5 * elt + 8) * b * s * di + 4 * (
-        4 * b * s * n + 2 * di * n + 2 * di + 3 * b * di * n)
-    return bound_ms(n_bytes, b * s * di * (16 * n + 16))
+    """The backward's bound from its work (:func:`repro_torch.kernels.work.
+    selective_scan_bwd`: the function's own traffic; the states the forward
+    saves are this design's checkpoint, which
+    :func:`scan_bwd_state_bytes` counts apart)."""
+    return work_bound(W.selective_scan_bwd(b, s, di, n, elt))
 
 
 def scan_bwd_state_bytes(b, s, di, n):
@@ -5316,15 +5353,11 @@ def phase_flash_bwd_kernels(timer):
                 str(sp): timer(lambda: fa.flash_attention_bwd(
                     q, k, v, o, do, lse, splits=sp))
                 for sp in range(1, group + 1) if group % sp == 0}
-        # Five causal products of 2 * (S^2 / 2) * hd per (batch, head);
-        # q, k, v, o, dO and lse read once, dq, dk, dv written once.
-        n_bytes = q.element_size() * b * s * hd * (4 * h + 4 * n_kv) \
-            + 4 * b * h * s
-        n_ops = 5 * 2 * b * h * s * s / 2 * hd
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            n_bytes, n_ops,
-            BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
-        achieved(rec, n_ops)
+        # Five products of 2 hd over the causal pairs of each (batch,
+        # head); q, k, v, o, dO and lse read once, dq, dk, dv written once.
+        work = W.flash_attention_bwd(b, s, s, h, n_kv, hd, q.element_size())
+        rec["bound_ms"], rec["bound_by"] = work_bound(work)
+        achieved(rec, work.ops)
         emit(rec)
         if name == "train_cut" and dt_name == "bf16":
             main = rec
@@ -5410,13 +5443,11 @@ def window_attention_bwd(timer):
     rec["windowed_over_causal"] = rec["ms"] / rec["causal_ms"]
     # Five products over the visible pairs: query i sees min(i + 1, w)
     # keys; q, k, v, o, dO and lse read once, dq, dk, dv written once.
-    pairs = sum(min(i + 1, w) for i in range(s))
-    n_ops = 5 * 2 * b * h * hd * pairs
+    pairs = W.visible_pairs(s, s, window=w)
+    work = W.flash_attention_bwd(b, s, s, h, n_kv, hd, 2, window=w)
     rec["visible_share_of_causal"] = pairs / (s * (s + 1) / 2)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        2 * b * s * hd * (4 * h + 4 * n_kv) + 4 * b * h * s, n_ops,
-        BF16_OPS_PER_S)
-    achieved(rec, n_ops)
+    rec["bound_ms"], rec["bound_by"] = work_bound(work)
+    achieved(rec, work.ops)
     emit(rec)
     del q, k, v, do, o, lse, co, clse, got, qt, kt, vt, out, dot, band, plain
     torch.cuda.empty_cache()
@@ -5885,11 +5916,10 @@ def _noncausal_fwd(timer, shape, dt_name, name):
            "plain_ms": timer(lambda: ref.causal_attention_ref(
                q, k, v, causal=False)),
            "library": "SDPA without a mask", "library_ms": timer(sdpa)}
-    n_ops = 4 * b * h * s * s * hd
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        q.element_size() * b * s * hd * (2 * h + 2 * n_kv), n_ops,
-        BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
-    achieved(rec, n_ops)
+    work = W.flash_attention(b, s, s, h, n_kv, hd, q.element_size(),
+                             causal=False)
+    rec["bound_ms"], rec["bound_by"] = work_bound(work)
+    achieved(rec, work.ops)
     emit(rec)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -5942,11 +5972,10 @@ def _noncausal_bwd(timer, shape, dt_name, name):
            "library": "SDPA's backward without a mask",
            "library_ms": timer(lambda: torch.autograd.grad(
                out, (qt, kt, vt), dot, retain_graph=True))}
-    n_ops = 10 * b * h * s * s * hd
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        q.element_size() * b * s * hd * (4 * h + 4 * n_kv) + 4 * b * h * s,
-        n_ops, BF16_OPS_PER_S if dt_name == "bf16" else FP32_OPS_PER_S)
-    achieved(rec, n_ops)
+    work = W.flash_attention_bwd(b, s, s, h, n_kv, hd, q.element_size(),
+                                 causal=False)
+    rec["bound_ms"], rec["bound_by"] = work_bound(work)
+    achieved(rec, work.ops)
     emit(rec)
     del q, k, v, do, o, lse, qt, kt, vt, out, dot
     torch.cuda.empty_cache()

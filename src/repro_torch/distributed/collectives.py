@@ -49,11 +49,30 @@ rank's loss reads its part of the sum, so the backward all-gathers the
 ranks' gradients of their parts).
 
 Outside a process group (``group`` None) each is the identity: there is
-one rank.  :func:`repro_torch.distributed.mesh.gather_batch` is the
-all-gather over ``data`` without a gradient.  :data:`TRAFFIC` counts the
-calls and bytes (the whole tensor's, in its dtype) of the gathers,
-reduce-scatters, sum all-reduces (:func:`all_reduce_`, forward and
-backward) and exchanges, which the card's smoke run reads.
+one rank.  :func:`gather_parts` (``mesh.gather_batch``) is the
+all-gather of a batch's rows without a gradient.
+
+Every collective of the port goes through this module (set-up calls
+aside: the launcher's barrier, ``init_distributed``'s device check), and
+two counters see each one:
+
+- :data:`TRAFFIC`, which the card's smoke run reads: the calls and bytes
+  (the whole tensor's, in its dtype) of the gathers (their output),
+  reduce-scatters (their input), all-reduces (sum and max, forward and
+  backward; AdamW's norm, the int8 codes, scales and loss of
+  ``compression.psum_int8``) and exchanges (their input);
+- :data:`RECORD`, JAX's ``launch/hlo_analysis.py::collective_stats``
+  (:139-167) for the port's own program: ``bytes_<op>`` the **result**
+  bytes of each kind (``all-gather``, ``reduce-scatter``, ``all-reduce``
+  counted twice, a ring's two phases, ``all-to-all``;
+  ``collective-permute`` stays 0: the port sends nothing point to
+  point), ``count_<op>`` the calls (:func:`collective_stats`).
+
+On a virtual mesh (:func:`repro_torch.distributed.mesh.virtual_mesh`)
+the groups are stand-ins: each collective is counted as above, runs
+nothing, and gives a ``meta`` tensor of the shape and dtype the real one
+gives, so a rank's step runs on the ``meta`` device as it would on the
+mesh (:mod:`repro_torch.launch.accounting`).
 """
 from __future__ import annotations
 
@@ -70,20 +89,62 @@ TRAFFIC: Dict[str, Dict[str, int]] = {
     for kind in ("all_gather", "reduce_scatter", "all_reduce", "exchange")}
 
 
+# JAX's collective kinds (hlo_analysis.py's _COLLECTIVES).
+OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+       "collective-permute")
+RECORD: Dict[str, int] = {f"{k}_{op}": 0 for op in OPS
+                          for k in ("bytes", "count")}
+
+
 def reset_traffic() -> None:
     for rec in TRAFFIC.values():
         rec.update(calls=0, bytes=0)
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def reset_record() -> None:
+    for key in RECORD:
+        RECORD[key] = 0
+
+
+def collective_stats() -> Dict[str, int]:
+    """:data:`RECORD` with ``collective_bytes``, the sum of its bytes:
+    JAX's ``collective_stats`` keys."""
+    out = dict(RECORD)
+    out["collective_bytes"] = sum(RECORD[f"bytes_{op}"] for op in OPS)
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(kind: str, n_bytes: int, op: str, result_bytes: int) -> None:
+    """One call: ``n_bytes`` into :data:`TRAFFIC`'s ``kind``, the
+    result's bytes into :data:`RECORD`'s ``op`` (an all-reduce's
+    twice)."""
     TRAFFIC[kind]["calls"] += 1
-    TRAFFIC[kind]["bytes"] += t.numel() * t.element_size()
+    TRAFFIC[kind]["bytes"] += n_bytes
+    RECORD[f"count_{op}"] += 1
+    RECORD[f"bytes_{op}"] += result_bytes * (2 if op == "all-reduce"
+                                             else 1)
+
+
+def _runs(group, t: torch.Tensor) -> bool:
+    """Whether a collective over ``group`` runs: not over a virtual
+    mesh's stand-in, whose tensors must be ``meta``."""
+    if not M.is_virtual(group):
+        return True
+    if not t.is_meta:
+        raise ValueError(f"a virtual mesh's collective over {group.axes} "
+                         f"takes meta tensors, not {t.device}")
+    return False
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group`` in place, counted; returns ``x``."""
-    _count("all_reduce", x)
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    _count("all_reduce", _nbytes(x), "all-reduce", _nbytes(x))
+    if _runs(group, x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 
@@ -153,7 +214,9 @@ def all_reduce_max(x: torch.Tensor,
     """The elementwise max of ``x`` over ``group``, without a gradient."""
     y = x.detach().clone()
     if group is not None:
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+        _count("all_reduce", _nbytes(y), "all-reduce", _nbytes(y))
+        if _runs(group, y):
+            dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
 
@@ -161,9 +224,20 @@ def all_gather(x: torch.Tensor, group, dim: int, n: int) -> torch.Tensor:
     """The ``n`` ranks' ``x`` concatenated along ``dim`` in group order."""
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    _count("all_gather", out)
-    dist.all_gather_into_tensor(out, src, group=group)
+    _count("all_gather", _nbytes(out), "all-gather", _nbytes(out))
+    if _runs(group, src):
+        dist.all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
+
+
+def gather_parts(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``x`` concatenated along dim 0 in group order,
+    without a gradient (a batch's rows: ``mesh.gather_batch``)."""
+    parts = [torch.empty_like(x) for _ in range(n)]
+    _count("all_gather", n * _nbytes(x), "all-gather", n * _nbytes(x))
+    if _runs(group, x):
+        dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int, n: int
@@ -172,8 +246,10 @@ def reduce_scatter(x: torch.Tensor, group, dim: int, n: int
     ``x``."""
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    _count("reduce_scatter", src)
-    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    _count("reduce_scatter", _nbytes(src), "reduce-scatter", _nbytes(out))
+    if _runs(group, src):
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                                   group=group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -225,9 +301,10 @@ def _exchange(x: torch.Tensor, group, dim: int, send, recv
     src = x.movedim(dim, 0).contiguous()
     rest = tuple(src.shape[1:])
     out = src.new_empty((sum(recv),) + rest)
-    _count("exchange", src)
-    dist.all_to_all_single(out, src, output_split_sizes=list(recv),
-                           input_split_sizes=list(send), group=group)
+    _count("exchange", _nbytes(src), "all-to-all", _nbytes(out))
+    if _runs(group, src):
+        dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -262,8 +339,9 @@ def exchange_dims(x: torch.Tensor, group, n: int, split_dim: int,
     order."""
     parts = torch.stack(x.chunk(n, split_dim)).contiguous()
     out = torch.empty_like(parts)
-    _count("exchange", parts)
-    dist.all_to_all_single(out, parts, group=group)
+    _count("exchange", _nbytes(parts), "all-to-all", _nbytes(out))
+    if _runs(group, parts):
+        dist.all_to_all_single(out, parts, group=group)
     return torch.cat(out.unbind(0), dim=cat_dim)
 
 

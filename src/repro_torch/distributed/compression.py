@@ -25,8 +25,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import mesh as M
 from repro_torch.tree import jax_stacks, leaves
 
@@ -84,14 +84,16 @@ def psum_int8(codes: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
     int32 (int8 sums overflow), times the mean of its scales: fp32.  The
     payload all-reduced is the int32 codes, 4 bytes an element: JAX's
     note has XLA move the int8 operand and widen it at the reduction,
-    which ``all_reduce`` cannot ask for."""
+    which ``all_reduce`` cannot ask for.  The codes, the scales and (in
+    :func:`make_compressed_dp_grads`) the loss are counted by
+    :mod:`repro_torch.distributed.collectives` as sum all-reduces."""
     out = []
     for q, s in zip(codes, scales):
         q = q.to(torch.int32)
         s = s.clone()
         if group is not None:
-            dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
-            dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
+            C.all_reduce_(q, group)
+            C.all_reduce_(s, group)
         out.append(q.to(torch.float32) * (s / n) / 1.0)
     return out
 
@@ -124,9 +126,7 @@ def make_compressed_dp_grads(loss_fn: Callable, mesh: M.Mesh,
         g_avg = [g / n for g in psum_int8(q, s, mesh.data_group, n)]
         loss = loss.float()
         if mesh.data_group is not None:
-            loss = loss.clone()
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM,
-                            group=mesh.data_group)
+            loss = C.all_reduce_(loss.clone(), mesh.data_group)
         return loss / n, g_avg, new_err
 
     return grads_fn

@@ -26,6 +26,14 @@ scope carries the axes the current batch's rows lie over
 (:func:`row_axes`), which the gradients' reductions, the MoE's dispatch
 and DLRM's lookup read.
 
+:func:`virtual_mesh` is a rank's place in a mesh with no process group:
+its groups are :class:`VirtualGroup` stand-ins, over which the
+collectives record what they would move and give ``meta`` tensors, so
+one rank's step of a mesh of any size runs on the ``meta`` device (the
+dry-run's accounting, :mod:`repro_torch.launch.accounting`).  JAX's
+``make_production_mesh`` has no counterpart here: the dry-run's
+``launch/dryrun.py::MESHES`` names its shapes.
+
 A parameter stored as this rank's shard carries a :class:`Placement`
 (``p.placement``): its mesh, its spec
 (:mod:`repro_torch.sharding.partition`) and the variant, which the layers'
@@ -54,10 +62,25 @@ _ACT_ROWS: Optional[Tuple[str, ...]] = None
 
 
 @dataclass(frozen=True)
+class VirtualGroup:
+    """The stand-in for a process group of a virtual mesh
+    (:func:`virtual_mesh`): ``size`` ranks along ``axes``.  A collective
+    over it runs nothing: it records what it would move and gives a
+    ``meta`` tensor of the shape and dtype the real one gives
+    (:mod:`repro_torch.distributed.collectives`)."""
+    axes: Tuple[str, ...]
+    size: int
+
+
+def is_virtual(group) -> bool:
+    return isinstance(group, VirtualGroup)
+
+
+@dataclass(frozen=True)
 class Mesh:
     """This rank's place in a (data, model) mesh of ``data * model``
     ranks, and its two process groups (``None`` outside a process
-    group)."""
+    group; :class:`VirtualGroup` stand-ins on a virtual mesh)."""
     data: int
     model: int
     rank: int
@@ -138,6 +161,20 @@ def make_mesh(data: int, model: int) -> Mesh:
         [[d * model + m for m in range(model)] for d in range(data)])
     return Mesh(data, model, rank, data_group, model_group,
                 dist.group.WORLD)
+
+
+def virtual_mesh(data: int, model: int, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s place in a (data, model) mesh with no process
+    group: its groups are :class:`VirtualGroup` stand-ins, laid out as
+    :func:`make_mesh` lays out the real ones (a group of one rank where an
+    axis has size 1, as inside a process group).  The model then runs as
+    that rank would, on the ``meta`` device, and its collectives are
+    recorded, not run (:mod:`repro_torch.launch.accounting`)."""
+    if not 0 <= rank < data * model:
+        raise ValueError(f"rank {rank} is not in a ({data}, {model}) mesh")
+    return Mesh(data, model, rank, VirtualGroup(("data",), data),
+                VirtualGroup(("model",), model),
+                VirtualGroup(("data", "model"), data * model))
 
 
 def make_host_mesh(model_parallel: int = 1) -> Mesh:
@@ -315,13 +352,13 @@ def microbatch_shard(x: torch.Tensor, microbatches: int, i: int,
 def gather_batch(x: torch.Tensor, mesh: Mesh,
                  rows: Sequence[str] = ("data",)) -> torch.Tensor:
     """The batch from every rank's part along the axes ``rows`` (by
-    default ``data``), in their order; ``x`` itself over none."""
+    default ``data``), in their order; ``x`` itself over none
+    (:func:`repro_torch.distributed.collectives.gather_parts`, which
+    counts it)."""
+    from repro_torch.distributed.collectives import gather_parts
+
     group, n, _ = mesh.axes_group(rows)
-    if group is None:
-        return x
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
+    return x if group is None else gather_parts(x, group, n)
 
 
 def shared_devices(devices: Sequence[str]) -> List[str]:

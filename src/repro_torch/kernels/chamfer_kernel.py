@@ -7,7 +7,9 @@ dtype, shape and contiguity, copies ``po`` or ``w`` first when it does not
 start on a 16-byte boundary (a view inside an allocation: the kernel stages
 with 16-byte copies), allocates its outputs with ``torch.empty``, launches
 on the current stream, raises if the launch reports an error, and
-adds one to its ``launches`` count.  The plain version is
+adds one to its ``launches`` count.  On the ``meta`` device it allocates the
+same, launches nothing and charges its work
+(:mod:`repro_torch.kernels.work`).  The plain version is
 :func:`repro_torch.kernels.ref.chamfer_ref`;
 :func:`repro_torch.kernels.ops.chamfer` picks between the two by the
 tensors' device and carries the backward.
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import work as W
 from repro_torch.kernels.embedding_gather import _check, _raise_on
 
 _VP, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
@@ -61,6 +64,9 @@ def chamfer(po: torch.Tensor, w: torch.Tensor, alpha: float = 0.7):
     arg_fwd = torch.empty((n, n_p), dtype=torch.int32, device=po.device)
     arg_bwd = torch.empty((n, n_w), dtype=torch.int32, device=po.device)
     if n == 0:
+        return loss, arg_fwd, arg_bwd
+    if po.is_meta:
+        W.charge("chamfer", W.chamfer(n, n_p, n_w, n_f))
         return loss, arg_fwd, arg_bwd
     po, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (po, w))
     with torch.cuda.device(po.device):

@@ -10,7 +10,10 @@ window, the per-shard pool of the row-sharded DLRM lookup: an id < 0 adds
 nothing.  Each wrapper takes CUDA tensors only: it checks
 device, dtype, shape and contiguity, allocates its output with
 ``torch.empty``, launches on the current stream, raises if the launch
-reports an error, and adds one to its ``launches`` count.  The plain
+reports an error, and adds one to its ``launches`` count.  On the
+``meta`` device (the dry-run's accounting) it checks and allocates the
+same, launches nothing, counts no launch, and charges its work
+(:mod:`repro_torch.kernels.work`) instead.  The plain
 versions are in :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops`
 picks between the two by the tensors' device.
 """
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import work as W
 from repro_torch.kernels.ref import ROW_FORMATS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,7 +73,8 @@ def _qlib() -> ctypes.CDLL:
 
 
 def _check(t: torch.Tensor, name: str, ndim: int, dtypes, device=None):
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+    if not isinstance(t, torch.Tensor) or t.device.type not in ("cuda",
+                                                                 "meta"):
         raise ValueError(f"{name} must be a CUDA tensor (the plain version "
                          "in repro_torch.kernels.ref serves CPU tensors)")
     if device is not None and t.device != device:
@@ -100,6 +105,8 @@ def _launch_rows(table, slots, inv, ov, host_rows, m) -> torch.Tensor:
         return out
     if table.shape[0] == 0:
         raise ValueError("gather from a table with no rows")
+    if table.is_meta:
+        return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_gather_rows(
@@ -117,7 +124,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(table, "table", 2, _DTYPE_CODE)
     _check(idx, "idx", 1, (torch.int32,), table.device)
     out = _launch_rows(table, idx, None, None, None, idx.shape[0])
-    if idx.shape[0]:
+    if table.is_meta:
+        W.charge("gather_rows", W.gather_rows(table, idx))
+    elif idx.shape[0]:
         gather_rows.launches += 1
     return out
 
@@ -151,7 +160,10 @@ def gather_rows_expand(table: torch.Tensor, slots: torch.Tensor,
     if inv.shape[0] and not slots.shape[0]:
         raise ValueError("inv indexes an empty slots vector")
     out = _launch_rows(table, slots, inv, ov, host_rows, inv.shape[0])
-    if inv.shape[0]:
+    if table.is_meta:
+        W.charge("gather_rows_expand",
+                 W.gather_rows_expand(table, slots, inv, ov))
+    elif inv.shape[0]:
         gather_rows_expand.launches += 1
     return out
 
@@ -173,6 +185,10 @@ def _launch_pool(table, idx, skip_negative: bool, wrapper) -> torch.Tensor:
         return out.zero_()
     if table.shape[0] == 0:
         raise ValueError("gather from a table with no rows")
+    if table.is_meta:
+        W.charge(wrapper.__name__, W.gather_pool_shard(table, idx)
+                 if skip_negative else W.gather_pool(table, idx))
+        return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_gather_pool(
@@ -241,6 +257,9 @@ def quantize_scatter(buf: torch.Tensor, scales: torch.Tensor,
                          f"{tuple(buf.shape)}")
     if m == 0:
         return
+    if buf.is_meta:
+        W.charge("quantize_scatter", W.quantize_scatter(m, d))
+        return
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _qlib().repro_quantize_scatter(
@@ -261,6 +280,8 @@ def _launch_rows_dequant(table, scales, slots, inv, ov, host_rows, m):
         return out
     if table.shape[0] == 0:
         raise ValueError("gather from a table with no rows")
+    if table.is_meta:
+        return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _qlib().repro_gather_rows_dequant(
@@ -281,7 +302,10 @@ def gather_rows_dequant(table: torch.Tensor, scales: torch.Tensor,
     _check(idx, "idx", 1, (torch.int32,), table.device)
     out = _launch_rows_dequant(table, scales, idx, None, None, None,
                                idx.shape[0])
-    if idx.shape[0]:
+    if table.is_meta:
+        W.charge("gather_rows_dequant",
+                 W.gather_rows_dequant(table, scales, idx))
+    elif idx.shape[0]:
         gather_rows_dequant.launches += 1
     return out
 
@@ -319,7 +343,10 @@ def gather_rows_dequant_expand(table: torch.Tensor, scales: torch.Tensor,
         raise ValueError("inv indexes an empty slots vector")
     out = _launch_rows_dequant(table, scales, slots, inv, ov, host_rows,
                                inv.shape[0])
-    if inv.shape[0]:
+    if table.is_meta:
+        W.charge("gather_rows_dequant_expand",
+                 W.gather_rows_expand(table, slots, inv, ov, quantized=True))
+    elif inv.shape[0]:
         gather_rows_dequant_expand.launches += 1
     return out
 
@@ -343,6 +370,10 @@ def gather_pool_dequant(table: torch.Tensor, scales: torch.Tensor,
         return out.zero_()
     if table.shape[0] == 0:
         raise ValueError("gather from a table with no rows")
+    if table.is_meta:
+        W.charge("gather_pool_dequant", W.gather_pool(table, idx,
+                                                      quantized=True))
+        return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _qlib().repro_gather_pool_dequant(

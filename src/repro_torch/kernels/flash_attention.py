@@ -22,7 +22,9 @@ The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, copies a bf16 input that is not 16-byte aligned, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream,
 raises if the launch reports an error, and adds one to its ``launches``
-count.  Asked
+count (on the ``meta`` device it checks and allocates the same,
+launches nothing, and charges its work, :mod:`repro_torch.kernels.work`,
+in place of a launch).  Asked
 for it (``with_lse``), the forward also returns each row's log-sum-exp,
 (B, H, Sq) fp32, which :func:`flash_attention_bwd` (no TPU counterpart: JAX
 differentiates the attention's XLA version) takes to give dq, dk and dv
@@ -44,6 +46,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import work as W
 from repro_torch.kernels.embedding_gather import (_DTYPE_CODE, _check,
                                                   _raise_on)
 
@@ -132,6 +135,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if s_k == 0:  # unmasked rows that see no key
             out.zero_()
             lse = None if lse is None else lse.fill_(-math.inf)
+        return (out, lse) if with_lse else out
+    if q.is_meta:
+        W.charge("flash_attention", W.flash_attention(
+            b, s, s_k, h, k.shape[2], hd, q.element_size(), window, causal,
+            q_offset))
         return (out, lse) if with_lse else out
     if q.dtype == torch.bfloat16:
         # The bf16 kernel copies 16 bytes at a time: a view that starts
@@ -226,7 +234,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        for t in (q, k, v, do))
         if splits is None:
             seen = min(s_k, q_offset + s) if causal else s_k
-            splits = bwd_splits(b, seen, n_kv, h // n_kv, torch.cuda
+            splits = bwd_splits(b, seen, n_kv, h // n_kv, W.H100_SMS
+                                if q.is_meta else torch.cuda
                                 .get_device_properties(q.device)
                                 .multi_processor_count)
     splits = splits or 1
@@ -234,6 +243,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     partial = (torch.empty((2, splits, b, s_k, n_kv, hd),
                            dtype=torch.float32, device=q.device)
                if splits > 1 else None)
+    if q.is_meta:
+        W.charge("flash_attention_bwd", W.flash_attention_bwd(
+            b, s, s_k, h, n_kv, hd, q.element_size(), window, causal,
+            q_offset))
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib().repro_flash_attention_bwd_split(

@@ -7,7 +7,9 @@ contiguity, copies x, h or w if it is not 16-byte aligned (a view that
 starts inside an allocation; the kernel stages 16 bytes at a time),
 allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch reports an error, and adds one to its
-``launches`` count.  The plain version is
+``launches`` count.  On the ``meta`` device it allocates the
+same, launches nothing and charges its work
+(:mod:`repro_torch.kernels.work`).  The plain version is
 :func:`repro_torch.kernels.ref.lstm_cell_ref`;
 :func:`repro_torch.kernels.ops.lstm_cell` picks between the two by the
 tensors' device and carries the backward.
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import work as W
 from repro_torch.kernels.embedding_gather import _check, _ptr, _raise_on
 
 _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -64,6 +67,9 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     gates = (torch.empty((n, 4 * hid), dtype=torch.float32, device=dev)
              if save_gates else None)
     if n == 0 or hid == 0:
+        return h2, c2, gates
+    if h.is_meta:
+        W.charge("lstm_cell", W.lstm_cell(n, in_dim, hid, save_gates))
         return h2, c2, gates
     x, h, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, h, w))
     with torch.cuda.device(dev):

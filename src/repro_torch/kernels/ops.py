@@ -19,7 +19,9 @@ shard window's ids < 0); the Pallas kernels have no backward either.
 its own on the card (``flash_attention_bwd``, from the forward's log-sum-exp)
 and its plain version on the CPU; so is ``selective_scan``'s (the mamba-1 scan,
 a kernel with no TPU counterpart: ``selective_scan_bwd``, from the states the
-forward saved every 16 steps).  Outside autograd (serving under
+forward saved every 16 steps).  A ``meta`` tensor takes the kernel's
+route: its wrapper checks and allocates as on the card, launches nothing
+and charges the kernel's work to the dry-run's meters.  Outside autograd (serving under
 ``torch.inference_mode()``) each op calls its kernel directly:
 ``flash_attention`` writes no log-sum-exp and ``selective_scan`` saves no
 states.
@@ -49,7 +51,11 @@ def reset_launches():
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+    """True for a tensor the kernel wrapper takes: a CUDA tensor (the
+    kernel launches) or a ``meta`` one (the wrapper charges the kernel's
+    work, :mod:`repro_torch.kernels.work`, and launches nothing); False on
+    the CPU (the plain version)."""
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False

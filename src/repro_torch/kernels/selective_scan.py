@@ -17,7 +17,10 @@ copy ``Bm``, ``Cm`` or the saved states if one is not 16-byte aligned (the
 kernels stage them 16 bytes at a time), allocate
 their outputs and scratch with ``torch.empty``, launch on the current
 stream, raise if the launch reports an error, and add one to their
-``launches`` counts.  The plain versions are
+``launches`` counts (on the ``meta`` device they check and allocate the
+same, launch nothing, and charge their work,
+:mod:`repro_torch.kernels.work`, in place of a launch).  The plain
+versions are
 :func:`repro_torch.kernels.ref.selective_scan_ref` and
 :func:`~repro_torch.kernels.ref.selective_scan_bwd_ref`;
 :func:`repro_torch.kernels.ops.selective_scan` picks between kernel and
@@ -31,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import work as W
 from repro_torch.kernels.embedding_gather import (_DTYPE_CODE, _check, _ptr,
                                                   _raise_on)
 
@@ -97,9 +101,10 @@ def state_chunk() -> int:
     return _lib().repro_selective_scan_state_chunk()
 
 
-def n_chunks(s: int) -> int:
-    """The number of saved states of an S-step scan."""
-    return -(-s // state_chunk())
+def n_chunks(s: int, meta: bool = False) -> int:
+    """The number of saved states of an S-step scan (on ``meta``, by the
+    kernel's compiled chunk)."""
+    return -(-s // (W.SCAN_STATE_CHUNK if meta else state_chunk()))
 
 
 def _geometry(query, n_state: int, dtype: torch.dtype, what: str) -> dict:
@@ -178,8 +183,9 @@ def selective_scan(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
     dev = xc.device
     y = torch.empty_like(xc)
     h_last = torch.empty((b, di, n), dtype=torch.float32, device=dev)
-    states = (torch.empty((b, n_chunks(s), di, n), dtype=torch.float32,
-                          device=dev) if save_states else None)
+    states = (torch.empty((b, n_chunks(s, xc.is_meta), di, n),
+                          dtype=torch.float32, device=dev)
+              if save_states else None)
     out = (y, h_last, states) if save_states else (y, h_last)
     if b == 0 or di == 0:
         return out
@@ -188,6 +194,10 @@ def selective_scan(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
             h_last.zero_()
         else:
             h_last.copy_(h0)
+        return out
+    if xc.is_meta:
+        W.charge("selective_scan",
+                 W.selective_scan(b, s, di, n, xc.element_size()))
         return out
     bm, cm = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (bm, cm))
     with torch.cuda.device(dev):
@@ -225,14 +235,15 @@ def selective_scan_bwd(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
     _check(dy, "dy", 3, (xc.dtype,), dev)
     if dh_last is not None:
         _check(dh_last, "dh_last", 3, f32, dev)
-    if (states.shape != (b, n_chunks(s), di, n) or dy.shape != xc.shape
+    if (states.shape != (b, n_chunks(s, xc.is_meta), di, n)
+            or dy.shape != xc.shape
             or (dh_last is not None and dh_last.shape != (b, di, n))):
         raise ValueError(
             f"selective_scan_bwd shapes do not match: states "
             f"{tuple(states.shape)}, dy {tuple(dy.shape)}, dh_last "
             f"{None if dh_last is None else tuple(dh_last.shape)} (expected "
-            f"states {(b, n_chunks(s), di, n)}, dy like xc, dh_last "
-            f"{(b, di, n)})")
+            f"states {(b, n_chunks(s, xc.is_meta), di, n)}, dy like xc, "
+            f"dh_last {(b, di, n)})")
     dx, dz = torch.empty_like(xc), torch.empty_like(z)
     ddt = torch.empty_like(dt)
     dh0 = torch.empty((b, di, n), dtype=torch.float32, device=dev)
@@ -244,10 +255,33 @@ def selective_scan_bwd(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
         return (dx, dz, ddt, torch.zeros_like(a), torch.zeros_like(bm),
                 torch.zeros_like(cm), torch.zeros_like(d_skip), dh0)
     da_part = torch.empty((b, di, n), dtype=torch.float32, device=dev)
-    lib = _bwd_lib()
-    dbc_part = torch.empty((-(-di // _BWD_LAYOUT["channels"]), b, s, 2 * n),
+    lib = None if xc.is_meta else _bwd_lib()
+    channels = (W.SCAN_BWD_CHANNELS if xc.is_meta
+                else _BWD_LAYOUT["channels"])
+    dbc_part = torch.empty((-(-di // channels), b, s, 2 * n),
                            dtype=torch.float32, device=dev)
     dd_part = torch.empty((b, di), dtype=torch.float32, device=dev)
+    if xc.is_meta:
+        W.charge("selective_scan_bwd",
+                 W.selective_scan_bwd(b, s, di, n, xc.element_size()))
+    else:
+        _launch_scan_bwd(lib, xc, z, dt, a, bm, cm, d_skip, states, dy,
+                         dh_last, dx, dz, ddt, da_part, dbc_part, dd_part,
+                         dh0)
+    dbc = dbc_part.sum(dim=0)
+    return (dx, dz, ddt, da_part.sum(dim=0), dbc[..., :n].contiguous(),
+            dbc[..., n:].contiguous(), dd_part.sum(dim=0), dh0)
+
+
+selective_scan_bwd.launches = 0
+
+
+def _launch_scan_bwd(lib, xc, z, dt, a, bm, cm, d_skip, states, dy, dh_last,
+                     dx, dz, ddt, da_part, dbc_part, dd_part, dh0) -> None:
+    """:func:`selective_scan_bwd`'s launch into the buffers it allocated."""
+    b, s, di = xc.shape
+    n = a.shape[1]
+    dev = xc.device
     bm, cm, states = (t if t.data_ptr() % 16 == 0 else t.clone()
                       for t in (bm, cm, states))
     with torch.cuda.device(dev):
@@ -261,9 +295,3 @@ def selective_scan_bwd(xc: torch.Tensor, z: torch.Tensor, dt: torch.Tensor,
             di, n, _DTYPE_CODE[xc.dtype], stream)
     _raise_on(err, "selective_scan_bwd")
     selective_scan_bwd.launches += 1
-    dbc = dbc_part.sum(dim=0)
-    return (dx, dz, ddt, da_part.sum(dim=0), dbc[..., :n].contiguous(),
-            dbc[..., n:].contiguous(), dd_part.sum(dim=0), dh0)
-
-
-selective_scan_bwd.launches = 0

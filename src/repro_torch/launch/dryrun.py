@@ -1,5 +1,6 @@
 """The dry-run as accounting: every (arch, shape, mesh) cell's per-rank
-bytes and model arithmetic, computed on the ``meta`` device.
+bytes and model arithmetic, and what one rank's step does, computed on the
+``meta`` device.
 
     python -m repro_torch.launch.dryrun --all [--mesh both] [--out runs/dryrun]
         [--tag baseline] [--sharding fsdp_tp] [--emb-rows all]
@@ -7,27 +8,37 @@ bytes and model arithmetic, computed on the ``meta`` device.
 
 Counterpart of ``src/repro/launch/dryrun.py``.  JAX lowers and compiles
 each cell for 512 placeholder devices and reads XLA's memory and cost
-analyses and its HLO; the port emits no HLO, so it keeps the part of the
-cell that does not come from XLA (``lower_cell``'s keys ``arch``,
-``shape``, ``mesh``, ``kind``, ``status``, ``reason`` for a skipped cell,
-``devices``, ``microbatches``, ``param_bytes_per_device`` by
-``_sizeof``'s rule (:func:`repro_torch.sharding.partition.shard_bytes`),
-``n_params``, ``n_active_params``, ``run_config``) and adds, per rank, the
-AdamW moments (fp32 ``m`` and ``v`` laid out as the parameters), the batch
+analyses and its HLO.  The port keeps the part of the cell that does not
+come from XLA (``lower_cell``'s keys ``arch``, ``shape``, ``mesh``,
+``kind``, ``status``, ``reason`` for a skipped cell, ``devices``,
+``microbatches``, ``param_bytes_per_device`` by ``_sizeof``'s rule
+(:func:`repro_torch.sharding.partition.shard_bytes`), ``n_params``,
+``n_active_params``, ``run_config``) and adds, per rank, the AdamW
+moments (fp32 ``m`` and ``v`` laid out as the parameters), the batch
 (``batch_pspecs``), the decode cache (``cache_pspecs``) and the step's
 arguments, with ``model_flops`` and ``model_bytes``
-(:mod:`repro_torch.launch.roofline`).  The meshes are stand-ins of JAX's
-production meshes (``launch/mesh.py::make_production_mesh``): (data 16,
-model 16) and (pod 2, data 16, model 16).  Nothing is allocated (the
-models are built on the ``meta`` device), no process group is started and
-no XLA flag is set: ``--all`` runs in seconds on a CPU.  One JSON file a
-cell is written to ``OUT/TAG/<arch>__<shape>__<mesh>.json``.
+(:mod:`repro_torch.launch.roofline`).  The traced half is the port's own:
+one rank's real step of the cell runs on the ``meta`` device over a
+virtual mesh (:mod:`repro_torch.launch.accounting`), which gives the
+cell JAX's ``collectives`` (``hlo_analysis.collective_stats``' keys),
+``cost`` (``dot_flops``, ``bytes_accessed``) and ``memory_analysis``
+keys, with ``kernels`` (each kernel's calls, operations and bytes),
+``bounded`` (the sites that took an upper bound for a value the meta
+device has none of), ``traced_rank`` and ``traced`` (the depths and
+microbatch counts traced).
 
-The prefill and decode that JAX's cells lower run for real, rank by rank,
-in :func:`repro_torch.models.transformer.prefill_sharded` and
-``decode_sharded``; a cell's lowering for 512 devices, its HLO reading
-(``launch/hlo_analysis.py``) and the production mesh are out of the
-port's scope (ROADMAP A11c-6d).
+The meshes are JAX's production meshes (``launch/mesh.py::
+make_production_mesh``; :data:`MESHES` is its counterpart): (data 16,
+model 16) and (pod 2, data 16, model 16).  A multi-pod cell is traced as
+(data 32, model 16), ``pod`` folded into ``data``, where every parameter,
+batch and cache leaf is laid out the same under the fold
+(:func:`repro_torch.launch.accounting.fold_differences`); else it is
+written without the traced keys and with ``traced_reason``.  Nothing is
+allocated, no process group is started and no XLA flag is set: ``--all
+--mesh single`` runs in a few minutes on a CPU.  One JSON file a cell is
+written to ``OUT/TAG/<arch>__<shape>__<mesh>.json``; a cell whose trace
+fails is ``status: error`` with its traceback.  Lowering for 512
+placeholder devices and the HLO text are out of the port's scope.
 """
 from __future__ import annotations
 
@@ -35,13 +46,14 @@ import argparse
 import functools
 import json
 import math
+import time
 import traceback
 from pathlib import Path
 from typing import Dict
 
 from repro_torch.configs import (ALL_ARCHS, RunConfig, auto_microbatches,
                                  get_config, shape_applicable, shapes_for)
-from repro_torch.launch import roofline
+from repro_torch.launch import accounting, roofline
 from repro_torch.models.model_api import build
 from repro_torch.sharding import partition as SP
 
@@ -94,9 +106,36 @@ def _layout(arch: str, mesh_name: str, sharding: str, emb_rows: str):
             SP.shard_bytes(model, specs, mesh, MOMENT_BYTES))
 
 
+def traced_keys(bundle, shape, run: RunConfig, mesh_name: str,
+                mb: int) -> Dict:
+    """The traced half of a cell: one rank's step on the ``meta`` device
+    (:func:`repro_torch.launch.accounting.account`), the multi-pod mesh
+    folded to (data 32, model 16) where the layouts allow it."""
+    mesh, out = MESHES[mesh_name], {}
+    if "pod" in mesh:
+        diff = accounting.fold_differences(
+            bundle.param_struct(), bundle.batch_struct(shape),
+            bundle.cache_struct(shape) if shape.kind == "decode" else None,
+            run, mesh)
+        mesh = accounting.folded(mesh)
+        if diff:
+            return {"traced_reason": f"pod does not fold into data "
+                    f"{mesh['data']} for {len(diff)} leaves: "
+                    + ", ".join(diff[:8])}
+        out["traced_as"] = (f"(data {mesh['data']}, model {mesh['model']}):"
+                            " pod folded into data")
+    acc = accounting.account(bundle.cfg, shape, run, mesh, mb)
+    out.update({"collectives": acc["collectives"], "cost": acc["cost"],
+                "memory_analysis": acc["memory_analysis"],
+                "kernels": acc["kernels"], "bounded": acc["bounded"],
+                "traced_rank": acc["rank"], "traced": acc["traced"]})
+    return out
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                run: RunConfig, microbatches: int = 0) -> Dict:
-    """The cell's report (JAX's ``lower_cell`` less what XLA gives)."""
+    """The cell's report: JAX's ``lower_cell`` less what XLA gives, and
+    the traced half (:func:`traced_keys`)."""
     cfg = get_config(arch)
     shape = shapes_for(cfg)[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -135,6 +174,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "emb_rows": run.emb_rows,
         "dlrm_sharded_lookup": run.dlrm_sharded_lookup,
         "moe_local_dispatch": run.moe_local_dispatch}
+    out.update(traced_keys(bundle, shape, run, mesh_name, mb))
     return out
 
 
@@ -172,6 +212,7 @@ def main(argv=None) -> int:
     for arch, shape_name in cells:
         for multi in meshes:
             mesh_name = "2x16x16" if multi else "16x16"
+            t0 = time.perf_counter()
             try:
                 res = lower_cell(arch, shape_name, multi, run,
                                  args.microbatches)
@@ -185,7 +226,8 @@ def main(argv=None) -> int:
             n_ok += status == "ok"
             n_fail += status == "error"
             mark = {"ok": "PASS", "skipped": "SKIP", "error": "FAIL"}[status]
-            print(f"{mark} {arch} {shape_name} {mesh_name}", flush=True)
+            print(f"{mark} {arch} {shape_name} {mesh_name} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
             if status == "error":
                 print(res["error"], flush=True)
     print(f"dry-run: {n_ok} ok, {n_fail} failed -> {outdir}")

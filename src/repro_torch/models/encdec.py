@@ -368,6 +368,25 @@ def _cache_dims(cfg: ModelConfig, b: int, cap: int, se: int, mesh: M.Mesh,
     return out
 
 
+def rank_cache(cfg: ModelConfig, run: RunConfig, mesh: M.Mesh, batch: int,
+               cache_len: int, pos: int, device="cuda",
+               enc_len: Optional[int] = None) -> Dict:
+    """This rank's part of a zeroed decode cache of ``batch`` rows,
+    ``cache_len`` slots and ``enc_len`` (``cfg.enc_len`` by default)
+    encoder positions at ``pos``, laid out by ``cache_pspecs``: what
+    :func:`encdec_prefill_sharded` fills and :func:`encdec_decode_sharded`
+    takes."""
+    se = cfg.enc_len if enc_len is None else enc_len
+    dev, dt = resolve_device(device), torch_dtype(cfg.compute_dtype)
+    cache = {"pos": pos, "cap": cache_len, "enc_len": se}
+    for name, (shape, sp, _) in _cache_dims(cfg, batch, cache_len, se, mesh,
+                                            run).items():
+        cache[name] = torch.zeros(
+            (cfg.n_layers,) + SP.shard_shape(shape, sp, mesh), dtype=dt,
+            device=dev)
+    return cache
+
+
 @torch.inference_mode()
 def encdec_prefill_sharded(model: EncDecLM, cfg: ModelConfig,
                            run: RunConfig, mesh: M.Mesh,
@@ -396,10 +415,7 @@ def encdec_prefill_sharded(model: EncDecLM, cfg: ModelConfig,
     with M.activation_sharding(mesh, run.sharding, rows=rows):
         enc_out = encode(model, cfg, run, fr, enc_seq)
         x = T._embed(model, cfg, toks)
-        cache = {"pos": s, "cap": cap, "enc_len": se}
-        for name, (shape, sp, _) in dims.items():
-            cache[name] = x.new_zeros(
-                (cfg.n_layers,) + SP.shard_shape(shape, sp, mesh))
+        cache = rank_cache(cfg, run, mesh, b, cap, s, x.device, se)
         for i, blk in enumerate(model.dec_blocks):
             x, c = _dec_layer(blk, cfg, x, positions, enc_out, seq, enc_seq)
             for name, (_, _, dst) in dims.items():

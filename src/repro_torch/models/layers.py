@@ -178,10 +178,11 @@ def kv_stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """JAX's ``kv_stream_attention`` (:194) with a query offset: q (B, Sq,
     H, hd), row i at position ``q_offset + i``, against k/v (B, Sk, K, hd)
     at 0 .. Sk - 1 (causal: ``q_offset + Sq <= Sk``; or unmasked) -> q's
-    shape and dtype.  On the card the forward kernel's offset mode
-    (:func:`repro_torch.kernels.ops.flash_attention`), on the CPU the
+    shape and dtype.  On the card (and on ``meta``) the forward kernel's
+    offset mode (:func:`repro_torch.kernels.ops.flash_attention`), on the
+    CPU the
     online softmax over ``bk``-key blocks in JAX's order."""
-    if q.is_cuda:
+    if q.device.type in ("cuda", "meta"):
         return ops.flash_attention(q, k, v, window, causal, q_offset)
     return ref.kv_stream_attention_ref(q, k, v, window, bk, q_offset, causal)
 
@@ -530,6 +531,14 @@ def _experts(p, xf: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
     return gathered.view(t, k, d).sum(dim=1)
 
 
+def _bincount(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(x, minlength=n)`` of values below ``n``; on the
+    ``meta`` device, which has no bincount, its shape: (n,) int64."""
+    if x.is_meta:
+        return x.new_empty((n,), dtype=torch.int64)
+    return torch.bincount(x, minlength=n)
+
+
 def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor, lay: _Tokens,
                       tp=None):
     """Capacity dispatch over the batch's every token, and the expert
@@ -553,7 +562,7 @@ def _moe_dispatch_ffn(p, cfg: ModelConfig, xf: torch.Tensor, lay: _Tokens,
     n_tok = all_e.shape[0]
     me = (probs.mean(dim=0) if lay.group is None
           else lay.sum(probs.sum(dim=0), lay.group) / n_tok)
-    ce = torch.bincount(all_e.reshape(-1), minlength=e).float() / (n_tok * k)
+    ce = _bincount(all_e.reshape(-1), e).float() / (n_tok * k)
     aux = e * torch.sum(me * ce)
     c = max(1, int(math.ceil(cfg.capacity_factor * n_tok * k / e)))
     slot, _ = _capacity_slots(all_e.reshape(-1), e, c)
@@ -587,7 +596,7 @@ def _moe_dispatch_ffn_sharded(p, cfg: ModelConfig, xf: torch.Tensor,
     tl = blk_e.shape[0] // ns
     shard = torch.arange(ns, device=xf.device).repeat_interleave(tl * k)
     virt = blk_e.reshape(-1) * ns + shard  # expert e of shard j: e ns + j
-    ce = torch.bincount(virt, minlength=e * ns).float().view(e, ns).t() \
+    ce = _bincount(virt, e * ns).float().view(e, ns).t() \
         / (tl * k)
     if ns == 1 and lay.pos_group is None:
         me = probs.mean(dim=0)[None]

@@ -82,6 +82,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import generator, resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import mesh as M
+from repro_torch.kernels import work as W
 from repro_torch.models import layers as L
 from repro_torch.models.dlrm import _tensor, torch_dtype
 from repro_torch.sharding import partition as SP
@@ -415,7 +416,8 @@ class _EmbedRows(torch.autograd.Function):
     on the card PyTorch's sorted path, so two runs give the same bits),
     then one cast.  A bf16 scatter-add stagnates over an id repeated
     hundreds of times (JAX's transpose of ``embed[tokens]`` sums in the
-    compute dtype)."""
+    compute dtype).  On the ``meta`` device (the dry-run's accounting) the
+    distinct ids take their upper bound, ``min(ids, vocab)``."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -427,7 +429,13 @@ class _EmbedRows(torch.autograd.Function):
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
         shape, dtype = ctx.table
-        uniq, where = torch.unique(ids.reshape(-1), return_inverse=True)
+        if ids.is_meta:
+            # No values to count: every id distinct, at most the vocab.
+            W.note_bound("models/transformer.py::_EmbedRows.backward")
+            uniq = ids.new_empty((min(ids.numel(), shape[0]),))
+            where = ids.new_empty((ids.numel(),), dtype=torch.int64)
+        else:
+            uniq, where = torch.unique(ids.reshape(-1), return_inverse=True)
         sums = grad.new_zeros((uniq.shape[0], shape[1]), dtype=torch.float32)
         sums.index_put_((where,), grad.reshape(-1, shape[1]).float(),
                         accumulate=True)
@@ -832,6 +840,25 @@ def _cache_layout(cfg: ModelConfig, b: int, cap: int, mesh: M.Mesh,
     return out
 
 
+def rank_cache(cfg: ModelConfig, run: RunConfig, mesh: M.Mesh, batch: int,
+               cache_len: int, pos: int, device="cuda") -> Dict:
+    """This rank's part of a zeroed decode cache of ``batch`` rows and
+    ``cache_len`` slots (a sliding window's capped) at ``pos``, laid out
+    by ``cache_pspecs``: what :func:`prefill_sharded` fills and
+    :func:`decode_sharded` takes (the dry-run's decode cells start from
+    it)."""
+    cap = (min(cache_len, cfg.window) if cfg.attn_type == "sliding"
+           else cache_len)
+    dev, dt = resolve_device(device), torch_dtype(cfg.compute_dtype)
+    cache = {"pos": pos, "cap": cap}
+    for name, (shape, spec, _) in _cache_layout(cfg, batch, cap, mesh,
+                                                run).items():
+        cache[name] = torch.zeros(
+            (cfg.n_layers,) + SP.shard_shape(shape, spec, mesh),
+            dtype=torch.float32 if name == "h" else dt, device=dev)
+    return cache
+
+
 def _ring(kv: torch.Tensor, cap: int) -> torch.Tensor:
     """(B, S, K, hd) -> the ring of ``cap`` slots at pos = S: the last
     ``cap`` keys rotated so slot = pos % cap, or zeros past S."""
@@ -893,11 +920,7 @@ def prefill_sharded(model: TransformerLM, cfg: ModelConfig, run: RunConfig,
     layout = _cache_layout(cfg, b, cap, mesh, run)
     with M.activation_sharding(mesh, run.sharding, rows=rows):
         x = _embed(model, cfg, toks, fe)
-        cache = {"pos": s, "cap": cap}
-        for name, (shape, spec, _) in layout.items():
-            dt = torch.float32 if name == "h" else x.dtype
-            cache[name] = x.new_zeros(
-                (cfg.n_layers,) + SP.shard_shape(shape, spec, mesh), dtype=dt)
+        cache = rank_cache(cfg, run, mesh, b, cap, s, x.device)
         for i, blk in enumerate(model.blocks):
             x, _, lc = _layer_forward(blk, cfg, x, positions,
                                       run.moe_local_dispatch, seq)

@@ -53,8 +53,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import mesh as M
 from repro_torch.sharding.partition import spec_axes
 
@@ -116,7 +116,7 @@ def global_norm(tensors, params: Optional[Sequence[torch.Tensor]] = None
             part = torch.stack([sq[i] for i in idx])
             for group in groups:
                 if group is not None:
-                    dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+                    C.all_reduce_(part, group)
             for j, i in enumerate(idx):
                 sq[i] = part[j]
     return torch.sqrt(sum(sq))

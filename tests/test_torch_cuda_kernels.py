@@ -1533,11 +1533,18 @@ def test_selective_scan_bwd_takes_views_off_16_byte_boundaries(dev):
 def test_selective_scan_bwd_geometry_matches_its_layout(dev, dt, n):
     """The geometry query's channels a block are the layout's (the leading
     extent of the dB, dC partials); N / 4 lanes a channel; at N = 16 an SM
-    holds at least 16 of its warps."""
+    holds at least 16 of its warps.  The constants the meta device sizes
+    the saved states, the partials and the attention's splits by
+    (``kernels/work.py``) are the libraries' and the card's."""
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import work as W
 
     geo = ss.bwd_geometry(n, DTYPES[dt])
     assert geo["channels"] == ss._BWD_LAYOUT["channels"] == 64
+    assert geo["channels"] == W.SCAN_BWD_CHANNELS
+    assert ss.state_chunk() == W.SCAN_STATE_CHUNK
+    assert torch.cuda.get_device_properties(0).multi_processor_count \
+        == W.H100_SMS
     assert geo["threads"] == geo["channels"] * n // 4
     assert geo["blocks_per_sm"] >= 1
     if n == 16:

@@ -14,7 +14,9 @@ dry-run report of every cell on the two production stand-ins
 ``n_params``, ``n_active_params``, ``microbatches``
 (``auto_microbatches``), and ``model_flops``/``model_bytes`` by
 ``repro.launch.roofline`` (fed the port's argument bytes where JAX reads
-XLA's).  ``repro.launch.dryrun`` is not imported here: it sets
+XLA's), here with the traced half stubbed out (``traced_keys``
+patched to add nothing; it is ``tests/test_torch_accounting.py``'s).  ``repro.launch.dryrun`` is not
+imported here: it sets
 ``XLA_FLAGS`` for 512 devices at import.  The CLI runs without JAX and
 writes one JSON a cell.
 """
@@ -143,8 +145,10 @@ def _jax_param_bytes(arch, mesh_name):
 
 @pytest.mark.parametrize("mesh_name", ["16x16", "2x16x16"])
 @pytest.mark.parametrize("arch", ALL_ARCHS)
-def test_dryrun_report_matches_jax(arch, mesh_name):
+def test_dryrun_report_matches_jax(arch, mesh_name, monkeypatch):
     from repro_torch.configs import RunConfig
+
+    monkeypatch.setattr(dryrun, "traced_keys", lambda *a, **k: {})
 
     jb = _jax_bundle(arch)
     jcfg = jb.cfg
